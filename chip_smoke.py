@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ViT-B/16 serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's ViT-B/16 serving path and train step once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one
                                  # NVIDIA H100 (sm_90a) and nvcc
@@ -17,6 +18,21 @@ Phases, each of which raises (non-zero exit) on failure:
    1, 37 and 64 images; the logits must be finite, the kernel launch
    counters must equal depth x forwards, and the logits must agree with
    the same forward through the plain versions; prints img/s at batch 64.
+3b. backward kernels: each block's CUDA backward against its plain
+   version (``*_bwd_ref``) fed the same saved tensors at the train
+   slice's shapes (x [256, 196, 768] bf16; attention with n_actual None
+   and 150), every gradient's error beside its tolerance; each block's
+   backward, and its forward + backward, timed against autograd of the
+   plain forward;
+5. train slice: Trainer + CurveViT ViT-B/16 (fp32 params, bf16 compute,
+   mixup/cutmix on) for one epoch of 4 steps at batch 256 on
+   synthetic_dataset(n=1024, hw=224, 1000 classes), then evaluate on 256
+   images; the loss must be finite, every parameter must have moved and
+   each block's backward must have launched depth x steps times; one step's
+   gradients through the kernels against the plain blocks; train step
+   img/s at batch 256 on both paths; a profile of the kernel path's step
+   (device time by kernel, idle share).  Then no jax or flax module may
+   have loaded.
 
 The line before the last is one JSON object describing the kernels; the
 last is ``{"ok": true, "device": {...}}``.
@@ -24,7 +40,9 @@ last is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -34,15 +52,33 @@ import numpy as np
 import torch
 
 import sfc_vit_tpu_torch.models.simple_vit as simple_vit
+from sfc_vit_tpu_torch.data import epoch_batches, make_eval_transform, synthetic_dataset
 from sfc_vit_tpu_torch.ops import _build
 from sfc_vit_tpu_torch.ops.fused_attention_block import (
+    attention_block_bwd,
+    attention_block_bwd_ref,
     attention_block_ref,
+    attention_block_train_fwd,
     fused_attention_block,
 )
-from sfc_vit_tpu_torch.ops.fused_mlp import fused_mlp_block, mlp_block_ref
+from sfc_vit_tpu_torch.ops.fused_mlp import (
+    fused_mlp_block,
+    mlp_block_bwd,
+    mlp_block_bwd_ref,
+    mlp_block_ref,
+    mlp_block_train_fwd,
+)
 from sfc_vit_tpu_torch.registry import build_model, preset_config
 from sfc_vit_tpu_torch.serving import ServingEngine
+from sfc_vit_tpu_torch.training import (
+    TrainConfig,
+    Trainer,
+    TrainState,
+    make_optimizer,
+    make_train_step,
+)
 
+DEVICE = "cuda"
 B, N, D, HEADS, F = 64, 196, 768, 12, 3072
 #: One block, bf16: the kernels round at other points than the plain
 #: versions (fc1 kept in fp32 through the GELU, residuals added in fp32
@@ -54,6 +90,16 @@ BLOCK_TOL = dict(rtol=4e-2, atol=4e-2)
 LOGIT_TOL = dict(rtol=5e-2, atol=5e-2)
 REQUESTS = (1, 37, 64)
 BATCH_SIZES = (8, 64)
+TRAIN_B, TRAIN_STEPS = 256, 4
+#: One block's backward, bf16, at batch 256: the kernels round dz, pn, ds
+#: and dqkv to bf16 where the plain versions do, but sums taken in another
+#: order flip some of those roundings by one ulp (2^-8), and the weight
+#: gradients sum 50,176 rows; every error is held within this fraction of
+#: its tensor's largest |value|.
+BWD_TOL = 2e-2
+#: Gradients of one train step (12 bf16 layers), kernels against the plain
+#: blocks: relative L2 error of each parameter tensor's gradient.
+GRAD_REL_TOL = 0.1
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -91,7 +137,7 @@ def _ab_ms(kernel, plain, iters: int = 20):
 
 def _randn(gen, *shape, scale=1.0, shift=0.0, dtype=torch.bfloat16):
     t = torch.randn(*shape, generator=gen) * scale + shift
-    return t.to("cuda", dtype)
+    return t.to(DEVICE, dtype)
 
 
 def phase_device() -> str:
@@ -224,11 +270,256 @@ def phase_slice(card: str) -> dict:
     return launches
 
 
+def _bwd_check(name: str, got, want, names) -> float:
+    """Each gradient within BWD_TOL x its max |value|; returns the largest
+    absolute error."""
+    worst = 0.0
+    for gname, a, w in zip(names, got, want):
+        _check(a.dtype == w.dtype, f"{name} {gname}: dtype {a.dtype} != {w.dtype}")
+        err = float((a.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        print(f"  {gname}: max abs err {err:.4g}, max |value| {scale:.4g} "
+              f"(tolerance {BWD_TOL} x max |value| = {BWD_TOL * scale:.4g})")
+        _check(err <= BWD_TOL * scale, f"{name}: {gname} disagrees with the plain version")
+        worst = max(worst, err)
+    return worst
+
+
+def _fwd_bwd(block, args, g, *, bwd_only: bool = False, **kw):
+    """One forward + backward through ``block`` (autograd), grads dropped;
+    with ``bwd_only`` the forward runs once here and each call is the
+    backward alone."""
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    out = block(*leaves, **kw) if bwd_only else None
+
+    def run():
+        for t in leaves:
+            t.grad = None
+        if bwd_only:
+            out.backward(g, retain_graph=True)
+        else:
+            block(*leaves, **kw).backward(g)
+    return run
+
+
+def phase_backward(card: str) -> dict:
+    gen = torch.Generator().manual_seed(1)
+    b = TRAIN_B
+    x = _randn(gen, b, N, D)
+    g = _randn(gen, b, N, D)
+    ln = (_randn(gen, D, scale=0.1, shift=1.0, dtype=torch.float32),
+          _randn(gen, D, scale=0.1, dtype=torch.float32))
+    mlp_w = (_randn(gen, D, F, scale=D ** -0.5), _randn(gen, F, scale=0.1),
+             _randn(gen, F, D, scale=F ** -0.5), _randn(gen, D, scale=0.1))
+    attn_w = (_randn(gen, D, 3 * D, scale=D ** -0.5),
+              _randn(gen, D, D, scale=D ** -0.5))
+    results = {}
+
+    with torch.no_grad():
+        _, z = mlp_block_train_fwd(x, *ln, *mlp_w)
+        got = mlp_block_bwd(x, g, *ln, *mlp_w[:3], z, mlp_w[3])
+        want = mlp_block_bwd_ref(x, g, *ln, *mlp_w[:3], z, mlp_w[3])
+    print(f"mlp_block_bwd vs mlp_block_bwd_ref, x [{b}, {N}, {D}] F={F}:")
+    err = _bwd_check("mlp_block_bwd", got, want,
+                     ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2"))
+    del got, want
+    ms, plain_ms = _ab_ms(
+        lambda: mlp_block_bwd(x, g, *ln, *mlp_w[:3], z, mlp_w[3]),
+        _fwd_bwd(mlp_block_ref, (x, *ln, *mlp_w), g, bwd_only=True), iters=10)
+    del z
+    both, both_plain = _ab_ms(_fwd_bwd(fused_mlp_block, (x, *ln, *mlp_w), g),
+                              _fwd_bwd(mlp_block_ref, (x, *ln, *mlp_w), g), iters=10)
+    print(f"fused_mlp_block backward: kernels {ms:.4f} ms, autograd backward "
+          f"of the plain forward {plain_ms:.4f} ms; forward + backward: kernels "
+          f"{both:.4f} ms, plain {both_plain:.4f} ms, {card}")
+    results["fused_mlp_block_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    errs = []
+    for n_actual in (None, 150):
+        with torch.no_grad():
+            _, qkv, att, lse = attention_block_train_fwd(x, *ln, *attn_w, HEADS,
+                                                         n_actual=n_actual)
+            got = attention_block_bwd(x, g, *ln, *attn_w, qkv, att, lse, HEADS,
+                                      n_actual=n_actual)
+            want = attention_block_bwd_ref(x, g, *ln, *attn_w, qkv, att, lse,
+                                           HEADS, n_actual=n_actual)
+        print(f"attention_block_bwd vs attention_block_bwd_ref, n_actual="
+              f"{n_actual}, x [{b}, {N}, {D}] {HEADS} heads of 64:")
+        errs.append(_bwd_check("attention_block_bwd", got, want,
+                               ("dx", "dln_scale", "dln_bias", "dw_qkv", "dw_out")))
+        if n_actual is not None:
+            _check(torch.equal(got[0][:, n_actual:], g[:, n_actual:]),
+                   "attention_block_bwd: pad rows do not pass g through")
+        del got, want
+    with torch.no_grad():  # n_actual=None's saved tensors for the timing
+        _, qkv, att, lse = attention_block_train_fwd(x, *ln, *attn_w, HEADS)
+    ms, plain_ms = _ab_ms(
+        lambda: attention_block_bwd(x, g, *ln, *attn_w, qkv, att, lse, HEADS),
+        _fwd_bwd(attention_block_ref, (x, *ln, *attn_w), g, bwd_only=True,
+                 heads=HEADS), iters=10)
+    del qkv, att, lse
+    both, both_plain = _ab_ms(
+        _fwd_bwd(fused_attention_block, (x, *ln, *attn_w), g, heads=HEADS),
+        _fwd_bwd(attention_block_ref, (x, *ln, *attn_w), g, heads=HEADS), iters=10)
+    print(f"fused_attention_block backward: kernels {ms:.4f} ms, autograd "
+          f"backward of the plain forward {plain_ms:.4f} ms; forward + "
+          f"backward: kernels {both:.4f} ms, plain {both_plain:.4f} ms, {card}")
+    results["fused_attention_block_bwd"] = dict(max_abs_err=max(errs), ms=ms,
+                                                plain_ms=plain_ms)
+    return results
+
+
+def _lr_zero_state(model) -> TrainState:
+    """A state whose update changes nothing (lr 0, no clipping), so the
+    gradients of a step stay readable and the params identical."""
+    return TrainState(model, make_optimizer(model.parameters(), lambda _: 0.0,
+                                            grad_clip=float("inf")))
+
+
+def phase_train(card: str) -> dict:
+    cfg = preset_config("vit-b-16", curve="hilbert", num_classes=1000,
+                        dtype="bfloat16")
+    model = build_model(cfg, device=DEVICE, generator=torch.Generator().manual_seed(0))
+    stats = ((0.5,) * 3, (0.25,) * 3)  # the CLI's synthetic-data normalisation
+    t0 = time.perf_counter()
+    train_ds = synthetic_dataset(n=TRAIN_B * TRAIN_STEPS, hw=cfg.img_size,
+                                 num_classes=cfg.num_classes, seed=0)
+    test_ds = synthetic_dataset(n=TRAIN_B, hw=cfg.img_size,
+                                num_classes=cfg.num_classes, seed=1)
+    print(f"synthetic data: {len(train_ds)} + {len(test_ds)} images "
+          f"{cfg.img_size}^2 in {time.perf_counter() - t0:.1f} s")
+    tf = make_eval_transform(*stats, device=DEVICE)
+    tcfg = TrainConfig(num_classes=cfg.num_classes, epochs=1, warmup_epochs=1)
+    trainer = Trainer(model, tcfg, steps_per_epoch=TRAIN_STEPS)
+    before = [p.detach().clone() for p in model.parameters()]
+
+    fused_attention_block.launches = fused_mlp_block.launches = 0
+    fused_attention_block.bwd_launches = fused_mlp_block.bwd_launches = 0
+    record = trainer.fit(
+        lambda: ((tf(x), y) for x, y in epoch_batches(train_ds, TRAIN_B, seed=0)),
+        lambda: ((tf(x), y) for x, y in epoch_batches(
+            test_ds, TRAIN_B, shuffle=False, drop_last=False)))
+    torch.cuda.synchronize()
+    launches = {"fused_attention_block_bwd": fused_attention_block.bwd_launches,
+                "fused_mlp_block_bwd": fused_mlp_block.bwd_launches,
+                "fused_attention_block": fused_attention_block.launches,
+                "fused_mlp_block": fused_mlp_block.launches}
+    print(f"Trainer.fit, 1 epoch of {TRAIN_STEPS} steps at batch {TRAIN_B} + "
+          f"eval of {len(test_ds)}: {record}")
+    print(f"launches over {TRAIN_STEPS} train steps + 1 eval batch of depth "
+          f"{cfg.depth}: {launches}")
+    _check(bool(np.isfinite(record["train_loss"])), "non-finite train loss")
+    _check(bool(np.isfinite(record["test_loss"])), "non-finite eval loss")
+    _check(trainer.state.step == TRAIN_STEPS, f"{trainer.state.step} steps taken")
+    for name in ("fused_attention_block_bwd", "fused_mlp_block_bwd"):
+        _check(launches[name] == cfg.depth * TRAIN_STEPS,
+               f"{name} launched {launches[name]} times, expected "
+               f"{cfg.depth * TRAIN_STEPS}")
+    for name in ("fused_attention_block", "fused_mlp_block"):
+        _check(launches[name] == cfg.depth * (TRAIN_STEPS + 1),
+               f"{name} launched {launches[name]} times")
+    still = [n for (n, p), q in zip(model.named_parameters(), before) if torch.equal(p, q)]
+    _check(not still, f"parameters unchanged after {TRAIN_STEPS} steps: {still}")
+    del before
+
+    # One step from identical params and batch, kernels against plain blocks.
+    x, y = next(epoch_batches(train_ds, TRAIN_B, seed=0))
+    batch = (tf(x), torch.from_numpy(y).long().to(DEVICE))
+    state = _lr_zero_state(model)
+    step = make_train_step(cfg.num_classes, use_mixing=False)
+    m_k = step(state, batch, torch.Generator())
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    with _plain_blocks():
+        m_p = step(state, batch, torch.Generator())
+    rel = {n: float((grads[n] - p.grad).norm() / p.grad.norm())
+           for n, p in model.named_parameters()}
+    worst = max(rel, key=rel.get)
+    print(f"one train step, kernels vs plain blocks: loss {float(m_k['loss']):.6f} "
+          f"vs {float(m_p['loss']):.6f}; gradient relative L2 error max "
+          f"{rel[worst]:.4g} ({worst}), median {float(np.median(list(rel.values()))):.4g} "
+          f"over {len(rel)} tensors (tolerance {GRAD_REL_TOL})")
+    _check(rel[worst] <= GRAD_REL_TOL, "kernel-path gradients disagree with the plain path")
+    del grads
+
+    # Train step time at batch 256, mixing on, both paths in turns.
+    mixing_step = make_train_step(cfg.num_classes)
+    gen = torch.Generator().manual_seed(0)
+
+    def step_ms(plain: bool, steps: int = 3) -> float:
+        ctx = _plain_blocks() if plain else contextlib.nullcontext()
+        with ctx:
+            mixing_step(state, batch, gen)  # warm-up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(steps):
+                mixing_step(state, batch, gen)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t) / steps * 1e3
+
+    p1, k1, k2, p2 = (step_ms(plain) for plain in (True, False, False, True))
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f"train step at batch {TRAIN_B} (mixing, clip, AdamW): kernels "
+          f"{k_ms:.2f} ms = {TRAIN_B / k_ms * 1e3:.1f} img/s, plain blocks "
+          f"{p_ms:.2f} ms = {TRAIN_B / p_ms * 1e3:.1f} img/s, {card}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _profile(lambda: mixing_step(state, batch, gen), f"train step at batch {TRAIN_B}")
+    return launches
+
+
+#: The GEMM's three layouts, by template arguments <trans_a, trans_b>.
+_GEMM_LABELS = {"gemm_bf16_kernel<false, false>": "gemm_bf16 NN (forward)",
+                "gemm_bf16_kernel<false, true>": "gemm_bf16 NT (dX, dz, datt)",
+                "gemm_bf16_kernel<true, false>": "gemm_bf16 TN (weight gradients)"}
+
+
+def _kernel_label(name: str) -> str:
+    short = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    for key, label in _GEMM_LABELS.items():
+        if short.startswith(key):
+            return label
+    return re.split(r"[<(]", short, maxsplit=1)[0].strip()
+
+
+def _profile(fn, what: str, steps: int = 2, top: int = 14) -> None:
+    """Device time by kernel over ``steps`` calls of ``fn`` (torch.profiler,
+    CUPTI), and the idle share: 1 - kernel time / host wall time of the
+    window, which ends in a synchronize.  Tracing adds a few us per launch
+    to the host side, so the idle share is an upper bound."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
+            label = _kernel_label(e.name)
+            by_name[label] = by_name.get(label, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    _check(busy > 0, "the profiler saw no device time")
+    print(f"profile of {steps} x {what}: device busy {busy / 1e3 / steps:.2f} ms of "
+          f"{wall_us / 1e3 / steps:.2f} ms wall per call, idle share "
+          f"{1 - busy / wall_us:.2%}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for label, us in ranked[:top]:
+        print(f"  {us / busy:7.2%}  {us / 1e3 / steps:9.3f} ms/call  {label}")
+    if len(ranked) > top:
+        rest = sum(us for _, us in ranked[top:])
+        print(f"  {rest / busy:7.2%}  {rest / 1e3 / steps:9.3f} ms/call  "
+              f"{len(ranked) - top} other kernels")
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
     kernels = phase_kernels(card)
+    kernels.update(phase_backward(card))
     launches = phase_slice(card)
+    launches.update({k: v for k, v in phase_train(card).items() if k.endswith("_bwd")})
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
     _check(not leaked, f"the port imported {leaked}")
     entries = [
@@ -238,9 +529,17 @@ def main() -> int:
         dict(name="fused_mlp_block", route="cuda",
              source="sfc_vit_tpu_torch/csrc/gemm_bf16.cu",
              replaces="sfc_vit_tpu/ops/fused_mlp.py:104"),
+        dict(name="fused_mlp_block_bwd", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/gemm_bf16.cu",
+             replaces="sfc_vit_tpu/ops/fused_mlp.py:237"),
+        dict(name="fused_attention_block_bwd", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/attention_bwd.cu",
+             replaces="sfc_vit_tpu/ops/fused_attention_block.py:333"),
     ]
     for e in entries:
-        e.update(launches=launches[e["name"]], **kernels[e["name"]])
+        k = kernels[e["name"]]
+        e.update(launches=launches[e["name"]], max_abs_err=k["max_abs_err"],
+                 ms=k["ms"], plain_ms=k["plain_ms"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

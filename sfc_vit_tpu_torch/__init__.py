@@ -11,7 +11,11 @@ numpy-only curve layer ``sfc_vit_tpu.curves`` supplies the curve LUTs.
 * ``models``      -- the pre-norm family: ``SimpleViT``, ``CurveViT``
 * ``registry``    -- ``ModelConfig``, ``PRESETS``, ``build_model``
 * ``serving``     -- fixed-batch-size inference with ragged padding
-* ``utils``       -- flax param tree <-> module conversion
+* ``training``    -- losses, mixup/cutmix, schedules, the train and eval
+                     steps (clip + AdamW) and a one-device ``Trainer``
+* ``data``        -- in-memory datasets, the epoch plan, eval transforms
+* ``utils``       -- flax param tree <-> module conversion, and gradients
+                     onto the flax tree
 """
 
 __version__ = "0.1.0"

@@ -24,6 +24,10 @@
 // more tensor work and keeps the TPU kernel's exact rounding point at any
 // N.  Static shared memory is 44 KB: Q (reused for P), one K and one V
 // tile, and a per-warp fp32 logits tile.
+//
+// The training forward also writes lse = m + log(l) per (image, head,
+// row) in fp32, the TPU kernel's save_lse output (lines 189-190, 271-281):
+// pass 1 already holds the row max m and the rescaled row sum l.
 
 #include <mma.h>
 
@@ -50,7 +54,8 @@ struct Smem {
 
 __global__ void __launch_bounds__(kThreads)
     attention_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                         int n, int heads, int n_valid, float scale) {
+                         float* __restrict__ lse, int n, int heads, int n_valid,
+                         float scale) {
   __shared__ __align__(128) unsigned char raw[sizeof(Smem)];
   Smem& sm = *reinterpret_cast<Smem*>(raw);
 
@@ -146,6 +151,8 @@ __global__ void __launch_bounds__(kThreads)
     m = m_new;
     __syncthreads();  // sm.k is overwritten by the next tile
   }
+  if (lse != nullptr && half == 0 && q0 + warp * 16 + r < n)
+    lse[(static_cast<size_t>(b) * heads + h) * n + q0 + warp * 16 + r] = m + logf(l);
 
   // Pass 2: P = exp(s - m) / l rounded to bf16, then O += P . V in fp32.
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[DH / 16];
@@ -194,16 +201,17 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// qkv: bf16 [batch, n, 3 * heads * dh]; out: bf16 [batch, n, heads * dh].
-// Keys at or past n_valid (1 <= n_valid <= n) are masked.  dh must be 64.
-extern "C" int sfc_attention_fwd_bf16(const void* qkv, void* out, int batch,
-                                      int n, int heads, int dh, int n_valid,
-                                      float scale, void* stream) {
+// qkv: bf16 [batch, n, 3 * heads * dh]; out: bf16 [batch, n, heads * dh];
+// lse: fp32 [batch, heads, n], or null.  Keys at or past n_valid
+// (1 <= n_valid <= n) are masked.  dh must be 64.
+extern "C" int sfc_attention_fwd_bf16(const void* qkv, void* out, void* lse,
+                                      int batch, int n, int heads, int dh,
+                                      int n_valid, float scale, void* stream) {
   if (dh != DH || n_valid < 1 || n_valid > n) return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0) return 0;
   const dim3 grid((n + BQ - 1) / BQ, heads, batch);
   attention_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), n, heads,
-      n_valid, scale);
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
+      static_cast<float*>(lse), n, heads, n_valid, scale);
   return static_cast<int>(cudaGetLastError());
 }

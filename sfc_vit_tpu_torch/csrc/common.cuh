@@ -58,4 +58,23 @@ __device__ __forceinline__ void unpack_bf16x8(uint4 in, float* v) {
   }
 }
 
+// The MLP activations and their derivatives in fp32 (act codes of the
+// Python launchers: 1 exact-erf GELU, 2 ReLU, anything else identity).
+enum Act : int { kNone = 0, kGelu = 1, kRelu = 2 };
+
+__device__ __forceinline__ float act_fwd(float z, int act) {
+  if (act == kGelu) return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
+  if (act == kRelu) return fmaxf(z, 0.f);
+  return z;
+}
+
+// gelu'(z) = Phi(z) + z * phi(z); relu'(z) = [z > 0].
+__device__ __forceinline__ float act_grad(float z, int act) {
+  if (act == kGelu)
+    return 0.5f * (1.f + erff(z * 0.70710678118654752f)) +
+           z * expf(-0.5f * z * z) * 0.3989422804014327f;
+  if (act == kRelu) return z > 0.f ? 1.f : 0.f;
+  return 1.f;
+}
+
 }  // namespace sfc

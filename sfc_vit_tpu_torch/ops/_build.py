@@ -1,21 +1,27 @@
 """Build the port's CUDA kernels with ``nvcc`` and launch them via ctypes.
 
 Every ``*.cu`` under ``sfc_vit_tpu_torch/csrc`` compiles into ONE shared
-library with a plain C interface::
+library with a plain C interface: one ``nvcc`` per source, all started
+together, then one link::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o libsfc_vit_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <source>.o csrc/<source>.cu   # each, in parallel
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o libsfc_vit_kernels.so *.o
 
-No PyTorch header is included, so a build takes seconds.  The build runs
-at first use into ``build/sfc_vit_tpu_torch/<hash>/`` at the repository
-root; the hash covers the sources and the flags, so an edited source
-rebuilds and an unchanged one loads the library already there.  A failed
-build raises: nothing runs without the kernels.
+No PyTorch header is included, so a build takes seconds, and the
+slowest source sets its time.  The build runs at first use into
+``build/sfc_vit_tpu_torch/<hash>/`` at the repository root; the hash
+covers the sources and the flags, so an edited source rebuilds and an
+unchanged one loads the library already there.  A failed build raises:
+nothing runs without the kernels.
 
-The launchers below (``ln_rows``, ``gemm``, ``attention_fwd``) check
-device, dtype, shape, contiguity and alignment, allocate their outputs
-with ``torch.empty``, launch on PyTorch's current stream and raise on any
-CUDA error the launch returns.  They never synchronise.
+The launchers below (``ln_rows``, ``ln_rows_bwd``, ``gemm``,
+``act_bf16``, ``attention_fwd``, ``attention_bwd``) check device, dtype,
+shape, contiguity and alignment, allocate their outputs with
+``torch.empty`` (``torch.zeros`` for sums the kernels accumulate into),
+launch on PyTorch's current stream and raise on any CUDA error the launch
+returns.  They never synchronise.
 """
 
 from __future__ import annotations
@@ -31,23 +37,30 @@ from typing import Optional
 
 import torch
 
-__all__ = ["CSRC", "build", "library", "ln_rows", "gemm", "attention_fwd"]
+__all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
+           "act_bf16", "attention_fwd", "attention_bwd"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sfc_vit_tpu_torch"
 LIB_NAME = "libsfc_vit_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: argtypes of every exported C function: c_void_p for each pointer and
 #: the stream (a plain int would cut a pointer to 32 bits).
 _SIGNATURES = {
     "sfc_ln_rows_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
-    "sfc_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "sfc_attention_fwd_bf16": (_P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "sfc_ln_rows_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+    "sfc_gemm_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _P),
+    "sfc_act_bf16": (_P, _P, _L, _I, _P),
+    "sfc_attention_fwd_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "sfc_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                               _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -64,7 +77,7 @@ def _nvcc() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -86,20 +99,33 @@ def build() -> dict:
         return {"path": lib_path, "seconds": 0.0, "log": log}
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}"
-    sources = [str(f) for f in sorted(CSRC.glob("*.cu"))]
+    tag = f".{os.getpid()}"  # concurrent builders never share a temporary
+    tmp = out_dir / f".{LIB_NAME}{tag}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [out_dir / f".{src.stem}{tag}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *sources],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        # One nvcc per source, all started together, then one link.
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objects)]
+        log = "".join(p.communicate()[0] for p in procs)
+        failed = [src.name for src, p in zip(sources, procs) if p.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n{log}")
+        seconds = time.perf_counter() - t0
+        log_path.write_text(log)
+        os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return {"path": lib_path, "seconds": seconds, "log": log}
 
 
@@ -137,17 +163,6 @@ def _require(t: torch.Tensor, name: str, shape=None, dtype=torch.bfloat16):
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
 
 
-def check_no_grad(what: str, bwd_kernel: int, *tensors) -> None:
-    """Raise where autograd would need a backward the port lacks: the
-    backward kernels are a later slice, and a quiet plain-autograd path
-    would hide that."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what} has no backward kernel yet (ROADMAP.md, queue 2 "
-            f"kernel #{bwd_kernel}); call it under torch.no_grad()"
-        )
-
-
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -168,55 +183,147 @@ def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def ln_rows_bwd(x: torch.Tensor, dxn: torch.Tensor, scale: torch.Tensor,
+                g: torch.Tensor, eps: float, *, add_g: bool = True,
+                g_sum: bool = False):
+    """LayerNorm backward of bf16 rows ``x`` [R, D] from the fp32
+    cotangent ``dxn`` of the normalised rows.
+
+    Returns ``(dx, dscale, dbias)`` (``dx`` bf16 [R, D], ``+ g`` when
+    ``add_g``; the sums fp32 [D]), and ``colsum(g)`` fp32 [D] after them
+    when ``g_sum``.
+    """
+    r, d = x.shape
+    if d % 8:
+        raise ValueError(f"ln_rows_bwd: D={d} must be a multiple of 8")
+    _require(x, "x")
+    _require(dxn, "dxn", (r, d), torch.float32)
+    _require(scale, "ln_scale", (d,), torch.float32)
+    _require(g, "g", (r, d))
+    dx = torch.empty_like(x)
+    sums = torch.zeros((3 if g_sum else 2, d), dtype=torch.float32, device=x.device)
+    _check(library().sfc_ln_rows_bwd_bf16(
+        x.data_ptr(), dxn.data_ptr(), scale.data_ptr(), g.data_ptr(),
+        dx.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
+        sums[2].data_ptr() if g_sum else None, r, d, eps, int(add_g),
+        _stream()), "ln_rows_bwd")
+    return (dx, *sums.unbind(0))
+
+
 _ACTS = {None: 0, "gelu": 1, "relu": 2}
 
 
-def gemm(a: torch.Tensor, b: torch.Tensor, *,
-         bias: Optional[torch.Tensor] = None, act: Optional[str] = None,
-         residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``act(a @ b + bias) + residual`` in bf16 with fp32 accumulation.
+def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
+         trans_b: bool = False, bias: Optional[torch.Tensor] = None,
+         act: Optional[str] = None, residual: Optional[torch.Tensor] = None,
+         z_in: Optional[torch.Tensor] = None, save_z: bool = False,
+         colsum: bool = False, out_dtype: torch.dtype = torch.bfloat16):
+    """``C = act(op(a) @ op(b) + bias) + residual`` in bf16 with fp32
+    accumulation and one rounding at the end.
 
-    ``a`` [R, K], ``b`` [K, N] (a Dense kernel as stored), ``bias`` fp32
-    [N], ``residual`` bf16 [R, N]; one rounding to bf16 at the end.
+    ``op(a)`` is ``a`` [M, K], or ``a.T`` for ``trans_a`` (``a`` stored
+    [K, M]: a weight gradient, summed over the rows); ``op(b)`` is ``b``
+    [K, N] (a Dense kernel as stored), or ``b.T`` for ``trans_b`` (``b``
+    stored [N, K]).  ``bias`` fp32 [N]; ``residual`` bf16 [M, N].
+    ``save_z`` also returns the pre-activation sum rounded to bf16;
+    ``z_in`` (bf16 [M, N]) multiplies the sum by ``act'(z_in)`` in place
+    of ``act``; ``colsum`` also returns the fp32 column sums of the
+    result before the residual.  ``out_dtype`` float32 keeps C in fp32.
+    Returns C, or ``(C, z, colsum)`` with only the outputs asked for.
     """
-    r, k = a.shape
-    k2, n = b.shape
+    if trans_a and trans_b:
+        raise ValueError("gemm: trans_a and trans_b together are not supported")
+    k, m = a.shape if trans_a else a.shape[::-1]
+    n, k2 = b.shape if trans_b else b.shape[::-1]
     if k2 != k:
         raise ValueError(f"gemm: inner dims differ ({k} vs {k2})")
-    if k % 8 or n % 8:
-        raise ValueError(f"gemm: K={k} and N={n} must be multiples of 8")
+    if n % 8 or (trans_a and m % 8) or (k % 8 and not (trans_a and not trans_b)):
+        raise ValueError(
+            f"gemm: N and the row width of each operand as stored must be "
+            f"multiples of 8 (M={m}, N={n}, K={k}, trans_a={trans_a}, "
+            f"trans_b={trans_b})")
     if act not in _ACTS:
         raise ValueError(f"gemm: unsupported activation {act!r}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"gemm: out_dtype {out_dtype} is not bf16 or fp32")
     _require(a, "a")
     _require(b, "b")
     if bias is not None:
         _require(bias, "bias", (n,), torch.float32)
     if residual is not None:
-        _require(residual, "residual", (r, n))
-    c = torch.empty((r, n), dtype=a.dtype, device=a.device)
+        _require(residual, "residual", (m, n))
+    if z_in is not None:
+        _require(z_in, "z_in", (m, n))
+    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    z = torch.empty((m, n), dtype=a.dtype, device=a.device) if save_z else None
+    cs = torch.zeros(n, dtype=torch.float32, device=a.device) if colsum else None
     _check(library().sfc_gemm_bf16(
-        a.data_ptr(), b.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        None if residual is None else residual.data_ptr(),
-        c.data_ptr(), r, n, k, _ACTS[act], _stream()), "gemm")
-    return c
+        a.data_ptr(), b.data_ptr(), _ptr(bias), _ptr(residual), _ptr(z_in),
+        _ptr(z), _ptr(cs), c.data_ptr(), int(out_dtype == torch.float32),
+        m, n, k, int(trans_a), int(trans_b), _ACTS[act], _stream()), "gemm")
+    extra = tuple(t for t in (z, cs) if t is not None)
+    return (c, *extra) if extra else c
 
 
-def attention_fwd(qkv: torch.Tensor, heads: int, n_valid: int,
-                  scale: float) -> torch.Tensor:
-    """Attention off packed ``qkv`` [B, N, 3*H*64] -> [B, N, H*64] (bf16),
-    keys at or past ``n_valid`` masked."""
+def act_bf16(z: torch.Tensor, act: str) -> torch.Tensor:
+    """``bf16(act(z))`` elementwise over a bf16 tensor (numel % 8 == 0)."""
+    if act not in ("gelu", "relu"):
+        raise ValueError(f"act_bf16: unsupported activation {act!r}")
+    if z.numel() % 8:
+        raise ValueError(f"act_bf16: {z.numel()} elements, not a multiple of 8")
+    _require(z, "z")
+    h = torch.empty_like(z)
+    _check(library().sfc_act_bf16(z.data_ptr(), h.data_ptr(), z.numel(),
+                                  _ACTS[act], _stream()), "act_bf16")
+    return h
+
+
+def _check_packed(qkv: torch.Tensor, heads: int, n_valid: int, what: str):
     b, n, w = qkv.shape
     if w % (3 * heads) or w // (3 * heads) != 64:
         raise ValueError(
-            f"attention_fwd: packed width {w} with {heads} heads gives "
+            f"{what}: packed width {w} with {heads} heads gives "
             f"head dim {w / (3 * heads):g}; the kernel takes 64"
         )
     if not 1 <= n_valid <= n:
-        raise ValueError(f"attention_fwd: n_valid={n_valid} not in [1, {n}]")
+        raise ValueError(f"{what}: n_valid={n_valid} not in [1, {n}]")
     _require(qkv, "qkv")
-    out = torch.empty((b, n, w // 3), dtype=qkv.dtype, device=qkv.device)
+    return b, n, w // 3
+
+
+def attention_fwd(qkv: torch.Tensor, heads: int, n_valid: int,
+                  scale: float, with_lse: bool = False):
+    """Attention off packed ``qkv`` [B, N, 3*H*64] -> [B, N, H*64] (bf16),
+    keys at or past ``n_valid`` masked.  ``with_lse`` also returns the
+    fp32 log-sum-exp of every softmax row, [B, H, N]."""
+    b, n, inner = _check_packed(qkv, heads, n_valid, "attention_fwd")
+    out = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
+           if with_lse else None)
     _check(library().sfc_attention_fwd_bf16(
-        qkv.data_ptr(), out.data_ptr(), b, n, heads, 64, n_valid, scale,
-        _stream()), "attention_fwd")
-    return out
+        qkv.data_ptr(), out.data_ptr(), _ptr(lse), b, n, heads, 64, n_valid,
+        scale, _stream()), "attention_fwd")
+    return (out, lse) if with_lse else out
+
+
+def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
+                  lse: torch.Tensor, heads: int, n_valid: int,
+                  scale: float) -> torch.Tensor:
+    """The packed ``dqkv`` [B, N, 3*H*64] (bf16) of the attention in
+    :func:`attention_fwd` from its saved ``qkv``, output ``att``, fp32
+    ``lse`` [B, H, N] and the output's cotangent ``datt`` [B, N, H*64]."""
+    b, n, inner = _check_packed(qkv, heads, n_valid, "attention_bwd")
+    _require(att, "att", (b, n, inner))
+    _require(datt, "datt", (b, n, inner))
+    _require(lse, "lse", (b, heads, n), torch.float32)
+    delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    _check(library().sfc_attention_bwd_bf16(
+        qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dqkv.data_ptr(), b, n, heads, 64, n_valid, scale,
+        _stream()), "attention_bwd")
+    return dqkv

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "ln_fp32", "round_up"]
+__all__ = ["NEG_INF", "ln_fp32", "ln_bwd_fp32", "round_up"]
 
 #: Masked-logit value: -1e30, never -inf, so a masked softmax gives 0
 #: weights and no NaN.
@@ -33,3 +33,26 @@ def ln_fp32(v: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = ((vf * vf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
     vn = (vf - mean) * torch.rsqrt(var + eps)
     return (vn * scale.float() + bias.float()).to(v.dtype)
+
+
+def ln_bwd_fp32(x: torch.Tensor, dxn: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-5):
+    """Backward of :func:`ln_fp32` from the fp32 cotangent ``dxn`` of its
+    output, with the backward kernels' arithmetic: the statistics are
+    recomputed from ``x``, ``dxh = dxn * scale`` and
+    ``dx = inv * (dxh - mean(dxh) - xhat * mean(dxh * xhat))``.
+
+    Returns ``(dx, dscale, dbias)`` in fp32; the sums run over every
+    leading axis.  The plain version of ``csrc/ln_rows_bwd.cu``.
+    """
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    inv = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * inv
+    dxh = dxn * scale.float()
+    m1 = dxh.mean(dim=-1, keepdim=True)
+    m2 = (dxh * xhat).mean(dim=-1, keepdim=True)
+    dx = inv * (dxh - m1 - xhat * m2)
+    lead = tuple(range(x.dim() - 1))
+    return dx, (dxn * xhat).sum(dim=lead), dxn.sum(dim=lead)

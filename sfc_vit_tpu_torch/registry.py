@@ -29,7 +29,7 @@ _NOT_PORTED = {
     "vit1d": "queue 1 item 7 (family-A models)",
     "hier": "queue 1 item 7 (family-A models)",
     "merge_layers": "queue 1 item 10 (long context: token merge)",
-    "remat": "queue 1 item 4 (train step)",
+    "remat": "queue 1 item 4 (train step: remat)",
     "attn_impl": "queue 2 kernels #5-#13 (other attention kernels)",
 }
 

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_flax_params", "to_flax_params"]
+__all__ = ["load_flax_params", "to_flax_params", "to_flax_grads"]
 
 
 def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
@@ -70,11 +70,9 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def to_flax_params(model: nn.Module) -> Dict[str, Any]:
-    """The flax tree of ``model``'s parameters (numpy leaves; bf16
-    parameters come out as float32)."""
+def _flax_tree(model: nn.Module, tensors) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
-    for name, p in model.named_parameters():
+    for name, p in tensors:
         path = name.split(".")
         arr = _to_numpy(p)
         owner = model.get_submodule(".".join(path[:-1]))
@@ -85,3 +83,19 @@ def to_flax_params(model: nn.Module) -> Dict[str, Any]:
             node = node.setdefault(k, {})
         node[path[-1]] = arr
     return tree
+
+
+def to_flax_params(model: nn.Module) -> Dict[str, Any]:
+    """The flax tree of ``model``'s parameters (numpy leaves; bf16
+    parameters come out as float32)."""
+    return _flax_tree(model, model.named_parameters())
+
+
+def to_flax_grads(model: nn.Module) -> Dict[str, Any]:
+    """The ``.grad`` of every parameter of ``model`` as a flax tree under
+    the parameters' own names (the layout ``jax.grad`` returns), for
+    gradient parity tests.  Raises when a parameter has no gradient."""
+    missing = [n for n, p in model.named_parameters() if p.grad is None]
+    if missing:
+        raise ValueError(f"parameters without a gradient: {missing}")
+    return _flax_tree(model, ((n, p.grad) for n, p in model.named_parameters()))

@@ -20,11 +20,22 @@ import torch.nn.functional as F
 
 from sfc_vit_tpu_torch.ops import _build
 from sfc_vit_tpu_torch.ops.fused_attention_block import (
+    attention_block_bwd,
+    attention_block_bwd_ref,
     attention_block_ref,
+    attention_block_train_fwd,
+    attention_bwd_ref,
+    attention_fwd_ref,
     fused_attention_block,
 )
-from sfc_vit_tpu_torch.ops.fused_mlp import fused_mlp_block, mlp_block_ref
-from sfc_vit_tpu_torch.ops.kernel_utils import ln_fp32
+from sfc_vit_tpu_torch.ops.fused_mlp import (
+    fused_mlp_block,
+    mlp_block_bwd,
+    mlp_block_bwd_ref,
+    mlp_block_ref,
+    mlp_block_train_fwd,
+)
+from sfc_vit_tpu_torch.ops.kernel_utils import ln_bwd_fp32, ln_fp32
 
 # bf16 tolerance of tests/test_fused_attention_block.py: the kernels
 # round at other points than the plain versions (fc1 kept fp32 through
@@ -93,6 +104,25 @@ def test_attention_rejects_head_dim_other_than_64():
     qkv = torch.zeros(1, 4, 3 * 2 * 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="takes 64"):
         _build.attention_fwd(qkv, heads=2, n_valid=4, scale=1.0)
+    att = torch.zeros(1, 4, 2 * 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="takes 64"):
+        _build.attention_bwd(qkv, att, att, torch.zeros(1, 2, 4), heads=2,
+                             n_valid=4, scale=1.0)
+
+
+def test_backward_launchers_reject_what_the_kernels_do_not_take():
+    a = torch.zeros(16, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="together"):
+        _build.gemm(a, a, trans_a=True, trans_b=True)
+    with pytest.raises(ValueError, match="multiples of 8"):  # trans_a: M % 8
+        _build.gemm(torch.zeros(16, 12, dtype=torch.bfloat16), a, trans_a=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):  # ragged R is fine
+        _build.gemm(torch.zeros(13, 8, dtype=torch.bfloat16),
+                    torch.zeros(13, 8, dtype=torch.bfloat16), trans_a=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _build.ln_rows_bwd(a, torch.zeros(16, 8), torch.ones(8), a, 1e-5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _build.act_bf16(torch.zeros(3, dtype=torch.bfloat16), "gelu")
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -212,15 +242,168 @@ def test_fused_attention_block_matches_ref(cuda, b, n, d, heads, n_actual):
 
 
 @pytest.mark.gpu
-def test_grad_inputs_raise(cuda):
+def test_grad_inputs_run_the_backward_kernels(cuda):
+    """A CUDA input that requires grad goes through the autograd
+    Functions: one forward and one backward launch per block."""
     args = _mlp_args(np.random.default_rng(6), 1, 4, 16, 32, cuda)
     w = args[3].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        fused_mlp_block(args[0], args[1], args[2], w, *args[4:])
+    before = (fused_mlp_block.launches, fused_mlp_block.bwd_launches)
+    fused_mlp_block(args[0], args[1], args[2], w, *args[4:]).sum().backward()
+    assert (fused_mlp_block.launches, fused_mlp_block.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert w.grad is not None and w.grad.dtype == torch.bfloat16
     aargs = list(_attn_args(np.random.default_rng(6), 1, 4, 128, 2, cuda))
     aargs[0].requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        fused_attention_block(*aargs, heads=2)
+    before = (fused_attention_block.launches, fused_attention_block.bwd_launches)
+    fused_attention_block(*aargs, heads=2).float().sum().backward()
+    assert (fused_attention_block.launches,
+            fused_attention_block.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(aargs[0].grad.float()).all()
+
+
+# -- backward kernels on the card ----------------------------------------
+
+# fp32 results summed in another order (atomics across blocks included).
+F32_SUM_TOL = dict(rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, n", [(8, 5, 8), (768, 1000, 3072),
+                                     (3072, 12545, 768), (64, 200, 192)])
+def test_gemm_tn_matches_fp32_product(cuda, m, k, n):
+    """TN: a stored [K, M] (K = rows, ragged), the weight gradients."""
+    rng = np.random.default_rng(10)
+    a, b = _randn(rng, k, m), _randn(rng, k, n)
+    want = a.float().T @ b.float()
+    torch.testing.assert_close(_build.gemm(a, b, trans_a=True).float(),
+                               want.bfloat16().float(), **ONE_ROUND_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, n", [(1, 8, 8), (333, 768, 3072),
+                                     (12544, 3072, 768), (200, 2304, 768)])
+def test_gemm_nt_matches_fp32_product(cuda, m, k, n):
+    """NT: b stored [N, K], the products with W^T; bf16 and fp32 C."""
+    rng = np.random.default_rng(11)
+    a, b = _randn(rng, m, k), _randn(rng, n, k, scale=k ** -0.5)
+    want = a.float() @ b.float().T
+    torch.testing.assert_close(_build.gemm(a, b, trans_b=True).float(),
+                               want.bfloat16().float(), **ONE_ROUND_TOL)
+    got = _build.gemm(a, b, trans_b=True, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, **F32_SUM_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_gemm_save_z_and_dact_epilogues(cuda, act):
+    rng = np.random.default_rng(12)
+    r, d, f = 1000, 768, 3072
+    x, w1, b1 = _randn(rng, r, d), _randn(rng, d, f, scale=d ** -0.5), \
+        _randn(rng, f, dtype=torch.float32)
+    h, z = _build.gemm(x, w1, bias=b1, act=act, save_z=True)
+    pre = x.float() @ w1.float() + b1
+    torch.testing.assert_close(z.float(), pre.bfloat16().float(), **ONE_ROUND_TOL)
+    fwd = F.gelu(pre) if act == "gelu" else F.relu(pre)
+    torch.testing.assert_close(h.float(), fwd.bfloat16().float(), **ONE_ROUND_TOL)
+    torch.testing.assert_close(_build.act_bf16(z, act).float(),
+                               (F.gelu(z.float()) if act == "gelu"
+                                else F.relu(z.float())).bfloat16().float(),
+                               **ONE_ROUND_TOL)
+    g, w2 = _randn(rng, r, d), _randn(rng, f, d, scale=f ** -0.5)
+    dz, db1 = _build.gemm(g, w2, trans_b=True, act=act, z_in=z, colsum=True)
+    zf = z.float()
+    dact = (0.5 * (1 + torch.erf(zf * 2 ** -0.5))
+            + zf * torch.exp(-0.5 * zf * zf) * (2 * np.pi) ** -0.5
+            if act == "gelu" else (zf > 0).float())
+    want = (g.float() @ w2.float().T) * dact
+    torch.testing.assert_close(dz.float(), want.bfloat16().float(), **ONE_ROUND_TOL)
+    torch.testing.assert_close(db1, want.sum(0), **F32_SUM_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, d", [(1, 8), (200, 768), (50176, 768), (37, 3072)])
+def test_ln_rows_bwd_matches_plain(cuda, rows, d):
+    rng = np.random.default_rng(13)
+    x = _randn(rng, rows, d, scale=3.0) + 0.5
+    dxn = _randn(rng, rows, d, dtype=torch.float32)
+    s = _randn(rng, d, dtype=torch.float32)
+    g = _randn(rng, rows, d)
+    dx, ds, db, gs = _build.ln_rows_bwd(x, dxn, s, g, 1e-5, g_sum=True)
+    want_dx, want_ds, want_db = ln_bwd_fp32(x, dxn, s)
+    torch.testing.assert_close(dx.float(), (want_dx + g.float()).bfloat16().float(),
+                               **ONE_ROUND_TOL)
+    tol = dict(rtol=1e-4, atol=1e-4 * rows ** 0.5)
+    torch.testing.assert_close(ds, want_ds, **tol)
+    torch.testing.assert_close(db, want_db, **tol)
+    torch.testing.assert_close(gs, g.float().sum(0), **tol)
+    dx_only = _build.ln_rows_bwd(x, dxn, s, g, 1e-5, add_g=False)[0]
+    torch.testing.assert_close(dx_only.float(), want_dx.bfloat16().float(),
+                               **ONE_ROUND_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, heads, n_valid", [
+    (2, 64, 2, 49), (3, 196, 2, 196), (2, 196, 12, 150), (1, 1, 1, 1),
+    (1, 1024, 2, 1000),
+])
+def test_attention_lse_and_bwd_match_plain(cuda, b, n, heads, n_valid):
+    rng = np.random.default_rng(14)
+    s = 64 ** -0.5
+    qkv = _randn(rng, b, n, 3 * heads * 64)
+    out, lse = _build.attention_fwd(qkv, heads, n_valid, s, with_lse=True)
+    assert torch.equal(out, _build.attention_fwd(qkv, heads, n_valid, s))
+    att, want_lse = attention_fwd_ref(qkv, heads, n_valid, s)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    datt = _randn(rng, b, n, heads * 64)
+    got = _build.attention_bwd(qkv, att, datt, want_lse, heads, n_valid, s)
+    want = attention_bwd_ref(qkv, att, datt, want_lse, heads, n_valid, s)
+    torch.testing.assert_close(got.float(), want.float(), **ONE_ROUND_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d, f", [(2, 49, 128, 256), (4, 196, 768, 3072)])
+def test_mlp_block_bwd_matches_ref(cuda, b, n, d, f):
+    """Kernel backward against mlp_block_bwd_ref fed the same saved z,
+    and the Function's gradients against the same."""
+    args = _mlp_args(np.random.default_rng(15), b, n, d, f, cuda)
+    g = _randn(np.random.default_rng(16), b, n, d)
+    _, z = mlp_block_train_fwd(*args)
+    got = mlp_block_bwd(args[0], g, *args[1:6], z, args[6])
+    want = mlp_block_bwd_ref(args[0], g, *args[1:6], z, args[6])
+    for name, a, w in zip(("dx", "dls", "dlb", "dw1", "db1", "dw2", "db2"), got, want):
+        assert a.dtype == w.dtype, name
+        torch.testing.assert_close(a.float(), w.float(), **BF16_TOL, msg=name)
+    leaves = [t.clone().requires_grad_() for t in args]
+    fused_mlp_block(*leaves).backward(g)
+    for name, t, w in zip(("dx", "dls", "dlb", "dw1", "db1", "dw2", "db2"), leaves, want):
+        torch.testing.assert_close(t.grad.float(), w.float(), **BF16_TOL, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d, heads, n_actual", [
+    (2, 64, 128, 2, 49), (2, 40, 128, 2, None), (4, 196, 768, 12, None),
+    (4, 196, 768, 12, 150),
+])
+def test_attention_block_bwd_matches_ref(cuda, b, n, d, heads, n_actual):
+    args = _attn_args(np.random.default_rng(17), b, n, d, heads, cuda)
+    g = _randn(np.random.default_rng(18), b, n, d)
+    _, qkv, att, lse = attention_block_train_fwd(*args, heads, n_actual=n_actual)
+    got = attention_block_bwd(args[0], g, *args[1:], qkv, att, lse, heads,
+                              n_actual=n_actual)
+    want = attention_block_bwd_ref(args[0], g, *args[1:], qkv, att, lse, heads,
+                                   n_actual=n_actual)
+    names = ("dx", "dls", "dlb", "dw_qkv", "dw_out")
+    for name, a, w in zip(names, got, want):
+        assert a.dtype == w.dtype, name
+        torch.testing.assert_close(a.float(), w.float(), **BF16_TOL, msg=name)
+    if n_actual is not None:  # pad rows: g passes straight through
+        torch.testing.assert_close(got[0][:, n_actual:], g[:, n_actual:],
+                                   rtol=0, atol=0)
+    leaves = [t.clone().requires_grad_() for t in args]
+    fused_attention_block(*leaves, heads=heads, n_actual=n_actual).backward(g)
+    for name, t, w in zip(names, leaves, want):
+        torch.testing.assert_close(t.grad.float(), w.float(), **BF16_TOL, msg=name)
 
 
 @pytest.mark.gpu
