@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ViT-B/16 serving path and train step once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's ViT-B/16 serving path and train step, and the
+family-A flagship's train step and serving path, once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one
                                  # NVIDIA H100 (sm_90a) and nvcc
@@ -31,8 +31,24 @@ Phases, each of which raises (non-zero exit) on failure:
    each block's backward must have launched depth x steps times; one step's
    gradients through the kernels against the plain blocks; train step
    img/s at batch 256 on both paths; a profile of the kernel path's step
-   (device time by kernel, idle share).  Then no jax or flax module may
-   have loaded.
+   (device time by kernel, idle share).
+6. flagship kernels: kernels #5 and #6 (``fused_torch_mha`` forward and
+   backward, batch 512, 64 tokens, D = 768, 4 heads of 192, keep 0.9,
+   one dropout mask for both; n_actual None and 50) and #7
+   (``packed_flash_attention``, batch 256) against their plain versions,
+   each error beside its tolerance; each timed beside its plain version,
+   its bound, and for #7 ``F.scaled_dot_product_attention``.
+7. flagship slice: ``build_model(preset_config("flagship",
+   dtype="bfloat16"))`` on the card, ``Trainer.fit`` for one epoch of 4
+   steps at batch 512 on synthetic_dataset(n=2048, hw=32, 10 classes),
+   then ``evaluate`` on 512 images; every loss finite, every parameter
+   moved, #5 and #6 launched depth x steps times and #7 depth x eval
+   forwards; one train step (mixing and dropout on) through the kernels
+   against the same step through the plain versions, the same draws;
+   ``ServingEngine(batch_sizes=(16, 256))`` answers 1, 100 and 256
+   images, logits against the plain forward; train img/s both paths,
+   forward img/s at batch 256, peak memory, a profile of the train step.
+   Then no module of jax, flax or the JAX package may have loaded.
 
 The line before the last is one JSON object describing the kernels; the
 last is ``{"ok": true, "device": {...}}``.
@@ -41,6 +57,7 @@ last is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import re
 import subprocess
@@ -50,8 +67,11 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as TF
 
+import sfc_vit_tpu_torch.models.layers as fa_layers
 import sfc_vit_tpu_torch.models.simple_vit as simple_vit
+import sfc_vit_tpu_torch.ops.attention as fa_attention
 from sfc_vit_tpu_torch.data import epoch_batches, make_eval_transform, synthetic_dataset
 from sfc_vit_tpu_torch.ops import _build
 from sfc_vit_tpu_torch.ops.fused_attention_block import (
@@ -60,6 +80,15 @@ from sfc_vit_tpu_torch.ops.fused_attention_block import (
     attention_block_ref,
     attention_block_train_fwd,
     fused_attention_block,
+)
+from sfc_vit_tpu_torch.ops.flash_attention import _packed_xla_ref, packed_flash_attention
+from sfc_vit_tpu_torch.ops.fused_torch_attention import (
+    fused_torch_mha,
+    torch_mha_bwd,
+    torch_mha_bwd_ref,
+    torch_mha_fwd_ref,
+    torch_mha_train,
+    torch_mha_train_fwd,
 )
 from sfc_vit_tpu_torch.ops.fused_mlp import (
     fused_mlp_block,
@@ -100,6 +129,23 @@ BWD_TOL = 2e-2
 #: Gradients of one train step (12 bf16 layers), kernels against the plain
 #: blocks: relative L2 error of each parameter tensor's gradient.
 GRAD_REL_TOL = 0.1
+#: The family-A flagship: batch 512 (the CLI's and the reference's), 64
+#: tokens, D = 768, 4 heads of 192, MLP 512, keep = 1 - 0.1.
+FA_B, FA_N, FA_D, FA_HEADS, FA_KEEP = 512, 64, 768, 4, 0.9
+FA_PACKED_B = 256
+#: Served logits after 8 bf16 layers and the bf16 factorised head (a
+#: 4,096-term sum), kernels against plain versions: within this fraction
+#: of the largest |logit| (one bf16 ulp at |logit| 8-16 is 0.0625).
+FA_LOGIT_TOL = 0.03
+#: The fp32 log-sum-exp the training forward saves, against the same
+#: function in fp64 of the qkv the kernel saved: fp32 sums and exp only.
+LSE_TOL = dict(rtol=1e-5, atol=1e-5)
+FA_TRAIN_STEPS = 4
+FA_REQUESTS = (1, 100, 256)
+FA_BATCH_SIZES = (16, 256)
+#: The H100 SXM's published dense bf16 rate and memory rate (NVIDIA's data
+#: sheet), the denominators of every bound.
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -133,6 +179,14 @@ def _ab_ms(kernel, plain, iters: int = 20):
     """Times in turns (plain, kernel, kernel, plain) in one process."""
     p1, k1, k2, p2 = (_ms(f, iters) for f in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the bf16 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def _randn(gen, *shape, scale=1.0, shift=0.0, dtype=torch.bfloat16):
@@ -183,7 +237,10 @@ def phase_kernels(card: str) -> dict:
                               lambda: mlp_block_ref(x, *ln, *mlp_w))
         print(f"fused_mlp_block kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"x [{B}, {N}, {D}] F={F} bf16, {card}")
-        results["fused_mlp_block"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        r = B * N
+        results["fused_mlp_block"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+            **_bound(4 * r * D * F, 2 * (2 * r * D + 2 * D * F + F + D) + 8 * D))
 
         errs = []
         for n_actual in (None, 150):
@@ -201,8 +258,10 @@ def phase_kernels(card: str) -> dict:
             lambda: attention_block_ref(x, *ln, *attn_w, HEADS))
         print(f"fused_attention_block kernel {ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, x [{B}, {N}, {D}] {HEADS} heads of 64 bf16, {card}")
-        results["fused_attention_block"] = dict(max_abs_err=max(errs), ms=ms,
-                                                plain_ms=plain_ms)
+        results["fused_attention_block"] = dict(
+            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
+            **_bound(2 * r * D * 3 * D + 4 * B * HEADS * N * N * 64 + 2 * r * D * D,
+                     2 * (2 * r * D + 4 * D * D) + 8 * D))
     return results
 
 
@@ -332,7 +391,11 @@ def phase_backward(card: str) -> dict:
     print(f"fused_mlp_block backward: kernels {ms:.4f} ms, autograd backward "
           f"of the plain forward {plain_ms:.4f} ms; forward + backward: kernels "
           f"{both:.4f} ms, plain {both_plain:.4f} ms, {card}")
-    results["fused_mlp_block_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    r = b * N
+    results["fused_mlp_block_bwd"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **_bound(8 * r * D * F,
+                 2 * (3 * r * D + r * F + 4 * D * F + 2 * F + 2 * D) + 16 * D))
 
     errs = []
     for n_actual in (None, 150):
@@ -364,8 +427,11 @@ def phase_backward(card: str) -> dict:
     print(f"fused_attention_block backward: kernels {ms:.4f} ms, autograd "
           f"backward of the plain forward {plain_ms:.4f} ms; forward + "
           f"backward: kernels {both:.4f} ms, plain {both_plain:.4f} ms, {card}")
-    results["fused_attention_block_bwd"] = dict(max_abs_err=max(errs), ms=ms,
-                                                plain_ms=plain_ms)
+    results["fused_attention_block_bwd"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
+        **_bound(4 * r * D * D + 12 * r * D * D + 10 * b * HEADS * N * N * 64,
+                 2 * (3 * r * D + r * 3 * D + r * D + 8 * D * D) + 4 * b * HEADS * N
+                 + 16 * D))
     return results
 
 
@@ -513,6 +579,267 @@ def _profile(fn, what: str, steps: int = 2, top: int = 14) -> None:
               f"{len(ranked) - top} other kernels")
 
 
+def _fa_inputs(gen, dgen):
+    b, n, d = FA_B, FA_N, FA_D
+    return dict(
+        x=_randn(gen, b, n, d), g=_randn(gen, b, n, d),
+        w_in=_randn(gen, d, 3 * d, scale=d ** -0.5), b_in=_randn(gen, 3 * d, scale=0.1),
+        w_out=_randn(gen, d, d, scale=d ** -0.5), b_out=_randn(gen, d, scale=0.1),
+        mask=torch.rand((b, FA_HEADS, n, n), device=DEVICE, generator=dgen) < FA_KEEP)
+
+
+def _lse_of(qkv: torch.Tensor, heads: int, n_valid: int) -> torch.Tensor:
+    """log-sum-exp over the valid keys of each query's scaled logits, in
+    fp64, from the packed qkv: [B, H, N]."""
+    b, n, w = qkv.shape
+    q, k, _ = qkv.view(b, n, 3, heads, w // (3 * heads)).permute(2, 0, 3, 1, 4).double()
+    logits = (q @ k[:, :, :n_valid].transpose(-1, -2)) * (w // (3 * heads)) ** -0.5
+    return torch.logsumexp(logits, dim=-1)
+
+
+def phase_fa_kernels(card: str) -> dict:
+    """Kernels #5, #6 and #7 at the flagship's shapes against their plain
+    versions, in bf16."""
+    gen = torch.Generator().manual_seed(2)
+    dgen = torch.Generator(device=DEVICE).manual_seed(2)
+    a = _fa_inputs(gen, dgen)
+    b, n, d, h = FA_B, FA_N, FA_D, FA_HEADS
+    fwd = [a[k] for k in ("x", "w_in", "b_in", "w_out", "b_out", "mask")]
+    results = {}
+    errs, bwd_errs = [], []
+    for n_actual in (None, 50):
+        with torch.no_grad():
+            got = torch_mha_train_fwd(*fwd, h, keep=FA_KEEP, n_actual=n_actual)
+            want = torch_mha_fwd_ref(*fwd, h, keep=FA_KEEP, n_actual=n_actual,
+                                     save_acts=True)
+        for name, x, w in zip(("y", "qkv", "att"), got[:3], want[:3]):
+            err, ok = _agree(x, w, **BLOCK_TOL)
+            print(f"torch_mha_train_fwd vs torch_mha_fwd_ref, n_actual={n_actual}: "
+                  f"{name} max abs err {err:.4g} (tolerance rtol {BLOCK_TOL['rtol']}, "
+                  f"atol {BLOCK_TOL['atol']})")
+            _check(ok, f"kernel #5 disagrees on {name} at n_actual={n_actual}")
+            errs.append(err)
+        lse_err, lse_ok = _agree(got[3], _lse_of(got[1], h, n_actual or n), **LSE_TOL)
+        print(f"  lse: max abs err {lse_err:.4g} (tolerance rtol {LSE_TOL['rtol']}, "
+              f"atol {LSE_TOL['atol']})")
+        _check(lse_ok, "kernel #5: lse disagrees")
+        _, qkv, att, lse = got
+        saved = (a["x"], a["g"], a["w_in"], a["w_out"], a["mask"], qkv, att, lse)
+        with torch.no_grad():
+            g_k = torch_mha_bwd(*saved, h, keep=FA_KEEP, n_actual=n_actual)
+            g_p = torch_mha_bwd_ref(*saved, h, keep=FA_KEEP, n_actual=n_actual)
+        print(f"torch_mha_bwd vs torch_mha_bwd_ref, n_actual={n_actual}, "
+              f"x [{b}, {n}, {d}] {h} heads of {d // h}:")
+        bwd_errs.append(_bwd_check("torch_mha_bwd", g_k, g_p,
+                                   ("dx", "dw_in", "db_in", "dw_out", "db_out")))
+        if n_actual is not None:
+            _check(not g_k[0][:, n_actual:].any(), "kernel #6: pad rows have dx")
+        del got, want, g_k, g_p, qkv, att, lse
+    r = b * n
+    with torch.no_grad():
+        _, qkv, att, lse = torch_mha_train_fwd(*fwd, h, keep=FA_KEEP)
+        saved = (a["x"], a["g"], a["w_in"], a["w_out"], a["mask"], qkv, att, lse)
+        ms, plain_ms = _ab_ms(lambda: torch_mha_train_fwd(*fwd, h, keep=FA_KEEP),
+                              lambda: torch_mha_fwd_ref(*fwd, h, keep=FA_KEEP,
+                                                        save_acts=True), iters=10)
+        bms, bplain_ms = _ab_ms(lambda: torch_mha_bwd(*saved, h, keep=FA_KEEP),
+                                lambda: torch_mha_bwd_ref(*saved, h, keep=FA_KEEP),
+                                iters=10)
+    attn_flops = 2 * b * h * n * n * (d // h)
+    results["fused_torch_mha"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
+        **_bound(8 * r * d * d + 2 * attn_flops,
+                 2 * (r * d + 4 * d * d + 4 * d + r * d + r * 3 * d + r * d)
+                 + b * h * n * n + 4 * b * h * n))
+    results["fused_torch_mha_bwd"] = dict(
+        max_abs_err=max(bwd_errs), ms=bms, plain_ms=bplain_ms, library_ms=None,
+        **_bound(16 * r * d * d + 5 * attn_flops,
+                 2 * (2 * r * d + 4 * d * d + r * 3 * d + r * d + r * d)
+                 + b * h * n * n + 4 * b * h * n + 4 * (4 * d * d + 4 * d)))
+    print(f"fused_torch_mha (#5, training forward) kernels {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {results['fused_torch_mha']['bound_ms']:.4f} ms; "
+          f"backward (#6) kernels {bms:.4f} ms, plain {bplain_ms:.4f} ms, bound "
+          f"{results['fused_torch_mha_bwd']['bound_ms']:.4f} ms; x [{b}, {n}, {d}] "
+          f"bf16, {card}.  No single PyTorch call computes either: SDPA's dropout "
+          "cannot take a given mask.")
+    del a, fwd, saved, qkv, att, lse
+
+    pb = FA_PACKED_B
+    qkv = _randn(gen, pb, n, 3 * d)
+    s = (d // h) ** -0.5
+    with torch.no_grad():
+        got = packed_flash_attention(qkv, h)
+        want = _packed_xla_ref(qkv, h, s)
+        err, ok = _agree(got, want, **BLOCK_TOL)
+        print(f"packed_flash_attention vs _packed_xla_ref, qkv [{pb}, {n}, {3 * d}]: "
+              f"max abs err {err:.4g} (tolerance rtol {BLOCK_TOL['rtol']}, atol "
+              f"{BLOCK_TOL['atol']})")
+        _check(ok, "kernel #7 disagrees with _packed_xla_ref")
+        q, k, v = (t.contiguous() for t in
+                   qkv.view(pb, n, 3, h, d // h).permute(2, 0, 3, 1, 4))
+        ms, plain_ms = _ab_ms(lambda: packed_flash_attention(qkv, h),
+                              lambda: _packed_xla_ref(qkv, h, s))
+        lib_ms = _ms(lambda: TF.scaled_dot_product_attention(q, k, v))
+    results["packed_flash_attention"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        **_bound(4 * pb * h * n * n * (d // h), 2 * (pb * n * 3 * d + pb * n * d)))
+    print(f"packed_flash_attention (#7) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"F.scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+          f"{results['packed_flash_attention']['bound_ms']:.4f} ms, qkv [{pb}, {n}, "
+          f"{3 * d}] bf16, {card}")
+    return results
+
+
+def _plain_fa():
+    """Route the flagship's attention through the plain versions
+    (comparison only): torch_mha_train for #5/#6, _packed_xla_ref for #7."""
+    plain_packed = lambda qkv, heads, scale=None: _packed_xla_ref(  # noqa: E731
+        qkv, heads, (qkv.shape[-1] // 3 // heads) ** -0.5 if scale is None else scale)
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(fa_layers, "fused_torch_mha", torch_mha_train))
+    stack.enter_context(mock.patch.object(fa_attention, "packed_flash_attention",
+                                          plain_packed))
+    return stack
+
+
+def _reset_fa_counts():
+    fused_torch_mha.launches = fused_torch_mha.bwd_launches = 0
+    packed_flash_attention.launches = 0
+
+
+def phase_fa_slice(card: str) -> dict:
+    torch.cuda.reset_peak_memory_stats()
+    cfg = preset_config("flagship", dtype="bfloat16")
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    _check(next(model.parameters()).device.type == "cuda", "build_model did not "
+           "build on the card")
+    stats = ((0.5,) * 3, (0.25,) * 3)
+    b, steps = FA_B, FA_TRAIN_STEPS
+    train_ds = synthetic_dataset(n=b * steps, hw=cfg.img_size,
+                                 num_classes=cfg.num_classes, seed=0)
+    test_ds = synthetic_dataset(n=b, hw=cfg.img_size, num_classes=cfg.num_classes,
+                                seed=1)
+    tf = make_eval_transform(*stats, device=DEVICE)
+    trainer = Trainer(model, TrainConfig(num_classes=cfg.num_classes, epochs=1,
+                                         warmup_epochs=1), steps_per_epoch=steps)
+    before = [p.detach().clone() for p in model.parameters()]
+
+    _reset_fa_counts()
+    record = trainer.fit(
+        lambda: ((tf(x), y) for x, y in epoch_batches(train_ds, b, seed=0)),
+        lambda: ((tf(x), y) for x, y in epoch_batches(
+            test_ds, b, shuffle=False, drop_last=False)))
+    torch.cuda.synchronize()
+    launches = {"fused_torch_mha": fused_torch_mha.launches,
+                "fused_torch_mha_bwd": fused_torch_mha.bwd_launches,
+                "packed_flash_attention (eval)": packed_flash_attention.launches}
+    print(f"flagship Trainer.fit, 1 epoch of {steps} steps at batch {b} + eval of "
+          f"{len(test_ds)}: {record}")
+    print(f"launches over {steps} train steps + 1 eval batch of depth {cfg.depth}: "
+          f"{launches}")
+    _check(bool(np.isfinite(record["train_loss"])), "non-finite flagship train loss")
+    _check(bool(np.isfinite(record["test_loss"])), "non-finite flagship eval loss")
+    _check(trainer.state.step == steps, f"{trainer.state.step} steps taken")
+    for name in ("fused_torch_mha", "fused_torch_mha_bwd"):
+        _check(launches[name] == cfg.depth * steps,
+               f"{name} launched {launches[name]} times, expected {cfg.depth * steps}")
+    _check(launches["packed_flash_attention (eval)"] == cfg.depth,
+           f"packed_flash_attention launched {launches['packed_flash_attention (eval)']}"
+           f" times in eval, expected {cfg.depth}")
+    still = [n for (n, p), q in zip(model.named_parameters(), before) if torch.equal(p, q)]
+    _check(not still, f"flagship parameters unchanged after {steps} steps: {still}")
+    del before
+
+    # One step, kernels against plain versions: same params, batch, mixing
+    # draws and dropout masks (both generators reseeded).
+    x, y = next(epoch_batches(train_ds, b, seed=0))
+    batch = (tf(x), torch.from_numpy(y).long().to(DEVICE))
+    state = _lr_zero_state(model)
+    step = make_train_step(cfg.num_classes)
+
+    def one_step():
+        return step(state, batch, torch.Generator().manual_seed(7),
+                    torch.Generator(device=DEVICE).manual_seed(7))
+
+    m_k = one_step()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    with _plain_fa():
+        m_p = one_step()
+    rel = {n: float((grads[n].float() - p.grad.float()).norm() / p.grad.float().norm())
+           for n, p in model.named_parameters()}
+    worst = max(rel, key=rel.get)
+    print(f"flagship train step (mixing, dropout), kernels vs plain versions: loss "
+          f"{float(m_k['loss']):.6f} vs {float(m_p['loss']):.6f}; gradient relative "
+          f"L2 error max {rel[worst]:.4g} ({worst}), median "
+          f"{float(np.median(list(rel.values()))):.4g} over {len(rel)} tensors "
+          f"(tolerance {GRAD_REL_TOL})")
+    _check(rel[worst] <= GRAD_REL_TOL, "flagship kernel-path gradients disagree "
+           "with the plain path")
+    del grads
+
+    gen, dgen = torch.Generator().manual_seed(0), torch.Generator(device=DEVICE)
+
+    def step_ms(plain: bool, n_steps: int = 3) -> float:
+        with _plain_fa() if plain else contextlib.nullcontext():
+            step(state, batch, gen, dgen)  # warm-up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n_steps):
+                step(state, batch, gen, dgen)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n_steps * 1e3
+
+    p1, k1, k2, p2 = (step_ms(plain) for plain in (True, False, False, True))
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f"flagship train step at batch {b} (mixing, dropout, clip, AdamW): kernels "
+          f"{k_ms:.2f} ms = {b / k_ms * 1e3:.1f} img/s, plain versions {p_ms:.2f} ms "
+          f"= {b / p_ms * 1e3:.1f} img/s, {card}")
+    print(f"flagship peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          "GiB")
+    _profile(lambda: step(state, batch, gen, dgen), f"flagship train step at batch {b}")
+    del state, batch
+
+    # Serving: a copy of the trained model in bf16 behind the engine.
+    engine = ServingEngine(copy.deepcopy(model), None, (cfg.img_size, cfg.img_size, 3),
+                           batch_sizes=FA_BATCH_SIZES, dtype=torch.bfloat16,
+                           device=DEVICE)
+    rng = np.random.default_rng(3)
+    requests = [rng.standard_normal((k, cfg.img_size, cfg.img_size, 3),
+                                    dtype=np.float32) for k in FA_REQUESTS]
+    _reset_fa_counts()
+    outs = [engine.predict(r) for r in requests]
+    launches["packed_flash_attention"] = packed_flash_attention.launches
+    forwards = sum(-(-k // FA_BATCH_SIZES[-1]) for k in FA_REQUESTS)
+    for k, out in zip(FA_REQUESTS, outs):
+        print(f"flagship request of {k} images -> logits {out.shape}, finite "
+              f"{bool(np.isfinite(out).all())}")
+        _check(out.shape == (k, cfg.num_classes), f"bad logits shape {out.shape}")
+        _check(bool(np.isfinite(out).all()), "non-finite flagship logits")
+    print(f"packed_flash_attention launches over {forwards} served forwards of depth "
+          f"{cfg.depth}: {launches['packed_flash_attention']}")
+    _check(launches["packed_flash_attention"] == cfg.depth * forwards,
+           "packed_flash_attention launch count disagrees with the served forwards")
+    with _plain_fa():
+        plain = [engine.predict(r) for r in requests]
+    outs, plain = np.concatenate(outs), np.concatenate(plain)
+    err, scale = float(np.abs(outs - plain).max()), float(np.abs(plain).max())
+    print(f"flagship logits, kernels vs plain versions: max abs err {err:.4g} (max "
+          f"|logit| {scale:.4g}; tolerance {FA_LOGIT_TOL} x max |logit| = "
+          f"{FA_LOGIT_TOL * scale:.4g})")
+    _check(err <= FA_LOGIT_TOL * scale,
+           "served flagship logits disagree with the plain forward")
+    xb = torch.from_numpy(requests[-1]).to(DEVICE, torch.bfloat16)
+    bs = FA_BATCH_SIZES[-1]
+    with torch.inference_mode():
+        fwd_ms = _ms(lambda: engine.model(xb), iters=10)
+        with _plain_fa():
+            plain_fwd_ms = _ms(lambda: engine.model(xb), iters=10)
+    print(f"flagship forward at batch {bs}: {fwd_ms:.3f} ms = {bs / fwd_ms * 1e3:.1f} "
+          f"img/s (plain versions {plain_fwd_ms:.3f} ms = "
+          f"{bs / plain_fwd_ms * 1e3:.1f} img/s), {card}")
+    return launches
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -520,7 +847,10 @@ def main() -> int:
     kernels.update(phase_backward(card))
     launches = phase_slice(card)
     launches.update({k: v for k, v in phase_train(card).items() if k.endswith("_bwd")})
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
+    kernels.update(phase_fa_kernels(card))
+    launches.update(phase_fa_slice(card))
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flax", "sfc_vit_tpu"))
     _check(not leaked, f"the port imported {leaked}")
     entries = [
         dict(name="fused_attention_block", route="cuda",
@@ -535,11 +865,21 @@ def main() -> int:
         dict(name="fused_attention_block_bwd", route="cuda",
              source="sfc_vit_tpu_torch/csrc/attention_bwd.cu",
              replaces="sfc_vit_tpu/ops/fused_attention_block.py:333"),
+        dict(name="fused_torch_mha", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/attention_fwd.cu",
+             replaces="sfc_vit_tpu/ops/fused_torch_attention.py:82"),
+        dict(name="fused_torch_mha_bwd", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/attention_bwd.cu",
+             replaces="sfc_vit_tpu/ops/fused_torch_attention.py:270"),
+        dict(name="packed_flash_attention", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/attention_fwd.cu",
+             replaces="sfc_vit_tpu/ops/flash_attention.py:907"),
     ]
     for e in entries:
         k = kernels[e["name"]]
         e.update(launches=launches[e["name"]], max_abs_err=k["max_abs_err"],
-                 ms=k["ms"], plain_ms=k["plain_ms"])
+                 ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+                 bound_by=k["bound_by"], library_ms=k["library_ms"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

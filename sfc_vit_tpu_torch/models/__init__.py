@@ -1,6 +1,16 @@
-"""The pre-norm ViT family (``SimpleViT``, ``CurveViT``) and its tables."""
+"""The pre-norm ViT family (``SimpleViT``, ``CurveViT``), family A's
+``VisionTransformer1D`` and their building blocks and tables."""
 
-from .posemb import gfpe, sincos_1d
+from .layers import (
+    FactorisedLinear,
+    MixerBlock,
+    MultiLayerPredictor,
+    TokenAggregator,
+    TorchMultiHeadAttention,
+    TorchTransformerEncoderLayer,
+    TransformerSeqEncoder,
+)
+from .posemb import build_posemb, gfpe, sincos_1d
 from .simple_vit import (
     CurvePatchEmbedding,
     CurveViT,
@@ -8,13 +18,23 @@ from .simple_vit import (
     PreNormTransformer,
     SimpleViT,
 )
+from .vit import VisionTransformer1D
 
 __all__ = [
     "CurvePatchEmbedding",
     "CurveViT",
+    "FactorisedLinear",
     "HilbertViT",
+    "MixerBlock",
+    "MultiLayerPredictor",
     "PreNormTransformer",
     "SimpleViT",
+    "TokenAggregator",
+    "TorchMultiHeadAttention",
+    "TorchTransformerEncoderLayer",
+    "TransformerSeqEncoder",
+    "VisionTransformer1D",
+    "build_posemb",
     "gfpe",
     "sincos_1d",
 ]

@@ -37,25 +37,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sfc_vit_tpu.curves import flat_lut
-
+from ..curves import flat_lut
 from ..ops.fused_attention_block import fused_attention_block
 from ..ops.fused_mlp import fused_mlp_block
 from ..ops.kernel_utils import ln_fp32
 from ..tokenizers.embeddings import curve_gather, patchify
+from ..utils.initializers import lecun_normal as _lecun_normal
 from .posemb import gfpe, sincos_1d
 
 __all__ = ["CurvePatchEmbedding", "PreNormTransformer", "SimpleViT",
            "CurveViT", "HilbertViT"]
-
-
-def _lecun_normal(fan_in: int, fan_out: int, generator) -> torch.Tensor:
-    """flax ``lecun_normal``: truncated normal at +-2 std, std corrected
-    so the variance is 1 / fan_in; shape ``[fan_in, fan_out]``."""
-    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-    w = torch.empty(fan_in, fan_out)
-    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                 generator=generator)
 
 
 def _linear(in_dim: int, out_dim: int, generator) -> nn.Linear:

@@ -1,5 +1,11 @@
-"""Hand-written Hopper kernels with their plain PyTorch versions."""
+"""Hand-written Hopper kernels with their plain PyTorch versions, and the
+attention dispatch."""
 
+from .attention import (
+    attention_with_weights,
+    dot_product_attention_xla,
+    packed_qkv_attention,
+)
 from .fused_attention_block import (
     attention_block_bwd,
     attention_block_bwd_ref,
@@ -16,6 +22,15 @@ from .fused_mlp import (
     mlp_block_ref,
     mlp_block_train_fwd,
 )
+from .flash_attention import packed_flash_attention
+from .fused_torch_attention import (
+    fused_torch_mha,
+    torch_mha_bwd,
+    torch_mha_bwd_ref,
+    torch_mha_fwd_ref,
+    torch_mha_train,
+    torch_mha_train_fwd,
+)
 from .kernel_utils import NEG_INF, ln_bwd_fp32, ln_fp32, round_up
 
 __all__ = [
@@ -26,13 +41,23 @@ __all__ = [
     "attention_block_train_fwd",
     "attention_bwd_ref",
     "attention_fwd_ref",
+    "attention_with_weights",
+    "dot_product_attention_xla",
     "fused_attention_block",
     "fused_mlp_block",
+    "fused_torch_mha",
     "ln_bwd_fp32",
     "ln_fp32",
     "mlp_block_bwd",
     "mlp_block_bwd_ref",
     "mlp_block_ref",
     "mlp_block_train_fwd",
+    "packed_flash_attention",
+    "packed_qkv_attention",
     "round_up",
+    "torch_mha_bwd",
+    "torch_mha_bwd_ref",
+    "torch_mha_fwd_ref",
+    "torch_mha_train",
+    "torch_mha_train_fwd",
 ]

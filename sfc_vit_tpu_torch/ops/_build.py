@@ -17,7 +17,8 @@ unchanged one loads the library already there.  A failed build raises:
 nothing runs without the kernels.
 
 The launchers below (``ln_rows``, ``ln_rows_bwd``, ``gemm``,
-``act_bf16``, ``attention_fwd``, ``attention_bwd``) check device, dtype,
+``act_bf16``, ``colsum``, ``attention_fwd``, ``attention_bwd``) check
+device, dtype,
 shape, contiguity and alignment, allocate their outputs with
 ``torch.empty`` (``torch.zeros`` for sums the kernels accumulate into),
 launch on PyTorch's current stream and raise on any CUDA error the launch
@@ -38,7 +39,8 @@ from typing import Optional
 import torch
 
 __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
-           "act_bf16", "attention_fwd", "attention_bwd"]
+           "act_bf16", "colsum", "attention_fwd", "attention_bwd",
+           "ATTENTION_HEAD_DIMS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sfc_vit_tpu_torch"
@@ -58,10 +60,16 @@ _SIGNATURES = {
     "sfc_gemm_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _I, _P),
     "sfc_act_bf16": (_P, _P, _L, _I, _P),
-    "sfc_attention_fwd_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    "sfc_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+    "sfc_colsum_bf16": (_P, _P, _I, _I, _P),
+    "sfc_attention_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                                _P),
+    "sfc_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _F, _F, _P),
 }
+
+#: Head dims the attention kernels are instantiated for: ViT-B's 64 and
+#: the family-A flagship's 192.
+ATTENTION_HEAD_DIMS = (64, 192)
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -282,41 +290,73 @@ def act_bf16(z: torch.Tensor, act: str) -> torch.Tensor:
     return h
 
 
-def _check_packed(qkv: torch.Tensor, heads: int, n_valid: int, what: str):
+def colsum(x: torch.Tensor) -> torch.Tensor:
+    """fp32 column sums of a bf16 ``x`` [R, C] (C % 8 == 0)."""
+    r, c = x.shape
+    if c % 8:
+        raise ValueError(f"colsum: {c} columns, not a multiple of 8")
+    _require(x, "x")
+    out = torch.zeros(c, dtype=torch.float32, device=x.device)
+    _check(library().sfc_colsum_bf16(x.data_ptr(), out.data_ptr(), r, c,
+                                     _stream()), "colsum")
+    return out
+
+
+def _check_packed(qkv: torch.Tensor, heads: int, n_valid: int, what: str,
+                  mask: Optional[torch.Tensor], keep: float):
     b, n, w = qkv.shape
-    if w % (3 * heads) or w // (3 * heads) != 64:
+    if w % (3 * heads) or w // (3 * heads) not in ATTENTION_HEAD_DIMS:
         raise ValueError(
             f"{what}: packed width {w} with {heads} heads gives "
-            f"head dim {w / (3 * heads):g}; the kernel takes 64"
+            f"head dim {w / (3 * heads):g}; the kernel takes "
+            f"{' or '.join(map(str, ATTENTION_HEAD_DIMS))}"
         )
     if not 1 <= n_valid <= n:
         raise ValueError(f"{what}: n_valid={n_valid} not in [1, {n}]")
+    if mask is not None and not 0.0 < keep <= 1.0:
+        raise ValueError(f"{what}: keep={keep} not in (0, 1]")
     _require(qkv, "qkv")
-    return b, n, w // 3
+    if mask is not None:
+        _require(mask, "mask", (b, heads, n, n), torch.uint8)
+    return b, n, w // 3, w // (3 * heads)
+
+
+def _mask_u8(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A 0/1 bool mask viewed as the uint8 the kernels read (same bytes)."""
+    return mask.view(torch.uint8) if mask is not None and mask.dtype == torch.bool else mask
 
 
 def attention_fwd(qkv: torch.Tensor, heads: int, n_valid: int,
-                  scale: float, with_lse: bool = False):
-    """Attention off packed ``qkv`` [B, N, 3*H*64] -> [B, N, H*64] (bf16),
-    keys at or past ``n_valid`` masked.  ``with_lse`` also returns the
-    fp32 log-sum-exp of every softmax row, [B, H, N]."""
-    b, n, inner = _check_packed(qkv, heads, n_valid, "attention_fwd")
+                  scale: float, with_lse: bool = False,
+                  mask: Optional[torch.Tensor] = None, keep: float = 1.0):
+    """Attention off packed ``qkv`` [B, N, 3*H*Dh] -> [B, N, H*Dh] (bf16,
+    Dh 64 or 192), keys at or past ``n_valid`` masked.  ``with_lse``
+    also returns the fp32 log-sum-exp of every softmax row, [B, H, N].
+    ``mask`` (bool or uint8 0/1 [B, H, N, N]) drops probabilities:
+    ``bf16((P / keep) * mask)`` takes the place of ``bf16(P)``."""
+    mask = _mask_u8(mask)
+    b, n, inner, dh = _check_packed(qkv, heads, n_valid, "attention_fwd", mask,
+                                    keep)
     out = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
            if with_lse else None)
     _check(library().sfc_attention_fwd_bf16(
-        qkv.data_ptr(), out.data_ptr(), _ptr(lse), b, n, heads, 64, n_valid,
-        scale, _stream()), "attention_fwd")
+        qkv.data_ptr(), _ptr(mask), out.data_ptr(), _ptr(lse), b, n, heads, dh,
+        n_valid, scale, keep, _stream()), "attention_fwd")
     return (out, lse) if with_lse else out
 
 
 def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
                   lse: torch.Tensor, heads: int, n_valid: int,
-                  scale: float) -> torch.Tensor:
-    """The packed ``dqkv`` [B, N, 3*H*64] (bf16) of the attention in
+                  scale: float, mask: Optional[torch.Tensor] = None,
+                  keep: float = 1.0) -> torch.Tensor:
+    """The packed ``dqkv`` [B, N, 3*H*Dh] (bf16) of the attention in
     :func:`attention_fwd` from its saved ``qkv``, output ``att``, fp32
-    ``lse`` [B, H, N] and the output's cotangent ``datt`` [B, N, H*64]."""
-    b, n, inner = _check_packed(qkv, heads, n_valid, "attention_bwd")
+    ``lse`` [B, H, N], the output's cotangent ``datt`` [B, N, H*Dh] and,
+    for the dropout form, the forward's ``mask`` and ``keep``."""
+    mask = _mask_u8(mask)
+    b, n, inner, dh = _check_packed(qkv, heads, n_valid, "attention_bwd", mask,
+                                    keep)
     _require(att, "att", (b, n, inner))
     _require(datt, "datt", (b, n, inner))
     _require(lse, "lse", (b, heads, n), torch.float32)
@@ -324,6 +364,6 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
     dqkv = torch.empty_like(qkv)
     _check(library().sfc_attention_bwd_bf16(
         qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dqkv.data_ptr(), b, n, heads, 64, n_valid, scale,
-        _stream()), "attention_bwd")
+        _ptr(mask), delta.data_ptr(), dqkv.data_ptr(), b, n, heads, dh,
+        n_valid, scale, keep, _stream()), "attention_bwd")
     return dqkv

@@ -40,7 +40,8 @@ from typing import Optional
 import torch
 
 from ._build import attention_bwd, attention_fwd, gemm, ln_rows, ln_rows_bwd
-from .kernel_utils import ln_bwd_fp32, ln_fp32
+from .kernel_utils import ln_bwd_fp32, ln_fp32, n_valid as _n_valid
+from .kernel_utils import split_heads as _split_heads
 
 __all__ = ["fused_attention_block", "attention_block_ref",
            "attention_block_bwd_ref", "attention_fwd_ref", "attention_bwd_ref",
@@ -56,10 +57,6 @@ def _head_dim(d_qkv: int, heads: int) -> int:
             f"3*heads={3 * heads}"
         )
     return d_qkv // (3 * heads)
-
-
-def _n_valid(n: int, n_actual: Optional[int]) -> int:
-    return n if n_actual is None else min(n_actual, n)
 
 
 def attention_block_ref(x, ln_scale, ln_bias, w_qkv, w_out, heads: int,
@@ -82,12 +79,6 @@ def attention_block_ref(x, ln_scale, ln_bias, w_qkv, w_out, heads: int,
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     att = (w @ v).transpose(1, 2).reshape(b, n, heads * dh)
     return x + att @ w_out
-
-
-def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
-    """[B, N, H*Dh] -> fp32 [B, H, N, Dh]."""
-    b, n, w = t.shape
-    return t.view(b, n, heads, w // heads).transpose(1, 2).float()
 
 
 def attention_fwd_ref(qkv: torch.Tensor, heads: int, n_valid: int,

@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "ln_fp32", "ln_bwd_fp32", "round_up"]
+__all__ = ["NEG_INF", "ln_fp32", "ln_bwd_fp32", "round_up", "n_valid",
+           "split_heads", "fp32_compute_not_ported"]
 
 #: Masked-logit value: -1e30, never -inf, so a masked softmax gives 0
 #: weights and no NaN.
@@ -17,6 +18,27 @@ NEG_INF = -1e30
 
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def n_valid(n: int, n_actual) -> int:
+    """Keys a softmax sees under the ``n_actual`` contract: those before
+    ``n_actual`` (all ``n`` when it is None)."""
+    return n if n_actual is None else min(n_actual, n)
+
+
+def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, N, H*Dh] -> fp32 [B, H, N, Dh]."""
+    b, n, w = t.shape
+    return t.view(b, n, heads, w // heads).transpose(1, 2).float()
+
+
+def fp32_compute_not_ported(what: str, dtype: torch.dtype) -> NotImplementedError:
+    """The refusal of a family-A kernel (#5-#7) given a CUDA tensor in a
+    dtype other than bfloat16: it never falls back to its plain version."""
+    return NotImplementedError(
+        f"{what}: {dtype} compute on the GPU is not ported yet, the kernels "
+        "take bfloat16: ROADMAP.md queue 1 item 15 (fp32 compute for "
+        "kernels #5-#7)")
 
 
 def ln_fp32(v: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -2,9 +2,11 @@
 
 Counterpart of ``sfc_vit_tpu/registry.py``.  ``ModelConfig`` and
 ``PRESETS`` carry the same fields and operating points; ``build_model``
-builds the pre-norm families ('simple', 'curvevit') and raises
-``NotImplementedError`` naming the ROADMAP.md item for everything not yet
-ported.
+runs the JAX package's validation and builds the pre-norm families
+('simple', 'curvevit') and family A's 'vit1d' over the hierarchical
+tokenizer (the 'flagship' preset).  Everything not yet ported raises
+``NotImplementedError`` naming its ROADMAP.md item.  Models are built on
+the card unless the caller asks for the CPU (``device='cpu'``).
 """
 
 from __future__ import annotations
@@ -14,23 +16,28 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-from sfc_vit_tpu.curves import CURVE_REGISTRY
+from .curves import CURVE_REGISTRY
+from .models import CurveViT, SimpleViT, VisionTransformer1D
+from .ops.attention import check_implementation
+from .tokenizers import HierarchicalCurveEmbedding
 
-from .models import CurveViT, SimpleViT
+__all__ = ["ModelConfig", "build_tokenizer", "build_model", "PRESETS",
+           "preset_config", "TOKENIZER_FAMILIES", "MODEL_FAMILIES"]
 
-__all__ = ["ModelConfig", "build_model", "PRESETS", "preset_config",
-           "MODEL_FAMILIES"]
-
+TOKENIZER_FAMILIES = ("2d", "1d", "hierarchical")
 MODEL_FAMILIES = ("vit", "vit1d", "hier", "simple", "curvevit")
 
 #: Where each family or option that is not ported yet stands in ROADMAP.md.
 _NOT_PORTED = {
-    "vit": "queue 1 item 7 (family-A models)",
-    "vit1d": "queue 1 item 7 (family-A models)",
-    "hier": "queue 1 item 7 (family-A models)",
+    "vit": "queue 1 item 7 (family-A models: VisionTransformer, after the "
+           "2-D tokenizer of queue 1 item 6)",
+    "hier": "queue 1 item 16 (HierarchicalVisionTransformer1D)",
+    "tokenizer '2d'": "queue 1 item 6 (tokenizers: ConvPatchEmbedding)",
+    "tokenizer '1d'": "queue 1 item 6 (tokenizers: PixelCurveEmbedding1D)",
     "merge_layers": "queue 1 item 10 (long context: token merge)",
     "remat": "queue 1 item 4 (train step: remat)",
-    "attn_impl": "queue 2 kernels #5-#13 (other attention kernels)",
+    "attn_impl": "queue 2 kernels #8-#13 and queue 1 items 3 and 10 (other "
+                 "attention kernels and per-layer schedules)",
 }
 
 
@@ -101,35 +108,91 @@ def _not_ported(what: str) -> NotImplementedError:
         f"{what} is not ported to PyTorch yet: ROADMAP.md {_NOT_PORTED[what]}")
 
 
-def build_model(cfg: ModelConfig, device=None,
-                generator: Optional[torch.Generator] = None):
-    """The module for ``cfg``, on ``device``, initialised from
-    ``generator``."""
+def _check_curve(cfg: ModelConfig) -> None:
+    if cfg.curve not in CURVE_REGISTRY and cfg.curve != "random":
+        raise KeyError(f"unknown curve {cfg.curve!r}; available: "
+                       f"{sorted(CURVE_REGISTRY) + ['random']}")
+    if cfg.curve == "random" and cfg.tokenizer != "2d":
+        raise ValueError("curve='random' (the per-call shuffle ablation) is only "
+                         "implemented by the 2d tokenizer family")
+
+
+def build_tokenizer(cfg: ModelConfig, return_levels: bool = False,
+                    generator: Optional[torch.Generator] = None):
+    """The tokenizer module for ``cfg`` (parameters on the CPU)."""
+    _check_curve(cfg)
+    if cfg.tokenizer in ("2d", "1d"):
+        raise _not_ported(f"tokenizer {cfg.tokenizer!r}")
+    if cfg.tokenizer == "hierarchical":
+        return HierarchicalCurveEmbedding(
+            img_size=cfg.img_size, patch_size_list=tuple(cfg.patch_size_list),
+            embed_dim=cfg.embed_dim, curve=cfg.curve,
+            return_levels=return_levels, fused=cfg.fused,
+            dtype=cfg.torch_dtype(), generator=generator)
+    raise KeyError(f"unknown tokenizer family {cfg.tokenizer!r}; "
+                   f"available: {TOKENIZER_FAMILIES}")
+
+
+def _validate(cfg: ModelConfig) -> None:
+    """The JAX package's checks (``registry.py:176-257``), then the port's
+    refusals of what is not ported yet."""
     if cfg.model not in MODEL_FAMILIES:
         raise KeyError(
             f"unknown model family {cfg.model!r}; available: {MODEL_FAMILIES}")
-    if cfg.model not in ("simple", "curvevit"):
-        raise _not_ported(cfg.model)
-    if cfg.curve not in CURVE_REGISTRY:
-        raise KeyError(
-            f"unknown curve {cfg.curve!r} for model {cfg.model!r}; "
-            f"available: {sorted(CURVE_REGISTRY)}")
-    if cfg.fused:
-        raise ValueError(f"model {cfg.model!r} has no fused-tokenizer path; "
-                         "drop fused=True")
-    if cfg.posemb != "none":
+    family_b = cfg.model in ("simple", "curvevit")
+    if family_b:
+        if cfg.curve not in CURVE_REGISTRY:
+            raise KeyError(f"unknown curve {cfg.curve!r} for model {cfg.model!r}; "
+                           f"available: {sorted(CURVE_REGISTRY)}")
+        if cfg.fused:
+            raise ValueError(f"model {cfg.model!r} has no fused-tokenizer path; "
+                             "drop fused=True")
+    if not isinstance(cfg.attn_impl, str) and not family_b:
+        raise ValueError(
+            f"per-layer attn_impl schedules are implemented by the family-B "
+            f"models ('simple'/'curvevit') only -- model {cfg.model!r} takes a "
+            "single implementation string")
+    if cfg.merge_layers and cfg.model != "curvevit":
+        raise ValueError(f"merge_layers is curve-pair token merging, implemented "
+                         f"by model 'curvevit' only -- model {cfg.model!r} would "
+                         "silently ignore it")
+    if (family_b or cfg.model == "hier") and cfg.posemb != "none":
         raise ValueError(f"model {cfg.model!r} manages its own positional "
                          f"encoding; posemb={cfg.posemb!r} would be ignored")
+    if cfg.model in ("vit", "hier"):
+        raise _not_ported(cfg.model)
     if cfg.merge_layers:
         raise _not_ported("merge_layers")
     if cfg.remat:
         raise _not_ported("remat")
-    if cfg.attn_impl != "auto":
+    if family_b and cfg.attn_impl != "auto":
         raise _not_ported("attn_impl")
+    if not family_b:
+        _check_curve(cfg)
+        check_implementation(cfg.attn_impl)
+
+
+def build_model(cfg: ModelConfig, device="cuda",
+                generator: Optional[torch.Generator] = None):
+    """The module for ``cfg``, initialised from ``generator`` and moved to
+    ``device``: the card by default.  Without a CUDA device it raises;
+    pass ``device='cpu'`` to build on the CPU."""
+    _validate(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA device is available; pass "
+                           "device='cpu' to build the model on the CPU")
+    dtype = cfg.torch_dtype()
+    if cfg.model == "vit1d":
+        return VisionTransformer1D(
+            build_tokenizer(cfg, generator=generator), depth=cfg.depth,
+            n_heads=cfg.n_heads, mlp_dim=cfg.mlp_dim, num_classes=cfg.num_classes,
+            posemb=cfg.posemb, dtype=dtype, attn_impl=cfg.attn_impl,
+            device=device, generator=generator)
     kw = dict(image_size=cfg.img_size, patch_size=cfg.patch_size,
               num_classes=cfg.num_classes, dim=cfg.embed_dim, depth=cfg.depth,
               heads=cfg.n_heads, mlp_dim=cfg.mlp_dim, dim_head=cfg.dim_head,
-              dtype=cfg.torch_dtype(), device=device, generator=generator)
+              dtype=dtype, device=device, generator=generator)
     if cfg.model == "simple":
         return SimpleViT(**kw)
     return CurveViT(curve=cfg.curve, **kw)

@@ -3,18 +3,21 @@
 PyTorch runs eagerly, so a step is a plain function: mix, forward,
 soft-target loss, backward (the encoder blocks' backward kernels on the
 card), clip by global norm, AdamW.  The optimizer and the clipping are
-plain PyTorch, as the JAX package leaves them to XLA.
+plain PyTorch, as the JAX package leaves them to XLA.  The mixing draws
+from a CPU generator and dropout from a second generator on the model's
+device, as the JAX step splits its key into a mixing and a dropout key.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..models.layers import dropout_generator
 from .losses import soft_target_cross_entropy
 from .mixing import mix_or_cutmix
 from .schedules import Schedule
@@ -95,10 +98,12 @@ def _soft_targets(y_a, y_b, lam: torch.Tensor, num_classes: int):
 def make_train_step(num_classes: int, mixup_alpha: float = 0.2,
                     cutmix_alpha: float = 1.0, mix_prob: float = 0.5,
                     use_mixing: bool = True, grad_accum: int = 1) -> Callable:
-    """Build ``step(state, batch, generator) -> metrics``.
+    """Build ``step(state, batch, generator, dropout_gen=None) -> metrics``.
 
     ``batch`` is ``(images [B, H, W, C], labels [B])`` on the model's
-    device; ``generator`` (a CPU ``torch.Generator``) draws the mixing.
+    device; ``generator`` (a CPU ``torch.Generator``) draws the mixing and
+    ``dropout_gen`` (a ``torch.Generator`` on the model's device) every
+    dropout mask of the forward (None: PyTorch's default generator).
     Metrics: the loss, the lambda-weighted accuracy and the lr of the
     update (loss and accuracy stay on the device).
 
@@ -110,7 +115,9 @@ def make_train_step(num_classes: int, mixup_alpha: float = 0.2,
         raise ValueError(f"grad_accum={grad_accum}: must be >= 1")
 
     def step(state: TrainState, batch: Tuple[torch.Tensor, torch.Tensor],
-             generator: torch.Generator) -> Dict[str, torch.Tensor]:
+             generator: torch.Generator,
+             dropout_gen: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
         x, y = batch
         y = y.long()
         if use_mixing:
@@ -130,7 +137,8 @@ def make_train_step(num_classes: int, mixup_alpha: float = 0.2,
         for i in range(grad_accum):
             rows = slice(i, None, grad_accum)
             ya, yb = y_a[rows], y_b[rows]
-            logits = model(x[rows])
+            with dropout_generator(dropout_gen):
+                logits = model(x[rows])
             loss = soft_target_cross_entropy(
                 logits, _soft_targets(ya, yb, lam_t, num_classes))
             (loss / grad_accum).backward()

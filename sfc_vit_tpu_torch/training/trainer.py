@@ -128,7 +128,11 @@ class Trainer:
         optimizer = make_optimizer(model.parameters(), self.schedule,
                                    config.weight_decay, config.grad_clip)
         self.state = TrainState(model=model, optimizer=optimizer)
+        # Mixing draws on the CPU; dropout on the model's device, from a
+        # stream of its own (seed + 1: distinct even when both are CPU).
         self.generator = torch.Generator().manual_seed(config.seed)
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(
+            config.seed + 1)
         self._train_step = make_train_step(
             num_classes=config.num_classes, mixup_alpha=config.mixup_alpha,
             cutmix_alpha=config.cutmix_alpha, mix_prob=config.mix_prob,
@@ -157,7 +161,8 @@ class Trainer:
         images = 0
         for batch in batches:
             x, y = self._batch(batch)
-            m = self._train_step(self.state, (x, y), self.generator)
+            m = self._train_step(self.state, (x, y), self.generator,
+                                 self.dropout_generator)
             losses.append(m["loss"])
             accs.append(m["accuracy"])
             images += y.shape[0]

@@ -35,6 +35,14 @@ from sfc_vit_tpu_torch.ops.fused_mlp import (
     mlp_block_ref,
     mlp_block_train_fwd,
 )
+from sfc_vit_tpu_torch.ops.flash_attention import _packed_xla_ref, packed_flash_attention
+from sfc_vit_tpu_torch.ops.fused_torch_attention import (
+    fused_torch_mha,
+    torch_mha_bwd,
+    torch_mha_bwd_ref,
+    torch_mha_fwd_ref,
+    torch_mha_train_fwd,
+)
 from sfc_vit_tpu_torch.ops.kernel_utils import ln_bwd_fp32, ln_fp32
 
 # bf16 tolerance of tests/test_fused_attention_block.py: the kernels
@@ -101,6 +109,7 @@ def test_gemm_rejects_unaligned_widths(k, n):
 
 
 def test_attention_rejects_head_dim_other_than_64():
+    """64 (ViT-B) and 192 (the family-A flagship) are the instantiations."""
     qkv = torch.zeros(1, 4, 3 * 2 * 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="takes 64"):
         _build.attention_fwd(qkv, heads=2, n_valid=4, scale=1.0)
@@ -123,6 +132,15 @@ def test_backward_launchers_reject_what_the_kernels_do_not_take():
         _build.ln_rows_bwd(a, torch.zeros(16, 8), torch.ones(8), a, 1e-5)
     with pytest.raises(ValueError, match="multiple of 8"):
         _build.act_bf16(torch.zeros(3, dtype=torch.bfloat16), "gelu")
+
+
+def test_colsum_and_mask_arguments_are_checked():
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _build.colsum(torch.zeros(4, 12, dtype=torch.bfloat16))
+    qkv = torch.zeros(1, 4, 3 * 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="keep"):
+        _build.attention_fwd(qkv, 1, 4, 1.0, mask=torch.ones(1, 1, 4, 4, dtype=torch.bool),
+                             keep=0.0)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -438,3 +456,130 @@ def test_curvevit_kernel_path_matches_plain_path(cuda):
     assert got.shape == (5, 10) and torch.isfinite(got).all()
     # logits after two bf16 layers of each path
     torch.testing.assert_close(got.float(), want.float(), rtol=5e-2, atol=5e-2)
+
+
+# -- family-A kernels (#5, #6, #7) on the card ---------------------------------
+
+# The kernels and their plain versions round at the same points; sums in
+# another order flip single roundings by one bf16 ulp.
+def _mha_args(rng, b, n, d, heads, device, keep=0.9):
+    return dict(
+        x=_randn(rng, b, n, d, device=device),
+        w_in=_randn(rng, d, 3 * d, scale=d ** -0.5, device=device),
+        b_in=_randn(rng, 3 * d, scale=0.1, device=device),
+        w_out=_randn(rng, d, d, scale=d ** -0.5, device=device),
+        b_out=_randn(rng, d, scale=0.1, device=device),
+        mask=torch.from_numpy(rng.random((b, heads, n, n)) < keep).to(device),
+        g=_randn(rng, b, n, d, device=device))
+
+
+_MHA_SHAPES = [(2, 24, 128, 2, 20), (8, 64, 768, 4, None), (4, 64, 768, 4, 50),
+               (2, 130, 384, 2, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d, heads, n_actual", _MHA_SHAPES)
+def test_torch_mha_fwd_matches_ref(cuda, b, n, d, heads, n_actual):
+    a = _mha_args(np.random.default_rng(20), b, n, d, heads, cuda)
+    args = [a[k] for k in ("x", "w_in", "b_in", "w_out", "b_out", "mask")]
+    before = fused_torch_mha.launches
+    got = torch_mha_train_fwd(*args, heads, keep=0.9, n_actual=n_actual)
+    want = torch_mha_fwd_ref(*args, heads, keep=0.9, n_actual=n_actual, save_acts=True)
+    assert fused_torch_mha.launches == before + 1
+    for name, x, w in zip(("y", "qkv", "att"), got[:3], want[:3]):
+        torch.testing.assert_close(x.float(), w.float(), **BF16_TOL, msg=name)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-3, atol=1e-3)
+    with torch.no_grad():
+        torch.testing.assert_close(fused_torch_mha(*args, heads, keep=0.9,
+                                                   n_actual=n_actual),
+                                   got[0], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d, heads, n_actual", _MHA_SHAPES)
+def test_torch_mha_bwd_matches_ref(cuda, b, n, d, heads, n_actual):
+    a = _mha_args(np.random.default_rng(21), b, n, d, heads, cuda)
+    fwd = [a[k] for k in ("x", "w_in", "b_in", "w_out", "b_out", "mask")]
+    _, qkv, att, lse = torch_mha_train_fwd(*fwd, heads, keep=0.9, n_actual=n_actual)
+    saved = (a["x"], a["g"], a["w_in"], a["w_out"], a["mask"], qkv, att, lse)
+    got = torch_mha_bwd(*saved, heads, keep=0.9, n_actual=n_actual)
+    want = torch_mha_bwd_ref(*saved, heads, keep=0.9, n_actual=n_actual)
+    for name, x, w in zip(("dx", "dw_in", "db_in", "dw_out", "db_out"), got, want):
+        assert x.dtype == w.dtype, name
+        scale = float(w.float().abs().max())
+        assert float((x.float() - w.float()).abs().max()) <= 2e-2 * scale, name
+    if n_actual is not None:
+        assert not got[0][:, n_actual:].any()
+    leaves = [t.clone().requires_grad_() for t in fwd[:5]]
+    before = fused_torch_mha.bwd_launches
+    fused_torch_mha(*leaves, a["mask"], heads, keep=0.9, n_actual=n_actual).backward(a["g"])
+    assert fused_torch_mha.bwd_launches == before + 1
+    for t, w in zip(leaves, want):
+        assert t.grad.dtype == torch.bfloat16
+        scale = float(w.float().abs().max())
+        assert float((t.grad.float() - w.float()).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, heads, dh", [(2, 24, 2, 64), (16, 64, 4, 192),
+                                             (3, 200, 2, 192)])
+def test_packed_flash_attention_matches_plain(cuda, b, n, heads, dh):
+    qkv = _randn(np.random.default_rng(22), b, n, 3 * heads * dh)
+    before = packed_flash_attention.launches
+    with torch.no_grad():
+        got = packed_flash_attention(qkv, heads)
+    assert packed_flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), _packed_xla_ref(qkv, heads, dh ** -0.5).float(),
+                               **ONE_ROUND_TOL)
+
+
+@pytest.mark.gpu
+def test_colsum_matches_sum(cuda):
+    x = _randn(np.random.default_rng(23), 1000, 2304)
+    torch.testing.assert_close(_build.colsum(x), x.float().sum(0), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_family_a_kernels_refuse_fp32(cuda):
+    a = _mha_args(np.random.default_rng(24), 1, 8, 128, 2, cuda)
+    args = [a[k].float() for k in ("x", "w_in", "b_in", "w_out", "b_out")]
+    with pytest.raises(NotImplementedError, match="item 15"):
+        fused_torch_mha(*args, a["mask"], 2, keep=0.9)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 15"):
+        packed_flash_attention(torch.zeros(1, 8, 3 * 128, device=cuda), 2)
+
+
+@pytest.mark.gpu
+def test_flagship_kernel_path_matches_plain_path(cuda):
+    """A small flagship on the card: eval through #7, training through #5
+    and #6, each against the plain versions."""
+    from unittest import mock
+
+    import sfc_vit_tpu_torch.models.layers as layers
+    import sfc_vit_tpu_torch.ops.attention as attention
+    from sfc_vit_tpu_torch.ops.fused_torch_attention import torch_mha_train
+    from sfc_vit_tpu_torch.registry import build_model, preset_config
+
+    cfg = preset_config("flagship", img_size=16, depth=2, dtype="bfloat16")
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    x = _randn(np.random.default_rng(25), 6, 16, 16, 3)
+    plain_packed = lambda qkv, heads, scale=None: _packed_xla_ref(  # noqa: E731
+        qkv, heads, (qkv.shape[-1] // 3 // heads) ** -0.5)
+    before = packed_flash_attention.launches
+    with torch.no_grad():
+        got = model.eval()(x)
+        with mock.patch.object(attention, "packed_flash_attention", plain_packed):
+            want = model(x)
+    assert packed_flash_attention.launches == before + cfg.depth
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2, atol=5e-2)
+    model.train()
+    grads = []
+    for plain in (False, True):
+        ctx = (mock.patch.object(layers, "fused_torch_mha", torch_mha_train) if plain
+               else mock.patch.object(layers, "fused_torch_mha", fused_torch_mha))
+        model.zero_grad()
+        with ctx, layers.dropout_generator(torch.Generator(device=cuda).manual_seed(1)):
+            model(x).float().sum().backward()
+        grads.append([p.grad.float().clone() for p in model.parameters()])
+    for g, w in zip(*grads):
+        assert float((g - w).norm() / w.norm()) <= 0.1

@@ -116,7 +116,7 @@ def test_presets_match_the_jax_registry():
 
 def test_build_model_vit_b_16_config():
     cfg = preset_config("vit-b-16", depth=1, num_classes=1000, dtype="bfloat16")
-    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     assert isinstance(model, CurveViT)
     assert model.to_patch_embedding.n_patches == 196
     attn = model.transformer.attn_0
@@ -126,7 +126,7 @@ def test_build_model_vit_b_16_config():
 
 
 @pytest.mark.parametrize("name, overrides, match", [
-    ("flagship", {}, "queue 1 item 7"),
+    ("flagship", {"model": "vit"}, "queue 1 item 7"),
     ("notebook", {}, "queue 1 item 7"),
     ("longctx-16k", {}, "token merge"),
     ("vit-b-16", {"remat": True}, "train step"),
@@ -134,9 +134,9 @@ def test_build_model_vit_b_16_config():
 ])
 def test_build_model_names_the_roadmap_item(name, overrides, match):
     with pytest.raises(NotImplementedError, match=match):
-        build_model(preset_config(name, **overrides))
+        build_model(preset_config(name, **overrides), device="cpu")
 
 
 def test_build_model_rejects_unknown_curve():
     with pytest.raises(KeyError, match="unknown curve"):
-        build_model(preset_config("vit-tiny-4", curve="nope"))
+        build_model(preset_config("vit-tiny-4", curve="nope"), device="cpu")
