@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ViT-B/16 serving path and train step, and the
-family-A flagship's train step and serving path, once on one NVIDIA GPU.
+"""Drive the PyTorch port's ViT-B/16 serving path and train step, the
+family-A flagship's train step and serving path, and the long-context
+models' (16,384 tokens with token merge, and 4,096) train steps and
+serving, once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one
                                  # NVIDIA H100 (sm_90a) and nvcc
@@ -48,6 +50,29 @@ Phases, each of which raises (non-zero exit) on failure:
    ``ServingEngine(batch_sizes=(16, 256))`` answers 1, 100 and 256
    images, logits against the plain forward; train img/s both paths,
    forward img/s at batch 256, peak memory, a profile of the train step.
+8. flash kernels: #8 (streaming) and #10 / #11 at the long-context
+   preset's attention shape (batch 2, 16,384 tokens, 6 heads of 64, q, k,
+   v as views of one packed projection), #8 (single K step) and #9 at
+   CurveViT-S/12's (batch 16, 4,096 tokens) and a ragged case (3,000
+   queries, 5,000 keys) through all four, each against its plain version
+   with its error beside its tolerance and the lse against fp64; each
+   timed beside its plain version, its bound and
+   ``F.scaled_dot_product_attention`` (forward for #8, its autograd
+   backward for #9-#11); #9 against #10 + #11 at 8,192 tokens, the
+   length JAX's ``_FUSED_BWD_MAX`` hard-codes.
+9. long-context slice: (a) ``build_model(preset_config("longctx-16k"))``
+   (fp32 parameters, bf16 compute, token merge after layer 1):
+   ``Trainer.fit`` for 4 steps at batch 2 on synthetic_dataset(hw=128,
+   10 classes) plus an eval batch, then ``ServingEngine(batch_sizes=(1,
+   4))`` answers 1 and 4 images; (b) CurveViT-S/12 at 4,096 tokens
+   (``preset_config("vit-s-16", img_size=256, patch_size=4,
+   num_classes=1000, dtype="bfloat16")``), 4 steps at batch 16, an eval
+   batch, and the same serving.  For each: finite losses, every
+   parameter moved, #8 launched depth x forwards and #10 + #11 (a) or #9
+   (b) depth x steps, one step's gradients through the kernels against
+   the plain versions (relative L2 per tensor), train img/s and tokens/s
+   on both paths, serving img/s at batch 4, peak memory; a profile of one
+   16k-token step.
    Then no module of jax, flax or the JAX package may have loaded.
 
 The line before the last is one JSON object describing the kernels; the
@@ -72,6 +97,7 @@ import torch.nn.functional as TF
 import sfc_vit_tpu_torch.models.layers as fa_layers
 import sfc_vit_tpu_torch.models.simple_vit as simple_vit
 import sfc_vit_tpu_torch.ops.attention as fa_attention
+import sfc_vit_tpu_torch.ops.flash_attention as flash
 from sfc_vit_tpu_torch.data import epoch_batches, make_eval_transform, synthetic_dataset
 from sfc_vit_tpu_torch.ops import _build
 from sfc_vit_tpu_torch.ops.fused_attention_block import (
@@ -143,6 +169,22 @@ LSE_TOL = dict(rtol=1e-5, atol=1e-5)
 FA_TRAIN_STEPS = 4
 FA_REQUESTS = (1, 100, 256)
 FA_BATCH_SIZES = (16, 256)
+#: Flash kernels, bf16, against their plain versions at the kernels' own
+#: rounding points (#8 at its 64-key steps): one rounding of an fp32 sum
+#: taken in another order (and #10/#11's two-term bf16 split of p and ds,
+#: ~2^-16 relative) flips an element by one bf16 ulp at most; every error
+#: is held within this fraction of its tensor's largest |value|.
+FLASH_TOL = 1e-2
+#: #9 against JAX's fused arithmetic: it takes the forward's lse where the
+#: TPU kernel divides by its own row sum, and delta = rowsum(g * O) over
+#: the bf16 output where the TPU kernel takes rowsum(dp * p) in fp32 (a
+#: 2^-9 relative error in each O element): a few bf16 ulps.
+FLASH_FUSED_TOL = 2e-2
+#: The long-context preset's attention (batch 2, 16,384 tokens, 6 heads of
+#: 64) and CurveViT-S/12's at 4,096 tokens (batch 16).
+LC_B, LC_N, LC_HEADS = 2, 16384, 6
+VS_B, VS_N = 16, 4096
+LC_STEPS, VS_STEPS = 4, 4
 #: The H100 SXM's published dense bf16 rate and memory rate (NVIDIA's data
 #: sheet), the denominators of every bound.
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -532,10 +574,16 @@ def phase_train(card: str) -> dict:
     return launches
 
 
-#: The GEMM's three layouts, by template arguments <trans_a, trans_b>.
+#: Kernels told apart by their template arguments: the GEMM's three
+#: layouts <trans_a, trans_b>, #8's two forms and #11 against #9.
 _GEMM_LABELS = {"gemm_bf16_kernel<false, false>": "gemm_bf16 NN (forward)",
                 "gemm_bf16_kernel<false, true>": "gemm_bf16 NT (dX, dz, datt)",
-                "gemm_bf16_kernel<true, false>": "gemm_bf16 TN (weight gradients)"}
+                "gemm_bf16_kernel<true, false>": "gemm_bf16 TN (weight gradients)",
+                "flash_fwd_kernel<64, true>": "flash_fwd streaming (#8)",
+                "flash_fwd_kernel<64, false>": "flash_fwd single K step (#8)",
+                "flash_dkv_kernel<64, false>": "flash_dkv (#11)",
+                "flash_dkv_kernel<64, true>": "flash_dkv fused (#9)",
+                "flash_dq_kernel<64>": "flash_dq (#10)"}
 
 
 def _kernel_label(name: str) -> str:
@@ -840,6 +888,360 @@ def phase_fa_slice(card: str) -> dict:
     return launches
 
 
+def _lse64_chunked(q, k, scale, chunk: int = 1024) -> torch.Tensor:
+    """fp64 log-sum-exp of every query's scaled logits, [B, H, Nq], a
+    chunk of queries at a time."""
+    kd = k.double().transpose(1, 2)
+    out = []
+    for q0 in range(0, q.shape[1], chunk):
+        qd = q[:, q0:q0 + chunk].double().transpose(1, 2)
+        out.append(torch.logsumexp((qd @ kd.transpose(-1, -2)) * scale, dim=-1))
+    return torch.cat(out, dim=-1)
+
+
+def _frac_err(name: str, got, want, frac: float) -> float:
+    """max |got - want| within ``frac`` x max |want|; returns the error."""
+    _check(got.dtype == want.dtype, f"{name}: dtype {got.dtype} != {want.dtype}")
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    print(f"  {name}: max abs err {err:.4g}, max |value| {scale:.4g} (tolerance "
+          f"{frac} x max |value| = {frac * scale:.4g})")
+    _check(err <= frac * scale, f"{name} disagrees with its plain version")
+    return err
+
+
+def _packed_views(gen, b, n, heads):
+    """q, k, v [B, N, H, 64] as views of one packed projection (the model's
+    layout) and a cotangent g."""
+    qkv = _randn(gen, b, n, 3 * heads * 64)
+    q, k, v = qkv.view(b, n, 3, heads, 64).unbind(2)
+    return q, k, v, _randn(gen, b, n, heads, 64)
+
+
+def _sdpa_ms(q, k, v, g):
+    """F.scaled_dot_product_attention forward and autograd-backward ms on
+    contiguous [B, H, N, Dh] copies (the library yardstick; the port never
+    calls it)."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        fwd = _ms(lambda: TF.scaled_dot_product_attention(qt, kt, vt), iters=5)
+    out = TF.scaled_dot_product_attention(qt, kt, vt)
+
+    def bwd():
+        for t in (qt, kt, vt):
+            t.grad = None
+        out.backward(gt, retain_graph=True)
+    return fwd, _ms(bwd, iters=5)
+
+
+def _flash_bytes(b, nq, nk, h, *, n_bf16_q, n_bf16_k, n_fp32_q):
+    """Bytes a flash call must move: bf16 [B, N, H, 64] tensors over the
+    queries and the keys, fp32 [B, H, Nq] rows."""
+    return 2 * 64 * h * b * (n_bf16_q * nq + n_bf16_k * nk) + 4 * b * h * nq * n_fp32_q
+
+
+def phase_flash_kernels(card: str) -> dict:
+    """Kernels #8-#11 at the long-context shapes against their plain
+    versions, timed beside their bounds and SDPA."""
+    gen = torch.Generator().manual_seed(4)
+    s = 64 ** -0.5
+    res = {k: dict(errs=[]) for k in ("flash_attention", "flash_attention_fused_bwd",
+                                      "flash_attention_dq", "flash_attention_dkv")}
+    with torch.no_grad():
+        # Long-context preset: #8 streaming, #10, #11.
+        b, n, h = LC_B, LC_N, LC_HEADS
+        q, k, v, g = _packed_views(gen, b, n, h)
+        print(f"#8 streaming, q/k/v [{b}, {n}, {h}, 64] views of qkv [{b}, {n}, "
+              f"{3 * h * 64}] bf16:")
+        out, lse = flash.flash_fwd(q, k, v, s, return_lse=True)
+        want = flash.flash_fwd_ref(q, k, v, s, block_q=n, block_k=64)
+        res["flash_attention"]["errs"].append(_frac_err("out", out, want, FLASH_TOL))
+        lse_err, lse_ok = _agree(lse, _lse64_chunked(q, k, s), **LSE_TOL)
+        print(f"  lse: max abs err {lse_err:.4g} against fp64 (tolerance rtol "
+              f"{LSE_TOL['rtol']}, atol {LSE_TOL['atol']})")
+        _check(lse_ok, "kernel #8: lse disagrees with the fp64 log-sum-exp")
+        del want
+        delta = flash.flash_delta(g, out)
+        print(f"#10 / #11 from the saved out and lse:")
+        dq = flash.flash_dq(q, k, v, g, lse, delta, s)
+        res["flash_attention_dq"]["errs"].append(_frac_err(
+            "dq", dq, flash.flash_dq_ref(q, k, v, g, lse, delta, s), FLASH_TOL))
+        dk, dv = flash.flash_dkv(q, k, v, g, lse, delta, s)
+        want_dk, want_dv = flash.flash_dkv_ref(q, k, v, g, lse, delta, s)
+        res["flash_attention_dkv"]["errs"] += [
+            _frac_err("dk", dk, want_dk, FLASH_TOL), _frac_err("dv", dv, want_dv, FLASH_TOL)]
+        del dq, dk, dv, want_dk, want_dv
+        t = res["flash_attention"]
+        t["ms"], t["plain_ms"] = _ab_ms(lambda: flash.flash_fwd(q, k, v, s),
+                                        lambda: flash.flash_fwd_ref(q, k, v, s, block_q=n, block_k=64),
+                                        iters=3)
+        t.update(_bound(4 * b * h * n * n * 64,
+                        _flash_bytes(b, n, n, h, n_bf16_q=2, n_bf16_k=2, n_fp32_q=0)))
+        t["shape"] = f"q/k/v [{b}, {n}, {h}, 64], streaming"
+        t = res["flash_attention_dq"]
+        t["ms"], t["plain_ms"] = _ab_ms(
+            lambda: flash.flash_dq(q, k, v, g, lse, delta, s),
+            lambda: flash.flash_dq_ref(q, k, v, g, lse, delta, s), iters=3)
+        t.update(_bound(6 * b * h * n * n * 64,
+                        _flash_bytes(b, n, n, h, n_bf16_q=3, n_bf16_k=2, n_fp32_q=2)))
+        t = res["flash_attention_dkv"]
+        t["ms"], t["plain_ms"] = _ab_ms(
+            lambda: flash.flash_dkv(q, k, v, g, lse, delta, s),
+            lambda: flash.flash_dkv_ref(q, k, v, g, lse, delta, s), iters=3)
+        t.update(_bound(8 * b * h * n * n * 64,
+                        _flash_bytes(b, n, n, h, n_bf16_q=2, n_bf16_k=4, n_fp32_q=2)))
+    lib_fwd, lib_bwd = _sdpa_ms(q, k, v, g)
+    res["flash_attention"]["library_ms"] = lib_fwd
+    res["flash_attention_dq"]["library_ms"] = res["flash_attention_dkv"]["library_ms"] = lib_bwd
+    for name, what in (("flash_attention", "#8 streaming"), ("flash_attention_dq", "#10"),
+                       ("flash_attention_dkv", "#11")):
+        t = res[name]
+        print(f"{what}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.3f} ms ({t['bound_by']}), F.scaled_dot_product_attention "
+              f"{'forward' if name == 'flash_attention' else 'backward (dq, dk, dv)'} "
+              f"{t['library_ms']:.3f} ms; [{b}, {n}, {h}, 64] bf16, {card}")
+    del q, k, v, g, out, lse, delta
+
+    with torch.no_grad():
+        # CurveViT-S/12 at 4,096 tokens: #8 single K step, #9.
+        b, n, h = VS_B, VS_N, LC_HEADS
+        q, k, v, g = _packed_views(gen, b, n, h)
+        print(f"#8 single K step and #9, q/k/v [{b}, {n}, {h}, 64] views of a packed "
+              f"projection:")
+        out, lse = flash.flash_fwd(q, k, v, s, return_lse=True)
+        res["flash_attention"]["errs"].append(
+            _frac_err("out", out, flash.flash_fwd_ref(q, k, v, s), FLASH_TOL))
+        lse_err, lse_ok = _agree(lse, _lse64_chunked(q, k, s), **LSE_TOL)
+        print(f"  lse: max abs err {lse_err:.4g} against fp64")
+        _check(lse_ok, "kernel #8 (single step): lse disagrees with the fp64 log-sum-exp")
+        got = flash.flash_fused_bwd(q, k, v, out, lse, g, s)
+        want = flash.flash_fused_bwd_ref(q, k, v, g, s)
+        res["flash_attention_fused_bwd"]["errs"] += [
+            _frac_err(nm, a, w, FLASH_FUSED_TOL) for nm, a, w in zip(("dq", "dk", "dv"), got, want)]
+        del got, want
+        ms1, plain1 = _ab_ms(lambda: flash.flash_fwd(q, k, v, s),
+                             lambda: flash.flash_fwd_ref(q, k, v, s), iters=3)
+        t = res["flash_attention_fused_bwd"]
+        t["ms"], t["plain_ms"] = _ab_ms(
+            lambda: flash.flash_fused_bwd(q, k, v, out, lse, g, s),
+            lambda: flash.flash_fused_bwd_ref(q, k, v, g, s), iters=3)
+        t.update(_bound(10 * b * h * n * n * 64,  # q, g, out, dq; k, v, dk, dv; lse
+                        _flash_bytes(b, n, n, h, n_bf16_q=4, n_bf16_k=4, n_fp32_q=1)))
+    lib_fwd, lib_bwd = _sdpa_ms(q, k, v, g)
+    res["flash_attention_fused_bwd"]["library_ms"] = lib_bwd
+    t = res["flash_attention_fused_bwd"]
+    bound1 = _bound(4 * b * h * n * n * 64,
+                    _flash_bytes(b, n, n, h, n_bf16_q=2, n_bf16_k=2, n_fp32_q=0))
+    print(f"#8 single K step: kernel {ms1:.3f} ms, plain {plain1:.3f} ms, bound "
+          f"{bound1['bound_ms']:.3f} ms ({bound1['bound_by']}), SDPA forward "
+          f"{lib_fwd:.3f} ms; #9: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+          f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}), SDPA backward {lib_bwd:.3f} "
+          f"ms; [{b}, {n}, {h}, 64] bf16, {card}")
+    del q, k, v, g, out, lse
+
+    with torch.no_grad():
+        # Ragged: 3,000 queries against 5,000 keys (streaming forward, #9
+        # by JAX's gate) through all four kernels.
+        b, nq, nk, h = 2, 3000, 5000, LC_HEADS
+        q, g = _randn(gen, b, nq, h, 64), _randn(gen, b, nq, h, 64)
+        k, v = _randn(gen, b, nk, h, 64), _randn(gen, b, nk, h, 64)
+        print(f"ragged: q [{b}, {nq}, {h}, 64], k/v [{b}, {nk}, {h}, 64]:")
+        out, lse = flash.flash_fwd(q, k, v, s, return_lse=True)
+        res["flash_attention"]["errs"].append(
+            _frac_err("out", out, flash.flash_fwd_ref(q, k, v, s, block_q=nq, block_k=64), FLASH_TOL))
+        lse_err, lse_ok = _agree(lse, _lse64_chunked(q, k, s), **LSE_TOL)
+        print(f"  lse: max abs err {lse_err:.4g} against fp64")
+        _check(lse_ok, "kernel #8 (ragged): lse disagrees with the fp64 log-sum-exp")
+        delta = flash.flash_delta(g, out)
+        res["flash_attention_dq"]["errs"].append(_frac_err(
+            "dq", flash.flash_dq(q, k, v, g, lse, delta, s),
+            flash.flash_dq_ref(q, k, v, g, lse, delta, s), FLASH_TOL))
+        res["flash_attention_dkv"]["errs"] += [
+            _frac_err(nm, a, w, FLASH_TOL) for nm, a, w in zip(
+                ("dk", "dv"), flash.flash_dkv(q, k, v, g, lse, delta, s),
+                flash.flash_dkv_ref(q, k, v, g, lse, delta, s))]
+        res["flash_attention_fused_bwd"]["errs"] += [
+            _frac_err(nm, a, w, FLASH_FUSED_TOL) for nm, a, w in zip(
+                ("dq (#9)", "dk (#9)", "dv (#9)"),
+                flash.flash_fused_bwd(q, k, v, out, lse, g, s),
+                flash.flash_fused_bwd_ref(q, k, v, g, s))]
+        del q, k, v, g, out, lse, delta
+
+        # #9 against #10 + #11 at JAX's _FUSED_BWD_MAX (8,192 tokens).
+        b, n, h = 4, flash.FUSED_BWD_MAX, LC_HEADS
+        q, k, v, g = _packed_views(gen, b, n, h)
+        out, lse = flash.flash_fwd(q, k, v, s, return_lse=True)
+
+        def pair():
+            d = flash.flash_delta(g, out)
+            flash.flash_dq(q, k, v, g, lse, d, s)
+            flash.flash_dkv(q, k, v, g, lse, d, s)
+        fused_ms, pair_ms = _ab_ms(lambda: flash.flash_fused_bwd(q, k, v, out, lse, g, s),
+                                   pair, iters=3)
+        print(f"at {n} tokens (JAX's _FUSED_BWD_MAX), batch {b}, {h} heads of 64: #9 "
+              f"{fused_ms:.3f} ms, #10 + #11 (with their delta) {pair_ms:.3f} ms "
+              f"({'#9' if fused_ms < pair_ms else '#10 + #11'} faster); the gate stays "
+              f"at {flash.FUSED_BWD_MAX}, {card}")
+        del q, k, v, g, out, lse
+    for t in res.values():
+        t["max_abs_err"] = max(t.pop("errs"))
+    return res
+
+
+def _plain_longctx():
+    """Route a family-B model through the plain versions of every kernel
+    on its path (comparison only): flash #8-#11, the MLP blocks #2/#3 and
+    the attention blocks #1/#4."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(fa_attention, "flash_attention",
+                                          flash.flash_attention_ref))
+    stack.enter_context(_plain_blocks())
+    return stack
+
+
+def _reset_flash_counts():
+    f = flash.flash_attention
+    f.launches = f.fused_bwd_launches = f.dq_launches = f.dkv_launches = 0
+
+
+def _flash_counts() -> dict:
+    f = flash.flash_attention
+    return {"flash_attention": f.launches, "flash_attention_fused_bwd": f.fused_bwd_launches,
+            "flash_attention_dq": f.dq_launches, "flash_attention_dkv": f.dkv_launches}
+
+
+def _longctx_model(card: str, label: str, cfg, batch: int, steps: int,
+                   bwd_kernels: tuple, profile: bool) -> dict:
+    """Train, evaluate and serve one long-context model on the card; returns
+    the flash launch counts of its main path."""
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    n_tokens = (cfg.img_size // cfg.patch_size) ** 2
+    stats = ((0.5,) * 3, (0.25,) * 3)
+    train_ds = synthetic_dataset(n=batch * steps, hw=cfg.img_size,
+                                 num_classes=cfg.num_classes, seed=0)
+    test_ds = synthetic_dataset(n=batch, hw=cfg.img_size, num_classes=cfg.num_classes,
+                                seed=1)
+    tf = make_eval_transform(*stats, device=DEVICE)
+    trainer = Trainer(model, TrainConfig(num_classes=cfg.num_classes, epochs=1,
+                                         warmup_epochs=1), steps_per_epoch=steps)
+    before = [p.detach().clone() for p in model.parameters()]
+    _reset_flash_counts()
+    record = trainer.fit(
+        lambda: ((tf(x), y) for x, y in epoch_batches(train_ds, batch, seed=0)),
+        lambda: ((tf(x), y) for x, y in epoch_batches(test_ds, batch, shuffle=False,
+                                                      drop_last=False)))
+    torch.cuda.synchronize()
+    counts = _flash_counts()
+    print(f"{label}: Trainer.fit, 1 epoch of {steps} steps at batch {batch} + eval of "
+          f"{len(test_ds)}: {record}")
+    print(f"{label}: flash launches over {steps} train steps + 1 eval batch of depth "
+          f"{cfg.depth}: {counts}")
+    _check(bool(np.isfinite(record["train_loss"])), f"{label}: non-finite train loss")
+    _check(bool(np.isfinite(record["test_loss"])), f"{label}: non-finite eval loss")
+    _check(trainer.state.step == steps, f"{label}: {trainer.state.step} steps taken")
+    want = {"flash_attention": cfg.depth * (steps + 1)}
+    for name in ("flash_attention_fused_bwd", "flash_attention_dq", "flash_attention_dkv"):
+        want[name] = cfg.depth * steps if name in bwd_kernels else 0
+    _check(counts == want, f"{label}: flash launches {counts}, expected {want}")
+    still = [nm for (nm, p), q in zip(model.named_parameters(), before) if torch.equal(p, q)]
+    _check(not still, f"{label}: parameters unchanged after {steps} steps: {still}")
+    del before
+
+    # One step from the same parameters and batch, kernels against plain.
+    x, y = next(epoch_batches(train_ds, batch, seed=0))
+    batch_t = (tf(x), torch.from_numpy(y).long().to(DEVICE))
+    state = _lr_zero_state(model)
+    step = make_train_step(cfg.num_classes, use_mixing=False)
+    m_k = step(state, batch_t, torch.Generator())
+    grads = {nm: p.grad.detach().clone() for nm, p in model.named_parameters()}
+    with _plain_longctx():
+        m_p = step(state, batch_t, torch.Generator())
+    rel = {nm: float((grads[nm].float() - p.grad.float()).norm() / p.grad.float().norm())
+           for nm, p in model.named_parameters()}
+    worst = max(rel, key=rel.get)
+    print(f"{label}: one train step, kernels vs plain versions: loss "
+          f"{float(m_k['loss']):.6f} vs {float(m_p['loss']):.6f}; gradient relative L2 "
+          f"error max {rel[worst]:.4g} ({worst}), median "
+          f"{float(np.median(list(rel.values()))):.4g} over {len(rel)} tensors "
+          f"(tolerance {GRAD_REL_TOL})")
+    _check(rel[worst] <= GRAD_REL_TOL, f"{label}: kernel-path gradients disagree with "
+           "the plain path")
+    del grads
+
+    mixing_step = make_train_step(cfg.num_classes)
+    gen = torch.Generator().manual_seed(0)
+
+    def step_ms(plain: bool, n_steps: int = 2) -> float:
+        with _plain_longctx() if plain else contextlib.nullcontext():
+            mixing_step(state, batch_t, gen)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                mixing_step(state, batch_t, gen)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n_steps * 1e3
+
+    p1, k1, k2, p2 = (step_ms(plain) for plain in (True, False, False, True))
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f"{label}: train step at batch {batch} (mixing, clip, AdamW): kernels "
+          f"{k_ms:.2f} ms = {batch / k_ms * 1e3:.2f} img/s = "
+          f"{batch * n_tokens / k_ms * 1e3:.0f} tokens/s, plain versions {p_ms:.2f} ms "
+          f"= {batch / p_ms * 1e3:.2f} img/s = {batch * n_tokens / p_ms * 1e3:.0f} "
+          f"tokens/s, {card}")
+    print(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        _profile(lambda: mixing_step(state, batch_t, gen),
+                 f"{label} train step at batch {batch}", steps=1)
+    del state, batch_t
+
+    engine = ServingEngine(copy.deepcopy(model), None, (cfg.img_size, cfg.img_size, 3),
+                           batch_sizes=(1, 4), dtype=torch.bfloat16, device=DEVICE)
+    rng = np.random.default_rng(5)
+    requests = [rng.standard_normal((k, cfg.img_size, cfg.img_size, 3), dtype=np.float32)
+                for k in (1, 4)]
+    _reset_flash_counts()
+    outs = [engine.predict(r) for r in requests]
+    served = flash.flash_attention.launches
+    for k, out in zip((1, 4), outs):
+        _check(out.shape == (k, cfg.num_classes) and bool(np.isfinite(out).all()),
+               f"{label}: bad served logits for {k} images")
+    _check(served == 2 * cfg.depth, f"{label}: #8 launched {served} times over 2 served "
+           f"forwards of depth {cfg.depth}")
+    with _plain_longctx():
+        plain = [engine.predict(r) for r in requests]
+    outs, plain = np.concatenate(outs), np.concatenate(plain)
+    err, scale = float(np.abs(outs - plain).max()), float(np.abs(plain).max())
+    print(f"{label}: served 1 and 4 images, logits finite; #8 launched {served} times "
+          f"over 2 forwards; kernels vs plain versions max abs err {err:.4g} (max |logit| "
+          f"{scale:.4g}; tolerance {FA_LOGIT_TOL} x max |logit|)")
+    _check(err <= FA_LOGIT_TOL * scale, f"{label}: served logits disagree with the plain "
+           "forward")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        engine.predict(requests[-1])
+    serve_s = (time.perf_counter() - t0) / 3
+    print(f"{label}: predict() of 4 images, host to host: {serve_s * 1e3:.2f} ms = "
+          f"{4 / serve_s:.2f} img/s, {card}")
+    counts["flash_attention"] += served
+    return counts
+
+
+def phase_longctx(card: str) -> dict:
+    """The long-context slice: the longctx-16k preset and CurveViT-S/12 at
+    4,096 tokens, trained, evaluated and served through #8-#11."""
+    a = _longctx_model(card, "longctx-16k", preset_config("longctx-16k"), LC_B,
+                       LC_STEPS, ("flash_attention_dq", "flash_attention_dkv"),
+                       profile=True)
+    b = _longctx_model(card, "CurveViT-S/12 at 4,096 tokens",
+                       preset_config("vit-s-16", img_size=256, patch_size=4,
+                                     num_classes=1000, dtype="bfloat16"),
+                       VS_B, VS_STEPS, ("flash_attention_fused_bwd",), profile=False)
+    return {name: a[name] + b[name] for name in a}
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -849,6 +1251,8 @@ def main() -> int:
     launches.update({k: v for k, v in phase_train(card).items() if k.endswith("_bwd")})
     kernels.update(phase_fa_kernels(card))
     launches.update(phase_fa_slice(card))
+    kernels.update(phase_flash_kernels(card))
+    launches.update(phase_longctx(card))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "sfc_vit_tpu"))
     _check(not leaked, f"the port imported {leaked}")
@@ -874,6 +1278,18 @@ def main() -> int:
         dict(name="packed_flash_attention", route="cuda",
              source="sfc_vit_tpu_torch/csrc/attention_fwd.cu",
              replaces="sfc_vit_tpu/ops/flash_attention.py:907"),
+        dict(name="flash_attention", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/flash_fwd.cu",
+             replaces="sfc_vit_tpu/ops/flash_attention.py:114"),
+        dict(name="flash_attention_fused_bwd", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/flash_bwd.cu",
+             replaces="sfc_vit_tpu/ops/flash_attention.py:317"),
+        dict(name="flash_attention_dq", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/flash_bwd.cu",
+             replaces="sfc_vit_tpu/ops/flash_attention.py:440"),
+        dict(name="flash_attention_dkv", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/flash_bwd.cu",
+             replaces="sfc_vit_tpu/ops/flash_attention.py:482"),
     ]
     for e in entries:
         k = kernels[e["name"]]

@@ -17,6 +17,8 @@ from .simple_vit import (
     HilbertViT,
     PreNormTransformer,
     SimpleViT,
+    curve_pair_pool,
+    layer_route,
 )
 from .vit import VisionTransformer1D
 
@@ -35,6 +37,8 @@ __all__ = [
     "TransformerSeqEncoder",
     "VisionTransformer1D",
     "build_posemb",
+    "curve_pair_pool",
     "gfpe",
+    "layer_route",
     "sincos_1d",
 ]

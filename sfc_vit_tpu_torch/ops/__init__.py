@@ -4,7 +4,9 @@ attention dispatch."""
 from .attention import (
     attention_with_weights,
     dot_product_attention_xla,
+    multi_head_attention,
     packed_qkv_attention,
+    packed_route,
 )
 from .fused_attention_block import (
     attention_block_bwd,
@@ -22,7 +24,15 @@ from .fused_mlp import (
     mlp_block_ref,
     mlp_block_train_fwd,
 )
-from .flash_attention import packed_flash_attention
+# ``flash_attention`` (the function) stays in its module of the same name,
+# so that ``sfc_vit_tpu_torch.ops.flash_attention`` names the module.
+from .flash_attention import (
+    flash_dkv_ref,
+    flash_dq_ref,
+    flash_fused_bwd_ref,
+    flash_fwd_ref,
+    packed_flash_attention,
+)
 from .fused_torch_attention import (
     fused_torch_mha,
     torch_mha_bwd,
@@ -32,6 +42,7 @@ from .fused_torch_attention import (
     torch_mha_train_fwd,
 )
 from .kernel_utils import NEG_INF, ln_bwd_fp32, ln_fp32, round_up
+from .token_merge import curve_pair_merge_topk
 
 __all__ = [
     "NEG_INF",
@@ -42,7 +53,12 @@ __all__ = [
     "attention_bwd_ref",
     "attention_fwd_ref",
     "attention_with_weights",
+    "curve_pair_merge_topk",
     "dot_product_attention_xla",
+    "flash_dkv_ref",
+    "flash_dq_ref",
+    "flash_fused_bwd_ref",
+    "flash_fwd_ref",
     "fused_attention_block",
     "fused_mlp_block",
     "fused_torch_mha",
@@ -52,8 +68,10 @@ __all__ = [
     "mlp_block_bwd_ref",
     "mlp_block_ref",
     "mlp_block_train_fwd",
+    "multi_head_attention",
     "packed_flash_attention",
     "packed_qkv_attention",
+    "packed_route",
     "round_up",
     "torch_mha_bwd",
     "torch_mha_bwd_ref",

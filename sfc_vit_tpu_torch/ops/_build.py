@@ -17,9 +17,10 @@ unchanged one loads the library already there.  A failed build raises:
 nothing runs without the kernels.
 
 The launchers below (``ln_rows``, ``ln_rows_bwd``, ``gemm``,
-``act_bf16``, ``colsum``, ``attention_fwd``, ``attention_bwd``) check
-device, dtype,
-shape, contiguity and alignment, allocate their outputs with
+``act_bf16``, ``colsum``, ``attention_fwd``, ``attention_bwd``,
+``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``, ``flash_dkv``) check
+device, dtype, shape, contiguity (or, for the flash kernels, strides) and
+alignment, allocate their outputs with
 ``torch.empty`` (``torch.zeros`` for sums the kernels accumulate into),
 launch on PyTorch's current stream and raise on any CUDA error the launch
 returns.  They never synchronise.
@@ -40,7 +41,8 @@ import torch
 
 __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "act_bf16", "colsum", "attention_fwd", "attention_bwd",
-           "ATTENTION_HEAD_DIMS"]
+           "ATTENTION_HEAD_DIMS", "flash_fwd", "flash_fused_bwd", "flash_dq",
+           "flash_dkv", "FLASH_HEAD_DIMS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sfc_vit_tpu_torch"
@@ -65,11 +67,22 @@ _SIGNATURES = {
                                _P),
     "sfc_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _F, _P),
+    # q, k, v, out, lse; batch, heads, nq, nk, dh; q, k, v strides
+    # (batch, row, head); scale, streaming, stream
+    "sfc_flash_fwd_bf16": (_P,) * 5 + (_I,) * 5 + (_L,) * 9 + (_F, _I, _P),
+    # q, k, v, g, lse, delta, then the outputs (dq | dk, dv | dq32, dk,
+    # dv); batch, heads, nq, nk, dh; q, k, v, g strides; scale, stream
+    "sfc_flash_dq_bf16": (_P,) * 7 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
+    "sfc_flash_dkv_bf16": (_P,) * 8 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
+    "sfc_flash_fused_bwd_bf16": (_P,) * 9 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
 }
 
 #: Head dims the attention kernels are instantiated for: ViT-B's 64 and
 #: the family-A flagship's 192.
 ATTENTION_HEAD_DIMS = (64, 192)
+#: Head dims the flash kernels (#8-#11) are instantiated for: the
+#: long-context presets' 64.
+FLASH_HEAD_DIMS = (64,)
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -367,3 +380,100 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
         _ptr(mask), delta.data_ptr(), dqkv.data_ptr(), b, n, heads, dh,
         n_valid, scale, keep, _stream()), "attention_bwd")
     return dqkv
+
+
+def _require_bnhd(t: torch.Tensor, name: str, shape) -> None:
+    """A bf16 CUDA [B, N, H, Dh] tensor, any strides whose rows start on
+    16 bytes (unit stride along Dh): the views of a packed projection."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: expected torch.bfloat16, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must be contiguous along Dh and start "
+                         f"on 16 bytes (strides {t.stride()})")
+
+
+def _check_flash(q, k, v, g=None, lse=None, delta=None):
+    """Shapes of the flash kernels' operands; returns (b, nq, nk, h, dh)."""
+    b, nq, h, dh = q.shape
+    nk = k.shape[1]
+    if dh not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash: head dim {dh}; the kernels take "
+                         f"{' or '.join(map(str, FLASH_HEAD_DIMS))}")
+    if nq < 1 or nk < 1:
+        raise ValueError(f"flash: empty sequence (nq={nq}, nk={nk})")
+    _require_bnhd(q, "q", (b, nq, h, dh))
+    _require_bnhd(k, "k", (b, nk, h, dh))
+    _require_bnhd(v, "v", (b, nk, h, dh))
+    if g is not None:
+        _require_bnhd(g, "g", (b, nq, h, dh))
+        _require(lse, "lse", (b, h, nq), torch.float32)
+        _require(delta, "delta", (b, h, nq), torch.float32)
+    return b, nq, nk, h, dh
+
+
+def _strides(*ts):
+    return [st for t in ts for st in t.stride()[:3]]
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              streaming: bool, with_lse: bool = False):
+    """#8: softmax(q k^T * scale) v over q [B, Nq, H, Dh] and k, v
+    [B, Nk, H, Dh] (bf16, any 16-byte-aligned row strides) -> out
+    [B, Nq, H, Dh] bf16, contiguous.  ``streaming`` picks the one-pass
+    form (p rounded unnormalised against the running max) over the
+    two-pass single-K-step form (P normalised, then rounded).
+    ``with_lse`` also returns the fp32 log-sum-exp [B, H, Nq]."""
+    b, nq, nk, h, dh = _check_flash(q, k, v)
+    out = torch.empty((b, nq, h, dh), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    _check(library().sfc_flash_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+        b, h, nq, nk, dh, *_strides(q, k, v), scale, int(streaming), _stream()),
+        "flash_fwd")
+    return (out, lse) if with_lse else out
+
+
+def flash_dq(q, k, v, g, lse, delta, scale: float) -> torch.Tensor:
+    """#10: dq [B, Nq, H, Dh] bf16 from the output's cotangent ``g``
+    [B, Nq, H, Dh], the forward's fp32 ``lse`` and ``delta =
+    rowsum(g * O)`` (both [B, H, Nq])."""
+    b, nq, nk, h, dh = _check_flash(q, k, v, g, lse, delta)
+    dq = torch.empty((b, nq, h, dh), dtype=q.dtype, device=q.device)
+    _check(library().sfc_flash_dq_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, h, nq, nk, dh, *_strides(q, k, v, g),
+        scale, _stream()), "flash_dq")
+    return dq
+
+
+def flash_dkv(q, k, v, g, lse, delta, scale: float):
+    """#11: ``(dk, dv)`` [B, Nk, H, Dh] bf16, each one fp32 sum over the
+    queries rounded once; arguments as :func:`flash_dq`."""
+    b, nq, nk, h, dh = _check_flash(q, k, v, g, lse, delta)
+    dk = torch.empty((b, nk, h, dh), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    _check(library().sfc_flash_dkv_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, dh,
+        *_strides(q, k, v, g), scale, _stream()), "flash_dkv")
+    return dk, dv
+
+
+def flash_fused_bwd(q, k, v, g, lse, delta, scale: float):
+    """#9: ``(dq, dk, dv)`` in one kernel, one block per key tile: dk, dv
+    bf16 as :func:`flash_dkv`; dq fp32 [B, Nq, H, Dh], summed over the
+    key tiles with atomics (the caller rounds it)."""
+    b, nq, nk, h, dh = _check_flash(q, k, v, g, lse, delta)
+    dq = torch.zeros((b, nq, h, dh), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, nk, h, dh), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    _check(library().sfc_flash_fused_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, nq,
+        nk, dh, *_strides(q, k, v, g), scale, _stream()), "flash_fused_bwd")
+    return dq, dk, dv

@@ -3,8 +3,9 @@
 Counterpart of ``sfc_vit_tpu/registry.py``.  ``ModelConfig`` and
 ``PRESETS`` carry the same fields and operating points; ``build_model``
 runs the JAX package's validation and builds the pre-norm families
-('simple', 'curvevit') and family A's 'vit1d' over the hierarchical
-tokenizer (the 'flagship' preset).  Everything not yet ported raises
+('simple', 'curvevit', with token merging and per-layer attention
+schedules: the 'longctx-16k' preset) and family A's 'vit1d' over the
+hierarchical tokenizer (the 'flagship' preset).  Everything not yet ported raises
 ``NotImplementedError`` naming its ROADMAP.md item.  Models are built on
 the card unless the caller asks for the CPU (``device='cpu'``).
 """
@@ -34,10 +35,7 @@ _NOT_PORTED = {
     "hier": "queue 1 item 16 (HierarchicalVisionTransformer1D)",
     "tokenizer '2d'": "queue 1 item 6 (tokenizers: ConvPatchEmbedding)",
     "tokenizer '1d'": "queue 1 item 6 (tokenizers: PixelCurveEmbedding1D)",
-    "merge_layers": "queue 1 item 10 (long context: token merge)",
     "remat": "queue 1 item 4 (train step: remat)",
-    "attn_impl": "queue 2 kernels #8-#13 and queue 1 items 3 and 10 (other "
-                 "attention kernels and per-layer schedules)",
 }
 
 
@@ -161,15 +159,13 @@ def _validate(cfg: ModelConfig) -> None:
                          f"encoding; posemb={cfg.posemb!r} would be ignored")
     if cfg.model in ("vit", "hier"):
         raise _not_ported(cfg.model)
-    if cfg.merge_layers:
-        raise _not_ported("merge_layers")
     if cfg.remat:
         raise _not_ported("remat")
-    if family_b and cfg.attn_impl != "auto":
-        raise _not_ported("attn_impl")
     if not family_b:
         _check_curve(cfg)
-        check_implementation(cfg.attn_impl)
+    for impl in ((cfg.attn_impl,) if isinstance(cfg.attn_impl, str)
+                 else tuple(cfg.attn_impl)):
+        check_implementation(impl)  # 'local' (the hybrid preset) raises
 
 
 def build_model(cfg: ModelConfig, device="cuda",
@@ -189,10 +185,12 @@ def build_model(cfg: ModelConfig, device="cuda",
             n_heads=cfg.n_heads, mlp_dim=cfg.mlp_dim, num_classes=cfg.num_classes,
             posemb=cfg.posemb, dtype=dtype, attn_impl=cfg.attn_impl,
             device=device, generator=generator)
+    attn_impl = cfg.attn_impl if isinstance(cfg.attn_impl, str) else tuple(cfg.attn_impl)
     kw = dict(image_size=cfg.img_size, patch_size=cfg.patch_size,
               num_classes=cfg.num_classes, dim=cfg.embed_dim, depth=cfg.depth,
               heads=cfg.n_heads, mlp_dim=cfg.mlp_dim, dim_head=cfg.dim_head,
-              dtype=dtype, device=device, generator=generator)
+              dtype=dtype, device=device, generator=generator, attn_impl=attn_impl)
     if cfg.model == "simple":
         return SimpleViT(**kw)
-    return CurveViT(curve=cfg.curve, **kw)
+    return CurveViT(curve=cfg.curve, merge_layers=tuple(cfg.merge_layers),
+                    merge_ratio=cfg.merge_ratio, **kw)

@@ -252,7 +252,7 @@ def test_attention_formulas_match_jax():
 
 def test_packed_qkv_attention_refuses_unported_implementations():
     qkv = torch.zeros(1, 4, 3 * 64)
-    for impl, item in [("pallas", "item 10"), ("local", "item 10"),
+    for impl, item in [("local", "item 10"), ("local", "#12/#13"),
                        ("ring", "item 13"), ("sp", "item 13"),
                        ("xla_bf16", "item 2")]:
         with pytest.raises(NotImplementedError, match=item):

@@ -583,3 +583,159 @@ def test_flagship_kernel_path_matches_plain_path(cuda):
         grads.append([p.grad.float().clone() for p in model.parameters()])
     for g, w in zip(*grads):
         assert float((g - w).norm() / w.norm()) <= 0.1
+
+
+# -- flash attention (#8-#11) on the card --------------------------------------
+
+
+def _flash_qkv(rng, b, nq, nk, heads, device, packed=False):
+    """q [B, Nq, H, 64], k, v [B, Nk, H, 64] and g; with ``packed`` q, k, v
+    are strided views of one packed projection (Nq = Nk)."""
+    if packed:
+        qkv = _randn(rng, b, nq, 3 * heads * 64, device=device)
+        q, k, v = qkv.view(b, nq, 3, heads, 64).unbind(2)
+    else:
+        q = _randn(rng, b, nq, heads, 64, device=device)
+        k = _randn(rng, b, nk, heads, 64, device=device)
+        v = _randn(rng, b, nk, heads, 64, device=device)
+    return q, k, v, _randn(rng, b, nq, heads, 64, device=device)
+
+
+def _lse64(q, k, scale):
+    """The fp64 log-sum-exp of each query's scaled logits, [B, H, Nq]."""
+    qd, kd = q.double().transpose(1, 2), k.double().transpose(1, 2)
+    return torch.logsumexp((qd @ kd.transpose(-1, -2)) * scale, dim=-1)
+
+
+def _within(got, want, frac, name=""):
+    """max |got - want| within ``frac`` of the largest |want|."""
+    assert got.dtype == want.dtype, name
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= frac * scale, f"{name}: max abs err {err} > {frac} x {scale}"
+
+
+_FLASH_SHAPES = [(2, 300, 300, 3, False), (1, 200, 333, 2, False),
+                 (2, 1000, 777, 2, False), (2, 520, 520, 3, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("streaming", [True, False])
+@pytest.mark.parametrize("b, nq, nk, heads, packed", _FLASH_SHAPES)
+def test_flash_fwd_matches_plain(cuda, streaming, b, nq, nk, heads, packed):
+    """#8 in both forms, against its plain version at the kernel's 64-key
+    steps (streaming) or one step; the lse against fp64."""
+    from sfc_vit_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_qkv(np.random.default_rng(30), b, nq, nk, heads, cuda, packed)
+    s = 64 ** -0.5
+    out, lse = _build.flash_fwd(q, k, v, s, streaming=streaming, with_lse=True)
+    want = fa.flash_fwd_ref(q, k, v, s, block_k=64 if streaming else nk)
+    torch.testing.assert_close(out.float(), want.float(), **ONE_ROUND_TOL)
+    torch.testing.assert_close(lse.double(), _lse64(q, k, s), rtol=1e-5, atol=1e-5)
+    assert torch.equal(_build.flash_fwd(q, k, v, s, streaming=streaming), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, nq, nk, heads, packed", _FLASH_SHAPES)
+def test_flash_bwd_kernels_match_plain(cuda, b, nq, nk, heads, packed):
+    """#10, #11 and #9 from the same saved lse and output: the streaming
+    pair against its plain versions (the same arithmetic, one rounding
+    each), #9 against JAX's fused arithmetic (its own lse and delta: a few
+    bf16 ulps)."""
+    from sfc_vit_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _flash_qkv(np.random.default_rng(31), b, nq, nk, heads, cuda, packed)
+    s = 64 ** -0.5
+    out, lse = _build.flash_fwd(q, k, v, s, streaming=True, with_lse=True)
+    delta = fa.flash_delta(g, out)
+    dq = _build.flash_dq(q, k, v, g, lse, delta, s)
+    dk, dv = _build.flash_dkv(q, k, v, g, lse, delta, s)
+    want_dq = fa.flash_dq_ref(q, k, v, g, lse, delta, s)
+    want_dk, want_dv = fa.flash_dkv_ref(q, k, v, g, lse, delta, s)
+    for name, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv), (want_dq, want_dk, want_dv)):
+        _within(a, w, 1e-2, name)
+    dq32, dk9, dv9 = _build.flash_fused_bwd(q, k, v, g, lse, delta, s)
+    assert dq32.dtype == torch.float32
+    for name, a, w in zip(("dq", "dk", "dv"), (dq32.to(q.dtype), dk9, dv9),
+                          fa.flash_fused_bwd_ref(q, k, v, g, s)):
+        _within(a, w, 2e-2, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, fused_max", [(600, 8192), (600, 128)])
+def test_flash_attention_autograd_counts_its_kernels(cuda, n, fused_max, monkeypatch):
+    """``flash_attention`` under autograd launches #8 once and then #9, or
+    #10 and #11 past ``FUSED_BWD_MAX``; its gradients match the plain
+    route's."""
+    from sfc_vit_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setattr(fa, "FUSED_BWD_MAX", fused_max)
+    q, k, v, g = _flash_qkv(np.random.default_rng(32), 2, n, n, 2, cuda)
+    counts = lambda: (fa.flash_attention.launches,  # noqa: E731
+                      fa.flash_attention.fused_bwd_launches,
+                      fa.flash_attention.dq_launches, fa.flash_attention.dkv_launches)
+    grads = []
+    for route in (fa.flash_attention, fa.flash_attention_ref):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = counts()
+        route(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+        if route is fa.flash_attention:
+            fused = fused_max >= 8192
+            assert tuple(a - b for a, b in zip(counts(), before)) == (
+                1, int(fused), int(not fused), int(not fused))
+        else:
+            assert counts() == before
+    for name, a, w in zip(("dq", "dk", "dv"), *grads):
+        _within(a, w, 2e-2, name)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_what_the_kernels_do_not_take(cuda):
+    from sfc_vit_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        fa.flash_attention(q, q, q)  # fp32
+    q = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        fa.flash_attention(q, q, q)  # head dim 32
+    with pytest.raises(ValueError, match="16 bytes"):
+        x = torch.zeros(1, 8, 2, 68, device=cuda, dtype=torch.bfloat16)[..., 2:66]
+        _build.flash_fwd(x, x, x, 1.0, streaming=True)
+
+
+@pytest.mark.gpu
+def test_long_context_model_kernel_path_matches_plain_path(cuda):
+    """A small merged CurveViT past 1,024 tokens on the card: eval and one
+    backward through #8 and #9 (and #10/#11 with the fused bound lowered),
+    against the same model through the plain flash versions."""
+    from unittest import mock
+
+    import sfc_vit_tpu_torch.ops.attention as attention
+    from sfc_vit_tpu_torch.ops import flash_attention as fa
+    from sfc_vit_tpu_torch.registry import build_model, preset_config
+
+    cfg = preset_config("longctx-16k", img_size=48, depth=3)  # 2,304 then 1,728 tokens
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    x = _randn(np.random.default_rng(33), 2, 48, 48, 3)
+    plain = mock.patch.object(attention, "flash_attention", fa.flash_attention_ref)
+    before = fa.flash_attention.launches
+    with torch.no_grad():
+        got = model(x)
+        with plain:
+            want = model(x)
+    assert fa.flash_attention.launches == before + cfg.depth
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2, atol=5e-2)
+    for fused_max in (8192, 128):
+        with mock.patch.object(fa, "FUSED_BWD_MAX", fused_max):
+            grads = []
+            for ctx in (mock.patch.object(attention, "flash_attention", fa.flash_attention),
+                        plain):
+                model.zero_grad()
+                with ctx:
+                    model(x).float().sum().backward()
+                grads.append([p.grad.float().clone() for p in model.parameters()])
+        for g, w in zip(*grads):
+            assert float((g - w).norm() / w.norm()) <= 0.1

@@ -128,9 +128,9 @@ def test_build_model_vit_b_16_config():
 @pytest.mark.parametrize("name, overrides, match", [
     ("flagship", {"model": "vit"}, "queue 1 item 7"),
     ("notebook", {}, "queue 1 item 7"),
-    ("longctx-16k", {}, "token merge"),
+    ("longctx-16k-hybrid", {}, "curve-local attention"),
     ("vit-b-16", {"remat": True}, "train step"),
-    ("vit-b-16", {"attn_impl": "xla"}, "attention kernels"),
+    ("vit-b-16", {"attn_impl": "local"}, "kernels #12/#13"),
 ])
 def test_build_model_names_the_roadmap_item(name, overrides, match):
     with pytest.raises(NotImplementedError, match=match):
