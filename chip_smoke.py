@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ViT-B/16 serving path and train step, the
-family-A flagship's train step and serving path, and the long-context
-models' (16,384 tokens with token merge, and 4,096) train steps and
-serving, once on one NVIDIA GPU.
+family-A flagship's train step and serving path (also with its fused
+tokenizer), and the long-context models' (16,384 tokens with token merge,
+its hybrid local/global schedule, and 4,096) train steps and serving,
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one
                                  # NVIDIA H100 (sm_90a) and nvcc
@@ -73,6 +74,29 @@ Phases, each of which raises (non-zero exit) on failure:
    the plain versions (relative L2 per tensor), train img/s and tokens/s
    on both paths, serving img/s at batch 4, peak memory; a profile of one
    16k-token step.
+10. local kernels: #12 (out and lse) and #13 (dq, dk, dv) at the hybrid
+   preset's shapes (batch 2, 16,384 and 12,288 tokens, 6 heads of 64,
+   block 128, halo 1, q, k, v as views of one packed projection) and a
+   ragged 5,000 against their plain versions, each error beside its
+   tolerance; 256 tokens must take the dense route (flash #8, not #12);
+   at 16,384 each timed beside its plain version, its bound and
+   ``F.scaled_dot_product_attention`` with a boolean band mask (forward
+   for #12, its autograd backward for #13).
+11. hybrid slice: ``build_model(preset_config("longctx-16k-hybrid"))``
+   (three curve-local layers, then one global; merge after layer 1) as in
+   9 (a): 4 steps at batch 2, an eval batch, 1 and 4 images served; #12
+   launched 3 x (steps + eval + served forwards), #13 3 x steps, #8 once
+   per forward and #10/#11 once per step for the global layer; one step's
+   gradients against the plain versions; a profile of one step.
+12. fused tokenizer: #14 at the flagship's three tokenizer levels (batch
+   512: x [512, 1024, 3] in groups of 16, [512, 256, 12] in groups of 4,
+   [512, 64, 48]; D = 256) against its plain version, timed beside its
+   bound and ``index_select`` + ``F.linear``; then
+   ``build_model(preset_config("flagship", fused=True,
+   dtype="bfloat16"))`` trained 4 steps at batch 512, evaluated and
+   served (1, 100, 256 images), #14 launched 3 x (steps + eval + served
+   forwards), the served logits against the unfused flagship's at the same
+   weights (3 % of the largest |logit|), forward img/s of both.
    Then no module of jax, flax or the JAX package may have loaded.
 
 The line before the last is one JSON object describing the kernels; the
@@ -98,6 +122,8 @@ import sfc_vit_tpu_torch.models.layers as fa_layers
 import sfc_vit_tpu_torch.models.simple_vit as simple_vit
 import sfc_vit_tpu_torch.ops.attention as fa_attention
 import sfc_vit_tpu_torch.ops.flash_attention as flash
+import sfc_vit_tpu_torch.ops.gather_project as gp
+import sfc_vit_tpu_torch.ops.local_attention as local
 from sfc_vit_tpu_torch.data import epoch_batches, make_eval_transform, synthetic_dataset
 from sfc_vit_tpu_torch.ops import _build
 from sfc_vit_tpu_torch.ops.fused_attention_block import (
@@ -125,6 +151,7 @@ from sfc_vit_tpu_torch.ops.fused_mlp import (
 )
 from sfc_vit_tpu_torch.registry import build_model, preset_config
 from sfc_vit_tpu_torch.serving import ServingEngine
+from sfc_vit_tpu_torch.tokenizers import patchify
 from sfc_vit_tpu_torch.training import (
     TrainConfig,
     Trainer,
@@ -212,6 +239,27 @@ def _ms(fn, iters: int = 20) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn``, CUDA events around one
+    replay of a CUDA graph of ``iters`` calls: for calls shorter than the
+    Python launch path, which a loop of host launches would time instead."""
+    fn()  # warm-up outside the capture: the kernel library, cuBLAS handles
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -575,12 +623,14 @@ def phase_train(card: str) -> dict:
 
 
 #: Kernels told apart by their template arguments: the GEMM's three
-#: layouts <trans_a, trans_b>, #8's two forms and #11 against #9.
+#: layouts <trans_a, trans_b>, #8's two forms against #12 and #11 against #9.
 _GEMM_LABELS = {"gemm_bf16_kernel<false, false>": "gemm_bf16 NN (forward)",
                 "gemm_bf16_kernel<false, true>": "gemm_bf16 NT (dX, dz, datt)",
                 "gemm_bf16_kernel<true, false>": "gemm_bf16 TN (weight gradients)",
-                "flash_fwd_kernel<64, true>": "flash_fwd streaming (#8)",
-                "flash_fwd_kernel<64, false>": "flash_fwd single K step (#8)",
+                "flash_fwd_kernel<64, true, false>": "flash_fwd streaming (#8)",
+                "flash_fwd_kernel<64, false, false>": "flash_fwd single K step (#8)",
+                "flash_fwd_kernel<64, false, true>": "flash_fwd curve-local (#12)",
+                "local_bwd_kernel<64>": "local_bwd (#13)",
                 "flash_dkv_kernel<64, false>": "flash_dkv (#11)",
                 "flash_dkv_kernel<64, true>": "flash_dkv fused (#9)",
                 "flash_dq_kernel<64>": "flash_dq (#10)"}
@@ -594,27 +644,58 @@ def _kernel_label(name: str) -> str:
     return re.split(r"[<(]", short, maxsplit=1)[0].strip()
 
 
+#: Traces taken before a profile that disagrees with CUDA events is
+#: reported as not measured.
+_PROFILE_ATTEMPTS = 3
+
+
 def _profile(fn, what: str, steps: int = 2, top: int = 14) -> None:
     """Device time by kernel over ``steps`` calls of ``fn`` (torch.profiler,
     CUPTI), and the idle share: 1 - kernel time / host wall time of the
     window, which ends in a synchronize.  Tracing adds a few us per launch
-    to the host side, so the idle share is an upper bound."""
+    to the host side, so the idle share is an upper bound.
+
+    The trace is held to CUDA events recorded around the same window: its
+    span from the first kernel's start to the last one's end must cover at
+    least 3/4 of the events' window.  Late in a long run a trace has come
+    back with every kernel's time scaled down (by 0.5 and by 0.7) against
+    CUDA events and the step's own timing; such a trace is taken again,
+    and after ``_PROFILE_ATTEMPTS`` the breakdown is reported as not
+    measured.
+    Kernel times elsewhere in this script come from CUDA events."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(_PROFILE_ATTEMPTS):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(steps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+        _check(bool(kernels), "the profiler saw no device time")
+        span_us = (max(e.time_range.end for e in kernels)
+                   - min(e.time_range.start for e in kernels))
+        window_us = start.elapsed_time(end) * 1e3
+        if span_us >= 0.75 * window_us:
+            break
+        print(f"profile of {what}: the trace spans {span_us / 1e3:.2f} ms of device time, "
+              f"CUDA events {window_us / 1e3:.2f} ms; tracing again")
+    else:
+        print(f"profile of {what}: no trace agreed with CUDA events in "
+              f"{_PROFILE_ATTEMPTS} attempts; the breakdown and idle share are not "
+              "measured")
+        return
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
-            label = _kernel_label(e.name)
-            by_name[label] = by_name.get(label, 0.0) + e.time_range.elapsed_us()
+    for e in kernels:
+        label = _kernel_label(e.name)
+        by_name[label] = by_name.get(label, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    _check(busy > 0, "the profiler saw no device time")
     print(f"profile of {steps} x {what}: device busy {busy / 1e3 / steps:.2f} ms of "
           f"{wall_us / 1e3 / steps:.2f} ms wall per call, idle share "
           f"{1 - busy / wall_us:.2%}")
@@ -1091,11 +1172,13 @@ def phase_flash_kernels(card: str) -> dict:
 
 def _plain_longctx():
     """Route a family-B model through the plain versions of every kernel
-    on its path (comparison only): flash #8-#11, the MLP blocks #2/#3 and
-    the attention blocks #1/#4."""
+    on its path (comparison only): flash #8-#11, curve-local #12/#13, the
+    MLP blocks #2/#3 and the attention blocks #1/#4."""
     stack = contextlib.ExitStack()
     stack.enter_context(mock.patch.object(fa_attention, "flash_attention",
                                           flash.flash_attention_ref))
+    stack.enter_context(mock.patch.object(fa_attention, "local_block_attention",
+                                          local.local_block_attention_ref))
     stack.enter_context(_plain_blocks())
     return stack
 
@@ -1103,20 +1186,28 @@ def _plain_longctx():
 def _reset_flash_counts():
     f = flash.flash_attention
     f.launches = f.fused_bwd_launches = f.dq_launches = f.dkv_launches = 0
+    local.local_block_attention.launches = local.local_block_attention.bwd_launches = 0
 
 
 def _flash_counts() -> dict:
-    f = flash.flash_attention
+    """The launches of the flash (#8-#11) and curve-local (#12, #13) kernels."""
+    f, lo = flash.flash_attention, local.local_block_attention
     return {"flash_attention": f.launches, "flash_attention_fused_bwd": f.fused_bwd_launches,
-            "flash_attention_dq": f.dq_launches, "flash_attention_dkv": f.dkv_launches}
+            "flash_attention_dq": f.dq_launches, "flash_attention_dkv": f.dkv_launches,
+            "local_block_attention": lo.launches, "local_block_attention_bwd": lo.bwd_launches}
 
 
 def _longctx_model(card: str, label: str, cfg, batch: int, steps: int,
                    bwd_kernels: tuple, profile: bool) -> dict:
     """Train, evaluate and serve one long-context model on the card; returns
-    the flash launch counts of its main path."""
+    the flash and curve-local launch counts of its main path.  A layer
+    scheduled ``'local'`` launches #12/#13, every other layer #8 and the
+    backward kernels in ``bwd_kernels``."""
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    impls = (cfg.attn_impl,) * cfg.depth if isinstance(cfg.attn_impl, str) else cfg.attn_impl
+    n_local = list(impls).count("local")
+    n_global = cfg.depth - n_local
     n_tokens = (cfg.img_size // cfg.patch_size) ** 2
     stats = ((0.5,) * 3, (0.25,) * 3)
     train_ds = synthetic_dataset(n=batch * steps, hw=cfg.img_size,
@@ -1136,15 +1227,17 @@ def _longctx_model(card: str, label: str, cfg, batch: int, steps: int,
     counts = _flash_counts()
     print(f"{label}: Trainer.fit, 1 epoch of {steps} steps at batch {batch} + eval of "
           f"{len(test_ds)}: {record}")
-    print(f"{label}: flash launches over {steps} train steps + 1 eval batch of depth "
-          f"{cfg.depth}: {counts}")
+    print(f"{label}: launches over {steps} train steps + 1 eval batch of {n_global} "
+          f"global and {n_local} local layers: {counts}")
     _check(bool(np.isfinite(record["train_loss"])), f"{label}: non-finite train loss")
     _check(bool(np.isfinite(record["test_loss"])), f"{label}: non-finite eval loss")
     _check(trainer.state.step == steps, f"{label}: {trainer.state.step} steps taken")
-    want = {"flash_attention": cfg.depth * (steps + 1)}
+    want = {"flash_attention": n_global * (steps + 1),
+            "local_block_attention": n_local * (steps + 1),
+            "local_block_attention_bwd": n_local * steps}
     for name in ("flash_attention_fused_bwd", "flash_attention_dq", "flash_attention_dkv"):
-        want[name] = cfg.depth * steps if name in bwd_kernels else 0
-    _check(counts == want, f"{label}: flash launches {counts}, expected {want}")
+        want[name] = n_global * steps if name in bwd_kernels else 0
+    _check(counts == want, f"{label}: launches {counts}, expected {want}")
     still = [nm for (nm, p), q in zip(model.named_parameters(), before) if torch.equal(p, q)]
     _check(not still, f"{label}: parameters unchanged after {steps} steps: {still}")
     del before
@@ -1204,17 +1297,20 @@ def _longctx_model(card: str, label: str, cfg, batch: int, steps: int,
     _reset_flash_counts()
     outs = [engine.predict(r) for r in requests]
     served = flash.flash_attention.launches
+    served_local = local.local_block_attention.launches
     for k, out in zip((1, 4), outs):
         _check(out.shape == (k, cfg.num_classes) and bool(np.isfinite(out).all()),
                f"{label}: bad served logits for {k} images")
-    _check(served == 2 * cfg.depth, f"{label}: #8 launched {served} times over 2 served "
-           f"forwards of depth {cfg.depth}")
+    _check(served == 2 * n_global and served_local == 2 * n_local,
+           f"{label}: #8 launched {served} and #12 {served_local} times over 2 served "
+           f"forwards of {n_global} global and {n_local} local layers")
     with _plain_longctx():
         plain = [engine.predict(r) for r in requests]
     outs, plain = np.concatenate(outs), np.concatenate(plain)
     err, scale = float(np.abs(outs - plain).max()), float(np.abs(plain).max())
-    print(f"{label}: served 1 and 4 images, logits finite; #8 launched {served} times "
-          f"over 2 forwards; kernels vs plain versions max abs err {err:.4g} (max |logit| "
+    print(f"{label}: served 1 and 4 images, logits finite; #8 launched {served} and #12 "
+          f"{served_local} times over 2 forwards; kernels vs plain versions max abs err "
+          f"{err:.4g} (max |logit| "
           f"{scale:.4g}; tolerance {FA_LOGIT_TOL} x max |logit|)")
     _check(err <= FA_LOGIT_TOL * scale, f"{label}: served logits disagree with the plain "
            "forward")
@@ -1226,6 +1322,7 @@ def _longctx_model(card: str, label: str, cfg, batch: int, steps: int,
     print(f"{label}: predict() of 4 images, host to host: {serve_s * 1e3:.2f} ms = "
           f"{4 / serve_s:.2f} img/s, {card}")
     counts["flash_attention"] += served
+    counts["local_block_attention"] += served_local
     return counts
 
 
@@ -1242,6 +1339,253 @@ def phase_longctx(card: str) -> dict:
     return {name: a[name] + b[name] for name in a}
 
 
+#: The hybrid preset's curve-local attention: JAX's defaults, block 128 and
+#: halo 1, at 16,384 tokens (layers 0-1) and 12,288 after the merge (layer 2).
+LOCAL_BLOCK, LOCAL_HALO, LC_MERGED_N = 128, 1, 12288
+
+
+def _window_pairs(n: int, block: int, halo: int) -> int:
+    """(query, key) pairs of the curve-local mask at length ``n``: what the
+    work of #12/#13 is counted on (the edge blocks' windows are shorter)."""
+    pairs = 0
+    for j in range(-(-n // block)):
+        lo, hi = local.window(j, n, block, halo)
+        pairs += (min(n, (j + 1) * block) - j * block) * (hi - lo)
+    return pairs
+
+
+def _band_mask(n: int, block: int, halo: int) -> torch.Tensor:
+    """The boolean [N, N] curve-local mask (True where a query may attend)."""
+    ids = torch.arange(n, device=DEVICE) // block
+    return (ids[:, None] - ids[None, :]).abs() <= halo
+
+
+def _sdpa_masked_ms(q, k, v, g, mask):
+    """F.scaled_dot_product_attention with a boolean band mask, forward and
+    autograd backward ms on contiguous [B, H, N, Dh] copies: one PyTorch
+    call for the function #12/#13 compute (the library yardstick; the
+    port never calls it)."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        fwd = _ms(lambda: TF.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                  iters=5)
+    out = TF.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    def bwd():
+        for t in (qt, kt, vt):
+            t.grad = None
+        out.backward(gt, retain_graph=True)
+    return fwd, _ms(bwd, iters=5)
+
+
+def phase_local_kernels(card: str) -> dict:
+    """Kernels #12 and #13 at the hybrid preset's shapes (16,384 and 12,288
+    tokens), a ragged length and the dense case against their plain
+    versions; timed at 16,384 beside their bounds and SDPA with a band
+    mask."""
+    gen = torch.Generator().manual_seed(6)
+    s = 64 ** -0.5
+    blk, halo = LOCAL_BLOCK, LOCAL_HALO
+    res = {"local_block_attention": dict(errs=[]), "local_block_attention_bwd": dict(errs=[])}
+    b, h = LC_B, LC_HEADS
+    for n in (LC_N, LC_MERGED_N, 5000):
+        with torch.no_grad():
+            q, k, v, g = _packed_views(gen, b, n, h)
+            print(f"#12 / #13, block {blk}, halo {halo}, q/k/v [{b}, {n}, {h}, 64] views of "
+                  f"qkv [{b}, {n}, {3 * h * 64}] bf16:")
+            out, lse = local.local_fwd(q, k, v, blk, halo, s, return_lse=True)
+            want, want_lse = local.local_fwd_ref(q, k, v, blk, halo, s, return_lse=True)
+            res["local_block_attention"]["errs"].append(_frac_err("out", out, want, FLASH_TOL))
+            lse_err, lse_ok = _agree(lse, want_lse, **LSE_TOL)
+            print(f"  lse: max abs err {lse_err:.4g} against the plain version's fp32 lse "
+                  f"(tolerance rtol {LSE_TOL['rtol']}, atol {LSE_TOL['atol']})")
+            _check(lse_ok, "kernel #12: lse disagrees with its plain version")
+            delta = flash.flash_delta(g, out)
+            got = local.local_bwd(q, k, v, g, lse, delta, blk, halo, s)
+            want = local.local_bwd_ref(q, k, v, g, lse, delta, blk, halo, s)
+            res["local_block_attention_bwd"]["errs"] += [
+                _frac_err(nm, x, w, FLASH_TOL) for nm, x, w in zip(("dq", "dk", "dv"), got, want)]
+            del got, want
+            if n != LC_N:
+                continue
+            pairs = _window_pairs(n, blk, halo)
+            t = res["local_block_attention"]
+            t["ms"], t["plain_ms"] = _ab_ms(
+                lambda: local.local_fwd(q, k, v, blk, halo, s, return_lse=True),
+                lambda: local.local_fwd_ref(q, k, v, blk, halo, s, return_lse=True), iters=5)
+            t.update(_bound(4 * b * h * pairs * 64,  # q, k, v, out; lse
+                            _flash_bytes(b, n, n, h, n_bf16_q=2, n_bf16_k=2, n_fp32_q=1)))
+            t = res["local_block_attention_bwd"]
+            t["ms"], t["plain_ms"] = _ab_ms(
+                lambda: local.local_bwd(q, k, v, g, lse, delta, blk, halo, s),
+                lambda: local.local_bwd_ref(q, k, v, g, lse, delta, blk, halo, s), iters=5)
+            t.update(_bound(12 * b * h * pairs * 64,  # q, g, dq; k, v, dk, dv; lse, delta
+                            _flash_bytes(b, n, n, h, n_bf16_q=3, n_bf16_k=4, n_fp32_q=2)))
+        if n == LC_N:
+            mask = _band_mask(n, blk, halo)
+            lib_fwd, lib_bwd = _sdpa_masked_ms(q, k, v, g, mask)
+            del mask
+            res["local_block_attention"]["library_ms"] = lib_fwd
+            res["local_block_attention_bwd"]["library_ms"] = lib_bwd
+            for name, what in (("local_block_attention", "#12 (with lse)"),
+                               ("local_block_attention_bwd", "#13")):
+                t = res[name]
+                print(f"{what}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}), SDPA with a band mask "
+                      f"{'forward' if name == 'local_block_attention' else 'backward'} "
+                      f"{t['library_ms']:.4f} ms; [{b}, {n}, {h}, 64] bf16, {card}")
+        del q, k, v, g, out, lse, delta
+
+    # The dense case: 256 tokens at block 128, halo 1 is JAX's plain
+    # attention (flash), never the local kernels.
+    with torch.no_grad():
+        q, k, v, _ = _packed_views(gen, b, 256, h)
+        before = (local.local_block_attention.launches, flash.flash_attention.launches)
+        got = local.local_block_attention(q, k, v, blk, halo)
+        after = (local.local_block_attention.launches, flash.flash_attention.launches)
+        _check(after == (before[0], before[1] + 1),
+               f"256 tokens did not take the dense route: launches {before} -> {after}")
+        print("dense case, 256 tokens (block 128, halo 1): flash attention #8, not #12:")
+        res["local_block_attention"]["errs"].append(_frac_err(
+            "out", got, local.local_block_attention_xla(q, k, v, blk, halo), FLASH_TOL))
+    for t in res.values():
+        t["max_abs_err"] = max(t.pop("errs"))
+    return res
+
+
+def phase_hybrid(card: str) -> dict:
+    """The hybrid long-context slice: ``longctx-16k-hybrid`` (three
+    curve-local layers through #12/#13, one global through #8/#10/#11)
+    trained, evaluated and served."""
+    return _longctx_model(card, "longctx-16k-hybrid", preset_config("longctx-16k-hybrid"),
+                          LC_B, LC_STEPS, ("flash_attention_dq", "flash_attention_dkv"),
+                          profile=True)
+
+
+def phase_gp_kernels(card: str) -> dict:
+    """Kernel #14 at the fused flagship's three tokenizer levels (batch
+    512, the model's own LUTs and random weights) against its plain
+    version, timed beside its bound and ``index_select`` + ``F.linear``.
+    The bias is random, standard normal: a fresh model's is zero, which
+    would leave the kernel's fp32 bias epilogue unchecked.  A level's
+    call lasts tens of microseconds, under the cost of the Python launch
+    path, so all three are timed by graph replay (:func:`_graph_ms`).
+    The times are the three levels' sums: one tokenizer forward."""
+    gen = torch.Generator().manual_seed(7)
+    cfg = preset_config("flagship", fused=True, dtype="bfloat16")
+    tok = build_model(cfg, generator=torch.Generator().manual_seed(0)).patch_embed
+    images = _randn(gen, FA_B, cfg.img_size, cfg.img_size, 3)
+    t = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, errs=[])
+    with torch.no_grad():
+        for i, pre in enumerate(tok.pre_patch_sizes):
+            proj = getattr(tok, f"level_{i}").proj
+            x = patchify(images, pre).contiguous()
+            w, lut, grp = proj.kernel.to(torch.bfloat16), proj.lut, proj.group
+            bias = _randn(gen, w.shape[1])
+            bsz, n, kdim = x.shape
+            m, d = lut.numel() // grp, w.shape[1]
+            got = gp.gather_project(x, lut, w, bias, grp)
+            print(f"#14 level {i}: x [{bsz}, {n}, {kdim}], group {grp} -> [{bsz}, {m}, {d}]:")
+            t["errs"].append(_frac_err("out", got, gp.gather_project_ref(x, lut, w, bias, grp),
+                                       FLASH_TOL))
+            wt, lut64 = w.t().contiguous(), lut.long()
+            kern = lambda: gp.gather_project(x, lut, w, bias, grp)  # noqa: E731
+            plain = lambda: gp.gather_project_ref(x, lut, w, bias, grp)  # noqa: E731
+            p1, k1, k2, p2 = (_graph_ms(f) for f in (plain, kern, kern, plain))
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            lib_ms = _graph_ms(lambda: TF.linear(
+                x.index_select(1, lut64).reshape(bsz, m, grp * kdim), wt, bias))
+            print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select + F.linear "
+                  f"{lib_ms:.4f} ms, {card}")
+            t["ms"] += ms
+            t["plain_ms"] += plain_ms
+            t["library_ms"] += lib_ms
+            t["flops"] += 2 * bsz * m * grp * kdim * d
+            t["bytes"] += 2 * (bsz * n * kdim + grp * kdim * d + d + bsz * m * d) + 4 * m * grp
+    t.update(_bound(t.pop("flops"), t.pop("bytes")))
+    t["max_abs_err"] = max(t.pop("errs"))
+    print(f"#14 over the three levels (one tokenizer forward at batch {FA_B}): kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}), index_select + F.linear {t['library_ms']:.4f} ms, {card}")
+    return {"gather_project": t}
+
+
+def phase_fused_flagship(card: str) -> dict:
+    """The flagship with the fused tokenizer (``fused=True``): trained 4
+    steps at batch 512, evaluated and served through #14; its served
+    logits against the unfused flagship's at the same weights."""
+    cfg = preset_config("flagship", fused=True, dtype="bfloat16")
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    levels = len(cfg.patch_size_list)
+    stats = ((0.5,) * 3, (0.25,) * 3)
+    b, steps = FA_B, FA_TRAIN_STEPS
+    train_ds = synthetic_dataset(n=b * steps, hw=cfg.img_size,
+                                 num_classes=cfg.num_classes, seed=0)
+    test_ds = synthetic_dataset(n=b, hw=cfg.img_size, num_classes=cfg.num_classes, seed=1)
+    tf = make_eval_transform(*stats, device=DEVICE)
+    trainer = Trainer(model, TrainConfig(num_classes=cfg.num_classes, epochs=1,
+                                         warmup_epochs=1), steps_per_epoch=steps)
+    before = [p.detach().clone() for p in model.parameters()]
+    gp.gather_project.launches = 0
+    record = trainer.fit(
+        lambda: ((tf(x), y) for x, y in epoch_batches(train_ds, b, seed=0)),
+        lambda: ((tf(x), y) for x, y in epoch_batches(
+            test_ds, b, shuffle=False, drop_last=False)))
+    torch.cuda.synchronize()
+    trained = gp.gather_project.launches
+    print(f"fused flagship Trainer.fit, 1 epoch of {steps} steps at batch {b} + eval of "
+          f"{len(test_ds)}: {record}")
+    print(f"gather_project (#14) launches over {steps} train steps + 1 eval batch of "
+          f"{levels} tokenizer levels: {trained}")
+    _check(bool(np.isfinite(record["train_loss"])), "non-finite fused flagship train loss")
+    _check(bool(np.isfinite(record["test_loss"])), "non-finite fused flagship eval loss")
+    _check(trainer.state.step == steps, f"{trainer.state.step} steps taken")
+    _check(trained == levels * (steps + 1), f"#14 launched {trained} times, expected "
+           f"{levels * (steps + 1)}")
+    still = [n for (n, p), q in zip(model.named_parameters(), before) if torch.equal(p, q)]
+    _check(not still, f"fused flagship parameters unchanged after {steps} steps: {still}")
+    del before
+
+    engine = ServingEngine(copy.deepcopy(model), None, (cfg.img_size, cfg.img_size, 3),
+                           batch_sizes=FA_BATCH_SIZES, dtype=torch.bfloat16, device=DEVICE)
+    unfused = build_model(preset_config("flagship", dtype="bfloat16"))
+    unfused.load_state_dict(model.state_dict())
+    plain_engine = ServingEngine(unfused, None, (cfg.img_size, cfg.img_size, 3),
+                                 batch_sizes=FA_BATCH_SIZES, dtype=torch.bfloat16,
+                                 device=DEVICE)
+    rng = np.random.default_rng(8)
+    requests = [rng.standard_normal((k, cfg.img_size, cfg.img_size, 3), dtype=np.float32)
+                for k in FA_REQUESTS]
+    gp.gather_project.launches = 0
+    outs = [engine.predict(r) for r in requests]
+    served = gp.gather_project.launches
+    forwards = sum(-(-k // FA_BATCH_SIZES[-1]) for k in FA_REQUESTS)
+    for k, out in zip(FA_REQUESTS, outs):
+        _check(out.shape == (k, cfg.num_classes) and bool(np.isfinite(out).all()),
+               f"fused flagship: bad served logits for {k} images")
+    _check(served == levels * forwards, f"#14 launched {served} times over {forwards} "
+           f"served forwards of {levels} levels")
+    want = np.concatenate([plain_engine.predict(r) for r in requests])
+    outs = np.concatenate(outs)
+    err, scale = float(np.abs(outs - want).max()), float(np.abs(want).max())
+    print(f"fused flagship served {FA_REQUESTS} images, logits finite; #14 launched "
+          f"{served} times over {forwards} forwards; against the unfused flagship at the "
+          f"same weights: max abs err {err:.4g} (max |logit| {scale:.4g}; tolerance "
+          f"{FA_LOGIT_TOL} x max |logit| = {FA_LOGIT_TOL * scale:.4g})")
+    _check(err <= FA_LOGIT_TOL * scale, "fused flagship logits disagree with the unfused")
+    xb = torch.from_numpy(requests[-1]).to(DEVICE, torch.bfloat16)
+    bs = FA_BATCH_SIZES[-1]
+    with torch.inference_mode():
+        f1, u1, u2, f2 = (_ms(lambda m=m: m.model(xb), iters=10)
+                          for m in (engine, plain_engine, plain_engine, engine))
+    fused_ms, unfused_ms = (f1 + f2) / 2, (u1 + u2) / 2
+    print(f"flagship forward at batch {bs}: fused tokenizer {fused_ms:.3f} ms = "
+          f"{bs / fused_ms * 1e3:.1f} img/s, unfused {unfused_ms:.3f} ms = "
+          f"{bs / unfused_ms * 1e3:.1f} img/s, {card}")
+    return {"gather_project": trained + served}
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1253,6 +1597,11 @@ def main() -> int:
     launches.update(phase_fa_slice(card))
     kernels.update(phase_flash_kernels(card))
     launches.update(phase_longctx(card))
+    kernels.update(phase_local_kernels(card))
+    hybrid = phase_hybrid(card)
+    launches.update({name: launches.get(name, 0) + count for name, count in hybrid.items()})
+    kernels.update(phase_gp_kernels(card))
+    launches.update(phase_fused_flagship(card))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "sfc_vit_tpu"))
     _check(not leaked, f"the port imported {leaked}")
@@ -1290,6 +1639,15 @@ def main() -> int:
         dict(name="flash_attention_dkv", route="cuda",
              source="sfc_vit_tpu_torch/csrc/flash_bwd.cu",
              replaces="sfc_vit_tpu/ops/flash_attention.py:482"),
+        dict(name="local_block_attention", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/flash_fwd.cu",
+             replaces="sfc_vit_tpu/ops/local_attention.py:82"),
+        dict(name="local_block_attention_bwd", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/flash_bwd.cu",
+             replaces="sfc_vit_tpu/ops/local_attention.py:198"),
+        dict(name="gather_project", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/gather_project.cu",
+             replaces="sfc_vit_tpu/ops/gather_project.py:57"),
     ]
     for e in entries:
         k = kernels[e["name"]]

@@ -1,7 +1,7 @@
 // Flash attention backward on [B, N, H, Dh], head dim 64: the streaming
-// dQ kernel (#10), the streaming dK/dV kernel (#11) and the one-pass
-// fused kernel (#9), from the forward's fp32 log-sum-exp lse and
-// delta = rowsum(g * O) (both [B, H, Nq]).
+// dQ kernel (#10), the streaming dK/dV kernel (#11), the one-pass fused
+// kernel (#9) and the curve-local backward (#13), from the forward's fp32
+// log-sum-exp lse and delta = rowsum(g * O) (both [B, H, Nq]).
 //
 // Replaces: sfc_vit_tpu/ops/flash_attention.py::_dq_kernel (lines
 // 440-479), ::_dkv_kernel (lines 482-530) and ::_fused_bwd_kernel (lines
@@ -42,7 +42,24 @@
 //    operand reads as ds; each warp forms dq for 16 of the tile's queries
 //    (ds . K) and adds it to the fp32 dq buffer with atomics.  The logits
 //    are computed once per (query, key) pair, as the TPU kernel intends.
-// Shared memory at Dh 64: 88 KB (dQ), 106 KB (dK/dV and fused).
+//  * curve-local (#13, replaces sfc_vit_tpu/ops/local_attention.py::
+//    _bwd_kernel, lines 198-299; launcher _local_bwd, lines 305-377):
+//    the dQ and dK/dV loops limited to the window (kWindow), as the two
+//    halves of one grid (blockIdx.z 0: dq of a query tile over the key
+//    tiles of its window, |i / block - j / block| <= halo, j < N; 1: dk
+//    and dv of a key tile over the QUERY-side window, the 2 * halo + 1
+//    query blocks whose window holds it): scatter as gather, each output
+//    row written by one block, no atomics.  block is a multiple of 64, so
+//    a tile lies in one curve block and its window is whole tiles.  The
+//    TPU kernel writes dk and dv in fp32 and its launcher casts them; here
+//    the same fp32 sums are rounded once as they are stored.  At block
+//    128, halo 1 the nominal work (12 x 384 x 64 flops a row, the TPU
+//    kernel's estimate) is ~330 flops a byte of q, k, v, g, dq, dk, dv,
+//    lse and delta: just above the H100's ~295, so the tensor cores bound
+//    it, barely; the kernel executes 20 x 64 flops a (query, key) pair,
+//    as the dQ half recomputes s and dp and the split doubles the four
+//    fp32-operand products.
+// Shared memory at Dh 64: 88 KB (dQ), 106 KB (dK/dV, fused and local).
 
 #include <mma.h>
 
@@ -174,19 +191,35 @@ struct Args {
   float* dq32;       // fused: fp32 [B, nq, H, DH], accumulated with atomics
   bf16 *dq, *dk, *dv;
   int heads, nq, nk;
+  int block, halo;  // local only: the curve block and the window's halo
   long long qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh;
   float scale;
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
+// The rows [lo, hi) of the other side (n rows in all) that the 64-row
+// tile at r0 meets: all of them, or the window of its curve block.
+template <bool kWindow>
+__device__ __forceinline__ void tile_range(const Args& a, int r0, int n, int& lo, int& hi) {
+  lo = 0;
+  hi = n;
+  if constexpr (kWindow) {
+    const int j = r0 / a.block;
+    lo = max(0, (j - a.halo) * a.block);
+    hi = min(n, (j + a.halo + 1) * a.block);
+  }
+}
+
+// dq of the 64 queries at blockIdx.x over their keys (#10; #13's dq half).
+template <int DH, bool kWindow>
+__device__ __forceinline__ void dq_tile(const Args& a, unsigned char* dyn) {
   constexpr int LDH = Dims<DH>::LDH, LDS = Dims<DH>::LDS;
-  extern __shared__ __align__(128) unsigned char dyn[];
   DqSmem<DH>& sm = *reinterpret_cast<DqSmem<DH>*>(dyn);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = lane / 2, half = lane % 2;  // lane pair (2r, 2r+1) owns query row r
   const int q0 = blockIdx.x * BT, bh = blockIdx.y;
   const int b = bh / a.heads, h = bh % a.heads;
+  int lo, hi;
+  tile_range<kWindow>(a, q0, a.nk, lo, hi);
   const bf16* kb = a.k + b * a.ksb + h * a.ksh;
   const bf16* vb = a.v + b * a.vsb + h * a.vsh;
 
@@ -215,11 +248,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
 #pragma unroll
   for (int j = 0; j < DH / 16; ++j) wmma::fill_fragment(dq[j], 0.f);
 
-  const int n_tiles = (a.nk + BT - 1) / BT;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BT;
-    load_tile<DH>(sm.k, kb, a.ksn, k0, a.nk);
-    load_tile<DH>(sm.v, vb, a.vsn, k0, a.nk);
+  for (int k0 = lo; k0 < hi; k0 += BT) {
+    load_tile<DH>(sm.k, kb, a.ksn, k0, hi);
+    load_tile<DH>(sm.v, vb, a.vsn, k0, hi);
     sfc::cp_async_commit();
     sfc::cp_async_wait<0>();
     __syncthreads();
@@ -230,7 +261,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
     for (int i = 0; i < BT / 2; ++i) {
       const int c = half + 2 * i;
       const float p =
-          row_ok && k0 + c < a.nk ? expf(s_w[r * LDS + c] * a.scale - lse_r) : 0.f;
+          row_ok && k0 + c < hi ? expf(s_w[r * LDS + c] * a.scale - lse_r) : 0.f;
       sfc::split_bf16(p * (dp_w[r * LDS + c] - dl) * a.scale, hi_w[r * LDP + c],
                       lo_w[r * LDP + c]);
     }
@@ -241,16 +272,19 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
   store_rows<DH>(dq, s_w, a.dq, b, h, a.heads, q0 + warp * 16, a.nq);
 }
 
-// #11 and, with kFused, #9.
-template <int DH, bool kFused>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
+// dk, dv of the 64 keys at blockIdx.x over the queries that see them
+// (#11; with kFused, #9; with kWindow, #13's dK/dV half).
+template <int DH, bool kFused, bool kWindow>
+__device__ __forceinline__ void dkv_tile(const Args& a, unsigned char* dyn) {
+  static_assert(!(kFused && kWindow), "the window takes the two-half form");
   constexpr int LDH = Dims<DH>::LDH, LDS = Dims<DH>::LDS;
-  extern __shared__ __align__(128) unsigned char dyn[];
   DkvSmem<DH>& sm = *reinterpret_cast<DkvSmem<DH>*>(dyn);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = lane / 2, half = lane % 2;  // lane pair (2r, 2r+1) owns key r
   const int k0 = blockIdx.x * BT, bh = blockIdx.y;
   const int b = bh / a.heads, h = bh % a.heads;
+  int lo, hi;
+  tile_range<kWindow>(a, k0, a.nq, lo, hi);
   const bf16* qb = a.q + b * a.qsb + h * a.qsh;
   const bf16* gb = a.g + b * a.gsb + h * a.gsh;
   const long long bhn = static_cast<long long>(bh) * a.nq;
@@ -281,14 +315,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
     wmma::fill_fragment(dv[j], 0.f);
   }
 
-  const int n_tiles = (a.nq + BT - 1) / BT;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * BT;
-    load_tile<DH>(sm.q, qb, a.qsn, q0, a.nq);
-    load_tile<DH>(sm.g, gb, a.gsn, q0, a.nq);
+  for (int q0 = lo; q0 < hi; q0 += BT) {
+    load_tile<DH>(sm.q, qb, a.qsn, q0, hi);
+    load_tile<DH>(sm.g, gb, a.gsn, q0, hi);
     sfc::cp_async_commit();
     for (int i = threadIdx.x; i < BT; i += kThreads) {
-      const bool ok = q0 + i < a.nq;  // past nq: zero q and g rows, p forced to 0
+      const bool ok = q0 + i < hi;  // past hi: zero q and g rows, p forced to 0
       sm.lse[i] = ok ? a.lse[bhn + q0 + i] : 0.f;
       sm.delta[i] = ok ? a.delta[bhn + q0 + i] : 0.f;
     }
@@ -300,9 +332,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
 #pragma unroll 8
     for (int i = 0; i < BT / 2; ++i) {
       const int c = half + 2 * i;  // query q0 + c
-      const float p = key_ok && q0 + c < a.nq
-                          ? expf(s_w[r * LDS + c] * a.scale - sm.lse[c])
-                          : 0.f;
+      const float p =
+          key_ok && q0 + c < hi ? expf(s_w[r * LDS + c] * a.scale - sm.lse[c]) : 0.f;
       sfc::split_bf16(p, pth_w[r * LDP + c], ptl_w[r * LDP + c]);
       sfc::split_bf16(p * (dp_w[r * LDS + c] - sm.delta[c]) * a.scale, dsh_w[r * LDP + c],
                       dsl_w[r * LDP + c]);
@@ -349,12 +380,34 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
   store_rows<DH>(dv, s_w, a.dv, b, h, a.heads, k0 + warp * 16, a.nk);
 }
 
+template <int DH>
+__global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char dyn[];
+  dq_tile<DH, false>(a, dyn);
+}
+
+template <int DH, bool kFused>
+__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char dyn[];
+  dkv_tile<DH, kFused, false>(a, dyn);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads) local_bwd_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char dyn[];
+  if (blockIdx.z == 0)
+    dq_tile<DH, true>(a, dyn);
+  else
+    dkv_tile<DH, false, true>(a, dyn);
+}
+
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, int tiles, int bh, cudaStream_t s, const Args& a) {
+cudaError_t launch(Kernel kernel, int smem, int tiles, int bh, cudaStream_t s, const Args& a,
+                   int halves = 1) {
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(tiles, bh), kThreads, smem, s>>>(a);
+  kernel<<<dim3(tiles, bh, halves), kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -448,4 +501,30 @@ extern "C" int sfc_flash_fused_bwd_bf16(const void* q, const void* k, const void
   return static_cast<int>(launch(flash_dkv_kernel<64, true>,
                                  static_cast<int>(sizeof(DkvSmem<64>)), (nk + BT - 1) / BT,
                                  batch * heads, static_cast<cudaStream_t>(stream), a));
+}
+
+// #13: q, k, v, g bf16 [batch, n, heads, dh] and lse, delta fp32 [batch,
+// heads, n] as above (nq = nk = n); dq, dk, dv bf16 [batch, n, heads, dh].
+// block a positive multiple of 64, halo >= 1.
+extern "C" int sfc_local_bwd_bf16(const void* q, const void* k, const void* v, const void* g,
+                                  const void* lse, const void* delta, void* dq, void* dk,
+                                  void* dv, int batch, int heads, int n, int dh, int block,
+                                  int halo, long long qsb, long long qsn, long long qsh,
+                                  long long ksb, long long ksn, long long ksh, long long vsb,
+                                  long long vsn, long long vsh, long long gsb, long long gsn,
+                                  long long gsh, float scale, void* stream) {
+  if (bad(batch, heads, n, n, dh) || block < BT || block % BT || halo < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  const long long st[12] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh};
+  Args a = make_args(q, k, v, g, lse, delta, heads, n, n, st, scale);
+  a.dq = static_cast<bf16*>(dq);
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
+  a.block = block;
+  a.halo = halo;
+  static_assert(sizeof(DkvSmem<64>) >= sizeof(DqSmem<64>), "one size for both halves");
+  return static_cast<int>(launch(local_bwd_kernel<64>, static_cast<int>(sizeof(DkvSmem<64>)),
+                                 (n + BT - 1) / BT, batch * heads,
+                                 static_cast<cudaStream_t>(stream), a, 2));
 }

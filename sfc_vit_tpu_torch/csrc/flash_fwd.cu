@@ -1,7 +1,8 @@
 // Flash attention forward on [B, N, H, Dh] (kernel #8):
 // out[b, i, h] = softmax(q[b, i, h] . K[b, :, h]^T * scale) . V[b, :, h]
 // for nq queries and nk keys (nq != nk allowed), head dim 64, bf16 in and
-// out, optionally with the fp32 log-sum-exp of every softmax row.
+// out, optionally with the fp32 log-sum-exp of every softmax row; and its
+// curve-local form (kernel #12), the same softmax over a window of keys.
 //
 // Replaces: sfc_vit_tpu/ops/flash_attention.py::_fwd_kernel (lines
 // 114-213).  Its two formulas, picked by the caller from the key length
@@ -20,6 +21,19 @@
 // strides (batch, row, head; unit stride along Dh), so the [B, N, H, Dh]
 // views of a packed QKV projection need no copy; out is contiguous.
 //
+// Curve-local (kWindow; #12, replaces sfc_vit_tpu/ops/local_attention.py::
+// _kernel, lines 82-124): query i sees exactly the keys j with
+// |i / block - j / block| <= halo and j < N, with the single K step's
+// arithmetic over that window (normalise in fp32, then round).  The TPU
+// kernel reads 2 * halo + 1 clamped neighbour-block views and masks the
+// out-of-range ones (in_range), so no key counts twice at the sequence's
+// ends; here a query tile's key range [max(0, (j - halo) * block),
+// min(N, (j + halo + 1) * block)) for its curve block j is computed
+// directly, the same set.  block is a multiple of 64, so a query tile lies
+// in one curve block.  At block 128, halo 1 a query meets at most 384
+// keys: 4 * 384 * 64 flops per row on 4 * 128 bytes of q, k, v and out,
+// ~190 flops a byte, under the H100's ~295, so the bytes bound it.
+//
 // Bound on this card: one (b, h) at N = 16,384 and Dh = 64 is
 // 4 * 16384^2 * 64 = 69 GFLOP on 6 MB of q/k/v/out, ~10^4 flops a byte,
 // far above the H100's ~295: tensor-core bound (989 TFLOP/s in bf16).
@@ -34,8 +48,9 @@
 // element-to-row mapping is opaque, the fp32 accumulator lives in shared
 // memory, each tile's P . V lands in fresh fragments, is staged through
 // the logits tile and folded in as acc * alpha + pv by the row's lane
-// pair.  Shared memory at Dh 64: 70 KB (Q, K, V, P, logits and the
-// accumulator), three blocks an SM.
+// pair.  Shared memory at Dh 64: 53 KB (Q, K, V, P and logits; the
+// single step and the window, four blocks an SM), 70 KB streaming (and
+// the accumulator, three blocks an SM).
 
 #include <mma.h>
 
@@ -56,7 +71,7 @@ using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_majo
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-template <int DH>
+template <int DH, bool kStream>
 struct Smem {
   static constexpr int LDH = DH + 8;                         // bf16 tile rows
   static constexpr int LDS = (BK > DH ? BK : DH) + 4;        // fp32 logits / staging rows
@@ -65,7 +80,7 @@ struct Smem {
   bf16 v[BK * LDH];
   bf16 p[kWarps * 16 * LDP];
   float s[kWarps * 16 * LDS];
-  float acc[kWarps * 16 * LDS];  // streaming only
+  float acc[kStream ? kWarps * 16 * LDS : 1];  // streaming only
 };
 
 template <int DH>
@@ -74,14 +89,15 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, long long
   sfc::load_tile64<DH, kThreads>(dst, base, row_stride, r0, n);
 }
 
-template <int DH, bool kStream>
+template <int DH, bool kStream, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, int heads, int nq, int nk, long long qsb,
-                     long long qsn, long long qsh, long long ksb, long long ksn, long long ksh,
-                     long long vsb, long long vsn, long long vsh, float scale) {
-  using S = Smem<DH>;
+                     float* __restrict__ lse, int heads, int nq, int nk, int block, int halo,
+                     long long qsb, long long qsn, long long qsh, long long ksb, long long ksn,
+                     long long ksh, long long vsb, long long vsn, long long vsh, float scale) {
+  static_assert(!(kStream && kWindow), "the window takes the single K step's arithmetic");
+  using S = Smem<DH, kStream>;
   constexpr int LDH = S::LDH, LDS = S::LDS;
   extern __shared__ __align__(128) unsigned char dyn[];
   S& sm = *reinterpret_cast<S*>(dyn);
@@ -94,6 +110,14 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* qb = q + b * qsb + h * qsh;
   const bf16* kb = k + b * ksb + h * ksh;
   const bf16* vb = v + b * vsb + h * vsh;
+  // The keys [lo, hi) this tile's queries see: all, or the window of its
+  // curve block.
+  int lo = 0, hi = nk;
+  if constexpr (kWindow) {
+    const int j = q0 / block;
+    lo = max(0, (j - halo) * block);
+    hi = min(nk, (j + halo + 1) * block);
+  }
 
   load_tile<DH>(sm.q, qb, qsn, q0, nq);
   sfc::cp_async_commit();
@@ -108,9 +132,9 @@ __global__ void __launch_bounds__(kThreads)
   float* s_w = &sm.s[warp * 16 * LDS];
   float* acc_w = &sm.acc[warp * 16 * LDS];
 
-  auto load_kv = [&](int t, bool with_v) {
-    load_tile<DH>(sm.k, kb, ksn, t * BK, nk);
-    if (with_v) load_tile<DH>(sm.v, vb, vsn, t * BK, nk);
+  auto load_kv = [&](int k0, bool with_v) {
+    load_tile<DH>(sm.k, kb, ksn, k0, hi);
+    if (with_v) load_tile<DH>(sm.v, vb, vsn, k0, hi);
     sfc::cp_async_commit();
     sfc::cp_async_wait<0>();
     __syncthreads();
@@ -152,7 +176,6 @@ __global__ void __launch_bounds__(kThreads)
   // Lane pair (2r, 2r+1) owns row r; lane parity picks alternate columns.
   const int r = lane / 2, half = lane % 2;
   const int row = q0 + warp * 16 + r;
-  const int n_tiles = (nk + BK - 1) / BK;
   bf16* out_row = out + ((static_cast<long long>(b) * nq + row) * heads + h) * DH;
   float m, l;
 
@@ -160,15 +183,14 @@ __global__ void __launch_bounds__(kThreads)
     // Pass 1: row max and row sum of exp(s - max), rescaled as the max grows.
     m = sfc::kNegInf;
     l = 0.f;
-    for (int t = 0; t < n_tiles; ++t) {
-      load_kv(t, false);
+    for (int k0 = lo; k0 < hi; k0 += BK) {
+      load_kv(k0, false);
       logits();
-      const int k0 = t * BK;
       float tmax = sfc::kNegInf;
 #pragma unroll 8
       for (int i = 0; i < BK / 2; ++i) {
         const int c = half + 2 * i;
-        tmax = fmaxf(tmax, k0 + c < nk ? s_w[r * LDS + c] * scale : sfc::kNegInf);
+        tmax = fmaxf(tmax, k0 + c < hi ? s_w[r * LDS + c] * scale : sfc::kNegInf);
       }
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
       const float m_new = fmaxf(m, tmax);
@@ -176,7 +198,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 8
       for (int i = 0; i < BK / 2; ++i) {
         const int c = half + 2 * i;
-        const float sv = k0 + c < nk ? s_w[r * LDS + c] * scale : sfc::kNegInf;
+        const float sv = k0 + c < hi ? s_w[r * LDS + c] * scale : sfc::kNegInf;
         psum += expf(sv - m_new);
       }
       psum += __shfl_xor_sync(0xffffffffu, psum, 1);
@@ -189,14 +211,13 @@ __global__ void __launch_bounds__(kThreads)
     FragC of[DH / 16];
 #pragma unroll
     for (int j = 0; j < DH / 16; ++j) wmma::fill_fragment(of[j], 0.f);
-    for (int t = 0; t < n_tiles; ++t) {
-      load_kv(t, true);
+    for (int k0 = lo; k0 < hi; k0 += BK) {
+      load_kv(k0, true);
       logits();
-      const int k0 = t * BK;
 #pragma unroll 8
       for (int i = 0; i < BK / 2; ++i) {
         const int c = half + 2 * i;
-        const float sv = k0 + c < nk ? s_w[r * LDS + c] * scale : sfc::kNegInf;
+        const float sv = k0 + c < hi ? s_w[r * LDS + c] * scale : sfc::kNegInf;
         p_w[r * LDP + c] = __float2bfloat16(expf(sv - m) / l);
       }
       __syncwarp();
@@ -220,15 +241,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = half * (DH / 2); c < (half + 1) * (DH / 2); ++c) acc_w[r * LDS + c] = 0.f;
     m = __int_as_float(0xff800000);  // -inf, as the TPU's m_s: the first alpha is 0
     l = 0.f;
-    for (int t = 0; t < n_tiles; ++t) {
-      load_kv(t, true);
+    for (int k0 = lo; k0 < hi; k0 += BK) {
+      load_kv(k0, true);
       logits();
-      const int k0 = t * BK;
       float tmax = sfc::kNegInf;
 #pragma unroll 8
       for (int i = 0; i < BK / 2; ++i) {
         const int c = half + 2 * i;
-        tmax = fmaxf(tmax, k0 + c < nk ? s_w[r * LDS + c] * scale : sfc::kNegInf);
+        tmax = fmaxf(tmax, k0 + c < hi ? s_w[r * LDS + c] * scale : sfc::kNegInf);
       }
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
       const float m_new = fmaxf(m, tmax);
@@ -237,7 +257,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 8
       for (int i = 0; i < BK / 2; ++i) {
         const int c = half + 2 * i;
-        const float sv = k0 + c < nk ? s_w[r * LDS + c] * scale : sfc::kNegInf;
+        const float sv = k0 + c < hi ? s_w[r * LDS + c] * scale : sfc::kNegInf;
         const float p = expf(sv - m_new);
         psum += p;
         p_w[r * LDP + c] = __float2bfloat16(p);
@@ -275,19 +295,19 @@ __global__ void __launch_bounds__(kThreads)
     lse[static_cast<long long>(bh) * nq + row] = m + logf(l == 0.f ? 1.f : l);
 }
 
-template <int DH, bool kStream>
-cudaError_t launch(cudaStream_t stream, int batch, int heads, int nq, int nk,
-                   const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
-                   const long long* st, float scale) {
-  auto kernel = flash_fwd_kernel<DH, kStream>;
-  const int smem = static_cast<int>(sizeof(Smem<DH>));
+template <int DH, bool kStream, bool kWindow>
+cudaError_t launch(cudaStream_t stream, int batch, int heads, int nq, int nk, int block,
+                   int halo, const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                   float* lse, const long long* st, float scale) {
+  auto kernel = flash_fwd_kernel<DH, kStream, kWindow>;
+  const int smem = static_cast<int>(sizeof(Smem<DH, kStream>));
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((nq + BQ - 1) / BQ, batch * heads);
-  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, lse, heads, nq, nk, st[0], st[1],
-                                           st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-                                           scale);
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, lse, heads, nq, nk, block, halo,
+                                           st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+                                           st[7], st[8], scale);
   return cudaGetLastError();
 }
 
@@ -313,7 +333,28 @@ extern "C" int sfc_flash_fwd_bf16(const void* q, const void* k, const void* v, v
   auto* op = static_cast<bf16*>(out);
   auto* lp = static_cast<float*>(lse);
   const cudaError_t e =
-      streaming ? launch<64, true>(s, batch, heads, nq, nk, qp, kp, vp, op, lp, st, scale)
-                : launch<64, false>(s, batch, heads, nq, nk, qp, kp, vp, op, lp, st, scale);
+      streaming
+          ? launch<64, true, false>(s, batch, heads, nq, nk, 0, 0, qp, kp, vp, op, lp, st, scale)
+          : launch<64, false, false>(s, batch, heads, nq, nk, 0, 0, qp, kp, vp, op, lp, st,
+                                     scale);
   return static_cast<int>(e);
+}
+
+// #12: q, k, v bf16 [batch, n, heads, dh] read through their strides as
+// above; out bf16 [batch, n, heads, dh] contiguous; lse fp32 [batch,
+// heads, n] or null.  dh must be 64, block a positive multiple of 64,
+// halo >= 1.
+extern "C" int sfc_local_fwd_bf16(const void* q, const void* k, const void* v, void* out,
+                                  void* lse, int batch, int heads, int n, int dh, int block,
+                                  int halo, long long qsb, long long qsn, long long qsh,
+                                  long long ksb, long long ksn, long long ksh, long long vsb,
+                                  long long vsn, long long vsh, float scale, void* stream) {
+  if (dh != 64 || n < 1 || heads < 1 || batch < 0 || block < BQ || block % BQ || halo < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  const long long st[9] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh};
+  return static_cast<int>(launch<64, false, true>(
+      static_cast<cudaStream_t>(stream), batch, heads, n, n, block, halo,
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), static_cast<float*>(lse), st, scale));
 }

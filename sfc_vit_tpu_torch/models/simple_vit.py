@@ -17,7 +17,8 @@ Each encoder layer routes as the JAX model routes on its chip
 model and inner widths are multiples of 128; otherwise LN -> QKV ->
 :func:`~sfc_vit_tpu_torch.ops.attention.packed_qkv_attention` (#7 up to
 1,024 tokens, flash attention #8-#11 past them, or the fp32 formula) ->
-out projection -> residual, with the two products left to
+out projection -> residual (a ``'local'`` layer: curve-local attention
+#12/#13 in that place), with the two products left to
 ``torch.matmul`` as JAX leaves them to XLA.  The MLP block is one
 :func:`~sfc_vit_tpu_torch.ops.fused_mlp_block` call (#2, #3) when the
 model and hidden widths are multiples of 128, else
@@ -90,8 +91,8 @@ def layer_route(attn_impl: str, n: int, d: int, inner: int, f: int,
     """Which path an encoder layer takes for ``n`` tokens of width ``d``,
     attention width ``inner`` = heads x ``dh`` and MLP width ``f``:
     ``(attention, mlp)`` with attention one of ``'fused_block'`` (#1/#4),
-    ``'packed'`` (#7), ``'flash'`` (#8-#11) or ``'xla'`` (the fp32
-    formula), and mlp ``'fused_mlp'`` (#2/#3) or ``'xla'``
+    ``'packed'`` (#7), ``'flash'`` (#8-#11), ``'local'`` (#12/#13) or
+    ``'xla'`` (the fp32 formula), and mlp ``'fused_mlp'`` (#2/#3) or ``'xla'``
     (``mlp_block_ref``).  The modules route through the same gates."""
     if fused_attn_gate(attn_impl, n, d, inner):
         attn = "fused_block"
@@ -260,8 +261,11 @@ class PreNormTransformer(nn.Module):
     """Residual pre-norm stack with a final LayerNorm.
 
     ``attn_impl`` is one implementation for every layer or a per-layer
-    tuple of length ``depth``; a schedule naming one that is not ported
-    (``'local'``: kernels #12/#13) raises.  After layer ``i``,
+    tuple of length ``depth`` (the ``longctx-16k-hybrid`` preset: three
+    ``'local'`` layers, kernels #12/#13, then one ``'auto'``); a schedule
+    naming one that is not ported (``'xla_bf16'``, ``'ring'``, ``'sp'``)
+    raises.  A local layer's curve blocks are positions in the sequence it
+    receives, merged or not, as in JAX.  After layer ``i``,
     ``pool_layers`` halves the tokens with :func:`curve_pair_pool` and
     ``merge_layers`` merges the most similar curve pairs
     (:func:`~sfc_vit_tpu_torch.ops.token_merge.curve_pair_merge_topk` at

@@ -41,7 +41,16 @@ from .fused_torch_attention import (
     torch_mha_train,
     torch_mha_train_fwd,
 )
+# ``gather_project`` (the function) stays in its module of the same name too.
+from .gather_project import gather_project_ref, gather_project_xla
 from .kernel_utils import NEG_INF, ln_bwd_fp32, ln_fp32, round_up
+from .local_attention import (
+    local_block_attention,
+    local_block_attention_ref,
+    local_block_attention_xla,
+    local_bwd_ref,
+    local_fwd_ref,
+)
 from .token_merge import curve_pair_merge_topk
 
 __all__ = [
@@ -62,8 +71,15 @@ __all__ = [
     "fused_attention_block",
     "fused_mlp_block",
     "fused_torch_mha",
+    "gather_project_ref",
+    "gather_project_xla",
     "ln_bwd_fp32",
     "ln_fp32",
+    "local_block_attention",
+    "local_block_attention_ref",
+    "local_block_attention_xla",
+    "local_bwd_ref",
+    "local_fwd_ref",
     "mlp_block_bwd",
     "mlp_block_bwd_ref",
     "mlp_block_ref",

@@ -18,7 +18,8 @@ nothing runs without the kernels.
 
 The launchers below (``ln_rows``, ``ln_rows_bwd``, ``gemm``,
 ``act_bf16``, ``colsum``, ``attention_fwd``, ``attention_bwd``,
-``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``, ``flash_dkv``) check
+``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``, ``flash_dkv``,
+``local_fwd``, ``local_bwd``, ``gather_project``) check
 device, dtype, shape, contiguity (or, for the flash kernels, strides) and
 alignment, allocate their outputs with
 ``torch.empty`` (``torch.zeros`` for sums the kernels accumulate into),
@@ -42,7 +43,8 @@ import torch
 __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "act_bf16", "colsum", "attention_fwd", "attention_bwd",
            "ATTENTION_HEAD_DIMS", "flash_fwd", "flash_fused_bwd", "flash_dq",
-           "flash_dkv", "FLASH_HEAD_DIMS"]
+           "flash_dkv", "FLASH_HEAD_DIMS", "local_fwd", "local_bwd",
+           "gather_project"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sfc_vit_tpu_torch"
@@ -75,6 +77,14 @@ _SIGNATURES = {
     "sfc_flash_dq_bf16": (_P,) * 7 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
     "sfc_flash_dkv_bf16": (_P,) * 8 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
     "sfc_flash_fused_bwd_bf16": (_P,) * 9 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
+    # q, k, v, out, lse; batch, heads, n, dh, block, halo; q, k, v strides
+    # (batch, row, head); scale, stream
+    "sfc_local_fwd_bf16": (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_F, _P),
+    # q, k, v, g, lse, delta, dq, dk, dv; batch, heads, n, dh, block, halo;
+    # q, k, v, g strides; scale, stream
+    "sfc_local_bwd_bf16": (_P,) * 9 + (_I,) * 6 + (_L,) * 12 + (_F, _P),
+    # x, lut, w, bias, out; batch, n, k, m, group, d; stream
+    "sfc_gather_project_bf16": (_P,) * 5 + (_I,) * 6 + (_P,),
 }
 
 #: Head dims the attention kernels are instantiated for: ViT-B's 64 and
@@ -477,3 +487,76 @@ def flash_fused_bwd(q, k, v, g, lse, delta, scale: float):
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, nq,
         nk, dh, *_strides(q, k, v, g), scale, _stream()), "flash_fused_bwd")
     return dq, dk, dv
+
+
+def _check_local(q, k, v, block: int, halo: int, g=None, lse=None, delta=None):
+    """Shapes of the local kernels' operands (q, k, v of one length);
+    returns (b, n, h, dh)."""
+    b, n, h, dh = q.shape
+    if dh != 64 or block % 64 or block < 64 or halo < 1:
+        raise ValueError(f"local: head dim {dh}, block {block}, halo {halo}; the "
+                         "kernels take head dim 64, block a multiple of 64, halo >= 1")
+    if n < 1:
+        raise ValueError("local: empty sequence")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _require_bnhd(t, name, (b, n, h, dh))
+    if g is not None:
+        _require_bnhd(g, "g", (b, n, h, dh))
+        _require(lse, "lse", (b, h, n), torch.float32)
+        _require(delta, "delta", (b, h, n), torch.float32)
+    return b, n, h, dh
+
+
+def local_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              block: int, halo: int, with_lse: bool = False):
+    """#12: curve-local attention over q, k, v [B, N, H, 64] (bf16, any
+    16-byte-aligned row strides), each query on the keys of the blocks
+    within ``halo`` of its own -> out [B, N, H, 64] bf16, contiguous;
+    ``with_lse`` also returns the window's fp32 log-sum-exp [B, H, N]."""
+    b, n, h, dh = _check_local(q, k, v, block, halo)
+    out = torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    _check(library().sfc_local_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+        b, h, n, dh, block, halo, *_strides(q, k, v), scale, _stream()), "local_fwd")
+    return (out, lse) if with_lse else out
+
+
+def local_bwd(q, k, v, g, lse, delta, scale: float, block: int, halo: int):
+    """#13: ``(dq, dk, dv)`` [B, N, H, 64] bf16 from the output's cotangent
+    ``g``, the forward's fp32 ``lse`` and ``delta = rowsum(g * O)`` (both
+    [B, H, N]); dk and dv are fp32 sums over the query-side window, rounded
+    once."""
+    b, n, h, dh = _check_local(q, k, v, block, halo, g, lse, delta)
+    dq = torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty_like(dq)
+    dv = torch.empty_like(dq)
+    _check(library().sfc_local_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, dh,
+        block, halo, *_strides(q, k, v, g), scale, _stream()), "local_bwd")
+    return dq, dk, dv
+
+
+def gather_project(x: torch.Tensor, lut: torch.Tensor, w: torch.Tensor,
+                   bias: Optional[torch.Tensor], group: int) -> torch.Tensor:
+    """#14: ``out[b, i] = concat_p x[b, lut[i * group + p]] @ w + bias``
+    over x [B, N, K] bf16, ``lut`` int32 [M * group] (each in [0, N)), w
+    [group * K, D] bf16 and an optional bf16 bias [D] -> [B, M, D] bf16,
+    the bias added to the fp32 sum before the one rounding."""
+    bsz, n, k = x.shape
+    if group < 1 or lut.dim() != 1 or lut.numel() % group:
+        raise ValueError(f"gather_project: {lut.numel()} LUT entries for group {group}")
+    m = lut.numel() // group
+    d = w.shape[1]
+    _require(x, "x")
+    _require(lut, "lut", (m * group,), torch.int32)
+    _require(w, "w", (group * k, d))
+    if bias is not None:
+        _require(bias, "bias", (d,))
+    out = torch.empty((bsz, m, d), dtype=x.dtype, device=x.device)
+    _check(library().sfc_gather_project_bf16(
+        x.data_ptr(), lut.data_ptr(), w.data_ptr(), _ptr(bias), out.data_ptr(),
+        bsz, n, k, m, group, d, _stream()), "gather_project")
+    return out

@@ -23,8 +23,12 @@ plain version for a CPU tensor and the kernel for a CUDA one.
     :func:`~sfc_vit_tpu_torch.ops.flash_attention._packed_xla_ref`): fp32
     logits and softmax, weights rounded to the input dtype before the
     weighted sum.
-  * ``"xla_bf16"``, ``"local"``, ``"ring"``, ``"sp"`` -- not ported yet;
-    each raises ``NotImplementedError`` naming its ROADMAP.md item.
+  * ``"local"`` -- curve-local block attention at JAX's defaults, block
+    128 and halo 1
+    (:func:`~sfc_vit_tpu_torch.ops.local_attention.local_block_attention`,
+    kernels #12/#13), on [B, N, H, Dh] views of the packed projection.
+  * ``"xla_bf16"``, ``"ring"``, ``"sp"`` -- not ported yet; each raises
+    ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Optional
 import torch
 
 from .flash_attention import _packed_xla_ref, flash_attention, packed_flash_attention
+from .local_attention import local_block_attention
 
 __all__ = ["packed_qkv_attention", "multi_head_attention", "packed_route",
            "dot_product_attention_xla", "attention_with_weights",
@@ -45,7 +50,6 @@ _IMPLEMENTATIONS = ("auto", "xla", "xla_bf16", "pallas", "local", "ring", "sp")
 #: Where each implementation that is not ported yet stands in ROADMAP.md.
 _NOT_PORTED = {
     "xla_bf16": "queue 1 item 2 (the bf16-softmax formula)",
-    "local": "queue 1 item 10 (long context: curve-local attention, kernels #12/#13)",
     "ring": "queue 1 item 13 (parallel: sequence parallelism)",
     "sp": "queue 1 item 13 (parallel: sequence parallelism)",
 }
@@ -78,10 +82,12 @@ def check_implementation(implementation: str) -> None:
 
 def packed_route(implementation: str, n: int, dh: int) -> str:
     """Which path ``packed_qkv_attention`` takes for ``n`` tokens of head
-    dim ``dh``: ``'packed'`` (#7), ``'flash'`` (#8-#11) or ``'xla'`` (the
-    fp32 formula).  JAX's dispatch on its chip
+    dim ``dh``: ``'packed'`` (#7), ``'flash'`` (#8-#11), ``'local'``
+    (#12/#13) or ``'xla'`` (the fp32 formula).  JAX's dispatch on its chip
     (``sfc_vit_tpu/ops/attention.py:212-239``) without the VMEM budget."""
     check_implementation(implementation)
+    if implementation == "local":
+        return "local"
     if implementation == "pallas":
         return "flash"
     if implementation == "auto":
@@ -116,13 +122,17 @@ def dot_product_attention_xla(q, k, v, scale: Optional[float] = None):
 def multi_head_attention(q, k, v, scale: Optional[float] = None,
                          implementation: str = "auto") -> torch.Tensor:
     """Multi-head attention on [B, N, H, Dh] (JAX's dispatch,
-    ``attention.py:262-328``): ``'pallas'``, or ``'auto'`` at N >=
+    ``attention.py:262-328``): ``'local'`` runs
+    :func:`~sfc_vit_tpu_torch.ops.local_attention.local_block_attention`
+    at block 128, halo 1; ``'pallas'``, or ``'auto'`` at N >=
     ``PALLAS_MIN_N`` with a head dim in ``PALLAS_HEAD_DIMS``, runs
     :func:`flash_attention`; ``'xla'`` and the rest of ``'auto'`` the fp32
     formula, except that JAX's ``auto`` takes the bf16 softmax for bf16
     rows shorter than ``PALLAS_MIN_N``, which raises here until that
     formula is ported (queue 1 item 2)."""
     check_implementation(implementation)
+    if implementation == "local":
+        return local_block_attention(q, k, v, scale=scale)
     n, dh = q.shape[1], q.shape[-1]
     if implementation == "pallas" or (
             implementation == "auto" and dh in PALLAS_HEAD_DIMS and n >= PALLAS_MIN_N):
@@ -136,8 +146,8 @@ def packed_qkv_attention(qkv: torch.Tensor, heads: int,
                          scale: Optional[float] = None,
                          implementation: str = "auto") -> torch.Tensor:
     """Attention on a packed [B, N, 3*H*Dh] projection -> [B, N, H*Dh],
-    routed by :func:`packed_route`.  The flash route reads q, k and v as
-    [B, N, H, Dh] views of the projection, with no copy."""
+    routed by :func:`packed_route`.  The flash and local routes read q, k
+    and v as [B, N, H, Dh] views of the projection, with no copy."""
     b, n, three_inner = qkv.shape
     if three_inner % (3 * heads):
         raise ValueError(f"packed QKV feature dim {three_inner} must be "
@@ -146,7 +156,9 @@ def packed_qkv_attention(qkv: torch.Tensor, heads: int,
     route = packed_route(implementation, n, dh)
     if route == "packed":
         return packed_flash_attention(qkv, heads, scale)
-    if route == "flash":
+    if route in ("flash", "local"):
         q, k, v = qkv.view(b, n, 3, heads, dh).unbind(2)
-        return flash_attention(q, k, v, scale).reshape(b, n, heads * dh)
+        out = (flash_attention(q, k, v, scale) if route == "flash"
+               else local_block_attention(q, k, v, scale=scale))
+        return out.reshape(b, n, heads * dh)
     return _packed_xla_ref(qkv, heads, dh ** -0.5 if scale is None else scale)

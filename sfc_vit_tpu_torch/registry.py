@@ -4,8 +4,9 @@ Counterpart of ``sfc_vit_tpu/registry.py``.  ``ModelConfig`` and
 ``PRESETS`` carry the same fields and operating points; ``build_model``
 runs the JAX package's validation and builds the pre-norm families
 ('simple', 'curvevit', with token merging and per-layer attention
-schedules: the 'longctx-16k' preset) and family A's 'vit1d' over the
-hierarchical tokenizer (the 'flagship' preset).  Everything not yet ported raises
+schedules: the 'longctx-16k' and 'longctx-16k-hybrid' presets) and family
+A's 'vit1d' over the hierarchical tokenizer, fused (``fused=True``) or
+not (the 'flagship' preset).  Everything not yet ported raises
 ``NotImplementedError`` naming its ROADMAP.md item.  Models are built on
 the card unless the caller asks for the CPU (``device='cpu'``).
 """
@@ -165,7 +166,7 @@ def _validate(cfg: ModelConfig) -> None:
         _check_curve(cfg)
     for impl in ((cfg.attn_impl,) if isinstance(cfg.attn_impl, str)
                  else tuple(cfg.attn_impl)):
-        check_implementation(impl)  # 'local' (the hybrid preset) raises
+        check_implementation(impl)
 
 
 def build_model(cfg: ModelConfig, device="cuda",

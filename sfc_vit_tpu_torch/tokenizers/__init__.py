@@ -1,8 +1,8 @@
-"""Patchify and curve gather (the ``CurvePatchEmbedding`` front end) and
-the hierarchical curve tokenizer."""
+"""Patchify and curve gather (the ``CurvePatchEmbedding`` front end), the
+fused gather + projection and the hierarchical curve tokenizer."""
 
-from .embeddings import curve_gather, patchify
+from .embeddings import FusedCurveProjection, curve_gather, patchify
 from .hierarchical import GroupedCurveEmbedding1D, HierarchicalCurveEmbedding
 
-__all__ = ["GroupedCurveEmbedding1D", "HierarchicalCurveEmbedding",
-           "curve_gather", "patchify"]
+__all__ = ["FusedCurveProjection", "GroupedCurveEmbedding1D",
+           "HierarchicalCurveEmbedding", "curve_gather", "patchify"]

@@ -8,7 +8,10 @@ linearly upsampled to the finest token count, concatenated on features
 and fused by one Dense layer.  Parameter names follow the flax tree
 (``level_{i}/proj``, ``fusion``), Dense kernels ``[in, out]``.
 
-``fused=True`` (the gather + projection kernel #14) is not ported yet.
+With ``fused=True`` and a curve other than ``'raster'`` each level's
+gather, grouping and projection are one
+:class:`~sfc_vit_tpu_torch.tokenizers.embeddings.FusedCurveProjection`
+(kernel #14 on the card) under the same ``proj`` parameters, as in JAX.
 """
 
 from __future__ import annotations
@@ -22,44 +25,47 @@ from torch import nn
 
 from ..curves import flat_lut
 from ..models.layers import Dense
-from .embeddings import curve_gather, patchify
+from .embeddings import FusedCurveProjection, curve_gather, patchify
 
 __all__ = ["GroupedCurveEmbedding1D", "HierarchicalCurveEmbedding",
            "_linear_upsample_tokens"]
 
 
-def _refuse_fused(fused: bool) -> None:
-    if fused:
-        raise NotImplementedError(
-            "fused=True (the gather + projection kernel #14) is not ported to "
-            "PyTorch yet: ROADMAP.md queue 1 item 6 (tokenizers)")
-
-
 class GroupedCurveEmbedding1D(nn.Module):
     """One pyramid level: pre-patchify, curve reorder, group, project.
 
-    ``curve='raster'`` applies no reorder.  Input NHWC [B, H, W, C]."""
+    ``curve='raster'`` applies no reorder; ``fused`` (any other curve)
+    makes the reorder, grouping and projection one
+    :class:`FusedCurveProjection`.  Input NHWC [B, H, W, C]."""
 
     def __init__(self, img_size: int, pre_patch_size: int,
                  group_patch_size: int, embed_dim: int, curve: str = "raster",
                  fused: bool = False, dtype: Optional[torch.dtype] = None,
                  channels: int = 3, generator=None):
         super().__init__()
-        _refuse_fused(fused)
         if img_size % pre_patch_size:
             raise ValueError("Image size must be divisible by pre_patch_size")
         self.pre_patch_size = pre_patch_size
         self.group_patch_size = group_patch_size
         self.grid_size = img_size // pre_patch_size
         self.n_final_patches = self.grid_size ** 2 // group_patch_size
-        lut = (None if curve == "raster" else
-               torch.from_numpy(flat_lut(curve, self.grid_size).astype(np.int64)))
-        self.register_buffer("lut", lut, persistent=False)
-        self.proj = Dense(group_patch_size * pre_patch_size ** 2 * channels,
-                          embed_dim, dtype=dtype, generator=generator)
+        k = pre_patch_size ** 2 * channels
+        self.fused = fused and curve != "raster"
+        lut = None if curve == "raster" else flat_lut(curve, self.grid_size)
+        if self.fused:
+            self.register_buffer("lut", None, persistent=False)
+            self.proj = FusedCurveProjection(k, embed_dim, lut, self.grid_size ** 2,
+                                             group_patch_size, dtype, generator)
+            return
+        self.register_buffer(
+            "lut", None if lut is None else torch.from_numpy(lut.astype(np.int64)),
+            persistent=False)
+        self.proj = Dense(group_patch_size * k, embed_dim, dtype=dtype, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = patchify(x, self.pre_patch_size)  # [B, grid^2, p*p*C]
+        if self.fused:
+            return self.proj(x)
         if self.lut is not None:
             x = curve_gather(x, self.lut)
         # group g curve-consecutive pre-patches per token
@@ -92,7 +98,6 @@ class HierarchicalCurveEmbedding(nn.Module):
                  dtype: Optional[torch.dtype] = None, channels: int = 3,
                  generator=None):
         super().__init__()
-        _refuse_fused(fused)
         self.img_size = img_size
         self.patch_size_list = tuple(patch_size_list)
         self.embed_dim = embed_dim
@@ -100,7 +105,7 @@ class HierarchicalCurveEmbedding(nn.Module):
         self.return_levels = return_levels
         for i, (pre, g) in enumerate(zip(self.pre_patch_sizes, self.patch_size_list)):
             self.add_module(f"level_{i}", GroupedCurveEmbedding1D(
-                img_size, pre, g, embed_dim, curve, dtype=dtype,
+                img_size, pre, g, embed_dim, curve, fused=fused, dtype=dtype,
                 channels=channels, generator=generator))
         if not return_levels:
             self.fusion = Dense(self.out_dim, self.out_dim, dtype=dtype,

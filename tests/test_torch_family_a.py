@@ -252,8 +252,7 @@ def test_attention_formulas_match_jax():
 
 def test_packed_qkv_attention_refuses_unported_implementations():
     qkv = torch.zeros(1, 4, 3 * 64)
-    for impl, item in [("local", "item 10"), ("local", "#12/#13"),
-                       ("ring", "item 13"), ("sp", "item 13"),
+    for impl, item in [("ring", "item 13"), ("sp", "item 13"),
                        ("xla_bf16", "item 2")]:
         with pytest.raises(NotImplementedError, match=item):
             packed_qkv_attention(qkv, 1, implementation=impl)
@@ -373,10 +372,10 @@ def test_build_model_defaults_to_the_card(monkeypatch):
 @pytest.mark.parametrize("overrides, exc, match", [
     (dict(model="vit"), NotImplementedError, "queue 1 item 7"),
     (dict(model="hier"), NotImplementedError, "queue 1 item 16"),
-    (dict(fused=True), NotImplementedError, "queue 1 item 6"),
+    (dict(fused=True, tokenizer="1d"), NotImplementedError, "queue 1 item 6"),
     (dict(tokenizer="2d"), NotImplementedError, "queue 1 item 6"),
     (dict(tokenizer="1d"), NotImplementedError, "queue 1 item 6"),
-    (dict(attn_impl="local"), NotImplementedError, "queue 1 item 10"),
+    (dict(attn_impl="sp"), NotImplementedError, "queue 1 item 13"),
     (dict(remat=True), NotImplementedError, "queue 1 item 4"),
     (dict(curve="random"), ValueError, "2d tokenizer"),
     (dict(merge_layers=(1,)), ValueError, "curvevit"),

@@ -739,3 +739,194 @@ def test_long_context_model_kernel_path_matches_plain_path(cuda):
                 grads.append([p.grad.float().clone() for p in model.parameters()])
         for g, w in zip(*grads):
             assert float((g - w).norm() / w.norm()) <= 0.1
+
+
+# -- curve-local attention (#12, #13) and gather + projection (#14) ---------------
+
+
+def test_local_and_gather_launchers_reject_what_the_kernels_do_not_take():
+    q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _build.local_fwd(q, q, q, 1.0, block=128, halo=1)
+    with pytest.raises(ValueError, match="block a multiple of 64"):
+        _build.local_fwd(q, q, q, 1.0, block=96, halo=1)
+    with pytest.raises(ValueError, match="head dim 64"):
+        x = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
+        _build.local_bwd(x, x, x, x, None, None, 1.0, block=128, halo=1)
+    x = torch.zeros(1, 8, 3, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _build.gather_project(x, torch.arange(8, dtype=torch.int32),
+                              torch.zeros(3, 8, dtype=torch.bfloat16), None, 1)
+    with pytest.raises(ValueError, match="LUT entries"):
+        _build.gather_project(x, torch.arange(8, dtype=torch.int32),
+                              torch.zeros(9, 8, dtype=torch.bfloat16), None, 3)
+
+
+#: (b, n, heads, block, halo, packed): ragged lengths at the hybrid
+#: preset's block 128 / halo 1 (one not a multiple of 64, one of 5,000
+#: tokens), a window of five 64-blocks, and q, k, v as views of one packed
+#: projection.
+_LOCAL_SHAPES = [(2, 300, 3, 128, 1, False), (1, 520, 2, 128, 1, True),
+                 (1, 5000, 2, 128, 1, True), (2, 700, 2, 64, 2, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, heads, block, halo, packed", _LOCAL_SHAPES)
+def test_local_kernels_match_plain(cuda, b, n, heads, block, halo, packed):
+    """#12 (out and lse) and #13 (dq, dk, dv) against their plain versions
+    fed the same inputs: one rounding of the same fp32 sums (and #13's
+    two-term split of p and ds) per element."""
+    from sfc_vit_tpu_torch.ops import local_attention as la
+    from sfc_vit_tpu_torch.ops.flash_attention import flash_delta
+
+    q, k, v, g = _flash_qkv(np.random.default_rng(40), b, n, n, heads, cuda, packed)
+    s = 64 ** -0.5
+    out, lse = _build.local_fwd(q, k, v, s, block, halo, with_lse=True)
+    want, want_lse = la.local_fwd_ref(q, k, v, block, halo, s, return_lse=True)
+    _within(out, want, 1e-2, "out")
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert torch.equal(_build.local_fwd(q, k, v, s, block, halo), out)
+    delta = flash_delta(g, out)
+    got = _build.local_bwd(q, k, v, g, lse, delta, s, block, halo)
+    for name, a, w in zip(("dq", "dk", "dv"), got,
+                          la.local_bwd_ref(q, k, v, g, lse, delta, block, halo, s)):
+        _within(a, w, 1e-2, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [200, 600])
+def test_local_block_attention_autograd_counts_its_kernels(cuda, n):
+    """At 600 tokens (block 128, halo 1) ``local_block_attention`` launches
+    #12 once and #13 once; at 200 it is the dense case, flash attention;
+    the gradients match the plain route's."""
+    from sfc_vit_tpu_torch.ops import flash_attention as fa
+    from sfc_vit_tpu_torch.ops import local_attention as la
+
+    q, k, v, g = _flash_qkv(np.random.default_rng(41), 2, n, n, 2, cuda)
+    counts = lambda: (la.local_block_attention.launches,  # noqa: E731
+                      la.local_block_attention.bwd_launches, fa.flash_attention.launches)
+    grads = []
+    for route in (la.local_block_attention, la.local_block_attention_ref):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = counts()
+        route(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+        delta = tuple(a - b for a, b in zip(counts(), before))
+        if route is la.local_block_attention_ref:
+            assert delta == (0, 0, 0)
+        else:
+            assert delta == ((0, 0, 1) if la.is_dense(n, 128, 1) else (1, 1, 0))
+    for name, a, w in zip(("dq", "dk", "dv"), *grads):
+        _within(a, w, 2e-2, name)
+
+
+@pytest.mark.gpu
+def test_local_attention_refuses_what_the_kernels_do_not_take(cuda):
+    from sfc_vit_tpu_torch.ops import local_attention as la
+
+    q = torch.zeros(1, 600, 2, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        la.local_block_attention(q, q, q)  # fp32
+    q = torch.zeros(1, 600, 2, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        la.local_block_attention(q, q, q)  # head dim 32
+    q = torch.zeros(1, 600, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        la.local_block_attention(q, q, q, block=32)
+
+
+#: (b, n, k, m, group, d, repeat): the flagship's three levels (a 32 px
+#: image, D = 256) at batch 8, a ragged case with D past one 256-column
+#: slice and repeated LUT entries, and one with more features than a chunk.
+_GP_SHAPES = [(8, 1024, 3, 64, 16, 256, False), (8, 256, 12, 64, 4, 256, False),
+              (8, 64, 48, 64, 1, 256, False), (3, 50, 5, 70, 3, 300, True),
+              (2, 196, 768, 196, 1, 96, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("b, n, k, m, group, d, repeat", _GP_SHAPES)
+def test_gather_project_matches_plain(cuda, b, n, k, m, group, d, repeat, bias):
+    """#14 against its plain version (the same order: fp32 sum, bias in
+    fp32, one rounding): one bf16 rounding of a sum taken in another order."""
+    from sfc_vit_tpu_torch.ops import gather_project as gp
+
+    rng = np.random.default_rng(42)
+    x = _randn(rng, b, n, k, device=cuda)
+    lut = rng.integers(0, n, m * group) if repeat else rng.permutation(n)[:m * group]
+    lut = torch.from_numpy(lut.astype(np.int32)).to(cuda)
+    w = _randn(rng, group * k, d, scale=(group * k) ** -0.5, device=cuda)
+    bvec = _randn(rng, d, device=cuda) if bias else None
+    before = gp.gather_project.launches
+    got = gp.gather_project(x, lut, w, bvec, group)
+    assert gp.gather_project.launches == before + 1
+    torch.testing.assert_close(got.float(), gp.gather_project_ref(x, lut, w, bvec, group)
+                               .float(), **ONE_ROUND_TOL)
+
+
+@pytest.mark.gpu
+def test_gather_project_grads_and_fp32_refusal(cuda):
+    """Under autograd the forward is #14 and the backward plain PyTorch:
+    the gradients match those of the plain forward; fp32 raises."""
+    from sfc_vit_tpu_torch.ops import gather_project as gp
+
+    rng = np.random.default_rng(43)
+    x, w, bvec = (_randn(rng, 4, 64, 48, device=cuda),
+                  _randn(rng, 48, 256, scale=48 ** -0.5, device=cuda),
+                  _randn(rng, 256, device=cuda))
+    lut = torch.from_numpy(rng.permutation(64).astype(np.int32)).to(cuda)
+    g = _randn(rng, 4, 64, 256, device=cuda)
+    grads = []
+    for fn in (gp.gather_project, gp.gather_project_ref):
+        leaves = [t.clone().requires_grad_() for t in (x, w, bvec)]
+        fn(leaves[0], lut, leaves[1], leaves[2], 1).backward(g)
+        grads.append([t.grad for t in leaves])
+    for name, a, want in zip(("dx", "dw", "db"), *grads):
+        _within(a, want, 2e-2, name)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        gp.gather_project(x.float(), lut, w.float())
+
+
+@pytest.mark.gpu
+def test_hybrid_and_fused_flagship_kernel_paths_match_plain(cuda):
+    """A hybrid CurveViT (three local layers and a global one, merged after
+    layer 1; 48 x 48 px) and the fused flagship on the card: eval through
+    #12 / #14 against the plain versions, one backward through #13."""
+    from unittest import mock
+
+    import sfc_vit_tpu_torch.ops.attention as attention
+    from sfc_vit_tpu_torch.ops import gather_project as gp
+    from sfc_vit_tpu_torch.ops import local_attention as la
+    from sfc_vit_tpu_torch.registry import build_model, preset_config
+
+    cfg = preset_config("longctx-16k-hybrid", img_size=48)  # 2,304 then 1,728 tokens
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    x = _randn(np.random.default_rng(44), 2, 48, 48, 3)
+    plain = mock.patch.object(attention, "local_block_attention", la.local_block_attention_ref)
+    before = la.local_block_attention.launches
+    with torch.no_grad():
+        got = model(x)
+        with plain:
+            want = model(x)
+    assert la.local_block_attention.launches == before + 3
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2, atol=5e-2)
+    grads = []
+    for ctx in (mock.patch.object(attention, "local_block_attention",
+                                  la.local_block_attention), plain):
+        model.zero_grad()
+        with ctx:
+            model(x).float().sum().backward()
+        grads.append([p.grad.float().clone() for p in model.parameters()])
+    for g, w in zip(*grads):
+        assert float((g - w).norm() / w.norm()) <= 0.1
+
+    fused = build_model(preset_config("flagship", fused=True, dtype="bfloat16"),
+                        generator=torch.Generator().manual_seed(0)).eval()
+    unfused = build_model(preset_config("flagship", dtype="bfloat16"))
+    unfused.load_state_dict(fused.state_dict())
+    imgs = _randn(np.random.default_rng(45), 16, 32, 32, 3)
+    before = gp.gather_project.launches
+    with torch.no_grad():
+        a, b = fused(imgs), unfused.eval()(imgs)
+    assert gp.gather_project.launches == before + 3
+    assert float((a.float() - b.float()).abs().max()) <= 0.03 * float(b.float().abs().max())

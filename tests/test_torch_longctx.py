@@ -144,11 +144,16 @@ def test_build_model_builds_the_longctx_preset_on_cpu():
             if n.startswith("attn_")} == {"auto"}
 
 
-def test_build_model_refuses_the_hybrid_preset():
-    with pytest.raises(NotImplementedError, match="#12/#13"):
-        build_model(preset_config("longctx-16k-hybrid"), device="cpu")
-    with pytest.raises(NotImplementedError, match="#12/#13"):
-        CurveViT(**LONG, attn_impl=("auto", "local", "auto"))
+def test_build_model_refuses_unported_schedule_entries():
+    """A schedule that names an implementation still to port ('sp',
+    'ring') is refused, in the registry and in the model, naming its
+    ROADMAP.md item (the hybrid preset itself builds:
+    tests/test_torch_local.py)."""
+    with pytest.raises(NotImplementedError, match="item 13"):
+        build_model(preset_config("longctx-16k-hybrid",
+                                  attn_impl=("local", "local", "sp", "auto")), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        CurveViT(**LONG, attn_impl=("auto", "local", "ring"))
 
 
 def test_attn_impl_schedule_length_is_checked():

@@ -128,9 +128,10 @@ def test_build_model_vit_b_16_config():
 @pytest.mark.parametrize("name, overrides, match", [
     ("flagship", {"model": "vit"}, "queue 1 item 7"),
     ("notebook", {}, "queue 1 item 7"),
-    ("longctx-16k-hybrid", {}, "curve-local attention"),
+    ("longctx-16k-hybrid", {"attn_impl": ("local", "local", "local", "ring")},
+     "sequence parallelism"),
     ("vit-b-16", {"remat": True}, "train step"),
-    ("vit-b-16", {"attn_impl": "local"}, "kernels #12/#13"),
+    ("vit-b-16", {"attn_impl": "xla_bf16"}, "bf16-softmax formula"),
 ])
 def test_build_model_names_the_roadmap_item(name, overrides, match):
     with pytest.raises(NotImplementedError, match=match):
