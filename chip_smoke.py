@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ViT-B/16 serving path and train step, the
 family-A flagship's train step and serving path (also with its fused
-tokenizer), and the long-context models' (16,384 tokens with token merge,
-its hybrid local/global schedule, and 4,096) train steps and serving,
-once on one NVIDIA GPU.
+tokenizer, and at MLP 1,024 through the post-norm tail), the hierarchical
+family-A model's, and the long-context models' (16,384 tokens with token
+merge, its hybrid local/global schedule, and 4,096) train steps and
+serving, once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one
                                  # NVIDIA H100 (sm_90a) and nvcc
@@ -97,6 +98,21 @@ Phases, each of which raises (non-zero exit) on failure:
    served (1, 100, 256 images), #14 launched 3 x (steps + eval + served
    forwards), the served logits against the unfused flagship's at the same
    weights (3 % of the largest |logit|), forward img/s of both.
+13. post-norm tail: #15 (serving form; training form with z and s2) and
+   #16 at the flagship's layer at MLP 1,024 (x, attn [512, 64, 768], F =
+   1,024), hier's levels ([512, 64, 256]) and a ragged 1,000 rows against
+   their plain versions (out, z, s2 within 1 %, each gradient within 2 %
+   of its largest |value|), timed at the first two beside their bounds;
+   then (b) ``VisionTransformer1D`` with ``preset_config("flagship",
+   mlp_dim=1024, dtype="bfloat16")``'s fields and dropout 0 trained 4
+   steps at batch 512 through #15's training form and #16, evaluated and
+   served (1, 100, 256 images) through #15 and #7, and (c)
+   ``build_model(preset_config("flagship", model="hier", mlp_dim=1024,
+   dtype="bfloat16"))`` (dropout 0.1: #5/#6 and the unfused tail in
+   training; #7 and #15 at d = 256 in eval and serving) the same way; for
+   each the launch counts (layers x steps or forwards), every parameter
+   moved, one step's gradients and the served logits against the plain
+   versions, train and forward img/s, a profile of the train step.
    Then no module of jax, flax or the JAX package may have loaded.
 
 The line before the last is one JSON object describing the kernels; the
@@ -144,12 +160,18 @@ from sfc_vit_tpu_torch.ops.fused_torch_attention import (
 )
 from sfc_vit_tpu_torch.ops.fused_mlp import (
     fused_mlp_block,
+    fused_postnorm_tail,
     mlp_block_bwd,
     mlp_block_bwd_ref,
     mlp_block_ref,
     mlp_block_train_fwd,
+    postnorm_tail_bwd,
+    postnorm_tail_bwd_ref,
+    postnorm_tail_kernel_ref,
+    postnorm_tail_train_fwd,
 )
-from sfc_vit_tpu_torch.registry import build_model, preset_config
+from sfc_vit_tpu_torch.models import VisionTransformer1D
+from sfc_vit_tpu_torch.registry import build_model, build_tokenizer, preset_config
 from sfc_vit_tpu_torch.serving import ServingEngine
 from sfc_vit_tpu_torch.tokenizers import patchify
 from sfc_vit_tpu_torch.training import (
@@ -1586,6 +1608,263 @@ def phase_fused_flagship(card: str) -> dict:
     return {"gather_project": trained + served}
 
 
+#: The post-norm tail's shapes: the flagship at MLP 1,024 (one layer at
+#: batch 512: x, attn [512, 64, 768], F = 1,024), hier's levels ([512, 64,
+#: 256]) and a ragged 1,000 rows.  #15's outputs are held within
+#: TAIL_TOL of their largest |value|: the kernels round where the plain
+#: version does, but an fp32 sum in another order flips a rounding.
+TAIL_SHAPES = ((512, 64, 768, 1024), (512, 64, 256, 1024), (10, 100, 768, 1024))
+TAIL_TOL = 1e-2
+TAIL_NAMES = ("ds", "dln1_s", "dln1_b", "dw1", "db1", "dw2", "db2", "dln2_s", "dln2_b")
+
+
+def _tail_args(gen, b, n, d, f):
+    """x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b as the encoder
+    layer passes them (bf16; the LayerNorm parameters fp32)."""
+    ln = lambda shift: _randn(gen, d, scale=0.1, shift=shift,  # noqa: E731
+                              dtype=torch.float32)
+    return (_randn(gen, b, n, d), _randn(gen, b, n, d), ln(1.0), ln(0.0),
+            _randn(gen, d, f, scale=d ** -0.5), _randn(gen, f, scale=0.1),
+            _randn(gen, f, d, scale=f ** -0.5), _randn(gen, d, scale=0.1), ln(1.0), ln(0.0))
+
+
+def phase_tail_kernels(card: str) -> dict:
+    """Kernels #15 (both forms) and #16 against their plain versions at
+    TAIL_SHAPES; the first two timed beside their bounds.  The kernels
+    line carries the flagship's shape (D = 768) and the largest error of
+    every shape."""
+    gen = torch.Generator().manual_seed(9)
+    res, errs, bwd_errs = {}, [], []
+    for b, n, d, f in TAIL_SHAPES:
+        args = _tail_args(gen, b, n, d, f)
+        g = _randn(gen, b, n, d)
+        with torch.no_grad():
+            out = fused_postnorm_tail(*args)
+            got = postnorm_tail_train_fwd(*args)
+            want = postnorm_tail_kernel_ref(*args, save_acts=True)
+            print(f"#15 vs postnorm_tail_kernel_ref, x, attn [{b}, {n}, {d}], F={f}:")
+            _check(torch.equal(out, got[0]), "#15: the serving and training forms differ")
+            errs += [_frac_err(name, x, w, TAIL_TOL)
+                     for name, x, w in zip(("out", "z", "s2"), got, want)]
+            del out, want
+            _, z, s2 = got
+            saved = (args[0], args[1], g, z, s2, *args[2:7], args[8], args[9])
+            print(f"#16 vs postnorm_tail_bwd_ref, x, attn [{b}, {n}, {d}], F={f}:")
+            bwd_errs.append(_bwd_check(
+                "postnorm_tail_bwd", postnorm_tail_bwd(*saved, b2=args[7]),
+                postnorm_tail_bwd_ref(*saved, b2=args[7]), TAIL_NAMES))
+        if (b, n, d, f) not in TAIL_SHAPES[:2]:  # the ragged case: checked, not timed
+            continue
+        r = b * n
+        with torch.no_grad():
+            ms, plain_ms = _ab_ms(lambda: fused_postnorm_tail(*args),
+                                  lambda: postnorm_tail_kernel_ref(*args), iters=10)
+            tms, tplain_ms = _ab_ms(lambda: postnorm_tail_train_fwd(*args),
+                                    lambda: postnorm_tail_kernel_ref(*args, save_acts=True),
+                                    iters=10)
+            bms, bplain_ms = _ab_ms(lambda: postnorm_tail_bwd(*saved, b2=args[7]),
+                                    lambda: postnorm_tail_bwd_ref(*saved, b2=args[7]),
+                                    iters=10)
+        vec = 2 * (2 * d + f) + 4 * 4 * d  # b1, b2 (bf16); the LayerNorm vectors (fp32)
+        fwd = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                   **_bound(4 * r * d * f, 2 * (3 * r * d + 2 * d * f) + vec))
+        train_bound = _bound(4 * r * d * f, 2 * (4 * r * d + 2 * d * f + r * f) + vec)
+        # x, attn, g, s2, ds; z; w1, w2, dw1, dw2; db1, db2 (bf16); ln1_s, ln1_b,
+        # ln2_s and the four LayerNorm gradients (fp32)
+        bwd = dict(ms=bms, plain_ms=bplain_ms, library_ms=None,
+                   **_bound(8 * r * d * f, 2 * (5 * r * d + r * f + 4 * d * f + f + d)
+                            + 4 * 7 * d))
+        print(f"post-norm tail at x [{b}, {n}, {d}], F={f}, bf16, {card}: #15 serving form "
+              f"kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {fwd['bound_ms']:.4f} ms "
+              f"({fwd['bound_by']}); training form kernels {tms:.4f} ms, plain "
+              f"{tplain_ms:.4f} ms, bound {train_bound['bound_ms']:.4f} ms "
+              f"({train_bound['bound_by']}); #16 kernels {bms:.4f} ms, plain "
+              f"{bplain_ms:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}).  "
+              "No single PyTorch call does LN + MLP + two residuals + LN.")
+        if d == 768:
+            res["postnorm_tail"], res["postnorm_tail_bwd"] = fwd, bwd
+        del args, g, got, z, s2, saved
+    res["postnorm_tail"]["max_abs_err"] = max(errs)
+    res["postnorm_tail_bwd"]["max_abs_err"] = max(bwd_errs)
+    return res
+
+
+def _plain_tail():
+    """Route family A through the plain versions of every kernel on its
+    path (comparison only): #5-#7 as :func:`_plain_fa`, the tail #15/#16
+    through ``postnorm_tail_kernel_ref`` under autograd."""
+    stack = _plain_fa()
+    stack.enter_context(mock.patch.object(fa_layers, "fused_postnorm_tail",
+                                          postnorm_tail_kernel_ref))
+    return stack
+
+
+def _tail_counts() -> dict:
+    t, m = fused_postnorm_tail, fused_torch_mha
+    return {"postnorm_tail": t.launches, "postnorm_tail (training form)": t.train_launches,
+            "postnorm_tail_bwd": t.bwd_launches, "fused_torch_mha": m.launches,
+            "fused_torch_mha_bwd": m.bwd_launches,
+            "packed_flash_attention": packed_flash_attention.launches}
+
+
+def _reset_tail_counts():
+    _reset_fa_counts()
+    t = fused_postnorm_tail
+    t.launches = t.train_launches = t.bwd_launches = 0
+
+
+def _family_a_tail_model(card: str, label: str, model, cfg, layers: int,
+                         dropout: bool) -> dict:
+    """Train (4 steps at batch 512), evaluate and serve one family-A model
+    whose layers take the post-norm tail; returns the launch counts of its
+    main path.  With dropout the layers train through #5/#6 and the
+    unfused tail, without through the packed formula and #15/#16; eval and
+    serving run #7 and #15's serving form in every layer."""
+    torch.cuda.reset_peak_memory_stats()
+    stats = ((0.5,) * 3, (0.25,) * 3)
+    b, steps = FA_B, FA_TRAIN_STEPS
+    train_ds = synthetic_dataset(n=b * steps, hw=cfg.img_size,
+                                 num_classes=cfg.num_classes, seed=0)
+    test_ds = synthetic_dataset(n=b, hw=cfg.img_size, num_classes=cfg.num_classes, seed=1)
+    tf = make_eval_transform(*stats, device=DEVICE)
+    trainer = Trainer(model, TrainConfig(num_classes=cfg.num_classes, epochs=1,
+                                         warmup_epochs=1), steps_per_epoch=steps)
+    before = [p.detach().clone() for p in model.parameters()]
+    _reset_tail_counts()
+    record = trainer.fit(
+        lambda: ((tf(x), y) for x, y in epoch_batches(train_ds, b, seed=0)),
+        lambda: ((tf(x), y) for x, y in epoch_batches(
+            test_ds, b, shuffle=False, drop_last=False)))
+    torch.cuda.synchronize()
+    counts = _tail_counts()
+    print(f"{label}: Trainer.fit, 1 epoch of {steps} steps at batch {b} + eval of "
+          f"{len(test_ds)}: {record}")
+    print(f"{label}: launches over {steps} train steps + 1 eval batch of {layers} layers: "
+          f"{counts}")
+    _check(bool(np.isfinite(record["train_loss"])), f"{label}: non-finite train loss")
+    _check(bool(np.isfinite(record["test_loss"])), f"{label}: non-finite eval loss")
+    _check(trainer.state.step == steps, f"{label}: {trainer.state.step} steps taken")
+    trained = layers * steps
+    want = {"postnorm_tail": layers, "packed_flash_attention": layers,
+            "postnorm_tail (training form)": 0 if dropout else trained,
+            "postnorm_tail_bwd": 0 if dropout else trained,
+            "fused_torch_mha": trained if dropout else 0,
+            "fused_torch_mha_bwd": trained if dropout else 0}
+    _check(counts == want, f"{label}: launches {counts}, expected {want}")
+    still = [nm for (nm, p), q in zip(model.named_parameters(), before) if torch.equal(p, q)]
+    _check(not still, f"{label}: parameters unchanged after {steps} steps: {still}")
+    del before
+
+    # One step from the same parameters, batch and draws, kernels against plain.
+    x, y = next(epoch_batches(train_ds, b, seed=0))
+    batch = (tf(x), torch.from_numpy(y).long().to(DEVICE))
+    state = _lr_zero_state(model)
+    step = make_train_step(cfg.num_classes)
+
+    def one_step():
+        return step(state, batch, torch.Generator().manual_seed(7),
+                    torch.Generator(device=DEVICE).manual_seed(7))
+
+    m_k = one_step()
+    grads = {nm: p.grad.detach().clone() for nm, p in model.named_parameters()}
+    with _plain_tail():
+        m_p = one_step()
+    rel = {nm: float((grads[nm].float() - p.grad.float()).norm() / p.grad.float().norm())
+           for nm, p in model.named_parameters()}
+    worst = max(rel, key=rel.get)
+    print(f"{label}: one train step (mixing{', dropout' if dropout else ''}), kernels vs "
+          f"plain versions: loss {float(m_k['loss']):.6f} vs {float(m_p['loss']):.6f}; "
+          f"gradient relative L2 error max {rel[worst]:.4g} ({worst}), median "
+          f"{float(np.median(list(rel.values()))):.4g} over {len(rel)} tensors "
+          f"(tolerance {GRAD_REL_TOL})")
+    _check(rel[worst] <= GRAD_REL_TOL, f"{label}: kernel-path gradients disagree with "
+           "the plain path")
+    del grads
+
+    gen, dgen = torch.Generator().manual_seed(0), torch.Generator(device=DEVICE)
+
+    def step_ms(plain: bool, n_steps: int = 3) -> float:
+        with _plain_tail() if plain else contextlib.nullcontext():
+            step(state, batch, gen, dgen)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                step(state, batch, gen, dgen)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n_steps * 1e3
+
+    p1, k1, k2, p2 = (step_ms(plain) for plain in (True, False, False, True))
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f"{label}: train step at batch {b} (mixing, clip, AdamW): kernels {k_ms:.2f} ms "
+          f"= {b / k_ms * 1e3:.1f} img/s, plain versions {p_ms:.2f} ms = "
+          f"{b / p_ms * 1e3:.1f} img/s, {card}")
+    print(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _profile(lambda: step(state, batch, gen, dgen), f"{label} train step at batch {b}")
+    del state, batch
+
+    engine = ServingEngine(copy.deepcopy(model), None, (cfg.img_size, cfg.img_size, 3),
+                           batch_sizes=FA_BATCH_SIZES, dtype=torch.bfloat16, device=DEVICE)
+    rng = np.random.default_rng(10)
+    requests = [rng.standard_normal((k, cfg.img_size, cfg.img_size, 3), dtype=np.float32)
+                for k in FA_REQUESTS]
+    _reset_tail_counts()
+    outs = [engine.predict(r) for r in requests]
+    served = _tail_counts()
+    forwards = sum(-(-k // FA_BATCH_SIZES[-1]) for k in FA_REQUESTS)
+    for k, out in zip(FA_REQUESTS, outs):
+        _check(out.shape == (k, cfg.num_classes) and bool(np.isfinite(out).all()),
+               f"{label}: bad served logits for {k} images")
+    want = {name: layers * forwards if name in ("postnorm_tail", "packed_flash_attention")
+            else 0 for name in served}
+    _check(served == want, f"{label}: served launches {served}, expected {want}")
+    with _plain_tail():
+        plain = np.concatenate([engine.predict(r) for r in requests])
+    outs = np.concatenate(outs)
+    err, scale = float(np.abs(outs - plain).max()), float(np.abs(plain).max())
+    print(f"{label}: served {FA_REQUESTS} images, logits finite; #15 and #7 launched "
+          f"{served['postnorm_tail']} times each over {forwards} forwards of {layers} "
+          f"layers; kernels vs plain versions max abs err {err:.4g} (max |logit| "
+          f"{scale:.4g}; tolerance {FA_LOGIT_TOL} x max |logit| = {FA_LOGIT_TOL * scale:.4g})")
+    _check(err <= FA_LOGIT_TOL * scale, f"{label}: served logits disagree with the plain "
+           "forward")
+    xb = torch.from_numpy(requests[-1]).to(DEVICE, torch.bfloat16)
+    bs = FA_BATCH_SIZES[-1]
+
+    def fwd_ms(plain: bool) -> float:
+        with _plain_tail() if plain else contextlib.nullcontext():
+            return _ms(lambda: engine.model(xb), iters=10)
+
+    with torch.inference_mode():
+        f1, q1, q2, f2 = (fwd_ms(plain) for plain in (False, True, True, False))
+    fwd_ms, plain_fwd_ms = (f1 + f2) / 2, (q1 + q2) / 2
+    print(f"{label}: forward at batch {bs}: {fwd_ms:.3f} ms = {bs / fwd_ms * 1e3:.1f} img/s "
+          f"(plain versions {plain_fwd_ms:.3f} ms = {bs / plain_fwd_ms * 1e3:.1f} img/s), "
+          f"{card}")
+    return {"postnorm_tail": counts["postnorm_tail"] + counts["postnorm_tail (training form)"]
+            + served["postnorm_tail"], "postnorm_tail_bwd": counts["postnorm_tail_bwd"]}
+
+
+def phase_tail_models(card: str) -> dict:
+    """(b) the flagship at MLP 1,024 with dropout 0 (the registry has no
+    dropout field, so ``VisionTransformer1D`` is built from the preset's
+    fields) and (c) 'hier' at MLP 1,024, each trained, evaluated and
+    served through the post-norm tail."""
+    cfg = preset_config("flagship", mlp_dim=1024, dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    flagship = VisionTransformer1D(
+        build_tokenizer(cfg, generator=gen), depth=cfg.depth, n_heads=cfg.n_heads,
+        mlp_dim=cfg.mlp_dim, num_classes=cfg.num_classes, dropout_rate=0.0,
+        dtype=torch.bfloat16, device=DEVICE, generator=gen)
+    a = _family_a_tail_model(card, "flagship at MLP 1024, dropout 0", flagship, cfg,
+                             cfg.depth, dropout=False)
+    del flagship
+    hcfg = preset_config("flagship", model="hier", mlp_dim=1024, dtype="bfloat16")
+    hier = build_model(hcfg, generator=torch.Generator().manual_seed(0))
+    h = _family_a_tail_model(card, "hier at MLP 1024", hier, hcfg,
+                             len(hcfg.patch_size_list) * hcfg.depth + 2, dropout=True)
+    return {name: a[name] + h[name] for name in a}
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1602,6 +1881,8 @@ def main() -> int:
     launches.update({name: launches.get(name, 0) + count for name, count in hybrid.items()})
     kernels.update(phase_gp_kernels(card))
     launches.update(phase_fused_flagship(card))
+    kernels.update(phase_tail_kernels(card))
+    launches.update(phase_tail_models(card))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "sfc_vit_tpu"))
     _check(not leaked, f"the port imported {leaked}")
@@ -1648,6 +1929,12 @@ def main() -> int:
         dict(name="gather_project", route="cuda",
              source="sfc_vit_tpu_torch/csrc/gather_project.cu",
              replaces="sfc_vit_tpu/ops/gather_project.py:57"),
+        dict(name="postnorm_tail", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/ln_rows.cu",
+             replaces="sfc_vit_tpu/ops/fused_mlp.py:549"),
+        dict(name="postnorm_tail_bwd", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/ln_rows_bwd.cu",
+             replaces="sfc_vit_tpu/ops/fused_mlp.py:665"),
     ]
     for e in entries:
         k = kernels[e["name"]]

@@ -8,7 +8,10 @@
 // sfc_vit_tpu/ops/fused_attention_block.py::_attn_block_kernel (the QKV
 // projection, rounded to bf16 like qkv_s, and the output projection with
 // the residual of x added in fp32) and ::_attn_block_bwd_kernel (lines
-// 415-419 and 501-513: gp.W_out^T, att^T.gp, dqkv.W_qkv^T, xn^T.dqkv).
+// 415-419 and 501-513: gp.W_out^T, att^T.gp, dqkv.W_qkv^T, xn^T.dqkv), and
+// the four GEMMs of sfc_vit_tpu/ops/fused_mlp.py::_postnorm_tail_kernel and
+// ::_postnorm_tail_bwd_kernel (fc2 plus b2 plus the unrounded LN1 output x2f
+// into the fp32 pre-LN2 sum s2; dx2 = dz.W1^T + ds2 in fp32).
 // The epilogue adds each optional term in fp32 and rounds once, which is
 // where the TPU kernels round; dxn leaves in fp32 for the LayerNorm
 // backward, as the TPU kernel keeps it.
@@ -65,7 +68,8 @@ struct Epilogue {
   const bf16* z_in;       // bf16 [M, N]: multiply by act'(z) instead of act()
   bf16* z_out;            // bf16 [M, N]: the pre-activation, rounded
   float* colsum;          // fp32 [N]: += column sums of the fp32 result
-  const bf16* residual;   // bf16 [M, N], added last
+  const bf16* residual;   // bf16 [M, N], added after the column sums
+  const float* residual_f32;  // fp32 [M, N], added last
   int act;
   bool c_fp32;            // C is fp32 [M, N] instead of bf16
 };
@@ -211,6 +215,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[e] += x[e];
         }
+        if (ep.residual_f32 != nullptr) {
+          const float4* src = reinterpret_cast<const float4*>(ep.residual_f32 + off);
+          const float4 r0 = src[0], r1 = src[1];
+          v[0] += r0.x; v[1] += r0.y; v[2] += r0.z; v[3] += r0.w;
+          v[4] += r1.x; v[5] += r1.y; v[6] += r1.z; v[7] += r1.w;
+        }
         if (ep.c_fp32) {
           float4* dst = reinterpret_cast<float4*>(static_cast<float*>(C) + off);
           dst[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -239,14 +249,16 @@ void launch(const dim3& grid, cudaStream_t stream, const bf16* a, const bf16* b,
 
 // C [M, N] = op(A) . op(B) with the epilogue, in this order: + bias (fp32
 // [N]); z_out = bf16(sum); times act'(z_in) when z_in is given, else
-// act(); colsum += the fp32 column sums; + residual (bf16 [M, N]); one
-// rounding into C (bf16, or fp32 when c_fp32).  Every pointer but a, b
+// act(); colsum += the fp32 column sums; + residual (bf16 [M, N]);
+// + residual_f32 (fp32 [M, N]); one rounding into C (bf16, or fp32 when
+// c_fp32).  Every pointer but a, b
 // and c may be null.  act: 0 none, 1 exact-erf GELU, 2 ReLU.  trans_a:
 // A is stored [K, M]; trans_b: B is stored [N, K].  Requires N % 8 == 0,
 // M % 8 == 0 when trans_a, K % 8 == 0 unless (trans_a and not trans_b),
 // and 16-byte aligned pointers; the Python wrapper checks these.
 extern "C" int sfc_gemm_bf16(const void* a, const void* b, const void* bias,
-                             const void* residual, const void* z_in,
+                             const void* residual, const void* residual_f32,
+                             const void* z_in,
                              void* z_out, void* colsum, void* c, int c_fp32,
                              int M, int N, int K, int trans_a, int trans_b,
                              int act, void* stream) {
@@ -254,7 +266,8 @@ extern "C" int sfc_gemm_bf16(const void* a, const void* b, const void* bias,
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const Epilogue ep{static_cast<const float*>(bias), static_cast<const bf16*>(z_in),
                     static_cast<bf16*>(z_out), static_cast<float*>(colsum),
-                    static_cast<const bf16*>(residual), act, c_fp32 != 0};
+                    static_cast<const bf16*>(residual),
+                    static_cast<const float*>(residual_f32), act, c_fp32 != 0};
   const auto* A = static_cast<const bf16*>(a);
   const auto* B = static_cast<const bf16*>(b);
   auto s = static_cast<cudaStream_t>(stream);

@@ -1,19 +1,28 @@
-// Row LayerNorm over [R, D] bf16: the prologue of both fused blocks.
+// Row LayerNorm over [R, D]: the prologue of both fused blocks and the two
+// LayerNorms of the post-norm tail.
 //
 // Replaces: the LayerNorm at the head of sfc_vit_tpu/ops/fused_mlp.py
 // (_mlp_kernel, lines 110-121) and sfc_vit_tpu/ops/fused_attention_block.py
-// (_attn_block_kernel, lines 126-135).  Same arithmetic: fp32 mean and
-// E[x^2], variance E[x^2] - E[x]^2 clamped at 0, rsqrt(var + eps), scale
-// and bias in fp32, one round to bf16.
+// (_attn_block_kernel, lines 126-135), and both LayerNorms of
+// sfc_vit_tpu/ops/fused_mlp.py::_postnorm_tail_kernel: LN1 of the fp32 sum
+// x + attn (lines 553-564), whose unrounded output x2f the tail keeps beside
+// its bf16 rounding x2, and LN2 of the fp32 pre-LN2 sum s2 (lines 584-592),
+// whose bf16 rounding the training form saves.  Same arithmetic: fp32
+// mean and E[x^2], variance E[x^2] - E[x]^2 clamped at 0, rsqrt(var + eps),
+// scale and bias in fp32, one round to bf16.
 //
-// Bound on this card: memory.  Per row it reads D bf16 and writes D bf16
-// with ~5 flops per element, far below the H100's ~295 flops/byte ridge.
-// Design: one warp per row, 16-byte vector loads (D % 8 == 0), two passes
-// over the row (the second pass hits L1), no shared memory, so any D runs
-// and many rows are in flight per SM.  On the TPU the normalised rows
-// stayed in VMEM for the following GEMM; here they pass through L2/HBM
-// once (2 * R * D bytes), which a later PR can remove by fusing this into
-// the GEMM's A-tile load.
+// A row is read as bf16, as fp32, or as the fp32 sum of two bf16 rows
+// (template argument IN).  Optional outputs: the normalised row in fp32
+// (y32) and the input row rounded to bf16 (xr).
+//
+// Bound on this card: memory.  Per row it reads D bf16 (or 2 D bf16, or D
+// fp32) and writes D bf16 (plus D fp32 for y32) with ~5 flops per element,
+// far below the H100's ~295 flops/byte ridge.  Design: one warp per row,
+// 16-byte vector loads (D % 8 == 0), two passes over the row (the second
+// pass hits L1), no shared memory, so any D runs and many rows are in
+// flight per SM.  On the TPU the normalised rows stayed in VMEM for the
+// following GEMM; here they pass through L2/HBM once, which a later PR can
+// remove by fusing this into the GEMM's A-tile load.
 
 #include "common.cuh"
 
@@ -23,22 +32,46 @@ using sfc::bf16;
 
 constexpr int kWarps = 8;
 
+enum In : int { kBf16 = 0, kSum2 = 1, kF32 = 2 };
+
+// Eight neighbouring values (chunk c) of row `row` as fp32.
+template <int IN>
+__device__ __forceinline__ void load8(const void* x, const bf16* xb, long row, int d,
+                                      int c, float* v) {
+  if constexpr (IN == kF32) {
+    const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(x) + row * d);
+    const float4 a = p[2 * c], b = p[2 * c + 1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+    sfc::unpack_bf16x8(reinterpret_cast<const uint4*>(static_cast<const bf16*>(x) + row * d)[c], v);
+    if constexpr (IN == kSum2) {
+      float w[8];
+      sfc::unpack_bf16x8(reinterpret_cast<const uint4*>(xb + row * d)[c], w);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] += w[e];
+    }
+  }
+}
+
+template <int IN>
 __global__ void __launch_bounds__(kWarps * 32)
-    ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
-                   const float* __restrict__ bias, bf16* __restrict__ y,
+    ln_rows_kernel(const void* __restrict__ x, const bf16* __restrict__ xb,
+                   const float* __restrict__ scale, const float* __restrict__ bias,
+                   bf16* __restrict__ y, float* __restrict__ y32, bf16* __restrict__ xr,
                    int rows, int d, float eps) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const long row = static_cast<long>(blockIdx.x) * kWarps + warp;
   if (row >= rows) return;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
   uint4* yr = reinterpret_cast<uint4*>(y + row * d);
   const int chunks = d / 8;
 
   float s = 0.f, ss = 0.f;
   for (int c = lane; c < chunks; c += 32) {
     float v[8];
-    sfc::unpack_bf16x8(xr[c], v);
+    load8<IN>(x, xb, row, d, c, v);
+    if (xr != nullptr) reinterpret_cast<uint4*>(xr + row * d)[c] = sfc::pack_bf16x8(v);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       s += v[e];
@@ -56,11 +89,16 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   for (int c = lane; c < chunks; c += 32) {
     float v[8];
-    sfc::unpack_bf16x8(xr[c], v);
+    load8<IN>(x, xb, row, d, c, v);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int i = c * 8 + e;
       v[e] = (v[e] - mean) * inv * scale[i] + bias[i];
+    }
+    if (y32 != nullptr) {
+      float4* dst = reinterpret_cast<float4*>(y32 + row * d) + 2 * c;
+      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
     }
     yr[c] = sfc::pack_bf16x8(v);
   }
@@ -68,14 +106,32 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 }  // namespace
 
-extern "C" int sfc_ln_rows_bf16(const void* x, const void* scale,
-                                const void* bias, void* y, int rows, int d,
-                                float eps, void* stream) {
+// y bf16 [rows, d] = LN(row) with fp32 scale and bias [d].  The row is x
+// (bf16 [rows, d]), x as fp32 (x_f32), or the fp32 sum x + x_b of two bf16
+// rows (x_b not null).  y32 (fp32 [rows, d], may be null) receives the
+// normalised row before its rounding; xr (bf16 [rows, d], may be null) the
+// input row rounded to bf16.  Requires d % 8 == 0 and 16-byte aligned
+// pointers; the Python wrapper checks these.
+extern "C" int sfc_ln_rows_bf16(const void* x, const void* x_b, int x_f32,
+                                const void* scale, const void* bias, void* y,
+                                void* y32, void* xr, int rows, int d, float eps,
+                                void* stream) {
   if (rows <= 0) return 0;
+  if (x_f32 && x_b != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (rows + kWarps - 1) / kWarps;
-  ln_rows_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<bf16*>(y), rows, d, eps);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const bf16*>(x_b);
+  const auto* sc = static_cast<const float*>(scale);
+  const auto* bi = static_cast<const float*>(bias);
+  auto* yo = static_cast<bf16*>(y);
+  auto* y32o = static_cast<float*>(y32);
+  auto* xro = static_cast<bf16*>(xr);
+  if (x_f32)
+    ln_rows_kernel<kF32><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, yo, y32o, xro, rows, d, eps);
+  else if (xb != nullptr)
+    ln_rows_kernel<kSum2><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, yo, y32o, xro, rows, d, eps);
+  else
+    ln_rows_kernel<kBf16><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, yo, y32o, xro, rows, d, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

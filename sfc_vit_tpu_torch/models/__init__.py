@@ -1,5 +1,6 @@
 """The pre-norm ViT family (``SimpleViT``, ``CurveViT``), family A's
-``VisionTransformer1D`` and their building blocks and tables."""
+``VisionTransformer1D`` and ``HierarchicalVisionTransformer1D`` and their
+building blocks and tables."""
 
 from .layers import (
     FactorisedLinear,
@@ -9,6 +10,7 @@ from .layers import (
     TorchMultiHeadAttention,
     TorchTransformerEncoderLayer,
     TransformerSeqEncoder,
+    family_a_route,
 )
 from .posemb import build_posemb, gfpe, sincos_1d
 from .simple_vit import (
@@ -20,12 +22,13 @@ from .simple_vit import (
     curve_pair_pool,
     layer_route,
 )
-from .vit import VisionTransformer1D
+from .vit import HierarchicalVisionTransformer1D, VisionTransformer1D
 
 __all__ = [
     "CurvePatchEmbedding",
     "CurveViT",
     "FactorisedLinear",
+    "HierarchicalVisionTransformer1D",
     "HilbertViT",
     "MixerBlock",
     "MultiLayerPredictor",
@@ -38,6 +41,7 @@ __all__ = [
     "VisionTransformer1D",
     "build_posemb",
     "curve_pair_pool",
+    "family_a_route",
     "gfpe",
     "layer_route",
     "sincos_1d",

@@ -13,6 +13,10 @@ other without a transpose.
 with the float32 parameters (so a bf16 input computes in fp32), a dtype
 casts inputs and parameters to it.
 
+Every layer routes as the JAX module routes on its chip
+(:func:`family_a_route`: :func:`mha_route` for the attention,
+:func:`tail_route` for what follows it).
+
 Dropout is flax's: a keep mask bernoulli(1 - rate), then
 ``where(mask, x / keep, 0)`` (dividing by keep, never multiplying by its
 reciprocal).  It is on only in ``module.training``.  Every mask comes
@@ -27,13 +31,14 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import packed_qkv_attention
+from ..ops.fused_mlp import fused_postnorm_tail
 from ..ops.fused_torch_attention import fused_torch_mha, torch_mha_train
 from ..ops.kernel_utils import ln_fp32
 from ..utils.initializers import lecun_normal, xavier_normal
@@ -51,7 +56,66 @@ __all__ = [
     "MixerBlock",
     "FactorisedLinear",
     "MultiLayerPredictor",
+    "TORCH_MHA_MAX_N",
+    "POSTNORM_TAIL_MIN_F",
+    "mha_route",
+    "tail_route",
+    "family_a_route",
 ]
+
+#: JAX's length limit for the fused torch-MHA training kernels #5/#6:
+#: ``torch_mha_fits`` and ``torch_mha_bwd_fits`` return False past it
+#: before any VMEM budget (``sfc_vit_tpu/ops/fused_torch_attention.py:161,
+#: 433``: one whole-sequence softmax per image), so JAX trains longer
+#: sequences through the explicit-weights formula ``torch_mha_train``.  It
+#: picks the formula (the kernel rounds each projection once, the formula
+#: rounds the product before adding the bias), so the port keeps it.
+TORCH_MHA_MAX_N = 1024
+
+#: JAX's width gate for the post-norm tail kernels #15/#16
+#: (``sfc_vit_tpu/models/layers.py:237-243``): the MLP width from which
+#: the tail is fused.
+POSTNORM_TAIL_MIN_F = 1024
+
+
+def mha_route(attn_impl: str, n: int, d: int, dropout_rate: float,
+              training: bool) -> str:
+    """The attention path of a family-A layer: ``'fused_mha'`` (#5/#6,
+    training with dropout below :data:`TORCH_MHA_MAX_N` tokens, JAX's
+    ``mha_train_pallas`` on its chip without the VMEM budget),
+    ``'mha_train'`` (the explicit-weights formula: other training with
+    dropout, and rate 1) or ``'packed'`` (eval, or no dropout: the
+    projections around ``packed_qkv_attention``)."""
+    if not (dropout_rate > 0.0 and training):
+        return "packed"
+    fused = (dropout_rate < 1.0 and attn_impl == "auto" and d % 128 == 0
+             and n <= TORCH_MHA_MAX_N)
+    return "fused_mha" if fused else "mha_train"
+
+
+def tail_route(attn_impl: str, d: int, f: int, dropout_rate: float,
+               training: bool) -> str:
+    """The path after the attention: ``'postnorm_tail'`` (#15/#16) where
+    JAX's gate takes it (``sfc_vit_tpu/models/layers.py:233-245``:
+    ``attn_impl='auto'``, no active dropout, D and F multiples of 128,
+    F >= 1024; without ``postnorm_tail_fits``, a VMEM budget), else
+    ``'unfused'`` (the flax modules' formula)."""
+    fused = (attn_impl == "auto" and not (dropout_rate > 0.0 and training)
+             and d % 128 == 0 and f % 128 == 0 and f >= POSTNORM_TAIL_MIN_F)
+    return "postnorm_tail" if fused else "unfused"
+
+
+def family_a_route(attn_impl: str, n: int, d: int, heads: int, f: int,
+                   dropout_rate: float, training: bool) -> Tuple[str, str]:
+    """``(attention, tail)`` of a family-A encoder layer over ``n`` tokens
+    of width ``d``, ``heads`` heads and MLP width ``f``: the
+    :func:`mha_route` and the :func:`tail_route`, the gates the modules
+    read.  ``heads`` is in JAX's gate (``mha_train_pallas``) only for its
+    VMEM budget, which the port leaves out."""
+    del heads
+    return (mha_route(attn_impl, n, d, dropout_rate, training),
+            tail_route(attn_impl, d, f, dropout_rate, training))
+
 
 _GENERATOR: contextvars.ContextVar = contextvars.ContextVar(
     "dropout_generator", default=None)
@@ -155,8 +219,9 @@ class TorchMultiHeadAttention(nn.Module):
     ``out_proj``, each ``{kernel, bias}``) and its training semantics:
     dropout on the attention probabilities.
 
-    Three branches, as in the JAX module: under training with
-    ``0 < rate < 1``, ``attn_impl='auto'`` and ``D % 128 == 0``, the fused
+    Three branches, as in the JAX module, picked by :func:`mha_route`:
+    under training with ``0 < rate < 1``, ``attn_impl='auto'``,
+    ``D % 128 == 0`` and at most :data:`TORCH_MHA_MAX_N` tokens, the fused
     :func:`~sfc_vit_tpu_torch.ops.fused_torch_mha` (kernels #5 and #6 on
     the card); other training with dropout, the explicit-weights formula
     :func:`~sfc_vit_tpu_torch.ops.fused_torch_attention.torch_mha_train`;
@@ -185,15 +250,15 @@ class TorchMultiHeadAttention(nn.Module):
             self.out_proj.bias))
         b, n, _ = x.shape
         rate = self.dropout_rate
-        if rate > 0.0 and self.training:
+        route = mha_route(self.attn_impl, n, d, rate, self.training)
+        if route != "packed":
             if rate == 1.0:  # flax's Dropout(1.0): every weight zeroed, no draw
                 mask, keep = torch.zeros((b, heads, n, n), dtype=torch.bool,
                                          device=x.device), 1.0
             else:
                 keep = 1.0 - rate
                 mask = dropout_mask((b, heads, n, n), keep, x.device)
-            fused = rate < 1.0 and self.attn_impl == "auto" and d % 128 == 0
-            mha = fused_torch_mha if fused else torch_mha_train
+            mha = fused_torch_mha if route == "fused_mha" else torch_mha_train
             return mha(xc, w_in, b_in, w_out, b_out, mask, heads, keep=keep)
         out = packed_qkv_attention(xc @ w_in + b_in, heads,
                                    implementation=self.attn_impl)
@@ -206,17 +271,19 @@ class TorchTransformerEncoderLayer(nn.Module):
         x = norm1(x + Dropout(SelfAttn(x)))
         x = norm2(x + Dropout(Linear2(Dropout(relu(Linear1(x))))))
 
-    The JAX module fuses everything after the attention into one TPU
-    kernel (#15, #16) when ``attn_impl='auto'``, dropout is off and the
-    MLP is wide (``f >= 1024``, D and f multiples of 128); on the card
-    that case raises until those kernels are ported.
+    Everything after the attention goes through
+    :func:`~sfc_vit_tpu_torch.ops.fused_postnorm_tail` (#15, and #16 under
+    autograd, on the card; their plain versions on the CPU) where
+    :func:`tail_route` says so, as the JAX module does: ``attn_impl='auto'``,
+    dropout off, D and f multiples of 128 and ``f >= 1024``.  Otherwise the
+    unfused formula below.  The parameters are the same either way.
     """
 
     def __init__(self, dim: int, n_heads: int, hidden_dim: int,
                  dropout_rate: float = 0.1, dtype: Optional[torch.dtype] = None,
                  attn_impl: str = "auto", generator=None):
         super().__init__()
-        self.dropout_rate, self.attn_impl = dropout_rate, attn_impl
+        self.dropout_rate, self.dtype, self.attn_impl = dropout_rate, dtype, attn_impl
         self.self_attn = TorchMultiHeadAttention(dim, n_heads, dropout_rate,
                                                  dtype, attn_impl, generator)
         self.norm1 = LayerNorm(dim, dtype)
@@ -228,12 +295,15 @@ class TorchTransformerEncoderLayer(nn.Module):
         rate = self.dropout_rate
         attn = dropout(self.self_attn(x), rate, self.training)
         d, f = self.linear1.kernel.shape
-        if (x.device.type == "cuda" and self.attn_impl == "auto"
-                and not (rate > 0.0 and self.training)
-                and d % 128 == 0 and f % 128 == 0 and f >= 1024):
-            raise NotImplementedError(
-                "the post-norm tail kernel (#15, #16; MLP width >= 1024) is not "
-                "ported to PyTorch yet: ROADMAP.md queue 2 kernels #15/#16")
+        if tail_route(self.attn_impl, d, f, rate, self.training) == "postnorm_tail":
+            dt = _compute_dtype(self.dtype, x, self.linear1.kernel)
+            w1, b1, w2, b2 = (t.to(dt) for t in (
+                self.linear1.kernel, self.linear1.bias, self.linear2.kernel,
+                self.linear2.bias))
+            return fused_postnorm_tail(
+                x.to(dt), attn.to(dt), self.norm1.scale, self.norm1.bias, w1, b1,
+                w2, b2, self.norm2.scale, self.norm2.bias, eps=1e-5,
+                activation="relu")
         x = self.norm1(x + attn)
         h = dropout(F.relu(self.linear1(x)), rate, self.training)
         h = dropout(self.linear2(h), rate, self.training)

@@ -1,16 +1,20 @@
-"""Family-A models in PyTorch: ``VisionTransformer1D``.
+"""Family-A models in PyTorch: ``VisionTransformer1D`` and
+``HierarchicalVisionTransformer1D``.
 
-Counterpart of ``sfc_vit_tpu/models/vit.py``: tokenizer -> optional
-positional table -> ``MixerBlock`` -> post-norm ``TransformerSeqEncoder``
--> factorised ``MultiLayerPredictor`` (the reference's ``vit.py:392-458``;
-its flagship, ``main.py:276-282``, pairs it with the hierarchical Morton
-tokenizer).  NHWC images [B, H, W, C] in, logits [B, num_classes] out.
-As in the reference, the stock model applies no CLS token and no
-positional encoding (``posemb='none'``).
+Counterpart of ``sfc_vit_tpu/models/vit.py``.  ``VisionTransformer1D``:
+tokenizer -> optional positional table -> ``MixerBlock`` -> post-norm
+``TransformerSeqEncoder`` -> factorised ``MultiLayerPredictor`` (the
+reference's ``vit.py:392-458``; its flagship, ``main.py:276-282``, pairs
+it with the hierarchical Morton tokenizer).
+``HierarchicalVisionTransformer1D``: one encoder per level of the
+hierarchical tokenizer, the levels concatenated along the tokens, a
+two-layer fusion encoder and a mixing head (the reference's
+``vit.py:465-545``, repaired as the JAX package repairs it).  NHWC images
+[B, H, W, C] in, logits [B, num_classes] out.  As in the reference, the
+stock models apply no CLS token and no positional encoding.
 
-``VisionTransformer`` waits for the 2-D tokenizer and
-``HierarchicalVisionTransformer1D`` for its own slice (ROADMAP.md queue 1
-items 6 and 16); ``registry.build_model`` names them.
+``VisionTransformer`` waits for the 2-D tokenizer (ROADMAP.md queue 1
+items 6 and 7); ``registry.build_model`` names it.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from ..utils.initializers import normal
 from .layers import MixerBlock, MultiLayerPredictor, TransformerSeqEncoder
 from .posemb import build_posemb
 
-__all__ = ["VisionTransformer1D"]
+__all__ = ["VisionTransformer1D", "HierarchicalVisionTransformer1D"]
 
 
 def _token_dim(tok) -> int:
@@ -80,3 +84,45 @@ class VisionTransformer1D(nn.Module):
         x = self.mlp_mixer(x)
         x = self.encoder(x)
         return self.mlp_head(x)
+
+
+class HierarchicalVisionTransformer1D(nn.Module):
+    """One encoder per pyramid level (``encoder_{i}``, ``depth`` layers
+    each) -> the levels concatenated along the tokens -> a two-layer
+    ``fusion_encoder`` -> ``MultiLayerPredictor(mix=True)`` over all
+    ``sum(patch_list)`` tokens (dropout 0.5).
+
+    ``patch_embed`` must be a ``HierarchicalCurveEmbedding`` built with
+    ``return_levels=True``; every layer has its per-level width
+    ``embed_dim``.  Parameters are created in float32 from ``generator``
+    and moved to ``device``.
+    """
+
+    def __init__(self, patch_embed: nn.Module, depth: int = 6, n_heads: int = 4,
+                 mlp_dim: int = 256, num_classes: int = 10,
+                 dropout_rate: float = 0.1, dtype: Optional[torch.dtype] = None,
+                 attn_impl: str = "auto", device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not getattr(patch_embed, "return_levels", False):
+            raise ValueError("HierarchicalVisionTransformer1D needs a hierarchical "
+                             "tokenizer built with return_levels=True")
+        self.patch_embed = patch_embed
+        dim = patch_embed.embed_dim
+        for i in range(len(patch_embed.patch_list)):
+            self.add_module(f"encoder_{i}", TransformerSeqEncoder(
+                dim, n_heads, mlp_dim, depth, dropout_rate, dtype, attn_impl, generator))
+        self.fusion_encoder = TransformerSeqEncoder(dim, n_heads, mlp_dim, 2, dropout_rate,
+                                                    dtype, attn_impl, generator)
+        self.mlp_head = MultiLayerPredictor(dim, int(sum(patch_embed.patch_list)),
+                                            n_layers=2, dropout_rate=0.5,
+                                            num_classes=num_classes, mix=True,
+                                            dtype=dtype, generator=generator)
+        self.to(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits ``[B, num_classes]`` for NHWC images ``[B, H, W, C]``."""
+        levels = self.patch_embed(x)
+        x = torch.cat([getattr(self, f"encoder_{i}")(lvl)
+                       for i, lvl in enumerate(levels)], dim=1)
+        return self.mlp_head(self.fusion_encoder(x))

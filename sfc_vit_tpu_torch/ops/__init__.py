@@ -19,10 +19,16 @@ from .fused_attention_block import (
 )
 from .fused_mlp import (
     fused_mlp_block,
+    fused_postnorm_tail,
     mlp_block_bwd,
     mlp_block_bwd_ref,
     mlp_block_ref,
     mlp_block_train_fwd,
+    postnorm_tail_bwd,
+    postnorm_tail_bwd_ref,
+    postnorm_tail_kernel_ref,
+    postnorm_tail_ref,
+    postnorm_tail_train_fwd,
 )
 # ``flash_attention`` (the function) stays in its module of the same name,
 # so that ``sfc_vit_tpu_torch.ops.flash_attention`` names the module.
@@ -70,6 +76,7 @@ __all__ = [
     "flash_fwd_ref",
     "fused_attention_block",
     "fused_mlp_block",
+    "fused_postnorm_tail",
     "fused_torch_mha",
     "gather_project_ref",
     "gather_project_xla",
@@ -88,6 +95,11 @@ __all__ = [
     "packed_flash_attention",
     "packed_qkv_attention",
     "packed_route",
+    "postnorm_tail_bwd",
+    "postnorm_tail_bwd_ref",
+    "postnorm_tail_kernel_ref",
+    "postnorm_tail_ref",
+    "postnorm_tail_train_fwd",
     "round_up",
     "torch_mha_bwd",
     "torch_mha_bwd_ref",

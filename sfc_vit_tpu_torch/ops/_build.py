@@ -59,10 +59,14 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 #: argtypes of every exported C function: c_void_p for each pointer and
 #: the stream (a plain int would cut a pointer to 32 bits).
 _SIGNATURES = {
-    "sfc_ln_rows_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
-    "sfc_ln_rows_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
-    "sfc_gemm_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _I, _P),
+    # x, x_b, x_f32, scale, bias, y, y32, xr; rows, d, eps, stream
+    "sfc_ln_rows_bf16": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # x, x_b, dxn, dxn_bf16, scale, g, dx, dx32, dscale, dbias, gsum, dxsum;
+    # rows, d, eps, add_g, stream
+    "sfc_ln_rows_bwd_bf16": (_P, _P, _P, _I) + (_P,) * 8 + (_I, _I, _F, _I, _P),
+    # a, b, bias, residual, residual_f32, z_in, z_out, colsum, c; c_fp32, M,
+    # N, K, trans_a, trans_b, act; stream
+    "sfc_gemm_bf16": (_P,) * 9 + (_I,) * 7 + (_P,),
     "sfc_act_bf16": (_P, _P, _L, _I, _P),
     "sfc_colsum_bf16": (_P, _P, _I, _I, _P),
     "sfc_attention_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
@@ -198,51 +202,83 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-            eps: float) -> torch.Tensor:
-    """LayerNorm of bf16 rows ``x`` [R, D]; ``scale``/``bias`` fp32 [D]."""
-    r, d = x.shape
-    if d % 8:
-        raise ValueError(f"ln_rows: D={d} must be a multiple of 8")
-    _require(x, "x")
-    _require(scale, "ln_scale", (d,), torch.float32)
-    _require(bias, "ln_bias", (d,), torch.float32)
-    y = torch.empty_like(x)
-    _check(library().sfc_ln_rows_bf16(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        r, d, eps, _stream()), "ln_rows")
-    return y
-
-
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            eps: float, *, x_b: Optional[torch.Tensor] = None,
+            with_f32: bool = False, with_rounded_input: bool = False):
+    """LayerNorm of rows [R, D]: ``x`` bf16, ``x`` fp32, or (``x_b``
+    given) the fp32 sum ``x + x_b`` of two bf16 rows; ``scale``/``bias``
+    fp32 [D].  Returns the bf16 rows, then the same rows in fp32 before
+    their rounding when ``with_f32``, then the input rows rounded to bf16
+    when ``with_rounded_input``."""
+    r, d = x.shape
+    if d % 8:
+        raise ValueError(f"ln_rows: D={d} must be a multiple of 8")
+    x_f32 = x.dtype == torch.float32 and x_b is None
+    _require(x, "x", dtype=torch.float32 if x_f32 else torch.bfloat16)
+    if x_b is not None:
+        _require(x_b, "x_b", (r, d))
+    _require(scale, "ln_scale", (d,), torch.float32)
+    _require(bias, "ln_bias", (d,), torch.float32)
+    y = torch.empty((r, d), dtype=torch.bfloat16, device=x.device)
+    y32 = torch.empty((r, d), dtype=torch.float32, device=x.device) if with_f32 else None
+    xr = torch.empty_like(y) if with_rounded_input else None
+    _check(library().sfc_ln_rows_bf16(
+        x.data_ptr(), _ptr(x_b), int(x_f32), scale.data_ptr(), bias.data_ptr(),
+        y.data_ptr(), _ptr(y32), _ptr(xr), r, d, eps, _stream()), "ln_rows")
+    extra = tuple(t for t in (y32, xr) if t is not None)
+    return (y, *extra) if extra else y
+
+
 def ln_rows_bwd(x: torch.Tensor, dxn: torch.Tensor, scale: torch.Tensor,
-                g: torch.Tensor, eps: float, *, add_g: bool = True,
-                g_sum: bool = False):
-    """LayerNorm backward of bf16 rows ``x`` [R, D] from the fp32
-    cotangent ``dxn`` of the normalised rows.
+                g: Optional[torch.Tensor], eps: float, *, add_g: bool = True,
+                g_sum: bool = False, x_b: Optional[torch.Tensor] = None,
+                dx_f32: bool = False, dx_sum: bool = False):
+    """LayerNorm backward of bf16 rows ``x`` [R, D] (the fp32 sum ``x +
+    x_b`` when ``x_b`` is given) from the cotangent ``dxn`` of the
+    normalised rows (fp32, or bf16 when ``x_b`` is None).
 
     Returns ``(dx, dscale, dbias)`` (``dx`` bf16 [R, D], ``+ g`` when
-    ``add_g``; the sums fp32 [D]), and ``colsum(g)`` fp32 [D] after them
-    when ``g_sum``.
+    ``add_g``; the sums fp32 [D]), then ``colsum(g)`` fp32 [D] when
+    ``g_sum``, the fp32 dx before its rounding when ``dx_f32``, and the
+    column sums of that fp32 dx when ``dx_sum``.  ``g`` (bf16 [R, D]) is
+    read only for ``add_g`` or ``g_sum``.
     """
     r, d = x.shape
     if d % 8:
         raise ValueError(f"ln_rows_bwd: D={d} must be a multiple of 8")
+    dxn_bf16 = dxn.dtype == torch.bfloat16
+    if dxn_bf16 and x_b is not None:
+        raise ValueError("ln_rows_bwd: a bf16 dxn with x_b is not instantiated")
     _require(x, "x")
-    _require(dxn, "dxn", (r, d), torch.float32)
+    if x_b is not None:
+        _require(x_b, "x_b", (r, d))
+    _require(dxn, "dxn", (r, d), torch.bfloat16 if dxn_bf16 else torch.float32)
     _require(scale, "ln_scale", (d,), torch.float32)
-    _require(g, "g", (r, d))
+    if add_g or g_sum:
+        _require(g, "g", (r, d))
+    else:
+        g = None
     dx = torch.empty_like(x)
-    sums = torch.zeros((3 if g_sum else 2, d), dtype=torch.float32, device=x.device)
+    dx32 = torch.empty((r, d), dtype=torch.float32, device=x.device) if dx_f32 else None
+    sums = torch.zeros((2 + g_sum + dx_sum, d), dtype=torch.float32, device=x.device)
+    gs = sums[2] if g_sum else None
+    dxs = sums[-1] if dx_sum else None
     _check(library().sfc_ln_rows_bwd_bf16(
-        x.data_ptr(), dxn.data_ptr(), scale.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
-        sums[2].data_ptr() if g_sum else None, r, d, eps, int(add_g),
-        _stream()), "ln_rows_bwd")
-    return (dx, *sums.unbind(0))
+        x.data_ptr(), _ptr(x_b), dxn.data_ptr(), int(dxn_bf16), scale.data_ptr(),
+        _ptr(g), dx.data_ptr(), _ptr(dx32), sums[0].data_ptr(), sums[1].data_ptr(),
+        _ptr(gs), _ptr(dxs), r, d, eps, int(add_g), _stream()), "ln_rows_bwd")
+    out = [dx, sums[0], sums[1]]
+    if g_sum:
+        out.append(gs)
+    if dx_f32:
+        out.append(dx32)
+    if dx_sum:
+        out.append(dxs)
+    return tuple(out)
 
 
 _ACTS = {None: 0, "gelu": 1, "relu": 2}
@@ -251,6 +287,7 @@ _ACTS = {None: 0, "gelu": 1, "relu": 2}
 def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
          trans_b: bool = False, bias: Optional[torch.Tensor] = None,
          act: Optional[str] = None, residual: Optional[torch.Tensor] = None,
+         residual_f32: Optional[torch.Tensor] = None,
          z_in: Optional[torch.Tensor] = None, save_z: bool = False,
          colsum: bool = False, out_dtype: torch.dtype = torch.bfloat16):
     """``C = act(op(a) @ op(b) + bias) + residual`` in bf16 with fp32
@@ -259,7 +296,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     ``op(a)`` is ``a`` [M, K], or ``a.T`` for ``trans_a`` (``a`` stored
     [K, M]: a weight gradient, summed over the rows); ``op(b)`` is ``b``
     [K, N] (a Dense kernel as stored), or ``b.T`` for ``trans_b`` (``b``
-    stored [N, K]).  ``bias`` fp32 [N]; ``residual`` bf16 [M, N].
+    stored [N, K]).  ``bias`` fp32 [N]; ``residual`` bf16 [M, N] and
+    ``residual_f32`` fp32 [M, N], added last.
     ``save_z`` also returns the pre-activation sum rounded to bf16;
     ``z_in`` (bf16 [M, N]) multiplies the sum by ``act'(z_in)`` in place
     of ``act``; ``colsum`` also returns the fp32 column sums of the
@@ -287,13 +325,16 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
         _require(bias, "bias", (n,), torch.float32)
     if residual is not None:
         _require(residual, "residual", (m, n))
+    if residual_f32 is not None:
+        _require(residual_f32, "residual_f32", (m, n), torch.float32)
     if z_in is not None:
         _require(z_in, "z_in", (m, n))
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     z = torch.empty((m, n), dtype=a.dtype, device=a.device) if save_z else None
     cs = torch.zeros(n, dtype=torch.float32, device=a.device) if colsum else None
     _check(library().sfc_gemm_bf16(
-        a.data_ptr(), b.data_ptr(), _ptr(bias), _ptr(residual), _ptr(z_in),
+        a.data_ptr(), b.data_ptr(), _ptr(bias), _ptr(residual), _ptr(residual_f32),
+        _ptr(z_in),
         _ptr(z), _ptr(cs), c.data_ptr(), int(out_dtype == torch.float32),
         m, n, k, int(trans_a), int(trans_b), _ACTS[act], _stream()), "gemm")
     extra = tuple(t for t in (z, cs) if t is not None)

@@ -1,5 +1,5 @@
-"""Fused transformer-MLP block ``x + fc2(act(fc1(LN(x))))`` on Hopper,
-forward and backward.
+"""Fused transformer-MLP block ``x + fc2(act(fc1(LN(x))))`` and family A's
+post-norm layer tail on Hopper, forward and backward.
 
 Counterpart of ``sfc_vit_tpu/ops/fused_mlp.py``.  The TPU kernels
 ``_mlp_kernel`` and ``_mlp_bwd_kernel`` run the whole block per row tile
@@ -24,6 +24,34 @@ The hidden ``[R, F]`` passes through L2/HBM between the GEMMs.
 ``mlp_block_xla``: it rounds fc1's output to the input dtype before the
 activation, as XLA's unfused graph does.  :func:`mlp_block_bwd_ref` is
 the plain version of the backward kernel, with its rounding points.
+
+The post-norm tail (``_postnorm_tail_kernel`` #15 and
+``_postnorm_tail_bwd_kernel`` #16) is everything of torch's
+``nn.TransformerEncoderLayer`` after the attention:
+``LN2(x2 + fc2(act(fc1(x2))))`` with ``x2 = LN1(x + attn)``.  On the TPU
+each is one kernel per 256-row tile holding both weights in VMEM; at
+D = 768, F = 1024 they do not fit a Hopper block, so each is a chain:
+
+Forward (#15): ``ln_rows`` over the fp32 sum ``s1 = x + attn`` (``x2``
+rounded for fc1, ``x2f`` kept in fp32) -> ``gemm`` (fc1, +b1, activation
+in fp32, one rounding; the training form also writes ``z`` rounded) ->
+``gemm`` (fc2, +b2, + the fp32 ``x2f``, kept in fp32: ``s2``) -> ``ln_rows``
+over the fp32 ``s2`` (the output rounded once; the training form also
+writes ``s2`` rounded).
+
+Backward (#16, from the saved ``z`` and ``s2``, no recomputed GEMM):
+``ln_rows_bwd`` over the bf16 ``s2`` and the bf16 cotangent (dLN2, the
+fp32 ``ds2``, its rounding and ``db2 = colsum(ds2)``) -> ``act_bf16`` (h)
+-> ``gemm`` TN (dW2 = h^T ds2) -> ``gemm`` NT (dz = ds2 W2^T * act'(z),
+db1 = colsum of the fp32 dz) -> ``ln_rows`` (recompute x2) -> ``gemm`` TN
+(dW1 = x2^T dz) -> ``gemm`` NT (dx2 = dz W1^T + the fp32 ds2, kept in
+fp32) -> ``ln_rows_bwd`` over ``x + attn`` (dLN1 and the one cotangent
+``ds`` of both x and attn).
+
+:func:`postnorm_tail_ref` is the plain unfused forward, the counterpart
+of ``postnorm_tail_xla`` (each sum rounded as flax's layers round it);
+:func:`postnorm_tail_kernel_ref` and :func:`postnorm_tail_bwd_ref` are
+the plain versions of #15 and #16 with the kernels' rounding points.
 """
 
 from __future__ import annotations
@@ -32,10 +60,12 @@ import torch
 import torch.nn.functional as F
 
 from ._build import act_bf16, gemm, ln_rows, ln_rows_bwd
-from .kernel_utils import ln_bwd_fp32, ln_fp32
+from .kernel_utils import fp32_compute_not_ported, ln_bwd_fp32, ln_fp32
 
 __all__ = ["fused_mlp_block", "mlp_block_ref", "mlp_block_bwd_ref",
-           "mlp_block_train_fwd", "mlp_block_bwd"]
+           "mlp_block_train_fwd", "mlp_block_bwd", "fused_postnorm_tail",
+           "postnorm_tail_ref", "postnorm_tail_kernel_ref", "postnorm_tail_bwd_ref",
+           "postnorm_tail_train_fwd", "postnorm_tail_bwd"]
 
 _ACTIVATIONS = ("gelu", "relu")
 
@@ -216,3 +246,202 @@ def fused_mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2,
 
 fused_mlp_block.launches = 0
 fused_mlp_block.bwd_launches = 0
+
+
+# -- the post-norm layer tail (#15, #16) ------------------------------------
+
+
+def postnorm_tail_ref(x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b,
+                      eps: float = 1e-5, activation: str = "relu") -> torch.Tensor:
+    """Unfused formula, the counterpart of ``postnorm_tail_xla``: every sum
+    and product rounded to the input dtype, as flax's LayerNorm and Dense
+    round them."""
+    _check_activation(activation)
+    dt = x.dtype
+    x2 = ln_fp32(x + attn, ln1_s, ln1_b, eps)
+    h = _act_fp32(x2 @ w1 + b1.to(dt), activation)
+    y = h @ w2 + b2.to(dt)
+    return ln_fp32(x2 + y, ln2_s, ln2_b, eps)
+
+
+def postnorm_tail_kernel_ref(x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s,
+                             ln2_b, eps: float = 1e-5, activation: str = "relu",
+                             save_acts: bool = False):
+    """Plain version of ``_postnorm_tail_kernel`` (#15) with its rounding
+    points: ``s1 = x + attn`` in fp32, never rounded; ``x2f = LN1(s1)``
+    in fp32 and ``x2`` its rounding; fc1 summed in fp32 with +b1 through
+    the activation, then rounded (``h``); ``s2 = h W2 + b2 + x2f`` in
+    fp32; the output ``LN2(s2)`` rounded once.  With ``save_acts`` it
+    returns ``(out, z, s2)``, z and s2 rounded to the input dtype."""
+    _check_activation(activation)
+    dt = x.dtype
+    x2f = ln_fp32(x.float() + attn.float(), ln1_s, ln1_b, eps)
+    z = x2f.to(dt).float() @ w1.float() + b1.float()
+    h = _act_fp32(z, activation).to(dt).float()
+    s2 = h @ w2.float() + b2.float() + x2f
+    out = ln_fp32(s2, ln2_s, ln2_b, eps).to(dt)
+    return (out, z.to(dt), s2.to(dt)) if save_acts else out
+
+
+def postnorm_tail_bwd_ref(x, attn, g, z, s2, ln1_s, ln1_b, w1, b1, w2, ln2_s,
+                          ln2_b, b2=None, eps: float = 1e-5,
+                          activation: str = "relu"):
+    """Plain version of ``_postnorm_tail_bwd_kernel`` (#16) from what the
+    training forward saved (``z`` [.., F] and ``s2`` [.., D], rounded).
+
+    LN1's statistics come again from ``x + attn`` (fp32) and LN2's from
+    the saved ``s2``; ``ds2`` (LN2's backward) stays fp32 for ``db2`` and
+    for the residual into ``dx2``, and is rounded as the GEMMs' operand;
+    ``dz`` likewise.  Returns ``(ds, dln1_s, dln1_b, dw1, db1, dw2, db2,
+    dln2_s, dln2_b)``: ``ds`` is the one cotangent of both ``x`` and
+    ``attn``; each result in its input's dtype (``db2`` in ``b2``'s, or
+    ``w2``'s when ``b2`` is None), every sum over the rows in fp32."""
+    _check_activation(activation)
+    d, f = w1.shape
+    dt = x.dtype
+    s1 = x.reshape(-1, d).float() + attn.reshape(-1, d).float()
+    x2 = ln_fp32(s1, ln1_s, ln1_b, eps).to(dt).float()
+    zf = z.reshape(-1, f).float()
+    h = _act_fp32(zf, activation).to(dt).float()
+    ds2, dls2, dlb2 = ln_bwd_fp32(s2.reshape(-1, d), g.reshape(-1, d).float(),
+                                  ln2_s, eps)
+    ds2b = ds2.to(dt).float()
+    dw2 = h.T @ ds2b
+    dz = (ds2b @ w2.float().T) * _dact_fp32(zf, activation)
+    dzc = dz.to(dt).float()
+    dw1 = x2.T @ dzc
+    dx2 = dzc @ w1.float().T + ds2
+    ds, dls1, dlb1 = ln_bwd_fp32(s1, dx2, ln1_s, eps)
+    return (ds.to(dt).view(x.shape), dls1.to(ln1_s.dtype), dlb1.to(ln1_b.dtype),
+            dw1.to(w1.dtype), dz.sum(0).to(b1.dtype), dw2.to(w2.dtype),
+            ds2.sum(0).to((w2 if b2 is None else b2).dtype), dls2.to(ln2_s.dtype),
+            dlb2.to(ln2_b.dtype))
+
+
+def _tail_kernels(x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, eps,
+                  activation, save_acts):
+    if x.dtype != torch.bfloat16:
+        raise fp32_compute_not_ported("fused_postnorm_tail", x.dtype)
+    b, n, d = x.shape
+    x2d = x.reshape(b * n, d).contiguous()
+    a2d = attn.reshape(b * n, d).contiguous()
+    x2, x2f = ln_rows(x2d, ln1_s.float(), ln1_b.float(), eps, x_b=a2d, with_f32=True)
+    h = gemm(x2, w1, bias=b1.float(), act=activation, save_z=save_acts)
+    if save_acts:
+        h, z = h
+    del x2
+    s2 = gemm(h, w2, bias=b2.float(), residual_f32=x2f, out_dtype=torch.float32)
+    del h, x2f
+    out = ln_rows(s2, ln2_s.float(), ln2_b.float(), eps, with_rounded_input=save_acts)
+    if not save_acts:
+        fused_postnorm_tail.launches += 1
+        return out.view(b, n, d)
+    fused_postnorm_tail.train_launches += 1
+    out, s2b = out
+    return out.view(b, n, d), z.view(b, n, -1), s2b.view(b, n, d)
+
+
+def postnorm_tail_train_fwd(x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b,
+                            eps: float = 1e-5, activation: str = "relu"):
+    """#15's training form, ``(out, z, s2)``: the kernels for a CUDA ``x``
+    (``fused_postnorm_tail.train_launches`` counts them),
+    :func:`postnorm_tail_kernel_ref` for a CPU one."""
+    args = (x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b)
+    if x.device.type == "cpu":
+        return postnorm_tail_kernel_ref(*args, eps, activation, save_acts=True)
+    return _tail_kernels(*args, eps, activation, save_acts=True)
+
+
+def postnorm_tail_bwd(x, attn, g, z, s2, ln1_s, ln1_b, w1, b1, w2, ln2_s, ln2_b,
+                      b2=None, eps: float = 1e-5, activation: str = "relu"):
+    """#16: the backward from the saved ``z`` and ``s2``, with the
+    arguments and results of :func:`postnorm_tail_bwd_ref`, which it runs
+    for a CPU ``x``.  A CUDA ``x`` launches the kernel chain
+    (``fused_postnorm_tail.bwd_launches`` counts it)."""
+    if x.device.type == "cpu":
+        return postnorm_tail_bwd_ref(x, attn, g, z, s2, ln1_s, ln1_b, w1, b1, w2,
+                                     ln2_s, ln2_b, b2, eps, activation)
+    if x.dtype != torch.bfloat16:
+        raise fp32_compute_not_ported("fused_postnorm_tail", x.dtype)
+    b, n, d = x.shape
+    f = w1.shape[1]
+    r = b * n
+    x2d = x.reshape(r, d).contiguous()
+    a2d = attn.reshape(r, d).contiguous()
+    z2 = z.reshape(r, f).contiguous()
+    ds2, dls2, dlb2, ds2f, db2 = ln_rows_bwd(
+        s2.reshape(r, d).contiguous(), g.reshape(r, d).contiguous(), ln2_s.float(),
+        None, eps, add_g=False, dx_f32=True, dx_sum=True)
+    h = act_bf16(z2, activation)
+    dw2 = gemm(h, ds2, trans_a=True)                                 # [F, D]
+    del h
+    dz, db1 = gemm(ds2, w2, trans_b=True, act=activation, z_in=z2,
+                   colsum=True)                                      # [R, F]
+    del ds2
+    x2 = ln_rows(x2d, ln1_s.float(), ln1_b.float(), eps, x_b=a2d)
+    dw1 = gemm(x2, dz, trans_a=True)                                 # [D, F]
+    del x2
+    dx2 = gemm(dz, w1, trans_b=True, residual_f32=ds2f,
+               out_dtype=torch.float32)                              # [R, D]
+    del dz, ds2f
+    ds, dls1, dlb1 = ln_rows_bwd(x2d, dx2, ln1_s.float(), None, eps, add_g=False,
+                                 x_b=a2d)
+    fused_postnorm_tail.bwd_launches += 1
+    return (ds.view(b, n, d), dls1.to(ln1_s.dtype), dlb1.to(ln1_b.dtype),
+            dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+            db2.to((w2 if b2 is None else b2).dtype), dls2.to(ln2_s.dtype),
+            dlb2.to(ln2_b.dtype))
+
+
+class _FusedPostnormTail(torch.autograd.Function):
+    """Kernels #15 and #16 as one differentiable op: the forward is #15's
+    training form and saves x, attn, the parameters, z and s2 (as
+    ``_pt_fwd`` does); the backward is :func:`postnorm_tail_bwd`, its one
+    cotangent ``ds`` returned for both x and attn."""
+
+    @staticmethod
+    def forward(ctx, x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, eps,
+                activation):
+        out, z, s2 = postnorm_tail_train_fwd(x, attn, ln1_s, ln1_b, w1, b1, w2, b2,
+                                             ln2_s, ln2_b, eps, activation)
+        ctx.save_for_backward(x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b,
+                              z, s2)
+        ctx.config = (eps, activation)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, z, s2 = ctx.saved_tensors
+        eps, activation = ctx.config
+        ds, *grads = postnorm_tail_bwd(x, attn, g.to(x.dtype), z, s2, ln1_s, ln1_b,
+                                       w1, b1, w2, ln2_s, ln2_b, b2, eps, activation)
+        return (ds, ds.to(attn.dtype), *grads, None, None)
+
+
+def fused_postnorm_tail(x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b,
+                        eps: float = 1e-5, activation: str = "relu") -> torch.Tensor:
+    """``LN2(x2 + fc2(act(fc1(x2))))`` with ``x2 = LN1(x + attn)`` ([B, N,
+    D] in and out), differentiable: everything of a post-norm encoder
+    layer after its attention.
+
+    A CPU ``x`` runs :func:`postnorm_tail_kernel_ref` (and, under
+    autograd, :func:`postnorm_tail_bwd_ref`).  A CUDA ``x`` launches the
+    kernels (bf16, Dense kernels ``[in, out]``) or raises; it never falls
+    back.  ``fused_postnorm_tail.launches`` counts the CUDA forwards of
+    the serving form, ``.train_launches`` those of the training form (which
+    also saves z and s2) and ``.bwd_launches`` the CUDA backwards.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_postnorm_tail: no kernel for device {x.device}")
+    _check_activation(activation)
+    args = (x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedPostnormTail.apply(*args, eps, activation)
+    if x.device.type == "cpu":
+        return postnorm_tail_kernel_ref(*args, eps, activation)
+    return _tail_kernels(*args, eps, activation, save_acts=False)
+
+
+fused_postnorm_tail.launches = 0
+fused_postnorm_tail.train_launches = 0
+fused_postnorm_tail.bwd_launches = 0

@@ -33,12 +33,13 @@ def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def fp32_compute_not_ported(what: str, dtype: torch.dtype) -> NotImplementedError:
-    """The refusal of a family-A kernel (#5-#7) given a CUDA tensor in a
-    dtype other than bfloat16: it never falls back to its plain version."""
+    """The refusal of a family-A kernel (#5-#7, #15/#16) given a CUDA
+    tensor in a dtype other than bfloat16: it never falls back to its
+    plain version."""
     return NotImplementedError(
         f"{what}: {dtype} compute on the GPU is not ported yet, the kernels "
         "take bfloat16: ROADMAP.md queue 1 item 15 (fp32 compute for "
-        "kernels #5-#7)")
+        "kernels #5-#7 and #15/#16)")
 
 
 def ln_fp32(v: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -6,7 +6,7 @@ runs the JAX package's validation and builds the pre-norm families
 ('simple', 'curvevit', with token merging and per-layer attention
 schedules: the 'longctx-16k' and 'longctx-16k-hybrid' presets) and family
 A's 'vit1d' over the hierarchical tokenizer, fused (``fused=True``) or
-not (the 'flagship' preset).  Everything not yet ported raises
+not (the 'flagship' preset), and 'hier' over its levels.  Everything not yet ported raises
 ``NotImplementedError`` naming its ROADMAP.md item.  Models are built on
 the card unless the caller asks for the CPU (``device='cpu'``).
 """
@@ -19,7 +19,12 @@ from typing import Optional, Sequence, Union
 import torch
 
 from .curves import CURVE_REGISTRY
-from .models import CurveViT, SimpleViT, VisionTransformer1D
+from .models import (
+    CurveViT,
+    HierarchicalVisionTransformer1D,
+    SimpleViT,
+    VisionTransformer1D,
+)
 from .ops.attention import check_implementation
 from .tokenizers import HierarchicalCurveEmbedding
 
@@ -33,7 +38,6 @@ MODEL_FAMILIES = ("vit", "vit1d", "hier", "simple", "curvevit")
 _NOT_PORTED = {
     "vit": "queue 1 item 7 (family-A models: VisionTransformer, after the "
            "2-D tokenizer of queue 1 item 6)",
-    "hier": "queue 1 item 16 (HierarchicalVisionTransformer1D)",
     "tokenizer '2d'": "queue 1 item 6 (tokenizers: ConvPatchEmbedding)",
     "tokenizer '1d'": "queue 1 item 6 (tokenizers: PixelCurveEmbedding1D)",
     "remat": "queue 1 item 4 (train step: remat)",
@@ -158,7 +162,7 @@ def _validate(cfg: ModelConfig) -> None:
     if (family_b or cfg.model == "hier") and cfg.posemb != "none":
         raise ValueError(f"model {cfg.model!r} manages its own positional "
                          f"encoding; posemb={cfg.posemb!r} would be ignored")
-    if cfg.model in ("vit", "hier"):
+    if cfg.model == "vit":
         raise _not_ported(cfg.model)
     if cfg.remat:
         raise _not_ported("remat")
@@ -185,6 +189,14 @@ def build_model(cfg: ModelConfig, device="cuda",
             build_tokenizer(cfg, generator=generator), depth=cfg.depth,
             n_heads=cfg.n_heads, mlp_dim=cfg.mlp_dim, num_classes=cfg.num_classes,
             posemb=cfg.posemb, dtype=dtype, attn_impl=cfg.attn_impl,
+            device=device, generator=generator)
+    if cfg.model == "hier":
+        if cfg.tokenizer != "hierarchical":
+            raise ValueError("model 'hier' requires tokenizer='hierarchical'")
+        return HierarchicalVisionTransformer1D(
+            build_tokenizer(cfg, return_levels=True, generator=generator),
+            depth=cfg.depth, n_heads=cfg.n_heads, mlp_dim=cfg.mlp_dim,
+            num_classes=cfg.num_classes, dtype=dtype, attn_impl=cfg.attn_impl,
             device=device, generator=generator)
     attn_impl = cfg.attn_impl if isinstance(cfg.attn_impl, str) else tuple(cfg.attn_impl)
     kw = dict(image_size=cfg.img_size, patch_size=cfg.patch_size,

@@ -371,7 +371,7 @@ def test_build_model_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("overrides, exc, match", [
     (dict(model="vit"), NotImplementedError, "queue 1 item 7"),
-    (dict(model="hier"), NotImplementedError, "queue 1 item 16"),
+    (dict(model="hier", remat=True), NotImplementedError, "queue 1 item 4"),
     (dict(fused=True, tokenizer="1d"), NotImplementedError, "queue 1 item 6"),
     (dict(tokenizer="2d"), NotImplementedError, "queue 1 item 6"),
     (dict(tokenizer="1d"), NotImplementedError, "queue 1 item 6"),

@@ -10,6 +10,7 @@ failure path, which need no card.  This file imports no JAX, so it runs
 unchanged on a machine that has only PyTorch.
 """
 
+import contextlib
 import os
 import shutil
 
@@ -30,10 +31,15 @@ from sfc_vit_tpu_torch.ops.fused_attention_block import (
 )
 from sfc_vit_tpu_torch.ops.fused_mlp import (
     fused_mlp_block,
+    fused_postnorm_tail,
     mlp_block_bwd,
     mlp_block_bwd_ref,
     mlp_block_ref,
     mlp_block_train_fwd,
+    postnorm_tail_bwd,
+    postnorm_tail_bwd_ref,
+    postnorm_tail_kernel_ref,
+    postnorm_tail_train_fwd,
 )
 from sfc_vit_tpu_torch.ops.flash_attention import _packed_xla_ref, packed_flash_attention
 from sfc_vit_tpu_torch.ops.fused_torch_attention import (
@@ -132,6 +138,19 @@ def test_backward_launchers_reject_what_the_kernels_do_not_take():
         _build.ln_rows_bwd(a, torch.zeros(16, 8), torch.ones(8), a, 1e-5)
     with pytest.raises(ValueError, match="multiple of 8"):
         _build.act_bf16(torch.zeros(3, dtype=torch.bfloat16), "gelu")
+
+
+def test_tail_launcher_options_are_checked():
+    """The launcher options the post-norm tail adds: a bf16 cotangent with
+    the two-row sum is not instantiated; the fp32 residual is fp32."""
+    a = torch.zeros(16, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not instantiated"):
+        _build.ln_rows_bwd(a, a, torch.ones(8), None, 1e-5, add_g=False, x_b=a)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _build.ln_rows(torch.zeros(16, 8), torch.ones(8), torch.zeros(8), 1e-5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _build.gemm(a, torch.zeros(8, 8, dtype=torch.bfloat16),
+                    residual_f32=torch.zeros(16, 8))
 
 
 def test_colsum_and_mask_arguments_are_checked():
@@ -930,3 +949,167 @@ def test_hybrid_and_fused_flagship_kernel_paths_match_plain(cuda):
         a, b = fused(imgs), unfused.eval()(imgs)
     assert gp.gather_project.launches == before + 3
     assert float((a.float() - b.float()).abs().max()) <= 0.03 * float(b.float().abs().max())
+
+
+# -- the post-norm tail (#15, #16) on the card -----------------------------------
+
+
+def _tail_args(rng, b, n, d, f, device):
+    """x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b (bf16 tensors,
+    fp32 LayerNorm parameters), as the encoder layer passes them."""
+    ln = lambda shift: _randn(rng, d, scale=0.1, device=device,  # noqa: E731
+                              dtype=torch.float32) + shift
+    return (_randn(rng, b, n, d, device=device), _randn(rng, b, n, d, device=device),
+            ln(1.0), ln(0.0), _randn(rng, d, f, scale=d ** -0.5, device=device),
+            _randn(rng, f, scale=0.1, device=device),
+            _randn(rng, f, d, scale=f ** -0.5, device=device),
+            _randn(rng, d, scale=0.1, device=device), ln(1.0), ln(0.0))
+
+
+#: (b, n, d, f): the flagship at MLP 1,024 and hier's levels, cut in
+#: batch; F 2048; ragged row counts (1,000 and 37 rows).
+_TAIL_SHAPES = [(8, 64, 768, 1024), (8, 64, 256, 1024), (4, 64, 256, 2048),
+                (10, 100, 768, 1024), (1, 37, 256, 1024)]
+_TAIL_NAMES = ("ds", "dln1_s", "dln1_b", "dw1", "db1", "dw2", "db2", "dln2_s", "dln2_b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d, f", _TAIL_SHAPES)
+def test_postnorm_tail_fwd_matches_plain(cuda, b, n, d, f):
+    """#15's serving and training forms against its plain version (the
+    same rounding points): out, z and s2 each within 1 % of its largest
+    |value| (an fp32 sum taken in another order flips a rounding)."""
+    args = _tail_args(np.random.default_rng(50), b, n, d, f, cuda)
+    before = (fused_postnorm_tail.launches, fused_postnorm_tail.train_launches)
+    with torch.no_grad():
+        out = fused_postnorm_tail(*args)
+    got = postnorm_tail_train_fwd(*args)
+    assert (fused_postnorm_tail.launches, fused_postnorm_tail.train_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = postnorm_tail_kernel_ref(*args, save_acts=True)
+    assert torch.equal(out, got[0])
+    for name, x, w in zip(("out", "z", "s2"), got, want):
+        assert x.shape == w.shape, name
+        _within(x, w, 1e-2, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d, f", _TAIL_SHAPES)
+def test_postnorm_tail_bwd_matches_plain(cuda, b, n, d, f):
+    """#16 fed the saved z and s2 against its plain version, and the
+    autograd route (#15's training form, then #16), every gradient within
+    2 % of its largest |value|."""
+    rng = np.random.default_rng(51)
+    args = _tail_args(rng, b, n, d, f, cuda)
+    g = _randn(rng, b, n, d, device=cuda)
+    _, z, s2 = postnorm_tail_train_fwd(*args)
+    saved = (args[0], args[1], g, z, s2, *args[2:7], args[8], args[9])
+    got = postnorm_tail_bwd(*saved, b2=args[7])
+    want = postnorm_tail_bwd_ref(*saved, b2=args[7])
+    for name, x, w in zip(_TAIL_NAMES, got, want):
+        _within(x, w, 2e-2, name)
+    leaves = [t.clone().requires_grad_() for t in args]
+    before = fused_postnorm_tail.bwd_launches
+    fused_postnorm_tail(*leaves).backward(g)
+    assert fused_postnorm_tail.bwd_launches == before + 1
+    order = (0, 0, 1, 2, 3, 4, 5, 6, 7, 8)  # ds is the gradient of x and of attn
+    for i, leaf in enumerate(leaves):
+        _within(leaf.grad, want[order[i]], 2e-2, f"arg {i}")
+
+
+@pytest.mark.gpu
+def test_postnorm_tail_launcher_pieces_match_fp32(cuda):
+    """The launcher options the tail adds, against fp32 formulas: LN over a
+    two-row sum (with the fp32 output) and over fp32 rows (with the rounded
+    input), the LN backward from a bf16 cotangent (fp32 dx and its column
+    sums) and over a two-row sum, and the GEMM's fp32 residual."""
+    rng = np.random.default_rng(52)
+    r, d = 1000, 768
+    x, a = _randn(rng, r, d, device=cuda), _randn(rng, r, d, device=cuda)
+    s = _randn(rng, d, dtype=torch.float32)
+    bias = _randn(rng, d, dtype=torch.float32)
+    y, y32 = _build.ln_rows(x, s, bias, 1e-5, x_b=a, with_f32=True)
+    want = ln_fp32(x.float() + a.float(), s, bias)
+    torch.testing.assert_close(y32, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y.float(), want.bfloat16().float(), **ONE_ROUND_TOL)
+    xf = _randn(rng, r, d, dtype=torch.float32) * 3.0
+    y, xr = _build.ln_rows(xf, s, bias, 1e-5, with_rounded_input=True)
+    assert torch.equal(xr, xf.bfloat16())
+    torch.testing.assert_close(y.float(), ln_fp32(xf, s, bias).bfloat16().float(),
+                               **ONE_ROUND_TOL)
+    g = _randn(rng, r, d, device=cuda)
+    dx, ds, db, dx32, dxs = _build.ln_rows_bwd(x, g, s, None, 1e-5, add_g=False,
+                                               dx_f32=True, dx_sum=True)
+    want_dx, want_ds, want_db = ln_bwd_fp32(x, g.float(), s)
+    tol = dict(rtol=1e-4, atol=1e-4 * r ** 0.5)
+    torch.testing.assert_close(dx32, want_dx, rtol=1e-4, atol=1e-4)
+    assert torch.equal(dx, dx32.bfloat16())
+    torch.testing.assert_close(dxs, want_dx.sum(0), **tol)
+    torch.testing.assert_close(ds, want_ds, **tol)
+    torch.testing.assert_close(db, want_db, **tol)
+    dxn = _randn(rng, r, d, dtype=torch.float32)
+    dx, ds, db = _build.ln_rows_bwd(x, dxn, s, None, 1e-5, add_g=False, x_b=a)
+    want_dx, want_ds, want_db = ln_bwd_fp32(x.float() + a.float(), dxn, s)
+    torch.testing.assert_close(dx.float(), want_dx.bfloat16().float(), **ONE_ROUND_TOL)
+    torch.testing.assert_close(ds, want_ds, **tol)
+    torch.testing.assert_close(db, want_db, **tol)
+    w = _randn(rng, d, 1024, scale=d ** -0.5, device=cuda)
+    b1 = _randn(rng, 1024, dtype=torch.float32)
+    res = _randn(rng, r, 1024, dtype=torch.float32)
+    got = _build.gemm(x, w, bias=b1, residual_f32=res, out_dtype=torch.float32)
+    want = x.float() @ w.float() + b1 + res
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_postnorm_tail_refuses_fp32(cuda):
+    args = tuple(t.float() for t in _tail_args(np.random.default_rng(53), 1, 8, 128, 1024,
+                                               cuda))
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 15"):
+        fused_postnorm_tail(*args)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        fused_postnorm_tail(*(t.clone().requires_grad_() for t in args))
+
+
+@pytest.mark.gpu
+def test_family_a_tail_model_paths_match_plain(cuda):
+    """A small flagship at MLP 1,024 (dropout 0, trained through #15/#16)
+    and a small 'hier' (eval through #15 at d = 256) on the card, each
+    against the plain versions of the tail."""
+    from unittest import mock
+
+    import sfc_vit_tpu_torch.models.layers as layers
+    from sfc_vit_tpu_torch.models import VisionTransformer1D
+    from sfc_vit_tpu_torch.registry import build_model, build_tokenizer, preset_config
+
+    cfg = preset_config("flagship", img_size=16, depth=2, mlp_dim=1024, dtype="bfloat16")
+    model = VisionTransformer1D(build_tokenizer(cfg), depth=2, mlp_dim=1024,
+                                dropout_rate=0.0, dtype=torch.bfloat16, device=cuda,
+                                generator=torch.Generator().manual_seed(0)).train()
+    x = _randn(np.random.default_rng(54), 6, 16, 16, 3)
+    grads = []
+    before = (fused_postnorm_tail.train_launches, fused_postnorm_tail.bwd_launches)
+    for plain in (False, True):
+        model.zero_grad()
+        ctx = (mock.patch.object(layers, "fused_postnorm_tail", postnorm_tail_kernel_ref)
+               if plain else contextlib.nullcontext())
+        # the head's dropout (0.5) draws the same masks on both paths
+        with ctx, layers.dropout_generator(torch.Generator(device=cuda).manual_seed(1)):
+            model(x).float().sum().backward()
+        grads.append([p.grad.float().clone() for p in model.parameters()])
+    assert (fused_postnorm_tail.train_launches, fused_postnorm_tail.bwd_launches) == (
+        before[0] + 2, before[1] + 2)
+    for g, w in zip(*grads):
+        assert float((g - w).norm() / w.norm()) <= 0.1
+
+    hier = build_model(preset_config("flagship", model="hier", img_size=16, depth=1,
+                                     mlp_dim=1024, dtype="bfloat16"),
+                       generator=torch.Generator().manual_seed(0)).eval()
+    before = fused_postnorm_tail.launches
+    with torch.no_grad():
+        got = hier(x)
+        with mock.patch.object(layers, "fused_postnorm_tail", postnorm_tail_kernel_ref):
+            want = hier(x)
+    assert fused_postnorm_tail.launches == before + 3 + 2
+    assert float((got.float() - want.float()).abs().max()) <= 0.03 * float(
+        want.float().abs().max())

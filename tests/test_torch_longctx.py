@@ -1,7 +1,7 @@
 """The port's long-context path against the JAX package on the CPU: token
 merging, a small merged CurveViT past 1,024 tokens (flash attention's
 plain versions), the registry's long-context presets and the layer
-routing, held to JAX's own gates on its chip.
+routing of both families, held to JAX's own gates on its chip.
 
 Inputs come from ``np.random.default_rng``; JAX runs on the CPU.
 """
@@ -16,11 +16,13 @@ import sfc_vit_tpu.ops.attention as jattention
 import sfc_vit_tpu.ops.flash_attention as jfa
 import sfc_vit_tpu.ops.fused_attention_block as jfab
 import sfc_vit_tpu.ops.fused_mlp as jmlp
+import sfc_vit_tpu.ops.fused_torch_attention as jfta
 from sfc_vit_tpu.models import CurveViT as JCurveViT
+from sfc_vit_tpu.models import layers as jlayers
 from sfc_vit_tpu.models import simple_vit as jsimple_vit
 from sfc_vit_tpu.ops.token_merge import curve_pair_merge_topk as jmerge
 from sfc_vit_tpu.training import losses as jlosses
-from sfc_vit_tpu_torch.models import CurveViT, layer_route
+from sfc_vit_tpu_torch.models import CurveViT, family_a_route, layer_route
 from sfc_vit_tpu_torch.ops import multi_head_attention
 from sfc_vit_tpu_torch.ops.token_merge import curve_pair_merge_topk
 from sfc_vit_tpu_torch.registry import PRESETS, build_model, preset_config
@@ -215,6 +217,7 @@ def jax_on_its_chip(monkeypatch):
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     monkeypatch.setattr(jfab, "_VMEM_LIMIT", 2 ** 60)
     monkeypatch.setattr(jmlp, "_VMEM_LIMIT", 2 ** 60)
+    monkeypatch.setattr(jfta, "_VMEM_LIMIT", 2 ** 60)
     monkeypatch.setattr(jfa, "packed_attention_fits",
                         lambda n, three_inner, itemsize: n <= jfa._PACKED_MAX_N)
 
@@ -251,3 +254,53 @@ def test_layer_route_matches_jax_gates(impl, jax_on_its_chip):
         assert layer_route(impl, *shape) == _jax_route(impl, *shape), shape
     assert layer_route("auto", 64, 192, 192, 768, 64) == ("packed", "xla")  # vit-tiny-4
     assert layer_route("auto", 16384, 384, 384, 1536, 64) == ("flash", "fused_mlp")
+
+
+def _jax_family_a_route(impl, n, d, heads, f, rate, training):
+    """Which paths JAX's ``TorchTransformerEncoderLayer`` takes on a TPU
+    (bf16), read by tracing it with the kernels and formulas replaced by
+    recorders; called under ``jax_on_its_chip``."""
+    taken = []
+
+    def record(name, result):
+        def fn(*a, **k):
+            taken.append(name)
+            return result(*a)
+        return fn
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jfta, "fused_torch_mha", record("fused_mha", lambda x, *a: x))
+        mp.setattr(jattention, "attention_with_weights", record(
+            "mha_train", lambda q, k, v: (q, jnp.einsum("bnhd,bmhd->bhnm", q, k))))
+        mp.setattr(jlayers, "packed_qkv_attention", record(
+            "packed", lambda qkv, h: qkv[..., : qkv.shape[-1] // 3]))
+        mp.setattr(jmlp, "fused_postnorm_tail", record("postnorm_tail", lambda x, *a: x))
+        layer = jlayers.TorchTransformerEncoderLayer(
+            dim=d, n_heads=heads, hidden_dim=f, dropout_rate=rate, dtype=jnp.bfloat16,
+            attn_impl=impl)
+        key = jax.random.key(0)
+        jax.eval_shape(lambda x: layer.init({"params": key, "dropout": key}, x,
+                                            deterministic=not training),
+                       jax.ShapeDtypeStruct((1, n, d), jnp.bfloat16))
+    attn = [t for t in taken if t != "postnorm_tail"]
+    assert len(attn) == 1, taken
+    return attn[0], "postnorm_tail" if "postnorm_tail" in taken else "unfused"
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+def test_family_a_route_matches_jax_gates(impl, jax_on_its_chip):
+    """``models.family_a_route`` against JAX's family-A layer on its chip for
+    N in {64, 192, 1024, 1025, 4096} x d in {256, 768} (heads of 64 and
+    192) x MLP in {512, 1024}, training with dropout 0.1 and 0 and in eval.
+    Before the port routed like this, training with dropout took #5/#6 at
+    every length, where JAX takes the explicit-weights formula past 1,024
+    tokens."""
+    for n in (64, 192, 1024, 1025, 4096):
+        for d in (256, 768):
+            for f in (512, 1024):
+                for training, rate in ((True, 0.1), (True, 0.0), (False, 0.1)):
+                    shape = (impl, n, d, 4, f, rate, training)
+                    assert family_a_route(*shape) == _jax_family_a_route(*shape), shape
+    assert family_a_route("auto", 1024, 256, 4, 1024, 0.1, True) == ("fused_mha", "unfused")
+    assert family_a_route("auto", 1025, 256, 4, 1024, 0.1, True) == ("mha_train", "unfused")
+    assert family_a_route("auto", 64, 768, 4, 1024, 0.0, True) == ("packed", "postnorm_tail")
