@@ -13,7 +13,9 @@ Phases, each of which raises (non-zero exit) on failure:
 
 1. device: a CUDA device is present; prints its name and power limit;
 2. build: compiles the hand-written kernels (sfc_vit_tpu_torch/csrc)
-   with nvcc and loads them;
+   with nvcc and loads them; prints ptxas's registers and spills and the
+   runtime's registers and shared memory of the wgmma kernels #8 and #9,
+   and fails if either spills;
 3. kernels: each fused block against its plain PyTorch version at the
    ViT-B/16 serving shapes (x [64, 196, 768] bf16, 12 heads of 64,
    F = 3072), with its error, tolerance and time beside the plain one;
@@ -57,11 +59,15 @@ Phases, each of which raises (non-zero exit) on failure:
    v as views of one packed projection), #8 (single K step) and #9 at
    CurveViT-S/12's (batch 16, 4,096 tokens) and a ragged case (3,000
    queries, 5,000 keys) through all four, each against its plain version
-   with its error beside its tolerance and the lse against fp64; each
-   timed beside its plain version, its bound and
-   ``F.scaled_dot_product_attention`` (forward for #8, its autograd
-   backward for #9-#11); #9 against #10 + #11 at 8,192 tokens, the
-   length JAX's ``_FUSED_BWD_MAX`` hard-codes.
+   with its error beside its tolerance and the lse against fp64 (#8's
+   streaming form against the plain version at its 128-key tile,
+   ``_build.FLASH_STREAM_BLOCK_K``); each timed beside its plain version,
+   its bound, its achieved TFLOP/s (nominal, and executed where the
+   kernel does more: #8's single step computes the logits twice, the
+   backward kernels' two-term split doubles four products) and
+   ``F.scaled_dot_product_attention`` (forward for #8 in both forms, its
+   autograd backward for #9-#11); #9 against #10 + #11 at 8,192 tokens,
+   the length JAX's ``_FUSED_BWD_MAX`` hard-codes.
 9. long-context slice: (a) ``build_model(preset_config("longctx-16k"))``
    (fp32 parameters, bf16 compute, token merge after layer 1):
    ``Trainer.fit`` for 4 steps at batch 2 on synthetic_dataset(hw=128,
@@ -74,7 +80,7 @@ Phases, each of which raises (non-zero exit) on failure:
    (b) depth x steps, one step's gradients through the kernels against
    the plain versions (relative L2 per tensor), train img/s and tokens/s
    on both paths, serving img/s at batch 4, peak memory; a profile of one
-   16k-token step.
+   step of each.
 10. local kernels: #12 (out and lse) and #13 (dq, dk, dv) at the hybrid
    preset's shapes (batch 2, 16,384 and 12,288 tokens, 6 heads of 64,
    block 128, halo 1, q, k, v as views of one packed projection) and a
@@ -219,7 +225,7 @@ FA_TRAIN_STEPS = 4
 FA_REQUESTS = (1, 100, 256)
 FA_BATCH_SIZES = (16, 256)
 #: Flash kernels, bf16, against their plain versions at the kernels' own
-#: rounding points (#8 at its 64-key steps): one rounding of an fp32 sum
+#: rounding points (#8 at its 128-key steps): one rounding of an fp32 sum
 #: taken in another order (and #10/#11's two-term bf16 split of p and ds,
 #: ~2^-16 relative) flips an element by one bf16 ulp at most; every error
 #: is held within this fraction of its tensor's largest |value|.
@@ -234,6 +240,8 @@ FLASH_FUSED_TOL = 2e-2
 LC_B, LC_N, LC_HEADS = 2, 16384, 6
 VS_B, VS_N = 16, 4096
 LC_STEPS, VS_STEPS = 4, 4
+#: #8's streaming key tile: the plain version is compared at the same width.
+STREAM_BK = _build.FLASH_STREAM_BLOCK_K
 #: The H100 SXM's published dense bf16 rate and memory rate (NVIDIA's data
 #: sheet), the denominators of every bound.
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -327,6 +335,12 @@ def phase_build() -> None:
     for line in info["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
+    # The wgmma kernels #8 and #9 (ptxas's lines above) as the runtime sees
+    # them, with their dynamic shared memory.
+    for name, attrs in _build.flash_kernel_attrs().items():
+        print(f"  {name}: {attrs['registers']} registers, {attrs['local_bytes']} bytes "
+              f"local, {attrs['smem_bytes']} bytes shared a block")
+        _check(attrs["local_bytes"] == 0, f"{name} uses local memory (spills)")
 
 
 def phase_kernels(card: str) -> dict:
@@ -645,16 +659,16 @@ def phase_train(card: str) -> dict:
 
 
 #: Kernels told apart by their template arguments: the GEMM's three
-#: layouts <trans_a, trans_b>, #8's two forms against #12 and #11 against #9.
+#: layouts <trans_a, trans_b> and #8's two forms.
 _GEMM_LABELS = {"gemm_bf16_kernel<false, false>": "gemm_bf16 NN (forward)",
                 "gemm_bf16_kernel<false, true>": "gemm_bf16 NT (dX, dz, datt)",
                 "gemm_bf16_kernel<true, false>": "gemm_bf16 TN (weight gradients)",
-                "flash_fwd_kernel<64, true, false>": "flash_fwd streaming (#8)",
-                "flash_fwd_kernel<64, false, false>": "flash_fwd single K step (#8)",
-                "flash_fwd_kernel<64, false, true>": "flash_fwd curve-local (#12)",
+                "flash_fwd_sm90<false>": "flash_fwd streaming (#8)",
+                "flash_fwd_sm90<true>": "flash_fwd single K step (#8)",
+                "flash_bwd_fused_sm90": "flash_bwd fused (#9)",
+                "local_fwd_kernel<64>": "local_fwd (#12)",
                 "local_bwd_kernel<64>": "local_bwd (#13)",
-                "flash_dkv_kernel<64, false>": "flash_dkv (#11)",
-                "flash_dkv_kernel<64, true>": "flash_dkv fused (#9)",
+                "flash_dkv_kernel<64>": "flash_dkv (#11)",
                 "flash_dq_kernel<64>": "flash_dq (#10)"}
 
 
@@ -1038,6 +1052,10 @@ def _sdpa_ms(q, k, v, g):
     return fwd, _ms(bwd, iters=5)
 
 
+def _tflops(flops: float, ms: float) -> str:
+    return f"{flops / ms / 1e9:.1f} TFLOP/s"
+
+
 def _flash_bytes(b, nq, nk, h, *, n_bf16_q, n_bf16_k, n_fp32_q):
     """Bytes a flash call must move: bf16 [B, N, H, 64] tensors over the
     queries and the keys, fp32 [B, H, Nq] rows."""
@@ -1058,7 +1076,7 @@ def phase_flash_kernels(card: str) -> dict:
         print(f"#8 streaming, q/k/v [{b}, {n}, {h}, 64] views of qkv [{b}, {n}, "
               f"{3 * h * 64}] bf16:")
         out, lse = flash.flash_fwd(q, k, v, s, return_lse=True)
-        want = flash.flash_fwd_ref(q, k, v, s, block_q=n, block_k=64)
+        want = flash.flash_fwd_ref(q, k, v, s, block_q=n, block_k=STREAM_BK)
         res["flash_attention"]["errs"].append(_frac_err("out", out, want, FLASH_TOL))
         lse_err, lse_ok = _agree(lse, _lse64_chunked(q, k, s), **LSE_TOL)
         print(f"  lse: max abs err {lse_err:.4g} against fp64 (tolerance rtol "
@@ -1077,7 +1095,8 @@ def phase_flash_kernels(card: str) -> dict:
         del dq, dk, dv, want_dk, want_dv
         t = res["flash_attention"]
         t["ms"], t["plain_ms"] = _ab_ms(lambda: flash.flash_fwd(q, k, v, s),
-                                        lambda: flash.flash_fwd_ref(q, k, v, s, block_q=n, block_k=64),
+                                        lambda: flash.flash_fwd_ref(q, k, v, s, block_q=n,
+                                                                    block_k=STREAM_BK),
                                         iters=3)
         t.update(_bound(4 * b * h * n * n * 64,
                         _flash_bytes(b, n, n, h, n_bf16_q=2, n_bf16_k=2, n_fp32_q=0)))
@@ -1097,11 +1116,15 @@ def phase_flash_kernels(card: str) -> dict:
     lib_fwd, lib_bwd = _sdpa_ms(q, k, v, g)
     res["flash_attention"]["library_ms"] = lib_fwd
     res["flash_attention_dq"]["library_ms"] = res["flash_attention_dkv"]["library_ms"] = lib_bwd
-    for name, what in (("flash_attention", "#8 streaming"), ("flash_attention_dq", "#10"),
-                       ("flash_attention_dkv", "#11")):
+    work = b * h * n * n * 64
+    for name, what, nominal, executed in (
+            ("flash_attention", "#8 streaming", 4, 4), ("flash_attention_dq", "#10", 6, 8),
+            ("flash_attention_dkv", "#11", 8, 12)):
         t = res[name]
-        print(f"{what}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
-              f"{t['bound_ms']:.3f} ms ({t['bound_by']}), F.scaled_dot_product_attention "
+        print(f"{what}: kernel {t['ms']:.3f} ms ({_tflops(nominal * work, t['ms'])} nominal, "
+              f"{_tflops(executed * work, t['ms'])} executed), plain {t['plain_ms']:.3f} ms, "
+              f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}), "
+              f"F.scaled_dot_product_attention "
               f"{'forward' if name == 'flash_attention' else 'backward (dq, dk, dv)'} "
               f"{t['library_ms']:.3f} ms; [{b}, {n}, {h}, 64] bf16, {card}")
     del q, k, v, g, out, lse, delta
@@ -1134,13 +1157,19 @@ def phase_flash_kernels(card: str) -> dict:
     lib_fwd, lib_bwd = _sdpa_ms(q, k, v, g)
     res["flash_attention_fused_bwd"]["library_ms"] = lib_bwd
     t = res["flash_attention_fused_bwd"]
-    bound1 = _bound(4 * b * h * n * n * 64,
-                    _flash_bytes(b, n, n, h, n_bf16_q=2, n_bf16_k=2, n_fp32_q=0))
-    print(f"#8 single K step: kernel {ms1:.3f} ms, plain {plain1:.3f} ms, bound "
-          f"{bound1['bound_ms']:.3f} ms ({bound1['bound_by']}), SDPA forward "
-          f"{lib_fwd:.3f} ms; #9: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
-          f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}), SDPA backward {lib_bwd:.3f} "
-          f"ms; [{b}, {n}, {h}, 64] bf16, {card}")
+    single = dict(ms=ms1, plain_ms=plain1, library_ms=lib_fwd,
+                  **_bound(4 * b * h * n * n * 64,
+                           _flash_bytes(b, n, n, h, n_bf16_q=2, n_bf16_k=2, n_fp32_q=0)))
+    res["flash_attention"]["single_step"] = single
+    work = b * h * n * n * 64
+    print(f"#8 single K step: kernel {ms1:.3f} ms ({_tflops(4 * work, ms1)} nominal, "
+          f"{_tflops(6 * work, ms1)} executed: the logits twice), plain {plain1:.3f} ms, "
+          f"bound {single['bound_ms']:.3f} ms ({single['bound_by']}), SDPA forward "
+          f"{lib_fwd:.3f} ms; #9: kernel {t['ms']:.3f} ms ({_tflops(10 * work, t['ms'])} "
+          f"nominal, {_tflops(16 * work, t['ms'])} executed: the split doubles four "
+          f"products), plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+          f"({t['bound_by']}), SDPA backward {lib_bwd:.3f} ms; [{b}, {n}, {h}, 64] bf16, "
+          f"{card}")
     del q, k, v, g, out, lse
 
     with torch.no_grad():
@@ -1152,7 +1181,8 @@ def phase_flash_kernels(card: str) -> dict:
         print(f"ragged: q [{b}, {nq}, {h}, 64], k/v [{b}, {nk}, {h}, 64]:")
         out, lse = flash.flash_fwd(q, k, v, s, return_lse=True)
         res["flash_attention"]["errs"].append(
-            _frac_err("out", out, flash.flash_fwd_ref(q, k, v, s, block_q=nq, block_k=64), FLASH_TOL))
+            _frac_err("out", out, flash.flash_fwd_ref(q, k, v, s, block_q=nq, block_k=STREAM_BK),
+                      FLASH_TOL))
         lse_err, lse_ok = _agree(lse, _lse64_chunked(q, k, s), **LSE_TOL)
         print(f"  lse: max abs err {lse_err:.4g} against fp64")
         _check(lse_ok, "kernel #8 (ragged): lse disagrees with the fp64 log-sum-exp")
@@ -1357,7 +1387,7 @@ def phase_longctx(card: str) -> dict:
     b = _longctx_model(card, "CurveViT-S/12 at 4,096 tokens",
                        preset_config("vit-s-16", img_size=256, patch_size=4,
                                      num_classes=1000, dtype="bfloat16"),
-                       VS_B, VS_STEPS, ("flash_attention_fused_bwd",), profile=False)
+                       VS_B, VS_STEPS, ("flash_attention_fused_bwd",), profile=True)
     return {name: a[name] + b[name] for name in a}
 
 
@@ -1909,10 +1939,10 @@ def main() -> int:
              source="sfc_vit_tpu_torch/csrc/attention_fwd.cu",
              replaces="sfc_vit_tpu/ops/flash_attention.py:907"),
         dict(name="flash_attention", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/flash_fwd.cu",
+             source="sfc_vit_tpu_torch/csrc/flash_fwd_sm90.cu",
              replaces="sfc_vit_tpu/ops/flash_attention.py:114"),
         dict(name="flash_attention_fused_bwd", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/flash_bwd.cu",
+             source="sfc_vit_tpu_torch/csrc/flash_bwd_fused_sm90.cu",
              replaces="sfc_vit_tpu/ops/flash_attention.py:317"),
         dict(name="flash_attention_dq", route="cuda",
              source="sfc_vit_tpu_torch/csrc/flash_bwd.cu",
@@ -1921,7 +1951,7 @@ def main() -> int:
              source="sfc_vit_tpu_torch/csrc/flash_bwd.cu",
              replaces="sfc_vit_tpu/ops/flash_attention.py:482"),
         dict(name="local_block_attention", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/flash_fwd.cu",
+             source="sfc_vit_tpu_torch/csrc/local_fwd.cu",
              replaces="sfc_vit_tpu/ops/local_attention.py:82"),
         dict(name="local_block_attention_bwd", route="cuda",
              source="sfc_vit_tpu_torch/csrc/flash_bwd.cu",
@@ -1941,6 +1971,8 @@ def main() -> int:
         e.update(launches=launches[e["name"]], max_abs_err=k["max_abs_err"],
                  ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
                  bound_by=k["bound_by"], library_ms=k["library_ms"])
+        if "single_step" in k:  # #8's other form, timed at CurveViT-S/12's shape
+            e["single_step"] = k["single_step"]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,25 +1,19 @@
 // Flash attention backward on [B, N, H, Dh], head dim 64: the streaming
-// dQ kernel (#10), the streaming dK/dV kernel (#11), the one-pass fused
-// kernel (#9) and the curve-local backward (#13), from the forward's fp32
-// log-sum-exp lse and delta = rowsum(g * O) (both [B, H, Nq]).
+// dQ kernel (#10), the streaming dK/dV kernel (#11) and the curve-local
+// backward (#13), from the forward's fp32 log-sum-exp lse and delta =
+// rowsum(g * O) (both [B, H, Nq]).  The fused kernel #9 has its own
+// Hopper design in flash_bwd_fused_sm90.cu.
 //
 // Replaces: sfc_vit_tpu/ops/flash_attention.py::_dq_kernel (lines
-// 440-479), ::_dkv_kernel (lines 482-530) and ::_fused_bwd_kernel (lines
-// 317-373).  The arithmetic of all three: s = q . k^T * scale in fp32,
-// keys at or past nk give p = 0, p = exp(s - lse), dp = g . v^T in fp32
-// (bf16 operands, exact products), ds = p * (dp - delta) * scale; then
-// dq = sum over keys of ds . k, dk = sum over queries of ds^T . q and
-// dv = sum over queries of p^T . g, each an fp32 sum rounded once to
-// bf16 (#9's dq: an fp32 buffer the caller rounds).  Like the TPU
-// kernels, p and ds stay fp32: they enter the tensor-core products as a
-// two-term bf16 split, p = hi + lo (sfc::split_bf16), two bf16 products
-// summed in fp32 (about 16 bits of mantissa, against 10 for TF32 at half
-// the bf16 rate).  #9 departs from the TPU's _fused_bwd_kernel in two
-// places, both at the level of fp32 or bf16 ulps: p = exp(s - lse) from
-// the forward's lse where the TPU kernel divides by its own row sum, and
-// delta = rowsum(g * O) over the bf16 output where it takes
-// rowsum(dp * p) in fp32.  Its dq is summed with fp32 atomics, in an
-// order that changes from run to run.
+// 440-479) and ::_dkv_kernel (lines 482-530).  The arithmetic of both:
+// s = q . k^T * scale in fp32, keys at or past nk give p = 0, p = exp(s -
+// lse), dp = g . v^T in fp32 (bf16 operands, exact products), ds = p *
+// (dp - delta) * scale; then dq = sum over keys of ds . k, dk = sum over
+// queries of ds^T . q and dv = sum over queries of p^T . g, each an fp32
+// sum rounded once to bf16.  Like the TPU kernels, p and ds stay fp32:
+// they enter the tensor-core products as a two-term bf16 split, p = hi +
+// lo (sfc::split_bf16), two bf16 products summed in fp32 (about 16 bits
+// of mantissa, against 10 for TF32 at half the bf16 rate).
 //
 // Bound on this card: one (b, h) at N = 16,384 is 6 (dQ) + 8 (dK/dV)
 // = 14 x 16384^2 x 64 = 240 GFLOP nominal (the TPU kernels' cost
@@ -37,11 +31,6 @@
 //    s^T = K . Q^T and dp^T = V . G^T, so each warp owns 16 keys (K and V
 //    in fragments, dk and dv in accumulators) and nothing is shared
 //    between blocks.
-//  * fused (#9): #11's loop; after each query tile every warp's ds^T
-//    rows together hold the block's 64 x 64 ds^T, which a col-major A
-//    operand reads as ds; each warp forms dq for 16 of the tile's queries
-//    (ds . K) and adds it to the fp32 dq buffer with atomics.  The logits
-//    are computed once per (query, key) pair, as the TPU kernel intends.
 //  * curve-local (#13, replaces sfc_vit_tpu/ops/local_attention.py::
 //    _bwd_kernel, lines 198-299; launcher _local_bwd, lines 305-377):
 //    the dQ and dK/dV loops limited to the window (kWindow), as the two
@@ -59,7 +48,7 @@
 //    it, barely; the kernel executes 20 x 64 flops a (query, key) pair,
 //    as the dQ half recomputes s and dp and the split doubles the four
 //    fp32-operand products.
-// Shared memory at Dh 64: 88 KB (dQ), 106 KB (dK/dV, fused and local).
+// Shared memory at Dh 64: 88 KB (dQ), 106 KB (dK/dV and local).
 
 #include <mma.h>
 
@@ -107,7 +96,7 @@ struct DkvSmem {
   bf16 g[BT * Dims<DH>::LDH];
   bf16 pt_hi[kWarps * 16 * LDP];  // each warp's 16 rows of p^T (keys x queries)
   bf16 pt_lo[kWarps * 16 * LDP];
-  bf16 dst_hi[kWarps * 16 * LDP];  // ds^T; the four warps' rows make the block's 64 x 64
+  bf16 dst_hi[kWarps * 16 * LDP];  // each warp's 16 rows of ds^T
   bf16 dst_lo[kWarps * 16 * LDP];
   float s[kWarps * 16 * Dims<DH>::LDS];
   float dp[kWarps * 16 * Dims<DH>::LDS];
@@ -188,7 +177,6 @@ __device__ __forceinline__ void store_rows(FragC (&acc)[DH / 16], float* stage, 
 struct Args {
   const bf16 *q, *k, *v, *g;
   const float *lse, *delta;
-  float* dq32;       // fused: fp32 [B, nq, H, DH], accumulated with atomics
   bf16 *dq, *dk, *dv;
   int heads, nq, nk;
   int block, halo;  // local only: the curve block and the window's halo
@@ -273,10 +261,9 @@ __device__ __forceinline__ void dq_tile(const Args& a, unsigned char* dyn) {
 }
 
 // dk, dv of the 64 keys at blockIdx.x over the queries that see them
-// (#11; with kFused, #9; with kWindow, #13's dK/dV half).
-template <int DH, bool kFused, bool kWindow>
+// (#11; with kWindow, #13's dK/dV half).
+template <int DH, bool kWindow>
 __device__ __forceinline__ void dkv_tile(const Args& a, unsigned char* dyn) {
-  static_assert(!(kFused && kWindow), "the window takes the two-half form");
   constexpr int LDH = Dims<DH>::LDH, LDS = Dims<DH>::LDS;
   DkvSmem<DH>& sm = *reinterpret_cast<DkvSmem<DH>*>(dyn);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -338,40 +325,7 @@ __device__ __forceinline__ void dkv_tile(const Args& a, unsigned char* dyn) {
       sfc::split_bf16(p * (dp_w[r * LDS + c] - sm.delta[c]) * a.scale, dsh_w[r * LDP + c],
                       dsl_w[r * LDP + c]);
     }
-    if constexpr (kFused) {
-      __syncthreads();  // every warp's ds^T rows: the block's 64 keys x 64 queries
-      // dq of queries q0 + 16 warp .. += ds . K: ds (queries x keys) is
-      // ds^T read as a col-major A operand.
-      FragC dq[DH / 16];
-#pragma unroll
-      for (int j = 0; j < DH / 16; ++j) wmma::fill_fragment(dq[j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < BT / 16; ++kk) {
-        FragACol ah, al;
-        wmma::load_matrix_sync(ah, &sm.dst_hi[(kk * 16) * LDP + warp * 16], LDP);
-        wmma::load_matrix_sync(al, &sm.dst_lo[(kk * 16) * LDP + warp * 16], LDP);
-#pragma unroll
-        for (int j = 0; j < DH / 16; ++j) {
-          FragBRow bf;
-          wmma::load_matrix_sync(bf, &sm.k[(kk * 16) * LDH + j * 16], LDH);
-          wmma::mma_sync(dq[j], ah, bf, dq[j]);
-          wmma::mma_sync(dq[j], al, bf, dq[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < DH / 16; ++j)
-        wmma::store_matrix_sync(s_w + j * 16, dq[j], LDS, wmma::mem_row_major);
-      __syncwarp();
-      const int row = q0 + warp * 16 + r;
-      if (row < a.nq) {
-        float* dst = a.dq32 + ((static_cast<long long>(b) * a.nq + row) * a.heads + h) * DH;
-#pragma unroll 8
-        for (int c = half * (DH / 2); c < (half + 1) * (DH / 2); ++c)
-          atomicAdd(dst + c, s_w[r * LDS + c]);
-      }
-    } else {
-      __syncwarp();
-    }
+    __syncwarp();
     accumulate_split<DH>(dv, pth_w, ptl_w, sm.g);  // dv += p^T . g
     accumulate_split<DH>(dk, dsh_w, dsl_w, sm.q);  // dk += ds^T . q
     __syncthreads();  // q, g, lse, delta and ds^T are overwritten next
@@ -386,10 +340,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
   dq_tile<DH, false>(a, dyn);
 }
 
-template <int DH, bool kFused>
+template <int DH>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char dyn[];
-  dkv_tile<DH, kFused, false>(a, dyn);
+  dkv_tile<DH, false>(a, dyn);
 }
 
 template <int DH>
@@ -398,7 +352,7 @@ __global__ void __launch_bounds__(kThreads) local_bwd_kernel(const Args a) {
   if (blockIdx.z == 0)
     dq_tile<DH, true>(a, dyn);
   else
-    dkv_tile<DH, false, true>(a, dyn);
+    dkv_tile<DH, true>(a, dyn);
 }
 
 template <typename Kernel>
@@ -476,29 +430,7 @@ extern "C" int sfc_flash_dkv_bf16(const void* q, const void* k, const void* v, c
   Args a = make_args(q, k, v, g, lse, delta, heads, nq, nk, st, scale);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
-  return static_cast<int>(launch(flash_dkv_kernel<64, false>,
-                                 static_cast<int>(sizeof(DkvSmem<64>)), (nk + BT - 1) / BT,
-                                 batch * heads, static_cast<cudaStream_t>(stream), a));
-}
-
-// #9: dq32 fp32 [batch, nq, heads, dh], zeroed by the caller and summed
-// into with atomics; dk, dv bf16 [batch, nk, heads, dh].
-extern "C" int sfc_flash_fused_bwd_bf16(const void* q, const void* k, const void* v,
-                                        const void* g, const void* lse, const void* delta,
-                                        void* dq32, void* dk, void* dv, int batch, int heads,
-                                        int nq, int nk, int dh, long long qsb, long long qsn,
-                                        long long qsh, long long ksb, long long ksn,
-                                        long long ksh, long long vsb, long long vsn,
-                                        long long vsh, long long gsb, long long gsn,
-                                        long long gsh, float scale, void* stream) {
-  if (bad(batch, heads, nq, nk, dh)) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0) return 0;
-  const long long st[12] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh};
-  Args a = make_args(q, k, v, g, lse, delta, heads, nq, nk, st, scale);
-  a.dq32 = static_cast<float*>(dq32);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
-  return static_cast<int>(launch(flash_dkv_kernel<64, true>,
+  return static_cast<int>(launch(flash_dkv_kernel<64>,
                                  static_cast<int>(sizeof(DkvSmem<64>)), (nk + BT - 1) / BT,
                                  batch * heads, static_cast<cudaStream_t>(stream), a));
 }

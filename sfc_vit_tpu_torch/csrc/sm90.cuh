@@ -1,0 +1,328 @@
+// Hopper (sm_90a) building blocks of the redesigned flash kernels: TMA
+// tensor maps built on the host, TMA loads and reduce-adds, mbarriers, and
+// warpgroup matrix multiplies (wgmma) on 128-byte-swizzled shared tiles.
+//
+// Shared tiles are bf16 rows of 64 elements (128 bytes), as TMA writes
+// them with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r sits
+// at chunk c ^ (r % 8), and every tile starts on 1,024 bytes.  Such a
+// tile is both operand layouts wgmma reads:
+//  * K-major (the contraction runs along the row): a k16 step is 32 bytes
+//    further along the row, 8-row groups 1,024 bytes apart;
+//  * MN-major (the transpose bit; the contraction runs down the rows): a
+//    k16 step is 16 rows = 2,048 bytes further, the two 8-row groups of the
+//    step 1,024 bytes apart, and the 64 row elements are one swizzle atom.
+// Accumulators of m64nN follow PTX's layout: thread t of the warpgroup
+// holds rows 16 (t / 32) + (t % 32) / 4 and that + 8, columns
+// 8 j + 2 (t % 4) + {0, 1} for j < N / 8, as d[4 j + {0, 1}] (first row)
+// and d[4 j + {2, 3}] (second row).  The A fragment of one k16 step from
+// registers is the same map over 16 columns, so an m64nN accumulator
+// rounded to bf16 pairs is the A operand of the next product.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace sfc {
+namespace sm90 {
+
+// ---------------------------------------------------------------- host
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [B, N, H, 64] bf16 tensor read through its (batch, row, head) element
+// strides, as a 4-d map (dh, head, row, batch) whose box is `rows` rows of
+// one (batch, head), 128-byte swizzled.  Rows past n read as zero.
+inline cudaError_t map_bnhd(CUtensorMap* m, const void* base, int batch, int n, int heads,
+                            long long sb, long long sn, long long sh, int rows) {
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)heads, (cuuint64_t)n, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A contiguous fp32 [B, N, H, 64] tensor as a 4-d map whose box is `rows`
+// rows x 32 columns of one (batch, head), 128-byte swizzled: the target of
+// a reduce-add (two boxes per 64 columns).  Rows past n are not written.
+inline cudaError_t map_bnhd_f32(CUtensorMap* m, void* base, int batch, int n, int heads,
+                                int rows) {
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)heads, (cuuint64_t)n, (cuuint64_t)batch};
+  const cuuint64_t row = 64 * 4;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * n};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A flat fp32 vector of `count` elements whose box is `rows` elements (the
+// lse and delta rows [B, H, N]); elements past count read as zero.
+inline cudaError_t map_f32_rows(CUtensorMap* m, const void* base, long long count, int rows) {
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[1] = {(cuuint64_t)count};
+  const cuuint64_t strides[1] = {(cuuint64_t)count * 4};  // rank 1: none is read
+  const cuuint32_t box[1] = {(cuuint32_t)rows};
+  const cuuint32_t unit[1] = {1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// What the compiler gave a kernel: out[0] registers a thread, out[1]
+// local memory a thread (spills and stack), out[2] shared memory a block
+// (the dynamic `dyn_smem` and any static).
+template <typename Kernel>
+inline int kernel_attrs(Kernel kernel, int dyn_smem, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = dyn_smem + static_cast<int>(a.sharedSizeBytes);
+  return 0;
+}
+
+// -------------------------------------------------------------- device
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Spin until the barrier's phase with this parity has completed.  A phase
+// that never completes (a fault in the kernel) traps after ~2^30 polls
+// rather than hanging the card.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 30)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0, c1, c2, c3) of a 4-d map into shared memory,
+// completing `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load1(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
+      : "memory");
+}
+
+// TMA: add the shared box to the global box at (c0, c1, c2, c3), fp32,
+// as one bulk operation of the current bulk group.
+__device__ __forceinline__ void tma_reduce_add4(const CUtensorMap* map, const void* src, int c0,
+                                                int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until every committed bulk operation has finished reading shared
+// memory (the source may be overwritten).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma operands, TMA sources).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier over `threads` threads with its own id (1..15; 0 is
+// __syncthreads').
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled tile at `p` (see the header):
+// stride between 8-row groups 1,024 bytes, the leading offset unused by a
+// single swizzle atom.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders the compiler's uses of accumulator registers around wgmma's
+// asynchronous writes (CUTLASS's warpgroup_fence_operand).
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for A fragments held in registers (k16 steps of four bf16
+// pairs), which wgmma reads asynchronously too.
+template <int R>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+#define SFC_WGMMA_D32                                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+#define SFC_WGMMA_REGS32                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (m64n64, fp32) = A . B (+ d when accumulate): both operands from shared
+// memory; kTransA / kTransB read them MN-major.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SFC_WGMMA_REGS32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : SFC_WGMMA_D32
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d (m64n64, fp32) += A . B with A's k16 slice from registers (four bf16
+// pairs in the accumulator's layout) and B from shared memory.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SFC_WGMMA_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : SFC_WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(kTransB));
+}
+
+#undef SFC_WGMMA_D32
+#undef SFC_WGMMA_REGS32
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The A fragment of k16 step kk from an m64nN fp32 accumulator rounded to
+// bf16 (the columns 16 kk .. 16 kk + 15 of the accumulator's rows).
+template <int R>
+__device__ __forceinline__ void acc_to_a(const float (&d)[R], int kk, uint32_t (&a)[4]) {
+  a[0] = pack_bf16x2(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16x2(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16x2(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16x2(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// 2^x (ex2.approx: ~2 ulp; 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Byte offset of element (row, col) of a bf16 tile of 64-element rows,
+// 128-byte swizzled (the layout TMA writes).
+__device__ __forceinline__ int sw128_bf16(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// Byte offset of element (row, col) of an fp32 tile of 32-element rows,
+// 128-byte swizzled.
+__device__ __forceinline__ int sw128_f32(int row, int col) {
+  return row * 128 + ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
+}
+
+}  // namespace sm90
+}  // namespace sfc

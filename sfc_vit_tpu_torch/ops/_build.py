@@ -19,7 +19,7 @@ nothing runs without the kernels.
 The launchers below (``ln_rows``, ``ln_rows_bwd``, ``gemm``,
 ``act_bf16``, ``colsum``, ``attention_fwd``, ``attention_bwd``,
 ``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``, ``flash_dkv``,
-``local_fwd``, ``local_bwd``, ``gather_project``) check
+``local_fwd``, ``local_bwd``, ``gather_project``, ``wgmma_probe``) check
 device, dtype, shape, contiguity (or, for the flash kernels, strides) and
 alignment, allocate their outputs with
 ``torch.empty`` (``torch.zeros`` for sums the kernels accumulate into),
@@ -43,8 +43,9 @@ import torch
 __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "act_bf16", "colsum", "attention_fwd", "attention_bwd",
            "ATTENTION_HEAD_DIMS", "flash_fwd", "flash_fused_bwd", "flash_dq",
-           "flash_dkv", "FLASH_HEAD_DIMS", "local_fwd", "local_bwd",
-           "gather_project"]
+           "flash_dkv", "FLASH_HEAD_DIMS", "FLASH_STREAM_BLOCK_K", "local_fwd",
+           "local_bwd", "gather_project", "wgmma_probe", "WGMMA_FORMS",
+           "flash_kernel_attrs"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sfc_vit_tpu_torch"
@@ -89,6 +90,11 @@ _SIGNATURES = {
     "sfc_local_bwd_bf16": (_P,) * 9 + (_I,) * 6 + (_L,) * 12 + (_F, _P),
     # x, lut, w, bias, out; batch, n, k, m, group, d; stream
     "sfc_gather_project_bf16": (_P,) * 5 + (_I,) * 6 + (_P,),
+    # a, b, d; form; stream
+    "sfc_wgmma_probe_bf16": (_P, _P, _P, _I, _P),
+    # streaming, out[3] | out[3]
+    "sfc_flash_fwd_attrs": (_I, _P),
+    "sfc_flash_fused_bwd_attrs": (_P,),
 }
 
 #: Head dims the attention kernels are instantiated for: ViT-B's 64 and
@@ -97,6 +103,10 @@ ATTENTION_HEAD_DIMS = (64, 192)
 #: Head dims the flash kernels (#8-#11) are instantiated for: the
 #: long-context presets' 64.
 FLASH_HEAD_DIMS = (64,)
+#: Keys per tile of #8's streaming form (``csrc/flash_fwd_sm90.cu``'s BK):
+#: the running max that p is rounded against moves every this many keys,
+#: JAX's ``_flash_fwd`` formula at ``block_k = FLASH_STREAM_BLOCK_K``.
+FLASH_STREAM_BLOCK_K = 128
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -435,7 +445,9 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
 
 def _require_bnhd(t: torch.Tensor, name: str, shape) -> None:
     """A bf16 CUDA [B, N, H, Dh] tensor, any strides whose rows start on
-    16 bytes (unit stride along Dh): the views of a packed projection."""
+    16 bytes (unit stride along Dh): the views of a packed projection.
+    These are TMA's rules for #8 and #9's tensor maps too (base address
+    on 16 bytes, every stride a multiple of 16 bytes)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.bfloat16:
@@ -518,7 +530,7 @@ def flash_dkv(q, k, v, g, lse, delta, scale: float):
 def flash_fused_bwd(q, k, v, g, lse, delta, scale: float):
     """#9: ``(dq, dk, dv)`` in one kernel, one block per key tile: dk, dv
     bf16 as :func:`flash_dkv`; dq fp32 [B, Nq, H, Dh], summed over the
-    key tiles with atomics (the caller rounds it)."""
+    key tiles by TMA bulk reduce-adds (the caller rounds it)."""
     b, nq, nk, h, dh = _check_flash(q, k, v, g, lse, delta)
     dq = torch.zeros((b, nq, h, dh), dtype=torch.float32, device=q.device)
     dk = torch.empty((b, nk, h, dh), dtype=k.dtype, device=q.device)
@@ -600,4 +612,42 @@ def gather_project(x: torch.Tensor, lut: torch.Tensor, w: torch.Tensor,
     _check(library().sfc_gather_project_bf16(
         x.data_ptr(), lut.data_ptr(), w.data_ptr(), _ptr(bias), out.data_ptr(),
         bsz, n, k, m, group, d, _stream()), "gather_project")
+    return out
+
+
+#: The operand forms of :func:`wgmma_probe` (``csrc/wgmma_probe.cu``).
+WGMMA_FORMS = ("ss", "rs", "ss_trans_b", "rs_trans_b", "ss_trans_ab")
+
+
+def wgmma_probe(a: torch.Tensor, b: torch.Tensor, form: str) -> torch.Tensor:
+    """One m64n64 ``wgmma`` product over a depth of 64 in operand form
+    ``form`` (:data:`WGMMA_FORMS`): fp32 [64, 64] = A @ B from bf16 ``a``
+    and ``b`` [64, 64] stored as the form reads them: A as [M, K] (``ss``,
+    ``rs``, ``ss_trans_b``, ``rs_trans_b``) or [K, M] (``ss_trans_ab``), B
+    as [N, K] (``ss``, ``rs``) or [K, N] (the ``trans_b`` forms).  A test
+    of the flash kernels' descriptors and swizzle; on no model's path."""
+    if form not in WGMMA_FORMS:
+        raise ValueError(f"wgmma_probe: form {form!r} not in {WGMMA_FORMS}")
+    _require(a, "a", (64, 64))
+    _require(b, "b", (64, 64))
+    d = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    _check(library().sfc_wgmma_probe_bf16(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                                          WGMMA_FORMS.index(form), _stream()),
+           "wgmma_probe")
+    return d
+
+
+def flash_kernel_attrs() -> dict:
+    """What the compiler gave #8's two forms and #9 (``cudaFuncGetAttributes``):
+    ``{name: {"registers", "local_bytes", "smem_bytes"}}``, local bytes
+    being spills and stack a thread, shared bytes a block."""
+    lib = library()
+    out = {}
+    for name, call in (
+            ("flash_fwd streaming", lambda a: lib.sfc_flash_fwd_attrs(1, a)),
+            ("flash_fwd single step", lambda a: lib.sfc_flash_fwd_attrs(0, a)),
+            ("flash_fused_bwd", lib.sfc_flash_fused_bwd_attrs)):
+        vals = (ctypes.c_int * 3)()
+        _check(call(ctypes.cast(vals, ctypes.c_void_p)), f"attributes of {name}")
+        out[name] = dict(zip(("registers", "local_bytes", "smem_bytes"), vals))
     return out

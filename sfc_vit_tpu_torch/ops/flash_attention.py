@@ -8,28 +8,29 @@ Counterpart of ``sfc_vit_tpu/ops/flash_attention.py``.
 (Nq != Nk allowed).  The TPU kernels it replaces and their Hopper
 counterparts, all CUDA C++ for sm_90a:
 
-  * #8 ``_fwd_kernel`` -> ``csrc/flash_fwd.cu`` (:func:`flash_fwd`).  Its
-    two formulas follow the key length, as JAX's do: while
-    ``round_up(nk, 128) <= SINGLE_KSTEP_MAX`` a single K step (fp32
-    logits x scale, the row's max and sum, ``P = p / l`` rounded to the
-    input dtype, then an fp32 P.V); past it the streaming form (``p =
-    exp(s - m_running)`` rounded *unnormalised*, the fp32 accumulator
-    rescaled by ``alpha``, the division by ``l`` at the end).  The kernel
-    streams 64-key tiles, so its running max moves per 64 keys where the
-    TPU's moved per 1,024: the same formula, rounded against a different
-    running max.  It also writes the fp32 log-sum-exp when autograd needs
-    it.
-  * #9 ``_fused_bwd_kernel`` -> ``csrc/flash_bwd.cu``
-    (:func:`flash_fused_bwd`), taken while
+  * #8 ``_fwd_kernel`` -> ``csrc/flash_fwd_sm90.cu`` (:func:`flash_fwd`;
+    Hopper's ``wgmma`` products on tiles a TMA/mbarrier ring brings, the
+    softmax in registers).  Its two formulas follow the key length, as
+    JAX's do: while ``round_up(nk, 128) <= SINGLE_KSTEP_MAX`` a single K
+    step (fp32 logits x scale, the row's max and sum, ``P = p / l``
+    rounded to the input dtype, then an fp32 P.V); past it the streaming
+    form (``p = exp(s - m_running)`` rounded *unnormalised*, the fp32
+    accumulator rescaled by ``alpha``, the division by ``l`` at the end).
+    The kernel streams ``_build.FLASH_STREAM_BLOCK_K`` (128) keys a tile,
+    so its running max moves per 128 keys where the TPU's moved per
+    1,024: JAX's formula at ``block_k`` 128.  It also writes the fp32
+    log-sum-exp when autograd needs it.
+  * #9 ``_fused_bwd_kernel`` -> ``csrc/flash_bwd_fused_sm90.cu``
+    (:func:`flash_fused_bwd`; ``wgmma`` and TMA as #8), taken while
     ``round_up(max(nq, nk), 128) <= FUSED_BWD_MAX``.  The TPU kernel
     carries dK and dV across its sequential grid; Hopper blocks run in no
     order, so one block per key tile loops over the query tiles for dK
-    and dV and adds dQ into an fp32 buffer with atomics, computing the
-    logits once.  It takes the forward's lse in place of the in-kernel row
-    sum and ``delta = rowsum(g * O)`` over the bf16 output in place of
-    ``rowsum(p * dp)``: fp32- and bf16-ulp departures from JAX's
-    arithmetic, and the atomics make dQ's summation order change from run
-    to run.
+    and dV and adds dQ into an fp32 buffer by TMA bulk reduce-adds,
+    computing the logits once.  It takes the forward's lse in place of
+    the in-kernel row sum and ``delta = rowsum(g * O)`` over the bf16
+    output in place of ``rowsum(p * dp)``: fp32- and bf16-ulp departures
+    from JAX's arithmetic, and the reduce-adds make dQ's summation order
+    change from run to run.
   * #10 ``_dq_kernel`` and #11 ``_dkv_kernel`` -> ``csrc/flash_bwd.cu``
     (:func:`flash_dq`, :func:`flash_dkv`) past ``FUSED_BWD_MAX``, from the
     forward's lse and ``delta = rowsum(g * O)`` over the bf16 output O

@@ -9,7 +9,7 @@ the query in the image, which is the whole point of the curve layout.
 The TPU kernels it replaces and their Hopper counterparts, CUDA C++ for
 sm_90a:
 
-  * #12 ``_kernel`` -> ``csrc/flash_fwd.cu``, the windowed form of the
+  * #12 ``_kernel`` -> ``csrc/local_fwd.cu``, the windowed form of the
     flash forward's single K step (:func:`local_fwd`): fp32
     logits times scale over the query's whole window, the row's max and
     sum, ``P = p / l`` normalised in fp32 and *then* rounded to the input

@@ -3,7 +3,8 @@ Pallas kernels #8-#11 in interpret mode.
 
 ``flash_fwd_ref``, ``flash_fused_bwd_ref``, ``flash_dq_ref`` and
 ``flash_dkv_ref`` (the plain versions of the CUDA kernels in
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``) are held against
+``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_fused_sm90.cu`` and
+``csrc/flash_bwd.cu``) are held against
 ``_flash_fwd``, ``_fused_bwd`` and ``_streaming_bwd`` at small lengths
 (~300 tokens) with 128-row blocks forced, as ``tests/test_ops.py`` runs
 them, and the port's ``flash_attention`` autograd route against
@@ -19,6 +20,7 @@ import torch
 
 import sfc_vit_tpu.ops.flash_attention as jfa
 import sfc_vit_tpu_torch.ops.flash_attention as fa
+from sfc_vit_tpu_torch.ops import _build
 
 # fp32: the same arithmetic summed in another order.
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -78,6 +80,24 @@ def test_flash_fwd_ref_matches_pallas_bf16(streaming):
     to = fa.flash_fwd_ref(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
                           _t(v, torch.bfloat16), scale, block_q=128, block_k=block_k)
     assert to.dtype == torch.bfloat16
+    np.testing.assert_allclose(to.float().numpy(),
+                               np.asarray(jo.astype(jnp.float32)), **BF16_TOL)
+
+
+def test_stream_block_k_is_a_width_jax_runs():
+    """#8's streaming key tile (``_build.FLASH_STREAM_BLOCK_K``, the width
+    the kernel rounds p against its running max at) is a width JAX's
+    ``_flash_fwd`` runs: the plain version at that width against the
+    Pallas kernel in interpret mode, bf16, over three key tiles."""
+    bk = _build.FLASH_STREAM_BLOCK_K
+    assert bk % 128 == 0
+    q, k, v, _ = _inputs(5, 300, 2 * bk + 44)
+    scale = DH ** -0.5
+    jo = jfa._flash_fwd(_j(q, jnp.bfloat16), _j(k, jnp.bfloat16),
+                        _j(v, jnp.bfloat16), scale, block_q=128, block_k=bk,
+                        interpret=True)
+    to = fa.flash_fwd_ref(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
+                          _t(v, torch.bfloat16), scale, block_q=128, block_k=bk)
     np.testing.assert_allclose(to.float().numpy(),
                                np.asarray(jo.astype(jnp.float32)), **BF16_TOL)
 

@@ -634,25 +634,57 @@ def _within(got, want, frac, name=""):
     assert err <= frac * scale, f"{name}: max abs err {err} > {frac} x {scale}"
 
 
+# Ragged lengths that differ (nq, nk not multiples of 128), views of a
+# packed projection, and one wave: batch x heads x tiles under the 132 SMs
+# with 32 key tiles and 64 query tiles a block.
 _FLASH_SHAPES = [(2, 300, 300, 3, False), (1, 200, 333, 2, False),
-                 (2, 1000, 777, 2, False), (2, 520, 520, 3, True)]
+                 (2, 1000, 777, 2, False), (2, 520, 520, 3, True),
+                 (1, 1100, 1300, 3, False), (2, 1300, 1300, 3, True),
+                 (1, 4096, 4096, 1, True)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("streaming", [True, False])
 @pytest.mark.parametrize("b, nq, nk, heads, packed", _FLASH_SHAPES)
 def test_flash_fwd_matches_plain(cuda, streaming, b, nq, nk, heads, packed):
-    """#8 in both forms, against its plain version at the kernel's 64-key
-    steps (streaming) or one step; the lse against fp64."""
+    """#8 in both forms, against its plain version at the kernel's key
+    tile (streaming, ``_build.FLASH_STREAM_BLOCK_K``) or one step; the lse
+    against fp64."""
     from sfc_vit_tpu_torch.ops import flash_attention as fa
 
     q, k, v, _ = _flash_qkv(np.random.default_rng(30), b, nq, nk, heads, cuda, packed)
     s = 64 ** -0.5
     out, lse = _build.flash_fwd(q, k, v, s, streaming=streaming, with_lse=True)
-    want = fa.flash_fwd_ref(q, k, v, s, block_k=64 if streaming else nk)
+    want = fa.flash_fwd_ref(q, k, v, s,
+                            block_k=_build.FLASH_STREAM_BLOCK_K if streaming else nk)
     torch.testing.assert_close(out.float(), want.float(), **ONE_ROUND_TOL)
     torch.testing.assert_close(lse.double(), _lse64(q, k, s), rtol=1e-5, atol=1e-5)
     assert torch.equal(_build.flash_fwd(q, k, v, s, streaming=streaming), out)
+
+
+def test_wgmma_probe_rejects_what_it_does_not_take():
+    a = torch.zeros(64, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="form"):
+        _build.wgmma_probe(a, a, "rr")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _build.wgmma_probe(a, a, "ss")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", _build.WGMMA_FORMS)
+def test_wgmma_probe_matches_matmul(cuda, form):
+    """One m64n64 wgmma over a depth of 64 in each operand form #8 and #9
+    use (both operands K-major from swizzled shared memory, A from
+    registers, B and A through the transpose bit) against the fp32 product
+    of the same bf16 matrices: bf16 products are exact in fp32, so only
+    the summation order differs."""
+    rng = np.random.default_rng(40)
+    a = _randn(rng, 64, 64, device=cuda)  # A [M, K]
+    b = _randn(rng, 64, 64, device=cuda)  # B [K, N]
+    a_stored = a.t().contiguous() if form == "ss_trans_ab" else a
+    b_stored = b if form.endswith(("trans_b", "trans_ab")) else b.t().contiguous()
+    got = _build.wgmma_probe(a_stored, b_stored, form)
+    torch.testing.assert_close(got, a.float() @ b.float(), rtol=1e-5, atol=1e-3)
 
 
 @pytest.mark.gpu

@@ -2,7 +2,7 @@
 CurveViT against the JAX package on the CPU.
 
 ``local_fwd_ref`` and ``local_bwd_ref`` (the plain versions of the
-windowed kernels in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``) are
+windowed kernels in ``csrc/local_fwd.cu`` and ``csrc/flash_bwd.cu``) are
 held against JAX's
 ``_local_fwd`` / ``_local_bwd`` in interpret mode at ragged lengths (300
 and 520 tokens at block 128, halo 1; 40 at block 8, halo 2, where the
