@@ -14,8 +14,8 @@ Phases, each of which raises (non-zero exit) on failure:
 1. device: a CUDA device is present; prints its name and power limit;
 2. build: compiles the hand-written kernels (sfc_vit_tpu_torch/csrc)
    with nvcc and loads them; prints ptxas's registers and spills and the
-   runtime's registers and shared memory of the wgmma kernels #8 and #9,
-   and fails if either spills;
+   runtime's registers and shared memory of the wgmma kernels #8-#11,
+   and fails if any spills;
 3. kernels: each fused block against its plain PyTorch version at the
    ViT-B/16 serving shapes (x [64, 196, 768] bf16, 12 heads of 64,
    F = 3072), with its error, tolerance and time beside the plain one;
@@ -66,8 +66,9 @@ Phases, each of which raises (non-zero exit) on failure:
    kernel does more: #8's single step computes the logits twice, the
    backward kernels' two-term split doubles four products) and
    ``F.scaled_dot_product_attention`` (forward for #8 in both forms, its
-   autograd backward for #9-#11); #9 against #10 + #11 at 8,192 tokens,
-   the length JAX's ``_FUSED_BWD_MAX`` hard-codes.
+   autograd backward for #9-#11); #10 and #11 also timed at the ragged
+   case; #9 against #10 + #11 at 8,192 tokens, the length JAX's
+   ``_FUSED_BWD_MAX`` hard-codes.
 9. long-context slice: (a) ``build_model(preset_config("longctx-16k"))``
    (fp32 parameters, bf16 compute, token merge after layer 1):
    ``Trainer.fit`` for 4 steps at batch 2 on synthetic_dataset(hw=128,
@@ -335,7 +336,7 @@ def phase_build() -> None:
     for line in info["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
-    # The wgmma kernels #8 and #9 (ptxas's lines above) as the runtime sees
+    # The wgmma kernels #8-#11 (ptxas's lines above) as the runtime sees
     # them, with their dynamic shared memory.
     for name, attrs in _build.flash_kernel_attrs().items():
         print(f"  {name}: {attrs['registers']} registers, {attrs['local_bytes']} bytes "
@@ -668,8 +669,8 @@ _GEMM_LABELS = {"gemm_bf16_kernel<false, false>": "gemm_bf16 NN (forward)",
                 "flash_bwd_fused_sm90": "flash_bwd fused (#9)",
                 "local_fwd_kernel<64>": "local_fwd (#12)",
                 "local_bwd_kernel<64>": "local_bwd (#13)",
-                "flash_dkv_kernel<64>": "flash_dkv (#11)",
-                "flash_dq_kernel<64>": "flash_dq (#10)"}
+                "flash_bwd_dkv_sm90": "flash_dkv (#11)",
+                "flash_bwd_dq_sm90": "flash_dq (#10)"}
 
 
 def _kernel_label(name: str) -> str:
@@ -1199,6 +1200,17 @@ def phase_flash_kernels(card: str) -> dict:
                 ("dq (#9)", "dk (#9)", "dv (#9)"),
                 flash.flash_fused_bwd(q, k, v, out, lse, g, s),
                 flash.flash_fused_bwd_ref(q, k, v, g, s))]
+        work = b * h * nq * nk * 64
+        for what, fn, nominal, executed, counts in (
+                ("#10", lambda: flash.flash_dq(q, k, v, g, lse, delta, s), 6, 8, (3, 2, 2)),
+                ("#11", lambda: flash.flash_dkv(q, k, v, g, lse, delta, s), 8, 12, (2, 4, 2))):
+            ms = _ms(fn, iters=5)
+            bound = _bound(nominal * work, _flash_bytes(b, nq, nk, h, n_bf16_q=counts[0],
+                                                        n_bf16_k=counts[1],
+                                                        n_fp32_q=counts[2]))
+            print(f"  {what}: kernel {ms:.3f} ms ({_tflops(nominal * work, ms)} nominal, "
+                  f"{_tflops(executed * work, ms)} executed), bound {bound['bound_ms']:.3f} ms "
+                  f"({bound['bound_by']}), {card}")
         del q, k, v, g, out, lse, delta
 
         # #9 against #10 + #11 at JAX's _FUSED_BWD_MAX (8,192 tokens).
@@ -1945,16 +1957,16 @@ def main() -> int:
              source="sfc_vit_tpu_torch/csrc/flash_bwd_fused_sm90.cu",
              replaces="sfc_vit_tpu/ops/flash_attention.py:317"),
         dict(name="flash_attention_dq", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/flash_bwd.cu",
+             source="sfc_vit_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
              replaces="sfc_vit_tpu/ops/flash_attention.py:440"),
         dict(name="flash_attention_dkv", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/flash_bwd.cu",
+             source="sfc_vit_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
              replaces="sfc_vit_tpu/ops/flash_attention.py:482"),
         dict(name="local_block_attention", route="cuda",
              source="sfc_vit_tpu_torch/csrc/local_fwd.cu",
              replaces="sfc_vit_tpu/ops/local_attention.py:82"),
         dict(name="local_block_attention_bwd", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/flash_bwd.cu",
+             source="sfc_vit_tpu_torch/csrc/local_bwd.cu",
              replaces="sfc_vit_tpu/ops/local_attention.py:198"),
         dict(name="gather_project", route="cuda",
              source="sfc_vit_tpu_torch/csrc/gather_project.cu",

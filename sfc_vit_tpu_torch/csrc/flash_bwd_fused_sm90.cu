@@ -48,6 +48,11 @@ constexpr int kStages = 3;
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = kConsumerWarps * 32;
 constexpr int kQTileBytes = BQT * 128;
+// A tile's lse / delta rows: a box from its first query rounded down to
+// 16 bytes (hw::rows_start), into a slot of whole 128-byte lines.
+constexpr int kRowBox = BQT + hw::kRowsPad;
+constexpr int kRowSlot = 96;
+static_assert(kRowSlot >= kRowBox && kRowSlot % 32 == 0, "lse / delta slot");
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Smem {
@@ -58,8 +63,8 @@ struct Smem {
   unsigned char ds_hi[2][64 * 128];  // per warpgroup: ds^T, its 64 keys x 64 queries
   unsigned char ds_lo[2][64 * 128];
   unsigned char dq[2][2][64 * 128];  // per warpgroup: fp32 dq, 64 queries x two halves of 32
-  float lse[kStages][BQT];
-  float delta[kStages][BQT];
+  float lse[kStages][kRowSlot];
+  float delta[kStages][kRowSlot];
   uint64_t kv_full, full[kStages], empty[kStages];
 };
 constexpr int kSmemBytes = sizeof(Smem) + 1024;
@@ -71,27 +76,9 @@ struct Params {
   float scale, scale_log2;
 };
 
-__device__ __forceinline__ Smem& smem(unsigned char* dyn) {
-  const uint32_t pad = (1024 - (sfc::smem_addr(dyn) & 1023)) & 1023;
-  return *reinterpret_cast<Smem*>(dyn + pad);
-}
-
-// x = hi + lo as bf16 pairs in A-fragment order (see hw::acc_to_a).
-__device__ __forceinline__ void split_a(const float (&d)[32], int kk, uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float x0 = d[8 * kk + 2 * e], x1 = d[8 * kk + 2 * e + 1];
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    const float2 hf = __bfloat1622float2(h);
-    hi[e] = *reinterpret_cast<const uint32_t*>(&h);
-    lo[e] = hw::pack_bf16x2(x0 - hf.x, x1 - hf.y);
-  }
-}
-
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_fused_sm90(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) unsigned char dyn[];
-  Smem& sm = smem(dyn);
+  Smem& sm = hw::aligned_smem<Smem>(dyn);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int k0 = blockIdx.x * BKEYS, bh = blockIdx.y;
   const int b = bh / p.heads, h = bh % p.heads;
@@ -103,11 +90,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_fused_sm90(const __grid
   // three warps sharing one of the SM's four register files).
   auto load_tile = [&](int j) {
     const int slot = j % kStages;
-    hw::bar_expect_tx(&sm.full[slot], 2 * kQTileBytes + 2 * BQT * 4);
+    const int r0 = hw::rows_start(bh * p.nq + j * BQT);
+    hw::bar_expect_tx(&sm.full[slot], 2 * kQTileBytes + 2 * kRowBox * 4);
     hw::tma_load4(sm.q[slot], &p.q, &sm.full[slot], 0, h, j * BQT, b);
     hw::tma_load4(sm.g[slot], &p.g, &sm.full[slot], 0, h, j * BQT, b);
-    hw::tma_load1(sm.lse[slot], &p.lse, &sm.full[slot], bh * p.nq + j * BQT);
-    hw::tma_load1(sm.delta[slot], &p.delta, &sm.full[slot], bh * p.nq + j * BQT);
+    hw::tma_load1(sm.lse[slot], &p.lse, &sm.full[slot], r0);
+    hw::tma_load1(sm.delta[slot], &p.delta, &sm.full[slot], r0);
   };
   if (tid == 0) {
     hw::bar_init(&sm.kv_full, 1);
@@ -132,6 +120,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_fused_sm90(const __grid
   const int c0 = 2 * (lane % 4);
   const int key0 = k0 + wg * 64;
   const bool ragged_keys = key0 + 64 > p.nk;
+  // Query 0 of a tile in its lse / delta slot (tiles start on 64 queries).
+  const int row_off = bh * p.nq - hw::rows_start(bh * p.nq);
   const unsigned char* k_wg = sm.k + wg * 64 * 128;
   const unsigned char* v_wg = sm.v + wg * 64 * 128;
   const uint64_t kdesc = hw::desc_sw128(k_wg), vdesc = hw::desc_sw128(v_wg);
@@ -173,7 +163,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_fused_sm90(const __grid
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * jj + c0 + e;
-        const float lse2 = sm.lse[slot][c] * lse_scale, dl = sm.delta[slot][c];
+        const float lse2 = sm.lse[slot][row_off + c] * lse_scale;
+        const float dl = sm.delta[slot][row_off + c];
         const bool q_ok = !ragged_q || j * BQT + c < p.nq;
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
@@ -189,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_fused_sm90(const __grid
     // bit), and the warpgroup's shared tile for dQ.
     uint32_t dh[4][4], dlo[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) split_a(dpt, kk, dh[kk], dlo[kk]);
+    for (int kk = 0; kk < 4; ++kk) hw::split_a(dpt, kk, dh[kk], dlo[kk]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -214,7 +205,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_fused_sm90(const __grid
     // split formed while dK runs.
     uint32_t ph[4][4], pl[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) split_a(st, kk, ph[kk], pl[kk]);
+    for (int kk = 0; kk < 4; ++kk) hw::split_a(st, kk, ph[kk], pl[kk]);
     hw::fence_regs(dv);
     hw::wgmma_fence();
 #pragma unroll
@@ -314,8 +305,8 @@ extern "C" int sfc_flash_fused_bwd_bf16(const void* q, const void* k, const void
   if (e == cudaSuccess) e = hw::map_bnhd(&p.g, g, batch, nq, heads, gsb, gsn, gsh, BQT);
   if (e == cudaSuccess) e = hw::map_bnhd(&p.k, k, batch, nk, heads, ksb, ksn, ksh, BKEYS);
   if (e == cudaSuccess) e = hw::map_bnhd(&p.v, v, batch, nk, heads, vsb, vsn, vsh, BKEYS);
-  if (e == cudaSuccess) e = hw::map_f32_rows(&p.lse, lse, rows, BQT);
-  if (e == cudaSuccess) e = hw::map_f32_rows(&p.delta, delta, rows, BQT);
+  if (e == cudaSuccess) e = hw::map_f32_rows(&p.lse, lse, rows, kRowBox);
+  if (e == cudaSuccess) e = hw::map_f32_rows(&p.delta, delta, rows, kRowBox);
   if (e == cudaSuccess) e = hw::map_bnhd_f32(&p.dq, dq32, batch, nq, heads, BQT);
   if (e != cudaSuccess) return static_cast<int>(e);
   p.dk = static_cast<bf16*>(dk);

@@ -76,27 +76,12 @@ struct Params {
   float scale_log2;  // scale * log2(e)
 };
 
-// A ring of kStages slots: the slot and the parity of its current phase.
-struct Ring {
-  int slot = 0;
-  uint32_t phase = 0;
-  __device__ void next() {
-    if (++slot == kStages) {
-      slot = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-__device__ __forceinline__ Smem& smem(unsigned char* dyn) {
-  const uint32_t pad = (1024 - (sfc::smem_addr(dyn) & 1023)) & 1023;
-  return *reinterpret_cast<Smem*>(dyn + pad);
-}
+using Ring = hw::Ring<kStages>;
 
 template <bool kSingle>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) unsigned char dyn[];
-  Smem& sm = smem(dyn);
+  Smem& sm = hw::aligned_smem<Smem>(dyn);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * BQ, bh = blockIdx.y;
   const int b = bh / p.heads, h = bh % p.heads;

@@ -1,54 +1,40 @@
-// Flash attention backward on [B, N, H, Dh], head dim 64: the streaming
-// dQ kernel (#10), the streaming dK/dV kernel (#11) and the curve-local
-// backward (#13), from the forward's fp32 log-sum-exp lse and delta =
-// rowsum(g * O) (both [B, H, Nq]).  The fused kernel #9 has its own
-// Hopper design in flash_bwd_fused_sm90.cu.
+// Curve-local attention backward on [B, N, H, Dh] (kernel #13), head dim
+// 64, from the forward's fp32 log-sum-exp lse of each query's window and
+// delta = rowsum(g * O) (both [B, H, N]).
 //
-// Replaces: sfc_vit_tpu/ops/flash_attention.py::_dq_kernel (lines
-// 440-479) and ::_dkv_kernel (lines 482-530).  The arithmetic of both:
-// s = q . k^T * scale in fp32, keys at or past nk give p = 0, p = exp(s -
-// lse), dp = g . v^T in fp32 (bf16 operands, exact products), ds = p *
-// (dp - delta) * scale; then dq = sum over keys of ds . k, dk = sum over
-// queries of ds^T . q and dv = sum over queries of p^T . g, each an fp32
-// sum rounded once to bf16.  Like the TPU kernels, p and ds stay fp32:
-// they enter the tensor-core products as a two-term bf16 split, p = hi +
-// lo (sfc::split_bf16), two bf16 products summed in fp32 (about 16 bits
-// of mantissa, against 10 for TF32 at half the bf16 rate).
+// Replaces: sfc_vit_tpu/ops/local_attention.py::_bwd_kernel (lines
+// 198-299; launcher _local_bwd, lines 305-377).  Query i sees exactly the
+// keys j with |i / block - j / block| <= halo and j < N.  Over that window:
+// s = q . k^T * scale in fp32, p = exp(s - lse), dp = g . v^T in fp32
+// (bf16 operands, exact products), ds = p * (dp - delta) * scale; then dq
+// = sum over the key window of ds . k, dk = sum over the query-side window
+// of ds^T . q and dv = sum over it of p^T . g, each an fp32 sum rounded
+// once to bf16.  Like the TPU kernel, p and ds stay fp32: they enter the
+// tensor-core products as a two-term bf16 split, p = hi + lo
+// (sfc::split_bf16), two bf16 products summed in fp32 (about 16 bits of
+// mantissa, against 10 for TF32 at half the bf16 rate).  The TPU kernel
+// writes dk and dv in fp32 and its launcher casts them; here the same
+// fp32 sums are rounded once as they are stored.
 //
-// Bound on this card: one (b, h) at N = 16,384 is 6 (dQ) + 8 (dK/dV)
-// = 14 x 16384^2 x 64 = 240 GFLOP nominal (the TPU kernels' cost
-// estimate) on ~10 MB of operands: tensor-core bound.  The split doubles
-// the four fp32-operand products' tensor work.
-// Design: the TPU walked the (q tile, k tile) grid in order with VMEM
-// scratch; Hopper blocks run in no order, so each output is owned by one
-// block that loops over the other axis.  128 threads, four warps of 16
-// rows, 64-row tiles streamed through shared memory with cp.async
-// (zero-filled past the sequence ends), logits and dp tiles in fp32
-// shared memory where a lane pair owns a row.
-//  * dQ (#10): one block per (64-query tile, b * h); the warp's Q and G
-//    rows stay in WMMA fragments, its dq in accumulators over the keys.
-//  * dK/dV (#11): one block per (64-key tile, b * h), transposed:
-//    s^T = K . Q^T and dp^T = V . G^T, so each warp owns 16 keys (K and V
-//    in fragments, dk and dv in accumulators) and nothing is shared
-//    between blocks.
-//  * curve-local (#13, replaces sfc_vit_tpu/ops/local_attention.py::
-//    _bwd_kernel, lines 198-299; launcher _local_bwd, lines 305-377):
-//    the dQ and dK/dV loops limited to the window (kWindow), as the two
-//    halves of one grid (blockIdx.z 0: dq of a query tile over the key
-//    tiles of its window, |i / block - j / block| <= halo, j < N; 1: dk
-//    and dv of a key tile over the QUERY-side window, the 2 * halo + 1
-//    query blocks whose window holds it): scatter as gather, each output
-//    row written by one block, no atomics.  block is a multiple of 64, so
-//    a tile lies in one curve block and its window is whole tiles.  The
-//    TPU kernel writes dk and dv in fp32 and its launcher casts them; here
-//    the same fp32 sums are rounded once as they are stored.  At block
-//    128, halo 1 the nominal work (12 x 384 x 64 flops a row, the TPU
-//    kernel's estimate) is ~330 flops a byte of q, k, v, g, dq, dk, dv,
-//    lse and delta: just above the H100's ~295, so the tensor cores bound
-//    it, barely; the kernel executes 20 x 64 flops a (query, key) pair,
-//    as the dQ half recomputes s and dp and the split doubles the four
-//    fp32-operand products.
-// Shared memory at Dh 64: 88 KB (dQ), 106 KB (dK/dV and local).
+// Bound on this card: at block 128, halo 1 the nominal work (12 x 384 x
+// 64 flops a row, the TPU kernel's estimate) is ~330 flops a byte of q, k,
+// v, g, dq, dk, dv, lse and delta: just above the H100's ~295, so the
+// tensor cores bound it, barely; the kernel executes 20 x 64 flops a
+// (query, key) pair, as the dQ half recomputes s and dp and the split
+// doubles the four fp32-operand products.
+// Design: two halves of one grid (blockIdx.z 0: dq of a 64-query tile over
+// the key tiles of its window; 1: dk and dv of a 64-key tile over the
+// QUERY-side window, the 2 * halo + 1 query blocks whose window holds it):
+// scatter as gather, each output row written by one block, no atomics.
+// block is a multiple of 64, so a tile lies in one curve block and its
+// window is whole tiles.  128 threads, four warps of 16 rows, 64-row tiles
+// streamed through shared memory with cp.async (zero-filled past the
+// window), logits and dp tiles in fp32 shared memory where a lane pair
+// owns a row; the dQ half keeps the warp's Q and G rows in WMMA
+// fragments and its dq in accumulators, the dK/dV half its K and V rows
+// and dk, dv (s^T = K . Q^T, dp^T = V . G^T).  Shared memory at Dh 64:
+// 106 KB.  The streaming flash backward #10 / #11 has its own Hopper
+// design in flash_bwd_dq_sm90.cu and flash_bwd_dkv_sm90.cu.
 
 #include <mma.h>
 
@@ -65,7 +51,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int LDP = BT + 8;  // bf16 p / ds rows
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -179,26 +164,21 @@ struct Args {
   const float *lse, *delta;
   bf16 *dq, *dk, *dv;
   int heads, nq, nk;
-  int block, halo;  // local only: the curve block and the window's halo
+  int block, halo;  // the curve block and the window's halo
   long long qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh;
   float scale;
 };
 
 // The rows [lo, hi) of the other side (n rows in all) that the 64-row
-// tile at r0 meets: all of them, or the window of its curve block.
-template <bool kWindow>
+// tile at r0 meets: the window of its curve block.
 __device__ __forceinline__ void tile_range(const Args& a, int r0, int n, int& lo, int& hi) {
-  lo = 0;
-  hi = n;
-  if constexpr (kWindow) {
-    const int j = r0 / a.block;
-    lo = max(0, (j - a.halo) * a.block);
-    hi = min(n, (j + a.halo + 1) * a.block);
-  }
+  const int j = r0 / a.block;
+  lo = max(0, (j - a.halo) * a.block);
+  hi = min(n, (j + a.halo + 1) * a.block);
 }
 
-// dq of the 64 queries at blockIdx.x over their keys (#10; #13's dq half).
-template <int DH, bool kWindow>
+// dq of the 64 queries at blockIdx.x over the keys of their window.
+template <int DH>
 __device__ __forceinline__ void dq_tile(const Args& a, unsigned char* dyn) {
   constexpr int LDH = Dims<DH>::LDH, LDS = Dims<DH>::LDS;
   DqSmem<DH>& sm = *reinterpret_cast<DqSmem<DH>*>(dyn);
@@ -207,7 +187,7 @@ __device__ __forceinline__ void dq_tile(const Args& a, unsigned char* dyn) {
   const int q0 = blockIdx.x * BT, bh = blockIdx.y;
   const int b = bh / a.heads, h = bh % a.heads;
   int lo, hi;
-  tile_range<kWindow>(a, q0, a.nk, lo, hi);
+  tile_range(a, q0, a.nk, lo, hi);
   const bf16* kb = a.k + b * a.ksb + h * a.ksh;
   const bf16* vb = a.v + b * a.vsb + h * a.vsh;
 
@@ -260,9 +240,9 @@ __device__ __forceinline__ void dq_tile(const Args& a, unsigned char* dyn) {
   store_rows<DH>(dq, s_w, a.dq, b, h, a.heads, q0 + warp * 16, a.nq);
 }
 
-// dk, dv of the 64 keys at blockIdx.x over the queries that see them
-// (#11; with kWindow, #13's dK/dV half).
-template <int DH, bool kWindow>
+// dk, dv of the 64 keys at blockIdx.x over the query-side window: the
+// queries whose window holds them.
+template <int DH>
 __device__ __forceinline__ void dkv_tile(const Args& a, unsigned char* dyn) {
   constexpr int LDH = Dims<DH>::LDH, LDS = Dims<DH>::LDS;
   DkvSmem<DH>& sm = *reinterpret_cast<DkvSmem<DH>*>(dyn);
@@ -271,7 +251,7 @@ __device__ __forceinline__ void dkv_tile(const Args& a, unsigned char* dyn) {
   const int k0 = blockIdx.x * BT, bh = blockIdx.y;
   const int b = bh / a.heads, h = bh % a.heads;
   int lo, hi;
-  tile_range<kWindow>(a, k0, a.nq, lo, hi);
+  tile_range(a, k0, a.nq, lo, hi);
   const bf16* qb = a.q + b * a.qsb + h * a.qsh;
   const bf16* gb = a.g + b * a.gsb + h * a.gsh;
   const long long bhn = static_cast<long long>(bh) * a.nq;
@@ -334,110 +314,23 @@ __device__ __forceinline__ void dkv_tile(const Args& a, unsigned char* dyn) {
   store_rows<DH>(dv, s_w, a.dv, b, h, a.heads, k0 + warp * 16, a.nk);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
-  extern __shared__ __align__(128) unsigned char dyn[];
-  dq_tile<DH, false>(a, dyn);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
-  extern __shared__ __align__(128) unsigned char dyn[];
-  dkv_tile<DH, false>(a, dyn);
-}
-
+// The dQ half (blockIdx.z 0) and the dK/dV half (1) of one grid.
 template <int DH>
 __global__ void __launch_bounds__(kThreads) local_bwd_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char dyn[];
   if (blockIdx.z == 0)
-    dq_tile<DH, true>(a, dyn);
+    dq_tile<DH>(a, dyn);
   else
-    dkv_tile<DH, true>(a, dyn);
-}
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, int tiles, int bh, cudaStream_t s, const Args& a,
-                   int halves = 1) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3(tiles, bh, halves), kThreads, smem, s>>>(a);
-  return cudaGetLastError();
-}
-
-Args make_args(const void* q, const void* k, const void* v, const void* g, const void* lse,
-               const void* delta, int heads, int nq, int nk, const long long* st,
-               float scale) {
-  Args a{};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.g = static_cast<const bf16*>(g);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.heads = heads;
-  a.nq = nq;
-  a.nk = nk;
-  a.qsb = st[0], a.qsn = st[1], a.qsh = st[2];
-  a.ksb = st[3], a.ksn = st[4], a.ksh = st[5];
-  a.vsb = st[6], a.vsn = st[7], a.vsh = st[8];
-  a.gsb = st[9], a.gsn = st[10], a.gsh = st[11];
-  a.scale = scale;
-  return a;
-}
-
-bool bad(int batch, int heads, int nq, int nk, int dh) {
-  return dh != 64 || nq < 1 || nk < 1 || heads < 1 || batch < 0;
+    dkv_tile<DH>(a, dyn);
 }
 
 }  // namespace
 
-// Common arguments: q and g bf16 [batch, nq, heads, dh], k and v bf16
-// [batch, nk, heads, dh], each read through its (batch, row, head) strides
-// in elements (unit stride along dh, rows 16-byte aligned); lse and delta
-// fp32 [batch, heads, nq].  Outputs are contiguous [batch, n, heads, dh].
-// dh must be 64.
-
-// #10: dq bf16 [batch, nq, heads, dh].
-extern "C" int sfc_flash_dq_bf16(const void* q, const void* k, const void* v, const void* g,
-                                 const void* lse, const void* delta, void* dq, int batch,
-                                 int heads, int nq, int nk, int dh, long long qsb,
-                                 long long qsn, long long qsh, long long ksb, long long ksn,
-                                 long long ksh, long long vsb, long long vsn, long long vsh,
-                                 long long gsb, long long gsn, long long gsh, float scale,
-                                 void* stream) {
-  if (bad(batch, heads, nq, nk, dh)) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0) return 0;
-  const long long st[12] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh};
-  Args a = make_args(q, k, v, g, lse, delta, heads, nq, nk, st, scale);
-  a.dq = static_cast<bf16*>(dq);
-  return static_cast<int>(launch(flash_dq_kernel<64>, static_cast<int>(sizeof(DqSmem<64>)),
-                                 (nq + BT - 1) / BT, batch * heads,
-                                 static_cast<cudaStream_t>(stream), a));
-}
-
-// #11: dk, dv bf16 [batch, nk, heads, dh].
-extern "C" int sfc_flash_dkv_bf16(const void* q, const void* k, const void* v, const void* g,
-                                  const void* lse, const void* delta, void* dk, void* dv,
-                                  int batch, int heads, int nq, int nk, int dh, long long qsb,
-                                  long long qsn, long long qsh, long long ksb, long long ksn,
-                                  long long ksh, long long vsb, long long vsn, long long vsh,
-                                  long long gsb, long long gsn, long long gsh, float scale,
-                                  void* stream) {
-  if (bad(batch, heads, nq, nk, dh)) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0) return 0;
-  const long long st[12] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh};
-  Args a = make_args(q, k, v, g, lse, delta, heads, nq, nk, st, scale);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
-  return static_cast<int>(launch(flash_dkv_kernel<64>,
-                                 static_cast<int>(sizeof(DkvSmem<64>)), (nk + BT - 1) / BT,
-                                 batch * heads, static_cast<cudaStream_t>(stream), a));
-}
-
-// #13: q, k, v, g bf16 [batch, n, heads, dh] and lse, delta fp32 [batch,
-// heads, n] as above (nq = nk = n); dq, dk, dv bf16 [batch, n, heads, dh].
-// block a positive multiple of 64, halo >= 1.
+// q and g bf16 [batch, n, heads, dh], k and v bf16 [batch, n, heads, dh],
+// each read through its (batch, row, head) strides in elements (unit
+// stride along dh, rows 16-byte aligned); lse and delta fp32 [batch,
+// heads, n]; dq, dk, dv bf16 [batch, n, heads, dh] contiguous.  dh must be
+// 64, block a positive multiple of 64, halo >= 1.
 extern "C" int sfc_local_bwd_bf16(const void* q, const void* k, const void* v, const void* g,
                                   const void* lse, const void* delta, void* dq, void* dk,
                                   void* dv, int batch, int heads, int n, int dh, int block,
@@ -445,18 +338,34 @@ extern "C" int sfc_local_bwd_bf16(const void* q, const void* k, const void* v, c
                                   long long ksb, long long ksn, long long ksh, long long vsb,
                                   long long vsn, long long vsh, long long gsb, long long gsn,
                                   long long gsh, float scale, void* stream) {
-  if (bad(batch, heads, n, n, dh) || block < BT || block % BT || halo < 1)
+  if (dh != 64 || n < 1 || heads < 1 || batch < 0 || block < BT || block % BT || halo < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  const long long st[12] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh};
-  Args a = make_args(q, k, v, g, lse, delta, heads, n, n, st, scale);
+  Args a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.g = static_cast<const bf16*>(g);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
   a.dq = static_cast<bf16*>(dq);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
+  a.heads = heads;
+  a.nq = a.nk = n;
   a.block = block;
   a.halo = halo;
+  a.qsb = qsb, a.qsn = qsn, a.qsh = qsh;
+  a.ksb = ksb, a.ksn = ksn, a.ksh = ksh;
+  a.vsb = vsb, a.vsn = vsn, a.vsh = vsh;
+  a.gsb = gsb, a.gsn = gsn, a.gsh = gsh;
+  a.scale = scale;
   static_assert(sizeof(DkvSmem<64>) >= sizeof(DqSmem<64>), "one size for both halves");
-  return static_cast<int>(launch(local_bwd_kernel<64>, static_cast<int>(sizeof(DkvSmem<64>)),
-                                 (n + BT - 1) / BT, batch * heads,
-                                 static_cast<cudaStream_t>(stream), a, 2));
+  constexpr int smem = static_cast<int>(sizeof(DkvSmem<64>));
+  cudaError_t e = cudaFuncSetAttribute(local_bwd_kernel<64>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  local_bwd_kernel<64><<<dim3((n + BT - 1) / BT, batch * heads, 2), kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

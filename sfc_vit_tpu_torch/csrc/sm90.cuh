@@ -87,7 +87,9 @@ inline cudaError_t map_bnhd_f32(CUtensorMap* m, void* base, int batch, int n, in
 }
 
 // A flat fp32 vector of `count` elements whose box is `rows` elements (the
-// lse and delta rows [B, H, N]); elements past count read as zero.
+// lse and delta rows [B, H, N]); elements past count read as zero.  Start a
+// box on 16 bytes (rows_start): a kernel whose boxes started elsewhere
+// failed on the H100 with an illegal-instruction error.
 inline cudaError_t map_f32_rows(CUtensorMap* m, const void* base, long long count, int rows) {
   EncodeTiled enc = encode_fn();
   if (enc == nullptr) return cudaErrorNotSupported;
@@ -101,6 +103,12 @@ inline cudaError_t map_f32_rows(CUtensorMap* m, const void* base, long long coun
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
+
+// A box of fp32 rows holding element i starts at rows_start(i), on 16
+// bytes; one of n + kRowsPad elements holds i .. i + n - 1 from offset
+// i - rows_start(i).
+constexpr int kRowsPad = 4;
+__host__ __device__ constexpr int rows_start(int i) { return i & ~(kRowsPad - 1); }
 
 // What the compiler gave a kernel: out[0] registers a thread, out[1]
 // local memory a thread (spills and stack), out[2] shared memory a block
@@ -117,6 +125,28 @@ inline int kernel_attrs(Kernel kernel, int dyn_smem, int* out) {
 }
 
 // -------------------------------------------------------------- device
+
+// The kernel's shared storage S at the first 1,024-byte boundary of its
+// dynamic shared memory (the 128-byte swizzle repeats every 1,024 bytes):
+// a launch asks for sizeof(S) + 1,024 bytes.
+template <typename S>
+__device__ __forceinline__ S& aligned_smem(unsigned char* dyn) {
+  const uint32_t pad = (1024 - (smem_addr(dyn) & 1023)) & 1023;
+  return *reinterpret_cast<S*>(dyn + pad);
+}
+
+// A ring of kStages slots: the slot and the parity of its current phase.
+template <int kStages>
+struct Ring {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ void next() {
+    if (++slot == kStages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
 
 __device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
@@ -303,6 +333,20 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[R], int kk, uint32_t (
   a[1] = pack_bf16x2(d[8 * kk + 2], d[8 * kk + 3]);
   a[2] = pack_bf16x2(d[8 * kk + 4], d[8 * kk + 5]);
   a[3] = pack_bf16x2(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// x = hi + lo as bf16 pairs in A-fragment order (see acc_to_a): the
+// two-term split by which an fp32 operand (p, ds) enters a bf16 product.
+__device__ __forceinline__ void split_a(const float (&d)[32], int kk, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float x0 = d[8 * kk + 2 * e], x1 = d[8 * kk + 2 * e + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    hi[e] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[e] = pack_bf16x2(x0 - hf.x, x1 - hf.y);
+  }
 }
 
 // 2^x (ex2.approx: ~2 ulp; 2^-inf = 0).

@@ -33,8 +33,7 @@ __global__ void __launch_bounds__(128) wgmma_probe(const __grid_constant__ CUten
                                                    const bf16* __restrict__ a,
                                                    float* __restrict__ d, int form) {
   extern __shared__ __align__(1024) unsigned char dyn[];
-  const uint32_t pad = (1024 - (sfc::smem_addr(dyn) & 1023)) & 1023;
-  ProbeSmem& sm = *reinterpret_cast<ProbeSmem*>(dyn + pad);
+  ProbeSmem& sm = hw::aligned_smem<ProbeSmem>(dyn);
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   if (t == 0) {
     hw::bar_init(&sm.bar, 1);

@@ -95,6 +95,8 @@ _SIGNATURES = {
     # streaming, out[3] | out[3]
     "sfc_flash_fwd_attrs": (_I, _P),
     "sfc_flash_fused_bwd_attrs": (_P,),
+    "sfc_flash_dq_attrs": (_P,),
+    "sfc_flash_dkv_attrs": (_P,),
 }
 
 #: Head dims the attention kernels are instantiated for: ViT-B's 64 and
@@ -446,7 +448,7 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
 def _require_bnhd(t: torch.Tensor, name: str, shape) -> None:
     """A bf16 CUDA [B, N, H, Dh] tensor, any strides whose rows start on
     16 bytes (unit stride along Dh): the views of a packed projection.
-    These are TMA's rules for #8 and #9's tensor maps too (base address
+    These are TMA's rules for #8-#11's tensor maps too (base address
     on 16 bytes, every stride a multiple of 16 bytes)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
@@ -638,7 +640,8 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor, form: str) -> torch.Tensor:
 
 
 def flash_kernel_attrs() -> dict:
-    """What the compiler gave #8's two forms and #9 (``cudaFuncGetAttributes``):
+    """What the compiler gave the ``wgmma`` kernels, #8's two forms and #9-#11
+    (``cudaFuncGetAttributes``):
     ``{name: {"registers", "local_bytes", "smem_bytes"}}``, local bytes
     being spills and stack a thread, shared bytes a block."""
     lib = library()
@@ -646,7 +649,9 @@ def flash_kernel_attrs() -> dict:
     for name, call in (
             ("flash_fwd streaming", lambda a: lib.sfc_flash_fwd_attrs(1, a)),
             ("flash_fwd single step", lambda a: lib.sfc_flash_fwd_attrs(0, a)),
-            ("flash_fused_bwd", lib.sfc_flash_fused_bwd_attrs)):
+            ("flash_fused_bwd", lib.sfc_flash_fused_bwd_attrs),
+            ("flash_dq", lib.sfc_flash_dq_attrs),
+            ("flash_dkv", lib.sfc_flash_dkv_attrs)):
         vals = (ctypes.c_int * 3)()
         _check(call(ctypes.cast(vals, ctypes.c_void_p)), f"attributes of {name}")
         out[name] = dict(zip(("registers", "local_bytes", "smem_bytes"), vals))

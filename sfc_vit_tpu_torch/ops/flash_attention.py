@@ -31,10 +31,15 @@ counterparts, all CUDA C++ for sm_90a:
     output in place of ``rowsum(p * dp)``: fp32- and bf16-ulp departures
     from JAX's arithmetic, and the reduce-adds make dQ's summation order
     change from run to run.
-  * #10 ``_dq_kernel`` and #11 ``_dkv_kernel`` -> ``csrc/flash_bwd.cu``
-    (:func:`flash_dq`, :func:`flash_dkv`) past ``FUSED_BWD_MAX``, from the
-    forward's lse and ``delta = rowsum(g * O)`` over the bf16 output O
-    (JAX computes it in XLA, here in PyTorch beside the launches).
+  * #10 ``_dq_kernel`` -> ``csrc/flash_bwd_dq_sm90.cu`` and #11
+    ``_dkv_kernel`` -> ``csrc/flash_bwd_dkv_sm90.cu`` (:func:`flash_dq`,
+    :func:`flash_dkv`; ``wgmma`` and TMA as #9) past ``FUSED_BWD_MAX``,
+    from the forward's lse and ``delta = rowsum(g * O)`` over the bf16
+    output O (JAX computes it in XLA, here in PyTorch beside the
+    launches).  #11 is #9's loop without dQ: a block per 128 keys walks
+    64-query tiles.  #10 is that loop transposed: a block per 128 queries
+    walks 64-key tiles and keeps dq in registers.  Each output row has one
+    owner, so both give the same result on every run.
 
 The backward keeps p and ds in fp32, as JAX does: the kernels multiply
 them with bf16 operands as a two-term bf16 split (``hi + lo``, about 16

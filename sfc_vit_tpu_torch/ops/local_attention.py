@@ -16,8 +16,8 @@ sm_90a:
     dtype, then an fp32 P.V rounded once; with autograd also the fp32
     log-sum-exp of the window, [B, H, N] (JAX keeps a lane-broadcast
     [B*H, Npad, 128] copy, a TPU layout).
-  * #13 ``_bwd_kernel`` -> ``csrc/flash_bwd.cu``, the flash dQ and
-    dK/dV loops limited to the window, in one launch (:func:`local_bwd`):
+  * #13 ``_bwd_kernel`` -> ``csrc/local_bwd.cu``, a dQ loop and a dK/dV
+    loop limited to the window, in one launch (:func:`local_bwd`):
     p recomputed from the saved lse, ``dp = g v^T``, ``ds = p (dp -
     delta) scale`` with ``delta = rowsum(g * O)`` in fp32
     (:func:`~sfc_vit_tpu_torch.ops.flash_attention.flash_delta`, as JAX

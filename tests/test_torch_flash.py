@@ -3,8 +3,9 @@ Pallas kernels #8-#11 in interpret mode.
 
 ``flash_fwd_ref``, ``flash_fused_bwd_ref``, ``flash_dq_ref`` and
 ``flash_dkv_ref`` (the plain versions of the CUDA kernels in
-``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_fused_sm90.cu`` and
-``csrc/flash_bwd.cu``) are held against
+``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_fused_sm90.cu``,
+``csrc/flash_bwd_dq_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu``) are held
+against
 ``_flash_fwd``, ``_fused_bwd`` and ``_streaming_bwd`` at small lengths
 (~300 tokens) with 128-row blocks forced, as ``tests/test_ops.py`` runs
 them, and the port's ``flash_attention`` autograd route against
@@ -113,11 +114,19 @@ def test_flash_fused_bwd_ref_matches_pallas(nq, nk):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), err_msg=name, **F32_TOL)
 
 
-@pytest.mark.parametrize("nq, nk", [(300, 300), (200, 300)])
-def test_flash_streaming_bwd_refs_match_pallas(nq, nk):
+# The plain versions' tiles: 128 x 128 (JAX's blocks here), and those of
+# the CUDA kernels: #10 walks 64-key tiles, #11 64-query tiles.
+@pytest.mark.parametrize("nq, nk, tile", [
+    pytest.param(300, 300, 128, id="300-300"), pytest.param(200, 300, 128, id="200-300"),
+    pytest.param(300, 200, 64, id="300-200-tile64"),
+    pytest.param(333, 250, 64, id="333-250-tile64")])
+def test_flash_streaming_bwd_refs_match_pallas(nq, nk, tile):
     """#10 and #11's plain versions against ``_streaming_bwd`` (128-row
     blocks), both fed the lse of JAX's streaming forward and delta =
-    rowsum(g * O) over its output."""
+    rowsum(g * O) over its output.  At ``tile`` 64, ``flash_dq_ref`` runs
+    64-key tiles and ``flash_dkv_ref`` 64-query tiles, the CUDA kernels'
+    loops, at ragged nq != nk: the tiling changes only the order of the
+    fp32 sums."""
     q, k, v, g = _inputs(3, nq, nk)
     scale = DH ** -0.5
     jo, jl = jfa._flash_fwd(_j(q), _j(k), _j(v), scale, block_q=128, block_k=128,
@@ -127,9 +136,9 @@ def test_flash_streaming_bwd_refs_match_pallas(nq, nk):
     lse = _t(_jlse(jl, B, H, nq))
     delta = fa.flash_delta(_t(g), _t(jo))
     dq = fa.flash_dq_ref(_t(q), _t(k), _t(v), _t(g), lse, delta, scale,
-                         block_q=128, block_k=128)
+                         block_q=128, block_k=tile)
     dk, dv = fa.flash_dkv_ref(_t(q), _t(k), _t(v), _t(g), lse, delta, scale,
-                              block_q=128, block_k=128)
+                              block_q=tile, block_k=128)
     for name, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), err_msg=name, **F32_TOL)
 

@@ -636,11 +636,16 @@ def _within(got, want, frac, name=""):
 
 # Ragged lengths that differ (nq, nk not multiples of 128), views of a
 # packed projection, and one wave: batch x heads x tiles under the 132 SMs
-# with 32 key tiles and 64 query tiles a block.
+# with 32 key tiles and 64 query tiles a block.  The edges of #10's and
+# #11's tiles: nk not a multiple of 64 with nq a multiple of 128 (#11's
+# last block holds a warpgroup of keys all past nk), nq not a multiple of
+# 64, and several (b, h) with an odd nq (#9's and #11's lse / delta boxes
+# round their start down to 16 bytes and read past nq into the next (b, h)).
 _FLASH_SHAPES = [(2, 300, 300, 3, False), (1, 200, 333, 2, False),
                  (2, 1000, 777, 2, False), (2, 520, 520, 3, True),
                  (1, 1100, 1300, 3, False), (2, 1300, 1300, 3, True),
-                 (1, 4096, 4096, 1, True)]
+                 (1, 4096, 4096, 1, True), (1, 256, 300, 2, False),
+                 (1, 330, 256, 2, False), (2, 333, 520, 3, False)]
 
 
 @pytest.mark.gpu
@@ -711,6 +716,36 @@ def test_flash_bwd_kernels_match_plain(cuda, b, nq, nk, heads, packed):
     for name, a, w in zip(("dq", "dk", "dv"), (dq32.to(q.dtype), dk9, dv9),
                           fa.flash_fused_bwd_ref(q, k, v, g, s)):
         _within(a, w, 2e-2, name)
+
+
+@pytest.mark.gpu
+def test_flash_dq_dkv_repeat_bit_for_bit(cuda):
+    """#10 and #11 give bit-identical results on two calls: each output
+    row is summed by the one block that owns it, with no atomics."""
+    from sfc_vit_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _flash_qkv(np.random.default_rng(34), 2, 1000, 777, 3, cuda)
+    s = 64 ** -0.5
+    out, lse = _build.flash_fwd(q, k, v, s, streaming=True, with_lse=True)
+    delta = fa.flash_delta(g, out)
+    first = (_build.flash_dq(q, k, v, g, lse, delta, s),
+             *_build.flash_dkv(q, k, v, g, lse, delta, s))
+    second = (_build.flash_dq(q, k, v, g, lse, delta, s),
+              *_build.flash_dkv(q, k, v, g, lse, delta, s))
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_flash_kernel_attrs_list_the_wgmma_kernels_without_spills(cuda):
+    """``flash_kernel_attrs`` reports #8's two forms and #9-#11, none of
+    them with local memory (spills)."""
+    attrs = _build.flash_kernel_attrs()
+    assert {"flash_fwd streaming", "flash_fwd single step", "flash_fused_bwd",
+            "flash_dq", "flash_dkv"} <= set(attrs)
+    for name, a in attrs.items():
+        assert a["local_bytes"] == 0, name
+        assert 0 < a["registers"] <= 255 and a["smem_bytes"] > 0, name
 
 
 @pytest.mark.gpu
