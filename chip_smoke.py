@@ -14,8 +14,8 @@ Phases, each of which raises (non-zero exit) on failure:
 1. device: a CUDA device is present; prints its name and power limit;
 2. build: compiles the hand-written kernels (sfc_vit_tpu_torch/csrc)
    with nvcc and loads them; prints ptxas's registers and spills and the
-   runtime's registers and shared memory of the wgmma kernels #8-#11,
-   and fails if any spills;
+   runtime's registers and shared memory of the wgmma kernels #7-#11 and
+   #14, and fails if any spills;
 3. kernels: each fused block against its plain PyTorch version at the
    ViT-B/16 serving shapes (x [64, 196, 768] bf16, 12 heads of 64,
    F = 3072), with its error, tolerance and time beside the plain one;
@@ -41,9 +41,12 @@ Phases, each of which raises (non-zero exit) on failure:
 6. flagship kernels: kernels #5 and #6 (``fused_torch_mha`` forward and
    backward, batch 512, 64 tokens, D = 768, 4 heads of 192, keep 0.9,
    one dropout mask for both; n_actual None and 50) and #7
-   (``packed_flash_attention``, batch 256) against their plain versions,
-   each error beside its tolerance; each timed beside its plain version,
-   its bound, and for #7 ``F.scaled_dot_product_attention``.
+   (``packed_flash_attention``: the flagship's [256, 64, 2304] and serving
+   batch 16, 'hier''s [256, 64, 768] and [256, 192, 768]) against their
+   plain versions, each error beside its tolerance; each timed beside its
+   plain version and its bound; #7 by CUDA-graph replay, beside the
+   kernel it replaced (``csrc/attention_fwd.cu``) and
+   ``F.scaled_dot_product_attention`` on contiguous copies of q, k and v.
 7. flagship slice: ``build_model(preset_config("flagship",
    dtype="bfloat16"))`` on the card, ``Trainer.fit`` for one epoch of 4
    steps at batch 512 on synthetic_dataset(n=2048, hw=32, 10 classes),
@@ -53,7 +56,8 @@ Phases, each of which raises (non-zero exit) on failure:
    against the same step through the plain versions, the same draws;
    ``ServingEngine(batch_sizes=(16, 256))`` answers 1, 100 and 256
    images, logits against the plain forward; train img/s both paths,
-   forward img/s at batch 256, peak memory, a profile of the train step.
+   forward img/s at batch 256, peak memory, a profile of the train step
+   and one of the served forward at batch 256.
 8. flash kernels: #8 (streaming) and #10 / #11 at the long-context
    preset's attention shape (batch 2, 16,384 tokens, 6 heads of 64, q, k,
    v as views of one packed projection), #8 (single K step) and #9 at
@@ -98,8 +102,9 @@ Phases, each of which raises (non-zero exit) on failure:
    gradients against the plain versions; a profile of one step.
 12. fused tokenizer: #14 at the flagship's three tokenizer levels (batch
    512: x [512, 1024, 3] in groups of 16, [512, 256, 12] in groups of 4,
-   [512, 64, 48]; D = 256) against its plain version, timed beside its
-   bound and ``index_select`` + ``F.linear``; then
+   [512, 64, 48]; D = 256) against its plain version, timed by CUDA-graph
+   replay beside each level's bound and ``index_select`` + ``F.linear``;
+   then
    ``build_model(preset_config("flagship", fused=True,
    dtype="bfloat16"))`` trained 4 steps at batch 512, evaluated and
    served (1, 100, 256 images), #14 launched 3 x (steps + eval + served
@@ -336,8 +341,8 @@ def phase_build() -> None:
     for line in info["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
-    # The wgmma kernels #8-#11 (ptxas's lines above) as the runtime sees
-    # them, with their dynamic shared memory.
+    # The wgmma kernels #7-#11 and #14 (ptxas's lines above) as the
+    # runtime sees them, with their dynamic shared memory.
     for name, attrs in _build.flash_kernel_attrs().items():
         print(f"  {name}: {attrs['registers']} registers, {attrs['local_bytes']} bytes "
               f"local, {attrs['smem_bytes']} bytes shared a block")
@@ -830,30 +835,46 @@ def phase_fa_kernels(card: str) -> dict:
           "cannot take a given mask.")
     del a, fwd, saved, qkv, att, lse
 
-    pb = FA_PACKED_B
-    qkv = _randn(gen, pb, n, 3 * d)
-    s = (d // h) ** -0.5
-    with torch.no_grad():
-        got = packed_flash_attention(qkv, h)
-        want = _packed_xla_ref(qkv, h, s)
-        err, ok = _agree(got, want, **BLOCK_TOL)
-        print(f"packed_flash_attention vs _packed_xla_ref, qkv [{pb}, {n}, {3 * d}]: "
-              f"max abs err {err:.4g} (tolerance rtol {BLOCK_TOL['rtol']}, atol "
-              f"{BLOCK_TOL['atol']})")
-        _check(ok, "kernel #7 disagrees with _packed_xla_ref")
-        q, k, v = (t.contiguous() for t in
-                   qkv.view(pb, n, 3, h, d // h).permute(2, 0, 3, 1, 4))
-        ms, plain_ms = _ab_ms(lambda: packed_flash_attention(qkv, h),
-                              lambda: _packed_xla_ref(qkv, h, s))
-        lib_ms = _ms(lambda: TF.scaled_dot_product_attention(q, k, v))
-    results["packed_flash_attention"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        **_bound(4 * pb * h * n * n * (d // h), 2 * (pb * n * 3 * d + pb * n * d)))
-    print(f"packed_flash_attention (#7) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"F.scaled_dot_product_attention {lib_ms:.4f} ms, bound "
-          f"{results['packed_flash_attention']['bound_ms']:.4f} ms, qkv [{pb}, {n}, "
-          f"{3 * d}] bf16, {card}")
+    # #7 at the flagship's evaluation batch (the kernels line), its
+    # serving batch 16 and 'hier''s level and fusion layers.
+    results["packed_flash_attention"] = _packed_case(gen, card, FA_PACKED_B, n, d, h)
+    for pb, pn, inner, ph in ((FA_BATCH_SIZES[0], n, d, h), (FA_PACKED_B, 64, 256, 4),
+                              (FA_PACKED_B, 192, 256, 4)):
+        _packed_case(gen, card, pb, pn, inner, ph)
     return results
+
+
+def _packed_case(gen, card: str, b: int, n: int, inner: int, heads: int) -> dict:
+    """#7 on a random packed qkv [b, n, 3 * inner] against ``_packed_xla_ref``
+    (BLOCK_TOL), then timed by graph replay (:func:`_graph_ms`: a call lasts
+    tens of microseconds, under the Python launch path) in turns with the
+    kernel it replaced (``_build.attention_fwd``'s unmasked instance of
+    ``csrc/attention_fwd.cu``, the yardstick of the redesign), its plain
+    version and ``F.scaled_dot_product_attention`` on contiguous [b, heads,
+    n, dh] copies of q, k and v made before the timing."""
+    qkv = _randn(gen, b, n, 3 * inner)
+    dh = inner // heads
+    s = dh ** -0.5
+    shape = f"qkv [{b}, {n}, {3 * inner}], {heads} heads of {dh}"
+    with torch.no_grad():
+        got = packed_flash_attention(qkv, heads)
+        err, ok = _agree(got, _packed_xla_ref(qkv, heads, s), **BLOCK_TOL)
+        print(f"packed_flash_attention vs _packed_xla_ref, {shape}: max abs err {err:.4g} "
+              f"(tolerance rtol {BLOCK_TOL['rtol']}, atol {BLOCK_TOL['atol']})")
+        _check(ok, f"kernel #7 disagrees with _packed_xla_ref at {shape}")
+        q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4))
+        kern = lambda: packed_flash_attention(qkv, heads)  # noqa: E731
+        old = lambda: _build.attention_fwd(qkv, heads, n, s)  # noqa: E731
+        plain = lambda: _packed_xla_ref(qkv, heads, s)  # noqa: E731
+        p1, o1, k1, k2, o2, p2 = (_graph_ms(f) for f in (plain, old, kern, kern, old, plain))
+        lib_ms = _graph_ms(lambda: TF.scaled_dot_product_attention(q, k, v))
+    t = dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+             **_bound(4 * b * heads * n * n * dh, 2 * (b * n * 3 * inner + b * n * inner)))
+    print(f"packed_flash_attention (#7), {shape}, by graph replay: kernel {t['ms']:.4f} ms, "
+          f"attention_fwd.cu's kernel {(o1 + o2) / 2:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"F.scaled_dot_product_attention {lib_ms:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}), {card}")
+    return t
 
 
 def _plain_fa():
@@ -1003,6 +1024,8 @@ def phase_fa_slice(card: str) -> dict:
     print(f"flagship forward at batch {bs}: {fwd_ms:.3f} ms = {bs / fwd_ms * 1e3:.1f} "
           f"img/s (plain versions {plain_fwd_ms:.3f} ms = "
           f"{bs / plain_fwd_ms * 1e3:.1f} img/s), {card}")
+    with torch.inference_mode():
+        _profile(lambda: engine.model(xb), f"flagship serving forward at batch {bs}", steps=5)
     return launches
 
 
@@ -1560,13 +1583,17 @@ def phase_gp_kernels(card: str) -> dict:
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             lib_ms = _graph_ms(lambda: TF.linear(
                 x.index_select(1, lut64).reshape(bsz, m, grp * kdim), wt, bias))
+            flops = 2 * bsz * m * grp * kdim * d
+            nbytes = 2 * (bsz * n * kdim + grp * kdim * d + d + bsz * m * d) + 4 * m * grp
+            level = _bound(flops, nbytes)
             print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select + F.linear "
-                  f"{lib_ms:.4f} ms, {card}")
+                  f"{lib_ms:.4f} ms, bound {level['bound_ms']:.4f} ms ({level['bound_by']}), "
+                  f"{card}")
             t["ms"] += ms
             t["plain_ms"] += plain_ms
             t["library_ms"] += lib_ms
-            t["flops"] += 2 * bsz * m * grp * kdim * d
-            t["bytes"] += 2 * (bsz * n * kdim + grp * kdim * d + d + bsz * m * d) + 4 * m * grp
+            t["flops"] += flops
+            t["bytes"] += nbytes
     t.update(_bound(t.pop("flops"), t.pop("bytes")))
     t["max_abs_err"] = max(t.pop("errs"))
     print(f"#14 over the three levels (one tokenizer forward at batch {FA_B}): kernel "
@@ -1948,7 +1975,7 @@ def main() -> int:
              source="sfc_vit_tpu_torch/csrc/attention_bwd.cu",
              replaces="sfc_vit_tpu/ops/fused_torch_attention.py:270"),
         dict(name="packed_flash_attention", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/attention_fwd.cu",
+             source="sfc_vit_tpu_torch/csrc/packed_attn_sm90.cu",
              replaces="sfc_vit_tpu/ops/flash_attention.py:907"),
         dict(name="flash_attention", route="cuda",
              source="sfc_vit_tpu_torch/csrc/flash_fwd_sm90.cu",

@@ -4,10 +4,13 @@
 //
 // Replaces: the per-(image, head) loops of
 // sfc_vit_tpu/ops/fused_attention_block.py::_attn_block_kernel (lines
-// 153-196; Dh = 64 at ViT-B), sfc_vit_tpu/ops/flash_attention.py::
-// _packed_kernel (lines 907-940; the family-A flagship's Dh = 192) and,
-// with a mask, sfc_vit_tpu/ops/fused_torch_attention.py::
-// _torch_mha_kernel (lines 109-139).  It reads q, k and v from qkv
+// 153-196; Dh = 64 at ViT-B, kernel #1) and, with a mask,
+// sfc_vit_tpu/ops/fused_torch_attention.py::_torch_mha_kernel (lines
+// 109-139; the family-A flagship's training forward #5 at Dh = 192).  The
+// Dh = 192 instances stay for #5 (masked) and for #1 in a model of head
+// dim 192 (unmasked); the unmasked one was #7 until csrc/
+// packed_attn_sm90.cu, and chip_smoke.py times it beside that kernel as
+// its yardstick.  It reads q, k and v from qkv
 // [B, N, 3*inner] at columns h*Dh, inner + h*Dh and 2*inner + h*Dh, as
 // those loops slice the packed block.  Logits are fp32 times scale; keys
 // at or past n_valid get -1e30 (never -inf, so no NaN); the softmax is
@@ -22,10 +25,10 @@
 // P.V accumulates in fp32 and is rounded once.
 //
 // Bound on this card: at ViT-B (N = 196, Dh = 64) one (image, head) is
-// 2*2*196*196*64 = 9.8 MFLOP on 75 KB of q/k/v; at the flagship (N = 64,
-// Dh = 192) 3.1 MFLOP on 74 KB of q/k/v plus 25 KB of output: about 40
-// flops a byte, far under the H100's ~295, so the flagship's call is
-// bound by the bytes of qkv and out (and the mask) it must move.
+// 2*2*196*196*64 = 9.8 MFLOP on 75 KB of q/k/v, about 130 flops a byte,
+// under the H100's ~295: the bytes of qkv and out bound the attention
+// itself (the GEMMs beside it in #1 are bound by operations).  #5 at the
+// flagship (N = 64, Dh = 192) adds the mask's N^2 bytes an (image, head).
 // Design: one 128-thread block per (image, head, 64-query tile); each
 // warp owns 16 query rows.  Keys stream through shared memory in 64-row
 // tiles (one head's whole K and V at N = 1024 is more than a block may

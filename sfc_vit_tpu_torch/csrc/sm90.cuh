@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks of the redesigned flash kernels: TMA
-// tensor maps built on the host, TMA loads and reduce-adds, mbarriers, and
-// warpgroup matrix multiplies (wgmma) on 128-byte-swizzled shared tiles.
+// Hopper (sm_90a) building blocks of the redesigned kernels (#7-#11,
+// #14): TMA tensor maps built on the host, TMA loads, stores and
+// reduce-adds, plain bulk copies, mbarriers, the grid of a persistent
+// kernel, and warpgroup matrix multiplies (wgmma) on 128-byte-swizzled
+// shared tiles.
 //
 // Shared tiles are bf16 rows of 64 elements (128 bytes), as TMA writes
 // them with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r sits
@@ -102,6 +104,57 @@ inline cudaError_t map_f32_rows(CUtensorMap* m, const void* base, long long coun
                          CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A contiguous bf16 [batch, rows, cols] tensor as a 3-d map whose box is
+// 64 columns x box_rows rows of one batch entry, 128-byte swizzled (cols
+// a multiple of 8).  Rows and columns past the tensor are not written by
+// a store.
+inline cudaError_t map_rows_bf16(CUtensorMap* m, void* base, int batch, int rows, int cols,
+                                 int box_rows) {
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)cols * rows * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Blocks of a persistent kernel: min(items, SMs x the blocks of `kernel`
+// an SM holds at `threads` threads and `smem` dynamic bytes), from the
+// current device.  Sets the kernel's dynamic shared memory limit first.
+// Both are read once a device and kernel (the caller passes one static
+// cache per kernel), so a launch inside a CUDA graph capture queries
+// nothing.  Returns 0 and sets *err on failure.
+template <typename Kernel>
+inline int persistent_grid(Kernel kernel, int threads, int smem, long long items, int (&cache)[64],
+                           cudaError_t* err) {
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  if (dev >= 64) {
+    *err = cudaErrorInvalidDevice;
+    return 0;
+  }
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (*err == cudaSuccess)
+      *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (*err == cudaSuccess)
+      *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (*err != cudaSuccess) return 0;
+    if (per_sm < 1) {
+      *err = cudaErrorInvalidConfiguration;
+      return 0;
+    }
+    cache[dev] = sms * per_sm;
+  }
+  return static_cast<int>(items < cache[dev] ? items : cache[dev]);
 }
 
 // A box of fp32 rows holding element i starts at rows_start(i), on 16
@@ -216,14 +269,48 @@ __device__ __forceinline__ void tma_reduce_add4(const CUtensorMap* map, const vo
       : "memory");
 }
 
+// TMA: the shared box to the global box at (c0, c1, c2, c3) of a 4-d map
+// (c0, c1, c2 of a 3-d one), as one bulk operation of the current bulk
+// group.  Elements outside the map's bounds are not written.
+__device__ __forceinline__ void tma_store4(const CUtensorMap* map, const void* src, int c0, int c1,
+                                           int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map, const void* src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global to shared memory by one bulk copy
+// (no tensor map), completing `bar`'s transaction bytes.  Both addresses
+// on 16 bytes, bytes a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// Wait until every committed bulk operation has finished reading shared
-// memory (the source may be overwritten).
+// Wait until at most N committed bulk groups are still reading shared
+// memory (the sources of the others may be overwritten).
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void bulk_wait_all() {

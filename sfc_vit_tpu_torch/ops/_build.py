@@ -18,8 +18,9 @@ nothing runs without the kernels.
 
 The launchers below (``ln_rows``, ``ln_rows_bwd``, ``gemm``,
 ``act_bf16``, ``colsum``, ``attention_fwd``, ``attention_bwd``,
-``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``, ``flash_dkv``,
-``local_fwd``, ``local_bwd``, ``gather_project``, ``wgmma_probe``) check
+``packed_attention``, ``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``,
+``flash_dkv``, ``local_fwd``, ``local_bwd``, ``gather_project``,
+``wgmma_probe``) check
 device, dtype, shape, contiguity (or, for the flash kernels, strides) and
 alignment, allocate their outputs with
 ``torch.empty`` (``torch.zeros`` for sums the kernels accumulate into),
@@ -42,10 +43,10 @@ import torch
 
 __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "act_bf16", "colsum", "attention_fwd", "attention_bwd",
-           "ATTENTION_HEAD_DIMS", "flash_fwd", "flash_fused_bwd", "flash_dq",
-           "flash_dkv", "FLASH_HEAD_DIMS", "FLASH_STREAM_BLOCK_K", "local_fwd",
-           "local_bwd", "gather_project", "wgmma_probe", "WGMMA_FORMS",
-           "flash_kernel_attrs"]
+           "ATTENTION_HEAD_DIMS", "packed_attention", "PACKED_MAX_N", "flash_fwd",
+           "flash_fused_bwd", "flash_dq", "flash_dkv", "FLASH_HEAD_DIMS",
+           "FLASH_STREAM_BLOCK_K", "local_fwd", "local_bwd", "gather_project",
+           "wgmma_probe", "WGMMA_FORMS", "flash_kernel_attrs"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sfc_vit_tpu_torch"
@@ -74,6 +75,8 @@ _SIGNATURES = {
                                _P),
     "sfc_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _F, _P),
+    # qkv, out; batch, n, heads, dh, n_valid; scale, stream
+    "sfc_packed_attention_bf16": (_P, _P) + (_I,) * 5 + (_F, _P),
     # q, k, v, out, lse; batch, heads, nq, nk, dh; q, k, v strides
     # (batch, row, head); scale, streaming, stream
     "sfc_flash_fwd_bf16": (_P,) * 5 + (_I,) * 5 + (_L,) * 9 + (_F, _I, _P),
@@ -97,11 +100,18 @@ _SIGNATURES = {
     "sfc_flash_fused_bwd_attrs": (_P,),
     "sfc_flash_dq_attrs": (_P,),
     "sfc_flash_dkv_attrs": (_P,),
+    # dh, one_pass, out[3] | smem_x, out[3]
+    "sfc_packed_attention_attrs": (_I, _I, _P),
+    "sfc_gather_project_attrs": (_I, _P),
 }
 
 #: Head dims the attention kernels are instantiated for: ViT-B's 64 and
 #: the family-A flagship's 192.
 ATTENTION_HEAD_DIMS = (64, 192)
+#: JAX's ``_PACKED_MAX_N`` (``flash_attention.py:946``): the longest
+#: sequence #7 takes (``csrc/packed_attn_sm90.cu``'s kMaxN) and the packed
+#: route's range (``ops/attention.py``).
+PACKED_MAX_N = 1024
 #: Head dims the flash kernels (#8-#11) are instantiated for: the
 #: long-context presets' 64.
 FLASH_HEAD_DIMS = (64,)
@@ -445,6 +455,23 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
     return dqkv
 
 
+def packed_attention(qkv: torch.Tensor, heads: int, n_valid: int,
+                     scale: float) -> torch.Tensor:
+    """#7: attention off packed ``qkv`` [B, N, 3*H*Dh] -> [B, N, H*Dh]
+    (bf16, Dh 64 or 192, N <= :data:`PACKED_MAX_N`), keys at or past
+    ``n_valid`` masked; P normalised, then rounded, before its product
+    with V (``csrc/packed_attn_sm90.cu``)."""
+    if qkv.shape[1] > PACKED_MAX_N:
+        raise ValueError(f"packed_attention: N={qkv.shape[1]} is over the kernel's "
+                         f"{PACKED_MAX_N} tokens")
+    b, n, inner, dh = _check_packed(qkv, heads, n_valid, "packed_attention", None, 1.0)
+    out = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
+    _check(library().sfc_packed_attention_bf16(
+        qkv.data_ptr(), out.data_ptr(), b, n, heads, dh, n_valid, scale, _stream()),
+        "packed_attention")
+    return out
+
+
 def _require_bnhd(t: torch.Tensor, name: str, shape) -> None:
     """A bf16 CUDA [B, N, H, Dh] tensor, any strides whose rows start on
     16 bytes (unit stride along Dh): the views of a packed projection.
@@ -597,9 +624,12 @@ def local_bwd(q, k, v, g, lse, delta, scale: float, block: int, halo: int):
 def gather_project(x: torch.Tensor, lut: torch.Tensor, w: torch.Tensor,
                    bias: Optional[torch.Tensor], group: int) -> torch.Tensor:
     """#14: ``out[b, i] = concat_p x[b, lut[i * group + p]] @ w + bias``
-    over x [B, N, K] bf16, ``lut`` int32 [M * group] (each in [0, N)), w
-    [group * K, D] bf16 and an optional bf16 bias [D] -> [B, M, D] bf16,
-    the bias added to the fp32 sum before the one rounding."""
+    over x [B, N, K] bf16, ``lut`` int32 [M * group] (each in [0, N), not
+    checked), w [group * K, D] bf16 and an optional bf16 bias [D] ->
+    [B, M, D] bf16, the bias added to the fp32 sum before the one
+    rounding.  The kernel gathers from shared memory where an image's x
+    fits its buffer and is a multiple of 16 bytes, else from global
+    memory."""
     bsz, n, k = x.shape
     if group < 1 or lut.dim() != 1 or lut.numel() % group:
         raise ValueError(f"gather_project: {lut.numel()} LUT entries for group {group}")
@@ -640,18 +670,26 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor, form: str) -> torch.Tensor:
 
 
 def flash_kernel_attrs() -> dict:
-    """What the compiler gave the ``wgmma`` kernels, #8's two forms and #9-#11
+    """What the compiler gave the ``wgmma`` kernels, #7's four instances
+    (head dim 64 or 192, one pass or two), #8's two forms, #9-#11 and #14's
+    two instances (x gathered from shared or global memory)
     (``cudaFuncGetAttributes``):
     ``{name: {"registers", "local_bytes", "smem_bytes"}}``, local bytes
     being spills and stack a thread, shared bytes a block."""
     lib = library()
     out = {}
     for name, call in (
+            *((f"packed_attention dh{dh} {form}",
+               lambda a, dh=dh, one=one: lib.sfc_packed_attention_attrs(dh, one, a))
+              for dh in ATTENTION_HEAD_DIMS
+              for form, one in (("one pass", 1), ("two passes", 0))),
             ("flash_fwd streaming", lambda a: lib.sfc_flash_fwd_attrs(1, a)),
             ("flash_fwd single step", lambda a: lib.sfc_flash_fwd_attrs(0, a)),
             ("flash_fused_bwd", lib.sfc_flash_fused_bwd_attrs),
             ("flash_dq", lib.sfc_flash_dq_attrs),
-            ("flash_dkv", lib.sfc_flash_dkv_attrs)):
+            ("flash_dkv", lib.sfc_flash_dkv_attrs),
+            ("gather_project shared x", lambda a: lib.sfc_gather_project_attrs(1, a)),
+            ("gather_project global x", lambda a: lib.sfc_gather_project_attrs(0, a))):
         vals = (ctypes.c_int * 3)()
         _check(call(ctypes.cast(vals, ctypes.c_void_p)), f"attributes of {name}")
         out[name] = dict(zip(("registers", "local_bytes", "smem_bytes"), vals))

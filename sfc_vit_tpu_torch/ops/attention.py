@@ -37,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from . import _build
 from .flash_attention import _packed_xla_ref, flash_attention, packed_flash_attention
 from .local_attention import local_block_attention
 
@@ -63,9 +64,10 @@ PALLAS_MIN_N = 1024
 #: JAX's ``_PALLAS_HEAD_DIMS``: the head dims ``auto`` sends to flash.
 PALLAS_HEAD_DIMS = (64, 128, 256)
 #: JAX's ``_PACKED_MAX_N`` (``flash_attention.py:946``): up to this length
-#: the packed entry point takes kernel #7.  A formula choice, as above;
-#: the H100 crossover is still to measure.
-PACKED_MAX_N = 1024
+#: the packed entry point takes kernel #7, whose launcher holds the same
+#: bound.  A formula choice, as above; the H100 crossover is still to
+#: measure.
+PACKED_MAX_N = _build.PACKED_MAX_N
 
 
 def check_implementation(implementation: str) -> None:

@@ -59,17 +59,21 @@ the kernels (bfloat16, head dim 64) or raises.  Launches are counted on
 projection [B, N, 3*H*Dh] to [B, N, H*Dh] with an fp32 softmax and no
 layout change between the QKV GEMM and the attention.  The TPU kernel
 ``_packed_kernel`` holds one image's whole packed block in VMEM; here it
-is ``csrc/attention_fwd.cu`` (the per-(image, head, query tile) two-pass
-softmax that kernel #1 runs) instantiated at the flagship's head dim 192:
-fp32 logits times scale, ``P = p / l`` rounded to the input dtype before
-an fp32 ``P V``.  Its bound on the H100 is the bytes of qkv and of the
-output.  As in the JAX package, that kernel is the inference path.  Under
-autograd the JAX rule ``_pfa_fwd`` / ``_pfa_bwd`` applies, plain code
-there and plain PyTorch here: the softmax in the input dtype with the
-weights stored for the backward.  A CPU tensor runs
-:func:`_packed_xla_ref`; a CUDA tensor launches the kernel (bfloat16,
-head dim 64 or 192) or raises.  ``packed_flash_attention.launches``
-counts the launches.
+is ``csrc/packed_attn_sm90.cu`` (:func:`_build.packed_attention`): a
+persistent Hopper kernel over (image, head, 64-query tile) items, a
+producer warp's TMA ring of Q, K and V tiles read straight from the
+packed projection, ``wgmma`` products, the softmax in registers (one pass
+where the row is one 64-key tile, two passes up to 1,024 keys) and a TMA
+store of the output: fp32 logits times scale, ``P = p / l`` rounded to
+the input dtype before an fp32 ``P V``.  Its bound on the H100 is the
+bytes of qkv and of the output.  As in the JAX package, that kernel is
+the inference path, for N up to ``_build.PACKED_MAX_N`` (JAX's
+``_PACKED_MAX_N``).  Under autograd the JAX rule ``_pfa_fwd`` /
+``_pfa_bwd`` applies, plain code there and plain PyTorch here: the
+softmax in the input dtype with the weights stored for the backward.  A
+CPU tensor runs :func:`_packed_xla_ref`; a CUDA tensor launches the
+kernel (bfloat16, head dim 64 or 192) or raises.
+``packed_flash_attention.launches`` counts the launches.
 """
 
 from __future__ import annotations
@@ -450,7 +454,8 @@ def packed_flash_attention(qkv: torch.Tensor, heads: int,
 
     Under autograd, JAX's store-weights rule.  Otherwise a CPU ``qkv``
     runs :func:`_packed_xla_ref` and a CUDA one kernel #7, or raises for
-    a dtype other than bfloat16 or a head dim the kernel does not take.
+    a dtype other than bfloat16, a head dim the kernel does not take or
+    N past ``_build.PACKED_MAX_N``.
     """
     b, n, three_inner = qkv.shape
     if three_inner % (3 * heads):
@@ -465,7 +470,7 @@ def packed_flash_attention(qkv: torch.Tensor, heads: int,
         raise ValueError(f"packed_flash_attention: no kernel for device {qkv.device}")
     if qkv.dtype != torch.bfloat16:
         raise fp32_compute_not_ported("packed_flash_attention", qkv.dtype)
-    out = _build.attention_fwd(qkv.contiguous(), heads, n, s)
+    out = _build.packed_attention(qkv.contiguous(), heads, n, s)
     packed_flash_attention.launches += 1
     return out
 

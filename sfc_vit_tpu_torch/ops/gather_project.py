@@ -12,7 +12,11 @@ tensor to device memory.
     slot-major (feature ``p * K + kk`` multiplies ``w[p * K + kk]``), the
     product summed in fp32, the bias added in fp32, one rounding.  The TPU
     kernel's one-hot matmul is Mosaic's workaround for unaligned dynamic
-    indexing; the Hopper kernel does indexed loads.
+    indexing; the Hopper kernel, persistent over (64 tokens, image, 256
+    columns) items, brings each image's x into shared memory by one bulk
+    copy and gathers it there through the LUT (from global memory where
+    an image is large or not a multiple of 16 bytes), then multiplies by
+    ``wgmma`` and writes the tile by TMA store.
 
 :func:`gather_project_ref` is the kernel's plain version, in the kernel's
 order; :func:`gather_project_xla` is JAX's XLA twin, which rounds the

@@ -539,9 +539,43 @@ def test_torch_mha_bwd_matches_ref(cuda, b, n, d, heads, n_actual):
         assert float((t.grad.float() - w.float()).abs().max()) <= 2e-2 * scale
 
 
+def test_packed_attention_launcher_rejects_what_the_kernel_does_not_take():
+    """#7's launcher: head dims 64 and 192, N up to PACKED_MAX_N, n_valid in
+    [1, N], and a CUDA tensor."""
+    def qkv(n, dh, heads=2):
+        return torch.zeros(1, n, 3 * heads * dh, dtype=torch.bfloat16)
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _build.packed_attention(qkv(64, 192), 2, 64, 1.0)
+    with pytest.raises(ValueError, match="takes 64 or 192"):
+        _build.packed_attention(qkv(64, 128), 2, 64, 1.0)
+    with pytest.raises(ValueError, match="over the kernel's 1024 tokens"):
+        _build.packed_attention(qkv(_build.PACKED_MAX_N + 1, 64), 2, 64, 1.0)
+    for n_valid in (0, 65):
+        with pytest.raises(ValueError, match=r"n_valid=\d+ not in \[1, 64\]"):
+            _build.packed_attention(qkv(64, 64), 2, n_valid, 1.0)
+
+
+def test_packed_flash_attention_on_the_cpu_runs_the_plain_version():
+    """A CPU qkv takes ``_packed_xla_ref`` and launches nothing."""
+    qkv = _randn(np.random.default_rng(24), 2, 70, 3 * 2 * 64, device="cpu")
+    before = packed_flash_attention.launches
+    with torch.no_grad():
+        got = packed_flash_attention(qkv, 2)
+    assert packed_flash_attention.launches == before
+    torch.testing.assert_close(got, _packed_xla_ref(qkv, 2, 64 ** -0.5), rtol=0, atol=0)
+
+
+#: (b, n, heads, dh): a short row, the flagship's eval shape at batch 16,
+#: a ragged 200 (two passes, n not a multiple of 64), 'hier''s level and
+#: fusion layers, the longest rows (two passes over 16 and 11 key tiles)
+#: and more items than the persistent grid holds.
+_PACKED_SHAPES = [(2, 24, 2, 64), (16, 64, 4, 192), (3, 200, 2, 192), (4, 64, 4, 64),
+                  (2, 192, 4, 64), (2, 1024, 2, 64), (2, 700, 2, 192), (300, 64, 4, 192)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b, n, heads, dh", [(2, 24, 2, 64), (16, 64, 4, 192),
-                                             (3, 200, 2, 192)])
+@pytest.mark.parametrize("b, n, heads, dh", _PACKED_SHAPES)
 def test_packed_flash_attention_matches_plain(cuda, b, n, heads, dh):
     qkv = _randn(np.random.default_rng(22), b, n, 3 * heads * dh)
     before = packed_flash_attention.launches
@@ -550,6 +584,30 @@ def test_packed_flash_attention_matches_plain(cuda, b, n, heads, dh):
     assert packed_flash_attention.launches == before + 1
     torch.testing.assert_close(got.float(), _packed_xla_ref(qkv, heads, dh ** -0.5).float(),
                                **ONE_ROUND_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, n_valid", [(64, 50), (300, 130)])
+def test_packed_attention_masks_keys_past_n_valid(cuda, n, n_valid):
+    """Keys at or past n_valid add nothing to the row sum: #7 equals the
+    plain version on the first n_valid keys, in one pass and in two."""
+    qkv = _randn(np.random.default_rng(25), 3, n, 3 * 2 * 192)
+    got = _build.packed_attention(qkv, 2, n_valid, 192 ** -0.5)
+    q, k, v = qkv.view(3, n, 3, 2, 192).permute(2, 0, 3, 1, 4)
+    logits = (q.float() @ k[:, :, :n_valid].float().transpose(-1, -2)) * 192 ** -0.5
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    want = (w @ v[:, :, :n_valid]).transpose(1, 2).reshape(3, n, 2 * 192)
+    torch.testing.assert_close(got.float(), want.float(), **ONE_ROUND_TOL)
+
+
+@pytest.mark.gpu
+def test_packed_attention_repeats_bit_for_bit(cuda):
+    """#7 gives the same bits on two calls: each output row is summed by
+    the one item that owns it, with no atomics."""
+    for n, dh in ((64, 192), (700, 64)):
+        qkv = _randn(np.random.default_rng(26), 300, n, 3 * 4 * dh)
+        first = _build.packed_attention(qkv, 4, n, dh ** -0.5)
+        assert torch.equal(_build.packed_attention(qkv, 4, n, dh ** -0.5), first)
 
 
 @pytest.mark.gpu
@@ -738,11 +796,15 @@ def test_flash_dq_dkv_repeat_bit_for_bit(cuda):
 
 @pytest.mark.gpu
 def test_flash_kernel_attrs_list_the_wgmma_kernels_without_spills(cuda):
-    """``flash_kernel_attrs`` reports #8's two forms and #9-#11, none of
-    them with local memory (spills)."""
+    """``flash_kernel_attrs`` reports #7's four instances, #8's two forms,
+    #9-#11 and #14's two instances, none of them with local memory
+    (spills)."""
     attrs = _build.flash_kernel_attrs()
     assert {"flash_fwd streaming", "flash_fwd single step", "flash_fused_bwd",
-            "flash_dq", "flash_dkv"} <= set(attrs)
+            "flash_dq", "flash_dkv", "packed_attention dh64 one pass",
+            "packed_attention dh64 two passes", "packed_attention dh192 one pass",
+            "packed_attention dh192 two passes", "gather_project shared x",
+            "gather_project global x"} <= set(attrs)
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, name
         assert 0 < a["registers"] <= 255 and a["smem_bytes"] > 0, name
@@ -923,10 +985,14 @@ def test_local_attention_refuses_what_the_kernels_do_not_take(cuda):
 
 #: (b, n, k, m, group, d, repeat): the flagship's three levels (a 32 px
 #: image, D = 256) at batch 8, a ragged case with D past one 256-column
-#: slice and repeated LUT entries, and one with more features than a chunk.
+#: slice and repeated LUT entries (x gathered from global memory: an
+#: image of 500 bytes), one with more features than a chunk (an image past
+#: the shared buffer), batches of more items than twice the persistent
+#: grid, and an image of 222 bytes (global memory) with repeats at D 64.
 _GP_SHAPES = [(8, 1024, 3, 64, 16, 256, False), (8, 256, 12, 64, 4, 256, False),
               (8, 64, 48, 64, 1, 256, False), (3, 50, 5, 70, 3, 300, True),
-              (2, 196, 768, 196, 1, 96, False)]
+              (2, 196, 768, 196, 1, 96, False), (600, 1024, 3, 64, 16, 256, False),
+              (600, 64, 48, 64, 1, 256, False), (5, 37, 3, 20, 1, 64, True)]
 
 
 @pytest.mark.gpu
@@ -948,6 +1014,22 @@ def test_gather_project_matches_plain(cuda, b, n, k, m, group, d, repeat, bias):
     assert gp.gather_project.launches == before + 1
     torch.testing.assert_close(got.float(), gp.gather_project_ref(x, lut, w, bvec, group)
                                .float(), **ONE_ROUND_TOL)
+
+
+@pytest.mark.gpu
+def test_gather_project_repeats_bit_for_bit(cuda):
+    """#14 gives the same bits on two calls, from shared and from global
+    memory: each output element is summed by the one item that owns it."""
+    from sfc_vit_tpu_torch.ops import gather_project as gp
+
+    rng = np.random.default_rng(44)
+    for b, n, k, group, d in ((600, 256, 12, 4, 256), (3, 50, 5, 3, 300)):
+        x = _randn(rng, b, n, k, device=cuda)
+        lut = torch.from_numpy(rng.permutation(n)[:n // group * group].astype(np.int32)).to(cuda)
+        w = _randn(rng, group * k, d, scale=(group * k) ** -0.5, device=cuda)
+        bvec = _randn(rng, d, device=cuda)
+        first = _build.gather_project(x, lut, w, bvec, group)
+        assert torch.equal(_build.gather_project(x, lut, w, bvec, group), first)
 
 
 @pytest.mark.gpu
