@@ -14,8 +14,9 @@ Phases, each of which raises (non-zero exit) on failure:
 1. device: a CUDA device is present; prints its name and power limit;
 2. build: compiles the hand-written kernels (sfc_vit_tpu_torch/csrc)
    with nvcc and loads them; prints ptxas's registers and spills and the
-   runtime's registers and shared memory of the wgmma kernels #7-#11 and
-   #14, and fails if any spills;
+   runtime's registers and shared memory of the wgmma kernels #7-#11,
+   #14, the GEMM's three forms and split-K sum and #4's attention
+   backward, and fails if any spills;
 3. kernels: each fused block against its plain PyTorch version at the
    ViT-B/16 serving shapes (x [64, 196, 768] bf16, 12 heads of 64,
    F = 3072), with its error, tolerance and time beside the plain one;
@@ -29,7 +30,14 @@ Phases, each of which raises (non-zero exit) on failure:
    slice's shapes (x [256, 196, 768] bf16; attention with n_actual None
    and 150), every gradient's error beside its tolerance; each block's
    backward, and its forward + backward, timed against autograd of the
-   plain forward;
+   plain forward (the WMMA kernels' recorded times printed beside); then
+   each of the chains' GEMMs (the TMA + wgmma ``csrc/gemm_bf16.cu``: #3's
+   dW2, dz, dW1, dxn, #4's datt, dW_out, dxn, dW_qkv, and the forward's
+   fc1) held to and timed against ``torch.matmul`` on the same operands,
+   with TFLOP/s and the bound; and #4's attention backward
+   (``csrc/attention_bwd_sm90.cu``) against its plain version, bit for bit
+   on a second call, timed beside ``csrc/attention_bwd.cu`` and SDPA's
+   backward;
 5. train slice: Trainer + CurveViT ViT-B/16 (fp32 params, bf16 compute,
    mixup/cutmix on) for one epoch of 4 steps at batch 256 on
    synthetic_dataset(n=1024, hw=224, 1000 classes), then evaluate on 256
@@ -159,6 +167,8 @@ from sfc_vit_tpu_torch.ops.fused_attention_block import (
     attention_block_bwd_ref,
     attention_block_ref,
     attention_block_train_fwd,
+    attention_bwd_ref,
+    attention_fwd_ref,
     fused_attention_block,
 )
 from sfc_vit_tpu_torch.ops.flash_attention import _packed_xla_ref, packed_flash_attention
@@ -522,7 +532,8 @@ def phase_backward(card: str) -> dict:
                               _fwd_bwd(mlp_block_ref, (x, *ln, *mlp_w), g), iters=10)
     print(f"fused_mlp_block backward: kernels {ms:.4f} ms, autograd backward "
           f"of the plain forward {plain_ms:.4f} ms; forward + backward: kernels "
-          f"{both:.4f} ms, plain {both_plain:.4f} ms, {card}")
+          f"{both:.4f} ms, plain {both_plain:.4f} ms, {card}; WMMA kernels "
+          f"{WMMA_BWD_MS['fused_mlp_block_bwd']} ms")
     r = b * N
     results["fused_mlp_block_bwd"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -558,13 +569,114 @@ def phase_backward(card: str) -> dict:
         _fwd_bwd(attention_block_ref, (x, *ln, *attn_w), g, heads=HEADS), iters=10)
     print(f"fused_attention_block backward: kernels {ms:.4f} ms, autograd "
           f"backward of the plain forward {plain_ms:.4f} ms; forward + "
-          f"backward: kernels {both:.4f} ms, plain {both_plain:.4f} ms, {card}")
+          f"backward: kernels {both:.4f} ms, plain {both_plain:.4f} ms, {card}; "
+          f"WMMA kernels {WMMA_BWD_MS['fused_attention_block_bwd']} ms")
     results["fused_attention_block_bwd"] = dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
         **_bound(4 * r * D * D + 12 * r * D * D + 10 * b * HEADS * N * N * 64,
                  2 * (3 * r * D + r * 3 * D + r * D + 8 * D * D) + 4 * b * HEADS * N
                  + 16 * D))
+    _gemm_phase(card, b)
+    _attention_bwd_phase(card, b)
     return results
+
+
+#: #3's and #4's times on the WMMA GEMM and csrc/attention_bwd.cu that
+#: gemm_bf16.cu's TMA + wgmma design and attention_bwd_sm90.cu replaced,
+#: recorded by this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+#: section 6): printed beside this run's for reference only.
+WMMA_BWD_MS = {"fused_mlp_block_bwd": 9.028, "fused_attention_block_bwd": 7.313}
+
+
+def _gemm_phase(card: str, b: int) -> None:
+    """Each GEMM of #3's and #4's chains (and the training forward's fc1,
+    the NN form) at ViT-B batch ``b`` through ``_build.gemm`` with the
+    chain's epilogue, against ``torch.matmul`` on the same operands in
+    turns: ms, TFLOP/s and the bound; each product without its epilogue
+    held to ``torch.matmul``'s within one bf16 rounding (1 % of its
+    largest |value|)."""
+    gen = torch.Generator().manual_seed(5)
+    r = b * N
+    act = dict(h=_randn(gen, r, F), g=_randn(gen, r, D), xn=_randn(gen, r, D),
+               dz=_randn(gen, r, F, scale=0.1), z=_randn(gen, r, F),
+               att=_randn(gen, r, D), dqkv=_randn(gen, r, 3 * D, scale=0.1))
+    w = dict(w1=_randn(gen, D, F, scale=D ** -0.5), w2=_randn(gen, F, D, scale=F ** -0.5),
+             w_out=_randn(gen, D, D, scale=D ** -0.5),
+             w_qkv=_randn(gen, D, 3 * D, scale=D ** -0.5),
+             b1=_randn(gen, F, scale=0.1, dtype=torch.float32))
+    # (chain, label, a, b, trans_a, trans_b, epilogue, bytes of the epilogue's
+    # extra tensors, output bytes per element)
+    cases = [
+        ("#2/#3 fwd", "NN fc1 z = xn W1 + b1, gelu, save z", act["xn"], w["w1"], False,
+         False, dict(bias=w["b1"], act="gelu", save_z=True), 2 * r * F, 2),
+        ("#3", "TN dW2 = h^T g", act["h"], act["g"], True, False, {}, 0, 2),
+        ("#3", "NT dz = g W2^T * gelu'(z), db1", act["g"], w["w2"], False, True,
+         dict(act="gelu", z_in=act["z"], colsum=True), 2 * r * F, 2),
+        ("#3", "TN dW1 = xn^T dz", act["xn"], act["dz"], True, False, {}, 0, 2),
+        ("#3", "NT dxn = dz W1^T (fp32)", act["dz"], w["w1"], False, True,
+         dict(out_dtype=torch.float32), 0, 4),
+        ("#4", "NT datt = gp W_out^T", act["g"], w["w_out"], False, True, {}, 0, 2),
+        ("#4", "TN dW_out = att^T gp", act["att"], act["g"], True, False, {}, 0, 2),
+        ("#4", "NT dxn = dqkv W_qkv^T (fp32)", act["dqkv"], w["w_qkv"], False, True,
+         dict(out_dtype=torch.float32), 0, 4),
+        ("#4", "TN dW_qkv = xn^T dqkv", act["xn"], act["dqkv"], True, False, {}, 0, 2),
+    ]
+    print(f"GEMMs of #3's and #4's chains at ViT-B batch {b} (R = {r}), kernel "
+          f"(csrc/gemm_bf16.cu) and torch.matmul in turns, {card}:")
+    for chain, label, a, bm, ta, tb, ep, extra, out_bytes in cases:
+        m, k = (a.shape[1], a.shape[0]) if ta else a.shape
+        n = bm.shape[0] if tb else bm.shape[1]
+        opa = a.t() if ta else a
+        opb = bm.t() if tb else bm
+        got = _build.gemm(a, bm, trans_a=ta, trans_b=tb)
+        _frac_err(f"{label} vs torch.matmul", got, torch.matmul(opa, opb), 1e-2)
+        del got
+        ms, mm_ms = _ab_ms(lambda: _build.gemm(a, bm, trans_a=ta, trans_b=tb, **ep),
+                           lambda: torch.matmul(opa, opb))
+        flops = 2 * m * n * k
+        bound = _bound(flops, 2 * (m * k + k * n) + out_bytes * m * n + extra)
+        print(f"  {chain} {label} [{m}, {n}, K {k}]: "
+              f"kernel {ms:.4f} ms = {_tflops(flops, ms)}, torch.matmul {mm_ms:.4f} ms = "
+              f"{_tflops(flops, mm_ms)} ({ms / mm_ms:.2f}x), bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})")
+
+
+def _attention_bwd_phase(card: str, b: int) -> None:
+    """#4's attention backward at ViT-B batch ``b`` (csrc/attention_bwd_sm90.cu)
+    against its plain version, timed beside the kernel it replaced there
+    (csrc/attention_bwd.cu, still #6's) and SDPA's autograd backward on
+    contiguous [B, H, N, Dh] q, k, v."""
+    gen = torch.Generator().manual_seed(6)
+    s = 64 ** -0.5
+    qkv = _randn(gen, b, N, 3 * D)
+    att, lse = attention_fwd_ref(qkv, HEADS, N, s)
+    datt = _randn(gen, b, N, D)
+    _check(_build.attention_bwd_route(64, N, False) == "sm90", "#4's route is not the sm90 kernel")
+    got = _build.attention_bwd(qkv, att, datt, lse, HEADS, N, s)
+    print(f"attention backward of #4, [{b}, {N}, {HEADS}, 64], vs attention_bwd_ref:")
+    _frac_err("dqkv", got, attention_bwd_ref(qkv, att, datt, lse, HEADS, N, s), 1e-2)
+    _check(torch.equal(got, _build.attention_bwd(qkv, att, datt, lse, HEADS, N, s)),
+           "the attention backward does not repeat bit for bit")
+    delta = torch.empty((b, HEADS, N), dtype=torch.float32, device=DEVICE)
+    old = torch.empty_like(qkv)
+    lib = _build.library()
+
+    def wmma():  # csrc/attention_bwd.cu, the route #4 took before attention_bwd_sm90.cu
+        _build._check(lib.sfc_attention_bwd_bf16(
+            qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(), None,
+            delta.data_ptr(), old.data_ptr(), b, N, HEADS, 64, N, s, 1.0, _build._stream()),
+            "attention_bwd (csrc/attention_bwd.cu)")
+    wmma()
+    _frac_err("dqkv of csrc/attention_bwd.cu", old, got, 1e-2)
+    ms, old_ms = _ab_ms(lambda: _build.attention_bwd(qkv, att, datt, lse, HEADS, N, s), wmma)
+    q, k, v = qkv.view(b, N, 3, HEADS, 64).unbind(2)
+    _, sdpa_bwd = _sdpa_ms(q, k, v, datt.view(b, N, HEADS, 64))
+    flops = 5 * 2 * b * HEADS * N * N * 64
+    bound = _bound(flops, 2 * b * N * D * (3 + 2 + 3) + 4 * b * HEADS * N)
+    print(f"attention backward [{b}, {N}, {HEADS}, 64]: kernel {ms:.4f} ms = "
+          f"{_tflops(flops, ms)} nominal, csrc/attention_bwd.cu {old_ms:.4f} ms, SDPA "
+          f"backward {sdpa_bwd:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}), {card}")
 
 
 def _lr_zero_state(model) -> TrainState:
@@ -665,10 +777,12 @@ def phase_train(card: str) -> dict:
 
 
 #: Kernels told apart by their template arguments: the GEMM's three
-#: layouts <trans_a, trans_b> and #8's two forms.
-_GEMM_LABELS = {"gemm_bf16_kernel<false, false>": "gemm_bf16 NN (forward)",
-                "gemm_bf16_kernel<false, true>": "gemm_bf16 NT (dX, dz, datt)",
-                "gemm_bf16_kernel<true, false>": "gemm_bf16 TN (weight gradients)",
+#: layouts <trans_a, trans_b, act kind> and #8's two forms.
+_GEMM_LABELS = {"gemm_bf16_sm90<false, false": "gemm_bf16 NN (forward)",
+                "gemm_bf16_sm90<false, true": "gemm_bf16 NT (dX, dz, datt)",
+                "gemm_bf16_sm90<true, false": "gemm_bf16 TN (weight gradients)",
+                "gemm_splitk_sum": "gemm_bf16 TN split-K sum",
+                "attention_bwd_sm90": "attention_bwd_sm90 (#4)",
                 "flash_fwd_sm90<false>": "flash_fwd streaming (#8)",
                 "flash_fwd_sm90<true>": "flash_fwd single K step (#8)",
                 "flash_bwd_fused_sm90": "flash_bwd fused (#9)",
@@ -1966,7 +2080,7 @@ def main() -> int:
              source="sfc_vit_tpu_torch/csrc/gemm_bf16.cu",
              replaces="sfc_vit_tpu/ops/fused_mlp.py:237"),
         dict(name="fused_attention_block_bwd", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/attention_bwd.cu",
+             source="sfc_vit_tpu_torch/csrc/attention_bwd_sm90.cu",
              replaces="sfc_vit_tpu/ops/fused_attention_block.py:333"),
         dict(name="fused_torch_mha", route="cuda",
              source="sfc_vit_tpu_torch/csrc/attention_fwd.cu",

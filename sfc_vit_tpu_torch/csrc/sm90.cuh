@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels (#7-#11,
-// #14): TMA tensor maps built on the host, TMA loads, stores and
-// reduce-adds, plain bulk copies, mbarriers, the grid of a persistent
-// kernel, and warpgroup matrix multiplies (wgmma) on 128-byte-swizzled
-// shared tiles.
+// #14, the GEMM under #1-#6, #15 and #16, and #4's attention backward):
+// TMA tensor maps built on the host, TMA loads, stores and reduce-adds,
+// plain bulk copies, mbarriers, the grid of a persistent kernel, and
+// warpgroup matrix multiplies (wgmma) on 128-byte-swizzled shared tiles.
 //
 // Shared tiles are bf16 rows of 64 elements (128 bytes), as TMA writes
 // them with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r sits
@@ -121,6 +121,24 @@ inline cudaError_t map_rows_bf16(CUtensorMap* m, void* base, int batch, int rows
   const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box, unit,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A row-major bf16 matrix [outer, inner] (inner a multiple of 8, base on
+// 16 bytes) as a 2-d map whose box is 64 inner x 64 outer elements,
+// 128-byte swizzled.  Loads read past either edge as zero.
+inline cudaError_t map_2d_bf16(CUtensorMap* m, const void* base, long long inner,
+                               long long outer) {
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -249,6 +267,15 @@ __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uin
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load2(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load1(void* dst, const CUtensorMap* map, uint64_t* bar,
                                           int c0) {
   asm volatile(
@@ -338,6 +365,12 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
          (uint64_t(1) << 62);
 }
 
+// The same for an MN-major operand wider than one swizzle atom: 64-column
+// atoms `atom_bytes` apart (the leading byte offset, bits 16-29).
+__device__ __forceinline__ uint64_t desc_sw128_atoms(const void* p, uint32_t atom_bytes) {
+  return (desc_sw128(p) & ~(uint64_t(0x3FFF) << 16)) | (uint64_t(atom_bytes >> 4) << 16);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -404,6 +437,37 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(kTransB));
 }
 
+#define SFC_WGMMA_D64                                                                \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+  "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), \
+  "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), \
+  "+f"(d[63])
+
+// d (m64n128, fp32) = A . B (+ d when accumulate): both operands from
+// shared memory.  An MN-major B of 128 columns spans two 64-column
+// swizzle atoms: see desc_sw128_atoms.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : SFC_WGMMA_D64
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+#undef SFC_WGMMA_D64
 #undef SFC_WGMMA_D32
 #undef SFC_WGMMA_REGS32
 

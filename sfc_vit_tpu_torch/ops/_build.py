@@ -17,7 +17,8 @@ unchanged one loads the library already there.  A failed build raises:
 nothing runs without the kernels.
 
 The launchers below (``ln_rows``, ``ln_rows_bwd``, ``gemm``,
-``act_bf16``, ``colsum``, ``attention_fwd``, ``attention_bwd``,
+``act_bf16``, ``colsum``, ``attention_fwd``, ``attention_bwd`` (on
+``csrc/attention_bwd_sm90.cu`` or ``csrc/attention_bwd.cu``),
 ``packed_attention``, ``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``,
 ``flash_dkv``, ``local_fwd``, ``local_bwd``, ``gather_project``,
 ``wgmma_probe``) check
@@ -42,6 +43,8 @@ from typing import Optional
 import torch
 
 __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
+           "gemm_splits", "GEMM_FORMS", "attention_bwd_route",
+           "ATTENTION_BWD_SM90_MAX_N",
            "act_bf16", "colsum", "attention_fwd", "attention_bwd",
            "ATTENTION_HEAD_DIMS", "packed_attention", "PACKED_MAX_N", "flash_fwd",
            "flash_fused_bwd", "flash_dq", "flash_dkv", "FLASH_HEAD_DIMS",
@@ -66,15 +69,17 @@ _SIGNATURES = {
     # x, x_b, dxn, dxn_bf16, scale, g, dx, dx32, dscale, dbias, gsum, dxsum;
     # rows, d, eps, add_g, stream
     "sfc_ln_rows_bwd_bf16": (_P, _P, _P, _I) + (_P,) * 8 + (_I, _I, _F, _I, _P),
-    # a, b, bias, residual, residual_f32, z_in, z_out, colsum, c; c_fp32, M,
-    # N, K, trans_a, trans_b, act; stream
-    "sfc_gemm_bf16": (_P,) * 9 + (_I,) * 7 + (_P,),
+    # a, b, bias, residual, residual_f32, z_in, z_out, colsum, c, workspace;
+    # c_fp32, M, N, K, trans_a, trans_b, act, splits; stream
+    "sfc_gemm_bf16": (_P,) * 10 + (_I,) * 8 + (_P,),
     "sfc_act_bf16": (_P, _P, _L, _I, _P),
     "sfc_colsum_bf16": (_P, _P, _I, _I, _P),
     "sfc_attention_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                                _P),
     "sfc_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _F, _P),
+    # qkv, att, datt, lse, dqkv; batch, n, heads, n_valid; scale, stream
+    "sfc_attention_bwd_sm90_bf16": (_P,) * 5 + (_I,) * 4 + (_F, _P),
     # qkv, out; batch, n, heads, dh, n_valid; scale, stream
     "sfc_packed_attention_bf16": (_P, _P) + (_I,) * 5 + (_F, _P),
     # q, k, v, out, lse; batch, heads, nq, nk, dh; q, k, v strides
@@ -102,6 +107,9 @@ _SIGNATURES = {
     "sfc_flash_dkv_attrs": (_P,),
     # dh, one_pass, out[3] | smem_x, out[3]
     "sfc_packed_attention_attrs": (_I, _I, _P),
+    # form, out[3] | out[3]
+    "sfc_gemm_attrs": (_I, _P),
+    "sfc_attention_bwd_sm90_attrs": (_P,),
     "sfc_gather_project_attrs": (_I, _P),
 }
 
@@ -112,6 +120,20 @@ ATTENTION_HEAD_DIMS = (64, 192)
 #: sequence #7 takes (``csrc/packed_attn_sm90.cu``'s kMaxN) and the packed
 #: route's range (``ops/attention.py``).
 PACKED_MAX_N = 1024
+#: The longest sequence ``csrc/attention_bwd_sm90.cu`` takes (its kMaxN):
+#: one (image, head)'s q, k, v and da in one block's shared memory.
+#: :func:`attention_bwd` sends head dim 64 without dropout up to this
+#: length there, and everything else to ``csrc/attention_bwd.cu``.
+ATTENTION_BWD_SM90_MAX_N = 256
+#: The GEMM's output tile and K block (``csrc/gemm_bf16.cu``'s BM, BN, BK).
+GEMM_TILE_M, GEMM_TILE_N, GEMM_BLOCK_K = 128, 128, 64
+#: Bounds of :func:`gemm_splits`: at most this many K ranges, each at least
+#: this many K blocks deep.
+GEMM_MAX_SPLITS, GEMM_MIN_SPLIT_BLOCKS = 64, 4
+#: fp32 partial elements the card writes and reads back in the time one SM
+#: takes for one 128 x 128 x 64 K block (8 bytes at 3.35 TB/s against
+#: 2.1 MFLOP at ~4.5 TFLOP/s an SM): the cost of a split in :func:`gemm_splits`.
+_SPLIT_ELEMS_PER_KBLOCK = 200_000
 #: Head dims the flash kernels (#8-#11) are instantiated for: the
 #: long-context presets' 64.
 FLASH_HEAD_DIMS = (64,)
@@ -306,6 +328,46 @@ def ln_rows_bwd(x: torch.Tensor, dxn: torch.Tensor, scale: torch.Tensor,
 _ACTS = {None: 0, "gelu": 1, "relu": 2}
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemm_splits(m: int, n: int, k: int, trans_a: bool, sms: int) -> int:
+    """How many contiguous K ranges :func:`gemm` sums ``op(a) @ op(b)`` in:
+    1 unless ``trans_a`` (the weight gradients, whose few output tiles
+    would leave SMs idle through a deep contraction).  For ``trans_a``,
+    the count whose work units (tiles x splits) spread best over ``sms``
+    persistent blocks, charging each split its fp32 partial's round trip:
+    cost(s) = waves(s) x K blocks a split + s x M x N /
+    ``_SPLIT_ELEMS_PER_KBLOCK``.  Every range is non-empty and at least
+    :data:`GEMM_MIN_SPLIT_BLOCKS` K blocks deep: the kernel gives split s
+    the K blocks [s p, min(ceil(K / 64), (s + 1) p)) with p =
+    ceil(ceil(K / 64) / splits), and refuses a plan that leaves one empty."""
+    kb = _cdiv(k, GEMM_BLOCK_K)
+    if not trans_a or kb < 2 * GEMM_MIN_SPLIT_BLOCKS:
+        return 1
+    tiles = _cdiv(m, GEMM_TILE_M) * _cdiv(n, GEMM_TILE_N)
+    best, best_cost = 1, None
+    for s in range(1, min(GEMM_MAX_SPLITS, kb // GEMM_MIN_SPLIT_BLOCKS) + 1):
+        per = _cdiv(kb, s)
+        if _cdiv(kb, per) != s:  # s ranges of `per` blocks would leave one empty
+            continue
+        cost = _cdiv(tiles * s, sms) * per + s * m * n / _SPLIT_ELEMS_PER_KBLOCK
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
          trans_b: bool = False, bias: Optional[torch.Tensor] = None,
          act: Optional[str] = None, residual: Optional[torch.Tensor] = None,
@@ -325,6 +387,9 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     of ``act``; ``colsum`` also returns the fp32 column sums of the
     result before the residual.  ``out_dtype`` float32 keeps C in fp32.
     Returns C, or ``(C, z, colsum)`` with only the outputs asked for.
+    A ``trans_a`` product is summed in :func:`gemm_splits` K ranges into
+    an fp32 workspace, then added in order (the same bits every call on
+    one card).
     """
     if trans_a and trans_b:
         raise ValueError("gemm: trans_a and trans_b together are not supported")
@@ -354,11 +419,14 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     z = torch.empty((m, n), dtype=a.dtype, device=a.device) if save_z else None
     cs = torch.zeros(n, dtype=torch.float32, device=a.device) if colsum else None
+    splits = gemm_splits(m, n, k, trans_a, _sm_count(a.device))
+    ws = (torch.empty(splits * m * n, dtype=torch.float32, device=a.device)
+          if splits > 1 else None)
     _check(library().sfc_gemm_bf16(
         a.data_ptr(), b.data_ptr(), _ptr(bias), _ptr(residual), _ptr(residual_f32),
-        _ptr(z_in),
-        _ptr(z), _ptr(cs), c.data_ptr(), int(out_dtype == torch.float32),
-        m, n, k, int(trans_a), int(trans_b), _ACTS[act], _stream()), "gemm")
+        _ptr(z_in), _ptr(z), _ptr(cs), c.data_ptr(), _ptr(ws),
+        int(out_dtype == torch.float32), m, n, k, int(trans_a), int(trans_b),
+        _ACTS[act], splits, _stream()), "gemm")
     extra = tuple(t for t in (z, cs) if t is not None)
     return (c, *extra) if extra else c
 
@@ -432,6 +500,14 @@ def attention_fwd(qkv: torch.Tensor, heads: int, n_valid: int,
     return (out, lse) if with_lse else out
 
 
+def attention_bwd_route(dh: int, n: int, dropout: bool) -> str:
+    """Which kernel :func:`attention_bwd` runs: ``"sm90"``
+    (``csrc/attention_bwd_sm90.cu``) for head dim 64 without dropout up to
+    :data:`ATTENTION_BWD_SM90_MAX_N` tokens, else ``"wmma"``
+    (``csrc/attention_bwd.cu``).  Both compute the same formula."""
+    return "sm90" if dh == 64 and not dropout and n <= ATTENTION_BWD_SM90_MAX_N else "wmma"
+
+
 def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
                   lse: torch.Tensor, heads: int, n_valid: int,
                   scale: float, mask: Optional[torch.Tensor] = None,
@@ -439,15 +515,21 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
     """The packed ``dqkv`` [B, N, 3*H*Dh] (bf16) of the attention in
     :func:`attention_fwd` from its saved ``qkv``, output ``att``, fp32
     ``lse`` [B, H, N], the output's cotangent ``datt`` [B, N, H*Dh] and,
-    for the dropout form, the forward's ``mask`` and ``keep``."""
+    for the dropout form, the forward's ``mask`` and ``keep``; on the
+    kernel :func:`attention_bwd_route` names."""
     mask = _mask_u8(mask)
     b, n, inner, dh = _check_packed(qkv, heads, n_valid, "attention_bwd", mask,
                                     keep)
     _require(att, "att", (b, n, inner))
     _require(datt, "datt", (b, n, inner))
     _require(lse, "lse", (b, heads, n), torch.float32)
-    delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
+    if attention_bwd_route(dh, n, mask is not None) == "sm90":
+        _check(library().sfc_attention_bwd_sm90_bf16(
+            qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(),
+            dqkv.data_ptr(), b, n, heads, n_valid, scale, _stream()), "attention_bwd")
+        return dqkv
+    delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
     _check(library().sfc_attention_bwd_bf16(
         qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(),
         _ptr(mask), delta.data_ptr(), dqkv.data_ptr(), b, n, heads, dh,
@@ -647,6 +729,13 @@ def gather_project(x: torch.Tensor, lut: torch.Tensor, w: torch.Tensor,
     return out
 
 
+#: The GEMM's kernels by ``sfc_gemm_attrs``'s form number: each of the
+#: three layouts (op(A) op(B): NN, NT with b stored [N, K], TN with a
+#: stored [K, M]) with no activation, act or act'(z) in its epilogue, and
+#: the split-K sum.
+GEMM_FORMS = tuple(f"{layout}{kind}" for layout in ("NN", "NT", "TN")
+                   for kind in ("", " act", " act'")) + ("split-K sum",)
+
 #: The operand forms of :func:`wgmma_probe` (``csrc/wgmma_probe.cu``).
 WGMMA_FORMS = ("ss", "rs", "ss_trans_b", "rs_trans_b", "ss_trans_ab")
 
@@ -671,8 +760,9 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor, form: str) -> torch.Tensor:
 
 def flash_kernel_attrs() -> dict:
     """What the compiler gave the ``wgmma`` kernels, #7's four instances
-    (head dim 64 or 192, one pass or two), #8's two forms, #9-#11 and #14's
-    two instances (x gathered from shared or global memory)
+    (head dim 64 or 192, one pass or two), #8's two forms, #9-#11, #14's
+    two instances (x gathered from shared or global memory), the GEMM's
+    three forms and its split-K sum, and #4's attention backward
     (``cudaFuncGetAttributes``):
     ``{name: {"registers", "local_bytes", "smem_bytes"}}``, local bytes
     being spills and stack a thread, shared bytes a block."""
@@ -689,7 +779,10 @@ def flash_kernel_attrs() -> dict:
             ("flash_dq", lib.sfc_flash_dq_attrs),
             ("flash_dkv", lib.sfc_flash_dkv_attrs),
             ("gather_project shared x", lambda a: lib.sfc_gather_project_attrs(1, a)),
-            ("gather_project global x", lambda a: lib.sfc_gather_project_attrs(0, a))):
+            ("gather_project global x", lambda a: lib.sfc_gather_project_attrs(0, a)),
+            *((f"gemm {form}", lambda a, i=i: lib.sfc_gemm_attrs(i, a))
+              for i, form in enumerate(GEMM_FORMS)),
+            ("attention_bwd_sm90", lib.sfc_attention_bwd_sm90_attrs)):
         vals = (ctypes.c_int * 3)()
         _check(call(ctypes.cast(vals, ctypes.c_void_p)), f"attributes of {name}")
         out[name] = dict(zip(("registers", "local_bytes", "smem_bytes"), vals))

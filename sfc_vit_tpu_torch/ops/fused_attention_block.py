@@ -7,7 +7,7 @@ group of whole images, their QKV projection and every head's softmax in
 100 MiB of VMEM; a Hopper block has 227 KB of shared memory, so here
 each is a chain of hand-written kernels (``csrc/ln_rows.cu``,
 ``csrc/gemm_bf16.cu``, ``csrc/attention_fwd.cu``,
-``csrc/attention_bwd.cu``, ``csrc/ln_rows_bwd.cu``).
+``csrc/attention_bwd_sm90.cu``, ``csrc/ln_rows_bwd.cu``).
 
 Forward: ``ln_rows`` -> ``gemm`` (QKV, no bias, rounded to bf16 as the
 TPU kernel's ``qkv_s`` is) -> ``attention_fwd`` (per image, head and
@@ -18,8 +18,9 @@ projection, +x in fp32, one round).  Training saves qkv, att and lse, as
 
 Backward (the TPU's ``with_acts`` + ``with_lse`` path): ``ln_rows``
 (recompute xn) -> ``gemm`` NT (datt = gp W_out^T) -> ``attention_bwd``
-(packed dqkv) -> ``gemm`` TN (dW_out = att^T gp) -> ``gemm`` NT (dxn =
-dqkv W_qkv^T, fp32) -> ``gemm`` TN (dW_qkv = xn^T dqkv) ->
+(packed dqkv; one block per (image, head) up to 256 tokens, else
+``csrc/attention_bwd.cu``) -> ``gemm`` TN (dW_out = att^T gp) -> ``gemm``
+NT (dxn = dqkv W_qkv^T, fp32) -> ``gemm`` TN (dW_qkv = xn^T dqkv) ->
 ``ln_rows_bwd`` (dx = LN backward + g, dLN).
 
 No biases: the pre-norm family's to_qkv/to_out are bias-free.

@@ -162,6 +162,53 @@ def test_colsum_and_mask_arguments_are_checked():
                              keep=0.0)
 
 
+@pytest.mark.parametrize("m, n, k, sms", [
+    (768, 768, 50176, 132), (768, 3072, 50176, 132), (3072, 768, 50176, 132),
+    (768, 2304, 50176, 132), (256, 256, 32768, 132), (768, 768, 50184, 114),
+    (72, 8, 588, 132), (8, 8, 5, 132), (256, 768, 100_000, 1),
+])
+def test_gemm_split_plan_covers_k_exactly(m, n, k, sms):
+    """The TN split plan: at least one split, at most GEMM_MAX_SPLITS; the
+    K ranges the kernel takes start at 0, meet end to end, end at K, none
+    empty, each but the last a whole number of 64-row blocks and at least
+    GEMM_MIN_SPLIT_BLOCKS of them when there are several."""
+    splits = _build.gemm_splits(m, n, k, True, sms)
+    assert 1 <= splits <= _build.GEMM_MAX_SPLITS
+    # csrc/gemm_bf16.cu's rule: split s takes ceil(ceil(K / 64) / splits)
+    # blocks of 64 rows from block s times that, the last cut at K.
+    per = -(-(-(-k // _build.GEMM_BLOCK_K)) // splits) * _build.GEMM_BLOCK_K
+    ranges = [(s * per, min(k, (s + 1) * per)) for s in range(splits)]
+    assert len(ranges) == splits and ranges[0][0] == 0 and ranges[-1][1] == k
+    for (s0, e0), (s1, _) in zip(ranges, ranges[1:]):
+        assert e0 == s1 and e0 % _build.GEMM_BLOCK_K == 0
+    for start, end in ranges:
+        assert end > start
+        if splits > 1:
+            assert end - start > (_build.GEMM_MIN_SPLIT_BLOCKS - 1) * _build.GEMM_BLOCK_K
+
+
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_gemm_splits_only_the_weight_gradients(trans_b):
+    """NN and NT products are never split, whatever their depth; a TN
+    product with many output tiles for the SMs is not split either."""
+    assert _build.gemm_splits(50176, 768, 3072, False, 132) == 1
+    assert _build.gemm_splits(768, 768, 50176, False, 132) == 1
+    assert _build.gemm_splits(768, 768, 50176, True, 132) > 1
+    assert _build.gemm_splits(8192, 8192, 1024, True, 132) == 1
+
+
+@pytest.mark.parametrize("dh, n, dropout, route", [
+    (64, 1, False, "sm90"), (64, 196, False, "sm90"), (64, 256, False, "sm90"),
+    (64, 257, False, "wmma"), (64, 196, True, "wmma"), (192, 64, False, "wmma"),
+])
+def test_attention_bwd_route(dh, n, dropout, route):
+    """#4's attention backward (Dh 64, no dropout) up to the named limit
+    on csrc/attention_bwd_sm90.cu; #6's masked forms and longer rows on
+    csrc/attention_bwd.cu."""
+    assert _build.ATTENTION_BWD_SM90_MAX_N == 256
+    assert _build.attention_bwd_route(dh, n, dropout) == route
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("nvcc is installed here; the failure path needs none")
@@ -356,6 +403,134 @@ def test_gemm_save_z_and_dact_epilogues(cuda, act):
     want = (g.float() @ w2.float().T) * dact
     torch.testing.assert_close(dz.float(), want.bfloat16().float(), **ONE_ROUND_TOL)
     torch.testing.assert_close(db1, want.sum(0), **F32_SUM_TOL)
+
+
+def _gemm_operands(rng, form, r, n, k=768):
+    """a, b stored as ``form`` reads them and the fp32 product: NN and NT
+    a [R, K] (R output rows), TN a [R, K] read transposed (R = the
+    contraction, K output rows)."""
+    if form == "TN":
+        a, b = _randn(rng, r, k), _randn(rng, r, n, scale=r ** -0.5)
+        return a, b, a.float().T @ b.float()
+    a = _randn(rng, r, k)
+    if form == "NT":
+        b = _randn(rng, n, k, scale=k ** -0.5)
+        return a, b, a.float() @ b.float().T
+    b = _randn(rng, k, n, scale=k ** -0.5)
+    return a, b, a.float() @ b.float()
+
+
+def _gemm(form, a, b, **kw):
+    return _build.gemm(a, b, trans_a=form == "TN", trans_b=form == "NT", **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8, 72, 768, 2304])
+@pytest.mark.parametrize("r", [196 * 3, 50176 + 8])
+@pytest.mark.parametrize("form", ["NN", "NT", "TN"])
+def test_gemm_forms_at_ragged_rows(cuda, form, r, n):
+    """The TMA + wgmma GEMM in its three layouts at ragged R (rows, or the
+    contraction of TN) and N down to 8, bf16 and fp32 C against the fp32
+    product."""
+    a, b, want = _gemm_operands(np.random.default_rng(50), form, r, n)
+    torch.testing.assert_close(_gemm(form, a, b).float(), want.bfloat16().float(),
+                               **ONE_ROUND_TOL)
+    got = _gemm(form, a, b, out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, **F32_SUM_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r, n", [(333, 136), (50176 + 8, 72)])
+@pytest.mark.parametrize("form", ["NN", "NT", "TN"])
+def test_gemm_epilogues_in_every_form(cuda, form, r, n):
+    """Every epilogue term in every layout, in the contract's order (+ bias;
+    z; act or act'(z); colsum; + residual; + residual_f32; one rounding),
+    bf16 and fp32 C; TN at 50,184 rows runs split-K, whose second pass
+    applies the epilogue."""
+    rng = np.random.default_rng(51)
+    a, b, prod = _gemm_operands(rng, form, r, n)
+    m = prod.shape[0]
+    bias = _randn(rng, n, dtype=torch.float32)
+    res, res32 = _randn(rng, m, n), _randn(rng, m, n, dtype=torch.float32)
+    pre = prod + bias
+    c, z, cs = _gemm(form, a, b, bias=bias, act="gelu", residual=res,
+                     save_z=True, colsum=True)
+    torch.testing.assert_close(z.float(), pre.bfloat16().float(), **ONE_ROUND_TOL)
+    torch.testing.assert_close(cs, F.gelu(pre).sum(0), rtol=1e-3, atol=1e-2)
+    torch.testing.assert_close(c.float(), (F.gelu(pre) + res.float()).bfloat16().float(),
+                               **ONE_ROUND_TOL)
+    zin = _randn(rng, m, n)
+    dz, db = _gemm(form, a, b, act="relu", z_in=zin, colsum=True,
+                   residual_f32=res32, out_dtype=torch.float32)
+    want = prod * (zin.float() > 0).float()
+    torch.testing.assert_close(db, want.sum(0), rtol=1e-3, atol=1e-2)
+    torch.testing.assert_close(dz, want + res32, **F32_SUM_TOL)
+
+
+@pytest.mark.gpu
+def test_gemm_split_k_repeats_bit_for_bit(cuda):
+    """dW_out's shape at ViT-B batch 256 (+ 8 ragged rows): the TN product
+    is split, each output one fp32 sum in split order, so two calls give
+    the same bits, in bf16 and fp32 C, and the fp32 C is the fp32 product."""
+    rng = np.random.default_rng(52)
+    r = 50176 + 8
+    a, b, want = _gemm_operands(rng, "TN", r, 768)
+    assert _build.gemm_splits(768, 768, r, True, _build._sm_count(a.device)) > 1
+    first, second = (_gemm("TN", a, b, out_dtype=torch.float32) for _ in range(2))
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, want, **F32_SUM_TOL)
+    assert torch.equal(_gemm("TN", a, b), _gemm("TN", a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, heads, n_valid", [
+    (2, 64, 3, 50), (3, 196, 12, 150), (2, 196, 2, 196), (2, 200, 2, 199),
+    (1, 256, 4, 100), (3, 1, 2, 1),
+])
+def test_attention_bwd_sm90_matches_plain(cuda, b, n, heads, n_valid):
+    """#4's attention backward on csrc/attention_bwd_sm90.cu against
+    attention_bwd_ref (its rounding points) at lengths around ViT-B's 196
+    and up to the kernel's limit, keys masked past n_valid; two calls give
+    the same bits (no atomics, no second kernel)."""
+    assert _build.attention_bwd_route(64, n, False) == "sm90"
+    rng = np.random.default_rng(53)
+    s = 64 ** -0.5
+    qkv = _randn(rng, b, n, 3 * heads * 64)
+    att, lse = attention_fwd_ref(qkv, heads, n_valid, s)
+    datt = _randn(rng, b, n, heads * 64)
+    got = _build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s)
+    want = attention_bwd_ref(qkv, att, datt, lse, heads, n_valid, s)
+    torch.testing.assert_close(got.float(), want.float(), **ONE_ROUND_TOL)
+    assert torch.equal(got, _build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [256, 257])
+def test_attention_bwd_routes_on_either_side_of_the_limit(cuda, n):
+    """The same formula on both kernels: 256 tokens on the Hopper kernel,
+    257 on csrc/attention_bwd.cu, each held to attention_bwd_ref."""
+    want_route = "sm90" if n <= _build.ATTENTION_BWD_SM90_MAX_N else "wmma"
+    assert _build.attention_bwd_route(64, n, False) == want_route
+    rng = np.random.default_rng(54)
+    s = 64 ** -0.5
+    qkv = _randn(rng, 2, n, 3 * 2 * 64)
+    att, lse = attention_fwd_ref(qkv, 2, n - 3, s)
+    datt = _randn(rng, 2, n, 2 * 64)
+    got = _build.attention_bwd(qkv, att, datt, lse, 2, n - 3, s)
+    want = attention_bwd_ref(qkv, att, datt, lse, 2, n - 3, s)
+    torch.testing.assert_close(got.float(), want.float(), **ONE_ROUND_TOL)
+
+
+@pytest.mark.gpu
+def test_gemm_and_attention_bwd_attrs_without_spills(cuda):
+    """``flash_kernel_attrs`` lists the GEMM's three forms, its split-K sum
+    and #4's attention backward, none with local memory (spills)."""
+    attrs = _build.flash_kernel_attrs()
+    names = {f"gemm {f}" for f in _build.GEMM_FORMS} | {"attention_bwd_sm90"}
+    assert names <= set(attrs)
+    for name in names:
+        assert attrs[name]["local_bytes"] == 0, name
+        assert 0 < attrs[name]["registers"] <= 255, name
 
 
 @pytest.mark.gpu
