@@ -15,8 +15,9 @@ Phases, each of which raises (non-zero exit) on failure:
 2. build: compiles the hand-written kernels (sfc_vit_tpu_torch/csrc)
    with nvcc and loads them; prints ptxas's registers and spills and the
    runtime's registers and shared memory of the wgmma kernels #7-#11,
-   #14, the GEMM's three forms and split-K sum and #4's attention
-   backward, and fails if any spills;
+   #14, the GEMM's three forms, split-K sum and LayerNorm form (#15) and
+   the attention backward's five instances (#4, #6), and fails if any
+   spills;
 3. kernels: each fused block against its plain PyTorch version at the
    ViT-B/16 serving shapes (x [64, 196, 768] bf16, 12 heads of 64,
    F = 3072), with its error, tolerance and time beside the plain one;
@@ -54,7 +55,12 @@ Phases, each of which raises (non-zero exit) on failure:
    plain versions, each error beside its tolerance; each timed beside its
    plain version and its bound; #7 by CUDA-graph replay, beside the
    kernel it replaced (``csrc/attention_fwd.cu``) and
-   ``F.scaled_dot_product_attention`` on contiguous copies of q, k and v.
+   ``F.scaled_dot_product_attention`` on contiguous copies of q, k and v;
+   and #6's attention backward alone (``csrc/attention_bwd_sm90.cu`` with
+   the mask) at the flagship's [512, 64, 4 x 192] and 'hier''s [512, 64,
+   4 x 64] and [512, 192, 4 x 64] against the masked plain twin and a
+   second call (bit for bit), in turns with ``csrc/attention_bwd.cu``,
+   beside its byte bound and SDPA's unmasked backward.
 7. flagship slice: ``build_model(preset_config("flagship",
    dtype="bfloat16"))`` on the card, ``Trainer.fit`` for one epoch of 4
    steps at batch 512 on synthetic_dataset(n=2048, hw=32, 10 classes),
@@ -118,7 +124,11 @@ Phases, each of which raises (non-zero exit) on failure:
    served (1, 100, 256 images), #14 launched 3 x (steps + eval + served
    forwards), the served logits against the unfused flagship's at the same
    weights (3 % of the largest |logit|), forward img/s of both.
-13. post-norm tail: #15 (serving form; training form with z and s2) and
+13. post-norm tail: first #15's launches each timed alone at [512, 64,
+   768] and [512, 64, 256]: before (LN1 with the fp32 x2f, fc1, fc2 into
+   the fp32 s2, LN2) and after (LN1 with row stats, fc1, fc2 + LN2 as one
+   launch of thread-block clusters); then #15 (serving form; training
+   form with z and s2) and
    #16 at the flagship's layer at MLP 1,024 (x, attn [512, 64, 768], F =
    1,024), hier's levels ([512, 64, 256]) and a ragged 1,000 rows against
    their plain versions (out, z, s2 within 1 %, each gradient within 2 %
@@ -191,6 +201,7 @@ from sfc_vit_tpu_torch.ops.fused_mlp import (
     postnorm_tail_bwd_ref,
     postnorm_tail_kernel_ref,
     postnorm_tail_train_fwd,
+    tail_fc2_route,
 )
 from sfc_vit_tpu_torch.models import VisionTransformer1D
 from sfc_vit_tpu_torch.registry import build_model, build_tokenizer, preset_config
@@ -679,6 +690,64 @@ def _attention_bwd_phase(card: str, b: int) -> None:
           f"({bound['bound_by']}), {card}")
 
 
+#: #6's attention backward on the main paths (b, n, heads, dh): the
+#: flagship's and 'hier''s level and fusion layers, keep 0.9.
+MASKED_BWD_SHAPES = ((FA_B, FA_N, FA_HEADS, FA_D // FA_HEADS), (512, 64, 4, 64),
+                     (512, 192, 4, 64))
+
+
+def _masked_attention_bwd_phase(card: str) -> None:
+    """#6's attention backward (csrc/attention_bwd_sm90.cu with the mask)
+    at MASKED_BWD_SHAPES against the masked plain twin (BWD_TOL of its
+    largest |value|) and a second call (bit for bit), timed in turns with
+    the kernel it replaced (csrc/attention_bwd.cu, the same formula) beside
+    its byte bound; SDPA's backward without dropout on contiguous [B, H, N,
+    Dh] q, k, v is printed as a yardstick for the unmasked work only."""
+    gen = torch.Generator().manual_seed(7)
+    lib = _build.library()
+    for b, n, h, dh in MASKED_BWD_SHAPES:
+        _check(_build.attention_bwd_route(dh, n, True) == "sm90",
+               f"#6's route at [{b}, {n}, {h} x {dh}] is not the sm90 kernel")
+        s = dh ** -0.5
+        qkv = _randn(gen, b, n, 3 * h * dh)
+        att, lse = attention_fwd_ref(qkv, h, n, s)
+        datt = _randn(gen, b, n, h * dh)
+        mask = torch.rand(b, h, n, n, generator=gen).lt(FA_KEEP).to(DEVICE)
+        mask8 = mask.view(torch.uint8)
+
+        def run():
+            return _build.attention_bwd(qkv, att, datt, lse, h, n, s, mask=mask, keep=FA_KEEP)
+        got = run()
+        print(f"attention backward of #6 with the mask, [{b}, {n}, {h} x {dh}], keep "
+              f"{FA_KEEP}, vs attention_bwd_ref:")
+        _frac_err("dqkv", got, attention_bwd_ref(qkv, att, datt, lse, h, n, s, mask=mask,
+                                                 keep=FA_KEEP), BWD_TOL)
+        _check(torch.equal(got, run()), "#6's attention backward does not repeat bit for bit")
+        delta = torch.empty((b, h, n), dtype=torch.float32, device=DEVICE)
+        old = torch.empty_like(qkv)
+
+        def wmma():  # csrc/attention_bwd.cu, the route #6 took before
+            _build._check(lib.sfc_attention_bwd_bf16(
+                qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(),
+                mask8.data_ptr(), delta.data_ptr(), old.data_ptr(), b, n, h, dh, n, s,
+                FA_KEEP, _build._stream()), "attention_bwd (csrc/attention_bwd.cu)")
+        wmma()
+        _frac_err("dqkv of csrc/attention_bwd.cu", old, got, BWD_TOL)
+        ms, old_ms = _ab_ms(run, wmma)
+        q, k, v = qkv.view(b, n, 3, h, dh).unbind(2)
+        _, sdpa_bwd = _sdpa_ms(q, k, v, datt.view(b, n, h, dh))
+        flops = 5 * 2 * b * h * n * n * dh
+        nbytes = 2 * b * n * h * dh * (3 + 2 + 3) + b * h * n * n + 4 * b * h * n
+        bound = _bound(flops, nbytes)
+        print(f"attention backward of #6 [{b}, {n}, {h} x {dh}] with the mask: kernel "
+              f"{ms:.4f} ms, csrc/attention_bwd.cu {old_ms:.4f} ms ({old_ms / ms:.2f}x), "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.1f} GFLOP), {bound['bound_ms'] / ms:.1%} of it; SDPA backward "
+              f"without dropout (a yardstick for the unmasked work only) {sdpa_bwd:.4f} ms; "
+              f"{card}")
+        del qkv, att, lse, datt, mask, mask8, got, old, delta
+
+
 def _lr_zero_state(model) -> TrainState:
     """A state whose update changes nothing (lr 0, no clipping), so the
     gradients of a step stay readable and the params identical."""
@@ -778,11 +847,13 @@ def phase_train(card: str) -> dict:
 
 #: Kernels told apart by their template arguments: the GEMM's three
 #: layouts <trans_a, trans_b, act kind> and #8's two forms.
-_GEMM_LABELS = {"gemm_bf16_sm90<false, false": "gemm_bf16 NN (forward)",
+_GEMM_LABELS = {"gemm_bf16_sm90<false, false, 3": "gemm_bf16 NN + LN2 (#15, clusters)",
+                "gemm_bf16_sm90<false, false": "gemm_bf16 NN (forward)",
                 "gemm_bf16_sm90<false, true": "gemm_bf16 NT (dX, dz, datt)",
                 "gemm_bf16_sm90<true, false": "gemm_bf16 TN (weight gradients)",
                 "gemm_splitk_sum": "gemm_bf16 TN split-K sum",
-                "attention_bwd_sm90": "attention_bwd_sm90 (#4)",
+                "attention_bwd_sm90<1, false": "attention_bwd_sm90 (#4)",
+                "attention_bwd_sm90": "attention_bwd_sm90 (#6: mask, Dh 192)",
                 "flash_fwd_sm90<false>": "flash_fwd streaming (#8)",
                 "flash_fwd_sm90<true>": "flash_fwd single K step (#8)",
                 "flash_bwd_fused_sm90": "flash_bwd fused (#9)",
@@ -948,6 +1019,7 @@ def phase_fa_kernels(card: str) -> dict:
           f"bf16, {card}.  No single PyTorch call computes either: SDPA's dropout "
           "cannot take a given mask.")
     del a, fwd, saved, qkv, att, lse
+    _masked_attention_bwd_phase(card)
 
     # #7 at the flagship's evaluation batch (the kernels line), its
     # serving batch 16 and 'hier''s level and fusion layers.
@@ -1811,6 +1883,55 @@ def _tail_args(gen, b, n, d, f):
             _randn(gen, f, d, scale=f ** -0.5), _randn(gen, d, scale=0.1), ln(1.0), ln(0.0))
 
 
+def _tail_split(card: str, b: int, n: int, d: int, f: int) -> None:
+    """#15's serving form launch by launch (CUDA events, each launch alone
+    on the same inputs): before (LN1 with the fp32 x2f, fc1, fc2 into the
+    fp32 s2, LN2 over it) and after (LN1 with each row's mean and rsqrt,
+    fc1, fc2 + LN2 in one cluster launch that rebuilds x2f), each launch's
+    bytes beside it."""
+    gen = torch.Generator().manual_seed(10)
+    x, attn, l1s, l1b, w1, b1, w2, b2, l2s, l2b = _tail_args(gen, b, n, d, f)
+    r = b * n
+    x2d, a2d = x.view(r, d), attn.view(r, d)
+    b1f, b2f = b1.float(), b2.float()
+    x2, x2f = _build.ln_rows(x2d, l1s, l1b, 1e-5, x_b=a2d, with_f32=True)
+    stats = _build.ln_rows(x2d, l1s, l1b, 1e-5, x_b=a2d, with_stats=True)[1]
+    hh = _build.gemm(x2, w1, bias=b1f, act="relu")
+    s2 = _build.gemm(hh, w2, bias=b2f, residual_f32=x2f, out_dtype=torch.float32)
+    launches = [
+        ("LN1 (ln_rows: x + attn -> x2, fp32 x2f)", "before",
+         lambda: _build.ln_rows(x2d, l1s, l1b, 1e-5, x_b=a2d, with_f32=True), r * d * (4 + 2 + 4)),
+        ("LN1 (ln_rows: x + attn -> x2, row mean and rsqrt)", "after",
+         lambda: _build.ln_rows(x2d, l1s, l1b, 1e-5, x_b=a2d, with_stats=True),
+         r * d * (4 + 2) + 8 * r),
+        ("fc1 + b1, relu (gemm)", "both", lambda: _build.gemm(x2, w1, bias=b1f, act="relu"),
+         2 * (r * d + d * f + r * f)),
+        ("fc2 + b2 + x2f -> fp32 s2 (gemm)", "before",
+         lambda: _build.gemm(hh, w2, bias=b2f, residual_f32=x2f, out_dtype=torch.float32),
+         2 * (r * f + f * d) + 4 * r * d * 2),
+        ("LN2 over the fp32 s2 (ln_rows)", "before",
+         lambda: _build.ln_rows(s2, l2s, l2b, 1e-5), r * d * (4 + 2)),
+        ("fc2 + b2 + x2f rebuilt from x, attn and LN1's stats, LN2 (gemm_layernorm, "
+         "clusters)", "after",
+         lambda: _build.gemm_layernorm(hh, w2, b2f, x2d, a2d, stats, l1s, l1b, l2s, l2b, 1e-5),
+         2 * (r * f + f * d) + 2 * 2 * r * d + 8 * r + 2 * r * d),
+    ]
+    total = {"before": 0.0, "after": 0.0}
+    print(f"#15's launches at x, attn [{b}, {n}, {d}], F={f} (serving form), device ms "
+          f"each (CUDA events), {card}:")
+    for label, side, fn, nbytes in launches:
+        ms = _ms(fn)
+        for key in ("before", "after"):
+            if side in (key, "both"):
+                total[key] += ms
+        print(f"  [{side}] {label}: {ms:.4f} ms, {nbytes / 1e6:.1f} MB "
+              f"({nbytes / ms / 1e6:.0f} GB/s)")
+    print(f"  sum of the launches: before {total['before']:.4f} ms, after "
+          f"{total['after']:.4f} ms; {_build.gemm_layernorm_max_clusters(d)} clusters of "
+          f"{d // 128} blocks fit the card at once, for {r // 128} row stripes")
+    del x, attn, x2, x2f, stats, hh, s2
+
+
 def phase_tail_kernels(card: str) -> dict:
     """Kernels #15 (both forms) and #16 against their plain versions at
     TAIL_SHAPES; the first two timed beside their bounds.  The kernels
@@ -1818,6 +1939,9 @@ def phase_tail_kernels(card: str) -> dict:
     every shape."""
     gen = torch.Generator().manual_seed(9)
     res, errs, bwd_errs = {}, [], []
+    for b, n, d, f in TAIL_SHAPES[:2]:
+        _check(tail_fc2_route(d) == "cluster", f"#15 at D={d} is not one cluster launch")
+        _tail_split(card, b, n, d, f)
     for b, n, d, f in TAIL_SHAPES:
         args = _tail_args(gen, b, n, d, f)
         g = _randn(gen, b, n, d)
@@ -2086,7 +2210,7 @@ def main() -> int:
              source="sfc_vit_tpu_torch/csrc/attention_fwd.cu",
              replaces="sfc_vit_tpu/ops/fused_torch_attention.py:82"),
         dict(name="fused_torch_mha_bwd", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/attention_bwd.cu",
+             source="sfc_vit_tpu_torch/csrc/attention_bwd_sm90.cu",
              replaces="sfc_vit_tpu/ops/fused_torch_attention.py:270"),
         dict(name="packed_flash_attention", route="cuda",
              source="sfc_vit_tpu_torch/csrc/packed_attn_sm90.cu",
@@ -2113,7 +2237,7 @@ def main() -> int:
              source="sfc_vit_tpu_torch/csrc/gather_project.cu",
              replaces="sfc_vit_tpu/ops/gather_project.py:57"),
         dict(name="postnorm_tail", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/ln_rows.cu",
+             source="sfc_vit_tpu_torch/csrc/gemm_bf16.cu",
              replaces="sfc_vit_tpu/ops/fused_mlp.py:549"),
         dict(name="postnorm_tail_bwd", route="cuda",
              source="sfc_vit_tpu_torch/csrc/ln_rows_bwd.cu",

@@ -1,6 +1,13 @@
 // Softmax-attention backward straight off the packed QKV projection, for
 // head dims Dh = 64 and 192, optionally with probability dropout.
 //
+// What is left to this file: the lengths past csrc/attention_bwd_sm90.cu's
+// limits (ops/_build.py::attention_bwd_route): #4 past 256 tokens, and
+// #6's masked forms past 192 tokens at Dh 64 and past 64 at Dh 192, up
+// to family A's 1,024 (models/layers.py::TORCH_MHA_MAX_N).  Both main
+// paths' shapes (the flagship's 64 tokens at Dh 192, 'hier''s 64 and 192
+// at Dh 64) run on the Hopper kernel.
+//
 // Replaces: the per-(image, head) loops of
 // sfc_vit_tpu/ops/fused_attention_block.py::_attn_block_bwd_kernel
 // (lines 423-496) on the path the TPU trains with (with_acts + with_lse:

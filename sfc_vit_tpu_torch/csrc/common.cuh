@@ -80,6 +80,25 @@ __device__ __forceinline__ void unpack_bf16x8(uint4 in, float* v) {
   }
 }
 
+// One LayerNorm output, (v - mean) * inv * scale + bias, in the one
+// rounding order every LayerNorm kernel here uses (a product, then one
+// fma): a kernel that rebuilds another's output from its saved mean and
+// inv gets the same bits.
+__device__ __forceinline__ float ln_apply(float v, float mean, float inv, float scale,
+                                          float bias) {
+  return __fmaf_rn(__fmul_rn(__fsub_rn(v, mean), inv), scale, bias);
+}
+
+// x / d, correctly rounded, from rd = RN(1 / d): q = RN(x rd), then one
+// correction q + (x - q d) rd by fma (Markstein), which is the IEEE
+// quotient wherever x and x / d are normal
+// (tests/test_torch_kernels.py::test_div_rn_is_the_correctly_rounded_quotient).
+// Three instructions where `x / d` is a subroutine with a slow-path branch.
+__device__ __forceinline__ float div_rn(float x, float d, float rd) {
+  const float q = __fmul_rn(x, rd);
+  return __fmaf_rn(__fmaf_rn(-q, d, x), rd, q);
+}
+
 // The MLP activations and their derivatives in fp32 (act codes of the
 // Python launchers: 1 exact-erf GELU, 2 ReLU, anything else identity).
 enum Act : int { kNone = 0, kGelu = 1, kRelu = 2 };

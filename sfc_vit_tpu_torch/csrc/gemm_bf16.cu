@@ -11,7 +11,8 @@
 // 415-419 and 501-513: gp.W_out^T, att^T.gp, dqkv.W_qkv^T, xn^T.dqkv), and
 // the four GEMMs of sfc_vit_tpu/ops/fused_mlp.py::_postnorm_tail_kernel and
 // ::_postnorm_tail_bwd_kernel (fc2 plus b2 plus the unrounded LN1 output x2f
-// into the fp32 pre-LN2 sum s2; dx2 = dz.W1^T + ds2 in fp32).
+// into the fp32 pre-LN2 sum s2, and LN2 of s2 in the LayerNorm form below;
+// dx2 = dz.W1^T + ds2 in fp32).
 // The epilogue adds each optional term in fp32 and rounds once, which is
 // where the TPU kernels round; dxn leaves in fp32 for the LayerNorm
 // backward, as the TPU kernel keeps it.
@@ -64,6 +65,32 @@
 // taken in a fixed order inside a block and meet across blocks by one
 // fp32 atomic per column and block, whose order varies run to run.
 //
+// The post-norm tail's LayerNorm form (#15: fc2 + b2 + the fp32 LN1
+// output x2f, then LN2 of that fp32 sum s2, rounded once; the training
+// form also writes bf16(s2) for #16): the D / 128 column tiles of a
+// 128-row stripe run as one thread-block cluster (6 blocks at D = 768, 2
+// at 256; at most 8).  Each block stages its accumulators as the plain
+// epilogue does, then each thread forms s2 = acc + b2 + x2f for its 8
+// rows of 8 columns in the plain epilogue's order, x2f rebuilt from x,
+// attn and LN1's saved mean and rsqrt exactly as csrc/ln_rows.cu wrote it
+// (sfc::ln_apply; so x2f is never written to device memory in fp32
+// either), and keeps the 64 values in registers, summing each row's
+// values and squares (8 a thread, then 16 lanes by butterfly).  The
+// block's 128 row partials go to every block
+// of the cluster (distributed shared memory, st.shared::cluster): 32
+// threads a rank, 32 bytes each, then one arrive on that rank's mbarrier
+// (release at cluster scope), so a thread waits out one round trip a
+// tile.  Once all the cluster's partials of its rows are in, each block
+// adds them in cluster-rank order (so every block and every call gets the
+// same bits), takes mean = sum / D and the fast variance E[x^2] - mean^2
+// clamped at 0 (ln_rows.cu's arithmetic, eps given), and writes the
+// normalised rows: s2 never leaves the SMs in fp32.  The partials are
+// double-buffered by tile, so one barrier phase a tile suffices (a block
+// cannot run two tiles ahead of a peer that still reads them).  The
+// persistent grid is sized by cudaOccupancyMaxActiveClusters: on the
+// H100, 17 clusters of 6 blocks fit (102 of the 132 SMs), 66 of 2 (all):
+// at D = 768 the lost SMs cost about what the fused LN2 saves.
+//
 // Every wgmma wait has a fixed count (no branch decides it), so ptxas
 // does not serialize the products.
 
@@ -82,6 +109,10 @@ constexpr int kBox = 64 * 128;         // one 64 x 64 bf16 box, 128-byte swizzle
 constexpr int kStageBytes = 4 * kBox;  // two boxes of op(A), two of op(B)
 // Named barriers: 1 + wg a warpgroup's epilogue, kCsumBar both's column sums.
 constexpr int kCsumBar = 3;
+// The LayerNorm form's largest cluster (the portable limit): D <= 1,024;
+// kLnBar, both warpgroups' barrier before its exchange.
+constexpr int kMaxCluster = 8;
+constexpr int kLnBar = 4;
 
 struct Epilogue {
   const float* bias;      // fp32 [N], added first
@@ -92,6 +123,22 @@ struct Epilogue {
   const float* residual_f32;  // fp32 [M, N], added last
   int act;
   bool c_fp32;            // C is fp32 [M, N] instead of bf16
+  // The LayerNorm form (kLayerNorm) only: the residual is LN1's fp32
+  // output over x1 + x1b (bf16 [M, N]) rebuilt from its saved (mean,
+  // rsqrt) rows ln1_stats and vectors ln1_scale, ln1_bias (fp32 [N]); LN
+  // of each full row of the fp32 sum (scale, bias fp32 [N]) into C, and the
+  // sum rounded into s2_out (bf16 [M, N], may be null); `cluster` = N / 128
+  // blocks a row stripe.
+  const bf16* x1 = nullptr;
+  const bf16* x1b = nullptr;
+  const float2* ln1_stats = nullptr;
+  const float* ln1_scale = nullptr;
+  const float* ln1_bias = nullptr;
+  const float* ln_scale = nullptr;
+  const float* ln_bias = nullptr;
+  bf16* s2_out = nullptr;
+  float eps = 0.f;
+  int cluster = 1;
 };
 
 // The shape of the call; the kernel copies it (and the Epilogue) out of the
@@ -113,7 +160,12 @@ struct Smem {
   unsigned char a[kStages][2 * kBox];  // op(A) rows 0-63 and 64-127 of the tile
   unsigned char b[kStages][2 * kBox];  // op(B) columns 0-63 and 64-127
   float stage[kConsumers][64 * BN];    // fp32 C staging, a warpgroup's 64 rows (see stage_at)
-  uint64_t full[kStages], empty[kStages];
+  // The LayerNorm form, by tile parity: each row's (sum, sum of squares)
+  // over this block's 128 columns, then the same from the cluster's block
+  // of each rank.
+  float2 ln_local[2][BM];
+  float2 ln_part[2][kMaxCluster][BM];
+  uint64_t full[kStages], empty[kStages], ln_full[2];
 };
 constexpr int kSmemBytes = sizeof(Smem) + 1024;  // + the 1,024-byte alignment
 
@@ -158,7 +210,8 @@ __device__ __forceinline__ void load8(In8& in, size_t off, const Epilogue& ep) {
 
 // What the epilogue applies between the bias and the column sums: the
 // kernel is instantiated for each, so none carries the others' code.
-enum ActKind : int { kLinear = 0, kActFwd = 1, kActGrad = 2 };
+// kLayerNorm is the post-norm tail's form (NN only, launched as clusters).
+enum ActKind : int { kLinear = 0, kActFwd = 1, kActGrad = 2, kLayerNorm = 3 };
 
 __host__ __device__ constexpr int act_kind(bool z_in, int act) {
   return z_in ? kActGrad : act != sfc::kNone ? kActFwd : kLinear;
@@ -205,6 +258,120 @@ __device__ __forceinline__ void finish8(float (&v)[8], size_t off, int gc, const
   }
 }
 
+// The LayerNorm form's epilogue of a warpgroup's 64 staged rows (global
+// rows row0..) into C (bf16), columns gc .. gc + 7 of this thread (t % 16
+// picks them) in rows t / 16 + 8 k, for the block's tile number tile_it;
+// see the header.  The thread's 8 x 8 values of s2 stay in registers
+// across the exchange, and the column vectors are loaded once a tile.
+__device__ __forceinline__ void ln_epilogue(Smem& sm, const float* stage, const Epilogue& ep,
+                                            bf16* C, int row0, int gc, int t, int wg, int M,
+                                            int N, int tile_it) {
+  const int cc = t % 16, buf = tile_it & 1;
+  const uint32_t rank = hw::cluster_rank();
+  auto in_tile = [&](int rr) { return row0 + rr < M; };  // N is whole tiles here
+  auto offset = [&](int rr) { return static_cast<size_t>(row0 + rr) * N + gc; };
+  float v[8][8], col[8], s1[8], b1[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    col[e] = ep.bias[gc + e];
+    s1[e] = ep.ln1_scale[gc + e];
+    b1[e] = ep.ln1_bias[gc + e];
+  }
+  // s2 = acc + bias + x2f in the plain epilogue's order, x2f rebuilt as
+  // ln_rows wrote it (x1 + x1b in fp32, then sfc::ln_apply with the row's
+  // saved mean and rsqrt); each row's partial sum and sum of squares into
+  // ln_local.  A row's inputs are loaded one row ahead.
+  struct Ln1Row {
+    uint4 x, xb;
+    float2 st;
+  };
+  auto load_row = [&](Ln1Row& r, int rr) {
+    r.x = *reinterpret_cast<const uint4*>(ep.x1 + offset(rr));
+    r.xb = *reinterpret_cast<const uint4*>(ep.x1b + offset(rr));
+    r.st = ep.ln1_stats[row0 + rr];
+  };
+  Ln1Row next = {};
+  if (in_tile(t / 16)) load_row(next, t / 16);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int rr = t / 16 + 8 * k;
+    const Ln1Row in = next;
+    if (k < 7 && in_tile(rr + 8)) load_row(next, rr + 8);
+    const float4* src = reinterpret_cast<const float4*>(stage + stage_at(rr, 8 * cc));
+    const float4 x = src[0], y = src[1];
+    v[k][0] = x.x; v[k][1] = x.y; v[k][2] = x.z; v[k][3] = x.w;
+    v[k][4] = y.x; v[k][5] = y.y; v[k][6] = y.z; v[k][7] = y.w;
+    float a[8], ab[8];
+    sfc::unpack_bf16x8(in.x, a);
+    sfc::unpack_bf16x8(in.xb, ab);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      v[k][e] += col[e];
+      v[k][e] += sfc::ln_apply(a[e] + ab[e], in.st.x, in.st.y, s1[e], b1[e]);
+    }
+    float sum = 0.f, sq = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      sum += v[k][e];
+      sq += v[k][e] * v[k][e];
+    }
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {  // the row's 16 threads (one half of the warp)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    }
+    if (cc == 0) sm.ln_local[buf][64 * wg + rr] = make_float2(sum, sq);  // rows past M too
+  }
+  // The block's 128 row partials to every rank (this one's included): 32
+  // threads a rank, 4 rows (32 bytes) each, then one release-arrive on
+  // that rank's barrier, so a thread waits out one round trip a tile.
+  hw::named_sync(kLnBar, 2 * 128);
+  const int sender = 128 * wg + t;
+  if (sender < 32 * ep.cluster) {
+    const uint32_t q = sender / 32;
+    const int r4 = 4 * (sender % 32);
+    const float4* src = reinterpret_cast<const float4*>(&sm.ln_local[buf][r4]);
+    const uint32_t dst = hw::map_to_rank(&sm.ln_part[buf][rank][r4], q);
+    hw::st_cluster_f32x4(dst, src[0]);
+    hw::st_cluster_f32x4(dst + 16, src[1]);
+    hw::bar_arrive_cluster(hw::map_to_rank(&sm.ln_full[buf], q));
+  }
+  float lnb[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    col[e] = ep.ln_scale[gc + e];
+    lnb[e] = ep.ln_bias[gc + e];
+  }
+  // This tile's partials from every rank (the buffer's phase turns every
+  // second tile).  A peer writes this buffer again two tiles on, only
+  // after this block has arrived on its barrier for the next tile, which
+  // it does after the next tile's kLnBar barrier, after these reads;
+  // ln_local[buf] is likewise written again only after that barrier.
+  hw::bar_wait_cluster(&sm.ln_full[buf], (tile_it >> 1) & 1);
+  const float fn = static_cast<float>(N), rn = __frcp_rn(fn);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int rr = t / 16 + 8 * k;
+    float sum = 0.f, sq = 0.f;
+    for (int q = 0; q < ep.cluster; ++q) {  // in rank order: the same bits in every block
+      const float2 pr = sm.ln_part[buf][q][64 * wg + rr];
+      sum += pr.x;
+      sq += pr.y;
+    }
+    if (!in_tile(rr)) continue;
+    const float mean = sfc::div_rn(sum, fn, rn);  // sum / N, as ln_rows divides
+    const float var = fmaxf(sfc::div_rn(sq, fn, rn) - mean * mean, 0.f);
+    const float inv = rsqrtf(var + ep.eps);
+    const size_t off = offset(rr);
+    if (ep.s2_out != nullptr)
+      *reinterpret_cast<uint4*>(ep.s2_out + off) = sfc::pack_bf16x8(v[k]);
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = sfc::ln_apply(v[k][e], mean, inv, col[e], lnb[e]);
+    *reinterpret_cast<uint4*>(C + off) = sfc::pack_bf16x8(o);
+  }
+}
+
 template <bool TA, bool TB, int KIND>
 __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_sm90(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) unsigned char dyn[];
@@ -218,9 +385,14 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_sm90(const __grid_const
       hw::bar_init(&sm.full[s], 1);
       hw::bar_init(&sm.empty[s], 2 * 4);  // the consumer warps
     }
+    if constexpr (KIND == kLayerNorm) {  // 32 sending threads of each rank
+      hw::bar_init(&sm.ln_full[0], 32 * p.ep.cluster);
+      hw::bar_init(&sm.ln_full[1], 32 * p.ep.cluster);
+    }
     hw::fence_barrier_init();
   }
   __syncthreads();
+  if constexpr (KIND == kLayerNorm) hw::cluster_sync();  // the peers' barriers exist
 
   if (wg == kConsumers) {  // producer: one thread starts every TMA load
     if (lane == 0) {
@@ -259,6 +431,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_sm90(const __grid_const
   float* stage = sm.stage[wg];
   hw::Ring<kStages> ring;
   float acc[64];
+  int tile_it = 0;  // this block's tiles so far: the LayerNorm partials' buffer
 
   for (int u = blockIdx.x; u < sh.units; u += gridDim.x) {
     const Unit w = unit_of(sh, u);
@@ -320,6 +493,10 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_sm90(const __grid_const
     hw::named_sync(1 + wg, 128);
     const Epilogue ep = p.ep;
     const int cc = t % 16, gc = w.n0 + 8 * cc;
+    if constexpr (KIND == kLayerNorm) {
+      ln_epilogue(sm, stage, ep, static_cast<bf16*>(C), row0, gc, t, wg, M, N, tile_it++);
+      continue;
+    }
     float cs[8] = {};
     // Each row's inputs (z_in, residuals) are loaded one row ahead.
     auto in_tile = [&](int rr) { return row0 + rr < M && gc < N; };  // N % 8 == 0
@@ -411,6 +588,41 @@ cudaError_t launch_layout(const Params& p, bool trans_a, bool trans_b, cudaStrea
   return launch<false, false, KIND>(p, stream);
 }
 
+// The LayerNorm form: a persistent grid of clusters of `cluster` blocks
+// (one a column tile), as many clusters as fit the device at once.
+cudaError_t launch_ln(const Params& p, int cluster, cudaStream_t stream) {
+  static int cache[64][kMaxCluster + 1] = {};
+  auto kernel = gemm_bf16_sm90<false, false, kLayerNorm>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (cache[dev][cluster] == 0) {  // queried once, so a graph capture queries nothing
+    int clusters = 0;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    cache[dev][cluster] = clusters;
+  }
+  const int stripes = p.sh.tiles / cluster;
+  cfg.gridDim = dim3((stripes < cache[dev][cluster] ? stripes : cache[dev][cluster]) * cluster);
+  e = cudaLaunchKernelEx(&cfg, kernel, p);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 // Kernel `form` of sfc_gemm_attrs: layout (NN, NT, TN) x 3 + the act kind.
 template <int F>
 auto kernel_of() {
@@ -485,9 +697,76 @@ extern "C" int sfc_gemm_bf16(const void* a, const void* b, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Clusters of `cluster` blocks of the LayerNorm form the device holds at
+// once (cudaOccupancyMaxActiveClusters), into *out.
+extern "C" int sfc_gemm_ln_max_clusters(int cluster, int* out) {
+  if (cluster < 1 || cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = gemm_bf16_sm90<false, false, kLayerNorm>;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+  return static_cast<int>(e);
+}
+
+// C [M, N] bf16 = LN(a [M, K] . b [K, N] + bias + x2f) by rows, with fp32
+// ln_scale and ln_bias [N] and eps: the fast variance E[x^2] - E[x]^2
+// clamped at 0, the sum never rounded before the one rounding of C; s2
+// (bf16 [M, N], may be null) receives the sum rounded.  x2f is LN1's fp32
+// output over x1 + x1b (bf16 [M, N]) as csrc/ln_rows.cu wrote it, rebuilt
+// from its saved rows ln1_stats (fp32 [M, 2]: mean, rsqrt) and ln1_scale,
+// ln1_bias (fp32 [N]).  bias fp32 [N].  N a multiple of 128 up to 128 x
+// kMaxCluster, K a multiple of 8 (> 0), 16-byte aligned pointers; the
+// Python wrapper checks these.
+extern "C" int sfc_gemm_ln_bf16(const void* a, const void* b, const void* bias,
+                                const void* x1, const void* x1b, const void* ln1_stats,
+                                const void* ln1_scale, const void* ln1_bias,
+                                const void* ln_scale, const void* ln_bias, void* c, void* s2,
+                                int M, int N, int K, float eps, void* stream) {
+  if (M <= 0) return 0;
+  if (N <= 0 || N % BN || N / BN > kMaxCluster || K <= 0 || K % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  Shape& sh = p.sh;
+  sh.M = M;
+  sh.N = N;
+  sh.n_tiles = N / BN;
+  sh.tiles = ((M + BM - 1) / BM) * sh.n_tiles;
+  sh.kblocks = (K + BK - 1) / BK;
+  sh.kb_per_split = sh.kblocks;
+  sh.units = sh.tiles;
+  p.ep.bias = static_cast<const float*>(bias);
+  p.ep.x1 = static_cast<const bf16*>(x1);
+  p.ep.x1b = static_cast<const bf16*>(x1b);
+  p.ep.ln1_stats = static_cast<const float2*>(ln1_stats);
+  p.ep.ln1_scale = static_cast<const float*>(ln1_scale);
+  p.ep.ln1_bias = static_cast<const float*>(ln1_bias);
+  p.ep.ln_scale = static_cast<const float*>(ln_scale);
+  p.ep.ln_bias = static_cast<const float*>(ln_bias);
+  p.ep.s2_out = static_cast<bf16*>(s2);
+  p.ep.eps = eps;
+  p.ep.cluster = sh.n_tiles;
+  p.c_ptr = c;
+  cudaError_t e = hw::map_2d_bf16(&p.a, a, K, M);
+  if (e == cudaSuccess) e = hw::map_2d_bf16(&p.b, b, N, K);
+  if (e == cudaSuccess) e = launch_ln(p, sh.n_tiles, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e);
+}
+
 // Registers, local bytes and shared bytes of form f into out[3]: f in
 // 0..8 the tile kernel of layout f / 3 (NN, NT, TN) and act kind f % 3
-// (none, act, act'), 9 the split-K sum (its act'(z) instance).
+// (none, act, act'), 9 the split-K sum (its act'(z) instance), 10 the
+// LayerNorm form (NN).
 extern "C" int sfc_gemm_attrs(int form, int* out) {
   switch (form) {
     case 0: return hw::kernel_attrs(kernel_of<0>(), kSmemBytes, out);
@@ -500,6 +779,7 @@ extern "C" int sfc_gemm_attrs(int form, int* out) {
     case 7: return hw::kernel_attrs(kernel_of<7>(), kSmemBytes, out);
     case 8: return hw::kernel_attrs(kernel_of<8>(), kSmemBytes, out);
     case 9: return hw::kernel_attrs(gemm_splitk_sum<kActGrad>, 0, out);
+    case 10: return hw::kernel_attrs(gemm_bf16_sm90<false, false, kLayerNorm>, kSmemBytes, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,13 +7,20 @@
 // sfc_vit_tpu/ops/fused_mlp.py::_postnorm_tail_kernel: LN1 of the fp32 sum
 // x + attn (lines 553-564), whose unrounded output x2f the tail keeps beside
 // its bf16 rounding x2, and LN2 of the fp32 pre-LN2 sum s2 (lines 584-592),
-// whose bf16 rounding the training form saves.  Same arithmetic: fp32
+// whose bf16 rounding the training form saves.  LN2 runs here only where
+// the tail's width is not whole 128-column tiles or needs a cluster of
+// more than 8 (ops/fused_mlp.py::tail_fc2_route); at the models' widths
+// (768, 256) csrc/gemm_bf16.cu's LayerNorm form finishes it inside fc2 and
+// s2 never reaches device memory in fp32.  Same arithmetic: fp32
 // mean and E[x^2], variance E[x^2] - E[x]^2 clamped at 0, rsqrt(var + eps),
 // scale and bias in fp32, one round to bf16.
 //
 // A row is read as bf16, as fp32, or as the fp32 sum of two bf16 rows
 // (template argument IN).  Optional outputs: the normalised row in fp32
-// (y32) and the input row rounded to bf16 (xr).
+// (y32), the input row rounded to bf16 (xr), and the row's mean and
+// rsqrt(var + eps) (stats), from which csrc/gemm_bf16.cu's LayerNorm form
+// rebuilds the fp32 output bit for bit (sfc::ln_apply) instead of reading
+// y32.
 //
 // Bound on this card: memory.  Per row it reads D bf16 (or 2 D bf16, or D
 // fp32) and writes D bf16 (plus D fp32 for y32) with ~5 flops per element,
@@ -59,7 +66,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     ln_rows_kernel(const void* __restrict__ x, const bf16* __restrict__ xb,
                    const float* __restrict__ scale, const float* __restrict__ bias,
                    bf16* __restrict__ y, float* __restrict__ y32, bf16* __restrict__ xr,
-                   int rows, int d, float eps) {
+                   float2* __restrict__ stats, int rows, int d, float eps) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const long row = static_cast<long>(blockIdx.x) * kWarps + warp;
@@ -86,6 +93,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const float mean = s / d;
   const float var = fmaxf(ss / d - mean * mean, 0.f);
   const float inv = rsqrtf(var + eps);
+  if (stats != nullptr && lane == 0) stats[row] = make_float2(mean, inv);
 
   for (int c = lane; c < chunks; c += 32) {
     float v[8];
@@ -93,7 +101,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int i = c * 8 + e;
-      v[e] = (v[e] - mean) * inv * scale[i] + bias[i];
+      v[e] = sfc::ln_apply(v[e], mean, inv, scale[i], bias[i]);
     }
     if (y32 != nullptr) {
       float4* dst = reinterpret_cast<float4*>(y32 + row * d) + 2 * c;
@@ -110,11 +118,12 @@ __global__ void __launch_bounds__(kWarps * 32)
 // (bf16 [rows, d]), x as fp32 (x_f32), or the fp32 sum x + x_b of two bf16
 // rows (x_b not null).  y32 (fp32 [rows, d], may be null) receives the
 // normalised row before its rounding; xr (bf16 [rows, d], may be null) the
-// input row rounded to bf16.  Requires d % 8 == 0 and 16-byte aligned
-// pointers; the Python wrapper checks these.
+// input row rounded to bf16; stats (fp32 [rows, 2], may be null) the
+// row's mean and rsqrt(var + eps).  Requires d % 8 == 0 and 16-byte
+// aligned pointers; the Python wrapper checks these.
 extern "C" int sfc_ln_rows_bf16(const void* x, const void* x_b, int x_f32,
                                 const void* scale, const void* bias, void* y,
-                                void* y32, void* xr, int rows, int d, float eps,
+                                void* y32, void* xr, void* stats, int rows, int d, float eps,
                                 void* stream) {
   if (rows <= 0) return 0;
   if (x_f32 && x_b != nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -126,12 +135,13 @@ extern "C" int sfc_ln_rows_bf16(const void* x, const void* x_b, int x_f32,
   auto* yo = static_cast<bf16*>(y);
   auto* y32o = static_cast<float*>(y32);
   auto* xro = static_cast<bf16*>(xr);
+  auto* st = static_cast<float2*>(stats);
   if (x_f32)
-    ln_rows_kernel<kF32><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, yo, y32o, xro, rows, d, eps);
+    ln_rows_kernel<kF32><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, yo, y32o, xro, st, rows, d, eps);
   else if (xb != nullptr)
-    ln_rows_kernel<kSum2><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, yo, y32o, xro, rows, d, eps);
+    ln_rows_kernel<kSum2><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, yo, y32o, xro, st, rows, d, eps);
   else
-    ln_rows_kernel<kBf16><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, yo, y32o, xro, rows, d, eps);
+    ln_rows_kernel<kBf16><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, yo, y32o, xro, st, rows, d, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

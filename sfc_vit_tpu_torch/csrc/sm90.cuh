@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels (#7-#11,
-// #14, the GEMM under #1-#6, #15 and #16, and #4's attention backward):
-// TMA tensor maps built on the host, TMA loads, stores and reduce-adds,
-// plain bulk copies, mbarriers, the grid of a persistent kernel, and
-// warpgroup matrix multiplies (wgmma) on 128-byte-swizzled shared tiles.
+// #14, the GEMM under #1-#6, #15 and #16, and the attention backward of
+// #4 and #6): TMA tensor maps built on the host, TMA loads, stores and
+// reduce-adds, plain bulk copies, mbarriers, the grid of a persistent
+// kernel, warpgroup matrix multiplies (wgmma) on 128-byte-swizzled shared
+// tiles, and thread-block clusters (distributed shared memory and
+// mbarriers across blocks, #15's LayerNorm).
 //
 // Shared tiles are bf16 rows of 64 elements (128 bytes), as TMA writes
 // them with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r sits
@@ -498,6 +500,68 @@ __device__ __forceinline__ void split_a(const float (&d)[32], int kk, uint32_t (
     hi[e] = *reinterpret_cast<const uint32_t*>(&h);
     lo[e] = pack_bf16x2(x0 - hf.x, x1 - hf.y);
   }
+}
+
+// ------------------------------------------------------------ clusters
+//
+// A thread-block cluster's blocks read and write each other's shared
+// memory (distributed shared memory) through shared::cluster addresses;
+// an mbarrier of one block can count arrivals from the others.
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits for the
+// others (release / acquire at cluster scope): e.g. each block's mbarriers
+// are initialised before a peer arrives on them.  All threads of a warp
+// call it together.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (in this block's shared memory) in
+// the block of rank `rank`.
+__device__ __forceinline__ uint32_t map_to_rank(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// Four floats to a shared::cluster address (16 bytes, e.g. another
+// block's shared memory).
+__device__ __forceinline__ void st_cluster_f32x4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// Arrive on the mbarrier at a shared::cluster address, releasing this
+// thread's earlier writes (to any block of the cluster) at cluster scope.
+__device__ __forceinline__ void bar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+
+// bar_wait for a barrier whose arrivals come from other blocks of the
+// cluster: acquires their writes at cluster scope.
+__device__ __forceinline__ void bar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 30)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // 2^x (ex2.approx: ~2 ulp; 2^-inf = 0).

@@ -17,7 +17,8 @@ unchanged one loads the library already there.  A failed build raises:
 nothing runs without the kernels.
 
 The launchers below (``ln_rows``, ``ln_rows_bwd``, ``gemm``,
-``act_bf16``, ``colsum``, ``attention_fwd``, ``attention_bwd`` (on
+``gemm_layernorm``, ``act_bf16``, ``colsum``, ``attention_fwd``,
+``attention_bwd`` (on
 ``csrc/attention_bwd_sm90.cu`` or ``csrc/attention_bwd.cu``),
 ``packed_attention``, ``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``,
 ``flash_dkv``, ``local_fwd``, ``local_bwd``, ``gather_project``,
@@ -44,7 +45,11 @@ import torch
 
 __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "gemm_splits", "GEMM_FORMS", "attention_bwd_route",
-           "ATTENTION_BWD_SM90_MAX_N",
+           "ATTENTION_BWD_SM90_MAX_N", "ATTENTION_BWD_SM90_MAX_N_DROPOUT",
+           "ATTENTION_BWD_SM90_MAX_N_DH192", "ATTENTION_BWD_SM90_LIMITS",
+           "ATTENTION_BWD_SM90_FORMS", "gemm_layernorm", "gemm_layernorm_fits",
+           "gemm_layernorm_max_clusters",
+           "GEMM_LN_MAX_CLUSTER",
            "act_bf16", "colsum", "attention_fwd", "attention_bwd",
            "ATTENTION_HEAD_DIMS", "packed_attention", "PACKED_MAX_N", "flash_fwd",
            "flash_fused_bwd", "flash_dq", "flash_dkv", "FLASH_HEAD_DIMS",
@@ -64,8 +69,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 #: argtypes of every exported C function: c_void_p for each pointer and
 #: the stream (a plain int would cut a pointer to 32 bits).
 _SIGNATURES = {
-    # x, x_b, x_f32, scale, bias, y, y32, xr; rows, d, eps, stream
-    "sfc_ln_rows_bf16": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # x, x_b, x_f32, scale, bias, y, y32, xr, stats; rows, d, eps, stream
+    "sfc_ln_rows_bf16": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     # x, x_b, dxn, dxn_bf16, scale, g, dx, dx32, dscale, dbias, gsum, dxsum;
     # rows, d, eps, add_g, stream
     "sfc_ln_rows_bwd_bf16": (_P, _P, _P, _I) + (_P,) * 8 + (_I, _I, _F, _I, _P),
@@ -78,8 +83,14 @@ _SIGNATURES = {
                                _P),
     "sfc_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _F, _P),
-    # qkv, att, datt, lse, dqkv; batch, n, heads, n_valid; scale, stream
-    "sfc_attention_bwd_sm90_bf16": (_P,) * 5 + (_I,) * 4 + (_F, _P),
+    # qkv, att, datt, lse, mask, dqkv; batch, n, heads, dh, n_valid; scale,
+    # keep, stream
+    "sfc_attention_bwd_sm90_bf16": (_P,) * 6 + (_I,) * 5 + (_F, _F, _P),
+    # a, b, bias, x1, x1b, ln1_stats, ln1_scale, ln1_bias, ln_scale, ln_bias,
+    # c, s2; M, N, K; eps, stream
+    "sfc_gemm_ln_bf16": (_P,) * 12 + (_I,) * 3 + (_F, _P),
+    # cluster, out
+    "sfc_gemm_ln_max_clusters": (_I, _P),
     # qkv, out; batch, n, heads, dh, n_valid; scale, stream
     "sfc_packed_attention_bf16": (_P, _P) + (_I,) * 5 + (_F, _P),
     # q, k, v, out, lse; batch, heads, nq, nk, dh; q, k, v strides
@@ -109,7 +120,7 @@ _SIGNATURES = {
     "sfc_packed_attention_attrs": (_I, _I, _P),
     # form, out[3] | out[3]
     "sfc_gemm_attrs": (_I, _P),
-    "sfc_attention_bwd_sm90_attrs": (_P,),
+    "sfc_attention_bwd_sm90_attrs": (_I, _P),
     "sfc_gather_project_attrs": (_I, _P),
 }
 
@@ -120,11 +131,29 @@ ATTENTION_HEAD_DIMS = (64, 192)
 #: sequence #7 takes (``csrc/packed_attn_sm90.cu``'s kMaxN) and the packed
 #: route's range (``ops/attention.py``).
 PACKED_MAX_N = 1024
-#: The longest sequence ``csrc/attention_bwd_sm90.cu`` takes (its kMaxN):
-#: one (image, head)'s q, k, v and da in one block's shared memory.
-#: :func:`attention_bwd` sends head dim 64 without dropout up to this
-#: length there, and everything else to ``csrc/attention_bwd.cu``.
+#: The longest sequences ``csrc/attention_bwd_sm90.cu`` takes, one for each
+#: (head dim, dropout) pair, each set by what one (image, head) needs in a
+#: block's shared memory: q, k, v and da as 64-row tiles, K and V of two
+#: items, and with dropout the item's [N, N] byte mask.  Head dim 64
+#: without dropout (#4): four tiles (its kMaxN64).
 ATTENTION_BWD_SM90_MAX_N = 256
+#: Head dim 64 with the dropout mask (#6 on 'hier'): three tiles and a
+#: 36 KB mask (kMaxN64Drop); four tiles and a 64 KB mask do not fit.
+ATTENTION_BWD_SM90_MAX_N_DROPOUT = 192
+#: Head dim 192, with or without the mask (#6 on the flagship): one tile
+#: of each tensor (24 KB) for two items in flight (kMaxN192).
+ATTENTION_BWD_SM90_MAX_N_DH192 = 64
+#: :func:`attention_bwd_route`'s limits by (head dim, dropout).
+ATTENTION_BWD_SM90_LIMITS = {
+    (64, False): ATTENTION_BWD_SM90_MAX_N, (64, True): ATTENTION_BWD_SM90_MAX_N_DROPOUT,
+    (192, False): ATTENTION_BWD_SM90_MAX_N_DH192,
+    (192, True): ATTENTION_BWD_SM90_MAX_N_DH192,
+}
+#: The names of ``csrc/attention_bwd_sm90.cu``'s instances by
+#: ``sfc_attention_bwd_sm90_attrs``'s form number.
+ATTENTION_BWD_SM90_FORMS = ("attention_bwd_sm90", "attention_bwd_sm90 dh64 dropout one tile",
+                            "attention_bwd_sm90 dh64 dropout", "attention_bwd_sm90 dh192",
+                            "attention_bwd_sm90 dh192 dropout")
 #: The GEMM's output tile and K block (``csrc/gemm_bf16.cu``'s BM, BN, BK).
 GEMM_TILE_M, GEMM_TILE_N, GEMM_BLOCK_K = 128, 128, 64
 #: Bounds of :func:`gemm_splits`: at most this many K ranges, each at least
@@ -252,12 +281,15 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             eps: float, *, x_b: Optional[torch.Tensor] = None,
-            with_f32: bool = False, with_rounded_input: bool = False):
+            with_f32: bool = False, with_rounded_input: bool = False,
+            with_stats: bool = False):
     """LayerNorm of rows [R, D]: ``x`` bf16, ``x`` fp32, or (``x_b``
     given) the fp32 sum ``x + x_b`` of two bf16 rows; ``scale``/``bias``
     fp32 [D].  Returns the bf16 rows, then the same rows in fp32 before
     their rounding when ``with_f32``, then the input rows rounded to bf16
-    when ``with_rounded_input``."""
+    when ``with_rounded_input``, then each row's mean and rsqrt(var + eps)
+    (fp32 [R, 2], from which :func:`gemm_layernorm` rebuilds the fp32
+    rows) when ``with_stats``."""
     r, d = x.shape
     if d % 8:
         raise ValueError(f"ln_rows: D={d} must be a multiple of 8")
@@ -270,10 +302,12 @@ def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     y = torch.empty((r, d), dtype=torch.bfloat16, device=x.device)
     y32 = torch.empty((r, d), dtype=torch.float32, device=x.device) if with_f32 else None
     xr = torch.empty_like(y) if with_rounded_input else None
+    stats = (torch.empty((r, 2), dtype=torch.float32, device=x.device)
+             if with_stats else None)
     _check(library().sfc_ln_rows_bf16(
         x.data_ptr(), _ptr(x_b), int(x_f32), scale.data_ptr(), bias.data_ptr(),
-        y.data_ptr(), _ptr(y32), _ptr(xr), r, d, eps, _stream()), "ln_rows")
-    extra = tuple(t for t in (y32, xr) if t is not None)
+        y.data_ptr(), _ptr(y32), _ptr(xr), _ptr(stats), r, d, eps, _stream()), "ln_rows")
+    extra = tuple(t for t in (y32, xr, stats) if t is not None)
     return (y, *extra) if extra else y
 
 
@@ -431,6 +465,68 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     return (c, *extra) if extra else c
 
 
+#: The largest thread-block cluster :func:`gemm_layernorm` launches (the
+#: portable limit): one block per 128 columns, so D <= 1,024.
+GEMM_LN_MAX_CLUSTER = 8
+
+
+def gemm_layernorm_fits(n: int) -> bool:
+    """Whether :func:`gemm_layernorm` takes rows of width ``n``: whole
+    128-column tiles, at most :data:`GEMM_LN_MAX_CLUSTER` of them (one
+    cluster a row stripe)."""
+    return n > 0 and n % GEMM_TILE_N == 0 and n // GEMM_TILE_N <= GEMM_LN_MAX_CLUSTER
+
+
+def gemm_layernorm_max_clusters(n: int) -> int:
+    """How many of :func:`gemm_layernorm`'s clusters at width ``n`` the
+    current device holds at once (its persistent grid's clusters, at most
+    one a row stripe)."""
+    out = ctypes.c_int(0)
+    _check(library().sfc_gemm_ln_max_clusters(n // GEMM_TILE_N, ctypes.byref(out)),
+           "gemm_layernorm_max_clusters")
+    return out.value
+
+
+def gemm_layernorm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
+                   x1: torch.Tensor, x1_b: torch.Tensor, ln1_stats: torch.Tensor,
+                   ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
+                   ln_scale: torch.Tensor, ln_bias: torch.Tensor, eps: float,
+                   save_input: bool = False):
+    """#15's fc2 with LN2 (``csrc/gemm_bf16.cu``'s LayerNorm form, one
+    thread-block cluster per 128-row stripe): ``LN(a @ b + bias + x2f)``
+    by rows, bf16 [M, N], where ``x2f`` is LN1's fp32 output over ``x1 +
+    x1_b``, rebuilt in the epilogue from LN1's saved ``ln1_stats`` (what
+    :func:`ln_rows` returns ``with_stats``), the same bits as its
+    ``with_f32`` rows; the fp32 sum never leaves the SMs before the one
+    rounding.  ``a`` bf16 [M, K], ``b`` bf16 [K, N], ``bias`` fp32 [N],
+    ``x1``, ``x1_b`` bf16 [M, N], ``ln1_stats`` fp32 [M, 2], the four
+    LayerNorm vectors fp32 [N].  ``save_input`` also returns the sum
+    rounded to bf16.  N must pass :func:`gemm_layernorm_fits`."""
+    m, k = a.shape
+    n = b.shape[1]
+    if not gemm_layernorm_fits(n) or k % 8 or k < 1:
+        raise ValueError(
+            f"gemm_layernorm: N={n} must be a multiple of {GEMM_TILE_N} up to "
+            f"{GEMM_TILE_N * GEMM_LN_MAX_CLUSTER}, K={k} a positive multiple of 8")
+    _require(a, "a")
+    _require(b, "b", (k, n))
+    _require(bias, "bias", (n,), torch.float32)
+    _require(x1, "x1", (m, n))
+    _require(x1_b, "x1_b", (m, n))
+    _require(ln1_stats, "ln1_stats", (m, 2), torch.float32)
+    for name, vec in (("ln1_scale", ln1_scale), ("ln1_bias", ln1_bias),
+                      ("ln_scale", ln_scale), ("ln_bias", ln_bias)):
+        _require(vec, name, (n,), torch.float32)
+    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    s2 = torch.empty_like(c) if save_input else None
+    _check(library().sfc_gemm_ln_bf16(
+        a.data_ptr(), b.data_ptr(), bias.data_ptr(), x1.data_ptr(), x1_b.data_ptr(),
+        ln1_stats.data_ptr(), ln1_scale.data_ptr(), ln1_bias.data_ptr(),
+        ln_scale.data_ptr(), ln_bias.data_ptr(), c.data_ptr(), _ptr(s2), m, n, k, eps,
+        _stream()), "gemm_layernorm")
+    return (c, s2) if save_input else c
+
+
 def act_bf16(z: torch.Tensor, act: str) -> torch.Tensor:
     """``bf16(act(z))`` elementwise over a bf16 tensor (numel % 8 == 0)."""
     if act not in ("gelu", "relu"):
@@ -502,10 +598,12 @@ def attention_fwd(qkv: torch.Tensor, heads: int, n_valid: int,
 
 def attention_bwd_route(dh: int, n: int, dropout: bool) -> str:
     """Which kernel :func:`attention_bwd` runs: ``"sm90"``
-    (``csrc/attention_bwd_sm90.cu``) for head dim 64 without dropout up to
-    :data:`ATTENTION_BWD_SM90_MAX_N` tokens, else ``"wmma"``
-    (``csrc/attention_bwd.cu``).  Both compute the same formula."""
-    return "sm90" if dh == 64 and not dropout and n <= ATTENTION_BWD_SM90_MAX_N else "wmma"
+    (``csrc/attention_bwd_sm90.cu``) up to the length
+    :data:`ATTENTION_BWD_SM90_LIMITS` gives the (head dim, dropout) pair,
+    else ``"wmma"`` (``csrc/attention_bwd.cu``).  Both compute the same
+    formula."""
+    limit = ATTENTION_BWD_SM90_LIMITS.get((dh, bool(dropout)), 0)
+    return "sm90" if n <= limit else "wmma"
 
 
 def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
@@ -527,7 +625,8 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
     if attention_bwd_route(dh, n, mask is not None) == "sm90":
         _check(library().sfc_attention_bwd_sm90_bf16(
             qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(),
-            dqkv.data_ptr(), b, n, heads, n_valid, scale, _stream()), "attention_bwd")
+            _ptr(mask), dqkv.data_ptr(), b, n, heads, dh, n_valid, scale, keep,
+            _stream()), "attention_bwd")
         return dqkv
     delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
     _check(library().sfc_attention_bwd_bf16(
@@ -731,10 +830,10 @@ def gather_project(x: torch.Tensor, lut: torch.Tensor, w: torch.Tensor,
 
 #: The GEMM's kernels by ``sfc_gemm_attrs``'s form number: each of the
 #: three layouts (op(A) op(B): NN, NT with b stored [N, K], TN with a
-#: stored [K, M]) with no activation, act or act'(z) in its epilogue, and
-#: the split-K sum.
+#: stored [K, M]) with no activation, act or act'(z) in its epilogue, the
+#: split-K sum, and the NN LayerNorm form of :func:`gemm_layernorm`.
 GEMM_FORMS = tuple(f"{layout}{kind}" for layout in ("NN", "NT", "TN")
-                   for kind in ("", " act", " act'")) + ("split-K sum",)
+                   for kind in ("", " act", " act'")) + ("split-K sum", "NN LayerNorm")
 
 #: The operand forms of :func:`wgmma_probe` (``csrc/wgmma_probe.cu``).
 WGMMA_FORMS = ("ss", "rs", "ss_trans_b", "rs_trans_b", "ss_trans_ab")
@@ -762,8 +861,8 @@ def flash_kernel_attrs() -> dict:
     """What the compiler gave the ``wgmma`` kernels, #7's four instances
     (head dim 64 or 192, one pass or two), #8's two forms, #9-#11, #14's
     two instances (x gathered from shared or global memory), the GEMM's
-    three forms and its split-K sum, and #4's attention backward
-    (``cudaFuncGetAttributes``):
+    three forms, its split-K sum and its LayerNorm form (#15), and the
+    attention backward's instances (#4, #6; ``cudaFuncGetAttributes``):
     ``{name: {"registers", "local_bytes", "smem_bytes"}}``, local bytes
     being spills and stack a thread, shared bytes a block."""
     lib = library()
@@ -782,7 +881,8 @@ def flash_kernel_attrs() -> dict:
             ("gather_project global x", lambda a: lib.sfc_gather_project_attrs(0, a)),
             *((f"gemm {form}", lambda a, i=i: lib.sfc_gemm_attrs(i, a))
               for i, form in enumerate(GEMM_FORMS)),
-            ("attention_bwd_sm90", lib.sfc_attention_bwd_sm90_attrs)):
+            *((name, lambda a, i=i: lib.sfc_attention_bwd_sm90_attrs(i, a))
+              for i, name in enumerate(ATTENTION_BWD_SM90_FORMS))):
         vals = (ctypes.c_int * 3)()
         _check(call(ctypes.cast(vals, ctypes.c_void_p)), f"attributes of {name}")
         out[name] = dict(zip(("registers", "local_bytes", "smem_bytes"), vals))

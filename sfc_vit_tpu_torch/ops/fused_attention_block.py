@@ -100,11 +100,18 @@ def attention_fwd_ref(qkv: torch.Tensor, heads: int, n_valid: int,
 
 
 def attention_bwd_ref(qkv, att, datt, lse, heads: int, n_valid: int,
-                      scale: float) -> torch.Tensor:
-    """Plain version of ``csrc/attention_bwd.cu``: the packed ``dqkv``
-    from the saved ``qkv``, ``att``, fp32 ``lse`` [B, H, N] and the
-    cotangent ``datt`` of ``att``, with the TPU kernel's rounding points
-    (pn and ds rounded to the input dtype, fp32 sums)."""
+                      scale: float, mask: Optional[torch.Tensor] = None,
+                      keep: float = 1.0) -> torch.Tensor:
+    """Plain version of ``csrc/attention_bwd_sm90.cu`` and
+    ``csrc/attention_bwd.cu``: the packed ``dqkv`` from the saved ``qkv``,
+    ``att``, fp32 ``lse`` [B, H, N] and the cotangent ``datt`` of ``att``,
+    with the TPU kernels' rounding points, fp32 sums.
+
+    Without ``mask`` (#4): ``pn = exp(s * scale - lse)`` and ``ds`` rounded
+    to the input dtype.  With the 0/1 dropout ``mask`` [B, H, N, N] and
+    ``keep`` (#6): ``pf`` stays fp32, ``pdf = (pf / keep) * mask`` is
+    rounded as dv's operand, ``dp = ((da v^T) / keep) * mask`` and ``ds =
+    pf (dp - delta) scale`` rounded.  Keys at or past ``n_valid`` give 0."""
     b, n, w = qkv.shape
     dh = w // (3 * heads)
     dt = qkv.dtype
@@ -112,12 +119,18 @@ def attention_bwd_ref(qkv, att, datt, lse, heads: int, n_valid: int,
     da = _split_heads(datt, heads)
     pn = torch.exp((q @ k.transpose(-1, -2)) * scale - lse[..., None])
     pn[..., n_valid:] = 0.0
-    pf = pn.to(dt).float()
     dpn = da @ v.transpose(-1, -2)
     delta = (da * _split_heads(att, heads)).sum(-1, keepdim=True)
+    if mask is None:
+        pf = pv = pn.to(dt).float()
+    else:
+        maskf = mask.float()
+        pf = pn
+        pv = ((pf / keep) * maskf).to(dt).float()
+        dpn = (dpn / keep) * maskf
     ds = (pf * (dpn - delta) * scale).to(dt).float()
     dqkv = torch.stack([ds @ k, ds.transpose(-1, -2) @ q,
-                        pf.transpose(-1, -2) @ da])  # [3, B, H, N, Dh]
+                        pv.transpose(-1, -2) @ da])  # [3, B, H, N, Dh]
     return dqkv.permute(1, 3, 0, 2, 4).reshape(b, n, w).to(dt)
 
 

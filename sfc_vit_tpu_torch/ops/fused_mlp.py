@@ -35,9 +35,16 @@ D = 768, F = 1024 they do not fit a Hopper block, so each is a chain:
 Forward (#15): ``ln_rows`` over the fp32 sum ``s1 = x + attn`` (``x2``
 rounded for fc1, ``x2f`` kept in fp32) -> ``gemm`` (fc1, +b1, activation
 in fp32, one rounding; the training form also writes ``z`` rounded) ->
-``gemm`` (fc2, +b2, + the fp32 ``x2f``, kept in fp32: ``s2``) -> ``ln_rows``
-over the fp32 ``s2`` (the output rounded once; the training form also
-writes ``s2`` rounded).
+``gemm_layernorm`` (fc2, +b2, + the fp32 ``x2f`` into the fp32 ``s2``, and
+LN2 of each row of it in the same kernel: the row's 128-column tiles run as
+one thread-block cluster and add their partial sums in rank order, so
+``s2`` never passes through device memory in fp32; the output rounded
+once, the training form also writes ``s2`` rounded).  There ``ln_rows``
+saves each row's mean and rsqrt instead of the fp32 ``x2f``, and the
+epilogue rebuilds ``x2f`` from x, attn and them, the same bits.  Where D is
+not a whole number of 128-column tiles or needs a cluster of more than 8
+(:func:`tail_fc2_route`), fc2 and LN2 are two launches instead: ``ln_rows``
+also writes ``x2f``, ``gemm`` (the fp32 ``s2``) -> ``ln_rows`` over it.
 
 Backward (#16, from the saved ``z`` and ``s2``, no recomputed GEMM):
 ``ln_rows_bwd`` over the bf16 ``s2`` and the bf16 cotangent (dLN2, the
@@ -59,13 +66,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._build import act_bf16, gemm, ln_rows, ln_rows_bwd
+from ._build import act_bf16, gemm, gemm_layernorm, gemm_layernorm_fits, ln_rows, ln_rows_bwd
 from .kernel_utils import fp32_compute_not_ported, ln_bwd_fp32, ln_fp32
 
 __all__ = ["fused_mlp_block", "mlp_block_ref", "mlp_block_bwd_ref",
            "mlp_block_train_fwd", "mlp_block_bwd", "fused_postnorm_tail",
            "postnorm_tail_ref", "postnorm_tail_kernel_ref", "postnorm_tail_bwd_ref",
-           "postnorm_tail_train_fwd", "postnorm_tail_bwd"]
+           "postnorm_tail_train_fwd", "postnorm_tail_bwd", "tail_fc2_route"]
 
 _ACTIVATIONS = ("gelu", "relu")
 
@@ -318,6 +325,15 @@ def postnorm_tail_bwd_ref(x, attn, g, z, s2, ln1_s, ln1_b, w1, b1, w2, ln2_s,
             dlb2.to(ln2_b.dtype))
 
 
+def tail_fc2_route(d: int) -> str:
+    """How #15 runs fc2 and LN2 at width ``d``: ``"cluster"`` (one
+    ``gemm_layernorm`` launch, a thread-block cluster per row stripe) where
+    ``d`` is whole 128-column tiles, at most 8 of them; else ``"chain"``
+    (``gemm`` into the fp32 ``s2``, then ``ln_rows``).  Both compute the
+    same formula; the shape alone picks."""
+    return "cluster" if gemm_layernorm_fits(d) else "chain"
+
+
 def _tail_kernels(x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, eps,
                   activation, save_acts):
     if x.dtype != torch.bfloat16:
@@ -325,14 +341,24 @@ def _tail_kernels(x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, eps,
     b, n, d = x.shape
     x2d = x.reshape(b * n, d).contiguous()
     a2d = attn.reshape(b * n, d).contiguous()
-    x2, x2f = ln_rows(x2d, ln1_s.float(), ln1_b.float(), eps, x_b=a2d, with_f32=True)
+    cluster = tail_fc2_route(d) == "cluster"
+    l1s, l1b = ln1_s.float(), ln1_b.float()
+    # The cluster form rebuilds LN1's fp32 output x2f from the row stats;
+    # the chain reads it from device memory.
+    x2, x2r = ln_rows(x2d, l1s, l1b, eps, x_b=a2d, with_f32=not cluster,
+                      with_stats=cluster)
     h = gemm(x2, w1, bias=b1.float(), act=activation, save_z=save_acts)
     if save_acts:
         h, z = h
     del x2
-    s2 = gemm(h, w2, bias=b2.float(), residual_f32=x2f, out_dtype=torch.float32)
-    del h, x2f
-    out = ln_rows(s2, ln2_s.float(), ln2_b.float(), eps, with_rounded_input=save_acts)
+    if cluster:
+        out = gemm_layernorm(h, w2, b2.float(), x2d, a2d, x2r, l1s, l1b, ln2_s.float(),
+                             ln2_b.float(), eps, save_input=save_acts)
+    else:
+        s2 = gemm(h, w2, bias=b2.float(), residual_f32=x2r, out_dtype=torch.float32)
+        out = ln_rows(s2, ln2_s.float(), ln2_b.float(), eps, with_rounded_input=save_acts)
+        del s2
+    del h, x2r
     if not save_acts:
         fused_postnorm_tail.launches += 1
         return out.view(b, n, d)

@@ -19,10 +19,11 @@ query tile: fp32 logits times Dh^-0.5, pad keys -1e30,
 Backward (#6): ``colsum`` (db_out of gp, the cotangent with rows at or
 past ``n_actual`` zeroed) -> ``gemm`` TN (dW_out = att^T gp, one fp32 sum
 over all rows) -> ``gemm`` NT (datt = bf16(gp W_out^T)) ->
-``attention_bwd`` with the mask (dq, dk, dv from the recomputed fp32
-``pf = exp(s - lse)``, ``pdf = (pf / keep) * mask``,
-``dp = ((da v^T) / keep) * mask``, the flash delta
-``rowsum(da * att_h)``, ``ds = bf16(pf (dp - delta) scale)``) -> ``colsum``
+``attention_bwd`` with the mask (``csrc/attention_bwd_sm90.cu`` at both
+models' shapes: dq, dk, dv from the recomputed fp32 ``pf = exp(s - lse)``,
+``pdf = (pf / keep) * mask``, ``dp = ((da v^T) / keep) * mask``, the flash
+delta ``rowsum(da * att_h)``, ``ds = bf16(pf (dp - delta) scale)``; its
+plain twin is ``attention_bwd_ref`` with the mask) -> ``colsum``
 (db_in of the bf16-rounded dqkv) -> ``gemm`` TN (dW_in = x^T dqkv) ->
 ``gemm`` NT (dx = dqkv W_in^T, one rounding to x's dtype).  No LayerNorm
 and no residual: the encoder layer adds them outside.  Parameter
@@ -54,8 +55,8 @@ from typing import Optional
 import torch
 
 from ._build import attention_bwd, attention_fwd, colsum, gemm
+from .fused_attention_block import attention_bwd_ref
 from .kernel_utils import NEG_INF, fp32_compute_not_ported, n_valid as _n_valid
-from .kernel_utils import split_heads as _heads
 
 __all__ = ["fused_torch_mha", "torch_mha_train", "torch_mha_fwd_ref",
            "torch_mha_bwd_ref", "torch_mha_train_fwd", "torch_mha_bwd"]
@@ -161,17 +162,8 @@ def torch_mha_bwd_ref(x, g, w_in, w_out, mask, qkv, att, lse, heads: int,
     db_out = gpf.sum(0)
     dw_out = att.reshape(r, d).float().T @ gpf
     datt = (gpf @ w_out.float().T).to(dt).view(b, n, d)
-    q, k, v, logits = _logits(qkv, heads, nv, s)
-    da = _heads(datt, heads)
-    pf = torch.exp(logits - lse[..., None])
-    maskf = mask.float()
-    pdf = (pf / keep) * maskf
-    dv = pdf.to(dt).float().transpose(-1, -2) @ da
-    dp = ((da @ v.transpose(-1, -2)) / keep) * maskf
-    delta = (da * _heads(att, heads)).sum(-1, keepdim=True)
-    ds = (pf * (dp - delta) * s).to(dt).float()
-    dqkv = torch.stack([ds @ k, ds.transpose(-1, -2) @ q, dv])  # [3, B, H, N, Dh]
-    dqkv = dqkv.permute(1, 3, 0, 2, 4).reshape(r, 3 * d).to(dt).float()
+    dqkv = attention_bwd_ref(qkv, att, datt, lse, heads, nv, s, mask=mask,
+                             keep=keep).reshape(r, 3 * d).float()
     db_in = dqkv.sum(0)
     dw_in = x.reshape(r, d).float().T @ dqkv
     dx = (dqkv @ w_in.float().T).to(dt).view(b, n, d)

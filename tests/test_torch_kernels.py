@@ -199,14 +199,137 @@ def test_gemm_splits_only_the_weight_gradients(trans_b):
 
 @pytest.mark.parametrize("dh, n, dropout, route", [
     (64, 1, False, "sm90"), (64, 196, False, "sm90"), (64, 256, False, "sm90"),
-    (64, 257, False, "wmma"), (64, 196, True, "wmma"), (192, 64, False, "wmma"),
+    (64, 257, False, "wmma"), (64, 196, True, "wmma"), (192, 64, False, "sm90"),
+    (64, 1, True, "sm90"), (64, 64, True, "sm90"), (64, 192, True, "sm90"),
+    (64, 193, True, "wmma"), (192, 1, False, "sm90"), (192, 65, False, "wmma"),
+    (192, 1, True, "sm90"), (192, 64, True, "sm90"), (192, 65, True, "wmma"),
+    (192, 1024, True, "wmma"),
 ])
 def test_attention_bwd_route(dh, n, dropout, route):
-    """#4's attention backward (Dh 64, no dropout) up to the named limit
-    on csrc/attention_bwd_sm90.cu; #6's masked forms and longer rows on
-    csrc/attention_bwd.cu."""
+    """Each (head dim, dropout) pair up to its named limit on
+    csrc/attention_bwd_sm90.cu (#4 at Dh 64 without dropout to 256 tokens;
+    #6's masked forms at Dh 64 to 192 tokens and at Dh 192 to 64, which
+    covers the flagship's and 'hier''s shapes); longer rows, to family A's
+    1,024, on csrc/attention_bwd.cu."""
     assert _build.ATTENTION_BWD_SM90_MAX_N == 256
+    assert _build.ATTENTION_BWD_SM90_LIMITS == {
+        (64, False): 256, (64, True): _build.ATTENTION_BWD_SM90_MAX_N_DROPOUT,
+        (192, False): _build.ATTENTION_BWD_SM90_MAX_N_DH192,
+        (192, True): _build.ATTENTION_BWD_SM90_MAX_N_DH192}
     assert _build.attention_bwd_route(dh, n, dropout) == route
+
+
+@pytest.mark.parametrize("d, route", [
+    (768, "cluster"), (256, "cluster"), (128, "cluster"), (1024, "cluster"),
+    (200, "chain"), (776, "chain"), (1152, "chain"),
+])
+def test_tail_fc2_route_by_width(d, route):
+    """#15's fc2 + LN2: one cluster launch where D is whole 128-column
+    tiles, at most GEMM_LN_MAX_CLUSTER (8) of them (the flagship's 768: 6,
+    'hier''s 256: 2); other widths (not a multiple of 128, or past the
+    cluster cap) take the fc2 GEMM and ln_rows as two launches.  The
+    launcher refuses a width the cluster kernel does not take."""
+    from sfc_vit_tpu_torch.ops.fused_mlp import tail_fc2_route
+
+    assert _build.GEMM_LN_MAX_CLUSTER == 8
+    assert tail_fc2_route(d) == route
+    assert _build.gemm_layernorm_fits(d) == (route == "cluster")
+    h = torch.zeros(4, 1024, dtype=torch.bfloat16)
+    w2 = torch.zeros(1024, d, dtype=torch.bfloat16)
+    rows, vec = torch.zeros(4, d, dtype=torch.bfloat16), torch.zeros(d)
+    with pytest.raises(ValueError, match="CUDA tensor" if route == "cluster" else "multiple"):
+        _build.gemm_layernorm(h, w2, vec, rows, rows, torch.zeros(4, 2), vec, vec, vec, vec,
+                              1e-5)
+
+
+def _rn32(v) -> np.float32:
+    """The float32 nearest an exact rational (ties to even)."""
+    from fractions import Fraction
+
+    c = np.float32(float(v))
+    cands = [np.nextafter(c, np.float32(-np.inf)), c, np.nextafter(c, np.float32(np.inf))]
+    return min(cands, key=lambda f: (abs(Fraction(float(f)) - v),
+                                     int(np.float32(f).view(np.uint32)) & 1))
+
+
+@pytest.mark.parametrize("keep", [0.9, 0.5, 0.8, 0.3, 0.95, 0.123])
+def test_div_rn_is_the_correctly_rounded_quotient(keep):
+    """csrc/common.cuh's div_rn (the attention backward's x / keep, the
+    LayerNorm form's sums / D): q = RN(x rk) with rk = RN(1 / keep), then
+    RN(q + (x - q keep) rk) by fma, emulated exactly, equals float32
+    x / keep (IEEE) for normal x over 60 decades."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(63)
+    k = np.float32(keep)
+    rk = _rn32(Fraction(1) / Fraction(float(k)))
+    xs = (rng.standard_normal(400) * 10.0 ** rng.integers(-30, 30, 400)).astype(np.float32)
+    for x in xs:
+        q = _rn32(Fraction(float(x)) * Fraction(float(rk)))
+        r = _rn32(Fraction(float(x)) - Fraction(float(q)) * Fraction(float(k)))
+        got = _rn32(Fraction(float(r)) * Fraction(float(rk)) + Fraction(float(q)))
+        assert got == np.float32(x) / k, (x, got)
+
+
+def _old_torch_mha_bwd_dqkv(qkv, att, datt, lse, heads, n_valid, s, mask, keep):
+    """The dqkv of ``torch_mha_bwd_ref`` as written before it called
+    ``attention_bwd_ref`` (its inline formula), for the test below."""
+    b, n, w = qkv.shape
+    dh = w // (3 * heads)
+    dt = qkv.dtype
+    q, k, v = qkv.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4).float()
+    logits = (q @ k.transpose(-1, -2)) * s
+    logits[..., n_valid:] = -1e30
+    da = datt.view(b, n, heads, dh).permute(0, 2, 1, 3).float()
+    pf = torch.exp(logits - lse[..., None])
+    maskf = mask.float()
+    dv = ((pf / keep) * maskf).to(dt).float().transpose(-1, -2) @ da
+    dp = ((da @ v.transpose(-1, -2)) / keep) * maskf
+    delta = (da * att.view(b, n, heads, dh).permute(0, 2, 1, 3).float()).sum(-1, keepdim=True)
+    ds = (pf * (dp - delta) * s).to(dt).float()
+    dqkv = torch.stack([ds @ k, ds.transpose(-1, -2) @ q, dv])
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(b, n, w).to(dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, n, heads, dh, n_valid", [
+    (2, 20, 2, 64, 13), (3, 16, 1, 192, 11), (2, 64, 2, 64, 50), (3, 64, 1, 192, 64),
+])
+def test_masked_attention_bwd_ref_is_the_torch_mha_bwd_formula(b, n, heads, dh, n_valid, dt):
+    """The masked plain twin of the attention backward (#6's rounding
+    points) gives, bit for bit, the dqkv that torch_mha_bwd_ref computed
+    inline before it called attention_bwd_ref, at Dh 64 and 192 with a
+    ragged n_valid; torch_mha_bwd_ref's dW_in with x the identity is that
+    dqkv; and with a mask of ones, keep 1 and fp32 inputs it is the
+    unmasked form."""
+    rng = np.random.default_rng(60)
+    s = dh ** -0.5
+    qkv = _randn(rng, b, n, 3 * heads * dh, device="cpu", dtype=dt)
+    att, lse = attention_fwd_ref(qkv, heads, n_valid, s)
+    datt = _randn(rng, b, n, heads * dh, device="cpu", dtype=dt)
+    mask = torch.from_numpy(rng.random((b, heads, n, n)) < 0.9)
+    got = attention_bwd_ref(qkv, att, datt, lse, heads, n_valid, s, mask=mask, keep=0.9)
+    want = _old_torch_mha_bwd_dqkv(qkv, att, datt, lse, heads, n_valid, s, mask, 0.9)
+    assert torch.equal(got, want)
+    if b * n == heads * dh:  # x = I: dW_in = x^T dqkv is dqkv itself
+        d = heads * dh
+        x = torch.eye(d, dtype=dt).view(b, n, d)
+        w_in = _randn(rng, d, 3 * d, device="cpu", dtype=dt)
+        w_out = _randn(rng, d, d, device="cpu", dtype=dt)
+        g = _randn(rng, b, n, d, device="cpu", dtype=dt)
+        gp = g.clone()
+        gp[:, n_valid:] = 0  # pad rows add nothing (torch_mha_bwd_ref's contract)
+        datt_g = (gp.reshape(-1, d).float() @ w_out.float().T).to(dt).view(b, n, d)
+        dw_in = torch_mha_bwd_ref(x, g, w_in, w_out, mask, qkv, att, lse, heads, s,
+                                  keep=0.9, n_actual=n_valid)[1]
+        want = attention_bwd_ref(qkv, att, datt_g, lse, heads, n_valid, s, mask=mask,
+                                 keep=0.9)
+        assert torch.equal(dw_in, want.reshape(-1, 3 * d).float())
+    if dt == torch.float32:
+        ones = torch.ones_like(mask)
+        assert torch.equal(
+            attention_bwd_ref(qkv, att, datt, lse, heads, n_valid, s, mask=ones, keep=1.0),
+            attention_bwd_ref(qkv, att, datt, lse, heads, n_valid, s))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -504,29 +627,80 @@ def test_attention_bwd_sm90_matches_plain(cuda, b, n, heads, n_valid):
     assert torch.equal(got, _build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s))
 
 
+#: Masked (and Dh-192) attention-backward shapes (b, n, heads, dh, n_valid,
+#: dropout): the flagship's [.., 64, 4 x 192] and 'hier''s level and
+#: fusion layers [.., 64 | 192, 4 x 64] with enough (image, head) items
+#: that every block takes several (the next item's tiles in flight);
+#: ragged n_valid; one token and 37 (n * n not a multiple of 16: the mask
+#: by plain loads); two tiles; Dh 192 without dropout.
+_MASKED_BWD_SHAPES = [
+    (96, 64, 4, 192, 64, True), (96, 64, 4, 64, 64, True), (80, 192, 4, 64, 192, True),
+    (96, 64, 4, 192, 50, True), (80, 192, 4, 64, 150, True), (3, 1, 2, 192, 1, True),
+    (3, 1, 2, 64, 1, True), (70, 37, 4, 64, 30, True), (70, 37, 4, 192, 37, True),
+    (40, 100, 4, 64, 99, True), (96, 64, 4, 192, 57, False), (3, 1, 2, 192, 1, False),
+]
+
+
+def _attention_bwd_case(rng, b, n, heads, dh, n_valid, dropout, device="cuda"):
+    """(qkv, att, datt, lse, mask or None, scale) for the attention backward."""
+    s = dh ** -0.5
+    qkv = _randn(rng, b, n, 3 * heads * dh, device=device)
+    att, lse = attention_fwd_ref(qkv, heads, n_valid, s)
+    datt = _randn(rng, b, n, heads * dh, device=device)
+    mask = (torch.from_numpy(rng.random((b, heads, n, n)) < 0.9).to(device)
+            if dropout else None)
+    return qkv, att, datt, lse, mask, s
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [256, 257])
-def test_attention_bwd_routes_on_either_side_of_the_limit(cuda, n):
-    """The same formula on both kernels: 256 tokens on the Hopper kernel,
-    257 on csrc/attention_bwd.cu, each held to attention_bwd_ref."""
-    want_route = "sm90" if n <= _build.ATTENTION_BWD_SM90_MAX_N else "wmma"
-    assert _build.attention_bwd_route(64, n, False) == want_route
-    rng = np.random.default_rng(54)
-    s = 64 ** -0.5
-    qkv = _randn(rng, 2, n, 3 * 2 * 64)
-    att, lse = attention_fwd_ref(qkv, 2, n - 3, s)
-    datt = _randn(rng, 2, n, 2 * 64)
-    got = _build.attention_bwd(qkv, att, datt, lse, 2, n - 3, s)
-    want = attention_bwd_ref(qkv, att, datt, lse, 2, n - 3, s)
-    torch.testing.assert_close(got.float(), want.float(), **ONE_ROUND_TOL)
+@pytest.mark.parametrize("b, n, heads, dh, n_valid, dropout", _MASKED_BWD_SHAPES)
+def test_attention_bwd_sm90_masked_matches_plain(cuda, b, n, heads, dh, n_valid, dropout):
+    """#6's attention backward on csrc/attention_bwd_sm90.cu (the mask and
+    keep 0.9, Dh 64 and 192) against the masked plain twin
+    attention_bwd_ref within 2 % of its largest |value|; two calls give the
+    same bits."""
+    assert _build.attention_bwd_route(dh, n, dropout) == "sm90"
+    qkv, att, datt, lse, mask, s = _attention_bwd_case(
+        np.random.default_rng(55), b, n, heads, dh, n_valid, dropout)
+    got = _build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s, mask=mask, keep=0.9)
+    want = attention_bwd_ref(qkv, att, datt, lse, heads, n_valid, s, mask=mask, keep=0.9)
+    _within(got, want, 2e-2, "dqkv")
+    assert torch.equal(got, _build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s,
+                                                 mask=mask, keep=0.9))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh, dropout, n", [
+    (64, False, 256), (64, False, 257), (64, True, 192), (64, True, 193),
+    (192, False, 64), (192, False, 65), (192, True, 64), (192, True, 65),
+])
+def test_attention_bwd_routes_on_either_side_of_the_limit(cuda, dh, dropout, n):
+    """The same formula on both kernels: each (head dim, dropout) pair's
+    limit on the Hopper kernel, one token more on csrc/attention_bwd.cu,
+    each held to attention_bwd_ref and to a second call (bit for bit)."""
+    limit = _build.ATTENTION_BWD_SM90_LIMITS[(dh, dropout)]
+    assert _build.attention_bwd_route(dh, n, dropout) == ("sm90" if n <= limit else "wmma")
+    qkv, att, datt, lse, mask, s = _attention_bwd_case(
+        np.random.default_rng(54), 2, n, 2, dh, n - 3, dropout)
+    got = _build.attention_bwd(qkv, att, datt, lse, 2, n - 3, s, mask=mask, keep=0.9)
+    want = attention_bwd_ref(qkv, att, datt, lse, 2, n - 3, s, mask=mask, keep=0.9)
+    if dropout:
+        _within(got, want, 2e-2, "dqkv")
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **ONE_ROUND_TOL)
+    assert torch.equal(got, _build.attention_bwd(qkv, att, datt, lse, 2, n - 3, s, mask=mask,
+                                                 keep=0.9))
 
 
 @pytest.mark.gpu
 def test_gemm_and_attention_bwd_attrs_without_spills(cuda):
     """``flash_kernel_attrs`` lists the GEMM's three forms, its split-K sum
-    and #4's attention backward, none with local memory (spills)."""
+    and its LayerNorm form (#15), and the attention backward's five
+    instances (#4, #6), none with local memory (spills)."""
     attrs = _build.flash_kernel_attrs()
-    names = {f"gemm {f}" for f in _build.GEMM_FORMS} | {"attention_bwd_sm90"}
+    names = ({f"gemm {f}" for f in _build.GEMM_FORMS}
+             | set(_build.ATTENTION_BWD_SM90_FORMS))
+    assert "gemm NN LayerNorm" in names and "attention_bwd_sm90" in names
     assert names <= set(attrs)
     for name in names:
         assert attrs[name]["local_bytes"] == 0, name
@@ -1291,9 +1465,12 @@ def _tail_args(rng, b, n, d, f, device):
 
 
 #: (b, n, d, f): the flagship at MLP 1,024 and hier's levels, cut in
-#: batch; F 2048; ragged row counts (1,000 and 37 rows).
+#: batch; F 2048; ragged row counts (1,000 and 37 rows); widths that take
+#: fc2 and LN2 as two launches (200: not whole 128-column tiles; 1,152: a
+#: cluster of 9).
 _TAIL_SHAPES = [(8, 64, 768, 1024), (8, 64, 256, 1024), (4, 64, 256, 2048),
-                (10, 100, 768, 1024), (1, 37, 256, 1024)]
+                (10, 100, 768, 1024), (1, 37, 256, 1024), (2, 50, 200, 1024),
+                (1, 40, 1152, 1024)]
 _TAIL_NAMES = ("ds", "dln1_s", "dln1_b", "dw1", "db1", "dw2", "db2", "dln2_s", "dln2_b")
 
 
@@ -1339,6 +1516,65 @@ def test_postnorm_tail_bwd_matches_plain(cuda, b, n, d, f):
     order = (0, 0, 1, 2, 3, 4, 5, 6, 7, 8)  # ds is the gradient of x and of attn
     for i, leaf in enumerate(leaves):
         _within(leaf.grad, want[order[i]], 2e-2, f"arg {i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r, d", [(512 * 64, 768), (512 * 64, 256), (1000, 768), (1000, 256)])
+def test_gemm_layernorm_cluster_matches_the_two_launches(cuda, r, d):
+    """#15's fc2 + LN2 in one cluster launch at the flagship's and 'hier''s
+    widths ([512, 64] rows) and a ragged 1,000 rows: the bf16 s2 it writes
+    (with x2f rebuilt from x, attn and LN1's row stats) is the two-launch
+    chain's (x2f read back in fp32; the same fp32 sum, rounded once) bit
+    for bit; the output within one bf16 rounding of LN over the chain's
+    fp32 s2; a second call gives the same bits."""
+    rng = np.random.default_rng(61)
+    f = 1024
+    h = _randn(rng, r, f)
+    w2 = _randn(rng, f, d, scale=f ** -0.5)
+    b2 = _randn(rng, d, scale=0.1, dtype=torch.float32)
+    x, attn = _randn(rng, r, d), _randn(rng, r, d)
+    s1 = _randn(rng, d, scale=0.1, dtype=torch.float32) + 1.0
+    b1 = _randn(rng, d, scale=0.1, dtype=torch.float32)
+    s = _randn(rng, d, scale=0.1, dtype=torch.float32) + 1.0
+    bias = _randn(rng, d, scale=0.1, dtype=torch.float32)
+    _, x2f = _build.ln_rows(x, s1, b1, 1e-5, x_b=attn, with_f32=True)
+    stats = _build.ln_rows(x, s1, b1, 1e-5, x_b=attn, with_stats=True)[1]
+    ln1 = (x, attn, stats, s1, b1)
+    out, s2b = _build.gemm_layernorm(h, w2, b2, *ln1, s, bias, 1e-5, save_input=True)
+    s2 = _build.gemm(h, w2, bias=b2, residual_f32=x2f, out_dtype=torch.float32)
+    chain, s2r = _build.ln_rows(s2, s, bias, 1e-5, with_rounded_input=True)
+    assert torch.equal(s2b, s2r)  # x2f rebuilt from the stats: the same bits
+    torch.testing.assert_close(out.float(), ln_fp32(s2, s, bias).bfloat16().float(),
+                               **ONE_ROUND_TOL)
+    torch.testing.assert_close(out.float(), chain.float(), **ONE_ROUND_TOL)
+    assert torch.equal(out, _build.gemm_layernorm(h, w2, b2, *ln1, s, bias, 1e-5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d, clustered", [(768, True), (256, True), (200, False),
+                                          (1152, False)])
+def test_postnorm_tail_takes_the_cluster_launch_by_width(cuda, d, clustered):
+    """#15 launches gemm_layernorm once a forward where D is whole
+    128-column tiles, at most 8, and never elsewhere (fc2 and LN2 as two
+    launches); both forms within 1 % of the plain version."""
+    from unittest import mock
+
+    import sfc_vit_tpu_torch.ops.fused_mlp as fm
+
+    args = _tail_args(np.random.default_rng(62), 2, 40, d, 1024, cuda)
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return _build.gemm_layernorm(*a, **k)
+    with mock.patch.object(fm, "gemm_layernorm", counted), torch.no_grad():
+        out = fused_postnorm_tail(*args)
+        got = postnorm_tail_train_fwd(*args)
+    assert len(calls) == (2 if clustered else 0)
+    assert torch.equal(out, got[0])
+    want = postnorm_tail_kernel_ref(*args, save_acts=True)
+    for name, x, w in zip(("out", "z", "s2"), got, want):
+        _within(x, w, 1e-2, name)
 
 
 @pytest.mark.gpu
