@@ -14,13 +14,17 @@ Phases, each of which raises (non-zero exit) on failure:
 1. device: a CUDA device is present; prints its name and power limit;
 2. build: compiles the hand-written kernels (sfc_vit_tpu_torch/csrc)
    with nvcc and loads them; prints ptxas's registers and spills and the
-   runtime's registers and shared memory of the wgmma kernels #7-#11,
-   #14, the GEMM's three forms, split-K sum and LayerNorm form (#15) and
-   the attention backward's five instances (#4, #6), and fails if any
-   spills;
+   runtime's registers and shared memory of the wgmma kernels (#1's and
+   #7's eight packed-attention instances, #8-#11, #14, the GEMM's three
+   forms, split-K sum and LayerNorm form (#15) and the attention
+   backward's five instances (#4, #6)) and of the LayerNorm backward's
+   three, and fails if any spills;
 3. kernels: each fused block against its plain PyTorch version at the
    ViT-B/16 serving shapes (x [64, 196, 768] bf16, 12 heads of 64,
    F = 3072), with its error, tolerance and time beside the plain one;
+   then #1's attention alone (csrc/packed_attn_sm90.cu's one-pass form)
+   at [64, 196, 12 x 64] against ``attention_fwd_ref``, timed beside its
+   byte bound and SDPA's forward;
 4. slice: CurveViT ViT-B/16 (Hilbert order, bf16, random weights from a
    seed) behind ServingEngine(batch_sizes=(8, 64)) answers requests of
    1, 37 and 64 images; the logits must be finite, the kernel launch
@@ -38,7 +42,14 @@ Phases, each of which raises (non-zero exit) on failure:
    with TFLOP/s and the bound; and #4's attention backward
    (``csrc/attention_bwd_sm90.cu``) against its plain version, bit for bit
    on a second call, timed beside ``csrc/attention_bwd.cu`` and SDPA's
-   backward;
+   backward; #1's attention alone at [256, 196, 12 x 64] with its lse (the
+   lse against fp64), timed beside its bound and SDPA's forward; and
+   ``ln_rows_bwd`` (csrc/ln_rows_bwd.cu) alone in its three forms at the
+   main paths' shapes ((a) [50,176, 768] of #3 and #4; (b) #16's LN2 and
+   (c) its LN1 at [32,768, 768] and [32,768, 256]) against
+   ``ln_bwd_fp32``, bit for bit on a second call, timed beside its byte
+   bound and ``native_layer_norm_backward`` on the same rows (the
+   yardstick of the plain LayerNorm-backward part only);
 5. train slice: Trainer + CurveViT ViT-B/16 (fp32 params, bf16 compute,
    mixup/cutmix on) for one epoch of 4 steps at batch 256 on
    synthetic_dataset(n=1024, hw=224, 1000 classes), then evaluate on 256
@@ -53,8 +64,7 @@ Phases, each of which raises (non-zero exit) on failure:
    (``packed_flash_attention``: the flagship's [256, 64, 2304] and serving
    batch 16, 'hier''s [256, 64, 768] and [256, 192, 768]) against their
    plain versions, each error beside its tolerance; each timed beside its
-   plain version and its bound; #7 by CUDA-graph replay, beside the
-   kernel it replaced (``csrc/attention_fwd.cu``) and
+   plain version and its bound; #7 by CUDA-graph replay, beside
    ``F.scaled_dot_product_attention`` on contiguous copies of q, k and v;
    and #6's attention backward alone (``csrc/attention_bwd_sm90.cu`` with
    the mask) at the flagship's [512, 64, 4 x 192] and 'hier''s [512, 64,
@@ -127,7 +137,9 @@ Phases, each of which raises (non-zero exit) on failure:
 13. post-norm tail: first #15's launches each timed alone at [512, 64,
    768] and [512, 64, 256]: before (LN1 with the fp32 x2f, fc1, fc2 into
    the fp32 s2, LN2) and after (LN1 with row stats, fc1, fc2 + LN2 as one
-   launch of thread-block clusters); then #15 (serving form; training
+   launch of thread-block clusters), and #16's eight launches (LN2
+   backward, relu, dW2, dz, x2, dW1, dx2, LN1 backward) each with its
+   bytes, operations and bound; then #15 (serving form; training
    form with z and s2) and
    #16 at the flagship's layer at MLP 1,024 (x, attn [512, 64, 768], F =
    1,024), hier's levels ([512, 64, 256]) and a ragged 1,000 rows against
@@ -203,6 +215,7 @@ from sfc_vit_tpu_torch.ops.fused_mlp import (
     postnorm_tail_train_fwd,
     tail_fc2_route,
 )
+from sfc_vit_tpu_torch.ops.kernel_utils import ln_bwd_fp32
 from sfc_vit_tpu_torch.models import VisionTransformer1D
 from sfc_vit_tpu_torch.registry import build_model, build_tokenizer, preset_config
 from sfc_vit_tpu_torch.serving import ServingEngine
@@ -415,6 +428,9 @@ def phase_kernels(card: str) -> dict:
             max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
             **_bound(2 * r * D * 3 * D + 4 * B * HEADS * N * N * 64 + 2 * r * D * D,
                      2 * (2 * r * D + 4 * D * D) + 8 * D))
+        _check(_build.attention_fwd_route(64, N, False) == "one pass",
+               "#1's attention does not take the packed kernel's one-pass form")
+        _attention_fwd_case(card, B, with_lse=False)
     return results
 
 
@@ -589,6 +605,9 @@ def phase_backward(card: str) -> dict:
                  + 16 * D))
     _gemm_phase(card, b)
     _attention_bwd_phase(card, b)
+    _attention_fwd_case(card, b, with_lse=True)
+    for form, rows, d in LN_BWD_CASES:
+        _ln_bwd_case(card, form, rows, d)
     return results
 
 
@@ -746,6 +765,115 @@ def _masked_attention_bwd_phase(card: str) -> None:
               f"without dropout (a yardstick for the unmasked work only) {sdpa_bwd:.4f} ms; "
               f"{card}")
         del qkv, att, lse, datt, mask, mask8, got, old, delta
+
+
+def _attention_fwd_case(card: str, b: int, with_lse: bool) -> dict:
+    """#1's attention alone at ViT-B's [b, N, HEADS x 64]: the unmasked
+    ``_build.attention_fwd`` (csrc/packed_attn_sm90.cu, one pass over the
+    196 keys) against ``attention_fwd_ref`` (BLOCK_TOL) and, with lse, its
+    lse against the fp64 log-sum-exp (LSE_TOL); then timed in turns with
+    the plain version, beside its byte bound and SDPA's forward on
+    contiguous [b, HEADS, N, 64] q, k, v (the library yardstick)."""
+    gen = torch.Generator().manual_seed(11)
+    s = 64 ** -0.5
+    qkv = _randn(gen, b, N, 3 * D)
+    shape = f"[{b}, {N}, {HEADS} x 64]{' with lse' if with_lse else ''}"
+
+    def kern():
+        return _build.attention_fwd(qkv, HEADS, N, s, with_lse=with_lse)
+
+    def plain():
+        return attention_fwd_ref(qkv, HEADS, N, s)
+    got, (want, _) = kern(), plain()
+    att = got[0] if with_lse else got
+    err, ok = _agree(att, want, **BLOCK_TOL)
+    print(f"#1's attention {shape} vs attention_fwd_ref: max abs err {err:.4g} (tolerance "
+          f"rtol {BLOCK_TOL['rtol']}, atol {BLOCK_TOL['atol']})")
+    _check(ok, f"#1's attention disagrees with attention_fwd_ref at {shape}")
+    if with_lse:
+        lse_err, lse_ok = _agree(got[1], _lse_of(qkv, HEADS, N), **LSE_TOL)
+        print(f"  lse vs fp64: max abs err {lse_err:.4g} (tolerance rtol {LSE_TOL['rtol']}, "
+              f"atol {LSE_TOL['atol']})")
+        _check(lse_ok, f"#1's attention: lse disagrees at {shape}")
+    del got, want, att
+    ms, plain_ms = _ab_ms(kern, plain)
+    q, k, v = (t.contiguous() for t in qkv.view(b, N, 3, HEADS, 64).permute(2, 0, 3, 1, 4))
+    lib_ms = _ms(lambda: TF.scaled_dot_product_attention(q, k, v))
+    nbytes = 2 * b * N * 3 * D + 2 * b * N * D + (4 * b * HEADS * N if with_lse else 0)
+    bound = _bound(4 * b * HEADS * N * N * 64, nbytes)
+    print(f"#1's attention {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA forward "
+          f"{lib_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+          f"{nbytes / 1e6:.1f} MB), {bound['bound_ms'] / ms:.1%} of it, {card}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err, **bound)
+
+
+#: csrc/ln_rows_bwd.cu's three forms at their main-path shapes (form, rows,
+#: D): (a) #3's and #4's at ViT-B batch 256; (b) #16's LN2 and (c) its LN1
+#: on the flagship at MLP 1,024 (batch 512 x 64 tokens) and 'hier''s D 256.
+LN_BWD_CASES = (("a", TRAIN_B * N, D), ("b", FA_B * FA_N, FA_D), ("c", FA_B * FA_N, FA_D),
+                ("b", FA_B * FA_N, 256), ("c", FA_B * FA_N, 256))
+_LN_BWD_LABELS = {"a": "(a) x bf16, dxn fp32, + g, colsum(g) (#3, #4)",
+                  "b": "(b) x bf16, dxn bf16, fp32 dx and colsum(dx) (#16's LN2)",
+                  "c": "(c) x + x_b, dxn fp32 (#16's LN1)"}
+
+
+def _ln_bwd_case(card: str, form: str, rows: int, d: int, repeat: bool = True) -> dict:
+    """One form of ``_build.ln_rows_bwd`` alone (csrc/ln_rows_bwd.cu) at
+    [rows, d] against ``ln_bwd_fp32`` (dx within one bf16 rounding, the
+    column sums within 1e-3 of their largest |value|) and, with ``repeat``,
+    bit for bit on a second call; timed in turns with
+    ``torch.ops.aten.native_layer_norm_backward`` on the same rows in bf16,
+    beside its byte bound.  That call is the yardstick of the plain
+    LayerNorm-backward part only: it neither adds g, nor writes the fp32
+    dx, nor sums g or dx, and moves 6 bytes an element to this one's 10."""
+    gen = torch.Generator().manual_seed(12)
+    x = _randn(gen, rows, d, scale=3.0, shift=0.5)
+    s = _randn(gen, d, dtype=torch.float32)
+    g = None
+    if form == "a":
+        dxn, g = _randn(gen, rows, d, dtype=torch.float32), _randn(gen, rows, d)
+        kw = dict(g_sum=True)
+    elif form == "b":
+        dxn, kw = _randn(gen, rows, d), dict(add_g=False, dx_f32=True, dx_sum=True)
+    else:
+        dxn = _randn(gen, rows, d, dtype=torch.float32)
+        kw = dict(add_g=False, x_b=_randn(gen, rows, d))
+
+    def run():
+        return _build.ln_rows_bwd(x, dxn, s, g, 1e-5, **kw)
+    label = f"ln_rows_bwd form {_LN_BWD_LABELS[form]} [{rows}, {d}]"
+    print(f"{label} vs ln_bwd_fp32:")
+    got = run()
+    xf = x.float() + (kw["x_b"].float() if "x_b" in kw else 0.0)
+    want_dx, want_ds, want_db = ln_bwd_fp32(xf, dxn.float(), s)
+    if g is not None:
+        want_dx = want_dx + g.float()
+    err = _frac_err("dx", got[0], want_dx.to(torch.bfloat16), 1e-2)
+    _frac_err("dscale", got[1], want_ds, 1e-3)
+    _frac_err("dbias", got[2], want_db, 1e-3)
+    if form == "a":
+        _frac_err("colsum(g)", got[3], g.float().sum(0), 1e-3)
+    if form == "b":
+        _frac_err("colsum(dx)", got[4], want_dx.sum(0), 1e-3)
+    if repeat:
+        _check(all(torch.equal(u, v) for u, v in zip(got, run())),
+               f"{label} does not repeat bit for bit")
+    del got, want_dx, xf
+    xn = x if form != "c" else (x.float() + kw["x_b"].float()).to(x.dtype)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(xn, [d], s.to(x.dtype), None, 1e-5)
+    gy, w = dxn.to(x.dtype), s.to(x.dtype)
+
+    def native():
+        return torch.ops.aten.native_layer_norm_backward(gy, xn, [d], mean, rstd, w, None,
+                                                         [True, True, False])
+    ms, native_ms = _ab_ms(run, native)
+    nbytes = rows * d * 10 + 4 * d * (1 + 2 + (form != "c"))
+    bound = _bound(15 * rows * d, nbytes)
+    print(f"{label}: kernel {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+          f"{nbytes / 1e6:.1f} MB), {bound['bound_ms'] / ms:.1%} of it; "
+          f"native_layer_norm_backward on the same rows (bf16 in and out, the plain "
+          f"LayerNorm-backward part only) {native_ms:.4f} ms; {card}")
+    return dict(ms=ms, library_ms=native_ms, max_abs_err=err, **bound)
 
 
 def _lr_zero_state(model) -> TrainState:
@@ -1033,11 +1161,9 @@ def phase_fa_kernels(card: str) -> dict:
 def _packed_case(gen, card: str, b: int, n: int, inner: int, heads: int) -> dict:
     """#7 on a random packed qkv [b, n, 3 * inner] against ``_packed_xla_ref``
     (BLOCK_TOL), then timed by graph replay (:func:`_graph_ms`: a call lasts
-    tens of microseconds, under the Python launch path) in turns with the
-    kernel it replaced (``_build.attention_fwd``'s unmasked instance of
-    ``csrc/attention_fwd.cu``, the yardstick of the redesign), its plain
-    version and ``F.scaled_dot_product_attention`` on contiguous [b, heads,
-    n, dh] copies of q, k and v made before the timing."""
+    tens of microseconds, under the Python launch path) in turns with its
+    plain version, and ``F.scaled_dot_product_attention`` on contiguous [b,
+    heads, n, dh] copies of q, k and v made before the timing."""
     qkv = _randn(gen, b, n, 3 * inner)
     dh = inner // heads
     s = dh ** -0.5
@@ -1050,14 +1176,13 @@ def _packed_case(gen, card: str, b: int, n: int, inner: int, heads: int) -> dict
         _check(ok, f"kernel #7 disagrees with _packed_xla_ref at {shape}")
         q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4))
         kern = lambda: packed_flash_attention(qkv, heads)  # noqa: E731
-        old = lambda: _build.attention_fwd(qkv, heads, n, s)  # noqa: E731
         plain = lambda: _packed_xla_ref(qkv, heads, s)  # noqa: E731
-        p1, o1, k1, k2, o2, p2 = (_graph_ms(f) for f in (plain, old, kern, kern, old, plain))
+        p1, k1, k2, p2 = (_graph_ms(f) for f in (plain, kern, kern, plain))
         lib_ms = _graph_ms(lambda: TF.scaled_dot_product_attention(q, k, v))
     t = dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
              **_bound(4 * b * heads * n * n * dh, 2 * (b * n * 3 * inner + b * n * inner)))
     print(f"packed_flash_attention (#7), {shape}, by graph replay: kernel {t['ms']:.4f} ms, "
-          f"attention_fwd.cu's kernel {(o1 + o2) / 2:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"plain {t['plain_ms']:.4f} ms, "
           f"F.scaled_dot_product_attention {lib_ms:.4f} ms, bound {t['bound_ms']:.4f} ms "
           f"({t['bound_by']}), {card}")
     return t
@@ -1932,6 +2057,63 @@ def _tail_split(card: str, b: int, n: int, d: int, f: int) -> None:
     del x, attn, x2, x2f, stats, hh, s2
 
 
+def _tail_bwd_split(card: str, b: int, n: int, d: int, f: int) -> None:
+    """#16's launches one by one (CUDA events, each alone on the inputs
+    ``postnorm_tail_bwd`` gives it) at x, attn [b, n, d], F = f, each with
+    its bytes, operations and bound, and their sum."""
+    gen = torch.Generator().manual_seed(13)
+    x, attn, l1s, l1b, w1, b1, w2, b2, l2s, l2b = _tail_args(gen, b, n, d, f)
+    r = b * n
+    x2d, a2d = x.view(r, d), attn.view(r, d)
+    g = _randn(gen, r, d)
+    with torch.no_grad():
+        _, z, s2 = postnorm_tail_train_fwd(x, attn, l1s, l1b, w1, b1, w2, b2, l2s, l2b)
+    z2, s2d = z.reshape(r, f), s2.reshape(r, d)
+
+    def ln2():
+        return _build.ln_rows_bwd(s2d, g, l2s, None, 1e-5, add_g=False, dx_f32=True,
+                                  dx_sum=True)
+    ds2, _, _, ds2f, _ = ln2()
+    h = _build.act_bf16(z2, "relu")
+    dz, _ = _build.gemm(ds2, w2, trans_b=True, act="relu", z_in=z2, colsum=True)
+    x2 = _build.ln_rows(x2d, l1s, l1b, 1e-5, x_b=a2d)
+    dx2 = _build.gemm(dz, w1, trans_b=True, residual_f32=ds2f, out_dtype=torch.float32)
+    mm = 2 * r * d * f
+    # (label, launch, operations, bytes)
+    launches = [
+        ("LN2 backward (ln_rows_bwd form (b): ds2, fp32 ds2, db2, dLN2)", ln2, 15 * r * d,
+         10 * r * d),
+        ("act_bf16: h = relu(z)", lambda: _build.act_bf16(z2, "relu"), r * f, 4 * r * f),
+        ("dW2 = h^T ds2 (gemm TN)", lambda: _build.gemm(h, ds2, trans_a=True), mm,
+         2 * (r * f + r * d + f * d)),
+        ("dz = ds2 W2^T * relu'(z), db1 (gemm NT)",
+         lambda: _build.gemm(ds2, w2, trans_b=True, act="relu", z_in=z2, colsum=True), mm,
+         2 * (r * d + f * d + 2 * r * f) + 4 * f),
+        ("x2 = LN1(x + attn) recomputed (ln_rows)",
+         lambda: _build.ln_rows(x2d, l1s, l1b, 1e-5, x_b=a2d), 8 * r * d, 6 * r * d),
+        ("dW1 = x2^T dz (gemm TN)", lambda: _build.gemm(x2, dz, trans_a=True), mm,
+         2 * (r * d + r * f + d * f)),
+        ("dx2 = dz W1^T + fp32 ds2 (gemm NT)",
+         lambda: _build.gemm(dz, w1, trans_b=True, residual_f32=ds2f, out_dtype=torch.float32),
+         mm, 2 * (r * f + f * d) + 8 * r * d),
+        ("LN1 backward (ln_rows_bwd form (c): ds, dLN1)",
+         lambda: _build.ln_rows_bwd(x2d, dx2, l1s, None, 1e-5, add_g=False, x_b=a2d),
+         15 * r * d, 10 * r * d),
+    ]
+    print(f"#16's launches at x, attn [{b}, {n}, {d}], F={f}, device ms each (CUDA events), "
+          f"{card}:")
+    total = total_bound = 0.0
+    for label, fn, flops, nbytes in launches:
+        ms = _ms(fn)
+        bound = _bound(flops, nbytes)
+        total += ms
+        total_bound += bound["bound_ms"]
+        print(f"  {label}: {ms:.4f} ms, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    print(f"  sum of the launches: {total:.4f} ms (their bounds' sum {total_bound:.4f} ms)")
+    del x, attn, g, z, s2, ds2, ds2f, h, dz, x2, dx2
+
+
 def phase_tail_kernels(card: str) -> dict:
     """Kernels #15 (both forms) and #16 against their plain versions at
     TAIL_SHAPES; the first two timed beside their bounds.  The kernels
@@ -1942,6 +2124,7 @@ def phase_tail_kernels(card: str) -> dict:
     for b, n, d, f in TAIL_SHAPES[:2]:
         _check(tail_fc2_route(d) == "cluster", f"#15 at D={d} is not one cluster launch")
         _tail_split(card, b, n, d, f)
+        _tail_bwd_split(card, b, n, d, f)
     for b, n, d, f in TAIL_SHAPES:
         args = _tail_args(gen, b, n, d, f)
         g = _randn(gen, b, n, d)
@@ -2195,7 +2378,7 @@ def main() -> int:
     _check(not leaked, f"the port imported {leaked}")
     entries = [
         dict(name="fused_attention_block", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/attention_fwd.cu",
+             source="sfc_vit_tpu_torch/csrc/packed_attn_sm90.cu",
              replaces="sfc_vit_tpu/ops/fused_attention_block.py:104"),
         dict(name="fused_mlp_block", route="cuda",
              source="sfc_vit_tpu_torch/csrc/gemm_bf16.cu",

@@ -1,52 +1,48 @@
-// Softmax attention straight off the packed QKV projection:
-// att[b, i, h*Dh:(h+1)*Dh] = softmax(q_i . K^T * scale, keys < n_valid) . V
-// for head dims Dh = 64 and 192, optionally with probability dropout.
+// Softmax attention with probability dropout straight off the packed QKV
+// projection: att[b, i, h*Dh:(h+1)*Dh] = bf16((P / keep) * mask) . V with
+// P = softmax(q_i . K^T * scale, keys < n_valid), for head dims Dh = 64
+// and 192, and lse = m + log(l) for every row.
 //
 // Replaces: the per-(image, head) loops of
-// sfc_vit_tpu/ops/fused_attention_block.py::_attn_block_kernel (lines
-// 153-196; Dh = 64 at ViT-B, kernel #1) and, with a mask,
 // sfc_vit_tpu/ops/fused_torch_attention.py::_torch_mha_kernel (lines
-// 109-139; the family-A flagship's training forward #5 at Dh = 192).  The
-// Dh = 192 instances stay for #5 (masked) and for #1 in a model of head
-// dim 192 (unmasked); the unmasked one was #7 until csrc/
-// packed_attn_sm90.cu, and chip_smoke.py times it beside that kernel as
-// its yardstick.  It reads q, k and v from qkv
-// [B, N, 3*inner] at columns h*Dh, inner + h*Dh and 2*inner + h*Dh, as
-// those loops slice the packed block.  Logits are fp32 times scale; keys
-// at or past n_valid get -1e30 (never -inf, so no NaN); the softmax is
-// over the whole row and P = exp(s - m) / l in fp32.  Without dropout P
-// is rounded to bf16 BEFORE the P.V product (the TPU kernels' rounding
-// point).  With dropout (the torch-MHA training forward) the 0/1 mask
-// [B, H, N, N] (uint8) and keep = 1 - rate give
+// 109-139; kernel #5, the family-A flagship's training forward at Dh =
+// 192 and 'hier''s at Dh = 64).  It serves only #5: the unmasked attention
+// of #1 (sfc_vit_tpu/ops/fused_attention_block.py::_attn_block_kernel) and
+// #7 run on csrc/packed_attn_sm90.cu (ops/_build.py::attention_fwd_route).
+// It reads q, k and v from qkv [B, N, 3*inner] at columns h*Dh, inner +
+// h*Dh and 2*inner + h*Dh, as those loops slice the packed block.  Logits
+// are fp32 times scale; keys at or past n_valid get -1e30 (never -inf, so
+// no NaN); the softmax is over the whole row and P = exp(s - m) / l in
+// fp32.  The 0/1 mask [B, H, N, N] (uint8) and keep = 1 - rate give
 // Pd = bf16((P / keep) * mask): divided by keep, not multiplied by its
 // reciprocal, and rounded after the mask, as _torch_mha_kernel does.  The
 // mask is drawn outside, so the kernel has no random number generator;
 // as uint8 it is a quarter of the bf16 mask's bytes the TPU kernel read.
 // P.V accumulates in fp32 and is rounded once.
 //
-// Bound on this card: at ViT-B (N = 196, Dh = 64) one (image, head) is
-// 2*2*196*196*64 = 9.8 MFLOP on 75 KB of q/k/v, about 130 flops a byte,
-// under the H100's ~295: the bytes of qkv and out bound the attention
-// itself (the GEMMs beside it in #1 are bound by operations).  #5 at the
-// flagship (N = 64, Dh = 192) adds the mask's N^2 bytes an (image, head).
+// Bound on this card: the bytes.  At the flagship (N = 64, Dh = 192) one
+// (image, head) is 2*2*64*64*192 = 3.1 MFLOP on 72 KB of q/k/v, 24 KB of
+// output and the mask's 4 KB, about 30 flops a byte, far under the
+// H100's ~295.  This is PR 3's WMMA design, not yet redesigned for Hopper
+// (ROADMAP queue 2, next: the mask on packed_attn_sm90.cu's kernel).
 // Design: one 128-thread block per (image, head, 64-query tile); each
 // warp owns 16 query rows.  Keys stream through shared memory in 64-row
 // tiles (one head's whole K and V at N = 1024 is more than a block may
 // hold), so the whole-sequence softmax becomes two passes over the key
 // tiles: the first keeps a running max and a rescaled running sum, the
-// second recomputes each logit tile, forms P, rounds it and multiplies
-// by V.  Recomputing Q.K^T costs a third more tensor work and keeps the
-// TPU kernel's exact rounding point at any N.  At Dh = 64 a warp keeps
-// its 16 x 64 Q slice in WMMA fragments (16 registers a thread) and
-// writes P over its own Q rows in shared memory: 96 registers and 45 KB,
-// five blocks an SM.  At Dh = 192 that slice would be 48 registers on top
-// of the 96 of its output accumulators, so its fragments load from
-// shared memory at each use and P has a buffer of its own: 103 KB of
-// dynamic shared memory (Q, one K and one V tile, P and fp32 logits).
+// second recomputes each logit tile, forms P, drops, rounds and
+// multiplies by V.  Recomputing Q.K^T costs a third more tensor work and
+// keeps the TPU kernel's exact rounding point at any N.  At Dh = 64 a
+// warp keeps its 16 x 64 Q slice in WMMA fragments (16 registers a
+// thread) and writes P over its own Q rows in shared memory: 45 KB, five
+// blocks an SM.  At Dh = 192 that slice would be 48 registers on top of
+// the 96 of its output accumulators, so its fragments load from shared
+// memory at each use and P has a buffer of its own: 103 KB of dynamic
+// shared memory (Q, one K and one V tile, P and fp32 logits).
 //
-// The training forward also writes lse = m + log(l) per (image, head,
-// row) in fp32, the TPU kernels' save_lse output: pass 1 already holds
-// the row max m and the rescaled row sum l.
+// lse = m + log(l) per (image, head, row) in fp32 is the TPU kernels'
+// save_lse output: pass 1 already holds the row max m and the rescaled
+// row sum l.
 
 #include <mma.h>
 
@@ -81,7 +77,7 @@ struct Smem {
   float s[kWarps * 16 * LDS];
 };
 
-template <int DH, bool kDrop>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
     attention_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
                          bf16* __restrict__ out, float* __restrict__ lse, int n,
@@ -217,8 +213,7 @@ __global__ void __launch_bounds__(kThreads)
   // Pass 2: P = exp(s - m) / l (dropped and rescaled under a mask),
   // rounded to bf16, then O += P . V in fp32.
   const uint8_t* mask_row =
-      kDrop ? mask + ((static_cast<size_t>(b) * heads + h) * n + (row < n ? row : 0)) * n
-            : nullptr;
+      mask + ((static_cast<size_t>(b) * heads + h) * n + (row < n ? row : 0)) * n;
   FragC of[DH / 16];
 #pragma unroll
   for (int j = 0; j < DH / 16; ++j) wmma::fill_fragment(of[j], 0.f);
@@ -232,7 +227,7 @@ __global__ void __launch_bounds__(kThreads)
       const int key = k0 + c;
       const float sv = key < n_valid ? s_w[r * LDS + c] * scale : sfc::kNegInf;
       float p = expf(sv - m) / l;
-      if (kDrop) p = (row < n && key < n_valid && mask_row[key]) ? p / keep : 0.f;
+      p = (row < n && key < n_valid && mask_row[key]) ? p / keep : 0.f;
       p_w[r * LDP + c] = __float2bfloat16(p);
     }
     __syncwarp();
@@ -270,11 +265,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DH, bool kDrop>
+template <int DH>
 cudaError_t launch(const dim3& grid, cudaStream_t stream, const bf16* qkv,
                    const uint8_t* mask, bf16* out, float* lse, int n, int heads,
                    int n_valid, float scale, float keep) {
-  auto kernel = attention_fwd_kernel<DH, kDrop>;
+  auto kernel = attention_fwd_kernel<DH>;
   const int smem = static_cast<int>(sizeof(Smem<DH>));
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -288,14 +283,14 @@ cudaError_t launch(const dim3& grid, cudaStream_t stream, const bf16* qkv,
 
 // qkv: bf16 [batch, n, 3 * heads * dh]; out: bf16 [batch, n, heads * dh];
 // lse: fp32 [batch, heads, n], or null; mask: uint8 0/1 [batch, heads, n,
-// n], or null for no dropout, with keep in (0, 1].  Keys at or past
-// n_valid (1 <= n_valid <= n) are masked.  dh must be 64 or 192.
+// n] with keep in (0, 1].  Keys at or past n_valid (1 <= n_valid <= n)
+// are masked.  dh must be 64 or 192.
 extern "C" int sfc_attention_fwd_bf16(const void* qkv, const void* mask, void* out,
                                       void* lse, int batch, int n, int heads, int dh,
                                       int n_valid, float scale, float keep,
                                       void* stream) {
-  if ((dh != 64 && dh != 192) || n_valid < 1 || n_valid > n ||
-      (mask != nullptr && !(keep > 0.f)))
+  if ((dh != 64 && dh != 192) || n_valid < 1 || n_valid > n || mask == nullptr ||
+      !(keep > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0) return 0;
   const dim3 grid((n + BQ - 1) / BQ, heads, batch);
@@ -304,12 +299,8 @@ extern "C" int sfc_attention_fwd_bf16(const void* qkv, const void* mask, void* o
   const auto* mk = static_cast<const uint8_t*>(mask);
   auto* o = static_cast<bf16*>(out);
   auto* ls = static_cast<float*>(lse);
-  cudaError_t e;
-  if (dh == 64)
-    e = mask ? launch<64, true>(grid, s, q, mk, o, ls, n, heads, n_valid, scale, keep)
-             : launch<64, false>(grid, s, q, mk, o, ls, n, heads, n_valid, scale, keep);
-  else
-    e = mask ? launch<192, true>(grid, s, q, mk, o, ls, n, heads, n_valid, scale, keep)
-             : launch<192, false>(grid, s, q, mk, o, ls, n, heads, n_valid, scale, keep);
+  const cudaError_t e =
+      dh == 64 ? launch<64>(grid, s, q, mk, o, ls, n, heads, n_valid, scale, keep)
+               : launch<192>(grid, s, q, mk, o, ls, n, heads, n_valid, scale, keep);
   return static_cast<int>(e);
 }

@@ -8,6 +8,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <utility>
+
 namespace sfc {
 
 using bf16 = __nv_bfloat16;
@@ -38,6 +40,17 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// f(std::integral_constant<int, i>{}) for i = 0 .. N - 1: a loop whose
+// index is a compile-time constant in the body (a template argument).
+template <typename F, int... I>
+__device__ __forceinline__ void static_for_seq(F&& f, std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+template <int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_seq(f, std::make_integer_sequence<int, N>{});
 }
 
 // Eight fp32 values rounded to bf16 and packed for one 16-byte store.

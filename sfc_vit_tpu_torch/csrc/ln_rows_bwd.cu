@@ -14,21 +14,43 @@
 // and inv = rsqrt(var + eps) recomputed from the saved row, xhat =
 // (x - mean) * inv; dxh = dxn * scale;
 // dx = inv * (dxh - mean(dxh) - xhat * mean(dxh * xhat)) (+ g) in fp32
-// with one rounding; dln_scale += colsum(dxn * xhat), dln_bias +=
-// colsum(dxn), and optionally g_sum += colsum(g) and dx_sum += colsum of
-// the fp32 dx.
+// with one rounding; dscale = colsum(dxn * xhat), dbias = colsum(dxn),
+// and optionally colsum(g) and the column sums of the fp32 dx.
 //
 // The row is bf16 or the fp32 sum of two bf16 rows (template argument
-// SUM2); the cotangent dxn is fp32 or bf16 (DXN_BF16).
+// SUM2); the cotangent dxn is fp32 or bf16 (DXN_BF16).  Three forms run on
+// the models' paths: (a) x bf16, dxn fp32, + g (#3, #4; #3 also colsum(g));
+// (b) x bf16, dxn bf16, also the fp32 dx and its column sums (#16's LN2);
+// (c) x + x_b, dxn fp32 (#16's LN1).  Each moves 10 bytes an element.
 //
-// Bound on this card: memory.  Per row it reads D bf16 of x, D fp32 of
-// dxn and D bf16 of g and writes D bf16, ~15 flops per element.  Design:
-// one warp per row (16-byte vector loads, D % 8 == 0), rows grid-strided
-// over a fixed grid of 4-warp blocks.  The column sums, which the TPU
-// carried across its sequential row grid in fp32 VMEM, accumulate per
-// warp in shared memory (each lane owns its columns: no atomics), then
-// per block, then across blocks with one fp32 atomic per column and
-// block into outputs the wrapper zeroes (their order varies run to run).
+// Bound on this card: memory.  ~15 flops an element against 10 bytes,
+// far under the H100's ~295 flops a byte: 385 MB at ViT-B's [50,176, 768]
+// (0.115 ms at 3.35 TB/s), 252 MB at the flagship's [32,768, 768].
+// Design (one pass, no atomics, no shared-memory read-modify-write):
+//  * A block owns whole rows and each thread one 16-byte chunk of the row:
+//    thread c holds columns 8c .. 8c + 7 of every row the block walks
+//    (blockDim = D / 8 rounded up to a warp, D <= 3,072).  So each input
+//    element is read from device memory once, into registers, and the
+//    column partials of dscale, dbias, colsum(g) and colsum(dx) stay in the
+//    owning thread's registers across all the block's rows: no shared
+//    memory holds them and no bank is shared.  scale's chunk is read once.
+//  * A block takes kRows rows at once and issues all their 16-byte loads
+//    (x, x_b, dxn, g: up to 4 x kRows independent loads a thread) before
+//    any arithmetic; with several blocks an SM (the occupancy query, 5 at
+//    D 768) that keeps ~100 KB an SM in flight, past the ~25 KB the memory
+//    rate times its latency needs.  A software pipeline (the next rows'
+//    loads before this row's arithmetic) or a TMA ring would double the
+//    row registers for no more bytes in flight, so neither is used.
+//  * The two row reductions (sum and sum of squares; mean(dxh) and
+//    mean(dxh * xhat)) of the kRows rows are one warp butterfly each and,
+//    past one warp, one exchange through 2 x kRows floats a warp in shared
+//    memory: two barriers for kRows rows.
+//  * Column sums in a fixed order: each block writes its partials to an
+//    fp32 workspace [blocks, nsum, D] (the wrapper's torch.empty), and a
+//    second launch sums them over the blocks in block order (32 strided
+//    ranges of blocks, then those 32 sums in order).  Every row's block
+//    and every sum's order depend only on the shape and the card, so a
+//    second call gives the same bits.  The outputs need no zeroing.
 
 #include "common.cuh"
 
@@ -36,155 +58,234 @@ namespace {
 
 using sfc::bf16;
 
-constexpr int kWarps = 4;
+constexpr int kRows = 4;                     // the Python LN_BWD_ROWS
+constexpr int kMaxD = 3072;                  // the Python LN_BWD_MAX_D
+constexpr int kMaxThreads = kMaxD / 8;       // a thread a 16-byte chunk
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kSumWarps = 32;                // the block-order sum's threads / 32
 
-template <bool SUM2>
-__device__ __forceinline__ void load_x8(const bf16* x, const bf16* xb, long row, int d,
-                                        int c, float* v) {
-  sfc::unpack_bf16x8(reinterpret_cast<const uint4*>(x + row * d)[c], v);
-  if constexpr (SUM2) {
-    float w[8];
-    sfc::unpack_bf16x8(reinterpret_cast<const uint4*>(xb + row * d)[c], w);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] += w[e];
-  }
+struct Args {
+  const bf16* x;       // [rows, d]
+  const bf16* xb;      // [rows, d] or null: the row is x + xb in fp32
+  const void* dxn;     // [rows, d], fp32 or bf16
+  const float* scale;  // [d]
+  const bf16* g;       // [rows, d], or null unless add_g or g_sum
+  bf16* dx;            // [rows, d]
+  float* dx32;         // [rows, d] or null
+  float* ws;           // [gridDim.x, nsum, d]: each block's column partials
+  int rows, d, add_g, g_sum, dx_sum;
+  float eps;
+};
+
+__device__ __forceinline__ void unpack_f32x8(float4 a, float4 b, float* v) {
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-template <bool DXN_BF16>
-__device__ __forceinline__ void load_dxn8(const void* dxn, long row, int d, int c,
-                                          float* dv) {
-  if constexpr (DXN_BF16) {
-    sfc::unpack_bf16x8(
-        reinterpret_cast<const uint4*>(static_cast<const bf16*>(dxn) + row * d)[c], dv);
-  } else {
-    const float4* dr = reinterpret_cast<const float4*>(static_cast<const float*>(dxn) + row * d);
-    const float4 d0 = dr[2 * c], d1 = dr[2 * c + 1];
-    dv[0] = d0.x; dv[1] = d0.y; dv[2] = d0.z; dv[3] = d0.w;
-    dv[4] = d1.x; dv[5] = d1.y; dv[6] = d1.z; dv[7] = d1.w;
+// Each of v's K values summed over the block in a fixed order: a
+// butterfly across the warp (every lane ends with the same bits), then,
+// past one warp, the warps' sums in warp order through `red`.  Every
+// thread of the block calls it.
+template <int K>
+__device__ __forceinline__ void block_sum(float (&v)[K], float (*red)[K], int warps) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+  if (warps == 1) return;
+  if (threadIdx.x % 32 == 0)
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[threadIdx.x / 32][k] = v[k];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float t = red[0][k];
+    for (int w = 1; w < warps; ++w) t += red[w][k];
+    v[k] = t;
   }
 }
 
 template <bool SUM2, bool DXN_BF16>
-__global__ void __launch_bounds__(kWarps * 32)
-    ln_rows_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xb,
-                       const void* __restrict__ dxn, const float* __restrict__ scale,
-                       const bf16* __restrict__ g, bf16* __restrict__ dx,
-                       float* __restrict__ dx32, float* __restrict__ dscale,
-                       float* __restrict__ dbias, float* __restrict__ gsum,
-                       float* __restrict__ dxsum, int rows, int d, float eps, int add_g) {
-  extern __shared__ float part[];  // [kWarps][nsum][d]
-  // Column-sum slots: dscale, dbias, then gsum and dxsum where asked for.
-  const int gslot = 2, dslot = gsum != nullptr ? 3 : 2;
-  const int nsum = dslot + (dxsum != nullptr ? 1 : 0);
-  const bool read_g = add_g || gsum != nullptr;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int chunks = d / 8;
-  float* mine = part + static_cast<size_t>(warp) * nsum * d;
-  for (int i = lane; i < nsum * d; i += 32) mine[i] = 0.f;
-  __syncwarp();
+__global__ void __launch_bounds__(kMaxThreads)
+    ln_rows_bwd_kernel(const __grid_constant__ Args a) {
+  // One array for each reduction of a round: the second barrier of a round
+  // orders its reads of the first before the next round's writes, and the
+  // next round's first barrier does the same for the second.
+  __shared__ float red_stats[kMaxWarps][2 * kRows], red_means[kMaxWarps][2 * kRows];
+  const int d = a.d, rows = a.rows, warps = blockDim.x / 32;
+  const int c = threadIdx.x;  // this thread's chunk: columns 8c .. 8c + 7
+  const bool own = c < d / 8;
+  const bool read_g = a.add_g || a.g_sum;
+  const float fd = static_cast<float>(d);
 
-  for (long row = static_cast<long>(blockIdx.x) * kWarps + warp; row < rows;
-       row += static_cast<long>(gridDim.x) * kWarps) {
-    float s = 0.f, ss = 0.f;
-    for (int c = lane; c < chunks; c += 32) {
-      float v[8];
-      load_x8<SUM2>(x, xb, row, d, c, v);
+  float sc[8], pscale[8], pbias[8], pg[8], pdx[8];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        s += v[e];
-        ss += v[e] * v[e];
+  for (int e = 0; e < 8; ++e) sc[e] = pscale[e] = pbias[e] = pg[e] = pdx[e] = 0.f;
+  if (own) {
+    const float4* s4 = reinterpret_cast<const float4*>(a.scale) + 2 * c;
+    unpack_f32x8(s4[0], s4[1], sc);
+  }
+
+  for (long r0 = static_cast<long>(blockIdx.x) * kRows; r0 < rows;
+       r0 += static_cast<long>(gridDim.x) * kRows) {
+    // Every load of the kRows rows first.
+    uint4 xr[kRows], xbr[kRows], dr[kRows], gr[kRows];
+    float4 df[kRows][2];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const uint4 zero = make_uint4(0, 0, 0, 0);
+      xr[i] = xbr[i] = dr[i] = gr[i] = zero;
+      df[i][0] = df[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (own && r0 + i < rows) {
+        const size_t off = static_cast<size_t>(r0 + i) * d + 8 * c;
+        xr[i] = __ldg(reinterpret_cast<const uint4*>(a.x + off));
+        if constexpr (SUM2) xbr[i] = __ldg(reinterpret_cast<const uint4*>(a.xb + off));
+        if constexpr (DXN_BF16) {
+          dr[i] = __ldg(reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.dxn) + off));
+        } else {
+          const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(a.dxn) + off);
+          df[i][0] = __ldg(p);
+          df[i][1] = __ldg(p + 1);
+        }
+        if (read_g) gr[i] = __ldg(reinterpret_cast<const uint4*>(a.g + off));
       }
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    }
-    const float mean = s / d;
-    const float var = fmaxf(ss / d - mean * mean, 0.f);
-    const float inv = rsqrtf(var + eps);
 
-    // Pass 2: the two row means and the column sums.
-    float m1 = 0.f, m2 = 0.f;
-    for (int c = lane; c < chunks; c += 32) {
-      float v[8], dv[8];
-      load_x8<SUM2>(x, xb, row, d, c, v);
-      load_dxn8<DXN_BF16>(dxn, row, d, c, dv);
+    float xv[kRows][8], dv[kRows][8], st[2 * kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      sfc::unpack_bf16x8(xr[i], xv[i]);
+      if constexpr (SUM2) {
+        float w[8];
+        sfc::unpack_bf16x8(xbr[i], w);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) xv[i][e] += w[e];
+      }
+      if constexpr (DXN_BF16) sfc::unpack_bf16x8(dr[i], dv[i]);
+      else unpack_f32x8(df[i][0], df[i][1], dv[i]);
+      float s = 0.f, ss = 0.f;
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const int i = c * 8 + e;
-        const float xhat = (v[e] - mean) * inv;
-        const float dxh = dv[e] * scale[i];
+        s += xv[i][e];
+        ss += xv[i][e] * xv[i][e];
+      }
+      st[2 * i] = s;
+      st[2 * i + 1] = ss;
+    }
+    block_sum(st, red_stats, warps);
+
+    // xhat in place of x; the two row means' sums.
+    float inv[kRows], mt[2 * kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const float mean = st[2 * i] / fd;
+      const float var = fmaxf(st[2 * i + 1] / fd - mean * mean, 0.f);
+      inv[i] = rsqrtf(var + a.eps);
+      float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float xhat = (xv[i][e] - mean) * inv[i];
+        const float dxh = dv[i][e] * sc[e];
+        xv[i][e] = xhat;
         m1 += dxh;
         m2 += dxh * xhat;
-        mine[i] += dv[e] * xhat;
-        mine[d + i] += dv[e];
       }
+      mt[2 * i] = m1;
+      mt[2 * i + 1] = m2;
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      m1 += __shfl_xor_sync(0xffffffffu, m1, o);
-      m2 += __shfl_xor_sync(0xffffffffu, m2, o);
-    }
-    m1 /= d;
-    m2 /= d;
+    block_sum(mt, red_means, warps);
 
-    // Pass 3: dx (x and dxn rows are in L1 from the passes above).
-    uint4* out = reinterpret_cast<uint4*>(dx + row * d);
-    for (int c = lane; c < chunks; c += 32) {
-      float v[8], dv[8], gv[8];
-      load_x8<SUM2>(x, xb, row, d, c, v);
-      load_dxn8<DXN_BF16>(dxn, row, d, c, dv);
-      if (read_g) sfc::unpack_bf16x8(reinterpret_cast<const uint4*>(g + row * d)[c], gv);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const long row = r0 + i;
+      if (!own || row >= rows) continue;
+      const float m1 = mt[2 * i] / fd, m2 = mt[2 * i + 1] / fd;
+      float gv[8], r[8];
+      sfc::unpack_bf16x8(gr[i], gv);  // zeros unless g is read
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const int i = c * 8 + e;
-        const float xhat = (v[e] - mean) * inv;
-        const float dxh = dv[e] * scale[i];
-        float r = inv * (dxh - m1 - xhat * m2);
-        if (add_g) r += gv[e];
-        if (gsum != nullptr) mine[gslot * d + i] += gv[e];
-        if (dxsum != nullptr) mine[dslot * d + i] += r;
-        v[e] = r;
+        const float xhat = xv[i][e];
+        const float dxh = dv[i][e] * sc[e];
+        r[e] = inv[i] * (dxh - m1 - xhat * m2);
+        if (a.add_g) r[e] += gv[e];
+        pscale[e] += dv[i][e] * xhat;
+        pbias[e] += dv[i][e];
+        if (a.g_sum) pg[e] += gv[e];
+        if (a.dx_sum) pdx[e] += r[e];
       }
-      if (dx32 != nullptr) {
-        float4* dst = reinterpret_cast<float4*>(dx32 + row * d) + 2 * c;
-        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+      const size_t off = static_cast<size_t>(row) * d + 8 * c;
+      if (a.dx32 != nullptr) {
+        float4* dst = reinterpret_cast<float4*>(a.dx32 + off);
+        dst[0] = make_float4(r[0], r[1], r[2], r[3]);
+        dst[1] = make_float4(r[4], r[5], r[6], r[7]);
       }
-      out[c] = sfc::pack_bf16x8(v);
+      *reinterpret_cast<uint4*>(a.dx + off) = sfc::pack_bf16x8(r);
     }
   }
 
-  __syncthreads();
-  float* outs[4] = {dscale, dbias, gsum != nullptr ? gsum : dxsum, dxsum};
-  for (int i = threadIdx.x; i < nsum * d; i += kWarps * 32) {
-    float t = 0.f;
+  if (!own) return;
+  // This block's partials, slot by slot: dscale, dbias, then colsum(g)
+  // and colsum(dx) where asked for.
+  const int nsum = 2 + a.g_sum + a.dx_sum;
+  float* w = a.ws + static_cast<size_t>(blockIdx.x) * nsum * d + 8 * c;
+  auto put = [&](int slot, const float* v) {
+    float4* dst = reinterpret_cast<float4*>(w + static_cast<size_t>(slot) * d);
+    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+  };
+  put(0, pscale);
+  put(1, pbias);
+  if (a.g_sum) put(2, pg);
+  if (a.dx_sum) put(2 + a.g_sum, pdx);
+}
+
+// out[i] = the sum of ws[b, i] over blocks b < blocks, for i < total, in
+// a fixed order: warp w sums blocks w, w + 32, ... in turn, then warp 0
+// adds the 32 warp sums in warp order.  A block covers 32 consecutive i.
+__global__ void __launch_bounds__(kSumWarps * 32)
+    ln_cols_sum_kernel(const float* __restrict__ ws, float* __restrict__ out, int blocks,
+                       int total) {
+  __shared__ float part[kSumWarps][33];
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int i = blockIdx.x * 32 + lane;
+  float t = 0.f;
+  if (i < total) {
+    // Eight loads in flight, then their sums in block order.
+    int b = w;
+    for (; b + 7 * kSumWarps < blocks; b += 8 * kSumWarps) {
+      float v[8];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += part[static_cast<size_t>(w) * nsum * d + i];
-    atomicAdd(&outs[i / d][i % d], t);
+      for (int k = 0; k < 8; ++k) v[k] = ws[static_cast<size_t>(b + k * kSumWarps) * total + i];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) t += v[k];
+    }
+    for (; b < blocks; b += kSumWarps) t += ws[static_cast<size_t>(b) * total + i];
+  }
+  part[w][lane] = t;
+  __syncthreads();
+  if (w == 0 && i < total) {
+    float s = part[0][lane];
+#pragma unroll
+    for (int k = 1; k < kSumWarps; ++k) s += part[k][lane];
+    out[i] = s;
   }
 }
 
+int threads_for(int d) { return (d / 8 + 31) / 32 * 32; }
+
 template <bool SUM2, bool DXN_BF16>
-int launch(const bf16* x, const bf16* xb, const void* dxn, const float* scale,
-           const bf16* g, bf16* dx, float* dx32, float* dscale, float* dbias,
-           float* gsum, float* dxsum, int rows, int d, float eps, int add_g,
-           cudaStream_t stream) {
-  const int nsum = 2 + (gsum != nullptr) + (dxsum != nullptr);
-  const size_t smem = static_cast<size_t>(kWarps) * nsum * d * sizeof(float);
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ln_rows_bwd_kernel<SUM2, DXN_BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+auto kernel_of() { return ln_rows_bwd_kernel<SUM2, DXN_BF16>; }
+
+template <bool SUM2, bool DXN_BF16>
+int launch(const Args& a, int blocks, float* sums, cudaStream_t stream) {
+  if (blocks > 0) {
+    ln_rows_bwd_kernel<SUM2, DXN_BF16><<<blocks, threads_for(a.d), 0, stream>>>(a);
+    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int need = (rows + kWarps - 1) / kWarps;
-  const int blocks = need < 132 * 4 ? need : 132 * 4;
-  ln_rows_bwd_kernel<SUM2, DXN_BF16><<<blocks, kWarps * 32, smem, stream>>>(
-      x, xb, dxn, scale, g, dx, dx32, dscale, dbias, gsum, dxsum, rows, d, eps, add_g);
+  const int total = (2 + a.g_sum + a.dx_sum) * a.d;
+  ln_cols_sum_kernel<<<(total + 31) / 32, kSumWarps * 32, 0, stream>>>(a.ws, sums, blocks,
+                                                                       total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -192,37 +293,73 @@ int launch(const bf16* x, const bf16* xb, const void* dxn, const float* scale,
 
 // x bf16 [rows, d] (the row is x + x_b in fp32 when x_b is not null),
 // dxn fp32 [rows, d] (bf16 when dxn_bf16), scale fp32 [d], g bf16
-// [rows, d] (read only for add_g or gsum; may be null otherwise); dx bf16
+// [rows, d] (read only for add_g or g_sum; may be null otherwise); dx bf16
 // [rows, d], and dx32 (fp32 [rows, d], may be null) the same dx before its
-// rounding; dscale, dbias (and gsum, dxsum, which may be null) fp32 [d],
-// zeroed by the caller, receive the column sums of dxn * xhat, dxn, g and
-// the fp32 dx.  add_g adds g to dx (the residual's cotangent).  Requires
-// d % 8 == 0 and 16-byte aligned pointers; x_b and dxn_bf16 together are
-// not instantiated.
+// rounding.  sums fp32 [2 + g_sum + dx_sum, d] receives the column sums
+// of dxn * xhat, dxn, then g (g_sum) and the fp32 dx (dx_sum); ws is an
+// fp32 workspace of blocks * (2 + g_sum + dx_sum) * d elements, blocks
+// from the Python ln_rows_bwd_plan (0 when rows is 0; at most one a
+// kRows rows).  add_g adds g to dx (the residual's cotangent).  Requires
+// d % 8 == 0, 8 <= d <= 3,072 and 16-byte aligned pointers; x_b and
+// dxn_bf16 together are not instantiated.
 extern "C" int sfc_ln_rows_bwd_bf16(const void* x, const void* x_b, const void* dxn,
-                                    int dxn_bf16, const void* scale, const void* g,
-                                    void* dx, void* dx32, void* dscale, void* dbias,
-                                    void* gsum, void* dxsum, int rows, int d, float eps,
-                                    int add_g, void* stream) {
-  if (rows <= 0) return 0;
-  if (d % 8 || (x_b != nullptr && dxn_bf16)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* xp = static_cast<const bf16*>(x);
-  const auto* xb = static_cast<const bf16*>(x_b);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* gp = static_cast<const bf16*>(g);
-  auto* dxp = static_cast<bf16*>(dx);
-  auto* d32 = static_cast<float*>(dx32);
-  auto* ds = static_cast<float*>(dscale);
-  auto* db = static_cast<float*>(dbias);
-  auto* gs = static_cast<float*>(gsum);
-  auto* dxs = static_cast<float*>(dxsum);
+                                    int dxn_bf16, const void* scale, const void* g, void* dx,
+                                    void* dx32, void* sums, void* ws, int blocks, int g_sum,
+                                    int dx_sum, int rows, int d, float eps, int add_g,
+                                    void* stream) {
+  const long long need = (static_cast<long long>(rows) + kRows - 1) / kRows;
+  if (d % 8 || d < 8 || d > kMaxD || rows < 0 || blocks < 0 || blocks > need ||
+      (rows > 0 && blocks == 0) || (x_b != nullptr && dxn_bf16) ||
+      ((add_g || g_sum) && g == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.x = static_cast<const bf16*>(x);
+  a.xb = static_cast<const bf16*>(x_b);
+  a.dxn = dxn;
+  a.scale = static_cast<const float*>(scale);
+  a.g = static_cast<const bf16*>(g);
+  a.dx = static_cast<bf16*>(dx);
+  a.dx32 = static_cast<float*>(dx32);
+  a.ws = static_cast<float*>(ws);
+  a.rows = rows;
+  a.d = d;
+  a.add_g = add_g != 0;
+  a.g_sum = g_sum != 0;
+  a.dx_sum = dx_sum != 0;
+  a.eps = eps;
+  auto* out = static_cast<float*>(sums);
   auto s = static_cast<cudaStream_t>(stream);
-  if (xb != nullptr)
-    return launch<true, false>(xp, xb, dxn, sc, gp, dxp, d32, ds, db, gs, dxs, rows, d,
-                               eps, add_g, s);
-  if (dxn_bf16)
-    return launch<false, true>(xp, xb, dxn, sc, gp, dxp, d32, ds, db, gs, dxs, rows, d,
-                               eps, add_g, s);
-  return launch<false, false>(xp, xb, dxn, sc, gp, dxp, d32, ds, db, gs, dxs, rows, d, eps,
-                              add_g, s);
+  if (x_b != nullptr) return launch<true, false>(a, blocks, out, s);
+  if (dxn_bf16) return launch<false, true>(a, blocks, out, s);
+  return launch<false, false>(a, blocks, out, s);
+}
+
+// Blocks of the instance for (x_b given, dxn_bf16) an SM holds at width d
+// (the occupancy query), into *out.
+extern "C" int sfc_ln_rows_bwd_blocks_per_sm(int d, int sum2, int dxn_bf16, int* out) {
+  if (d % 8 || d < 8 || d > kMaxD || (sum2 && dxn_bf16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int t = threads_for(d);
+  cudaError_t e;
+  if (sum2) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel_of<true, false>(), t, 0);
+  else if (dxn_bf16)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel_of<false, true>(), t, 0);
+  else e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel_of<false, false>(), t, 0);
+  return static_cast<int>(e);
+}
+
+// Registers, local bytes and shared bytes of the instance for form 0 (x
+// bf16, dxn fp32), 1 (dxn bf16) or 2 (x + x_b), into out[3].
+extern "C" int sfc_ln_rows_bwd_attrs(int form, int* out) {
+  cudaFuncAttributes f;
+  cudaError_t e;
+  if (form == 0) e = cudaFuncGetAttributes(&f, kernel_of<false, false>());
+  else if (form == 1) e = cudaFuncGetAttributes(&f, kernel_of<false, true>());
+  else if (form == 2) e = cudaFuncGetAttributes(&f, kernel_of<true, false>());
+  else return static_cast<int>(cudaErrorInvalidValue);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = f.numRegs;
+  out[1] = static_cast<int>(f.localSizeBytes);
+  out[2] = static_cast<int>(f.sharedSizeBytes);
+  return 0;
 }

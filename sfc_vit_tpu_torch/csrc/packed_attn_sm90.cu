@@ -1,56 +1,82 @@
-// Attention straight off the packed QKV projection (kernel #7), for
-// Hopper: out[b, i, h*Dh:(h+1)*Dh] = softmax(q_i . K^T * scale, keys <
-// n_valid) . V for every image b and head h, with q, k and v read from
-// qkv bf16 [B, N, 3*H*Dh] at columns h*Dh, inner + h*Dh and 2*inner +
-// h*Dh (inner = H*Dh).  Head dims 64 and 192, N up to 1,024.
+// Attention straight off the packed QKV projection, for Hopper:
+// out[b, i, h*Dh:(h+1)*Dh] = softmax(q_i . K^T * scale, keys < n_valid) . V
+// for every image b and head h, with q, k and v read from qkv bf16
+// [B, N, 3*H*Dh] at columns h*Dh, inner + h*Dh and 2*inner + h*Dh (inner =
+// H*Dh), and optionally lse[b, h, i] = the natural log-sum-exp of the
+// scaled logits of row i over the valid keys.  Head dims 64 and 192, N up
+// to 1,024.
 //
 // Replaces: sfc_vit_tpu/ops/flash_attention.py::_packed_kernel (lines
-// 907-940, called at :979).  Its arithmetic: fp32 logits times scale,
-// keys at or past n_valid masked, m = the row max, p = exp(s - m), l = the
-// row sum, P = p / l rounded to bf16 BEFORE the P.V product (JAX's
-// rounding point, kept at every N), P.V summed in fp32 and rounded once.
-// Masked keys get -1e30 (never -inf: p = 0, no NaN) and add nothing to l.
-// Exponentials are exp2 with log2(e) folded into the scale.
+// 907-940, called at :979; kernel #7, the family-A serving path) and the
+// attention of sfc_vit_tpu/ops/fused_attention_block.py::_attn_block_kernel
+// (lines 153-195, with its save_lse output at :188-189; kernel #1, ViT-B's
+// served forward and training forward), which compute the same formula:
+// fp32 logits times scale, keys at or past n_valid masked, m = the row max,
+// p = exp(s - m), l = the row sum, P = p / l rounded to bf16 BEFORE the P.V
+// product (JAX's rounding point, kept at every N), P.V summed in fp32 and
+// rounded once; lse = m + log(l).  Masked keys get -1e30 (never -inf: p =
+// 0, no NaN) and add nothing to l.  Exponentials are exp2 with log2(e)
+// folded into the scale; lse is converted back once a row.
 //
-// Bound on this card: at the flagship's [256, 64, 2304] (4 heads of 192)
-// one (image, head) is 4 x 64 x 64 x 192 = 3.1 MFLOP on 72 KB of q/k/v
-// and 24 KB of output, ~33 flops a byte against the H100's ~295: the
-// bytes bound the call (75.5 MB read, 25.2 MB written, 0.030 ms at
-// 3.35 TB/s).  'hier''s [B, 64, 768] (4 heads of 64) is bound the same way.
+// Bound on this card: the bytes.  At ViT-B's training shape [256, 196,
+// 12 x 64] with lse an (image, head) is 4 x 196 x 196 x 64 = 9.8 MFLOP on
+// 75 KB of q/k/v and 25 KB of output (~100 flops a byte against the
+// H100's ~295): 231 MB read, 77 MB + 2.4 MB of lse written, 0.093 ms at
+// 3.35 TB/s.  The flagship's [256, 64, 2304] (4 heads of 192, ~33 flops a
+// byte) and 'hier''s [B, 64 or 192, 768] are bound the same way.  Beside
+// the bytes, the exponentials: one ex2 a logit at the SFU's 16 an SM a
+// clock is ~0.04 ms at ViT-B, so masked key groups skip theirs.
 // Design: a persistent grid of min(items, SMs x blocks an SM) blocks,
 // where an item is one (image, head, 64-query tile) and block i walks
 // items i, i + grid, ...  A block is one producer warp and one consumer
 // warpgroup (160 threads).
 //  * The producer's one thread keeps the next items' bytes in flight by
 //    TMA: the Q tile into a two-slot buffer, K and V tiles (64 keys x Dh)
-//    into a ring of kStages slots, each 64-row tile as Dh / 64 boxes of
-//    map_bnhd over the packed projection (row stride 3*H*Dh, Dh 192 read
-//    as three 64-column sub-heads), 128-byte swizzled; rows past n read
-//    as zero.  Two Q slots and four K/V slots hold item i + 1's tiles
-//    (72 KB at Dh 192) while item i computes and stores.
+//    into a ring of slots, each 64-row tile as Dh / 64 boxes of map_bnhd
+//    over the packed projection (row stride 3*H*Dh, Dh 192 read as three
+//    64-column sub-heads), 128-byte swizzled; rows past n read as zero.
 //  * The consumer warpgroup computes S = Q.K^T by wgmma from the swizzled
 //    tiles (Dh / 16 k16 steps; the accumulator in registers, each thread
 //    two rows), then:
-//    - one pass where the row is one 64-key tile (n_valid <= 64: the
-//      flagship and 'hier''s level layers, at both head dims): mask, the
-//      row max and sum across each row's quad of threads, P = exp(s - m)
-//      / l in fp32 rounded once to bf16 as the register A operand, and
-//      O = P.V by wgmma (Dh / 64 m64n64 products a k16 step, V read
-//      through the transpose bit).  K is read once.
-//    - two passes over the same ring's 64-key tiles for longer rows (to
-//      1,024; 'hier''s fusion layers at 192): the first keeps the running
-//      max and rescaled sum, the second recomputes each logits tile and
-//      adds bf16(P).V.  The logits are computed twice, as #8's single K
-//      step does, to keep the rounding point at any N.
-//    Rows longer than 64 keys do not stay in registers: at Dh 192, O is
-//    96 registers a thread and S 32; a 128-key row would add 32 more.
+//    - one pass where the whole row fits one warpgroup's accumulators
+//      (n_valid to 256 keys at Dh 64, to 64 at Dh 192; the Python
+//      PACKED_ONE_PASS_MAX_N): an instance for each width NK of the logits
+//      held, 64, 128, 192, 200 and 256 keys (the narrowest that covers
+//      n_valid; 200 for ViT-B's 196 holds 100 registers where 256 holds
+//      128).  The item's K tiles sit in consecutive ring slots, so S is one
+//      m64nNK wgmma a k16 step over all of them (K read once, the logits
+//      computed once; no exchange between warpgroups); the exact row max
+//      and sum across each row's quad of threads; exponentials skipped for
+//      key groups of 8 wholly past n_valid; P = exp(s - m) / l in fp32
+//      rounded once to bf16 as the register A operand, the logits dying as
+//      P's NK / 4 registers are made; O = P.V by wgmma (Dh / 64 m64n64
+//      products a k16 step, V read through the transpose bit; a last half
+//      step's missing 8 keys are zero).  The ring holds the item's 2 KT
+//      tiles (KT = NK / 64 rounded up), at least 4, so the next item's K
+//      tiles load while this item's P.V runs.  One consumer warpgroup
+//      leaves the tensor cores idle during its exponentials, so the
+//      instances to 200 keys are compiled for two blocks an SM (ten warps:
+//      168 registers a thread; 163 used at 200 keys) and interleave; the
+//      256-key one needs 211 and runs one block an SM (at 168 it spilled
+//      112 bytes as four m64n64 products a step, 64 as one m64n256).  Each
+//      k16 step's descriptors are formed inside the wgmma's asm block
+//      (sm90.cuh's *_at forms), so only the bases stay live.
+//    - two passes over the ring's 64-key tiles for longer rows (to 1,024;
+//      Dh 192 past 64 keys): the first keeps the running max and rescaled
+//      sum, the second recomputes each logits tile and adds bf16(P).V.
+//      The logits are computed twice, as #8's single K step does, to keep
+//      the rounding point at any N.
+//  * lse, where asked for, by per-thread 4-byte stores (one lane of each
+//    row's quad): a row of N fp32 starts off 16 bytes when N % 4 != 0, so
+//    no TMA box (ROADMAP F2).
 //  * The epilogue rounds O to bf16 into a two-slot 128-byte-swizzled
 //    staging tile and writes it by TMA store (rows at or past n are not
 //    written), so the store overlaps the next item.
-// Shared memory: (2 Q + kStages K/V + 2 staging) x Dh x 128 bytes: 197,728
-// bytes at Dh 192 (one block an SM), 66,656 at Dh 64 (three).  Every
-// wgmma group is waited on at once (fixed wait counts, no branch between
-// a wgmma and its wait).
+// Shared memory: (2 Q + ring + 2 staging) x Dh x 128 bytes: 197,728 bytes
+// at Dh 192 (one block an SM), 66,656 at Dh 64 to 128 keys and in two
+// passes (three), 83,072 at 192 keys (two), 99,488 at 200 (two) and 256
+// (one).  Every wgmma group is waited on at once (fixed wait counts, no
+// branch between a wgmma and its wait).
 
 #include "sm90.cuh"
 
@@ -61,37 +87,60 @@ namespace hw = sfc::sm90;
 
 constexpr int BM = 64;                  // queries an item, keys a tile
 constexpr int kMaxN = 1024;             // the Python PACKED_MAX_N
-constexpr int kStages = 4;              // K/V ring slots
+constexpr int kMaxTiles64 = 4;          // one pass to 256 keys at Dh 64 ...
+constexpr int kMaxTiles192 = 1;         // ... and to 64 at Dh 192
 constexpr int kConsumerThreads = 128;   // one warpgroup
 constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
 constexpr int kBox = 64 * 128;          // one 64-row x 64-column swizzled box, bytes
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-template <int DH>
-struct Smem {
+// K/V ring slots of the instance with KT one-pass key tiles (0: two
+// passes): a one-pass item's 2 KT tiles, at least 4.
+__host__ __device__ constexpr int ring_slots(int kt) { return kt > 2 ? 2 * kt : 4; }
+static_assert(ring_slots(2) == 4 && ring_slots(4) == 8, "a one-pass item fills the ring");
+// Blocks an SM the instance with NK one-pass key columns is compiled for:
+// three to 128 keys, two (168 registers a thread) to 200, one (255) at 256.
+__host__ __device__ constexpr int min_blocks(int dh, int nk) {
+  return dh == 192 || nk == 256 ? 1 : nk >= 192 ? 2 : 3;
+}
+
+template <int DH, int KT>
+struct Smem {  // KT: one-pass key tiles, 0 for two passes
   static constexpr int kTile = DH / 64 * kBox;  // a 64-row tile of one head
+  static constexpr int kStages = ring_slots(KT);
   unsigned char q[2][kTile];
   unsigned char kv[kStages][kTile];
   unsigned char o[2][kTile];
   uint64_t q_full[2], q_empty[2];
   uint64_t kv_full[kStages], kv_empty[kStages];
 };
-template <int DH>
-constexpr int kSmemBytes = sizeof(Smem<DH>) + 1024;  // + the 1,024-byte alignment
+template <int DH, int KT>
+constexpr int kSmemBytes = sizeof(Smem<DH, KT>) + 1024;  // + the 1,024-byte alignment
 
 struct Params {
   CUtensorMap qkv, out;  // 64-column sub-heads: 3 H Dh / 64 of qkv, H Dh / 64 of out
-  int heads, n_valid, q_tiles, k_tiles, items;
+  float* lse;            // [B, H, n] fp32, or null
+  int heads, n, n_valid, q_tiles, k_tiles, items;
   float scale_log2;  // scale * log2(e)
 };
 
-template <int DH, bool kOnePass>
-__global__ void __launch_bounds__(kThreads, DH == 64 ? 3 : 1)
+// NK: the key columns the one-pass form holds (a multiple of 8, 64 per
+// tile; 200 covers ViT-B's 196 keys with 100 registers where 256 takes
+// 128), or 0 for the two-pass form.
+template <int DH, int NK>
+__global__ void __launch_bounds__(kThreads, min_blocks(DH, NK))
     packed_attn_sm90(const __grid_constant__ Params p) {
   constexpr int C = DH / 64;
-  constexpr int kTile = Smem<DH>::kTile;
+  constexpr int KT = (NK + BM - 1) / BM;  // one-pass key tiles; 0: two passes
+  constexpr int NS = KT > 0 ? KT : 1;     // key tiles a logits product reads
+  constexpr int NC = NK > 0 ? NK : BM;    // key columns of the logits held
+  constexpr int KS = (NC + 15) / 16;      // k16 steps of P . V
+  static_assert(NC % 8 == 0 && NC > BM * (NS - 1) && NC <= BM * NS, "NK fits KT tiles");
+  using S = Smem<DH, KT>;
+  constexpr int kTile = S::kTile, kStages = S::kStages;
   extern __shared__ __align__(1024) unsigned char dyn[];
-  Smem<DH>& sm = hw::aligned_smem<Smem<DH>>(dyn);
+  S& sm = hw::aligned_smem<S>(dyn);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   if (tid == 0) {
@@ -130,11 +179,15 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 3 : 1)
           kr.next();
         };
         const int ksub = (p.heads + h) * C, vsub = (2 * p.heads + h) * C;
-        if constexpr (!kOnePass)
+        if constexpr (KT > 0) {  // every K tile, then every V tile
+          for (int t = 0; t < KT; ++t) kv(ksub, t);
+          for (int t = 0; t < KT; ++t) kv(vsub, t);
+        } else {
           for (int t = 0; t < p.k_tiles; ++t) kv(ksub, t);
-        for (int t = 0; t < p.k_tiles; ++t) {
-          kv(ksub, t);
-          kv(vsub, t);
+          for (int t = 0; t < p.k_tiles; ++t) {
+            kv(ksub, t);
+            kv(vsub, t);
+          }
         }
       }
     }
@@ -142,70 +195,110 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 3 : 1)
   }
 
   // Consumers: this thread holds query rows r0 and r0 + 8 of the item's
-  // tile, and in S the keys 8 j + c0 + {0, 1} of the key tile.
+  // tile, and in the logits the keys 8 j + c0 + {0, 1} (j < 8 NS): key
+  // tile t is s[32 t .. 32 t + 31].
   const int r0 = warp * 16 + lane / 4, c0 = 2 * (lane % 4);
   const float c = p.scale_log2;
   hw::Ring<2> qr;
   hw::Ring<kStages> kr;
   int ob = 0;  // staging slot
-  float s[32], o[C][32];
-  uint32_t pf[4][4];
+  float s[NC / 2], o[C][32];
   const unsigned char* qs = nullptr;
 
-  // S = Q . K^T (raw logits) for the K tile in the ring's current slot,
-  // which is then released.
+  // The ring's next NS tiles, waited for: their shared addresses.  A
+  // one-pass item takes 2 KT slots of a 2 KT-slot ring, so its K tiles (and
+  // its V tiles) are always consecutive slots: one contiguous operand.
+  auto next_tiles = [&](const unsigned char* (&tiles)[NS]) {
+    hw::Ring<kStages> r = kr;
+#pragma unroll
+    for (int t = 0; t < NS; ++t) {
+      hw::bar_wait(&sm.kv_full[r.slot], r.phase);
+      tiles[t] = sm.kv[r.slot];
+      r.next();
+    }
+  };
+  // Release the ring's next NS tiles.
+  auto release = [&]() {
+#pragma unroll
+    for (int t = 0; t < NS; ++t) {
+      if (lane == 0) hw::bar_arrive(&sm.kv_empty[kr.slot]);
+      kr.next();
+    }
+  };
+  // s = Q . K^T (raw logits) for the next NS K tiles of the ring, which
+  // are then released: one m64n(64 NS) product a k16 step.
   auto logits = [&]() {
-    hw::bar_wait(&sm.kv_full[kr.slot], kr.phase);
-    const unsigned char* ks = sm.kv[kr.slot];
+    const unsigned char* ks[NS];
+    next_tiles(ks);
     hw::fence_regs(s);
     hw::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      hw::wgmma_ss<0, 0>(s, hw::desc_sw128(qs + (kk / 4) * kBox) + 2 * (kk % 4),
-                         hw::desc_sw128(ks + (kk / 4) * kBox) + 2 * (kk % 4), kk);
+    const uint64_t qd = hw::desc_sw128(qs), kd = hw::desc_sw128(ks[0]);
+    // k16 step kk: 32 bytes along the rows of sub-head kk / 4.
+    sfc::static_for<DH / 16>([&](auto step) {
+      constexpr int kk = decltype(step)::value;
+      constexpr int off = (kk / 4) * (kBox >> 4) + 2 * (kk % 4);
+      if constexpr (NC == BM) hw::wgmma_ss_at<0, 0, off, off>(s, qd, kd, kk);
+      else hw::wgmma_ss_n_at<NC, off, off>(s, qd, kd, kk);
+    });
     hw::wgmma_commit();
     hw::wgmma_wait<0>();
     hw::fence_regs(s);
-    if (lane == 0) hw::bar_arrive(&sm.kv_empty[kr.slot]);
-    kr.next();
+    release();
   };
-  // Keys at or past n_valid to -1e30 (raw logits of key tile t).
-  auto mask = [&](int t) {
+  // Keys at or past n_valid to -1e30 in the raw logits, whose first tile
+  // is key tile kt.
+  auto mask = [&](int kt) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
-      if (t * BM + 8 * (i / 4) + c0 + (i % 2) >= p.n_valid) s[i] = sfc::kNegInf;
+    for (int i = 0; i < NC / 2; ++i)
+      if (kt * BM + 8 * (i / 4) + c0 + (i % 2) >= p.n_valid) s[i] = sfc::kNegInf;
   };
-  // O += bf16(P) . V for the V tile in the ring's current slot (P in s),
-  // which is then released.
-  auto pv = [&]() {
+  // O (+)= bf16(P) . V for the next NS V tiles of the ring (P in s, already
+  // normalised), which are then released; O starts from zero when `fresh`.
+  auto pv = [&](bool fresh) {
+    uint32_t pf[KS][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) hw::acc_to_a(s, kk, pf[kk]);
-    hw::bar_wait(&sm.kv_full[kr.slot], kr.phase);
-    const unsigned char* vs = sm.kv[kr.slot];
+    for (int ks = 0; ks < NC / 16; ++ks) hw::acc_to_a(s, ks, pf[ks]);
+    if constexpr (NC % 16) {  // the last step's second 8 keys are past NC: P = 0
+      pf[KS - 1][0] = hw::pack_bf16x2(s[NC / 2 - 4], s[NC / 2 - 3]);
+      pf[KS - 1][1] = hw::pack_bf16x2(s[NC / 2 - 2], s[NC / 2 - 1]);
+      pf[KS - 1][2] = pf[KS - 1][3] = 0u;
+    }
+    if (fresh)
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[cc][i] = 0.f;
+    const unsigned char* vs[NS];
+    next_tiles(vs);
 #pragma unroll
     for (int cc = 0; cc < C; ++cc) hw::fence_regs(o[cc]);
     hw::fence_frags(pf);
     hw::wgmma_fence();
-#pragma unroll
-    for (int cc = 0; cc < C; ++cc)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        hw::wgmma_rs<1>(o[cc], pf[kk], hw::desc_sw128(vs + cc * kBox) + kk * (2048 >> 4), 1);
+    const uint64_t vd = hw::desc_sw128(vs[0]);
+    // k16 step ks of the keys: 16 rows (2,048 bytes) down V; sub-head cc.
+    sfc::static_for<KS>([&](auto step) {
+      constexpr int ks = decltype(step)::value;
+      sfc::static_for<C>([&](auto sub) {
+        constexpr int cc = decltype(sub)::value;
+        hw::wgmma_rs_at<1, cc * (kBox >> 4) + ks * (2048 >> 4)>(o[cc], pf[ks], vd, 1);
+      });
+    });
     hw::wgmma_commit();
     hw::wgmma_wait<0>();
 #pragma unroll
     for (int cc = 0; cc < C; ++cc) hw::fence_regs(o[cc]);
     hw::fence_frags(pf);
-    if (lane == 0) hw::bar_arrive(&sm.kv_empty[kr.slot]);
-    kr.next();
+    release();
   };
-  // The max of each of this thread's two rows over its quad, in log2 units.
+  // The max over the held logits of each of this thread's two rows, across
+  // its quad, in log2 units.
   auto row_max = [&](float (&mx)[2]) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       float v = sfc::kNegInf;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v = fmaxf(v, fmaxf(s[4 * j + 2 * hf], s[4 * j + 2 * hf + 1]));
+      for (int j = 0; j < NC / 8; ++j)
+        v = fmaxf(v, fmaxf(s[4 * j + 2 * hf], s[4 * j + 2 * hf + 1]));
       v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
       v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
       mx[hf] = v * c;
@@ -215,22 +308,25 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 3 : 1)
   for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
     const int qt = item % p.q_tiles, bh = item / p.q_tiles;
     const int h = bh % p.heads, b = bh / p.heads;
-#pragma unroll
-    for (int cc = 0; cc < C; ++cc)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[cc][i] = 0.f;
     hw::bar_wait(&sm.q_full[qr.slot], qr.phase);
     qs = sm.q[qr.slot];
 
     float m[2], l[2] = {0.f, 0.f};
-    if constexpr (kOnePass) {
+    if constexpr (KT > 0) {
       logits();
       mask(0);
       row_max(m);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        s[i] = hw::exp2_approx(fmaf(s[i], c, -m[(i / 2) % 2]));
-        l[(i / 2) % 2] += s[i];
+      for (int j = 0; j < NC / 8; ++j) {
+        // Key groups of 8 wholly past n_valid (in the last tile): p = 0,
+        // no exponential.
+        const bool live = j < 8 * (KT - 1) || 8 * j < p.n_valid;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          s[i] = live ? hw::exp2_approx(fmaf(s[i], c, -m[e / 2])) : 0.f;
+          l[e / 2] += s[i];
+        }
       }
     } else {
       // Pass 1: the row max m and the sum l, rescaled as m grows.
@@ -259,12 +355,23 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 3 : 1)
     for (int hf = 0; hf < 2; ++hf) {
       l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
       l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
-      inv[hf] = 1.f / l[hf];
+      // One instruction each (rcp and lg2 approx): a division and logf
+      // are subroutine calls, which cost the 256-key form 22 registers.
+      inv[hf] = hw::rcp_approx(l[hf]);
     }
-    if constexpr (kOnePass) {
+    if (p.lse != nullptr && lane % 4 == 0) {
+      // lse = ln(sum of exp(s * scale)) = (m + log2(l)) ln 2, m in log2 units.
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] *= inv[(i / 2) % 2];
-      pv();
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = qt * BM + r0 + 8 * hf;
+        if (row < p.n)
+          p.lse[static_cast<size_t>(bh) * p.n + row] = (m[hf] + hw::log2_approx(l[hf])) * kLn2;
+      }
+    }
+    if constexpr (KT > 0) {
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) s[i] *= inv[(i / 2) % 2];
+      pv(true);
     } else {
       // Pass 2: P = exp(s - m) / l rounded to bf16, then O += P . V.
       for (int t = 0; t < p.k_tiles; ++t) {
@@ -275,7 +382,7 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 3 : 1)
           const int hf = (i / 2) % 2;
           s[i] = hw::exp2_approx(fmaf(s[i], c, -m[hf])) * inv[hf];
         }
-        pv();
+        pv(t == 0);
       }
     }
     if (lane == 0) hw::bar_arrive(&sm.q_empty[qr.slot]);  // the last logits product has read Q
@@ -308,24 +415,35 @@ __global__ void __launch_bounds__(kThreads, DH == 64 ? 3 : 1)
   if (tid == 0) hw::bulk_wait_all();  // the stores have written before the block leaves
 }
 
-template <int DH, bool kOnePass>
+template <int NK>
+constexpr int kt_of = (NK + BM - 1) / BM;
+
+template <int DH, int NK>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   static int cache[64] = {};
-  auto kernel = packed_attn_sm90<DH, kOnePass>;
+  auto kernel = packed_attn_sm90<DH, NK>;
+  constexpr int smem = kSmemBytes<DH, kt_of<NK>>;
   cudaError_t e;
-  const int grid = hw::persistent_grid(kernel, kThreads, kSmemBytes<DH>, p.items, cache, &e);
+  const int grid = hw::persistent_grid(kernel, kThreads, smem, p.items, cache, &e);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, kSmemBytes<DH>, stream>>>(p);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int DH, int NK>
+int attrs(int* out) {
+  return hw::kernel_attrs(packed_attn_sm90<DH, NK>, kSmemBytes<DH, kt_of<NK>>, out);
 }
 
 }  // namespace
 
 // qkv bf16 [batch, n, 3 * heads * dh] contiguous, on 16 bytes; out bf16
-// [batch, n, heads * dh] contiguous.  Keys at or past n_valid (1 <=
-// n_valid <= n) are masked.  dh must be 64 or 192, n at most 1,024.
-extern "C" int sfc_packed_attention_bf16(const void* qkv, void* out, int batch, int n, int heads,
-                                         int dh, int n_valid, float scale, void* stream) {
+// [batch, n, heads * dh] contiguous; lse fp32 [batch, heads, n] or null.
+// Keys at or past n_valid (1 <= n_valid <= n) are masked.  dh must be 64
+// or 192, n at most 1,024.
+extern "C" int sfc_packed_attention_bf16(const void* qkv, void* out, void* lse, int batch, int n,
+                                         int heads, int dh, int n_valid, float scale,
+                                         void* stream) {
   if ((dh != 64 && dh != 192) || heads < 1 || n < 1 || n > kMaxN || n_valid < 1 || n_valid > n ||
       batch < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -338,27 +456,48 @@ extern "C" int sfc_packed_attention_bf16(const void* qkv, void* out, int batch, 
     e = hw::map_bnhd(&p.out, out, batch, n, subs, static_cast<long long>(n) * heads * dh,
                      static_cast<long long>(heads) * dh, 64, BM);
   if (e != cudaSuccess) return static_cast<int>(e);
+  p.lse = static_cast<float*>(lse);
   p.heads = heads;
+  p.n = n;
   p.n_valid = n_valid;
   p.q_tiles = (n + BM - 1) / BM;
   p.k_tiles = (n_valid + BM - 1) / BM;
   p.items = batch * heads * p.q_tiles;
   p.scale_log2 = scale * kLog2e;
-  const bool one = p.k_tiles == 1;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dh == 64) e = one ? launch<64, true>(p, s) : launch<64, false>(p, s);
-  else e = one ? launch<192, true>(p, s) : launch<192, false>(p, s);
+  if (dh == 192) {
+    e = p.k_tiles <= kMaxTiles192 ? launch<192, 64>(p, s) : launch<192, 0>(p, s);
+  } else {
+    switch (p.k_tiles) {
+      case 1: e = launch<64, 64>(p, s); break;
+      case 2: e = launch<64, 128>(p, s); break;
+      case 3: e = launch<64, 192>(p, s); break;
+      case kMaxTiles64:
+        e = n_valid <= 200 ? launch<64, 200>(p, s) : launch<64, 256>(p, s);
+        break;
+      default: e = launch<64, 0>(p, s);
+    }
+  }
   return static_cast<int>(e);
 }
 
 // Registers, local bytes and shared bytes of the instance for head dim
-// dh (64 or 192) and the one-pass (1) or two-pass (0) form, into out[3].
-extern "C" int sfc_packed_attention_attrs(int dh, int one_pass, int* out) {
-  if (dh == 64)
-    return one_pass ? hw::kernel_attrs(packed_attn_sm90<64, true>, kSmemBytes<64>, out)
-                    : hw::kernel_attrs(packed_attn_sm90<64, false>, kSmemBytes<64>, out);
-  if (dh == 192)
-    return one_pass ? hw::kernel_attrs(packed_attn_sm90<192, true>, kSmemBytes<192>, out)
-                    : hw::kernel_attrs(packed_attn_sm90<192, false>, kSmemBytes<192>, out);
+// dh and nk one-pass key columns (64, 128, 192, 200 or 256 at dh 64, 64
+// at dh 192; 0: the two-pass form), into out[3].
+extern "C" int sfc_packed_attention_attrs(int dh, int nk, int* out) {
+  if (dh == 64) {
+    switch (nk) {
+      case 0: return attrs<64, 0>(out);
+      case 64: return attrs<64, 64>(out);
+      case 128: return attrs<64, 128>(out);
+      case 192: return attrs<64, 192>(out);
+      case 200: return attrs<64, 200>(out);
+      case 256: return attrs<64, 256>(out);
+      default: break;
+    }
+  } else if (dh == 192) {
+    if (nk == 0) return attrs<192, 0>(out);
+    if (nk == 64) return attrs<192, 64>(out);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

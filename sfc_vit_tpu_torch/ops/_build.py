@@ -17,14 +17,15 @@ unchanged one loads the library already there.  A failed build raises:
 nothing runs without the kernels.
 
 The launchers below (``ln_rows``, ``ln_rows_bwd``, ``gemm``,
-``gemm_layernorm``, ``act_bf16``, ``colsum``, ``attention_fwd``,
+``gemm_layernorm``, ``act_bf16``, ``colsum``, ``attention_fwd`` (on
+``csrc/packed_attn_sm90.cu`` or, with a mask, ``csrc/attention_fwd.cu``),
 ``attention_bwd`` (on
 ``csrc/attention_bwd_sm90.cu`` or ``csrc/attention_bwd.cu``),
 ``packed_attention``, ``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``,
 ``flash_dkv``, ``local_fwd``, ``local_bwd``, ``gather_project``,
 ``wgmma_probe``) check
 device, dtype, shape, contiguity (or, for the flash kernels, strides) and
-alignment, allocate their outputs with
+alignment, allocate their outputs and workspaces with
 ``torch.empty`` (``torch.zeros`` for sums the kernels accumulate into),
 launch on PyTorch's current stream and raise on any CUDA error the launch
 returns.  They never synchronise.
@@ -51,7 +52,9 @@ __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "gemm_layernorm_max_clusters",
            "GEMM_LN_MAX_CLUSTER",
            "act_bf16", "colsum", "attention_fwd", "attention_bwd",
-           "ATTENTION_HEAD_DIMS", "packed_attention", "PACKED_MAX_N", "flash_fwd",
+           "ATTENTION_HEAD_DIMS", "packed_attention", "PACKED_MAX_N",
+           "PACKED_ONE_PASS_MAX_N", "PACKED_ATTENTION_FORMS", "attention_fwd_route",
+           "ln_rows_bwd_plan", "LN_BWD_ROWS", "LN_BWD_MAX_D", "LN_ROWS_BWD_FORMS", "flash_fwd",
            "flash_fused_bwd", "flash_dq", "flash_dkv", "FLASH_HEAD_DIMS",
            "FLASH_STREAM_BLOCK_K", "local_fwd", "local_bwd", "gather_project",
            "wgmma_probe", "WGMMA_FORMS", "flash_kernel_attrs"]
@@ -71,9 +74,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     # x, x_b, x_f32, scale, bias, y, y32, xr, stats; rows, d, eps, stream
     "sfc_ln_rows_bf16": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
-    # x, x_b, dxn, dxn_bf16, scale, g, dx, dx32, dscale, dbias, gsum, dxsum;
-    # rows, d, eps, add_g, stream
-    "sfc_ln_rows_bwd_bf16": (_P, _P, _P, _I) + (_P,) * 8 + (_I, _I, _F, _I, _P),
+    # x, x_b, dxn, dxn_bf16, scale, g, dx, dx32, sums, ws; blocks, g_sum,
+    # dx_sum, rows, d, eps, add_g, stream
+    "sfc_ln_rows_bwd_bf16": (_P, _P, _P, _I) + (_P,) * 6 + (_I,) * 5 + (_F, _I, _P),
+    # d, sum2, dxn_bf16, out
+    "sfc_ln_rows_bwd_blocks_per_sm": (_I, _I, _I, _P),
     # a, b, bias, residual, residual_f32, z_in, z_out, colsum, c, workspace;
     # c_fp32, M, N, K, trans_a, trans_b, act, splits; stream
     "sfc_gemm_bf16": (_P,) * 10 + (_I,) * 8 + (_P,),
@@ -91,8 +96,8 @@ _SIGNATURES = {
     "sfc_gemm_ln_bf16": (_P,) * 12 + (_I,) * 3 + (_F, _P),
     # cluster, out
     "sfc_gemm_ln_max_clusters": (_I, _P),
-    # qkv, out; batch, n, heads, dh, n_valid; scale, stream
-    "sfc_packed_attention_bf16": (_P, _P) + (_I,) * 5 + (_F, _P),
+    # qkv, out, lse; batch, n, heads, dh, n_valid; scale, stream
+    "sfc_packed_attention_bf16": (_P, _P, _P) + (_I,) * 5 + (_F, _P),
     # q, k, v, out, lse; batch, heads, nq, nk, dh; q, k, v strides
     # (batch, row, head); scale, streaming, stream
     "sfc_flash_fwd_bf16": (_P,) * 5 + (_I,) * 5 + (_L,) * 9 + (_F, _I, _P),
@@ -116,8 +121,9 @@ _SIGNATURES = {
     "sfc_flash_fused_bwd_attrs": (_P,),
     "sfc_flash_dq_attrs": (_P,),
     "sfc_flash_dkv_attrs": (_P,),
-    # dh, one_pass, out[3] | smem_x, out[3]
+    # dh, one-pass key columns, out[3] | form, out[3]
     "sfc_packed_attention_attrs": (_I, _I, _P),
+    "sfc_ln_rows_bwd_attrs": (_I, _P),
     # form, out[3] | out[3]
     "sfc_gemm_attrs": (_I, _P),
     "sfc_attention_bwd_sm90_attrs": (_I, _P),
@@ -131,6 +137,14 @@ ATTENTION_HEAD_DIMS = (64, 192)
 #: sequence #7 takes (``csrc/packed_attn_sm90.cu``'s kMaxN) and the packed
 #: route's range (``ops/attention.py``).
 PACKED_MAX_N = 1024
+#: The most keys (n_valid) ``csrc/packed_attn_sm90.cu`` holds in one pass,
+#: by head dim: a 64-query tile's whole logit row in one warpgroup's
+#: accumulators (4 tiles of 64 keys at Dh 64, 1 at Dh 192, beside O's Dh /
+#: 2 registers a thread); longer rows take two passes.
+PACKED_ONE_PASS_MAX_N = {64: 256, 192: 64}
+#: ``csrc/ln_rows_bwd.cu``: rows a block takes at once (its kRows) and the
+#: widest row it takes (kMaxD: a thread a 16-byte chunk, 384 threads).
+LN_BWD_ROWS, LN_BWD_MAX_D = 4, 3072
 #: The longest sequences ``csrc/attention_bwd_sm90.cu`` takes, one for each
 #: (head dim, dropout) pair, each set by what one (image, head) needs in a
 #: block's shared memory: q, k, v and da as 64-row tiles, K and V of two
@@ -311,6 +325,31 @@ def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y, *extra) if extra else y
 
 
+def ln_rows_bwd_plan(rows: int, d: int, per_sm: int, sms: int) -> tuple:
+    """``(threads, blocks)`` of ``csrc/ln_rows_bwd.cu`` at ``rows`` x ``d``:
+    a thread a 16-byte chunk of the row (``d / 8`` rounded up to a warp),
+    and as many blocks as the card holds at once (``per_sm`` an SM, the
+    occupancy query), at most one for every :data:`LN_BWD_ROWS` rows.  The
+    column-sum workspace holds one row of partials a block."""
+    if d % 8 or not 8 <= d <= LN_BWD_MAX_D:
+        raise ValueError(f"ln_rows_bwd: D={d} must be a multiple of 8 in [8, {LN_BWD_MAX_D}]")
+    return _cdiv(d // 8, 32) * 32, min(_cdiv(rows, LN_BWD_ROWS), sms * per_sm)
+
+
+_ln_bwd_per_sm: dict = {}
+
+
+def _ln_bwd_blocks_per_sm(device: torch.device, d: int, sum2: bool, dxn_bf16: bool) -> int:
+    key = (device.index, d, sum2, dxn_bf16)
+    if key not in _ln_bwd_per_sm:
+        out = ctypes.c_int(0)
+        _check(library().sfc_ln_rows_bwd_blocks_per_sm(d, int(sum2), int(dxn_bf16),
+                                                        ctypes.addressof(out)),
+               "ln_rows_bwd occupancy")
+        _ln_bwd_per_sm[key] = out.value
+    return _ln_bwd_per_sm[key]
+
+
 def ln_rows_bwd(x: torch.Tensor, dxn: torch.Tensor, scale: torch.Tensor,
                 g: Optional[torch.Tensor], eps: float, *, add_g: bool = True,
                 g_sum: bool = False, x_b: Optional[torch.Tensor] = None,
@@ -323,11 +362,13 @@ def ln_rows_bwd(x: torch.Tensor, dxn: torch.Tensor, scale: torch.Tensor,
     ``add_g``; the sums fp32 [D]), then ``colsum(g)`` fp32 [D] when
     ``g_sum``, the fp32 dx before its rounding when ``dx_f32``, and the
     column sums of that fp32 dx when ``dx_sum``.  ``g`` (bf16 [R, D]) is
-    read only for ``add_g`` or ``g_sum``.
+    read only for ``add_g`` or ``g_sum``.  The column sums are taken in a
+    fixed order (per block, then over the blocks in block order), so the
+    same inputs give the same bits.
     """
     r, d = x.shape
-    if d % 8:
-        raise ValueError(f"ln_rows_bwd: D={d} must be a multiple of 8")
+    if d % 8 or not 8 <= d <= LN_BWD_MAX_D:
+        raise ValueError(f"ln_rows_bwd: D={d} must be a multiple of 8 in [8, {LN_BWD_MAX_D}]")
     dxn_bf16 = dxn.dtype == torch.bfloat16
     if dxn_bf16 and x_b is not None:
         raise ValueError("ln_rows_bwd: a bf16 dxn with x_b is not instantiated")
@@ -340,22 +381,25 @@ def ln_rows_bwd(x: torch.Tensor, dxn: torch.Tensor, scale: torch.Tensor,
         _require(g, "g", (r, d))
     else:
         g = None
+    nsum = 2 + g_sum + dx_sum
+    _, blocks = ln_rows_bwd_plan(
+        r, d, _ln_bwd_blocks_per_sm(x.device, d, x_b is not None, dxn_bf16),
+        _sm_count(x.device))
     dx = torch.empty_like(x)
     dx32 = torch.empty((r, d), dtype=torch.float32, device=x.device) if dx_f32 else None
-    sums = torch.zeros((2 + g_sum + dx_sum, d), dtype=torch.float32, device=x.device)
-    gs = sums[2] if g_sum else None
-    dxs = sums[-1] if dx_sum else None
+    sums = torch.empty((nsum, d), dtype=torch.float32, device=x.device)
+    ws = torch.empty((blocks, nsum * d), dtype=torch.float32, device=x.device)
     _check(library().sfc_ln_rows_bwd_bf16(
         x.data_ptr(), _ptr(x_b), dxn.data_ptr(), int(dxn_bf16), scale.data_ptr(),
-        _ptr(g), dx.data_ptr(), _ptr(dx32), sums[0].data_ptr(), sums[1].data_ptr(),
-        _ptr(gs), _ptr(dxs), r, d, eps, int(add_g), _stream()), "ln_rows_bwd")
+        _ptr(g), dx.data_ptr(), _ptr(dx32), sums.data_ptr(), ws.data_ptr(), blocks,
+        int(g_sum), int(dx_sum), r, d, eps, int(add_g), _stream()), "ln_rows_bwd")
     out = [dx, sums[0], sums[1]]
     if g_sum:
-        out.append(gs)
+        out.append(sums[2])
     if dx_f32:
         out.append(dx32)
     if dx_sum:
-        out.append(dxs)
+        out.append(sums[-1])
     return tuple(out)
 
 
@@ -576,17 +620,32 @@ def _mask_u8(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return mask.view(torch.uint8) if mask is not None and mask.dtype == torch.bool else mask
 
 
+def attention_fwd_route(dh: int, n_valid: int, masked: bool) -> str:
+    """Which kernel :func:`attention_fwd` runs for ``n_valid`` keys:
+    ``"wmma"`` (``csrc/attention_fwd.cu``) for the dropout form (a mask,
+    #5), else ``csrc/packed_attn_sm90.cu`` (#1, #7) in ``"one pass"`` up
+    to :data:`PACKED_ONE_PASS_MAX_N` keys for the head dim and in ``"two
+    passes"`` beyond.  All compute the same formula."""
+    if masked:
+        return "wmma"
+    return "one pass" if n_valid <= PACKED_ONE_PASS_MAX_N.get(dh, 0) else "two passes"
+
+
 def attention_fwd(qkv: torch.Tensor, heads: int, n_valid: int,
                   scale: float, with_lse: bool = False,
                   mask: Optional[torch.Tensor] = None, keep: float = 1.0):
     """Attention off packed ``qkv`` [B, N, 3*H*Dh] -> [B, N, H*Dh] (bf16,
-    Dh 64 or 192), keys at or past ``n_valid`` masked.  ``with_lse``
-    also returns the fp32 log-sum-exp of every softmax row, [B, H, N].
-    ``mask`` (bool or uint8 0/1 [B, H, N, N]) drops probabilities:
-    ``bf16((P / keep) * mask)`` takes the place of ``bf16(P)``."""
+    Dh 64 or 192), keys at or past ``n_valid`` masked, on the kernel
+    :func:`attention_fwd_route` names.  ``with_lse`` also returns the fp32
+    log-sum-exp of every softmax row, [B, H, N].  ``mask`` (bool or uint8
+    0/1 [B, H, N, N]) drops probabilities: ``bf16((P / keep) * mask)``
+    takes the place of ``bf16(P)``.  Without a mask N is at most
+    :data:`PACKED_MAX_N`: a longer row raises."""
     mask = _mask_u8(mask)
     b, n, inner, dh = _check_packed(qkv, heads, n_valid, "attention_fwd", mask,
                                     keep)
+    if attention_fwd_route(dh, n_valid, mask is not None) != "wmma":
+        return packed_attention(qkv, heads, n_valid, scale, with_lse=with_lse)
     out = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
            if with_lse else None)
@@ -637,20 +696,23 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
 
 
 def packed_attention(qkv: torch.Tensor, heads: int, n_valid: int,
-                     scale: float) -> torch.Tensor:
-    """#7: attention off packed ``qkv`` [B, N, 3*H*Dh] -> [B, N, H*Dh]
-    (bf16, Dh 64 or 192, N <= :data:`PACKED_MAX_N`), keys at or past
-    ``n_valid`` masked; P normalised, then rounded, before its product
-    with V (``csrc/packed_attn_sm90.cu``)."""
+                     scale: float, with_lse: bool = False):
+    """#7 and #1's attention off packed ``qkv`` [B, N, 3*H*Dh] -> [B, N,
+    H*Dh] (bf16, Dh 64 or 192, N <= :data:`PACKED_MAX_N`), keys at or past
+    ``n_valid`` masked; P normalised, then rounded, before its product with
+    V (``csrc/packed_attn_sm90.cu``).  ``with_lse`` also returns the fp32
+    log-sum-exp of every row, [B, H, N]."""
     if qkv.shape[1] > PACKED_MAX_N:
         raise ValueError(f"packed_attention: N={qkv.shape[1]} is over the kernel's "
                          f"{PACKED_MAX_N} tokens")
     b, n, inner, dh = _check_packed(qkv, heads, n_valid, "packed_attention", None, 1.0)
     out = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
+           if with_lse else None)
     _check(library().sfc_packed_attention_bf16(
-        qkv.data_ptr(), out.data_ptr(), b, n, heads, dh, n_valid, scale, _stream()),
-        "packed_attention")
-    return out
+        qkv.data_ptr(), out.data_ptr(), _ptr(lse), b, n, heads, dh, n_valid, scale,
+        _stream()), "packed_attention")
+    return (out, lse) if with_lse else out
 
 
 def _require_bnhd(t: torch.Tensor, name: str, shape) -> None:
@@ -857,9 +919,28 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor, form: str) -> torch.Tensor:
     return d
 
 
+#: ``csrc/packed_attn_sm90.cu``'s instances: (head dim, key columns the
+#: one-pass form holds, 0 for two passes) by name.  The kernel takes the
+#: narrowest one-pass form whose columns cover n_valid (200 for ViT-B's 196).
+PACKED_ATTENTION_FORMS = {
+    "packed_attention dh64 one pass": (64, 64),
+    "packed_attention dh64 one pass 128 keys": (64, 128),
+    "packed_attention dh64 one pass 192 keys": (64, 192),
+    "packed_attention dh64 one pass 200 keys": (64, 200),
+    "packed_attention dh64 one pass 256 keys": (64, 256),
+    "packed_attention dh64 two passes": (64, 0),
+    "packed_attention dh192 one pass": (192, 64),
+    "packed_attention dh192 two passes": (192, 0),
+}
+#: ``csrc/ln_rows_bwd.cu``'s instances by ``sfc_ln_rows_bwd_attrs``'s form
+#: number: forms (a), (b) and (c) of its header.
+LN_ROWS_BWD_FORMS = ("ln_rows_bwd dxn fp32", "ln_rows_bwd dxn bf16", "ln_rows_bwd x + x_b")
+
+
 def flash_kernel_attrs() -> dict:
-    """What the compiler gave the ``wgmma`` kernels, #7's four instances
-    (head dim 64 or 192, one pass or two), #8's two forms, #9-#11, #14's
+    """What the compiler gave the ``wgmma`` kernels, #1's and #7's eight
+    instances (:data:`PACKED_ATTENTION_FORMS`), #16's LayerNorm backward
+    (:data:`LN_ROWS_BWD_FORMS`), #8's two forms, #9-#11, #14's
     two instances (x gathered from shared or global memory), the GEMM's
     three forms, its split-K sum and its LayerNorm form (#15), and the
     attention backward's instances (#4, #6; ``cudaFuncGetAttributes``):
@@ -868,10 +949,10 @@ def flash_kernel_attrs() -> dict:
     lib = library()
     out = {}
     for name, call in (
-            *((f"packed_attention dh{dh} {form}",
-               lambda a, dh=dh, one=one: lib.sfc_packed_attention_attrs(dh, one, a))
-              for dh in ATTENTION_HEAD_DIMS
-              for form, one in (("one pass", 1), ("two passes", 0))),
+            *((name, lambda a, dh=dh, nk=nk: lib.sfc_packed_attention_attrs(dh, nk, a))
+              for name, (dh, nk) in PACKED_ATTENTION_FORMS.items()),
+            *((name, lambda a, i=i: lib.sfc_ln_rows_bwd_attrs(i, a))
+              for i, name in enumerate(LN_ROWS_BWD_FORMS)),
             ("flash_fwd streaming", lambda a: lib.sfc_flash_fwd_attrs(1, a)),
             ("flash_fwd single step", lambda a: lib.sfc_flash_fwd_attrs(0, a)),
             ("flash_fused_bwd", lib.sfc_flash_fused_bwd_attrs),

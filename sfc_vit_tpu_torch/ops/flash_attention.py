@@ -63,7 +63,8 @@ is ``csrc/packed_attn_sm90.cu`` (:func:`_build.packed_attention`): a
 persistent Hopper kernel over (image, head, 64-query tile) items, a
 producer warp's TMA ring of Q, K and V tiles read straight from the
 packed projection, ``wgmma`` products, the softmax in registers (one pass
-where the row is one 64-key tile, two passes up to 1,024 keys) and a TMA
+where one warpgroup holds the row, to 256 keys at head dim 64 and 64 at
+192; two passes up to 1,024 keys) and a TMA
 store of the output: fp32 logits times scale, ``P = p / l`` rounded to
 the input dtype before an fp32 ``P V``.  Its bound on the H100 is the
 bytes of qkv and of the output.  As in the JAX package, that kernel is

@@ -6,13 +6,14 @@ kernels ``_attn_block_kernel`` and ``_attn_block_bwd_kernel`` hold a
 group of whole images, their QKV projection and every head's softmax in
 100 MiB of VMEM; a Hopper block has 227 KB of shared memory, so here
 each is a chain of hand-written kernels (``csrc/ln_rows.cu``,
-``csrc/gemm_bf16.cu``, ``csrc/attention_fwd.cu``,
+``csrc/gemm_bf16.cu``, ``csrc/packed_attn_sm90.cu``,
 ``csrc/attention_bwd_sm90.cu``, ``csrc/ln_rows_bwd.cu``).
 
 Forward: ``ln_rows`` -> ``gemm`` (QKV, no bias, rounded to bf16 as the
 TPU kernel's ``qkv_s`` is) -> ``attention_fwd`` (per image, head and
-query tile, straight off the packed qkv; the training forward also
-writes the log-sum-exp, the TPU's ``save_lse``) -> ``gemm`` (out
+64-query tile, straight off the packed qkv, on ``packed_attn_sm90.cu``:
+one pass to 256 keys; the training forward also writes the log-sum-exp,
+the TPU's ``save_lse``) -> ``gemm`` (out
 projection, +x in fp32, one round).  Training saves qkv, att and lse, as
 ``_fab_fwd`` does.
 
@@ -84,7 +85,8 @@ def attention_block_ref(x, ln_scale, ln_bias, w_qkv, w_out, heads: int,
 
 def attention_fwd_ref(qkv: torch.Tensor, heads: int, n_valid: int,
                       scale: float):
-    """Plain version of ``csrc/attention_fwd.cu`` with its log-sum-exp:
+    """Plain version of #1's attention (``csrc/packed_attn_sm90.cu``,
+    ``_build.attention_fwd`` without a mask) with its log-sum-exp:
     fp32 logits times ``scale``, keys at or past ``n_valid`` masked, P
     normalised and rounded to the input dtype before an fp32 P.V.
     Returns ``(att [B, N, H*Dh], lse fp32 [B, H, N])``."""

@@ -219,6 +219,56 @@ def test_attention_bwd_route(dh, n, dropout, route):
     assert _build.attention_bwd_route(dh, n, dropout) == route
 
 
+@pytest.mark.parametrize("dh, n_valid, masked, route", [
+    (64, 1, False, "one pass"), (64, 64, False, "one pass"), (64, 65, False, "one pass"),
+    (64, 196, False, "one pass"), (64, 256, False, "one pass"), (64, 257, False, "two passes"),
+    (64, 1024, False, "two passes"), (192, 1, False, "one pass"), (192, 64, False, "one pass"),
+    (192, 65, False, "two passes"), (192, 1000, False, "two passes"), (64, 64, True, "wmma"),
+    (64, 196, True, "wmma"), (192, 64, True, "wmma"),
+])
+def test_attention_fwd_route(dh, n_valid, masked, route):
+    """The unmasked attention forward (#1, #7) runs on
+    csrc/packed_attn_sm90.cu: one pass up to PACKED_ONE_PASS_MAX_N keys (256
+    at Dh 64, ViT-B's 196 included; 64 at Dh 192), two passes beyond; the
+    dropout form (#5) stays on csrc/attention_fwd.cu."""
+    assert _build.PACKED_ONE_PASS_MAX_N == {64: 256, 192: 64}
+    assert _build.attention_fwd_route(dh, n_valid, masked) == route
+
+
+def test_unmasked_attention_has_no_wmma_instance():
+    """Only the masked form reaches csrc/attention_fwd.cu: every unmasked
+    (head dim, length) takes a csrc/packed_attn_sm90.cu instance, and each
+    head dim's one-pass limit is its widest one-pass instance."""
+    for dh in _build.ATTENTION_HEAD_DIMS:
+        for n in range(1, _build.PACKED_MAX_N + 1, 7):
+            assert _build.attention_fwd_route(dh, n, False) != "wmma"
+    for dh, limit in _build.PACKED_ONE_PASS_MAX_N.items():
+        assert max(nk for d, nk in _build.PACKED_ATTENTION_FORMS.values() if d == dh) == limit
+
+
+@pytest.mark.parametrize("rows, d, per_sm, threads, blocks", [
+    (50176, 768, 5, 96, 660), (32768, 768, 5, 96, 660), (32768, 256, 16, 32, 2112),
+    (1000, 384, 8, 64, 250), (37, 3072, 1, 384, 10), (1, 8, 16, 32, 1), (0, 768, 5, 96, 0),
+    (12544, 1024, 3, 128, 396),
+])
+def test_ln_rows_bwd_plan(rows, d, per_sm, threads, blocks):
+    """csrc/ln_rows_bwd.cu's launch: a thread a 16-byte chunk of the row,
+    rounded up to a warp, and at most one block a LN_BWD_ROWS rows, capped
+    at what the card holds at once (132 SMs here); the workspace holds one
+    row of column partials a block."""
+    assert _build.LN_BWD_ROWS == 4 and _build.LN_BWD_MAX_D == 3072
+    assert _build.ln_rows_bwd_plan(rows, d, per_sm, 132) == (threads, blocks)
+
+
+@pytest.mark.parametrize("d", [0, 12, 3080, 4096])
+def test_ln_rows_bwd_refuses_widths_it_has_no_thread_for(d):
+    with pytest.raises(ValueError, match="multiple of 8 in"):
+        _build.ln_rows_bwd_plan(10, d, 4, 132)
+    a = torch.zeros(4, max(d, 1), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _build.ln_rows_bwd(a, a.float(), torch.ones(max(d, 1)), a, 1e-5)
+
+
 @pytest.mark.parametrize("d, route", [
     (768, "cluster"), (256, "cluster"), (128, "cluster"), (1024, "cluster"),
     (200, "chain"), (776, "chain"), (1152, "chain"),
@@ -405,17 +455,52 @@ def _attention_plain(qkv, heads, n_valid, scale):
     return (p @ v).transpose(1, 2).reshape(b, n, heads * dh).bfloat16()
 
 
+def _packed_lse64(qkv, heads, n_valid, scale):
+    """log-sum-exp of each row's scaled logits over the valid keys, fp64."""
+    b, n, w = qkv.shape
+    q, k, _ = qkv.view(b, n, 3, heads, w // (3 * heads)).permute(2, 0, 3, 1, 4).double()
+    return torch.logsumexp((q @ k[:, :, :n_valid].transpose(-1, -2)) * scale, dim=-1)
+
+
+#: (b, n, heads, dh, n_valid): one 64-key tile, one key past it, ViT-B's
+#: 196 (whole and ragged), the 200- and 256-column one-pass forms on either
+#: side of 200 keys, the one-pass limit and one past it, the longest row, a
+#: single token, and the unmasked Dh 192 in one pass and in two.
+_ATTN_FWD_SHAPES = [
+    (2, 64, 2, 64, 49), (2, 65, 2, 64, 65), (3, 196, 2, 64, 196), (2, 196, 12, 64, 150),
+    (2, 200, 2, 64, 200), (2, 210, 2, 64, 201), (2, 256, 2, 64, 256), (2, 257, 2, 64, 257),
+    (1, 1024, 2, 64, 1000), (1, 1, 1, 64, 1),
+    (2, 64, 2, 192, 64), (2, 130, 2, 192, 100), (1, 1, 1, 192, 1),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b, n, heads, n_valid", [
-    (2, 64, 2, 49), (3, 196, 2, 196), (2, 196, 12, 150), (1, 1, 1, 1),
-    (1, 1024, 2, 1000),
-])
-def test_attention_fwd_matches_plain(cuda, b, n, heads, n_valid):
+@pytest.mark.parametrize("b, n, heads, dh, n_valid", _ATTN_FWD_SHAPES)
+def test_attention_fwd_matches_plain(cuda, b, n, heads, dh, n_valid):
+    """The unmasked attention forward (csrc/packed_attn_sm90.cu) against the
+    plain formula, its lse against fp64 within the chip check's 1e-5, and
+    the output with and without lse bit-equal."""
     rng = np.random.default_rng(3)
-    qkv = _randn(rng, b, n, 3 * heads * 64)
-    got = _build.attention_fwd(qkv, heads, n_valid, 64 ** -0.5)
-    want = _attention_plain(qkv, heads, n_valid, 64 ** -0.5)
+    s = dh ** -0.5
+    qkv = _randn(rng, b, n, 3 * heads * dh)
+    assert _build.attention_fwd_route(dh, n_valid, False) != "wmma"
+    got, lse = _build.attention_fwd(qkv, heads, n_valid, s, with_lse=True)
+    want = _attention_plain(qkv, heads, n_valid, s)
     torch.testing.assert_close(got.float(), want.float(), **ONE_ROUND_TOL)
+    torch.testing.assert_close(lse.double(), _packed_lse64(qkv, heads, n_valid, s),
+                               rtol=1e-5, atol=1e-5)
+    ref_att, ref_lse = attention_fwd_ref(qkv, heads, n_valid, s)
+    torch.testing.assert_close(got.float(), ref_att.float(), **ONE_ROUND_TOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, _build.attention_fwd(qkv, heads, n_valid, s))
+
+
+@pytest.mark.gpu
+def test_unmasked_attention_past_the_packed_kernel_raises(cuda):
+    """No fallback: an unmasked row longer than PACKED_MAX_N raises."""
+    qkv = torch.zeros(1, _build.PACKED_MAX_N + 1, 3 * 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="over the kernel's"):
+        _build.attention_fwd(qkv, 1, _build.PACKED_MAX_N + 1, 0.125)
 
 
 @pytest.mark.gpu
@@ -707,25 +792,65 @@ def test_gemm_and_attention_bwd_attrs_without_spills(cuda):
         assert 0 < attrs[name]["registers"] <= 255, name
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("rows, d", [(1, 8), (200, 768), (50176, 768), (37, 3072)])
-def test_ln_rows_bwd_matches_plain(cuda, rows, d):
-    rng = np.random.default_rng(13)
+def _ln_bwd_form(rng, form, rows, d):
+    """Inputs and ``ln_rows_bwd`` keywords of form (a) x bf16, dxn fp32, +
+    g and colsum(g) (#3, #4), (b) x bf16, dxn bf16, the fp32 dx and its
+    column sums (#16's LN2) or (c) x + x_b, dxn fp32 (#16's LN1)."""
     x = _randn(rng, rows, d, scale=3.0) + 0.5
-    dxn = _randn(rng, rows, d, dtype=torch.float32)
     s = _randn(rng, d, dtype=torch.float32)
-    g = _randn(rng, rows, d)
-    dx, ds, db, gs = _build.ln_rows_bwd(x, dxn, s, g, 1e-5, g_sum=True)
-    want_dx, want_ds, want_db = ln_bwd_fp32(x, dxn, s)
-    torch.testing.assert_close(dx.float(), (want_dx + g.float()).bfloat16().float(),
-                               **ONE_ROUND_TOL)
+    if form == "a":
+        return (x, _randn(rng, rows, d, dtype=torch.float32), s, _randn(rng, rows, d),
+                dict(g_sum=True))
+    if form == "b":
+        return x, _randn(rng, rows, d), s, None, dict(add_g=False, dx_f32=True, dx_sum=True)
+    return (x, _randn(rng, rows, d, dtype=torch.float32), s, None,
+            dict(add_g=False, x_b=_randn(rng, rows, d)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["a", "b", "c"])
+@pytest.mark.parametrize("rows, d", [(1, 8), (200, 768), (50176, 768), (37, 3072),
+                                     (1000, 256), (333, 384), (32768, 768), (513, 1024)])
+def test_ln_rows_bwd_matches_plain(cuda, form, rows, d):
+    rng = np.random.default_rng(13)
+    x, dxn, s, g, kw = _ln_bwd_form(rng, form, rows, d)
+    got = _build.ln_rows_bwd(x, dxn, s, g, 1e-5, **kw)
+    xf = x.float() + (kw["x_b"].float() if "x_b" in kw else 0.0)
+    want_dx, want_ds, want_db = ln_bwd_fp32(xf, dxn.float(), s)
     tol = dict(rtol=1e-4, atol=1e-4 * rows ** 0.5)
+    dx, ds, db = got[:3]
+    if form == "a":
+        torch.testing.assert_close(dx.float(), (want_dx + g.float()).bfloat16().float(),
+                                   **ONE_ROUND_TOL)
+        torch.testing.assert_close(got[3], g.float().sum(0), **tol)
+        dx_only = _build.ln_rows_bwd(x, dxn, s, g, 1e-5, add_g=False)[0]
+        torch.testing.assert_close(dx_only.float(), want_dx.bfloat16().float(),
+                                   **ONE_ROUND_TOL)
+    else:
+        torch.testing.assert_close(dx.float(), want_dx.bfloat16().float(), **ONE_ROUND_TOL)
+    if form == "b":
+        dx32, dxs = got[3:]
+        torch.testing.assert_close(dx32, want_dx, rtol=1e-4, atol=1e-4)
+        assert torch.equal(dx, dx32.bfloat16())
+        torch.testing.assert_close(dxs, want_dx.sum(0), **tol)
     torch.testing.assert_close(ds, want_ds, **tol)
     torch.testing.assert_close(db, want_db, **tol)
-    torch.testing.assert_close(gs, g.float().sum(0), **tol)
-    dx_only = _build.ln_rows_bwd(x, dxn, s, g, 1e-5, add_g=False)[0]
-    torch.testing.assert_close(dx_only.float(), want_dx.bfloat16().float(),
-                               **ONE_ROUND_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["a", "b", "c"])
+@pytest.mark.parametrize("rows, d", [(50176, 768), (32768, 256), (1001, 1024)])
+def test_ln_rows_bwd_repeats_bit_for_bit(cuda, form, rows, d):
+    """Every output, dscale, dbias, colsum(g) and colsum(dx) included, has
+    the same bits on a second call: the column sums are taken per block and
+    then over the blocks in block order, with no atomics."""
+    rng = np.random.default_rng(15)
+    x, dxn, s, g, kw = _ln_bwd_form(rng, form, rows, d)
+    first = _build.ln_rows_bwd(x, dxn, s, g, 1e-5, **kw)
+    second = _build.ln_rows_bwd(x, dxn, s, g, 1e-5, **kw)
+    assert len(first) == {"a": 4, "b": 5, "c": 3}[form]
+    for i, (u, v) in enumerate(zip(first, second)):
+        assert torch.equal(u, v), i
 
 
 @pytest.mark.gpu
@@ -737,6 +862,7 @@ def test_attention_lse_and_bwd_match_plain(cuda, b, n, heads, n_valid):
     rng = np.random.default_rng(14)
     s = 64 ** -0.5
     qkv = _randn(rng, b, n, 3 * heads * 64)
+    assert _build.attention_fwd_route(64, n_valid, False) != "wmma"  # the packed kernel's lse
     out, lse = _build.attention_fwd(qkv, heads, n_valid, s, with_lse=True)
     assert torch.equal(out, _build.attention_fwd(qkv, heads, n_valid, s))
     att, want_lse = attention_fwd_ref(qkv, heads, n_valid, s)
@@ -1145,15 +1271,17 @@ def test_flash_dq_dkv_repeat_bit_for_bit(cuda):
 
 @pytest.mark.gpu
 def test_flash_kernel_attrs_list_the_wgmma_kernels_without_spills(cuda):
-    """``flash_kernel_attrs`` reports #7's four instances, #8's two forms,
-    #9-#11 and #14's two instances, none of them with local memory
-    (spills)."""
+    """``flash_kernel_attrs`` reports #1's and #7's eight instances (the
+    one-pass forms to 128, 192, 200 and 256 keys at Dh 64 among them), #16's
+    three LayerNorm-backward instances, #8's two forms, #9-#11 and #14's
+    two instances, none of them with local memory (spills)."""
     attrs = _build.flash_kernel_attrs()
     assert {"flash_fwd streaming", "flash_fwd single step", "flash_fused_bwd",
             "flash_dq", "flash_dkv", "packed_attention dh64 one pass",
             "packed_attention dh64 two passes", "packed_attention dh192 one pass",
             "packed_attention dh192 two passes", "gather_project shared x",
             "gather_project global x"} <= set(attrs)
+    assert set(_build.PACKED_ATTENTION_FORMS) | set(_build.LN_ROWS_BWD_FORMS) <= set(attrs)
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, name
         assert 0 < a["registers"] <= 255 and a["smem_bytes"] > 0, name
