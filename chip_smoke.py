@@ -15,8 +15,9 @@ Phases, each of which raises (non-zero exit) on failure:
 2. build: compiles the hand-written kernels (sfc_vit_tpu_torch/csrc)
    with nvcc and loads them; prints ptxas's registers and spills and the
    runtime's registers and shared memory of the wgmma kernels (#1's and
-   #7's eight packed-attention instances, #8-#11, #14, the GEMM's three
-   forms, split-K sum and LayerNorm form (#15) and the attention
+   #7's eight packed-attention instances and #5's six masked ones, #8-#11,
+   #13's windowed instances of #10's and #11's kernels, #14, the GEMM's
+   three forms, split-K sum and LayerNorm form (#15) and the attention
    backward's five instances (#4, #6)) and of the LayerNorm backward's
    three, and fails if any spills;
 3. kernels: each fused block against its plain PyTorch version at the
@@ -70,7 +71,12 @@ Phases, each of which raises (non-zero exit) on failure:
    the mask) at the flagship's [512, 64, 4 x 192] and 'hier''s [512, 64,
    4 x 64] and [512, 192, 4 x 64] against the masked plain twin and a
    second call (bit for bit), in turns with ``csrc/attention_bwd.cu``,
-   beside its byte bound and SDPA's unmasked backward.
+   beside its byte bound and SDPA's unmasked backward; then #5's attention
+   alone (``csrc/packed_attn_sm90.cu``'s masked one-pass forms, with lse)
+   at the same three shapes against ``attention_fwd_ref`` with the mask,
+   its lse against fp64 and a second call (bit for bit), timed by
+   CUDA-graph replay in turns with the plain version, beside its byte
+   bound and SDPA's forward without dropout.
 7. flagship slice: ``build_model(preset_config("flagship",
    dtype="bfloat16"))`` on the card, ``Trainer.fit`` for one epoch of 4
    steps at batch 512 on synthetic_dataset(n=2048, hw=32, 10 classes),
@@ -117,7 +123,9 @@ Phases, each of which raises (non-zero exit) on failure:
    tolerance; 256 tokens must take the dense route (flash #8, not #12);
    at 16,384 each timed beside its plain version, its bound and
    ``F.scaled_dot_product_attention`` with a boolean band mask (forward
-   for #12, its autograd backward for #13).
+   for #12, its autograd backward for #13); #13 (the windowed instances
+   of #10's and #11's kernels) also bit for bit on a second call at each
+   length, its two launches timed apart at 16,384 and the whole at 12,288.
 11. hybrid slice: ``build_model(preset_config("longctx-16k-hybrid"))``
    (three curve-local layers, then one global; merge after layer 1) as in
    9 (a): 4 steps at batch 2, an eval batch, 1 and 4 images served; #12
@@ -767,6 +775,63 @@ def _masked_attention_bwd_phase(card: str) -> None:
         del qkv, att, lse, datt, mask, mask8, got, old, delta
 
 
+def _masked_attention_fwd_case(card: str, b: int, n: int, h: int, dh: int,
+                               check: bool = True) -> dict:
+    """#5's attention alone (``_build.attention_fwd`` with the dropout mask
+    and keep FA_KEEP, its lse: csrc/packed_attn_sm90.cu's masked forms) at
+    [b, n, h x dh]: with ``check``, against ``attention_fwd_ref`` with the
+    same mask (BLOCK_TOL), its lse against fp64 (LSE_TOL) and a second call
+    (bit for bit); then timed by graph replay (:func:`_graph_ms`), with
+    ``check`` in turns with the plain version, beside its byte bound and
+    SDPA's forward without dropout on contiguous [b, h, n, dh] q, k, v (a
+    yardstick for the unmasked work only: SDPA's dropout cannot take a
+    given mask).  ``check=False`` times the kernel alone, through launchers
+    an earlier tree also has."""
+    gen = torch.Generator().manual_seed(13)
+    s = dh ** -0.5
+    qkv = _randn(gen, b, n, 3 * h * dh)
+    mask = torch.rand(b, h, n, n, generator=gen).lt(FA_KEEP).to(DEVICE)
+    shape = f"[{b}, {n}, {h} x {dh}]"
+
+    def kern():
+        return _build.attention_fwd(qkv, h, n, s, with_lse=True, mask=mask, keep=FA_KEEP)
+    res = dict(max_abs_err=None, plain_ms=None)
+    if check:
+        _check(_build.attention_fwd_route(dh, n, True) == "one pass",
+               f"#5's attention at {shape} does not take the one-pass masked form")
+
+        def plain():
+            return attention_fwd_ref(qkv, h, n, s, mask=mask, keep=FA_KEEP)
+        (att, lse), (want, _) = kern(), plain()
+        err, ok = _agree(att, want, **BLOCK_TOL)
+        lse_err, lse_ok = _agree(lse, _lse_of(qkv, h, n), **LSE_TOL)
+        print(f"#5's attention {shape}, mask, keep {FA_KEEP}, vs attention_fwd_ref with the "
+              f"mask: max abs err {err:.4g} (tolerance rtol {BLOCK_TOL['rtol']}, atol "
+              f"{BLOCK_TOL['atol']}); lse vs fp64 {lse_err:.4g} (tolerance {LSE_TOL['rtol']})")
+        _check(ok and lse_ok, f"#5's attention disagrees with attention_fwd_ref at {shape}")
+        again = kern()
+        _check(torch.equal(att, again[0]) and torch.equal(lse, again[1]),
+               f"#5's attention does not repeat bit for bit at {shape}")
+        del att, lse, want, again
+        p1, k1, k2, p2 = (_graph_ms(f) for f in (plain, kern, kern, plain))
+        res.update(max_abs_err=err, plain_ms=(p1 + p2) / 2)
+        ms = (k1 + k2) / 2
+    else:
+        ms = _graph_ms(kern)
+    q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4))
+    lib_ms = _graph_ms(lambda: TF.scaled_dot_product_attention(q, k, v))
+    nbytes = 2 * b * n * 3 * h * dh + 2 * b * n * h * dh + b * h * n * n + 4 * b * h * n
+    bound = _bound(4 * b * h * n * n * dh, nbytes)
+    plain_txt = "" if res["plain_ms"] is None else f", plain {res['plain_ms']:.4f} ms"
+    print(f"#5's attention {shape}, mask, with lse, by graph replay: kernel {ms:.4f} ms"
+          f"{plain_txt}, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}; {nbytes / 1e6:.1f} MB), {bound['bound_ms'] / ms:.1%} of it; "
+          f"SDPA forward without dropout (a yardstick for the unmasked work only) "
+          f"{lib_ms:.4f} ms; {card}")
+    res.update(ms=ms, library_ms=lib_ms, **bound)
+    return res
+
+
 def _attention_fwd_case(card: str, b: int, with_lse: bool) -> dict:
     """#1's attention alone at ViT-B's [b, N, HEADS x 64]: the unmasked
     ``_build.attention_fwd`` (csrc/packed_attn_sm90.cu, one pass over the
@@ -986,7 +1051,8 @@ _GEMM_LABELS = {"gemm_bf16_sm90<false, false, 3": "gemm_bf16 NN + LN2 (#15, clus
                 "flash_fwd_sm90<true>": "flash_fwd single K step (#8)",
                 "flash_bwd_fused_sm90": "flash_bwd fused (#9)",
                 "local_fwd_kernel<64>": "local_fwd (#12)",
-                "local_bwd_kernel<64>": "local_bwd (#13)",
+                "flash_bwd_dkv_sm90<true>": "local_bwd dk, dv (#13)",
+                "flash_bwd_dq_sm90<true>": "local_bwd dq (#13)",
                 "flash_bwd_dkv_sm90": "flash_dkv (#11)",
                 "flash_bwd_dq_sm90": "flash_dq (#10)"}
 
@@ -996,6 +1062,8 @@ def _kernel_label(name: str) -> str:
     for key, label in _GEMM_LABELS.items():
         if short.startswith(key):
             return label
+    if short.startswith("packed_attn_sm90<"):  # <Dh, key columns, masked>
+        return "packed_attn_sm90 masked (#5)" if ", true>" in short else "packed_attn_sm90"
     return re.split(r"[<(]", short, maxsplit=1)[0].strip()
 
 
@@ -1148,6 +1216,8 @@ def phase_fa_kernels(card: str) -> dict:
           "cannot take a given mask.")
     del a, fwd, saved, qkv, att, lse
     _masked_attention_bwd_phase(card)
+    for mb, mn, mh, mdh in MASKED_BWD_SHAPES:  # #5's attention at the same shapes
+        _masked_attention_fwd_case(card, mb, mn, mh, mdh)
 
     # #7 at the flagship's evaluation batch (the kernels line), its
     # serving batch 16 and 'hier''s level and fusion layers.
@@ -1777,6 +1847,22 @@ def _sdpa_masked_ms(q, k, v, g, mask):
     return fwd, _ms(bwd, iters=5)
 
 
+def _local_bwd_ms(card: str, n: int) -> float:
+    """#13 alone (``local.local_bwd``, through launchers an earlier tree also
+    has) at the hybrid preset's [LC_B, n, LC_HEADS, 64], block 128, halo 1,
+    q, k, v views of one packed projection: CUDA-event ms of 20 calls."""
+    gen = torch.Generator().manual_seed(14)
+    s = 64 ** -0.5
+    with torch.no_grad():
+        q, k, v, g = _packed_views(gen, LC_B, n, LC_HEADS)
+        out, lse = local.local_fwd(q, k, v, LOCAL_BLOCK, LOCAL_HALO, s, return_lse=True)
+        delta = flash.flash_delta(g, out)
+        ms = _ms(lambda: local.local_bwd(q, k, v, g, lse, delta, LOCAL_BLOCK, LOCAL_HALO, s))
+    print(f"#13 alone, [{LC_B}, {n}, {LC_HEADS}, 64], block {LOCAL_BLOCK}, halo {LOCAL_HALO}: "
+          f"{ms:.4f} ms, {card}")
+    return ms
+
+
 def phase_local_kernels(card: str) -> dict:
     """Kernels #12 and #13 at the hybrid preset's shapes (16,384 and 12,288
     tokens), a ragged length and the dense case against their plain
@@ -1804,9 +1890,18 @@ def phase_local_kernels(card: str) -> dict:
             want = local.local_bwd_ref(q, k, v, g, lse, delta, blk, halo, s)
             res["local_block_attention_bwd"]["errs"] += [
                 _frac_err(nm, x, w, FLASH_TOL) for nm, x, w in zip(("dq", "dk", "dv"), got, want)]
+            _check(all(torch.equal(x, y) for x, y in zip(
+                got, local.local_bwd(q, k, v, g, lse, delta, blk, halo, s))),
+                f"kernel #13 does not repeat bit for bit at {n} tokens")
+            print("  #13: dq, dk, dv the same bits on a second call")
             del got, want
             if n != LC_N:
                 continue
+            dims = (b, n, n, h, 64)
+            dq_ms, dkv_ms = (_ms(lambda f=f: f(q, k, v, g, lse, delta, s, dims, blk, halo))
+                             for f in (_build._dq, _build._dkv))
+            print(f"  #13's two launches: dq {dq_ms:.4f} ms, dk and dv {dkv_ms:.4f} ms "
+                  f"(windowed csrc/flash_bwd_dq_sm90.cu, csrc/flash_bwd_dkv_sm90.cu), {card}")
             pairs = _window_pairs(n, blk, halo)
             t = res["local_block_attention"]
             t["ms"], t["plain_ms"] = _ab_ms(
@@ -1849,6 +1944,7 @@ def phase_local_kernels(card: str) -> dict:
             "out", got, local.local_block_attention_xla(q, k, v, blk, halo), FLASH_TOL))
     for t in res.values():
         t["max_abs_err"] = max(t.pop("errs"))
+    _local_bwd_ms(card, LC_MERGED_N)  # the hybrid's third local layer, after the merge
     return res
 
 
@@ -2390,7 +2486,7 @@ def main() -> int:
              source="sfc_vit_tpu_torch/csrc/attention_bwd_sm90.cu",
              replaces="sfc_vit_tpu/ops/fused_attention_block.py:333"),
         dict(name="fused_torch_mha", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/attention_fwd.cu",
+             source="sfc_vit_tpu_torch/csrc/packed_attn_sm90.cu",
              replaces="sfc_vit_tpu/ops/fused_torch_attention.py:82"),
         dict(name="fused_torch_mha_bwd", route="cuda",
              source="sfc_vit_tpu_torch/csrc/attention_bwd_sm90.cu",
@@ -2414,7 +2510,7 @@ def main() -> int:
              source="sfc_vit_tpu_torch/csrc/local_fwd.cu",
              replaces="sfc_vit_tpu/ops/local_attention.py:82"),
         dict(name="local_block_attention_bwd", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/local_bwd.cu",
+             source="sfc_vit_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
              replaces="sfc_vit_tpu/ops/local_attention.py:198"),
         dict(name="gather_project", route="cuda",
              source="sfc_vit_tpu_torch/csrc/gather_project.cu",

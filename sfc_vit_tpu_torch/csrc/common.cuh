@@ -1,7 +1,6 @@
 // Shared device helpers for the port's Hopper kernels: 16-byte cp.async
 // copies with a zero-fill predicate (every kernel masks its own ragged
-// edges this way), bf16 packing for 16-byte stores and the two-term bf16
-// split of an fp32 value.
+// edges this way) and bf16 packing for 16-byte stores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,13 +59,6 @@ __device__ __forceinline__ uint4 pack_bf16x8(const float* v) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   return out;
-}
-
-// x = hi + lo to about 16 bits of mantissa: an fp32 operand of a tensor-
-// core product taken as two bf16 products summed in fp32.
-__device__ __forceinline__ void split_bf16(float x, bf16& hi, bf16& lo) {
-  hi = __float2bfloat16(x);
-  lo = __float2bfloat16(x - __bfloat162float(hi));
 }
 
 // 64 rows r0.. of a row-strided bf16 matrix (columns 0..DH-1) into a

@@ -28,6 +28,27 @@
 // and G read through the transpose bit).  dK and dV stay in registers
 // across the whole query loop and are rounded once at the end: each
 // output row has one owner, no reduce-add, the same result on every run.
+//
+// The windowed instance (kWindow) is the dK/dV half of the curve-local
+// backward #13: sfc_vit_tpu/ops/local_attention.py::_bwd_kernel (lines
+// 198-299, called at :341), scatter as gather, dk and dv of a key block
+// over the 2 halo + 1 query blocks whose window holds it (the window is
+// symmetric: :68-71), with the same p and ds.  block is a multiple of
+// 64, so each warpgroup's 64 keys lie in one curve block and its query
+// window is whole 64-query tiles (sm90.cuh::local_tile_window,
+// ops/_build.py::local_tile_window).  The block walks the union of its
+// two warpgroups' windows; the producer marks in each ring slot which
+// warpgroups' windows hold its tile (bits beside the tile), and a
+// warpgroup takes p = 0 on a tile outside its own, so it adds nothing.
+// The two windows differ only where a 128-key block straddles two curve
+// blocks (block 64 or 192, off the main paths), and a branch around such a
+// tile, or the window bounds held in registers, spilled at the nine warps'
+// 168 registers a thread.  lse and
+// delta keep their boxes from the tile's first row rounded down to 16
+// bytes (ROADMAP F2).  At [2, 16384, 6, 64], block 128, halo 1: 6 query
+// tiles a block instead of 256, 38 nominal GFLOP of dk and dv.  Unlike
+// #13's dq instance it stays one block per (128-key block, b * h): its
+// persistent form spilled at the nine warps' 168 registers a thread.
 
 #include "sm90.cuh"
 
@@ -57,6 +78,7 @@ struct Smem {
   unsigned char g[kStages][kQTileBytes];
   float lse[kStages][kRowSlot];
   float delta[kStages][kRowSlot];
+  uint32_t own[kStages];  // the windowed instance: bit w, warpgroup w's window holds the tile
   uint64_t kv_full, full[kStages], empty[kStages];
 };
 constexpr int kSmemBytes = sizeof(Smem) + 1024;  // + the 1,024-byte alignment
@@ -65,16 +87,22 @@ struct Params {
   CUtensorMap q, k, v, g, lse, delta;
   bf16 *dk, *dv;
   int heads, nq, nk;
+  int block, halo;  // the windowed instance's curve block and halo
   float scale, scale_log2;
 };
 
+// kWindow: #13's instance, over the query-side window of each key block
+// (nq == nk); otherwise #11's, over every query.
+template <bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_sm90(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) unsigned char dyn[];
   Smem& sm = hw::aligned_smem<Smem>(dyn);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int k0 = blockIdx.x * BKEYS, bh = blockIdx.y;
-  const int b = bh / p.heads, h = bh % p.heads;
-  const int qtiles = (p.nq + BQT - 1) / BQT;
+  // The query tiles [j0, j1) the block walks: every one, or its two
+  // warpgroups' windows together.
+  int j0 = 0, j1 = (p.nq + BQT - 1) / BQT;
+  if constexpr (kWindow) hw::local_tile_window(k0 / BQT, BKEYS, p.nq, p.block, p.halo, j0, j1);
 
   if (tid == 0) {
     hw::bar_init(&sm.kv_full, 1);
@@ -88,12 +116,23 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_sm90(const __grid_c
 
   if (warp == kConsumerWarps) {  // producer: one thread issues every TMA load
     if (lane == 0) {
+      const int b = bh / p.heads, h = bh % p.heads;
       hw::bar_expect_tx(&sm.kv_full, 2 * BKEYS * 128);
       hw::tma_load4(sm.k, &p.k, &sm.kv_full, 0, h, k0, b);
       hw::tma_load4(sm.v, &p.v, &sm.kv_full, 0, h, k0, b);
+      // Each warpgroup's own window (its 64 keys' curve block; none for
+      // keys wholly past nk).
+      int w[2][2] = {{j0, j1}, {0, 0}};
+      if constexpr (kWindow) {
+        hw::local_tile_window(k0 / BQT, 64, p.nq, p.block, p.halo, w[0][0], w[0][1]);
+        if (k0 + 64 < p.nk)
+          hw::local_tile_window(k0 / BQT + 1, 64, p.nq, p.block, p.halo, w[1][0], w[1][1]);
+      }
       Ring r;
-      for (int j = 0; j < qtiles; ++j, r.next()) {
+      for (int j = j0; j < j1; ++j, r.next()) {
         hw::bar_wait(&sm.empty[r.slot], r.phase ^ 1);  // the first pass finds every slot free
+        if constexpr (kWindow)  // released to the consumers by the arrival below
+          sm.own[r.slot] = (w[0][0] <= j && j < w[0][1]) | (w[1][0] <= j && j < w[1][1]) << 1;
         uint64_t* full = &sm.full[r.slot];
         const int r0 = hw::rows_start(bh * p.nq + j * BQT);
         hw::bar_expect_tx(full, 2 * kQTileBytes + 2 * kRowBox * 4);
@@ -114,20 +153,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_sm90(const __grid_c
   const int wg = warp / 4;
   const int kr = (warp % 4) * 16 + lane / 4;  // within the warpgroup's 64
   const int c0 = 2 * (lane % 4);
-  const int key0 = k0 + wg * 64;
-  // Query 0 of a tile in its lse / delta slot (tiles start on 64 queries).
-  const int row_off = bh * p.nq - hw::rows_start(bh * p.nq);
-  const uint64_t kdesc = hw::desc_sw128(sm.k + wg * 64 * 128);
-  const uint64_t vdesc = hw::desc_sw128(sm.v + wg * 64 * 128);
   float dk[32], dv[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
-  hw::bar_wait(&sm.kv_full, 0);
-
-  Ring r;
-  for (int j = 0; j < qtiles; ++j, r.next()) {
-    hw::bar_wait(&sm.full[r.slot], r.phase);
-    const uint64_t qdesc = hw::desc_sw128(sm.q[r.slot]), gdesc = hw::desc_sw128(sm.g[r.slot]);
+  // dK and dV (+)= the products of query tile j from ring slot `slot`, whose
+  // query 0 sits at row_off of its lse / delta slot, then the slot
+  // released.  V's descriptor is K's a fixed distance on, and the block's
+  // b, h and first key are formed again for the stores: with more of them
+  // live beside dk and dv, ptxas serialized the wgmma for want of
+  // registers (C7512) at the nine warps' 168 a thread.
+  auto tile = [&](int j, int slot, int row_off, uint64_t kdesc) {
+    const uint64_t vdesc = kdesc + (sizeof(sm.k) >> 4);
+    const uint64_t qdesc = hw::desc_sw128(sm.q[slot]), gdesc = hw::desc_sw128(sm.g[slot]);
     float st[32], dpt[32];
     hw::fence_regs(st);
     hw::fence_regs(dpt);
@@ -143,16 +178,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_sm90(const __grid_c
 
     // p = exp(s - lse) and ds = p (dp - delta) scale, in place.  Queries
     // at or past nq (zero Q and G rows, and lse / delta rows of the next
-    // (b, h) or zeros) give p = 0: dk and dv sum over them.
+    // (b, h) or zeros) give p = 0: dk and dv sum over them; so do, in the
+    // windowed instance, the queries of a tile outside this warpgroup's
+    // window (the slot's bit; a branch around the tile spilled).
     const bool ragged_q = (j + 1) * BQT > p.nq;
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * jj + c0 + e;
-        const float lse2 = sm.lse[r.slot][row_off + c] * kLog2e;
-        const float dl = sm.delta[r.slot][row_off + c];
-        const bool q_ok = !ragged_q || j * BQT + c < p.nq;
+        const float lse2 = sm.lse[slot][row_off + c] * kLog2e;
+        const float dl = sm.delta[slot][row_off + c];
+        const bool q_ok =
+            (!ragged_q || j * BQT + c < p.nq) && (!kWindow || (sm.own[slot] >> wg & 1u));
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int i = 4 * jj + 2 * hf + e;
@@ -192,12 +230,27 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_sm90(const __grid_c
     hw::fence_frags(dlo);
     hw::fence_frags(ph);
     hw::fence_frags(pl);
-    if (lane == 0) hw::bar_arrive(&sm.empty[r.slot]);  // Q, G, lse, delta read
+    if (lane == 0) hw::bar_arrive(&sm.empty[slot]);  // Q, G, lse, delta read
+  };
+
+  const uint64_t kdesc = hw::desc_sw128(sm.k + wg * 64 * 128);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  hw::bar_wait(&sm.kv_full, 0);
+  {
+    // Query 0 of a tile in its lse / delta slot (tiles start on 64 queries).
+    const int row_off = bh * p.nq - hw::rows_start(bh * p.nq);
+    Ring r;
+    for (int j = j0; j < j1; ++j, r.next()) {
+      hw::bar_wait(&sm.full[r.slot], r.phase);
+      tile(j, r.slot, row_off, kdesc);
+    }
   }
 
+  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int key = key0 + kr + 8 * hf;
+    const int key = blockIdx.x * BKEYS + wg * 64 + kr + 8 * hf;
     if (key >= p.nk) continue;
     const long long off = ((static_cast<long long>(b) * p.nk + key) * p.heads + h) * 64 + c0;
 #pragma unroll
@@ -217,14 +270,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_sm90(const __grid_c
 // stride along dh; strides multiples of 8 elements, bases on 16 bytes, as
 // TMA requires); lse and delta fp32 [batch, heads, nq] contiguous.  dk, dv
 // bf16 [batch, nk, heads, dh] contiguous.  dh must be 64.
+// block > 0 takes #13's windowed instance: key j meets the queries i with
+// |i / block - j / block| <= halo, block a multiple of 64, halo >= 1, nq ==
+// nk; block 0 (#11) meets every query.
 extern "C" int sfc_flash_dkv_bf16(const void* q, const void* k, const void* v, const void* g,
                                   const void* lse, const void* delta, void* dk, void* dv,
                                   int batch, int heads, int nq, int nk, int dh, long long qsb,
                                   long long qsn, long long qsh, long long ksb, long long ksn,
                                   long long ksh, long long vsb, long long vsn, long long vsh,
                                   long long gsb, long long gsn, long long gsh, float scale,
-                                  void* stream) {
-  if (dh != 64 || nq < 1 || nk < 1 || heads < 1 || batch < 0)
+                                  int block, int halo, void* stream) {
+  const bool window = block != 0;
+  if (dh != 64 || nq < 1 || nk < 1 || heads < 1 || batch < 0 ||
+      (window && (block < 0 || block % 64 || halo < 1 || nq != nk)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   Params p{};
@@ -241,17 +299,21 @@ extern "C" int sfc_flash_dkv_bf16(const void* q, const void* k, const void* v, c
   p.heads = heads;
   p.nq = nq;
   p.nk = nk;
+  p.block = block;
+  p.halo = halo;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
-  e = cudaFuncSetAttribute(flash_bwd_dkv_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kSmemBytes);
+  auto kernel = window ? flash_bwd_dkv_sm90<true> : flash_bwd_dkv_sm90<false>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((nk + BKEYS - 1) / BKEYS, batch * heads);
-  flash_bwd_dkv_sm90<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers, local bytes and shared bytes of the kernel, into out[3].
-extern "C" int sfc_flash_dkv_attrs(int* out) {
-  return hw::kernel_attrs(flash_bwd_dkv_sm90, kSmemBytes, out);
+// Registers, local bytes and shared bytes of #11's kernel (#13's windowed
+// instance where `windowed`), into out[3].
+extern "C" int sfc_flash_dkv_attrs(int windowed, int* out) {
+  return windowed ? hw::kernel_attrs(flash_bwd_dkv_sm90<true>, kSmemBytes, out)
+                  : hw::kernel_attrs(flash_bwd_dkv_sm90<false>, kSmemBytes, out);
 }

@@ -26,6 +26,26 @@
 // through the transpose bit).  dq stays in registers across the whole key
 // loop and is rounded once at the end by the block that owns its rows: no
 // fp32 buffer, no atomics, the same result on every run.
+//
+// The windowed instance (kWindow) is the dQ half of the curve-local
+// backward #13: sfc_vit_tpu/ops/local_attention.py::_bwd_kernel (lines
+// 198-299, called at :341), scatter as gather, dq of a query block over
+// the 2 halo + 1 key blocks of its window (:68-71), with the same p, dp
+// and ds.  block is a multiple of 64, so each warpgroup's 64 rows lie in
+// one curve block and its window is whole 64-key tiles
+// (sm90.cuh::local_tile_window, ops/_build.py::local_tile_window).  The
+// block walks the union of its two warpgroups' windows (they differ where
+// a 128-query tile straddles two curve blocks: block 64 or 192); the
+// producer marks in each ring slot which warpgroups' windows hold its
+// tile, and a warpgroup waits for each tile outside its own window and
+// releases it unread, so the ring's phases stay in step.  At [2, 16384, 6,
+// 64], block 128, halo 1 a block walks 6 key tiles instead of 256: the
+// window holds 2.3 % of the square's (query, key) pairs, 29 nominal GFLOP
+// of dq.  A persistent form of this instance (blocks walking (b * h,
+// 128-query block) items, the next item's Q and G in flight) took it from
+// 0.140 to 0.114 ms on an H100 at 700 W, but its item loop around the
+// shared code made #10's full-range instance 6.5 % slower there, so the
+// instance stays one block per item.
 
 #include "sm90.cuh"
 
@@ -49,6 +69,7 @@ struct Smem {
   unsigned char k[kStages][kTileBytes];
   unsigned char v[kStages][kTileBytes];
   uint64_t qg_full, full[kStages], empty[kStages];
+  uint32_t own[kStages];  // the windowed instance: bit w, warpgroup w's window holds the tile
 };
 constexpr int kSmemBytes = sizeof(Smem) + 1024;  // + the 1,024-byte alignment
 
@@ -57,16 +78,23 @@ struct Params {
   const float *lse, *delta;
   bf16* dq;
   int heads, nq, nk;
+  int block, halo;  // the windowed instance's curve block and halo
   float scale, scale_log2;
 };
 
+// kWindow: #13's instance, over the curve-local window of each query
+// block (nq == nk); otherwise #10's, over every key.
+template <bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_sm90(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) unsigned char dyn[];
   Smem& sm = hw::aligned_smem<Smem>(dyn);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * BQ, bh = blockIdx.y;
   const int b = bh / p.heads, h = bh % p.heads;
-  const int tiles = (p.nk + BKT - 1) / BKT;
+  // The key tiles [t0, t1) the block walks: every one, or its two
+  // warpgroups' windows together.
+  int t0 = 0, t1 = (p.nk + BKT - 1) / BKT;
+  if constexpr (kWindow) hw::local_tile_window(q0 / BKT, BQ, p.nk, p.block, p.halo, t0, t1);
 
   if (tid == 0) {
     hw::bar_init(&sm.qg_full, 1);
@@ -83,9 +111,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_sm90(const __grid_co
       hw::bar_expect_tx(&sm.qg_full, 2 * BQ * 128);
       hw::tma_load4(sm.q, &p.q, &sm.qg_full, 0, h, q0, b);
       hw::tma_load4(sm.g, &p.g, &sm.qg_full, 0, h, q0, b);
+      // Each warpgroup's own window (its 64 queries' curve block; none for
+      // queries wholly past nq).
+      int w[2][2] = {{t0, t1}, {0, 0}};
+      if constexpr (kWindow) {
+        hw::local_tile_window(q0 / BKT, 64, p.nk, p.block, p.halo, w[0][0], w[0][1]);
+        if (q0 + 64 < p.nq)
+          hw::local_tile_window(q0 / BKT + 1, 64, p.nk, p.block, p.halo, w[1][0], w[1][1]);
+      }
       Ring r;
-      for (int t = 0; t < tiles; ++t, r.next()) {
+      for (int t = t0; t < t1; ++t, r.next()) {
         hw::bar_wait(&sm.empty[r.slot], r.phase ^ 1);  // the first pass finds every slot free
+        if constexpr (kWindow)  // released to the consumers by the arrival below
+          sm.own[r.slot] = (w[0][0] <= t && t < w[0][1]) | (w[1][0] <= t && t < w[1][1]) << 1;
         hw::bar_expect_tx(&sm.full[r.slot], 2 * kTileBytes);
         hw::tma_load4(sm.k[r.slot], &p.k, &sm.full[r.slot], 0, h, t * BKT, b);
         hw::tma_load4(sm.v[r.slot], &p.v, &sm.full[r.slot], 0, h, t * BKT, b);
@@ -118,8 +156,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_sm90(const __grid_co
   hw::bar_wait(&sm.qg_full, 0);
 
   Ring r;
-  for (int t = 0; t < tiles; ++t, r.next()) {
+  for (int t = t0; t < t1; ++t, r.next()) {
     hw::bar_wait(&sm.full[r.slot], r.phase);
+    if constexpr (kWindow) {
+      if (!(sm.own[r.slot] >> wg & 1u)) {  // another warpgroup's tile: released unread
+        if (lane == 0) hw::bar_arrive(&sm.empty[r.slot]);
+        continue;
+      }
+    }
     const uint64_t kdesc = hw::desc_sw128(sm.k[r.slot]), vdesc = hw::desc_sw128(sm.v[r.slot]);
     float s[32], dp[32];
     hw::fence_regs(s);
@@ -189,14 +233,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_sm90(const __grid_co
 // stride along dh; strides multiples of 8 elements, bases on 16 bytes, as
 // TMA requires); lse and delta fp32 [batch, heads, nq] contiguous.  dq
 // bf16 [batch, nq, heads, dh] contiguous.  dh must be 64.
+// block > 0 takes #13's windowed instance: query i meets the keys j with
+// |i / block - j / block| <= halo, block a multiple of 64, halo >= 1, nq ==
+// nk; block 0 (#10) meets every key.
 extern "C" int sfc_flash_dq_bf16(const void* q, const void* k, const void* v, const void* g,
                                  const void* lse, const void* delta, void* dq, int batch,
                                  int heads, int nq, int nk, int dh, long long qsb,
                                  long long qsn, long long qsh, long long ksb, long long ksn,
                                  long long ksh, long long vsb, long long vsn, long long vsh,
                                  long long gsb, long long gsn, long long gsh, float scale,
-                                 void* stream) {
-  if (dh != 64 || nq < 1 || nk < 1 || heads < 1 || batch < 0)
+                                 int block, int halo, void* stream) {
+  const bool window = block != 0;
+  if (dh != 64 || nq < 1 || nk < 1 || heads < 1 || batch < 0 ||
+      (window && (block < 0 || block % 64 || halo < 1 || nq != nk)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   Params p{};
@@ -211,17 +260,21 @@ extern "C" int sfc_flash_dq_bf16(const void* q, const void* k, const void* v, co
   p.heads = heads;
   p.nq = nq;
   p.nk = nk;
+  p.block = block;
+  p.halo = halo;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
-  e = cudaFuncSetAttribute(flash_bwd_dq_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kSmemBytes);
+  auto kernel = window ? flash_bwd_dq_sm90<true> : flash_bwd_dq_sm90<false>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((nq + BQ - 1) / BQ, batch * heads);
-  flash_bwd_dq_sm90<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers, local bytes and shared bytes of the kernel, into out[3].
-extern "C" int sfc_flash_dq_attrs(int* out) {
-  return hw::kernel_attrs(flash_bwd_dq_sm90, kSmemBytes, out);
+// Registers, local bytes and shared bytes of #10's kernel (#13's windowed
+// instance where `windowed`), into out[3].
+extern "C" int sfc_flash_dq_attrs(int windowed, int* out) {
+  return windowed ? hw::kernel_attrs(flash_bwd_dq_sm90<true>, kSmemBytes, out)
+                  : hw::kernel_attrs(flash_bwd_dq_sm90<false>, kSmemBytes, out);
 }

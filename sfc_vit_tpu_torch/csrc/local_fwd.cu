@@ -27,7 +27,7 @@
 // (cp.async, zero-filled past the range).  Logits go through a per-warp
 // fp32 tile in shared memory, where a lane pair owns a row for the
 // softmax; two passes over the window (max and sum, then P . V into
-// register fragments), as attention_fwd.cu runs.  Shared memory at Dh 64:
+// register fragments).  Shared memory at Dh 64:
 // 53 KB (Q, K, V, P and logits), four blocks an SM.  The flash forward #8
 // has its own Hopper design in flash_fwd_sm90.cu.
 

@@ -3,29 +3,40 @@
 // for every image b and head h, with q, k and v read from qkv bf16
 // [B, N, 3*H*Dh] at columns h*Dh, inner + h*Dh and 2*inner + h*Dh (inner =
 // H*Dh), and optionally lse[b, h, i] = the natural log-sum-exp of the
-// scaled logits of row i over the valid keys.  Head dims 64 and 192, N up
-// to 1,024.
+// scaled logits of row i over the valid keys; with a 0/1 dropout mask
+// [B, H, N, N] (uint8) and keep, bf16((P / keep) * mask) takes the place
+// of bf16(P).  Head dims 64 and 192, N up to 1,024.
 //
 // Replaces: sfc_vit_tpu/ops/flash_attention.py::_packed_kernel (lines
-// 907-940, called at :979; kernel #7, the family-A serving path) and the
+// 907-940, called at :979; kernel #7, the family-A serving path), the
 // attention of sfc_vit_tpu/ops/fused_attention_block.py::_attn_block_kernel
 // (lines 153-195, with its save_lse output at :188-189; kernel #1, ViT-B's
-// served forward and training forward), which compute the same formula:
-// fp32 logits times scale, keys at or past n_valid masked, m = the row max,
-// p = exp(s - m), l = the row sum, P = p / l rounded to bf16 BEFORE the P.V
-// product (JAX's rounding point, kept at every N), P.V summed in fp32 and
-// rounded once; lse = m + log(l).  Masked keys get -1e30 (never -inf: p =
-// 0, no NaN) and add nothing to l.  Exponentials are exp2 with log2(e)
-// folded into the scale; lse is converted back once a row.
+// served forward and training forward) and, with the mask, the
+// per-(image, head) loops of
+// sfc_vit_tpu/ops/fused_torch_attention.py::_torch_mha_kernel (lines
+// 109-139; kernel #5, family A's training forward: the flagship at Dh 192,
+// 'hier' at Dh 64), which compute the same formula: fp32 logits times
+// scale, keys at or past n_valid masked, m = the row max, p = exp(s - m),
+// l = the row sum, P = p / l rounded to bf16 BEFORE the P.V product (JAX's
+// rounding point, kept at every N), P.V summed in fp32 and rounded once;
+// lse = m + log(l), taken before dropout.  With the mask, Pd = (P / keep)
+// * mask in fp32, divided by keep and not multiplied by its reciprocal
+// (sfc::div_rn, the correctly rounded quotient in three instructions),
+// then rounded to bf16 (_torch_mha_kernel:128-133).  Masked keys get -1e30
+// (never -inf: p = 0, no NaN) and add nothing to l.  Exponentials are exp2
+// with log2(e) folded into the scale; lse is converted back once a row.
 //
 // Bound on this card: the bytes.  At ViT-B's training shape [256, 196,
 // 12 x 64] with lse an (image, head) is 4 x 196 x 196 x 64 = 9.8 MFLOP on
 // 75 KB of q/k/v and 25 KB of output (~100 flops a byte against the
 // H100's ~295): 231 MB read, 77 MB + 2.4 MB of lse written, 0.093 ms at
 // 3.35 TB/s.  The flagship's [256, 64, 2304] (4 heads of 192, ~33 flops a
-// byte) and 'hier''s [B, 64 or 192, 768] are bound the same way.  Beside
-// the bytes, the exponentials: one ex2 a logit at the SFU's 16 an SM a
-// clock is ~0.04 ms at ViT-B, so masked key groups skip theirs.
+// byte) and 'hier''s [B, 64 or 192, 768] are bound the same way; #5's
+// masked training forward at the flagship's [512, 64, 4 x 192] reads
+// 151 MB of qkv and 8.4 MB of mask and writes 50 MB and 0.5 MB of lse
+// (0.063 ms).  Beside the bytes, the exponentials: one ex2 a logit at the
+// SFU's 16 an SM a clock is ~0.04 ms at ViT-B, so masked key groups skip
+// theirs.
 // Design: a persistent grid of min(items, SMs x blocks an SM) blocks,
 // where an item is one (image, head, 64-query tile) and block i walks
 // items i, i + grid, ...  A block is one producer warp and one consumer
@@ -35,19 +46,27 @@
 //    into a ring of slots, each 64-row tile as Dh / 64 boxes of map_bnhd
 //    over the packed projection (row stride 3*H*Dh, Dh 192 read as three
 //    64-column sub-heads), 128-byte swizzled; rows past n read as zero.
+//    With the mask, a 64 x 64 byte tile of it for each key tile, 64-byte
+//    swizzled, into a ring of its own (map_mask_u8 over the [B H N, N]
+//    rows; where N % 16 != 0 the rows are no TMA box and the consumers
+//    copy the tile with plain loads into the same slot).
 //  * The consumer warpgroup computes S = Q.K^T by wgmma from the swizzled
 //    tiles (Dh / 16 k16 steps; the accumulator in registers, each thread
 //    two rows), then:
 //    - one pass where the whole row fits one warpgroup's accumulators
 //      (n_valid to 256 keys at Dh 64, to 64 at Dh 192; the Python
-//      PACKED_ONE_PASS_MAX_N): an instance for each width NK of the logits
-//      held, 64, 128, 192, 200 and 256 keys (the narrowest that covers
-//      n_valid; 200 for ViT-B's 196 holds 100 registers where 256 holds
-//      128).  The item's K tiles sit in consecutive ring slots, so S is one
-//      m64nNK wgmma a k16 step over all of them (K read once, the logits
-//      computed once; no exchange between warpgroups); the exact row max
-//      and sum across each row's quad of threads; exponentials skipped for
-//      key groups of 8 wholly past n_valid; P = exp(s - m) / l in fp32
+//      PACKED_ONE_PASS_MAX_N; with the mask to 192 and 64,
+//      PACKED_ONE_PASS_MAX_N_MASKED): an instance for each width NK of the
+//      logits held, 64, 128, 192, 200 and 256 keys (the narrowest that
+//      covers n_valid; 200 for ViT-B's 196 holds 100 registers where 256
+//      holds 128; the masked forms 64, 128 and 192).  The item's K tiles
+//      sit in consecutive ring slots, so S is one m64nNK wgmma a k16 step
+//      over all of them (K read once, the logits computed once; no
+//      exchange between warpgroups); the exact row max and sum across
+//      each row's quad of threads; exponentials skipped for key groups of
+//      8 wholly past n_valid; P = exp(s - m) / l in fp32 (with the mask:
+//      its tiles read from shared memory, two bytes a row and key pair,
+//      and Pd = (P / keep) * mask, skipped for the dead key groups too)
 //      rounded once to bf16 as the register A operand, the logits dying as
 //      P's NK / 4 registers are made; O = P.V by wgmma (Dh / 64 m64n64
 //      products a k16 step, V read through the transpose bit; a last half
@@ -63,7 +82,8 @@
 //      (sm90.cuh's *_at forms), so only the bases stay live.
 //    - two passes over the ring's 64-key tiles for longer rows (to 1,024;
 //      Dh 192 past 64 keys): the first keeps the running max and rescaled
-//      sum, the second recomputes each logits tile and adds bf16(P).V.
+//      sum, the second recomputes each logits tile and adds bf16(P).V (or
+//      bf16(Pd).V, its mask tile in flight with the tile's K and V).
 //      The logits are computed twice, as #8's single K step does, to keep
 //      the rounding point at any N.
 //  * lse, where asked for, by per-thread 4-byte stores (one lane of each
@@ -75,8 +95,12 @@
 // Shared memory: (2 Q + ring + 2 staging) x Dh x 128 bytes: 197,728 bytes
 // at Dh 192 (one block an SM), 66,656 at Dh 64 to 128 keys and in two
 // passes (three), 83,072 at 192 keys (two), 99,488 at 200 (two) and 256
-// (one).  Every wgmma group is waited on at once (fixed wait counts, no
-// branch between a wgmma and its wait).
+// (one); the masked forms add a 4 KB mask tile a slot of a ring of two
+// items' (or two second-pass tiles') tiles: 8 KB at 64 keys and in two
+// passes, 16 KB at 128, 24 KB at 192.  Every wgmma group is waited on at
+// once (fixed wait counts, no branch between a wgmma and its wait).
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -89,9 +113,11 @@ constexpr int BM = 64;                  // queries an item, keys a tile
 constexpr int kMaxN = 1024;             // the Python PACKED_MAX_N
 constexpr int kMaxTiles64 = 4;          // one pass to 256 keys at Dh 64 ...
 constexpr int kMaxTiles192 = 1;         // ... and to 64 at Dh 192
+constexpr int kMaxTiles64Drop = 3;      // with the mask: to 192 keys at Dh 64
 constexpr int kConsumerThreads = 128;   // one warpgroup
 constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
 constexpr int kBox = 64 * 128;          // one 64-row x 64-column swizzled box, bytes
+constexpr int kMaskTile = BM * BM;      // a 64-query x 64-key tile of the mask, bytes
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -99,10 +125,14 @@ constexpr float kLn2 = 0.6931471805599453f;
 // passes): a one-pass item's 2 KT tiles, at least 4.
 __host__ __device__ constexpr int ring_slots(int kt) { return kt > 2 ? 2 * kt : 4; }
 static_assert(ring_slots(2) == 4 && ring_slots(4) == 8, "a one-pass item fills the ring");
+// Mask ring slots: two one-pass items' KT tiles, or two second-pass tiles.
+__host__ __device__ constexpr int mask_slots(int kt) { return kt > 0 ? 2 * kt : 2; }
 // Blocks an SM the instance with NK one-pass key columns is compiled for:
-// three to 128 keys, two (168 registers a thread) to 200, one (255) at 256.
-__host__ __device__ constexpr int min_blocks(int dh, int nk) {
-  return dh == 192 || nk == 256 ? 1 : nk >= 192 ? 2 : 3;
+// three to 128 keys, two (168 registers a thread) to 200, one (255) at
+// 256; the masked form at 128 keys two (its mask ring leaves no room for
+// a third).
+__host__ __device__ constexpr int min_blocks(int dh, int nk, bool drop) {
+  return dh == 192 || nk == 256 ? 1 : nk >= 192 || (drop && nk == 128) ? 2 : 3;
 }
 
 template <int DH, int KT>
@@ -115,21 +145,33 @@ struct Smem {  // KT: one-pass key tiles, 0 for two passes
   uint64_t q_full[2], q_empty[2];
   uint64_t kv_full[kStages], kv_empty[kStages];
 };
+// The masked forms' storage: the unmasked one, then the mask ring.
 template <int DH, int KT>
-constexpr int kSmemBytes = sizeof(Smem<DH, KT>) + 1024;  // + the 1,024-byte alignment
+struct SmemDrop : Smem<DH, KT> {
+  static constexpr int kMaskStages = mask_slots(KT);
+  alignas(512) unsigned char mask[kMaskStages][kMaskTile];  // 64-byte swizzled tiles
+  uint64_t m_full[kMaskStages], m_empty[kMaskStages];
+};
+template <int DH, int KT, bool DROP>
+using SmemOf = std::conditional_t<DROP, SmemDrop<DH, KT>, Smem<DH, KT>>;
+template <int DH, int KT, bool DROP>
+constexpr int kSmemBytes = sizeof(SmemOf<DH, KT, DROP>) + 1024;  // + the 1,024-byte alignment
 
 struct Params {
   CUtensorMap qkv, out;  // 64-column sub-heads: 3 H Dh / 64 of qkv, H Dh / 64 of out
+  CUtensorMap mask;      // the mask's [B H n, n] rows, where mask_tma
   float* lse;            // [B, H, n] fp32, or null
-  int heads, n, n_valid, q_tiles, k_tiles, items;
+  const uint8_t* mask_rows;  // the mask [B, H, n, n], for the plain copy
+  int heads, n, n_valid, q_tiles, k_tiles, items, mask_tma;
   float scale_log2;  // scale * log2(e)
+  float keep;
 };
 
 // NK: the key columns the one-pass form holds (a multiple of 8, 64 per
 // tile; 200 covers ViT-B's 196 keys with 100 registers where 256 takes
-// 128), or 0 for the two-pass form.
-template <int DH, int NK>
-__global__ void __launch_bounds__(kThreads, min_blocks(DH, NK))
+// 128), or 0 for the two-pass form.  DROP: the dropout mask and keep.
+template <int DH, int NK, bool DROP>
+__global__ void __launch_bounds__(kThreads, min_blocks(DH, NK, DROP))
     packed_attn_sm90(const __grid_constant__ Params p) {
   constexpr int C = DH / 64;
   constexpr int KT = (NK + BM - 1) / BM;  // one-pass key tiles; 0: two passes
@@ -137,8 +179,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK))
   constexpr int NC = NK > 0 ? NK : BM;    // key columns of the logits held
   constexpr int KS = (NC + 15) / 16;      // k16 steps of P . V
   static_assert(NC % 8 == 0 && NC > BM * (NS - 1) && NC <= BM * NS, "NK fits KT tiles");
-  using S = Smem<DH, KT>;
+  using S = SmemOf<DH, KT, DROP>;
   constexpr int kTile = S::kTile, kStages = S::kStages;
+  constexpr int kMaskStages = mask_slots(KT);
   extern __shared__ __align__(1024) unsigned char dyn[];
   S& sm = hw::aligned_smem<S>(dyn);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -152,6 +195,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK))
       hw::bar_init(&sm.kv_full[s], 1);
       hw::bar_init(&sm.kv_empty[s], kConsumerThreads / 32);
     }
+    if constexpr (DROP) {
+      for (int s = 0; s < kMaskStages; ++s) {
+        hw::bar_init(&sm.m_full[s], 1);
+        hw::bar_init(&sm.m_empty[s], kConsumerThreads / 32);
+      }
+    }
     hw::fence_barrier_init();
   }
   __syncthreads();
@@ -160,6 +209,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK))
     if (lane == 0) {
       hw::Ring<2> qr;
       hw::Ring<kStages> kr;
+      hw::Ring<kMaskStages> mr;
       for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
         const int qt = item % p.q_tiles, bh = item / p.q_tiles;
         const int h = bh % p.heads, b = bh / p.heads;
@@ -178,14 +228,31 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK))
           load(sm.kv[kr.slot], &sm.kv_full[kr.slot], sub0, t * BM);
           kr.next();
         };
+        // The mask's tile of key tile t: by TMA, or (no TMA box) an
+        // arrival that hands the empty slot to the consumers' copy.
+        auto mask_tile = [&](int t) {
+          if constexpr (DROP) {
+            hw::bar_wait(&sm.m_empty[mr.slot], mr.phase ^ 1);
+            if (p.mask_tma) {
+              hw::bar_expect_tx(&sm.m_full[mr.slot], kMaskTile);
+              hw::tma_load2(sm.mask[mr.slot], &p.mask, &sm.m_full[mr.slot], t * BM,
+                            bh * p.n + qt * BM);
+            } else {
+              hw::bar_arrive(&sm.m_full[mr.slot]);
+            }
+            mr.next();
+          }
+        };
         const int ksub = (p.heads + h) * C, vsub = (2 * p.heads + h) * C;
-        if constexpr (KT > 0) {  // every K tile, then every V tile
+        if constexpr (KT > 0) {  // every K tile, the mask's tiles, then every V tile
           for (int t = 0; t < KT; ++t) kv(ksub, t);
+          for (int t = 0; t < KT; ++t) mask_tile(t);
           for (int t = 0; t < KT; ++t) kv(vsub, t);
         } else {
           for (int t = 0; t < p.k_tiles; ++t) kv(ksub, t);
           for (int t = 0; t < p.k_tiles; ++t) {
             kv(ksub, t);
+            mask_tile(t);
             kv(vsub, t);
           }
         }
@@ -201,6 +268,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK))
   const float c = p.scale_log2;
   hw::Ring<2> qr;
   hw::Ring<kStages> kr;
+  hw::Ring<kMaskStages> mr;
   int ob = 0;  // staging slot
   float s[NC / 2], o[C][32];
   const unsigned char* qs = nullptr;
@@ -251,6 +319,56 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK))
 #pragma unroll
     for (int i = 0; i < NC / 2; ++i)
       if (kt * BM + 8 * (i / 4) + c0 + (i % 2) >= p.n_valid) s[i] = sfc::kNegInf;
+  };
+  // The dropout mask on P (normalised, in s), whose first key tile is kt:
+  // the mask ring's next NS tiles waited for (copied by the consumers
+  // where the mask has no TMA box), s = (s / keep) * mask for the key
+  // groups of 8 that hold a key below n_valid (the others are 0
+  // already), then the tiles released.
+  auto drop = [&](int bh, int qt, int kt) {
+    if constexpr (DROP) {
+      const float keep = p.keep, rk = __frcp_rn(keep);
+      unsigned char* mt[NS];
+      hw::Ring<kMaskStages> r = mr;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+        hw::bar_wait(&sm.m_full[r.slot], r.phase);
+        mt[t] = sm.mask[r.slot];
+        r.next();
+      }
+      if (!p.mask_tma) {  // N % 16 != 0: plain loads, zero past n
+        const uint8_t* src = p.mask_rows + static_cast<size_t>(bh) * p.n * p.n;
+        for (int t = 0; t < NS; ++t)
+          for (int e = tid; e < kMaskTile; e += kConsumerThreads) {
+            const int row = qt * BM + e / BM, key = (kt + t) * BM + e % BM;
+            mt[t][hw::sw64_u8(e / BM, e % BM)] =
+                row < p.n && key < p.n ? src[static_cast<size_t>(row) * p.n + key] : 0;
+          }
+        hw::named_sync(1, kConsumerThreads);
+      }
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const bool live = KT == 0 || j < 8 * (KT - 1) || 8 * j < p.n_valid;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const uint32_t two =
+              live ? *reinterpret_cast<const uint16_t*>(
+                         mt[j / 8] + hw::sw64_u8(r0 + 8 * hf, 8 * (j % 8) + c0))
+                   : 0u;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * hf + e];
+            x = (two >> (8 * e)) & 0xffu ? sfc::div_rn(x, keep, rk) : 0.f;
+          }
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+        if (lane == 0) hw::bar_arrive(&sm.m_empty[mr.slot]);
+        mr.next();
+      }
+    }
   };
   // O (+)= bf16(P) . V for the next NS V tiles of the ring (P in s, already
   // normalised), which are then released; O starts from zero when `fresh`.
@@ -371,9 +489,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK))
     if constexpr (KT > 0) {
 #pragma unroll
       for (int i = 0; i < NC / 2; ++i) s[i] *= inv[(i / 2) % 2];
+      if constexpr (DROP) drop(bh, qt, 0);
       pv(true);
     } else {
-      // Pass 2: P = exp(s - m) / l rounded to bf16, then O += P . V.
+      // Pass 2: P = exp(s - m) / l (times the mask over keep) rounded to
+      // bf16, then O += P . V.
       for (int t = 0; t < p.k_tiles; ++t) {
         logits();
         if (t == p.k_tiles - 1) mask(t);
@@ -382,6 +502,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK))
           const int hf = (i / 2) % 2;
           s[i] = hw::exp2_approx(fmaf(s[i], c, -m[hf])) * inv[hf];
         }
+        if constexpr (DROP) drop(bh, qt, t);
         pv(t == 0);
       }
     }
@@ -418,11 +539,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK))
 template <int NK>
 constexpr int kt_of = (NK + BM - 1) / BM;
 
-template <int DH, int NK>
+template <int DH, int NK, bool DROP>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   static int cache[64] = {};
-  auto kernel = packed_attn_sm90<DH, NK>;
-  constexpr int smem = kSmemBytes<DH, kt_of<NK>>;
+  auto kernel = packed_attn_sm90<DH, NK, DROP>;
+  constexpr int smem = kSmemBytes<DH, kt_of<NK>, DROP>;
   cudaError_t e;
   const int grid = hw::persistent_grid(kernel, kThreads, smem, p.items, cache, &e);
   if (e != cudaSuccess) return e;
@@ -430,24 +551,41 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int DH, int NK>
+template <int DH, int NK, bool DROP>
 int attrs(int* out) {
-  return hw::kernel_attrs(packed_attn_sm90<DH, NK>, kSmemBytes<DH, kt_of<NK>>, out);
+  return hw::kernel_attrs(packed_attn_sm90<DH, NK, DROP>, kSmemBytes<DH, kt_of<NK>, DROP>, out);
+}
+
+// The instance for head dim 64 by one-pass key tiles (k_tiles of n_valid).
+template <bool DROP>
+cudaError_t launch64(const Params& p, int n_valid, cudaStream_t s) {
+  switch (p.k_tiles) {
+    case 1: return launch<64, 64, DROP>(p, s);
+    case 2: return launch<64, 128, DROP>(p, s);
+    case 3: return launch<64, 192, DROP>(p, s);
+    case kMaxTiles64:
+      if constexpr (!DROP)
+        return n_valid <= 200 ? launch<64, 200, false>(p, s) : launch<64, 256, false>(p, s);
+      [[fallthrough]];
+    default: return launch<64, 0, DROP>(p, s);
+  }
 }
 
 }  // namespace
 
 // qkv bf16 [batch, n, 3 * heads * dh] contiguous, on 16 bytes; out bf16
-// [batch, n, heads * dh] contiguous; lse fp32 [batch, heads, n] or null.
-// Keys at or past n_valid (1 <= n_valid <= n) are masked.  dh must be 64
-// or 192, n at most 1,024.
-extern "C" int sfc_packed_attention_bf16(const void* qkv, void* out, void* lse, int batch, int n,
-                                         int heads, int dh, int n_valid, float scale,
-                                         void* stream) {
+// [batch, n, heads * dh] contiguous; lse fp32 [batch, heads, n] or null;
+// mask uint8 0/1 [batch, heads, n, n] contiguous on 16 bytes, or null (no
+// dropout), with keep in (0, 1].  Keys at or past n_valid (1 <= n_valid
+// <= n) are masked.  dh must be 64 or 192, n at most 1,024.
+extern "C" int sfc_packed_attention_bf16(const void* qkv, void* out, void* lse, const void* mask,
+                                         int batch, int n, int heads, int dh, int n_valid,
+                                         float scale, float keep, void* stream) {
   if ((dh != 64 && dh != 192) || heads < 1 || n < 1 || n > kMaxN || n_valid < 1 || n_valid > n ||
-      batch < 0)
+      batch < 0 || (mask != nullptr && !(keep > 0.f && keep <= 1.f)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
+  const bool drop = mask != nullptr;
   const int subs = heads * dh / 64;
   const long long row = 3LL * heads * dh;
   Params p{};
@@ -455,8 +593,14 @@ extern "C" int sfc_packed_attention_bf16(const void* qkv, void* out, void* lse, 
   if (e == cudaSuccess)
     e = hw::map_bnhd(&p.out, out, batch, n, subs, static_cast<long long>(n) * heads * dh,
                      static_cast<long long>(heads) * dh, 64, BM);
+  // A TMA box of the mask's rows needs their stride on 16 bytes; a row of
+  // at least one 64-key box keeps every box inside the tensor's width.
+  p.mask_tma = drop && n % 16 == 0 && n >= BM;
+  if (e == cudaSuccess && p.mask_tma)
+    e = hw::map_mask_u8(&p.mask, mask, static_cast<long long>(batch) * heads * n, n);
   if (e != cudaSuccess) return static_cast<int>(e);
   p.lse = static_cast<float*>(lse);
+  p.mask_rows = static_cast<const uint8_t*>(mask);
   p.heads = heads;
   p.n = n;
   p.n_valid = n_valid;
@@ -464,40 +608,53 @@ extern "C" int sfc_packed_attention_bf16(const void* qkv, void* out, void* lse, 
   p.k_tiles = (n_valid + BM - 1) / BM;
   p.items = batch * heads * p.q_tiles;
   p.scale_log2 = scale * kLog2e;
+  p.keep = drop ? keep : 1.f;
   auto s = static_cast<cudaStream_t>(stream);
   if (dh == 192) {
-    e = p.k_tiles <= kMaxTiles192 ? launch<192, 64>(p, s) : launch<192, 0>(p, s);
+    const bool one = p.k_tiles <= kMaxTiles192;
+    if (drop) e = one ? launch<192, 64, true>(p, s) : launch<192, 0, true>(p, s);
+    else e = one ? launch<192, 64, false>(p, s) : launch<192, 0, false>(p, s);
+  } else if (drop) {
+    e = p.k_tiles <= kMaxTiles64Drop ? launch64<true>(p, n_valid, s) : launch<64, 0, true>(p, s);
   } else {
-    switch (p.k_tiles) {
-      case 1: e = launch<64, 64>(p, s); break;
-      case 2: e = launch<64, 128>(p, s); break;
-      case 3: e = launch<64, 192>(p, s); break;
-      case kMaxTiles64:
-        e = n_valid <= 200 ? launch<64, 200>(p, s) : launch<64, 256>(p, s);
-        break;
-      default: e = launch<64, 0>(p, s);
-    }
+    e = launch64<false>(p, n_valid, s);
   }
   return static_cast<int>(e);
 }
 
 // Registers, local bytes and shared bytes of the instance for head dim
-// dh and nk one-pass key columns (64, 128, 192, 200 or 256 at dh 64, 64
-// at dh 192; 0: the two-pass form), into out[3].
-extern "C" int sfc_packed_attention_attrs(int dh, int nk, int* out) {
+// dh, nk one-pass key columns (64, 128, 192, 200 or 256 at dh 64, 64 at
+// dh 192; 0: the two-pass form) and the dropout mask (masked: nk 64, 128,
+// 192 or 0 at dh 64, 64 or 0 at dh 192), into out[3].
+extern "C" int sfc_packed_attention_attrs(int dh, int nk, int masked, int* out) {
+  if (masked) {
+    if (dh == 64) {
+      switch (nk) {
+        case 0: return attrs<64, 0, true>(out);
+        case 64: return attrs<64, 64, true>(out);
+        case 128: return attrs<64, 128, true>(out);
+        case 192: return attrs<64, 192, true>(out);
+        default: break;
+      }
+    } else if (dh == 192) {
+      if (nk == 0) return attrs<192, 0, true>(out);
+      if (nk == 64) return attrs<192, 64, true>(out);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dh == 64) {
     switch (nk) {
-      case 0: return attrs<64, 0>(out);
-      case 64: return attrs<64, 64>(out);
-      case 128: return attrs<64, 128>(out);
-      case 192: return attrs<64, 192>(out);
-      case 200: return attrs<64, 200>(out);
-      case 256: return attrs<64, 256>(out);
+      case 0: return attrs<64, 0, false>(out);
+      case 64: return attrs<64, 64, false>(out);
+      case 128: return attrs<64, 128, false>(out);
+      case 192: return attrs<64, 192, false>(out);
+      case 200: return attrs<64, 200, false>(out);
+      case 256: return attrs<64, 256, false>(out);
       default: break;
     }
   } else if (dh == 192) {
-    if (nk == 0) return attrs<192, 0>(out);
-    if (nk == 64) return attrs<192, 64>(out);
+    if (nk == 0) return attrs<192, 0, false>(out);
+    if (nk == 64) return attrs<192, 64, false>(out);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks of the redesigned kernels (#1's and
-// #7's attention, #8-#11, #14, the GEMM under #1-#6, #15 and #16, and the
-// attention backward of #4 and #6): TMA tensor maps built on the host,
+// Hopper (sm_90a) building blocks of the redesigned kernels (#1's, #5's
+// and #7's attention, #8-#11, #13, #14, the GEMM under #1-#6, #15 and #16, and
+// the attention backward of #4 and #6): TMA tensor maps built on the host,
 // TMA loads, stores and reduce-adds, plain bulk copies, mbarriers, the
 // grid of a persistent kernel, warpgroup matrix multiplies (wgmma) on
 // 128-byte-swizzled shared tiles, and thread-block clusters (distributed
@@ -144,6 +144,24 @@ inline cudaError_t map_2d_bf16(CUtensorMap* m, const void* base, long long inner
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A row-major uint8 matrix [rows, cols] (cols a multiple of 16, base on
+// 16 bytes: a dropout mask [B, H, N, N] as B H N rows of N keys) as a
+// 2-d map whose box is 64 columns x 64 rows, 64-byte swizzled (see
+// sw64_u8).  Loads read past either edge as zero.
+inline cudaError_t map_mask_u8(CUtensorMap* m, const void* base, long long rows, long long cols) {
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // Blocks of a persistent kernel: min(items, SMs x the blocks of `kernel`
 // an SM holds at `threads` threads and `smem` dynamic bytes), from the
 // current device.  Sets the kernel's dynamic shared memory limit first.
@@ -206,6 +224,20 @@ template <typename S>
 __device__ __forceinline__ S& aligned_smem(unsigned char* dyn) {
   const uint32_t pad = (1024 - (smem_addr(dyn) & 1023)) & 1023;
   return *reinterpret_cast<S*>(dyn + pad);
+}
+
+// The curve-local window (ops/_build.py::local_tile_window, the same
+// arithmetic): the 64-row tiles [lo, hi) of the other side (n rows) that
+// rows [64 tile0, min(n, 64 tile0 + rows)) meet, each row i meeting the
+// rows j with |i / block - j / block| <= halo (block a multiple of 64).
+// Rows from tile0 must start before n.
+__device__ __forceinline__ void local_tile_window(int tile0, int rows, int n, int block,
+                                                  int halo, int& lo, int& hi) {
+  const int bt = block / 64, tiles = (n + 63) / 64;
+  const int end = 64 * tile0 + rows < n ? 64 * tile0 + rows : n;
+  const int first_block = tile0 / bt, last_block = (end - 1) / block;
+  lo = first_block > halo ? (first_block - halo) * bt : 0;
+  hi = (last_block + halo + 1) * bt < tiles ? (last_block + halo + 1) * bt : tiles;
 }
 
 // A ring of kStages slots: the slot and the parity of its current phase.
@@ -775,6 +807,14 @@ __device__ __forceinline__ float log2_approx(float x) {
 // 128-byte swizzled (the layout TMA writes).
 __device__ __forceinline__ int sw128_bf16(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// Byte offset of element (row, col) of a uint8 tile of 64-byte rows,
+// 64-byte swizzled (map_mask_u8's boxes): the 16-byte chunk c of row r
+// sits at chunk c ^ ((r / 2) % 4), so the eight rows a warp's accumulator
+// lanes hold fall in distinct banks.  The tile starts on 512 bytes.
+__device__ __forceinline__ int sw64_u8(int row, int col) {
+  return row * 64 + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
 }
 
 // Byte offset of element (row, col) of an fp32 tile of 32-element rows,

@@ -18,11 +18,12 @@ nothing runs without the kernels.
 
 The launchers below (``ln_rows``, ``ln_rows_bwd``, ``gemm``,
 ``gemm_layernorm``, ``act_bf16``, ``colsum``, ``attention_fwd`` (on
-``csrc/packed_attn_sm90.cu`` or, with a mask, ``csrc/attention_fwd.cu``),
+``csrc/packed_attn_sm90.cu``, with or without a dropout mask),
 ``attention_bwd`` (on
 ``csrc/attention_bwd_sm90.cu`` or ``csrc/attention_bwd.cu``),
-``packed_attention``, ``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``,
-``flash_dkv``, ``local_fwd``, ``local_bwd``, ``gather_project``,
+``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``,
+``flash_dkv``, ``local_fwd``, ``local_bwd`` (on the windowed instances of
+``flash_dq``'s and ``flash_dkv``'s kernels), ``gather_project``,
 ``wgmma_probe``) check
 device, dtype, shape, contiguity (or, for the flash kernels, strides) and
 alignment, allocate their outputs and workspaces with
@@ -52,11 +53,13 @@ __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "gemm_layernorm_max_clusters",
            "GEMM_LN_MAX_CLUSTER",
            "act_bf16", "colsum", "attention_fwd", "attention_bwd",
-           "ATTENTION_HEAD_DIMS", "packed_attention", "PACKED_MAX_N",
-           "PACKED_ONE_PASS_MAX_N", "PACKED_ATTENTION_FORMS", "attention_fwd_route",
+           "ATTENTION_HEAD_DIMS", "PACKED_MAX_N",
+           "PACKED_ONE_PASS_MAX_N", "PACKED_ONE_PASS_MAX_N_MASKED",
+           "PACKED_ATTENTION_FORMS", "PACKED_ATTENTION_MASKED_FORMS", "attention_fwd_route",
            "ln_rows_bwd_plan", "LN_BWD_ROWS", "LN_BWD_MAX_D", "LN_ROWS_BWD_FORMS", "flash_fwd",
            "flash_fused_bwd", "flash_dq", "flash_dkv", "FLASH_HEAD_DIMS",
-           "FLASH_STREAM_BLOCK_K", "local_fwd", "local_bwd", "gather_project",
+           "FLASH_STREAM_BLOCK_K", "local_fwd", "local_bwd", "local_tile_window",
+           "gather_project",
            "wgmma_probe", "WGMMA_FORMS", "flash_kernel_attrs"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -84,8 +87,6 @@ _SIGNATURES = {
     "sfc_gemm_bf16": (_P,) * 10 + (_I,) * 8 + (_P,),
     "sfc_act_bf16": (_P, _P, _L, _I, _P),
     "sfc_colsum_bf16": (_P, _P, _I, _I, _P),
-    "sfc_attention_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                               _P),
     "sfc_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _F, _P),
     # qkv, att, datt, lse, mask, dqkv; batch, n, heads, dh, n_valid; scale,
@@ -96,33 +97,31 @@ _SIGNATURES = {
     "sfc_gemm_ln_bf16": (_P,) * 12 + (_I,) * 3 + (_F, _P),
     # cluster, out
     "sfc_gemm_ln_max_clusters": (_I, _P),
-    # qkv, out, lse; batch, n, heads, dh, n_valid; scale, stream
-    "sfc_packed_attention_bf16": (_P, _P, _P) + (_I,) * 5 + (_F, _P),
+    # qkv, out, lse, mask; batch, n, heads, dh, n_valid; scale, keep, stream
+    "sfc_packed_attention_bf16": (_P,) * 4 + (_I,) * 5 + (_F, _F, _P),
     # q, k, v, out, lse; batch, heads, nq, nk, dh; q, k, v strides
     # (batch, row, head); scale, streaming, stream
     "sfc_flash_fwd_bf16": (_P,) * 5 + (_I,) * 5 + (_L,) * 9 + (_F, _I, _P),
     # q, k, v, g, lse, delta, then the outputs (dq | dk, dv | dq32, dk,
-    # dv); batch, heads, nq, nk, dh; q, k, v, g strides; scale, stream
-    "sfc_flash_dq_bf16": (_P,) * 7 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
-    "sfc_flash_dkv_bf16": (_P,) * 8 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
+    # dv); batch, heads, nq, nk, dh; q, k, v, g strides; scale, [the
+    # curve-local window's block and halo (0: every key),] stream
+    "sfc_flash_dq_bf16": (_P,) * 7 + (_I,) * 5 + (_L,) * 12 + (_F, _I, _I, _P),
+    "sfc_flash_dkv_bf16": (_P,) * 8 + (_I,) * 5 + (_L,) * 12 + (_F, _I, _I, _P),
     "sfc_flash_fused_bwd_bf16": (_P,) * 9 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
     # q, k, v, out, lse; batch, heads, n, dh, block, halo; q, k, v strides
     # (batch, row, head); scale, stream
     "sfc_local_fwd_bf16": (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_F, _P),
-    # q, k, v, g, lse, delta, dq, dk, dv; batch, heads, n, dh, block, halo;
-    # q, k, v, g strides; scale, stream
-    "sfc_local_bwd_bf16": (_P,) * 9 + (_I,) * 6 + (_L,) * 12 + (_F, _P),
     # x, lut, w, bias, out; batch, n, k, m, group, d; stream
     "sfc_gather_project_bf16": (_P,) * 5 + (_I,) * 6 + (_P,),
     # a, b, d; form; stream
     "sfc_wgmma_probe_bf16": (_P, _P, _P, _I, _P),
-    # streaming, out[3] | out[3]
+    # streaming, out[3] | out[3] | windowed, out[3]
     "sfc_flash_fwd_attrs": (_I, _P),
     "sfc_flash_fused_bwd_attrs": (_P,),
-    "sfc_flash_dq_attrs": (_P,),
-    "sfc_flash_dkv_attrs": (_P,),
-    # dh, one-pass key columns, out[3] | form, out[3]
-    "sfc_packed_attention_attrs": (_I, _I, _P),
+    "sfc_flash_dq_attrs": (_I, _P),
+    "sfc_flash_dkv_attrs": (_I, _P),
+    # dh, one-pass key columns, masked, out[3] | form, out[3]
+    "sfc_packed_attention_attrs": (_I, _I, _I, _P),
     "sfc_ln_rows_bwd_attrs": (_I, _P),
     # form, out[3] | out[3]
     "sfc_gemm_attrs": (_I, _P),
@@ -142,6 +141,12 @@ PACKED_MAX_N = 1024
 #: accumulators (4 tiles of 64 keys at Dh 64, 1 at Dh 192, beside O's Dh /
 #: 2 registers a thread); longer rows take two passes.
 PACKED_ONE_PASS_MAX_N = {64: 256, 192: 64}
+#: The same with a dropout mask (#5): its ring of 64 x 64 mask tiles and
+#: the quotient by keep beside the logits leave no room for the 200- and
+#: 256-key forms (no masked main-path shape has more than 192 keys), so
+#: the masked one-pass forms hold 64, 128 and 192 keys at Dh 64, 64 at Dh
+#: 192; longer masked rows take two passes.
+PACKED_ONE_PASS_MAX_N_MASKED = {64: 192, 192: 64}
 #: ``csrc/ln_rows_bwd.cu``: rows a block takes at once (its kRows) and the
 #: widest row it takes (kMaxD: a thread a 16-byte chunk, 384 threads).
 LN_BWD_ROWS, LN_BWD_MAX_D = 4, 3072
@@ -621,37 +626,38 @@ def _mask_u8(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def attention_fwd_route(dh: int, n_valid: int, masked: bool) -> str:
-    """Which kernel :func:`attention_fwd` runs for ``n_valid`` keys:
-    ``"wmma"`` (``csrc/attention_fwd.cu``) for the dropout form (a mask,
-    #5), else ``csrc/packed_attn_sm90.cu`` (#1, #7) in ``"one pass"`` up
-    to :data:`PACKED_ONE_PASS_MAX_N` keys for the head dim and in ``"two
-    passes"`` beyond.  All compute the same formula."""
-    if masked:
-        return "wmma"
-    return "one pass" if n_valid <= PACKED_ONE_PASS_MAX_N.get(dh, 0) else "two passes"
+    """Which form of ``csrc/packed_attn_sm90.cu`` :func:`attention_fwd`
+    runs for ``n_valid`` keys (#1 and #7 unmasked, #5 with the dropout
+    mask): ``"one pass"`` up to :data:`PACKED_ONE_PASS_MAX_N` keys for the
+    head dim (:data:`PACKED_ONE_PASS_MAX_N_MASKED` with a mask), ``"two
+    passes"`` beyond.  Both compute the same formula."""
+    limits = PACKED_ONE_PASS_MAX_N_MASKED if masked else PACKED_ONE_PASS_MAX_N
+    return "one pass" if n_valid <= limits.get(dh, 0) else "two passes"
 
 
 def attention_fwd(qkv: torch.Tensor, heads: int, n_valid: int,
                   scale: float, with_lse: bool = False,
                   mask: Optional[torch.Tensor] = None, keep: float = 1.0):
-    """Attention off packed ``qkv`` [B, N, 3*H*Dh] -> [B, N, H*Dh] (bf16,
-    Dh 64 or 192), keys at or past ``n_valid`` masked, on the kernel
-    :func:`attention_fwd_route` names.  ``with_lse`` also returns the fp32
-    log-sum-exp of every softmax row, [B, H, N].  ``mask`` (bool or uint8
-    0/1 [B, H, N, N]) drops probabilities: ``bf16((P / keep) * mask)``
-    takes the place of ``bf16(P)``.  Without a mask N is at most
-    :data:`PACKED_MAX_N`: a longer row raises."""
+    """#7's, #1's and #5's attention off packed ``qkv`` [B, N, 3*H*Dh] ->
+    [B, N, H*Dh] (bf16, Dh 64 or 192, N at most :data:`PACKED_MAX_N`: a
+    longer row raises) on ``csrc/packed_attn_sm90.cu``, in the form
+    :func:`attention_fwd_route` names: keys at or past ``n_valid`` masked,
+    P normalised, then rounded, before its product with V.  ``with_lse``
+    also returns the fp32 log-sum-exp of every softmax row, [B, H, N],
+    taken before any dropout.  ``mask`` (bool or uint8 0/1 [B, H, N, N])
+    drops probabilities: ``bf16((P / keep) * mask)`` takes the place of
+    ``bf16(P)``."""
+    if qkv.shape[1] > PACKED_MAX_N:
+        raise ValueError(f"attention_fwd: N={qkv.shape[1]} is over the kernel's "
+                         f"{PACKED_MAX_N} tokens")
     mask = _mask_u8(mask)
-    b, n, inner, dh = _check_packed(qkv, heads, n_valid, "attention_fwd", mask,
-                                    keep)
-    if attention_fwd_route(dh, n_valid, mask is not None) != "wmma":
-        return packed_attention(qkv, heads, n_valid, scale, with_lse=with_lse)
+    b, n, inner, dh = _check_packed(qkv, heads, n_valid, "attention_fwd", mask, keep)
     out = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
            if with_lse else None)
-    _check(library().sfc_attention_fwd_bf16(
-        qkv.data_ptr(), _ptr(mask), out.data_ptr(), _ptr(lse), b, n, heads, dh,
-        n_valid, scale, keep, _stream()), "attention_fwd")
+    _check(library().sfc_packed_attention_bf16(
+        qkv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(mask), b, n, heads, dh, n_valid,
+        scale, keep, _stream()), "attention_fwd")
     return (out, lse) if with_lse else out
 
 
@@ -693,26 +699,6 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
         _ptr(mask), delta.data_ptr(), dqkv.data_ptr(), b, n, heads, dh,
         n_valid, scale, keep, _stream()), "attention_bwd")
     return dqkv
-
-
-def packed_attention(qkv: torch.Tensor, heads: int, n_valid: int,
-                     scale: float, with_lse: bool = False):
-    """#7 and #1's attention off packed ``qkv`` [B, N, 3*H*Dh] -> [B, N,
-    H*Dh] (bf16, Dh 64 or 192, N <= :data:`PACKED_MAX_N`), keys at or past
-    ``n_valid`` masked; P normalised, then rounded, before its product with
-    V (``csrc/packed_attn_sm90.cu``).  ``with_lse`` also returns the fp32
-    log-sum-exp of every row, [B, H, N]."""
-    if qkv.shape[1] > PACKED_MAX_N:
-        raise ValueError(f"packed_attention: N={qkv.shape[1]} is over the kernel's "
-                         f"{PACKED_MAX_N} tokens")
-    b, n, inner, dh = _check_packed(qkv, heads, n_valid, "packed_attention", None, 1.0)
-    out = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
-    lse = (torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
-           if with_lse else None)
-    _check(library().sfc_packed_attention_bf16(
-        qkv.data_ptr(), out.data_ptr(), _ptr(lse), b, n, heads, dh, n_valid, scale,
-        _stream()), "packed_attention")
-    return (out, lse) if with_lse else out
 
 
 def _require_bnhd(t: torch.Tensor, name: str, shape) -> None:
@@ -777,25 +763,38 @@ def flash_dq(q, k, v, g, lse, delta, scale: float) -> torch.Tensor:
     """#10: dq [B, Nq, H, Dh] bf16 from the output's cotangent ``g``
     [B, Nq, H, Dh], the forward's fp32 ``lse`` and ``delta =
     rowsum(g * O)`` (both [B, H, Nq])."""
-    b, nq, nk, h, dh = _check_flash(q, k, v, g, lse, delta)
+    return _dq(q, k, v, g, lse, delta, scale, _check_flash(q, k, v, g, lse, delta))
+
+
+def _dq(q, k, v, g, lse, delta, scale: float, dims, block: int = 0, halo: int = 0):
+    """#10's kernel over every key (``block`` 0) or, for #13, its windowed
+    instance over the curve-local window of ``block`` and ``halo``."""
+    b, nq, nk, h, dh = dims
     dq = torch.empty((b, nq, h, dh), dtype=q.dtype, device=q.device)
     _check(library().sfc_flash_dq_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), b, h, nq, nk, dh, *_strides(q, k, v, g),
-        scale, _stream()), "flash_dq")
+        scale, block, halo, _stream()), "local_bwd dq" if block else "flash_dq")
     return dq
 
 
 def flash_dkv(q, k, v, g, lse, delta, scale: float):
     """#11: ``(dk, dv)`` [B, Nk, H, Dh] bf16, each one fp32 sum over the
     queries rounded once; arguments as :func:`flash_dq`."""
-    b, nq, nk, h, dh = _check_flash(q, k, v, g, lse, delta)
+    return _dkv(q, k, v, g, lse, delta, scale, _check_flash(q, k, v, g, lse, delta))
+
+
+def _dkv(q, k, v, g, lse, delta, scale: float, dims, block: int = 0, halo: int = 0):
+    """#11's kernel over every query (``block`` 0) or, for #13, its
+    windowed instance over the query-side window of ``block`` and ``halo``."""
+    b, nq, nk, h, dh = dims
     dk = torch.empty((b, nk, h, dh), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _check(library().sfc_flash_dkv_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, dh,
-        *_strides(q, k, v, g), scale, _stream()), "flash_dkv")
+        *_strides(q, k, v, g), scale, block, halo, _stream()),
+        "local_bwd dkv" if block else "flash_dkv")
     return dk, dv
 
 
@@ -848,20 +847,33 @@ def local_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     return (out, lse) if with_lse else out
 
 
+def local_tile_window(tile0: int, rows: int, n: int, block: int, halo: int) -> tuple:
+    """The 64-row tiles ``[lo, hi)`` of the other side (``n`` rows) that
+    rows ``[64 tile0, min(n, 64 tile0 + rows))`` meet under the curve-local
+    rule ``|i // block - j // block| <= halo`` (``block`` a multiple of 64,
+    so a tile lies in one curve block and the window is whole tiles, the
+    last cut at ``n``).  The rows must start before ``n``.  The same
+    arithmetic as ``csrc/sm90.cuh::local_tile_window``, by which #13's
+    windowed dq kernel walks the key tiles of a 128-query block (two
+    warpgroups of 64: ``rows`` 128 gives the union their ring loads, 64 each
+    one's own) and its dk/dv kernel the query tiles of a 128-key block."""
+    bt, tiles = block // 64, -(-n // 64)
+    end = min(n, 64 * tile0 + rows)
+    first, last = tile0 // bt, (end - 1) // block
+    return max(0, (first - halo) * bt), min(tiles, (last + halo + 1) * bt)
+
+
 def local_bwd(q, k, v, g, lse, delta, scale: float, block: int, halo: int):
     """#13: ``(dq, dk, dv)`` [B, N, H, 64] bf16 from the output's cotangent
     ``g``, the forward's fp32 ``lse`` and ``delta = rowsum(g * O)`` (both
-    [B, H, N]); dk and dv are fp32 sums over the query-side window, rounded
-    once."""
+    [B, H, N]), in two launches: #10's kernel over each query block's key
+    window (:func:`local_tile_window`), then #11's over each key block's
+    query-side window; dk and dv are fp32 sums over the query-side window,
+    rounded once."""
     b, n, h, dh = _check_local(q, k, v, block, halo, g, lse, delta)
-    dq = torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device)
-    dk = torch.empty_like(dq)
-    dv = torch.empty_like(dq)
-    _check(library().sfc_local_bwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, dh,
-        block, halo, *_strides(q, k, v, g), scale, _stream()), "local_bwd")
-    return dq, dk, dv
+    dims = (b, n, n, h, dh)
+    dq = _dq(q, k, v, g, lse, delta, scale, dims, block, halo)
+    return (dq, *_dkv(q, k, v, g, lse, delta, scale, dims, block, halo))
 
 
 def gather_project(x: torch.Tensor, lut: torch.Tensor, w: torch.Tensor,
@@ -932,6 +944,15 @@ PACKED_ATTENTION_FORMS = {
     "packed_attention dh192 one pass": (192, 64),
     "packed_attention dh192 two passes": (192, 0),
 }
+#: Its masked instances (#5, the dropout mask and keep), the same way.
+PACKED_ATTENTION_MASKED_FORMS = {
+    "packed_attention masked dh64 one pass": (64, 64),
+    "packed_attention masked dh64 one pass 128 keys": (64, 128),
+    "packed_attention masked dh64 one pass 192 keys": (64, 192),
+    "packed_attention masked dh64 two passes": (64, 0),
+    "packed_attention masked dh192 one pass": (192, 64),
+    "packed_attention masked dh192 two passes": (192, 0),
+}
 #: ``csrc/ln_rows_bwd.cu``'s instances by ``sfc_ln_rows_bwd_attrs``'s form
 #: number: forms (a), (b) and (c) of its header.
 LN_ROWS_BWD_FORMS = ("ln_rows_bwd dxn fp32", "ln_rows_bwd dxn bf16", "ln_rows_bwd x + x_b")
@@ -939,8 +960,10 @@ LN_ROWS_BWD_FORMS = ("ln_rows_bwd dxn fp32", "ln_rows_bwd dxn bf16", "ln_rows_bw
 
 def flash_kernel_attrs() -> dict:
     """What the compiler gave the ``wgmma`` kernels, #1's and #7's eight
-    instances (:data:`PACKED_ATTENTION_FORMS`), #16's LayerNorm backward
-    (:data:`LN_ROWS_BWD_FORMS`), #8's two forms, #9-#11, #14's
+    instances (:data:`PACKED_ATTENTION_FORMS`) and #5's six
+    (:data:`PACKED_ATTENTION_MASKED_FORMS`), #16's LayerNorm backward
+    (:data:`LN_ROWS_BWD_FORMS`), #8's two forms, #9-#11, #13's windowed
+    instances of #10's and #11's kernels, #14's
     two instances (x gathered from shared or global memory), the GEMM's
     three forms, its split-K sum and its LayerNorm form (#15), and the
     attention backward's instances (#4, #6; ``cudaFuncGetAttributes``):
@@ -949,15 +972,19 @@ def flash_kernel_attrs() -> dict:
     lib = library()
     out = {}
     for name, call in (
-            *((name, lambda a, dh=dh, nk=nk: lib.sfc_packed_attention_attrs(dh, nk, a))
+            *((name, lambda a, dh=dh, nk=nk: lib.sfc_packed_attention_attrs(dh, nk, 0, a))
               for name, (dh, nk) in PACKED_ATTENTION_FORMS.items()),
+            *((name, lambda a, dh=dh, nk=nk: lib.sfc_packed_attention_attrs(dh, nk, 1, a))
+              for name, (dh, nk) in PACKED_ATTENTION_MASKED_FORMS.items()),
             *((name, lambda a, i=i: lib.sfc_ln_rows_bwd_attrs(i, a))
               for i, name in enumerate(LN_ROWS_BWD_FORMS)),
             ("flash_fwd streaming", lambda a: lib.sfc_flash_fwd_attrs(1, a)),
             ("flash_fwd single step", lambda a: lib.sfc_flash_fwd_attrs(0, a)),
             ("flash_fused_bwd", lib.sfc_flash_fused_bwd_attrs),
-            ("flash_dq", lib.sfc_flash_dq_attrs),
-            ("flash_dkv", lib.sfc_flash_dkv_attrs),
+            ("flash_dq", lambda a: lib.sfc_flash_dq_attrs(0, a)),
+            ("flash_dkv", lambda a: lib.sfc_flash_dkv_attrs(0, a)),
+            ("local_bwd dq", lambda a: lib.sfc_flash_dq_attrs(1, a)),
+            ("local_bwd dkv", lambda a: lib.sfc_flash_dkv_attrs(1, a)),
             ("gather_project shared x", lambda a: lib.sfc_gather_project_attrs(1, a)),
             ("gather_project global x", lambda a: lib.sfc_gather_project_attrs(0, a)),
             *((f"gemm {form}", lambda a, i=i: lib.sfc_gemm_attrs(i, a))

@@ -59,7 +59,7 @@ the kernels (bfloat16, head dim 64) or raises.  Launches are counted on
 projection [B, N, 3*H*Dh] to [B, N, H*Dh] with an fp32 softmax and no
 layout change between the QKV GEMM and the attention.  The TPU kernel
 ``_packed_kernel`` holds one image's whole packed block in VMEM; here it
-is ``csrc/packed_attn_sm90.cu`` (:func:`_build.packed_attention`): a
+is ``csrc/packed_attn_sm90.cu`` (:func:`_build.attention_fwd`): a
 persistent Hopper kernel over (image, head, 64-query tile) items, a
 producer warp's TMA ring of Q, K and V tiles read straight from the
 packed projection, ``wgmma`` products, the softmax in registers (one pass
@@ -471,7 +471,7 @@ def packed_flash_attention(qkv: torch.Tensor, heads: int,
         raise ValueError(f"packed_flash_attention: no kernel for device {qkv.device}")
     if qkv.dtype != torch.bfloat16:
         raise fp32_compute_not_ported("packed_flash_attention", qkv.dtype)
-    out = _build.packed_attention(qkv.contiguous(), heads, n, s)
+    out = _build.attention_fwd(qkv.contiguous(), heads, n, s)
     packed_flash_attention.launches += 1
     return out
 

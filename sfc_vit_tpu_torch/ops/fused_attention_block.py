@@ -84,21 +84,26 @@ def attention_block_ref(x, ln_scale, ln_bias, w_qkv, w_out, heads: int,
 
 
 def attention_fwd_ref(qkv: torch.Tensor, heads: int, n_valid: int,
-                      scale: float):
-    """Plain version of #1's attention (``csrc/packed_attn_sm90.cu``,
-    ``_build.attention_fwd`` without a mask) with its log-sum-exp:
-    fp32 logits times ``scale``, keys at or past ``n_valid`` masked, P
-    normalised and rounded to the input dtype before an fp32 P.V.
-    Returns ``(att [B, N, H*Dh], lse fp32 [B, H, N])``."""
+                      scale: float, mask: Optional[torch.Tensor] = None,
+                      keep: float = 1.0):
+    """Plain version of ``csrc/packed_attn_sm90.cu`` (``_build.attention_fwd``:
+    #1's attention, and #5's with ``mask``) with its log-sum-exp: fp32
+    logits times ``scale``, keys at or past ``n_valid`` masked, P
+    normalised in fp32, with the 0/1 dropout ``mask`` [B, H, N, N] taken
+    as ``(P / keep) * mask``, then rounded to the input dtype before an
+    fp32 P.V.  The lse is taken before the mask.  Returns ``(att [B, N,
+    H*Dh], lse fp32 [B, H, N])``."""
     b, n, w = qkv.shape
     dh = w // (3 * heads)
     q, k, v = qkv.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4).float()
     logits = (q @ k.transpose(-1, -2)) * scale
     logits[..., n_valid:] = -1e30
     lse = torch.logsumexp(logits, dim=-1)
-    p = torch.softmax(logits, dim=-1).to(qkv.dtype).float()
-    att = (p @ v).transpose(1, 2).reshape(b, n, heads * dh).to(qkv.dtype)
-    return att, lse
+    p = torch.softmax(logits, dim=-1)
+    if mask is not None:
+        p = (p / keep) * mask.float()
+    att = (p.to(qkv.dtype).float() @ v).transpose(1, 2).reshape(b, n, heads * dh)
+    return att.to(qkv.dtype), lse
 
 
 def attention_bwd_ref(qkv, att, datt, lse, heads: int, n_valid: int,

@@ -10,11 +10,14 @@ group of images, both projections and every head's softmax in VMEM; here
 each is a chain of hand-written kernels through L2:
 
 Forward (#5): ``gemm`` (``qkv = bf16(x W_in + b_in)``, fp32 sum and bias,
-one rounding) -> ``attention_fwd`` with the mask (per image, head and
-query tile: fp32 logits times Dh^-0.5, pad keys -1e30,
-``pd = bf16((P / keep) * mask)``, ``att = bf16(pd v)``, and the fp32
-``lse = m + log l`` the backward recomputes from) -> ``gemm``
-(``y = bf16(att W_out + b_out)``).  Training saves qkv, att and lse.
+one rounding) -> ``attention_fwd`` with the mask (``csrc/packed_attn_sm90.cu``'s
+masked forms, a persistent grid over (image, head, 64-query tile) items:
+fp32 logits times Dh^-0.5, pad keys -1e30, ``pd = bf16((P / keep) *
+mask)`` with the mask's 64 x 64 tiles brought by TMA beside K and V,
+``att = bf16(pd v)``, and the fp32 ``lse = m + log l`` the backward
+recomputes from; its plain twin is ``attention_fwd_ref`` with the mask)
+-> ``gemm`` (``y = bf16(att W_out + b_out)``).  Training saves qkv, att
+and lse.
 
 Backward (#6): ``colsum`` (db_out of gp, the cotangent with rows at or
 past ``n_actual`` zeroed) -> ``gemm`` TN (dW_out = att^T gp, one fp32 sum

@@ -16,15 +16,19 @@ sm_90a:
     dtype, then an fp32 P.V rounded once; with autograd also the fp32
     log-sum-exp of the window, [B, H, N] (JAX keeps a lane-broadcast
     [B*H, Npad, 128] copy, a TPU layout).
-  * #13 ``_bwd_kernel`` -> ``csrc/local_bwd.cu``, a dQ loop and a dK/dV
-    loop limited to the window, in one launch (:func:`local_bwd`):
-    p recomputed from the saved lse, ``dp = g v^T``, ``ds = p (dp -
-    delta) scale`` with ``delta = rowsum(g * O)`` in fp32
+  * #13 ``_bwd_kernel`` -> the windowed instances of #10's and #11's
+    Hopper kernels (``csrc/flash_bwd_dq_sm90.cu``,
+    ``csrc/flash_bwd_dkv_sm90.cu``: ``wgmma`` on tiles a producer warp's
+    TMA ring brings), two launches (:func:`local_bwd`): p recomputed from
+    the saved lse, ``dp = g v^T``, ``ds = p (dp - delta) scale`` with
+    ``delta = rowsum(g * O)`` in fp32
     (:func:`~sfc_vit_tpu_torch.ops.flash_attention.flash_delta`, as JAX
     computes it outside its kernel); ``dq = ds k`` over the key window,
-    ``dv = p^T g`` and ``dk = ds^T q`` over the query-side window (the
-    query blocks whose window holds the key block), each output written
-    once, no atomics.  p and ds stay fp32, as in JAX.
+    then ``dv = p^T g`` and ``dk = ds^T q`` over the query-side window (the
+    query blocks whose window holds the key block), each block walking
+    only the 64-row tiles of its window (``_build.local_tile_window``),
+    each output written once, no atomics.  p and ds stay fp32, as in JAX
+    (a two-term bf16 split in the tensor-core products).
 
 When every block is within ``halo`` of every other (``round_up(N, block)
 // block <= halo + 1``) the mask is dense and, as in JAX, the function is
@@ -38,7 +42,8 @@ repeats JAX's arithmetic in O(N x window) memory, so it also runs at
 runs the plain versions; a CUDA tensor launches the kernels (bfloat16,
 head dim 64, ``block`` a multiple of 64, any ``halo >= 1``) or raises.
 ``local_block_attention.launches`` counts #12's launches,
-``local_block_attention.bwd_launches`` #13's.
+``local_block_attention.bwd_launches`` #13's (one a backward, its two
+kernels together).
 """
 
 from __future__ import annotations

@@ -223,27 +223,37 @@ def test_attention_bwd_route(dh, n, dropout, route):
     (64, 1, False, "one pass"), (64, 64, False, "one pass"), (64, 65, False, "one pass"),
     (64, 196, False, "one pass"), (64, 256, False, "one pass"), (64, 257, False, "two passes"),
     (64, 1024, False, "two passes"), (192, 1, False, "one pass"), (192, 64, False, "one pass"),
-    (192, 65, False, "two passes"), (192, 1000, False, "two passes"), (64, 64, True, "wmma"),
-    (64, 196, True, "wmma"), (192, 64, True, "wmma"),
+    (192, 65, False, "two passes"), (192, 1000, False, "two passes"), (64, 64, True, "one pass"),
+    (64, 196, True, "two passes"), (192, 64, True, "one pass"), (64, 192, True, "one pass"),
+    (64, 193, True, "two passes"), (192, 65, True, "two passes"), (64, 1024, True, "two passes"),
 ])
 def test_attention_fwd_route(dh, n_valid, masked, route):
-    """The unmasked attention forward (#1, #7) runs on
-    csrc/packed_attn_sm90.cu: one pass up to PACKED_ONE_PASS_MAX_N keys (256
-    at Dh 64, ViT-B's 196 included; 64 at Dh 192), two passes beyond; the
-    dropout form (#5) stays on csrc/attention_fwd.cu."""
+    """The attention forward runs on csrc/packed_attn_sm90.cu, unmasked
+    (#1, #7) and with the dropout mask (#5): one pass up to
+    PACKED_ONE_PASS_MAX_N keys (256 at Dh 64, ViT-B's 196 included; 64 at
+    Dh 192) or, masked, PACKED_ONE_PASS_MAX_N_MASKED (192 at Dh 64, which
+    covers 'hier''s fusion layers; 64 at Dh 192, the flagship), two passes
+    beyond."""
     assert _build.PACKED_ONE_PASS_MAX_N == {64: 256, 192: 64}
+    assert _build.PACKED_ONE_PASS_MAX_N_MASKED == {64: 192, 192: 64}
     assert _build.attention_fwd_route(dh, n_valid, masked) == route
 
 
-def test_unmasked_attention_has_no_wmma_instance():
-    """Only the masked form reaches csrc/attention_fwd.cu: every unmasked
-    (head dim, length) takes a csrc/packed_attn_sm90.cu instance, and each
-    head dim's one-pass limit is its widest one-pass instance."""
-    for dh in _build.ATTENTION_HEAD_DIMS:
-        for n in range(1, _build.PACKED_MAX_N + 1, 7):
-            assert _build.attention_fwd_route(dh, n, False) != "wmma"
-    for dh, limit in _build.PACKED_ONE_PASS_MAX_N.items():
-        assert max(nk for d, nk in _build.PACKED_ATTENTION_FORMS.values() if d == dh) == limit
+def test_attention_fwd_has_no_wmma_instance():
+    """Every (head dim, length, masked or not) up to family A's 1,024
+    takes a csrc/packed_attn_sm90.cu form, one pass or two, and each head
+    dim's one-pass limit, unmasked and masked, is its widest one-pass
+    instance of that kind."""
+    for masked in (False, True):
+        for dh in _build.ATTENTION_HEAD_DIMS:
+            for n in range(1, _build.PACKED_MAX_N + 1, 7):
+                assert _build.attention_fwd_route(dh, n, masked) in ("one pass", "two passes")
+    for limits, forms in ((_build.PACKED_ONE_PASS_MAX_N, _build.PACKED_ATTENTION_FORMS),
+                          (_build.PACKED_ONE_PASS_MAX_N_MASKED,
+                           _build.PACKED_ATTENTION_MASKED_FORMS)):
+        for dh, limit in limits.items():
+            assert max(nk for d, nk in forms.values() if d == dh) == limit
+            assert (dh, 0) in forms.values()  # the two-pass form past it
 
 
 @pytest.mark.parametrize("rows, d, per_sm, threads, blocks", [
@@ -493,6 +503,48 @@ def test_attention_fwd_matches_plain(cuda, b, n, heads, dh, n_valid):
     torch.testing.assert_close(got.float(), ref_att.float(), **ONE_ROUND_TOL)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
     assert torch.equal(got, _build.attention_fwd(qkv, heads, n_valid, s))
+
+
+#: Masked (#5) attention-forward shapes (b, n, heads, dh, n_valid, keep):
+#: every masked instance (Dh 64: one pass over 64, 128 and 192 key
+#: columns, two passes at 193, 1,000 and 1,024; Dh 192: one pass at 64, two
+#: at 65, 128 and 1,000), the mask by TMA (n a multiple of 16) and by plain
+#: loads (65, 193, 1,000), ragged n_valid, keep 0.9 and 1.0, and the
+#: flagship's and 'hier''s shapes with enough items that every block of
+#: the persistent grid takes several.
+_MASKED_FWD_SHAPES = [
+    (3, 64, 2, 64, 64, 0.9), (3, 65, 2, 64, 65, 0.9), (3, 192, 2, 64, 192, 0.9),
+    (2, 193, 2, 64, 193, 0.9), (1, 1000, 2, 64, 990, 0.9), (1, 1024, 2, 64, 1024, 0.9),
+    (3, 64, 2, 192, 64, 0.9), (3, 65, 2, 192, 65, 0.9), (2, 128, 2, 192, 128, 0.9),
+    (1, 1000, 2, 192, 1000, 0.9), (3, 64, 2, 64, 50, 0.9), (3, 192, 2, 64, 150, 1.0),
+    (3, 64, 2, 192, 41, 1.0), (2, 193, 2, 64, 130, 1.0), (300, 64, 4, 192, 64, 0.9),
+    (300, 64, 4, 64, 64, 0.9), (100, 192, 4, 64, 192, 0.9),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, heads, dh, n_valid, keep", _MASKED_FWD_SHAPES)
+def test_masked_attention_fwd_matches_plain(cuda, b, n, heads, dh, n_valid, keep):
+    """#5's attention (csrc/packed_attn_sm90.cu with the dropout mask)
+    against attention_fwd_ref with the same mask within rtol/atol 4e-2, its
+    lse (taken before the mask) within 1e-5, and the same bits on a second
+    call."""
+    rng = np.random.default_rng(56)
+    s = dh ** -0.5
+    qkv = _randn(rng, b, n, 3 * heads * dh)
+    mask = torch.from_numpy(rng.random((b, heads, n, n)) < 0.9).to(cuda)
+    route = _build.attention_fwd_route(dh, n_valid, True)
+    assert route == ("one pass" if n_valid <= _build.PACKED_ONE_PASS_MAX_N_MASKED[dh]
+                     else "two passes")
+    got, lse = _build.attention_fwd(qkv, heads, n_valid, s, with_lse=True, mask=mask, keep=keep)
+    want, want_lse = attention_fwd_ref(qkv, heads, n_valid, s, mask=mask, keep=keep)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    again, again_lse = _build.attention_fwd(qkv, heads, n_valid, s, with_lse=True, mask=mask,
+                                            keep=keep)
+    assert torch.equal(got, again) and torch.equal(lse, again_lse)
+    assert torch.equal(got, _build.attention_fwd(qkv, heads, n_valid, s, mask=mask,
+                                                 keep=keep))
 
 
 @pytest.mark.gpu
@@ -1021,14 +1073,14 @@ def test_packed_attention_launcher_rejects_what_the_kernel_does_not_take():
         return torch.zeros(1, n, 3 * heads * dh, dtype=torch.bfloat16)
 
     with pytest.raises(ValueError, match="CUDA tensor"):
-        _build.packed_attention(qkv(64, 192), 2, 64, 1.0)
+        _build.attention_fwd(qkv(64, 192), 2, 64, 1.0)
     with pytest.raises(ValueError, match="takes 64 or 192"):
-        _build.packed_attention(qkv(64, 128), 2, 64, 1.0)
+        _build.attention_fwd(qkv(64, 128), 2, 64, 1.0)
     with pytest.raises(ValueError, match="over the kernel's 1024 tokens"):
-        _build.packed_attention(qkv(_build.PACKED_MAX_N + 1, 64), 2, 64, 1.0)
+        _build.attention_fwd(qkv(_build.PACKED_MAX_N + 1, 64), 2, 64, 1.0)
     for n_valid in (0, 65):
         with pytest.raises(ValueError, match=r"n_valid=\d+ not in \[1, 64\]"):
-            _build.packed_attention(qkv(64, 64), 2, n_valid, 1.0)
+            _build.attention_fwd(qkv(64, 64), 2, n_valid, 1.0)
 
 
 def test_packed_flash_attention_on_the_cpu_runs_the_plain_version():
@@ -1067,7 +1119,7 @@ def test_packed_attention_masks_keys_past_n_valid(cuda, n, n_valid):
     """Keys at or past n_valid add nothing to the row sum: #7 equals the
     plain version on the first n_valid keys, in one pass and in two."""
     qkv = _randn(np.random.default_rng(25), 3, n, 3 * 2 * 192)
-    got = _build.packed_attention(qkv, 2, n_valid, 192 ** -0.5)
+    got = _build.attention_fwd(qkv, 2, n_valid, 192 ** -0.5)
     q, k, v = qkv.view(3, n, 3, 2, 192).permute(2, 0, 3, 1, 4)
     logits = (q.float() @ k[:, :, :n_valid].float().transpose(-1, -2)) * 192 ** -0.5
     w = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -1081,8 +1133,8 @@ def test_packed_attention_repeats_bit_for_bit(cuda):
     the one item that owns it, with no atomics."""
     for n, dh in ((64, 192), (700, 64)):
         qkv = _randn(np.random.default_rng(26), 300, n, 3 * 4 * dh)
-        first = _build.packed_attention(qkv, 4, n, dh ** -0.5)
-        assert torch.equal(_build.packed_attention(qkv, 4, n, dh ** -0.5), first)
+        first = _build.attention_fwd(qkv, 4, n, dh ** -0.5)
+        assert torch.equal(_build.attention_fwd(qkv, 4, n, dh ** -0.5), first)
 
 
 @pytest.mark.gpu
@@ -1272,16 +1324,19 @@ def test_flash_dq_dkv_repeat_bit_for_bit(cuda):
 @pytest.mark.gpu
 def test_flash_kernel_attrs_list_the_wgmma_kernels_without_spills(cuda):
     """``flash_kernel_attrs`` reports #1's and #7's eight instances (the
-    one-pass forms to 128, 192, 200 and 256 keys at Dh 64 among them), #16's
-    three LayerNorm-backward instances, #8's two forms, #9-#11 and #14's
-    two instances, none of them with local memory (spills)."""
+    one-pass forms to 128, 192, 200 and 256 keys at Dh 64 among them), #5's
+    six masked ones, #16's three LayerNorm-backward instances, #8's two
+    forms, #9-#11, #13's windowed instances of #10's and #11's kernels and
+    #14's two instances, none of them with local memory (spills)."""
     attrs = _build.flash_kernel_attrs()
     assert {"flash_fwd streaming", "flash_fwd single step", "flash_fused_bwd",
-            "flash_dq", "flash_dkv", "packed_attention dh64 one pass",
+            "flash_dq", "flash_dkv", "local_bwd dq", "local_bwd dkv",
+            "packed_attention dh64 one pass",
             "packed_attention dh64 two passes", "packed_attention dh192 one pass",
             "packed_attention dh192 two passes", "gather_project shared x",
             "gather_project global x"} <= set(attrs)
-    assert set(_build.PACKED_ATTENTION_FORMS) | set(_build.LN_ROWS_BWD_FORMS) <= set(attrs)
+    assert (set(_build.PACKED_ATTENTION_FORMS) | set(_build.PACKED_ATTENTION_MASKED_FORMS)
+            | set(_build.LN_ROWS_BWD_FORMS) <= set(attrs))
     for name, a in attrs.items():
         assert a["local_bytes"] == 0, name
         assert 0 < a["registers"] <= 255 and a["smem_bytes"] > 0, name
@@ -1389,18 +1444,22 @@ def test_local_and_gather_launchers_reject_what_the_kernels_do_not_take():
 
 #: (b, n, heads, block, halo, packed): ragged lengths at the hybrid
 #: preset's block 128 / halo 1 (one not a multiple of 64, one of 5,000
-#: tokens), a window of five 64-blocks, and q, k, v as views of one packed
-#: projection.
+#: tokens), a window of five 64-blocks, q, k, v as views of one packed
+#: projection, a 192 block straddling 128-row tiles (a kernel block's two
+#: warpgroups meet different windows) and halo 2 at block 128.
 _LOCAL_SHAPES = [(2, 300, 3, 128, 1, False), (1, 520, 2, 128, 1, True),
-                 (1, 5000, 2, 128, 1, True), (2, 700, 2, 64, 2, False)]
+                 (1, 5000, 2, 128, 1, True), (2, 700, 2, 64, 2, False),
+                 (1, 1000, 2, 192, 1, True), (1, 900, 2, 128, 2, False)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b, n, heads, block, halo, packed", _LOCAL_SHAPES)
 def test_local_kernels_match_plain(cuda, b, n, heads, block, halo, packed):
-    """#12 (out and lse) and #13 (dq, dk, dv) against their plain versions
-    fed the same inputs: one rounding of the same fp32 sums (and #13's
-    two-term split of p and ds) per element."""
+    """#12 (out and lse) and #13 (dq, dk, dv: the windowed instances of #10's
+    and #11's kernels) against their plain versions fed the same inputs:
+    one rounding of the same fp32 sums (and #13's two-term split of p and
+    ds) per element; #13 gives the same bits on a second call (each output
+    row summed by its one owner)."""
     from sfc_vit_tpu_torch.ops import local_attention as la
     from sfc_vit_tpu_torch.ops.flash_attention import flash_delta
 
@@ -1416,6 +1475,9 @@ def test_local_kernels_match_plain(cuda, b, n, heads, block, halo, packed):
     for name, a, w in zip(("dq", "dk", "dv"), got,
                           la.local_bwd_ref(q, k, v, g, lse, delta, block, halo, s)):
         _within(a, w, 1e-2, name)
+    for name, a, w in zip(("dq", "dk", "dv"), got,
+                          _build.local_bwd(q, k, v, g, lse, delta, s, block, halo)):
+        assert torch.equal(a, w), name
 
 
 @pytest.mark.gpu

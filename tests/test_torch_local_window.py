@@ -1,0 +1,47 @@
+"""The curve-local backward's window plan against JAX's rule, on the CPU.
+
+#13 runs on the windowed instances of the flash backward kernels #10 and
+#11 (``csrc/flash_bwd_dq_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``): a
+block of 128 queries walks only the 64-key tiles of its window, a block of
+128 keys only the 64-query tiles whose window holds it, both by
+``csrc/sm90.cuh::local_tile_window``, whose arithmetic
+``_build.local_tile_window`` repeats.  JAX's ``_bwd_kernel``
+(``sfc_vit_tpu/ops/local_attention.py``) keeps the pair (i, j) where
+``|i // block - j // block| <= halo`` and ``j < n`` (its ``in_range`` and
+``col < n_actual``; the dense twin ``local_block_attention_xla`` draws
+the same mask).  The window is symmetric, so one plan serves both sides.
+"""
+
+import numpy as np
+import pytest
+
+from sfc_vit_tpu_torch.ops import _build
+
+
+def _tiles_meeting(rows: np.ndarray, n: int, block: int, halo: int) -> set:
+    """The 64-row tiles of the other side holding a j < n that some row i
+    of ``rows`` meets under JAX's rule."""
+    j = np.arange(n)
+    hit = np.zeros(n, dtype=bool)
+    for qb in np.unique(rows // block):
+        hit |= np.abs(j // block - qb) <= halo
+    return set(np.unique(j[hit] // 64).tolist())
+
+
+@pytest.mark.parametrize("n", [300, 700, 5000, 12288, 16384])
+@pytest.mark.parametrize("halo", [1, 2])
+@pytest.mark.parametrize("block", [64, 128, 192])
+def test_local_tile_window_walks_exactly_the_tiles_jax_keeps(block, halo, n):
+    """For each 64-row tile the plan walks exactly the tiles that hold a
+    pair JAX keeps, and no other; for each 128-row block of a kernel (two
+    warpgroups, whose curve blocks differ where a 192 block straddles
+    it) it walks the union of its tiles' windows, which is one range."""
+    tiles = -(-n // 64)
+    for t in range(tiles):
+        lo, hi = _build.local_tile_window(t, 64, n, block, halo)
+        rows = np.arange(64 * t, min(n, 64 * t + 64))
+        assert set(range(lo, hi)) == _tiles_meeting(rows, n, block, halo), (t, lo, hi)
+    for t in range(0, tiles, 2):
+        lo, hi = _build.local_tile_window(t, 128, n, block, halo)
+        rows = np.arange(64 * t, min(n, 64 * t + 128))
+        assert set(range(lo, hi)) == _tiles_meeting(rows, n, block, halo), (t, lo, hi)
