@@ -23,7 +23,9 @@ Phases, each of which raises (non-zero exit) on failure:
 3. kernels: each fused block against its plain PyTorch version at the
    ViT-B/16 serving shapes (x [64, 196, 768] bf16, 12 heads of 64,
    F = 3072), with its error, tolerance and time beside the plain one;
-   then #1's attention alone (csrc/packed_attn_sm90.cu's one-pass form)
+   #2's three launches (ln_rows, fc1 + GELU, fc2 + the residual) each
+   timed alone beside its bound ("#2's launches" lines; again at batch
+   256 in 3b); then #1's attention alone (csrc/packed_attn_sm90.cu's one-pass form)
    at [64, 196, 12 x 64] against ``attention_fwd_ref``, timed beside its
    byte bound and SDPA's forward;
 4. slice: CurveViT ViT-B/16 (Hilbert order, bf16, random weights from a
@@ -38,9 +40,12 @@ Phases, each of which raises (non-zero exit) on failure:
    backward, and its forward + backward, timed against autograd of the
    plain forward (the WMMA kernels' recorded times printed beside); then
    each of the chains' GEMMs (the TMA + wgmma ``csrc/gemm_bf16.cu``: #3's
-   dW2, dz, dW1, dxn, #4's datt, dW_out, dxn, dW_qkv, and the forward's
-   fc1) held to and timed against ``torch.matmul`` on the same operands,
-   with TFLOP/s and the bound; and #4's attention backward
+   dW2, dz, dW1, dxn, #4's datt, dW_out, dxn, dW_qkv, the forward's fc1
+   with and without z, fc2 + the residual, the QKV and output
+   projections) held to and timed against ``torch.matmul`` on the same
+   operands, with TFLOP/s and the bound, and one fc1 tile's time split
+   into its K loop, staging, finish8 and column sums from the kernel's
+   clock64 stamps (``_build.gemm_profile``); and #4's attention backward
    (``csrc/attention_bwd_sm90.cu``) against its plain version, bit for bit
    on a second call, timed beside ``csrc/attention_bwd.cu`` and SDPA's
    backward; #1's attention alone at [256, 196, 12 x 64] with its lse (the
@@ -124,8 +129,9 @@ Phases, each of which raises (non-zero exit) on failure:
    at 16,384 each timed beside its plain version, its bound and
    ``F.scaled_dot_product_attention`` with a boolean band mask (forward
    for #12, its autograd backward for #13); #13 (the windowed instances
-   of #10's and #11's kernels) also bit for bit on a second call at each
-   length, its two launches timed apart at 16,384 and the whole at 12,288.
+   of #10's and #11's kernels) and #12 (the windowed instance of #8's
+   single step) also bit for bit on a second call at each length, #13's
+   two launches timed apart at 16,384 and the whole at 12,288.
 11. hybrid slice: ``build_model(preset_config("longctx-16k-hybrid"))``
    (three curve-local layers, then one global; merge after layer 1) as in
    9 (a): 4 steps at batch 2, an eval batch, 1 and 4 images served; #12
@@ -415,6 +421,7 @@ def phase_kernels(card: str) -> dict:
         results["fused_mlp_block"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
             **_bound(4 * r * D * F, 2 * (2 * r * D + 2 * D * F + F + D) + 8 * D))
+        _mlp_split(card, B)
 
         errs = []
         for n_actual in (None, 150):
@@ -612,6 +619,7 @@ def phase_backward(card: str) -> dict:
                  2 * (3 * r * D + r * 3 * D + r * D + 8 * D * D) + 4 * b * HEADS * N
                  + 16 * D))
     _gemm_phase(card, b)
+    _mlp_split(card, b)  # #2's launches (and ln_rows) at the training batch too
     _attention_bwd_phase(card, b)
     _attention_fwd_case(card, b, with_lse=True)
     for form, rows, d in LN_BWD_CASES:
@@ -627,12 +635,14 @@ WMMA_BWD_MS = {"fused_mlp_block_bwd": 9.028, "fused_attention_block_bwd": 7.313}
 
 
 def _gemm_phase(card: str, b: int) -> None:
-    """Each GEMM of #3's and #4's chains (and the training forward's fc1,
-    the NN form) at ViT-B batch ``b`` through ``_build.gemm`` with the
-    chain's epilogue, against ``torch.matmul`` on the same operands in
+    """Each GEMM of #3's and #4's chains and of the forwards #1 and #2
+    (fc1 with and without the saved z, fc2 + the residual, the QKV and
+    output projections) at ViT-B batch ``b`` through ``_build.gemm`` with
+    the chain's epilogue, against ``torch.matmul`` on the same operands in
     turns: ms, TFLOP/s and the bound; each product without its epilogue
     held to ``torch.matmul``'s within one bf16 rounding (1 % of its
-    largest |value|)."""
+    largest |value|).  Then one fc1 tile's time split into its parts
+    (``_gemm_epilogue_split``)."""
     gen = torch.Generator().manual_seed(5)
     r = b * N
     act = dict(h=_randn(gen, r, F), g=_randn(gen, r, D), xn=_randn(gen, r, D),
@@ -641,7 +651,8 @@ def _gemm_phase(card: str, b: int) -> None:
     w = dict(w1=_randn(gen, D, F, scale=D ** -0.5), w2=_randn(gen, F, D, scale=F ** -0.5),
              w_out=_randn(gen, D, D, scale=D ** -0.5),
              w_qkv=_randn(gen, D, 3 * D, scale=D ** -0.5),
-             b1=_randn(gen, F, scale=0.1, dtype=torch.float32))
+             b1=_randn(gen, F, scale=0.1, dtype=torch.float32),
+             b2=_randn(gen, D, scale=0.1, dtype=torch.float32))
     # (chain, label, a, b, trans_a, trans_b, epilogue, bytes of the epilogue's
     # extra tensors, output bytes per element)
     cases = [
@@ -658,8 +669,15 @@ def _gemm_phase(card: str, b: int) -> None:
         ("#4", "NT dxn = dqkv W_qkv^T (fp32)", act["dqkv"], w["w_qkv"], False, True,
          dict(out_dtype=torch.float32), 0, 4),
         ("#4", "TN dW_qkv = xn^T dqkv", act["xn"], act["dqkv"], True, False, {}, 0, 2),
+        ("#2 served", "NN fc1 h = gelu(xn W1 + b1)", act["xn"], w["w1"], False, False,
+         dict(bias=w["b1"], act="gelu"), 0, 2),
+        ("#2", "NN fc2 out = h W2 + b2 + x", act["h"], w["w2"], False, False,
+         dict(bias=w["b2"], residual=act["g"]), 2 * r * D, 2),
+        ("#1", "NN qkv = xn W_qkv", act["xn"], w["w_qkv"], False, False, {}, 0, 2),
+        ("#1", "NN out = att W_out + x", act["att"], w["w_out"], False, False,
+         dict(residual=act["g"]), 2 * r * D, 2),
     ]
-    print(f"GEMMs of #3's and #4's chains at ViT-B batch {b} (R = {r}), kernel "
+    print(f"GEMMs of #1-#4's chains at ViT-B batch {b} (R = {r}), kernel "
           f"(csrc/gemm_bf16.cu) and torch.matmul in turns, {card}:")
     for chain, label, a, bm, ta, tb, ep, extra, out_bytes in cases:
         m, k = (a.shape[1], a.shape[0]) if ta else a.shape
@@ -677,6 +695,79 @@ def _gemm_phase(card: str, b: int) -> None:
               f"kernel {ms:.4f} ms = {_tflops(flops, ms)}, torch.matmul {mm_ms:.4f} ms = "
               f"{_tflops(flops, mm_ms)} ({ms / mm_ms:.2f}x), bound {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']})")
+    if hasattr(_build, "gemm_profile"):  # an earlier tree has no tile stamps
+        _gemm_epilogue_split(card, act["xn"], w["w1"], w["b1"])
+
+
+def _gemm_epilogue_split(card: str, xn, w1, b1) -> None:
+    """One fc1 tile's time (NN, + b1, GELU, z saved: [R, 3072, K 768]) split
+    into its K loop and its epilogue's parts, from the clock64 stamps of
+    ``_build.gemm_profile`` (each block's first consumer thread; cycles
+    turned into time by the globaltimer over each block's run): means over
+    every tile of every block, beside the kernel's CUDA-event time."""
+    r, n = xn.shape[0], w1.shape[1]
+    c, z, st = _build.gemm_profile(xn, w1, b1)
+    want_c, want_z = _build.gemm(xn, w1, bias=b1, act="gelu", save_z=True)
+    _check(torch.equal(c, want_c) and torch.equal(z, want_z), "gemm_profile differs from gemm")
+    ms = _ms(lambda: _build.gemm_profile(xn, w1, b1), iters=5)
+    st = st.cpu().double()
+    used = st[:, :, 4] > 0  # stamped tiles
+    ns_per_cycle = []
+    for blk in range(st.shape[0]):
+        rows = st[blk][used[blk]]
+        cyc, ns = rows[-1, 0] - rows[0, 0], rows[-1, 5] - rows[0, 5]
+        if cyc > 0 and ns > 0:
+            ns_per_cycle.append(float(ns / cyc))
+    scale = sum(ns_per_cycle) / len(ns_per_cycle) / 1e3  # us a cycle
+    tile = st[used]
+    parts = ", ".join(f"{label} {float((tile[:, b] - tile[:, a]).mean()) * scale:.3f}"
+                      for label, a, b in (("K loop", 0, 1), ("staging", 1, 2),
+                                          ("finish8 + stores", 2, 3), ("column sums", 3, 4)))
+    print(f"fc1's tile split ([{r}, {n}, K {xn.shape[1]}], + b1, gelu, save z; 128 x 128 tiles; "
+          f"clock64 stamps of warpgroup 0), {card}: kernel {ms:.4f} ms; us a tile: {parts}; "
+          f"whole {float((tile[:, 4] - tile[:, 0]).mean()) * scale:.3f} ({int(used.sum())} "
+          f"tiles, {1e-3 / scale:.3f} GHz by the globaltimer)")
+
+
+def _mlp_split(card: str, b: int) -> None:
+    """#2's three launches one by one (each alone on the inputs
+    ``fused_mlp_block`` gives it, by CUDA-graph replay: at batch 64 the LN
+    is shorter than the Python launch path) at x [b, N, D], F: LN
+    (ln_rows), fc1 + b1 + GELU (gemm NN) and fc2 + b2 + the residual (gemm
+    NN), each with its bytes, operations and bound, and their sum
+    (launchers an earlier tree also has, so a parent's run prints the
+    before)."""
+    gen = torch.Generator().manual_seed(15)
+    r = b * N
+    x = _randn(gen, r, D)
+    ln_s = _randn(gen, D, scale=0.1, shift=1.0, dtype=torch.float32)
+    ln_b = _randn(gen, D, scale=0.1, dtype=torch.float32)
+    w1, w2 = _randn(gen, D, F, scale=D ** -0.5), _randn(gen, F, D, scale=F ** -0.5)
+    b1 = _randn(gen, F, scale=0.1, dtype=torch.float32)
+    b2 = _randn(gen, D, scale=0.1, dtype=torch.float32)
+    xn = _build.ln_rows(x, ln_s, ln_b, 1e-5)
+    h = _build.gemm(xn, w1, bias=b1, act="gelu")
+    mm = 2 * r * D * F
+    launches = [
+        ("LN (ln_rows)", lambda: _build.ln_rows(x, ln_s, ln_b, 1e-5), 8 * r * D,
+         4 * r * D + 8 * D),
+        ("fc1 + b1, gelu (gemm NN)", lambda: _build.gemm(xn, w1, bias=b1, act="gelu"), mm,
+         2 * (r * D + D * F + r * F) + 4 * F),
+        ("fc2 + b2 + x (gemm NN)", lambda: _build.gemm(h, w2, bias=b2, residual=x), mm,
+         2 * (r * F + F * D + 2 * r * D) + 4 * D),
+    ]
+    print(f"#2's launches at x [{b}, {N}, {D}], F={F}, device ms each (CUDA-graph replay), "
+          f"{card}:")
+    total = total_bound = 0.0
+    for label, fn, flops, nbytes in launches:
+        ms = _graph_ms(fn)
+        bound = _bound(flops, nbytes)
+        total += ms
+        total_bound += bound["bound_ms"]
+        print(f"  {label}: {ms:.4f} ms, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+              f"{bound['bound_ms'] / ms:.0%} of it")
+    print(f"  sum of the launches: {total:.4f} ms (their bounds' sum {total_bound:.4f} ms)")
 
 
 def _attention_bwd_phase(card: str, b: int) -> None:
@@ -1039,7 +1130,7 @@ def phase_train(card: str) -> dict:
 
 
 #: Kernels told apart by their template arguments: the GEMM's three
-#: layouts <trans_a, trans_b, act kind> and #8's two forms.
+#: layouts <trans_a, trans_b, act kind>, #8's two forms and #12's instance.
 _GEMM_LABELS = {"gemm_bf16_sm90<false, false, 3": "gemm_bf16 NN + LN2 (#15, clusters)",
                 "gemm_bf16_sm90<false, false": "gemm_bf16 NN (forward)",
                 "gemm_bf16_sm90<false, true": "gemm_bf16 NT (dX, dz, datt)",
@@ -1047,10 +1138,10 @@ _GEMM_LABELS = {"gemm_bf16_sm90<false, false, 3": "gemm_bf16 NN + LN2 (#15, clus
                 "gemm_splitk_sum": "gemm_bf16 TN split-K sum",
                 "attention_bwd_sm90<1, false": "attention_bwd_sm90 (#4)",
                 "attention_bwd_sm90": "attention_bwd_sm90 (#6: mask, Dh 192)",
-                "flash_fwd_sm90<false>": "flash_fwd streaming (#8)",
-                "flash_fwd_sm90<true>": "flash_fwd single K step (#8)",
+                "flash_fwd_sm90<false, false>": "flash_fwd streaming (#8)",
+                "flash_fwd_sm90<true, false>": "flash_fwd single K step (#8)",
+                "flash_fwd_sm90<true, true>": "local_fwd (#12)",
                 "flash_bwd_fused_sm90": "flash_bwd fused (#9)",
-                "local_fwd_kernel<64>": "local_fwd (#12)",
                 "flash_bwd_dkv_sm90<true>": "local_bwd dk, dv (#13)",
                 "flash_bwd_dq_sm90<true>": "local_bwd dq (#13)",
                 "flash_bwd_dkv_sm90": "flash_dkv (#11)",
@@ -1885,6 +1976,11 @@ def phase_local_kernels(card: str) -> dict:
             print(f"  lse: max abs err {lse_err:.4g} against the plain version's fp32 lse "
                   f"(tolerance rtol {LSE_TOL['rtol']}, atol {LSE_TOL['atol']})")
             _check(lse_ok, "kernel #12: lse disagrees with its plain version")
+            again, again_lse = local.local_fwd(q, k, v, blk, halo, s, return_lse=True)
+            _check(torch.equal(out, again) and torch.equal(lse, again_lse),
+                   f"kernel #12 does not repeat bit for bit at {n} tokens")
+            print("  #12: out and lse the same bits on a second call")
+            del again, again_lse
             delta = flash.flash_delta(g, out)
             got = local.local_bwd(q, k, v, g, lse, delta, blk, halo, s)
             want = local.local_bwd_ref(q, k, v, g, lse, delta, blk, halo, s)
@@ -2507,7 +2603,7 @@ def main() -> int:
              source="sfc_vit_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
              replaces="sfc_vit_tpu/ops/flash_attention.py:482"),
         dict(name="local_block_attention", route="cuda",
-             source="sfc_vit_tpu_torch/csrc/local_fwd.cu",
+             source="sfc_vit_tpu_torch/csrc/flash_fwd_sm90.cu",
              replaces="sfc_vit_tpu/ops/local_attention.py:82"),
         dict(name="local_block_attention_bwd", route="cuda",
              source="sfc_vit_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",

@@ -61,20 +61,6 @@ __device__ __forceinline__ uint4 pack_bf16x8(const float* v) {
   return out;
 }
 
-// 64 rows r0.. of a row-strided bf16 matrix (columns 0..DH-1) into a
-// [64][DH + 8] shared tile, by THREADS threads; rows at or past n are
-// zero-filled.  Rows must start on 16 bytes.
-template <int DH, int THREADS>
-__device__ __forceinline__ void load_tile64(bf16* dst, const bf16* base,
-                                            long long row_stride, int r0, int n) {
-  constexpr int LDH = DH + 8;
-  for (int c = threadIdx.x; c < 64 * DH / 8; c += THREADS) {
-    const int r = c / (DH / 8), cc = (c % (DH / 8)) * 8;
-    const bool ok = r0 + r < n;
-    cp_async16(&dst[r * LDH + cc], ok ? base + (r0 + r) * row_stride + cc : base, ok);
-  }
-}
-
 __device__ __forceinline__ void unpack_bf16x8(uint4 in, float* v) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&in);
 #pragma unroll

@@ -42,6 +42,24 @@
 // pipelined: the next half's logits are issued before this half's
 // exponentials run, and P.V of one half overlaps the next half's softmax.
 // No shared tile holds logits, P or the accumulator.
+//
+// The windowed instance (kWindow, single step only) is the curve-local
+// forward #12: sfc_vit_tpu/ops/local_attention.py::_kernel (lines 82-124,
+// called at :169), query i over exactly the keys j with |i / block - j /
+// block| <= halo and j < n (nq == nk == n), with the single step's
+// arithmetic over that window (the TPU kernel reads 2 halo + 1 clamped
+// neighbour-block views and masks the out-of-range ones, so no key counts
+// twice at the sequence's ends: the same set).  block is a multiple of 64,
+// so each warpgroup's 64 queries lie in one curve block, whose window is
+// the key range [max(0, (qb - halo) block), min(n, (qb + halo + 1) block))
+// (ops/_build.py::local_fwd_key_range).  A block walks the 128-key tiles
+// that its two warpgroups' windows touch (sm90.cuh::local_tile_window's
+// 64-row tiles, rounded out to 128 keys: ops/_build.py::local_fwd_tiles),
+// and each warpgroup gives -1e30 to the keys outside its own window, only
+// in a 64-key half that its window does not hold whole.  The two
+// warpgroups differ where a 128-query tile straddles two curve blocks
+// (block 64 or 192).  At [2, 16384, 6, 64], block 128, halo 1 a block
+// walks 3 tiles in each pass instead of 128.
 
 #include "sm90.cuh"
 
@@ -73,19 +91,31 @@ struct Params {
   bf16* out;
   float* lse;
   int heads, nq, nk;
+  int block, halo;   // the windowed instance's curve block and halo
   float scale_log2;  // scale * log2(e)
 };
 
 using Ring = hw::Ring<kStages>;
 
-template <bool kSingle>
+// kWindow: #12's instance (kSingle only; nq == nk), over the curve-local
+// window of each query block; otherwise #8's, over every key.
+template <bool kSingle, bool kWindow = false>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90(const __grid_constant__ Params p) {
+  static_assert(kSingle || !kWindow, "the windowed instance is the single step's");
   extern __shared__ __align__(1024) unsigned char dyn[];
   Smem& sm = hw::aligned_smem<Smem>(dyn);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * BQ, bh = blockIdx.y;
   const int b = bh / p.heads, h = bh % p.heads;
-  const int tiles = (p.nk + BK - 1) / BK;
+  // The key tiles [t0, t1) the block walks: every one, or those its two
+  // warpgroups' windows touch (64-row tiles rounded out to 128 keys).
+  int t0 = 0, t1 = (p.nk + BK - 1) / BK;
+  if constexpr (kWindow) {
+    int lo, hi;
+    hw::local_tile_window(q0 / 64, BQ, p.nk, p.block, p.halo, lo, hi);
+    t0 = lo / 2;
+    t1 = (hi + 1) / 2;
+  }
 
   if (tid == 0) {
     hw::bar_init(&sm.q_full, 1);
@@ -112,8 +142,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90(const __grid_const
         r.next();
       };
       if constexpr (kSingle)
-        for (int t = 0; t < tiles; ++t) load(kr, sm.k, sm.k_full, sm.k_empty, &p.k, t);
-      for (int t = 0; t < tiles; ++t) {
+        for (int t = t0; t < t1; ++t) load(kr, sm.k, sm.k_full, sm.k_empty, &p.k, t);
+      for (int t = t0; t < t1; ++t) {
         load(kr, sm.k, sm.k_full, sm.k_empty, &p.k, t);
         load(vr, sm.v, sm.v_full, sm.v_empty, &p.v, t);
       }
@@ -156,7 +186,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90(const __grid_const
   // its C7515 and took it from 2.27 to 2.12 ms at [16, 4096, 6, 64] on an
 // H100 SXM at 700 W.
   const float c = p.scale_log2;
-  const int last = tiles - 1;
+  const int last = t1 - 1;
+  // The keys [klo, khi) this warpgroup's rows see: every key, or the
+  // window of their curve block.
+  int klo = 0, khi = p.nk;
+  if constexpr (kWindow) {
+    const int qb = (q0 + 64 * wg) / p.block;
+    klo = max(0, (qb - p.halo) * p.block);
+    khi = min(p.nk, (qb + p.halo + 1) * p.block);
+  }
   float sa[32], sb[32];
   auto issue_half = [&](float (&d)[32], const Ring& r, int half) {
     const uint64_t kdesc = hw::desc_sw128(sm.k[r.slot]) + half * (64 * 128 >> 4);
@@ -165,12 +203,23 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90(const __grid_const
     for (int kk = 0; kk < 4; ++kk) hw::wgmma_rs<0>(d, qf[kk], kdesc + 2 * kk, kk);
     hw::wgmma_commit();
   };
-  // Keys at or past nk to -1e30 (raw logits; only the last tile is ragged).
+  // Keys outside [klo, khi) to -1e30 (raw logits), in a 64-key half from
+  // key0 that the range does not hold whole: #8's ragged last tile, or
+  // the edges of a warpgroup's window.
   auto mask = [&](float (&d)[32], int key0) {
+    if (key0 >= klo && key0 + 64 <= khi) return;
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
-      if (key0 + 8 * (i / 4) + c0 + (i % 2) >= p.nk) d[i] = sfc::kNegInf;
+    for (int i = 0; i < 32; ++i) {
+      const int key = key0 + 8 * (i / 4) + c0 + (i % 2);
+      if (key < klo || key >= khi) d[i] = sfc::kNegInf;
+    }
   };
+  // Whether a 64-key half holds a key of [klo, khi).  The windowed
+  // instance leaves a half outside its warpgroup's window out of m and l:
+  // a first half all -1e30 would set m to -1e30 c, and fma(s, c, -m) is
+  // then the product's rounding error, whose exp2 may be inf.  (#8's
+  // rows meet a key below nk first.)
+  auto live = [&](int key0) { return !kWindow || (key0 + 64 > klo && key0 < khi); };
   uint32_t pa[4][4], pb[4][4];
   auto issue_pv = [&](const uint32_t (&f)[4][4], int half) {
     const uint64_t vdesc = hw::desc_sw128(sm.v[vr.slot]) + half * (64 * 128 >> 4);
@@ -204,12 +253,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90(const __grid_const
     // Pass 1: m and l.
     hw::bar_wait(&sm.k_full[kr.slot], kr.phase);
     issue_half(sa, kr, 0);
-    for (int t = 0; t < tiles; ++t) {
+    for (int t = t0; t < t1; ++t) {
       issue_half(sb, kr, 1);
       hw::wgmma_wait<1>();  // a done
       hw::fence_regs(sa);
-      if (t == last) mask(sa, t * BK);
-      stats(sa);
+      if (kWindow || t == last) mask(sa, t * BK);
+      if (live(t * BK)) stats(sa);
       Ring next = kr;
       next.next();
       if (t < last) hw::bar_wait(&sm.k_full[next.slot], next.phase);
@@ -217,8 +266,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90(const __grid_const
       hw::wgmma_wait<1>();  // b done
       hw::fence_regs(sb);
       if (t < last && lane == 0) hw::bar_arrive(&sm.k_empty[kr.slot]);
-      if (t == last) mask(sb, t * BK + 64);
-      stats(sb);
+      if (kWindow || t == last) mask(sb, t * BK + 64);
+      if (live(t * BK + 64)) stats(sb);
       if (t < last) kr = next;
     }
     hw::wgmma_wait<0>();  // the discarded product
@@ -247,12 +296,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90(const __grid_const
     hw::bar_wait(&sm.k_full[kr.slot], kr.phase);
     issue_half(sa, kr, 0);
     hw::wgmma_commit();
-    for (int t = 0; t < tiles; ++t) {
+    for (int t = t0; t < t1; ++t) {
       issue_half(sb, kr, 1);
       hw::wgmma_wait<2>();  // a and the last tile's P.V of a done
       hw::fence_regs(sa);
       hw::fence_frags(pa);
-      if (t == last) mask(sa, t * BK);
+      if (kWindow || t == last) mask(sa, t * BK);
       probs(sa, pa);
       hw::bar_wait(&sm.v_full[vr.slot], vr.phase);
       issue_pv(pa, 0);
@@ -265,10 +314,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90(const __grid_const
       hw::fence_frags(pb);
       if (lane == 0) {
         hw::bar_arrive(&sm.k_empty[kr.slot]);
-        if (t > 0) hw::bar_arrive(&sm.v_empty[(vr.slot + kStages - 1) % kStages]);
+        if (t > t0) hw::bar_arrive(&sm.v_empty[(vr.slot + kStages - 1) % kStages]);
       }
       kr = next;
-      if (t == last) mask(sb, t * BK + 64);
+      if (kWindow || t == last) mask(sb, t * BK + 64);
       probs(sb, pb);
       issue_pv(pb, 1);
       vr.next();
@@ -297,7 +346,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90(const __grid_const
     };
     hw::bar_wait(&sm.k_full[kr.slot], kr.phase);
     issue_half(sa, kr, 0);
-    for (int t = 0; t < tiles; ++t) {
+    for (int t = 0; t < t1; ++t) {
       issue_half(sb, kr, 1);
       hw::wgmma_wait<0>();  // both halves, and the last tile's P . V
       hw::fence_regs(sa);
@@ -375,6 +424,33 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90(const __grid_const
   }
 }
 
+// Maps and scale of a call (q, k, v through their strides); see
+// sfc_flash_fwd_bf16.
+cudaError_t plan(Params& p, const void* q, const void* k, const void* v, void* out, void* lse,
+                 int batch, int heads, int nq, int nk, const long long* st, float scale) {
+  cudaError_t e = hw::map_bnhd(&p.q, q, batch, nq, heads, st[0], st[1], st[2], BQ);
+  if (e == cudaSuccess) e = hw::map_bnhd(&p.k, k, batch, nk, heads, st[3], st[4], st[5], BK);
+  if (e == cudaSuccess) e = hw::map_bnhd(&p.v, v, batch, nk, heads, st[6], st[7], st[8], BK);
+  p.out = static_cast<bf16*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.heads = heads;
+  p.nq = nq;
+  p.nk = nk;
+  p.scale_log2 = scale * kLog2e;
+  return e;
+}
+
+template <bool kSingle, bool kWindow>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  auto kernel = flash_fwd_sm90<kSingle, kWindow>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.nq + BQ - 1) / BQ, batch * p.heads);
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q bf16 [batch, nq, heads, dh], k and v bf16 [batch, nk, heads, dh], each
@@ -391,27 +467,44 @@ extern "C" int sfc_flash_fwd_bf16(const void* q, const void* k, const void* v, v
   if (dh != 64 || nq < 1 || nk < 1 || heads < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0) return 0;
   Params p{};
-  cudaError_t e = hw::map_bnhd(&p.q, q, batch, nq, heads, qsb, qsn, qsh, BQ);
-  if (e == cudaSuccess) e = hw::map_bnhd(&p.k, k, batch, nk, heads, ksb, ksn, ksh, BK);
-  if (e == cudaSuccess) e = hw::map_bnhd(&p.v, v, batch, nk, heads, vsb, vsn, vsh, BK);
+  const long long st[9] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh};
+  cudaError_t e = plan(p, q, k, v, out, lse, batch, heads, nq, nk, st, scale);
   if (e != cudaSuccess) return static_cast<int>(e);
-  p.out = static_cast<bf16*>(out);
-  p.lse = static_cast<float*>(lse);
-  p.heads = heads;
-  p.nq = nq;
-  p.nk = nk;
-  p.scale_log2 = scale * kLog2e;
-  auto kernel = streaming ? flash_fwd_sm90<false> : flash_fwd_sm90<true>;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((nq + BQ - 1) / BQ, batch * heads);
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  e = streaming ? launch<false, false>(p, batch, s) : launch<true, false>(p, batch, s);
+  return static_cast<int>(e);
 }
 
-// Registers, local bytes and shared bytes of the streaming (1) or
-// single-step (0) kernel, into out[3].
-extern "C" int sfc_flash_fwd_attrs(int streaming, int* out) {
-  return hw::kernel_attrs(streaming ? flash_fwd_sm90<false> : flash_fwd_sm90<true>,
-                          kSmemBytes, out);
+// #12: q, k, v bf16 [batch, n, heads, dh] read through their (batch, row,
+// head) strides in elements (unit stride along dh; strides multiples of 8
+// elements, bases on 16 bytes); out bf16 [batch, n, heads, dh]
+// contiguous; lse fp32 [batch, heads, n] or null.  Query i meets the keys
+// j with |i / block - j / block| <= halo: dh 64, block a positive multiple
+// of 64, halo >= 1.
+extern "C" int sfc_local_fwd_bf16(const void* q, const void* k, const void* v, void* out,
+                                  void* lse, int batch, int heads, int n, int dh, int block,
+                                  int halo, long long qsb, long long qsn, long long qsh,
+                                  long long ksb, long long ksn, long long ksh, long long vsb,
+                                  long long vsn, long long vsh, float scale, void* stream) {
+  if (dh != 64 || n < 1 || heads < 1 || batch < 0 || block < 64 || block % 64 || halo < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  Params p{};
+  const long long st[9] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh};
+  cudaError_t e = plan(p, q, k, v, out, lse, batch, heads, n, n, st, scale);
+  p.block = block;
+  p.halo = halo;
+  if (e == cudaSuccess) e = launch<true, true>(p, batch, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e);
+}
+
+// Registers, local bytes and shared bytes of the streaming (1),
+// single-step (0) or windowed single-step (2, #12) kernel, into out[3].
+extern "C" int sfc_flash_fwd_attrs(int form, int* out) {
+  switch (form) {
+    case 0: return hw::kernel_attrs(flash_fwd_sm90<true>, kSmemBytes, out);
+    case 1: return hw::kernel_attrs(flash_fwd_sm90<false>, kSmemBytes, out);
+    case 2: return hw::kernel_attrs(flash_fwd_sm90<true, true>, kSmemBytes, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

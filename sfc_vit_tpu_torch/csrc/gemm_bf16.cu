@@ -40,20 +40,41 @@
 // products in flight while the next stage is waited for.  The epilogue
 // stages the accumulators in shared memory (fp32, 8-column groups
 // permuted by row against bank conflicts), then each thread finishes 8
-// neighbouring columns of rows in a loop that is not unrolled (bias, z,
-// act or act'(z), column sums, residuals, C: 16-byte loads and stores, a
-// row's 128 columns by 16 threads), and the producer fills the next
-// tile's stages meanwhile.  The kernel is instantiated per activation
-// kind (none, act, act'(z)), so no instance carries another's code.
-// Each row's z_in and residuals are loaded a row ahead.  On the H100
-// (chip_smoke.py's GEMM lines) the same epilogue run on the accumulator
-// fragments in registers, fully unrolled with every optional term, held
-// datt (K = 768) to 183 TFLOP/s; staged and rolled, 380.  Ping-pong
-// consumers (a whole tile each, in turn) need 128 accumulator registers a
-// thread and spilled at nine warps' cap of 168; running a row of the last
-// tile's epilogue after each K slice's products spilled too and ran
-// slower.
+// neighbouring columns of rows in a partly unrolled loop (bias, z, act or
+// act'(z), column sums, residuals, C: 16-byte loads and stores, a row's
+// 128 columns by 16 threads), and the producer fills the next tile's
+// stages meanwhile.  The kernel is instantiated per activation kind
+// (none, act, act'(z)), so no instance carries another's code.  A
+// thread's 8 bias values are loaded once a tile and each row's z_in and
+// residuals a row ahead, so a row's chain is a shared-memory load, the
+// arithmetic and the stores.  On the H100 (chip_smoke.py's GEMM lines)
+// the same epilogue run on the accumulator fragments in registers, fully
+// unrolled with every optional term, held datt (K = 768) to 183 TFLOP/s;
+// staged and rolled, 380.  Finishing a row of the last tile's staged
+// epilogue after each K slice's products (at the 168-register cap) ran
+// slower: a row's latency outlasts a slice's products, so the tensor
+// cores wait on it.
 //
+// Why not a pingpong schedule (each consumer warpgroup a whole 128 x 128
+// tile, 128 accumulator registers a thread, the two taking turns at the
+// tensor cores so that one's epilogue runs under the other's products):
+// on the H100 at 700 W with CUDA 12.9, chip_smoke.py's GEMM lines and
+// tile stamps on pingpong builds of this file,
+//  * a producer warpgroup at 40 registers and two consumers raised to 232
+//    by setmaxnreg (384 threads): ptxas compiled the code after
+//    setmaxnreg.inc within the launch's 168 registers a thread all the
+//    same (256-312 bytes of spills), and the spills, in the small L1 that
+//    ~200 KB of shared memory leaves, took fc1 to 1.77 ms (0.86 on this
+//    schedule then);
+//  * two consumer warpgroups and no producer (256 threads, up to 255
+//    registers, no spills; each consumer loading the ring's next slices
+//    as its products freed them): fc1 1.78 ms, datt 0.34, with each
+//    tile's K loop 10.8 us against 4.2 here.  The K loop, not the
+//    epilogue, bounds it: with no producer warp the ring's loads come
+//    late (this schedule slowed alike with its loads moved to a consumer
+//    warp), and a producer warp caps the block at 168 registers, too few
+//    for a whole tile's 128 accumulators.
+
 // Split-K (the weight gradients: 36-144 output tiles for 132 SMs at
 // ViT-B, 4-12 on 'hier' at d = 256, each a 12,544-50,176-deep sum): the
 // Python launcher picks `splits` (ops/_build.py::gemm_splits) and gives an
@@ -113,6 +134,8 @@ constexpr int kCsumBar = 3;
 // kLnBar, both warpgroups' barrier before its exchange.
 constexpr int kMaxCluster = 8;
 constexpr int kLnBar = 4;
+// sfc_gemm_profile's stamps a tile (clock64, then the globaltimer at the first).
+constexpr int kProfFields = 6;
 
 struct Epilogue {
   const float* bias;      // fp32 [N], added first
@@ -152,6 +175,8 @@ struct Params {
   CUtensorMap a, b;     // 64 x 64 boxes of A and B as stored
   void* c_ptr;          // C, bf16 or fp32 [M, N]
   float* partial;       // split-K: fp32 [splits, M, N] raw sums; no epilogue here
+  long long* prof;      // sfc_gemm_profile: kProfFields stamps a tile, prof_cap tiles a block
+  int prof_cap;
   Shape sh;
   Epilogue ep;
 };
@@ -192,6 +217,13 @@ __device__ __forceinline__ Unit unit_of(const Shape sh, int u) {
   return w;
 }
 
+// The globaltimer (ns), for sfc_gemm_profile's stamps.
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // The epilogue's inputs at 8 neighbouring columns of one row.
 struct In8 {
   uint4 z, r;       // z_in, residual (bf16)
@@ -217,17 +249,25 @@ __host__ __device__ constexpr int act_kind(bool z_in, int act) {
   return z_in ? kActGrad : act != sfc::kNone ? kActFwd : kLinear;
 }
 
-// The epilogue of 8 neighbouring columns (gc .. gc + 7 of row `off / N`):
-// + bias, z_out, act (kActFwd) or act'(z_in) (kActGrad), column sums into
-// cs, + residual, + residual_f32, then C.
-template <int KIND>
-__device__ __forceinline__ void finish8(float (&v)[8], size_t off, int gc, const Epilogue& ep,
-                                        const In8& in, void* C, float (&cs)[8]) {
-  if (ep.bias != nullptr) {
+// The bias at columns gc .. gc + 7 (zeros without one).
+__device__ __forceinline__ void bias8(float (&b)[8], int gc, const Epilogue& ep) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] += ep.bias[gc + e];
-  }
-  if (ep.z_out != nullptr) *reinterpret_cast<uint4*>(ep.z_out + off) = sfc::pack_bf16x8(v);
+  for (int e = 0; e < 8; ++e) b[e] = ep.bias != nullptr ? ep.bias[gc + e] : 0.f;
+}
+
+// The epilogue of 8 neighbouring columns (gc .. gc + 7 of row `off / N`):
+// + bias (b, from bias8), z_out, act (kActFwd) or act'(z_in) (kActGrad),
+// column sums into cs, + residual, + residual_f32, then C.  Nothing is
+// stored or summed unless ok (the columns and row lie in C): the caller
+// needs no branch around it, so unrolled rows interleave.
+template <int KIND>
+__device__ __forceinline__ void finish8(float (&v)[8], size_t off, bool ok, const float (&b)[8],
+                                        const Epilogue& ep, const In8& in, void* C,
+                                        float (&cs)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] += b[e];
+  if (ep.z_out != nullptr && ok)
+    *reinterpret_cast<uint4*>(ep.z_out + off) = sfc::pack_bf16x8(v);
   if constexpr (KIND == kActGrad) {
     float z[8];
     sfc::unpack_bf16x8(in.z, z);
@@ -238,7 +278,7 @@ __device__ __forceinline__ void finish8(float (&v)[8], size_t off, int gc, const
     for (int e = 0; e < 8; ++e) v[e] = sfc::act_fwd(v[e], ep.act);
   }
 #pragma unroll
-  for (int e = 0; e < 8; ++e) cs[e] += v[e];
+  for (int e = 0; e < 8; ++e) cs[e] += ok ? v[e] : 0.f;
   if (ep.residual != nullptr) {
     float x[8];
     sfc::unpack_bf16x8(in.r, x);
@@ -249,6 +289,7 @@ __device__ __forceinline__ void finish8(float (&v)[8], size_t off, int gc, const
     v[0] += in.f0.x; v[1] += in.f0.y; v[2] += in.f0.z; v[3] += in.f0.w;
     v[4] += in.f1.x; v[5] += in.f1.y; v[6] += in.f1.z; v[7] += in.f1.w;
   }
+  if (!ok) return;
   if (ep.c_fp32) {
     float4* dst = reinterpret_cast<float4*>(static_cast<float*>(C) + off);
     dst[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -372,7 +413,9 @@ __device__ __forceinline__ void ln_epilogue(Smem& sm, const float* stage, const 
   }
 }
 
-template <bool TA, bool TB, int KIND>
+// kProf: sfc_gemm_profile's instance, the first consumer thread stamping
+// each of its tiles.
+template <bool TA, bool TB, int KIND, bool kProf = false>
 __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_sm90(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) unsigned char dyn[];
   Smem& sm = hw::aligned_smem<Smem>(dyn);
@@ -433,9 +476,15 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_sm90(const __grid_const
   float acc[64];
   int tile_it = 0;  // this block's tiles so far: the LayerNorm partials' buffer
 
+  long long stamp[kProfFields] = {};
+  const bool prof = kProf && tid == 0;
   for (int u = blockIdx.x; u < sh.units; u += gridDim.x) {
     const Unit w = unit_of(sh, u);
     const int nkb = w.kb1 - w.kb0;
+    if (prof) {
+      stamp[0] = clock64();
+      stamp[5] = globaltimer();
+    }
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     int prev = 0;
@@ -463,6 +512,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_sm90(const __grid_const
     hw::wgmma_wait<0>();
     hw::fence_regs(acc);
     if (nkb > 0 && lane == 0) hw::bar_arrive(&sm.empty[prev]);
+    if (prof) stamp[1] = clock64();
 
     const int row0 = w.m0 + 64 * wg;
     if (partial != nullptr) {  // split-K: the raw fp32 sum of this K range
@@ -491,29 +541,32 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_sm90(const __grid_const
         *reinterpret_cast<float2*>(stage + stage_at(r0 + 8 * hf, 8 * j + c0)) =
             make_float2(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
     hw::named_sync(1 + wg, 128);
+    if (prof) stamp[2] = clock64();
     const Epilogue ep = p.ep;
     const int cc = t % 16, gc = w.n0 + 8 * cc;
     if constexpr (KIND == kLayerNorm) {
       ln_epilogue(sm, stage, ep, static_cast<bf16*>(C), row0, gc, t, wg, M, N, tile_it++);
       continue;
     }
-    float cs[8] = {};
+    float cs[8] = {}, b[8] = {};
+    if (gc < N) bias8(b, gc, ep);  // N % 8 == 0: the 8 columns are in or out together
     // Each row's inputs (z_in, residuals) are loaded one row ahead.
-    auto in_tile = [&](int rr) { return row0 + rr < M && gc < N; };  // N % 8 == 0
+    auto in_tile = [&](int rr) { return row0 + rr < M && gc < N; };
     auto offset = [&](int rr) { return static_cast<size_t>(row0 + rr) * N + gc; };
     In8 next = {};
     if (in_tile(t / 16)) load8(next, offset(t / 16), ep);
-#pragma unroll 1
+    // Rows interleaved four at a time, two where each also brings z_in.
+    constexpr int kRowUnroll = KIND == kActGrad ? 2 : 4;
+#pragma unroll kRowUnroll
     for (int rr = t / 16; rr < 64; rr += 8) {
       const In8 in = next;
       if (rr + 8 < 64 && in_tile(rr + 8)) load8(next, offset(rr + 8), ep);
-      if (in_tile(rr)) {
-        const float4* src = reinterpret_cast<const float4*>(stage + stage_at(rr, 8 * cc));
-        const float4 x = src[0], y = src[1];
-        float v[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
-        finish8<KIND>(v, offset(rr), gc, ep, in, C, cs);
-      }
+      const float4* src = reinterpret_cast<const float4*>(stage + stage_at(rr, 8 * cc));
+      const float4 x = src[0], y = src[1];
+      float v[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+      finish8<KIND>(v, offset(rr), in_tile(rr), b, ep, in, C, cs);
     }
+    if (prof) stamp[3] = clock64();
     if (ep.colsum != nullptr) {  // over the tile's rows in a fixed order, one atomic a column
 #pragma unroll
       for (int e = 0; e < 8; ++e) cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], 16);
@@ -529,6 +582,14 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_sm90(const __grid_const
         for (int q = 0; q < 2 * 4; ++q) sum += sm.stage[0][q * BN + tid];
         atomicAdd(&ep.colsum[w.n0 + tid], sum);  // warpgroup 0 reads before it stages again
       }
+    }
+    if (prof) {
+      stamp[4] = clock64();
+      const int it = (u - blockIdx.x) / gridDim.x;
+      if (it < p.prof_cap)
+        for (int f = 0; f < kProfFields; ++f)
+          p.prof[(static_cast<long long>(blockIdx.x) * p.prof_cap + it) * kProfFields + f] =
+              stamp[f];
     }
   }
 }
@@ -555,7 +616,9 @@ __global__ void __launch_bounds__(256)
     }
     In8 in;
     load8(in, off, ep);
-    finish8<KIND>(v, off, gc, ep, in, C, cs);
+    float b[8];
+    bias8(b, gc, ep);
+    finish8<KIND>(v, off, true, b, ep, in, C, cs);
   }
   if (ep.colsum != nullptr) {
 #pragma unroll
@@ -697,6 +760,42 @@ extern "C" int sfc_gemm_bf16(const void* a, const void* b, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The forward's fc1 form (NN, + bias, exact-erf GELU, z_out; C bf16), the
+// first consumer thread of each block stamping each of its tiles into
+// prof, int64 [grid][cap][6]: clock64 at (0) the tile's start, (1) its
+// products done, (2) its accumulators staged, (3) its rows finished
+// (finish8, their stores sent), (4) its column sums done, and (5) the
+// globaltimer (ns) at (0).  grid = the persistent grid (one
+// block an SM, at most one a tile); tiles past cap are not stamped.
+extern "C" int sfc_gemm_profile(const void* a, const void* b, const void* bias, void* z_out,
+                                void* c, int M, int N, int K, void* prof, int cap,
+                                void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || cap < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  Shape& sh = p.sh;
+  sh.M = M;
+  sh.N = N;
+  sh.n_tiles = (N + BN - 1) / BN;
+  sh.tiles = ((M + BM - 1) / BM) * sh.n_tiles;
+  sh.kblocks = (K + BK - 1) / BK;
+  sh.kb_per_split = sh.kblocks;
+  sh.units = sh.tiles;
+  p.ep = Epilogue{static_cast<const float*>(bias), nullptr, static_cast<bf16*>(z_out), nullptr,
+                  nullptr, nullptr, sfc::kGelu, false};
+  p.c_ptr = c;
+  p.prof = static_cast<long long*>(prof);
+  p.prof_cap = cap;
+  cudaError_t e = hw::map_2d_bf16(&p.a, a, K, M);
+  if (e == cudaSuccess) e = hw::map_2d_bf16(&p.b, b, N, K);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  static int cache[64] = {};
+  auto kernel = gemm_bf16_sm90<false, false, kActFwd, true>;
+  const int grid = hw::persistent_grid(kernel, kThreads, kSmemBytes, sh.units, cache, &e);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Clusters of `cluster` blocks of the LayerNorm form the device holds at
 // once (cudaOccupancyMaxActiveClusters), into *out.
 extern "C" int sfc_gemm_ln_max_clusters(int cluster, int* out) {
@@ -766,7 +865,7 @@ extern "C" int sfc_gemm_ln_bf16(const void* a, const void* b, const void* bias,
 // Registers, local bytes and shared bytes of form f into out[3]: f in
 // 0..8 the tile kernel of layout f / 3 (NN, NT, TN) and act kind f % 3
 // (none, act, act'), 9 the split-K sum (its act'(z) instance), 10 the
-// LayerNorm form (NN).
+// LayerNorm form (NN), 11 sfc_gemm_profile's instance.
 extern "C" int sfc_gemm_attrs(int form, int* out) {
   switch (form) {
     case 0: return hw::kernel_attrs(kernel_of<0>(), kSmemBytes, out);
@@ -780,6 +879,8 @@ extern "C" int sfc_gemm_attrs(int form, int* out) {
     case 8: return hw::kernel_attrs(kernel_of<8>(), kSmemBytes, out);
     case 9: return hw::kernel_attrs(gemm_splitk_sum<kActGrad>, 0, out);
     case 10: return hw::kernel_attrs(gemm_bf16_sm90<false, false, kLayerNorm>, kSmemBytes, out);
+    case 11:
+      return hw::kernel_attrs(gemm_bf16_sm90<false, false, kActFwd, true>, kSmemBytes, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

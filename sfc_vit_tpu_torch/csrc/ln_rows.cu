@@ -25,11 +25,15 @@
 // Bound on this card: memory.  Per row it reads D bf16 (or 2 D bf16, or D
 // fp32) and writes D bf16 (plus D fp32 for y32) with ~5 flops per element,
 // far below the H100's ~295 flops/byte ridge.  Design: one warp per row,
-// 16-byte vector loads (D % 8 == 0), two passes over the row (the second
-// pass hits L1), no shared memory, so any D runs and many rows are in
-// flight per SM.  On the TPU the normalised rows stayed in VMEM for the
-// following GEMM; here they pass through L2/HBM once, which a later PR can
-// remove by fusing this into the GEMM's A-tile load.
+// 16-byte vector loads (D % 8 == 0), no shared memory, so many rows are in
+// flight per SM.  A row of up to 1,024 (kRegChunks 16-byte chunks a lane)
+// stays in registers from its statistics to its output, read from memory
+// once, and scale and bias come as 16-byte loads (PERF.md section 6 has
+// the times at #2's shapes beside the byte bound).  Longer rows read
+// the row twice (the second pass mostly from L1).  On the TPU the
+// normalised rows stayed in VMEM for the following GEMM; here they pass
+// through L2/HBM once, which a later PR can remove by fusing this into the
+// GEMM's A-tile load.
 
 #include "common.cuh"
 
@@ -38,6 +42,7 @@ namespace {
 using sfc::bf16;
 
 constexpr int kWarps = 8;
+constexpr int kRegChunks = 4;  // rows of up to 4 x 32 x 8 = 1,024 stay in registers
 
 enum In : int { kBf16 = 0, kSum2 = 1, kF32 = 2 };
 
@@ -61,7 +66,38 @@ __device__ __forceinline__ void load8(const void* x, const bf16* xb, long row, i
   }
 }
 
-template <int IN>
+// The sums of one chunk's values and squares (in element order), and its
+// rounding into xr.
+__device__ __forceinline__ void sum8(const float* v, bf16* xr, long row, int d, int c, float& s,
+                                     float& ss) {
+  if (xr != nullptr) reinterpret_cast<uint4*>(xr + row * d)[c] = sfc::pack_bf16x8(v);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    s += v[e];
+    ss += v[e] * v[e];
+  }
+}
+
+// The normalised chunk c (v, in place) into y (and y32).
+__device__ __forceinline__ void out8(float* v, const float* scale, const float* bias, float mean,
+                                     float inv, bf16* y, float* y32, long row, int d, int c) {
+  const float4* sc = reinterpret_cast<const float4*>(scale) + 2 * c;
+  const float4* bi = reinterpret_cast<const float4*>(bias) + 2 * c;
+  const float4 s0 = sc[0], s1 = sc[1], b0 = bi[0], b1 = bi[1];
+  const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = sfc::ln_apply(v[e], mean, inv, sv[e], bv[e]);
+  if (y32 != nullptr) {
+    float4* dst = reinterpret_cast<float4*>(y32 + row * d) + 2 * c;
+    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+  reinterpret_cast<uint4*>(y + row * d)[c] = sfc::pack_bf16x8(v);
+}
+
+// kInRegs: d <= 32 x 8 x kRegChunks, the row kept in registers.
+template <int IN, bool kInRegs>
 __global__ void __launch_bounds__(kWarps * 32)
     ln_rows_kernel(const void* __restrict__ x, const bf16* __restrict__ xb,
                    const float* __restrict__ scale, const float* __restrict__ bias,
@@ -71,18 +107,24 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int lane = threadIdx.x % 32;
   const long row = static_cast<long>(blockIdx.x) * kWarps + warp;
   if (row >= rows) return;
-  uint4* yr = reinterpret_cast<uint4*>(y + row * d);
   const int chunks = d / 8;
 
+  // The row's sums, each lane over chunks lane, lane + 32, ... in order.
   float s = 0.f, ss = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    float v[8];
-    load8<IN>(x, xb, row, d, c, v);
-    if (xr != nullptr) reinterpret_cast<uint4*>(xr + row * d)[c] = sfc::pack_bf16x8(v);
+  float v[kInRegs ? kRegChunks : 1][8];
+  if constexpr (kInRegs) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      s += v[e];
-      ss += v[e] * v[e];
+    for (int k = 0; k < kRegChunks; ++k) {
+      const int c = lane + 32 * k;
+      if (c < chunks) {
+        load8<IN>(x, xb, row, d, c, v[k]);
+        sum8(v[k], xr, row, d, c, s, ss);
+      }
+    }
+  } else {
+    for (int c = lane; c < chunks; c += 32) {
+      load8<IN>(x, xb, row, d, c, v[0]);
+      sum8(v[0], xr, row, d, c, s, ss);
     }
   }
 #pragma unroll
@@ -95,21 +137,30 @@ __global__ void __launch_bounds__(kWarps * 32)
   const float inv = rsqrtf(var + eps);
   if (stats != nullptr && lane == 0) stats[row] = make_float2(mean, inv);
 
-  for (int c = lane; c < chunks; c += 32) {
-    float v[8];
-    load8<IN>(x, xb, row, d, c, v);
+  if constexpr (kInRegs) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int i = c * 8 + e;
-      v[e] = sfc::ln_apply(v[e], mean, inv, scale[i], bias[i]);
+    for (int k = 0; k < kRegChunks; ++k) {
+      const int c = lane + 32 * k;
+      if (c < chunks) out8(v[k], scale, bias, mean, inv, y, y32, row, d, c);
     }
-    if (y32 != nullptr) {
-      float4* dst = reinterpret_cast<float4*>(y32 + row * d) + 2 * c;
-      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    for (int c = lane; c < chunks; c += 32) {
+      load8<IN>(x, xb, row, d, c, v[0]);
+      out8(v[0], scale, bias, mean, inv, y, y32, row, d, c);
     }
-    yr[c] = sfc::pack_bf16x8(v);
   }
+}
+
+template <int IN>
+void launch(int blocks, cudaStream_t s, const void* x, const bf16* xb, const float* sc,
+            const float* bi, bf16* y, float* y32, bf16* xr, float2* st, int rows, int d,
+            float eps) {
+  if (d <= 32 * 8 * kRegChunks)
+    ln_rows_kernel<IN, true><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, y, y32, xr, st, rows,
+                                                            d, eps);
+  else
+    ln_rows_kernel<IN, false><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, y, y32, xr, st,
+                                                             rows, d, eps);
 }
 
 }  // namespace
@@ -137,11 +188,11 @@ extern "C" int sfc_ln_rows_bf16(const void* x, const void* x_b, int x_f32,
   auto* xro = static_cast<bf16*>(xr);
   auto* st = static_cast<float2*>(stats);
   if (x_f32)
-    ln_rows_kernel<kF32><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, yo, y32o, xro, st, rows, d, eps);
+    launch<kF32>(blocks, s, x, xb, sc, bi, yo, y32o, xro, st, rows, d, eps);
   else if (xb != nullptr)
-    ln_rows_kernel<kSum2><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, yo, y32o, xro, st, rows, d, eps);
+    launch<kSum2>(blocks, s, x, xb, sc, bi, yo, y32o, xro, st, rows, d, eps);
   else
-    ln_rows_kernel<kBf16><<<blocks, kWarps * 32, 0, s>>>(x, xb, sc, bi, yo, y32o, xro, st, rows, d, eps);
+    launch<kBf16>(blocks, s, x, xb, sc, bi, yo, y32o, xro, st, rows, d, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,9 +22,10 @@ The launchers below (``ln_rows``, ``ln_rows_bwd``, ``gemm``,
 ``attention_bwd`` (on
 ``csrc/attention_bwd_sm90.cu`` or ``csrc/attention_bwd.cu``),
 ``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``,
-``flash_dkv``, ``local_fwd``, ``local_bwd`` (on the windowed instances of
+``flash_dkv``, ``local_fwd`` (on the windowed instance of ``flash_fwd``'s
+single-step kernel), ``local_bwd`` (on the windowed instances of
 ``flash_dq``'s and ``flash_dkv``'s kernels), ``gather_project``,
-``wgmma_probe``) check
+``wgmma_probe``, and ``gemm_profile``, a timing instrument) check
 device, dtype, shape, contiguity (or, for the flash kernels, strides) and
 alignment, allocate their outputs and workspaces with
 ``torch.empty`` (``torch.zeros`` for sums the kernels accumulate into),
@@ -46,7 +47,8 @@ from typing import Optional
 import torch
 
 __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
-           "gemm_splits", "GEMM_FORMS", "attention_bwd_route",
+           "gemm_splits", "GEMM_FORMS", "gemm_profile", "GEMM_PROFILE_FIELDS",
+           "attention_bwd_route",
            "ATTENTION_BWD_SM90_MAX_N", "ATTENTION_BWD_SM90_MAX_N_DROPOUT",
            "ATTENTION_BWD_SM90_MAX_N_DH192", "ATTENTION_BWD_SM90_LIMITS",
            "ATTENTION_BWD_SM90_FORMS", "gemm_layernorm", "gemm_layernorm_fits",
@@ -59,6 +61,7 @@ __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "ln_rows_bwd_plan", "LN_BWD_ROWS", "LN_BWD_MAX_D", "LN_ROWS_BWD_FORMS", "flash_fwd",
            "flash_fused_bwd", "flash_dq", "flash_dkv", "FLASH_HEAD_DIMS",
            "FLASH_STREAM_BLOCK_K", "local_fwd", "local_bwd", "local_tile_window",
+           "local_fwd_tiles", "local_fwd_key_range",
            "gather_project",
            "wgmma_probe", "WGMMA_FORMS", "flash_kernel_attrs"]
 
@@ -85,6 +88,8 @@ _SIGNATURES = {
     # a, b, bias, residual, residual_f32, z_in, z_out, colsum, c, workspace;
     # c_fp32, M, N, K, trans_a, trans_b, act, splits; stream
     "sfc_gemm_bf16": (_P,) * 10 + (_I,) * 8 + (_P,),
+    # a, b, bias, z_out, c; M, N, K; prof, cap, stream
+    "sfc_gemm_profile": (_P,) * 5 + (_I,) * 3 + (_P, _I, _P),
     "sfc_act_bf16": (_P, _P, _L, _I, _P),
     "sfc_colsum_bf16": (_P, _P, _I, _I, _P),
     "sfc_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -115,7 +120,7 @@ _SIGNATURES = {
     "sfc_gather_project_bf16": (_P,) * 5 + (_I,) * 6 + (_P,),
     # a, b, d; form; stream
     "sfc_wgmma_probe_bf16": (_P, _P, _P, _I, _P),
-    # streaming, out[3] | out[3] | windowed, out[3]
+    # form, out[3] | out[3] | windowed, out[3]
     "sfc_flash_fwd_attrs": (_I, _P),
     "sfc_flash_fused_bwd_attrs": (_P,),
     "sfc_flash_dq_attrs": (_I, _P),
@@ -514,6 +519,39 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     return (c, *extra) if extra else c
 
 
+#: The stamps :func:`gemm_profile` takes of each tile (``sfc_gemm_profile``):
+#: clock64 at each point, then the globaltimer (ns) at the first.
+GEMM_PROFILE_FIELDS = ("start", "products done", "staged", "rows finished", "column sums done",
+                       "globaltimer ns")
+
+
+def gemm_profile(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor):
+    """The forward's fc1 form (``a`` [M, K] @ ``b`` [K, N] + ``bias``,
+    exact-erf GELU, z saved), the first consumer thread of each block
+    stamping its tiles: ``(C, z, stamps)``, stamps int64 [grid, cap, 6] by
+    block and the block's tile number, fields
+    :data:`GEMM_PROFILE_FIELDS`.  A timing instrument, on no model's path
+    (the GEMM holds one block an SM)."""
+    m, k = a.shape
+    n = b.shape[1]
+    if k % 8 or n % 8 or k < 1:
+        raise ValueError(f"gemm_profile: K={k} and N={n} must be positive multiples of 8")
+    _require(a, "a")
+    _require(b, "b", (k, n))
+    _require(bias, "bias", (n,), torch.float32)
+    tiles = _cdiv(m, GEMM_TILE_M) * _cdiv(n, GEMM_TILE_N)
+    grid = min(tiles, _sm_count(a.device))
+    cap = _cdiv(tiles, grid)
+    stamps = torch.zeros((grid, cap, len(GEMM_PROFILE_FIELDS)), dtype=torch.int64,
+                         device=a.device)
+    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    z = torch.empty_like(c)
+    _check(library().sfc_gemm_profile(
+        a.data_ptr(), b.data_ptr(), bias.data_ptr(), z.data_ptr(), c.data_ptr(), m, n, k,
+        stamps.data_ptr(), cap, _stream()), "gemm_profile")
+    return c, z, stamps
+
+
 #: The largest thread-block cluster :func:`gemm_layernorm` launches (the
 #: portable limit): one block per 128 columns, so D <= 1,024.
 GEMM_LN_MAX_CLUSTER = 8
@@ -836,7 +874,11 @@ def local_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     """#12: curve-local attention over q, k, v [B, N, H, 64] (bf16, any
     16-byte-aligned row strides), each query on the keys of the blocks
     within ``halo`` of its own -> out [B, N, H, 64] bf16, contiguous;
-    ``with_lse`` also returns the window's fp32 log-sum-exp [B, H, N]."""
+    ``with_lse`` also returns the window's fp32 log-sum-exp [B, H, N].
+    The windowed instance of #8's single-step kernel
+    (``csrc/flash_fwd_sm90.cu``): a block of 128 queries walks the
+    128-key tiles :func:`local_fwd_tiles`, each warpgroup masking the keys
+    outside its :func:`local_fwd_key_range`."""
     b, n, h, dh = _check_local(q, k, v, block, halo)
     out = torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -861,6 +903,26 @@ def local_tile_window(tile0: int, rows: int, n: int, block: int, halo: int) -> t
     end = min(n, 64 * tile0 + rows)
     first, last = tile0 // bt, (end - 1) // block
     return max(0, (first - halo) * bt), min(tiles, (last + halo + 1) * bt)
+
+
+def local_fwd_tiles(q0: int, n: int, block: int, halo: int) -> tuple:
+    """The 128-key tiles ``[t0, t1)`` that #12's block of the 128 queries
+    from ``q0`` (a multiple of 128, below ``n``) walks: the 64-row tiles
+    of :func:`local_tile_window` over its 128 rows, rounded out to whole
+    128-key tiles (``csrc/flash_fwd_sm90.cu``'s windowed instance, the same
+    arithmetic); keys past ``n`` read as zero and are masked."""
+    lo, hi = local_tile_window(q0 // 64, 128, n, block, halo)
+    return lo // 2, (hi + 1) // 2
+
+
+def local_fwd_key_range(row0: int, n: int, block: int, halo: int) -> tuple:
+    """The keys ``[klo, khi)`` that #12's warpgroup of the 64 queries from
+    ``row0`` (a multiple of 64) keeps: the window of their curve block
+    ``qb = row0 // block``, ``[max(0, (qb - halo) block), min(n, (qb +
+    halo + 1) block))``; every other key of the walked tiles gets -1e30
+    (``csrc/flash_fwd_sm90.cu``, the same arithmetic)."""
+    qb = row0 // block
+    return max(0, (qb - halo) * block), min(n, (qb + halo + 1) * block)
 
 
 def local_bwd(q, k, v, g, lse, delta, scale: float, block: int, halo: int):
@@ -905,9 +967,11 @@ def gather_project(x: torch.Tensor, lut: torch.Tensor, w: torch.Tensor,
 #: The GEMM's kernels by ``sfc_gemm_attrs``'s form number: each of the
 #: three layouts (op(A) op(B): NN, NT with b stored [N, K], TN with a
 #: stored [K, M]) with no activation, act or act'(z) in its epilogue, the
-#: split-K sum, and the NN LayerNorm form of :func:`gemm_layernorm`.
+#: split-K sum, the NN LayerNorm form of :func:`gemm_layernorm` and
+#: :func:`gemm_profile`'s instance.
 GEMM_FORMS = tuple(f"{layout}{kind}" for layout in ("NN", "NT", "TN")
-                   for kind in ("", " act", " act'")) + ("split-K sum", "NN LayerNorm")
+                   for kind in ("", " act", " act'")) + ("split-K sum", "NN LayerNorm",
+                                                         "NN act profiled")
 
 #: The operand forms of :func:`wgmma_probe` (``csrc/wgmma_probe.cu``).
 WGMMA_FORMS = ("ss", "rs", "ss_trans_b", "rs_trans_b", "ss_trans_ab")
@@ -962,10 +1026,10 @@ def flash_kernel_attrs() -> dict:
     """What the compiler gave the ``wgmma`` kernels, #1's and #7's eight
     instances (:data:`PACKED_ATTENTION_FORMS`) and #5's six
     (:data:`PACKED_ATTENTION_MASKED_FORMS`), #16's LayerNorm backward
-    (:data:`LN_ROWS_BWD_FORMS`), #8's two forms, #9-#11, #13's windowed
-    instances of #10's and #11's kernels, #14's
-    two instances (x gathered from shared or global memory), the GEMM's
-    three forms, its split-K sum and its LayerNorm form (#15), and the
+    (:data:`LN_ROWS_BWD_FORMS`), #8's two forms and #12's windowed instance
+    of its single step, #9-#11, #13's windowed instances of #10's and
+    #11's kernels, #14's two instances (x gathered from shared or global
+    memory), the GEMM's :data:`GEMM_FORMS`, and the
     attention backward's instances (#4, #6; ``cudaFuncGetAttributes``):
     ``{name: {"registers", "local_bytes", "smem_bytes"}}``, local bytes
     being spills and stack a thread, shared bytes a block."""
@@ -980,6 +1044,7 @@ def flash_kernel_attrs() -> dict:
               for i, name in enumerate(LN_ROWS_BWD_FORMS)),
             ("flash_fwd streaming", lambda a: lib.sfc_flash_fwd_attrs(1, a)),
             ("flash_fwd single step", lambda a: lib.sfc_flash_fwd_attrs(0, a)),
+            ("local_fwd", lambda a: lib.sfc_flash_fwd_attrs(2, a)),
             ("flash_fused_bwd", lib.sfc_flash_fused_bwd_attrs),
             ("flash_dq", lambda a: lib.sfc_flash_dq_attrs(0, a)),
             ("flash_dkv", lambda a: lib.sfc_flash_dkv_attrs(0, a)),

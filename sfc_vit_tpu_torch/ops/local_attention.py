@@ -9,8 +9,12 @@ the query in the image, which is the whole point of the curve layout.
 The TPU kernels it replaces and their Hopper counterparts, CUDA C++ for
 sm_90a:
 
-  * #12 ``_kernel`` -> ``csrc/local_fwd.cu``, the windowed form of the
-    flash forward's single K step (:func:`local_fwd`): fp32
+  * #12 ``_kernel`` -> the windowed instance of #8's Hopper kernel
+    (``csrc/flash_fwd_sm90.cu``'s single K step: ``wgmma`` on tiles a
+    producer warp's TMA ring brings, the softmax in registers), a block of
+    128 queries walking only the 128-key tiles of its window
+    (``_build.local_fwd_tiles``, each warpgroup masking the keys outside
+    its own, ``_build.local_fwd_key_range``; :func:`local_fwd`): fp32
     logits times scale over the query's whole window, the row's max and
     sum, ``P = p / l`` normalised in fp32 and *then* rounded to the input
     dtype, then an fp32 P.V rounded once; with autograd also the fp32

@@ -727,6 +727,94 @@ def test_gemm_epilogues_in_every_form(cuda, form, r, n):
     torch.testing.assert_close(dz, want + res32, **F32_SUM_TOL)
 
 
+#: The persistent walk's edges (rows, K, N): one tile; fewer tiles than
+#: SMs; 265 tiles (= 2 x 132 + 1: block 0 takes three, the others two);
+#: K of one 64-deep slice; K not a multiple of 64 with ragged M and N; K
+#: of 8.  TN reads ``rows`` as the contraction (split-K from 512 rows on)
+#: and K as C's rows.
+GEMM_EDGES = [(128, 768, 128), (1000, 768, 1024), (6784, 256, 640), (300, 64, 256),
+                  (333, 200, 136), (77, 8, 24)]
+
+
+def _epilogue_want(prod, bias=None, act=None, z_in=None, residual=None, residual_f32=None):
+    """fp32 C (before its rounding), the rounded pre-activation and the
+    column sums of ``_build.gemm``'s epilogue over the fp32 product."""
+    pre = prod if bias is None else prod + bias
+    if z_in is not None:
+        z = z_in.float()
+        grad = (0.5 * (1 + torch.erf(z * 2 ** -0.5)) + z * torch.exp(-0.5 * z * z)
+                * (2 * np.pi) ** -0.5) if act == "gelu" else (z > 0).float()
+        out = pre * grad
+    else:
+        out = F.gelu(pre) if act == "gelu" else F.relu(pre) if act == "relu" else pre
+    cs = out.sum(0)
+    if residual is not None:
+        out = out + residual.float()
+    if residual_f32 is not None:
+        out = out + residual_f32
+    return out, pre.bfloat16(), cs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, k, n", GEMM_EDGES)
+@pytest.mark.parametrize("form", ["NN", "NT", "TN"])
+def test_gemm_edges(cuda, form, rows, k, n):
+    """The plain product at the walk's edges, bf16 and fp32 C, against
+    the fp32 product; the same bits on a second call."""
+    a, b, want = _gemm_operands(np.random.default_rng(55), form, rows, n, k)
+    got = _gemm(form, a, b)
+    torch.testing.assert_close(got.float(), want.bfloat16().float(), **ONE_ROUND_TOL)
+    assert torch.equal(got, _gemm(form, a, b))
+    got = _gemm(form, a, b, out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, **F32_SUM_TOL)
+    assert torch.equal(got, _gemm(form, a, b, out_dtype=torch.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, k, n", [(333, 200, 136), (6784, 256, 640)])
+@pytest.mark.parametrize("kind", ["none", "gelu", "relu", "gelu'", "relu'"])
+@pytest.mark.parametrize("form", ["NN", "NT", "TN"])
+def test_gemm_every_act_kind_and_epilogue_term(cuda, form, kind, rows, k, n):
+    """Each act kind with each epilogue term: act (or none) with the bias,
+    save_z, colsum and a bf16 residual into a bf16 C, then with an fp32
+    residual into an fp32 C; act'(z_in) with colsum into a bf16 C, then
+    with an fp32 residual into an fp32 C.  C and z give the same bits on a
+    second call (the column sums meet by atomics, in any order)."""
+    rng = np.random.default_rng(56)
+    a, b, prod = _gemm_operands(rng, form, rows, n, k)
+    m = prod.shape[0]
+    bias = _randn(rng, n, dtype=torch.float32)
+    res, res32 = _randn(rng, m, n), _randn(rng, m, n, dtype=torch.float32)
+    act = None if kind == "none" else kind.rstrip("'")
+    cs_tol = dict(rtol=1e-3, atol=1e-2)
+    if kind.endswith("'"):
+        zin = _randn(rng, m, n)
+        calls = [dict(act=act, z_in=zin, colsum=True),
+                 dict(act=act, z_in=zin, colsum=True, residual_f32=res32,
+                      out_dtype=torch.float32)]
+    else:
+        calls = [dict(bias=bias, act=act, save_z=True, colsum=True, residual=res),
+                 dict(bias=bias, act=act, colsum=True, residual_f32=res32,
+                      out_dtype=torch.float32)]
+    for kw in calls:
+        outs = _gemm(form, a, b, **kw)
+        c, *extra = outs
+        want, want_z, want_cs = _epilogue_want(
+            prod, kw.get("bias"), act, kw.get("z_in"), kw.get("residual"),
+            kw.get("residual_f32"))
+        if c.dtype == torch.float32:
+            torch.testing.assert_close(c, want, **F32_SUM_TOL)
+        else:
+            torch.testing.assert_close(c.float(), want.bfloat16().float(), **ONE_ROUND_TOL)
+        if kw.get("save_z"):
+            torch.testing.assert_close(extra[0].float(), want_z.float(), **ONE_ROUND_TOL)
+        torch.testing.assert_close(extra[-1], want_cs, **cs_tol)
+        again = _gemm(form, a, b, **kw)
+        assert torch.equal(c, again[0])
+        if kw.get("save_z"):
+            assert torch.equal(extra[0], again[1])
+
+
 @pytest.mark.gpu
 def test_gemm_split_k_repeats_bit_for_bit(cuda):
     """dW_out's shape at ViT-B batch 256 (+ 8 ragged rows): the TN product
@@ -831,13 +919,15 @@ def test_attention_bwd_routes_on_either_side_of_the_limit(cuda, dh, dropout, n):
 
 @pytest.mark.gpu
 def test_gemm_and_attention_bwd_attrs_without_spills(cuda):
-    """``flash_kernel_attrs`` lists the GEMM's three forms, its split-K sum
-    and its LayerNorm form (#15), and the attention backward's five
+    """``flash_kernel_attrs`` lists the GEMM's nine instances (three
+    layouts, three act kinds), its split-K sum, LayerNorm form (#15) and
+    ``gemm_profile``'s instance, and the attention backward's five
     instances (#4, #6), none with local memory (spills)."""
     attrs = _build.flash_kernel_attrs()
     names = ({f"gemm {f}" for f in _build.GEMM_FORMS}
              | set(_build.ATTENTION_BWD_SM90_FORMS))
-    assert "gemm NN LayerNorm" in names and "attention_bwd_sm90" in names
+    assert {"gemm NN LayerNorm", "gemm NN act", "gemm NN act profiled",
+            "attention_bwd_sm90"} <= names
     assert names <= set(attrs)
     for name in names:
         assert attrs[name]["local_bytes"] == 0, name
@@ -1326,10 +1416,11 @@ def test_flash_kernel_attrs_list_the_wgmma_kernels_without_spills(cuda):
     """``flash_kernel_attrs`` reports #1's and #7's eight instances (the
     one-pass forms to 128, 192, 200 and 256 keys at Dh 64 among them), #5's
     six masked ones, #16's three LayerNorm-backward instances, #8's two
-    forms, #9-#11, #13's windowed instances of #10's and #11's kernels and
-    #14's two instances, none of them with local memory (spills)."""
+    forms and #12's windowed instance of its single step, #9-#11, #13's
+    windowed instances of #10's and #11's kernels and #14's two instances,
+    none of them with local memory (spills)."""
     attrs = _build.flash_kernel_attrs()
-    assert {"flash_fwd streaming", "flash_fwd single step", "flash_fused_bwd",
+    assert {"flash_fwd streaming", "flash_fwd single step", "local_fwd", "flash_fused_bwd",
             "flash_dq", "flash_dkv", "local_bwd dq", "local_bwd dkv",
             "packed_attention dh64 one pass",
             "packed_attention dh64 two passes", "packed_attention dh192 one pass",

@@ -2,7 +2,7 @@
 CurveViT against the JAX package on the CPU.
 
 ``local_fwd_ref`` and ``local_bwd_ref`` (the plain versions of the
-windowed kernels: ``csrc/local_fwd.cu``, and the windowed instances of
+windowed kernels: the windowed instances of ``csrc/flash_fwd_sm90.cu``,
 ``csrc/flash_bwd_dq_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu``) are
 held against JAX's
 ``_local_fwd`` / ``_local_bwd`` in interpret mode at ragged lengths (300

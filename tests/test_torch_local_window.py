@@ -45,3 +45,30 @@ def test_local_tile_window_walks_exactly_the_tiles_jax_keeps(block, halo, n):
         lo, hi = _build.local_tile_window(t, 128, n, block, halo)
         rows = np.arange(64 * t, min(n, 64 * t + 128))
         assert set(range(lo, hi)) == _tiles_meeting(rows, n, block, halo), (t, lo, hi)
+
+
+@pytest.mark.parametrize("n", [300, 700, 5000, 12288, 16384])
+@pytest.mark.parametrize("halo", [1, 2])
+@pytest.mark.parametrize("block", [64, 128, 192])
+def test_local_fwd_plan_keeps_exactly_the_pairs_jax_keeps(block, halo, n):
+    """#12's plan (``csrc/flash_fwd_sm90.cu``'s windowed instance): a block
+    of 128 queries walks the 128-key tiles ``_build.local_fwd_tiles``, and
+    each of its two warpgroups (64 queries, one curve block) keeps the keys
+    of those tiles inside ``_build.local_fwd_key_range``.  For every query
+    below n the keys kept are exactly JAX's ``|i // block - j // block| <=
+    halo, j < n``: none lost to the tile walk, none extra from the
+    rounding out to 128 keys or from the other warpgroup's window."""
+    j = np.arange(n)
+    for q0 in range(0, n, 128):
+        t0, t1 = _build.local_fwd_tiles(q0, n, block, halo)
+        assert 0 <= t0 < t1 <= -(-n // 128)
+        walked = np.arange(128 * t0, min(n, 128 * t1))
+        for row0 in (q0, q0 + 64):
+            rows = np.arange(row0, min(n, row0 + 64))
+            if rows.size == 0:
+                continue
+            assert np.unique(rows // block).size == 1  # one curve block a warpgroup
+            klo, khi = _build.local_fwd_key_range(row0, n, block, halo)
+            kept = walked[(walked >= klo) & (walked < khi)]
+            jax_keeps = j[np.abs(j // block - row0 // block) <= halo]
+            assert np.array_equal(kept, jax_keeps), (q0, row0)
