@@ -2,9 +2,10 @@
 """Drive the PyTorch port's ViT-B/16 serving path and train step, the
 family-A flagship's train step and serving path (also with its fused
 tokenizer, and at MLP 1,024 through the post-norm tail), the hierarchical
-family-A model's, and the long-context models' (16,384 tokens with token
-merge, its hybrid local/global schedule, and 4,096) train steps and
-serving, once on one NVIDIA GPU.
+family-A model's, the long-context models' (16,384 tokens with token
+merge, its hybrid local/global schedule, and 4,096) and the reference
+notebook's model's (fp32 and bf16, 2-D and 1-D tokenizers) train steps
+and serving, once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one
                                  # NVIDIA H100 (sm_90a) and nvcc
@@ -19,7 +20,8 @@ Phases, each of which raises (non-zero exit) on failure:
    #13's windowed instances of #10's and #11's kernels, #14, the GEMM's
    three forms, split-K sum and LayerNorm form (#15) and the attention
    backward's five instances (#4, #6)) and of the LayerNorm backward's
-   three, and fails if any spills;
+   three and the fp32 SIMT kernels of #5, #6, #7 and #14, and fails if any
+   spills;
 3. kernels: each fused block against its plain PyTorch version at the
    ViT-B/16 serving shapes (x [64, 196, 768] bf16, 12 heads of 64,
    F = 3072), with its error, tolerance and time beside the plain one;
@@ -169,6 +171,23 @@ Phases, each of which raises (non-zero exit) on failure:
    each the launch counts (layers x steps or forwards), every parameter
    moved, one step's gradients and the served logits against the plain
    versions, train and forward img/s, a profile of the train step.
+14. notebook: the fp32 kernels of #5, #6, #7 and #14 (``csrc/gemm_f32.cu``,
+   ``packed_attn_f32.cu``, ``attention_bwd_f32.cu``,
+   ``gather_project_f32.cu``: SIMT FFMA, no TF32) against their plain
+   versions within 1e-4 of each tensor's largest |value| at the notebook's
+   shapes (x [32, 64, 256], 4 heads of 64, mask at keep 0.9; its fused 2-D
+   and 1-D tokenizers) and the flagship's fp32 ones ([512, 64, 768], 4 heads
+   of 192; its three tokenizer levels), each timed beside its bound (67
+   TFLOP/s fp32, 3.35 TB/s) and a library call (torch.matmul, SDPA without
+   dropout, ``index_select`` + ``F.linear``); then
+   ``build_model(preset_config("notebook"))`` trained 4 steps in fp32 at
+   batch 32 (curves hilbert, raster, random), evaluated and served
+   (``'random'`` refused by the engine), the same in bf16 with the fused
+   tokenizer at batch 512 through the Hopper #5/#6/#7/#14, and the 1-D
+   tokenizer at patch 4 (256 tokens), fused, in fp32 and bf16: launch
+   counts = layers x steps, eval batches and served forwards, every
+   parameter moved, one step's gradients and the served logits against
+   the plain versions.
    Then no module of jax, flax or the JAX package may have loaded.
 
 The line before the last is one JSON object describing the kernels; the
@@ -852,6 +871,8 @@ def _masked_attention_bwd_phase(card: str) -> None:
         wmma()
         _frac_err("dqkv of csrc/attention_bwd.cu", old, got, BWD_TOL)
         ms, old_ms = _ab_ms(run, wmma)
+        _, plain_ms = _ab_ms(run, lambda: attention_bwd_ref(qkv, att, datt, lse, h, n, s,
+                                                            mask=mask, keep=FA_KEEP))
         q, k, v = qkv.view(b, n, 3, h, dh).unbind(2)
         _, sdpa_bwd = _sdpa_ms(q, k, v, datt.view(b, n, h, dh))
         flops = 5 * 2 * b * h * n * n * dh
@@ -859,6 +880,7 @@ def _masked_attention_bwd_phase(card: str) -> None:
         bound = _bound(flops, nbytes)
         print(f"attention backward of #6 [{b}, {n}, {h} x {dh}] with the mask: kernel "
               f"{ms:.4f} ms, csrc/attention_bwd.cu {old_ms:.4f} ms ({old_ms / ms:.2f}x), "
+              f"plain version (attention_bwd_ref) {plain_ms:.4f} ms, "
               f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; {nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.1f} GFLOP), {bound['bound_ms'] / ms:.1%} of it; SDPA backward "
               f"without dropout (a yardstick for the unmasked work only) {sdpa_bwd:.4f} ms; "
@@ -1023,13 +1045,15 @@ def _ln_bwd_case(card: str, form: str, rows: int, d: int, repeat: bool = True) -
         return torch.ops.aten.native_layer_norm_backward(gy, xn, [d], mean, rstd, w, None,
                                                          [True, True, False])
     ms, native_ms = _ab_ms(run, native)
+    x_b = kw["x_b"].float() if "x_b" in kw else 0.0
+    _, plain_ms = _ab_ms(run, lambda: ln_bwd_fp32(x.float() + x_b, dxn.float(), s))
     nbytes = rows * d * 10 + 4 * d * (1 + 2 + (form != "c"))
     bound = _bound(15 * rows * d, nbytes)
     print(f"{label}: kernel {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
-          f"{nbytes / 1e6:.1f} MB), {bound['bound_ms'] / ms:.1%} of it; "
-          f"native_layer_norm_backward on the same rows (bf16 in and out, the plain "
-          f"LayerNorm-backward part only) {native_ms:.4f} ms; {card}")
-    return dict(ms=ms, library_ms=native_ms, max_abs_err=err, **bound)
+          f"{nbytes / 1e6:.1f} MB), {bound['bound_ms'] / ms:.1%} of it; plain version "
+          f"(ln_bwd_fp32) {plain_ms:.4f} ms; native_layer_norm_backward on the same rows (bf16 "
+          f"in and out, the plain LayerNorm-backward part only) {native_ms:.4f} ms; {card}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=native_ms, max_abs_err=err, **bound)
 
 
 def _lr_zero_state(model) -> TrainState:
@@ -2547,6 +2571,427 @@ def phase_tail_models(card: str) -> dict:
     return {name: a[name] + h[name] for name in a}
 
 
+#: The reference notebook's model in fp32 (``preset_config("notebook")``,
+#: ``notebooks/hilbert.ipynb``'s batch 32): 64 tokens of D 256, 4 heads of
+#: 64, MLP 256; and the flagship's own fp32 layer (dtype=None) at batch
+#: 512: 64 tokens of D 768, 4 heads of 192.
+NB_B, NB_N, NB_D, NB_HEADS = 32, 64, 256, 4
+NB_STEPS = 4
+NB_REQUESTS, NB_BATCH_SIZES = (1, 20, 32), (8, 32)
+F32_SHAPES = ((NB_B, NB_N, NB_D, NB_HEADS), (FA_B, FA_N, FA_D, FA_HEADS))
+#: Each fp32 kernel against its plain version: the same fp32 arithmetic
+#: summed in another order (torch.matmul in full fp32: phase_device clears
+#: the TF32 flags, and a float32 matmul does not use TF32 by default);
+#: every error within this fraction of its tensor's largest |value|.
+F32_TOL = 1e-4
+#: One fp32 train step's gradients, kernels against plain versions: at
+#: 2,048 rows one ReLU input within rounding of 0 flips between two fp32
+#: summation orders and moves linear1's bias gradient by ~0.5 % (measured
+#: on the CPU, tests/test_torch_notebook_model.py's KINK_GRAD).
+F32_GRAD_REL_TOL = 1e-2
+#: The H100 SXM's fp32 rate outside the tensor cores (NVIDIA's data sheet),
+#: the operations' denominator of the fp32 kernels' bounds.
+PEAK_F32_FLOPS = 67e12
+
+
+def _graph_turns(kernel, plain, iters: int = 20):
+    """:func:`_ab_ms` by graph replay (:func:`_graph_ms`), for calls shorter
+    than the Python launch path."""
+    p1, k1, k2, p2 = (_graph_ms(f, iters) for f in (plain, kernel, kernel, plain))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _bound_f32(flops: float, nbytes: float) -> dict:
+    """:func:`_bound` at the fp32 FFMA rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def _f32_row(name: str, shape: str, t: dict, card: str, library: str = "") -> None:
+    print(f"{name}, {shape}, fp32: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+          + (f", {library} {t['library_ms']:.4f} ms" if library else "") + f", {card}")
+
+
+def _gemm_f32_cases(card: str, x2, w_in, b_in, g2, dqkv, w_out) -> None:
+    """csrc/gemm_f32.cu alone in each form of #5's and #6's chains against
+    torch.matmul (fp32), with its TFLOP/s and bound."""
+    cases = (("QKV NN + bias", lambda: _build.gemm_f32(x2, w_in, bias=b_in),
+              lambda: torch.addmm(b_in, x2, w_in), (x2, w_in, b_in)),
+             ("datt NT", lambda: _build.gemm_f32(g2, w_out, trans_b=True),
+              lambda: g2 @ w_out.T, (g2, w_out)),
+             ("dW_in TN", lambda: _build.gemm_f32(x2, dqkv, trans_a=True),
+              lambda: x2.T @ dqkv, (x2, dqkv)),
+             ("dx NT", lambda: _build.gemm_f32(dqkv, w_in, trans_b=True),
+              lambda: dqkv @ w_in.T, (dqkv, w_in)))
+    turns = _graph_turns if x2.shape[0] == NB_B * NB_N else _ab_ms
+    for name, kern, lib, operands in cases:
+        got, want = kern(), lib()
+        err = _frac_err(f"gemm_f32 {name}", got, want, F32_TOL)
+        ms, lib_ms = turns(kern, lib, iters=10)
+        depth = operands[0].shape[0] if "TN" in name else operands[0].shape[1]
+        flops = 2 * got.numel() * depth
+        b = _bound_f32(flops, 4 * (got.numel() + sum(t.numel() for t in operands)))
+        print(f"gemm_f32 {name} [{got.shape[0]} x {got.shape[1]}, K {depth}]: kernel "
+              f"{ms:.4f} ms ({_tflops(flops, ms)}), torch.matmul fp32 {lib_ms:.4f} ms "
+              f"({_tflops(flops, lib_ms)}), bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+              f"max abs err {err:.3g}, {card}")
+
+
+def phase_notebook_kernels(card: str) -> dict:
+    """The fp32 kernels of #5, #6, #7 and #14 against their plain versions
+    at the notebook's shapes (x [32, 64, 256], 4 heads of 64, the mask at
+    keep 0.9; the tokenizer over [32, 32, 32, 3] images) and at the
+    flagship's fp32 shapes ([512, 64, 768], 4 heads of 192; its three
+    tokenizer levels), each timed beside its bound (fp32 FFMA at 67
+    TFLOP/s, 3.35 TB/s) and a library call: torch.matmul for the GEMM,
+    SDPA without dropout for the attention (a yardstick only),
+    ``index_select`` + ``F.linear`` for #14.  Returns the notebook shape's
+    entries of the kernels line."""
+    gen = torch.Generator().manual_seed(11)
+    dgen = torch.Generator(device=DEVICE).manual_seed(11)
+    results = {}
+    for b, n, d, h in F32_SHAPES:
+        shape = f"x [{b}, {n}, {d}], {h} heads of {d // h}"
+        dh, r = d // h, b * n
+        f32 = dict(dtype=torch.float32)
+        x, g = _randn(gen, b, n, d, **f32), _randn(gen, b, n, d, **f32)
+        w_in = _randn(gen, d, 3 * d, scale=d ** -0.5, **f32)
+        b_in = _randn(gen, 3 * d, scale=0.1, **f32)
+        w_out, b_out = _randn(gen, d, d, scale=d ** -0.5, **f32), _randn(gen, d, scale=0.1, **f32)
+        mask = torch.rand((b, h, n, n), device=DEVICE, generator=dgen) < FA_KEEP
+        fwd = (x, w_in, b_in, w_out, b_out, mask)
+        with torch.no_grad():
+            got = torch_mha_train_fwd(*fwd, h, keep=FA_KEEP)
+            want = torch_mha_fwd_ref(*fwd, h, keep=FA_KEEP, save_acts=True)
+            print(f"#5 fp32 (torch_mha_train_fwd vs torch_mha_fwd_ref), {shape}:")
+            err5 = max(_frac_err(nm, a, w_, F32_TOL)
+                       for nm, a, w_ in zip(("y", "qkv", "att", "lse"), got, want))
+            _, qkv, att, lse = got
+            saved = (x, g, w_in, w_out, mask, qkv, att, lse)
+            g_k = torch_mha_bwd(*saved, h, keep=FA_KEEP)
+            g_p = torch_mha_bwd_ref(*saved, h, keep=FA_KEEP)
+            print(f"#6 fp32 (torch_mha_bwd vs torch_mha_bwd_ref), {shape}:")
+            err6 = max(_frac_err(nm, a, w_, F32_TOL) for nm, a, w_ in zip(
+                ("dx", "dw_in", "db_in", "dw_out", "db_out"), g_k, g_p))
+            # the notebook's calls last tens of microseconds, under the Python
+            # launch path: timed there by graph replay, in turns
+            turns = _graph_turns if b == NB_B else _ab_ms
+            ms5, plain5 = turns(lambda: torch_mha_train_fwd(*fwd, h, keep=FA_KEEP),
+                                lambda: torch_mha_fwd_ref(*fwd, h, keep=FA_KEEP,
+                                                          save_acts=True), iters=10)
+            ms6, plain6 = turns(lambda: torch_mha_bwd(*saved, h, keep=FA_KEEP),
+                                lambda: torch_mha_bwd_ref(*saved, h, keep=FA_KEEP), iters=10)
+            attn_flops = 2 * b * h * n * n * dh
+            t5 = dict(max_abs_err=err5, ms=ms5, plain_ms=plain5, library_ms=None,
+                      **_bound_f32(8 * r * d * d + 2 * attn_flops,
+                                   4 * (6 * r * d + 4 * d * d + 4 * d) + b * h * n * n
+                                   + 4 * b * h * n))
+            t6 = dict(max_abs_err=err6, ms=ms6, plain_ms=plain6, library_ms=None,
+                      **_bound_f32(16 * r * d * d + 5 * attn_flops,
+                                   4 * (7 * r * d + 8 * d * d + 4 * d) + b * h * n * n
+                                   + 4 * b * h * n))
+            _f32_row("#5 (gemm_f32 + packed_attn_f32 with the mask and lse + gemm_f32)",
+                     shape, t5, card)
+            _f32_row("#6 (colsum, gemm_f32 x 4, attention_bwd_f32)", shape, t6, card)
+            dqkv = _randn(gen, r, 3 * d, **f32)
+            _gemm_f32_cases(card, x.view(r, d), w_in, b_in, g.view(r, d), dqkv, w_out)
+
+            # the attention alone, masked with lse (#5's) and its backward (#6's)
+            s = dh ** -0.5
+            datt = _randn(gen, b, n, d, **f32)
+            a_k, l_k = _build.attention_fwd(qkv, h, n, s, with_lse=True, mask=mask, keep=FA_KEEP)
+            a_p, l_p = attention_fwd_ref(qkv, h, n, s, mask=mask, keep=FA_KEEP)
+            print(f"packed_attn_f32 with the mask and lse, qkv [{b}, {n}, {3 * d}]:")
+            _frac_err("att", a_k, a_p, F32_TOL)
+            _frac_err("lse", l_k, l_p, F32_TOL)
+            q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4))
+            kern = lambda: _build.attention_fwd(  # noqa: E731
+                qkv, h, n, s, with_lse=True, mask=mask, keep=FA_KEEP)
+            plain = lambda: attention_fwd_ref(qkv, h, n, s, mask=mask, keep=FA_KEEP)  # noqa: E731
+            p1, k1, k2, p2 = (_graph_ms(f) for f in (plain, kern, kern, plain))
+            t = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                     library_ms=_graph_ms(lambda: TF.scaled_dot_product_attention(q, k, v)),
+                     **_bound_f32(4 * b * h * n * n * dh,
+                                  4 * (4 * r * d + b * h * n) + b * h * n * n))
+            _f32_row("packed_attn_f32 (#5's attention alone, by graph replay)",
+                     f"qkv [{b}, {n}, {3 * d}]", t, card, "SDPA fp32 forward without dropout")
+            d_k = _build.attention_bwd(qkv, a_k, datt, l_k, h, n, s, mask=mask, keep=FA_KEEP)
+            d_p = attention_bwd_ref(qkv, a_k, datt, l_k, h, n, s, mask=mask, keep=FA_KEEP)
+            print(f"attention_bwd_f32 with the mask, qkv [{b}, {n}, {3 * d}]:")
+            _frac_err("dqkv", d_k, d_p, F32_TOL)
+            _check(torch.equal(_build.attention_bwd(qkv, a_k, datt, l_k, h, n, s, mask=mask,
+                                                    keep=FA_KEEP), d_k),
+                   "attention_bwd_f32 differs on a second call")
+            bms, bplain = turns(
+                lambda: _build.attention_bwd(qkv, a_k, datt, l_k, h, n, s, mask=mask,
+                                             keep=FA_KEEP),
+                lambda: attention_bwd_ref(qkv, a_k, datt, l_k, h, n, s, mask=mask,
+                                          keep=FA_KEEP), iters=10)
+            with torch.enable_grad():
+                _, sdpa_bwd = _sdpa_ms(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), datt.view(b, n, h, dh))
+            t = dict(ms=bms, plain_ms=bplain, library_ms=sdpa_bwd,
+                     **_bound_f32(10 * b * h * n * n * dh,
+                                  4 * (8 * r * d + 2 * b * h * n) + b * h * n * n))
+            _f32_row("attention_bwd_f32 (#6's attention backward alone, bit for bit twice)",
+                     f"qkv [{b}, {n}, {3 * d}]", t, card, "SDPA fp32 backward without dropout")
+
+            # #7 in fp32: the eval and serving attention, no mask, no lse
+            t7 = _packed_case_f32(card, qkv, h)
+        if (b, n, d, h) == F32_SHAPES[0]:
+            results.update(fused_torch_mha_f32=t5, fused_torch_mha_bwd_f32=t6,
+                           packed_flash_attention_f32=t7)
+        del fwd, saved, got, want, g_k, g_p, qkv, att, lse, mask
+    results["gather_project_f32"] = _gp_f32_cases(card, gen)
+    return results
+
+
+def _packed_case_f32(card: str, qkv, heads: int) -> dict:
+    """#7's fp32 form on ``qkv`` against ``_packed_xla_ref`` (F32_TOL), by
+    graph replay in turns with it and beside SDPA fp32."""
+    b, n, w = qkv.shape
+    inner, dh = w // 3, w // 3 // heads
+    s = dh ** -0.5
+    print(f"packed_flash_attention fp32 (#7), qkv [{b}, {n}, {w}]:")
+    err = _frac_err("out", packed_flash_attention(qkv, heads), _packed_xla_ref(qkv, heads, s),
+                    F32_TOL)
+    q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4))
+    kern = lambda: packed_flash_attention(qkv, heads)  # noqa: E731
+    plain = lambda: _packed_xla_ref(qkv, heads, s)  # noqa: E731
+    p1, k1, k2, p2 = (_graph_ms(f) for f in (plain, kern, kern, plain))
+    t = dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+             library_ms=_graph_ms(lambda: TF.scaled_dot_product_attention(q, k, v)),
+             **_bound_f32(4 * b * heads * n * n * dh, 4 * (b * n * w + b * n * inner)))
+    _f32_row("packed_flash_attention (#7, by graph replay)", f"qkv [{b}, {n}, {w}]", t, card,
+             "SDPA fp32 forward")
+    return t
+
+
+def _gp_f32_cases(card: str, gen) -> dict:
+    """#14's fp32 form at the notebook's fused 2-D tokenizer (x [32, 64, 48],
+    group 1; the kernels line), its 1-D tokenizer at patch 4 (x [32, 1024,
+    3], group 4) and the flagship's three fp32 levels at batch 512, with a
+    random bias, against ``gather_project_ref``, by graph replay beside
+    ``index_select`` + ``F.linear``.  Returns the first case."""
+    nb = preset_config("notebook", fused=True)
+    flag = build_tokenizer(preset_config("flagship", fused=True))
+    cases = [("2-D, notebook", build_tokenizer(nb).proj, NB_B, nb.patch_size),
+             ("1-D at patch 4", build_tokenizer(preset_config(
+                 "notebook", tokenizer="1d", fused=True)).proj, NB_B, 1)]
+    cases += [(f"flagship level {i}", getattr(flag, f"level_{i}").proj, FA_B, pre)
+              for i, pre in enumerate(flag.pre_patch_sizes)]
+    first = None
+    for label, proj, b, pre in cases:
+        x = patchify(_randn(gen, b, 32, 32, 3, dtype=torch.float32), pre).contiguous()
+        w = proj.kernel.reshape(-1, proj.kernel.shape[-1]).to(DEVICE)
+        lut, grp = proj.lut.to(DEVICE), getattr(proj, "group", 1)
+        bias = _randn(gen, w.shape[1], dtype=torch.float32)
+        bsz, n, kdim = x.shape
+        m, d = lut.numel() // grp, w.shape[1]
+        print(f"gather_project_f32 (#14), {label}: x [{bsz}, {n}, {kdim}], group {grp} -> "
+              f"[{bsz}, {m}, {d}]:")
+        with torch.no_grad():
+            err = _frac_err("out", gp.gather_project(x, lut, w, bias, grp),
+                            gp.gather_project_ref(x, lut, w, bias, grp), F32_TOL)
+            wt, lut64 = w.t().contiguous(), lut.long()
+            kern = lambda: gp.gather_project(x, lut, w, bias, grp)  # noqa: E731
+            plain = lambda: gp.gather_project_ref(x, lut, w, bias, grp)  # noqa: E731
+            p1, k1, k2, p2 = (_graph_ms(f) for f in (plain, kern, kern, plain))
+            lib_ms = _graph_ms(lambda: TF.linear(
+                x.index_select(1, lut64).reshape(bsz, m, grp * kdim), wt, bias))
+        t = dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
+                 **_bound_f32(2 * bsz * m * grp * kdim * d,
+                              4 * (bsz * n * kdim + grp * kdim * d + d + bsz * m * d)
+                              + 4 * m * grp))
+        _f32_row("gather_project_f32 (#14, by graph replay)", label, t, card,
+                 "index_select + F.linear")
+        first = first or t
+    return first
+
+
+def _notebook_counts() -> dict:
+    m, p, g = fused_torch_mha, packed_flash_attention, gp.gather_project
+    return {"fused_torch_mha_f32": m.f32_launches, "fused_torch_mha_bwd_f32": m.f32_bwd_launches,
+            "packed_flash_attention_f32": p.f32_launches, "gather_project_f32": g.f32_launches,
+            "fused_torch_mha": m.launches, "fused_torch_mha_bwd": m.bwd_launches,
+            "packed_flash_attention": p.launches, "gather_project": g.launches}
+
+
+def _reset_notebook_counts():
+    m, p, g = fused_torch_mha, packed_flash_attention, gp.gather_project
+    m.launches = m.bwd_launches = m.f32_launches = m.f32_bwd_launches = 0
+    p.launches = p.f32_launches = g.launches = g.f32_launches = 0
+
+
+def _plain_notebook():
+    """Route the notebook's path through the plain versions (comparison
+    only): #5-#7 as :func:`_plain_fa`, #14 through ``gather_project_ref``."""
+    stack = _plain_fa()
+    stack.enter_context(mock.patch.object(gp, "_launch", lambda x, lut, w, b, group:
+                                          gp.gather_project_ref(x, lut, w, b, group)))
+    return stack
+
+
+def _notebook_run(card: str, label: str, cfg, batch: int, timed: bool = False) -> dict:
+    """Train ``build_model(cfg)`` 4 steps at ``batch`` with the Trainer
+    (mixing, dropout), evaluate it and serve it; the launch counts of its
+    main path equal layers x steps (#5/#6), layers x eval batches and
+    served forwards (#7), steps + eval and served forwards (#14, fused).
+    One step's gradients and the served logits against the plain
+    versions; with ``timed``, the train step timed against the plain
+    versions' in turns and profiled.  Returns the counts."""
+    f32 = cfg.dtype is None
+    suffix = "_f32" if f32 else ""
+    fused = cfg.fused and cfg.curve != "random"
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    stats = ((0.5,) * 3, (0.25,) * 3)
+    steps = NB_STEPS
+    train_ds = synthetic_dataset(n=batch * steps, hw=cfg.img_size,
+                                 num_classes=cfg.num_classes, seed=0)
+    test_ds = synthetic_dataset(n=batch, hw=cfg.img_size, num_classes=cfg.num_classes, seed=1)
+    tf = make_eval_transform(*stats, device=DEVICE)
+    trainer = Trainer(model, TrainConfig(num_classes=cfg.num_classes, epochs=1,
+                                         warmup_epochs=1), steps_per_epoch=steps)
+    before = [p.detach().clone() for p in model.parameters()]
+    t0 = time.perf_counter()
+    _reset_notebook_counts()
+    record = trainer.fit(
+        lambda: ((tf(x), y) for x, y in epoch_batches(train_ds, batch, seed=0)),
+        lambda: ((tf(x), y) for x, y in epoch_batches(
+            test_ds, batch, shuffle=False, drop_last=False)))
+    torch.cuda.synchronize()
+    counts = _notebook_counts()
+    print(f"{label}: Trainer.fit, {steps} steps at batch {batch} + eval of {len(test_ds)} "
+          f"({time.perf_counter() - t0:.1f} s): {record}")
+    _check(bool(np.isfinite(record["train_loss"])) and bool(np.isfinite(record["test_loss"])),
+           f"{label}: non-finite loss")
+    _check(trainer.state.step == steps, f"{label}: {trainer.state.step} steps taken")
+    layers = cfg.depth
+    want = {name: 0 for name in counts}
+    want.update({"fused_torch_mha" + suffix: layers * steps,
+                 "fused_torch_mha_bwd" + suffix: layers * steps,
+                 "packed_flash_attention" + suffix: layers,
+                 "gather_project" + suffix: (steps + 1) if fused else 0})
+    print(f"{label}: launches over {steps} steps + 1 eval batch of {layers} layers: {counts}")
+    _check(counts == want, f"{label}: launches {counts}, expected {want}")
+    still = [nm for (nm, p), q in zip(model.named_parameters(), before) if torch.equal(p, q)]
+    _check(not still, f"{label}: parameters unchanged after {steps} steps: {still}")
+    del before
+
+    x, y = next(epoch_batches(train_ds, batch, seed=0))
+    step_batch = (tf(x), torch.from_numpy(y).long().to(DEVICE))
+    state = _lr_zero_state(model)
+    step = make_train_step(cfg.num_classes)
+
+    def one_step():
+        return step(state, step_batch, torch.Generator().manual_seed(7),
+                    torch.Generator(device=DEVICE).manual_seed(7))
+
+    m_k = one_step()
+    grads = {nm: p.grad.detach().clone() for nm, p in model.named_parameters()}
+    with _plain_notebook():
+        m_p = one_step()
+    rel = {nm: float((grads[nm].float() - p.grad.float()).norm() / p.grad.float().norm())
+           for nm, p in model.named_parameters()}
+    worst = max(rel, key=rel.get)
+    tol = F32_GRAD_REL_TOL if f32 else GRAD_REL_TOL
+    print(f"{label}: one train step (mixing, dropout), kernels vs plain versions: loss "
+          f"{float(m_k['loss']):.6f} vs {float(m_p['loss']):.6f}; gradient relative L2 error "
+          f"max {rel[worst]:.4g} ({worst}), median {float(np.median(list(rel.values()))):.4g} "
+          f"over {len(rel)} tensors (tolerance {tol})")
+    _check(rel[worst] <= tol, f"{label}: kernel-path gradients disagree with the plain path")
+    del grads
+    if timed:
+        gen, dgen = torch.Generator().manual_seed(0), torch.Generator(device=DEVICE)
+
+        def step_ms(plain: bool, n_steps: int = 3) -> float:
+            with _plain_notebook() if plain else contextlib.nullcontext():
+                step(state, step_batch, gen, dgen)  # warm-up
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(n_steps):
+                    step(state, step_batch, gen, dgen)
+                torch.cuda.synchronize()
+            return (time.perf_counter() - t) / n_steps * 1e3
+
+        p1, k1, k2, p2 = (step_ms(plain) for plain in (True, False, False, True))
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        print(f"{label}: train step at batch {batch} (mixing, dropout, clip, AdamW): kernels "
+              f"{k_ms:.2f} ms = {batch / k_ms * 1e3:.1f} img/s, plain versions {p_ms:.2f} ms "
+              f"= {batch / p_ms * 1e3:.1f} img/s, {card}")
+        _profile(lambda: step(state, step_batch, gen, dgen),
+                 f"{label} train step at batch {batch}")
+    del state
+
+    if cfg.curve == "random":
+        try:
+            ServingEngine(model, None, (cfg.img_size, cfg.img_size, 3), device=DEVICE)
+        except ValueError as e:
+            print(f"{label}: ServingEngine refuses the model: {e}")
+        else:
+            raise RuntimeError(f"{label}: ServingEngine served a curve='random' model")
+        return counts
+    dt = None if f32 else torch.bfloat16
+    sizes = NB_BATCH_SIZES if f32 else FA_BATCH_SIZES
+    reqs = NB_REQUESTS if f32 else FA_REQUESTS
+    engine = ServingEngine(copy.deepcopy(model), None, (cfg.img_size, cfg.img_size, 3),
+                           batch_sizes=sizes, dtype=dt, device=DEVICE)
+    rng = np.random.default_rng(12)
+    requests = [rng.standard_normal((k, cfg.img_size, cfg.img_size, 3), dtype=np.float32)
+                for k in reqs]
+    _reset_notebook_counts()
+    outs = [engine.predict(r) for r in requests]
+    served = _notebook_counts()
+    forwards = sum(-(-k // sizes[-1]) for k in reqs)
+    want = {name: 0 for name in served}
+    want.update({"packed_flash_attention" + suffix: layers * forwards,
+                 "gather_project" + suffix: forwards if fused else 0})
+    _check(served == want, f"{label}: served launches {served}, expected {want}")
+    with _plain_notebook():
+        plain = np.concatenate([engine.predict(r) for r in requests])
+    outs = np.concatenate(outs)
+    _check(bool(np.isfinite(outs).all()) and outs.shape == (sum(reqs), cfg.num_classes),
+           f"{label}: bad served logits")
+    err, scale = float(np.abs(outs - plain).max()), float(np.abs(plain).max())
+    tol = F32_TOL if f32 else FA_LOGIT_TOL
+    print(f"{label}: served {reqs} images through ServingEngine{sizes}, #7 launched "
+          f"{served['packed_flash_attention' + suffix]} times over {forwards} forwards; "
+          f"kernels vs plain versions max abs err {err:.4g} (max |logit| {scale:.4g}; "
+          f"tolerance {tol} x max |logit| = {tol * scale:.4g})")
+    _check(err <= tol * scale, f"{label}: served logits disagree with the plain forward")
+    for name, count in served.items():
+        counts[name] += count
+    return counts
+
+
+def phase_notebook(card: str) -> dict:
+    """The reference notebook's model (``preset_config("notebook")``:
+    ``VisionTransformer`` over the 2-D Hilbert tokenizer) trained in fp32 at
+    the notebook's batch 32 through the fp32 kernels of #5/#6, evaluated
+    and served through #7's, for the curves hilbert, raster and random (the
+    last not served: it draws a permutation per step); the same in bf16 at
+    batch 512 with the fused tokenizer through the Hopper #5/#6/#7/#14; and
+    the 1-D tokenizer at patch 4 (256 tokens), fused, in fp32 and bf16."""
+    t0 = time.perf_counter()
+    total = {}
+    runs = [(f"notebook fp32, {curve}", preset_config("notebook", curve=curve), NB_B)
+            for curve in ("hilbert", "raster", "random")]
+    runs += [("notebook bf16, fused", preset_config("notebook", fused=True, dtype="bfloat16"),
+              FA_B),
+             ("notebook 1-D patch 4 fp32, fused",
+              preset_config("notebook", tokenizer="1d", fused=True), NB_B),
+             ("notebook 1-D patch 4 bf16, fused",
+              preset_config("notebook", tokenizer="1d", fused=True, dtype="bfloat16"), FA_B)]
+    timed = ("notebook fp32, hilbert", "notebook bf16, fused")
+    for label, cfg, batch in runs:
+        for name, count in _notebook_run(card, label, cfg, batch, label in timed).items():
+            total[name] = total.get(name, 0) + count
+    print(f"notebook phase: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -2565,6 +3010,9 @@ def main() -> int:
     launches.update(phase_fused_flagship(card))
     kernels.update(phase_tail_kernels(card))
     launches.update(phase_tail_models(card))
+    kernels.update(phase_notebook_kernels(card))
+    notebook = phase_notebook(card)
+    launches.update({name: launches.get(name, 0) + count for name, count in notebook.items()})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "sfc_vit_tpu"))
     _check(not leaked, f"the port imported {leaked}")
@@ -2617,6 +3065,18 @@ def main() -> int:
         dict(name="postnorm_tail_bwd", route="cuda",
              source="sfc_vit_tpu_torch/csrc/ln_rows_bwd.cu",
              replaces="sfc_vit_tpu/ops/fused_mlp.py:665"),
+        dict(name="fused_torch_mha_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/packed_attn_f32.cu",
+             replaces="sfc_vit_tpu/ops/fused_torch_attention.py:82"),
+        dict(name="fused_torch_mha_bwd_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/attention_bwd_f32.cu",
+             replaces="sfc_vit_tpu/ops/fused_torch_attention.py:270"),
+        dict(name="packed_flash_attention_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/packed_attn_f32.cu",
+             replaces="sfc_vit_tpu/ops/flash_attention.py:907"),
+        dict(name="gather_project_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/gather_project_f32.cu",
+             replaces="sfc_vit_tpu/ops/gather_project.py:57"),
     ]
     for e in entries:
         k = kernels[e["name"]]

@@ -1,6 +1,6 @@
 """The pre-norm ViT family (``SimpleViT``, ``CurveViT``), family A's
-``VisionTransformer1D`` and ``HierarchicalVisionTransformer1D`` and their
-building blocks and tables."""
+``VisionTransformer``, ``VisionTransformer1D`` and
+``HierarchicalVisionTransformer1D`` and their building blocks and tables."""
 
 from .layers import (
     FactorisedLinear,
@@ -22,7 +22,7 @@ from .simple_vit import (
     curve_pair_pool,
     layer_route,
 )
-from .vit import HierarchicalVisionTransformer1D, VisionTransformer1D
+from .vit import HierarchicalVisionTransformer1D, VisionTransformer, VisionTransformer1D
 
 __all__ = [
     "CurvePatchEmbedding",
@@ -38,6 +38,7 @@ __all__ = [
     "TorchMultiHeadAttention",
     "TorchTransformerEncoderLayer",
     "TransformerSeqEncoder",
+    "VisionTransformer",
     "VisionTransformer1D",
     "build_posemb",
     "curve_pair_pool",

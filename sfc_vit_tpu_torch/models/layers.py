@@ -25,6 +25,11 @@ from :func:`dropout_mask`, which draws from the generator installed by
 device) or, with none installed, from PyTorch's default generator of the
 device; one function, so a test can replay another framework's masks in
 draw order.
+
+The ``'random'`` curve's per-call token permutation (flax's
+``make_rng('permute')``) is drawn the same way: :func:`curve_permutation`
+takes it from the generator :func:`permutation_generator` installs, once
+per installation, through the one draw function :func:`draw_permutation`.
 """
 
 from __future__ import annotations
@@ -49,6 +54,9 @@ __all__ = [
     "dropout",
     "dropout_generator",
     "dropout_mask",
+    "permutation_generator",
+    "curve_permutation",
+    "draw_permutation",
     "TokenAggregator",
     "TorchMultiHeadAttention",
     "TorchTransformerEncoderLayer",
@@ -136,6 +144,48 @@ def dropout_mask(shape, keep: float, device) -> torch.Tensor:
     """A bool keep mask of ``shape``: ``uniform < keep``, as
     ``jax.random.bernoulli`` draws it."""
     return torch.rand(tuple(shape), device=device, generator=_GENERATOR.get()) < keep
+
+
+_PERMUTE: contextvars.ContextVar = contextvars.ContextVar(
+    "permutation_generator", default=None)
+
+
+@contextlib.contextmanager
+def permutation_generator(generator: torch.Generator):
+    """Draw the ``'random'`` curve's token permutation inside the block from
+    ``generator``, once: every forward in the block gets the same one (the
+    counterpart of flax's ``rngs={'permute': key}``: JAX's train step
+    passes one ``k_perm`` to every micro-batch, its eval step the constant
+    ``jax.random.key(0)``)."""
+    token = _PERMUTE.set((generator, {}))
+    try:
+        yield
+    finally:
+        _PERMUTE.reset(token)
+
+
+def draw_permutation(n: int, generator: torch.Generator) -> torch.Tensor:
+    """A permutation of ``range(n)`` from ``generator`` (int64, on the
+    generator's device): ``jax.random.permutation``'s counterpart, the
+    numbers another stream's."""
+    return torch.randperm(n, generator=generator, device=generator.device)
+
+
+def curve_permutation(n: int, device) -> torch.Tensor:
+    """The permutation of ``n`` tokens for this :func:`permutation_generator`
+    block (int64, on ``device``): drawn by :func:`draw_permutation` the
+    first time ``n`` is asked for in the block, the same one after.  Raises
+    outside a block, as flax raises without a ``'permute'`` stream."""
+    scope = _PERMUTE.get()
+    if scope is None:
+        raise RuntimeError(
+            "curve='random' draws a fresh token permutation per step from the "
+            "generator that models.layers.permutation_generator installs (the "
+            "train and eval steps install one); none is installed here")
+    generator, drawn = scope
+    if n not in drawn:
+        drawn[n] = draw_permutation(n, generator)
+    return drawn[n].to(device)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:

@@ -54,7 +54,7 @@ from ..ops.fused_attention_block import fused_attention_block
 from ..ops.fused_mlp import fused_mlp_block, mlp_block_ref
 from ..ops.kernel_utils import ln_fp32
 from ..ops.token_merge import curve_pair_merge_topk
-from ..tokenizers.embeddings import curve_gather, patchify
+from ..tokenizers.patches import curve_gather, patchify
 from ..utils.initializers import lecun_normal as _lecun_normal
 from .posemb import gfpe, sincos_1d
 

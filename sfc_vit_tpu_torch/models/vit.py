@@ -1,9 +1,12 @@
-"""Family-A models in PyTorch: ``VisionTransformer1D`` and
-``HierarchicalVisionTransformer1D``.
+"""Family-A models in PyTorch: ``VisionTransformer``,
+``VisionTransformer1D`` and ``HierarchicalVisionTransformer1D``.
 
-Counterpart of ``sfc_vit_tpu/models/vit.py``.  ``VisionTransformer1D``:
-tokenizer -> optional positional table -> ``MixerBlock`` -> post-norm
+Counterpart of ``sfc_vit_tpu/models/vit.py``.  ``VisionTransformer``:
+tokenizer -> optional positional table -> post-norm
 ``TransformerSeqEncoder`` -> factorised ``MultiLayerPredictor`` (the
+reference's ``vit.py:325-385``; its ``notebooks/hilbert.ipynb`` trains it
+over the 2-D Hilbert and raster tokenizers: the ``'notebook'`` preset).
+``VisionTransformer1D`` adds a ``MixerBlock`` before the encoder (the
 reference's ``vit.py:392-458``; its flagship, ``main.py:276-282``, pairs
 it with the hierarchical Morton tokenizer).
 ``HierarchicalVisionTransformer1D``: one encoder per level of the
@@ -12,9 +15,6 @@ two-layer fusion encoder and a mixing head (the reference's
 ``vit.py:465-545``, repaired as the JAX package repairs it).  NHWC images
 [B, H, W, C] in, logits [B, num_classes] out.  As in the reference, the
 stock models apply no CLS token and no positional encoding.
-
-``VisionTransformer`` waits for the 2-D tokenizer (ROADMAP.md queue 1
-items 6 and 7); ``registry.build_model`` names it.
 """
 
 from __future__ import annotations
@@ -28,22 +28,27 @@ from ..utils.initializers import normal
 from .layers import MixerBlock, MultiLayerPredictor, TransformerSeqEncoder
 from .posemb import build_posemb
 
-__all__ = ["VisionTransformer1D", "HierarchicalVisionTransformer1D"]
+__all__ = ["VisionTransformer", "VisionTransformer1D", "HierarchicalVisionTransformer1D"]
 
 
 def _token_dim(tok) -> int:
     return tok.out_dim if hasattr(tok, "out_dim") else tok.embed_dim
 
 
-class VisionTransformer1D(nn.Module):
-    """tokenizer -> MixerBlock -> encoder -> head.
+class VisionTransformer(nn.Module):
+    """tokenizer -> encoder -> head (the head reads every token through the
+    factorised linear: no CLS token, no mean pool).
 
-    ``patch_embed`` is a tokenizer module (``HierarchicalCurveEmbedding``)
-    exposing ``n_patches`` and ``out_dim`` (or ``embed_dim``).  Dropout
+    ``patch_embed`` is a tokenizer module (``ConvPatchEmbedding``,
+    ``PixelCurveEmbedding1D`` or ``HierarchicalCurveEmbedding``) exposing
+    ``n_patches`` and ``out_dim`` (or ``embed_dim``).  Dropout
     (``dropout_rate`` in the encoder, 0.5 in the head) is on in
     ``train()`` mode.  Parameters are created in float32 from
     ``generator`` and moved to ``device``.
     """
+
+    #: ``VisionTransformer1D`` puts a ``MixerBlock`` before the encoder.
+    _mixer = False
 
     def __init__(self, patch_embed: nn.Module, depth: int = 6, n_heads: int = 4,
                  mlp_dim: int = 256, num_classes: int = 10,
@@ -64,8 +69,9 @@ class VisionTransformer1D(nn.Module):
             self.register_buffer(
                 "pos_table", None if table is None else torch.from_numpy(table),
                 persistent=False)
-        self.mlp_mixer = MixerBlock(n, dim, dim * 2, out_dim=dim, dtype=dtype,
-                                    generator=generator)
+        if self._mixer:
+            self.mlp_mixer = MixerBlock(n, dim, dim * 2, out_dim=dim, dtype=dtype,
+                                        generator=generator)
         self.encoder = TransformerSeqEncoder(dim, n_heads, mlp_dim, depth,
                                              dropout_rate, dtype, attn_impl,
                                              generator)
@@ -81,9 +87,18 @@ class VisionTransformer1D(nn.Module):
             x = x + self.pos_embed.to(x.dtype)
         elif self.pos_table is not None:
             x = x + self.pos_table.to(x.dtype)
-        x = self.mlp_mixer(x)
+        if self._mixer:
+            x = self.mlp_mixer(x)
         x = self.encoder(x)
         return self.mlp_head(x)
+
+
+class VisionTransformer1D(VisionTransformer):
+    """tokenizer -> MixerBlock -> encoder -> head: :class:`VisionTransformer`
+    with the channel-mixing ``mlp_mixer`` before the encoder (the
+    flagship's model)."""
+
+    _mixer = True
 
 
 class HierarchicalVisionTransformer1D(nn.Module):

@@ -17,14 +17,17 @@ unchanged one loads the library already there.  A failed build raises:
 nothing runs without the kernels.
 
 The launchers below (``ln_rows``, ``ln_rows_bwd``, ``gemm``,
-``gemm_layernorm``, ``act_bf16``, ``colsum``, ``attention_fwd`` (on
-``csrc/packed_attn_sm90.cu``, with or without a dropout mask),
-``attention_bwd`` (on
-``csrc/attention_bwd_sm90.cu`` or ``csrc/attention_bwd.cu``),
+``gemm_layernorm``, ``act_bf16``, ``colsum``, ``gemm_f32`` (the fp32
+SIMT GEMM of the family-A chains in float32), ``attention_fwd`` (on
+``csrc/packed_attn_sm90.cu``, with or without a dropout mask, or in fp32
+on ``csrc/packed_attn_f32.cu``), ``attention_bwd`` (on
+``csrc/attention_bwd_sm90.cu`` or ``csrc/attention_bwd.cu``, in fp32 on
+``csrc/attention_bwd_f32.cu``),
 ``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``,
 ``flash_dkv``, ``local_fwd`` (on the windowed instance of ``flash_fwd``'s
 single-step kernel), ``local_bwd`` (on the windowed instances of
-``flash_dq``'s and ``flash_dkv``'s kernels), ``gather_project``,
+``flash_dq``'s and ``flash_dkv``'s kernels), ``gather_project`` (bf16 or,
+on ``csrc/gather_project_f32.cu``, fp32),
 ``wgmma_probe``, and ``gemm_profile``, a timing instrument) check
 device, dtype, shape, contiguity (or, for the flash kernels, strides) and
 alignment, allocate their outputs and workspaces with
@@ -54,7 +57,9 @@ __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "ATTENTION_BWD_SM90_FORMS", "gemm_layernorm", "gemm_layernorm_fits",
            "gemm_layernorm_max_clusters",
            "GEMM_LN_MAX_CLUSTER",
-           "act_bf16", "colsum", "attention_fwd", "attention_bwd",
+           "act_bf16", "colsum", "gemm_f32", "gemm_f32_split", "GEMM_F32_TILE",
+           "GEMM_F32_BLOCK_K", "GEMM_F32_MIN_SPLIT_BLOCKS", "attention_fwd",
+           "attention_bwd", "F32_KERNEL_FORMS",
            "ATTENTION_HEAD_DIMS", "PACKED_MAX_N",
            "PACKED_ONE_PASS_MAX_N", "PACKED_ONE_PASS_MAX_N_MASKED",
            "PACKED_ATTENTION_FORMS", "PACKED_ATTENTION_MASKED_FORMS", "attention_fwd_route",
@@ -92,6 +97,16 @@ _SIGNATURES = {
     "sfc_gemm_profile": (_P,) * 5 + (_I,) * 3 + (_P, _I, _P),
     "sfc_act_bf16": (_P, _P, _L, _I, _P),
     "sfc_colsum_bf16": (_P, _P, _I, _I, _P),
+    "sfc_colsum_f32": (_P, _P, _I, _I, _P),
+    # a, b, bias, c, ws; M, N, K, trans_a, trans_b, K blocks a split; stream
+    "sfc_gemm_f32": (_P,) * 5 + (_I,) * 6 + (_P,),
+    # qkv, out, lse, mask; batch, n, heads, dh, n_valid; scale, keep, stream
+    "sfc_packed_attention_f32": (_P,) * 4 + (_I,) * 5 + (_F, _F, _P),
+    # qkv, att, datt, lse, mask, delta, dqkv; batch, n, heads, dh, n_valid;
+    # scale, keep, stream
+    "sfc_attention_bwd_f32": (_P,) * 7 + (_I,) * 5 + (_F, _F, _P),
+    # x, lut, w, bias, out; batch, n, k, m, group, d; stream
+    "sfc_gather_project_f32": (_P,) * 5 + (_I,) * 6 + (_P,),
     "sfc_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _F, _P),
     # qkv, att, datt, lse, mask, dqkv; batch, n, heads, dh, n_valid; scale,
@@ -132,6 +147,11 @@ _SIGNATURES = {
     "sfc_gemm_attrs": (_I, _P),
     "sfc_attention_bwd_sm90_attrs": (_I, _P),
     "sfc_gather_project_attrs": (_I, _P),
+    # form, out[3] | dh, masked, out[3] | form, dkv, out[3] | out[3]
+    "sfc_gemm_f32_attrs": (_I, _P),
+    "sfc_packed_attention_f32_attrs": (_I, _I, _P),
+    "sfc_attention_bwd_f32_attrs": (_I, _I, _P),
+    "sfc_gather_project_f32_attrs": (_P,),
 }
 
 #: Head dims the attention kernels are instantiated for: ViT-B's 64 and
@@ -628,19 +648,79 @@ def act_bf16(z: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def colsum(x: torch.Tensor) -> torch.Tensor:
-    """fp32 column sums of a bf16 ``x`` [R, C] (C % 8 == 0)."""
+    """fp32 column sums of a bf16 or fp32 ``x`` [R, C] (C % 8 == 0)."""
     r, c = x.shape
     if c % 8:
         raise ValueError(f"colsum: {c} columns, not a multiple of 8")
-    _require(x, "x")
+    f32 = x.dtype == torch.float32
+    _require(x, "x", dtype=torch.float32 if f32 else torch.bfloat16)
     out = torch.zeros(c, dtype=torch.float32, device=x.device)
-    _check(library().sfc_colsum_bf16(x.data_ptr(), out.data_ptr(), r, c,
-                                     _stream()), "colsum")
+    fn = library().sfc_colsum_f32 if f32 else library().sfc_colsum_bf16
+    _check(fn(x.data_ptr(), out.data_ptr(), r, c, _stream()), "colsum")
     return out
+
+
+#: ``csrc/gemm_f32.cu``'s output tile (kBM = kBN) and K block (kBK).
+GEMM_F32_TILE, GEMM_F32_BLOCK_K = 128, 16
+#: The fewest K blocks a split of :func:`gemm_f32` sums (64 deep).
+GEMM_F32_MIN_SPLIT_BLOCKS = 4
+
+
+def gemm_f32_split(m: int, n: int, k: int, sms: int) -> int:
+    """How many K blocks (:data:`GEMM_F32_BLOCK_K` deep) each split of
+    :func:`gemm_f32` sums: where the output has too few 128 x 128 tiles to
+    give every SM two blocks (the weight gradients, summed over every row
+    of the batch; the notebook's 2,048-row products), enough contiguous K
+    ranges to do so, each at least :data:`GEMM_F32_MIN_SPLIT_BLOCKS`
+    blocks deep; else all of K in one.  The kernel runs ``ceil(kblocks /
+    per)`` splits, none empty."""
+    kb = _cdiv(k, GEMM_F32_BLOCK_K)
+    if kb == 0:
+        return 1
+    tiles = _cdiv(m, GEMM_F32_TILE) * _cdiv(n, GEMM_F32_TILE)
+    splits = max(1, min(_cdiv(2 * sms, tiles), kb // GEMM_F32_MIN_SPLIT_BLOCKS))
+    return _cdiv(kb, splits)
+
+
+def gemm_f32(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
+             trans_b: bool = False, bias: Optional[torch.Tensor] = None,
+             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``C = op(a) @ op(b) + bias`` in fp32 on ``csrc/gemm_f32.cu`` (SIMT
+    FFMA, not TF32): the float32 form of :func:`gemm` for the family-A
+    attention chains, with :func:`gemm`'s operand layouts (``a`` [M, K] or,
+    ``trans_a``, stored [K, M]; ``b`` [K, N] or, ``trans_b``, stored [N,
+    K]) and an fp32 ``bias`` [N].  A product of few output tiles is summed
+    in K ranges (:func:`gemm_f32_split`) into an fp32 workspace, then added
+    in order with the bias (the same bits every call on one card).
+    ``out_dtype`` must be float32: the argument lets the chains call either
+    form alike."""
+    if trans_a and trans_b:
+        raise ValueError("gemm_f32: trans_a and trans_b together are not supported")
+    if out_dtype != torch.float32:
+        raise ValueError(f"gemm_f32: out_dtype {out_dtype}; the product stays fp32")
+    k, m = a.shape if trans_a else a.shape[::-1]
+    n, k2 = b.shape if trans_b else b.shape[::-1]
+    if k2 != k:
+        raise ValueError(f"gemm_f32: inner dims differ ({k} vs {k2})")
+    _require(a, "a", dtype=torch.float32)
+    _require(b, "b", dtype=torch.float32)
+    if bias is not None:
+        _require(bias, "bias", (n,), torch.float32)
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    per = gemm_f32_split(m, n, k, _sm_count(a.device))
+    splits = _cdiv(_cdiv(k, GEMM_F32_BLOCK_K), per)
+    ws = (torch.empty(splits * m * n, dtype=torch.float32, device=a.device)
+          if splits > 1 else None)
+    _check(library().sfc_gemm_f32(
+        a.data_ptr(), b.data_ptr(), _ptr(bias), c.data_ptr(), _ptr(ws), m, n, k,
+        int(trans_a), int(trans_b), per, _stream()), "gemm_f32")
+    return c
 
 
 def _check_packed(qkv: torch.Tensor, heads: int, n_valid: int, what: str,
                   mask: Optional[torch.Tensor], keep: float):
+    """Shapes of a packed attention's operands; qkv bf16 or fp32.  Returns
+    (b, n, inner, dh)."""
     b, n, w = qkv.shape
     if w % (3 * heads) or w // (3 * heads) not in ATTENTION_HEAD_DIMS:
         raise ValueError(
@@ -652,7 +732,8 @@ def _check_packed(qkv: torch.Tensor, heads: int, n_valid: int, what: str,
         raise ValueError(f"{what}: n_valid={n_valid} not in [1, {n}]")
     if mask is not None and not 0.0 < keep <= 1.0:
         raise ValueError(f"{what}: keep={keep} not in (0, 1]")
-    _require(qkv, "qkv")
+    _require(qkv, "qkv", dtype=torch.float32 if qkv.dtype == torch.float32
+             else torch.bfloat16)
     if mask is not None:
         _require(mask, "mask", (b, heads, n, n), torch.uint8)
     return b, n, w // 3, w // (3 * heads)
@@ -677,9 +758,11 @@ def attention_fwd(qkv: torch.Tensor, heads: int, n_valid: int,
                   scale: float, with_lse: bool = False,
                   mask: Optional[torch.Tensor] = None, keep: float = 1.0):
     """#7's, #1's and #5's attention off packed ``qkv`` [B, N, 3*H*Dh] ->
-    [B, N, H*Dh] (bf16, Dh 64 or 192, N at most :data:`PACKED_MAX_N`: a
-    longer row raises) on ``csrc/packed_attn_sm90.cu``, in the form
-    :func:`attention_fwd_route` names: keys at or past ``n_valid`` masked,
+    [B, N, H*Dh] (Dh 64 or 192, N at most :data:`PACKED_MAX_N`: a longer
+    row raises): bf16 on ``csrc/packed_attn_sm90.cu``, in the form
+    :func:`attention_fwd_route` names, fp32 on ``csrc/packed_attn_f32.cu``
+    (#5 and #7 in float32; the divisions by l and by keep correctly
+    rounded, no rounding to a narrower type): keys at or past ``n_valid`` masked,
     P normalised, then rounded, before its product with V.  ``with_lse``
     also returns the fp32 log-sum-exp of every softmax row, [B, H, N],
     taken before any dropout.  ``mask`` (bool or uint8 0/1 [B, H, N, N])
@@ -693,7 +776,9 @@ def attention_fwd(qkv: torch.Tensor, heads: int, n_valid: int,
     out = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
            if with_lse else None)
-    _check(library().sfc_packed_attention_bf16(
+    fn = (library().sfc_packed_attention_f32 if qkv.dtype == torch.float32
+          else library().sfc_packed_attention_bf16)
+    _check(fn(
         qkv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(mask), b, n, heads, dh, n_valid,
         scale, keep, _stream()), "attention_fwd")
     return (out, lse) if with_lse else out
@@ -716,15 +801,27 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
     """The packed ``dqkv`` [B, N, 3*H*Dh] (bf16) of the attention in
     :func:`attention_fwd` from its saved ``qkv``, output ``att``, fp32
     ``lse`` [B, H, N], the output's cotangent ``datt`` [B, N, H*Dh] and,
-    for the dropout form, the forward's ``mask`` and ``keep``; on the
-    kernel :func:`attention_bwd_route` names."""
+    for the dropout form, the forward's ``mask`` and ``keep``: bf16 on the
+    kernel :func:`attention_bwd_route` names, fp32 (the same dtype for
+    ``att`` and ``datt``; the dropout form only, #6's) on
+    ``csrc/attention_bwd_f32.cu``'s two kernels (dq, then dk and dv)."""
     mask = _mask_u8(mask)
     b, n, inner, dh = _check_packed(qkv, heads, n_valid, "attention_bwd", mask,
                                     keep)
-    _require(att, "att", (b, n, inner))
-    _require(datt, "datt", (b, n, inner))
+    _require(att, "att", (b, n, inner), qkv.dtype)
+    _require(datt, "datt", (b, n, inner), qkv.dtype)
     _require(lse, "lse", (b, heads, n), torch.float32)
     dqkv = torch.empty_like(qkv)
+    if qkv.dtype == torch.float32:
+        if n > PACKED_MAX_N or mask is None:
+            raise ValueError(f"attention_bwd: the fp32 kernel takes #6's dropout mask and "
+                             f"N up to {PACKED_MAX_N} (N={n}, mask {mask is not None})")
+        delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
+        _check(library().sfc_attention_bwd_f32(
+            qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(), _ptr(mask),
+            delta.data_ptr(), dqkv.data_ptr(), b, n, heads, dh, n_valid, scale, keep,
+            _stream()), "attention_bwd")
+        return dqkv
     if attention_bwd_route(dh, n, mask is not None) == "sm90":
         _check(library().sfc_attention_bwd_sm90_bf16(
             qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(),
@@ -941,24 +1038,28 @@ def local_bwd(q, k, v, g, lse, delta, scale: float, block: int, halo: int):
 def gather_project(x: torch.Tensor, lut: torch.Tensor, w: torch.Tensor,
                    bias: Optional[torch.Tensor], group: int) -> torch.Tensor:
     """#14: ``out[b, i] = concat_p x[b, lut[i * group + p]] @ w + bias``
-    over x [B, N, K] bf16, ``lut`` int32 [M * group] (each in [0, N), not
-    checked), w [group * K, D] bf16 and an optional bf16 bias [D] ->
-    [B, M, D] bf16, the bias added to the fp32 sum before the one
-    rounding.  The kernel gathers from shared memory where an image's x
-    fits its buffer and is a multiple of 16 bytes, else from global
-    memory."""
+    over x [B, N, K], ``lut`` int32 [M * group] (each in [0, N), not
+    checked), w [group * K, D] and an optional bias [D], all bf16 or all
+    fp32 -> [B, M, D] in that dtype, the bias added to the fp32 sum before
+    the one rounding.  bf16 runs ``csrc/gather_project.cu``, which gathers
+    from shared memory where an image's x fits its buffer and is a
+    multiple of 16 bytes, else from global memory; fp32 runs
+    ``csrc/gather_project_f32.cu``."""
     bsz, n, k = x.shape
     if group < 1 or lut.dim() != 1 or lut.numel() % group:
         raise ValueError(f"gather_project: {lut.numel()} LUT entries for group {group}")
     m = lut.numel() // group
     d = w.shape[1]
-    _require(x, "x")
+    dt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+    _require(x, "x", dtype=dt)
     _require(lut, "lut", (m * group,), torch.int32)
-    _require(w, "w", (group * k, d))
+    _require(w, "w", (group * k, d), dt)
     if bias is not None:
-        _require(bias, "bias", (d,))
+        _require(bias, "bias", (d,), dt)
     out = torch.empty((bsz, m, d), dtype=x.dtype, device=x.device)
-    _check(library().sfc_gather_project_bf16(
+    fn = (library().sfc_gather_project_f32 if dt == torch.float32
+          else library().sfc_gather_project_bf16)
+    _check(fn(
         x.data_ptr(), lut.data_ptr(), w.data_ptr(), _ptr(bias), out.data_ptr(),
         bsz, n, k, m, group, d, _stream()), "gather_project")
     return out
@@ -1022,6 +1123,26 @@ PACKED_ATTENTION_MASKED_FORMS = {
 LN_ROWS_BWD_FORMS = ("ln_rows_bwd dxn fp32", "ln_rows_bwd dxn bf16", "ln_rows_bwd x + x_b")
 
 
+#: The fp32 SIMT kernels (float32 compute of #5, #6, #7 and #14) by name.
+F32_KERNEL_FORMS = (
+    "gemm_f32 NN", "gemm_f32 NT", "gemm_f32 TN",
+    "packed_attention_f32 dh64", "packed_attention_f32 dh64 masked",
+    "packed_attention_f32 dh192", "packed_attention_f32 dh192 masked",
+    *(f"attention_bwd_f32 {part} dh{dh}" for dh in (64, 192) for part in ("dq", "dkv")),
+    "gather_project_f32")
+
+
+def _f32_attr_calls(lib) -> dict:
+    """:data:`F32_KERNEL_FORMS` -> a call filling an int[3] of attributes."""
+    calls = [lambda a, i=i: lib.sfc_gemm_f32_attrs(i, a) for i in range(3)]
+    calls += [lambda a, dh=dh, mk=mk: lib.sfc_packed_attention_f32_attrs(dh, mk, a)
+              for dh in (64, 192) for mk in (0, 1)]
+    calls += [lambda a, dh=dh, p=p: lib.sfc_attention_bwd_f32_attrs(dh, p, a)
+              for dh in (64, 192) for p in (0, 1)]
+    calls.append(lib.sfc_gather_project_f32_attrs)
+    return dict(zip(F32_KERNEL_FORMS, calls))
+
+
 def flash_kernel_attrs() -> dict:
     """What the compiler gave the ``wgmma`` kernels, #1's and #7's eight
     instances (:data:`PACKED_ATTENTION_FORMS`) and #5's six
@@ -1029,8 +1150,9 @@ def flash_kernel_attrs() -> dict:
     (:data:`LN_ROWS_BWD_FORMS`), #8's two forms and #12's windowed instance
     of its single step, #9-#11, #13's windowed instances of #10's and
     #11's kernels, #14's two instances (x gathered from shared or global
-    memory), the GEMM's :data:`GEMM_FORMS`, and the
-    attention backward's instances (#4, #6; ``cudaFuncGetAttributes``):
+    memory), the GEMM's :data:`GEMM_FORMS`, the
+    attention backward's instances (#4, #6) and the fp32 SIMT kernels
+    (:data:`F32_KERNEL_FORMS`; ``cudaFuncGetAttributes``):
     ``{name: {"registers", "local_bytes", "smem_bytes"}}``, local bytes
     being spills and stack a thread, shared bytes a block."""
     lib = library()
@@ -1055,7 +1177,8 @@ def flash_kernel_attrs() -> dict:
             *((f"gemm {form}", lambda a, i=i: lib.sfc_gemm_attrs(i, a))
               for i, form in enumerate(GEMM_FORMS)),
             *((name, lambda a, i=i: lib.sfc_attention_bwd_sm90_attrs(i, a))
-              for i, name in enumerate(ATTENTION_BWD_SM90_FORMS))):
+              for i, name in enumerate(ATTENTION_BWD_SM90_FORMS)),
+            *((name, call) for name, call in _f32_attr_calls(lib).items())):
         vals = (ctypes.c_int * 3)()
         _check(call(ctypes.cast(vals, ctypes.c_void_p)), f"attributes of {name}")
         out[name] = dict(zip(("registers", "local_bytes", "smem_bytes"), vals))

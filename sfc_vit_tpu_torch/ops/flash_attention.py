@@ -69,12 +69,15 @@ store of the output: fp32 logits times scale, ``P = p / l`` rounded to
 the input dtype before an fp32 ``P V``.  Its bound on the H100 is the
 bytes of qkv and of the output.  As in the JAX package, that kernel is
 the inference path, for N up to ``_build.PACKED_MAX_N`` (JAX's
-``_PACKED_MAX_N``).  Under autograd the JAX rule ``_pfa_fwd`` /
-``_pfa_bwd`` applies, plain code there and plain PyTorch here: the
-softmax in the input dtype with the weights stored for the backward.  A
-CPU tensor runs :func:`_packed_xla_ref`; a CUDA tensor launches the
-kernel (bfloat16, head dim 64 or 192) or raises.
-``packed_flash_attention.launches`` counts the launches.
+``_PACKED_MAX_N``).  In float32 it runs ``csrc/packed_attn_f32.cu``, a
+SIMT kernel that makes two passes over 64-key tiles (the row's max and
+sum, then P normalised before its fp32 product with V).  Under autograd
+the JAX rule ``_pfa_fwd`` / ``_pfa_bwd`` applies, plain code there and
+plain PyTorch here: the softmax in the input dtype with the weights
+stored for the backward.  A CPU tensor runs :func:`_packed_xla_ref`; a
+CUDA tensor launches a kernel (bfloat16 or float32, head dim 64 or 192)
+or raises.  ``packed_flash_attention.launches`` counts the bf16
+launches, ``packed_flash_attention.f32_launches`` the fp32 ones.
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .kernel_utils import fp32_compute_not_ported, round_up
+from .kernel_utils import kernel_is_f32, round_up
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_fwd",
            "flash_fused_bwd", "flash_dq", "flash_dkv", "flash_fwd_ref",
@@ -454,9 +457,9 @@ def packed_flash_attention(qkv: torch.Tensor, heads: int,
     """Attention on a packed [B, N, 3*H*Dh] projection -> [B, N, H*Dh].
 
     Under autograd, JAX's store-weights rule.  Otherwise a CPU ``qkv``
-    runs :func:`_packed_xla_ref` and a CUDA one kernel #7, or raises for
-    a dtype other than bfloat16, a head dim the kernel does not take or
-    N past ``_build.PACKED_MAX_N``.
+    runs :func:`_packed_xla_ref` and a CUDA one kernel #7 (bfloat16, or
+    its fp32 form), or raises for another dtype, a head dim the kernels
+    do not take or N past ``_build.PACKED_MAX_N``.
     """
     b, n, three_inner = qkv.shape
     if three_inner % (3 * heads):
@@ -469,11 +472,14 @@ def packed_flash_attention(qkv: torch.Tensor, heads: int,
         return _packed_xla_ref(qkv, heads, s)
     if qkv.device.type != "cuda":
         raise ValueError(f"packed_flash_attention: no kernel for device {qkv.device}")
-    if qkv.dtype != torch.bfloat16:
-        raise fp32_compute_not_ported("packed_flash_attention", qkv.dtype)
+    f32 = kernel_is_f32("packed_flash_attention", qkv.dtype)
     out = _build.attention_fwd(qkv.contiguous(), heads, n, s)
-    packed_flash_attention.launches += 1
+    if f32:
+        packed_flash_attention.f32_launches += 1
+    else:
+        packed_flash_attention.launches += 1
     return out
 
 
 packed_flash_attention.launches = 0
+packed_flash_attention.f32_launches = 0

@@ -44,11 +44,21 @@ every softmax, rows at or past it are don't-care outputs whose
 cotangents are zeroed before every gradient path, so their dx and their
 share of every parameter gradient are zero.
 
+In float32 (the reference notebook's ``VisionTransformer``, and the
+flagship at its own ``dtype=None``) the same chains run on fp32 SIMT
+kernels, full fp32 with no TF32 and no narrower rounding:
+``csrc/gemm_f32.cu`` for every product (its TN weight gradients split
+over K and summed in split order), ``csrc/packed_attn_f32.cu`` for the
+masked attention with lse, ``csrc/attention_bwd_f32.cu`` for its
+backward (dq, then dk and dv, each row with one owner) and
+``csrc/colsum_bf16.cu``'s fp32 instance for the bias gradients.
+
 A CPU input runs the plain versions :func:`torch_mha_fwd_ref` and
 :func:`torch_mha_bwd_ref` (the kernels' arithmetic and rounding points);
-a CUDA input launches the kernels (bf16 compute, head dim 64 or 192) or
-raises.  ``fused_torch_mha.launches`` counts the CUDA forwards and
-``fused_torch_mha.bwd_launches`` the CUDA backwards.
+a CUDA input launches the kernels (bf16 or fp32, head dim 64 or 192) or
+raises.  ``fused_torch_mha.launches`` counts the bf16 CUDA forwards and
+``fused_torch_mha.bwd_launches`` the bf16 CUDA backwards,
+``f32_launches`` and ``f32_bwd_launches`` the fp32 ones.
 """
 
 from __future__ import annotations
@@ -57,9 +67,9 @@ from typing import Optional
 
 import torch
 
-from ._build import attention_bwd, attention_fwd, colsum, gemm
+from ._build import attention_bwd, attention_fwd, colsum, gemm, gemm_f32
 from .fused_attention_block import attention_bwd_ref
-from .kernel_utils import NEG_INF, fp32_compute_not_ported, n_valid as _n_valid
+from .kernel_utils import NEG_INF, kernel_is_f32, n_valid as _n_valid
 
 __all__ = ["fused_torch_mha", "torch_mha_train", "torch_mha_fwd_ref",
            "torch_mha_bwd_ref", "torch_mha_train_fwd", "torch_mha_bwd"]
@@ -175,17 +185,20 @@ def torch_mha_bwd_ref(x, g, w_in, w_out, mask, qkv, att, lse, heads: int,
 
 def _kernels_fwd(x, w_in, b_in, w_out, b_out, mask, heads, s, keep, n_valid,
                  save):
-    if x.dtype != torch.bfloat16:
-        raise fp32_compute_not_ported("fused_torch_mha", x.dtype)
+    f32 = kernel_is_f32("fused_torch_mha", x.dtype)
+    mm = gemm_f32 if f32 else gemm
     b, n, d = x.shape
     x2 = x.reshape(b * n, d)
-    qkv = gemm(x2, w_in, bias=b_in.float()).view(b, n, 3 * d)
+    qkv = mm(x2, w_in, bias=b_in.float()).view(b, n, 3 * d)
     att = attention_fwd(qkv, heads, n_valid, s, with_lse=save, mask=mask,
                         keep=keep)
     if save:
         att, lse = att
-    y = gemm(att.view(b * n, d), w_out, bias=b_out.float()).view(b, n, d)
-    fused_torch_mha.launches += 1
+    y = mm(att.view(b * n, d), w_out, bias=b_out.float()).view(b, n, d)
+    if f32:
+        fused_torch_mha.f32_launches += 1
+    else:
+        fused_torch_mha.launches += 1
     return (y, qkv, att, lse) if save else y
 
 
@@ -211,6 +224,8 @@ def torch_mha_bwd(x, g, w_in, w_out, mask, qkv, att, lse, heads: int,
     if x.device.type == "cpu":
         return torch_mha_bwd_ref(x, g, w_in, w_out, mask, qkv, att, lse, heads,
                                  scale, keep, n_actual)
+    f32 = kernel_is_f32("fused_torch_mha", x.dtype)
+    mm = gemm_f32 if f32 else gemm
     b, n, d = x.shape
     s = _scale(d, heads, scale)
     nv = _n_valid(n, n_actual)
@@ -221,14 +236,17 @@ def torch_mha_bwd(x, g, w_in, w_out, mask, qkv, att, lse, heads: int,
         gp = gp.clone()
         gp.view(b, n, d)[:, nv:] = 0
     db_out = colsum(gp)
-    dw_out = gemm(att.view(r, d), gp, trans_a=True, out_dtype=torch.float32)
-    datt = gemm(gp, w_out, trans_b=True)                          # [R, D]
+    dw_out = mm(att.view(r, d), gp, trans_a=True, out_dtype=torch.float32)
+    datt = mm(gp, w_out, trans_b=True)                            # [R, D]
     dqkv = attention_bwd(qkv, att, datt.view(b, n, d), lse, heads, nv, s,
                          mask=mask, keep=keep).view(r, 3 * d)
     db_in = colsum(dqkv)
-    dw_in = gemm(x2, dqkv, trans_a=True, out_dtype=torch.float32)  # [D, 3D]
-    dx = gemm(dqkv, w_in, trans_b=True).view(b, n, d)
-    fused_torch_mha.bwd_launches += 1
+    dw_in = mm(x2, dqkv, trans_a=True, out_dtype=torch.float32)    # [D, 3D]
+    dx = mm(dqkv, w_in, trans_b=True).view(b, n, d)
+    if f32:
+        fused_torch_mha.f32_bwd_launches += 1
+    else:
+        fused_torch_mha.bwd_launches += 1
     return dx, dw_in, db_in, dw_out, db_out
 
 
@@ -285,3 +303,5 @@ def fused_torch_mha(x, w_in, b_in, w_out, b_out, drop_mask, heads: int,
 
 fused_torch_mha.launches = 0
 fused_torch_mha.bwd_launches = 0
+fused_torch_mha.f32_launches = 0
+fused_torch_mha.f32_bwd_launches = 0

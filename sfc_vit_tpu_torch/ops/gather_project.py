@@ -17,6 +17,12 @@ tensor to device memory.
     copy and gathers it there through the LUT (from global memory where
     an image is large or not a multiple of 16 bytes), then multiplies by
     ``wgmma`` and writes the tile by TMA store.
+  * in float32 (the 2-D and 1-D tokenizers' fused forms and the
+    hierarchical levels when the model computes in fp32) ->
+    ``csrc/gather_project_f32.cu``: a SIMT kernel over (64 tokens, image,
+    128 columns) tiles, the gathered rows read through the LUT straight
+    from device memory (rows of 12 bytes are not 16-byte aligned) into
+    shared memory beside w, an fp32 sum with the bias added to it.
 
 :func:`gather_project_ref` is the kernel's plain version, in the kernel's
 order; :func:`gather_project_xla` is JAX's XLA twin, which rounds the
@@ -25,11 +31,12 @@ rounding.  The backward is plain PyTorch, as JAX's ``_gp_bwd`` is plain
 XLA: dW and db in fp32, dx scattered back through the LUT with
 ``index_add_``, which holds for repeated indices too.
 
-A CPU tensor runs :func:`gather_project_ref`; a CUDA tensor launches the
-kernel (bfloat16) or raises.  ``gather_project.launches`` counts the
-launches.  The LUT's entries must lie in ``[0, N)``: the kernel reads
-through them unchecked, as the tokenizers' static LUTs are checked once
-when they are built.
+A CPU tensor runs :func:`gather_project_ref`; a CUDA tensor launches a
+kernel (bfloat16 or float32) or raises.  ``gather_project.launches``
+counts the bf16 launches, ``gather_project.f32_launches`` the fp32 ones.
+The LUT's entries must lie in ``[0, N)``: the kernels read through them
+unchecked, as the tokenizers' static LUTs are checked once when they are
+built.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .kernel_utils import kernel_is_f32
 
 __all__ = ["gather_project", "gather_project_ref", "gather_project_xla"]
 
@@ -73,14 +81,13 @@ def _launch(x, lut, w, b, group: int) -> torch.Tensor:
         return gather_project_ref(x, lut, w, b, group)
     if x.device.type != "cuda":
         raise ValueError(f"gather_project: no kernel for device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"gather_project: {x.dtype} compute on the GPU is not ported yet, the "
-            "kernel takes bfloat16: ROADMAP.md queue 1 item 15 (fp32 compute for "
-            "kernels #5-#7 and #14)")
+    f32 = kernel_is_f32("gather_project", x.dtype)
     out = _build.gather_project(x.contiguous(), lut.to(torch.int32).contiguous(),
                                 w.contiguous(), None if b is None else b.contiguous(), group)
-    gather_project.launches += 1
+    if f32:
+        gather_project.f32_launches += 1
+    else:
+        gather_project.launches += 1
     return out
 
 
@@ -135,3 +142,4 @@ def gather_project(x: torch.Tensor, lut: torch.Tensor, w: torch.Tensor,
 
 
 gather_project.launches = 0
+gather_project.f32_launches = 0

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["NEG_INF", "ln_fp32", "ln_bwd_fp32", "round_up", "n_valid",
-           "split_heads", "fp32_compute_not_ported"]
+           "split_heads", "fp32_compute_not_ported", "kernel_is_f32"]
 
 #: Masked-logit value: -1e30, never -inf, so a masked softmax gives 0
 #: weights and no NaN.
@@ -33,13 +33,27 @@ def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def fp32_compute_not_ported(what: str, dtype: torch.dtype) -> NotImplementedError:
-    """The refusal of a family-A kernel (#5-#7, #15/#16) given a CUDA
-    tensor in a dtype other than bfloat16: it never falls back to its
-    plain version."""
+    """The refusal of the post-norm tail kernels (#15/#16) given a CUDA
+    tensor in a dtype other than bfloat16: they never fall back to their
+    plain versions."""
     return NotImplementedError(
         f"{what}: {dtype} compute on the GPU is not ported yet, the kernels "
-        "take bfloat16: ROADMAP.md queue 1 item 15 (fp32 compute for "
-        "kernels #5-#7 and #15/#16)")
+        "take bfloat16: ROADMAP.md queue 1 item 15 (fp32 compute for the "
+        "post-norm tail, kernels #15/#16)")
+
+
+def kernel_is_f32(what: str, dtype: torch.dtype) -> bool:
+    """Which kernels a CUDA tensor of ``dtype`` launches for #5, #6, #7 and
+    #14: True for float32 (the fp32 SIMT kernels), False for bfloat16 (the
+    Hopper ``wgmma`` kernels).  Any other dtype raises; nothing falls back
+    to a plain version."""
+    if dtype == torch.float32:
+        return True
+    if dtype == torch.bfloat16:
+        return False
+    raise NotImplementedError(
+        f"{what}: no kernel computes in {dtype}; the kernels take bfloat16 or "
+        "float32")
 
 
 def ln_fp32(v: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -5,10 +5,12 @@ Counterpart of ``sfc_vit_tpu/registry.py``.  ``ModelConfig`` and
 runs the JAX package's validation and builds the pre-norm families
 ('simple', 'curvevit', with token merging and per-layer attention
 schedules: the 'longctx-16k' and 'longctx-16k-hybrid' presets) and family
-A's 'vit1d' over the hierarchical tokenizer, fused (``fused=True``) or
-not (the 'flagship' preset), and 'hier' over its levels.  Everything not yet ported raises
-``NotImplementedError`` naming its ROADMAP.md item.  Models are built on
-the card unless the caller asks for the CPU (``device='cpu'``).
+A's 'vit' (the 'notebook' preset) and 'vit1d' (the 'flagship' preset)
+over the 2-D, 1-D or hierarchical tokenizer, fused (``fused=True``) or
+not, and 'hier' over the hierarchical tokenizer's levels.  Everything not
+yet ported (``remat``) raises ``NotImplementedError`` naming its
+ROADMAP.md item.  Models are built on the card unless the caller asks for
+the CPU (``device='cpu'``).
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ from .models import (
     CurveViT,
     HierarchicalVisionTransformer1D,
     SimpleViT,
+    VisionTransformer,
     VisionTransformer1D,
 )
 from .ops.attention import check_implementation
-from .tokenizers import HierarchicalCurveEmbedding
+from .tokenizers import ConvPatchEmbedding, HierarchicalCurveEmbedding, PixelCurveEmbedding1D
 
 __all__ = ["ModelConfig", "build_tokenizer", "build_model", "PRESETS",
            "preset_config", "TOKENIZER_FAMILIES", "MODEL_FAMILIES"]
@@ -36,10 +39,6 @@ MODEL_FAMILIES = ("vit", "vit1d", "hier", "simple", "curvevit")
 
 #: Where each family or option that is not ported yet stands in ROADMAP.md.
 _NOT_PORTED = {
-    "vit": "queue 1 item 7 (family-A models: VisionTransformer, after the "
-           "2-D tokenizer of queue 1 item 6)",
-    "tokenizer '2d'": "queue 1 item 6 (tokenizers: ConvPatchEmbedding)",
-    "tokenizer '1d'": "queue 1 item 6 (tokenizers: PixelCurveEmbedding1D)",
     "remat": "queue 1 item 4 (train step: remat)",
 }
 
@@ -122,16 +121,26 @@ def _check_curve(cfg: ModelConfig) -> None:
 
 def build_tokenizer(cfg: ModelConfig, return_levels: bool = False,
                     generator: Optional[torch.Generator] = None):
-    """The tokenizer module for ``cfg`` (parameters on the CPU)."""
+    """The tokenizer module for ``cfg`` (parameters on the CPU).  As in JAX,
+    the 2-D family drops ``fused`` for ``'random'`` (the per-step shuffle
+    has no static LUT to fuse)."""
     _check_curve(cfg)
-    if cfg.tokenizer in ("2d", "1d"):
-        raise _not_ported(f"tokenizer {cfg.tokenizer!r}")
+    dtype = cfg.torch_dtype()
+    if cfg.tokenizer == "2d":
+        return ConvPatchEmbedding(
+            img_size=cfg.img_size, patch_size=cfg.patch_size, embed_dim=cfg.embed_dim,
+            curve=cfg.curve, fused=cfg.fused and cfg.curve != "random", dtype=dtype,
+            generator=generator)
+    if cfg.tokenizer == "1d":
+        return PixelCurveEmbedding1D(
+            img_size=cfg.img_size, patch_size=cfg.patch_size, embed_dim=cfg.embed_dim,
+            curve=cfg.curve, fused=cfg.fused, dtype=dtype, generator=generator)
     if cfg.tokenizer == "hierarchical":
         return HierarchicalCurveEmbedding(
             img_size=cfg.img_size, patch_size_list=tuple(cfg.patch_size_list),
             embed_dim=cfg.embed_dim, curve=cfg.curve,
             return_levels=return_levels, fused=cfg.fused,
-            dtype=cfg.torch_dtype(), generator=generator)
+            dtype=dtype, generator=generator)
     raise KeyError(f"unknown tokenizer family {cfg.tokenizer!r}; "
                    f"available: {TOKENIZER_FAMILIES}")
 
@@ -162,8 +171,6 @@ def _validate(cfg: ModelConfig) -> None:
     if (family_b or cfg.model == "hier") and cfg.posemb != "none":
         raise ValueError(f"model {cfg.model!r} manages its own positional "
                          f"encoding; posemb={cfg.posemb!r} would be ignored")
-    if cfg.model == "vit":
-        raise _not_ported(cfg.model)
     if cfg.remat:
         raise _not_ported("remat")
     if not family_b:
@@ -184,8 +191,9 @@ def build_model(cfg: ModelConfig, device="cuda",
         raise RuntimeError("build_model: no CUDA device is available; pass "
                            "device='cpu' to build the model on the CPU")
     dtype = cfg.torch_dtype()
-    if cfg.model == "vit1d":
-        return VisionTransformer1D(
+    if cfg.model in ("vit", "vit1d"):
+        model = VisionTransformer if cfg.model == "vit" else VisionTransformer1D
+        return model(
             build_tokenizer(cfg, generator=generator), depth=cfg.depth,
             n_heads=cfg.n_heads, mlp_dim=cfg.mlp_dim, num_classes=cfg.num_classes,
             posemb=cfg.posemb, dtype=dtype, attn_impl=cfg.attn_impl,

@@ -10,7 +10,9 @@ tail is padded with zero images up to the smallest batch size that covers
 it; pad rows are dropped from the output.
 
 Not ported yet (ROADMAP.md queue 1 item 12): int8 weights,
-``export_serialized``, ``data_parallel`` and ``compile_cache``.
+``export_serialized``, ``data_parallel`` and ``compile_cache``.  A model
+over the ``'random'`` curve is refused: it draws a fresh token permutation
+per step, and JAX's engine passes no ``'permute'`` stream to draw it from.
 """
 
 from __future__ import annotations
@@ -52,6 +54,11 @@ class ServingEngine:
     ):
         if not batch_sizes:
             raise ValueError("need at least one batch size to run")
+        if any(getattr(m, "curve", None) == "random" for m in model.modules()):
+            raise ValueError(
+                "ServingEngine does not serve a curve='random' model: its tokens "
+                "take a fresh permutation per step, and serving draws none (JAX's "
+                "engine passes no 'permute' stream either)")
         self.device = torch.device(device)
         self.image_shape = tuple(image_shape)
         self.batch_sizes = tuple(sorted(set(int(b) for b in batch_sizes)))

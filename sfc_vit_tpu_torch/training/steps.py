@@ -6,6 +6,10 @@ card), clip by global norm, AdamW.  The optimizer and the clipping are
 plain PyTorch, as the JAX package leaves them to XLA.  The mixing draws
 from a CPU generator and dropout from a second generator on the model's
 device, as the JAX step splits its key into a mixing and a dropout key.
+A ``'random'``-curve model draws its one token permutation of the step
+from the mixing generator, shared by every micro-batch (JAX's ``k_perm``);
+the eval step's is drawn from a generator seeded 0 (JAX's constant
+``jax.random.key(0)``).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.layers import dropout_generator
+from ..models.layers import dropout_generator, permutation_generator
 from .losses import soft_target_cross_entropy
 from .mixing import mix_or_cutmix
 from .schedules import Schedule
@@ -103,7 +107,9 @@ def make_train_step(num_classes: int, mixup_alpha: float = 0.2,
     ``batch`` is ``(images [B, H, W, C], labels [B])`` on the model's
     device; ``generator`` (a CPU ``torch.Generator``) draws the mixing and
     ``dropout_gen`` (a ``torch.Generator`` on the model's device) every
-    dropout mask of the forward (None: PyTorch's default generator).
+    dropout mask of the forward (None: PyTorch's default generator); a
+    ``'random'``-curve model's token permutation comes from ``generator``
+    too, once a step.
     Metrics: the loss, the lambda-weighted accuracy and the lr of the
     update (loss and accuracy stay on the device).
 
@@ -134,18 +140,19 @@ def make_train_step(num_classes: int, mixup_alpha: float = 0.2,
         model.train()
         state.optimizer.zero_grad()
         losses, accs = [], []
-        for i in range(grad_accum):
-            rows = slice(i, None, grad_accum)
-            ya, yb = y_a[rows], y_b[rows]
-            with dropout_generator(dropout_gen):
-                logits = model(x[rows])
-            loss = soft_target_cross_entropy(
-                logits, _soft_targets(ya, yb, lam_t, num_classes))
-            (loss / grad_accum).backward()
-            preds = logits.detach().argmax(dim=-1)
-            accs.append((lam_t * (preds == ya).float()
-                         + (1.0 - lam_t) * (preds == yb).float()).mean())
-            losses.append(loss.detach())
+        with permutation_generator(generator):  # one permutation a step
+            for i in range(grad_accum):
+                rows = slice(i, None, grad_accum)
+                ya, yb = y_a[rows], y_b[rows]
+                with dropout_generator(dropout_gen):
+                    logits = model(x[rows])
+                loss = soft_target_cross_entropy(
+                    logits, _soft_targets(ya, yb, lam_t, num_classes))
+                (loss / grad_accum).backward()
+                preds = logits.detach().argmax(dim=-1)
+                accs.append((lam_t * (preds == ya).float()
+                             + (1.0 - lam_t) * (preds == yb).float()).mean())
+                losses.append(loss.detach())
         lr = state.optimizer.step()
         state.step += 1
         return {"loss": torch.stack(losses).mean(),
@@ -157,13 +164,14 @@ def make_train_step(num_classes: int, mixup_alpha: float = 0.2,
 def make_eval_step(num_classes: int) -> Callable:
     """Build ``step(state, batch) -> metrics`` with sum-reduced
     ``loss_sum`` / ``correct`` / ``count``.  Rows labelled -1 are padding
-    and count in no metric."""
+    and count in no metric.  A ``'random'``-curve model takes the same
+    permutation on every call, drawn from a generator seeded 0."""
 
     def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         x, y = batch
         y = y.long()
         state.model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), permutation_generator(torch.Generator().manual_seed(0)):
             logits = state.model(x)
         valid = (y >= 0) & (y < num_classes)
         logp = F.log_softmax(logits.float(), dim=-1)

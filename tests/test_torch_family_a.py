@@ -370,11 +370,11 @@ def test_build_model_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("overrides, exc, match", [
-    (dict(model="vit"), NotImplementedError, "queue 1 item 7"),
+    (dict(model="vit", remat=True), NotImplementedError, "queue 1 item 4"),
     (dict(model="hier", remat=True), NotImplementedError, "queue 1 item 4"),
-    (dict(fused=True, tokenizer="1d"), NotImplementedError, "queue 1 item 6"),
-    (dict(tokenizer="2d"), NotImplementedError, "queue 1 item 6"),
-    (dict(tokenizer="1d"), NotImplementedError, "queue 1 item 6"),
+    (dict(tokenizer="1d", curve="random"), ValueError, "2d tokenizer"),
+    (dict(model="hier", tokenizer="2d"), ValueError, "requires tokenizer='hierarchical'"),
+    (dict(model="vit", tokenizer="3d"), KeyError, "unknown tokenizer family"),
     (dict(attn_impl="sp"), NotImplementedError, "queue 1 item 13"),
     (dict(remat=True), NotImplementedError, "queue 1 item 4"),
     (dict(curve="random"), ValueError, "2d tokenizer"),

@@ -187,6 +187,18 @@ def test_gemm_split_plan_covers_k_exactly(m, n, k, sms):
             assert end - start > (_build.GEMM_MIN_SPLIT_BLOCKS - 1) * _build.GEMM_BLOCK_K
 
 
+@pytest.mark.parametrize("m, n, k, sms, splits", [
+    (32768, 2304, 768, 132, 1), (2048, 768, 256, 132, 3), (2048, 256, 768, 132, 8),
+    (768, 2304, 32768, 132, 3), (256, 768, 2048, 132, 22), (7, 9, 13, 132, 1)])
+def test_gemm_f32_split_plan(m, n, k, sms, splits):
+    """gemm_f32 splits K where the output has too few tiles for two blocks
+    an SM, each range at least 64 deep, none empty."""
+    per = _build.gemm_f32_split(m, n, k, sms)
+    kb = -(-k // _build.GEMM_F32_BLOCK_K)
+    assert -(-kb // per) == splits and (splits - 1) * per < kb
+    assert splits == 1 or per >= _build.GEMM_F32_MIN_SPLIT_BLOCKS
+
+
 @pytest.mark.parametrize("trans_b", [False, True])
 def test_gemm_splits_only_the_weight_gradients(trans_b):
     """NN and NT products are never split, whatever their depth; a TN
@@ -1233,14 +1245,214 @@ def test_colsum_matches_sum(cuda):
     torch.testing.assert_close(_build.colsum(x), x.float().sum(0), rtol=1e-4, atol=1e-3)
 
 
+# -- the fp32 forms of #5, #6, #7 and #14 ----------------------------------------
+#
+# Each fp32 kernel against its plain version in fp32 (torch.matmul in full
+# fp32: the ``cuda`` fixture clears the TF32 flags, which are off by
+# default for matmul): the same arithmetic summed in another order, so
+# every error is held within F32_TOL of its tensor's largest |value|.
+F32_TOL = 1e-4
+
+
+def _f32(rng, *shape, scale=1.0, device="cuda"):
+    return _randn(rng, *shape, scale=scale, device=device, dtype=torch.float32)
+
+
+#: (form, rows, k, n): the notebook's projections and weight gradients (x
+#: [32 x 64, 256], the packed 768), the flagship's fp32 ones ([512 x 64,
+#: 768], 2304), ragged edges and a deep split TN.
+_GEMM_F32_SHAPES = [("NN", 2048, 256, 768), ("NN", 2048, 256, 256), ("NT", 2048, 256, 256),
+                    ("NT", 2048, 768, 256), ("TN", 2048, 256, 768), ("TN", 2048, 256, 256),
+                    ("NN", 32768, 768, 2304), ("NT", 32768, 2304, 768),
+                    ("TN", 32768, 768, 2304), ("NN", 333, 200, 136), ("NT", 7, 13, 9),
+                    ("TN", 5001, 72, 40)]
+
+
 @pytest.mark.gpu
-def test_family_a_kernels_refuse_fp32(cuda):
+@pytest.mark.parametrize("form, rows, k, n", _GEMM_F32_SHAPES)
+def test_gemm_f32_matches_matmul(cuda, form, rows, k, n):
+    """csrc/gemm_f32.cu in its three layouts against torch.matmul in fp32,
+    with the fp32 bias of the projections; split over K or not, it gives
+    the same bits twice."""
+    rng = np.random.default_rng(60)
+    if form == "TN":  # a stored [K=rows, M=k], b [rows, n]: a weight gradient
+        a, b = _f32(rng, rows, k), _f32(rng, rows, n)
+        fn, want = lambda: _build.gemm_f32(a, b, trans_a=True), a.T @ b
+    elif form == "NT":  # b stored [N, K]
+        a, b = _f32(rng, rows, k), _f32(rng, n, k, scale=k ** -0.5)
+        fn, want = lambda: _build.gemm_f32(a, b, trans_b=True), a @ b.T
+    else:
+        a, b, bias = _f32(rng, rows, k), _f32(rng, k, n, scale=k ** -0.5), _f32(rng, n)
+        fn, want = lambda: _build.gemm_f32(a, b, bias=bias), a @ b + bias
+    got = fn()
+    _within(got, want, F32_TOL, form)
+    assert torch.equal(fn(), got)
+
+
+@pytest.mark.gpu
+def test_colsum_f32_matches_sum(cuda):
+    x = _f32(np.random.default_rng(61), 2049, 768)
+    _within(_build.colsum(x), x.sum(0), F32_TOL)
+
+
+#: (b, n, heads, dh, n_valid): the notebook's layer ([32, 64], 4 heads of
+#: 64), the flagship's fp32 layer (4 heads of 192), 'hier''s fusion
+#: length, ragged rows and key limits, and the longest rows, 1,024 tokens
+#: (the 1-D tokenizer at patch 1).
+_ATTN_F32_SHAPES = [(32, 64, 4, 64, 64), (64, 64, 4, 192, 64), (4, 64, 4, 192, 50),
+                    (2, 192, 4, 64, 192), (3, 200, 2, 192, 130), (2, 1024, 2, 64, 1024),
+                    (1, 1024, 2, 192, 1000), (2, 24, 2, 64, 20)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b, n, heads, dh, n_valid", _ATTN_F32_SHAPES)
+def test_attention_f32_matches_plain(cuda, b, n, heads, dh, n_valid, masked):
+    """csrc/packed_attn_f32.cu (out and lse) against attention_fwd_ref, with
+    and without #5's mask, and with the mask csrc/attention_bwd_f32.cu
+    against attention_bwd_ref (#6's), fp32; the backward repeats bit for
+    bit, and refuses to run without a mask (no path takes it)."""
+    rng = np.random.default_rng(62)
+    qkv = _f32(rng, b, n, 3 * heads * dh)
+    datt = _f32(rng, b, n, heads * dh)
+    mask = torch.from_numpy(rng.random((b, heads, n, n)) < 0.9).to(cuda) if masked else None
+    keep = 0.9 if masked else 1.0
+    s = dh ** -0.5
+    att, lse = _build.attention_fwd(qkv, heads, n_valid, s, with_lse=True, mask=mask,
+                                    keep=keep)
+    want, want_lse = attention_fwd_ref(qkv, heads, n_valid, s, mask=mask, keep=keep)
+    _within(att, want, F32_TOL, "att")
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    if not masked and n_valid == n:
+        _within(_build.attention_fwd(qkv, heads, n, s), _packed_xla_ref(qkv, heads, s),
+                F32_TOL, "packed")
+    if not masked:
+        with pytest.raises(ValueError, match="dropout mask"):
+            _build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s)
+        return
+    dqkv = _build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s, mask=mask, keep=keep)
+    want_d = attention_bwd_ref(qkv, att, datt, lse, heads, n_valid, s, mask=mask, keep=keep)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        part = lambda t: t.view(b, n, 3, heads * dh)[:, :, i]  # noqa: E731
+        _within(part(dqkv), part(want_d), F32_TOL, name)
+    assert torch.equal(_build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s,
+                                            mask=mask, keep=keep), dqkv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d, heads, n_actual", [(32, 64, 256, 4, None),
+                                                      (16, 64, 768, 4, None),
+                                                      (4, 64, 768, 4, 50),
+                                                      (2, 130, 384, 2, 100)])
+def test_torch_mha_f32_matches_ref(cuda, b, n, d, heads, n_actual):
+    """#5 and #6 in fp32 (the notebook's and the flagship's layers) against
+    their plain versions, each through its own launch counter."""
+    a = _mha_args(np.random.default_rng(63), b, n, d, heads, cuda)
+    a = {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in a.items()}
+    fwd = [a[k] for k in ("x", "w_in", "b_in", "w_out", "b_out", "mask")]
+    before = (fused_torch_mha.f32_launches, fused_torch_mha.f32_bwd_launches,
+              fused_torch_mha.launches)
+    got = torch_mha_train_fwd(*fwd, heads, keep=0.9, n_actual=n_actual)
+    want = torch_mha_fwd_ref(*fwd, heads, keep=0.9, n_actual=n_actual, save_acts=True)
+    for name, x, w in zip(("y", "qkv", "att", "lse"), got, want):
+        _within(x, w, F32_TOL, name)
+    saved = (a["x"], a["g"], a["w_in"], a["w_out"], a["mask"], *got[1:])
+    g_k = torch_mha_bwd(*saved, heads, keep=0.9, n_actual=n_actual)
+    g_p = torch_mha_bwd_ref(*saved, heads, keep=0.9, n_actual=n_actual)
+    for name, x, w in zip(("dx", "dw_in", "db_in", "dw_out", "db_out"), g_k, g_p):
+        _within(x, w, F32_TOL, name)
+    assert (fused_torch_mha.f32_launches, fused_torch_mha.f32_bwd_launches,
+            fused_torch_mha.launches) == (before[0] + 1, before[1] + 1, before[2])
+
+
+@pytest.mark.gpu
+def test_family_a_kernels_refuse_fp16(cuda):
+    """#5/#6, #7 and #14 take bfloat16 and float32; float16 raises, with no
+    fall back to a plain version."""
+    from sfc_vit_tpu_torch.ops import gather_project as gp
+
     a = _mha_args(np.random.default_rng(24), 1, 8, 128, 2, cuda)
-    args = [a[k].float() for k in ("x", "w_in", "b_in", "w_out", "b_out")]
-    with pytest.raises(NotImplementedError, match="item 15"):
+    args = [a[k].half() for k in ("x", "w_in", "b_in", "w_out", "b_out")]
+    with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
         fused_torch_mha(*args, a["mask"], 2, keep=0.9)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 15"):
-        packed_flash_attention(torch.zeros(1, 8, 3 * 128, device=cuda), 2)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="bfloat16 or float32"):
+        packed_flash_attention(torch.zeros(1, 8, 3 * 128, device=cuda, dtype=torch.half), 2)
+    lut = torch.arange(8, dtype=torch.int32, device=cuda)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="bfloat16 or float32"):
+        gp.gather_project(torch.zeros(1, 8, 3, device=cuda, dtype=torch.half), lut,
+                          torch.zeros(3, 16, device=cuda, dtype=torch.half))
+
+
+#: (b, n, k, group, d): the notebook's 2-D tokenizer (64 patches of 4 x 4 x
+#: 3, group 1), the 1-D tokenizer at patch 4 (1,024 pixels of 3 in groups of
+#: 4) and patch 1, the flagship's three levels at batch 512, and ragged
+#: widths (d not a multiple of 4 or of 128, features not of 32).
+_GP_F32_SHAPES = [(32, 64, 48, 1, 256), (32, 1024, 3, 4, 256), (4, 1024, 3, 1, 256),
+                  (512, 1024, 3, 16, 256), (512, 256, 12, 4, 256), (512, 64, 48, 1, 256),
+                  (3, 50, 5, 3, 301), (2, 70, 13, 5, 130)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, k, group, d", _GP_F32_SHAPES)
+def test_gather_project_f32_matches_plain(cuda, b, n, k, group, d):
+    """csrc/gather_project_f32.cu against gather_project_ref in fp32, with
+    a bias and without, through its own launch counter."""
+    from sfc_vit_tpu_torch.ops import gather_project as gp
+
+    rng = np.random.default_rng(64)
+    x = _f32(rng, b, n, k)
+    lut = torch.from_numpy(rng.permutation(n)[:n // group * group].astype(np.int32)).to(cuda)
+    w = _f32(rng, group * k, d, scale=(group * k) ** -0.5)
+    bias = _f32(rng, d)
+    before = (gp.gather_project.f32_launches, gp.gather_project.launches)
+    with torch.no_grad():
+        for bvec in (bias, None):
+            _within(gp.gather_project(x, lut, w, bvec, group),
+                    gp.gather_project_ref(x, lut, w, bvec, group), F32_TOL)
+    assert (gp.gather_project.f32_launches, gp.gather_project.launches) == (
+        before[0] + 2, before[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tokenizer, fused", [("2d", False), ("2d", True), ("1d", True)])
+def test_notebook_kernel_path_matches_plain_path(cuda, tokenizer, fused):
+    """A small notebook VisionTransformer in fp32 on the card: eval through
+    #7's fp32 form (and #14's, fused), training through #5/#6's, each
+    against the plain versions."""
+    from unittest import mock
+
+    import sfc_vit_tpu_torch.models.layers as layers
+    import sfc_vit_tpu_torch.ops.attention as attention
+    from sfc_vit_tpu_torch.ops import gather_project as gp
+    from sfc_vit_tpu_torch.ops.fused_torch_attention import torch_mha_train
+    from sfc_vit_tpu_torch.registry import build_model, preset_config
+
+    cfg = preset_config("notebook", depth=2, tokenizer=tokenizer, fused=fused)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    x = _f32(np.random.default_rng(65), 6, 32, 32, 3)
+    plain_packed = lambda qkv, heads, scale=None: _packed_xla_ref(  # noqa: E731
+        qkv, heads, (qkv.shape[-1] // 3 // heads) ** -0.5)
+    before = (packed_flash_attention.f32_launches, gp.gather_project.f32_launches)
+    with torch.no_grad():
+        got = model.eval()(x)
+        with mock.patch.object(attention, "packed_flash_attention", plain_packed), \
+                mock.patch.object(gp, "_launch", lambda x, lut, w, b, group:
+                                  gp.gather_project_ref(x, lut, w, b, group)):
+            want = model(x)
+    assert (packed_flash_attention.f32_launches, gp.gather_project.f32_launches) == (
+        before[0] + cfg.depth, before[1] + int(fused))
+    _within(got, want, F32_TOL, "logits")
+    model.train()
+    grads = []
+    for plain in (False, True):
+        ctx = mock.patch.object(layers, "fused_torch_mha",
+                                torch_mha_train if plain else fused_torch_mha)
+        model.zero_grad()
+        with ctx, layers.dropout_generator(torch.Generator(device=cuda).manual_seed(1)):
+            model(x).sum().backward()
+        grads.append([p.grad.clone() for p in model.parameters()])
+    for g, w in zip(*grads):
+        assert float((g - w).norm() / w.norm()) <= 1e-4
 
 
 @pytest.mark.gpu
@@ -1663,9 +1875,10 @@ def test_gather_project_repeats_bit_for_bit(cuda):
 
 
 @pytest.mark.gpu
-def test_gather_project_grads_and_fp32_refusal(cuda):
-    """Under autograd the forward is #14 and the backward plain PyTorch:
-    the gradients match those of the plain forward; fp32 raises."""
+def test_gather_project_grads_in_bf16_and_fp32(cuda):
+    """Under autograd the forward is #14 (bf16 or its fp32 form) and the
+    backward plain PyTorch: the gradients match those of the plain
+    forward."""
     from sfc_vit_tpu_torch.ops import gather_project as gp
 
     rng = np.random.default_rng(43)
@@ -1681,8 +1894,13 @@ def test_gather_project_grads_and_fp32_refusal(cuda):
         grads.append([t.grad for t in leaves])
     for name, a, want in zip(("dx", "dw", "db"), *grads):
         _within(a, want, 2e-2, name)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        gp.gather_project(x.float(), lut, w.float())
+    grads = []
+    for fn in (gp.gather_project, gp.gather_project_ref):
+        leaves = [t.float().requires_grad_() for t in (x, w, bvec)]
+        fn(leaves[0], lut, leaves[1], leaves[2], 1).backward(g.float())
+        grads.append([t.grad for t in leaves])
+    for name, a, want in zip(("dx", "dw", "db"), *grads):
+        _within(a, want, F32_TOL, name)
 
 
 @pytest.mark.gpu

@@ -126,8 +126,8 @@ def test_build_model_vit_b_16_config():
 
 
 @pytest.mark.parametrize("name, overrides, match", [
-    ("flagship", {"model": "vit"}, "queue 1 item 7"),
-    ("notebook", {}, "queue 1 item 7"),
+    ("notebook", {"remat": True}, "train step"),
+    ("notebook", {"attn_impl": "ring"}, "sequence parallelism"),
     ("longctx-16k-hybrid", {"attn_impl": ("local", "local", "local", "ring")},
      "sequence parallelism"),
     ("vit-b-16", {"remat": True}, "train step"),

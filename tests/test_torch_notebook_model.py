@@ -1,0 +1,242 @@
+"""The reference notebook's model, the port's ``VisionTransformer`` against
+the JAX package's, on the CPU.
+
+A small ``VisionTransformer`` (the ``'notebook'`` preset cut to depth 2)
+over the 2-D and 1-D curve tokenizers, fused and not, in fp32 and bf16:
+its logits and ``jax.grad``'s gradients.  The 1-D family at patch 1, at
+1,024 tokens (the limit of #5/#6 and #7) and past it, trained with JAX's
+dropout masks replayed.  JAX's fused tokenizers run ``gather_project``
+in interpret mode; JAX's draws (masks, the permutation) are recorded by
+wrapping its random functions and replayed through the port's draw
+functions.  Inputs come from numpy seeds.  The tokenizers alone, a
+``'random'`` model's train step, the registry and the flax tree are in
+``test_torch_notebook.py``.
+"""
+
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sfc_vit_tpu import registry as jregistry
+from sfc_vit_tpu.ops import gather_project as jgp
+from sfc_vit_tpu_torch.models import VisionTransformer, layers
+from sfc_vit_tpu_torch.ops.attention import packed_route
+from sfc_vit_tpu_torch.registry import build_model, preset_config
+from sfc_vit_tpu_torch.utils import load_flax_params, to_flax_grads
+
+#: fp32 logits through a few layers: within this fraction of the largest
+#: |logit|; gradients: relative L2 error of each tensor.
+F32_LOGIT, F32_GRAD = 1e-4, 1e-4
+#: bf16, the flagship's gates: each framework rounds at its own points.
+BF16_LOGIT, BF16_GRAD = 0.03, 0.1
+#: Gradients over 2,048 rows trained through #5/#6's formula against JAX's
+#: explicit-weights one on the CPU: the two round the attention output
+#: differently (3.5e-7 relative), and one ReLU input of 131,072 within
+#: rounding of 0 (|z| ~ 4e-8) flips, which moves linear1's bias gradient
+#: by 0.45 % and every tensor before it by 0.2-0.5 % (measured).  The same
+#: model through the explicit formula agrees within 1e-5.
+KINK_GRAD = 1e-2
+#: The notebook preset cut to size: 16 px, patch 4 (16 tokens), d = 128,
+#: depth 2, 2 heads of 64, MLP 64.
+SMALL = dict(img_size=16, patch_size=4, embed_dim=128, depth=2, n_heads=2, mlp_dim=64)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _images(n, hw=16, seed=0):
+    return np.random.default_rng(seed).standard_normal((n, hw, hw, 3)).astype(np.float32)
+
+
+def _perturbed(params, seed):
+    """Every leaf perturbed, so unit scales and zero biases hide no
+    mis-mapped leaf."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32)
+        + 0.05 * rng.standard_normal(a.shape).astype(np.float32), params)
+
+
+def _rel_l2_close(got, want, tol):
+    flat = dict(jax.tree_util.tree_leaves_with_path(got))
+    leaves = jax.tree_util.tree_leaves_with_path(want)
+    assert len(flat) == len(leaves)
+    for path, leaf in leaves:
+        w = np.asarray(leaf, np.float64)
+        err = np.linalg.norm(flat[path] - w) / max(np.linalg.norm(w), 1e-30)
+        assert err <= tol, (jax.tree_util.keystr(path), err)
+
+
+def _logits_close(got, want, frac):
+    want = np.asarray(want, np.float32)
+    err, scale = float(np.abs(np.asarray(got, np.float32) - want).max()), float(
+        np.abs(want).max())
+    assert err <= frac * scale, (err, scale)
+
+
+_JGP = jgp.gather_project
+
+
+def _interpret_gp():
+    """JAX's fused tokenizers through the Pallas kernel in interpret mode
+    (on the CPU they would take its XLA twin).  The patched name also
+    serves the kernel's own forward rule, which calls it positionally."""
+    def interpreted(x, lut, w, b=None, block_n=None, interpret=True, group=1):
+        return _JGP(x, lut, w, b, block_n, True, group)
+
+    return mock.patch.object(jgp, "gather_project", interpreted)
+
+
+def _with_draws(fn):
+    """``fn(params, *args) -> (loss, aux)`` as a jitted value-and-grad in
+    ``params`` that also returns every dropout mask and permutation JAX
+    draws inside, in draw order: ``((loss, (aux, masks, perms)), grads)``.
+    The draws are recorded by wrapping ``jax.random.bernoulli`` and
+    ``jax.random.permutation`` while the function is traced."""
+    def wrapped(params, *args):
+        masks, perms = [], []
+        bernoulli, permutation = jax.random.bernoulli, jax.random.permutation
+
+        def spy_mask(key, p=0.5, shape=None, *args, **kw):
+            masks.append(bernoulli(key, p, shape, *args, **kw))
+            return masks[-1]
+
+        def spy_perm(key, x, *args, **kw):
+            perms.append(permutation(key, x, *args, **kw))
+            return perms[-1]
+
+        with mock.patch.object(jax.random, "bernoulli", spy_mask), \
+                mock.patch.object(jax.random, "permutation", spy_perm):
+            loss, aux = fn(params, *args)
+        return loss, (aux, masks, perms)
+
+    return jax.jit(jax.value_and_grad(wrapped, has_aux=True))
+
+
+def _replay_perm(monkeypatch, perm):
+    """The port's permutation draws return JAX's ``perm``; returns the
+    list of the draws made."""
+    perm = np.asarray(perm)
+    calls = []
+
+    def draw(n, generator):
+        calls.append(n)
+        assert n == perm.shape[0]
+        return torch.from_numpy(perm.astype(np.int64))
+
+    monkeypatch.setattr(layers, "draw_permutation", draw)
+    return calls
+
+
+def _replay_masks(monkeypatch, masks):
+    """The port's dropout masks are JAX's, in draw order; returns the queue
+    of those not drawn yet."""
+    queue = [np.asarray(m) for m in masks]
+
+    def draw(shape, keep, device):
+        mask = queue.pop(0)
+        assert tuple(shape) == mask.shape
+        return torch.from_numpy(mask.copy()).to(device)
+
+    monkeypatch.setattr(layers, "dropout_mask", draw)
+    return queue
+
+
+def _notebook(**overrides):
+    return {**SMALL, **overrides}
+
+
+def _jax_model(cfg, seed=0):
+    jmodel = jregistry.build_model(jregistry.preset_config("notebook", **cfg))
+    key = jax.random.key(seed)
+    variables = jax.jit(jmodel.init)({"params": key, "permute": key},
+                                     jnp.asarray(_images(1, hw=cfg["img_size"])))
+    return jmodel, _perturbed(variables["params"], seed + 1)
+
+
+def _port_model(cfg, params):
+    model = build_model(preset_config("notebook", **cfg), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    return load_flax_params(model, params)
+
+
+@pytest.mark.parametrize("dtype, posemb, tokenizer, fused, curve", [
+    (None, "gfpe", "2d", False, "hilbert"),
+    (None, "none", "2d", True, "morton"),
+    (None, "gfpe", "1d", True, "hilbert"),
+    (None, "none", "2d", False, "random"),
+    ("bfloat16", "none", "2d", False, "hilbert"),
+    ("bfloat16", "gfpe", "2d", True, "hilbert"),
+], ids=["fp32-gfpe", "fp32-fused", "fp32-1d-fused", "fp32-random",
+        "bf16-none", "bf16-gfpe-fused"])
+def test_vision_transformer_matches_jax(monkeypatch, dtype, posemb, tokenizer, fused, curve):
+    """A small notebook ``VisionTransformer``, evaluated: its logits, and
+    the gradients of ``sum(logits * w)`` against ``jax.grad``; fp32 within
+    1e-4, bf16 within the flagship's gates.  bf16 runs JAX op by op, which
+    rounds after every operation as the port does (jit's fusions keep some
+    intermediates in fp32)."""
+    cfg = _notebook(dtype=dtype, posemb=posemb, tokenizer=tokenizer, fused=fused,
+                    curve=curve)
+    jmodel, params = _jax_model(cfg)
+    x = _images(3, seed=4)
+    w = np.random.default_rng(5).standard_normal((3, 10)).astype(np.float32)
+    rngs = {"permute": jax.random.key(0)}
+
+    def loss(p):
+        out = jmodel.apply({"params": p}, jnp.asarray(x), rngs=rngs)
+        return (out.astype(jnp.float32) * w).sum(), out
+
+    with _interpret_gp():
+        if dtype:
+            want_grads, want = jax.grad(loss, has_aux=True)(params)
+        else:
+            (_, (want, _, perms)), want_grads = _with_draws(loss)(params)
+            assert len(perms) == (curve == "random")
+            if perms:
+                _replay_perm(monkeypatch, perms[0])
+    model = _port_model(cfg, params).eval()
+    assert type(model) is VisionTransformer
+    with layers.permutation_generator(torch.Generator()):
+        got = model(_t(x))
+    (got.float() * _t(w)).sum().backward()
+    f32 = dtype is None
+    _logits_close(got.detach().float().numpy(), want, F32_LOGIT if f32 else BF16_LOGIT)
+    _rel_l2_close(to_flax_grads(model), want_grads, F32_GRAD if f32 else BF16_GRAD)
+
+
+@pytest.mark.parametrize("img", [32, 33], ids=["1024-tokens", "1089-tokens"])
+def test_1d_model_at_and_past_the_key_limit_matches_jax(monkeypatch, img):
+    """The 1-D tokenizer at patch 1 gives 1,024 tokens at 32 px, the limit
+    of #5/#6 (``TORCH_MHA_MAX_N``) and #7 (``PACKED_MAX_N``), and 1,089 at
+    33 px: trained with dropout (the fused formula at 1,024, the
+    explicit-weights one past it) and JAX's masks replayed, logits and
+    gradients against JAX; the eval routes on either side."""
+    n = img * img
+    assert layers.mha_route("auto", n, 128, 0.1, True) == (
+        "fused_mha" if n <= 1024 else "mha_train")
+    assert packed_route("auto", n, 64) == ("packed" if n <= 1024 else "flash")
+    cfg = dict(img_size=img, patch_size=1, tokenizer="1d", embed_dim=128, depth=1,
+               n_heads=2, mlp_dim=64)
+    jmodel, params = _jax_model(cfg)
+    x = _images(2, hw=img, seed=6)
+    w = np.random.default_rng(7).standard_normal((2, 10)).astype(np.float32)
+    rngs = {"dropout": jax.random.key(8), "permute": jax.random.key(9)}
+
+    def loss(p):
+        out = jmodel.apply({"params": p}, jnp.asarray(x), deterministic=False, rngs=rngs)
+        return (out * w).sum(), out
+
+    (_, (want, masks, _)), want_grads = _with_draws(loss)(params)
+    assert len(masks) == 4 + 1  # probabilities, attention out, MLP x 2; the head
+    left = _replay_masks(monkeypatch, masks)
+    model = _port_model(cfg, params).train()
+    got = model(_t(x))
+    (got * _t(w)).sum().backward()
+    assert not left
+    _logits_close(got.detach().numpy(), want, F32_LOGIT)
+    _rel_l2_close(to_flax_grads(model), want_grads, KINK_GRAD)
