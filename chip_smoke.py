@@ -5,7 +5,8 @@ tokenizer, and at MLP 1,024 through the post-norm tail), the hierarchical
 family-A model's, the long-context models' (16,384 tokens with token
 merge, its hybrid local/global schedule, and 4,096) and the reference
 notebook's model's (fp32 and bf16, 2-D and 1-D tokenizers) train steps
-and serving, once on one NVIDIA GPU.
+and serving, and the ViT-B/16 preset's at its own fp32, once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one
                                  # NVIDIA H100 (sm_90a) and nvcc
@@ -188,6 +189,27 @@ Phases, each of which raises (non-zero exit) on failure:
    counts = layers x steps, eval batches and served forwards, every
    parameter moved, one step's gradients and the served logits against
    the plain versions.
+15. ViT-B/16 at its own dtype (float32; the preset names none): (a) #1-#4
+   in fp32 (``ln_rows`` / ``ln_rows_bwd``'s fp32 forms, ``csrc/gemm_f32.cu``
+   with its epilogues, ``packed_attn_f32.cu`` and ``attention_bwd_f32.cu``
+   without a mask) against their plain versions within 1e-4 of each
+   tensor's largest |value|: #1 and #2 at batch 64, #3 and #4 at batch 256
+   (timed in turns with the plain versions, beside the fp32 bound), ViT-S/16's
+   width (d 384, 6 heads) and a ragged shape (n_actual 37 of 50 tokens, 150
+   rows), checked; #3 and #4 (their column sums, the attention backward)
+   bit for bit on a second call; #1's attention alone at [64, 196, 12 x 64]
+   and, with lse, [256, 196, 12 x 64], and #4's attention backward alone
+   at [256, 196, 12 x 64], beside SDPA fp32; each GEMM form of the chains
+   at ViT-B/16's shapes against torch fp32, timed beside ``torch.matmul``
+   fp32; (b) ``build_model(preset_config("vit-b-16", curve="hilbert",
+   num_classes=1000))`` with no dtype served by
+   ``ServingEngine(batch_sizes=(8, 64), dtype=None)`` (1, 37, 64 images;
+   #1/#2 fp32 launched 12 x forwards, logits within 1e-4 of the largest
+   |logit| of the plain path) and trained by ``Trainer.fit`` for 4 steps
+   at batch 256 plus an eval batch (#1-#4 fp32 launched 12 x steps, every
+   parameter moved), one step's gradients against the plain blocks
+   (relative L2 within 1e-2, max and median printed), forward and train
+   step times on both paths, peak memory and a profile of the step.
    Then no module of jax, flax or the JAX package may have loaded.
 
 The line before the last is one JSON object describing the kernels; the
@@ -1156,6 +1178,9 @@ def phase_train(card: str) -> dict:
 #: Kernels told apart by their template arguments: the GEMM's three
 #: layouts <trans_a, trans_b, act kind>, #8's two forms and #12's instance.
 _GEMM_LABELS = {"gemm_bf16_sm90<false, false, 3": "gemm_bf16 NN + LN2 (#15, clusters)",
+                "gemm_f32_kernel<false, false": "gemm_f32 NN (forward)",
+                "gemm_f32_kernel<false, true": "gemm_f32 NT (dX, dz, datt)",
+                "gemm_f32_kernel<true, false": "gemm_f32 TN (weight gradients)",
                 "gemm_bf16_sm90<false, false": "gemm_bf16 NN (forward)",
                 "gemm_bf16_sm90<false, true": "gemm_bf16 NT (dX, dz, datt)",
                 "gemm_bf16_sm90<true, false": "gemm_bf16 TN (weight gradients)",
@@ -2992,6 +3017,407 @@ def phase_notebook(card: str) -> dict:
     return total
 
 
+# -- 15. the ViT-B/16 preset at its own dtype: #1-#4 in fp32 ---------------------
+
+#: (label, batch of the forward check, batch of the backward check, N, D,
+#: heads, F, n_actual): ViT-B/16 at the serving and training batches (timed),
+#: ViT-S/16's width and a ragged shape (n_actual < N, R = 150 rows, not a
+#: multiple of 128), checked only.
+VIT_F32_SHAPES = (("ViT-B/16", B, TRAIN_B, N, D, HEADS, F, None),
+                  ("ViT-S/16", 8, 8, N, 384, 6, 1536, None),
+                  ("ragged", 3, 3, 50, 128, 2, 256, 37))
+_MLP_BWD_NAMES = ("dx", "dls", "dlb", "dw1", "db1", "dw2", "db2")
+_ATTN_BWD_NAMES = ("dx", "dls", "dlb", "dw_qkv", "dw_out")
+
+
+def _vit_f32_args(gen, b, n, d, heads, f):
+    """fp32 inputs of #1 (x, LN, W_qkv, W_out) and #2 (x, LN, W1, b1, W2,
+    b2) at one layer's widths, with the cotangent g."""
+    f32 = dict(dtype=torch.float32)
+    x = _randn(gen, b, n, d, **f32)
+    ln = (_randn(gen, d, scale=0.1, shift=1.0, **f32), _randn(gen, d, scale=0.1, **f32))
+    attn = (x, *ln, _randn(gen, d, 3 * d, scale=d ** -0.5, **f32),
+            _randn(gen, d, d, scale=d ** -0.5, **f32))
+    mlp = (x, *ln, _randn(gen, d, f, scale=d ** -0.5, **f32), _randn(gen, f, scale=0.1, **f32),
+           _randn(gen, f, d, scale=f ** -0.5, **f32), _randn(gen, d, scale=0.1, **f32))
+    return attn, mlp, _randn(gen, b, n, d, **f32)
+
+
+def _vit_f32_blocks(card: str, label: str, bf: int, bb: int, n: int, d: int, heads: int,
+                    f: int, n_actual, timed: bool) -> dict:
+    """#1 and #2 in fp32 at batch ``bf``, #3 and #4 at ``bb``, each against
+    its plain version within F32_TOL of each tensor's largest |value| (#1 on
+    the real rows); #3 and #4 (their column sums and the attention
+    backward) bit for bit on a second call.  With ``timed``, each timed in
+    turns with its plain version beside its fp32 bound; returns the four
+    kernels-line entries."""
+    gen = torch.Generator().manual_seed(16)
+    shape = f"[{{}}, {n}, {d}], {heads} heads of {d // heads}, F {f}" + (
+        f", n_actual {n_actual}" if n_actual else "")
+    real = n_actual or n
+    out = {}
+    with torch.no_grad():
+        attn, mlp, _ = _vit_f32_args(gen, bf, n, d, heads, f)
+        print(f"#1 fp32 (fused_attention_block vs attention_block_ref), {label} "
+              f"{shape.format(bf)}:")
+        err1 = _frac_err("out, real rows",
+                         fused_attention_block(*attn, heads, n_actual=n_actual)[:, :real],
+                         attention_block_ref(*attn, heads, n_actual=n_actual)[:, :real], F32_TOL)
+        print(f"#2 fp32 (fused_mlp_block vs mlp_block_ref), {label} {shape.format(bf)}:")
+        err2 = _frac_err("out", fused_mlp_block(*mlp), mlp_block_ref(*mlp), F32_TOL)
+        r = bf * n
+        if timed:
+            ms1, p1 = _ab_ms(lambda: fused_attention_block(*attn, heads),
+                             lambda: attention_block_ref(*attn, heads), iters=10)
+            ms2, p2 = _ab_ms(lambda: fused_mlp_block(*mlp), lambda: mlp_block_ref(*mlp), iters=10)
+            out["fused_attention_block_f32"] = dict(
+                max_abs_err=err1, ms=ms1, plain_ms=p1, library_ms=None,
+                **_bound_f32(8 * r * d * d + 4 * bf * heads * n * n * (d // heads),
+                             4 * (2 * r * d + 4 * d * d + 2 * d)))
+            out["fused_mlp_block_f32"] = dict(
+                max_abs_err=err2, ms=ms2, plain_ms=p2, library_ms=None,
+                **_bound_f32(4 * r * d * f, 4 * (2 * r * d + 2 * d * f + f + 3 * d)))
+            _f32_row("#1 (ln_rows, gemm_f32, packed_attn_f32, gemm_f32 + residual)",
+                     shape.format(bf), out["fused_attention_block_f32"], card)
+            _f32_row("#2 (ln_rows, gemm_f32 + bias + GELU, gemm_f32 + bias + residual)",
+                     shape.format(bf), out["fused_mlp_block_f32"], card)
+        del attn, mlp
+
+        attn, mlp, g = _vit_f32_args(gen, bb, n, d, heads, f)
+        _, z = mlp_block_train_fwd(*mlp)
+        m_args = (mlp[0], g, *mlp[1:6], z, mlp[6])
+        print(f"#3 fp32 (mlp_block_bwd vs mlp_block_bwd_ref), {label} {shape.format(bb)}:")
+        got = mlp_block_bwd(*m_args)
+        err3 = max(_frac_err(nm, a, w_, F32_TOL)
+                   for nm, a, w_ in zip(_MLP_BWD_NAMES, got, mlp_block_bwd_ref(*m_args)))
+        _check(all(torch.equal(u, v) for u, v in zip(got, mlp_block_bwd(*m_args))),
+               f"#3 fp32 ({label}) differs on a second call")
+        del got
+        _, qkv, att, lse = attention_block_train_fwd(*attn, heads, n_actual=n_actual)
+        a_args = (attn[0], g, *attn[1:], qkv, att, lse, heads)
+        print(f"#4 fp32 (attention_block_bwd vs attention_block_bwd_ref), {label} "
+              f"{shape.format(bb)}:")
+        got = attention_block_bwd(*a_args, n_actual=n_actual)
+        err4 = max(_frac_err(nm, a, w_, F32_TOL) for nm, a, w_ in zip(
+            _ATTN_BWD_NAMES, got, attention_block_bwd_ref(*a_args, n_actual=n_actual)))
+        _check(all(torch.equal(u, v) for u, v in zip(
+            got, attention_block_bwd(*a_args, n_actual=n_actual))),
+               f"#4 fp32 ({label}) differs on a second call")
+        del got
+        print(f"#3 and #4 fp32 ({label}): every output, the column sums and the attention "
+              "backward included, bit for bit on a second call")
+        if timed:
+            r = bb * n
+            ms3, p3 = _ab_ms(lambda: mlp_block_bwd(*m_args), lambda: mlp_block_bwd_ref(*m_args),
+                             iters=10)
+            ms4, p4 = _ab_ms(lambda: attention_block_bwd(*a_args),
+                             lambda: attention_block_bwd_ref(*a_args), iters=10)
+            out["fused_mlp_block_bwd_f32"] = dict(
+                max_abs_err=err3, ms=ms3, plain_ms=p3, library_ms=None,
+                **_bound_f32(8 * r * d * f, 4 * (3 * r * d + r * f + 4 * d * f + f + 4 * d)))
+            out["fused_attention_block_bwd_f32"] = dict(
+                max_abs_err=err4, ms=ms4, plain_ms=p4, library_ms=None,
+                **_bound_f32(16 * r * d * d + 10 * bb * heads * n * n * (d // heads),
+                             4 * (3 * r * d + 4 * r * d + 8 * d * d + 3 * d)
+                             + 4 * bb * heads * n))
+            _f32_row("#3 (ln_rows, act_f32, gemm_f32 TN, NT + act' + column sums, TN, NT, "
+                     "ln_rows_bwd)", shape.format(bb), out["fused_mlp_block_bwd_f32"], card)
+            _f32_row("#4 (ln_rows, gemm_f32 NT, attention_bwd_f32, TN, NT, TN, ln_rows_bwd)",
+                     shape.format(bb), out["fused_attention_block_bwd_f32"], card)
+            _vit_attention_f32(card, qkv, att, lse, g, heads)
+    return out
+
+
+def _vit_attention_f32(card: str, qkv, att, lse, g, heads: int) -> None:
+    """#1's attention alone (``csrc/packed_attn_f32.cu``, no mask) at the
+    serving batch without lse and the training batch with it, and #4's
+    attention backward alone (``csrc/attention_bwd_f32.cu``, no mask) at the
+    training batch, bit for bit on a second call, each against its plain
+    version and timed in turns beside its bound and SDPA fp32 (forward;
+    its autograd backward)."""
+    bb, n, w = qkv.shape
+    inner, dh = w // 3, w // 3 // heads
+    s = dh ** -0.5
+    for b, with_lse in ((B, False), (bb, True)):
+        q_ = qkv[:b].contiguous()
+        print(f"packed_attn_f32 (#1's attention alone), qkv [{b}, {n}, {w}]"
+              f"{' with lse' if with_lse else ''}:")
+        got = _build.attention_fwd(q_, heads, n, s, with_lse=with_lse)
+        a_p, l_p = attention_fwd_ref(q_, heads, n, s)
+        err = _frac_err("att", got[0] if with_lse else got, a_p, F32_TOL)
+        if with_lse:
+            _frac_err("lse", got[1], l_p, F32_TOL)
+        qh, kh, vh = (t.contiguous() for t in q_.view(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4))
+        ms, plain = _ab_ms(lambda: _build.attention_fwd(q_, heads, n, s, with_lse=with_lse),
+                           lambda: attention_fwd_ref(q_, heads, n, s), iters=10)
+        t = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                 library_ms=_ms(lambda: TF.scaled_dot_product_attention(qh, kh, vh), iters=10),
+                 **_bound_f32(4 * b * heads * n * n * dh,
+                              4 * (4 * b * n * inner + (b * heads * n if with_lse else 0))))
+        _f32_row("packed_attn_f32 (#1's attention alone)",
+                 f"[{b}, {n}, {heads} x {dh}]{' with lse' if with_lse else ''}", t, card,
+                 "SDPA fp32 forward")
+    datt = g.view(bb, n, -1)[:, :, :inner].contiguous()
+    print(f"attention_bwd_f32 without a mask (#4's attention backward alone), qkv [{bb}, {n}, "
+          f"{w}]:")
+    got = _build.attention_bwd(qkv, att, datt, lse, heads, n, s)
+    err = _frac_err("dqkv", got, attention_bwd_ref(qkv, att, datt, lse, heads, n, s), F32_TOL)
+    _check(torch.equal(_build.attention_bwd(qkv, att, datt, lse, heads, n, s), got),
+           "attention_bwd_f32 differs on a second call")
+    ms, plain = _ab_ms(lambda: _build.attention_bwd(qkv, att, datt, lse, heads, n, s),
+                       lambda: attention_bwd_ref(qkv, att, datt, lse, heads, n, s), iters=10)
+    q, k, v = qkv.view(bb, n, 3, heads, dh).unbind(2)
+    with torch.enable_grad():
+        _, sdpa_bwd = _sdpa_ms(q, k, v, datt.view(bb, n, heads, dh))
+    t = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=sdpa_bwd,
+             **_bound_f32(10 * bb * heads * n * n * dh, 4 * (8 * bb * n * inner + bb * heads * n)))
+    _f32_row("attention_bwd_f32 (#4's attention backward alone, bit for bit twice)",
+             f"[{bb}, {n}, {heads} x {dh}]", t, card, "SDPA fp32 backward")
+
+
+def _vit_gemm_f32_cases(card: str) -> None:
+    """``csrc/gemm_f32.cu`` in each form of #1-#4's fp32 chains at ViT-B/16's
+    shapes (the forward's at batch 64, R = 12,544; the backward's at batch
+    256, R = 50,176), its epilogue included, against the same function in
+    torch fp32 (within F32_TOL of each output's largest |value|; the column
+    sums bit for bit on a second call), timed in turns with ``torch.matmul``
+    fp32 of the product alone, with TFLOP/s and the bound."""
+    gen = torch.Generator().manual_seed(17)
+    f32 = dict(dtype=torch.float32)
+    rf, rb = B * N, TRAIN_B * N
+    xf, hf = _randn(gen, rf, D, **f32), _randn(gen, rf, F, **f32)
+    attf = _randn(gen, rf, D, **f32)
+    w_qkv, w_out = _randn(gen, D, 3 * D, scale=D ** -0.5, **f32), _randn(gen, D, D, scale=D ** -0.5, **f32)
+    w1, w2 = _randn(gen, D, F, scale=D ** -0.5, **f32), _randn(gen, F, D, scale=F ** -0.5, **f32)
+    b1, b2 = _randn(gen, F, scale=0.1, **f32), _randn(gen, D, scale=0.1, **f32)
+    gb, zb = _randn(gen, rb, D, **f32), _randn(gen, rb, F, **f32)
+    xb, attb, dzb = _randn(gen, rb, D, **f32), _randn(gen, rb, D, **f32), _randn(gen, rb, F, **f32)
+    dqkv = _randn(gen, rb, 3 * D, **f32)
+    gelu_grad = lambda z: (0.5 * (1 + torch.erf(z * 2 ** -0.5))  # noqa: E731
+                           + z * torch.exp(-0.5 * z * z) * 0.3989422804014327)
+    cases = (
+        ("QKV NN (#1)", lambda: _build.gemm_f32(xf, w_qkv), lambda: (xf @ w_qkv,), xf, w_qkv),
+        ("out NN + residual (#1)", lambda: _build.gemm_f32(attf, w_out, residual=xf),
+         lambda: (attf @ w_out + xf,), attf, w_out),
+        ("fc1 NN + b1 + GELU, z (#2)",
+         lambda: _build.gemm_f32(xf, w1, bias=b1, act="gelu", save_z=True),
+         lambda: (TF.gelu(xf @ w1 + b1), xf @ w1 + b1), xf, w1),
+        ("fc2 NN + b2 + residual (#2)", lambda: _build.gemm_f32(hf, w2, bias=b2, residual=xf),
+         lambda: (hf @ w2 + b2 + xf,), hf, w2),
+        ("datt NT (#4)", lambda: _build.gemm_f32(gb, w_out, trans_b=True),
+         lambda: (gb @ w_out.T,), gb, w_out.T),
+        ("dW_out TN (#4)", lambda: _build.gemm_f32(attb, gb, trans_a=True),
+         lambda: (attb.T @ gb,), attb.T, gb),
+        ("dxn NT (#4)", lambda: _build.gemm_f32(dqkv, w_qkv, trans_b=True),
+         lambda: (dqkv @ w_qkv.T,), dqkv, w_qkv.T),
+        ("dW_qkv TN (#4)", lambda: _build.gemm_f32(xb, dqkv, trans_a=True),
+         lambda: (xb.T @ dqkv,), xb.T, dqkv),
+        ("dW2 TN (#3)", lambda: _build.gemm_f32(zb, gb, trans_a=True),
+         lambda: (zb.T @ gb,), zb.T, gb),
+        ("dz NT + act'(z), db1 column sums (#3)",
+         lambda: _build.gemm_f32(gb, w2, trans_b=True, act="gelu", z_in=zb, colsum=True),
+         lambda: ((gb @ w2.T) * gelu_grad(zb), ((gb @ w2.T) * gelu_grad(zb)).sum(0)),
+         gb, w2.T),
+        ("dW1 TN (#3)", lambda: _build.gemm_f32(xb, dzb, trans_a=True),
+         lambda: (xb.T @ dzb,), xb.T, dzb),
+        ("dxn NT (#3)", lambda: _build.gemm_f32(dzb, w1, trans_b=True),
+         lambda: (dzb @ w1.T,), dzb, w1.T))
+    for name, kern, plain, a, b_ in cases:
+        got = kern()
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain()
+        print(f"gemm_f32 {name}:")
+        err = max(_frac_err(f"output {i}", u, v, F32_TOL) for i, (u, v) in enumerate(zip(got, want)))
+        del want
+        if "column sums" in name:
+            _check(torch.equal(kern()[1], got[1]), "gemm_f32's column sums differ on a second call")
+            print("  the column sums bit for bit on a second call")
+        m, k, n = a.shape[0], a.shape[1], b_.shape[1]
+        ms, lib_ms = _ab_ms(kern, lambda: a @ b_, iters=10)
+        flops = 2 * m * n * k
+        bound = _bound_f32(flops, 4 * (m * k + k * n + sum(t.numel() for t in got)))
+        print(f"gemm_f32 {name} [{m} x {n}, K {k}]: kernel {ms:.4f} ms ({_tflops(flops, ms)}), "
+              f"torch.matmul fp32 {lib_ms:.4f} ms ({_tflops(flops, lib_ms)}), bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), max abs err {err:.3g}, {card}")
+        del got
+
+
+def phase_vit_f32_kernels(card: str) -> dict:
+    """#1-#4 in fp32 (the ViT-B/16 and ViT-S/16 presets at their own dtype)
+    against their plain versions: ViT-B/16 (#1, #2 at batch 64; #3, #4 at
+    256; timed, beside the fp32 bound), ViT-S/16's width and a ragged shape
+    (checked); #1's attention alone and #4's attention backward alone beside
+    SDPA fp32; each GEMM form beside torch.matmul fp32.  Returns the
+    kernels-line entries."""
+    t0 = time.perf_counter()
+    out = {}
+    for label, bf, bb, n, d, heads, f, n_actual in VIT_F32_SHAPES:
+        out.update(_vit_f32_blocks(card, label, bf, bb, n, d, heads, f, n_actual,
+                                   timed=label == "ViT-B/16"))
+        torch.cuda.empty_cache()
+    _vit_gemm_f32_cases(card)
+    torch.cuda.empty_cache()
+    print(f"ViT fp32 kernels phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+_VIT_F32_COUNTS = (("fused_attention_block_f32", fused_attention_block, "f32_launches"),
+                   ("fused_mlp_block_f32", fused_mlp_block, "f32_launches"),
+                   ("fused_attention_block_bwd_f32", fused_attention_block, "f32_bwd_launches"),
+                   ("fused_mlp_block_bwd_f32", fused_mlp_block, "f32_bwd_launches"),
+                   ("fused_attention_block", fused_attention_block, "launches"),
+                   ("fused_mlp_block", fused_mlp_block, "launches"),
+                   ("fused_attention_block_bwd", fused_attention_block, "bwd_launches"),
+                   ("fused_mlp_block_bwd", fused_mlp_block, "bwd_launches"))
+
+
+def _vit_counts() -> dict:
+    return {name: getattr(fn, attr) for name, fn, attr in _VIT_F32_COUNTS}
+
+
+def _reset_vit_counts() -> None:
+    for _, fn, attr in _VIT_F32_COUNTS:
+        setattr(fn, attr, 0)
+
+
+def phase_vit_f32(card: str) -> dict:
+    """``build_model(preset_config("vit-b-16", curve="hilbert",
+    num_classes=1000))`` with no dtype (fp32 throughout, as the preset and
+    JAX's CLI compute): ``ServingEngine(batch_sizes=(8, 64), dtype=None)``
+    answers 1, 37 and 64 images through #1 and #2 in fp32 (12 x forwards
+    launches each, no bf16 launch), the served logits within F32_TOL of the
+    largest |logit| of the plain path; ``Trainer.fit`` for 4 steps at batch
+    256 plus an eval batch through #1-#4 in fp32 (12 x steps, 12 x (steps
+    + 1) forwards), finite losses, every parameter moved; one step's
+    gradients against the plain blocks (relative L2 per tensor within
+    F32_GRAD_REL_TOL); forward and train step times on both paths in turns,
+    peak memory and a profile of the step.  Returns the launch counts."""
+    t0 = time.perf_counter()
+    cfg = preset_config("vit-b-16", curve="hilbert", num_classes=1000)
+    _check(cfg.dtype is None, "the vit-b-16 preset names a dtype")
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    _check(all(p.dtype == torch.float32 for p in model.parameters()), "non-fp32 parameters")
+    engine = ServingEngine(copy.deepcopy(model), None, (cfg.img_size, cfg.img_size, 3),
+                           batch_sizes=BATCH_SIZES, dtype=None, device=DEVICE)
+    rng = np.random.default_rng(15)
+    requests = [rng.standard_normal((k, cfg.img_size, cfg.img_size, 3), dtype=np.float32)
+                for k in REQUESTS]
+    _reset_vit_counts()
+    outs = [engine.predict(r) for r in requests]
+    served = _vit_counts()
+    forwards = sum(-(-k // BATCH_SIZES[-1]) for k in REQUESTS)
+    want = {name: 0 for name in served}
+    want.update(fused_attention_block_f32=cfg.depth * forwards,
+                fused_mlp_block_f32=cfg.depth * forwards)
+    print(f"ViT-B/16 fp32: served {REQUESTS} images through ServingEngine{BATCH_SIZES} "
+          f"(dtype None), launches over {forwards} forwards of depth {cfg.depth}: {served}")
+    _check(served == want, f"ViT-B/16 fp32: served launches {served}, expected {want}")
+    with _plain_blocks():
+        plain = np.concatenate([engine.predict(r) for r in requests])
+    outs = np.concatenate(outs)
+    _check(bool(np.isfinite(outs).all()) and outs.shape == (sum(REQUESTS), cfg.num_classes),
+           "ViT-B/16 fp32: bad served logits")
+    err, scale = float(np.abs(outs - plain).max()), float(np.abs(plain).max())
+    print(f"ViT-B/16 fp32: served logits, kernels vs plain blocks: max abs err {err:.4g} (max "
+          f"|logit| {scale:.4g}; tolerance {F32_TOL} x max |logit| = {F32_TOL * scale:.4g})")
+    _check(err <= F32_TOL * scale, "ViT-B/16 fp32: served logits disagree with the plain path")
+    x64 = torch.from_numpy(requests[-1]).to(DEVICE)
+    with torch.inference_mode():
+        k1, p1 = _ab_ms(lambda: engine.model(x64), _plain_forward(engine.model, x64), iters=5)
+    bs = BATCH_SIZES[-1]
+    print(f"ViT-B/16 fp32: forward at batch {bs}: kernels {k1:.3f} ms = {bs / k1 * 1e3:.1f} "
+          f"img/s, plain blocks {p1:.3f} ms = {bs / p1 * 1e3:.1f} img/s, {card}")
+    del engine, x64
+
+    stats = ((0.5,) * 3, (0.25,) * 3)
+    train_ds = synthetic_dataset(n=TRAIN_B * TRAIN_STEPS, hw=cfg.img_size,
+                                 num_classes=cfg.num_classes, seed=0)
+    test_ds = synthetic_dataset(n=TRAIN_B, hw=cfg.img_size, num_classes=cfg.num_classes, seed=1)
+    tf = make_eval_transform(*stats, device=DEVICE)
+    trainer = Trainer(model, TrainConfig(num_classes=cfg.num_classes, epochs=1,
+                                         warmup_epochs=1), steps_per_epoch=TRAIN_STEPS)
+    before = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    _reset_vit_counts()
+    record = trainer.fit(
+        lambda: ((tf(x), y) for x, y in epoch_batches(train_ds, TRAIN_B, seed=0)),
+        lambda: ((tf(x), y) for x, y in epoch_batches(
+            test_ds, TRAIN_B, shuffle=False, drop_last=False)))
+    torch.cuda.synchronize()
+    trained = _vit_counts()
+    print(f"ViT-B/16 fp32: Trainer.fit, {TRAIN_STEPS} steps at batch {TRAIN_B} + eval of "
+          f"{len(test_ds)} ({time.perf_counter() - t1:.1f} s): {record}")
+    print(f"ViT-B/16 fp32: launches over {TRAIN_STEPS} train steps + 1 eval batch of depth "
+          f"{cfg.depth}: {trained}")
+    _check(bool(np.isfinite(record["train_loss"])) and bool(np.isfinite(record["test_loss"])),
+           "ViT-B/16 fp32: non-finite loss")
+    _check(trainer.state.step == TRAIN_STEPS, f"{trainer.state.step} steps taken")
+    want = {name: 0 for name in trained}
+    want.update(fused_attention_block_f32=cfg.depth * (TRAIN_STEPS + 1),
+                fused_mlp_block_f32=cfg.depth * (TRAIN_STEPS + 1),
+                fused_attention_block_bwd_f32=cfg.depth * TRAIN_STEPS,
+                fused_mlp_block_bwd_f32=cfg.depth * TRAIN_STEPS)
+    _check(trained == want, f"ViT-B/16 fp32: train launches {trained}, expected {want}")
+    still = [nm for (nm, p), q in zip(model.named_parameters(), before) if torch.equal(p, q)]
+    _check(not still, f"ViT-B/16 fp32: parameters unchanged after {TRAIN_STEPS} steps: {still}")
+    del before
+
+    x, y = next(epoch_batches(train_ds, TRAIN_B, seed=0))
+    batch = (tf(x), torch.from_numpy(y).long().to(DEVICE))
+    state = _lr_zero_state(model)
+    step = make_train_step(cfg.num_classes, use_mixing=False)
+    m_k = step(state, batch, torch.Generator())
+    grads = {nm: p.grad.detach().clone() for nm, p in model.named_parameters()}
+    with _plain_blocks():
+        m_p = step(state, batch, torch.Generator())
+    rel = {nm: float((grads[nm] - p.grad).norm() / p.grad.norm())
+           for nm, p in model.named_parameters()}
+    worst = max(rel, key=rel.get)
+    print(f"ViT-B/16 fp32: one train step, kernels vs plain blocks: loss "
+          f"{float(m_k['loss']):.6f} vs {float(m_p['loss']):.6f}; gradient relative L2 error "
+          f"max {rel[worst]:.4g} ({worst}), median {float(np.median(list(rel.values()))):.4g} "
+          f"over {len(rel)} tensors (tolerance {F32_GRAD_REL_TOL})")
+    _check(rel[worst] <= F32_GRAD_REL_TOL,
+           "ViT-B/16 fp32: kernel-path gradients disagree with the plain path")
+    del grads
+
+    mixing_step = make_train_step(cfg.num_classes)
+    gen = torch.Generator().manual_seed(0)
+
+    def step_ms(plain: bool, steps: int = 2) -> float:
+        with _plain_blocks() if plain else contextlib.nullcontext():
+            mixing_step(state, batch, gen)  # warm-up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(steps):
+                mixing_step(state, batch, gen)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t) / steps * 1e3
+
+    p1, k1, k2, p2 = (step_ms(plain) for plain in (True, False, False, True))
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f"ViT-B/16 fp32: train step at batch {TRAIN_B} (mixing, clip, AdamW): kernels "
+          f"{k_ms:.2f} ms = {TRAIN_B / k_ms * 1e3:.1f} img/s, plain blocks {p_ms:.2f} ms = "
+          f"{TRAIN_B / p_ms * 1e3:.1f} img/s, {card}")
+    print(f"ViT-B/16 fp32: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _profile(lambda: mixing_step(state, batch, gen), f"ViT-B/16 fp32 train step at batch {TRAIN_B}")
+    del state, model, trainer
+    torch.cuda.empty_cache()
+    print(f"ViT fp32 model phase: {time.perf_counter() - t0:.1f} s")
+    return {name: served[name] + trained[name]
+            for name in ("fused_attention_block_f32", "fused_mlp_block_f32",
+                         "fused_attention_block_bwd_f32", "fused_mlp_block_bwd_f32")}
+
+
+def _plain_forward(model, x):
+    """``model(x)`` through the plain blocks (a timing yardstick)."""
+    def run():
+        with _plain_blocks():
+            return model(x)
+    return run
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -3013,6 +3439,8 @@ def main() -> int:
     kernels.update(phase_notebook_kernels(card))
     notebook = phase_notebook(card)
     launches.update({name: launches.get(name, 0) + count for name, count in notebook.items()})
+    kernels.update(phase_vit_f32_kernels(card))
+    launches.update(phase_vit_f32(card))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "sfc_vit_tpu"))
     _check(not leaked, f"the port imported {leaked}")
@@ -3077,6 +3505,18 @@ def main() -> int:
         dict(name="gather_project_f32", route="cuda",
              source="sfc_vit_tpu_torch/csrc/gather_project_f32.cu",
              replaces="sfc_vit_tpu/ops/gather_project.py:57"),
+        dict(name="fused_attention_block_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/packed_attn_f32.cu",
+             replaces="sfc_vit_tpu/ops/fused_attention_block.py:104"),
+        dict(name="fused_mlp_block_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/gemm_f32.cu",
+             replaces="sfc_vit_tpu/ops/fused_mlp.py:104"),
+        dict(name="fused_mlp_block_bwd_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/gemm_f32.cu",
+             replaces="sfc_vit_tpu/ops/fused_mlp.py:237"),
+        dict(name="fused_attention_block_bwd_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/attention_bwd_f32.cu",
+             replaces="sfc_vit_tpu/ops/fused_attention_block.py:333"),
     ]
     for e in entries:
         k = kernels[e["name"]]

@@ -1,26 +1,34 @@
-// The packed dqkv of the family-A attention with probability dropout in
-// float32: from the forward's saved qkv [B, N, 3*H*Dh], its output att
-// [B, N, H*Dh], the fp32 lse [B, H, N], the 0/1 mask [B, H, N, N] and
-// keep, and the output's cotangent datt.  SIMT FFMA, fp32 throughout.
-// (Training without dropout differentiates the stored weights in plain
-// PyTorch, JAX's store-weights rule, so no unmasked form is needed.)
+// The packed dqkv of a softmax attention in float32, with or without
+// probability dropout: from the forward's saved qkv [B, N, 3*H*Dh], its
+// output att [B, N, H*Dh], the fp32 lse [B, H, N], for the dropout form
+// the 0/1 mask [B, H, N, N] and keep, and the output's cotangent datt.
+// SIMT FFMA, fp32 throughout.
 //
 // Replaces, for float32 compute: the attention part of
 // sfc_vit_tpu/ops/fused_torch_attention.py::_torch_mha_bwd_kernel (line
-// 270; its lines 326-377), which takes any dtype with fp32 sums.  The bf16
-// form stays on the wgmma kernel attention_bwd_sm90.cu.
+// 270; its lines 326-377; the mask form) and of
+// sfc_vit_tpu/ops/fused_attention_block.py::_attn_block_bwd_kernel (line
+// 333; its with_lse path, no mask: #4 in float32, the ViT-B/16 and
+// ViT-S/16 presets at their own dtype), which take any dtype with fp32
+// sums.  (Family A's training without dropout differentiates the stored
+// weights in plain PyTorch, JAX's store-weights rule.)  The bf16 forms
+// stay on the wgmma kernel attention_bwd_sm90.cu.
 //
-// Formula, the plain version's (attention_bwd_ref with the mask):
+// Formula, the plain version's (attention_bwd_ref with or without the mask):
 //   pn = exp(s * scale - lse), 0 at keys past n_valid;
 //   dp = ((da . v) / keep) * mask;  delta = rowsum(da * att);
 //   pv = (pn / keep) * mask;        ds = pn (dp - delta) scale;
 //   dq = ds k,  dk = ds^T q,  dv = pv^T da;
-// the divisions by keep correctly rounded by sfc::div_rn.
+// the divisions by keep correctly rounded by sfc::div_rn.  The unmasked
+// instances (MASK false) read no mask and divide by nothing: dp = da . v,
+// pv = pn.  Rows at or past n_valid (the pad rows of a padded sequence)
+// attend to the valid keys like any other row; their cotangent rows are
+// zero in #4's chain, so they add nothing.
 //
-// Bound on this card: bytes at the main paths' 64 tokens (qkv, att, datt,
-// the N x N mask, dqkv), operations (10 N^2 Dh a head, x 1.4 here: each
-// of the two kernels below recomputes the logits and da . v) over the 67
-// TFLOP/s of fp32 FFMA at long rows.
+// Bound on this card: bytes at family A's 64 tokens (qkv, att, datt, the
+// N x N mask, dqkv), operations (10 N^2 Dh a head, x 1.4 here: each of
+// the two kernels below recomputes the logits and da . v) over the 67
+// TFLOP/s of fp32 FFMA at ViT-B's 196 and longer rows.
 //
 // Design: two kernels, each output with one owner, no atomics, so the
 // same inputs give the same bits.  (1) dq: a block of 256 threads per 64
@@ -92,7 +100,9 @@ __device__ __forceinline__ void tile_dots(const float* as, const float* bs, int 
 }
 
 // For the tile entry of query row `row` and key `key`: pn and ds (and pv,
-// returned) from the logit s and dpn = da . v.
+// returned) from the logit s and dpn = da . v; mrow (MASK only) is the
+// row's mask.
+template <bool MASK>
 __device__ __forceinline__ float entry(float s, float dpn, int row, int key, int n,
                                        int n_valid, float lse, float delta, float scale,
                                        float keep, float rkeep, const uint8_t* mrow,
@@ -102,10 +112,22 @@ __device__ __forceinline__ float entry(float s, float dpn, int row, int key, int
     return 0.f;
   }
   const float pn = expf(__fsub_rn(__fmul_rn(s, scale), lse));
-  const bool kept = mrow[key] != 0;
-  const float dp = kept ? sfc::div_rn(dpn, keep, rkeep) : 0.f;
-  ds = __fmul_rn(__fmul_rn(pn, __fsub_rn(dp, delta)), scale);
-  return kept ? sfc::div_rn(pn, keep, rkeep) : 0.f;
+  if constexpr (MASK) {
+    const bool kept = mrow[key] != 0;
+    const float dp = kept ? sfc::div_rn(dpn, keep, rkeep) : 0.f;
+    ds = __fmul_rn(__fmul_rn(pn, __fsub_rn(dp, delta)), scale);
+    return kept ? sfc::div_rn(pn, keep, rkeep) : 0.f;
+  } else {
+    ds = __fmul_rn(__fmul_rn(pn, __fsub_rn(dpn, delta)), scale);
+    return pn;
+  }
+}
+
+// Row `row`'s mask (MASK only; the last row's for rows past n).
+template <bool MASK>
+__device__ __forceinline__ const uint8_t* mask_row(const uint8_t* mask, int bh, int row, int n) {
+  if constexpr (MASK) return mask + (static_cast<size_t>(bh) * n + min(row, n - 1)) * n;
+  else return nullptr;
 }
 
 // acc[i][4c..4c+3] += sum_j P(row, j) * X[j][4 tx + 64 c] over the j < len
@@ -155,14 +177,14 @@ struct Args {
   const float* att;
   const float* datt;
   const float* lse;
-  const uint8_t* mask;
+  const uint8_t* mask;  // null for the unmasked instances
   float* delta;
   float* dqkv;
   int n, heads, n_valid;
   float scale, keep;
 };
 
-template <int DH>
+template <int DH, bool MASK>
 __global__ void __launch_bounds__(kThreads, 1) attention_bwd_f32_dq_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
@@ -220,11 +242,11 @@ __global__ void __launch_bounds__(kThreads, 1) attention_bwd_f32_dq_kernel(const
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i, row = q0 + r;
-      const uint8_t* mrow = a.mask + (static_cast<size_t>(bh) * n + min(row, n - 1)) * n;
+      const uint8_t* mrow = mask_row<MASK>(a.mask, bh, row, n);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float ds;
-        entry(s[i][j], dpn[i][j], row, k0 + tx + 16 * j, n, n_valid, lse_s[r],
+        entry<MASK>(s[i][j], dpn[i][j], row, k0 + tx + 16 * j, n, n_valid, lse_s[r],
                     delta_s[r], scale, keep, rkeep, mrow, ds);
         ps[r * kPStride + tx + 16 * j] = ds;
       }
@@ -236,7 +258,7 @@ __global__ void __launch_bounds__(kThreads, 1) attention_bwd_f32_dq_kernel(const
                  n, tx, ty, acc);
 }
 
-template <int DH>
+template <int DH, bool MASK>
 __global__ void __launch_bounds__(kThreads, 1) attention_bwd_f32_dkv_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
@@ -282,11 +304,11 @@ __global__ void __launch_bounds__(kThreads, 1) attention_bwd_f32_dkv_kernel(cons
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i, row = q0 + r;
-      const uint8_t* mrow = a.mask + (static_cast<size_t>(bh) * n + min(row, n - 1)) * n;
+      const uint8_t* mrow = mask_row<MASK>(a.mask, bh, row, n);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         ps[r * kPStride + tx + 16 * j] =
-            entry(s[i][j], dpn[i][j], row, k0 + tx + 16 * j, n, n_valid, lse_s[r],
+            entry<MASK>(s[i][j], dpn[i][j], row, k0 + tx + 16 * j, n, n_valid, lse_s[r],
                         delta_s[r], scale, keep, rkeep, mrow, ds[i][j]);
     }
     __syncthreads();
@@ -311,33 +333,45 @@ cudaError_t prepare(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int DH>
+template <int DH, bool MASK>
 cudaError_t launch(const Args& a, int batch, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<DH>();
-  cudaError_t err = prepare(attention_bwd_f32_dq_kernel<DH>, smem);
-  if (err == cudaSuccess) err = prepare(attention_bwd_f32_dkv_kernel<DH>, smem);
+  cudaError_t err = prepare(attention_bwd_f32_dq_kernel<DH, MASK>, smem);
+  if (err == cudaSuccess) err = prepare(attention_bwd_f32_dkv_kernel<DH, MASK>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n + kTile - 1) / kTile, batch * a.heads);
-  attention_bwd_f32_dq_kernel<DH><<<grid, kThreads, smem, s>>>(a);
+  attention_bwd_f32_dq_kernel<DH, MASK><<<grid, kThreads, smem, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_f32_dkv_kernel<DH><<<grid, kThreads, smem, s>>>(a);
+  attention_bwd_f32_dkv_kernel<DH, MASK><<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_dh(const Args& a, int batch, cudaStream_t s) {
+  return a.mask != nullptr ? launch<DH, true>(a, batch, s) : launch<DH, false>(a, batch, s);
+}
+
+template <int DH, bool MASK>
+cudaError_t attrs_of(int dkv, cudaFuncAttributes* attr) {
+  return dkv ? cudaFuncGetAttributes(attr, attention_bwd_f32_dkv_kernel<DH, MASK>)
+             : cudaFuncGetAttributes(attr, attention_bwd_f32_dq_kernel<DH, MASK>);
 }
 
 }  // namespace
 
 // dqkv (fp32 [batch, n, 3 * heads * dh]) of the attention over qkv from
 // att, datt (fp32 [batch, n, heads * dh]), lse (fp32 [batch, heads, n]),
-// mask (uint8 0/1 [batch, heads, n, n]) and keep; delta (fp32 [batch,
-// heads, n]) is a workspace.  dh 64 or 192, n <= 1,024, every pointer
-// 16-byte aligned.
+// and, for the dropout form, mask (uint8 0/1 [batch, heads, n, n]) and
+// keep (mask null: no dropout, keep unused); delta (fp32 [batch, heads,
+// n]) is a workspace.  dh 64 or 192, n <= 1,024, every pointer 16-byte
+// aligned.
 extern "C" int sfc_attention_bwd_f32(const void* qkv, const void* att, const void* datt,
                                      const void* lse, const void* mask, void* delta,
                                      void* dqkv, int batch, int n, int heads, int dh,
                                      int n_valid, float scale, float keep, void* stream) {
   if (batch < 0 || n < 1 || n > 1024 || heads < 1 || n_valid < 1 || n_valid > n ||
-      mask == nullptr || !(keep > 0.f && keep <= 1.f))
+      (mask != nullptr && !(keep > 0.f && keep <= 1.f)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   const Args a{static_cast<const float*>(qkv),  static_cast<const float*>(att),
@@ -345,29 +379,27 @@ extern "C" int sfc_attention_bwd_f32(const void* qkv, const void* att, const voi
                static_cast<const uint8_t*>(mask), static_cast<float*>(delta),
                static_cast<float*>(dqkv),        n,
                heads,                            n_valid,
-               scale,                            keep};
+               scale,                            mask != nullptr ? keep : 1.f};
   auto* s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dh == 64)
-    err = launch<64>(a, batch, s);
+    err = launch_dh<64>(a, batch, s);
   else if (dh == 192)
-    err = launch<192>(a, batch, s);
+    err = launch_dh<192>(a, batch, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
 // Registers, local bytes and shared bytes of the dq kernel (dkv 0) or of
-// the dk/dv kernel (dkv 1) at dh 64 or 192.
-extern "C" int sfc_attention_bwd_f32_attrs(int dh, int dkv, int* out) {
+// the dk/dv kernel (dkv 1) at dh 64 or 192, with the mask or without.
+extern "C" int sfc_attention_bwd_f32_attrs(int dh, int masked, int dkv, int* out) {
   cudaFuncAttributes attr;
   cudaError_t err;
   if (dh == 192)
-    err = dkv ? cudaFuncGetAttributes(&attr, attention_bwd_f32_dkv_kernel<192>)
-              : cudaFuncGetAttributes(&attr, attention_bwd_f32_dq_kernel<192>);
+    err = masked ? attrs_of<192, true>(dkv, &attr) : attrs_of<192, false>(dkv, &attr);
   else
-    err = dkv ? cudaFuncGetAttributes(&attr, attention_bwd_f32_dkv_kernel<64>)
-              : cudaFuncGetAttributes(&attr, attention_bwd_f32_dq_kernel<64>);
+    err = masked ? attrs_of<64, true>(dkv, &attr) : attrs_of<64, false>(dkv, &attr);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);

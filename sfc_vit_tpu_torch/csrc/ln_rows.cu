@@ -16,7 +16,9 @@
 // scale and bias in fp32, one round to bf16.
 //
 // A row is read as bf16, as fp32, or as the fp32 sum of two bf16 rows
-// (template argument IN).  Optional outputs: the normalised row in fp32
+// (template argument IN).  Its fp32 form, fp32 rows in and fp32 rows out
+// with no rounding, is the LayerNorm of #1 and #2 (and of #3's and #4's
+// recomputed xn) when the model computes in float32.  Optional outputs: the normalised row in fp32
 // (y32), the input row rounded to bf16 (xr), and the row's mean and
 // rsqrt(var + eps) (stats), from which csrc/gemm_bf16.cu's LayerNorm form
 // rebuilds the fp32 output bit for bit (sfc::ln_apply) instead of reading
@@ -93,7 +95,7 @@ __device__ __forceinline__ void out8(float* v, const float* scale, const float* 
     dst[0] = make_float4(v[0], v[1], v[2], v[3]);
     dst[1] = make_float4(v[4], v[5], v[6], v[7]);
   }
-  reinterpret_cast<uint4*>(y + row * d)[c] = sfc::pack_bf16x8(v);
+  if (y != nullptr) reinterpret_cast<uint4*>(y + row * d)[c] = sfc::pack_bf16x8(v);
 }
 
 // kInRegs: d <= 32 x 8 x kRegChunks, the row kept in registers.
@@ -168,8 +170,9 @@ void launch(int blocks, cudaStream_t s, const void* x, const bf16* xb, const flo
 // y bf16 [rows, d] = LN(row) with fp32 scale and bias [d].  The row is x
 // (bf16 [rows, d]), x as fp32 (x_f32), or the fp32 sum x + x_b of two bf16
 // rows (x_b not null).  y32 (fp32 [rows, d], may be null) receives the
-// normalised row before its rounding; xr (bf16 [rows, d], may be null) the
-// input row rounded to bf16; stats (fp32 [rows, 2], may be null) the
+// normalised row before its rounding; y may be null where y32 is not (the
+// fp32 form: fp32 rows in, fp32 rows out, nothing rounded); xr (bf16
+// [rows, d], may be null) the input row rounded to bf16; stats (fp32 [rows, 2], may be null) the
 // row's mean and rsqrt(var + eps).  Requires d % 8 == 0 and 16-byte
 // aligned pointers; the Python wrapper checks these.
 extern "C" int sfc_ln_rows_bf16(const void* x, const void* x_b, int x_f32,
@@ -177,7 +180,8 @@ extern "C" int sfc_ln_rows_bf16(const void* x, const void* x_b, int x_f32,
                                 void* y32, void* xr, void* stats, int rows, int d, float eps,
                                 void* stream) {
   if (rows <= 0) return 0;
-  if (x_f32 && x_b != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if ((x_f32 && x_b != nullptr) || (y == nullptr && y32 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (rows + kWarps - 1) / kWarps;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const bf16*>(x_b);

@@ -18,10 +18,12 @@
 // and optionally colsum(g) and the column sums of the fp32 dx.
 //
 // The row is bf16 or the fp32 sum of two bf16 rows (template argument
-// SUM2); the cotangent dxn is fp32 or bf16 (DXN_BF16).  Three forms run on
+// SUM2); the cotangent dxn is fp32 or bf16 (DXN_BF16).  Four forms run on
 // the models' paths: (a) x bf16, dxn fp32, + g (#3, #4; #3 also colsum(g));
 // (b) x bf16, dxn bf16, also the fp32 dx and its column sums (#16's LN2);
-// (c) x + x_b, dxn fp32 (#16's LN1).  Each moves 10 bytes an element.
+// (c) x + x_b, dxn fp32 (#16's LN1); (d) form (a) in float32 throughout
+// (F32: x, g and dx fp32, nothing rounded; #3 and #4 when the model
+// computes in float32).  (a)-(c) move 10 bytes an element, (d) 16.
 //
 // Bound on this card: memory.  ~15 flops an element against 10 bytes,
 // far under the H100's ~295 flops a byte: 385 MB at ViT-B's [50,176, 768]
@@ -65,12 +67,12 @@ constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kSumWarps = 32;                // the block-order sum's threads / 32
 
 struct Args {
-  const bf16* x;       // [rows, d]
+  const void* x;       // [rows, d], bf16 (fp32 in form (d))
   const bf16* xb;      // [rows, d] or null: the row is x + xb in fp32
   const void* dxn;     // [rows, d], fp32 or bf16
   const float* scale;  // [d]
-  const bf16* g;       // [rows, d], or null unless add_g or g_sum
-  bf16* dx;            // [rows, d]
+  const void* g;       // [rows, d] like x, or null unless add_g or g_sum
+  void* dx;            // [rows, d] like x
   float* dx32;         // [rows, d] or null
   float* ws;           // [gridDim.x, nsum, d]: each block's column partials
   int rows, d, add_g, g_sum, dx_sum;
@@ -105,7 +107,7 @@ __device__ __forceinline__ void block_sum(float (&v)[K], float (*red)[K], int wa
   }
 }
 
-template <bool SUM2, bool DXN_BF16>
+template <bool SUM2, bool DXN_BF16, bool F32>
 __global__ void __launch_bounds__(kMaxThreads)
     ln_rows_bwd_kernel(const __grid_constant__ Args a) {
   // One array for each reduction of a round: the second barrier of a round
@@ -129,16 +131,24 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (long r0 = static_cast<long>(blockIdx.x) * kRows; r0 < rows;
        r0 += static_cast<long>(gridDim.x) * kRows) {
     // Every load of the kRows rows first.
+    // (Form (d) reads g after the row sums: fp32 g beside fp32 x and dxn
+    // would hold 96 registers of loads across them.)
     uint4 xr[kRows], xbr[kRows], dr[kRows], gr[kRows];
-    float4 df[kRows][2];
+    float4 df[kRows][2], xf[kRows][2];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const uint4 zero = make_uint4(0, 0, 0, 0);
       xr[i] = xbr[i] = dr[i] = gr[i] = zero;
-      df[i][0] = df[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      df[i][0] = df[i][1] = xf[i][0] = xf[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (own && r0 + i < rows) {
         const size_t off = static_cast<size_t>(r0 + i) * d + 8 * c;
-        xr[i] = __ldg(reinterpret_cast<const uint4*>(a.x + off));
+        if constexpr (F32) {
+          const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(a.x) + off);
+          xf[i][0] = __ldg(p);
+          xf[i][1] = __ldg(p + 1);
+        } else {
+          xr[i] = __ldg(reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.x) + off));
+        }
         if constexpr (SUM2) xbr[i] = __ldg(reinterpret_cast<const uint4*>(a.xb + off));
         if constexpr (DXN_BF16) {
           dr[i] = __ldg(reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.dxn) + off));
@@ -147,14 +157,16 @@ __global__ void __launch_bounds__(kMaxThreads)
           df[i][0] = __ldg(p);
           df[i][1] = __ldg(p + 1);
         }
-        if (read_g) gr[i] = __ldg(reinterpret_cast<const uint4*>(a.g + off));
+        if (!F32 && read_g)
+          gr[i] = __ldg(reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.g) + off));
       }
     }
 
     float xv[kRows][8], dv[kRows][8], st[2 * kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      sfc::unpack_bf16x8(xr[i], xv[i]);
+      if constexpr (F32) unpack_f32x8(xf[i][0], xf[i][1], xv[i]);
+      else sfc::unpack_bf16x8(xr[i], xv[i]);
       if constexpr (SUM2) {
         float w[8];
         sfc::unpack_bf16x8(xbr[i], w);
@@ -200,8 +212,19 @@ __global__ void __launch_bounds__(kMaxThreads)
       const long row = r0 + i;
       if (!own || row >= rows) continue;
       const float m1 = mt[2 * i] / fd, m2 = mt[2 * i + 1] / fd;
+      const size_t off = static_cast<size_t>(row) * d + 8 * c;
       float gv[8], r[8];
-      sfc::unpack_bf16x8(gr[i], gv);  // zeros unless g is read
+      if constexpr (F32) {
+        float4 g0 = make_float4(0.f, 0.f, 0.f, 0.f), g1 = g0;
+        if (read_g) {
+          const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(a.g) + off);
+          g0 = __ldg(p);
+          g1 = __ldg(p + 1);
+        }
+        unpack_f32x8(g0, g1, gv);
+      } else {
+        sfc::unpack_bf16x8(gr[i], gv);  // zeros unless g is read
+      }
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const float xhat = xv[i][e];
@@ -213,13 +236,18 @@ __global__ void __launch_bounds__(kMaxThreads)
         if (a.g_sum) pg[e] += gv[e];
         if (a.dx_sum) pdx[e] += r[e];
       }
-      const size_t off = static_cast<size_t>(row) * d + 8 * c;
       if (a.dx32 != nullptr) {
         float4* dst = reinterpret_cast<float4*>(a.dx32 + off);
         dst[0] = make_float4(r[0], r[1], r[2], r[3]);
         dst[1] = make_float4(r[4], r[5], r[6], r[7]);
       }
-      *reinterpret_cast<uint4*>(a.dx + off) = sfc::pack_bf16x8(r);
+      if constexpr (F32) {
+        float4* dst = reinterpret_cast<float4*>(static_cast<float*>(a.dx) + off);
+        dst[0] = make_float4(r[0], r[1], r[2], r[3]);
+        dst[1] = make_float4(r[4], r[5], r[6], r[7]);
+      } else {
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(a.dx) + off) = sfc::pack_bf16x8(r);
+      }
     }
   }
 
@@ -273,13 +301,23 @@ __global__ void __launch_bounds__(kSumWarps * 32)
 
 int threads_for(int d) { return (d / 8 + 31) / 32 * 32; }
 
-template <bool SUM2, bool DXN_BF16>
-auto kernel_of() { return ln_rows_bwd_kernel<SUM2, DXN_BF16>; }
+template <bool SUM2, bool DXN_BF16, bool F32 = false>
+auto kernel_of() { return ln_rows_bwd_kernel<SUM2, DXN_BF16, F32>; }
 
-template <bool SUM2, bool DXN_BF16>
+// The kernel of form 0 (a), 1 (b), 2 (c) or 3 (d); null for another.
+using KernelPtr = void (*)(Args);
+KernelPtr kernel_of_form(int form) {
+  if (form == 0) return kernel_of<false, false>();
+  if (form == 1) return kernel_of<false, true>();
+  if (form == 2) return kernel_of<true, false>();
+  if (form == 3) return kernel_of<false, false, true>();
+  return nullptr;
+}
+
+template <bool SUM2, bool DXN_BF16, bool F32 = false>
 int launch(const Args& a, int blocks, float* sums, cudaStream_t stream) {
   if (blocks > 0) {
-    ln_rows_bwd_kernel<SUM2, DXN_BF16><<<blocks, threads_for(a.d), 0, stream>>>(a);
+    ln_rows_bwd_kernel<SUM2, DXN_BF16, F32><<<blocks, threads_for(a.d), 0, stream>>>(a);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -295,30 +333,33 @@ int launch(const Args& a, int blocks, float* sums, cudaStream_t stream) {
 // dxn fp32 [rows, d] (bf16 when dxn_bf16), scale fp32 [d], g bf16
 // [rows, d] (read only for add_g or g_sum; may be null otherwise); dx bf16
 // [rows, d], and dx32 (fp32 [rows, d], may be null) the same dx before its
-// rounding.  sums fp32 [2 + g_sum + dx_sum, d] receives the column sums
-// of dxn * xhat, dxn, then g (g_sum) and the fp32 dx (dx_sum); ws is an
-// fp32 workspace of blocks * (2 + g_sum + dx_sum) * d elements, blocks
-// from the Python ln_rows_bwd_plan (0 when rows is 0; at most one a
-// kRows rows).  add_g adds g to dx (the residual's cotangent).  Requires
-// d % 8 == 0, 8 <= d <= 3,072 and 16-byte aligned pointers; x_b and
-// dxn_bf16 together are not instantiated.
+// rounding.  With x_f32 (form (d)) x, g and dx are fp32 and dxn fp32, and
+// neither x_b, dxn_bf16 nor dx32 is taken.  sums fp32 [2 + g_sum +
+// dx_sum, d] receives the column sums of dxn * xhat, dxn, then g (g_sum)
+// and the fp32 dx (dx_sum); ws is an fp32 workspace of blocks * (2 + g_sum
+// + dx_sum) * d elements, blocks from the Python ln_rows_bwd_plan (0 when
+// rows is 0; at most one a kRows rows).  add_g adds g to dx (the
+// residual's cotangent).  Requires d % 8 == 0, 8 <= d <= 3,072 and
+// 16-byte aligned pointers; x_b and dxn_bf16 together are not
+// instantiated.
 extern "C" int sfc_ln_rows_bwd_bf16(const void* x, const void* x_b, const void* dxn,
-                                    int dxn_bf16, const void* scale, const void* g, void* dx,
-                                    void* dx32, void* sums, void* ws, int blocks, int g_sum,
-                                    int dx_sum, int rows, int d, float eps, int add_g,
+                                    int dxn_bf16, int x_f32, const void* scale, const void* g,
+                                    void* dx, void* dx32, void* sums, void* ws, int blocks,
+                                    int g_sum, int dx_sum, int rows, int d, float eps, int add_g,
                                     void* stream) {
   const long long need = (static_cast<long long>(rows) + kRows - 1) / kRows;
   if (d % 8 || d < 8 || d > kMaxD || rows < 0 || blocks < 0 || blocks > need ||
       (rows > 0 && blocks == 0) || (x_b != nullptr && dxn_bf16) ||
-      ((add_g || g_sum) && g == nullptr))
+      ((add_g || g_sum) && g == nullptr) ||
+      (x_f32 && (x_b != nullptr || dxn_bf16 || dx32 != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
-  a.x = static_cast<const bf16*>(x);
+  a.x = x;
   a.xb = static_cast<const bf16*>(x_b);
   a.dxn = dxn;
   a.scale = static_cast<const float*>(scale);
-  a.g = static_cast<const bf16*>(g);
-  a.dx = static_cast<bf16*>(dx);
+  a.g = g;
+  a.dx = dx;
   a.dx32 = static_cast<float*>(dx32);
   a.ws = static_cast<float*>(ws);
   a.rows = rows;
@@ -329,34 +370,28 @@ extern "C" int sfc_ln_rows_bwd_bf16(const void* x, const void* x_b, const void* 
   a.eps = eps;
   auto* out = static_cast<float*>(sums);
   auto s = static_cast<cudaStream_t>(stream);
+  if (x_f32) return launch<false, false, true>(a, blocks, out, s);
   if (x_b != nullptr) return launch<true, false>(a, blocks, out, s);
   if (dxn_bf16) return launch<false, true>(a, blocks, out, s);
   return launch<false, false>(a, blocks, out, s);
 }
 
-// Blocks of the instance for (x_b given, dxn_bf16) an SM holds at width d
-// (the occupancy query), into *out.
-extern "C" int sfc_ln_rows_bwd_blocks_per_sm(int d, int sum2, int dxn_bf16, int* out) {
-  if (d % 8 || d < 8 || d > kMaxD || (sum2 && dxn_bf16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int t = threads_for(d);
-  cudaError_t e;
-  if (sum2) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel_of<true, false>(), t, 0);
-  else if (dxn_bf16)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel_of<false, true>(), t, 0);
-  else e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel_of<false, false>(), t, 0);
-  return static_cast<int>(e);
+// Blocks of the instance of form 0 (a), 1 (b), 2 (c) or 3 (d) an SM holds
+// at width d (the occupancy query), into *out.
+extern "C" int sfc_ln_rows_bwd_blocks_per_sm(int d, int form, int* out) {
+  const KernelPtr k = kernel_of_form(form);
+  if (d % 8 || d < 8 || d > kMaxD || k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, threads_for(d), 0));
 }
 
-// Registers, local bytes and shared bytes of the instance for form 0 (x
-// bf16, dxn fp32), 1 (dxn bf16) or 2 (x + x_b), into out[3].
+// Registers, local bytes and shared bytes of the instance of form 0 (x
+// bf16, dxn fp32), 1 (dxn bf16), 2 (x + x_b) or 3 (fp32 throughout), into
+// out[3].
 extern "C" int sfc_ln_rows_bwd_attrs(int form, int* out) {
+  const KernelPtr k = kernel_of_form(form);
+  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes f;
-  cudaError_t e;
-  if (form == 0) e = cudaFuncGetAttributes(&f, kernel_of<false, false>());
-  else if (form == 1) e = cudaFuncGetAttributes(&f, kernel_of<false, true>());
-  else if (form == 2) e = cudaFuncGetAttributes(&f, kernel_of<true, false>());
-  else return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncGetAttributes(&f, k);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = f.numRegs;
   out[1] = static_cast<int>(f.localSizeBytes);

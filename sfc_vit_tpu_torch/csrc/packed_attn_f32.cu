@@ -7,8 +7,12 @@
 // sfc_vit_tpu/ops/fused_torch_attention.py::_torch_mha_kernel (line 82:
 // with the 0/1 mask and keep, and the lse its backward recomputes from)
 // and sfc_vit_tpu/ops/flash_attention.py::_packed_kernel (line 907: no
-// mask, no lse), which take any dtype and keep logits, softmax and sums
-// in fp32.  The bf16 forms stay on the wgmma kernel packed_attn_sm90.cu.
+// mask, no lse), and the attention of
+// sfc_vit_tpu/ops/fused_attention_block.py::_attn_block_kernel (line 104:
+// no mask; with the lse in training; ViT-B's 196 tokens at Dh 64, keys at
+// or past n_actual masked), which take any dtype and keep logits, softmax
+// and sums in fp32.  The bf16 forms stay on the wgmma kernel
+// packed_attn_sm90.cu.
 //
 // Formula, the plain versions' (attention_fwd_ref, _packed_xla_ref):
 // s = (q . k) * scale in fp32, keys at or past n_valid excluded, P = p / l

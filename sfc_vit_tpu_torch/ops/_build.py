@@ -16,9 +16,10 @@ covers the sources and the flags, so an edited source rebuilds and an
 unchanged one loads the library already there.  A failed build raises:
 nothing runs without the kernels.
 
-The launchers below (``ln_rows``, ``ln_rows_bwd``, ``gemm``,
-``gemm_layernorm``, ``act_bf16``, ``colsum``, ``gemm_f32`` (the fp32
-SIMT GEMM of the family-A chains in float32), ``attention_fwd`` (on
+The launchers below (``ln_rows``, ``ln_rows_bwd`` (each also in fp32),
+``gemm``, ``gemm_layernorm``, ``act_bf16``, ``colsum``, ``gemm_f32``
+and ``act_f32`` (the fp32 SIMT GEMM, with ``gemm``'s epilogues, and the
+activation of every chain in float32), ``attention_fwd`` (on
 ``csrc/packed_attn_sm90.cu``, with or without a dropout mask, or in fp32
 on ``csrc/packed_attn_f32.cu``), ``attention_bwd`` (on
 ``csrc/attention_bwd_sm90.cu`` or ``csrc/attention_bwd.cu``, in fp32 on
@@ -57,7 +58,7 @@ __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "ATTENTION_BWD_SM90_FORMS", "gemm_layernorm", "gemm_layernorm_fits",
            "gemm_layernorm_max_clusters",
            "GEMM_LN_MAX_CLUSTER",
-           "act_bf16", "colsum", "gemm_f32", "gemm_f32_split", "GEMM_F32_TILE",
+           "act_bf16", "act_f32", "colsum", "gemm_f32", "gemm_f32_split", "GEMM_F32_TILE",
            "GEMM_F32_BLOCK_K", "GEMM_F32_MIN_SPLIT_BLOCKS", "attention_fwd",
            "attention_bwd", "F32_KERNEL_FORMS",
            "ATTENTION_HEAD_DIMS", "PACKED_MAX_N",
@@ -85,11 +86,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     # x, x_b, x_f32, scale, bias, y, y32, xr, stats; rows, d, eps, stream
     "sfc_ln_rows_bf16": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
-    # x, x_b, dxn, dxn_bf16, scale, g, dx, dx32, sums, ws; blocks, g_sum,
-    # dx_sum, rows, d, eps, add_g, stream
-    "sfc_ln_rows_bwd_bf16": (_P, _P, _P, _I) + (_P,) * 6 + (_I,) * 5 + (_F, _I, _P),
-    # d, sum2, dxn_bf16, out
-    "sfc_ln_rows_bwd_blocks_per_sm": (_I, _I, _I, _P),
+    # x, x_b, dxn, dxn_bf16, x_f32, scale, g, dx, dx32, sums, ws; blocks,
+    # g_sum, dx_sum, rows, d, eps, add_g, stream
+    "sfc_ln_rows_bwd_bf16": (_P, _P, _P, _I, _I) + (_P,) * 6 + (_I,) * 5 + (_F, _I, _P),
+    # d, form, out
+    "sfc_ln_rows_bwd_blocks_per_sm": (_I, _I, _P),
     # a, b, bias, residual, residual_f32, z_in, z_out, colsum, c, workspace;
     # c_fp32, M, N, K, trans_a, trans_b, act, splits; stream
     "sfc_gemm_bf16": (_P,) * 10 + (_I,) * 8 + (_P,),
@@ -98,8 +99,10 @@ _SIGNATURES = {
     "sfc_act_bf16": (_P, _P, _L, _I, _P),
     "sfc_colsum_bf16": (_P, _P, _I, _I, _P),
     "sfc_colsum_f32": (_P, _P, _I, _I, _P),
-    # a, b, bias, c, ws; M, N, K, trans_a, trans_b, K blocks a split; stream
-    "sfc_gemm_f32": (_P,) * 5 + (_I,) * 6 + (_P,),
+    # a, b, bias, residual, z_in, z_out, col, colsum, c, ws; M, N, K,
+    # trans_a, trans_b, K blocks a split, act; stream
+    "sfc_gemm_f32": (_P,) * 10 + (_I,) * 7 + (_P,),
+    "sfc_act_f32": (_P, _P, _L, _I, _P),
     # qkv, out, lse, mask; batch, n, heads, dh, n_valid; scale, keep, stream
     "sfc_packed_attention_f32": (_P,) * 4 + (_I,) * 5 + (_F, _F, _P),
     # qkv, att, datt, lse, mask, delta, dqkv; batch, n, heads, dh, n_valid;
@@ -147,10 +150,10 @@ _SIGNATURES = {
     "sfc_gemm_attrs": (_I, _P),
     "sfc_attention_bwd_sm90_attrs": (_I, _P),
     "sfc_gather_project_attrs": (_I, _P),
-    # form, out[3] | dh, masked, out[3] | form, dkv, out[3] | out[3]
+    # form, out[3] | dh, masked, out[3] | dh, masked, dkv, out[3] | out[3]
     "sfc_gemm_f32_attrs": (_I, _P),
     "sfc_packed_attention_f32_attrs": (_I, _I, _P),
-    "sfc_attention_bwd_f32_attrs": (_I, _I, _P),
+    "sfc_attention_bwd_f32_attrs": (_I, _I, _I, _P),
     "sfc_gather_project_f32_attrs": (_P,),
 }
 
@@ -326,31 +329,42 @@ def _ptr(t: Optional[torch.Tensor]):
 def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             eps: float, *, x_b: Optional[torch.Tensor] = None,
             with_f32: bool = False, with_rounded_input: bool = False,
-            with_stats: bool = False):
+            with_stats: bool = False, out_dtype: torch.dtype = torch.bfloat16):
     """LayerNorm of rows [R, D]: ``x`` bf16, ``x`` fp32, or (``x_b``
     given) the fp32 sum ``x + x_b`` of two bf16 rows; ``scale``/``bias``
     fp32 [D].  Returns the bf16 rows, then the same rows in fp32 before
     their rounding when ``with_f32``, then the input rows rounded to bf16
     when ``with_rounded_input``, then each row's mean and rsqrt(var + eps)
     (fp32 [R, 2], from which :func:`gemm_layernorm` rebuilds the fp32
-    rows) when ``with_stats``."""
+    rows) when ``with_stats``.  ``out_dtype`` float32 (an fp32 ``x`` only,
+    neither ``with_f32`` nor ``with_rounded_input``) returns the fp32 rows
+    in place of the bf16 ones: the float32 chains' LayerNorm, nothing
+    rounded."""
     r, d = x.shape
     if d % 8:
         raise ValueError(f"ln_rows: D={d} must be a multiple of 8")
     x_f32 = x.dtype == torch.float32 and x_b is None
+    f32_out = out_dtype == torch.float32
+    if out_dtype not in (torch.bfloat16, torch.float32) or (
+            f32_out and (not x_f32 or with_f32 or with_rounded_input)):
+        raise ValueError(f"ln_rows: out_dtype {out_dtype} takes an fp32 x alone "
+                         "and no other rows")
     _require(x, "x", dtype=torch.float32 if x_f32 else torch.bfloat16)
     if x_b is not None:
         _require(x_b, "x_b", (r, d))
     _require(scale, "ln_scale", (d,), torch.float32)
     _require(bias, "ln_bias", (d,), torch.float32)
-    y = torch.empty((r, d), dtype=torch.bfloat16, device=x.device)
-    y32 = torch.empty((r, d), dtype=torch.float32, device=x.device) if with_f32 else None
-    xr = torch.empty_like(y) if with_rounded_input else None
+    y = None if f32_out else torch.empty((r, d), dtype=torch.bfloat16, device=x.device)
+    y32 = (torch.empty((r, d), dtype=torch.float32, device=x.device)
+           if with_f32 or f32_out else None)
+    xr = torch.empty_like(x, dtype=torch.bfloat16) if with_rounded_input else None
     stats = (torch.empty((r, 2), dtype=torch.float32, device=x.device)
              if with_stats else None)
     _check(library().sfc_ln_rows_bf16(
         x.data_ptr(), _ptr(x_b), int(x_f32), scale.data_ptr(), bias.data_ptr(),
-        y.data_ptr(), _ptr(y32), _ptr(xr), _ptr(stats), r, d, eps, _stream()), "ln_rows")
+        _ptr(y), _ptr(y32), _ptr(xr), _ptr(stats), r, d, eps, _stream()), "ln_rows")
+    if f32_out:
+        y, y32 = y32, None
     extra = tuple(t for t in (y32, xr, stats) if t is not None)
     return (y, *extra) if extra else y
 
@@ -369,12 +383,12 @@ def ln_rows_bwd_plan(rows: int, d: int, per_sm: int, sms: int) -> tuple:
 _ln_bwd_per_sm: dict = {}
 
 
-def _ln_bwd_blocks_per_sm(device: torch.device, d: int, sum2: bool, dxn_bf16: bool) -> int:
-    key = (device.index, d, sum2, dxn_bf16)
+def _ln_bwd_blocks_per_sm(device: torch.device, d: int, form: int) -> int:
+    """Blocks of :data:`LN_ROWS_BWD_FORMS`'s ``form`` an SM holds at width ``d``."""
+    key = (device.index, d, form)
     if key not in _ln_bwd_per_sm:
         out = ctypes.c_int(0)
-        _check(library().sfc_ln_rows_bwd_blocks_per_sm(d, int(sum2), int(dxn_bf16),
-                                                        ctypes.addressof(out)),
+        _check(library().sfc_ln_rows_bwd_blocks_per_sm(d, form, ctypes.addressof(out)),
                "ln_rows_bwd occupancy")
         _ln_bwd_per_sm[key] = out.value
     return _ln_bwd_per_sm[key]
@@ -392,35 +406,41 @@ def ln_rows_bwd(x: torch.Tensor, dxn: torch.Tensor, scale: torch.Tensor,
     ``add_g``; the sums fp32 [D]), then ``colsum(g)`` fp32 [D] when
     ``g_sum``, the fp32 dx before its rounding when ``dx_f32``, and the
     column sums of that fp32 dx when ``dx_sum``.  ``g`` (bf16 [R, D]) is
-    read only for ``add_g`` or ``g_sum``.  The column sums are taken in a
-    fixed order (per block, then over the blocks in block order), so the
-    same inputs give the same bits.
+    read only for ``add_g`` or ``g_sum``.  An fp32 ``x`` is the float32
+    form (d): ``dxn``, ``g`` and ``dx`` fp32, nothing rounded, no ``x_b``,
+    ``dx_f32`` or ``dx_sum``.  The column sums are taken in a fixed order
+    (per block, then over the blocks in block order), so the same inputs
+    give the same bits.
     """
     r, d = x.shape
     if d % 8 or not 8 <= d <= LN_BWD_MAX_D:
         raise ValueError(f"ln_rows_bwd: D={d} must be a multiple of 8 in [8, {LN_BWD_MAX_D}]")
+    x_f32 = x.dtype == torch.float32
     dxn_bf16 = dxn.dtype == torch.bfloat16
     if dxn_bf16 and x_b is not None:
         raise ValueError("ln_rows_bwd: a bf16 dxn with x_b is not instantiated")
-    _require(x, "x")
+    if x_f32 and (x_b is not None or dx_f32 or dx_sum):
+        raise ValueError("ln_rows_bwd: the fp32 form takes no x_b, dx_f32 or dx_sum")
+    dt = torch.float32 if x_f32 else torch.bfloat16
+    _require(x, "x", dtype=dt)
     if x_b is not None:
         _require(x_b, "x_b", (r, d))
-    _require(dxn, "dxn", (r, d), torch.bfloat16 if dxn_bf16 else torch.float32)
+    _require(dxn, "dxn", (r, d), torch.bfloat16 if dxn_bf16 and not x_f32 else torch.float32)
     _require(scale, "ln_scale", (d,), torch.float32)
     if add_g or g_sum:
-        _require(g, "g", (r, d))
+        _require(g, "g", (r, d), dt)
     else:
         g = None
     nsum = 2 + g_sum + dx_sum
-    _, blocks = ln_rows_bwd_plan(
-        r, d, _ln_bwd_blocks_per_sm(x.device, d, x_b is not None, dxn_bf16),
-        _sm_count(x.device))
+    form = 3 if x_f32 else 2 if x_b is not None else int(dxn_bf16)
+    _, blocks = ln_rows_bwd_plan(r, d, _ln_bwd_blocks_per_sm(x.device, d, form),
+                                 _sm_count(x.device))
     dx = torch.empty_like(x)
     dx32 = torch.empty((r, d), dtype=torch.float32, device=x.device) if dx_f32 else None
     sums = torch.empty((nsum, d), dtype=torch.float32, device=x.device)
     ws = torch.empty((blocks, nsum * d), dtype=torch.float32, device=x.device)
     _check(library().sfc_ln_rows_bwd_bf16(
-        x.data_ptr(), _ptr(x_b), dxn.data_ptr(), int(dxn_bf16), scale.data_ptr(),
+        x.data_ptr(), _ptr(x_b), dxn.data_ptr(), int(dxn_bf16), int(x_f32), scale.data_ptr(),
         _ptr(g), dx.data_ptr(), _ptr(dx32), sums.data_ptr(), ws.data_ptr(), blocks,
         int(g_sum), int(dx_sum), r, d, eps, int(add_g), _stream()), "ln_rows_bwd")
     out = [dx, sums[0], sums[1]]
@@ -684,20 +704,35 @@ def gemm_f32_split(m: int, n: int, k: int, sms: int) -> int:
 
 def gemm_f32(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
              trans_b: bool = False, bias: Optional[torch.Tensor] = None,
-             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``C = op(a) @ op(b) + bias`` in fp32 on ``csrc/gemm_f32.cu`` (SIMT
-    FFMA, not TF32): the float32 form of :func:`gemm` for the family-A
-    attention chains, with :func:`gemm`'s operand layouts (``a`` [M, K] or,
-    ``trans_a``, stored [K, M]; ``b`` [K, N] or, ``trans_b``, stored [N,
-    K]) and an fp32 ``bias`` [N].  A product of few output tiles is summed
-    in K ranges (:func:`gemm_f32_split`) into an fp32 workspace, then added
-    in order with the bias (the same bits every call on one card).
-    ``out_dtype`` must be float32: the argument lets the chains call either
-    form alike."""
+             act: Optional[str] = None, residual: Optional[torch.Tensor] = None,
+             residual_f32: Optional[torch.Tensor] = None,
+             z_in: Optional[torch.Tensor] = None, save_z: bool = False,
+             colsum: bool = False, out_dtype: torch.dtype = torch.float32):
+    """``C = act(op(a) @ op(b) + bias) + residual`` in fp32 on
+    ``csrc/gemm_f32.cu`` (SIMT FFMA, not TF32): the float32 form of
+    :func:`gemm`, with its operand layouts (``a`` [M, K] or, ``trans_a``,
+    stored [K, M]; ``b`` [K, N] or, ``trans_b``, stored [N, K]) and its
+    keywords, so that a chain calls either alike: ``bias`` fp32 [N];
+    ``residual`` (or ``residual_f32``: in fp32 they are one) fp32 [M, N],
+    added last; ``save_z`` also returns the pre-activation sum; ``z_in``
+    (fp32 [M, N]) multiplies the sum by ``act'(z_in)`` in place of ``act``;
+    ``colsum`` also returns the column sums of the result before the
+    residual, taken in a fixed order (no atomics).  Returns C, or ``(C, z,
+    colsum)`` with only the outputs asked for.  A product of few output
+    tiles is summed in K ranges (:func:`gemm_f32_split`) into an fp32
+    workspace, then added in order, the epilogue following the sum: the
+    same bits every call on one card.  ``out_dtype`` must be float32."""
     if trans_a and trans_b:
         raise ValueError("gemm_f32: trans_a and trans_b together are not supported")
     if out_dtype != torch.float32:
         raise ValueError(f"gemm_f32: out_dtype {out_dtype}; the product stays fp32")
+    if act not in _ACTS:
+        raise ValueError(f"gemm_f32: unsupported activation {act!r}")
+    if z_in is not None and act is None:
+        raise ValueError("gemm_f32: z_in needs the activation whose derivative it takes")
+    if residual is not None and residual_f32 is not None:
+        raise ValueError("gemm_f32: give residual or residual_f32, not both")
+    residual = residual if residual is not None else residual_f32
     k, m = a.shape if trans_a else a.shape[::-1]
     n, k2 = b.shape if trans_b else b.shape[::-1]
     if k2 != k:
@@ -706,15 +741,44 @@ def gemm_f32(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     _require(b, "b", dtype=torch.float32)
     if bias is not None:
         _require(bias, "bias", (n,), torch.float32)
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    per = gemm_f32_split(m, n, k, _sm_count(a.device))
-    splits = _cdiv(_cdiv(k, GEMM_F32_BLOCK_K), per)
-    ws = (torch.empty(splits * m * n, dtype=torch.float32, device=a.device)
-          if splits > 1 else None)
+    if residual is not None:
+        _require(residual, "residual", (m, n), torch.float32)
+    if z_in is not None:
+        _require(z_in, "z_in", (m, n), torch.float32)
+    dev = a.device
+    c = torch.empty((m, n), dtype=torch.float32, device=dev)
+    z = torch.empty((m, n), dtype=torch.float32, device=dev) if save_z else None
+    per = gemm_f32_split(m, n, k, _sm_count(dev))
+    splits = max(1, _cdiv(_cdiv(k, GEMM_F32_BLOCK_K), per))
+    ws = torch.empty(splits * m * n, dtype=torch.float32, device=dev) if splits > 1 else None
+    cs = col = None
+    if colsum:
+        # the column sums' partials: a row a 128-row tile, or (split) every row
+        stripes = m if splits > 1 else _cdiv(m, GEMM_F32_TILE)
+        col = torch.empty((stripes, n), dtype=torch.float32, device=dev)
+        cs = torch.empty(n, dtype=torch.float32, device=dev)
     _check(library().sfc_gemm_f32(
-        a.data_ptr(), b.data_ptr(), _ptr(bias), c.data_ptr(), _ptr(ws), m, n, k,
-        int(trans_a), int(trans_b), per, _stream()), "gemm_f32")
-    return c
+        a.data_ptr(), b.data_ptr(), _ptr(bias), _ptr(residual), _ptr(z_in), _ptr(z),
+        _ptr(col), _ptr(cs), c.data_ptr(), _ptr(ws), m, n, k, int(trans_a), int(trans_b),
+        per, _ACTS[act], _stream()), "gemm_f32")
+    extra = tuple(t for t in (z, cs) if t is not None)
+    return (c, *extra) if extra else c
+
+
+def act_f32(z: torch.Tensor, act: str) -> torch.Tensor:
+    """``act(z)`` elementwise over an fp32 tensor (numel % 4 == 0) on
+    ``csrc/gemm_f32.cu``'s activation kernel: the float32 form of
+    :func:`act_bf16` (the MLP backward's GELU of the saved z), nothing
+    rounded."""
+    if act not in ("gelu", "relu"):
+        raise ValueError(f"act_f32: unsupported activation {act!r}")
+    if z.numel() % 4:
+        raise ValueError(f"act_f32: {z.numel()} elements, not a multiple of 4")
+    _require(z, "z", dtype=torch.float32)
+    h = torch.empty_like(z)
+    _check(library().sfc_act_f32(z.data_ptr(), h.data_ptr(), z.numel(), _ACTS[act],
+                                 _stream()), "act_f32")
+    return h
 
 
 def _check_packed(qkv: torch.Tensor, heads: int, n_valid: int, what: str,
@@ -803,7 +867,7 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
     ``lse`` [B, H, N], the output's cotangent ``datt`` [B, N, H*Dh] and,
     for the dropout form, the forward's ``mask`` and ``keep``: bf16 on the
     kernel :func:`attention_bwd_route` names, fp32 (the same dtype for
-    ``att`` and ``datt``; the dropout form only, #6's) on
+    ``att`` and ``datt``; #6's dropout form, or #4's without a mask) on
     ``csrc/attention_bwd_f32.cu``'s two kernels (dq, then dk and dv)."""
     mask = _mask_u8(mask)
     b, n, inner, dh = _check_packed(qkv, heads, n_valid, "attention_bwd", mask,
@@ -813,9 +877,9 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
     _require(lse, "lse", (b, heads, n), torch.float32)
     dqkv = torch.empty_like(qkv)
     if qkv.dtype == torch.float32:
-        if n > PACKED_MAX_N or mask is None:
-            raise ValueError(f"attention_bwd: the fp32 kernel takes #6's dropout mask and "
-                             f"N up to {PACKED_MAX_N} (N={n}, mask {mask is not None})")
+        if n > PACKED_MAX_N:
+            raise ValueError(f"attention_bwd: the fp32 kernel takes N up to {PACKED_MAX_N} "
+                             f"(N={n})")
         delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
         _check(library().sfc_attention_bwd_f32(
             qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(), _ptr(mask),
@@ -1119,28 +1183,34 @@ PACKED_ATTENTION_MASKED_FORMS = {
     "packed_attention masked dh192 two passes": (192, 0),
 }
 #: ``csrc/ln_rows_bwd.cu``'s instances by ``sfc_ln_rows_bwd_attrs``'s form
-#: number: forms (a), (b) and (c) of its header.
-LN_ROWS_BWD_FORMS = ("ln_rows_bwd dxn fp32", "ln_rows_bwd dxn bf16", "ln_rows_bwd x + x_b")
+#: number: forms (a), (b), (c) and (d) (fp32 throughout) of its header.
+LN_ROWS_BWD_FORMS = ("ln_rows_bwd dxn fp32", "ln_rows_bwd dxn bf16", "ln_rows_bwd x + x_b",
+                     "ln_rows_bwd fp32")
 
 
-#: The fp32 SIMT kernels (float32 compute of #5, #6, #7 and #14) by name.
+#: The fp32 SIMT kernels (float32 compute of #1-#7 and #14) by name: the
+#: GEMM's three layouts with the bias alone and with the epilogue, and its
+#: column sums' stripe sum; the attention forward and backward with #5's
+#: and #6's mask and without it (#1, #4, #7).
 F32_KERNEL_FORMS = (
-    "gemm_f32 NN", "gemm_f32 NT", "gemm_f32 TN",
+    "gemm_f32 NN", "gemm_f32 NT", "gemm_f32 TN", "gemm_f32 NN epilogue",
+    "gemm_f32 NT epilogue", "gemm_f32 TN epilogue", "gemm_f32 column sums",
     "packed_attention_f32 dh64", "packed_attention_f32 dh64 masked",
     "packed_attention_f32 dh192", "packed_attention_f32 dh192 masked",
-    *(f"attention_bwd_f32 {part} dh{dh}" for dh in (64, 192) for part in ("dq", "dkv")),
+    *(f"attention_bwd_f32 {part} dh{dh}{' masked' if mk else ''}"
+      for dh in (64, 192) for mk in (1, 0) for part in ("dq", "dkv")),
     "gather_project_f32")
 
 
 def _f32_attr_calls(lib) -> dict:
     """:data:`F32_KERNEL_FORMS` -> a call filling an int[3] of attributes."""
-    calls = [lambda a, i=i: lib.sfc_gemm_f32_attrs(i, a) for i in range(3)]
+    calls = [lambda a, i=i: lib.sfc_gemm_f32_attrs(i, a) for i in range(7)]
     calls += [lambda a, dh=dh, mk=mk: lib.sfc_packed_attention_f32_attrs(dh, mk, a)
               for dh in (64, 192) for mk in (0, 1)]
-    calls += [lambda a, dh=dh, p=p: lib.sfc_attention_bwd_f32_attrs(dh, p, a)
-              for dh in (64, 192) for p in (0, 1)]
+    calls += [lambda a, dh=dh, mk=mk, p=p: lib.sfc_attention_bwd_f32_attrs(dh, mk, p, a)
+              for dh in (64, 192) for mk in (1, 0) for p in (0, 1)]
     calls.append(lib.sfc_gather_project_f32_attrs)
-    return dict(zip(F32_KERNEL_FORMS, calls))
+    return dict(zip(F32_KERNEL_FORMS, calls, strict=True))
 
 
 def flash_kernel_attrs() -> dict:

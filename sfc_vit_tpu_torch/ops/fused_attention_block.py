@@ -7,7 +7,13 @@ group of whole images, their QKV projection and every head's softmax in
 100 MiB of VMEM; a Hopper block has 227 KB of shared memory, so here
 each is a chain of hand-written kernels (``csrc/ln_rows.cu``,
 ``csrc/gemm_bf16.cu``, ``csrc/packed_attn_sm90.cu``,
-``csrc/attention_bwd_sm90.cu``, ``csrc/ln_rows_bwd.cu``).
+``csrc/attention_bwd_sm90.cu``, ``csrc/ln_rows_bwd.cu``), in bf16 or in
+float32 (the ViT-B/16 and ViT-S/16 presets at their own dtype): the same
+chain on the fp32 forms of ``ln_rows`` and ``ln_rows_bwd``, on
+``csrc/gemm_f32.cu`` (SIMT FFMA, with the same epilogues) and on
+``csrc/packed_attn_f32.cu`` / ``csrc/attention_bwd_f32.cu``, nothing
+rounded.  ``kernel_utils.kernel_is_f32`` picks the chain; any other dtype
+raises before a launch.  The description below is the bf16 chain's.
 
 Forward: ``ln_rows`` -> ``gemm`` (QKV, no bias, rounded to bf16 as the
 TPU kernel's ``qkv_s`` is) -> ``attention_fwd`` (per image, head and
@@ -41,8 +47,8 @@ from typing import Optional
 
 import torch
 
-from ._build import attention_bwd, attention_fwd, gemm, ln_rows, ln_rows_bwd
-from .kernel_utils import ln_bwd_fp32, ln_fp32, n_valid as _n_valid
+from ._build import attention_bwd, attention_fwd, gemm, gemm_f32, ln_rows, ln_rows_bwd
+from .kernel_utils import kernel_is_f32, ln_bwd_fp32, ln_fp32, n_valid as _n_valid
 from .kernel_utils import split_heads as _split_heads
 
 __all__ = ["fused_attention_block", "attention_block_ref",
@@ -175,15 +181,20 @@ def attention_block_bwd_ref(x, g, ln_scale, ln_bias, w_qkv, w_out, qkv, att,
 
 def _fwd_kernels(x, ln_scale, ln_bias, w_qkv, w_out, heads, s, eps, n_valid,
                  save):
+    f32 = kernel_is_f32("fused_attention_block", x.dtype)
+    mm = gemm_f32 if f32 else gemm
     b, n, d = x.shape
     x2 = x.view(b * n, d)  # raises on a non-contiguous x
-    xn = ln_rows(x2, ln_scale.float(), ln_bias.float(), eps)
-    qkv = gemm(xn, w_qkv).view(b, n, -1)
+    xn = ln_rows(x2, ln_scale.float(), ln_bias.float(), eps, out_dtype=x.dtype)
+    qkv = mm(xn, w_qkv).view(b, n, -1)
     att = attention_fwd(qkv, heads, n_valid, s, with_lse=save)
     if save:
         att, lse = att
-    out = gemm(att.view(b * n, -1), w_out, residual=x2).view(b, n, d)
-    fused_attention_block.launches += 1
+    out = mm(att.view(b * n, -1), w_out, residual=x2).view(b, n, d)
+    if f32:
+        fused_attention_block.f32_launches += 1
+    else:
+        fused_attention_block.launches += 1
     return (out, qkv, att, lse) if save else out
 
 
@@ -212,12 +223,15 @@ def attention_block_bwd(x, g, ln_scale, ln_bias, w_qkv, w_out, qkv, att, lse,
                         eps: float = 1e-5, n_actual: Optional[int] = None):
     """The backward from the saved ``qkv``, ``att`` and ``lse``, with the
     arguments and results of :func:`attention_block_bwd_ref`, which it
-    runs for a CPU ``x``.  A CUDA ``x`` launches the kernel chain
-    (``fused_attention_block.bwd_launches`` counts it)."""
+    runs for a CPU ``x``.  A CUDA ``x`` launches the kernel chain, bf16
+    or fp32 (``fused_attention_block.bwd_launches`` and
+    ``.f32_bwd_launches`` count them)."""
     if x.device.type == "cpu":
         return attention_block_bwd_ref(x, g, ln_scale, ln_bias, w_qkv, w_out,
                                        qkv, att, lse, heads, scale, eps,
                                        n_actual)
+    f32 = kernel_is_f32("fused_attention_block", x.dtype)
+    mm = gemm_f32 if f32 else gemm
     b, n, d = x.shape
     dh = _head_dim(w_qkv.shape[1], heads)
     s = dh ** -0.5 if scale is None else scale
@@ -230,15 +244,18 @@ def attention_block_bwd(x, g, ln_scale, ln_bias, w_qkv, w_out, qkv, att, lse,
         gp = g2.clone()
         gp.view(b, n, d)[:, n_valid:] = 0
     lns = ln_scale.float()
-    xn = ln_rows(x2, lns, ln_bias.float(), eps)
-    datt = gemm(gp, w_out, trans_b=True)                     # [R, inner]
+    xn = ln_rows(x2, lns, ln_bias.float(), eps, out_dtype=x.dtype)
+    datt = mm(gp, w_out, trans_b=True)                       # [R, inner]
     dqkv = attention_bwd(qkv, att, datt.view(b, n, inner), lse, heads,
                          n_valid, s).view(r, 3 * inner)
-    dw_out = gemm(att.view(r, inner), gp, trans_a=True)      # [inner, D]
-    dxn = gemm(dqkv, w_qkv, trans_b=True, out_dtype=torch.float32)  # [R, D]
-    dw_qkv = gemm(xn, dqkv, trans_a=True)                    # [D, 3*inner]
+    dw_out = mm(att.view(r, inner), gp, trans_a=True)        # [inner, D]
+    dxn = mm(dqkv, w_qkv, trans_b=True, out_dtype=torch.float32)  # [R, D]
+    dw_qkv = mm(xn, dqkv, trans_a=True)                      # [D, 3*inner]
     dx, dls, dlb = ln_rows_bwd(x2, dxn, lns, g2, eps, add_g=True)
-    fused_attention_block.bwd_launches += 1
+    if f32:
+        fused_attention_block.f32_bwd_launches += 1
+    else:
+        fused_attention_block.bwd_launches += 1
     return (dx.view(b, n, d), dls.to(ln_scale.dtype), dlb.to(ln_bias.dtype),
             dw_qkv.to(w_qkv.dtype), dw_out.to(w_out.dtype))
 
@@ -276,10 +293,12 @@ def fused_attention_block(x, ln_scale, ln_bias, w_qkv, w_out, heads: int,
 
     A CPU ``x`` runs :func:`attention_block_ref` (and, under autograd,
     :func:`attention_block_bwd_ref` for the backward).  A CUDA ``x``
-    launches the kernels (bf16, head dim 64, Dense kernels ``[in, out]``)
-    or raises; it never falls back.  ``fused_attention_block.launches``
-    counts the CUDA forwards and ``fused_attention_block.bwd_launches``
-    the CUDA backwards.
+    launches the kernels (bf16 or fp32, every tensor in x's dtype apart
+    from the fp32 LayerNorm parameters; head dim 64 or 192; Dense kernels
+    ``[in, out]``) or raises, any other dtype before a launch; it never
+    falls back.  ``fused_attention_block.launches`` and ``.bwd_launches``
+    count the bf16 CUDA forwards and backwards, ``.f32_launches`` and
+    ``.f32_bwd_launches`` the fp32 ones.
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(
@@ -297,3 +316,5 @@ def fused_attention_block(x, ln_scale, ln_bias, w_qkv, w_out, heads: int,
 
 fused_attention_block.launches = 0
 fused_attention_block.bwd_launches = 0
+fused_attention_block.f32_launches = 0
+fused_attention_block.f32_bwd_launches = 0

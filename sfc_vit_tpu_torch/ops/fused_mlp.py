@@ -5,7 +5,14 @@ Counterpart of ``sfc_vit_tpu/ops/fused_mlp.py``.  The TPU kernels
 ``_mlp_kernel`` and ``_mlp_bwd_kernel`` run the whole block per row tile
 with the hidden activation in VMEM; a Hopper block holds at most 227 KB
 of shared memory, so here each is a chain of hand-written kernels
-(``csrc/ln_rows.cu``, ``csrc/gemm_bf16.cu``, ``csrc/ln_rows_bwd.cu``).
+(``csrc/ln_rows.cu``, ``csrc/gemm_bf16.cu``, ``csrc/ln_rows_bwd.cu``), in
+bf16 or in float32 (the ViT-B/16 and ViT-S/16 presets at their own
+dtype): the same chain on the fp32 forms of ``ln_rows`` and
+``ln_rows_bwd``, on ``csrc/gemm_f32.cu`` (SIMT FFMA, with the same
+epilogues: bias, exact-erf GELU, z saved, act'(z), fixed-order column
+sums, the fp32 residual) and its ``act_f32``, nothing rounded.
+``kernel_utils.kernel_is_f32`` picks the chain; any other dtype raises
+before a launch.  The description below is the bf16 chain's.
 
 Forward: ``ln_rows`` -> ``gemm`` (fc1, +b1, activation in fp32, one round
 to bf16 -- the TPU kernel's rounding point; the training forward also
@@ -66,8 +73,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._build import act_bf16, gemm, gemm_layernorm, gemm_layernorm_fits, ln_rows, ln_rows_bwd
-from .kernel_utils import fp32_compute_not_ported, ln_bwd_fp32, ln_fp32
+from ._build import (act_bf16, act_f32, gemm, gemm_f32, gemm_layernorm, gemm_layernorm_fits,
+                     ln_rows, ln_rows_bwd)
+from .kernel_utils import fp32_compute_not_ported, kernel_is_f32, ln_bwd_fp32, ln_fp32
 
 __all__ = ["fused_mlp_block", "mlp_block_ref", "mlp_block_bwd_ref",
            "mlp_block_train_fwd", "mlp_block_bwd", "fused_postnorm_tail",
@@ -148,14 +156,19 @@ def mlp_block_bwd_ref(x, g, ln_scale, ln_bias, w1, b1, w2, z, b2=None,
 
 def _fwd_kernels(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, activation,
                  residual, save_z):
+    f32 = kernel_is_f32("fused_mlp_block", x.dtype)
+    mm = gemm_f32 if f32 else gemm
     b, n, d = x.shape
     x2 = x.view(b * n, d)  # raises on a non-contiguous x
-    xn = ln_rows(x2, ln_scale.float(), ln_bias.float(), eps)
-    h = gemm(xn, w1, bias=b1.float(), act=activation, save_z=save_z)
+    xn = ln_rows(x2, ln_scale.float(), ln_bias.float(), eps, out_dtype=x.dtype)
+    h = mm(xn, w1, bias=b1.float(), act=activation, save_z=save_z)
     if save_z:
         h, z = h
-    out = gemm(h, w2, bias=b2.float(), residual=x2 if residual else None)
-    fused_mlp_block.launches += 1
+    out = mm(h, w2, bias=b2.float(), residual=x2 if residual else None)
+    if f32:
+        fused_mlp_block.f32_launches += 1
+    else:
+        fused_mlp_block.launches += 1
     out = out.view(b, n, d)
     return (out, z.view(b, n, -1)) if save_z else out
 
@@ -179,27 +192,35 @@ def mlp_block_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, z, b2=None,
                   residual: bool = True):
     """The backward from the saved ``z``, with the arguments and results
     of :func:`mlp_block_bwd_ref`, which it runs for a CPU ``x``.  A CUDA
-    ``x`` launches the kernel chain (``fused_mlp_block.bwd_launches``
-    counts it)."""
+    ``x`` launches the kernel chain, bf16 or fp32
+    (``fused_mlp_block.bwd_launches`` and ``.f32_bwd_launches`` count
+    them)."""
     if x.device.type == "cpu":
         return mlp_block_bwd_ref(x, g, ln_scale, ln_bias, w1, b1, w2, z, b2,
                                  eps, activation, residual)
+    f32 = kernel_is_f32("fused_mlp_block", x.dtype)
+    mm = gemm_f32 if f32 else gemm
     b, n, d = x.shape
     f = w1.shape[1]
     x2 = x.view(b * n, d)
     g2 = g.reshape(b * n, d).contiguous()
     z2 = z.view(b * n, f)
     lns = ln_scale.float()
-    xn = ln_rows(x2, lns, ln_bias.float(), eps)
-    h = act_bf16(z2, activation)
-    dw2 = gemm(h, g2, trans_a=True)                         # [F, D]
-    dz, db1 = gemm(g2, w2, trans_b=True, act=activation, z_in=z2,
-                   colsum=True)                             # [R, F]
-    dw1 = gemm(xn, dz, trans_a=True)                        # [D, F]
-    dxn = gemm(dz, w1, trans_b=True, out_dtype=torch.float32)  # [R, D]
+    xn = ln_rows(x2, lns, ln_bias.float(), eps, out_dtype=x.dtype)
+    h = (act_f32 if f32 else act_bf16)(z2, activation)
+    dw2 = mm(h, g2, trans_a=True)                           # [F, D]
+    del h
+    dz, db1 = mm(g2, w2, trans_b=True, act=activation, z_in=z2,
+                 colsum=True)                               # [R, F]
+    dw1 = mm(xn, dz, trans_a=True)                          # [D, F]
+    dxn = mm(dz, w1, trans_b=True, out_dtype=torch.float32)  # [R, D]
+    del dz
     dx, dls, dlb, db2 = ln_rows_bwd(x2, dxn, lns, g2, eps, add_g=residual,
                                     g_sum=True)
-    fused_mlp_block.bwd_launches += 1
+    if f32:
+        fused_mlp_block.f32_bwd_launches += 1
+    else:
+        fused_mlp_block.bwd_launches += 1
     return (dx.view(b, n, d), dls.to(ln_scale.dtype), dlb.to(ln_bias.dtype),
             dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
             db2.to((w2 if b2 is None else b2).dtype))
@@ -235,9 +256,12 @@ def fused_mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2,
 
     A CPU ``x`` runs :func:`mlp_block_ref` (and, under autograd,
     :func:`mlp_block_bwd_ref` for the backward).  A CUDA ``x`` launches
-    the kernels (bf16, Dense kernels ``[in, out]``) or raises; it never
-    falls back.  ``fused_mlp_block.launches`` counts the CUDA forwards
-    and ``fused_mlp_block.bwd_launches`` the CUDA backwards.
+    the kernels (bf16 or fp32, every tensor in x's dtype apart from the
+    fp32 LayerNorm parameters; Dense kernels ``[in, out]``) or raises, any
+    other dtype before a launch; it never falls back.
+    ``fused_mlp_block.launches`` and ``.bwd_launches`` count the bf16 CUDA
+    forwards and backwards, ``.f32_launches`` and ``.f32_bwd_launches``
+    the fp32 ones.
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mlp_block: no kernel for device {x.device}")
@@ -253,6 +277,8 @@ def fused_mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2,
 
 fused_mlp_block.launches = 0
 fused_mlp_block.bwd_launches = 0
+fused_mlp_block.f32_launches = 0
+fused_mlp_block.f32_bwd_launches = 0
 
 
 # -- the post-norm layer tail (#15, #16) ------------------------------------

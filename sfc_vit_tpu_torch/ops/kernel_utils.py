@@ -43,7 +43,7 @@ def fp32_compute_not_ported(what: str, dtype: torch.dtype) -> NotImplementedErro
 
 
 def kernel_is_f32(what: str, dtype: torch.dtype) -> bool:
-    """Which kernels a CUDA tensor of ``dtype`` launches for #5, #6, #7 and
+    """Which kernels a CUDA tensor of ``dtype`` launches for #1-#7 and
     #14: True for float32 (the fp32 SIMT kernels), False for bfloat16 (the
     Hopper ``wgmma`` kernels).  Any other dtype raises; nothing falls back
     to a plain version."""

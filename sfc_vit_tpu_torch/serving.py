@@ -37,8 +37,10 @@ class ServingEngine:
         module's weights as they are.
       image_shape: per-image ``(H, W, C)``.
       batch_sizes: the batch shapes to run; each is warmed up at build.
-      dtype: cast floating parameters and inputs to this dtype (use
-        ``torch.bfloat16`` on the GPU); None keeps them as they are.
+      dtype: cast floating parameters and inputs to this dtype
+        (``torch.bfloat16``: the bf16 kernels); None keeps them as they
+        are (a model built without a dtype serves in fp32, through the
+        fp32 kernels on the GPU).
       device: where the model runs.  On ``'cuda'`` every encoder block
         goes through the hand-written kernels.
     """

@@ -162,6 +162,45 @@ def test_colsum_and_mask_arguments_are_checked():
                              keep=0.0)
 
 
+#: The fp32 launchers' options (#1-#4 in float32), each refused on the
+#: CPU before any launch: (launcher, args, keywords, message).
+_F32_REFUSALS = [
+    ("gemm_f32", (torch.zeros(4, 8), torch.zeros(8, 8)), dict(act="tanh"), "activation"),
+    ("gemm_f32", (torch.zeros(4, 8), torch.zeros(8, 8)), dict(z_in=torch.zeros(4, 8)),
+     "z_in needs the activation"),
+    ("gemm_f32", (torch.zeros(4, 8), torch.zeros(8, 8)),
+     dict(residual=torch.zeros(4, 8), residual_f32=torch.zeros(4, 8)), "not both"),
+    ("gemm_f32", (torch.zeros(4, 8), torch.zeros(8, 8)),
+     dict(act="gelu", save_z=True, colsum=True, bias=torch.zeros(8)), "CUDA tensor"),
+    ("gemm_f32", (torch.zeros(4, 8), torch.zeros(8, 8)), dict(out_dtype=torch.bfloat16),
+     "stays fp32"),
+    ("act_f32", (torch.zeros(6), "gelu"), {}, "multiple of 4"),
+    ("act_f32", (torch.zeros(8), "tanh"), {}, "activation"),
+    ("act_f32", (torch.zeros(8), "gelu"), {}, "CUDA tensor"),
+    ("ln_rows", (torch.zeros(4, 8, dtype=torch.bfloat16), torch.ones(8), torch.zeros(8), 1e-5),
+     dict(out_dtype=torch.float32), "fp32 x alone"),
+    ("ln_rows", (torch.zeros(4, 8), torch.ones(8), torch.zeros(8), 1e-5),
+     dict(out_dtype=torch.float32, with_f32=True), "fp32 x alone"),
+    ("ln_rows", (torch.zeros(4, 8), torch.ones(8), torch.zeros(8), 1e-5),
+     dict(out_dtype=torch.float16), "fp32 x alone"),
+    ("ln_rows", (torch.zeros(4, 8), torch.ones(8), torch.zeros(8), 1e-5),
+     dict(out_dtype=torch.float32), "CUDA tensor"),
+    ("ln_rows_bwd", (torch.zeros(4, 8), torch.zeros(4, 8), torch.ones(8), None, 1e-5),
+     dict(add_g=False, dx_f32=True), "fp32 form"),
+    ("ln_rows_bwd", (torch.zeros(4, 8), torch.zeros(4, 8), torch.ones(8), None, 1e-5),
+     dict(add_g=False, x_b=torch.zeros(4, 8, dtype=torch.bfloat16)), "fp32 form"),
+    ("ln_rows_bwd", (torch.zeros(4, 8), torch.zeros(4, 8), torch.ones(8), torch.zeros(4, 8),
+                     1e-5), dict(g_sum=True), "CUDA tensor"),
+]
+
+
+@pytest.mark.parametrize("name, args, kw, match", _F32_REFUSALS,
+                         ids=[f"{r[0]}-{i}" for i, r in enumerate(_F32_REFUSALS)])
+def test_f32_launcher_options_are_checked(name, args, kw, match):
+    with pytest.raises(ValueError, match=match):
+        getattr(_build, name)(*args, **kw)
+
+
 @pytest.mark.parametrize("m, n, k, sms", [
     (768, 768, 50176, 132), (768, 3072, 50176, 132), (3072, 768, 50176, 132),
     (768, 2304, 50176, 132), (256, 256, 32768, 132), (768, 768, 50184, 114),
@@ -1074,10 +1113,11 @@ def test_attention_block_bwd_matches_ref(cuda, b, n, d, heads, n_actual):
 
 @pytest.mark.gpu
 def test_fp32_cuda_input_raises(cuda):
-    args = tuple(t.float() for t in _mlp_args(np.random.default_rng(7),
-                                              1, 4, 16, 32, cuda))
-    with pytest.raises(ValueError, match="bfloat16"):
-        fused_mlp_block(*args)
+    """An fp32 x beside bf16 weights is refused, not cast: the fp32 chain
+    takes fp32 weights (tests of #1-#4 in fp32 below)."""
+    args = _mlp_args(np.random.default_rng(7), 1, 4, 16, 32, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fused_mlp_block(args[0].float(), *args[1:])
 
 
 @pytest.mark.gpu
@@ -1309,9 +1349,9 @@ _ATTN_F32_SHAPES = [(32, 64, 4, 64, 64), (64, 64, 4, 192, 64), (4, 64, 4, 192, 5
 @pytest.mark.parametrize("b, n, heads, dh, n_valid", _ATTN_F32_SHAPES)
 def test_attention_f32_matches_plain(cuda, b, n, heads, dh, n_valid, masked):
     """csrc/packed_attn_f32.cu (out and lse) against attention_fwd_ref, with
-    and without #5's mask, and with the mask csrc/attention_bwd_f32.cu
-    against attention_bwd_ref (#6's), fp32; the backward repeats bit for
-    bit, and refuses to run without a mask (no path takes it)."""
+    and without #5's mask, and csrc/attention_bwd_f32.cu against
+    attention_bwd_ref with the mask (#6's) and without it (#4's), fp32; the
+    backward repeats bit for bit."""
     rng = np.random.default_rng(62)
     qkv = _f32(rng, b, n, 3 * heads * dh)
     datt = _f32(rng, b, n, heads * dh)
@@ -1326,10 +1366,6 @@ def test_attention_f32_matches_plain(cuda, b, n, heads, dh, n_valid, masked):
     if not masked and n_valid == n:
         _within(_build.attention_fwd(qkv, heads, n, s), _packed_xla_ref(qkv, heads, s),
                 F32_TOL, "packed")
-    if not masked:
-        with pytest.raises(ValueError, match="dropout mask"):
-            _build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s)
-        return
     dqkv = _build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s, mask=mask, keep=keep)
     want_d = attention_bwd_ref(qkv, att, datt, lse, heads, n_valid, s, mask=mask, keep=keep)
     for i, name in enumerate(("dq", "dk", "dv")):
@@ -2172,3 +2208,237 @@ def test_family_a_tail_model_paths_match_plain(cuda):
     assert fused_postnorm_tail.launches == before + 3 + 2
     assert float((got.float() - want.float()).abs().max()) <= 0.03 * float(
         want.float().abs().max())
+
+
+# -- #1-#4 in fp32: the ViT-B/16 and ViT-S/16 presets at their own dtype -------
+
+
+def _gemm_f32_operands(rng, form, rows, k, n):
+    """(a, b, op(a) @ op(b) in fp32, gemm keywords) for a layout as the
+    chains store it: TN a [K=rows, M=k]; NT b [N, K]; NN b [K, N]."""
+    if form == "TN":
+        a, b = _f32(rng, rows, k), _f32(rng, rows, n)
+        return a, b, a.T @ b, dict(trans_a=True)
+    a = _f32(rng, rows, k)
+    if form == "NT":
+        b = _f32(rng, n, k, scale=k ** -0.5)
+        return a, b, a @ b.T, dict(trans_b=True)
+    b = _f32(rng, k, n, scale=k ** -0.5)
+    return a, b, a @ b, {}
+
+
+#: (form, rows, k, n, epilogue): #2's fc1 (bias, GELU, z) and fc2 (bias,
+#: residual), #1's output projection (residual), #3's dz (act'(z) with the
+#: column sums), every epilogue at once with ReLU; at ViT-S/16's widths
+#: (R 2 x 196), ragged (not multiples of 4 or 128), and TN forms whose K is
+#: split (the epilogue then follows the ordered sum).
+_GEMM_F32_EPILOGUES = [
+    ("NN", 392, 384, 1536, "fc1"), ("NN", 392, 1536, 384, "fc2"),
+    ("NN", 392, 384, 384, "residual"), ("NT", 392, 384, 1536, "dz"),
+    ("NN", 333, 200, 136, "all"), ("NT", 7, 13, 9, "all"), ("NT", 130, 96, 130, "dz"),
+    ("TN", 5001, 72, 40, "all"), ("TN", 4096, 384, 384, "dz"), ("TN", 1000, 200, 136, "fc1"),
+]
+
+
+def _epilogue_kw(rng, kind, m, n):
+    bias, res, zin = _f32(rng, n), _f32(rng, m, n), _f32(rng, m, n)
+    return {"fc1": dict(bias=bias, act="gelu", save_z=True),
+            "fc2": dict(bias=bias, residual=res),
+            "residual": dict(residual=res),
+            "dz": dict(act="gelu", z_in=zin, colsum=True),
+            "all": dict(bias=bias, act="relu", save_z=True, colsum=True, residual=res)}[kind]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form, rows, k, n, kind", _GEMM_F32_EPILOGUES)
+def test_gemm_f32_epilogues_match_plain(cuda, form, rows, k, n, kind):
+    """csrc/gemm_f32.cu's epilogues (bias, z saved, exact-erf GELU or ReLU,
+    act'(z_in), column sums, the fp32 residual, in gemm's order) against
+    the same formula over torch.matmul in fp32, within 1e-4 of each
+    output's largest |value|; the column sums have one owner and a fixed
+    order, so every output repeats bit for bit."""
+    rng = np.random.default_rng(70)
+    a, b, prod, layout = _gemm_f32_operands(rng, form, rows, k, n)
+    kw = _epilogue_kw(rng, kind, prod.shape[0], n)
+    got = _build.gemm_f32(a, b, **layout, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    v = prod + kw["bias"] if "bias" in kw else prod
+    z = v
+    if "z_in" in kw:
+        zi = kw["z_in"]
+        v = v * (0.5 * (1 + torch.erf(zi * 2 ** -0.5)) + zi * torch.exp(-0.5 * zi * zi)
+                 * 0.3989422804014327)
+    elif kw.get("act"):
+        v = F.gelu(v) if kw["act"] == "gelu" else F.relu(v)
+    cs = v.sum(0)
+    want = [v + kw["residual"] if "residual" in kw else v]
+    if kw.get("save_z"):
+        want.append(z)
+    if kw.get("colsum"):
+        want.append(cs)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _within(g, w, F32_TOL, f"{kind} output {i}")
+    again = _build.gemm_f32(a, b, **layout, **kw)
+    for g, h in zip(got, again if isinstance(again, tuple) else (again,)):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, d", [(392, 384), (1568, 768), (1001, 1024), (37, 1536)])
+def test_ln_rows_and_act_f32_match_plain(cuda, rows, d):
+    """ln_rows's fp32 form (fp32 in, fp32 out) against ln_fp32, and
+    act_f32 against F.gelu / F.relu, in fp32."""
+    rng = np.random.default_rng(71)
+    x = _f32(rng, rows, d, scale=2.0)
+    s, bias = _f32(rng, d, scale=0.1) + 1.0, _f32(rng, d, scale=0.1)
+    y = _build.ln_rows(x, s, bias, 1e-5, out_dtype=torch.float32)
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y, ln_fp32(x, s, bias, 1e-5), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="fp32 x alone"):
+        _build.ln_rows(x.bfloat16(), s, bias, 1e-5, out_dtype=torch.float32)
+    torch.testing.assert_close(_build.act_f32(x, "gelu"), F.gelu(x), rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(_build.act_f32(x, "relu"), F.relu(x), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, d", [(50176, 768), (392, 384), (1001, 1024)])
+def test_ln_rows_bwd_f32_matches_plain(cuda, rows, d):
+    """ln_rows_bwd's form (d), fp32 throughout (#3's and #4's tail in
+    float32), against ln_bwd_fp32 + g with colsum(g), within 1e-4 of each
+    output's largest |value|, and bit for bit on a second call."""
+    rng = np.random.default_rng(72)
+    x, dxn, g = _f32(rng, rows, d, scale=2.0), _f32(rng, rows, d), _f32(rng, rows, d)
+    s = _f32(rng, d, scale=0.1) + 1.0
+    got = _build.ln_rows_bwd(x, dxn, s, g, 1e-5, add_g=True, g_sum=True)
+    dx, ds, db = ln_bwd_fp32(x, dxn, s, 1e-5)
+    for name, a, w in zip(("dx", "dscale", "dbias", "colsum(g)"), got,
+                          (dx + g, ds, db, g.sum(0))):
+        _within(a, w, F32_TOL, name)
+    for u, v in zip(got, _build.ln_rows_bwd(x, dxn, s, g, 1e-5, add_g=True, g_sum=True)):
+        assert torch.equal(u, v)
+
+
+def _f32_args(args):
+    return tuple(t.float() for t in args)
+
+
+#: (b, n, d, heads, f, n_actual): ViT-B/16's layer (a few images), ViT-S/16's
+#: width, and a ragged one (n_actual < N; R = 150, not a multiple of 128).
+_BLOCK_F32_SHAPES = [(4, 196, 768, 12, 3072, None), (4, 196, 384, 6, 1536, None),
+                     (3, 50, 128, 2, 256, 37), (2, 196, 768, 12, 3072, 150)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d, heads, f, n_actual", _BLOCK_F32_SHAPES)
+def test_fused_blocks_f32_match_ref(cuda, b, n, d, heads, f, n_actual):
+    """#1-#4 in fp32 against their plain versions within 1e-4 of each
+    tensor's largest |value| (real rows of #1's output; #4's dx in full),
+    each through its fp32 launch counter and none of the bf16 ones; the
+    autograd Functions' gradients too."""
+    rng = np.random.default_rng(73)
+    attn = _f32_args(_attn_args(rng, b, n, d, heads, cuda))
+    mlp = _f32_args(_mlp_args(rng, b, n, d, f, cuda))
+    g = _f32(rng, b, n, d)
+    real = n if n_actual is None else n_actual
+    counters = [(fused_attention_block, "f32_launches"), (fused_attention_block, "f32_bwd_launches"),
+                (fused_mlp_block, "f32_launches"), (fused_mlp_block, "f32_bwd_launches"),
+                (fused_attention_block, "launches"), (fused_attention_block, "bwd_launches"),
+                (fused_mlp_block, "launches"), (fused_mlp_block, "bwd_launches")]
+    before = [getattr(o, k) for o, k in counters]
+    with torch.no_grad():
+        got = fused_attention_block(*attn, heads, n_actual=n_actual)
+        _within(got[:, :real], attention_block_ref(*attn, heads, n_actual=n_actual)[:, :real],
+                F32_TOL, "#1 out")
+        _within(fused_mlp_block(*mlp), mlp_block_ref(*mlp), F32_TOL, "#2 out")
+        out, qkv, att, lse = attention_block_train_fwd(*attn, heads, n_actual=n_actual)
+        got4 = attention_block_bwd(attn[0], g, *attn[1:], qkv, att, lse, heads,
+                                   n_actual=n_actual)
+        want4 = attention_block_bwd_ref(attn[0], g, *attn[1:], qkv, att, lse, heads,
+                                        n_actual=n_actual)
+        for name, x, w in zip(("dx", "dls", "dlb", "dw_qkv", "dw_out"), got4, want4):
+            _within(x, w, F32_TOL, f"#4 {name}")
+        _, z = mlp_block_train_fwd(*mlp)
+        got3 = mlp_block_bwd(mlp[0], g, *mlp[1:6], z, mlp[6])
+        want3 = mlp_block_bwd_ref(mlp[0], g, *mlp[1:6], z, mlp[6])
+        for name, x, w in zip(("dx", "dls", "dlb", "dw1", "db1", "dw2", "db2"), got3, want3):
+            _within(x, w, F32_TOL, f"#3 {name}")
+    after = [getattr(o, k) for o, k in counters]
+    assert [a - c for a, c in zip(after, before)] == [2, 1, 2, 1, 0, 0, 0, 0]
+    leaves = [t.clone().requires_grad_() for t in mlp]
+    fused_mlp_block(*leaves).backward(g)
+    for name, t, w in zip(("dx", "dls", "dlb", "dw1", "db1", "dw2", "db2"), leaves, want3):
+        _within(t.grad, w, F32_TOL, f"#3 autograd {name}")
+
+
+@pytest.mark.gpu
+def test_attention_bwd_f32_unmasked_repeats_bit_for_bit(cuda):
+    """#4's attention backward in fp32 (no mask) at ViT-B's 196 tokens with
+    ragged keys, the same bits on a second call."""
+    rng = np.random.default_rng(74)
+    qkv, datt = _f32(rng, 8, 196, 3 * 768), _f32(rng, 8, 196, 768)
+    att, lse = _build.attention_fwd(qkv, 12, 150, 0.125, with_lse=True)
+    first = _build.attention_bwd(qkv, att, datt, lse, 12, 150, 0.125)
+    assert torch.equal(first, _build.attention_bwd(qkv, att, datt, lse, 12, 150, 0.125))
+
+
+@pytest.mark.gpu
+def test_fused_blocks_refuse_fp16(cuda):
+    """#1-#4 take bfloat16 and float32; float16 raises NotImplementedError
+    before any launch, with no fall back to a plain version."""
+    rng = np.random.default_rng(75)
+    attn = tuple(t.half() if t.dtype == torch.bfloat16 else t
+                 for t in _attn_args(rng, 1, 8, 128, 2, cuda))
+    mlp = tuple(t.half() if t.dtype == torch.bfloat16 else t
+                for t in _mlp_args(rng, 1, 8, 128, 256, cuda))
+    before = (fused_attention_block.f32_launches, fused_mlp_block.f32_launches,
+              fused_attention_block.launches, fused_mlp_block.launches)
+    for fn, args in ((fused_attention_block, attn + (2,)), (fused_mlp_block, mlp)):
+        with torch.no_grad(), pytest.raises(NotImplementedError, match="bfloat16 or float32"):
+            fn(*args)
+        leaves = [t.clone().requires_grad_() for t in args[:5]] + list(args[5:])
+        with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
+            fn(*leaves)
+    assert before == (fused_attention_block.f32_launches, fused_mlp_block.f32_launches,
+                      fused_attention_block.launches, fused_mlp_block.launches)
+
+
+@pytest.mark.gpu
+def test_curvevit_f32_kernel_path_matches_plain_path(cuda):
+    """A small fp32 CurveViT (the ViT-S/16 preset at its own dtype, cut to
+    d 128, 2 heads of 64, depth 2, MLP 256) on the card: served through
+    ServingEngine(dtype=None) through #1/#2's fp32 kernels and one train
+    step through #1-#4's, each against the plain path, within 1e-4 of the
+    largest |logit| and relative L2 1e-4 per gradient."""
+    from unittest import mock
+
+    import sfc_vit_tpu_torch.models.simple_vit as simple_vit
+    from sfc_vit_tpu_torch.registry import build_model, preset_config
+    from sfc_vit_tpu_torch.serving import ServingEngine
+
+    cfg = preset_config("vit-s-16", img_size=28, patch_size=4, embed_dim=128, n_heads=2,
+                        depth=2, mlp_dim=256, num_classes=10)
+    assert cfg.dtype is None
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    plain = mock.patch.multiple(simple_vit, fused_attention_block=attention_block_ref,
+                                fused_mlp_block=mlp_block_ref)
+    engine = ServingEngine(model, None, (28, 28, 3), batch_sizes=(4, 8), device=cuda)
+    images = np.random.default_rng(76).standard_normal((11, 28, 28, 3)).astype(np.float32)
+    before = (fused_attention_block.f32_launches, fused_mlp_block.f32_launches)
+    got = engine.predict(images)
+    assert (fused_attention_block.f32_launches - before[0],
+            fused_mlp_block.f32_launches - before[1]) == (2 * 2, 2 * 2)
+    with plain:
+        want = engine.predict(images)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= F32_TOL * np.abs(want).max()
+    model.train()
+    x = torch.from_numpy(images[:6]).to(cuda)
+    grads = []
+    for ctx in (contextlib.nullcontext(), plain):
+        model.zero_grad()
+        with ctx:
+            model(x).square().sum().backward()
+        grads.append([p.grad.clone() for p in model.parameters()])
+    for g, w in zip(*grads):
+        assert float((g - w).norm() / w.norm()) <= 1e-4
