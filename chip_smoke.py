@@ -21,8 +21,9 @@ Phases, each of which raises (non-zero exit) on failure:
    #13's windowed instances of #10's and #11's kernels, #14, the GEMM's
    three forms, split-K sum and LayerNorm form (#15) and the attention
    backward's five instances (#4, #6)) and of the LayerNorm backward's
-   three and the fp32 SIMT kernels of #5, #6, #7 and #14, and fails if any
-   spills;
+   three and the fp32 kernels of #1-#7 and #14 (``csrc/gemm_f32.cu``'s nine
+   3xTF32 ``wgmma`` instances and its column sums; the SIMT attention and
+   tokenizer kernels), and fails if any spills;
 3. kernels: each fused block against its plain PyTorch version at the
    ViT-B/16 serving shapes (x [64, 196, 768] bf16, 12 heads of 64,
    F = 3072), with its error, tolerance and time beside the plain one;
@@ -172,15 +173,18 @@ Phases, each of which raises (non-zero exit) on failure:
    each the launch counts (layers x steps or forwards), every parameter
    moved, one step's gradients and the served logits against the plain
    versions, train and forward img/s, a profile of the train step.
-14. notebook: the fp32 kernels of #5, #6, #7 and #14 (``csrc/gemm_f32.cu``,
+14. notebook: the fp32 kernels of #5, #6, #7 and #14 (``csrc/gemm_f32.cu``:
+   each fp32 product as three TF32 products on ``wgmma``;
    ``packed_attn_f32.cu``, ``attention_bwd_f32.cu``,
-   ``gather_project_f32.cu``: SIMT FFMA, no TF32) against their plain
+   ``gather_project_f32.cu``: SIMT FFMA) against their plain
    versions within 1e-4 of each tensor's largest |value| at the notebook's
    shapes (x [32, 64, 256], 4 heads of 64, mask at keep 0.9; its fused 2-D
    and 1-D tokenizers) and the flagship's fp32 ones ([512, 64, 768], 4 heads
-   of 192; its three tokenizer levels), each timed beside its bound (67
-   TFLOP/s fp32, 3.35 TB/s) and a library call (torch.matmul, SDPA without
-   dropout, ``index_select`` + ``F.linear``); then
+   of 192; its three tokenizer levels), each timed beside its bound (the
+   GEMMs' products at 3xTF32's 165 TFLOP/s, the rest at fp32's 67, 3.35
+   TB/s; and every operation at 67) and a library call (torch.matmul fp32,
+   each GEMM's product also against fp64; SDPA without dropout,
+   ``index_select`` + ``F.linear``); then
    ``build_model(preset_config("notebook"))`` trained 4 steps in fp32 at
    batch 32 (curves hilbert, raster, random), evaluated and served
    (``'random'`` refused by the engine), the same in bf16 with the fused
@@ -201,7 +205,9 @@ Phases, each of which raises (non-zero exit) on failure:
    and, with lse, [256, 196, 12 x 64], and #4's attention backward alone
    at [256, 196, 12 x 64], beside SDPA fp32; each GEMM form of the chains
    at ViT-B/16's shapes against torch fp32, timed beside ``torch.matmul``
-   fp32; (b) ``build_model(preset_config("vit-b-16", curve="hilbert",
+   fp32 (TF32 off) with each one's TFLOP/s, and each product (the kernel's
+   and torch.matmul fp32's) against fp64; (b)
+   ``build_model(preset_config("vit-b-16", curve="hilbert",
    num_classes=1000))`` with no dtype served by
    ``ServingEngine(batch_sizes=(8, 64), dtype=None)`` (1, 37, 64 images;
    #1/#2 fp32 launched 12 x forwards, logits within 1e-4 of the largest
@@ -1178,9 +1184,10 @@ def phase_train(card: str) -> dict:
 #: Kernels told apart by their template arguments: the GEMM's three
 #: layouts <trans_a, trans_b, act kind>, #8's two forms and #12's instance.
 _GEMM_LABELS = {"gemm_bf16_sm90<false, false, 3": "gemm_bf16 NN + LN2 (#15, clusters)",
-                "gemm_f32_kernel<false, false": "gemm_f32 NN (forward)",
-                "gemm_f32_kernel<false, true": "gemm_f32 NT (dX, dz, datt)",
-                "gemm_f32_kernel<true, false": "gemm_f32 TN (weight gradients)",
+                "gemm_f32_sm90<false, false": "gemm_f32 NN (forward; 3xTF32)",
+                "gemm_f32_sm90<false, true": "gemm_f32 NT (dX, dz, datt; 3xTF32)",
+                "gemm_f32_sm90<true, false": "gemm_f32 TN (weight gradients; 3xTF32)",
+                "gemm_f32_sum_kernel": "gemm_f32 split-K sum",
                 "gemm_bf16_sm90<false, false": "gemm_bf16 NN (forward)",
                 "gemm_bf16_sm90<false, true": "gemm_bf16 NT (dX, dz, datt)",
                 "gemm_bf16_sm90<true, false": "gemm_bf16 TN (weight gradients)",
@@ -2614,9 +2621,13 @@ F32_TOL = 1e-4
 #: summation orders and moves linear1's bias gradient by ~0.5 % (measured
 #: on the CPU, tests/test_torch_notebook_model.py's KINK_GRAD).
 F32_GRAD_REL_TOL = 1e-2
-#: The H100 SXM's fp32 rate outside the tensor cores (NVIDIA's data sheet),
-#: the operations' denominator of the fp32 kernels' bounds.
-PEAK_F32_FLOPS = 67e12
+#: The H100 SXM's fp32 rate outside the tensor cores and its dense TF32
+#: rate on them (NVIDIA's data sheet): the operations' denominators of the
+#: fp32 kernels' bounds.  csrc/gemm_f32.cu runs each fp32 product as three
+#: TF32 products (3xTF32), so its products are bounded at 495 / 3 = 165
+#: TFLOP/s; the fp32 SIMT kernels (attention, #14) at 67.
+PEAK_F32_FLOPS, PEAK_TF32_FLOPS = 67e12, 495e12
+F32_SPLIT_PASSES = 3
 
 
 def _graph_turns(kernel, plain, iters: int = 20):
@@ -2626,22 +2637,54 @@ def _graph_turns(kernel, plain, iters: int = 20):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def _bound_f32(flops: float, nbytes: float) -> dict:
-    """:func:`_bound` at the fp32 FFMA rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def _bound_f32(flops: float, nbytes: float, gemm_flops: float = 0.0) -> dict:
+    """:func:`_bound` for the fp32 kernels: ``gemm_flops`` (the fp32
+    products of ``csrc/gemm_f32.cu``) as three TF32 products each at the
+    TF32 rate, the other ``flops`` at the fp32 FFMA rate, their times
+    added; ``bound_ffma_ms`` holds every operation at the FFMA rate."""
+    t_ops = (flops / PEAK_F32_FLOPS + F32_SPLIT_PASSES * gemm_flops / PEAK_TF32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_ffma_ms=max((flops + gemm_flops) / PEAK_F32_FLOPS * 1e3, t_bytes))
 
 
 def _f32_row(name: str, shape: str, t: dict, card: str, library: str = "") -> None:
     print(f"{name}, {shape}, fp32: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; every operation at fp32 FFMA's "
+          f"67 TFLOP/s: {t['bound_ffma_ms']:.4f} ms)"
           + (f", {library} {t['library_ms']:.4f} ms" if library else "") + f", {card}")
+
+
+def _gemm_f32_line(name: str, m: int, n: int, k: int, ms: float, lib_ms: float, nbytes: float,
+                   err: float, err64: float, err64_lib: float, card: str) -> None:
+    """One ``csrc/gemm_f32.cu`` form beside ``torch.matmul`` fp32 (TF32 off):
+    times, TFLOP/s, both bounds (3xTF32 at 165 TFLOP/s, FFMA at 67), the
+    error against the torch function (of the largest |value|) and each
+    product's max abs error against fp64."""
+    flops = 2 * m * n * k
+    b = _bound_f32(0.0, nbytes, gemm_flops=flops)
+    print(f"gemm_f32 {name} [{m} x {n}, K {k}]: kernel {ms:.4f} ms ({_tflops(flops, ms)}), "
+          f"torch.matmul fp32 {lib_ms:.4f} ms ({_tflops(flops, lib_ms)}), bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}, 3xTF32 at 165 TFLOP/s; FFMA at 67: "
+          f"{b['bound_ffma_ms']:.4f} ms), max abs err {err:.3g}; against fp64: kernel "
+          f"{err64:.3g}, torch.matmul fp32 {err64_lib:.3g}, {card}")
+
+
+def _fp64_errs(product, a, b) -> tuple:
+    """Max abs error against the fp64 product ``a @ b`` (fp32 views as the
+    product reads them) of ``product()`` (the kernel's product alone) and
+    of ``torch.matmul`` fp32."""
+    exact = a.double() @ b.double()
+    err = float((product().double() - exact).abs().max())
+    err_lib = float(((a @ b).double() - exact).abs().max())
+    return err, err_lib
 
 
 def _gemm_f32_cases(card: str, x2, w_in, b_in, g2, dqkv, w_out) -> None:
     """csrc/gemm_f32.cu alone in each form of #5's and #6's chains against
-    torch.matmul (fp32), with its TFLOP/s and bound."""
+    torch.matmul (fp32), with its TFLOP/s and both bounds, and the product
+    (the kernel's, and torch.matmul fp32's) against fp64."""
     cases = (("QKV NN + bias", lambda: _build.gemm_f32(x2, w_in, bias=b_in),
               lambda: torch.addmm(b_in, x2, w_in), (x2, w_in, b_in)),
              ("datt NT", lambda: _build.gemm_f32(g2, w_out, trans_b=True),
@@ -2651,17 +2694,18 @@ def _gemm_f32_cases(card: str, x2, w_in, b_in, g2, dqkv, w_out) -> None:
              ("dx NT", lambda: _build.gemm_f32(dqkv, w_in, trans_b=True),
               lambda: dqkv @ w_in.T, (dqkv, w_in)))
     turns = _graph_turns if x2.shape[0] == NB_B * NB_N else _ab_ms
+    views = {"QKV NN + bias": (x2, w_in), "datt NT": (g2, w_out.T), "dW_in TN": (x2.T, dqkv),
+             "dx NT": (dqkv, w_in.T)}
     for name, kern, lib, operands in cases:
         got, want = kern(), lib()
         err = _frac_err(f"gemm_f32 {name}", got, want, F32_TOL)
         ms, lib_ms = turns(kern, lib, iters=10)
-        depth = operands[0].shape[0] if "TN" in name else operands[0].shape[1]
-        flops = 2 * got.numel() * depth
-        b = _bound_f32(flops, 4 * (got.numel() + sum(t.numel() for t in operands)))
-        print(f"gemm_f32 {name} [{got.shape[0]} x {got.shape[1]}, K {depth}]: kernel "
-              f"{ms:.4f} ms ({_tflops(flops, ms)}), torch.matmul fp32 {lib_ms:.4f} ms "
-              f"({_tflops(flops, lib_ms)}), bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
-              f"max abs err {err:.3g}, {card}")
+        a, b = views[name]
+        product = kern if "bias" not in name else lambda: _build.gemm_f32(x2, w_in)
+        err64, err64_lib = _fp64_errs(product, a, b)
+        _gemm_f32_line(name, got.shape[0], got.shape[1], a.shape[1], ms, lib_ms,
+                       4 * (got.numel() + sum(t.numel() for t in operands)), err, err64,
+                       err64_lib, card)
 
 
 def phase_notebook_kernels(card: str) -> dict:
@@ -2710,13 +2754,13 @@ def phase_notebook_kernels(card: str) -> dict:
                                 lambda: torch_mha_bwd_ref(*saved, h, keep=FA_KEEP), iters=10)
             attn_flops = 2 * b * h * n * n * dh
             t5 = dict(max_abs_err=err5, ms=ms5, plain_ms=plain5, library_ms=None,
-                      **_bound_f32(8 * r * d * d + 2 * attn_flops,
+                      **_bound_f32(2 * attn_flops,
                                    4 * (6 * r * d + 4 * d * d + 4 * d) + b * h * n * n
-                                   + 4 * b * h * n))
+                                   + 4 * b * h * n, gemm_flops=8 * r * d * d))
             t6 = dict(max_abs_err=err6, ms=ms6, plain_ms=plain6, library_ms=None,
-                      **_bound_f32(16 * r * d * d + 5 * attn_flops,
+                      **_bound_f32(5 * attn_flops,
                                    4 * (7 * r * d + 8 * d * d + 4 * d) + b * h * n * n
-                                   + 4 * b * h * n))
+                                   + 4 * b * h * n, gemm_flops=16 * r * d * d))
             _f32_row("#5 (gemm_f32 + packed_attn_f32 with the mask and lse + gemm_f32)",
                      shape, t5, card)
             _f32_row("#6 (colsum, gemm_f32 x 4, attention_bwd_f32)", shape, t6, card)
@@ -3072,11 +3116,12 @@ def _vit_f32_blocks(card: str, label: str, bf: int, bb: int, n: int, d: int, hea
             ms2, p2 = _ab_ms(lambda: fused_mlp_block(*mlp), lambda: mlp_block_ref(*mlp), iters=10)
             out["fused_attention_block_f32"] = dict(
                 max_abs_err=err1, ms=ms1, plain_ms=p1, library_ms=None,
-                **_bound_f32(8 * r * d * d + 4 * bf * heads * n * n * (d // heads),
-                             4 * (2 * r * d + 4 * d * d + 2 * d)))
+                **_bound_f32(4 * bf * heads * n * n * (d // heads),
+                             4 * (2 * r * d + 4 * d * d + 2 * d), gemm_flops=8 * r * d * d))
             out["fused_mlp_block_f32"] = dict(
                 max_abs_err=err2, ms=ms2, plain_ms=p2, library_ms=None,
-                **_bound_f32(4 * r * d * f, 4 * (2 * r * d + 2 * d * f + f + 3 * d)))
+                **_bound_f32(0.0, 4 * (2 * r * d + 2 * d * f + f + 3 * d),
+                             gemm_flops=4 * r * d * f))
             _f32_row("#1 (ln_rows, gemm_f32, packed_attn_f32, gemm_f32 + residual)",
                      shape.format(bf), out["fused_attention_block_f32"], card)
             _f32_row("#2 (ln_rows, gemm_f32 + bias + GELU, gemm_f32 + bias + residual)",
@@ -3114,12 +3159,13 @@ def _vit_f32_blocks(card: str, label: str, bf: int, bb: int, n: int, d: int, hea
                              lambda: attention_block_bwd_ref(*a_args), iters=10)
             out["fused_mlp_block_bwd_f32"] = dict(
                 max_abs_err=err3, ms=ms3, plain_ms=p3, library_ms=None,
-                **_bound_f32(8 * r * d * f, 4 * (3 * r * d + r * f + 4 * d * f + f + 4 * d)))
+                **_bound_f32(0.0, 4 * (3 * r * d + r * f + 4 * d * f + f + 4 * d),
+                             gemm_flops=8 * r * d * f))
             out["fused_attention_block_bwd_f32"] = dict(
                 max_abs_err=err4, ms=ms4, plain_ms=p4, library_ms=None,
-                **_bound_f32(16 * r * d * d + 10 * bb * heads * n * n * (d // heads),
+                **_bound_f32(10 * bb * heads * n * n * (d // heads),
                              4 * (3 * r * d + 4 * r * d + 8 * d * d + 3 * d)
-                             + 4 * bb * heads * n))
+                             + 4 * bb * heads * n, gemm_flops=16 * r * d * d))
             _f32_row("#3 (ln_rows, act_f32, gemm_f32 TN, NT + act' + column sums, TN, NT, "
                      "ln_rows_bwd)", shape.format(bb), out["fused_mlp_block_bwd_f32"], card)
             _f32_row("#4 (ln_rows, gemm_f32 NT, attention_bwd_f32, TN, NT, TN, ln_rows_bwd)",
@@ -3181,7 +3227,8 @@ def _vit_gemm_f32_cases(card: str) -> None:
     256, R = 50,176), its epilogue included, against the same function in
     torch fp32 (within F32_TOL of each output's largest |value|; the column
     sums bit for bit on a second call), timed in turns with ``torch.matmul``
-    fp32 of the product alone, with TFLOP/s and the bound."""
+    fp32 of the product alone, with TFLOP/s and both bounds; the product
+    alone (the kernel's, and torch.matmul fp32's) against fp64."""
     gen = torch.Generator().manual_seed(17)
     f32 = dict(dtype=torch.float32)
     rf, rb = B * N, TRAIN_B * N
@@ -3196,33 +3243,35 @@ def _vit_gemm_f32_cases(card: str) -> None:
     gelu_grad = lambda z: (0.5 * (1 + torch.erf(z * 2 ** -0.5))  # noqa: E731
                            + z * torch.exp(-0.5 * z * z) * 0.3989422804014327)
     cases = (
-        ("QKV NN (#1)", lambda: _build.gemm_f32(xf, w_qkv), lambda: (xf @ w_qkv,), xf, w_qkv),
+        ("QKV NN (#1)", lambda: _build.gemm_f32(xf, w_qkv), lambda: (xf @ w_qkv,), xf, w_qkv,
+         None),
         ("out NN + residual (#1)", lambda: _build.gemm_f32(attf, w_out, residual=xf),
-         lambda: (attf @ w_out + xf,), attf, w_out),
+         lambda: (attf @ w_out + xf,), attf, w_out, lambda: _build.gemm_f32(attf, w_out)),
         ("fc1 NN + b1 + GELU, z (#2)",
          lambda: _build.gemm_f32(xf, w1, bias=b1, act="gelu", save_z=True),
-         lambda: (TF.gelu(xf @ w1 + b1), xf @ w1 + b1), xf, w1),
+         lambda: (TF.gelu(xf @ w1 + b1), xf @ w1 + b1), xf, w1, lambda: _build.gemm_f32(xf, w1)),
         ("fc2 NN + b2 + residual (#2)", lambda: _build.gemm_f32(hf, w2, bias=b2, residual=xf),
-         lambda: (hf @ w2 + b2 + xf,), hf, w2),
+         lambda: (hf @ w2 + b2 + xf,), hf, w2, lambda: _build.gemm_f32(hf, w2)),
         ("datt NT (#4)", lambda: _build.gemm_f32(gb, w_out, trans_b=True),
-         lambda: (gb @ w_out.T,), gb, w_out.T),
+         lambda: (gb @ w_out.T,), gb, w_out.T, None),
         ("dW_out TN (#4)", lambda: _build.gemm_f32(attb, gb, trans_a=True),
-         lambda: (attb.T @ gb,), attb.T, gb),
+         lambda: (attb.T @ gb,), attb.T, gb, None),
         ("dxn NT (#4)", lambda: _build.gemm_f32(dqkv, w_qkv, trans_b=True),
-         lambda: (dqkv @ w_qkv.T,), dqkv, w_qkv.T),
+         lambda: (dqkv @ w_qkv.T,), dqkv, w_qkv.T, None),
         ("dW_qkv TN (#4)", lambda: _build.gemm_f32(xb, dqkv, trans_a=True),
-         lambda: (xb.T @ dqkv,), xb.T, dqkv),
+         lambda: (xb.T @ dqkv,), xb.T, dqkv, None),
         ("dW2 TN (#3)", lambda: _build.gemm_f32(zb, gb, trans_a=True),
-         lambda: (zb.T @ gb,), zb.T, gb),
+         lambda: (zb.T @ gb,), zb.T, gb, None),
         ("dz NT + act'(z), db1 column sums (#3)",
          lambda: _build.gemm_f32(gb, w2, trans_b=True, act="gelu", z_in=zb, colsum=True),
          lambda: ((gb @ w2.T) * gelu_grad(zb), ((gb @ w2.T) * gelu_grad(zb)).sum(0)),
-         gb, w2.T),
+         gb, w2.T, lambda: _build.gemm_f32(gb, w2, trans_b=True)),
         ("dW1 TN (#3)", lambda: _build.gemm_f32(xb, dzb, trans_a=True),
-         lambda: (xb.T @ dzb,), xb.T, dzb),
+         lambda: (xb.T @ dzb,), xb.T, dzb, None),
         ("dxn NT (#3)", lambda: _build.gemm_f32(dzb, w1, trans_b=True),
-         lambda: (dzb @ w1.T,), dzb, w1.T))
-    for name, kern, plain, a, b_ in cases:
+         lambda: (dzb @ w1.T,), dzb, w1.T, None))
+    for name, kern, plain, a, b_, product in cases:
+        product = product or kern
         got = kern()
         got = got if isinstance(got, tuple) else (got,)
         want = plain()
@@ -3234,11 +3283,10 @@ def _vit_gemm_f32_cases(card: str) -> None:
             print("  the column sums bit for bit on a second call")
         m, k, n = a.shape[0], a.shape[1], b_.shape[1]
         ms, lib_ms = _ab_ms(kern, lambda: a @ b_, iters=10)
-        flops = 2 * m * n * k
-        bound = _bound_f32(flops, 4 * (m * k + k * n + sum(t.numel() for t in got)))
-        print(f"gemm_f32 {name} [{m} x {n}, K {k}]: kernel {ms:.4f} ms ({_tflops(flops, ms)}), "
-              f"torch.matmul fp32 {lib_ms:.4f} ms ({_tflops(flops, lib_ms)}), bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), max abs err {err:.3g}, {card}")
+        err64, err64_lib = _fp64_errs(product, a, b_)
+        _gemm_f32_line(name, m, n, k, ms, lib_ms,
+                       4 * (m * k + k * n + sum(t.numel() for t in got)), err, err64, err64_lib,
+                       card)
         del got
 
 

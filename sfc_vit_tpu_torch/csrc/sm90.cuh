@@ -144,6 +144,25 @@ inline cudaError_t map_2d_bf16(CUtensorMap* m, const void* base, long long inner
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A row-major fp32 matrix [outer, inner] (inner a multiple of 4, base on
+// 16 bytes) as a 2-d map whose box is 32 inner (one 128-byte row) x
+// box_outer elements, 128-byte swizzled (see sw128_f32).  Loads read past
+// either edge as zero.
+inline cudaError_t map_2d_f32(CUtensorMap* m, const void* base, long long inner,
+                              long long outer, int box_outer) {
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // A row-major uint8 matrix [rows, cols] (cols a multiple of 16, base on
 // 16 bytes: a dropout mask [B, H, N, N] as B H N rows of N keys) as a
 // 2-d map whose box is 64 columns x 64 rows, 64-byte swizzled (see
@@ -686,9 +705,83 @@ __device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
+// TF32 (fp32 operands on the tensor cores, 10 mantissa bits each): both
+// operands K-major, as wgmma takes 32-bit types (no transpose bit).  A
+// k8 step of a 128-byte-swizzled fp32 tile (32 values a row) is 32 bytes
+// along the row, as a bf16 k16 step is.  The A fragment of one k8 step
+// from registers: thread t of the warpgroup holds row 16 (t / 32) +
+// (t % 32) / 4 (a[0] at column t % 4, a[2] at t % 4 + 4) and that row + 8
+// (a[1], a[3]): the accumulator's map in 32-bit columns.
+
+// d (m64n128, fp32) += A . B, A's k8 slice from registers (fp32 bit
+// patterns; tests/test_torch_kernels.py's probe shows what the tensor
+// cores take of the 13 bits below TF32's mantissa), B K-major from shared
+// memory at the descriptor db + OB (16-byte units) formed inside the asm.
+template <int OB>
+__device__ __forceinline__ void wgmma_tf32_rs_n128_at(float (&d)[64], const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n .reg .b64 b;\n .reg .pred p;\n setp.ne.b32 p, %70, 0;\n"
+      " add.s64 b, %68, %69;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, b, p, 1, 1;\n}\n"
+      : SFC_WGMMA_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB), "r"(1));
+}
+
+// d (m64n64, fp32) = A . B (+ d when accumulate), tf32: A from registers
+// (as above) or, in the _ss form, K-major from shared memory.  The probe's
+// forms (csrc/wgmma_probe.cu).
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SFC_WGMMA_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : SFC_WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SFC_WGMMA_REGS32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : SFC_WGMMA_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #undef SFC_WGMMA_D64
 #undef SFC_WGMMA_D32
 #undef SFC_WGMMA_REGS32
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+// as an fp32 bit pattern whose low 13 bits are zero (cvt.rna.tf32.f32: on
+// the H100 inf and NaN have those bits cleared, not rounded;
+// ops/kernel_utils.py::tf32_round is the same rounding in PyTorch).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// The split x = big + small by which an fp32 operand enters the tensor
+// cores three times (see csrc/gemm_f32.cu): big = x rounded to TF32 by
+// two integer operations (half a unit of the 13 dropped bits added to the
+// magnitude, then cleared: tf32_rna's bits for every finite x and inf),
+// small = x - big, exact in fp32, left unrounded: the tensor cores drop
+// its 13 low bits themselves.  A NaN x gives a NaN small.  tf32_rna in
+// place of the integer rounding, for both parts, made gemm_f32 slower on
+// the H100: the conversions sit on its critical path.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);

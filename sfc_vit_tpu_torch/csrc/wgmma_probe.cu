@@ -15,6 +15,18 @@
 //          B as [K][N] through the transpose bit.
 // B arrives by TMA (128-byte swizzle, mbarrier), A is written by the
 // threads with sfc::sm90::sw128_bf16, the layout #9 writes ds^T in.
+//
+// The TF32 forms (csrc/gemm_f32.cu's operands): d fp32 [64][64] = A . B
+// over a depth of 32 (four k8 steps) from fp32 A [M = 64][K = 32] and B
+// stored [N = 64][K = 32] (K-major, as wgmma takes 32-bit types), B by
+// TMA into a 128-byte-swizzled fp32 tile:
+//  form 0: A from registers, the fp32 bits as given (what the tensor
+//          cores take of the 13 bits below TF32's mantissa shows here);
+//  form 1: A K-major from shared memory, as given;
+//  form 2: the 3xTF32 split of both (A split in registers, B's big and
+//          small tiles written by the threads): gemm_f32.cu's arithmetic.
+// sfc_tf32_round applies the device's cvt.rna.tf32.f32 and gemm_f32.cu's
+// split elementwise.
 
 #include "sm90.cuh"
 
@@ -89,7 +101,128 @@ __global__ void __launch_bounds__(128) wgmma_probe(const __grid_constant__ CUten
         d[(r + 8 * hf) * 64 + 8 * j + c0 + e] = acc[4 * j + 2 * hf + e];
 }
 
+struct alignas(1024) ProbeTf32Smem {
+  unsigned char a[64 * 128];      // A [64 m][32 k], 128-byte swizzled
+  unsigned char b[64 * 128];      // B [64 n][32 k] as TMA lands it
+  unsigned char big[64 * 128];    // form 2: B's split, the same layout
+  unsigned char small[64 * 128];
+  uint64_t bar;
+};
+
+__global__ void __launch_bounds__(128) wgmma_probe_tf32(const __grid_constant__ CUtensorMap bmap,
+                                                        const float* __restrict__ a,
+                                                        float* __restrict__ d, int form) {
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  ProbeTf32Smem& sm = hw::aligned_smem<ProbeTf32Smem>(dyn);
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  if (t == 0) {
+    hw::bar_init(&sm.bar, 1);
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+  if (t == 0) {
+    hw::bar_expect_tx(&sm.bar, 64 * 128);
+    hw::tma_load2(sm.b, &bmap, &sm.bar, 0, 0);
+  }
+  for (int i = t; i < 64 * 32; i += 128)
+    *reinterpret_cast<float*>(sm.a + hw::sw128_f32(i / 32, i % 32)) = a[i];
+  hw::bar_wait(&sm.bar, 0);
+  for (int i = t; i < 64 * 32; i += 128) {
+    const int off = hw::sw128_f32(i / 32, i % 32);
+    uint32_t hi, lo;
+    hw::tf32_split(*reinterpret_cast<const float*>(sm.b + off), hi, lo);
+    *reinterpret_cast<uint32_t*>(sm.big + off) = hi;
+    *reinterpret_cast<uint32_t*>(sm.small + off) = lo;
+  }
+  hw::fence_async_shared();
+  __syncthreads();
+
+  const int r = warp * 16 + lane / 4, tq = lane % 4;
+  uint32_t raw[4][4], big[4][4], small[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = a[(r + 8 * (e & 1)) * 32 + 8 * kk + tq + 4 * (e >> 1)];
+      raw[kk][e] = __float_as_uint(x);
+      hw::tf32_split(x, big[kk][e], small[kk][e]);
+    }
+  const uint64_t da = hw::desc_sw128(sm.a), db = hw::desc_sw128(sm.b);
+  const uint64_t dbig = hw::desc_sw128(sm.big), dsmall = hw::desc_sw128(sm.small);
+  float acc[32];
+  hw::fence_regs(acc);
+  hw::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {  // a k8 step is 32 bytes along the rows
+    if (form == 0) hw::wgmma_tf32_rs(acc, raw[kk], db + 2 * kk, kk);
+    if (form == 1) hw::wgmma_tf32_ss(acc, da + 2 * kk, db + 2 * kk, kk);
+    if (form == 2) {
+      hw::wgmma_tf32_rs(acc, big[kk], dsmall + 2 * kk, kk);
+      hw::wgmma_tf32_rs(acc, small[kk], dbig + 2 * kk, 1);
+      hw::wgmma_tf32_rs(acc, big[kk], dbig + 2 * kk, 1);
+    }
+  }
+  hw::wgmma_commit();
+  hw::wgmma_wait<0>();
+  hw::fence_regs(acc);
+  hw::fence_frags(raw);
+  hw::fence_frags(big);
+  hw::fence_frags(small);
+  const int c0 = 2 * tq;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        d[(r + 8 * hf) * 64 + 8 * j + c0 + e] = acc[4 * j + 2 * hf + e];
+}
+
+__global__ void tf32_round_kernel(const float* __restrict__ x, float* __restrict__ y,
+                                  float* __restrict__ big, float* __restrict__ small, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (y != nullptr) y[i] = __uint_as_float(hw::tf32_rna(x[i]));
+  if (big != nullptr) {
+    uint32_t hi, lo;
+    hw::tf32_split(x[i], hi, lo);
+    big[i] = __uint_as_float(hi);
+    small[i] = __uint_as_float(lo);
+  }
+}
+
 }  // namespace
+
+// a fp32 [64][32] (M, K) and b fp32 [64][32] (N, K) contiguous, d fp32
+// [64][64]; form in 0..2 (see above).
+extern "C" int sfc_wgmma_probe_tf32(const void* a, const void* b, void* d, int form,
+                                    void* stream) {
+  if (form < 0 || form > 2) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap bmap;
+  cudaError_t e = hw::map_2d_f32(&bmap, b, 32, 64, 64);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int smem = static_cast<int>(sizeof(ProbeTf32Smem)) + 1024;
+  e = cudaFuncSetAttribute(wgmma_probe_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  wgmma_probe_tf32<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      bmap, static_cast<const float*>(a), static_cast<float*>(d), form);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// For i < n: y[i] = x[i] rounded to TF32 by cvt.rna.tf32.f32 (fp32 bits,
+// the low 13 zero), and (big[i], small[i]) = gemm_f32.cu's split of x[i]
+// (sfc::sm90::tf32_split); each output may be null (big and small
+// together).
+extern "C" int sfc_tf32_round(const void* x, void* y, void* big, void* small, int n,
+                              void* stream) {
+  if (n < 0 || (big == nullptr) != (small == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  tf32_round_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), static_cast<float*>(big),
+      static_cast<float*>(small), n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // a bf16 [64][64] and b bf16 [64][64] contiguous, as the form reads them
 // (see above); d fp32 [64][64].  form in 0..4.

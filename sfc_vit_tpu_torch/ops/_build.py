@@ -18,8 +18,9 @@ nothing runs without the kernels.
 
 The launchers below (``ln_rows``, ``ln_rows_bwd`` (each also in fp32),
 ``gemm``, ``gemm_layernorm``, ``act_bf16``, ``colsum``, ``gemm_f32``
-and ``act_f32`` (the fp32 SIMT GEMM, with ``gemm``'s epilogues, and the
-activation of every chain in float32), ``attention_fwd`` (on
+and ``act_f32`` (the fp32 GEMM, its products on the tensor cores as three
+TF32 products, with ``gemm``'s epilogues, and the activation of every
+chain in float32), ``attention_fwd`` (on
 ``csrc/packed_attn_sm90.cu``, with or without a dropout mask, or in fp32
 on ``csrc/packed_attn_f32.cu``), ``attention_bwd`` (on
 ``csrc/attention_bwd_sm90.cu`` or ``csrc/attention_bwd.cu``, in fp32 on
@@ -29,7 +30,8 @@ on ``csrc/packed_attn_f32.cu``), ``attention_bwd`` (on
 single-step kernel), ``local_bwd`` (on the windowed instances of
 ``flash_dq``'s and ``flash_dkv``'s kernels), ``gather_project`` (bf16 or,
 on ``csrc/gather_project_f32.cu``, fp32),
-``wgmma_probe``, and ``gemm_profile``, a timing instrument) check
+``wgmma_probe``, ``wgmma_probe_tf32``, ``tf32_round`` and ``tf32_split``, and
+``gemm_profile``, a timing instrument) check
 device, dtype, shape, contiguity (or, for the flash kernels, strides) and
 alignment, allocate their outputs and workspaces with
 ``torch.empty`` (``torch.zeros`` for sums the kernels accumulate into),
@@ -69,7 +71,8 @@ __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "FLASH_STREAM_BLOCK_K", "local_fwd", "local_bwd", "local_tile_window",
            "local_fwd_tiles", "local_fwd_key_range",
            "gather_project",
-           "wgmma_probe", "WGMMA_FORMS", "flash_kernel_attrs"]
+           "wgmma_probe", "WGMMA_FORMS", "wgmma_probe_tf32", "WGMMA_TF32_FORMS",
+           "tf32_round", "tf32_split", "flash_kernel_attrs"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sfc_vit_tpu_torch"
@@ -138,6 +141,9 @@ _SIGNATURES = {
     "sfc_gather_project_bf16": (_P,) * 5 + (_I,) * 6 + (_P,),
     # a, b, d; form; stream
     "sfc_wgmma_probe_bf16": (_P, _P, _P, _I, _P),
+    "sfc_wgmma_probe_tf32": (_P, _P, _P, _I, _P),
+    # x, y, big, small; n; stream
+    "sfc_tf32_round": (_P, _P, _P, _P, _I, _P),
     # form, out[3] | out[3] | windowed, out[3]
     "sfc_flash_fwd_attrs": (_I, _P),
     "sfc_flash_fused_bwd_attrs": (_P,),
@@ -680,26 +686,45 @@ def colsum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-#: ``csrc/gemm_f32.cu``'s output tile (kBM = kBN) and K block (kBK).
-GEMM_F32_TILE, GEMM_F32_BLOCK_K = 128, 16
-#: The fewest K blocks a split of :func:`gemm_f32` sums (64 deep).
-GEMM_F32_MIN_SPLIT_BLOCKS = 4
+#: ``csrc/gemm_f32.cu``'s output tile (BM = BN) and K block (BK: one
+#: 128-byte swizzled row of 32 fp32 values, four k8 steps of ``wgmma``).
+GEMM_F32_TILE, GEMM_F32_BLOCK_K = 128, 32
+#: The fewest K blocks a split of :func:`gemm_f32` sums (128 deep), and the
+#: most splits.
+GEMM_F32_MIN_SPLIT_BLOCKS, GEMM_F32_MAX_SPLITS = 4, 64
+#: fp32 partial elements the card writes and reads back in the time one SM
+#: takes for one 128 x 128 x 32 K block of 3xTF32 products (8 bytes at
+#: 3.35 TB/s against 3.1 MFLOP of TF32 at ~2.4 TFLOP/s an SM): the cost of a
+#: split in :func:`gemm_f32_split`.
+_F32_SPLIT_ELEMS_PER_KBLOCK = 500_000
 
 
 def gemm_f32_split(m: int, n: int, k: int, sms: int) -> int:
     """How many K blocks (:data:`GEMM_F32_BLOCK_K` deep) each split of
-    :func:`gemm_f32` sums: where the output has too few 128 x 128 tiles to
-    give every SM two blocks (the weight gradients, summed over every row
-    of the batch; the notebook's 2,048-row products), enough contiguous K
-    ranges to do so, each at least :data:`GEMM_F32_MIN_SPLIT_BLOCKS`
-    blocks deep; else all of K in one.  The kernel runs ``ceil(kblocks /
-    per)`` splits, none empty."""
+    :func:`gemm_f32` sums.  ``csrc/gemm_f32.cu``'s persistent grid (one
+    block an SM) walks (split, 128 x 128 tile) units, so the count of
+    splits s is the one whose units spread best over ``sms`` blocks,
+    charging each split its fp32 partial's round trip: cost(s) = waves(s)
+    x K blocks a split + s x M x N / ``_F32_SPLIT_ELEMS_PER_KBLOCK`` (no
+    charge at s = 1).  That splits the products with too few output tiles
+    to fill the card (the weight gradients, summed over every row of the
+    batch; the notebook's 2,048-row products).  Every split is at least
+    :data:`GEMM_F32_MIN_SPLIT_BLOCKS` blocks deep when there are several,
+    and none is empty: the kernel runs ``ceil(kblocks / per)`` splits."""
     kb = _cdiv(k, GEMM_F32_BLOCK_K)
     if kb == 0:
         return 1
     tiles = _cdiv(m, GEMM_F32_TILE) * _cdiv(n, GEMM_F32_TILE)
-    splits = max(1, min(_cdiv(2 * sms, tiles), kb // GEMM_F32_MIN_SPLIT_BLOCKS))
-    return _cdiv(kb, splits)
+    best, best_cost = kb, None
+    for s in range(1, min(GEMM_F32_MAX_SPLITS, kb // GEMM_F32_MIN_SPLIT_BLOCKS) + 1):
+        per = _cdiv(kb, s)
+        if _cdiv(kb, per) != s:  # s ranges of `per` blocks would leave one empty
+            continue
+        cost = _cdiv(tiles * s, sms) * per + (s * m * n / _F32_SPLIT_ELEMS_PER_KBLOCK
+                                              if s > 1 else 0)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = per, cost
+    return best
 
 
 def gemm_f32(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
@@ -709,7 +734,10 @@ def gemm_f32(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
              z_in: Optional[torch.Tensor] = None, save_z: bool = False,
              colsum: bool = False, out_dtype: torch.dtype = torch.float32):
     """``C = act(op(a) @ op(b) + bias) + residual`` in fp32 on
-    ``csrc/gemm_f32.cu`` (SIMT FFMA, not TF32): the float32 form of
+    ``csrc/gemm_f32.cu`` (the products on the tensor cores: each fp32
+    operand split into two TF32 parts, three TF32 products summed in fp32,
+    within 1.25 x 2^-20 of each product; ``kernel_utils.matmul_3xtf32`` is
+    its plain twin): the float32 form of
     :func:`gemm`, with its operand layouts (``a`` [M, K] or, ``trans_a``,
     stored [K, M]; ``b`` [K, N] or, ``trans_b``, stored [N, K]) and its
     keywords, so that a chain calls either alike: ``bias`` fp32 [N];
@@ -1160,6 +1188,53 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor, form: str) -> torch.Tensor:
     return d
 
 
+#: The TF32 operand forms of :func:`wgmma_probe_tf32`.
+WGMMA_TF32_FORMS = ("rs", "ss", "rs_split")
+
+
+def wgmma_probe_tf32(a: torch.Tensor, b: torch.Tensor, form: str) -> torch.Tensor:
+    """One m64n64 TF32 ``wgmma`` product over a depth of 32 in operand form
+    ``form`` (:data:`WGMMA_TF32_FORMS`, ``csrc/wgmma_probe.cu``): fp32
+    [64, 64] = A @ B^T from fp32 ``a`` [64, 32] (M, K) and ``b`` [64, 32]
+    (N, K), B K-major by TMA into a 128-byte-swizzled tile; A from
+    registers (``rs``) or shared memory (``ss``) with its fp32 bits as
+    given, or both split as ``csrc/gemm_f32.cu`` splits them (``rs_split``,
+    three products).  A test of the TF32 fragment layout and descriptors,
+    and of what the tensor cores take of an unrounded fp32 operand; on no
+    model's path."""
+    if form not in WGMMA_TF32_FORMS:
+        raise ValueError(f"wgmma_probe_tf32: form {form!r} not in {WGMMA_TF32_FORMS}")
+    _require(a, "a", (64, 32), torch.float32)
+    _require(b, "b", (64, 32), torch.float32)
+    d = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    _check(library().sfc_wgmma_probe_tf32(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                                          WGMMA_TF32_FORMS.index(form), _stream()),
+           "wgmma_probe_tf32")
+    return d
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 on the card by ``cvt.rna.tf32.f32``
+    (``kernel_utils.tf32_round`` is its plain twin).  A test instrument;
+    on no model's path."""
+    _require(x, "x", dtype=torch.float32)
+    y = torch.empty_like(x)
+    _check(library().sfc_tf32_round(x.data_ptr(), y.data_ptr(), None, None, x.numel(),
+                                    _stream()), "tf32_round")
+    return y
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """``(big, small)``: fp32 ``x`` split on the card as ``csrc/gemm_f32.cu``
+    splits its operands (``sm90.cuh::tf32_split``; ``kernel_utils.tf32_split``
+    is its plain twin).  A test instrument; on no model's path."""
+    _require(x, "x", dtype=torch.float32)
+    big, small = torch.empty_like(x), torch.empty_like(x)
+    _check(library().sfc_tf32_round(x.data_ptr(), None, big.data_ptr(), small.data_ptr(),
+                                    x.numel(), _stream()), "tf32_split")
+    return big, small
+
+
 #: ``csrc/packed_attn_sm90.cu``'s instances: (head dim, key columns the
 #: one-pass form holds, 0 for two passes) by name.  The kernel takes the
 #: narrowest one-pass form whose columns cover n_valid (200 for ViT-B's 196).
@@ -1188,13 +1263,15 @@ LN_ROWS_BWD_FORMS = ("ln_rows_bwd dxn fp32", "ln_rows_bwd dxn bf16", "ln_rows_bw
                      "ln_rows_bwd fp32")
 
 
-#: The fp32 SIMT kernels (float32 compute of #1-#7 and #14) by name: the
-#: GEMM's three layouts with the bias alone and with the epilogue, and its
-#: column sums' stripe sum; the attention forward and backward with #5's
-#: and #6's mask and without it (#1, #4, #7).
+#: The fp32 kernels (float32 compute of #1-#7 and #14) by name: the GEMM's
+#: (``csrc/gemm_f32.cu``, 3xTF32 on ``wgmma``) three layouts by activation
+#: kind (none, act, act') and its column sums' stripe sum;
+#: the attention forward and backward with #5's and #6's mask and without
+#: it (#1, #4, #7); #14.
 F32_KERNEL_FORMS = (
-    "gemm_f32 NN", "gemm_f32 NT", "gemm_f32 TN", "gemm_f32 NN epilogue",
-    "gemm_f32 NT epilogue", "gemm_f32 TN epilogue", "gemm_f32 column sums",
+    *(f"gemm_f32 {layout}{kind}" for layout in ("NN", "NT", "TN")
+      for kind in ("", " act", " act'")),
+    "gemm_f32 column sums",
     "packed_attention_f32 dh64", "packed_attention_f32 dh64 masked",
     "packed_attention_f32 dh192", "packed_attention_f32 dh192 masked",
     *(f"attention_bwd_f32 {part} dh{dh}{' masked' if mk else ''}"
@@ -1204,7 +1281,7 @@ F32_KERNEL_FORMS = (
 
 def _f32_attr_calls(lib) -> dict:
     """:data:`F32_KERNEL_FORMS` -> a call filling an int[3] of attributes."""
-    calls = [lambda a, i=i: lib.sfc_gemm_f32_attrs(i, a) for i in range(7)]
+    calls = [lambda a, i=i: lib.sfc_gemm_f32_attrs(i, a) for i in range(10)]
     calls += [lambda a, dh=dh, mk=mk: lib.sfc_packed_attention_f32_attrs(dh, mk, a)
               for dh in (64, 192) for mk in (0, 1)]
     calls += [lambda a, dh=dh, mk=mk, p=p: lib.sfc_attention_bwd_f32_attrs(dh, mk, p, a)
@@ -1221,7 +1298,7 @@ def flash_kernel_attrs() -> dict:
     of its single step, #9-#11, #13's windowed instances of #10's and
     #11's kernels, #14's two instances (x gathered from shared or global
     memory), the GEMM's :data:`GEMM_FORMS`, the
-    attention backward's instances (#4, #6) and the fp32 SIMT kernels
+    attention backward's instances (#4, #6) and the fp32 kernels
     (:data:`F32_KERNEL_FORMS`; ``cudaFuncGetAttributes``):
     ``{name: {"registers", "local_bytes", "smem_bytes"}}``, local bytes
     being spills and stack a thread, shared bytes a block."""

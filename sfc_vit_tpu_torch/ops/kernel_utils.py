@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["NEG_INF", "ln_fp32", "ln_bwd_fp32", "round_up", "n_valid",
-           "split_heads", "fp32_compute_not_ported", "kernel_is_f32"]
+           "split_heads", "fp32_compute_not_ported", "kernel_is_f32", "tf32_round",
+           "tf32_trunc", "tf32_split", "matmul_3xtf32"]
 
 #: Masked-logit value: -1e30, never -inf, so a masked softmax gives 0
 #: weights and no NaN.
@@ -44,8 +45,9 @@ def fp32_compute_not_ported(what: str, dtype: torch.dtype) -> NotImplementedErro
 
 def kernel_is_f32(what: str, dtype: torch.dtype) -> bool:
     """Which kernels a CUDA tensor of ``dtype`` launches for #1-#7 and
-    #14: True for float32 (the fp32 SIMT kernels), False for bfloat16 (the
-    Hopper ``wgmma`` kernels).  Any other dtype raises; nothing falls back
+    #14: True for float32 (the fp32 kernels: ``csrc/gemm_f32.cu``'s 3xTF32
+    products on the tensor cores, SIMT attention and tokenizer), False for
+    bfloat16 (the Hopper ``wgmma`` kernels).  Any other dtype raises; nothing falls back
     to a plain version."""
     if dtype == torch.float32:
         return True
@@ -93,3 +95,47 @@ def ln_bwd_fp32(x: torch.Tensor, dxn: torch.Tensor, scale: torch.Tensor,
     dx = inv * (dxh - m1 - xhat * m2)
     lead = tuple(range(x.dim() - 1))
     return dx, (dxn * xhat).sum(dim=lead), dxn.sum(dim=lead)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits) as ``cvt.rna.tf32.f32``
+    rounds it: to nearest, ties away from zero, on the bit pattern (add half
+    of the 13 dropped bits' unit to the magnitude, clear them), so a carry
+    moves up a binade and past the largest finite value to inf; subnormals
+    keep their 13-bit grid.  Inf and NaN have the 13 bits cleared, not
+    rounded (a NaN whose payload lies only there becomes inf), as the H100
+    does.  fp32 out, the low 13 bits zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    special = (bits & 0x7F800000) == 0x7F800000
+    return ((torch.where(special, bits, bits + 0x1000)) & -0x2000).view(torch.float32)
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores take of an fp32 operand: its top 19 bits, the
+    13 below TF32's mantissa cleared (the H100; ``tests/test_torch_kernels.py``
+    shows it with ``_build.wgmma_probe_tf32``)."""
+    return (x.float().contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """``x = big + small`` as ``csrc/gemm_f32.cu`` splits each fp32 operand:
+    big = tf32(x) (:func:`tf32_round`'s bits for every finite x), small =
+    x - big, exact in fp32 and left unrounded (the tensor cores drop its 13
+    low bits: :func:`tf32_trunc`)."""
+    x = x.float()
+    big = tf32_round(x)
+    return big, x - big
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain twin of ``csrc/gemm_f32.cu``'s product: ``a @ b`` (fp32
+    [M, K] and [K, N]) from the split of each operand as the tensor cores
+    see it, a_big b_small + a_small b_big + a_big b_big with each small
+    part truncated to TF32, each term and their sum in fp64, so that what
+    differs from the exact product is the split's error alone (within
+    1.25 x 2^-20 of |a| @ |b|: ``tests/test_torch_tf32_split.py``).  fp64
+    out; the kernel sums the same terms in fp32."""
+    ab, as_ = tf32_split(a)
+    bb, bs = tf32_split(b)
+    ab, as_, bb, bs = ab.double(), tf32_trunc(as_).double(), bb.double(), tf32_trunc(bs).double()
+    return ab @ bs + as_ @ bb + ab @ bb

@@ -227,11 +227,13 @@ def test_gemm_split_plan_covers_k_exactly(m, n, k, sms):
 
 
 @pytest.mark.parametrize("m, n, k, sms, splits", [
-    (32768, 2304, 768, 132, 1), (2048, 768, 256, 132, 3), (2048, 256, 768, 132, 8),
-    (768, 2304, 32768, 132, 3), (256, 768, 2048, 132, 22), (7, 9, 13, 132, 1)])
+    (32768, 2304, 768, 132, 1), (2048, 768, 256, 132, 1), (2048, 256, 768, 132, 4),
+    (768, 2304, 32768, 132, 6), (256, 768, 2048, 132, 11), (7, 9, 13, 132, 1)])
 def test_gemm_f32_split_plan(m, n, k, sms, splits):
-    """gemm_f32 splits K where the output has too few tiles for two blocks
-    an SM, each range at least 64 deep, none empty."""
+    """gemm_f32 splits K where the output has too few tiles to fill the
+    persistent grid's waves (its cost model: waves x depth a split + each
+    split's partial round trip), each range at least 128 deep, none
+    empty."""
     per = _build.gemm_f32_split(m, n, k, sms)
     kb = -(-k // _build.GEMM_F32_BLOCK_K)
     assert -(-kb // per) == splits and (splits - 1) * per < kb
@@ -1613,6 +1615,146 @@ def test_wgmma_probe_matches_matmul(cuda, form):
     b_stored = b if form.endswith(("trans_b", "trans_ab")) else b.t().contiguous()
     got = _build.wgmma_probe(a_stored, b_stored, form)
     torch.testing.assert_close(got, a.float() @ b.float(), rtol=1e-5, atol=1e-3)
+
+
+def test_wgmma_probe_tf32_rejects_what_it_does_not_take():
+    a = torch.zeros(64, 32)
+    with pytest.raises(ValueError, match="form"):
+        _build.wgmma_probe_tf32(a, a, "rr")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _build.wgmma_probe_tf32(a, a, "rs")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _build.tf32_round(a)
+
+
+#: fp32 values at the edges of TF32's rounding (ties, a carry into the next
+#: binade and past the largest finite value, subnormals, zeros, inf, NaN).
+_TF32_EDGES = [1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11, 1 + 2 ** -11 - 2 ** -23,
+               2 - 2 ** -23, 3.4028234663852886e38, 2 ** -149, 0x1000 * 2 ** -149,
+               0x7FFFFF * 2 ** -149, 2 ** -126, 0.0, -0.0, float("inf"), float("-inf"),
+               float("nan")]
+
+
+@pytest.mark.gpu
+def test_tf32_round_matches_plain_bit_for_bit(cuda):
+    """The device's cvt.rna.tf32.f32 against kernel_utils.tf32_round, its
+    plain twin, bit for bit on the edge values and on 2^20 random bit
+    patterns (every binade, NaNs and their payloads included); and
+    csrc/gemm_f32.cu's split (sm90.cuh::tf32_split: big by two integer
+    operations, small = x - big) against kernel_utils.tf32_split bit for
+    bit on every finite one of them, NaN in, NaN small out."""
+    from sfc_vit_tpu_torch.ops.kernel_utils import tf32_round, tf32_split
+    rng = np.random.default_rng(41)
+    bits = rng.integers(0, 2 ** 32, size=2 ** 20, dtype=np.uint64).astype(np.uint32)
+    x = torch.cat([torch.tensor(_TF32_EDGES, dtype=torch.float32),
+                   torch.from_numpy(bits.view(np.float32))])
+    got = _build.tf32_round(x.to(cuda)).cpu()
+    assert torch.equal(got.view(torch.int32), tf32_round(x).view(torch.int32))
+    big, small = (t.cpu() for t in _build.tf32_split(x.to(cuda)))
+    fin = torch.isfinite(x)
+    for g, w in zip((big, small), tf32_split(x[fin])):
+        assert torch.equal(g[fin].view(torch.int32), w.view(torch.int32))
+    assert bool(torch.isnan(small[torch.isnan(x)]).all())
+
+
+def _probe_operands(rng, cuda, exact: bool):
+    """a [64, 32] and b [64, 32] fp32 (b as stored, [N, K]); exact: rounded
+    to TF32 first, so any product of them is exact in fp32."""
+    from sfc_vit_tpu_torch.ops.kernel_utils import tf32_round
+    a, b = (torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32)) for _ in "ab")
+    if exact:
+        a, b = tf32_round(a), tf32_round(b)
+    return a.to(cuda), b.to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", _build.WGMMA_TF32_FORMS)
+def test_wgmma_probe_tf32_matches_matmul(cuda, form):
+    """One m64n64 TF32 wgmma over a depth of 32 in each operand form (A
+    from registers or K-major shared memory, B K-major by TMA; the 3xTF32
+    split of both) against fp64, on operands already TF32: every product
+    is exact, only the fp32 sum of 32 (the split: 96) terms errs."""
+    a, b = _probe_operands(np.random.default_rng(42), cuda, exact=True)
+    got = _build.wgmma_probe_tf32(a, b, form)
+    want = a.double() @ b.double().T
+    bound = 96 * 2 ** -24 * (a.double().abs() @ b.double().abs().T)
+    assert bool(((got.double() - want).abs() <= bound).all())
+
+
+@pytest.mark.gpu
+def test_wgmma_probe_tf32_takes_the_top_19_bits(cuda):
+    """What the tensor cores take of an unrounded fp32 operand: its top 19
+    bits (sign, exponent, 10 mantissa bits), the 13 below dropped, not
+    rounded: kernel_utils.tf32_trunc.  So csrc/gemm_f32.cu rounds each
+    operand's big part to nearest itself and leaves the small part, whose
+    truncation costs 2^-21 of |x|, to them.  Relative to |a| @ |b|: the
+    truncated operands' products, exact in fp32, summed in fp32 (at most
+    32 x 2^-24 = 2^-19); rounding to nearest instead moves a sum by ~2^-14;
+    the 3xTF32 split of the same operands lands within 2^-17 of the fp64
+    product (its 1.25 x 2^-20 and the fp32 sum of 96 terms)."""
+    from sfc_vit_tpu_torch.ops.kernel_utils import tf32_round, tf32_trunc as trunc
+    a, b = _probe_operands(np.random.default_rng(43), cuda, exact=False)
+    exact = a.double() @ b.double().T
+    mag = a.double().abs() @ b.double().abs().T
+    for form in ("rs", "ss"):
+        got = _build.wgmma_probe_tf32(a, b, form).double()
+        err_trunc = float(((got - trunc(a).double() @ trunc(b).double().T).abs() / mag).max())
+        err_rna = float(((got - tf32_round(a).double() @ tf32_round(b).double().T).abs()
+                         / mag).max())
+        assert err_trunc <= 2 ** -17 < err_rna, (form, err_trunc, err_rna)
+    split = _build.wgmma_probe_tf32(a, b, "rs_split").double()
+    assert bool(((split - exact).abs() <= 2 ** -17 * mag).all())
+
+
+#: (form, rows, k, n) at ViT-B/16's widths: #2's fc1 (NN, K 768 -> 3,072),
+#: #3's dz (NT, K 768 <- 3,072) and dW1 (TN, summed over 8,192 rows).
+_GEMM_F32_VIT_FORMS = [("NN", 2048, 768, 3072), ("NT", 2048, 768, 3072), ("TN", 8192, 768, 3072)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form, rows, k, n", _GEMM_F32_VIT_FORMS)
+def test_gemm_f32_vit_widths_against_fp64(cuda, form, rows, k, n):
+    """gemm_f32 (3xTF32 on the tensor cores) and torch.matmul in fp32
+    (cuBLAS, no TF32) each against the fp64 product at ViT-B/16's widths:
+    both within 2^-16 of the largest entry of |op(a)| @ |op(b)| (fp32's
+    own rounding of a K-term sum stays far inside it); the errors are
+    printed side by side."""
+    a, b, prod, layout = _gemm_f32_operands(np.random.default_rng(44), form, rows, k, n)
+    oa = a.double().T if form == "TN" else a.double()
+    ob = b.double().T if form == "NT" else b.double()
+    exact, mag = oa @ ob, float((oa.abs() @ ob.abs()).max())
+    got = _build.gemm_f32(a, b, **layout)
+    err, err_cublas = (float((t.double() - exact).abs().max()) for t in (got, prod))
+    print(f"gemm_f32 {form} [{exact.shape[0]} x {n}, K {oa.shape[1]}]: max abs err against "
+          f"fp64 {err:.3g} (3xTF32), {err_cublas:.3g} (torch.matmul fp32); "
+          f"bound {2 ** -16 * mag:.3g}")
+    assert err <= 2 ** -16 * mag and err_cublas <= 2 ** -16 * mag
+
+
+@pytest.mark.gpu
+def test_gemm_f32_runs_on_the_tensor_core_kernel(cuda):
+    """Every layout of gemm_f32, split over K or not, with and without the
+    epilogue, launches csrc/gemm_f32.cu's gemm_f32_sm90 instances (the
+    profiler's kernel names) and never the SIMT kernel it replaced."""
+    rng = np.random.default_rng(45)
+    calls = []
+    for form, rows, k, n, kind in (("NN", 333, 200, 136, "all"), ("NT", 392, 384, 1536, "dz"),
+                                   ("TN", 4096, 384, 384, "dz"), ("NT", 7, 13, 9, "all")):
+        a, b, prod, layout = _gemm_f32_operands(rng, form, rows, k, n)
+        kw = _epilogue_kw(rng, kind, prod.shape[0], n)
+        calls += [lambda a=a, b=b, layout=layout, kw=kw: _build.gemm_f32(a, b, **layout, **kw),
+                  lambda a=a, b=b, layout=layout: _build.gemm_f32(a, b, **layout)]
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert sum("gemm_f32_sm90" in nm for nm in names) >= 3, names
+    assert not any("gemm_f32_kernel" in nm for nm in names), names
 
 
 @pytest.mark.gpu
