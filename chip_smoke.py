@@ -173,17 +173,18 @@ Phases, each of which raises (non-zero exit) on failure:
    each the launch counts (layers x steps or forwards), every parameter
    moved, one step's gradients and the served logits against the plain
    versions, train and forward img/s, a profile of the train step.
-14. notebook: the fp32 kernels of #5, #6, #7 and #14 (``csrc/gemm_f32.cu``:
-   each fp32 product as three TF32 products on ``wgmma``;
-   ``packed_attn_f32.cu``, ``attention_bwd_f32.cu``,
-   ``gather_project_f32.cu``: SIMT FFMA) against their plain
+14. notebook: the fp32 kernels of #5, #6, #7 and #14 (``csrc/gemm_f32.cu``,
+   ``packed_attn_f32.cu``, ``attention_bwd_f32.cu``: each fp32 product as
+   three TF32 products on ``wgmma``; ``gather_project_f32.cu``: SIMT FFMA)
+   against their plain
    versions within 1e-4 of each tensor's largest |value| at the notebook's
    shapes (x [32, 64, 256], 4 heads of 64, mask at keep 0.9; its fused 2-D
    and 1-D tokenizers) and the flagship's fp32 ones ([512, 64, 768], 4 heads
    of 192; its three tokenizer levels), each timed beside its bound (the
-   GEMMs' products at 3xTF32's 165 TFLOP/s, the rest at fp32's 67, 3.35
-   TB/s; and every operation at 67) and a library call (torch.matmul fp32,
-   each GEMM's product also against fp64; SDPA without dropout,
+   GEMMs' and the attention's products at 3xTF32's 165 TFLOP/s, the rest
+   at fp32's 67, 3.35 TB/s; and every operation at 67) and a library call
+   (torch.matmul fp32, each GEMM's product also against fp64; SDPA fp32
+   without dropout, the attention's output also against fp64;
    ``index_select`` + ``F.linear``); then
    ``build_model(preset_config("notebook"))`` trained 4 steps in fp32 at
    batch 32 (curves hilbert, raster, random), evaluated and served
@@ -203,7 +204,10 @@ Phases, each of which raises (non-zero exit) on failure:
    rows), checked; #3 and #4 (their column sums, the attention backward)
    bit for bit on a second call; #1's attention alone at [64, 196, 12 x 64]
    and, with lse, [256, 196, 12 x 64], and #4's attention backward alone
-   at [256, 196, 12 x 64], beside SDPA fp32; each GEMM form of the chains
+   at [256, 196, 12 x 64], beside SDPA fp32 (each forward's output also
+   against fp64); the attention's one-pass form against its two passes at
+   64 to 256 keys (ViT-B's served shape) and at the flagship's head dim
+   192 (``_attention_f32_split``); each GEMM form of the chains
    at ViT-B/16's shapes against torch fp32, timed beside ``torch.matmul``
    fp32 (TF32 off) with each one's TFLOP/s, and each product (the kernel's
    and torch.matmul fp32's) against fp64; (b)
@@ -2650,10 +2654,35 @@ def _bound_f32(flops: float, nbytes: float, gemm_flops: float = 0.0) -> dict:
 
 
 def _f32_row(name: str, shape: str, t: dict, card: str, library: str = "") -> None:
+    """One fp32 row: the kernel, its plain version, both bounds, the library
+    call (TF32 off) and, where the row has it, the forward output's max abs
+    error against fp64 (``err64``)."""
     print(f"{name}, {shape}, fp32: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
           f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; every operation at fp32 FFMA's "
           f"67 TFLOP/s: {t['bound_ffma_ms']:.4f} ms)"
-          + (f", {library} {t['library_ms']:.4f} ms" if library else "") + f", {card}")
+          + (f", {library} {t['library_ms']:.4f} ms" if library else "")
+          + (f", max abs err against fp64 {t['err64']:.3g}" if "err64" in t else "")
+          + f", {card}")
+
+
+def _attention_fp64_err(got, qkv, heads: int, n_valid: int, scale: float, mask=None,
+                        keep: float = 1.0) -> float:
+    """Max abs error of an attention output ``got`` [B, N, H*Dh] against
+    the same attention in fp64 (keys at or past ``n_valid`` excluded, P
+    normalised, then (P / keep) * mask), a few images at a time."""
+    b, n, w = qkv.shape
+    dh = w // (3 * heads)
+    err, step = 0.0, max(1, 2 ** 27 // (heads * n * n))
+    for i in range(0, b, step):
+        q, k, v = qkv[i:i + step].double().view(-1, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+        logits = (q @ k.transpose(-1, -2)) * scale
+        logits[..., n_valid:] = float("-inf")
+        p = torch.softmax(logits, dim=-1)
+        if mask is not None:
+            p = (p / keep) * mask[i:i + step].double()
+        want = (p @ v).transpose(1, 2).reshape(-1, n, heads * dh)
+        err = max(err, float((got[i:i + step].double() - want).abs().max()))
+    return err
 
 
 def _gemm_f32_line(name: str, m: int, n: int, k: int, ms: float, lib_ms: float, nbytes: float,
@@ -2754,13 +2783,11 @@ def phase_notebook_kernels(card: str) -> dict:
                                 lambda: torch_mha_bwd_ref(*saved, h, keep=FA_KEEP), iters=10)
             attn_flops = 2 * b * h * n * n * dh
             t5 = dict(max_abs_err=err5, ms=ms5, plain_ms=plain5, library_ms=None,
-                      **_bound_f32(2 * attn_flops,
-                                   4 * (6 * r * d + 4 * d * d + 4 * d) + b * h * n * n
-                                   + 4 * b * h * n, gemm_flops=8 * r * d * d))
+                      **_bound_f32(0.0, 4 * (6 * r * d + 4 * d * d + 4 * d) + b * h * n * n
+                                   + 4 * b * h * n, gemm_flops=8 * r * d * d + 2 * attn_flops))
             t6 = dict(max_abs_err=err6, ms=ms6, plain_ms=plain6, library_ms=None,
-                      **_bound_f32(5 * attn_flops,
-                                   4 * (7 * r * d + 8 * d * d + 4 * d) + b * h * n * n
-                                   + 4 * b * h * n, gemm_flops=16 * r * d * d))
+                      **_bound_f32(0.0, 4 * (7 * r * d + 8 * d * d + 4 * d) + b * h * n * n
+                                   + 4 * b * h * n, gemm_flops=16 * r * d * d + 5 * attn_flops))
             _f32_row("#5 (gemm_f32 + packed_attn_f32 with the mask and lse + gemm_f32)",
                      shape, t5, card)
             _f32_row("#6 (colsum, gemm_f32 x 4, attention_bwd_f32)", shape, t6, card)
@@ -2782,8 +2809,9 @@ def phase_notebook_kernels(card: str) -> dict:
             p1, k1, k2, p2 = (_graph_ms(f) for f in (plain, kern, kern, plain))
             t = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                      library_ms=_graph_ms(lambda: TF.scaled_dot_product_attention(q, k, v)),
-                     **_bound_f32(4 * b * h * n * n * dh,
-                                  4 * (4 * r * d + b * h * n) + b * h * n * n))
+                     err64=_attention_fp64_err(a_k, qkv, h, n, s, mask, FA_KEEP),
+                     **_bound_f32(0.0, 4 * (4 * r * d + b * h * n) + b * h * n * n,
+                                  gemm_flops=4 * b * h * n * n * dh))
             _f32_row("packed_attn_f32 (#5's attention alone, by graph replay)",
                      f"qkv [{b}, {n}, {3 * d}]", t, card, "SDPA fp32 forward without dropout")
             d_k = _build.attention_bwd(qkv, a_k, datt, l_k, h, n, s, mask=mask, keep=FA_KEEP)
@@ -2802,8 +2830,8 @@ def phase_notebook_kernels(card: str) -> dict:
                 _, sdpa_bwd = _sdpa_ms(q.transpose(1, 2), k.transpose(1, 2),
                                        v.transpose(1, 2), datt.view(b, n, h, dh))
             t = dict(ms=bms, plain_ms=bplain, library_ms=sdpa_bwd,
-                     **_bound_f32(10 * b * h * n * n * dh,
-                                  4 * (8 * r * d + 2 * b * h * n) + b * h * n * n))
+                     **_bound_f32(0.0, 4 * (8 * r * d + 2 * b * h * n) + b * h * n * n,
+                                  gemm_flops=10 * b * h * n * n * dh))
             _f32_row("attention_bwd_f32 (#6's attention backward alone, bit for bit twice)",
                      f"qkv [{b}, {n}, {3 * d}]", t, card, "SDPA fp32 backward without dropout")
 
@@ -2832,7 +2860,9 @@ def _packed_case_f32(card: str, qkv, heads: int) -> dict:
     p1, k1, k2, p2 = (_graph_ms(f) for f in (plain, kern, kern, plain))
     t = dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
              library_ms=_graph_ms(lambda: TF.scaled_dot_product_attention(q, k, v)),
-             **_bound_f32(4 * b * heads * n * n * dh, 4 * (b * n * w + b * n * inner)))
+             err64=_attention_fp64_err(packed_flash_attention(qkv, heads), qkv, heads, n, s),
+             **_bound_f32(0.0, 4 * (b * n * w + b * n * inner),
+                          gemm_flops=4 * b * heads * n * n * dh))
     _f32_row("packed_flash_attention (#7, by graph replay)", f"qkv [{b}, {n}, {w}]", t, card,
              "SDPA fp32 forward")
     return t
@@ -3116,8 +3146,8 @@ def _vit_f32_blocks(card: str, label: str, bf: int, bb: int, n: int, d: int, hea
             ms2, p2 = _ab_ms(lambda: fused_mlp_block(*mlp), lambda: mlp_block_ref(*mlp), iters=10)
             out["fused_attention_block_f32"] = dict(
                 max_abs_err=err1, ms=ms1, plain_ms=p1, library_ms=None,
-                **_bound_f32(4 * bf * heads * n * n * (d // heads),
-                             4 * (2 * r * d + 4 * d * d + 2 * d), gemm_flops=8 * r * d * d))
+                **_bound_f32(0.0, 4 * (2 * r * d + 4 * d * d + 2 * d),
+                             gemm_flops=8 * r * d * d + 4 * bf * heads * n * n * (d // heads)))
             out["fused_mlp_block_f32"] = dict(
                 max_abs_err=err2, ms=ms2, plain_ms=p2, library_ms=None,
                 **_bound_f32(0.0, 4 * (2 * r * d + 2 * d * f + f + 3 * d),
@@ -3163,9 +3193,9 @@ def _vit_f32_blocks(card: str, label: str, bf: int, bb: int, n: int, d: int, hea
                              gemm_flops=8 * r * d * f))
             out["fused_attention_block_bwd_f32"] = dict(
                 max_abs_err=err4, ms=ms4, plain_ms=p4, library_ms=None,
-                **_bound_f32(10 * bb * heads * n * n * (d // heads),
-                             4 * (3 * r * d + 4 * r * d + 8 * d * d + 3 * d)
-                             + 4 * bb * heads * n, gemm_flops=16 * r * d * d))
+                **_bound_f32(0.0, 4 * (3 * r * d + 4 * r * d + 8 * d * d + 3 * d)
+                             + 4 * bb * heads * n,
+                             gemm_flops=16 * r * d * d + 10 * bb * heads * n * n * (d // heads)))
             _f32_row("#3 (ln_rows, act_f32, gemm_f32 TN, NT + act' + column sums, TN, NT, "
                      "ln_rows_bwd)", shape.format(bb), out["fused_mlp_block_bwd_f32"], card)
             _f32_row("#4 (ln_rows, gemm_f32 NT, attention_bwd_f32, TN, NT, TN, ln_rows_bwd)",
@@ -3198,8 +3228,9 @@ def _vit_attention_f32(card: str, qkv, att, lse, g, heads: int) -> None:
                            lambda: attention_fwd_ref(q_, heads, n, s), iters=10)
         t = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                  library_ms=_ms(lambda: TF.scaled_dot_product_attention(qh, kh, vh), iters=10),
-                 **_bound_f32(4 * b * heads * n * n * dh,
-                              4 * (4 * b * n * inner + (b * heads * n if with_lse else 0))))
+                 err64=_attention_fp64_err(got[0] if with_lse else got, q_, heads, n, s),
+                 **_bound_f32(0.0, 4 * (4 * b * n * inner + (b * heads * n if with_lse else 0)),
+                              gemm_flops=4 * b * heads * n * n * dh))
         _f32_row("packed_attn_f32 (#1's attention alone)",
                  f"[{b}, {n}, {heads} x {dh}]{' with lse' if with_lse else ''}", t, card,
                  "SDPA fp32 forward")
@@ -3216,7 +3247,8 @@ def _vit_attention_f32(card: str, qkv, att, lse, g, heads: int) -> None:
     with torch.enable_grad():
         _, sdpa_bwd = _sdpa_ms(q, k, v, datt.view(bb, n, heads, dh))
     t = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=sdpa_bwd,
-             **_bound_f32(10 * bb * heads * n * n * dh, 4 * (8 * bb * n * inner + bb * heads * n)))
+             **_bound_f32(0.0, 4 * (8 * bb * n * inner + bb * heads * n),
+                          gemm_flops=10 * bb * heads * n * n * dh))
     _f32_row("attention_bwd_f32 (#4's attention backward alone, bit for bit twice)",
              f"[{bb}, {n}, {heads} x {dh}]", t, card, "SDPA fp32 backward")
 
@@ -3290,12 +3322,42 @@ def _vit_gemm_f32_cases(card: str) -> None:
         del got
 
 
+#: (batch, heads, head dim, tokens) where :func:`_attention_f32_split` times
+#: ``csrc/packed_attn_f32.cu``'s one-pass form against two passes: ViT-B's
+#: served shape at 64 to 256 keys, the flagship's head dim 192 at 64.
+F32_SPLIT_SHAPES = tuple((B, HEADS, 64, n) for n in (64, 128, 192, N, 256)) + (
+    (FA_B, FA_HEADS, 192, FA_N),)
+
+
+def _attention_f32_split(card: str) -> None:
+    """Where ``csrc/packed_attn_f32.cu``'s one pass should give way to two:
+    at each of :data:`F32_SPLIT_SHAPES` the one-pass form that
+    ``_build.attention_fwd_f32_columns`` picks and the two-pass form of the
+    same call (``_build.attention_fwd_f32_form``), each against
+    ``attention_fwd_ref`` (F32_TOL), timed in turns."""
+    gen = torch.Generator().manual_seed(18)
+    for b, heads, dh, n in F32_SPLIT_SHAPES:
+        qkv = _randn(gen, b, n, 3 * heads * dh, dtype=torch.float32)
+        s = dh ** -0.5
+        nk = _build.attention_fwd_f32_columns(dh, n)
+        one = lambda: _build.attention_fwd_f32_form(qkv, heads, n, s, nk)  # noqa: E731
+        two = lambda: _build.attention_fwd_f32_form(qkv, heads, n, s, 0)  # noqa: E731
+        want = attention_fwd_ref(qkv, heads, n, s)[0]
+        print(f"packed_attn_f32 forms, qkv [{b}, {n}, {3 * heads * dh}]:")
+        _frac_err(f"one pass over {nk} key columns", one(), want, F32_TOL)
+        _frac_err("two passes", two(), want, F32_TOL)
+        ms_one, ms_two = _ab_ms(one, two, iters=10)
+        print(f"packed_attn_f32 one pass over {nk} key columns {ms_one:.4f} ms, two passes "
+              f"{ms_two:.4f} ms ({ms_two / ms_one:.2f}x), {heads} heads of {dh}, {card}")
+
+
 def phase_vit_f32_kernels(card: str) -> dict:
     """#1-#4 in fp32 (the ViT-B/16 and ViT-S/16 presets at their own dtype)
     against their plain versions: ViT-B/16 (#1, #2 at batch 64; #3, #4 at
     256; timed, beside the fp32 bound), ViT-S/16's width and a ragged shape
     (checked); #1's attention alone and #4's attention backward alone beside
-    SDPA fp32; each GEMM form beside torch.matmul fp32.  Returns the
+    SDPA fp32; each GEMM form beside torch.matmul fp32; the fp32 attention's
+    one pass against two (:func:`_attention_f32_split`).  Returns the
     kernels-line entries."""
     t0 = time.perf_counter()
     out = {}
@@ -3304,6 +3366,7 @@ def phase_vit_f32_kernels(card: str) -> dict:
                                    timed=label == "ViT-B/16"))
         torch.cuda.empty_cache()
     _vit_gemm_f32_cases(card)
+    _attention_f32_split(card)
     torch.cuda.empty_cache()
     print(f"ViT fp32 kernels phase: {time.perf_counter() - t0:.1f} s")
     return out

@@ -1,8 +1,9 @@
 // The packed dqkv of a softmax attention in float32, with or without
-// probability dropout: from the forward's saved qkv [B, N, 3*H*Dh], its
-// output att [B, N, H*Dh], the fp32 lse [B, H, N], for the dropout form
-// the 0/1 mask [B, H, N, N] and keep, and the output's cotangent datt.
-// SIMT FFMA, fp32 throughout.
+// probability dropout, for Hopper: from the forward's saved qkv [B, N,
+// 3*H*Dh], its output att [B, N, H*Dh], the fp32 lse [B, H, N], for the
+// dropout form the 0/1 mask [B, H, N, N] and keep, and the output's
+// cotangent datt.  Every product is three TF32 products on wgmma (3xTF32,
+// csrc/attn_f32.cuh).
 //
 // Replaces, for float32 compute: the attention part of
 // sfc_vit_tpu/ops/fused_torch_attention.py::_torch_mha_bwd_kernel (line
@@ -12,7 +13,7 @@
 // ViT-S/16 presets at their own dtype), which take any dtype with fp32
 // sums.  (Family A's training without dropout differentiates the stored
 // weights in plain PyTorch, JAX's store-weights rule.)  The bf16 forms
-// stay on the wgmma kernel attention_bwd_sm90.cu.
+// stay on attention_bwd_sm90.cu.
 //
 // Formula, the plain version's (attention_bwd_ref with or without the mask):
 //   pn = exp(s * scale - lse), 0 at keys past n_valid;
@@ -23,339 +24,598 @@
 // instances (MASK false) read no mask and divide by nothing: dp = da . v,
 // pv = pn.  Rows at or past n_valid (the pad rows of a padded sequence)
 // attend to the valid keys like any other row; their cotangent rows are
-// zero in #4's chain, so they add nothing.
+// zero in #4's chain, so they add nothing.  Rows at or past n add nothing
+// to dk and dv.  Nothing is rounded to a narrower type; only the order of
+// the fp32 sums differs from the plain version.
 //
 // Bound on this card: bytes at family A's 64 tokens (qkv, att, datt, the
-// N x N mask, dqkv), operations (10 N^2 Dh a head, x 1.4 here: each of
-// the two kernels below recomputes the logits and da . v) over the 67
-// TFLOP/s of fp32 FFMA at ViT-B's 196 and longer rows.
+// N x N mask, dqkv), operations (10 N^2 Dh a head; 14 here past one tile,
+// as the dk/dv kernel recomputes the logits and da . v) over 3xTF32's 165
+// TFLOP/s at ViT-B's 196 and longer rows.
 //
 // Design: two kernels, each output with one owner, no atomics, so the
-// same inputs give the same bits.  (1) dq: a block of 256 threads per 64
-// queries of one (image, head) computes delta for its rows (into a small
-// fp32 buffer the second kernel reads), then walks the 64-key tiles of
-// [0, n_valid), holding K and V of the tile, forming ds in shared memory
-// and adding ds K into dq in registers.  (2) dk, dv: a block per 64 keys
-// walks every 64-query tile, forms pv and then ds in shared memory, and
-// adds pv^T da and ds^T q into dk, dv in registers.  Thread (ty, tx) owns
-// the tile's entries of rows ty + 16 i and columns tx + 16 j (i, j < 4),
-// read as float4 along Dh from rows padded by 4 floats, and output rows
-// ty + 16 i at columns 4 tx + 64 c.  Up to 1,024 tokens at Dh 64 or 192:
-// four 64-row tiles of Dh 192 and the ds tile take 218 KB of shared memory.
+// same inputs give the same bits.  A block is one warpgroup (128 threads),
+// two blocks an SM.  Thread 0 keeps 64 x 64 sub-blocks in flight by TMA
+// (map_packed_f32 over qkv and datt; Dh 192 is three 64-column
+// sub-heads), refilling each slot after the barrier that follows its last
+// use.  A sub-block is an A operand (read into registers a k8 step at a
+// time and split there) or a B operand (split by the threads into the big
+// and small K-major tiles, plainly or transposed under the key
+// permutation: csrc/attn_f32.cuh).  At Dh 64 each block's own A operands
+// stay resident for its whole walk and only the B operands stream, through
+// a ring of two slots, each sub-block once a tile and taken twice (plainly
+// and transposed); at Dh 192 (48 KB an operand) everything streams through
+// a ring of four.
+//  (1) dq: a block owns 64 queries of one (image, head).  It computes
+//      delta for its rows (into a small fp32 buffer the second kernel
+//      reads), then for each 64-key tile below n_valid: dP = dA V^T and S =
+//      Q K^T (V and K as stored are the K-major B operands), dS in the
+//      registers of dP, and dq += dS K with dS as the register A operand
+//      under the key permutation and K^T's parts written K-major.
+//  (2) dk, dv: a block owns 64 keys and walks every 64-query tile: dP^T =
+//      V dA^T and S^T = K Q^T, pn (or pv with the mask, read transposed)
+//      and dS^T in registers, then dv += P^T dA and dk += dS^T Q with the
+//      register A operands under the same permutation (over the queries),
+//      dA^T's and Q^T's parts written K-major; the tile's lse, delta and
+//      mask bytes staged in shared memory by plain loads.
+// With one tile (N <= 64: the flagship's and the notebook's rows) the dq
+// kernel hands pv and dS, transposed, to the dk/dv kernel through dqkv's
+// dk and dv rows (to_dkv / from_dq), which then loads neither K nor V and
+// computes neither S^T nor dP^T: five products, not seven.  At Dh 64 the
+// accumulators stay in registers and go out once, 8-byte stores.  At Dh
+// 192 an output's three sub-heads (96 accumulators a thread) do not fit
+// beside S and dP: each (tile, sub-head) product is taken fresh and added
+// to the block's own rows of dqkv, which the same thread stored at the
+// tile before (at_rows; nothing is read back at one tile).  The dq kernel
+// reads the mask's bytes from device memory (L1-cached).
 
-#include "common.cuh"
+#include <type_traits>
+
+#include "attn_f32.cuh"
 
 namespace {
 
-constexpr int kTile = 64, kThreads = 256, kPad = 4;
-constexpr int kPStride = kTile + kPad;
+namespace hw = sfc::sm90;
+namespace af = sfc::attn_f32;
 
-template <int DH>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (4 * kTile * (DH + kPad) + kTile * kPStride + 2 * kTile);
-}
+constexpr int BM = 64;      // rows a tile
+constexpr int kStages = 4;  // ring slots (sub-blocks)
+using Smem = af::Smem<kStages>;
+constexpr int kSmemBytes = af::kSmemBytes<kStages>;
 
-// rows [r0, r0 + 64) of a [rows, stride] matrix's DH columns from base into
-// sm (row stride DH + kPad); rows at or past n read as zero.
-template <int DH>
-__device__ __forceinline__ void load_rows(float* sm, const float* __restrict__ base,
-                                          size_t row_stride, int r0, int n, int t) {
-  constexpr int kVec = DH / 4;
-#pragma unroll 4
-  for (int e = t; e < kTile * kVec; e += kThreads) {
-    const int r = e / kVec, c = (e % kVec) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n) v = *reinterpret_cast<const float4*>(base + (r0 + r) * row_stride + c);
-    *reinterpret_cast<float4*>(sm + r * (DH + kPad) + c) = v;
-  }
-}
-
-// s[i][j] = a_{ty+16i} . b_{tx+16j} over 64-row tiles in shared memory
-// (the logits from q and k, or da . v).
-template <int DH>
-__device__ __forceinline__ void tile_dots(const float* as, const float* bs, int tx, int ty,
-                                          float (&s)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < DH; k += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(as + (ty + 16 * i) * (DH + kPad) + k);
-      b[i] = *reinterpret_cast<const float4*>(bs + (tx + 16 * i) * (DH + kPad) + k);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-      }
-  }
-}
-
-// For the tile entry of query row `row` and key `key`: pn and ds (and pv,
-// returned) from the logit s and dpn = da . v; mrow (MASK only) is the
-// row's mask.
-template <bool MASK>
-__device__ __forceinline__ float entry(float s, float dpn, int row, int key, int n,
-                                       int n_valid, float lse, float delta, float scale,
-                                       float keep, float rkeep, const uint8_t* mrow,
-                                       float& ds) {
-  if (row >= n || key >= n_valid) {
-    ds = 0.f;
-    return 0.f;
-  }
-  const float pn = expf(__fsub_rn(__fmul_rn(s, scale), lse));
-  if constexpr (MASK) {
-    const bool kept = mrow[key] != 0;
-    const float dp = kept ? sfc::div_rn(dpn, keep, rkeep) : 0.f;
-    ds = __fmul_rn(__fmul_rn(pn, __fsub_rn(dp, delta)), scale);
-    return kept ? sfc::div_rn(pn, keep, rkeep) : 0.f;
-  } else {
-    ds = __fmul_rn(__fmul_rn(pn, __fsub_rn(dpn, delta)), scale);
-    return pn;
-  }
-}
-
-// Row `row`'s mask (MASK only; the last row's for rows past n).
-template <bool MASK>
-__device__ __forceinline__ const uint8_t* mask_row(const uint8_t* mask, int bh, int row, int n) {
-  if constexpr (MASK) return mask + (static_cast<size_t>(bh) * n + min(row, n - 1)) * n;
-  else return nullptr;
-}
-
-// acc[i][4c..4c+3] += sum_j P(row, j) * X[j][4 tx + 64 c] over the j < len
-// rows of a tile X in shared memory, with P(row, j) = ps[ty + 16 i][j]
-// (trans false) or ps[j][ty + 16 i] (trans true).
-template <int DH, bool TRANS>
-__device__ __forceinline__ void tile_product(const float* ps, const float* xs, int len,
-                                             int tx, int ty, float (&acc)[4][DH / 16]) {
-  for (int j = 0; j < len; ++j) {
-    float p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = TRANS ? ps[j * kPStride + ty + 16 * i] : ps[(ty + 16 * i) * kPStride + j];
-#pragma unroll
-    for (int c = 0; c < DH / 64; ++c) {
-      const float4 v = *reinterpret_cast<const float4*>(xs + j * (DH + kPad) + 4 * tx + 64 * c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][4 * c] = fmaf(p[i], v.x, acc[i][4 * c]);
-        acc[i][4 * c + 1] = fmaf(p[i], v.y, acc[i][4 * c + 1]);
-        acc[i][4 * c + 2] = fmaf(p[i], v.z, acc[i][4 * c + 2]);
-        acc[i][4 * c + 3] = fmaf(p[i], v.w, acc[i][4 * c + 3]);
-      }
-    }
-  }
-}
-
-// Rows ty + 16 i of a [64, DH] accumulator into dst rows r0 + ... (row
-// stride `stride`), rows at or past n skipped.
-template <int DH>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, size_t stride, int r0,
-                                           int n, int tx, int ty,
-                                           const float (&acc)[4][DH / 16]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + ty + 16 * i;
-    if (row >= n) continue;
-#pragma unroll
-    for (int c = 0; c < DH / 64; ++c)
-      *reinterpret_cast<float4*>(dst + row * stride + 4 * tx + 64 * c) =
-          make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2], acc[i][4 * c + 3]);
-  }
-}
-
-struct Args {
-  const float* qkv;
-  const float* att;
-  const float* datt;
-  const float* lse;
-  const uint8_t* mask;  // null for the unmasked instances
-  float* delta;
-  float* dqkv;
-  int n, heads, n_valid;
+struct Params {
+  CUtensorMap qkv, datt;  // map_packed_f32 over qkv [B, n, 3 H Dh] and datt [B, n, H Dh]
+  const float* att;       // [B, n, H Dh]
+  const float* da;        // datt, for delta
+  const float* lse;       // [B, H, n]
+  const uint8_t* mask;    // [B, H, n, n] 0/1, null for the unmasked instances
+  float* delta;           // [B, H, n]: written by (1), read by (2)
+  float* dqkv;            // [B, n, 3 H Dh]
+  int n, heads, dh, n_valid, tiles;
   float scale, keep;
 };
 
-template <int DH, bool MASK>
-__global__ void __launch_bounds__(kThreads, 1) attention_bwd_f32_dq_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* das = qs + kTile * (DH + kPad);
-  float* ks = das + kTile * (DH + kPad);
-  float* vs = ks + kTile * (DH + kPad);
-  float* ps = vs + kTile * (DH + kPad);
-  float* lse_s = ps + kTile * kPStride;
-  float* delta_s = lse_s + kTile;
-  const int n = a.n, heads = a.heads, n_valid = a.n_valid;
-  const float scale = a.scale, keep = a.keep, rkeep = 1.f / a.keep;
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const int q0 = blockIdx.x * kTile;
-  const size_t w = static_cast<size_t>(3) * heads * DH, ow = static_cast<size_t>(heads) * DH;
-  const float* img = a.qkv + static_cast<size_t>(b) * n * w + static_cast<size_t>(h) * DH;
-  const float* da_img = a.datt + static_cast<size_t>(b) * n * ow + static_cast<size_t>(h) * DH;
-  const float* att_img = a.att + static_cast<size_t>(b) * n * ow + static_cast<size_t>(h) * DH;
+// The ring's sources: the packed projection's q, k, v and the cotangent.
+enum Src : int { kQ = 0, kK = 1, kV = 2, kDA = 3 };
 
-  load_rows<DH>(qs, img, w, q0, n, t);
-  load_rows<DH>(das, da_img, ow, q0, n, t);
-  // delta of the 64 rows: four lanes a row, each over a quarter of Dh.
+// The tensors of one block: its shared memory, the ring's cursor (the next
+// entry e; thread 0's issued entries), the split A fragments.
+struct Ctx {
+  Smem& sm;
+  const Params& p;
+  int tid, r0, c0, b, h, bh;  // r0, c0: the accumulators' first row and column
+  int e = 0, issued = 0, entries = 0;
+  uint64_t db = 0, dsm = 0;
+  uint32_t fb[2][4], fs[2][4];
+};
+
+// The ring's slots at Dh 64: two, the other two of the four holding the
+// block's own A operands for the whole walk (resident: the dq kernel's Q
+// and dA, the dk/dv kernel's K and V), so only the B operands stream, each
+// sub-block once a tile.  At Dh 192 the A operands (48 KB each) stream too,
+// through all four.
+template <int C>
+constexpr int kRing = C == 1 ? 2 : kStages;
+constexpr int kResA = 2, kResB = 3;  // the resident slots at Dh 64
+
+template <int C, typename Entry>
+__device__ __forceinline__ void feed(Ctx& x, int upto, Entry&& entry) {
+  for (; x.issued < upto && x.issued < x.entries; ++x.issued) {
+    int src, c, row;
+    entry(x.issued, src, c, row);
+    const CUtensorMap* map = src == kDA ? &x.p.datt : &x.p.qkv;
+    const int sub = (src == kDA ? x.h : src * x.p.heads + x.h) * C + c;
+    af::load_sub(x.sm, x.issued % kRing<C>, map, sub, row, x.b);
+  }
+}
+
+// acc (+)= A B: B the ring's entry eb split into the pair (plainly, K-major
+// as stored, or transposed), A's values of a k8 step from a_of.  The
+// pair's last product is done first; after the split's barrier the slots
+// of the entries before `used` are free for refills.
+template <int C, typename Entry, typename AOf>
+__device__ __forceinline__ void product(Ctx& x, float (&acc)[32], int eb, int used,
+                                        bool transposed, int accumulate, AOf&& a_of,
+                                        Entry&& entry) {
+  af::split_entry<kRing<C>>(x.sm, eb, transposed);
+  if (x.tid == 0) feed<C>(x, used + kRing<C>, entry);
+  af::mma3<64, 8>(acc, x.db, x.dsm, a_of, x.fb, x.fs, accumulate);
+}
+
+// acc (+)= A B^T, B the ring's entry eb as stored (K-major), A the
+// sub-block `as` read a k8 step at a time: S from (Q, K) or (K, Q), dP
+// from (dA, V) or (V, dA).
+template <int C, typename Entry>
+__device__ __forceinline__ void ab(Ctx& x, float (&acc)[32], const unsigned char* as, int eb,
+                                   int used, int accumulate, Entry&& entry) {
+  product<C>(x, acc, eb, used, false, accumulate,
+             [&](auto kk, float (&v)[4]) { af::a_frag(as, decltype(kk)::value, v); }, entry);
+}
+
+// acc (+)= A X, X the ring's entry eb (transposed), A the accumulator `a`
+// of the previous products under the key permutation.
+template <int C, typename Entry>
+__device__ __forceinline__ void at(Ctx& x, float (&acc)[32], const float (&a)[32], int eb, int used,
+                                   int accumulate, Entry&& entry) {
+  product<C>(x, acc, eb, used, true, accumulate,
+             [&](auto kk, float (&v)[4]) { af::a_perm(a, decltype(kk)::value, v); }, entry);
+}
+
+// The next two streamed entries (A, then B) through ab.
+template <int C, typename Entry>
+__device__ __forceinline__ void ab_next(Ctx& x, float (&acc)[32], int accumulate, Entry&& entry) {
+  af::wait_entry<kRing<C>>(x.sm, x.e);
+  ab<C>(x, acc, x.sm.ring[x.e % kRing<C>], x.e + 1, x.e, accumulate, entry);
+  x.e += 2;
+}
+
+// The next streamed entry through at.
+template <int C, typename Entry>
+__device__ __forceinline__ void at_next(Ctx& x, float (&acc)[32], const float (&a)[32],
+                                        int accumulate, Entry&& entry) {
+  at<C>(x, acc, a, x.e, x.e + 1, accumulate, entry);
+  ++x.e;
+}
+
+// The block's resident A operands (Dh 64): rows row of sub-head 0 of src_a
+// and src_b into slots kResA and kResB, on their own barriers.
+__device__ __forceinline__ void load_resident(Ctx& x, int src_a, int src_b, int row) {
+  const Params& p = x.p;
+  const int srcs[2] = {src_a, src_b};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int src = srcs[i];
+    af::load_sub(x.sm, kResA + i, src == kDA ? &p.datt : &p.qkv,
+                 src == kDA ? x.h : src * p.heads + x.h, row, x.b);
+  }
+}
+
+// Rows r0 and r0 + 8 of a 64-row tile's accumulators of one 64-column
+// sub-head into the packed rows row0 + ... of dqkv at column col, with
+// `add` plus what this thread stored there before (rows at or past n are
+// neither read nor written).
+__device__ __forceinline__ void store_sub(const Ctx& x, const float (&acc)[32], int row0,
+                                          size_t col, bool add = false) {
+  const Params& p = x.p;
+  const size_t w = static_cast<size_t>(3) * p.heads * p.dh;
+  const int t = af::fresh_tid(), r0 = 16 * (t >> 5) + ((t >> 2) & 7), c0 = 2 * (t & 3);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row0 + r0 + 8 * hf;
+    if (row >= p.n) continue;
+    float* dst = p.dqkv + (static_cast<size_t>(x.b) * p.n + row) * w + col + c0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float2 v = make_float2(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
+      if (add) {
+        const float2 o = *reinterpret_cast<const float2*>(dst + 8 * j);
+        v.x = o.x + v.x;
+        v.y = o.y + v.y;
+      }
+      *reinterpret_cast<float2*>(dst + 8 * j) = v;
+    }
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) a[i] = 0.f;
+}
+
+// One sub-head of an output accumulated in dqkv's rows: at Dh 192 an
+// output's three sub-heads (96 accumulators a thread) do not fit beside S
+// and dP, so each (tile, sub-head) product, `part` = A X for the next entry
+// X (at, taken fresh), goes out to the block's own rows at once, after the
+// first tile (`add`) added to what the same thread stored there at the
+// tile before (one owner, tile order: the same bits on every call).
+template <int C, typename Entry>
+__device__ __forceinline__ void at_rows(Ctx& x, float (&part)[32], const float (&a)[32], int row0,
+                                        size_t col, bool add, Entry&& entry) {
+  at_next<C>(x, part, a, 0, entry);
+  af::drain(part);
+  store_sub(x, part, row0, col, add);
+}
+
+// One tile (N <= 64: the flagship's and the notebook's tokens): the dq
+// kernel hands pv and dS to the dk/dv kernel, which then computes neither
+// S^T nor dP^T.  They go transposed, [key][query], into the block's own
+// rows of dqkv where dk and dv will go (at Dh 64 pv in dk's 64 columns and
+// dS in dv's; at Dh 192 both in dk's 192), which the dk/dv kernel reads
+// before it writes dk and dv there.  Keys and queries at or past n are
+// neither written nor read.
+template <int DH>
+__device__ __forceinline__ float* dkv_handoff(const Params& p, int b, int h, int key, int which) {
+  const size_t inner = static_cast<size_t>(p.heads) * DH;
+  return p.dqkv + (static_cast<size_t>(b) * p.n + key) * 3 * inner + inner +
+         static_cast<size_t>(h) * DH + (DH == 64 ? which * inner : which * 64);
+}
+
+template <int DH>
+__device__ __forceinline__ void to_dkv(const Ctx& x, const float (&pv)[32], const float (&ds)[32]) {
+  const Params& p = x.p;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int query = x.r0 + 8 * ((i / 2) % 2), key = 8 * (i / 4) + x.c0 + (i % 2);
+    if (query < p.n && key < p.n) {
+      dkv_handoff<DH>(p, x.b, x.h, key, 0)[query] = pv[i];
+      dkv_handoff<DH>(p, x.b, x.h, key, 1)[query] = ds[i];
+    }
+  }
+}
+
+// The dk/dv kernel's side: pv^T and dS^T in its accumulators' layout (rows
+// keys r0 (+ 8), columns queries), zero past n.
+template <int DH>
+__device__ __forceinline__ void from_dq(const Ctx& x, float (&pv)[32], float (&ds)[32]) {
+  const Params& p = x.p;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int key = x.r0 + 8 * ((i / 2) % 2), query = 8 * (i / 4) + x.c0;
+    float2 a = make_float2(0.f, 0.f), d = a;
+    if (key < p.n) {
+      a = *reinterpret_cast<const float2*>(dkv_handoff<DH>(p, x.b, x.h, key, 0) + query);
+      d = *reinterpret_cast<const float2*>(dkv_handoff<DH>(p, x.b, x.h, key, 1) + query);
+    }
+    pv[i] = query < p.n ? a.x : 0.f;
+    pv[i + 1] = query + 1 < p.n ? a.y : 0.f;
+    ds[i] = query < p.n ? d.x : 0.f;
+    ds[i + 1] = query + 1 < p.n ? d.y : 0.f;
+  }
+}
+
+// The dq kernel's ring entries, entry i's source, sub-head and first row.
+// Dh 64 (Q and dA resident): per key tile t, V_t then K_t, K_t taken twice
+// (plainly for S, transposed for dq).  Dh 192: per key tile, (Q_c, K_t,c)
+// for each sub-head, (dA_c, V_t,c), then K_t,c again (transposed).
+template <int C>
+struct DqEntry {
+  int q0;
+  __device__ __forceinline__ void operator()(int i, int& src, int& c, int& row) const {
+    if constexpr (C == 1) {
+      src = i & 1 ? kK : kV;
+      c = 0;
+      row = (i >> 1) * BM;
+      return;
+    }
+    const int t = i / (5 * C), r = i % (5 * C);
+    if (r < 4 * C) {
+      c = (r % (2 * C)) >> 1;
+      src = r < 2 * C ? (r & 1 ? kK : kQ) : (r & 1 ? kV : kDA);
+      row = r & 1 ? t * BM : q0;
+    } else {
+      c = r - 4 * C;
+      src = kK;
+      row = t * BM;
+    }
+  }
+};
+
+// The dk/dv kernel's.  Dh 64 (K and V resident): per query tile t, dA_t
+// then Q_t, each taken twice (plainly for dP^T and S^T, transposed for dv
+// and dk; with one tile only transposed, and K and V are not loaded).  Dh
+// 192: per query tile, (K_c, Q_t,c) for each sub-head, (V_c, dA_t,c), then
+// for each sub-head dA_t,c and Q_t,c (transposed; with one tile only
+// these).
+template <int C>
+struct DkvEntry {
+  int k0;
+  bool one;  // one tile: only the transposed dA_0,c and Q_0,c
+  __device__ __forceinline__ void operator()(int i, int& src, int& c, int& row) const {
+    if (C == 1 || one) {
+      src = i & 1 ? kQ : kDA;
+      c = i >> 1;
+      row = C == 1 ? (i >> 1) * BM : 0;
+      if (C == 1) c = 0;
+      return;
+    }
+    const int t = i / (6 * C), r = i % (6 * C);
+    if (r < 4 * C) {
+      c = (r % (2 * C)) >> 1;
+      const bool b_side = r & 1;
+      src = r < 2 * C ? (b_side ? kQ : kK) : (b_side ? kDA : kV);
+      row = b_side ? t * BM : k0;
+    } else {
+      c = (r - 4 * C) >> 1;
+      src = r & 1 ? kQ : kDA;
+      row = t * BM;
+    }
+  }
+};
+
+template <int DH, bool MASK>
+__global__ void __launch_bounds__(af::kThreads, 2)
+    attention_bwd_f32_dq_sm90(const __grid_constant__ Params p) {
+  constexpr int C = DH / 64;
+  constexpr bool kRows = C > 1;  // accumulate in dqkv's rows (at_rows)
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  Smem& sm = hw::aligned_smem<Smem>(dyn);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n = p.n, heads = p.heads, n_valid = p.n_valid;
+  const int qt = blockIdx.x % p.tiles, bh = blockIdx.x / p.tiles, q0 = qt * BM;
+  Ctx x{sm, p, tid, 16 * warp + lane / 4, 2 * (lane % 4), bh / heads, bh % heads, bh};
+  const int key_tiles = (n_valid + BM - 1) / BM;
+  x.entries = (C == 1 ? 2 : 5 * C) * key_tiles;
+  const DqEntry<C> entry{q0};
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) hw::bar_init(&sm.full[s], 1);
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    if constexpr (C == 1) load_resident(x, kQ, kDA, q0);
+    feed<C>(x, kRing<C>, entry);
+  }
+  af::pair_desc(sm, x.db, x.dsm);
+
+  // delta of the 64 rows: two lanes a row, each over half of Dh, 16-byte
+  // loads all in flight at once; with lse into shared memory.
   {
-    const int r = t / 4, part = t % 4, row = q0 + r;
+    const size_t ow = static_cast<size_t>(heads) * DH;
+    const int r = tid / 2, half = tid % 2, row = q0 + r;
     float sum = 0.f;
     if (row < n) {
-      const float* da = da_img + row * ow;
-      const float* at = att_img + row * ow;
-      for (int d = part; d < DH; d += 4) sum = fmaf(da[d], at[d], sum);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (part == 0) {
-      delta_s[r] = sum;
-      lse_s[r] = row < n ? a.lse[static_cast<size_t>(bh) * n + row] : 0.f;
-      if (row < n) a.delta[static_cast<size_t>(bh) * n + row] = sum;
-    }
-  }
-
-  float acc[4][DH / 16];
+      const size_t off = (static_cast<size_t>(x.b) * n + row) * ow + static_cast<size_t>(x.h) * DH;
+      const float4* da = reinterpret_cast<const float4*>(p.da + off) + half * (DH / 8);
+      const float4* at = reinterpret_cast<const float4*>(p.att + off) + half * (DH / 8);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DH / 16; ++c) acc[i][c] = 0.f;
-  const int tiles = (n_valid + kTile - 1) / kTile;
-  for (int kt = 0; kt < tiles; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_rows<DH>(ks, img + ow, w, k0, n, t);
-    load_rows<DH>(vs, img + 2 * ow, w, k0, n, t);
-    __syncthreads();
-    float s[4][4], dpn[4][4];
-    tile_dots<DH>(qs, ks, tx, ty, s);
-    tile_dots<DH>(das, vs, tx, ty, dpn);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, row = q0 + r;
-      const uint8_t* mrow = mask_row<MASK>(a.mask, bh, row, n);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float ds;
-        entry<MASK>(s[i][j], dpn[i][j], row, k0 + tx + 16 * j, n, n_valid, lse_s[r],
-                    delta_s[r], scale, keep, rkeep, mrow, ds);
-        ps[r * kPStride + tx + 16 * j] = ds;
+      for (int i = 0; i < DH / 8; ++i) {
+        const float4 u = da[i], v = at[i];
+        sum = fmaf(u.x, v.x, sum);
+        sum = fmaf(u.y, v.y, sum);
+        sum = fmaf(u.z, v.z, sum);
+        sum = fmaf(u.w, v.w, sum);
       }
     }
-    __syncthreads();
-    tile_product<DH, false>(ps, ks, min(kTile, n_valid - k0), tx, ty, acc);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      sm.vec[0][r] = row < n ? p.lse[static_cast<size_t>(bh) * n + row] : 0.f;
+      sm.vec[1][r] = sum;
+      if (row < n) p.delta[static_cast<size_t>(bh) * n + row] = sum;
+    }
   }
-  store_rows<DH>(a.dqkv + static_cast<size_t>(b) * n * w + static_cast<size_t>(h) * DH, w, q0,
-                 n, tx, ty, acc);
+  __syncthreads();
+  float lse[2], delta[2];
+  const uint8_t* mrow[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    lse[hf] = sm.vec[0][x.r0 + 8 * hf];
+    delta[hf] = sm.vec[1][x.r0 + 8 * hf];
+    const int row = min(q0 + x.r0 + 8 * hf, n - 1);
+    mrow[hf] = MASK ? p.mask + (static_cast<size_t>(bh) * n + row) * n : nullptr;
+  }
+  const float scale = p.scale, keep = p.keep, rkeep = __frcp_rn(p.keep);
+
+  float dq[kRows ? 1 : C][32], s[32], dp[32];
+  if constexpr (C == 1) {  // the resident Q and dA
+    hw::bar_wait(&sm.full[kResA], 0);
+    hw::bar_wait(&sm.full[kResB], 0);
+  }
+  for (int t = 0; t < key_tiles; ++t) {
+    if constexpr (C == 1) {  // dP from V_t (then free), S from K_t (kept for dq)
+      ab<C>(x, dp, sm.ring[kResB], 2 * t, 2 * t + 1, 0, entry);
+      ab<C>(x, s, sm.ring[kResA], 2 * t + 1, 2 * t + 1, 0, entry);
+    } else {
+      sfc::static_for<C>([&](auto Cc) { ab_next<C>(x, s, decltype(Cc)::value > 0, entry); });
+      sfc::static_for<C>([&](auto Cc) { ab_next<C>(x, dp, decltype(Cc)::value > 0, entry); });
+    }
+    af::drain(s);
+    hw::fence_regs(dp);
+    // dS into dp: pn (dp - delta) scale, 0 at keys past n_valid; with one
+    // tile, pv into s and both out to the dk/dv kernel (to_dkv).
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hf = (i / 2) % 2, key = t * BM + 8 * (i / 4) + x.c0 + (i % 2);
+      float ds = 0.f, pv = 0.f;
+      if (key < n_valid) {
+        const float pn = expf(__fsub_rn(__fmul_rn(s[i], scale), lse[hf]));
+        float d = dp[i];
+        pv = pn;
+        if constexpr (MASK) {
+          const bool kept = q0 + x.r0 + 8 * hf < n && mrow[hf][key] != 0;
+          d = kept ? sfc::div_rn(d, keep, rkeep) : 0.f;
+          pv = kept ? sfc::div_rn(pn, keep, rkeep) : 0.f;
+        }
+        ds = __fmul_rn(__fmul_rn(pn, __fsub_rn(d, delta[hf])), scale);
+      }
+      dp[i] = ds;
+      s[i] = pv;
+    }
+    if (p.tiles == 1) to_dkv<DH>(x, s, dp);
+    sfc::static_for<C>([&](auto Cc) {
+      constexpr int c = decltype(Cc)::value;
+      const size_t col = static_cast<size_t>(x.h) * DH + 64 * c;
+      if constexpr (kRows) {
+        at_rows<C>(x, s, dp, q0, col, t > 0, entry);  // s: free after dS
+      } else {
+        at<C>(x, dq[c], dp, 2 * t + 1, 2 * t + 2, t > 0, entry);
+      }
+    });
+  }
+  if constexpr (!kRows) {
+    hw::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      hw::fence_regs(dq[c]);
+      store_sub(x, dq[c], q0, static_cast<size_t>(x.h) * DH + 64 * c);
+    }
+  }
+}
+
+// The dk/dv kernel's query tile t: S^T and dP^T in s and dp, rows keys k0
+// + r0 (+ 8), columns queries; then pv (or pn) into s and dS^T into dp.
+// The tile's lse, delta and (MASK) its 64 x 64 mask bytes [query][key] are
+// staged in shared memory first, by plain loads; they are read after the
+// products' barriers, and the last tile's were read before them.
+template <int C, bool MASK, typename Entry>
+__device__ __forceinline__ void dkv_tile(Ctx& x, float (&s)[32], float (&dp)[32], int t, int k0,
+                                         float scale, float keep, float rkeep,
+                                         const uint8_t* mcol, const Entry& entry) {
+  const Params& p = x.p;
+  const int n = p.n, n_valid = p.n_valid, tid = x.tid;
+  Smem& sm = x.sm;
+  if (tid < BM) {
+    const size_t qi = static_cast<size_t>(x.bh) * n + min(t * BM + tid, n - 1);
+    sm.vec[0][tid] = p.lse[qi];
+    sm.vec[1][tid] = p.delta[qi];
+  }
+  if constexpr (MASK) {
+#pragma unroll
+    for (int i = tid; i < BM * BM; i += af::kThreads) {
+      const int query = t * BM + i / BM, key = k0 + i % BM;
+      sm.mask[i] = query < n && key < n ? mcol[static_cast<size_t>(query) * n + key] : 0;
+    }
+  }
+  if constexpr (C == 1) {  // dP^T from dA_t, S^T from Q_t (both kept for dv, dk)
+    ab<C>(x, dp, sm.ring[kResB], 2 * t, 2 * t, 0, entry);
+    ab<C>(x, s, sm.ring[kResA], 2 * t + 1, 2 * t, 0, entry);
+  } else {
+    sfc::static_for<C>([&](auto Cc) { ab_next<C>(x, s, decltype(Cc)::value > 0, entry); });
+    sfc::static_for<C>([&](auto Cc) { ab_next<C>(x, dp, decltype(Cc)::value > 0, entry); });
+  }
+  af::drain(s);
+  hw::fence_regs(dp);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = x.r0 + 8 * ((i / 2) % 2), col = 8 * (i / 4) + x.c0 + (i % 2);
+    float pv = 0.f, ds = 0.f;
+    if (k0 + r < n_valid && t * BM + col < n) {
+      const float pn = expf(__fsub_rn(__fmul_rn(s[i], scale), sm.vec[0][col]));
+      pv = pn;
+      float d = dp[i];
+      if constexpr (MASK) {
+        const bool kept = sm.mask[col * BM + r] != 0;
+        pv = kept ? sfc::div_rn(pn, keep, rkeep) : 0.f;
+        d = kept ? sfc::div_rn(d, keep, rkeep) : 0.f;
+      }
+      ds = __fmul_rn(__fmul_rn(pn, __fsub_rn(d, sm.vec[1][col])), scale);
+    }
+    s[i] = pv;
+    dp[i] = ds;
+  }
 }
 
 template <int DH, bool MASK>
-__global__ void __launch_bounds__(kThreads, 1) attention_bwd_f32_dkv_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
-  float* vs = ks + kTile * (DH + kPad);
-  float* qs = vs + kTile * (DH + kPad);
-  float* das = qs + kTile * (DH + kPad);
-  float* ps = das + kTile * (DH + kPad);
-  float* lse_s = ps + kTile * kPStride;
-  float* delta_s = lse_s + kTile;
-  const int n = a.n, heads = a.heads, n_valid = a.n_valid;
-  const float scale = a.scale, keep = a.keep, rkeep = 1.f / a.keep;
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const int k0 = blockIdx.x * kTile;
-  const size_t w = static_cast<size_t>(3) * heads * DH, ow = static_cast<size_t>(heads) * DH;
-  const float* img = a.qkv + static_cast<size_t>(b) * n * w + static_cast<size_t>(h) * DH;
-  const float* da_img = a.datt + static_cast<size_t>(b) * n * ow + static_cast<size_t>(h) * DH;
+__global__ void __launch_bounds__(af::kThreads, 2)
+    attention_bwd_f32_dkv_sm90(const __grid_constant__ Params p) {
+  constexpr int C = DH / 64;
+  constexpr bool kRows = C > 1;  // accumulate in dqkv's rows (at_rows)
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  Smem& sm = hw::aligned_smem<Smem>(dyn);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n = p.n, heads = p.heads, n_valid = p.n_valid, tiles = p.tiles;
+  const int kt = blockIdx.x % tiles, bh = blockIdx.x / tiles, k0 = kt * BM;
+  Ctx x{sm, p, tid, 16 * warp + lane / 4, 2 * (lane % 4), bh / heads, bh % heads, bh};
+  const size_t inner = static_cast<size_t>(heads) * DH;
+  const size_t kcol = inner + static_cast<size_t>(x.h) * DH, vcol = 2 * inner + x.h * DH;
 
-  load_rows<DH>(ks, img + ow, w, k0, n, t);
-  load_rows<DH>(vs, img + 2 * ow, w, k0, n, t);
-  float dk[4][DH / 16], dv[4][DH / 16];
+  float dv[kRows ? 1 : C][32], dk[kRows ? 1 : C][32];
+  if (k0 >= n_valid) {  // keys past n_valid: dk = dv = 0
+    zero(dv[0]);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DH / 16; ++c) dk[i][c] = dv[i][c] = 0.f;
-  const int len = max(0, min(kTile, n_valid - k0));  // this tile's valid keys
-  const int tiles = (n + kTile - 1) / kTile;
-  for (int qt = 0; qt < tiles && len > 0; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_rows<DH>(qs, img, w, q0, n, t);
-    load_rows<DH>(das, da_img, ow, q0, n, t);
-    if (t < kTile) {
-      const int row = q0 + t;
-      lse_s[t] = row < n ? a.lse[static_cast<size_t>(bh) * n + row] : 0.f;
-      delta_s[t] = row < n ? a.delta[static_cast<size_t>(bh) * n + row] : 0.f;
+    for (int c = 0; c < C; ++c) {
+      store_sub(x, dv[0], k0, kcol + 64 * c);
+      store_sub(x, dv[0], k0, vcol + 64 * c);
     }
-    __syncthreads();
-    float s[4][4], dpn[4][4];
-    tile_dots<DH>(qs, ks, tx, ty, s);
-    tile_dots<DH>(das, vs, tx, ty, dpn);
-    float ds[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, row = q0 + r;
-      const uint8_t* mrow = mask_row<MASK>(a.mask, bh, row, n);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ps[r * kPStride + tx + 16 * j] =
-            entry<MASK>(s[i][j], dpn[i][j], row, k0 + tx + 16 * j, n, n_valid, lse_s[r],
-                        delta_s[r], scale, keep, rkeep, mrow, ds[i][j]);
-    }
-    __syncthreads();
-    const int rows = min(kTile, n - q0);
-    tile_product<DH, true>(ps, das, rows, tx, ty, dv);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * kPStride + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    tile_product<DH, true>(ps, qs, rows, tx, ty, dk);
+    return;
   }
-  float* out = a.dqkv + static_cast<size_t>(b) * n * w + static_cast<size_t>(h) * DH;
-  store_rows<DH>(out + ow, w, k0, n, tx, ty, dk);
-  store_rows<DH>(out + 2 * ow, w, k0, n, tx, ty, dv);
+  const bool one = tiles == 1;  // pv^T and dS^T from the dq kernel (from_dq)
+  x.entries = one ? 2 * C : (C == 1 ? 2 : 6 * C) * tiles;
+  const DkvEntry<C> entry{k0, one};
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) hw::bar_init(&sm.full[s], 1);
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    if (C == 1 && !one) load_resident(x, kK, kV, k0);
+    feed<C>(x, kRing<C>, entry);
+  }
+  af::pair_desc(sm, x.db, x.dsm);
+  if (C == 1 && !one) {  // the resident K and V
+    hw::bar_wait(&sm.full[kResA], 0);
+    hw::bar_wait(&sm.full[kResB], 0);
+  }
+  const float scale = p.scale, keep = p.keep, rkeep = __frcp_rn(p.keep);
+  const uint8_t* mcol = MASK ? p.mask + static_cast<size_t>(bh) * n * n : nullptr;
+
+  float s[32], dp[32];
+  for (int t = 0; t < tiles; ++t) {
+    if (one) from_dq<DH>(x, s, dp);
+    else dkv_tile<C, MASK>(x, s, dp, t, k0, scale, keep, rkeep, mcol, entry);
+    sfc::static_for<C>([&](auto Cc) {
+      constexpr int c = decltype(Cc)::value;
+      if constexpr (kRows) {
+        float part[32];
+        at_rows<C>(x, part, s, k0, vcol + 64 * c, t > 0, entry);
+        at_rows<C>(x, part, dp, k0, kcol + 64 * c, t > 0, entry);
+      } else {
+        at<C>(x, dv[c], s, 2 * t, 2 * t + 1, t > 0, entry);
+        at<C>(x, dk[c], dp, 2 * t + 1, 2 * t + 2, t > 0, entry);
+      }
+    });
+  }
+  if constexpr (!kRows) {
+    hw::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      hw::fence_regs(dk[c]);
+      hw::fence_regs(dv[c]);
+      store_sub(x, dk[c], k0, kcol + 64 * c);
+      store_sub(x, dv[c], k0, vcol + 64 * c);
+    }
+  }
 }
 
 template <typename K>
-cudaError_t prepare(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+cudaError_t prepare(K kernel, int smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 template <int DH, bool MASK>
-cudaError_t launch(const Args& a, int batch, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<DH>();
-  cudaError_t err = prepare(attention_bwd_f32_dq_kernel<DH, MASK>, smem);
-  if (err == cudaSuccess) err = prepare(attention_bwd_f32_dkv_kernel<DH, MASK>, smem);
+cudaError_t launch(const Params& p, int batch, cudaStream_t s) {
+  cudaError_t err = prepare(attention_bwd_f32_dq_sm90<DH, MASK>, kSmemBytes);
+  if (err == cudaSuccess) err = prepare(attention_bwd_f32_dkv_sm90<DH, MASK>, kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n + kTile - 1) / kTile, batch * a.heads);
-  attention_bwd_f32_dq_kernel<DH, MASK><<<grid, kThreads, smem, s>>>(a);
+  const int blocks = batch * p.heads * p.tiles;
+  attention_bwd_f32_dq_sm90<DH, MASK><<<blocks, af::kThreads, kSmemBytes, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_f32_dkv_kernel<DH, MASK><<<grid, kThreads, smem, s>>>(a);
+  attention_bwd_f32_dkv_sm90<DH, MASK><<<blocks, af::kThreads, kSmemBytes, s>>>(p);
   return cudaGetLastError();
 }
 
 template <int DH>
-cudaError_t launch_dh(const Args& a, int batch, cudaStream_t s) {
-  return a.mask != nullptr ? launch<DH, true>(a, batch, s) : launch<DH, false>(a, batch, s);
+cudaError_t launch_dh(const Params& p, int batch, cudaStream_t s) {
+  return p.mask != nullptr ? launch<DH, true>(p, batch, s) : launch<DH, false>(p, batch, s);
 }
 
 template <int DH, bool MASK>
-cudaError_t attrs_of(int dkv, cudaFuncAttributes* attr) {
-  return dkv ? cudaFuncGetAttributes(attr, attention_bwd_f32_dkv_kernel<DH, MASK>)
-             : cudaFuncGetAttributes(attr, attention_bwd_f32_dq_kernel<DH, MASK>);
+int attrs_of(int dkv, int* out) {
+  return dkv ? hw::kernel_attrs(attention_bwd_f32_dkv_sm90<DH, MASK>, kSmemBytes, out)
+             : hw::kernel_attrs(attention_bwd_f32_dq_sm90<DH, MASK>, kSmemBytes, out);
 }
 
 }  // namespace
@@ -371,39 +631,35 @@ extern "C" int sfc_attention_bwd_f32(const void* qkv, const void* att, const voi
                                      void* dqkv, int batch, int n, int heads, int dh,
                                      int n_valid, float scale, float keep, void* stream) {
   if (batch < 0 || n < 1 || n > 1024 || heads < 1 || n_valid < 1 || n_valid > n ||
-      (mask != nullptr && !(keep > 0.f && keep <= 1.f)))
+      (dh != 64 && dh != 192) || (mask != nullptr && !(keep > 0.f && keep <= 1.f)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  const Args a{static_cast<const float*>(qkv),  static_cast<const float*>(att),
-               static_cast<const float*>(datt), static_cast<const float*>(lse),
-               static_cast<const uint8_t*>(mask), static_cast<float*>(delta),
-               static_cast<float*>(dqkv),        n,
-               heads,                            n_valid,
-               scale,                            mask != nullptr ? keep : 1.f};
+  Params p{};
+  cudaError_t err = hw::map_packed_f32(&p.qkv, qkv, batch, n, 3 * heads * dh, BM);
+  if (err == cudaSuccess) err = hw::map_packed_f32(&p.datt, datt, batch, n, heads * dh, BM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p.att = static_cast<const float*>(att);
+  p.da = static_cast<const float*>(datt);
+  p.lse = static_cast<const float*>(lse);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.delta = static_cast<float*>(delta);
+  p.dqkv = static_cast<float*>(dqkv);
+  p.n = n;
+  p.heads = heads;
+  p.dh = dh;
+  p.n_valid = n_valid;
+  p.tiles = (n + BM - 1) / BM;
+  p.scale = scale;
+  p.keep = mask != nullptr ? keep : 1.f;
   auto* s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dh == 64)
-    err = launch_dh<64>(a, batch, s);
-  else if (dh == 192)
-    err = launch_dh<192>(a, batch, s);
-  else
-    err = cudaErrorInvalidValue;
+  err = dh == 64 ? launch_dh<64>(p, batch, s) : launch_dh<192>(p, batch, s);
   return static_cast<int>(err);
 }
 
 // Registers, local bytes and shared bytes of the dq kernel (dkv 0) or of
 // the dk/dv kernel (dkv 1) at dh 64 or 192, with the mask or without.
 extern "C" int sfc_attention_bwd_f32_attrs(int dh, int masked, int dkv, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err;
-  if (dh == 192)
-    err = masked ? attrs_of<192, true>(dkv, &attr) : attrs_of<192, false>(dkv, &attr);
-  else
-    err = masked ? attrs_of<64, true>(dkv, &attr) : attrs_of<64, false>(dkv, &attr);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = static_cast<int>(attr.sharedSizeBytes +
-                            (dh == 192 ? smem_bytes<192>() : smem_bytes<64>()));
-  return 0;
+  if (dh == 192) return masked ? attrs_of<192, true>(dkv, out) : attrs_of<192, false>(dkv, out);
+  if (dh == 64) return masked ? attrs_of<64, true>(dkv, out) : attrs_of<64, false>(dkv, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

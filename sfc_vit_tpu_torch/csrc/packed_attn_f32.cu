@@ -1,7 +1,7 @@
-// Attention straight off the packed projection in float32: qkv [B, N,
-// 3*H*Dh] -> out [B, N, H*Dh], with the fp32 log-sum-exp of each softmax
-// row on request, and optionally the family-A dropout mask.  SIMT FFMA,
-// fp32 throughout.
+// Attention straight off the packed projection in float32, for Hopper: qkv
+// [B, N, 3*H*Dh] -> out [B, N, H*Dh], with the fp32 log-sum-exp of each
+// softmax row on request, and optionally the family-A dropout mask.  Every
+// product is three TF32 products on wgmma (3xTF32, csrc/attn_f32.cuh).
 //
 // Replaces, for float32 compute: the attention of
 // sfc_vit_tpu/ops/fused_torch_attention.py::_torch_mha_kernel (line 82:
@@ -11,245 +11,460 @@
 // sfc_vit_tpu/ops/fused_attention_block.py::_attn_block_kernel (line 104:
 // no mask; with the lse in training; ViT-B's 196 tokens at Dh 64, keys at
 // or past n_actual masked), which take any dtype and keep logits, softmax
-// and sums in fp32.  The bf16 forms stay on the wgmma kernel
-// packed_attn_sm90.cu.
+// and sums in fp32.  The bf16 forms stay on packed_attn_sm90.cu.
 //
 // Formula, the plain versions' (attention_fwd_ref, _packed_xla_ref):
 // s = (q . k) * scale in fp32, keys at or past n_valid excluded, P = p / l
 // with p = exp(s - m), then with the mask pd = (P / keep) * mask, the two
 // divisions correctly rounded by sfc::div_rn; out = sum_j pd_j v_j; lse =
-// m + log(l), taken before the mask.
+// m + log(l), taken before the mask.  Nothing is rounded to a narrower
+// type: each product is a_big b_small + a_small b_big + a_big b_big of
+// the split x = big + small (csrc/gemm_f32.cu's header: within 1.25 x
+// 2^-20 of |a| |b| before the fp32 sums), so only the order of the fp32
+// sums differs from the plain versions.
 //
 // Bound on this card: bytes at short rows (qkv, out, the N x N mask),
-// operations (4 N^2 Dh a head, x 1.5 here: the logits are computed twice)
-// over the 67 TFLOP/s of fp32 FFMA at long ones.
+// operations (4 N^2 Dh a head) over 3xTF32's 165 TFLOP/s at long ones.
 //
-// Design: a block of 256 threads owns 64 queries of one (image, head) and
-// makes two passes over the 64-key tiles of [0, n_valid): the first keeps
-// each row's running max and sum, the second recomputes the logits, forms
-// P (normalised, then the mask) in shared memory and adds P V into the
-// output it holds in registers.  P is normalised before its product with
-// V, as the plain versions do, which is why the logits are computed twice
-// rather than the output rescaled.  K and V of a tile share one buffer.
-// Thread (ty, tx) of the 16 x 16 grid owns logits of queries ty + 16 i and
-// keys tx + 16 j (i, j < 4), read as float4 along Dh from rows padded by 4
-// floats (a quarter warp's eight K rows start on eight bank groups), and
-// output rows ty + 16 i at columns 4 tx + 64 c; a row's max and sum meet
-// over its 16 lanes by shuffles.  Up to 1,024 keys (N <= PACKED_MAX_N):
-// K and V stream a tile at a time, so one fp32 K of 1,024 x 192 (768 KB)
-// never needs to fit.
+// Design: a block is one warpgroup (128 threads) and owns 64 queries of
+// one (image, head); two blocks an SM.  Thread 0 keeps a ring of four
+// 64 x 64 sub-blocks in flight by TMA (map_packed_f32 over the packed
+// projection; Dh 192 is three 64-column sub-heads), refilling each slot
+// after the barrier that follows its last use.  For each key tile and
+// sub-head the ring brings Q's sub-block (the A operand, read into
+// registers and split a k8 step at a time) and K's (split elementwise
+// into the big and small K-major B tiles), and S += Q K^T runs as m64n64
+// wgmma (m64n8 for the last 8 of ViT-B's 196 keys, held as 200 columns).
+//  * One pass where the whole row of logits fits the accumulators: 64,
+//    128, 192, 200 and 256 keys at Dh 64, 64 at Dh 192 (the narrowest
+//    instance that covers n_valid).  S is computed once; the exact row max
+//    and sum meet over each row's quad of threads; P = p / l (and the
+//    mask) in registers; then for each key tile and sub-head the ring
+//    brings V's sub-block, the threads write V^T's big and small parts
+//    K-major under the key permutation, and O += P V takes P straight from
+//    the logits' registers as the A operand.
+//  * Two passes for longer rows (to N = 1,024): the first keeps the row's
+//    running max and rescaled sum over 64-key tiles, the second recomputes
+//    each tile's logits, forms P and adds P V.  The logits are computed
+//    twice so that P is normalised before its product with V at any N.
+// With the mask, its 64 x 64 tile for each key tile comes by TMA
+// (map_mask_u8, 64-byte swizzled; by the threads' plain loads into the same
+// slot where N % 16 != 0) into one slot, each tile issued once the last
+// P V has passed its barrier, and divides P by keep tile by tile just
+// before P V.  O goes out once, 8-byte stores of the accumulators, rows at
+// or past n not written; lse for the rows below n.
 
-#include "common.cuh"
+#include <type_traits>
+
+#include "attn_f32.cuh"
 
 namespace {
 
-constexpr int kTile = 64, kThreads = 256, kPad = 4;
-constexpr int kPStride = kTile + kPad;
+namespace hw = sfc::sm90;
+namespace af = sfc::attn_f32;
 
-template <int DH>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * kTile * (DH + kPad) + kTile * kPStride);
-}
+constexpr int BM = 64;      // queries an item, keys a tile
+constexpr int kStages = 4;  // ring slots (sub-blocks)
+constexpr int kMaxN = 1024;
 
-// rows [r0, r0 + 64) of one head's slot (q, k or v) of the packed qkv into
-// sm (row stride DH + kPad); rows at or past n read as zero.
-template <int DH>
-__device__ __forceinline__ void load_rows(float* sm, const float* __restrict__ base,
-                                          size_t row_stride, int r0, int n, int t) {
-  constexpr int kVec = DH / 4;
-#pragma unroll 4
-  for (int e = t; e < kTile * kVec; e += kThreads) {
-    const int r = e / kVec, c = (e % kVec) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n) v = *reinterpret_cast<const float4*>(base + (r0 + r) * row_stride + c);
-    *reinterpret_cast<float4*>(sm + r * (DH + kPad) + c) = v;
+struct Params {
+  CUtensorMap qkv;   // map_packed_f32 over qkv [B, n, 3 H Dh], 64-row boxes
+  CUtensorMap mask_map;  // the mask's [B H n, n] rows, where mask_tma
+  float* out;        // [B, n, H Dh]
+  float* lse;        // [B, H, n] or null
+  const uint8_t* mask;  // [B, H, n, n] 0/1, or null
+  int heads, n, n_valid, q_tiles, k_tiles, mask_tma;
+  float scale, keep;
+};
+
+// Ring entry e of an item: which tensor (0 Q, 1 K, 2 V), its sub-head and
+// key tile.  One pass (KT key tiles): per tile and sub-head Q then K, then
+// per tile and sub-head V.  Two passes (k_tiles): the first pass's Q, K
+// pairs, then for each output sub-head co and each tile the pairs and
+// V's sub-block co.
+template <int C, int KT>
+__device__ __forceinline__ void entry_of(int e, int k_tiles, int& which, int& c, int& t) {
+  const int tiles = KT > 0 ? KT : k_tiles;
+  if (e < 2 * C * tiles) {
+    t = e / (2 * C);
+    c = (e % (2 * C)) >> 1;
+    which = e & 1;
+    return;
+  }
+  e -= 2 * C * tiles;
+  if constexpr (KT > 0) {
+    t = e / C;
+    c = e % C;
+    which = 2;
+  } else {
+    const int unit = e / (2 * C + 1), r = e % (2 * C + 1);
+    t = unit % tiles;
+    c = r < 2 * C ? r >> 1 : unit / tiles;
+    which = r < 2 * C ? (r & 1) : 2;
   }
 }
 
-// s[i][j] = (q_{ty+16i} . k_{tx+16j}) over the tiles in shared memory.
-template <int DH>
-__device__ __forceinline__ void tile_dots(const float* qs, const float* ks, int tx, int ty,
-                                          float (&s)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DH; d += 4) {
-    float4 q[4], k[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      q[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * (DH + kPad) + d);
-      k[i] = *reinterpret_cast<const float4*>(ks + (tx + 16 * i) * (DH + kPad) + d);
+// NK: the key columns the one-pass form holds (64, 128, 192, 200, 256), 0
+// for two passes.  MASK: the dropout mask and keep.
+template <int DH, int NK, bool MASK>
+__global__ void __launch_bounds__(af::kThreads, 2)
+    packed_attn_f32_sm90(const __grid_constant__ Params p) {
+  constexpr int C = DH / 64;              // 64-column sub-heads
+  constexpr int KT = (NK + BM - 1) / BM;  // one-pass key tiles; 0: two passes
+  constexpr bool kTail = NK % BM != 0;    // 200: three tiles and 8 columns of a fourth
+  constexpr int KF = kTail ? KT - 1 : (KT > 0 ? KT : 1);  // whole 64-key tiles of logits held
+  using S = af::Smem<kStages>;
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  S& sm = hw::aligned_smem<S>(dyn);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4, tq = lane % 4, c0 = 2 * tq;
+  const int n = p.n, heads = p.heads, n_valid = p.n_valid, k_tiles = p.k_tiles;
+  const int qt = blockIdx.x % p.q_tiles, bh = blockIdx.x / p.q_tiles;
+  const int h = bh % heads, b = bh / heads, q0 = qt * BM;
+  const int entries = KT > 0 ? 3 * C * KT : (2 * C + C * (2 * C + 1)) * k_tiles;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) hw::bar_init(&sm.full[s], 1);
+    hw::bar_init(&sm.mask_full, 1);
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+  // Thread 0 issues the ring's entries in order; `upto`: every entry
+  // before it may take a slot (the slot's last entry is consumed).
+  int issued = 0;
+  auto feed = [&](int upto) {
+    for (; issued < upto && issued < entries; ++issued) {
+      int which, c, t;
+      entry_of<C, KT>(issued, k_tiles, which, c, t);
+      af::load_sub(sm, issued % kStages, &p.qkv, (which * heads + h) * C + c,
+                   which == 0 ? q0 : t * BM, b);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(q[i].x, k[j].x, s[i][j]);
-        s[i][j] = fmaf(q[i].y, k[j].y, s[i][j]);
-        s[i][j] = fmaf(q[i].z, k[j].z, s[i][j]);
-        s[i][j] = fmaf(q[i].w, k[j].w, s[i][j]);
+  };
+  // The mask's tile of key tile t into its slot by TMA (thread 0).
+  auto issue_mask = [&](int t) {
+    hw::bar_expect_tx(&sm.mask_full, BM * BM);
+    hw::tma_load2(sm.mask, &p.mask_map, &sm.mask_full, t * BM, bh * n + q0);
+  };
+  if (tid == 0) {
+    feed(kStages);
+    if (MASK && p.mask_tma) issue_mask(0);
+  }
+
+  uint64_t db, dsm;
+  af::pair_desc(sm, db, dsm);
+  uint32_t fb[2][4], fs[2][4];  // two k8 steps' split A fragments
+  int e = 0;                    // the next ring entry
+  // Entry eb (a B operand, K or V) split into the pair, plainly or
+  // transposed: the pair's last product is done first; after the barrier
+  // the slots of the entries before `used` are free.
+  auto take_b = [&](int eb, int used, bool transposed) {
+    af::split_entry(sm, eb, transposed);
+    if (tid == 0) feed(used + kStages);
+  };
+  // acc (+)= Q_c K_t,c^T (N columns) for the next pair of entries, Q then
+  // K; Q's slot is read a k8 step at a time under the products.
+  auto logits = [&](auto& acc, auto N, int accumulate) {
+    af::wait_entry(sm, e);
+    take_b(e + 1, e, false);
+    const unsigned char* qs = sm.ring[e % kStages];
+    af::mma3<decltype(N)::value, 8>(
+        acc, db, dsm,
+        [&](auto kk, float (&v)[4]) { af::a_frag(qs, decltype(kk)::value, v); }, fb,
+        fs, accumulate);
+    e += 2;
+  };
+  // oc (+)= P V_t,c for the next entry (V) over STEPS k8 steps, P's key
+  // group `step` in the logits registers pt (the key permutation).
+  auto pv = [&](auto& oc, const auto& pt, auto STEPS, int accumulate) {
+    take_b(e, e + 1, true);
+    af::mma3<64, decltype(STEPS)::value>(
+        oc, db, dsm, [&](auto kk, float (&v)[4]) { af::a_perm(pt, decltype(kk)::value, v); },
+        fb, fs, accumulate);
+    ++e;
+  };
+  const float scale = p.scale, keep = p.keep, rkeep = __frcp_rn(p.keep);
+  // P of key tile t (normalised, in pt) times the mask over keep: the
+  // tile's mask waited for (load ml of the slot; by plain loads where it
+  // has no TMA box, zero past n), then, once the P V that follows has
+  // passed its barrier, the slot handed to key tile t_next (< 0: none).
+  int ml = 0;
+  auto dropout = [&](float (&pt)[32], int t) {
+    if (p.mask_tma) {
+      hw::bar_wait(&sm.mask_full, ml & 1);
+    } else {
+      const uint8_t* src = p.mask + static_cast<size_t>(bh) * n * n;
+#pragma unroll 8
+      for (int i = tid; i < BM * BM; i += af::kThreads) {
+        const int row = q0 + i / BM, key = t * BM + i % BM;
+        sm.mask[hw::sw64_u8(i / BM, i % BM)] =
+            row < n && key < n ? src[static_cast<size_t>(row) * n + key] : 0;
       }
-  }
-}
-
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int DH, bool MASK>
-__global__ void __launch_bounds__(kThreads)
-    packed_attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                           float* __restrict__ lse, const uint8_t* __restrict__ mask,
-                           int n, int heads, int n_valid, float scale, float keep) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* kv = qs + kTile * (DH + kPad);
-  float* ps = kv + kTile * (DH + kPad);
-  constexpr int kCols = DH / 64;  // output float4 columns a thread
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const int q0 = blockIdx.x * kTile;
-  const size_t w = static_cast<size_t>(3) * heads * DH;
-  const float* img = qkv + static_cast<size_t>(b) * n * w + static_cast<size_t>(h) * DH;
-  const int tiles = (n_valid + kTile - 1) / kTile;
-
-  load_rows<DH>(qs, img, w, q0, n, t);
-
-  // Pass 1: each row's max and sum over the valid keys.
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = sfc::kNegInf, l[i] = 0.f;
-  for (int kt = 0; kt < tiles; ++kt) {
-    __syncthreads();
-    load_rows<DH>(kv, img + heads * DH, w, kt * kTile, n, t);
-    __syncthreads();
-    float s[4][4];
-    tile_dots<DH>(qs, kv, tx, ty, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tmax = sfc::kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = kt * kTile + tx + 16 * j < n_valid ? __fmul_rn(s[i][j], scale) : sfc::kNegInf;
-        tmax = fmaxf(tmax, s[i][j]);
-      }
-      const float mnew = fmaxf(m[i], row_max16(tmax));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sum += expf(__fsub_rn(s[i][j], mnew));
-      l[i] = l[i] * expf(m[i] - mnew) + row_sum16(sum);
-      m[i] = mnew;
+      __syncthreads();
     }
-  }
-  if (lse != nullptr && tx == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      if (row < n) lse[static_cast<size_t>(bh) * n + row] = m[i] + logf(l[i]);
+    for (int i = 0; i < 32; ++i) {
+      const int r = r0 + 8 * ((i / 2) % 2), col = 8 * (i / 4) + c0 + (i % 2);
+      const bool kept = q0 + r < n && sm.mask[hw::sw64_u8(r, col)] != 0;
+      pt[i] = kept ? sfc::div_rn(pt[i], keep, rkeep) : 0.f;
     }
-  }
+  };
+  auto mask_next = [&](int t_next) {
+    ++ml;
+    if (tid == 0 && p.mask_tma && t_next >= 0) issue_mask(t_next);
+  };
+  auto quad_max = [](float v) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  };
+  auto quad_sum = [](float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+  };
 
-  // Pass 2: P normalised (and masked) into shared memory, then P V.
-  float rl[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) rl[i] = 1.f / l[i];
-  const float rkeep = 1.f / keep;
-  float acc[4][4 * kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * kCols; ++c) acc[i][c] = 0.f;
-  for (int kt = 0; kt < tiles; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_rows<DH>(kv, img + heads * DH, w, k0, n, t);
-    __syncthreads();
-    float s[4][4];
-    tile_dots<DH>(qs, kv, tx, ty, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        float p = 0.f;
-        if (key < n_valid) {
-          p = sfc::div_rn(expf(__fsub_rn(__fmul_rn(s[i][j], scale), m[i])), l[i], rl[i]);
-          if (MASK) {
-            const bool kept =
-                row < n && mask[(static_cast<size_t>(bh) * n + row) * n + key] != 0;
-            p = kept ? sfc::div_rn(p, keep, rkeep) : 0.f;
-          }
-        }
-        ps[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-      }
-    }
-    __syncthreads();
-    load_rows<DH>(kv, img + 2 * heads * DH, w, k0, n, t);
-    __syncthreads();
-    const int kend = min(kTile, n_valid - k0);
-    for (int j = 0; j < kend; ++j) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * kPStride + j];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float4 v = *reinterpret_cast<const float4*>(kv + j * (DH + kPad) + 4 * tx + 64 * c);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][4 * c] = fmaf(p[i], v.x, acc[i][4 * c]);
-          acc[i][4 * c + 1] = fmaf(p[i], v.y, acc[i][4 * c + 1]);
-          acc[i][4 * c + 2] = fmaf(p[i], v.z, acc[i][4 * c + 2]);
-          acc[i][4 * c + 3] = fmaf(p[i], v.w, acc[i][4 * c + 3]);
-        }
-      }
-    }
-  }
-
+  float m[2], l[2], rl[2];
+  // O's 64-column sub-head c, rows r0 and r0 + 8 (rows at or past n not
+  // written); after the lse, which the first rows' m and l give.
   const size_t ow = static_cast<size_t>(heads) * DH;
+  auto store_o = [&](const float (&oc)[32], int c) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= n) continue;
-    float* dst = out + (static_cast<size_t>(b) * n + row) * ow + static_cast<size_t>(h) * DH;
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + r0 + 8 * hf;
+      if (row >= n) continue;
+      float* dst = p.out + (static_cast<size_t>(b) * n + row) * ow +
+                   static_cast<size_t>(h) * DH + 64 * c + c0;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      *reinterpret_cast<float4*>(dst + 4 * tx + 64 * c) =
-          make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2], acc[i][4 * c + 3]);
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(oc[4 * j + 2 * hf], oc[4 * j + 2 * hf + 1]);
+    }
+  };
+  auto store_lse = [&]() {
+    if (p.lse != nullptr && tq == 0) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = q0 + r0 + 8 * hf;
+        if (row < n) p.lse[static_cast<size_t>(bh) * n + row] = m[hf] + logf(l[hf]);
+      }
+    }
+  };
+
+  if constexpr (KT > 0) {
+    // One pass: the whole row's logits, tile t in s[t] (and the tail).
+    float s[KF][32], tail[4], o[C][32];
+    sfc::static_for<KF>([&](auto T) {
+      sfc::static_for<C>([&](auto Cc) {
+        logits(s[decltype(T)::value], std::integral_constant<int, 64>{}, decltype(Cc)::value > 0);
+      });
+    });
+    if constexpr (kTail)
+      sfc::static_for<C>([&](auto Cc) {
+        logits(tail, std::integral_constant<int, 8>{}, decltype(Cc)::value > 0);
+      });
+    hw::wgmma_wait<0>();
+#pragma unroll
+    for (int t = 0; t < KF; ++t) hw::fence_regs(s[t]);
+    if constexpr (kTail) hw::fence_regs(tail);
+    // Scaled, keys at or past n_valid excluded; the exact row max and sum.
+    auto each = [&](auto&& f) {
+#pragma unroll
+      for (int t = 0; t < KF; ++t)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) f(s[t][i], (i / 2) % 2, 64 * t + 8 * (i / 4) + c0 + (i % 2));
+      if constexpr (kTail)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) f(tail[i], (i / 2) % 2, 64 * KF + c0 + (i % 2));
+    };
+    m[0] = m[1] = sfc::kNegInf;
+    each([&](float& x, int hf, int key) {
+      x = key < n_valid ? __fmul_rn(x, scale) : sfc::kNegInf;
+      m[hf] = fmaxf(m[hf], x);
+    });
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) m[hf] = quad_max(m[hf]);
+    each([&](float& x, int hf, int) {
+      x = expf(__fsub_rn(x, m[hf]));
+      l[hf] += x;
+    });
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      l[hf] = quad_sum(l[hf]);
+      rl[hf] = __frcp_rn(l[hf]);
+    }
+    each([&](float& x, int hf, int) { x = sfc::div_rn(x, l[hf], rl[hf]); });
+    store_lse();
+    // O = P V over the key tiles, P as the A operand from the registers.
+    sfc::static_for<KF>([&](auto T) {
+      constexpr int t = decltype(T)::value;
+      if constexpr (MASK) dropout(s[t], t);
+      sfc::static_for<C>([&](auto Cc) {
+        pv(o[decltype(Cc)::value], s[t], std::integral_constant<int, 8>{}, t > 0);
+      });
+      if constexpr (MASK) mask_next(t + 1 < KF ? t + 1 : -1);
+    });
+    if constexpr (kTail)
+      sfc::static_for<C>([&](auto Cc) {
+        pv(o[decltype(Cc)::value], tail, std::integral_constant<int, 1>{}, 1);
+      });
+    hw::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      hw::fence_regs(o[c]);
+      store_o(o[c], c);
+    }
+  } else {
+    // Two passes over 64-key tiles; the second once for each of O's
+    // sub-heads (its logits recomputed for each), so only one sub-head's
+    // accumulators are held.
+    float s[32], o[32];
+    auto tile_logits = [&](int t) {
+      sfc::static_for<C>([&](auto Cc) {
+        logits(s, std::integral_constant<int, 64>{}, decltype(Cc)::value > 0);
+      });
+      af::drain(s);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = 64 * t + 8 * (i / 4) + c0 + (i % 2);
+        s[i] = key < n_valid ? __fmul_rn(s[i], scale) : sfc::kNegInf;
+      }
+    };
+    m[0] = m[1] = sfc::kNegInf;
+    l[0] = l[1] = 0.f;
+    for (int t = 0; t < k_tiles; ++t) {
+      tile_logits(t);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float mx = sfc::kNegInf;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hf], s[4 * j + 2 * hf + 1]));
+        const float m_new = fmaxf(m[hf], quad_max(mx));
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) sum += expf(__fsub_rn(s[4 * j + 2 * hf + x], m_new));
+        l[hf] = l[hf] * expf(m[hf] - m_new) + quad_sum(sum);
+        m[hf] = m_new;
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) rl[hf] = __frcp_rn(l[hf]);
+    store_lse();
+    for (int co = 0; co < C; ++co) {
+      for (int t = 0; t < k_tiles; ++t) {
+        tile_logits(t);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hf = (i / 2) % 2;
+          s[i] = sfc::div_rn(expf(__fsub_rn(s[i], m[hf])), l[hf], rl[hf]);
+        }
+        if constexpr (MASK) dropout(s, t);
+        pv(o, s, std::integral_constant<int, 8>{}, t > 0);
+        if constexpr (MASK) mask_next(t + 1 < k_tiles ? t + 1 : co + 1 < C ? 0 : -1);
+      }
+      af::drain(o);
+      store_o(o, co);
+    }
   }
 }
 
-template <int DH, bool MASK>
-cudaError_t launch(const float* qkv, float* out, float* lse, const uint8_t* mask, int batch,
-                   int n, int heads, int n_valid, float scale, float keep, cudaStream_t s) {
-  auto* kernel = packed_attn_f32_kernel<DH, MASK>;
-  constexpr size_t smem = smem_bytes<DH>();
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + kTile - 1) / kTile, batch * heads);
-  kernel<<<grid, kThreads, smem, s>>>(qkv, out, lse, mask, n, heads, n_valid, scale, keep);
+template <int DH, int NK, bool MASK>
+cudaError_t launch(const Params& p, int items, cudaStream_t stream) {
+  auto kernel = packed_attn_f32_sm90<DH, NK, MASK>;
+  constexpr int smem = af::kSmemBytes<kStages>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<items, af::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t launch_dh(const float* qkv, float* out, float* lse, const uint8_t* mask,
-                      int batch, int n, int heads, int n_valid, float scale, float keep,
-                      cudaStream_t s) {
-  return mask != nullptr
-             ? launch<DH, true>(qkv, out, lse, mask, batch, n, heads, n_valid, scale, keep, s)
-             : launch<DH, false>(qkv, out, lse, mask, batch, n, heads, n_valid, scale, keep, s);
+template <int DH, int NK, bool MASK>
+int attrs(int* out) {
+  return hw::kernel_attrs(packed_attn_f32_sm90<DH, NK, MASK>, af::kSmemBytes<kStages>, out);
+}
+
+// The instance of head dim dh holding nk key columns in one pass (0: two
+// passes), by its template arguments; false where there is none.  The
+// masked forms stop at 192 keys (Dh 64), as packed_attn_sm90.cu's do (the
+// masked 256-key form spilled).
+template <bool MASK, typename F>
+bool with_instance(int dh, int nk, F&& f) {
+  using I64 = std::integral_constant<int, 64>;
+  if (dh == 64) {
+    switch (nk) {
+      case 0: f(I64{}, std::integral_constant<int, 0>{}); return true;
+      case 64: f(I64{}, std::integral_constant<int, 64>{}); return true;
+      case 128: f(I64{}, std::integral_constant<int, 128>{}); return true;
+      case 192: f(I64{}, std::integral_constant<int, 192>{}); return true;
+      default: break;
+    }
+    if constexpr (!MASK) {
+      if (nk == 200) return f(I64{}, std::integral_constant<int, 200>{}), true;
+      if (nk == 256) return f(I64{}, std::integral_constant<int, 256>{}), true;
+    }
+    return false;
+  }
+  if (dh == 192) {
+    if (nk == 0) f(std::integral_constant<int, 192>{}, std::integral_constant<int, 0>{});
+    else if (nk == 64) f(std::integral_constant<int, 192>{}, I64{});
+    else return false;
+    return true;
+  }
+  return false;
+}
+
+// The one-pass width for n_valid keys at head dim dh (0: two passes):
+// the narrowest of 64, 128, 192, 200, 256 at Dh 64 (64, 128, 192 with the
+// mask) and 64 at Dh 192 that covers n_valid (the Python
+// attention_fwd_f32_columns).
+int one_pass_nk(int dh, int n_valid, bool masked) {
+  const int tiles = (n_valid + BM - 1) / BM;
+  if (dh == 192) return tiles == 1 ? 64 : 0;
+  if (masked) return tiles <= 3 ? 64 * tiles : 0;
+  if (tiles == 4 && n_valid <= 200) return 200;
+  return tiles <= 4 ? 64 * tiles : 0;
+}
+
+cudaError_t run(const void* qkv, void* out, void* lse, const void* mask, int batch, int n,
+                int heads, int dh, int n_valid, float scale, float keep, int nk, void* stream) {
+  if (batch < 0 || n < 1 || n > kMaxN || heads < 1 || n_valid < 1 || n_valid > n ||
+      (dh != 64 && dh != 192) || (mask != nullptr && !(keep > 0.f && keep <= 1.f)) ||
+      (nk > 0 && nk < n_valid))
+    return cudaErrorInvalidValue;
+  if (batch == 0) return cudaSuccess;
+  Params p{};
+  cudaError_t e = hw::map_packed_f32(&p.qkv, qkv, batch, n, 3 * heads * dh, BM);
+  if (e != cudaSuccess) return e;
+  p.out = static_cast<float*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.mask = static_cast<const uint8_t*>(mask);
+  // A TMA box of the mask's rows needs their stride on 16 bytes; a row of
+  // at least one 64-key box keeps every box inside the tensor's width.
+  p.mask_tma = mask != nullptr && n % 16 == 0 && n >= BM;
+  if (p.mask_tma) {
+    e = hw::map_mask_u8(&p.mask_map, mask, static_cast<long long>(batch) * heads * n, n);
+    if (e != cudaSuccess) return e;
+  }
+  p.heads = heads;
+  p.n = n;
+  p.n_valid = n_valid;
+  p.q_tiles = (n + BM - 1) / BM;
+  p.k_tiles = (n_valid + BM - 1) / BM;
+  p.scale = scale;
+  p.keep = mask != nullptr ? keep : 1.f;
+  const int items = batch * heads * p.q_tiles;
+  auto s = static_cast<cudaStream_t>(stream);
+  e = cudaErrorInvalidValue;
+  if (mask != nullptr)
+    with_instance<true>(dh, nk, [&](auto D, auto K) {
+      e = launch<decltype(D)::value, decltype(K)::value, true>(p, items, s);
+    });
+  else
+    with_instance<false>(dh, nk, [&](auto D, auto K) {
+      e = launch<decltype(D)::value, decltype(K)::value, false>(p, items, s);
+    });
+  return e;
 }
 
 }  // namespace
@@ -263,42 +478,34 @@ extern "C" int sfc_packed_attention_f32(const void* qkv, void* out, void* lse,
                                         const void* mask, int batch, int n, int heads,
                                         int dh, int n_valid, float scale, float keep,
                                         void* stream) {
-  if (batch < 0 || n < 1 || n > 1024 || heads < 1 || n_valid < 1 || n_valid > n)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0) return 0;
-  const auto* q = static_cast<const float*>(qkv);
-  auto* o = static_cast<float*>(out);
-  auto* ls = static_cast<float*>(lse);
-  const auto* mk = static_cast<const uint8_t*>(mask);
-  auto* s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dh == 64)
-    err = launch_dh<64>(q, o, ls, mk, batch, n, heads, n_valid, scale, keep, s);
-  else if (dh == 192)
-    err = launch_dh<192>(q, o, ls, mk, batch, n, heads, n_valid, scale, keep, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  const int nk = n_valid >= 1 ? one_pass_nk(dh, n_valid, mask != nullptr) : 0;
+  return static_cast<int>(
+      run(qkv, out, lse, mask, batch, n, heads, dh, n_valid, scale, keep, nk, stream));
+}
+
+// The same in the form nk names (the one-pass key columns, 0 for two
+// passes; nk >= n_valid): a timing instrument for where the one-pass form
+// should give way to two passes.
+extern "C" int sfc_packed_attention_f32_form(const void* qkv, void* out, void* lse,
+                                             const void* mask, int batch, int n, int heads,
+                                             int dh, int n_valid, float scale, float keep,
+                                             int nk, void* stream) {
+  return static_cast<int>(
+      run(qkv, out, lse, mask, batch, n, heads, dh, n_valid, scale, keep, nk, stream));
 }
 
 // Registers, local bytes and shared bytes of the instance for dh (64 or
-// 192), masked or not.
-extern "C" int sfc_packed_attention_f32_attrs(int dh, int masked, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err;
-  size_t smem;
-  if (dh == 64) {
-    smem = smem_bytes<64>();
-    err = masked ? cudaFuncGetAttributes(&attr, packed_attn_f32_kernel<64, true>)
-                 : cudaFuncGetAttributes(&attr, packed_attn_f32_kernel<64, false>);
-  } else {
-    smem = smem_bytes<192>();
-    err = masked ? cudaFuncGetAttributes(&attr, packed_attn_f32_kernel<192, true>)
-                 : cudaFuncGetAttributes(&attr, packed_attn_f32_kernel<192, false>);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = static_cast<int>(attr.sharedSizeBytes + smem);
-  return 0;
+// 192), nk one-pass key columns (64, 128, 192, 200 or 256 at dh 64, to
+// 192 masked; 64 at dh 192; 0: two passes), masked or not.
+extern "C" int sfc_packed_attention_f32_attrs(int dh, int nk, int masked, int* out) {
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (masked)
+    with_instance<true>(dh, nk, [&](auto D, auto K) {
+      err = attrs<decltype(D)::value, decltype(K)::value, true>(out);
+    });
+  else
+    with_instance<false>(dh, nk, [&](auto D, auto K) {
+      err = attrs<decltype(D)::value, decltype(K)::value, false>(out);
+    });
+  return err;
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels (#1's, #5's
 // and #7's attention, #8-#11, #13, #14, the GEMM under #1-#6, #15 and #16, and
-// the attention backward of #4 and #6): TMA tensor maps built on the host,
+// the attention backward of #4 and #6, in bf16 and, through attn_f32.cuh,
+// in fp32): TMA tensor maps built on the host,
 // TMA loads, stores and reduce-adds, plain bulk copies, mbarriers, the
 // grid of a persistent kernel, warpgroup matrix multiplies (wgmma) on
 // 128-byte-swizzled shared tiles, and thread-block clusters (distributed
@@ -87,6 +88,29 @@ inline cudaError_t map_bnhd_f32(CUtensorMap* m, void* base, int batch, int n, in
   const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides, box, unit,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A row-major fp32 tensor [batch, n, cols] (cols a multiple of 32, rows on
+// 16 bytes: the packed projection [B, N, 3 H Dh], or att and its cotangent
+// [B, N, H Dh]) as a 4-d map (32, cols / 32, n, batch) whose box is `rows`
+// rows x 32 columns (one 128-byte-swizzled fp32 row) of one batch entry:
+// the fp32 counterpart of map_bnhd.  Columns 64 s .. 64 s + 63 (sub-head s)
+// are boxes 2 s and 2 s + 1.  Rows past n read as zero, so a tile never
+// reads the next image's rows.
+inline cudaError_t map_packed_f32(CUtensorMap* m, const void* base, int batch, int n, int cols,
+                                  int rows) {
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t row = static_cast<cuuint64_t>(cols) * 4;
+  const cuuint64_t dims[4] = {32, (cuuint64_t)cols / 32, (cuuint64_t)n, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {128, row, row * n};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -754,6 +778,38 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t da, uint6
       ", %32, %33, p, 1, 1;\n}\n"
       : SFC_WGMMA_D32
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n64, fp32) = A . B (+ d when accumulate), tf32, A's k8 slice from
+// registers (as above), B K-major at the descriptor db + OB formed inside
+// the asm: the fp32 attention's products (csrc/attn_f32.cuh), 64 columns
+// of a logits tile or of a 64-column sub-head of the output.  A first
+// product that overwrites d (accumulate 0) leaves no instruction of the
+// thread's own defining the accumulators between products.
+template <int OB>
+__device__ __forceinline__ void wgmma_tf32_rs_n64_at(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .b64 b;\n .reg .pred p;\n setp.ne.b32 p, %38, 0;\n"
+      " add.s64 b, %36, %37;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SFC_WGMMA_REGS32
+      ", {%32, %33, %34, %35}, b, p, 1, 1;\n}\n"
+      : SFC_WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB), "r"(accumulate));
+}
+
+// The same over 8 columns (m64n8: ViT-B's 196 keys held as 200 columns,
+// the last 8 of a fourth key tile).
+template <int OB>
+__device__ __forceinline__ void wgmma_tf32_rs_n8_at(float (&d)[4], const uint32_t (&a)[4],
+                                                    uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .b64 b;\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+      " add.s64 b, %8, %9;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}"
+      ", {%4, %5, %6, %7}, b, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB), "r"(accumulate));
 }
 
 #undef SFC_WGMMA_D64

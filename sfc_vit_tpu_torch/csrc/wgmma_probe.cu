@@ -24,11 +24,17 @@
 //          cores take of the 13 bits below TF32's mantissa shows here);
 //  form 1: A K-major from shared memory, as given;
 //  form 2: the 3xTF32 split of both (A split in registers, B's big and
-//          small tiles written by the threads): gemm_f32.cu's arithmetic.
+//          small tiles written by the threads): gemm_f32.cu's arithmetic;
+//  form 3: the fp32 attention's P V (csrc/attn_f32.cuh), over a depth of 64
+//          (eight k8 steps): A [64 m][64 k] held as an m64n64 accumulator
+//          and taken as the A operand under the key permutation (a_perm),
+//          B stored [K = 64][N = 64] (as V is, [key][Dh]) brought by
+//          map_packed_f32 and written transposed into K-major big and small
+//          tiles (split_transposed), the three products by attn_f32::mma3.
 // sfc_tf32_round applies the device's cvt.rna.tf32.f32 and gemm_f32.cu's
 // split elementwise.
 
-#include "sm90.cuh"
+#include "attn_f32.cuh"
 
 namespace {
 
@@ -178,6 +184,46 @@ __global__ void __launch_bounds__(128) wgmma_probe_tf32(const __grid_constant__ 
         d[(r + 8 * hf) * 64 + 8 * j + c0 + e] = acc[4 * j + 2 * hf + e];
 }
 
+__global__ void __launch_bounds__(128) wgmma_probe_perm(const __grid_constant__ CUtensorMap bmap,
+                                                        const float* __restrict__ a,
+                                                        float* __restrict__ d) {
+  namespace af = sfc::attn_f32;
+  using S = af::Smem<1>;
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  S& sm = hw::aligned_smem<S>(dyn);
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  if (t == 0) {
+    hw::bar_init(&sm.full[0], 1);
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+  if (t == 0) af::load_sub(sm, 0, &bmap, 0, 0, 0);
+  af::split_entry(sm, 0, true);
+
+  const int r = warp * 16 + lane / 4, c0 = 2 * (lane % 4);
+  float x[32], acc[32];  // A in the accumulator's layout
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) x[4 * j + 2 * hf + e] = a[(r + 8 * hf) * 64 + 8 * j + c0 + e];
+  uint64_t db, dsm;
+  af::pair_desc(sm, db, dsm);
+  uint32_t fb[2][4], fs[2][4];
+  af::mma3<64, 8>(
+      acc, db, dsm, [&](auto kk, float (&v)[4]) { af::a_perm(x, decltype(kk)::value, v); }, fb,
+      fs, 0);
+  af::drain(acc);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        d[(r + 8 * hf) * 64 + 8 * j + c0 + e] = acc[4 * j + 2 * hf + e];
+}
+
 __global__ void tf32_round_kernel(const float* __restrict__ x, float* __restrict__ y,
                                   float* __restrict__ big, float* __restrict__ small, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -194,11 +240,23 @@ __global__ void tf32_round_kernel(const float* __restrict__ x, float* __restrict
 }  // namespace
 
 // a fp32 [64][32] (M, K) and b fp32 [64][32] (N, K) contiguous, d fp32
-// [64][64]; form in 0..2 (see above).
+// [64][64]; form in 0..2 (see above).  Form 3: a fp32 [64][64] (M, K) and
+// b fp32 [64][64] (K, N).
 extern "C" int sfc_wgmma_probe_tf32(const void* a, const void* b, void* d, int form,
                                     void* stream) {
-  if (form < 0 || form > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (form < 0 || form > 3) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap bmap;
+  if (form == 3) {
+    namespace af = sfc::attn_f32;
+    cudaError_t e = hw::map_packed_f32(&bmap, b, 1, 64, 64, 64);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int smem = af::kSmemBytes<1>;
+    e = cudaFuncSetAttribute(wgmma_probe_perm, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    wgmma_probe_perm<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+        bmap, static_cast<const float*>(a), static_cast<float*>(d));
+    return static_cast<int>(cudaGetLastError());
+  }
   cudaError_t e = hw::map_2d_f32(&bmap, b, 32, 64, 64);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int smem = static_cast<int>(sizeof(ProbeTf32Smem)) + 1024;

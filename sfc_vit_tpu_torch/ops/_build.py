@@ -62,7 +62,9 @@ __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "GEMM_LN_MAX_CLUSTER",
            "act_bf16", "act_f32", "colsum", "gemm_f32", "gemm_f32_split", "GEMM_F32_TILE",
            "GEMM_F32_BLOCK_K", "GEMM_F32_MIN_SPLIT_BLOCKS", "attention_fwd",
-           "attention_bwd", "F32_KERNEL_FORMS",
+           "attention_bwd", "F32_KERNEL_FORMS", "PACKED_ATTENTION_F32_FORMS",
+           "PACKED_ATTENTION_F32_MASKED_FORMS",
+           "attention_fwd_f32_form", "attention_fwd_f32_columns",
            "ATTENTION_HEAD_DIMS", "PACKED_MAX_N",
            "PACKED_ONE_PASS_MAX_N", "PACKED_ONE_PASS_MAX_N_MASKED",
            "PACKED_ATTENTION_FORMS", "PACKED_ATTENTION_MASKED_FORMS", "attention_fwd_route",
@@ -108,6 +110,8 @@ _SIGNATURES = {
     "sfc_act_f32": (_P, _P, _L, _I, _P),
     # qkv, out, lse, mask; batch, n, heads, dh, n_valid; scale, keep, stream
     "sfc_packed_attention_f32": (_P,) * 4 + (_I,) * 5 + (_F, _F, _P),
+    # the same; the one-pass key columns (0: two passes), stream
+    "sfc_packed_attention_f32_form": (_P,) * 4 + (_I,) * 5 + (_F, _F, _I, _P),
     # qkv, att, datt, lse, mask, delta, dqkv; batch, n, heads, dh, n_valid;
     # scale, keep, stream
     "sfc_attention_bwd_f32": (_P,) * 7 + (_I,) * 5 + (_F, _F, _P),
@@ -156,9 +160,10 @@ _SIGNATURES = {
     "sfc_gemm_attrs": (_I, _P),
     "sfc_attention_bwd_sm90_attrs": (_I, _P),
     "sfc_gather_project_attrs": (_I, _P),
-    # form, out[3] | dh, masked, out[3] | dh, masked, dkv, out[3] | out[3]
+    # form, out[3] | dh, one-pass key columns, masked, out[3] | dh, masked,
+    # dkv, out[3] | out[3]
     "sfc_gemm_f32_attrs": (_I, _P),
-    "sfc_packed_attention_f32_attrs": (_I, _I, _P),
+    "sfc_packed_attention_f32_attrs": (_I, _I, _I, _P),
     "sfc_attention_bwd_f32_attrs": (_I, _I, _I, _P),
     "sfc_gather_project_f32_attrs": (_P,),
 }
@@ -853,8 +858,10 @@ def attention_fwd(qkv: torch.Tensor, heads: int, n_valid: int,
     [B, N, H*Dh] (Dh 64 or 192, N at most :data:`PACKED_MAX_N`: a longer
     row raises): bf16 on ``csrc/packed_attn_sm90.cu``, in the form
     :func:`attention_fwd_route` names, fp32 on ``csrc/packed_attn_f32.cu``
-    (#5 and #7 in float32; the divisions by l and by keep correctly
-    rounded, no rounding to a narrower type): keys at or past ``n_valid`` masked,
+    (#1, #5 and #7 in float32, 3xTF32 on ``wgmma``, one pass over the
+    columns :func:`attention_fwd_f32_columns` names or two passes; the
+    divisions by l and by keep correctly rounded, no rounding to a narrower
+    type): keys at or past ``n_valid`` masked,
     P normalised, then rounded, before its product with V.  ``with_lse``
     also returns the fp32 log-sum-exp of every softmax row, [B, H, N],
     taken before any dropout.  ``mask`` (bool or uint8 0/1 [B, H, N, N])
@@ -873,6 +880,48 @@ def attention_fwd(qkv: torch.Tensor, heads: int, n_valid: int,
     _check(fn(
         qkv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(mask), b, n, heads, dh, n_valid,
         scale, keep, _stream()), "attention_fwd")
+    return (out, lse) if with_lse else out
+
+
+def attention_fwd_f32_columns(dh: int, n_valid: int, masked: bool = False) -> int:
+    """The key columns ``csrc/packed_attn_f32.cu`` holds in one pass for
+    ``n_valid`` keys: the narrowest of 64, 128, 192, 200 and 256 at Dh 64
+    (:data:`PACKED_ONE_PASS_MAX_N`; 200 for ViT-B's 196; with the mask 64,
+    128 and 192, :data:`PACKED_ONE_PASS_MAX_N_MASKED`) and 64 at Dh 192
+    that covers ``n_valid``, else 0 (two passes)."""
+    tiles = -(-n_valid // 64)
+    limits = PACKED_ONE_PASS_MAX_N_MASKED if masked else PACKED_ONE_PASS_MAX_N
+    if n_valid > limits.get(dh, 0):
+        return 0
+    return 200 if dh == 64 and tiles == 4 and n_valid <= 200 else 64 * tiles
+
+
+def attention_fwd_f32_form(qkv: torch.Tensor, heads: int, n_valid: int, scale: float,
+                           columns: int, with_lse: bool = False,
+                           mask: Optional[torch.Tensor] = None, keep: float = 1.0):
+    """:func:`attention_fwd` in fp32 through the instance of
+    ``csrc/packed_attn_f32.cu`` that holds ``columns`` key columns in one
+    pass (0: two passes; :data:`PACKED_ATTENTION_F32_FORMS`, ``columns >=
+    n_valid``; with ``mask`` :data:`PACKED_ATTENTION_F32_MASKED_FORMS`),
+    whatever :func:`attention_fwd_f32_columns` would pick: a timing
+    instrument for where one pass should give way to two (the same formula
+    either way); on no model's path."""
+    dh = qkv.shape[-1] // (3 * heads)
+    forms = PACKED_ATTENTION_F32_MASKED_FORMS if mask is not None else PACKED_ATTENTION_F32_FORMS
+    if (dh, columns) not in forms.values() or 0 < columns < n_valid:
+        raise ValueError(f"attention_fwd_f32_form: no instance of {columns} columns at Dh "
+                         f"{dh} for {n_valid} keys")
+    mask = _mask_u8(mask)
+    b, n, inner, dh = _check_packed(qkv, heads, n_valid, "attention_fwd_f32_form", mask, keep)
+    if qkv.dtype != torch.float32 or n > PACKED_MAX_N:
+        raise ValueError("attention_fwd_f32_form: fp32 qkv of at most "
+                         f"{PACKED_MAX_N} tokens")
+    out = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
+           if with_lse else None)
+    _check(library().sfc_packed_attention_f32_form(
+        qkv.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(mask), b, n, heads, dh, n_valid,
+        scale, keep, columns, _stream()), "attention_fwd_f32_form")
     return (out, lse) if with_lse else out
 
 
@@ -896,7 +945,8 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
     for the dropout form, the forward's ``mask`` and ``keep``: bf16 on the
     kernel :func:`attention_bwd_route` names, fp32 (the same dtype for
     ``att`` and ``datt``; #6's dropout form, or #4's without a mask) on
-    ``csrc/attention_bwd_f32.cu``'s two kernels (dq, then dk and dv)."""
+    ``csrc/attention_bwd_f32.cu``'s two kernels (dq, then dk and dv; 3xTF32
+    on ``wgmma``)."""
     mask = _mask_u8(mask)
     b, n, inner, dh = _check_packed(qkv, heads, n_valid, "attention_bwd", mask,
                                     keep)
@@ -1189,7 +1239,7 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor, form: str) -> torch.Tensor:
 
 
 #: The TF32 operand forms of :func:`wgmma_probe_tf32`.
-WGMMA_TF32_FORMS = ("rs", "ss", "rs_split")
+WGMMA_TF32_FORMS = ("rs", "ss", "rs_split", "rs_perm_split")
 
 
 def wgmma_probe_tf32(a: torch.Tensor, b: torch.Tensor, form: str) -> torch.Tensor:
@@ -1199,13 +1249,19 @@ def wgmma_probe_tf32(a: torch.Tensor, b: torch.Tensor, form: str) -> torch.Tenso
     (N, K), B K-major by TMA into a 128-byte-swizzled tile; A from
     registers (``rs``) or shared memory (``ss``) with its fp32 bits as
     given, or both split as ``csrc/gemm_f32.cu`` splits them (``rs_split``,
-    three products).  A test of the TF32 fragment layout and descriptors,
-    and of what the tensor cores take of an unrounded fp32 operand; on no
-    model's path."""
+    three products).  ``rs_perm_split``: fp32 [64, 64] = A @ B from ``a``
+    [64, 64] (M, K) and ``b`` [64, 64] stored (K, N), as the fp32
+    attention's P V runs (``csrc/attn_f32.cuh``): A held as an accumulator
+    and taken under the key permutation, B brought by TMA and written
+    transposed, both split, three products over eight k8 steps.  A test of
+    the TF32 fragment layout, descriptors and the permutation, and of what
+    the tensor cores take of an unrounded fp32 operand; on no model's
+    path."""
     if form not in WGMMA_TF32_FORMS:
         raise ValueError(f"wgmma_probe_tf32: form {form!r} not in {WGMMA_TF32_FORMS}")
-    _require(a, "a", (64, 32), torch.float32)
-    _require(b, "b", (64, 32), torch.float32)
+    k = 64 if form == "rs_perm_split" else 32
+    _require(a, "a", (64, k), torch.float32)
+    _require(b, "b", (64, k), torch.float32)
     d = torch.empty((64, 64), dtype=torch.float32, device=a.device)
     _check(library().sfc_wgmma_probe_tf32(a.data_ptr(), b.data_ptr(), d.data_ptr(),
                                           WGMMA_TF32_FORMS.index(form), _stream()),
@@ -1263,17 +1319,30 @@ LN_ROWS_BWD_FORMS = ("ln_rows_bwd dxn fp32", "ln_rows_bwd dxn bf16", "ln_rows_bw
                      "ln_rows_bwd fp32")
 
 
+#: ``csrc/packed_attn_f32.cu``'s instances: (head dim, key columns held in
+#: one pass, 0 for two passes) by name; :func:`attention_fwd_f32_columns`
+#: picks one.
+PACKED_ATTENTION_F32_FORMS = {
+    f"packed_attention_f32 dh{dh} "
+    f"{f'one pass {nk} keys' if nk else 'two passes'}": (dh, nk)
+    for dh, nk in ((64, 64), (64, 128), (64, 192), (64, 200), (64, 256), (64, 0), (192, 64),
+                   (192, 0))}
+#: Its instances with #5's mask, one pass to :data:`PACKED_ONE_PASS_MAX_N_MASKED`.
+PACKED_ATTENTION_F32_MASKED_FORMS = {
+    f"{name} masked": (dh, nk) for name, (dh, nk) in PACKED_ATTENTION_F32_FORMS.items()
+    if nk <= PACKED_ONE_PASS_MAX_N_MASKED[dh]}
+
 #: The fp32 kernels (float32 compute of #1-#7 and #14) by name: the GEMM's
 #: (``csrc/gemm_f32.cu``, 3xTF32 on ``wgmma``) three layouts by activation
 #: kind (none, act, act') and its column sums' stripe sum;
-#: the attention forward and backward with #5's and #6's mask and without
-#: it (#1, #4, #7); #14.
+#: the attention forward's instances (:data:`PACKED_ATTENTION_F32_FORMS`)
+#: and backward's kernels with #5's and #6's mask and without it (#1, #4,
+#: #7), 3xTF32 on ``wgmma`` too; #14.
 F32_KERNEL_FORMS = (
     *(f"gemm_f32 {layout}{kind}" for layout in ("NN", "NT", "TN")
       for kind in ("", " act", " act'")),
     "gemm_f32 column sums",
-    "packed_attention_f32 dh64", "packed_attention_f32 dh64 masked",
-    "packed_attention_f32 dh192", "packed_attention_f32 dh192 masked",
+    *PACKED_ATTENTION_F32_FORMS, *PACKED_ATTENTION_F32_MASKED_FORMS,
     *(f"attention_bwd_f32 {part} dh{dh}{' masked' if mk else ''}"
       for dh in (64, 192) for mk in (1, 0) for part in ("dq", "dkv")),
     "gather_project_f32")
@@ -1282,8 +1351,10 @@ F32_KERNEL_FORMS = (
 def _f32_attr_calls(lib) -> dict:
     """:data:`F32_KERNEL_FORMS` -> a call filling an int[3] of attributes."""
     calls = [lambda a, i=i: lib.sfc_gemm_f32_attrs(i, a) for i in range(10)]
-    calls += [lambda a, dh=dh, mk=mk: lib.sfc_packed_attention_f32_attrs(dh, mk, a)
-              for dh in (64, 192) for mk in (0, 1)]
+    calls += [lambda a, dh=dh, nk=nk, mk=mk: lib.sfc_packed_attention_f32_attrs(dh, nk, mk, a)
+              for mk, forms in ((0, PACKED_ATTENTION_F32_FORMS),
+                                (1, PACKED_ATTENTION_F32_MASKED_FORMS))
+              for dh, nk in forms.values()]
     calls += [lambda a, dh=dh, mk=mk, p=p: lib.sfc_attention_bwd_f32_attrs(dh, mk, p, a)
               for dh in (64, 192) for mk in (1, 0) for p in (0, 1)]
     calls.append(lib.sfc_gather_project_f32_attrs)

@@ -1339,11 +1339,13 @@ def test_colsum_f32_matches_sum(cuda):
 
 #: (b, n, heads, dh, n_valid): the notebook's layer ([32, 64], 4 heads of
 #: 64), the flagship's fp32 layer (4 heads of 192), 'hier''s fusion
-#: length, ragged rows and key limits, and the longest rows, 1,024 tokens
-#: (the 1-D tokenizer at patch 1).
+#: length, ragged rows and key limits, the longest rows, 1,024 tokens
+#: (the 1-D tokenizer at patch 1), ViT-B's 196 tokens (one pass over 200
+#: key columns) and a ragged row just past the one-pass width (two passes).
 _ATTN_F32_SHAPES = [(32, 64, 4, 64, 64), (64, 64, 4, 192, 64), (4, 64, 4, 192, 50),
                     (2, 192, 4, 64, 192), (3, 200, 2, 192, 130), (2, 1024, 2, 64, 1024),
-                    (1, 1024, 2, 192, 1000), (2, 24, 2, 64, 20)]
+                    (1, 1024, 2, 192, 1000), (2, 24, 2, 64, 20), (4, 196, 12, 64, 196),
+                    (2, 300, 2, 64, 257)]
 
 
 @pytest.mark.gpu
@@ -1375,6 +1377,71 @@ def test_attention_f32_matches_plain(cuda, b, n, heads, dh, n_valid, masked):
         _within(part(dqkv), part(want_d), F32_TOL, name)
     assert torch.equal(_build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s,
                                             mask=mask, keep=keep), dqkv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dh, n, n_valid", [(64, 130, 60), (64, 256, 196), (192, 70, 50)])
+def test_attention_f32_forms_match_plain(cuda, dh, n, n_valid, masked):
+    """Every instance of csrc/packed_attn_f32.cu that covers n_valid (one
+    pass over each width of key columns, and two passes), forced by
+    _build.attention_fwd_f32_form, against attention_fwd_ref (out and lse)
+    with and without #5's mask: the forms compute the same formula."""
+    rng = np.random.default_rng(66)
+    b, heads = 2, 2
+    qkv = _f32(rng, b, n, 3 * heads * dh)
+    mask = torch.from_numpy(rng.random((b, heads, n, n)) < 0.9).to(cuda) if masked else None
+    keep = 0.9 if masked else 1.0
+    s = dh ** -0.5
+    want, want_lse = attention_fwd_ref(qkv, heads, n_valid, s, mask=mask, keep=keep)
+    table = (_build.PACKED_ATTENTION_F32_MASKED_FORMS if masked
+             else _build.PACKED_ATTENTION_F32_FORMS)
+    forms = [nk for d, nk in table.values() if d == dh and (nk == 0 or nk >= n_valid)]
+    assert _build.attention_fwd_f32_columns(dh, n_valid, masked) in forms and 0 in forms
+    for nk in forms:
+        att, lse = _build.attention_fwd_f32_form(qkv, heads, n_valid, s, nk, with_lse=True,
+                                                 mask=mask, keep=keep)
+        _within(att, want, F32_TOL, f"att, {nk} columns")
+        torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_attention_f32_runs_on_the_tensor_core_kernels(cuda):
+    """The fp32 attention forward and backward, masked and not, at Dh 64
+    and 192, one pass and two, launch csrc/packed_attn_f32.cu's and
+    csrc/attention_bwd_f32.cu's wgmma kernels (the profiler's kernel names)
+    and never the SIMT kernels they replaced."""
+    rng = np.random.default_rng(67)
+    calls = []
+    for b, n, heads, dh, n_valid in ((2, 196, 2, 64, 196), (2, 300, 2, 64, 300),
+                                     (4, 64, 2, 192, 64), (2, 130, 2, 192, 100)):
+        qkv, datt = _f32(rng, b, n, 3 * heads * dh), _f32(rng, b, n, heads * dh)
+        for masked in (False, True):
+            mask = (torch.from_numpy(rng.random((b, heads, n, n)) < 0.9).to(cuda)
+                    if masked else None)
+            keep = 0.9 if masked else 1.0
+            s = dh ** -0.5
+            att, lse = _build.attention_fwd(qkv, heads, n_valid, s, with_lse=True, mask=mask,
+                                            keep=keep)
+            calls.append(lambda qkv=qkv, mask=mask, keep=keep, h=heads, nv=n_valid, s=s:
+                         _build.attention_fwd(qkv, h, nv, s, with_lse=True, mask=mask, keep=keep))
+            calls.append(lambda qkv=qkv, att=att, datt=datt, lse=lse, mask=mask, keep=keep,
+                         h=heads, nv=n_valid, s=s:
+                         _build.attention_bwd(qkv, att, datt, lse, h, nv, s, mask=mask,
+                                              keep=keep))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    for new in ("packed_attn_f32_sm90", "attention_bwd_f32_dq_sm90",
+                "attention_bwd_f32_dkv_sm90"):
+        assert any(new in nm for nm in names), (new, names)
+    for old in ("packed_attn_f32_kernel", "attention_bwd_f32_dq_kernel",
+                "attention_bwd_f32_dkv_kernel"):
+        assert not any(old in nm for nm in names), (old, names)
 
 
 @pytest.mark.gpu
@@ -1627,6 +1694,28 @@ def test_wgmma_probe_tf32_rejects_what_it_does_not_take():
         _build.tf32_round(a)
 
 
+def test_attention_fwd_f32_columns():
+    """The fp32 forward's one-pass widths: the narrowest instance that
+    covers n_valid (200 for ViT-B's 196), two passes (0) past 256 keys at
+    Dh 64 (192 with the mask) and past 64 at Dh 192; each an instance of
+    PACKED_ATTENTION_F32_FORMS (or its masked table), which the forced form
+    refuses to run short."""
+    want = {(64, 1): 64, (64, 64): 64, (64, 65): 128, (64, 192): 192, (64, 196): 200,
+            (64, 200): 200, (64, 201): 256, (64, 256): 256, (64, 257): 0, (64, 1024): 0,
+            (192, 50): 64, (192, 64): 64, (192, 65): 0}
+    for (dh, n_valid), nk in want.items():
+        assert _build.attention_fwd_f32_columns(dh, n_valid) == nk, (dh, n_valid)
+        assert (dh, nk) in _build.PACKED_ATTENTION_F32_FORMS.values()
+    # with the mask: one pass to 192 keys at Dh 64
+    for (dh, n_valid), nk in {(64, 192): 192, (64, 196): 0, (64, 100): 128, (192, 64): 64,
+                              (192, 65): 0}.items():
+        assert _build.attention_fwd_f32_columns(dh, n_valid, masked=True) == nk, (dh, n_valid)
+        assert (dh, nk) in _build.PACKED_ATTENTION_F32_MASKED_FORMS.values()
+    qkv = torch.zeros(1, 100, 3 * 64)
+    with pytest.raises(ValueError, match="no instance"):
+        _build.attention_fwd_f32_form(qkv, 1, 100, 0.125, 64)
+
+
 #: fp32 values at the edges of TF32's rounding (ties, a carry into the next
 #: binade and past the largest finite value, subnormals, zeros, inf, NaN).
 _TF32_EDGES = [1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11, 1 + 2 ** -11 - 2 ** -23,
@@ -1657,27 +1746,37 @@ def test_tf32_round_matches_plain_bit_for_bit(cuda):
     assert bool(torch.isnan(small[torch.isnan(x)]).all())
 
 
-def _probe_operands(rng, cuda, exact: bool):
-    """a [64, 32] and b [64, 32] fp32 (b as stored, [N, K]); exact: rounded
-    to TF32 first, so any product of them is exact in fp32."""
+def _probe_operands(rng, cuda, exact: bool, k: int = 32):
+    """a [64, k] and b [64, k] fp32 (b as stored, [N, K]; for k 64, the
+    permuted form's, [K, N]); exact: rounded to TF32 first, so any product
+    of them is exact in fp32."""
     from sfc_vit_tpu_torch.ops.kernel_utils import tf32_round
-    a, b = (torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32)) for _ in "ab")
+    a, b = (torch.from_numpy(rng.standard_normal((64, k)).astype(np.float32)) for _ in "ab")
     if exact:
         a, b = tf32_round(a), tf32_round(b)
     return a.to(cuda), b.to(cuda)
 
 
+def _probe_product(a, b, form):
+    """The probe form's product in fp64 (b as the form stores it)."""
+    return a.double() @ (b.double() if form == "rs_perm_split" else b.double().T)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("form", _build.WGMMA_TF32_FORMS)
 def test_wgmma_probe_tf32_matches_matmul(cuda, form):
-    """One m64n64 TF32 wgmma over a depth of 32 in each operand form (A
-    from registers or K-major shared memory, B K-major by TMA; the 3xTF32
-    split of both) against fp64, on operands already TF32: every product
-    is exact, only the fp32 sum of 32 (the split: 96) terms errs."""
-    a, b = _probe_operands(np.random.default_rng(42), cuda, exact=True)
+    """One m64n64 TF32 wgmma product in each operand form (A from
+    registers or K-major shared memory, B K-major by TMA, over a depth of
+    32; the 3xTF32 split of both; the fp32 attention's P V over a depth of
+    64, A taken from an accumulator under the key permutation and B
+    written transposed) against fp64, on operands already TF32: every
+    product is exact, only the fp32 sum of K (the split: 3 K) terms errs."""
+    k = 64 if form == "rs_perm_split" else 32
+    a, b = _probe_operands(np.random.default_rng(42), cuda, exact=True, k=k)
     got = _build.wgmma_probe_tf32(a, b, form)
-    want = a.double() @ b.double().T
-    bound = 96 * 2 ** -24 * (a.double().abs() @ b.double().abs().T)
+    want = _probe_product(a, b, form)
+    mag = _probe_product(a.abs(), b.abs(), form)
+    bound = 3 * k * 2 ** -24 * mag
     assert bool(((got.double() - want).abs() <= bound).all())
 
 
@@ -1704,6 +1803,12 @@ def test_wgmma_probe_tf32_takes_the_top_19_bits(cuda):
         assert err_trunc <= 2 ** -17 < err_rna, (form, err_trunc, err_rna)
     split = _build.wgmma_probe_tf32(a, b, "rs_split").double()
     assert bool(((split - exact).abs() <= 2 ** -17 * mag).all())
+    # the fp32 attention's P V (the key permutation, B transposed): depth
+    # 64, so the fp32 sum of 192 terms may reach 2^-16.4
+    a, b = _probe_operands(np.random.default_rng(46), cuda, exact=False, k=64)
+    got = _build.wgmma_probe_tf32(a, b, "rs_perm_split").double()
+    exact, mag = a.double() @ b.double(), a.double().abs() @ b.double().abs()
+    assert bool(((got - exact).abs() <= 2 ** -16 * mag).all())
 
 
 #: (form, rows, k, n) at ViT-B/16's widths: #2's fc1 (NN, K 768 -> 3,072),
