@@ -174,10 +174,10 @@ Phases, each of which raises (non-zero exit) on failure:
    moved, one step's gradients and the served logits against the plain
    versions, train and forward img/s, a profile of the train step.
 14. notebook: the fp32 kernels of #5, #6, #7 and #14 (``csrc/gemm_f32.cu``,
-   ``packed_attn_f32.cu``, ``attention_bwd_f32.cu``: each fp32 product as
-   three TF32 products on ``wgmma``; ``gather_project_f32.cu``: SIMT FFMA)
-   against their plain
-   versions within 1e-4 of each tensor's largest |value| at the notebook's
+   ``packed_attn_f32.cu``, ``attention_bwd_f32.cu``,
+   ``gather_project_f32.cu``: each fp32 product as three TF32 products on
+   ``wgmma``; #14's also bit for bit twice and against fp64) against
+   their plain versions within 1e-4 of each tensor's largest |value| at the notebook's
    shapes (x [32, 64, 256], 4 heads of 64, mask at keep 0.9; its fused 2-D
    and 1-D tokenizers) and the flagship's fp32 ones ([512, 64, 768], 4 heads
    of 192; its three tokenizer levels), each timed beside its bound (the
@@ -185,15 +185,18 @@ Phases, each of which raises (non-zero exit) on failure:
    at fp32's 67, 3.35 TB/s; and every operation at 67) and a library call
    (torch.matmul fp32, each GEMM's product also against fp64; SDPA fp32
    without dropout, the attention's output also against fp64;
-   ``index_select`` + ``F.linear``); then
+   ``index_select`` + ``F.linear``); ``colsum`` (#6's bias gradients) at
+   the notebook's, the flagship's and 'hier''s shapes, bit for bit twice
+   and equal to its plain twin ``kernel_utils.colsum_fixed_order``, by graph replay beside
+   ``x.float().sum(0)`` and its byte bound; then
    ``build_model(preset_config("notebook"))`` trained 4 steps in fp32 at
    batch 32 (curves hilbert, raster, random), evaluated and served
    (``'random'`` refused by the engine), the same in bf16 with the fused
    tokenizer at batch 512 through the Hopper #5/#6/#7/#14, and the 1-D
    tokenizer at patch 4 (256 tokens), fused, in fp32 and bf16: launch
-   counts = layers x steps, eval batches and served forwards, every
-   parameter moved, one step's gradients and the served logits against
-   the plain versions.
+   counts = layers x steps (``colsum`` twice that), eval batches and
+   served forwards, every parameter moved, one step's gradients and the
+   served logits against the plain versions.
 15. ViT-B/16 at its own dtype (float32; the preset names none): (a) #1-#4
    in fp32 (``ln_rows`` / ``ln_rows_bwd``'s fp32 forms, ``csrc/gemm_f32.cu``
    with its epilogues, ``packed_attn_f32.cu`` and ``attention_bwd_f32.cu``
@@ -280,7 +283,7 @@ from sfc_vit_tpu_torch.ops.fused_mlp import (
     postnorm_tail_train_fwd,
     tail_fc2_route,
 )
-from sfc_vit_tpu_torch.ops.kernel_utils import ln_bwd_fp32
+from sfc_vit_tpu_torch.ops.kernel_utils import colsum_fixed_order, ln_bwd_fp32
 from sfc_vit_tpu_torch.models import VisionTransformer1D
 from sfc_vit_tpu_torch.registry import build_model, build_tokenizer, preset_config
 from sfc_vit_tpu_torch.serving import ServingEngine
@@ -1196,6 +1199,7 @@ _GEMM_LABELS = {"gemm_bf16_sm90<false, false, 3": "gemm_bf16 NN + LN2 (#15, clus
                 "gemm_bf16_sm90<false, true": "gemm_bf16 NT (dX, dz, datt)",
                 "gemm_bf16_sm90<true, false": "gemm_bf16 TN (weight gradients)",
                 "gemm_splitk_sum": "gemm_bf16 TN split-K sum",
+                "sfc::slice_sum_kernel": "slice_sum (colsum's and ln_rows_bwd's second launch)",
                 "attention_bwd_sm90<1, false": "attention_bwd_sm90 (#4)",
                 "attention_bwd_sm90": "attention_bwd_sm90 (#6: mask, Dh 192)",
                 "flash_fwd_sm90<false, false>": "flash_fwd streaming (#8)",
@@ -1223,7 +1227,7 @@ def _kernel_label(name: str) -> str:
 _PROFILE_ATTEMPTS = 3
 
 
-def _profile(fn, what: str, steps: int = 2, top: int = 14) -> None:
+def _profile(fn, what: str, steps: int = 2, top: int = 14, also: tuple = ()) -> None:
     """Device time by kernel over ``steps`` calls of ``fn`` (torch.profiler,
     CUPTI), and the idle share: 1 - kernel time / host wall time of the
     window, which ends in a synchronize.  Tracing adds a few us per launch
@@ -1236,7 +1240,8 @@ def _profile(fn, what: str, steps: int = 2, top: int = 14) -> None:
     CUDA events and the step's own timing; such a trace is taken again,
     and after ``_PROFILE_ATTEMPTS`` the breakdown is reported as not
     measured.
-    Kernel times elsewhere in this script come from CUDA events."""
+    Kernel times elsewhere in this script come from CUDA events.  Kernels
+    whose label starts with one of ``also`` are listed even past the top."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1279,7 +1284,10 @@ def _profile(fn, what: str, steps: int = 2, top: int = 14) -> None:
     if len(ranked) > top:
         rest = sum(us for _, us in ranked[top:])
         print(f"  {rest / busy:7.2%}  {rest / 1e3 / steps:9.3f} ms/call  "
-              f"{len(ranked) - top} other kernels")
+              f"{len(ranked) - top} other kernels, among them:")
+        for label, us in ranked[top:]:
+            if label.startswith(also):
+                print(f"  {us / busy:7.2%}  {us / 1e3 / steps:9.3f} ms/call  {label}")
 
 
 def _fa_inputs(gen, dgen):
@@ -2842,7 +2850,56 @@ def phase_notebook_kernels(card: str) -> dict:
                            packed_flash_attention_f32=t7)
         del fwd, saved, got, want, g_k, g_p, qkv, att, lse, mask
     results["gather_project_f32"] = _gp_f32_cases(card, gen)
+    results["colsum"] = _colsum_cases(card, gen)
     return results
+
+
+#: (rows, cols, dtype) of colsum, #6's bias gradients (db_out of gp, db_in
+#: of dqkv): the notebook's fp32 step at batch 32, the flagship's batch 512
+#: in bf16 and at its own fp32, 'hier''s and the notebook's bf16 at batch
+#: 512 (256 and 768 columns).  The first is the kernels line's.
+COLSUM_CASES = ((NB_B * NB_N, 3 * NB_D, torch.float32), (NB_B * NB_N, NB_D, torch.float32),
+                (FA_B * FA_N, FA_D, torch.bfloat16), (FA_B * FA_N, 3 * FA_D, torch.bfloat16),
+                (FA_B * FA_N, FA_D, torch.float32), (FA_B * FA_N, 3 * FA_D, torch.float32),
+                (FA_B * FA_N, 256, torch.bfloat16))
+
+
+def _colsum_cases(card: str, gen) -> dict:
+    """``_build.colsum`` at each of :data:`COLSUM_CASES`, bit for bit twice
+    and equal bit for bit to ``kernel_utils.colsum_fixed_order`` (its plain
+    twin, same plan), within 1e-4 of ``x.float().sum(0)`` (the one PyTorch
+    call for the same function), timed by graph replay in turns with it
+    (library, kernel, kernel, library) beside the byte bound (x read once,
+    the fp32 sums written once).  Returns the first case's entry of the
+    kernels line."""
+    first = None
+    for rows, cols, dt in COLSUM_CASES:
+        x = _randn(gen, rows, cols, dtype=dt)
+        want = x.float().sum(0)
+        label = f"[{rows}, {cols}] {str(dt).removeprefix('torch.')}"
+        got = _build.colsum(x)
+        plan = _build.colsum_plan(rows, cols, _build._sm_count(x.device))
+        _check(torch.equal(_build.colsum(x).view(torch.int32), got.view(torch.int32)),
+               f"colsum {label} differs on a second call")
+        twin = colsum_fixed_order(x, plan)
+        _check(torch.equal(twin.view(torch.int32), got.view(torch.int32)),
+               f"colsum {label} {plan} differs from colsum_fixed_order")
+        _frac_err(f"colsum {label}, {plan}", got, want, F32_TOL)
+        kern = lambda: _build.colsum(x)  # noqa: E731
+        lib = lambda: x.float().sum(0)  # noqa: E731
+        l1, t1, t2, l2 = (_graph_ms(f) for f in (lib, kern, kern, lib))
+        plain_ms = _ms(lambda: colsum_fixed_order(x, plan), iters=3)
+        nbytes = x.numel() * x.element_size() + 4 * cols
+        t = dict(max_abs_err=float((got - twin).abs().max()), ms=(t1 + t2) / 2,
+                 plain_ms=plain_ms, library_ms=(l1 + l2) / 2, **_bound(rows * cols, nbytes))
+        err64 = float((got.double() - x.double().sum(0)).abs().max())
+        print(f"colsum {label} (#6's bias gradients, by graph replay): {t['ms']:.4f} ms, "
+              f"x.float().sum(0) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}: {nbytes / 1e6:.1f} MB; {t['bound_ms'] / t['ms']:.0%} of it), "
+              f"plain twin {plain_ms:.3f} ms; bit for bit twice and equal to the twin; max abs "
+              f"err against fp64 {err64:.3g}; {card}")
+        first = first or t
+    return first
 
 
 def _packed_case_f32(card: str, qkv, heads: int) -> dict:
@@ -2872,8 +2929,15 @@ def _gp_f32_cases(card: str, gen) -> dict:
     """#14's fp32 form at the notebook's fused 2-D tokenizer (x [32, 64, 48],
     group 1; the kernels line), its 1-D tokenizer at patch 4 (x [32, 1024,
     3], group 4) and the flagship's three fp32 levels at batch 512, with a
-    random bias, against ``gather_project_ref``, by graph replay beside
-    ``index_select`` + ``F.linear``.  Returns the first case."""
+    random bias, against ``gather_project_ref`` and the fp64 product, bit for
+    bit twice, by graph replay beside ``index_select`` + ``F.linear``; the
+    kernel's instances' registers and shared memory first.  Returns the
+    first case."""
+    attrs = _build.flash_kernel_attrs()
+    for name in _build.GATHER_PROJECT_F32_FORMS:
+        a = attrs[name]
+        print(f"{name}: {a['registers']} registers, {a['local_bytes']} bytes local, "
+              f"{a['smem_bytes']} bytes shared a block")
     nb = preset_config("notebook", fused=True)
     flag = build_tokenizer(preset_config("flagship", fused=True))
     cases = [("2-D, notebook", build_tokenizer(nb).proj, NB_B, nb.patch_size),
@@ -2892,8 +2956,16 @@ def _gp_f32_cases(card: str, gen) -> dict:
         print(f"gather_project_f32 (#14), {label}: x [{bsz}, {n}, {kdim}], group {grp} -> "
               f"[{bsz}, {m}, {d}]:")
         with torch.no_grad():
-            err = _frac_err("out", gp.gather_project(x, lut, w, bias, grp),
-                            gp.gather_project_ref(x, lut, w, bias, grp), F32_TOL)
+            got = gp.gather_project(x, lut, w, bias, grp)
+            err = _frac_err("out", got, gp.gather_project_ref(x, lut, w, bias, grp), F32_TOL)
+            _check(torch.equal(gp.gather_project(x, lut, w, bias, grp), got),
+                   f"gather_project_f32 {label} differs on a second call")
+            a64 = x.index_select(1, lut.long()).reshape(bsz, m, grp * kdim).double()
+            exact = a64 @ w.double() + bias.double()
+            mag = a64.abs() @ w.double().abs() + bias.double().abs()
+            err64 = float((got.double() - exact).abs().max())
+            _check(bool(((got.double() - exact).abs() <= 2.0 ** -16 * mag).all()),
+                   f"gather_project_f32 {label}: over 2^-16 of |A| @ |W| + |bias| from fp64")
             wt, lut64 = w.t().contiguous(), lut.long()
             kern = lambda: gp.gather_project(x, lut, w, bias, grp)  # noqa: E731
             plain = lambda: gp.gather_project_ref(x, lut, w, bias, grp)  # noqa: E731
@@ -2901,9 +2973,9 @@ def _gp_f32_cases(card: str, gen) -> dict:
             lib_ms = _graph_ms(lambda: TF.linear(
                 x.index_select(1, lut64).reshape(bsz, m, grp * kdim), wt, bias))
         t = dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib_ms,
-                 **_bound_f32(2 * bsz * m * grp * kdim * d,
-                              4 * (bsz * n * kdim + grp * kdim * d + d + bsz * m * d)
-                              + 4 * m * grp))
+                 err64=err64,
+                 **_bound_f32(0.0, 4 * (bsz * n * kdim + grp * kdim * d + d + bsz * m * d)
+                              + 4 * m * grp, gemm_flops=2 * bsz * m * grp * kdim * d))
         _f32_row("gather_project_f32 (#14, by graph replay)", label, t, card,
                  "index_select + F.linear")
         first = first or t
@@ -2915,13 +2987,14 @@ def _notebook_counts() -> dict:
     return {"fused_torch_mha_f32": m.f32_launches, "fused_torch_mha_bwd_f32": m.f32_bwd_launches,
             "packed_flash_attention_f32": p.f32_launches, "gather_project_f32": g.f32_launches,
             "fused_torch_mha": m.launches, "fused_torch_mha_bwd": m.bwd_launches,
-            "packed_flash_attention": p.launches, "gather_project": g.launches}
+            "packed_flash_attention": p.launches, "gather_project": g.launches,
+            "colsum": _build.colsum.launches}
 
 
 def _reset_notebook_counts():
     m, p, g = fused_torch_mha, packed_flash_attention, gp.gather_project
     m.launches = m.bwd_launches = m.f32_launches = m.f32_bwd_launches = 0
-    p.launches = p.f32_launches = g.launches = g.f32_launches = 0
+    p.launches = p.f32_launches = g.launches = g.f32_launches = _build.colsum.launches = 0
 
 
 def _plain_notebook():
@@ -2972,7 +3045,8 @@ def _notebook_run(card: str, label: str, cfg, batch: int, timed: bool = False) -
     want.update({"fused_torch_mha" + suffix: layers * steps,
                  "fused_torch_mha_bwd" + suffix: layers * steps,
                  "packed_flash_attention" + suffix: layers,
-                 "gather_project" + suffix: (steps + 1) if fused else 0})
+                 "gather_project" + suffix: (steps + 1) if fused else 0,
+                 "colsum": 2 * layers * steps})
     print(f"{label}: launches over {steps} steps + 1 eval batch of {layers} layers: {counts}")
     _check(counts == want, f"{label}: launches {counts}, expected {want}")
     still = [nm for (nm, p), q in zip(model.named_parameters(), before) if torch.equal(p, q)]
@@ -3021,7 +3095,7 @@ def _notebook_run(card: str, label: str, cfg, batch: int, timed: bool = False) -
               f"{k_ms:.2f} ms = {batch / k_ms * 1e3:.1f} img/s, plain versions {p_ms:.2f} ms "
               f"= {batch / p_ms * 1e3:.1f} img/s, {card}")
         _profile(lambda: step(state, step_batch, gen, dgen),
-                 f"{label} train step at batch {batch}")
+                 f"{label} train step at batch {batch}", also=("colsum",))
     del state
 
     if cfg.curve == "random":
@@ -3616,6 +3690,9 @@ def main() -> int:
         dict(name="gather_project_f32", route="cuda",
              source="sfc_vit_tpu_torch/csrc/gather_project_f32.cu",
              replaces="sfc_vit_tpu/ops/gather_project.py:57"),
+        dict(name="colsum", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/colsum_bf16.cu",
+             replaces="sfc_vit_tpu/ops/fused_torch_attention.py:316"),
         dict(name="fused_attention_block_f32", route="cuda",
              source="sfc_vit_tpu_torch/csrc/packed_attn_f32.cu",
              replaces="sfc_vit_tpu/ops/fused_attention_block.py:104"),

@@ -109,4 +109,43 @@ __device__ __forceinline__ float act_grad(float z, int act) {
   return 1.f;
 }
 
+// out[i] = the sum of ws[b, i] over b < blocks, for i < total, in a fixed
+// order: warp w of kWarps sums rows w, w + kWarps, ... of ws in turn
+// (eight loads in flight), then warp 0 adds the warp sums in warp order.
+// A block of kWarps * 32 threads covers 32 consecutive i.  The column
+// sums of ln_rows_bwd.cu and colsum_bf16.cu add their blocks' partials so
+// (ops/kernel_utils.py::colsum_fixed_order is this order in PyTorch).  It
+// may be launched as a programmatic dependent of the kernel that writes
+// ws: griddepcontrol.wait holds it until that grid's writes are visible,
+// and returns at once in an ordinary launch.
+template <int kWarps>
+__global__ void __launch_bounds__(kWarps * 32)
+    slice_sum_kernel(const float* __restrict__ ws, float* __restrict__ out, int blocks,
+                     int total) {
+  __shared__ float part[kWarps][33];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int i = blockIdx.x * 32 + lane;
+  float t = 0.f;
+  if (i < total) {
+    int b = w;
+    for (; b + 7 * kWarps < blocks; b += 8 * kWarps) {
+      float v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = ws[static_cast<size_t>(b + k * kWarps) * total + i];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) t += v[k];
+    }
+    for (; b < blocks; b += kWarps) t += ws[static_cast<size_t>(b) * total + i];
+  }
+  part[w][lane] = t;
+  __syncthreads();
+  if (w == 0 && i < total) {
+    float s = part[0][lane];
+#pragma unroll
+    for (int k = 1; k < kWarps; ++k) s += part[k][lane];
+    out[i] = s;
+  }
+}
+
 }  // namespace sfc

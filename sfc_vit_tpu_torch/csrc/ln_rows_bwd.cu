@@ -49,10 +49,11 @@
 //    memory: two barriers for kRows rows.
 //  * Column sums in a fixed order: each block writes its partials to an
 //    fp32 workspace [blocks, nsum, D] (the wrapper's torch.empty), and a
-//    second launch sums them over the blocks in block order (32 strided
-//    ranges of blocks, then those 32 sums in order).  Every row's block
-//    and every sum's order depend only on the shape and the card, so a
-//    second call gives the same bits.  The outputs need no zeroing.
+//    second launch (common.cuh's slice_sum_kernel) sums them over the
+//    blocks in block order (32 strided ranges of blocks, then those 32
+//    sums in order).  Every row's block and every sum's order depend only
+//    on the shape and the card, so a second call gives the same bits.
+//    The outputs need no zeroing.
 
 #include "common.cuh"
 
@@ -267,38 +268,6 @@ __global__ void __launch_bounds__(kMaxThreads)
   if (a.dx_sum) put(2 + a.g_sum, pdx);
 }
 
-// out[i] = the sum of ws[b, i] over blocks b < blocks, for i < total, in
-// a fixed order: warp w sums blocks w, w + 32, ... in turn, then warp 0
-// adds the 32 warp sums in warp order.  A block covers 32 consecutive i.
-__global__ void __launch_bounds__(kSumWarps * 32)
-    ln_cols_sum_kernel(const float* __restrict__ ws, float* __restrict__ out, int blocks,
-                       int total) {
-  __shared__ float part[kSumWarps][33];
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
-  const int i = blockIdx.x * 32 + lane;
-  float t = 0.f;
-  if (i < total) {
-    // Eight loads in flight, then their sums in block order.
-    int b = w;
-    for (; b + 7 * kSumWarps < blocks; b += 8 * kSumWarps) {
-      float v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = ws[static_cast<size_t>(b + k * kSumWarps) * total + i];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) t += v[k];
-    }
-    for (; b < blocks; b += kSumWarps) t += ws[static_cast<size_t>(b) * total + i];
-  }
-  part[w][lane] = t;
-  __syncthreads();
-  if (w == 0 && i < total) {
-    float s = part[0][lane];
-#pragma unroll
-    for (int k = 1; k < kSumWarps; ++k) s += part[k][lane];
-    out[i] = s;
-  }
-}
-
 int threads_for(int d) { return (d / 8 + 31) / 32 * 32; }
 
 template <bool SUM2, bool DXN_BF16, bool F32 = false>
@@ -322,8 +291,8 @@ int launch(const Args& a, int blocks, float* sums, cudaStream_t stream) {
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int total = (2 + a.g_sum + a.dx_sum) * a.d;
-  ln_cols_sum_kernel<<<(total + 31) / 32, kSumWarps * 32, 0, stream>>>(a.ws, sums, blocks,
-                                                                       total);
+  sfc::slice_sum_kernel<kSumWarps><<<(total + 31) / 32, kSumWarps * 32, 0, stream>>>(
+      a.ws, sums, blocks, total);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -150,6 +150,23 @@ inline cudaError_t map_rows_bf16(CUtensorMap* m, void* base, int batch, int rows
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The same for a contiguous fp32 [batch, rows, cols] tensor: a box of 32
+// columns (one 128-byte row, see sw128_f32) x box_rows rows of one batch
+// entry, 128-byte swizzled (cols a multiple of 4).
+inline cudaError_t map_rows_f32(CUtensorMap* m, void* base, int batch, int rows, int cols,
+                                int box_rows) {
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4, (cuuint64_t)cols * rows * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // A row-major bf16 matrix [outer, inner] (inner a multiple of 8, base on
 // 16 bytes) as a 2-d map whose box is 64 inner x 64 outer elements,
 // 128-byte swizzled.  Loads read past either edge as zero.
@@ -795,6 +812,22 @@ __device__ __forceinline__ void wgmma_tf32_rs_n64_at(float (&d)[32], const uint3
       " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SFC_WGMMA_REGS32
       ", {%32, %33, %34, %35}, b, p, 1, 1;\n}\n"
       : SFC_WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB), "r"(accumulate));
+}
+
+// The same over 32 columns (m64n32: #14's fp32 items of 32 columns).
+template <int OB>
+__device__ __forceinline__ void wgmma_tf32_rs_n32_at(float (&d)[16], const uint32_t (&a)[4],
+                                                     uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .b64 b;\n .reg .pred p;\n setp.ne.b32 p, %22, 0;\n"
+      " add.s64 b, %20, %21;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, b, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB), "r"(accumulate));
 }
 

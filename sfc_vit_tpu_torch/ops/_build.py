@@ -48,7 +48,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -60,9 +60,11 @@ __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "ATTENTION_BWD_SM90_FORMS", "gemm_layernorm", "gemm_layernorm_fits",
            "gemm_layernorm_max_clusters",
            "GEMM_LN_MAX_CLUSTER",
-           "act_bf16", "act_f32", "colsum", "gemm_f32", "gemm_f32_split", "GEMM_F32_TILE",
-           "GEMM_F32_BLOCK_K", "GEMM_F32_MIN_SPLIT_BLOCKS", "attention_fwd",
-           "attention_bwd", "F32_KERNEL_FORMS", "PACKED_ATTENTION_F32_FORMS",
+           "act_bf16", "act_f32", "colsum", "colsum_plan", "ColsumPlan",
+           "COLSUM_WARPS", "COLSUM_SUM_WARPS", "gemm_f32", "gemm_f32_split",
+           "GEMM_F32_TILE", "GEMM_F32_BLOCK_K", "GEMM_F32_MIN_SPLIT_BLOCKS", "attention_fwd",
+           "attention_bwd", "F32_KERNEL_FORMS", "GATHER_PROJECT_F32_FORMS",
+           "PACKED_ATTENTION_F32_FORMS",
            "PACKED_ATTENTION_F32_MASKED_FORMS",
            "attention_fwd_f32_form", "attention_fwd_f32_columns",
            "ATTENTION_HEAD_DIMS", "PACKED_MAX_N",
@@ -102,8 +104,9 @@ _SIGNATURES = {
     # a, b, bias, z_out, c; M, N, K; prof, cap, stream
     "sfc_gemm_profile": (_P,) * 5 + (_I,) * 3 + (_P, _I, _P),
     "sfc_act_bf16": (_P, _P, _L, _I, _P),
-    "sfc_colsum_bf16": (_P, _P, _I, _I, _P),
-    "sfc_colsum_f32": (_P, _P, _I, _I, _P),
+    # x, out, ws; rows, cols, lanes, slices, rows a slice; stream
+    "sfc_colsum_bf16": (_P, _P, _P) + (_I,) * 5 + (_P,),
+    "sfc_colsum_f32": (_P, _P, _P) + (_I,) * 5 + (_P,),
     # a, b, bias, residual, z_in, z_out, col, colsum, c, ws; M, N, K,
     # trans_a, trans_b, K blocks a split, act; stream
     "sfc_gemm_f32": (_P,) * 10 + (_I,) * 7 + (_P,),
@@ -165,7 +168,7 @@ _SIGNATURES = {
     "sfc_gemm_f32_attrs": (_I, _P),
     "sfc_packed_attention_f32_attrs": (_I, _I, _I, _P),
     "sfc_attention_bwd_f32_attrs": (_I, _I, _I, _P),
-    "sfc_gather_project_f32_attrs": (_P,),
+    "sfc_gather_project_f32_attrs": (_I, _I, _I, _P),
 }
 
 #: Head dims the attention kernels are instantiated for: ViT-B's 64 and
@@ -678,17 +681,75 @@ def act_bf16(z: torch.Tensor, act: str) -> torch.Tensor:
     return h
 
 
+#: ``csrc/colsum_bf16.cu``: warps a block, and the slice sum's warps (its
+#: second launch, ``common.cuh``'s ``slice_sum_kernel``).
+COLSUM_WARPS, COLSUM_SUM_WARPS = 8, 32
+#: Blocks an SM the plan aims at: enough 16-byte loads in
+#: flight to stream the flagship's 151 MB near the card's rate, few enough
+#: slices for the second launch (2 timed best across the notebook's and
+#: the flagship's shapes against 1, 4 and 8 on an H100).
+_COLSUM_BLOCKS_PER_SM = 2
+
+
+class ColsumPlan(NamedTuple):
+    """How ``csrc/colsum_bf16.cu`` sums ``rows`` x ``cols``: a block is
+    :data:`COLSUM_WARPS` warps over ``8 * lanes`` columns (``lanes``
+    column lanes of 8 columns a warp, ``32 / lanes`` row lanes) and
+    ``rows_per_slice`` rows (slice s: rows ``[s * rows_per_slice, (s + 1)
+    * rows_per_slice)``); a second launch sums the slices."""
+
+    lanes: int
+    slices: int
+    rows_per_slice: int
+
+    def chunks(self, cols: int) -> int:
+        return _cdiv(cols, 8 * self.lanes)
+
+    def row_lanes(self) -> int:
+        return COLSUM_WARPS * 32 // self.lanes
+
+
+def colsum_plan(rows: int, cols: int, sms: int) -> ColsumPlan:
+    """:class:`ColsumPlan` of :func:`colsum` over ``rows`` x ``cols`` on a
+    card of ``sms`` SMs, a pure function of the three (so the same inputs
+    give the same bits on one card model): a warp spans up to 256 columns
+    (``lanes`` 32, fewer for narrower rows), and the slices are as many as
+    give :data:`_COLSUM_BLOCKS_PER_SM` blocks an SM, at least one row a row
+    lane."""
+    if cols < 8 or cols % 8:
+        raise ValueError(f"colsum: {cols} columns, not a positive multiple of 8")
+    if rows < 0 or sms < 1:
+        raise ValueError(f"colsum: rows {rows}, SMs {sms}")
+    lanes = 1 << (min(32, cols // 8).bit_length() - 1)
+    chunks = _cdiv(cols, 8 * lanes)
+    row_lanes = COLSUM_WARPS * 32 // lanes
+    slices = max(1, min(_cdiv(_COLSUM_BLOCKS_PER_SM * sms, chunks), _cdiv(rows, row_lanes)))
+    per = max(1, _cdiv(rows, slices))
+    return ColsumPlan(lanes, max(1, _cdiv(rows, per)), per)
+
+
 def colsum(x: torch.Tensor) -> torch.Tensor:
-    """fp32 column sums of a bf16 or fp32 ``x`` [R, C] (C % 8 == 0)."""
+    """fp32 column sums of a bf16 or fp32 ``x`` [R, C] (C % 8 == 0), in the
+    fixed order of :func:`colsum_plan` (``kernel_utils.colsum_fixed_order``
+    is the same order in PyTorch): the same bits on every call, no atomics,
+    the output written, not accumulated.  ``colsum.launches`` counts the
+    calls."""
     r, c = x.shape
     if c % 8:
         raise ValueError(f"colsum: {c} columns, not a multiple of 8")
     f32 = x.dtype == torch.float32
     _require(x, "x", dtype=torch.float32 if f32 else torch.bfloat16)
-    out = torch.zeros(c, dtype=torch.float32, device=x.device)
+    plan = colsum_plan(r, c, _sm_count(x.device))
+    out = torch.empty(c, dtype=torch.float32, device=x.device)
+    ws = torch.empty((plan.slices, c), dtype=torch.float32, device=x.device)
     fn = library().sfc_colsum_f32 if f32 else library().sfc_colsum_bf16
-    _check(fn(x.data_ptr(), out.data_ptr(), r, c, _stream()), "colsum")
+    _check(fn(x.data_ptr(), out.data_ptr(), ws.data_ptr(), r, c, plan.lanes, plan.slices,
+              plan.rows_per_slice, _stream()), "colsum")
+    colsum.launches += 1
     return out
+
+
+colsum.launches = 0
 
 
 #: ``csrc/gemm_f32.cu``'s output tile (BM = BN) and K block (BK: one
@@ -1332,6 +1393,13 @@ PACKED_ATTENTION_F32_MASKED_FORMS = {
     f"{name} masked": (dh, nk) for name, (dh, nk) in PACKED_ATTENTION_F32_FORMS.items()
     if nk <= PACKED_ONE_PASS_MAX_N_MASKED[dh]}
 
+#: ``csrc/gather_project_f32.cu``'s instances: (x gathered from shared
+#: memory, 64 columns an item, k8 steps a chunk) by name.
+GATHER_PROJECT_F32_FORMS = {
+    f"gather_project_f32 {where} x {cols} columns {steps} steps":
+        (int(where == "shared"), int(cols == 64), steps)
+    for where in ("shared", "global") for cols in (64, 32) for steps in (6, 2)}
+
 #: The fp32 kernels (float32 compute of #1-#7 and #14) by name: the GEMM's
 #: (``csrc/gemm_f32.cu``, 3xTF32 on ``wgmma``) three layouts by activation
 #: kind (none, act, act') and its column sums' stripe sum;
@@ -1345,7 +1413,7 @@ F32_KERNEL_FORMS = (
     *PACKED_ATTENTION_F32_FORMS, *PACKED_ATTENTION_F32_MASKED_FORMS,
     *(f"attention_bwd_f32 {part} dh{dh}{' masked' if mk else ''}"
       for dh in (64, 192) for mk in (1, 0) for part in ("dq", "dkv")),
-    "gather_project_f32")
+    *GATHER_PROJECT_F32_FORMS)
 
 
 def _f32_attr_calls(lib) -> dict:
@@ -1357,7 +1425,8 @@ def _f32_attr_calls(lib) -> dict:
               for dh, nk in forms.values()]
     calls += [lambda a, dh=dh, mk=mk, p=p: lib.sfc_attention_bwd_f32_attrs(dh, mk, p, a)
               for dh in (64, 192) for mk in (1, 0) for p in (0, 1)]
-    calls.append(lib.sfc_gather_project_f32_attrs)
+    calls += [lambda a, sx=sx, tn=tn, ks=ks: lib.sfc_gather_project_f32_attrs(sx, tn, ks, a)
+              for sx, tn, ks in GATHER_PROJECT_F32_FORMS.values()]
     return dict(zip(F32_KERNEL_FORMS, calls, strict=True))
 
 

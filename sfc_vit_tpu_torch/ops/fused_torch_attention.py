@@ -45,13 +45,16 @@ cotangents are zeroed before every gradient path, so their dx and their
 share of every parameter gradient are zero.
 
 In float32 (the reference notebook's ``VisionTransformer``, and the
-flagship at its own ``dtype=None``) the same chains run on fp32 SIMT
-kernels, full fp32 with no TF32 and no narrower rounding:
-``csrc/gemm_f32.cu`` for every product (its TN weight gradients split
-over K and summed in split order), ``csrc/packed_attn_f32.cu`` for the
-masked attention with lse, ``csrc/attention_bwd_f32.cu`` for its
+flagship at its own ``dtype=None``) the same chains run on fp32 kernels,
+their products 3xTF32 on the tensor cores (within 2^-19 of the exact
+product): ``csrc/gemm_f32.cu`` for every product (its TN weight gradients
+split over K and summed in split order), ``csrc/packed_attn_f32.cu`` for
+the masked attention with lse, ``csrc/attention_bwd_f32.cu`` for its
 backward (dq, then dk and dv, each row with one owner) and
-``csrc/colsum_bf16.cu``'s fp32 instance for the bias gradients.
+``csrc/colsum_bf16.cu``'s fp32 instance for the bias gradients.  Every
+sum of the chain has one owner and a fixed order (``colsum``'s slices are
+summed in an order fixed by its plan), so a second call gives the same
+five gradients bit for bit.
 
 A CPU input runs the plain versions :func:`torch_mha_fwd_ref` and
 :func:`torch_mha_bwd_ref` (the kernels' arithmetic and rounding points);

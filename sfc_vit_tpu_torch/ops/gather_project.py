@@ -19,10 +19,12 @@ tensor to device memory.
     ``wgmma`` and writes the tile by TMA store.
   * in float32 (the 2-D and 1-D tokenizers' fused forms and the
     hierarchical levels when the model computes in fp32) ->
-    ``csrc/gather_project_f32.cu``: a SIMT kernel over (64 tokens, image,
-    128 columns) tiles, the gathered rows read through the LUT straight
-    from device memory (rows of 12 bytes are not 16-byte aligned) into
-    shared memory beside w, an fp32 sum with the bias added to it.
+    ``csrc/gather_project_f32.cu``: the same persistent structure over
+    (64 tokens, image, 64 or 32 columns) items, the product on the tensor
+    cores as three TF32 products (3xTF32: W split into big and small TF32
+    parts once a block, K-major; the gathered rows read through the LUT
+    from the staged image into registers and split there), within 2^-19
+    of |x| @ |w| of the exact product, the bias added to the fp32 sum.
 
 :func:`gather_project_ref` is the kernel's plain version, in the kernel's
 order; :func:`gather_project_xla` is JAX's XLA twin, which rounds the

@@ -10,7 +10,7 @@ import torch
 
 __all__ = ["NEG_INF", "ln_fp32", "ln_bwd_fp32", "round_up", "n_valid",
            "split_heads", "fp32_compute_not_ported", "kernel_is_f32", "tf32_round",
-           "tf32_trunc", "tf32_split", "matmul_3xtf32"]
+           "tf32_trunc", "tf32_split", "matmul_3xtf32", "colsum_fixed_order"]
 
 #: Masked-logit value: -1e30, never -inf, so a masked softmax gives 0
 #: weights and no NaN.
@@ -45,8 +45,8 @@ def fp32_compute_not_ported(what: str, dtype: torch.dtype) -> NotImplementedErro
 
 def kernel_is_f32(what: str, dtype: torch.dtype) -> bool:
     """Which kernels a CUDA tensor of ``dtype`` launches for #1-#7 and
-    #14: True for float32 (the fp32 kernels: ``csrc/gemm_f32.cu``'s 3xTF32
-    products on the tensor cores, SIMT attention and tokenizer), False for
+    #14: True for float32 (the fp32 kernels: 3xTF32 products on the tensor
+    cores in ``csrc/gemm_f32.cu``, the attention and the tokenizer), False for
     bfloat16 (the Hopper ``wgmma`` kernels).  Any other dtype raises; nothing falls back
     to a plain version."""
     if dtype == torch.float32:
@@ -139,3 +139,51 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bb, bs = tf32_split(b)
     ab, as_, bb, bs = ab.double(), tf32_trunc(as_).double(), bb.double(), tf32_trunc(bs).double()
     return ab @ bs + as_ @ bb + ab @ bb
+
+
+def colsum_fixed_order(x: torch.Tensor, plan) -> torch.Tensor:
+    """The fp32 column sums of ``x`` [R, C] (bf16 or fp32) added in
+    ``csrc/colsum_bf16.cu``'s order under ``plan``
+    (``ops/_build.py::colsum_plan``), so that the card's sums equal it bit
+    for bit (fp32 adds round the same everywhere).  Per block (chunk,
+    slice): row lane j of the block's L = 256 / lanes sums rows j, j + L,
+    ... of the slice from 0 in turn; each warp's 32 / lanes row lanes meet
+    in a butterfly (the first half plus the second, halving); the 8 warps
+    are added in warp order.  Then the slices (``csrc/common.cuh``'s
+    ``slice_sum_kernel``): warp w of 32 sums slices w, w + 32, ... from 0
+    and the 32 warp sums are added in warp order.  Rows past a slice's end add
+    -0.0, which leaves every sum's bits as they are.  Runs on any device."""
+    rows, cols = x.shape
+    lanes, slices, per = plan
+    rw = 32 // lanes
+    lanes_all = 8 * rw
+    width = round_up(cols, 8 * lanes)
+    steps = round_up(per, lanes_all) // lanes_all
+    xs = torch.full((slices * per, width), -0.0, dtype=torch.float32, device=x.device)
+    xs[:rows, :cols] = x.float()
+    xs = xs.view(slices, per, width)
+    if steps * lanes_all > per:
+        xs = torch.cat([xs, xs.new_full((slices, steps * lanes_all - per, width), -0.0)], 1)
+    xs = xs.view(slices, steps, lanes_all, width)
+    acc = torch.zeros((slices, lanes_all, width), dtype=torch.float32, device=x.device)
+    for i in range(steps):
+        acc = acc + xs[:, i]
+    v = acc.view(slices, 8, rw, width)
+    h = rw
+    while h > 1:
+        h //= 2
+        v = v[:, :, :h] + v[:, :, h:2 * h]
+    v = v[:, :, 0]
+    part = v[:, 0]
+    for w in range(1, 8):
+        part = part + v[:, w]
+    groups = round_up(slices, 32) // 32
+    pad = part.new_full((groups * 32 - slices, width), -0.0)
+    p = torch.cat([part, pad]).view(groups, 32, width)
+    t = torch.zeros((32, width), dtype=torch.float32, device=x.device)
+    for g in range(groups):
+        t = t + p[g]
+    out = t[0]
+    for w in range(1, 32):
+        out = out + t[w]
+    return out[:cols]

@@ -1281,10 +1281,37 @@ def test_packed_attention_repeats_bit_for_bit(cuda):
         assert torch.equal(_build.attention_fwd(qkv, 4, n, dh ** -0.5), first)
 
 
+#: (rows, cols) of colsum: #6's db_out and db_in at the notebook's batch 32
+#: (2,048 rows of 256 and 768), the flagship's batch 512 (32,768 of 768 and
+#: 2,304), 'hier''s and the notebook's bf16 batch 512 (32,768 of 256), the
+#: first pass's 1,000 x 2,304, and ragged rows 1, 150 and 2,049.
+_COLSUM_SHAPES = [(2048, 256), (2048, 768), (32768, 768), (32768, 2304), (32768, 256),
+                  (1000, 2304), (1, 768), (150, 256), (2049, 768)]
+
+
+def _colsum_case(x, want):
+    """colsum within 1e-4 / 1e-3 of ``want`` (fp32 sums in another order),
+    equal bit for bit to kernel_utils.colsum_fixed_order under the same
+    plan, and the same bits on a second call; the wrapper counts each
+    call."""
+    from sfc_vit_tpu_torch.ops.kernel_utils import colsum_fixed_order
+
+    rows, cols = x.shape
+    before = _build.colsum.launches
+    got = _build.colsum(x)
+    assert _build.colsum.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    plan = _build.colsum_plan(rows, cols, _build._sm_count(x.device))
+    twin = colsum_fixed_order(x, plan)
+    assert torch.equal(got.view(torch.int32), twin.view(torch.int32)), plan
+    assert torch.equal(_build.colsum(x).view(torch.int32), got.view(torch.int32))
+
+
 @pytest.mark.gpu
-def test_colsum_matches_sum(cuda):
-    x = _randn(np.random.default_rng(23), 1000, 2304)
-    torch.testing.assert_close(_build.colsum(x), x.float().sum(0), rtol=1e-4, atol=1e-3)
+@pytest.mark.parametrize("rows, cols", _COLSUM_SHAPES)
+def test_colsum_matches_sum(cuda, rows, cols):
+    x = _randn(np.random.default_rng(23), rows, cols)
+    _colsum_case(x, x.float().sum(0))
 
 
 # -- the fp32 forms of #5, #6, #7 and #14 ----------------------------------------
@@ -1332,9 +1359,30 @@ def test_gemm_f32_matches_matmul(cuda, form, rows, k, n):
 
 
 @pytest.mark.gpu
-def test_colsum_f32_matches_sum(cuda):
-    x = _f32(np.random.default_rng(61), 2049, 768)
+@pytest.mark.parametrize("rows, cols", _COLSUM_SHAPES)
+def test_colsum_f32_matches_sum(cuda, rows, cols):
+    x = _f32(np.random.default_rng(61), rows, cols)
     _within(_build.colsum(x), x.sum(0), F32_TOL)
+    _colsum_case(x, x.sum(0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, n, d, heads", [(32, 64, 256, 4), (512, 64, 768, 4)])
+def test_torch_mha_bwd_repeats_bit_for_bit(cuda, b, n, d, heads, dtype):
+    """#6's chain (colsum, the GEMMs' split-K sums, the attention backward)
+    gives the same five gradients bit for bit on a second call, at the
+    notebook's and the flagship's shapes, in fp32 and bf16: every sum has
+    one owner and a fixed order."""
+    a = _mha_args(np.random.default_rng(66), b, n, d, heads, cuda)
+    a = {k: v.to(dtype) if v.dtype == torch.bfloat16 else v for k, v in a.items()}
+    fwd = [a[k] for k in ("x", "w_in", "b_in", "w_out", "b_out", "mask")]
+    _, qkv, att, lse = torch_mha_train_fwd(*fwd, heads, keep=0.9)
+    saved = (a["x"], a["g"], a["w_in"], a["w_out"], a["mask"], qkv, att, lse)
+    first = torch_mha_bwd(*saved, heads, keep=0.9)
+    second = torch_mha_bwd(*saved, heads, keep=0.9)
+    for name, x, y in zip(("dx", "dw_in", "db_in", "dw_out", "db_out"), first, second):
+        assert x.dtype == y.dtype and torch.equal(x, y), name
 
 
 #: (b, n, heads, dh, n_valid): the notebook's layer ([32, 64], 4 heads of
@@ -1494,14 +1542,22 @@ def test_family_a_kernels_refuse_fp16(cuda):
 #: widths (d not a multiple of 4 or of 128, features not of 32).
 _GP_F32_SHAPES = [(32, 64, 48, 1, 256), (32, 1024, 3, 4, 256), (4, 1024, 3, 1, 256),
                   (512, 1024, 3, 16, 256), (512, 256, 12, 4, 256), (512, 64, 48, 1, 256),
-                  (3, 50, 5, 3, 301), (2, 70, 13, 5, 130)]
+                  (3, 50, 5, 3, 301), (2, 70, 13, 5, 130), (2, 4096, 3, 4, 256),
+                  (2, 1024, 12, 4, 256)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b, n, k, group, d", _GP_F32_SHAPES)
 def test_gather_project_f32_matches_plain(cuda, b, n, k, group, d):
-    """csrc/gather_project_f32.cu against gather_project_ref in fp32, with
-    a bias and without, through its own launch counter."""
+    """csrc/gather_project_f32.cu (3xTF32 on the tensor cores) against
+    gather_project_ref in fp32, with a bias and without, through its own
+    launch counter; against the fp64 product within 2^-16 of |A| @ |W| +
+    |bias| (the split's 1.25 x 2^-20 and the card's fp32 sum of three
+    terms a feature, 144 at the main path's 48 features: the probe's
+    bound for 96 terms is 2^-17); the same bits on a second call.  The
+    last two shapes' images (48 KB) are over the shared buffer: the
+    instances that gather from global memory, with chunks of 2 and of 6
+    k8 steps."""
     from sfc_vit_tpu_torch.ops import gather_project as gp
 
     rng = np.random.default_rng(64)
@@ -1510,12 +1566,50 @@ def test_gather_project_f32_matches_plain(cuda, b, n, k, group, d):
     w = _f32(rng, group * k, d, scale=(group * k) ** -0.5)
     bias = _f32(rng, d)
     before = (gp.gather_project.f32_launches, gp.gather_project.launches)
+    a = x[:, lut.long()].reshape(b, -1, group * k).double()
     with torch.no_grad():
         for bvec in (bias, None):
-            _within(gp.gather_project(x, lut, w, bvec, group),
-                    gp.gather_project_ref(x, lut, w, bvec, group), F32_TOL)
+            got = gp.gather_project(x, lut, w, bvec, group)
+            _within(got, gp.gather_project_ref(x, lut, w, bvec, group), F32_TOL)
+            exact, mag = a @ w.double(), a.abs() @ w.double().abs()
+            if bvec is not None:
+                exact, mag = exact + bvec.double(), mag + bvec.double().abs()
+            assert bool(((got.double() - exact).abs() <= 2.0 ** -16 * mag).all())
+            assert torch.equal(gp.gather_project(x, lut, w, bvec, group), got)
     assert (gp.gather_project.f32_launches, gp.gather_project.launches) == (
-        before[0] + 2, before[1])
+        before[0] + 4, before[1])
+
+
+@pytest.mark.gpu
+def test_gather_project_f32_and_colsum_run_on_the_redesigned_kernels(cuda):
+    """#14 in fp32 (both item widths, shared and global x) launches
+    csrc/gather_project_f32.cu's wgmma kernel and colsum its fixed-order
+    kernels (the profiler's kernel names), never the first-pass kernels
+    they replaced (the SIMT gather_project_f32_kernel, the atomic
+    colsum_kernel)."""
+    from sfc_vit_tpu_torch.ops import gather_project as gp
+
+    rng = np.random.default_rng(68)
+    calls = []
+    for b, n, k, group in ((32, 64, 48, 1), (512, 64, 48, 1), (2, 4096, 3, 4)):
+        x = _f32(rng, b, n, k)
+        lut = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+        w = _f32(rng, group * k, 256)
+        calls.append(lambda x=x, lut=lut, w=w, g=group: gp.gather_project(x, lut, w, None, g))
+    for x in (_f32(rng, 2048, 768), _randn(rng, 32768, 768)):
+        calls.append(lambda x=x: _build.colsum(x))
+    torch.cuda.synchronize()
+    with torch.no_grad(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    for new in ("gather_project_f32_sm90", "colsum_partial_kernel", "slice_sum_kernel"):
+        assert any(new in nm for nm in names), (new, names)
+    for old in ("gather_project_f32_kernel", "colsum_kernel"):
+        assert not any(old in nm for nm in names), (old, names)
 
 
 @pytest.mark.gpu
