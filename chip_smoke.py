@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ViT-B/16 serving path and train step, the
 family-A flagship's train step and serving path (also with its fused
-tokenizer, and at MLP 1,024 through the post-norm tail), the hierarchical
-family-A model's, the long-context models' (16,384 tokens with token
-merge, its hybrid local/global schedule, and 4,096) and the reference
-notebook's model's (fp32 and bf16, 2-D and 1-D tokenizers) train steps
-and serving, and the ViT-B/16 preset's at its own fp32, once on one
+tokenizer, and at MLP 1,024 through the post-norm tail, in bf16 and at its
+own fp32), the hierarchical family-A model's (bf16 and fp32), the
+long-context models' (16,384 tokens with token merge, its hybrid
+local/global schedule, and 4,096) and the reference notebook's model's
+(fp32 and bf16, 2-D and 1-D tokenizers) train steps and serving, the
+ViT-B/16 preset's at its own fp32, and per-layer remat, once on one
 NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one
@@ -172,7 +173,16 @@ Phases, each of which raises (non-zero exit) on failure:
    training; #7 and #15 at d = 256 in eval and serving) the same way; for
    each the launch counts (layers x steps or forwards), every parameter
    moved, one step's gradients and the served logits against the plain
-   versions, train and forward img/s, a profile of the train step.
+   versions, train and forward img/s, a profile of the train step.  Also
+   #15 (both forms) and #16 in fp32 at the same shapes, within
+   1e-4 of each tensor's largest |value| (#16 bit for bit twice), timed
+   beside the fp32 bound (the products at 3xTF32's 165 TFLOP/s); and (b)
+   and (c) again at the presets' own fp32 (no dtype named): the flagship
+   through #15's fp32 training form and #16 fp32, 'hier' through #5/#6
+   fp32, both served by ``ServingEngine(dtype=None)`` through #15 and #7
+   in fp32; launch counts layers x steps in the fp32 counters and 0 in the
+   bf16 ones, gradients within relative L2 1e-2 and logits within 1e-4 of
+   the largest |logit| of the plain path.
 14. notebook: the fp32 kernels of #5, #6, #7 and #14 (``csrc/gemm_f32.cu``,
    ``packed_attn_f32.cu``, ``attention_bwd_f32.cu``,
    ``gather_project_f32.cu``: each fp32 product as three TF32 products on
@@ -223,7 +233,16 @@ Phases, each of which raises (non-zero exit) on failure:
    parameter moved), one step's gradients against the plain blocks
    (relative L2 within 1e-2, max and median printed), forward and train
    step times on both paths, peak memory and a profile of the step.
-   Then no module of jax, flax or the JAX package may have loaded.
+16. remat: two train steps with ``remat=True`` and two without, from the
+   same seeds, of 'hier' at MLP 1,024 at its own fp32 with dropout (batch
+   512; its 24 level layers checkpointed, the fusion layers not, as in
+   JAX) and of ViT-B/16 in bf16 (batch 256; every attention and MLP block
+   checkpointed): every gradient and loss equal bit for bit, the dropout
+   generator in the same state, the forward counters of the checkpointed
+   layers doubled and the backward ones equal; each run's peak device
+   memory and step time printed.
+   Then no module of jax, flax or the JAX package may have loaded.  Each
+   phase prints its seconds.
 
 The line before the last is one JSON object describing the kernels; the
 last is ``{"ok": true, "device": {...}}``.
@@ -233,6 +252,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import re
 import subprocess
@@ -2436,6 +2456,74 @@ def phase_tail_kernels(card: str) -> dict:
         del args, g, got, z, s2, saved
     res["postnorm_tail"]["max_abs_err"] = max(errs)
     res["postnorm_tail_bwd"]["max_abs_err"] = max(bwd_errs)
+    res.update(_tail_f32_cases(card))
+    return res
+
+
+def _tail_f32_cases(card: str) -> dict:
+    """#15 (both forms) and #16 in fp32 (the flagship's and 'hier''s own
+    dtype: ``ln_rows`` over the fp32 x + attn and over s2, ``gemm_f32``,
+    ``act_f32``, ``ln_rows_bwd`` forms (d) and (e)) against their plain
+    versions at TAIL_SHAPES, every tensor within F32_TOL of its largest
+    |value|, #16 bit for bit on a second call; the first two shapes timed in
+    turns with the plain versions beside the fp32 bound (the products, 4 and
+    8 x R·D·F, at 3xTF32's 165 TFLOP/s; the bytes at 3.35 TB/s)."""
+    gen = torch.Generator().manual_seed(19)
+    res, errs, bwd_errs = {}, [], []
+    for b, n, d, f in TAIL_SHAPES:
+        args = tuple(t.float() for t in _tail_args(gen, b, n, d, f))
+        g = _randn(gen, b, n, d, dtype=torch.float32)
+        with torch.no_grad():
+            out = fused_postnorm_tail(*args)
+            got = postnorm_tail_train_fwd(*args)
+            want = postnorm_tail_kernel_ref(*args, save_acts=True)
+            print(f"#15 fp32 vs postnorm_tail_kernel_ref, x, attn [{b}, {n}, {d}], F={f}:")
+            _check(torch.equal(out, got[0]), "#15 fp32: the serving and training forms differ")
+            errs += [_frac_err(name, x, w, F32_TOL)
+                     for name, x, w in zip(("out", "z", "s2"), got, want)]
+            del out, want
+            _, z, s2 = got
+            saved = (args[0], args[1], g, z, s2, *args[2:7], args[8], args[9])
+            print(f"#16 fp32 vs postnorm_tail_bwd_ref, x, attn [{b}, {n}, {d}], F={f}:")
+            grads = postnorm_tail_bwd(*saved, b2=args[7])
+            bwd_errs += [_frac_err(name, x, w, F32_TOL) for name, x, w in zip(
+                TAIL_NAMES, grads, postnorm_tail_bwd_ref(*saved, b2=args[7]))]
+            _check(all(torch.equal(u, v) for u, v in zip(
+                grads, postnorm_tail_bwd(*saved, b2=args[7]))), "#16 fp32: a second call differs")
+            del grads
+        if (b, n, d, f) not in TAIL_SHAPES[:2]:  # the ragged case: checked, not timed
+            continue
+        r = b * n
+        with torch.no_grad():
+            ms, plain_ms = _ab_ms(lambda: fused_postnorm_tail(*args),
+                                  lambda: postnorm_tail_kernel_ref(*args), iters=10)
+            tms, tplain_ms = _ab_ms(lambda: postnorm_tail_train_fwd(*args),
+                                    lambda: postnorm_tail_kernel_ref(*args, save_acts=True),
+                                    iters=10)
+            bms, bplain_ms = _ab_ms(lambda: postnorm_tail_bwd(*saved, b2=args[7]),
+                                    lambda: postnorm_tail_bwd_ref(*saved, b2=args[7]),
+                                    iters=10)
+        vec = 4 * (f + 5 * d)  # b1, b2 and the four LayerNorm vectors
+        fwd = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                   **_bound_f32(0, 4 * (3 * r * d + 2 * d * f) + vec, 4 * r * d * f))
+        train_bound = _bound_f32(0, 4 * (4 * r * d + 2 * d * f + r * f) + vec, 4 * r * d * f)
+        # x, attn, g, s2, ds; z; w1, w2, dw1, dw2; db1, db2, ln1_s, ln1_b,
+        # ln2_s and the four LayerNorm gradients
+        bwd = dict(ms=bms, plain_ms=bplain_ms, library_ms=None,
+                   **_bound_f32(0, 4 * (5 * r * d + r * f + 4 * d * f + f + 8 * d),
+                                8 * r * d * f))
+        print(f"post-norm tail at x [{b}, {n}, {d}], F={f}, fp32, {card}: #15 serving form "
+              f"kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {fwd['bound_ms']:.4f} ms "
+              f"({fwd['bound_by']}); training form kernels {tms:.4f} ms, plain "
+              f"{tplain_ms:.4f} ms, bound {train_bound['bound_ms']:.4f} ms "
+              f"({train_bound['bound_by']}); #16 kernels {bms:.4f} ms, plain "
+              f"{bplain_ms:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}).  "
+              "No single PyTorch call does LN + MLP + two residuals + LN.")
+        if d == 768:
+            res["postnorm_tail_f32"], res["postnorm_tail_bwd_f32"] = fwd, bwd
+        del args, g, got, z, s2, saved
+    res["postnorm_tail_f32"]["max_abs_err"] = max(errs)
+    res["postnorm_tail_bwd_f32"]["max_abs_err"] = max(bwd_errs)
     return res
 
 
@@ -2449,27 +2537,38 @@ def _plain_tail():
     return stack
 
 
+#: Family A's counters, bf16 and fp32: (name, wrapper, attribute).
+_TAIL_COUNTS = tuple(
+    (f"{name}{sfx}{form}", fn, f"{pre}{attr}")
+    for sfx, pre in (("", ""), ("_f32", "f32_"))
+    for name, form, fn, attr in (
+        ("postnorm_tail", "", fused_postnorm_tail, "launches"),
+        ("postnorm_tail", " (training form)", fused_postnorm_tail, "train_launches"),
+        ("postnorm_tail_bwd", "", fused_postnorm_tail, "bwd_launches"),
+        ("fused_torch_mha", "", fused_torch_mha, "launches"),
+        ("fused_torch_mha_bwd", "", fused_torch_mha, "bwd_launches"),
+        ("packed_flash_attention", "", packed_flash_attention, "launches")))
+
+
 def _tail_counts() -> dict:
-    t, m = fused_postnorm_tail, fused_torch_mha
-    return {"postnorm_tail": t.launches, "postnorm_tail (training form)": t.train_launches,
-            "postnorm_tail_bwd": t.bwd_launches, "fused_torch_mha": m.launches,
-            "fused_torch_mha_bwd": m.bwd_launches,
-            "packed_flash_attention": packed_flash_attention.launches}
+    return {name: getattr(fn, attr) for name, fn, attr in _TAIL_COUNTS}
 
 
 def _reset_tail_counts():
-    _reset_fa_counts()
-    t = fused_postnorm_tail
-    t.launches = t.train_launches = t.bwd_launches = 0
+    for _, fn, attr in _TAIL_COUNTS:
+        setattr(fn, attr, 0)
 
 
 def _family_a_tail_model(card: str, label: str, model, cfg, layers: int,
-                         dropout: bool) -> dict:
+                         dropout: bool, f32: bool = False) -> dict:
     """Train (4 steps at batch 512), evaluate and serve one family-A model
-    whose layers take the post-norm tail; returns the launch counts of its
-    main path.  With dropout the layers train through #5/#6 and the
-    unfused tail, without through the packed formula and #15/#16; eval and
-    serving run #7 and #15's serving form in every layer."""
+    whose layers take the post-norm tail, in bf16 or (``f32``) at its own
+    fp32; returns the launch counts of its main path.  With dropout the
+    layers train through #5/#6 and the unfused tail, without through the
+    packed formula and #15/#16; eval and serving run #7 and #15's serving
+    form in every layer.  Every counter of the other dtype must stay 0."""
+    sfx = "_f32" if f32 else ""
+    grad_tol, logit_tol = (F32_GRAD_REL_TOL, F32_TOL) if f32 else (GRAD_REL_TOL, FA_LOGIT_TOL)
     torch.cuda.reset_peak_memory_stats()
     stats = ((0.5,) * 3, (0.25,) * 3)
     b, steps = FA_B, FA_TRAIN_STEPS
@@ -2495,11 +2594,12 @@ def _family_a_tail_model(card: str, label: str, model, cfg, layers: int,
     _check(bool(np.isfinite(record["test_loss"])), f"{label}: non-finite eval loss")
     _check(trainer.state.step == steps, f"{label}: {trainer.state.step} steps taken")
     trained = layers * steps
-    want = {"postnorm_tail": layers, "packed_flash_attention": layers,
-            "postnorm_tail (training form)": 0 if dropout else trained,
-            "postnorm_tail_bwd": 0 if dropout else trained,
-            "fused_torch_mha": trained if dropout else 0,
-            "fused_torch_mha_bwd": trained if dropout else 0}
+    want = {name: 0 for name in counts}
+    want.update({f"postnorm_tail{sfx}": layers, f"packed_flash_attention{sfx}": layers,
+                 f"postnorm_tail{sfx} (training form)": 0 if dropout else trained,
+                 f"postnorm_tail_bwd{sfx}": 0 if dropout else trained,
+                 f"fused_torch_mha{sfx}": trained if dropout else 0,
+                 f"fused_torch_mha_bwd{sfx}": trained if dropout else 0})
     _check(counts == want, f"{label}: launches {counts}, expected {want}")
     still = [nm for (nm, p), q in zip(model.named_parameters(), before) if torch.equal(p, q)]
     _check(not still, f"{label}: parameters unchanged after {steps} steps: {still}")
@@ -2526,8 +2626,8 @@ def _family_a_tail_model(card: str, label: str, model, cfg, layers: int,
           f"plain versions: loss {float(m_k['loss']):.6f} vs {float(m_p['loss']):.6f}; "
           f"gradient relative L2 error max {rel[worst]:.4g} ({worst}), median "
           f"{float(np.median(list(rel.values()))):.4g} over {len(rel)} tensors "
-          f"(tolerance {GRAD_REL_TOL})")
-    _check(rel[worst] <= GRAD_REL_TOL, f"{label}: kernel-path gradients disagree with "
+          f"(tolerance {grad_tol})")
+    _check(rel[worst] <= grad_tol, f"{label}: kernel-path gradients disagree with "
            "the plain path")
     del grads
 
@@ -2553,7 +2653,8 @@ def _family_a_tail_model(card: str, label: str, model, cfg, layers: int,
     del state, batch
 
     engine = ServingEngine(copy.deepcopy(model), None, (cfg.img_size, cfg.img_size, 3),
-                           batch_sizes=FA_BATCH_SIZES, dtype=torch.bfloat16, device=DEVICE)
+                           batch_sizes=FA_BATCH_SIZES, dtype=None if f32 else torch.bfloat16,
+                           device=DEVICE)
     rng = np.random.default_rng(10)
     requests = [rng.standard_normal((k, cfg.img_size, cfg.img_size, 3), dtype=np.float32)
                 for k in FA_REQUESTS]
@@ -2564,7 +2665,8 @@ def _family_a_tail_model(card: str, label: str, model, cfg, layers: int,
     for k, out in zip(FA_REQUESTS, outs):
         _check(out.shape == (k, cfg.num_classes) and bool(np.isfinite(out).all()),
                f"{label}: bad served logits for {k} images")
-    want = {name: layers * forwards if name in ("postnorm_tail", "packed_flash_attention")
+    want = {name: layers * forwards if name in (f"postnorm_tail{sfx}",
+                                                f"packed_flash_attention{sfx}")
             else 0 for name in served}
     _check(served == want, f"{label}: served launches {served}, expected {want}")
     with _plain_tail():
@@ -2572,12 +2674,12 @@ def _family_a_tail_model(card: str, label: str, model, cfg, layers: int,
     outs = np.concatenate(outs)
     err, scale = float(np.abs(outs - plain).max()), float(np.abs(plain).max())
     print(f"{label}: served {FA_REQUESTS} images, logits finite; #15 and #7 launched "
-          f"{served['postnorm_tail']} times each over {forwards} forwards of {layers} "
+          f"{served[f'postnorm_tail{sfx}']} times each over {forwards} forwards of {layers} "
           f"layers; kernels vs plain versions max abs err {err:.4g} (max |logit| "
-          f"{scale:.4g}; tolerance {FA_LOGIT_TOL} x max |logit| = {FA_LOGIT_TOL * scale:.4g})")
-    _check(err <= FA_LOGIT_TOL * scale, f"{label}: served logits disagree with the plain "
+          f"{scale:.4g}; tolerance {logit_tol} x max |logit| = {logit_tol * scale:.4g})")
+    _check(err <= logit_tol * scale, f"{label}: served logits disagree with the plain "
            "forward")
-    xb = torch.from_numpy(requests[-1]).to(DEVICE, torch.bfloat16)
+    xb = torch.from_numpy(requests[-1]).to(DEVICE, torch.float32 if f32 else torch.bfloat16)
     bs = FA_BATCH_SIZES[-1]
 
     def fwd_ms(plain: bool) -> float:
@@ -2590,29 +2692,139 @@ def _family_a_tail_model(card: str, label: str, model, cfg, layers: int,
     print(f"{label}: forward at batch {bs}: {fwd_ms:.3f} ms = {bs / fwd_ms * 1e3:.1f} img/s "
           f"(plain versions {plain_fwd_ms:.3f} ms = {bs / plain_fwd_ms * 1e3:.1f} img/s), "
           f"{card}")
-    return {"postnorm_tail": counts["postnorm_tail"] + counts["postnorm_tail (training form)"]
-            + served["postnorm_tail"], "postnorm_tail_bwd": counts["postnorm_tail_bwd"]}
+    return {name: counts[name] + served[name] + (
+                counts[f"{name} (training form)"] if name == f"postnorm_tail{sfx}" else 0)
+            for name in (f"postnorm_tail{sfx}", f"postnorm_tail_bwd{sfx}",
+                         f"fused_torch_mha{sfx}", f"fused_torch_mha_bwd{sfx}",
+                         f"packed_flash_attention{sfx}")}
 
 
-def phase_tail_models(card: str) -> dict:
-    """(b) the flagship at MLP 1,024 with dropout 0 (the registry has no
-    dropout field, so ``VisionTransformer1D`` is built from the preset's
-    fields) and (c) 'hier' at MLP 1,024, each trained, evaluated and
-    served through the post-norm tail."""
-    cfg = preset_config("flagship", mlp_dim=1024, dtype="bfloat16")
+def _flagship_at_mlp_1024(cfg):
+    """``VisionTransformer1D`` from ``cfg``'s fields with dropout 0 (the
+    registry has no dropout field), random weights from seed 0."""
     gen = torch.Generator().manual_seed(0)
-    flagship = VisionTransformer1D(
+    return VisionTransformer1D(
         build_tokenizer(cfg, generator=gen), depth=cfg.depth, n_heads=cfg.n_heads,
         mlp_dim=cfg.mlp_dim, num_classes=cfg.num_classes, dropout_rate=0.0,
-        dtype=torch.bfloat16, device=DEVICE, generator=gen)
-    a = _family_a_tail_model(card, "flagship at MLP 1024, dropout 0", flagship, cfg,
-                             cfg.depth, dropout=False)
+        dtype=cfg.torch_dtype(), device=DEVICE, generator=gen)
+
+
+def phase_tail_models(card: str, f32: bool = False) -> dict:
+    """(b) the flagship at MLP 1,024 with dropout 0 and (c) 'hier' at MLP
+    1,024, each trained, evaluated and served through the post-norm tail:
+    in bf16, or (``f32``) at the presets' own dtype, float32 (no dtype
+    named): #15/#16 and #5-#7 in fp32."""
+    dt = {} if f32 else dict(dtype="bfloat16")
+    tag = " fp32" if f32 else ""
+    cfg = preset_config("flagship", mlp_dim=1024, **dt)
+    flagship = _flagship_at_mlp_1024(cfg)
+    a = _family_a_tail_model(card, f"flagship at MLP 1024{tag}, dropout 0", flagship, cfg,
+                             cfg.depth, dropout=False, f32=f32)
     del flagship
-    hcfg = preset_config("flagship", model="hier", mlp_dim=1024, dtype="bfloat16")
+    hcfg = preset_config("flagship", model="hier", mlp_dim=1024, **dt)
     hier = build_model(hcfg, generator=torch.Generator().manual_seed(0))
-    h = _family_a_tail_model(card, "hier at MLP 1024", hier, hcfg,
-                             len(hcfg.patch_size_list) * hcfg.depth + 2, dropout=True)
+    h = _family_a_tail_model(card, f"hier at MLP 1024{tag}", hier, hcfg,
+                             len(hcfg.patch_size_list) * hcfg.depth + 2, dropout=True, f32=f32)
+    del hier
+    torch.cuda.empty_cache()
     return {name: a[name] + h[name] for name in a}
+
+
+#: The remat phase: ('hier' at MLP 1,024 in fp32 with dropout, batch 512;
+#: ViT-B/16 in bf16, batch 256).
+REMAT_STEPS = 2
+
+
+def _remat_run(card: str, label: str, build, batch: int, img: int, classes: int,
+               counters) -> None:
+    """Two train steps (mixing, dropout where the model has it, clip,
+    AdamW) of ``build(remat)`` without and with remat, from the same seeds
+    and batch: the loss and every gradient of each step equal bit for bit,
+    the dropout generator in the same state after them, the backward
+    counters equal and the forward counters of the checkpointed layers
+    doubled.  Prints each run's peak device memory and its second step's
+    time.  ``counters``: (name, wrapper, attribute, the forward launches
+    the checkpointed layers add, or None for a backward counter) of the
+    path's kernels."""
+    ds = synthetic_dataset(n=batch, hw=img, num_classes=classes, seed=0)
+    x, y = next(epoch_batches(ds, batch, seed=0))
+    tf = make_eval_transform((0.5,) * 3, (0.25,) * 3, device=DEVICE)
+    batch_t = (tf(x), torch.from_numpy(y).long().to(DEVICE))
+    runs = {}
+    for remat in (False, True):
+        model = build(remat)
+        state = TrainState(model, make_optimizer(model.parameters(), lambda _: 1e-3,
+                                                 grad_clip=1.0))
+        step = make_train_step(classes)
+        gen, dgen = torch.Generator().manual_seed(3), torch.Generator(device=DEVICE).manual_seed(4)
+        for _, fn, attr, _ in counters:
+            setattr(fn, attr, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = []
+        for _ in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step(state, batch_t, gen, dgen)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            out.append((m["loss"], [p.grad.detach().clone() for p in model.parameters()]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = {name: getattr(fn, attr) for name, fn, attr, _ in counters}
+        print(f"remat {label}, remat={remat}: {REMAT_STEPS} steps at batch {batch}, peak "
+              f"device memory {peak:.2f} GiB, second step {ms:.1f} ms (host clock), losses "
+              f"{[round(float(lo), 6) for lo, _ in out]}, launches {counts}, {card}")
+        runs[remat] = (out, dgen.get_state(), counts, peak, ms)
+        del model, state, out
+        torch.cuda.empty_cache()
+    (plain, p_state, p_counts, p_peak, p_ms), (remat, r_state, r_counts, r_peak, r_ms) = (
+        runs[False], runs[True])
+    differ = sum(int(not torch.equal(a, b)) for (_, gp), (_, gr) in zip(plain, remat)
+                 for a, b in zip(gp, gr))
+    _check(all(torch.equal(lp, lr) for (lp, _), (lr, _) in zip(plain, remat)),
+           f"remat {label}: the losses differ")
+    _check(differ == 0, f"remat {label}: {differ} gradients differ from the plain steps'")
+    _check(torch.equal(p_state, r_state), f"remat {label}: the dropout generator moved "
+           "differently")
+    for name, _, _, forward in counters:
+        want = p_counts[name] + forward if forward is not None else p_counts[name]
+        _check(r_counts[name] == want, f"remat {label}: {name} launched {r_counts[name]} "
+               f"times, expected {want}")
+    print(f"remat {label}: every gradient of {REMAT_STEPS} steps equal bit for bit "
+          f"({len(plain[0][1])} tensors a step), the forward counters of the checkpointed "
+          f"layers doubled; peak {p_peak:.2f} -> {r_peak:.2f} GiB, second step {p_ms:.1f} -> "
+          f"{r_ms:.1f} ms, {card}")
+
+
+def phase_remat(card: str) -> None:
+    """``remat=True`` against ``remat=False`` on the card: 'hier' at MLP
+    1,024 at its own fp32 with dropout (its 24 level layers checkpointed,
+    the 2 fusion layers not, as in JAX: #5/#6 fp32, the unfused tail) at
+    batch 512, and ViT-B/16 in bf16 (every attention and MLP block
+    checkpointed: #1-#4) at batch 256."""
+    hcfg = preset_config("flagship", model="hier", mlp_dim=1024)
+    ckpt = len(hcfg.patch_size_list) * hcfg.depth * REMAT_STEPS
+    m = fused_torch_mha
+    _remat_run(
+        card, "hier at MLP 1024 fp32, dropout",
+        lambda remat: build_model(dataclasses.replace(hcfg, remat=remat),
+                                  generator=torch.Generator().manual_seed(0)),
+        FA_B, hcfg.img_size, hcfg.num_classes,
+        (("fused_torch_mha_f32", m, "f32_launches", ckpt),
+         ("fused_torch_mha_bwd_f32", m, "f32_bwd_launches", None),
+         ("fused_torch_mha", m, "launches", 0), ("fused_torch_mha_bwd", m, "bwd_launches", 0)))
+    vcfg = preset_config("vit-b-16", curve="hilbert", num_classes=1000, dtype="bfloat16")
+    ckpt = vcfg.depth * REMAT_STEPS
+    a, f = fused_attention_block, fused_mlp_block
+    _remat_run(
+        card, "ViT-B/16 bf16",
+        lambda remat: build_model(dataclasses.replace(vcfg, remat=remat),
+                                  generator=torch.Generator().manual_seed(0)),
+        TRAIN_B, vcfg.img_size, vcfg.num_classes,
+        (("fused_attention_block", a, "launches", ckpt),
+         ("fused_mlp_block", f, "launches", ckpt),
+         ("fused_attention_block_bwd", a, "bwd_launches", None),
+         ("fused_mlp_block_bwd", f, "bwd_launches", None)))
 
 
 #: The reference notebook's model in fp32 (``preset_config("notebook")``,
@@ -3603,29 +3815,43 @@ def _plain_forward(model, x):
     return run
 
 
+def _timed(fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds printed after it."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"phase {fn.__name__}{' (fp32)' if kw.get('f32') else ''}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
-    card = phase_device()
-    phase_build()
-    kernels = phase_kernels(card)
-    kernels.update(phase_backward(card))
-    launches = phase_slice(card)
-    launches.update({k: v for k, v in phase_train(card).items() if k.endswith("_bwd")})
-    kernels.update(phase_fa_kernels(card))
-    launches.update(phase_fa_slice(card))
-    kernels.update(phase_flash_kernels(card))
-    launches.update(phase_longctx(card))
-    kernels.update(phase_local_kernels(card))
-    hybrid = phase_hybrid(card)
-    launches.update({name: launches.get(name, 0) + count for name, count in hybrid.items()})
-    kernels.update(phase_gp_kernels(card))
-    launches.update(phase_fused_flagship(card))
-    kernels.update(phase_tail_kernels(card))
-    launches.update(phase_tail_models(card))
-    kernels.update(phase_notebook_kernels(card))
-    notebook = phase_notebook(card)
-    launches.update({name: launches.get(name, 0) + count for name, count in notebook.items()})
-    kernels.update(phase_vit_f32_kernels(card))
-    launches.update(phase_vit_f32(card))
+    t0 = time.perf_counter()
+    card = _timed(phase_device)
+    _timed(phase_build)
+    kernels = _timed(phase_kernels, card)
+    kernels.update(_timed(phase_backward, card))
+    launches = _timed(phase_slice, card)
+    launches.update({k: v for k, v in _timed(phase_train, card).items() if k.endswith("_bwd")})
+    kernels.update(_timed(phase_fa_kernels, card))
+    launches.update(_timed(phase_fa_slice, card))
+    kernels.update(_timed(phase_flash_kernels, card))
+    launches.update(_timed(phase_longctx, card))
+    kernels.update(_timed(phase_local_kernels, card))
+
+    def add(counts: dict) -> None:
+        launches.update({name: launches.get(name, 0) + n for name, n in counts.items()})
+
+    add(_timed(phase_hybrid, card))
+    kernels.update(_timed(phase_gp_kernels, card))
+    launches.update(_timed(phase_fused_flagship, card))
+    kernels.update(_timed(phase_tail_kernels, card))
+    add(_timed(phase_tail_models, card))
+    add(_timed(phase_tail_models, card, f32=True))
+    kernels.update(_timed(phase_notebook_kernels, card))
+    add(_timed(phase_notebook, card))
+    kernels.update(_timed(phase_vit_f32_kernels, card))
+    launches.update(_timed(phase_vit_f32, card))
+    _timed(phase_remat, card)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "sfc_vit_tpu"))
     _check(not leaked, f"the port imported {leaked}")
@@ -3705,6 +3931,12 @@ def main() -> int:
         dict(name="fused_attention_block_bwd_f32", route="cuda",
              source="sfc_vit_tpu_torch/csrc/attention_bwd_f32.cu",
              replaces="sfc_vit_tpu/ops/fused_attention_block.py:333"),
+        dict(name="postnorm_tail_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/gemm_f32.cu",
+             replaces="sfc_vit_tpu/ops/fused_mlp.py:549"),
+        dict(name="postnorm_tail_bwd_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/ln_rows_bwd.cu",
+             replaces="sfc_vit_tpu/ops/fused_mlp.py:665"),
     ]
     for e in entries:
         k = kernels[e["name"]]
@@ -3713,6 +3945,7 @@ def main() -> int:
                  bound_by=k["bound_by"], library_ms=k["library_ms"])
         if "single_step" in k:  # #8's other form, timed at CurveViT-S/12's shape
             e["single_step"] = k["single_step"]
+    print(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -82,9 +82,12 @@
 // writes its raw fp32 partial sum over its contiguous K range, and a
 // second kernel adds the partials in split order and applies the
 // epilogue.  Every output is then one fp32 sum in a fixed order, rounded
-// once: the same inputs give the same bits.  The column sums (colsum) are
-// taken in a fixed order inside a block and meet across blocks by one
-// fp32 atomic per column and block, whose order varies run to run.
+// once: the same inputs give the same bits.  The column sums (colsum) have
+// one owner each and a fixed order, no atomics: each 128-row tile (or, after
+// a split-K sum, each 32-row block of the sum kernel) sums its own rows in a
+// fixed order into its partial row of a workspace [stripes, N], and
+// common.cuh's slice_sum_kernel adds the stripes in stripe order, so a
+// second call gives the same bits (gemm_f32.cu's scheme).
 //
 // The post-norm tail's LayerNorm form (#15: fc2 + b2 + the fp32 LN1
 // output x2f, then LN2 of that fp32 sum s2, rounded once; the training
@@ -123,6 +126,7 @@ using sfc::bf16;
 namespace hw = sfc::sm90;
 
 constexpr int BM = 128, BN = 128, BK = 64;
+constexpr int kColsumWarps = 32;  // the stripe sum's warps (slice_sum_kernel)
 constexpr int kStages = 4;
 constexpr int kConsumers = 2;                     // warpgroups, 64 rows of the tile each
 constexpr int kThreads = 128 * kConsumers + 32;  // + the producer warp
@@ -141,7 +145,7 @@ struct Epilogue {
   const float* bias;      // fp32 [N], added first
   const bf16* z_in;       // bf16 [M, N]: multiply by act'(z) instead of act()
   bf16* z_out;            // bf16 [M, N]: the pre-activation, rounded
-  float* colsum;          // fp32 [N]: += column sums of the fp32 result
+  float* col;             // fp32 [stripes, N] or null: each row stripe's column sums
   const bf16* residual;   // bf16 [M, N], added after the column sums
   const float* residual_f32;  // fp32 [M, N], added last
   int act;
@@ -567,7 +571,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_sm90(const __grid_const
       finish8<KIND>(v, offset(rr), in_tile(rr), b, ep, in, C, cs);
     }
     if (prof) stamp[3] = clock64();
-    if (ep.colsum != nullptr) {  // over the tile's rows in a fixed order, one atomic a column
+    if (ep.col != nullptr) {  // over the tile's rows in a fixed order, then the 8 warps in order
 #pragma unroll
       for (int e = 0; e < 8; ++e) cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], 16);
       hw::named_sync(kCsumBar, 2 * 128);  // both staging tiles are read: they take the warps' sums
@@ -580,7 +584,8 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_sm90(const __grid_const
         float sum = 0.f;
 #pragma unroll
         for (int q = 0; q < 2 * 4; ++q) sum += sm.stage[0][q * BN + tid];
-        atomicAdd(&ep.colsum[w.n0 + tid], sum);  // warpgroup 0 reads before it stages again
+        // warpgroup 0 reads before it stages again
+        ep.col[static_cast<size_t>(w.m0 / BM) * N + w.n0 + tid] = sum;
       }
     }
     if (prof) {
@@ -620,7 +625,7 @@ __global__ void __launch_bounds__(256)
     bias8(b, gc, ep);
     finish8<KIND>(v, off, true, b, ep, in, C, cs);
   }
-  if (ep.colsum != nullptr) {
+  if (ep.col != nullptr) {  // this block's 32 rows in order: its stripe's partial
 #pragma unroll
     for (int e = 0; e < 8; ++e) csum[ry][cx * 8 + e] = cs[e];
     __syncthreads();
@@ -628,7 +633,7 @@ __global__ void __launch_bounds__(256)
     if (threadIdx.x < 64 && col < N) {
       float s = 0.f;
       for (int r = 0; r < 32; ++r) s += csum[r][threadIdx.x];
-      atomicAdd(&ep.colsum[col], s);
+      ep.col[static_cast<size_t>(blockIdx.y) * N + col] = s;
     }
   }
 }
@@ -696,7 +701,9 @@ auto kernel_of() {
 
 // C [M, N] = op(A) . op(B) with the epilogue, in this order: + bias (fp32
 // [N]); z_out = bf16(sum); times act'(z_in) when z_in is given, else
-// act(); colsum += the fp32 column sums; + residual (bf16 [M, N]);
+// act(); colsum [N] = the fp32 column sums (col, fp32 [stripes, N], their
+// partials in a fixed order: stripes = ceil(M / 128) unsplit, ceil(M / 32)
+// split); + residual (bf16 [M, N]);
 // + residual_f32 (fp32 [M, N]); one rounding into C (bf16, or fp32 when
 // c_fp32).  Every pointer but a, b, c and workspace may be null.  act: 0
 // none, 1 exact-erf GELU, 2 ReLU.  trans_a: A is stored [K, M]; trans_b: B
@@ -708,16 +715,16 @@ auto kernel_of() {
 // wrapper checks these.
 extern "C" int sfc_gemm_bf16(const void* a, const void* b, const void* bias,
                              const void* residual, const void* residual_f32,
-                             const void* z_in, void* z_out, void* colsum, void* c,
+                             const void* z_in, void* z_out, void* col, void* colsum, void* c,
                              void* workspace, int c_fp32, int M, int N, int K, int trans_a,
                              int trans_b, int act, int splits, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if ((trans_a && trans_b) || K < 0 || splits < 1 || (splits > 1 && !trans_a) ||
-      (splits > 1 && workspace == nullptr))
+      (splits > 1 && workspace == nullptr) || ((colsum == nullptr) != (col == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   const Epilogue ep{static_cast<const float*>(bias), static_cast<const bf16*>(z_in),
-                    static_cast<bf16*>(z_out), static_cast<float*>(colsum),
+                    static_cast<bf16*>(z_out), static_cast<float*>(col),
                     static_cast<const bf16*>(residual),
                     static_cast<const float*>(residual_f32), act, c_fp32 != 0};
   Shape& sh = p.sh;
@@ -749,15 +756,24 @@ extern "C" int sfc_gemm_bf16(const void* a, const void* b, const void* bias,
   else if (kind == kActGrad) e = launch_layout<kActGrad>(p, trans_a, trans_b, s);
   else if (kind == kActFwd) e = launch_layout<kActFwd>(p, trans_a, trans_b, s);
   else e = launch_layout<kLinear>(p, trans_a, trans_b, s);
-  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  const dim3 grid((N + 63) / 64, (M + 31) / 32);
-  if (kind == kActGrad)
-    gemm_splitk_sum<kActGrad><<<grid, 256, 0, s>>>(p.partial, splits, c, M, N, ep);
-  else if (kind == kActFwd)
-    gemm_splitk_sum<kActFwd><<<grid, 256, 0, s>>>(p.partial, splits, c, M, N, ep);
-  else
-    gemm_splitk_sum<kLinear><<<grid, 256, 0, s>>>(p.partial, splits, c, M, N, ep);
-  return static_cast<int>(cudaGetLastError());
+  int stripes = (M + BM - 1) / BM;
+  if (e == cudaSuccess && splits > 1) {
+    const dim3 grid((N + 63) / 64, (M + 31) / 32);
+    stripes = static_cast<int>(grid.y);
+    if (kind == kActGrad)
+      gemm_splitk_sum<kActGrad><<<grid, 256, 0, s>>>(p.partial, splits, c, M, N, ep);
+    else if (kind == kActFwd)
+      gemm_splitk_sum<kActFwd><<<grid, 256, 0, s>>>(p.partial, splits, c, M, N, ep);
+    else
+      gemm_splitk_sum<kLinear><<<grid, 256, 0, s>>>(p.partial, splits, c, M, N, ep);
+    e = cudaGetLastError();
+  }
+  if (e == cudaSuccess && colsum != nullptr) {
+    sfc::slice_sum_kernel<kColsumWarps><<<(N + 31) / 32, kColsumWarps * 32, 0, s>>>(
+        static_cast<const float*>(col), static_cast<float*>(colsum), stripes, N);
+    e = cudaGetLastError();
+  }
+  return static_cast<int>(e);
 }
 
 // The forward's fc1 form (NN, + bias, exact-erf GELU, z_out; C bf16), the

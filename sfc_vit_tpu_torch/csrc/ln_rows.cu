@@ -15,18 +15,21 @@
 // mean and E[x^2], variance E[x^2] - E[x]^2 clamped at 0, rsqrt(var + eps),
 // scale and bias in fp32, one round to bf16.
 //
-// A row is read as bf16, as fp32, or as the fp32 sum of two bf16 rows
-// (template argument IN).  Its fp32 form, fp32 rows in and fp32 rows out
-// with no rounding, is the LayerNorm of #1 and #2 (and of #3's and #4's
-// recomputed xn) when the model computes in float32.  Optional outputs: the normalised row in fp32
+// A row is read as bf16, as fp32, as the fp32 sum of two bf16 rows, or
+// as the sum of two fp32 rows (template argument IN).  Its fp32 forms, fp32
+// rows in and fp32 rows out with no rounding, are the LayerNorm of #1 and
+// #2 (and of #3's and #4's recomputed xn), and over x + attn LN1 of #15
+// (and #16's recomputed x2), when the model computes in float32; #15's LN2
+// in float32 is the one-row fp32 form over s2.  Optional outputs: the normalised row in fp32
 // (y32), the input row rounded to bf16 (xr), and the row's mean and
 // rsqrt(var + eps) (stats), from which csrc/gemm_bf16.cu's LayerNorm form
 // rebuilds the fp32 output bit for bit (sfc::ln_apply) instead of reading
 // y32.
 //
-// Bound on this card: memory.  Per row it reads D bf16 (or 2 D bf16, or D
-// fp32) and writes D bf16 (plus D fp32 for y32) with ~5 flops per element,
-// far below the H100's ~295 flops/byte ridge.  Design: one warp per row,
+// Bound on this card: memory.  Per row it reads D bf16 (or 2 D bf16, D
+// fp32 or 2 D fp32) and writes D bf16 or fp32 (plus D fp32 for y32) with
+// ~5 flops per element, far below the H100's ~295 flops/byte ridge.
+// Design: one warp per row,
 // 16-byte vector loads (D % 8 == 0), no shared memory, so many rows are in
 // flight per SM.  A row of up to 1,024 (kRegChunks 16-byte chunks a lane)
 // stays in registers from its statistics to its output, read from memory
@@ -46,22 +49,35 @@ using sfc::bf16;
 constexpr int kWarps = 8;
 constexpr int kRegChunks = 4;  // rows of up to 4 x 32 x 8 = 1,024 stay in registers
 
-enum In : int { kBf16 = 0, kSum2 = 1, kF32 = 2 };
+enum In : int { kBf16 = 0, kSum2 = 1, kF32 = 2, kSum2F32 = 3 };
 
-// Eight neighbouring values (chunk c) of row `row` as fp32.
+// Chunk c (eight fp32 values) of the fp32 row at p.
+__device__ __forceinline__ void load_f32x8(const void* p, int c, float* v) {
+  const float4* q = static_cast<const float4*>(p);
+  const float4 a = q[2 * c], b = q[2 * c + 1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// Eight neighbouring values (chunk c) of row `row` as fp32: x's, or x's +
+// xb's in fp32 (kSum2, kSum2F32).
 template <int IN>
-__device__ __forceinline__ void load8(const void* x, const bf16* xb, long row, int d,
+__device__ __forceinline__ void load8(const void* x, const void* xb, long row, int d,
                                       int c, float* v) {
-  if constexpr (IN == kF32) {
-    const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(x) + row * d);
-    const float4 a = p[2 * c], b = p[2 * c + 1];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  if constexpr (IN == kF32 || IN == kSum2F32) {
+    load_f32x8(static_cast<const float*>(x) + row * d, c, v);
+    if constexpr (IN == kSum2F32) {
+      float w[8];
+      load_f32x8(static_cast<const float*>(xb) + row * d, c, w);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] += w[e];
+    }
   } else {
     sfc::unpack_bf16x8(reinterpret_cast<const uint4*>(static_cast<const bf16*>(x) + row * d)[c], v);
     if constexpr (IN == kSum2) {
       float w[8];
-      sfc::unpack_bf16x8(reinterpret_cast<const uint4*>(xb + row * d)[c], w);
+      sfc::unpack_bf16x8(reinterpret_cast<const uint4*>(static_cast<const bf16*>(xb) + row * d)[c],
+                         w);
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] += w[e];
     }
@@ -101,7 +117,7 @@ __device__ __forceinline__ void out8(float* v, const float* scale, const float* 
 // kInRegs: d <= 32 x 8 x kRegChunks, the row kept in registers.
 template <int IN, bool kInRegs>
 __global__ void __launch_bounds__(kWarps * 32)
-    ln_rows_kernel(const void* __restrict__ x, const bf16* __restrict__ xb,
+    ln_rows_kernel(const void* __restrict__ x, const void* __restrict__ xb,
                    const float* __restrict__ scale, const float* __restrict__ bias,
                    bf16* __restrict__ y, float* __restrict__ y32, bf16* __restrict__ xr,
                    float2* __restrict__ stats, int rows, int d, float eps) {
@@ -154,7 +170,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 template <int IN>
-void launch(int blocks, cudaStream_t s, const void* x, const bf16* xb, const float* sc,
+void launch(int blocks, cudaStream_t s, const void* x, const void* xb, const float* sc,
             const float* bi, bf16* y, float* y32, bf16* xr, float2* st, int rows, int d,
             float eps) {
   if (d <= 32 * 8 * kRegChunks)
@@ -169,7 +185,8 @@ void launch(int blocks, cudaStream_t s, const void* x, const bf16* xb, const flo
 
 // y bf16 [rows, d] = LN(row) with fp32 scale and bias [d].  The row is x
 // (bf16 [rows, d]), x as fp32 (x_f32), or the fp32 sum x + x_b of two bf16
-// rows (x_b not null).  y32 (fp32 [rows, d], may be null) receives the
+// rows (x_b not null), or of two fp32 rows (x_f32 and x_b, both fp32
+// [rows, d]).  y32 (fp32 [rows, d], may be null) receives the
 // normalised row before its rounding; y may be null where y32 is not (the
 // fp32 form: fp32 rows in, fp32 rows out, nothing rounded); xr (bf16
 // [rows, d], may be null) the input row rounded to bf16; stats (fp32 [rows, 2], may be null) the
@@ -180,18 +197,19 @@ extern "C" int sfc_ln_rows_bf16(const void* x, const void* x_b, int x_f32,
                                 void* y32, void* xr, void* stats, int rows, int d, float eps,
                                 void* stream) {
   if (rows <= 0) return 0;
-  if ((x_f32 && x_b != nullptr) || (y == nullptr && y32 == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (y == nullptr && y32 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (rows + kWarps - 1) / kWarps;
   auto s = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const bf16*>(x_b);
+  const void* xb = x_b;
   const auto* sc = static_cast<const float*>(scale);
   const auto* bi = static_cast<const float*>(bias);
   auto* yo = static_cast<bf16*>(y);
   auto* y32o = static_cast<float*>(y32);
   auto* xro = static_cast<bf16*>(xr);
   auto* st = static_cast<float2*>(stats);
-  if (x_f32)
+  if (x_f32 && xb != nullptr)
+    launch<kSum2F32>(blocks, s, x, xb, sc, bi, yo, y32o, xro, st, rows, d, eps);
+  else if (x_f32)
     launch<kF32>(blocks, s, x, xb, sc, bi, yo, y32o, xro, st, rows, d, eps);
   else if (xb != nullptr)
     launch<kSum2>(blocks, s, x, xb, sc, bi, yo, y32o, xro, st, rows, d, eps);

@@ -10,7 +10,7 @@
 // saved bf16 s2 and the bf16 cotangent g, giving the fp32 ds2, its bf16
 // rounding and db2 = colsum(ds2) (lines 705-722), and LN1's from the sum
 // x + attn and the fp32 dx2, giving the shared cotangent ds (lines
-// 691-698, 747-753).  Same arithmetic: mean, E[x^2] - E[x]^2 clamped at 0
+// 691-698, 747-753), in bf16 or in float32.  Same arithmetic: mean, E[x^2] - E[x]^2 clamped at 0
 // and inv = rsqrt(var + eps) recomputed from the saved row, xhat =
 // (x - mean) * inv; dxh = dxn * scale;
 // dx = inv * (dxh - mean(dxh) - xhat * mean(dxh * xhat)) (+ g) in fp32
@@ -18,12 +18,14 @@
 // and optionally colsum(g) and the column sums of the fp32 dx.
 //
 // The row is bf16 or the fp32 sum of two bf16 rows (template argument
-// SUM2); the cotangent dxn is fp32 or bf16 (DXN_BF16).  Four forms run on
+// SUM2); the cotangent dxn is fp32 or bf16 (DXN_BF16).  Five forms run on
 // the models' paths: (a) x bf16, dxn fp32, + g (#3, #4; #3 also colsum(g));
 // (b) x bf16, dxn bf16, also the fp32 dx and its column sums (#16's LN2);
 // (c) x + x_b, dxn fp32 (#16's LN1); (d) form (a) in float32 throughout
 // (F32: x, g and dx fp32, nothing rounded; #3 and #4 when the model
-// computes in float32).  (a)-(c) move 10 bytes an element, (d) 16.
+// computes in float32; with the column sums of dx and no g, #16's LN2 in
+// float32); (e) form (c) in float32 (x, x_b and dx fp32: #16's LN1 in
+// float32).  (a)-(c) move 10 bytes an element, (d) 16, (e) 16.
 //
 // Bound on this card: memory.  ~15 flops an element against 10 bytes,
 // far under the H100's ~295 flops a byte: 385 MB at ViT-B's [50,176, 768]
@@ -38,7 +40,8 @@
 //    memory holds them and no bank is shared.  scale's chunk is read once.
 //  * A block takes kRows rows at once and issues all their 16-byte loads
 //    (x, x_b, dxn, g: up to 4 x kRows independent loads a thread) before
-//    any arithmetic; with several blocks an SM (the occupancy query, 5 at
+//    any arithmetic (form (e) reads dxn after the row sums, as (d) reads g:
+//    fp32 x, x_b and dxn together would hold 96 registers of loads); with several blocks an SM (the occupancy query, 5 at
 //    D 768) that keeps ~100 KB an SM in flight, past the ~25 KB the memory
 //    rate times its latency needs.  A software pipeline (the next rows'
 //    loads before this row's arithmetic) or a TMA ring would double the
@@ -69,7 +72,7 @@ constexpr int kSumWarps = 32;                // the block-order sum's threads / 
 
 struct Args {
   const void* x;       // [rows, d], bf16 (fp32 in form (d))
-  const bf16* xb;      // [rows, d] or null: the row is x + xb in fp32
+  const void* xb;      // [rows, d] like x, or null: the row is x + xb in fp32
   const void* dxn;     // [rows, d], fp32 or bf16
   const float* scale;  // [d]
   const void* g;       // [rows, d] like x, or null unless add_g or g_sum
@@ -111,6 +114,7 @@ __device__ __forceinline__ void block_sum(float (&v)[K], float (*red)[K], int wa
 template <bool SUM2, bool DXN_BF16, bool F32>
 __global__ void __launch_bounds__(kMaxThreads)
     ln_rows_bwd_kernel(const __grid_constant__ Args a) {
+  constexpr bool kLateDxn = SUM2 && F32;  // form (e): dxn read after the row sums
   // One array for each reduction of a round: the second barrier of a round
   // orders its reads of the first before the next round's writes, and the
   // next round's first barrier does the same for the second.
@@ -135,12 +139,13 @@ __global__ void __launch_bounds__(kMaxThreads)
     // (Form (d) reads g after the row sums: fp32 g beside fp32 x and dxn
     // would hold 96 registers of loads across them.)
     uint4 xr[kRows], xbr[kRows], dr[kRows], gr[kRows];
-    float4 df[kRows][2], xf[kRows][2];
+    float4 df[kRows][2], xf[kRows][2], xbf[kRows][2];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const uint4 zero = make_uint4(0, 0, 0, 0);
       xr[i] = xbr[i] = dr[i] = gr[i] = zero;
       df[i][0] = df[i][1] = xf[i][0] = xf[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      xbf[i][0] = xbf[i][1] = df[i][0];
       if (own && r0 + i < rows) {
         const size_t off = static_cast<size_t>(r0 + i) * d + 8 * c;
         if constexpr (F32) {
@@ -150,10 +155,16 @@ __global__ void __launch_bounds__(kMaxThreads)
         } else {
           xr[i] = __ldg(reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.x) + off));
         }
-        if constexpr (SUM2) xbr[i] = __ldg(reinterpret_cast<const uint4*>(a.xb + off));
+        if constexpr (SUM2 && F32) {
+          const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(a.xb) + off);
+          xbf[i][0] = __ldg(p);
+          xbf[i][1] = __ldg(p + 1);
+        } else if constexpr (SUM2) {
+          xbr[i] = __ldg(reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.xb) + off));
+        }
         if constexpr (DXN_BF16) {
           dr[i] = __ldg(reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.dxn) + off));
-        } else {
+        } else if constexpr (!kLateDxn) {
           const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(a.dxn) + off);
           df[i][0] = __ldg(p);
           df[i][1] = __ldg(p + 1);
@@ -170,12 +181,13 @@ __global__ void __launch_bounds__(kMaxThreads)
       else sfc::unpack_bf16x8(xr[i], xv[i]);
       if constexpr (SUM2) {
         float w[8];
-        sfc::unpack_bf16x8(xbr[i], w);
+        if constexpr (F32) unpack_f32x8(xbf[i][0], xbf[i][1], w);
+        else sfc::unpack_bf16x8(xbr[i], w);
 #pragma unroll
         for (int e = 0; e < 8; ++e) xv[i][e] += w[e];
       }
       if constexpr (DXN_BF16) sfc::unpack_bf16x8(dr[i], dv[i]);
-      else unpack_f32x8(df[i][0], df[i][1], dv[i]);
+      else if constexpr (!kLateDxn) unpack_f32x8(df[i][0], df[i][1], dv[i]);
       float s = 0.f, ss = 0.f;
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -186,6 +198,19 @@ __global__ void __launch_bounds__(kMaxThreads)
       st[2 * i + 1] = ss;
     }
     block_sum(st, red_stats, warps);
+    if constexpr (kLateDxn) {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        float4 d0 = make_float4(0.f, 0.f, 0.f, 0.f), d1 = d0;
+        if (own && r0 + i < rows) {
+          const float4* p = reinterpret_cast<const float4*>(
+              static_cast<const float*>(a.dxn) + static_cast<size_t>(r0 + i) * d + 8 * c);
+          d0 = __ldg(p);
+          d1 = __ldg(p + 1);
+        }
+        unpack_f32x8(d0, d1, dv[i]);
+      }
+    }
 
     // xhat in place of x; the two row means' sums.
     float inv[kRows], mt[2 * kRows];
@@ -273,13 +298,14 @@ int threads_for(int d) { return (d / 8 + 31) / 32 * 32; }
 template <bool SUM2, bool DXN_BF16, bool F32 = false>
 auto kernel_of() { return ln_rows_bwd_kernel<SUM2, DXN_BF16, F32>; }
 
-// The kernel of form 0 (a), 1 (b), 2 (c) or 3 (d); null for another.
+// The kernel of form 0 (a), 1 (b), 2 (c), 3 (d) or 4 (e); null for another.
 using KernelPtr = void (*)(Args);
 KernelPtr kernel_of_form(int form) {
   if (form == 0) return kernel_of<false, false>();
   if (form == 1) return kernel_of<false, true>();
   if (form == 2) return kernel_of<true, false>();
   if (form == 3) return kernel_of<false, false, true>();
+  if (form == 4) return kernel_of<true, false, true>();
   return nullptr;
 }
 
@@ -302,8 +328,8 @@ int launch(const Args& a, int blocks, float* sums, cudaStream_t stream) {
 // dxn fp32 [rows, d] (bf16 when dxn_bf16), scale fp32 [d], g bf16
 // [rows, d] (read only for add_g or g_sum; may be null otherwise); dx bf16
 // [rows, d], and dx32 (fp32 [rows, d], may be null) the same dx before its
-// rounding.  With x_f32 (form (d)) x, g and dx are fp32 and dxn fp32, and
-// neither x_b, dxn_bf16 nor dx32 is taken.  sums fp32 [2 + g_sum +
+// rounding.  With x_f32 (forms (d) and (e)) x, x_b, g and dx are fp32 and
+// dxn fp32, and neither dxn_bf16 nor dx32 is taken.  sums fp32 [2 + g_sum +
 // dx_sum, d] receives the column sums of dxn * xhat, dxn, then g (g_sum)
 // and the fp32 dx (dx_sum); ws is an fp32 workspace of blocks * (2 + g_sum
 // + dx_sum) * d elements, blocks from the Python ln_rows_bwd_plan (0 when
@@ -320,11 +346,11 @@ extern "C" int sfc_ln_rows_bwd_bf16(const void* x, const void* x_b, const void* 
   if (d % 8 || d < 8 || d > kMaxD || rows < 0 || blocks < 0 || blocks > need ||
       (rows > 0 && blocks == 0) || (x_b != nullptr && dxn_bf16) ||
       ((add_g || g_sum) && g == nullptr) ||
-      (x_f32 && (x_b != nullptr || dxn_bf16 || dx32 != nullptr)))
+      (x_f32 && (dxn_bf16 || dx32 != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.x = x;
-  a.xb = static_cast<const bf16*>(x_b);
+  a.xb = x_b;
   a.dxn = dxn;
   a.scale = static_cast<const float*>(scale);
   a.g = g;
@@ -339,13 +365,14 @@ extern "C" int sfc_ln_rows_bwd_bf16(const void* x, const void* x_b, const void* 
   a.eps = eps;
   auto* out = static_cast<float*>(sums);
   auto s = static_cast<cudaStream_t>(stream);
+  if (x_f32 && x_b != nullptr) return launch<true, false, true>(a, blocks, out, s);
   if (x_f32) return launch<false, false, true>(a, blocks, out, s);
   if (x_b != nullptr) return launch<true, false>(a, blocks, out, s);
   if (dxn_bf16) return launch<false, true>(a, blocks, out, s);
   return launch<false, false>(a, blocks, out, s);
 }
 
-// Blocks of the instance of form 0 (a), 1 (b), 2 (c) or 3 (d) an SM holds
+// Blocks of the instance of form 0 (a), 1 (b), 2 (c), 3 (d) or 4 (e) an SM holds
 // at width d (the occupancy query), into *out.
 extern "C" int sfc_ln_rows_bwd_blocks_per_sm(int d, int form, int* out) {
   const KernelPtr k = kernel_of_form(form);
@@ -354,8 +381,8 @@ extern "C" int sfc_ln_rows_bwd_blocks_per_sm(int d, int form, int* out) {
 }
 
 // Registers, local bytes and shared bytes of the instance of form 0 (x
-// bf16, dxn fp32), 1 (dxn bf16), 2 (x + x_b) or 3 (fp32 throughout), into
-// out[3].
+// bf16, dxn fp32), 1 (dxn bf16), 2 (x + x_b), 3 (fp32 throughout) or 4
+// (x + x_b in fp32), into out[3].
 extern "C" int sfc_ln_rows_bwd_attrs(int form, int* out) {
   const KernelPtr k = kernel_of_form(form);
   if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);

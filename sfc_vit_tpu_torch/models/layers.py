@@ -26,6 +26,10 @@ device) or, with none installed, from PyTorch's default generator of the
 device; one function, so a test can replay another framework's masks in
 draw order.
 
+``remat`` (flax's ``nn.remat``) recomputes each checkpointed layer's
+activations in the backward (:func:`remat_call`), replaying the dropout
+generator, so that the recompute draws the masks the forward drew.
+
 The ``'random'`` curve's per-call token permutation (flax's
 ``make_rng('permute')``) is drawn the same way: :func:`curve_permutation`
 takes it from the generator :func:`permutation_generator` installs, once
@@ -40,6 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import packed_qkv_attention
@@ -54,6 +59,7 @@ __all__ = [
     "dropout",
     "dropout_generator",
     "dropout_mask",
+    "remat_call",
     "permutation_generator",
     "curve_permutation",
     "draw_permutation",
@@ -144,6 +150,41 @@ def dropout_mask(shape, keep: float, device) -> torch.Tensor:
     """A bool keep mask of ``shape``: ``uniform < keep``, as
     ``jax.random.bernoulli`` draws it."""
     return torch.rand(tuple(shape), device=device, generator=_GENERATOR.get()) < keep
+
+
+def remat_call(module: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``module(x)``; with ``remat``, in training under autograd, through
+    ``torch.utils.checkpoint`` (non-reentrant, so the forward runs with grad
+    on and the fused wrappers take their training forms both times): the
+    module's activations are dropped after the forward and recomputed in
+    the backward, flax's ``nn.remat``.
+
+    flax's recompute replays the dropout key.  Here the recompute runs in
+    the backward, outside the :func:`dropout_generator` block, so it is
+    given a copy of the generator the forward found, set to the state the
+    forward found it in: it draws the forward's masks, and the live
+    generator stays where the forward left it for every later draw.  With
+    no generator installed the masks come from the default generator, whose
+    state ``checkpoint`` saves and restores itself."""
+    if not (remat and module.training and torch.is_grad_enabled()):
+        return module(x)
+    gen = _GENERATOR.get()
+    state = None if gen is None else gen.get_state()
+    calls = 0
+
+    def run(inp):
+        nonlocal calls
+        calls += 1
+        if calls == 1:  # the forward, on the live generator
+            return module(inp)
+        replay = None
+        if gen is not None:
+            replay = torch.Generator(device=gen.device)
+            replay.set_state(state)
+        with dropout_generator(replay):
+            return module(inp)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
 
 
 _PERMUTE: contextvars.ContextVar = contextvars.ContextVar(
@@ -362,20 +403,22 @@ class TorchTransformerEncoderLayer(nn.Module):
 
 class TransformerSeqEncoder(nn.Module):
     """A stack of post-norm encoder layers ``layer_{i}`` (the reference's
-    ``vit.py:177-242``; no CLS token, no positional encoding)."""
+    ``vit.py:177-242``; no CLS token, no positional encoding).  ``remat``
+    checkpoints each layer whole in training (:func:`remat_call`), as JAX's
+    ``nn.remat(TorchTransformerEncoderLayer)``."""
 
     def __init__(self, dim: int, n_heads: int, hidden_dim: int, n_layers: int = 1,
                  dropout_rate: float = 0.1, dtype: Optional[torch.dtype] = None,
-                 attn_impl: str = "auto", generator=None):
+                 attn_impl: str = "auto", generator=None, remat: bool = False):
         super().__init__()
-        self.n_layers = n_layers
+        self.n_layers, self.remat = n_layers, remat
         for i in range(n_layers):
             self.add_module(f"layer_{i}", TorchTransformerEncoderLayer(
                 dim, n_heads, hidden_dim, dropout_rate, dtype, attn_impl, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x)
+            x = remat_call(getattr(self, f"layer_{i}"), x, self.remat)
         return x
 
 

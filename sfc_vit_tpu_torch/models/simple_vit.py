@@ -56,6 +56,7 @@ from ..ops.kernel_utils import ln_fp32
 from ..ops.token_merge import curve_pair_merge_topk
 from ..tokenizers.patches import curve_gather, patchify
 from ..utils.initializers import lecun_normal as _lecun_normal
+from .layers import remat_call
 from .posemb import gfpe, sincos_1d
 
 __all__ = ["CurvePatchEmbedding", "PreNormTransformer", "SimpleViT",
@@ -269,17 +270,20 @@ class PreNormTransformer(nn.Module):
     ``pool_layers`` halves the tokens with :func:`curve_pair_pool` and
     ``merge_layers`` merges the most similar curve pairs
     (:func:`~sfc_vit_tpu_torch.ops.token_merge.curve_pair_merge_topk` at
-    ``merge_ratio``).  ``remat`` and ``final_norm`` are later ROADMAP
-    items.
+    ``merge_ratio``).  ``remat`` checkpoints each attention block and each
+    MLP block apart in training (:func:`~sfc_vit_tpu_torch.models.layers.remat_call`),
+    as JAX's ``nn.remat(_PreNormAttention)`` and ``nn.remat(_FeedForward)``;
+    pooling and merging stay outside.  ``final_norm`` (pipeline stages) is
+    not ported.
     """
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, dtype: Optional[torch.dtype] = None,
                  generator=None, pool_layers: Sequence[int] = (),
                  merge_layers: Sequence[int] = (), merge_ratio: float = 0.5,
-                 attn_impl: Union[str, Sequence[str]] = "auto"):
+                 attn_impl: Union[str, Sequence[str]] = "auto", remat: bool = False):
         super().__init__()
-        self.depth = depth
+        self.depth, self.remat = depth, remat
         self.pool_layers = tuple(pool_layers)
         self.merge_layers = tuple(merge_layers)
         self.merge_ratio = merge_ratio
@@ -293,8 +297,8 @@ class PreNormTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.depth):
-            x = getattr(self, f"attn_{i}")(x)  # residual added in the block
-            x = getattr(self, f"ff_{i}")(x)
+            x = remat_call(getattr(self, f"attn_{i}"), x, self.remat)  # + residual
+            x = remat_call(getattr(self, f"ff_{i}"), x, self.remat)
             if i in self.pool_layers:
                 x = curve_pair_pool(x)
             if i in self.merge_layers:
@@ -312,14 +316,15 @@ def _classify(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 class SimpleViT(nn.Module):
     """Raster baseline: patchify -> LN/Linear/LN -> + sincos 1-D table ->
-    pre-norm stack -> mean pool -> linear head."""
+    pre-norm stack -> mean pool -> linear head; ``remat`` goes to the
+    :class:`PreNormTransformer`."""
 
     def __init__(self, image_size: int, patch_size: int, num_classes: int,
                  dim: int, depth: int, heads: int, mlp_dim: int,
                  dim_head: int = 64, channels: int = 3,
                  dtype: Optional[torch.dtype] = None,
                  device=None, generator: Optional[torch.Generator] = None,
-                 attn_impl: Union[str, Sequence[str]] = "auto"):
+                 attn_impl: Union[str, Sequence[str]] = "auto", remat: bool = False):
         super().__init__()
         if image_size % patch_size:
             raise ValueError(
@@ -336,7 +341,7 @@ class SimpleViT(nn.Module):
                              persistent=False)
         self.transformer = PreNormTransformer(
             dim, depth, heads, dim_head, mlp_dim, dtype, generator,
-            attn_impl=attn_impl)
+            attn_impl=attn_impl, remat=remat)
         self.linear_head = _linear(dim, num_classes, generator)
         self.to(device)
 
@@ -351,8 +356,8 @@ class SimpleViT(nn.Module):
 class CurveViT(nn.Module):
     """Curve-ordered SimpleViT with the GFPE positional encoding (T=4,
     h=3.0) over the curve's flat grid indices; ``pool_layers``,
-    ``merge_layers`` / ``merge_ratio`` and ``attn_impl`` go to the
-    :class:`PreNormTransformer`."""
+    ``merge_layers`` / ``merge_ratio``, ``attn_impl`` and ``remat`` go to
+    the :class:`PreNormTransformer`."""
 
     def __init__(self, image_size: int, patch_size: int, num_classes: int,
                  dim: int, depth: int, heads: int, mlp_dim: int,
@@ -362,7 +367,7 @@ class CurveViT(nn.Module):
                  device=None, generator: Optional[torch.Generator] = None,
                  pool_layers: Sequence[int] = (), merge_layers: Sequence[int] = (),
                  merge_ratio: float = 0.5,
-                 attn_impl: Union[str, Sequence[str]] = "auto"):
+                 attn_impl: Union[str, Sequence[str]] = "auto", remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.to_patch_embedding = CurvePatchEmbedding(
@@ -375,7 +380,7 @@ class CurveViT(nn.Module):
         self.transformer = PreNormTransformer(
             dim, depth, heads, dim_head, mlp_dim, dtype, generator,
             pool_layers=pool_layers, merge_layers=merge_layers,
-            merge_ratio=merge_ratio, attn_impl=attn_impl)
+            merge_ratio=merge_ratio, attn_impl=attn_impl, remat=remat)
         self.linear_head = _linear(dim, num_classes, generator)
         self.to(device)
 

@@ -43,8 +43,9 @@ class VisionTransformer(nn.Module):
     ``PixelCurveEmbedding1D`` or ``HierarchicalCurveEmbedding``) exposing
     ``n_patches`` and ``out_dim`` (or ``embed_dim``).  Dropout
     (``dropout_rate`` in the encoder, 0.5 in the head) is on in
-    ``train()`` mode.  Parameters are created in float32 from
-    ``generator`` and moved to ``device``.
+    ``train()`` mode; ``remat`` checkpoints each encoder layer in training.
+    Parameters are created in float32 from ``generator`` and moved to
+    ``device``.
     """
 
     #: ``VisionTransformer1D`` puts a ``MixerBlock`` before the encoder.
@@ -54,7 +55,8 @@ class VisionTransformer(nn.Module):
                  mlp_dim: int = 256, num_classes: int = 10,
                  dropout_rate: float = 0.1, posemb: str = "none",
                  dtype: Optional[torch.dtype] = None, attn_impl: str = "auto",
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.posemb = posemb
@@ -74,7 +76,7 @@ class VisionTransformer(nn.Module):
                                         generator=generator)
         self.encoder = TransformerSeqEncoder(dim, n_heads, mlp_dim, depth,
                                              dropout_rate, dtype, attn_impl,
-                                             generator)
+                                             generator, remat=remat)
         self.mlp_head = MultiLayerPredictor(dim, n, n_layers=2, dropout_rate=0.5,
                                             num_classes=num_classes, dtype=dtype,
                                             generator=generator)
@@ -109,15 +111,17 @@ class HierarchicalVisionTransformer1D(nn.Module):
 
     ``patch_embed`` must be a ``HierarchicalCurveEmbedding`` built with
     ``return_levels=True``; every layer has its per-level width
-    ``embed_dim``.  Parameters are created in float32 from ``generator``
-    and moved to ``device``.
+    ``embed_dim``.  ``remat`` checkpoints each layer of the level encoders
+    in training; the fusion encoder runs without it, as in JAX.
+    Parameters are created in float32 from ``generator`` and moved to
+    ``device``.
     """
 
     def __init__(self, patch_embed: nn.Module, depth: int = 6, n_heads: int = 4,
                  mlp_dim: int = 256, num_classes: int = 10,
                  dropout_rate: float = 0.1, dtype: Optional[torch.dtype] = None,
                  attn_impl: str = "auto", device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
         super().__init__()
         if not getattr(patch_embed, "return_levels", False):
             raise ValueError("HierarchicalVisionTransformer1D needs a hierarchical "
@@ -126,7 +130,8 @@ class HierarchicalVisionTransformer1D(nn.Module):
         dim = patch_embed.embed_dim
         for i in range(len(patch_embed.patch_list)):
             self.add_module(f"encoder_{i}", TransformerSeqEncoder(
-                dim, n_heads, mlp_dim, depth, dropout_rate, dtype, attn_impl, generator))
+                dim, n_heads, mlp_dim, depth, dropout_rate, dtype, attn_impl, generator,
+                remat=remat))
         self.fusion_encoder = TransformerSeqEncoder(dim, n_heads, mlp_dim, 2, dropout_rate,
                                                     dtype, attn_impl, generator)
         self.mlp_head = MultiLayerPredictor(dim, int(sum(patch_embed.patch_list)),

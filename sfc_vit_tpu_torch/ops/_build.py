@@ -98,9 +98,9 @@ _SIGNATURES = {
     "sfc_ln_rows_bwd_bf16": (_P, _P, _P, _I, _I) + (_P,) * 6 + (_I,) * 5 + (_F, _I, _P),
     # d, form, out
     "sfc_ln_rows_bwd_blocks_per_sm": (_I, _I, _P),
-    # a, b, bias, residual, residual_f32, z_in, z_out, colsum, c, workspace;
-    # c_fp32, M, N, K, trans_a, trans_b, act, splits; stream
-    "sfc_gemm_bf16": (_P,) * 10 + (_I,) * 8 + (_P,),
+    # a, b, bias, residual, residual_f32, z_in, z_out, col, colsum, c,
+    # workspace; c_fp32, M, N, K, trans_a, trans_b, act, splits; stream
+    "sfc_gemm_bf16": (_P,) * 11 + (_I,) * 8 + (_P,),
     # a, b, bias, z_out, c; M, N, K; prof, cap, stream
     "sfc_gemm_profile": (_P,) * 5 + (_I,) * 3 + (_P, _I, _P),
     "sfc_act_bf16": (_P, _P, _L, _I, _P),
@@ -345,27 +345,29 @@ def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             with_f32: bool = False, with_rounded_input: bool = False,
             with_stats: bool = False, out_dtype: torch.dtype = torch.bfloat16):
     """LayerNorm of rows [R, D]: ``x`` bf16, ``x`` fp32, or (``x_b``
-    given) the fp32 sum ``x + x_b`` of two bf16 rows; ``scale``/``bias``
-    fp32 [D].  Returns the bf16 rows, then the same rows in fp32 before
-    their rounding when ``with_f32``, then the input rows rounded to bf16
-    when ``with_rounded_input``, then each row's mean and rsqrt(var + eps)
-    (fp32 [R, 2], from which :func:`gemm_layernorm` rebuilds the fp32
-    rows) when ``with_stats``.  ``out_dtype`` float32 (an fp32 ``x`` only,
-    neither ``with_f32`` nor ``with_rounded_input``) returns the fp32 rows
-    in place of the bf16 ones: the float32 chains' LayerNorm, nothing
-    rounded."""
+    given) the fp32 sum ``x + x_b`` of two bf16 rows or of two fp32 rows;
+    ``scale``/``bias`` fp32 [D].  Returns the bf16 rows, then the same rows
+    in fp32 before their rounding when ``with_f32``, then the input rows
+    rounded to bf16 when ``with_rounded_input``, then each row's mean and
+    rsqrt(var + eps) (fp32 [R, 2], from which :func:`gemm_layernorm`
+    rebuilds the fp32 rows) when ``with_stats``.  ``x_b`` has ``x``'s
+    dtype.  ``out_dtype`` float32 (an fp32 ``x``, neither ``with_f32`` nor
+    ``with_rounded_input``) returns the fp32 rows in place of the bf16
+    ones: the float32 chains' LayerNorm (#1-#4's, and #15's LN1 over x +
+    attn and LN2), nothing rounded."""
     r, d = x.shape
     if d % 8:
         raise ValueError(f"ln_rows: D={d} must be a multiple of 8")
-    x_f32 = x.dtype == torch.float32 and x_b is None
+    x_f32 = x.dtype == torch.float32
     f32_out = out_dtype == torch.float32
     if out_dtype not in (torch.bfloat16, torch.float32) or (
             f32_out and (not x_f32 or with_f32 or with_rounded_input)):
-        raise ValueError(f"ln_rows: out_dtype {out_dtype} takes an fp32 x alone "
-                         "and no other rows")
-    _require(x, "x", dtype=torch.float32 if x_f32 else torch.bfloat16)
+        raise ValueError(f"ln_rows: out_dtype {out_dtype} takes fp32 rows (an fp32 x alone, "
+                         "or with an fp32 x_b) and no other rows")
+    dt = torch.float32 if x_f32 else torch.bfloat16
+    _require(x, "x", dtype=dt)
     if x_b is not None:
-        _require(x_b, "x_b", (r, d))
+        _require(x_b, "x_b", (r, d), dt)
     _require(scale, "ln_scale", (d,), torch.float32)
     _require(bias, "ln_bias", (d,), torch.float32)
     y = None if f32_out else torch.empty((r, d), dtype=torch.bfloat16, device=x.device)
@@ -421,10 +423,10 @@ def ln_rows_bwd(x: torch.Tensor, dxn: torch.Tensor, scale: torch.Tensor,
     ``g_sum``, the fp32 dx before its rounding when ``dx_f32``, and the
     column sums of that fp32 dx when ``dx_sum``.  ``g`` (bf16 [R, D]) is
     read only for ``add_g`` or ``g_sum``.  An fp32 ``x`` is the float32
-    form (d): ``dxn``, ``g`` and ``dx`` fp32, nothing rounded, no ``x_b``,
-    ``dx_f32`` or ``dx_sum``.  The column sums are taken in a fixed order
-    (per block, then over the blocks in block order), so the same inputs
-    give the same bits.
+    form, (d), or (e) with an fp32 ``x_b``: ``x_b``, ``dxn``, ``g`` and
+    ``dx`` fp32, nothing rounded, no ``dx_f32`` (``dx`` is the fp32 dx).
+    The column sums are taken in a fixed order (per block, then over the
+    blocks in block order), so the same inputs give the same bits.
     """
     r, d = x.shape
     if d % 8 or not 8 <= d <= LN_BWD_MAX_D:
@@ -433,12 +435,14 @@ def ln_rows_bwd(x: torch.Tensor, dxn: torch.Tensor, scale: torch.Tensor,
     dxn_bf16 = dxn.dtype == torch.bfloat16
     if dxn_bf16 and x_b is not None:
         raise ValueError("ln_rows_bwd: a bf16 dxn with x_b is not instantiated")
-    if x_f32 and (x_b is not None or dx_f32 or dx_sum):
-        raise ValueError("ln_rows_bwd: the fp32 form takes no x_b, dx_f32 or dx_sum")
+    if x_f32 and dx_f32:
+        raise ValueError("ln_rows_bwd: the fp32 form's dx is fp32 already (no dx_f32)")
+    if x_f32 and x_b is not None and x_b.dtype != torch.float32:
+        raise ValueError(f"ln_rows_bwd: the fp32 form takes an fp32 x_b, got {x_b.dtype}")
     dt = torch.float32 if x_f32 else torch.bfloat16
     _require(x, "x", dtype=dt)
     if x_b is not None:
-        _require(x_b, "x_b", (r, d))
+        _require(x_b, "x_b", (r, d), dt)
     _require(dxn, "dxn", (r, d), torch.bfloat16 if dxn_bf16 and not x_f32 else torch.float32)
     _require(scale, "ln_scale", (d,), torch.float32)
     if add_g or g_sum:
@@ -446,7 +450,7 @@ def ln_rows_bwd(x: torch.Tensor, dxn: torch.Tensor, scale: torch.Tensor,
     else:
         g = None
     nsum = 2 + g_sum + dx_sum
-    form = 3 if x_f32 else 2 if x_b is not None else int(dxn_bf16)
+    form = (4 if x_b is not None else 3) if x_f32 else 2 if x_b is not None else int(dxn_bf16)
     _, blocks = ln_rows_bwd_plan(r, d, _ln_bwd_blocks_per_sm(x.device, d, form),
                                  _sm_count(x.device))
     dx = torch.empty_like(x)
@@ -527,11 +531,12 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     ``save_z`` also returns the pre-activation sum rounded to bf16;
     ``z_in`` (bf16 [M, N]) multiplies the sum by ``act'(z_in)`` in place
     of ``act``; ``colsum`` also returns the fp32 column sums of the
-    result before the residual.  ``out_dtype`` float32 keeps C in fp32.
-    Returns C, or ``(C, z, colsum)`` with only the outputs asked for.
-    A ``trans_a`` product is summed in :func:`gemm_splits` K ranges into
-    an fp32 workspace, then added in order (the same bits every call on
-    one card).
+    result before the residual, taken in a fixed order (each 128-row tile's
+    partial, then the tiles in order; no atomics).  ``out_dtype`` float32
+    keeps C in fp32.  Returns C, or ``(C, z, colsum)`` with only the
+    outputs asked for.  A ``trans_a`` product is summed in
+    :func:`gemm_splits` K ranges into an fp32 workspace, then added in
+    order.  The same inputs give the same bits every call on one card.
     """
     if trans_a and trans_b:
         raise ValueError("gemm: trans_a and trans_b together are not supported")
@@ -560,13 +565,18 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
         _require(z_in, "z_in", (m, n))
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     z = torch.empty((m, n), dtype=a.dtype, device=a.device) if save_z else None
-    cs = torch.zeros(n, dtype=torch.float32, device=a.device) if colsum else None
     splits = gemm_splits(m, n, k, trans_a, _sm_count(a.device))
     ws = (torch.empty(splits * m * n, dtype=torch.float32, device=a.device)
           if splits > 1 else None)
+    cs = col = None
+    if colsum:
+        # the column sums' partials: a row a 128-row tile, or (split) a 32-row block
+        stripes = _cdiv(m, 32) if splits > 1 else _cdiv(m, GEMM_TILE_M)
+        col = torch.empty((stripes, n), dtype=torch.float32, device=a.device)
+        cs = torch.empty(n, dtype=torch.float32, device=a.device)
     _check(library().sfc_gemm_bf16(
         a.data_ptr(), b.data_ptr(), _ptr(bias), _ptr(residual), _ptr(residual_f32),
-        _ptr(z_in), _ptr(z), _ptr(cs), c.data_ptr(), _ptr(ws),
+        _ptr(z_in), _ptr(z), _ptr(col), _ptr(cs), c.data_ptr(), _ptr(ws),
         int(out_dtype == torch.float32), m, n, k, int(trans_a), int(trans_b),
         _ACTS[act], splits, _stream()), "gemm")
     extra = tuple(t for t in (z, cs) if t is not None)
@@ -1375,9 +1385,10 @@ PACKED_ATTENTION_MASKED_FORMS = {
     "packed_attention masked dh192 two passes": (192, 0),
 }
 #: ``csrc/ln_rows_bwd.cu``'s instances by ``sfc_ln_rows_bwd_attrs``'s form
-#: number: forms (a), (b), (c) and (d) (fp32 throughout) of its header.
+#: number: forms (a), (b), (c), (d) (fp32 throughout) and (e) (x + x_b in
+#: fp32) of its header.
 LN_ROWS_BWD_FORMS = ("ln_rows_bwd dxn fp32", "ln_rows_bwd dxn bf16", "ln_rows_bwd x + x_b",
-                     "ln_rows_bwd fp32")
+                     "ln_rows_bwd fp32", "ln_rows_bwd fp32 x + x_b")
 
 
 #: ``csrc/packed_attn_f32.cu``'s instances: (head dim, key columns held in

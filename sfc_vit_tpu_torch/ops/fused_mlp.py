@@ -8,11 +8,11 @@ of shared memory, so here each is a chain of hand-written kernels
 (``csrc/ln_rows.cu``, ``csrc/gemm_bf16.cu``, ``csrc/ln_rows_bwd.cu``), in
 bf16 or in float32 (the ViT-B/16 and ViT-S/16 presets at their own
 dtype): the same chain on the fp32 forms of ``ln_rows`` and
-``ln_rows_bwd``, on ``csrc/gemm_f32.cu`` (SIMT FFMA, with the same
-epilogues: bias, exact-erf GELU, z saved, act'(z), fixed-order column
-sums, the fp32 residual) and its ``act_f32``, nothing rounded.
-``kernel_utils.kernel_is_f32`` picks the chain; any other dtype raises
-before a launch.  The description below is the bf16 chain's.
+``ln_rows_bwd``, on ``csrc/gemm_f32.cu`` (3xTF32 on the tensor cores,
+with the same epilogues: bias, exact-erf GELU or ReLU, z saved, act'(z),
+fixed-order column sums, the fp32 residual) and its ``act_f32``, nothing
+rounded.  ``kernel_utils.kernel_is_f32`` picks the chain; any other dtype
+raises before a launch.  The description below is the bf16 chain's.
 
 Forward: ``ln_rows`` -> ``gemm`` (fc1, +b1, activation in fp32, one round
 to bf16 -- the TPU kernel's rounding point; the training forward also
@@ -62,6 +62,16 @@ db1 = colsum of the fp32 dz) -> ``ln_rows`` (recompute x2) -> ``gemm`` TN
 fp32) -> ``ln_rows_bwd`` over ``x + attn`` (dLN1 and the one cotangent
 ``ds`` of both x and attn).
 
+In float32 (the flagship and ``'hier'`` at their presets' own dtype) both
+are the same chains with nothing rounded, so ``x2`` and ``x2f`` are one
+tensor: #15 is ``ln_rows`` over the fp32 ``x + attn`` -> ``gemm_f32`` (fc1,
++b1, relu; z saved) -> ``gemm_f32`` (fc2, +b2, + x2 into the fp32 ``s2``)
+-> ``ln_rows`` over ``s2`` (two launches for fc2 and LN2 at every width:
+no fp32 cluster form yet); #16 is ``ln_rows_bwd`` form (d) over ``s2`` (ds2,
+dLN2, db2 = its column sums) -> ``act_f32`` -> ``gemm_f32`` TN (dW2) ->
+NT (dz with db1) -> ``ln_rows`` (x2 again) -> TN (dW1) -> NT (dx2 + ds2)
+-> ``ln_rows_bwd`` form (e) over ``x + attn``.
+
 :func:`postnorm_tail_ref` is the plain unfused forward, the counterpart
 of ``postnorm_tail_xla`` (each sum rounded as flax's layers round it);
 :func:`postnorm_tail_kernel_ref` and :func:`postnorm_tail_bwd_ref` are
@@ -75,7 +85,7 @@ import torch.nn.functional as F
 
 from ._build import (act_bf16, act_f32, gemm, gemm_f32, gemm_layernorm, gemm_layernorm_fits,
                      ln_rows, ln_rows_bwd)
-from .kernel_utils import fp32_compute_not_ported, kernel_is_f32, ln_bwd_fp32, ln_fp32
+from .kernel_utils import kernel_is_f32, ln_bwd_fp32, ln_fp32
 
 __all__ = ["fused_mlp_block", "mlp_block_ref", "mlp_block_bwd_ref",
            "mlp_block_train_fwd", "mlp_block_bwd", "fused_postnorm_tail",
@@ -360,13 +370,33 @@ def tail_fc2_route(d: int) -> str:
     return "cluster" if gemm_layernorm_fits(d) else "chain"
 
 
+def _tail_kernels_f32(x2d, a2d, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, eps,
+                      activation, save_acts):
+    """#15's float32 chain over rows [R, D]: ``out``, or ``(out, z, s2)``."""
+    x2 = ln_rows(x2d, ln1_s.float(), ln1_b.float(), eps, x_b=a2d, out_dtype=torch.float32)
+    h = gemm_f32(x2, w1, bias=b1.float(), act=activation, save_z=save_acts)
+    if save_acts:
+        h, z = h
+    s2 = gemm_f32(h, w2, bias=b2.float(), residual=x2)
+    del h, x2
+    out = ln_rows(s2, ln2_s.float(), ln2_b.float(), eps, out_dtype=torch.float32)
+    return (out, z, s2) if save_acts else out
+
+
 def _tail_kernels(x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, eps,
                   activation, save_acts):
-    if x.dtype != torch.bfloat16:
-        raise fp32_compute_not_ported("fused_postnorm_tail", x.dtype)
     b, n, d = x.shape
     x2d = x.reshape(b * n, d).contiguous()
     a2d = attn.reshape(b * n, d).contiguous()
+    if kernel_is_f32("fused_postnorm_tail", x.dtype):
+        out = _tail_kernels_f32(x2d, a2d, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, eps,
+                                activation, save_acts)
+        if not save_acts:
+            fused_postnorm_tail.f32_launches += 1
+            return out.view(b, n, d)
+        fused_postnorm_tail.f32_train_launches += 1
+        out, z, s2 = out
+        return out.view(b, n, d), z.view(b, n, -1), s2.view(b, n, d)
     cluster = tail_fc2_route(d) == "cluster"
     l1s, l1b = ln1_s.float(), ln1_b.float()
     # The cluster form rebuilds LN1's fp32 output x2f from the row stats;
@@ -396,8 +426,9 @@ def _tail_kernels(x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b, eps,
 def postnorm_tail_train_fwd(x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b,
                             eps: float = 1e-5, activation: str = "relu"):
     """#15's training form, ``(out, z, s2)``: the kernels for a CUDA ``x``
-    (``fused_postnorm_tail.train_launches`` counts them),
-    :func:`postnorm_tail_kernel_ref` for a CPU one."""
+    (``fused_postnorm_tail.train_launches`` counts the bf16 ones,
+    ``.f32_train_launches`` the fp32 ones), :func:`postnorm_tail_kernel_ref`
+    for a CPU one."""
     args = (x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b)
     if x.device.type == "cpu":
         return postnorm_tail_kernel_ref(*args, eps, activation, save_acts=True)
@@ -408,22 +439,57 @@ def postnorm_tail_bwd(x, attn, g, z, s2, ln1_s, ln1_b, w1, b1, w2, ln2_s, ln2_b,
                       b2=None, eps: float = 1e-5, activation: str = "relu"):
     """#16: the backward from the saved ``z`` and ``s2``, with the
     arguments and results of :func:`postnorm_tail_bwd_ref`, which it runs
-    for a CPU ``x``.  A CUDA ``x`` launches the kernel chain
-    (``fused_postnorm_tail.bwd_launches`` counts it)."""
+    for a CPU ``x``.  A CUDA ``x`` launches the kernel chain, bf16 or fp32
+    (``fused_postnorm_tail.bwd_launches`` and ``.f32_bwd_launches`` count
+    them)."""
     if x.device.type == "cpu":
         return postnorm_tail_bwd_ref(x, attn, g, z, s2, ln1_s, ln1_b, w1, b1, w2,
                                      ln2_s, ln2_b, b2, eps, activation)
-    if x.dtype != torch.bfloat16:
-        raise fp32_compute_not_ported("fused_postnorm_tail", x.dtype)
+    f32 = kernel_is_f32("fused_postnorm_tail", x.dtype)
     b, n, d = x.shape
-    f = w1.shape[1]
     r = b * n
-    x2d = x.reshape(r, d).contiguous()
-    a2d = attn.reshape(r, d).contiguous()
-    z2 = z.reshape(r, f).contiguous()
-    ds2, dls2, dlb2, ds2f, db2 = ln_rows_bwd(
-        s2.reshape(r, d).contiguous(), g.reshape(r, d).contiguous(), ln2_s.float(),
-        None, eps, add_g=False, dx_f32=True, dx_sum=True)
+    rows = (x.reshape(r, d).contiguous(), attn.reshape(r, d).contiguous(),
+            g.reshape(r, d).contiguous(), z.reshape(r, w1.shape[1]).contiguous(),
+            s2.reshape(r, d).contiguous())
+    if f32:
+        grads = _tail_bwd_f32(*rows, ln1_s, ln1_b, w1, w2, ln2_s, eps, activation)
+        fused_postnorm_tail.f32_bwd_launches += 1
+    else:
+        grads = _tail_bwd_bf16(*rows, ln1_s, ln1_b, w1, w2, ln2_s, eps, activation)
+        fused_postnorm_tail.bwd_launches += 1
+    ds, dls1, dlb1, dw1, db1, dw2, db2, dls2, dlb2 = grads
+    return (ds.view(b, n, d), dls1.to(ln1_s.dtype), dlb1.to(ln1_b.dtype),
+            dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+            db2.to((w2 if b2 is None else b2).dtype), dls2.to(ln2_s.dtype),
+            dlb2.to(ln2_b.dtype))
+
+
+def _tail_bwd_f32(x2d, a2d, g2, z2, s2, ln1_s, ln1_b, w1, w2, ln2_s, eps, activation):
+    """#16's float32 chain over rows [R, D]: ``(ds, dln1_s, dln1_b, dw1,
+    db1, dw2, db2, dln2_s, dln2_b)``, nothing rounded (ds2 and dz enter the
+    GEMMs as they are)."""
+    ds2, dls2, dlb2, db2 = ln_rows_bwd(s2, g2, ln2_s.float(), None, eps, add_g=False,
+                                       dx_sum=True)
+    h = act_f32(z2, activation)
+    dw2 = gemm_f32(h, ds2, trans_a=True)                             # [F, D]
+    del h
+    dz, db1 = gemm_f32(ds2, w2, trans_b=True, act=activation, z_in=z2,
+                       colsum=True)                                  # [R, F]
+    x2 = ln_rows(x2d, ln1_s.float(), ln1_b.float(), eps, x_b=a2d, out_dtype=torch.float32)
+    dw1 = gemm_f32(x2, dz, trans_a=True)                             # [D, F]
+    del x2
+    dx2 = gemm_f32(dz, w1, trans_b=True, residual=ds2)               # [R, D]
+    del dz, ds2
+    ds, dls1, dlb1 = ln_rows_bwd(x2d, dx2, ln1_s.float(), None, eps, add_g=False,
+                                 x_b=a2d)
+    return ds, dls1, dlb1, dw1, db1, dw2, db2, dls2, dlb2
+
+
+def _tail_bwd_bf16(x2d, a2d, g2, z2, s2, ln1_s, ln1_b, w1, w2, ln2_s, eps, activation):
+    """#16's bf16 chain over rows [R, D], with :func:`_tail_bwd_f32`'s
+    results."""
+    ds2, dls2, dlb2, ds2f, db2 = ln_rows_bwd(s2, g2, ln2_s.float(), None, eps,
+                                             add_g=False, dx_f32=True, dx_sum=True)
     h = act_bf16(z2, activation)
     dw2 = gemm(h, ds2, trans_a=True)                                 # [F, D]
     del h
@@ -438,11 +504,7 @@ def postnorm_tail_bwd(x, attn, g, z, s2, ln1_s, ln1_b, w1, b1, w2, ln2_s, ln2_b,
     del dz, ds2f
     ds, dls1, dlb1 = ln_rows_bwd(x2d, dx2, ln1_s.float(), None, eps, add_g=False,
                                  x_b=a2d)
-    fused_postnorm_tail.bwd_launches += 1
-    return (ds.view(b, n, d), dls1.to(ln1_s.dtype), dlb1.to(ln1_b.dtype),
-            dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
-            db2.to((w2 if b2 is None else b2).dtype), dls2.to(ln2_s.dtype),
-            dlb2.to(ln2_b.dtype))
+    return ds, dls1, dlb1, dw1, db1, dw2, db2, dls2, dlb2
 
 
 class _FusedPostnormTail(torch.autograd.Function):
@@ -478,10 +540,14 @@ def fused_postnorm_tail(x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b,
 
     A CPU ``x`` runs :func:`postnorm_tail_kernel_ref` (and, under
     autograd, :func:`postnorm_tail_bwd_ref`).  A CUDA ``x`` launches the
-    kernels (bf16, Dense kernels ``[in, out]``) or raises; it never falls
-    back.  ``fused_postnorm_tail.launches`` counts the CUDA forwards of
-    the serving form, ``.train_launches`` those of the training form (which
-    also saves z and s2) and ``.bwd_launches`` the CUDA backwards.
+    kernels (bf16 or fp32, every tensor in x's dtype apart from the fp32
+    LayerNorm parameters; Dense kernels ``[in, out]``) or raises, any other
+    dtype before a launch; it never falls back.
+    ``fused_postnorm_tail.launches`` counts the bf16 CUDA forwards of the
+    serving form, ``.train_launches`` those of the training form (which
+    also saves z and s2) and ``.bwd_launches`` the bf16 CUDA backwards;
+    ``.f32_launches``, ``.f32_train_launches`` and ``.f32_bwd_launches`` the
+    fp32 ones.
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_postnorm_tail: no kernel for device {x.device}")
@@ -497,3 +563,6 @@ def fused_postnorm_tail(x, attn, ln1_s, ln1_b, w1, b1, w2, b2, ln2_s, ln2_b,
 fused_postnorm_tail.launches = 0
 fused_postnorm_tail.train_launches = 0
 fused_postnorm_tail.bwd_launches = 0
+fused_postnorm_tail.f32_launches = 0
+fused_postnorm_tail.f32_train_launches = 0
+fused_postnorm_tail.f32_bwd_launches = 0

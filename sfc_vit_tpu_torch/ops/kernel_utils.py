@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["NEG_INF", "ln_fp32", "ln_bwd_fp32", "round_up", "n_valid",
-           "split_heads", "fp32_compute_not_ported", "kernel_is_f32", "tf32_round",
+           "split_heads", "kernel_is_f32", "tf32_round",
            "tf32_trunc", "tf32_split", "matmul_3xtf32", "colsum_fixed_order"]
 
 #: Masked-logit value: -1e30, never -inf, so a masked softmax gives 0
@@ -33,22 +33,13 @@ def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     return t.view(b, n, heads, w // heads).transpose(1, 2).float()
 
 
-def fp32_compute_not_ported(what: str, dtype: torch.dtype) -> NotImplementedError:
-    """The refusal of the post-norm tail kernels (#15/#16) given a CUDA
-    tensor in a dtype other than bfloat16: they never fall back to their
-    plain versions."""
-    return NotImplementedError(
-        f"{what}: {dtype} compute on the GPU is not ported yet, the kernels "
-        "take bfloat16: ROADMAP.md queue 1 item 15 (fp32 compute for the "
-        "post-norm tail, kernels #15/#16)")
-
-
 def kernel_is_f32(what: str, dtype: torch.dtype) -> bool:
-    """Which kernels a CUDA tensor of ``dtype`` launches for #1-#7 and
-    #14: True for float32 (the fp32 kernels: 3xTF32 products on the tensor
-    cores in ``csrc/gemm_f32.cu``, the attention and the tokenizer), False for
-    bfloat16 (the Hopper ``wgmma`` kernels).  Any other dtype raises; nothing falls back
-    to a plain version."""
+    """Which kernels a CUDA tensor of ``dtype`` launches for #1-#7, #14
+    and the post-norm tail #15/#16: True for float32 (the fp32 kernels:
+    3xTF32 products on the tensor cores in ``csrc/gemm_f32.cu``, the
+    attention and the tokenizer, the fp32 forms of ``ln_rows`` and
+    ``ln_rows_bwd``), False for bfloat16 (the Hopper ``wgmma`` kernels).
+    Any other dtype raises; nothing falls back to a plain version."""
     if dtype == torch.float32:
         return True
     if dtype == torch.bfloat16:

@@ -7,10 +7,10 @@ runs the JAX package's validation and builds the pre-norm families
 schedules: the 'longctx-16k' and 'longctx-16k-hybrid' presets) and family
 A's 'vit' (the 'notebook' preset) and 'vit1d' (the 'flagship' preset)
 over the 2-D, 1-D or hierarchical tokenizer, fused (``fused=True``) or
-not, and 'hier' over the hierarchical tokenizer's levels.  Everything not
-yet ported (``remat``) raises ``NotImplementedError`` naming its
-ROADMAP.md item.  Models are built on the card unless the caller asks for
-the CPU (``device='cpu'``).
+not, and 'hier' over the hierarchical tokenizer's levels, each with or
+without ``remat`` (per-layer activation recompute in training).  Models
+are built on the card unless the caller asks for the CPU
+(``device='cpu'``).
 """
 
 from __future__ import annotations
@@ -36,11 +36,6 @@ __all__ = ["ModelConfig", "build_tokenizer", "build_model", "PRESETS",
 
 TOKENIZER_FAMILIES = ("2d", "1d", "hierarchical")
 MODEL_FAMILIES = ("vit", "vit1d", "hier", "simple", "curvevit")
-
-#: Where each family or option that is not ported yet stands in ROADMAP.md.
-_NOT_PORTED = {
-    "remat": "queue 1 item 4 (train step: remat)",
-}
 
 
 @dataclasses.dataclass
@@ -105,11 +100,6 @@ def preset_config(name: str, **overrides) -> ModelConfig:
     return ModelConfig(**{**PRESETS[name], **overrides})
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet: ROADMAP.md {_NOT_PORTED[what]}")
-
-
 def _check_curve(cfg: ModelConfig) -> None:
     if cfg.curve not in CURVE_REGISTRY and cfg.curve != "random":
         raise KeyError(f"unknown curve {cfg.curve!r}; available: "
@@ -146,8 +136,7 @@ def build_tokenizer(cfg: ModelConfig, return_levels: bool = False,
 
 
 def _validate(cfg: ModelConfig) -> None:
-    """The JAX package's checks (``registry.py:176-257``), then the port's
-    refusals of what is not ported yet."""
+    """The JAX package's checks (``registry.py:176-257``)."""
     if cfg.model not in MODEL_FAMILIES:
         raise KeyError(
             f"unknown model family {cfg.model!r}; available: {MODEL_FAMILIES}")
@@ -171,8 +160,6 @@ def _validate(cfg: ModelConfig) -> None:
     if (family_b or cfg.model == "hier") and cfg.posemb != "none":
         raise ValueError(f"model {cfg.model!r} manages its own positional "
                          f"encoding; posemb={cfg.posemb!r} would be ignored")
-    if cfg.remat:
-        raise _not_ported("remat")
     if not family_b:
         _check_curve(cfg)
     for impl in ((cfg.attn_impl,) if isinstance(cfg.attn_impl, str)
@@ -197,7 +184,7 @@ def build_model(cfg: ModelConfig, device="cuda",
             build_tokenizer(cfg, generator=generator), depth=cfg.depth,
             n_heads=cfg.n_heads, mlp_dim=cfg.mlp_dim, num_classes=cfg.num_classes,
             posemb=cfg.posemb, dtype=dtype, attn_impl=cfg.attn_impl,
-            device=device, generator=generator)
+            device=device, generator=generator, remat=cfg.remat)
     if cfg.model == "hier":
         if cfg.tokenizer != "hierarchical":
             raise ValueError("model 'hier' requires tokenizer='hierarchical'")
@@ -205,12 +192,13 @@ def build_model(cfg: ModelConfig, device="cuda",
             build_tokenizer(cfg, return_levels=True, generator=generator),
             depth=cfg.depth, n_heads=cfg.n_heads, mlp_dim=cfg.mlp_dim,
             num_classes=cfg.num_classes, dtype=dtype, attn_impl=cfg.attn_impl,
-            device=device, generator=generator)
+            device=device, generator=generator, remat=cfg.remat)
     attn_impl = cfg.attn_impl if isinstance(cfg.attn_impl, str) else tuple(cfg.attn_impl)
     kw = dict(image_size=cfg.img_size, patch_size=cfg.patch_size,
               num_classes=cfg.num_classes, dim=cfg.embed_dim, depth=cfg.depth,
               heads=cfg.n_heads, mlp_dim=cfg.mlp_dim, dim_head=cfg.dim_head,
-              dtype=dtype, device=device, generator=generator, attn_impl=attn_impl)
+              dtype=dtype, device=device, generator=generator, attn_impl=attn_impl,
+              remat=cfg.remat)
     if cfg.model == "simple":
         return SimpleViT(**kw)
     return CurveViT(curve=cfg.curve, merge_layers=tuple(cfg.merge_layers),

@@ -716,6 +716,7 @@ def test_gemm_save_z_and_dact_epilogues(cuda, act):
     want = (g.float() @ w2.float().T) * dact
     torch.testing.assert_close(dz.float(), want.bfloat16().float(), **ONE_ROUND_TOL)
     torch.testing.assert_close(db1, want.sum(0), **F32_SUM_TOL)
+    assert torch.equal(db1, _build.gemm(g, w2, trans_b=True, act=act, z_in=z, colsum=True)[1])
 
 
 def _gemm_operands(rng, form, r, n, k=768):
@@ -831,8 +832,9 @@ def test_gemm_every_act_kind_and_epilogue_term(cuda, form, kind, rows, k, n):
     """Each act kind with each epilogue term: act (or none) with the bias,
     save_z, colsum and a bf16 residual into a bf16 C, then with an fp32
     residual into an fp32 C; act'(z_in) with colsum into a bf16 C, then
-    with an fp32 residual into an fp32 C.  C and z give the same bits on a
-    second call (the column sums meet by atomics, in any order)."""
+    with an fp32 residual into an fp32 C.  C, z and the column sums (one
+    owner a 128-row tile, or a 32-row block after a split, the tiles added
+    in order) give the same bits on a second call."""
     rng = np.random.default_rng(56)
     a, b, prod = _gemm_operands(rng, form, rows, n, k)
     m = prod.shape[0]
@@ -864,6 +866,7 @@ def test_gemm_every_act_kind_and_epilogue_term(cuda, form, kind, rows, k, n):
         torch.testing.assert_close(extra[-1], want_cs, **cs_tol)
         again = _gemm(form, a, b, **kw)
         assert torch.equal(c, again[0])
+        assert torch.equal(extra[-1], again[-1])
         if kw.get("save_z"):
             assert torch.equal(extra[0], again[1])
 
@@ -2498,13 +2501,158 @@ def test_postnorm_tail_launcher_pieces_match_fp32(cuda):
 
 
 @pytest.mark.gpu
-def test_postnorm_tail_refuses_fp32(cuda):
-    args = tuple(t.float() for t in _tail_args(np.random.default_rng(53), 1, 8, 128, 1024,
-                                               cuda))
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 15"):
+def test_postnorm_tail_refuses_other_dtypes(cuda):
+    """A CUDA x in a dtype other than bf16 or fp32 raises before any launch,
+    in both forms and in the backward; nothing falls back."""
+    args = tuple(t.half() for t in _tail_args(np.random.default_rng(53), 1, 8, 128, 1024,
+                                              cuda))
+    t = fused_postnorm_tail
+    before = (t.launches, t.train_launches, t.bwd_launches, t.f32_launches,
+              t.f32_train_launches, t.f32_bwd_launches)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="bfloat16 or float32"):
         fused_postnorm_tail(*args)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        fused_postnorm_tail(*(t.clone().requires_grad_() for t in args))
+    with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
+        fused_postnorm_tail(*(a.clone().requires_grad_() for a in args))
+    g = args[0]
+    z = torch.zeros(1, 8, 1024, dtype=torch.half, device=cuda)
+    with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
+        postnorm_tail_bwd(args[0], args[1], g, z, args[0], *args[2:7], args[8], args[9])
+    assert (t.launches, t.train_launches, t.bwd_launches, t.f32_launches,
+            t.f32_train_launches, t.f32_bwd_launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r, d", [(32768, 768), (32768, 256), (1000, 768), (37, 1024)])
+def test_ln_rows_f32_two_row_sum_matches_plain(cuda, r, d):
+    """``ln_rows`` over the fp32 sum of two fp32 rows, fp32 out (#15's LN1
+    and #16's x2 in float32), against ``ln_fp32(x + x_b)`` within 1e-4 of
+    the largest |value|, the same bits on a second call."""
+    rng = np.random.default_rng(81)
+    x, a = _f32(rng, r, d, scale=2.0), _f32(rng, r, d)
+    s, bias = _f32(rng, d, scale=0.1) + 1.0, _f32(rng, d, scale=0.1)
+    y = _build.ln_rows(x, s, bias, 1e-5, x_b=a, out_dtype=torch.float32)
+    assert y.dtype == torch.float32 and y.shape == (r, d)
+    _within(y, ln_fp32(x + a, s, bias, 1e-5), F32_TOL, "ln_rows x + x_b fp32")
+    assert torch.equal(y, _build.ln_rows(x, s, bias, 1e-5, x_b=a, out_dtype=torch.float32))
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        _build.ln_rows(x, s, bias, 1e-5, x_b=a.bfloat16(), out_dtype=torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r, d", [(32768, 768), (32768, 256), (1000, 768), (37, 1024)])
+def test_ln_rows_bwd_f32_tail_forms_match_plain(cuda, r, d):
+    """``ln_rows_bwd``'s float32 forms on #16's path: (d) with the column
+    sums of dx and no g (LN2's ds2 and db2), and (e) over the fp32 sum x +
+    x_b (LN1's ds), against ``ln_bwd_fp32`` within 1e-4 of each output's
+    largest |value|; every output, the column sums too, the same bits on a
+    second call."""
+    rng = np.random.default_rng(82)
+    x, a, dxn = _f32(rng, r, d, scale=2.0), _f32(rng, r, d), _f32(rng, r, d)
+    s = _f32(rng, d, scale=0.1) + 1.0
+    calls = {
+        "(d) + colsum(dx)": lambda: _build.ln_rows_bwd(x, dxn, s, None, 1e-5, add_g=False,
+                                                       dx_sum=True),
+        "(e) x + x_b": lambda: _build.ln_rows_bwd(x, dxn, s, None, 1e-5, add_g=False, x_b=a),
+    }
+    dx, ds, db = ln_bwd_fp32(x, dxn, s, 1e-5)
+    dx_e, ds_e, db_e = ln_bwd_fp32(x + a, dxn, s, 1e-5)
+    wants = {"(d) + colsum(dx)": (dx, ds, db, dx.sum(0)), "(e) x + x_b": (dx_e, ds_e, db_e)}
+    for form, call in calls.items():
+        got = call()
+        assert len(got) == len(wants[form]), form
+        for name, g, w in zip(("dx", "dscale", "dbias", "colsum(dx)"), got, wants[form]):
+            _within(g, w, F32_TOL, f"{form} {name}")
+        for u, v in zip(got, call()):
+            assert torch.equal(u, v), form
+    with pytest.raises(ValueError, match="no dx_f32"):
+        _build.ln_rows_bwd(x, dxn, s, None, 1e-5, add_g=False, dx_f32=True)
+
+
+#: (b, n, d): the flagship's fp32 layer at MLP 1,024 and 'hier''s width,
+#: cut in batch, and ragged rows; F 1,024.
+_TAIL_F32_SHAPES = [(8, 64, 768), (8, 64, 256), (10, 100, 768), (1, 37, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, d", _TAIL_F32_SHAPES)
+def test_postnorm_tail_f32_matches_plain(cuda, b, n, d):
+    """#15 in fp32, serving and training forms, and #16 in fp32 fed the
+    saved z and s2, against ``postnorm_tail_kernel_ref`` /
+    ``postnorm_tail_bwd_ref`` (in fp32 nothing rounds between the steps)
+    within 1e-4 of each tensor's largest |value|; the autograd route too;
+    the fp32 counters move and the bf16 ones do not."""
+    rng = np.random.default_rng(83)
+    args = _f32_args(_tail_args(rng, b, n, d, 1024, cuda))
+    g = _f32(rng, b, n, d)
+    t = fused_postnorm_tail
+    bf16_before = (t.launches, t.train_launches, t.bwd_launches)
+    before = (t.f32_launches, t.f32_train_launches, t.f32_bwd_launches)
+    with torch.no_grad():
+        out = fused_postnorm_tail(*args)
+        got = postnorm_tail_train_fwd(*args)
+    want = postnorm_tail_kernel_ref(*args, save_acts=True)
+    assert torch.equal(out, got[0])
+    for name, x, w in zip(("out", "z", "s2"), got, want):
+        assert x.dtype == torch.float32 and x.shape == w.shape, name
+        _within(x, w, F32_TOL, name)
+    _, z, s2 = got
+    saved = (args[0], args[1], g, z, s2, *args[2:7], args[8], args[9])
+    grads = postnorm_tail_bwd(*saved, b2=args[7])
+    want_g = postnorm_tail_bwd_ref(*saved, b2=args[7])
+    for name, x, w in zip(_TAIL_NAMES, grads, want_g):
+        assert x.dtype == torch.float32, name
+        _within(x, w, F32_TOL, name)
+    for u, v in zip(grads, postnorm_tail_bwd(*saved, b2=args[7])):
+        assert torch.equal(u, v)  # fixed-order column sums
+    leaves = [a.clone().requires_grad_() for a in args]
+    fused_postnorm_tail(*leaves).backward(g)
+    order = (0, 0, 1, 2, 3, 4, 5, 6, 7, 8)  # ds is the gradient of x and of attn
+    for i, leaf in enumerate(leaves):
+        _within(leaf.grad, want_g[order[i]], F32_TOL, f"arg {i}")
+    assert (t.f32_launches, t.f32_train_launches, t.f32_bwd_launches) == (
+        before[0] + 1, before[1] + 2, before[2] + 3)
+    assert (t.launches, t.train_launches, t.bwd_launches) == bf16_before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model, dtype", [("hier", None), ("vit1d", "bfloat16"),
+                                          ("curvevit", "bfloat16"), ("curvevit", None)])
+def test_remat_step_equals_plain_step_on_the_card(cuda, model, dtype):
+    """Two train steps with ``remat=True`` against two without, from the same
+    seeds, on the kernels: the loss and every gradient equal bit for bit
+    (every kernel on these paths sums in a fixed order), the dropout
+    generator left in the same state."""
+    from sfc_vit_tpu_torch.registry import build_model, preset_config
+    from sfc_vit_tpu_torch.training import (TrainState, make_optimizer, make_train_step,
+                                            warmup_cosine)
+
+    if model == "curvevit":
+        cfg = dict(img_size=28, patch_size=4, embed_dim=128, depth=2, n_heads=2, mlp_dim=256)
+        preset = "vit-b-16"
+    else:
+        cfg = dict(img_size=16, embed_dim=128, depth=1, n_heads=2, mlp_dim=1024, model=model)
+        preset = "flagship"
+    hw = cfg["img_size"]
+    x = _randn(np.random.default_rng(84), 8, hw, hw, 3, dtype=torch.float32)
+    y = torch.arange(8, device=cuda) % 10
+    runs = []
+    for remat in (False, True):
+        net = build_model(preset_config(preset, remat=remat, dtype=dtype, **cfg),
+                          generator=torch.Generator().manual_seed(0))
+        state = TrainState(net, make_optimizer(net.parameters(), warmup_cosine(1e-3, 0, 10),
+                                               grad_clip=1.0))
+        step = make_train_step(10)
+        gen, dgen = torch.Generator().manual_seed(1), torch.Generator(device=cuda).manual_seed(2)
+        out = []
+        for _ in range(2):
+            m = step(state, (x, y), gen, dgen)
+            out.append((m["loss"], [p.grad.clone() for p in net.parameters()]))
+        runs.append((out, dgen.get_state()))
+    (plain, plain_state), (remat, remat_state) = runs
+    for (lp, gp), (lr, gr) in zip(plain, remat):
+        assert torch.equal(lp, lr)
+        assert all(torch.equal(a, b) for a, b in zip(gp, gr))
+    assert torch.equal(plain_state, remat_state)
 
 
 @pytest.mark.gpu
@@ -2636,7 +2784,7 @@ def test_ln_rows_and_act_f32_match_plain(cuda, rows, d):
     y = _build.ln_rows(x, s, bias, 1e-5, out_dtype=torch.float32)
     assert y.dtype == torch.float32
     torch.testing.assert_close(y, ln_fp32(x, s, bias, 1e-5), rtol=1e-5, atol=1e-5)
-    with pytest.raises(ValueError, match="fp32 x alone"):
+    with pytest.raises(ValueError, match="takes fp32 rows"):
         _build.ln_rows(x.bfloat16(), s, bias, 1e-5, out_dtype=torch.float32)
     torch.testing.assert_close(_build.act_f32(x, "gelu"), F.gelu(x), rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(_build.act_f32(x, "relu"), F.relu(x), rtol=0, atol=0)

@@ -126,11 +126,9 @@ def test_build_model_vit_b_16_config():
 
 
 @pytest.mark.parametrize("name, overrides, match", [
-    ("notebook", {"remat": True}, "train step"),
     ("notebook", {"attn_impl": "ring"}, "sequence parallelism"),
     ("longctx-16k-hybrid", {"attn_impl": ("local", "local", "local", "ring")},
      "sequence parallelism"),
-    ("vit-b-16", {"remat": True}, "train step"),
     ("vit-b-16", {"attn_impl": "xla_bf16"}, "bf16-softmax formula"),
 ])
 def test_build_model_names_the_roadmap_item(name, overrides, match):
