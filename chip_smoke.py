@@ -6,7 +6,8 @@ own fp32), the hierarchical family-A model's (bf16 and fp32), the
 long-context models' (16,384 tokens with token merge, its hybrid
 local/global schedule, and 4,096) and the reference notebook's model's
 (fp32 and bf16, 2-D and 1-D tokenizers) train steps and serving, the
-ViT-B/16 preset's at its own fp32, and per-layer remat, once on one
+ViT-B/16 preset's at its own fp32, per-layer remat, and the flagship,
+'hier' and ViT-B/16 at head dims other than 64 and 192, once on one
 NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one
@@ -16,15 +17,17 @@ Phases, each of which raises (non-zero exit) on failure:
 
 1. device: a CUDA device is present; prints its name and power limit;
 2. build: compiles the hand-written kernels (sfc_vit_tpu_torch/csrc)
-   with nvcc and loads them; prints ptxas's registers and spills and the
+   with nvcc and loads them (each source's seconds, the slowest four
+   printed); prints ptxas's registers and spills and the
    runtime's registers and shared memory of the wgmma kernels (#1's and
-   #7's eight packed-attention instances and #5's six masked ones, #8-#11,
+   #7's packed-attention instances and #5's masked ones by sub-heads a
+   head, #8-#11,
    #13's windowed instances of #10's and #11's kernels, #14, the GEMM's
    three forms, split-K sum and LayerNorm form (#15) and the attention
-   backward's five instances (#4, #6)) and of the LayerNorm backward's
+   backward's seven instances (#4, #6)) and of the LayerNorm backward's
    three and the fp32 kernels of #1-#7 and #14 (``csrc/gemm_f32.cu``'s nine
-   3xTF32 ``wgmma`` instances and its column sums; the SIMT attention and
-   tokenizer kernels), and fails if any spills;
+   3xTF32 ``wgmma`` instances and its column sums; the fp32 attention's
+   instances by sub-heads; #14's), and fails if any spills;
 3. kernels: each fused block against its plain PyTorch version at the
    ViT-B/16 serving shapes (x [64, 196, 768] bf16, 12 heads of 64,
    F = 3072), with its error, tolerance and time beside the plain one;
@@ -241,6 +244,20 @@ Phases, each of which raises (non-zero exit) on failure:
    generator in the same state, the forward counters of the checkpointed
    layers doubled and the backward ones equal; each run's peak device
    memory and step time printed.
+17. head dims (ROADMAP F5): (a) at Dh 32, 48, 96, 128 and 256 (the
+   flagship's [512, 64, H x Dh] with H x Dh = 768, 'hier''s d 256 at Dh
+   32, its fusion length 192 at Dh 128), in bf16 and fp32: #7 served, #1's
+   attention with lse, #5's with the mask and lse, #4's and #6's
+   attention backward (bit for bit twice) against their plain versions,
+   each timed beside its plain version, SDPA and its bound ("head dims:"
+   lines); (b) the flagship in bf16 at batch 512, dropout 0.1, at 6,
+   8, 3 and 16 heads and at its own fp32 at 6, 'hier' in bf16 at 2 and 8
+   heads, and ViT-B/16 at 6 heads of 128 at batch 256 in bf16 and fp32
+   (depth cut to 2, one layer a level for 'hier'): 2 steps of
+   ``Trainer.fit``, an eval batch and ``ServingEngine``, launch counts =
+   layers x steps or forwards, one step's gradients and the served logits
+   against the plain path.  The kernel line's attention entries gain a
+   ``head_dims`` list of the widths (a) held.
    Then no module of jax, flax or the JAX package may have loaded.  Each
    phase prints its seconds.
 
@@ -460,6 +477,8 @@ def phase_build() -> None:
     _build.library()
     print(f"build: nvcc {info['seconds']:.1f} s, build and load "
           f"{time.perf_counter() - t0:.1f} s -> {info['path']}")
+    print("  slowest sources: " + ", ".join(f"{name} {sec:.1f} s"
+                                            for name, sec in list(info["sources"].items())[:4]))
     for line in info["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
@@ -2293,10 +2312,12 @@ def _tail_split(card: str, b: int, n: int, d: int, f: int) -> None:
     on the same inputs): before (LN1 with the fp32 x2f, fc1, fc2 into the
     fp32 s2, LN2 over it) and after (LN1 with each row's mean and rsqrt,
     fc1, fc2 + LN2 in one cluster launch that rebuilds x2f), each launch's
-    bytes beside it."""
+    bytes and bound beside it (a LayerNorm's few operations an element
+    counted as none; a product's 2 R D F)."""
     gen = torch.Generator().manual_seed(10)
     x, attn, l1s, l1b, w1, b1, w2, b2, l2s, l2b = _tail_args(gen, b, n, d, f)
     r = b * n
+    mm = 2 * r * d * f  # one product's operations
     x2d, a2d = x.view(r, d), attn.view(r, d)
     b1f, b2f = b1.float(), b2.float()
     x2, x2f = _build.ln_rows(x2d, l1s, l1b, 1e-5, x_b=a2d, with_f32=True)
@@ -2305,34 +2326,40 @@ def _tail_split(card: str, b: int, n: int, d: int, f: int) -> None:
     s2 = _build.gemm(hh, w2, bias=b2f, residual_f32=x2f, out_dtype=torch.float32)
     launches = [
         ("LN1 (ln_rows: x + attn -> x2, fp32 x2f)", "before",
-         lambda: _build.ln_rows(x2d, l1s, l1b, 1e-5, x_b=a2d, with_f32=True), r * d * (4 + 2 + 4)),
+         lambda: _build.ln_rows(x2d, l1s, l1b, 1e-5, x_b=a2d, with_f32=True), r * d * (4 + 2 + 4),
+         0),
         ("LN1 (ln_rows: x + attn -> x2, row mean and rsqrt)", "after",
          lambda: _build.ln_rows(x2d, l1s, l1b, 1e-5, x_b=a2d, with_stats=True),
-         r * d * (4 + 2) + 8 * r),
+         r * d * (4 + 2) + 8 * r, 0),
         ("fc1 + b1, relu (gemm)", "both", lambda: _build.gemm(x2, w1, bias=b1f, act="relu"),
-         2 * (r * d + d * f + r * f)),
+         2 * (r * d + d * f + r * f), mm),
         ("fc2 + b2 + x2f -> fp32 s2 (gemm)", "before",
          lambda: _build.gemm(hh, w2, bias=b2f, residual_f32=x2f, out_dtype=torch.float32),
-         2 * (r * f + f * d) + 4 * r * d * 2),
+         2 * (r * f + f * d) + 4 * r * d * 2, mm),
         ("LN2 over the fp32 s2 (ln_rows)", "before",
-         lambda: _build.ln_rows(s2, l2s, l2b, 1e-5), r * d * (4 + 2)),
+         lambda: _build.ln_rows(s2, l2s, l2b, 1e-5), r * d * (4 + 2), 0),
         ("fc2 + b2 + x2f rebuilt from x, attn and LN1's stats, LN2 (gemm_layernorm, "
          "clusters)", "after",
          lambda: _build.gemm_layernorm(hh, w2, b2f, x2d, a2d, stats, l1s, l1b, l2s, l2b, 1e-5),
-         2 * (r * f + f * d) + 2 * 2 * r * d + 8 * r + 2 * r * d),
+         2 * (r * f + f * d) + 2 * 2 * r * d + 8 * r + 2 * r * d, mm),
     ]
     total = {"before": 0.0, "after": 0.0}
+    bounds = {"before": 0.0, "after": 0.0}
     print(f"#15's launches at x, attn [{b}, {n}, {d}], F={f} (serving form), device ms "
           f"each (CUDA events), {card}:")
-    for label, side, fn, nbytes in launches:
+    for label, side, fn, nbytes, flops in launches:
         ms = _ms(fn)
+        bound = _bound(flops, nbytes)
         for key in ("before", "after"):
             if side in (key, "both"):
                 total[key] += ms
+                bounds[key] += bound["bound_ms"]
         print(f"  [{side}] {label}: {ms:.4f} ms, {nbytes / 1e6:.1f} MB "
-              f"({nbytes / ms / 1e6:.0f} GB/s)")
+              f"({nbytes / ms / 1e6:.0f} GB/s), bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})")
     print(f"  sum of the launches: before {total['before']:.4f} ms, after "
-          f"{total['after']:.4f} ms; {_build.gemm_layernorm_max_clusters(d)} clusters of "
+          f"{total['after']:.4f} ms; sum of their bounds: before {bounds['before']:.4f} ms, "
+          f"after {bounds['after']:.4f} ms; {_build.gemm_layernorm_max_clusters(d)} clusters of "
           f"{d // 128} blocks fit the card at once, for {r // 128} row stripes")
     del x, attn, x2, x2f, stats, hh, s2
 
@@ -3807,6 +3834,236 @@ def phase_vit_f32(card: str) -> dict:
                          "fused_attention_block_bwd_f32", "fused_mlp_block_bwd_f32")}
 
 
+#: The head-dims phase (ROADMAP F5), (b, n, heads, dh): the flagship's
+#: [512, 64, H x Dh] at H x Dh = 768 with 16, 8, 6 and 3 heads (Dh 48, 96,
+#: 128, 256), 'hier''s d 256 at 8 heads (Dh 32), and its fusion length 192
+#: at 2 heads (Dh 128).
+HD_SHAPES = ((512, 64, 8, 32), (512, 64, 16, 48), (512, 64, 8, 96), (512, 64, 6, 128),
+             (512, 64, 3, 256), (512, 192, 2, 128))
+#: The kernel-line entries each shape holds against plain, in each dtype:
+#: #7 served, #1's attention with its lse, #5's with the mask and lse,
+#: #4's attention backward and #6's with the mask.
+HD_ENTRIES = ("packed_flash_attention", "fused_attention_block", "fused_torch_mha",
+              "fused_attention_block_bwd", "fused_torch_mha_bwd")
+HD_STEPS = 2
+
+
+def _hd_row(card: str, label: str, shape: str, kern, plain, lib, check,
+            flops: float, nbytes: float, f32: bool) -> float:
+    """One head-dims row: ``check(got, want)`` -> max abs error (it raises
+    past its tolerance), then the kernel timed in turns with its plain
+    version beside the library call and the bound (bf16 at 989 TFLOP/s,
+    fp32 as three TF32 products at 495, bytes at 3.35 TB/s)."""
+    err = check(kern(), plain())
+    ms, plain_ms = _ab_ms(kern, plain, iters=10)
+    lib_ms = _ms(lib, iters=10)
+    bound = _bound_f32(0.0, nbytes, flops) if f32 else _bound(flops, nbytes)
+    print(f"head dims: {label} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), max abs err {err:.4g}, {card}")
+    return err
+
+
+def phase_head_dim_kernels(card: str) -> dict:
+    """(a) The head dims past 64 and 192 (ROADMAP F5) at HD_SHAPES, in bf16
+    and fp32: #7 served (``_build.attention_fwd`` against
+    ``_packed_xla_ref``), #1's attention with its lse and #5's with the
+    mask (keep FA_KEEP) against ``attention_fwd_ref`` (lse against fp64),
+    #4's and #6's attention backward against ``attention_bwd_ref``, bit for
+    bit on a second call; each timed beside its plain version, SDPA
+    (forward, or its autograd backward, on contiguous [B, H, N, Dh] q, k,
+    v, without the mask) and its bound.  Tolerances: bf16 forwards
+    BLOCK_TOL, backwards BWD_TOL of the largest |value|; fp32 F32_TOL of
+    the largest |value|.  Returns {kernel-line entry: [head dims held]}."""
+    gen = torch.Generator().manual_seed(21)
+    for b, n, h, dh in HD_SHAPES:
+        s = dh ** -0.5
+        mask = torch.rand(b, h, n, n, generator=gen).lt(FA_KEEP).to(DEVICE)
+        for f32 in (False, True):
+            dt = torch.float32 if f32 else torch.bfloat16
+            qkv = _randn(gen, b, n, 3 * h * dh, dtype=dt)
+            datt = _randn(gen, b, n, h * dh, dtype=dt)
+            shape = f"[{b}, {n}, {h} x {dh}] {'fp32' if f32 else 'bf16'}"
+            q, k, v = (t.contiguous() for t in qkv.view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4))
+            io, lse_b, mask_b = (4 if f32 else 2) * b * n * h * dh, 4 * b * h * n, b * h * n * n
+            fwd_flops, bwd_flops = 4 * b * h * n * n * dh, 10 * b * h * n * n * dh
+            lse64 = _lse_of(qkv, h, n)
+
+            def out_err(got, want, what=shape):
+                if f32:
+                    return _frac_err(what, got, want, F32_TOL)
+                err, ok = _agree(got, want, **BLOCK_TOL)
+                _check(ok, f"{what}: kernel disagrees with its plain version")
+                return err
+
+            def with_lse(got, want):
+                lse_err, ok = _agree(got[1], lse64, **LSE_TOL)
+                _check(ok, f"{shape}: lse disagrees with fp64 ({lse_err:.4g})")
+                return out_err(got[0], want[0])
+
+            def sdpa():
+                return TF.scaled_dot_product_attention(q, k, v)
+
+            kw = [dict(), dict(mask=mask, keep=FA_KEEP)]
+            fwd = [lambda kw=kw_: _build.attention_fwd(qkv, h, n, s, with_lse=True, **kw)
+                   for kw_ in kw]
+            ref = [lambda kw=kw_: attention_fwd_ref(qkv, h, n, s, **kw) for kw_ in kw]
+            _hd_row(card, "#7 served", shape,
+                    lambda: _build.attention_fwd(qkv, h, n, s),
+                    lambda: _packed_xla_ref(qkv, h, s), sdpa, out_err, fwd_flops, 4 * io, f32)
+            _hd_row(card, "#1's attention with lse", shape, fwd[0],
+                    ref[0], sdpa, with_lse, fwd_flops, 4 * io + lse_b, f32)
+            _hd_row(card, "#5's attention with the mask and lse", shape,
+                    fwd[1], ref[1], sdpa, with_lse, fwd_flops, 4 * io + lse_b + mask_b, f32)
+            qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
+            out = TF.scaled_dot_product_attention(qt, kt, vt)
+            g = datt.view(b, n, h, dh).transpose(1, 2).contiguous()
+
+            def sdpa_bwd():
+                for t in (qt, kt, vt):
+                    t.grad = None
+                out.backward(g, retain_graph=True)
+            for i, label in enumerate(("#4's attention backward",
+                                       "#6's attention backward with the mask")):
+                att, lse = ref[i]()
+
+                def kern(i=i, att=att, lse=lse):
+                    return _build.attention_bwd(qkv, att, datt, lse, h, n, s, **kw[i])
+
+                def bwd_err(got, want, kern=kern, label=label):
+                    err = _frac_err(f"{label} {shape}", got, want, F32_TOL if f32 else BWD_TOL)
+                    _check(torch.equal(got, kern()), f"{label} {shape}: not bit for bit twice")
+                    return err
+                _hd_row(card, label, shape, kern,
+                        lambda i=i, att=att, lse=lse: attention_bwd_ref(qkv, att, datt, lse, h,
+                                                                        n, s, **kw[i]),
+                        sdpa_bwd, bwd_err, bwd_flops, 8 * io + lse_b + i * mask_b, f32)
+            del qkv, datt, q, k, v, qt, kt, vt, out, g, lse64
+        del mask
+        torch.cuda.empty_cache()
+    dims = sorted({dh for *_, dh in HD_SHAPES})  # each held, or the phase raised
+    return {f"{e}{sfx}": dims for e in HD_ENTRIES for sfx in ("", "_f32")}
+
+
+def _hd_model(card: str, label: str, cfg, batch: int, layers: int, family_a: bool) -> dict:
+    """(b) One model at a head dim past 64 and 192: ``Trainer.fit`` for
+    HD_STEPS steps at ``batch`` plus an eval batch, finite losses and the
+    kernels' launch counts (layers x steps in training, layers a forward);
+    one step's gradients (mixing, and family A's dropout, the same draws)
+    against the plain path (GRAD_REL_TOL in bf16, F32_GRAD_REL_TOL in
+    fp32); ``ServingEngine`` answers 1 and ``batch`` images, launches
+    counted, logits within FA_LOGIT_TOL (bf16) or F32_TOL (fp32) of the
+    largest |logit| of the plain path.  Returns the launch counts."""
+    t0 = time.perf_counter()
+    f32 = cfg.dtype is None
+    sfx = "_f32" if f32 else ""
+    counts, reset = (_tail_counts, _reset_tail_counts) if family_a else (_vit_counts,
+                                                                        _reset_vit_counts)
+    plain_path = _plain_fa if family_a else _plain_blocks
+    grad_tol, logit_tol = (F32_GRAD_REL_TOL, F32_TOL) if f32 else (GRAD_REL_TOL, FA_LOGIT_TOL)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    stats = ((0.5,) * 3, (0.25,) * 3)
+    train_ds = synthetic_dataset(n=batch * HD_STEPS, hw=cfg.img_size,
+                                 num_classes=cfg.num_classes, seed=0)
+    test_ds = synthetic_dataset(n=batch, hw=cfg.img_size, num_classes=cfg.num_classes, seed=1)
+    tf = make_eval_transform(*stats, device=DEVICE)
+    trainer = Trainer(model, TrainConfig(num_classes=cfg.num_classes, epochs=1,
+                                         warmup_epochs=1), steps_per_epoch=HD_STEPS)
+    reset()
+    record = trainer.fit(
+        lambda: ((tf(x), y) for x, y in epoch_batches(train_ds, batch, seed=0)),
+        lambda: ((tf(x), y) for x, y in epoch_batches(
+            test_ds, batch, shuffle=False, drop_last=False)))
+    torch.cuda.synchronize()
+    trained = counts()
+    _check(bool(np.isfinite(record["train_loss"])) and bool(np.isfinite(record["test_loss"])),
+           f"{label}: non-finite loss")
+    _check(trainer.state.step == HD_STEPS, f"{label}: {trainer.state.step} steps taken")
+    steps = layers * HD_STEPS
+    want = {name: 0 for name in trained}
+    if family_a:
+        want.update({f"fused_torch_mha{sfx}": steps, f"fused_torch_mha_bwd{sfx}": steps,
+                     f"packed_flash_attention{sfx}": layers})
+    else:
+        want.update({f"{blk}{sfx}": steps + layers for blk in ("fused_attention_block",
+                                                              "fused_mlp_block")})
+        want.update({f"{blk}_bwd{sfx}": steps for blk in ("fused_attention_block",
+                                                         "fused_mlp_block")})
+    print(f"{label}: Trainer.fit, {HD_STEPS} steps at batch {batch} + eval of {len(test_ds)}: "
+          f"{record}; launches {trained}")
+    _check(trained == want, f"{label}: launches {trained}, expected {want}")
+
+    x, y = next(epoch_batches(train_ds, batch, seed=0))
+    data = (tf(x), torch.from_numpy(y).long().to(DEVICE))
+    state = _lr_zero_state(model)
+    step = make_train_step(cfg.num_classes)
+
+    def one_step():
+        return step(state, data, torch.Generator().manual_seed(7),
+                    torch.Generator(device=DEVICE).manual_seed(7))
+    m_k = one_step()
+    grads = {nm: p.grad.detach().clone() for nm, p in model.named_parameters()}
+    with plain_path():
+        m_p = one_step()
+    rel = {nm: float((grads[nm].float() - p.grad.float()).norm() / p.grad.float().norm())
+           for nm, p in model.named_parameters()}
+    worst = max(rel, key=rel.get)
+    print(f"{label}: one train step, kernels vs plain path: loss {float(m_k['loss']):.6f} vs "
+          f"{float(m_p['loss']):.6f}; gradient relative L2 error max {rel[worst]:.4g} "
+          f"({worst}) over {len(rel)} tensors (tolerance {grad_tol})")
+    _check(rel[worst] <= grad_tol, f"{label}: kernel-path gradients disagree with the plain "
+           "path")
+    del grads, state, data
+
+    engine = ServingEngine(copy.deepcopy(model), None, (cfg.img_size, cfg.img_size, 3),
+                           batch_sizes=(16, batch), dtype=cfg.torch_dtype(), device=DEVICE)
+    rng = np.random.default_rng(22)
+    requests = [rng.standard_normal((k, cfg.img_size, cfg.img_size, 3), dtype=np.float32)
+                for k in (1, batch)]
+    reset()
+    outs = np.concatenate([engine.predict(r) for r in requests])
+    served = counts()
+    name = f"packed_flash_attention{sfx}" if family_a else f"fused_attention_block{sfx}"
+    _check(served[name] == 2 * layers, f"{label}: served launches {served}")
+    with plain_path():
+        plain = np.concatenate([engine.predict(r) for r in requests])
+    err, scale = float(np.abs(outs - plain).max()), float(np.abs(plain).max())
+    print(f"{label}: served 1 and {batch} images, launches {served}; logits vs plain path max "
+          f"abs err {err:.4g} (max |logit| {scale:.4g}; tolerance {logit_tol} x max |logit|); "
+          f"{time.perf_counter() - t0:.1f} s, {card}")
+    _check(bool(np.isfinite(outs).all()) and err <= logit_tol * scale,
+           f"{label}: served logits disagree with the plain path")
+    del model, trainer, engine
+    torch.cuda.empty_cache()
+    return {k: trained[k] + served[k] for k in trained}
+
+
+def phase_head_dim_models(card: str) -> dict:
+    """(b) Models at head dims past 64 and 192, depth cut to 2 (one layer a
+    level for 'hier'): the flagship in bf16 at batch 512 with dropout 0.1
+    at 6, 8, 3 and 16 heads (Dh 128, 96, 256, 48) and at its own fp32 at 6;
+    'hier' in bf16 at 2 and 8 heads (Dh 128, 32); ViT-B/16 at 6 heads of
+    128 at batch 256 in bf16 and at its own fp32.  Returns the summed
+    launch counts."""
+    runs = [(f"flagship, {k} heads of {768 // k}, bf16",
+             preset_config("flagship", n_heads=k, depth=2, dtype="bfloat16"), FA_B, 2, True)
+            for k in (6, 8, 3, 16)]
+    runs.append(("flagship, 6 heads of 128, fp32", preset_config("flagship", n_heads=6, depth=2),
+                 FA_B, 2, True))
+    runs += [(f"hier, {k} heads of {256 // k}, bf16",
+              preset_config("flagship", model="hier", n_heads=k, depth=1, dtype="bfloat16"),
+              FA_B, 3 + 2, True) for k in (2, 8)]
+    runs += [(f"ViT-B/16, 6 heads of 128, {tag}",
+              preset_config("vit-b-16", curve="hilbert", num_classes=1000, n_heads=6,
+                            dim_head=128, depth=2, **dt), TRAIN_B, 2, False)
+             for tag, dt in (("bf16", dict(dtype="bfloat16")), ("fp32", {}))]
+    total: dict = {}
+    for label, cfg, batch, layers, family_a in runs:
+        for k, v in _hd_model(card, label, cfg, batch, layers, family_a).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def _plain_forward(model, x):
     """``model(x)`` through the plain blocks (a timing yardstick)."""
     def run():
@@ -3852,6 +4109,8 @@ def main() -> int:
     kernels.update(_timed(phase_vit_f32_kernels, card))
     launches.update(_timed(phase_vit_f32, card))
     _timed(phase_remat, card)
+    head_dims = _timed(phase_head_dim_kernels, card)
+    add(_timed(phase_head_dim_models, card))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "sfc_vit_tpu"))
     _check(not leaked, f"the port imported {leaked}")
@@ -3945,6 +4204,8 @@ def main() -> int:
                  bound_by=k["bound_by"], library_ms=k["library_ms"])
         if "single_step" in k:  # #8's other form, timed at CurveViT-S/12's shape
             e["single_step"] = k["single_step"]
+        if e["name"] in head_dims:  # the widths past 64 and 192 held against plain
+            e["head_dims"] = head_dims[e["name"]]
     print(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

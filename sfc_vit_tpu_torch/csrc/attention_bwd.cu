@@ -1,12 +1,15 @@
 // Softmax-attention backward straight off the packed QKV projection, for
-// head dims Dh = 64 and 192, optionally with probability dropout.
+// every head dim Dh that is a multiple of 16 up to 256, optionally with
+// probability dropout.
 //
 // What is left to this file: the lengths past csrc/attention_bwd_sm90.cu's
 // limits (ops/_build.py::attention_bwd_route): #4 past 256 tokens, and
 // #6's masked forms past 192 tokens at Dh 64 and past 64 at Dh 192, up
-// to family A's 1,024 (models/layers.py::TORCH_MHA_MAX_N).  Both main
-// paths' shapes (the flagship's 64 tokens at Dh 192, 'hier''s 64 and 192
-// at Dh 64) run on the Hopper kernel.
+// to family A's 1,024 (models/layers.py::TORCH_MHA_MAX_N), past 64 tokens
+// from Dh 80 ('hier''s fusion layers at Dh 128, 192 tokens; family B at
+// dim_head 128, 196), and Dh 208 to 256 at any length.  Both main paths'
+// shapes at their own head dims (the flagship's 64 tokens at Dh 192,
+// 'hier''s 64 and 192 at Dh 64) run on the Hopper kernel.
 //
 // Replaces: the per-(image, head) loops of
 // sfc_vit_tpu/ops/fused_attention_block.py::_attn_block_bwd_kernel
@@ -48,8 +51,13 @@
 // accumulators at 16 x 64 per output (32 registers a thread each) at
 // any Dh: at Dh = 192 three blocks recompute one tile's logits, where
 // whole-row dk and dv would need 192 accumulator registers a thread.
+// The kernels are instanced by the padded width DH = 64 C (C = ceil(Dh /
+// 64) chunks); a ragged head's columns past Dh load as zeros (the
+// cp.async predicate), add nothing to the logits, dp or delta, and are
+// never stored.
 // 128 threads, 4 warps of 16 rows, 64-row tiles through dynamic shared
-// memory (at Dh = 192: 143 KB for kernel 1, 152 KB for kernel 2), each
+// memory (at Dh = 192: 143 KB for kernel 1, 152 KB for kernel 2; at 256
+// 175 and 185 KB), each
 // warp's fp32 logits and dp tiles and its bf16 p / ds tiles there too.
 // At Dh = 64 the fixed A operands (q and da, or k and v) stay in WMMA
 // fragments (32 registers a thread) and kernel 2 writes its p^T / ds^T
@@ -57,6 +65,8 @@
 // SM); at Dh = 192 they load from shared memory at each use.
 
 #include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -129,14 +139,15 @@ struct RowsA {
 };
 
 // Rows r0.. of a [*, width] bf16 tensor, columns col..col+DH-1, into a
-// [BT][DH + 8] tile; rows at or past n are zero-filled.
+// [BT][DH + 8] tile; rows at or past n and columns at or past dh (a
+// ragged head) are zero-filled.
 template <int DH>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* base, int r0, int n,
-                                          size_t width, int col) {
+                                          size_t width, int col, int dh) {
   constexpr int LDH = DH + 8;
   for (int c = threadIdx.x; c < BT * DH / 8; c += kThreads) {
     const int r = c / (DH / 8), cc = (c % (DH / 8)) * 8;
-    const bool ok = r0 + r < n;
+    const bool ok = r0 + r < n && cc < dh;
     sfc::cp_async16(&dst[r * LDH + cc], ok ? base + (r0 + r) * width + col + cc : base, ok);
   }
 }
@@ -204,9 +215,10 @@ __device__ __forceinline__ void accumulate(FragC (&acc)[DC / 16], const bf16* p,
 }
 
 // Rounds a warp's 16 x 64 accumulators to bf16 rows row0.. (< n) of dst
-// at column col, staged through the warp's fp32 tile.
+// at column col, its first `cols` columns (a ragged head's last chunk is
+// narrower), staged through the warp's fp32 tile.
 __device__ __forceinline__ void store_rows(FragC (&acc)[DC / 16], float* stage, bf16* dst,
-                                           int row0, int n, size_t width, int col) {
+                                           int row0, int n, size_t width, int col, int cols) {
 #pragma unroll
   for (int j = 0; j < DC / 16; ++j)
     wmma::store_matrix_sync(stage + j * 16, acc[j], LDS, wmma::mem_row_major);
@@ -217,7 +229,7 @@ __device__ __forceinline__ void store_rows(FragC (&acc)[DC / 16], float* stage, 
 #pragma unroll
     for (int c8 = 0; c8 < DC / 2; c8 += 8) {
       const int c = half * (DC / 2) + c8;
-      *reinterpret_cast<uint4*>(out + c) = sfc::pack_bf16x8(&stage[r * LDS + c]);
+      if (c < cols) *reinterpret_cast<uint4*>(out + c) = sfc::pack_bf16x8(&stage[r * LDS + c]);
     }
   }
 }
@@ -227,7 +239,7 @@ __global__ void __launch_bounds__(kThreads)
     attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ att,
                             const bf16* __restrict__ datt, const float* __restrict__ lse,
                             const uint8_t* __restrict__ mask, float* __restrict__ delta,
-                            bf16* __restrict__ dqkv, int n, int heads, int n_valid,
+                            bf16* __restrict__ dqkv, int n, int heads, int dh, int n_valid,
                             float scale, float keep) {
   using S = DqSmem<DH>;
   constexpr int LDH = S::LDH;
@@ -238,14 +250,14 @@ __global__ void __launch_bounds__(kThreads)
   const int r = lane / 2, half = lane % 2;  // lane pair (2r, 2r+1) owns row r
   const int q0 = (blockIdx.x / kChunks) * BT, col0 = (blockIdx.x % kChunks) * DC;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int inner = heads * DH;
+  const int inner = heads * dh;
   const size_t w3 = 3 * static_cast<size_t>(inner), w1 = inner;
   const bf16* qkv_b = qkv + static_cast<size_t>(b) * n * w3;
   const size_t bh = (static_cast<size_t>(b) * heads + h) * n;
 
-  load_rows<DH>(sm.q, qkv_b, q0, n, w3, h * DH);
-  load_rows<DH>(sm.da, datt + static_cast<size_t>(b) * n * w1, q0, n, w1, h * DH);
-  load_rows<DH>(sm.k, att + static_cast<size_t>(b) * n * w1, q0, n, w1, h * DH);
+  load_rows<DH>(sm.q, qkv_b, q0, n, w3, h * dh, dh);
+  load_rows<DH>(sm.da, datt + static_cast<size_t>(b) * n * w1, q0, n, w1, h * dh, dh);
+  load_rows<DH>(sm.k, att + static_cast<size_t>(b) * n * w1, q0, n, w1, h * dh, dh);
   sfc::cp_async_commit();
   sfc::cp_async_wait<0>();
   __syncthreads();
@@ -277,8 +289,8 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (n_valid + BT - 1) / BT;  // keys past n_valid add nothing
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BT;
-    load_rows<DH>(sm.k, qkv_b, k0, n, w3, inner + h * DH);
-    load_rows<DH>(sm.v, qkv_b, k0, n, w3, 2 * inner + h * DH);
+    load_rows<DH>(sm.k, qkv_b, k0, n, w3, inner + h * dh, dh);
+    load_rows<DH>(sm.v, qkv_b, k0, n, w3, 2 * inner + h * dh, dh);
     sfc::cp_async_commit();
     sfc::cp_async_wait<0>();
     __syncthreads();
@@ -304,7 +316,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();                       // sm.k / sm.v are overwritten by the next tile
   }
   store_rows(dq, s_w, dqkv + static_cast<size_t>(b) * n * w3, q0 + warp * 16, n, w3,
-             h * DH + col0);
+             h * dh + col0, dh - col0);
 }
 
 template <int DH, bool kDrop>
@@ -312,7 +324,7 @@ __global__ void __launch_bounds__(kThreads)
     attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
                              const float* __restrict__ lse, const uint8_t* __restrict__ mask,
                              const float* __restrict__ delta, bf16* __restrict__ dqkv,
-                             int n, int heads, int n_valid, float scale, float keep) {
+                             int n, int heads, int dh, int n_valid, float scale, float keep) {
   using S = DkvSmem<DH>;
   constexpr int LDH = S::LDH;
   constexpr int kChunks = DH / DC;
@@ -322,14 +334,14 @@ __global__ void __launch_bounds__(kThreads)
   const int r = lane / 2, half = lane % 2;  // lane pair (2r, 2r+1) owns key r
   const int k0 = (blockIdx.x / kChunks) * BT, col0 = (blockIdx.x % kChunks) * DC;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int inner = heads * DH;
+  const int inner = heads * dh;
   const size_t w3 = 3 * static_cast<size_t>(inner), w1 = inner;
   const bf16* qkv_b = qkv + static_cast<size_t>(b) * n * w3;
   const bf16* datt_b = datt + static_cast<size_t>(b) * n * w1;
   const size_t bh = (static_cast<size_t>(b) * heads + h) * n;
 
-  load_rows<DH>(sm.k, qkv_b, k0, n, w3, inner + h * DH);
-  load_rows<DH>(sm.v, qkv_b, k0, n, w3, 2 * inner + h * DH);
+  load_rows<DH>(sm.k, qkv_b, k0, n, w3, inner + h * dh, dh);
+  load_rows<DH>(sm.v, qkv_b, k0, n, w3, 2 * inner + h * dh, dh);
   sfc::cp_async_commit();
   sfc::cp_async_wait<0>();
   __syncthreads();
@@ -354,8 +366,8 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (n + BT - 1) / BT;
   for (int t = 0; t < n_tiles; ++t) {
     const int q0 = t * BT;
-    load_rows<DH>(sm.q, qkv_b, q0, n, w3, h * DH);
-    load_rows<DH>(sm.da, datt_b, q0, n, w1, h * DH);
+    load_rows<DH>(sm.q, qkv_b, q0, n, w3, h * dh, dh);
+    load_rows<DH>(sm.da, datt_b, q0, n, w1, h * dh, dh);
     sfc::cp_async_commit();
     for (int i = threadIdx.x; i < BT; i += kThreads) {
       const bool ok = q0 + i < n;  // past n: zero q and da rows add nothing
@@ -390,15 +402,15 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();                        // sm.q / sm.da / lse / delta are overwritten next
   }
   bf16* out = dqkv + static_cast<size_t>(b) * n * w3;
-  store_rows(dk, s_w, out, k0 + warp * 16, n, w3, inner + h * DH + col0);
+  store_rows(dk, s_w, out, k0 + warp * 16, n, w3, inner + h * dh + col0, dh - col0);
   __syncwarp();
-  store_rows(dv, s_w, out, k0 + warp * 16, n, w3, 2 * inner + h * DH + col0);
+  store_rows(dv, s_w, out, k0 + warp * 16, n, w3, 2 * inner + h * dh + col0, dh - col0);
 }
 
 template <int DH, bool kDrop>
 cudaError_t launch(cudaStream_t s, const bf16* qkv, const bf16* att, const bf16* datt,
                    const float* lse, const uint8_t* mask, float* delta, bf16* dqkv,
-                   int batch, int n, int heads, int n_valid, float scale, float keep) {
+                   int batch, int n, int heads, int dh, int n_valid, float scale, float keep) {
   auto dq_kernel = attention_bwd_dq_kernel<DH, kDrop>;
   auto dkv_kernel = attention_bwd_dkv_kernel<DH, kDrop>;
   const int dq_smem = static_cast<int>(sizeof(DqSmem<DH>));
@@ -411,11 +423,11 @@ cudaError_t launch(cudaStream_t s, const bf16* qkv, const bf16* att, const bf16*
   if (e != cudaSuccess) return e;
   const dim3 grid(((n + BT - 1) / BT) * (DH / DC), heads, batch);
   dq_kernel<<<grid, kThreads, dq_smem, s>>>(qkv, att, datt, lse, mask, delta, dqkv, n, heads,
-                                            n_valid, scale, keep);
+                                            dh, n_valid, scale, keep);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   dkv_kernel<<<grid, kThreads, dkv_smem, s>>>(qkv, datt, lse, mask, delta, dqkv, n, heads,
-                                              n_valid, scale, keep);
+                                              dh, n_valid, scale, keep);
   return cudaGetLastError();
 }
 
@@ -426,12 +438,12 @@ cudaError_t launch(cudaStream_t s, const bf16* qkv, const bf16* att, const bf16*
 // (no dropout), with keep in (0, 1]; delta fp32 [batch, heads, n] is
 // scratch; dqkv bf16 [batch, n, 3*heads*dh] receives dq, dk and dv (every
 // element is written).  Keys at or past n_valid (1 <= n_valid <= n) are
-// masked.  dh must be 64 or 192.
+// masked.  dh a multiple of 16 up to 256.
 extern "C" int sfc_attention_bwd_bf16(const void* qkv, const void* att, const void* datt,
                                       const void* lse, const void* mask, void* delta,
                                       void* dqkv, int batch, int n, int heads, int dh,
                                       int n_valid, float scale, float keep, void* stream) {
-  if ((dh != 64 && dh != 192) || n_valid < 1 || n_valid > n ||
+  if (dh < 16 || dh > 256 || dh % 16 || n_valid < 1 || n_valid > n ||
       (mask != nullptr && !(keep > 0.f)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0) return 0;
@@ -443,12 +455,20 @@ extern "C" int sfc_attention_bwd_bf16(const void* qkv, const void* att, const vo
   const auto* mk = static_cast<const uint8_t*>(mask);
   auto* dl = static_cast<float*>(delta);
   auto* out = static_cast<bf16*>(dqkv);
+  // The instance of the padded width 64 C, with the mask or without.
+  auto go = [&](auto DHP) {
+    constexpr int P = decltype(DHP)::value;
+    return mask ? launch<P, true>(s, q, a, da, ls, mk, dl, out, batch, n, heads, dh, n_valid,
+                                  scale, keep)
+                : launch<P, false>(s, q, a, da, ls, mk, dl, out, batch, n, heads, dh, n_valid,
+                                   scale, keep);
+  };
   cudaError_t e;
-  if (dh == 64)
-    e = mask ? launch<64, true>(s, q, a, da, ls, mk, dl, out, batch, n, heads, n_valid, scale, keep)
-             : launch<64, false>(s, q, a, da, ls, mk, dl, out, batch, n, heads, n_valid, scale, keep);
-  else
-    e = mask ? launch<192, true>(s, q, a, da, ls, mk, dl, out, batch, n, heads, n_valid, scale, keep)
-             : launch<192, false>(s, q, a, da, ls, mk, dl, out, batch, n, heads, n_valid, scale, keep);
+  switch ((dh + 63) / 64) {
+    case 1: e = go(std::integral_constant<int, 64>{}); break;
+    case 2: e = go(std::integral_constant<int, 128>{}); break;
+    case 3: e = go(std::integral_constant<int, 192>{}); break;
+    default: e = go(std::integral_constant<int, 256>{}); break;
+  }
   return static_cast<int>(e);
 }

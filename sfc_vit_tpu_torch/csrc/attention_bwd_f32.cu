@@ -36,9 +36,11 @@
 // Design: two kernels, each output with one owner, no atomics, so the
 // same inputs give the same bits.  A block is one warpgroup (128 threads),
 // two blocks an SM.  Thread 0 keeps 64 x 64 sub-blocks in flight by TMA
-// (map_packed_f32 over qkv and datt; Dh 192 is three 64-column
-// sub-heads), refilling each slot after the barrier that follows its last
-// use.  A sub-block is an A operand (read into registers a k8 step at a
+// (sm90.cuh::map_heads over qkv's 3 H heads and datt's H; a head is C =
+// ceil(Dh / 64) 64-column sub-heads, Dh 192 three, and a ragged head's
+// columns past Dh load as zeros, which add exact zeros to S, dP and delta
+// and give zero output columns that are never stored), refilling each
+// slot after the barrier that follows its last use.  A sub-block is an A operand (read into registers a k8 step at a
 // time and split there) or a B operand (split by the threads into the big
 // and small K-major tiles, plainly or transposed under the key
 // permutation: csrc/attn_f32.cuh).  At Dh 64 each block's own A operands
@@ -60,13 +62,15 @@
 //      mask bytes staged in shared memory by plain loads.
 // With one tile (N <= 64: the flagship's and the notebook's rows) the dq
 // kernel hands pv and dS, transposed, to the dk/dv kernel through dqkv's
-// dk and dv rows (to_dkv / from_dq), which then loads neither K nor V and
-// computes neither S^T nor dP^T: five products, not seven.  At Dh 64 the
-// accumulators stay in registers and go out once, 8-byte stores.  At Dh
-// 192 an output's three sub-heads (96 accumulators a thread) do not fit
-// beside S and dP: each (tile, sub-head) product is taken fresh and added
-// to the block's own rows of dqkv, which the same thread stored at the
-// tile before (at_rows; nothing is read back at one tile).  The dq kernel
+// dk and dv rows (to_dkv / from_dq; 64 columns of each, so only from Dh
+// 64: a narrower head takes the seven products), which then loads neither
+// K nor V and computes neither S^T nor dP^T: five products, not seven.  At
+// C = 1 the accumulators stay in registers and go out once, 8-byte
+// stores.  From C = 2 an output's sub-heads (64 to 128 accumulators a
+// thread) do not fit beside S and dP: each (tile, sub-head) product is
+// taken fresh and added to the block's own rows of dqkv, which the same
+// thread stored at the tile before (at_rows; nothing is read back at one
+// tile).  The dq kernel
 // reads the mask's bytes from device memory (L1-cached).
 
 #include <type_traits>
@@ -84,7 +88,7 @@ using Smem = af::Smem<kStages>;
 constexpr int kSmemBytes = af::kSmemBytes<kStages>;
 
 struct Params {
-  CUtensorMap qkv, datt;  // map_packed_f32 over qkv [B, n, 3 H Dh] and datt [B, n, H Dh]
+  CUtensorMap qkv, datt;  // map_heads over qkv [B, n, 3 H Dh] and datt [B, n, H Dh]
   const float* att;       // [B, n, H Dh]
   const float* da;        // datt, for delta
   const float* lse;       // [B, H, n]
@@ -92,6 +96,7 @@ struct Params {
   float* delta;           // [B, H, n]: written by (1), read by (2)
   float* dqkv;            // [B, n, 3 H Dh]
   int n, heads, dh, n_valid, tiles;
+  int handoff;            // one tile and Dh >= 64: the dq kernel hands pv, dS to dk/dv
   float scale, keep;
 };
 
@@ -109,11 +114,11 @@ struct Ctx {
   uint32_t fb[2][4], fs[2][4];
 };
 
-// The ring's slots at Dh 64: two, the other two of the four holding the
+// The ring's slots at C = 1: two, the other two of the four holding the
 // block's own A operands for the whole walk (resident: the dq kernel's Q
 // and dA, the dk/dv kernel's K and V), so only the B operands stream, each
-// sub-block once a tile.  At Dh 192 the A operands (48 KB each) stream too,
-// through all four.
+// sub-block once a tile.  From C = 2 the A operands (32 to 64 KB each)
+// stream too, through all four.
 template <int C>
 constexpr int kRing = C == 1 ? 2 : kStages;
 constexpr int kResA = 2, kResB = 3;  // the resident slots at Dh 64
@@ -124,8 +129,8 @@ __device__ __forceinline__ void feed(Ctx& x, int upto, Entry&& entry) {
     int src, c, row;
     entry(x.issued, src, c, row);
     const CUtensorMap* map = src == kDA ? &x.p.datt : &x.p.qkv;
-    const int sub = (src == kDA ? x.h : src * x.p.heads + x.h) * C + c;
-    af::load_sub(x.sm, x.issued % kRing<C>, map, sub, row, x.b);
+    const int head = src == kDA ? x.h : src * x.p.heads + x.h;
+    af::load_sub(x.sm, x.issued % kRing<C>, map, head, c, row, x.b);
   }
 }
 
@@ -177,7 +182,7 @@ __device__ __forceinline__ void at_next(Ctx& x, float (&acc)[32], const float (&
   ++x.e;
 }
 
-// The block's resident A operands (Dh 64): rows row of sub-head 0 of src_a
+// The block's resident A operands (C = 1): rows row of sub-head 0 of src_a
 // and src_b into slots kResA and kResB, on their own barriers.
 __device__ __forceinline__ void load_resident(Ctx& x, int src_a, int src_b, int row) {
   const Params& p = x.p;
@@ -186,16 +191,21 @@ __device__ __forceinline__ void load_resident(Ctx& x, int src_a, int src_b, int 
   for (int i = 0; i < 2; ++i) {
     const int src = srcs[i];
     af::load_sub(x.sm, kResA + i, src == kDA ? &p.datt : &p.qkv,
-                 src == kDA ? x.h : src * p.heads + x.h, row, x.b);
+                 src == kDA ? x.h : src * p.heads + x.h, 0, row, x.b);
   }
 }
 
-// Rows r0 and r0 + 8 of a 64-row tile's accumulators of one 64-column
-// sub-head into the packed rows row0 + ... of dqkv at column col, with
-// `add` plus what this thread stored there before (rows at or past n are
-// neither read nor written).
+// Rows r0 and r0 + 8 of a 64-row tile's accumulators of sub-head c of a
+// head into the packed rows row0 + ... of dqkv at the head's column col,
+// with `add` plus what this thread stored there before (rows at or past n
+// are neither read nor written).  LAST: c may be a ragged head's last
+// sub-head, whose columns past Dh are not written; the other sub-heads of
+// a head lie wholly below Dh, and store every column unpredicated (a check
+// a column there slowed the Dh 192 dk/dv kernel: ptxas serialized more of
+// its wgmma).
+template <bool LAST>
 __device__ __forceinline__ void store_sub(const Ctx& x, const float (&acc)[32], int row0,
-                                          size_t col, bool add = false) {
+                                          size_t col, int c, bool add = false) {
   const Params& p = x.p;
   const size_t w = static_cast<size_t>(3) * p.heads * p.dh;
   const int t = af::fresh_tid(), r0 = 16 * (t >> 5) + ((t >> 2) & 7), c0 = 2 * (t & 3);
@@ -203,9 +213,10 @@ __device__ __forceinline__ void store_sub(const Ctx& x, const float (&acc)[32], 
   for (int hf = 0; hf < 2; ++hf) {
     const int row = row0 + r0 + 8 * hf;
     if (row >= p.n) continue;
-    float* dst = p.dqkv + (static_cast<size_t>(x.b) * p.n + row) * w + col + c0;
+    float* dst = p.dqkv + (static_cast<size_t>(x.b) * p.n + row) * w + col + 64 * c + c0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
+      if (LAST && 64 * c + 8 * j + c0 >= p.dh) continue;
       float2 v = make_float2(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
       if (add) {
         const float2 o = *reinterpret_cast<const float2*>(dst + 8 * j);
@@ -223,50 +234,54 @@ __device__ __forceinline__ void zero(float (&a)[R]) {
   for (int i = 0; i < R; ++i) a[i] = 0.f;
 }
 
-// One sub-head of an output accumulated in dqkv's rows: at Dh 192 an
-// output's three sub-heads (96 accumulators a thread) do not fit beside S
+// One sub-head of an output accumulated in dqkv's rows: from C = 2 an
+// output's sub-heads (64 to 128 accumulators a thread) do not fit beside S
 // and dP, so each (tile, sub-head) product, `part` = A X for the next entry
 // X (at, taken fresh), goes out to the block's own rows at once, after the
 // first tile (`add`) added to what the same thread stored there at the
 // tile before (one owner, tile order: the same bits on every call).
-template <int C, typename Entry>
+template <int C, int c, typename Entry>
 __device__ __forceinline__ void at_rows(Ctx& x, float (&part)[32], const float (&a)[32], int row0,
                                         size_t col, bool add, Entry&& entry) {
   at_next<C>(x, part, a, 0, entry);
   af::drain(part);
-  store_sub(x, part, row0, col, add);
+  store_sub<c == C - 1>(x, part, row0, col, c, add);
 }
 
-// One tile (N <= 64: the flagship's and the notebook's tokens): the dq
-// kernel hands pv and dS to the dk/dv kernel, which then computes neither
-// S^T nor dP^T.  They go transposed, [key][query], into the block's own
-// rows of dqkv where dk and dv will go (at Dh 64 pv in dk's 64 columns and
-// dS in dv's; at Dh 192 both in dk's 192), which the dk/dv kernel reads
-// before it writes dk and dv there.  Keys and queries at or past n are
-// neither written nor read.
-template <int DH>
+// One tile (N <= 64: the flagship's and the notebook's tokens) and Dh at
+// least 64 (Params::handoff): the dq kernel hands pv and dS to the dk/dv kernel,
+// which then computes neither S^T nor dP^T.  They go transposed,
+// [key][query], into the block's own rows of dqkv where dk and dv will go
+// (pv in dk's first 64 columns and dS in dv's), which the dk/dv kernel
+// reads before it writes dk and dv there.  Keys and queries at or past n
+// are neither written nor read.  At C = 1 the handoff runs at Dh 64 only,
+// whose columns are then known at compile time (a run-time Dh there, and
+// the handoff's condition computed in the kernel, slowed the Dh 64
+// kernels even where no handoff runs).
+template <int C>
 __device__ __forceinline__ float* dkv_handoff(const Params& p, int b, int h, int key, int which) {
-  const size_t inner = static_cast<size_t>(p.heads) * DH;
+  const size_t dh = C == 1 ? 64 : p.dh;
+  const size_t inner = static_cast<size_t>(p.heads) * dh;
   return p.dqkv + (static_cast<size_t>(b) * p.n + key) * 3 * inner + inner +
-         static_cast<size_t>(h) * DH + (DH == 64 ? which * inner : which * 64);
+         static_cast<size_t>(h) * dh + which * inner;
 }
 
-template <int DH>
+template <int C>
 __device__ __forceinline__ void to_dkv(const Ctx& x, const float (&pv)[32], const float (&ds)[32]) {
   const Params& p = x.p;
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int query = x.r0 + 8 * ((i / 2) % 2), key = 8 * (i / 4) + x.c0 + (i % 2);
     if (query < p.n && key < p.n) {
-      dkv_handoff<DH>(p, x.b, x.h, key, 0)[query] = pv[i];
-      dkv_handoff<DH>(p, x.b, x.h, key, 1)[query] = ds[i];
+      dkv_handoff<C>(p, x.b, x.h, key, 0)[query] = pv[i];
+      dkv_handoff<C>(p, x.b, x.h, key, 1)[query] = ds[i];
     }
   }
 }
 
 // The dk/dv kernel's side: pv^T and dS^T in its accumulators' layout (rows
 // keys r0 (+ 8), columns queries), zero past n.
-template <int DH>
+template <int C>
 __device__ __forceinline__ void from_dq(const Ctx& x, float (&pv)[32], float (&ds)[32]) {
   const Params& p = x.p;
 #pragma unroll
@@ -274,8 +289,8 @@ __device__ __forceinline__ void from_dq(const Ctx& x, float (&pv)[32], float (&d
     const int key = x.r0 + 8 * ((i / 2) % 2), query = 8 * (i / 4) + x.c0;
     float2 a = make_float2(0.f, 0.f), d = a;
     if (key < p.n) {
-      a = *reinterpret_cast<const float2*>(dkv_handoff<DH>(p, x.b, x.h, key, 0) + query);
-      d = *reinterpret_cast<const float2*>(dkv_handoff<DH>(p, x.b, x.h, key, 1) + query);
+      a = *reinterpret_cast<const float2*>(dkv_handoff<C>(p, x.b, x.h, key, 0) + query);
+      d = *reinterpret_cast<const float2*>(dkv_handoff<C>(p, x.b, x.h, key, 1) + query);
     }
     pv[i] = query < p.n ? a.x : 0.f;
     pv[i + 1] = query + 1 < p.n ? a.y : 0.f;
@@ -285,8 +300,8 @@ __device__ __forceinline__ void from_dq(const Ctx& x, float (&pv)[32], float (&d
 }
 
 // The dq kernel's ring entries, entry i's source, sub-head and first row.
-// Dh 64 (Q and dA resident): per key tile t, V_t then K_t, K_t taken twice
-// (plainly for S, transposed for dq).  Dh 192: per key tile, (Q_c, K_t,c)
+// C = 1 (Q and dA resident): per key tile t, V_t then K_t, K_t taken twice
+// (plainly for S, transposed for dq).  C > 1: per key tile, (Q_c, K_t,c)
 // for each sub-head, (dA_c, V_t,c), then K_t,c again (transposed).
 template <int C>
 struct DqEntry {
@@ -311,16 +326,16 @@ struct DqEntry {
   }
 };
 
-// The dk/dv kernel's.  Dh 64 (K and V resident): per query tile t, dA_t
+// The dk/dv kernel's.  C = 1 (K and V resident): per query tile t, dA_t
 // then Q_t, each taken twice (plainly for dP^T and S^T, transposed for dv
-// and dk; with one tile only transposed, and K and V are not loaded).  Dh
-// 192: per query tile, (K_c, Q_t,c) for each sub-head, (V_c, dA_t,c), then
+// and dk; with the handoff only transposed, and K and V are not loaded).
+// C > 1: per query tile, (K_c, Q_t,c) for each sub-head, (V_c, dA_t,c), then
 // for each sub-head dA_t,c and Q_t,c (transposed; with one tile only
 // these).
 template <int C>
 struct DkvEntry {
   int k0;
-  bool one;  // one tile: only the transposed dA_0,c and Q_0,c
+  bool one;  // the handoff: only the transposed dA_0,c and Q_0,c
   __device__ __forceinline__ void operator()(int i, int& src, int& c, int& row) const {
     if (C == 1 || one) {
       src = i & 1 ? kQ : kDA;
@@ -343,10 +358,10 @@ struct DkvEntry {
   }
 };
 
-template <int DH, bool MASK>
+// C: 64-column sub-heads a head (ceil(Dh / 64)).
+template <int C, bool MASK>
 __global__ void __launch_bounds__(af::kThreads, 2)
     attention_bwd_f32_dq_sm90(const __grid_constant__ Params p) {
-  constexpr int C = DH / 64;
   constexpr bool kRows = C > 1;  // accumulate in dqkv's rows (at_rows)
   extern __shared__ __align__(1024) unsigned char dyn[];
   Smem& sm = hw::aligned_smem<Smem>(dyn);
@@ -369,23 +384,28 @@ __global__ void __launch_bounds__(af::kThreads, 2)
   }
   af::pair_desc(sm, x.db, x.dsm);
 
-  // delta of the 64 rows: two lanes a row, each over half of Dh, 16-byte
-  // loads all in flight at once; with lse into shared memory.
+  // delta of the 64 rows: two lanes a row, each over half of the padded
+  // 64 C columns (none past Dh), 16-byte loads all in flight at once; with
+  // lse into shared memory.
   {
-    const size_t ow = static_cast<size_t>(heads) * DH;
+    const int dh = p.dh;
+    const size_t ow = static_cast<size_t>(heads) * dh;
     const int r = tid / 2, half = tid % 2, row = q0 + r;
     float sum = 0.f;
     if (row < n) {
-      const size_t off = (static_cast<size_t>(x.b) * n + row) * ow + static_cast<size_t>(x.h) * DH;
-      const float4* da = reinterpret_cast<const float4*>(p.da + off) + half * (DH / 8);
-      const float4* at = reinterpret_cast<const float4*>(p.att + off) + half * (DH / 8);
+      const size_t off = (static_cast<size_t>(x.b) * n + row) * ow + static_cast<size_t>(x.h) * dh;
+      const float4* da = reinterpret_cast<const float4*>(p.da + off);
+      const float4* at = reinterpret_cast<const float4*>(p.att + off);
 #pragma unroll
-      for (int i = 0; i < DH / 8; ++i) {
-        const float4 u = da[i], v = at[i];
-        sum = fmaf(u.x, v.x, sum);
-        sum = fmaf(u.y, v.y, sum);
-        sum = fmaf(u.z, v.z, sum);
-        sum = fmaf(u.w, v.w, sum);
+      for (int i = 0; i < 8 * C; ++i) {  // a fixed count: predicated loads, all in flight
+        const int k = half * 8 * C + i;
+        if (4 * k < dh) {
+          const float4 u = da[k], v = at[k];
+          sum = fmaf(u.x, v.x, sum);
+          sum = fmaf(u.y, v.y, sum);
+          sum = fmaf(u.z, v.z, sum);
+          sum = fmaf(u.w, v.w, sum);
+        }
       }
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -442,12 +462,12 @@ __global__ void __launch_bounds__(af::kThreads, 2)
       dp[i] = ds;
       s[i] = pv;
     }
-    if (p.tiles == 1) to_dkv<DH>(x, s, dp);
+    if (p.handoff) to_dkv<C>(x, s, dp);
     sfc::static_for<C>([&](auto Cc) {
       constexpr int c = decltype(Cc)::value;
-      const size_t col = static_cast<size_t>(x.h) * DH + 64 * c;
+      const size_t col = static_cast<size_t>(x.h) * p.dh;
       if constexpr (kRows) {
-        at_rows<C>(x, s, dp, q0, col, t > 0, entry);  // s: free after dS
+        at_rows<C, c>(x, s, dp, q0, col, t > 0, entry);  // s: free after dS
       } else {
         at<C>(x, dq[c], dp, 2 * t + 1, 2 * t + 2, t > 0, entry);
       }
@@ -458,7 +478,7 @@ __global__ void __launch_bounds__(af::kThreads, 2)
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       hw::fence_regs(dq[c]);
-      store_sub(x, dq[c], q0, static_cast<size_t>(x.h) * DH + 64 * c);
+      store_sub<true>(x, dq[c], q0, static_cast<size_t>(x.h) * p.dh, c);
     }
   }
 }
@@ -516,10 +536,9 @@ __device__ __forceinline__ void dkv_tile(Ctx& x, float (&s)[32], float (&dp)[32]
   }
 }
 
-template <int DH, bool MASK>
+template <int C, bool MASK>
 __global__ void __launch_bounds__(af::kThreads, 2)
     attention_bwd_f32_dkv_sm90(const __grid_constant__ Params p) {
-  constexpr int C = DH / 64;
   constexpr bool kRows = C > 1;  // accumulate in dqkv's rows (at_rows)
   extern __shared__ __align__(1024) unsigned char dyn[];
   Smem& sm = hw::aligned_smem<Smem>(dyn);
@@ -527,20 +546,20 @@ __global__ void __launch_bounds__(af::kThreads, 2)
   const int n = p.n, heads = p.heads, n_valid = p.n_valid, tiles = p.tiles;
   const int kt = blockIdx.x % tiles, bh = blockIdx.x / tiles, k0 = kt * BM;
   Ctx x{sm, p, tid, 16 * warp + lane / 4, 2 * (lane % 4), bh / heads, bh % heads, bh};
-  const size_t inner = static_cast<size_t>(heads) * DH;
-  const size_t kcol = inner + static_cast<size_t>(x.h) * DH, vcol = 2 * inner + x.h * DH;
+  const size_t inner = static_cast<size_t>(heads) * p.dh;
+  const size_t kcol = inner + static_cast<size_t>(x.h) * p.dh, vcol = 2 * inner + x.h * p.dh;
 
   float dv[kRows ? 1 : C][32], dk[kRows ? 1 : C][32];
   if (k0 >= n_valid) {  // keys past n_valid: dk = dv = 0
     zero(dv[0]);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      store_sub(x, dv[0], k0, kcol + 64 * c);
-      store_sub(x, dv[0], k0, vcol + 64 * c);
+      store_sub<true>(x, dv[0], k0, kcol, c);
+      store_sub<true>(x, dv[0], k0, vcol, c);
     }
     return;
   }
-  const bool one = tiles == 1;  // pv^T and dS^T from the dq kernel (from_dq)
+  const bool one = p.handoff;  // pv^T and dS^T from the dq kernel (from_dq)
   x.entries = one ? 2 * C : (C == 1 ? 2 : 6 * C) * tiles;
   const DkvEntry<C> entry{k0, one};
 
@@ -563,14 +582,14 @@ __global__ void __launch_bounds__(af::kThreads, 2)
 
   float s[32], dp[32];
   for (int t = 0; t < tiles; ++t) {
-    if (one) from_dq<DH>(x, s, dp);
+    if (one) from_dq<C>(x, s, dp);
     else dkv_tile<C, MASK>(x, s, dp, t, k0, scale, keep, rkeep, mcol, entry);
     sfc::static_for<C>([&](auto Cc) {
       constexpr int c = decltype(Cc)::value;
       if constexpr (kRows) {
         float part[32];
-        at_rows<C>(x, part, s, k0, vcol + 64 * c, t > 0, entry);
-        at_rows<C>(x, part, dp, k0, kcol + 64 * c, t > 0, entry);
+        at_rows<C, c>(x, part, s, k0, vcol, t > 0, entry);
+        at_rows<C, c>(x, part, dp, k0, kcol, t > 0, entry);
       } else {
         at<C>(x, dv[c], s, 2 * t, 2 * t + 1, t > 0, entry);
         at<C>(x, dk[c], dp, 2 * t + 1, 2 * t + 2, t > 0, entry);
@@ -583,8 +602,8 @@ __global__ void __launch_bounds__(af::kThreads, 2)
     for (int c = 0; c < C; ++c) {
       hw::fence_regs(dk[c]);
       hw::fence_regs(dv[c]);
-      store_sub(x, dk[c], k0, kcol + 64 * c);
-      store_sub(x, dv[c], k0, vcol + 64 * c);
+      store_sub<true>(x, dk[c], k0, kcol, c);
+      store_sub<true>(x, dv[c], k0, vcol, c);
     }
   }
 }
@@ -594,28 +613,34 @@ cudaError_t prepare(K kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int DH, bool MASK>
+template <int C, bool MASK>
 cudaError_t launch(const Params& p, int batch, cudaStream_t s) {
-  cudaError_t err = prepare(attention_bwd_f32_dq_sm90<DH, MASK>, kSmemBytes);
-  if (err == cudaSuccess) err = prepare(attention_bwd_f32_dkv_sm90<DH, MASK>, kSmemBytes);
+  cudaError_t err = prepare(attention_bwd_f32_dq_sm90<C, MASK>, kSmemBytes);
+  if (err == cudaSuccess) err = prepare(attention_bwd_f32_dkv_sm90<C, MASK>, kSmemBytes);
   if (err != cudaSuccess) return err;
   const int blocks = batch * p.heads * p.tiles;
-  attention_bwd_f32_dq_sm90<DH, MASK><<<blocks, af::kThreads, kSmemBytes, s>>>(p);
+  attention_bwd_f32_dq_sm90<C, MASK><<<blocks, af::kThreads, kSmemBytes, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_f32_dkv_sm90<DH, MASK><<<blocks, af::kThreads, kSmemBytes, s>>>(p);
+  attention_bwd_f32_dkv_sm90<C, MASK><<<blocks, af::kThreads, kSmemBytes, s>>>(p);
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t launch_dh(const Params& p, int batch, cudaStream_t s) {
-  return p.mask != nullptr ? launch<DH, true>(p, batch, s) : launch<DH, false>(p, batch, s);
-}
-
-template <int DH, bool MASK>
-int attrs_of(int dkv, int* out) {
-  return dkv ? hw::kernel_attrs(attention_bwd_f32_dkv_sm90<DH, MASK>, kSmemBytes, out)
-             : hw::kernel_attrs(attention_bwd_f32_dq_sm90<DH, MASK>, kSmemBytes, out);
+// Calls f(C, MASK) (integral constants) for c sub-heads; false past 4.
+template <typename F>
+bool with_instance(int c, bool masked, F&& f) {
+  auto go = [&](auto Cc) {
+    if (masked) f(Cc, std::true_type{});
+    else f(Cc, std::false_type{});
+    return true;
+  };
+  switch (c) {
+    case 1: return go(std::integral_constant<int, 1>{});
+    case 2: return go(std::integral_constant<int, 2>{});
+    case 3: return go(std::integral_constant<int, 3>{});
+    case 4: return go(std::integral_constant<int, 4>{});
+    default: return false;
+  }
 }
 
 }  // namespace
@@ -624,19 +649,20 @@ int attrs_of(int dkv, int* out) {
 // att, datt (fp32 [batch, n, heads * dh]), lse (fp32 [batch, heads, n]),
 // and, for the dropout form, mask (uint8 0/1 [batch, heads, n, n]) and
 // keep (mask null: no dropout, keep unused); delta (fp32 [batch, heads,
-// n]) is a workspace.  dh 64 or 192, n <= 1,024, every pointer 16-byte
-// aligned.
+// n]) is a workspace.  dh a multiple of 16 up to 256, n <= 1,024, every
+// pointer 16-byte aligned.
 extern "C" int sfc_attention_bwd_f32(const void* qkv, const void* att, const void* datt,
                                      const void* lse, const void* mask, void* delta,
                                      void* dqkv, int batch, int n, int heads, int dh,
                                      int n_valid, float scale, float keep, void* stream) {
   if (batch < 0 || n < 1 || n > 1024 || heads < 1 || n_valid < 1 || n_valid > n ||
-      (dh != 64 && dh != 192) || (mask != nullptr && !(keep > 0.f && keep <= 1.f)))
+      !hw::head_dim_ok(dh) || (mask != nullptr && !(keep > 0.f && keep <= 1.f)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   Params p{};
-  cudaError_t err = hw::map_packed_f32(&p.qkv, qkv, batch, n, 3 * heads * dh, BM);
-  if (err == cudaSuccess) err = hw::map_packed_f32(&p.datt, datt, batch, n, heads * dh, BM);
+  const long long inner = static_cast<long long>(heads) * dh;
+  cudaError_t err = hw::map_heads(&p.qkv, qkv, true, batch, n, 3 * heads, dh, 3 * inner, BM);
+  if (err == cudaSuccess) err = hw::map_heads(&p.datt, datt, true, batch, n, heads, dh, inner, BM);
   if (err != cudaSuccess) return static_cast<int>(err);
   p.att = static_cast<const float*>(att);
   p.da = static_cast<const float*>(datt);
@@ -649,17 +675,28 @@ extern "C" int sfc_attention_bwd_f32(const void* qkv, const void* att, const voi
   p.dh = dh;
   p.n_valid = n_valid;
   p.tiles = (n + BM - 1) / BM;
+  p.handoff = p.tiles == 1 && dh >= 64;
   p.scale = scale;
   p.keep = mask != nullptr ? keep : 1.f;
   auto* s = static_cast<cudaStream_t>(stream);
-  err = dh == 64 ? launch_dh<64>(p, batch, s) : launch_dh<192>(p, batch, s);
+  err = cudaErrorInvalidValue;
+  with_instance(hw::subheads(dh), mask != nullptr, [&](auto C, auto M) {
+    err = launch<decltype(C)::value, decltype(M)::value>(p, batch, s);
+  });
   return static_cast<int>(err);
 }
 
 // Registers, local bytes and shared bytes of the dq kernel (dkv 0) or of
-// the dk/dv kernel (dkv 1) at dh 64 or 192, with the mask or without.
+// the dk/dv kernel (dkv 1) at dh (its 64-column sub-heads: 64, 128, 192
+// and 256 name C = 1 to 4), with the mask or without.
 extern "C" int sfc_attention_bwd_f32_attrs(int dh, int masked, int dkv, int* out) {
-  if (dh == 192) return masked ? attrs_of<192, true>(dkv, out) : attrs_of<192, false>(dkv, out);
-  if (dh == 64) return masked ? attrs_of<64, true>(dkv, out) : attrs_of<64, false>(dkv, out);
-  return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (!hw::head_dim_ok(dh)) return err;
+  with_instance(hw::subheads(dh), masked != 0, [&](auto C, auto M) {
+    constexpr int c = decltype(C)::value;
+    constexpr bool m = decltype(M)::value;
+    err = dkv ? hw::kernel_attrs(attention_bwd_f32_dkv_sm90<c, m>, kSmemBytes, out)
+              : hw::kernel_attrs(attention_bwd_f32_dq_sm90<c, m>, kSmemBytes, out);
+  });
+  return err;
 }

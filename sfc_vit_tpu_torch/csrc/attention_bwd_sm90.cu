@@ -2,7 +2,11 @@
 // Hopper: the attention part of ViT-B's block backward (kernel #4, head
 // dim 64, no dropout, up to 256 tokens) and of family A's MHA backward
 // with probability dropout (kernel #6: head dim 64 up to 192 tokens, head
-// dim 192 at up to 64 tokens, with the 0/1 mask and keep).
+// dim 192 at up to 64 tokens, with the 0/1 mask and keep), and at every
+// head dim Dh that is a multiple of 16 up to 192: C = ceil(Dh / 64)
+// sub-heads of 64 columns, one 64-row tile from C = 2 (ATTENTION_BWD_SM90_
+// LIMITS in ops/_build.py; Dh 208 to 256 would need 256 KB and go to
+// attention_bwd.cu).
 //
 // Replaces: the per-(image, head) loops of
 // sfc_vit_tpu/ops/fused_attention_block.py::_attn_block_bwd_kernel (lines
@@ -35,9 +39,11 @@
 // 4 heads of 192, batch 512) 16 GFLOP (0.016 ms) on ~411 MB with the mask
 // (0.12 ms).
 // Design: one (image, head) is an item; its q, k, v and da fit one block
-// as 64-row tiles of 64-column sub-heads (a head of 192 is three, sub-head
-// index S h + c of the [B, N, 3 H S, 64] view, so every TMA box is 64 x 64
-// and 128-byte swizzled).  A persistent grid (one block an SM, two
+// as 64-row tiles of 64-column sub-heads (a head of 192 is three; every
+// TMA box is 64 x 64 and 128-byte swizzled, sm90.cuh::map_heads, whose
+// boxes load a ragged head's columns past Dh as zeros and store nothing
+// there: the zeros add nothing to S, dP or delta, and give zero columns
+// of dq, dk and dv that are never written).  A persistent grid (one block an SM, two
 // warpgroups and no producer warp: 255 registers a thread) walks the
 // items; thread 0 brings each tile by TMA (rows past N read as zero) and
 // the item's mask by one bulk copy into a dense [N][N] byte tile (by plain
@@ -56,7 +62,7 @@
 //    steps each) for each key tile j, pn or pf, the mask and ds in
 //    registers, dq += ds . K_j with ds as the register A operand (the
 //    accumulator-to-A map of sm90.cuh); at Dh 192 three 64-column
-//    accumulators (96 registers).
+//    accumulators (96 registers), at Dh 128 two.
 //  * dk and dv of a key tile: S^T = K_j Q_i^T and dP^T = V_j dA_i^T for
 //    each query tile i, the mask read transposed from shared memory
 //    (mask[q][key] with the key as the accumulator's row), pn^T (or
@@ -73,6 +79,8 @@
 // kernel, no scratch in global memory and no atomics, so the same inputs
 // give the same bits.  Every wgmma wait has a fixed count.
 
+#include <type_traits>
+
 #include "sm90.cuh"
 
 namespace {
@@ -85,14 +93,14 @@ constexpr int kBox = 64 * 128;  // a 64-row tile of one 64-column sub-head, swiz
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The longest sequences (the Python ATTENTION_BWD_SM90_MAX_N*): head dim 64
-// without dropout and with it, and head dim 192.
+// without dropout and with it, and head dims 80 to 192 (one tile).
 constexpr int kMaxN64 = 256, kMaxN64Drop = 192, kMaxN192 = 64;
 
-// An instance: S sub-heads a head (Dh = 64 S), DROP the mask form, MAXT
-// 64-row tiles of the longest sequence it takes.
+// An instance: S sub-heads a head (Dh up to 64 S), DROP the mask form,
+// MAXT 64-row tiles of the longest sequence it takes.
 template <int S, bool DROP, int MAXT>
 struct Cfg {
-  static_assert(S == 1 || MAXT == 1, "head dim 192 takes one 64-row tile");
+  static_assert(S == 1 || MAXT == 1, "head dims past 64 take one 64-row tile");
   static constexpr int kQdSlots = MAXT == 1 ? 2 : 1;  // Q, dA and mask in the ring
   static constexpr int kMaskBytes = DROP ? 64 * MAXT * 64 * MAXT : 16;
   static constexpr int kRowSplit = MAXT == 1 ? 4 : 1;  // threads a row in pass 0
@@ -114,11 +122,11 @@ template <int S, bool DROP, int MAXT>
 constexpr int kSmemBytes = sizeof(Smem<S, DROP, MAXT>) + 1024;  // + the 1,024-byte alignment
 
 struct Params {
-  CUtensorMap qkv, da, out;  // 64-column sub-heads: 3HS of qkv and of dqkv, HS of datt
+  CUtensorMap qkv, da, out;  // map_heads: 3 H heads of qkv and of dqkv, H of datt
   const bf16* att;
   const float* lse;
   const uint8_t* mask;
-  int n, heads, n_valid, tiles, items, mask_bulk;
+  int n, heads, dh, n_valid, tiles, items, mask_bulk;
   float scale, scale_log2, keep;
 };
 
@@ -135,7 +143,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int r0 = 16 * (t / 32) + (t % 32) / 4, c0 = 2 * (lane % 4);
   // Scalars in registers (fields of the __grid_constant__ parameter read
   // through the lambdas' references would be generic loads).
-  const int H = p.heads, n = p.n, n_valid = p.n_valid, tiles = p.tiles, items = p.items;
+  const int H = p.heads, dh = p.dh, n = p.n, n_valid = p.n_valid, tiles = p.tiles,
+            items = p.items;
   const float scale = p.scale, c = p.scale_log2, keep = p.keep, rk = __frcp_rn(keep);
   const uint8_t* const mask_g = p.mask;
   const bool mask_bulk = DROP && p.mask_bulk != 0;
@@ -155,8 +164,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int b = item / H, h = item % H;
     for (int i = 0; i < tiles; ++i)
       for (int cc = 0; cc < S; ++cc) {
-        hw::tma_load4(sm.qd[q][0][i][cc], &p.qkv, bar, 0, S * h + cc, 64 * i, b);
-        hw::tma_load4(sm.qd[q][1][i][cc], &p.da, bar, 0, S * h + cc, 64 * i, b);
+        hw::tma_load4(sm.qd[q][0][i][cc], &p.qkv, bar, 64 * cc, h, 64 * i, b);
+        hw::tma_load4(sm.qd[q][1][i][cc], &p.da, bar, 64 * cc, h, 64 * i, b);
       }
     if (mask_bulk)
       hw::bulk_load(sm.mask[q], mask_g + static_cast<size_t>(item) * n * n, mask_bytes, bar);
@@ -165,10 +174,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int b = item / H, h = item % H;
     for (int i = 0; i < tiles; ++i)
       for (int cc = 0; cc < S; ++cc) {
-        hw::tma_load4(sm.kv[slot][0][i][cc], &p.qkv, &sm.kv_full[slot], 0, S * (H + h) + cc,
+        hw::tma_load4(sm.kv[slot][0][i][cc], &p.qkv, &sm.kv_full[slot], 64 * cc, H + h,
                       64 * i, b);
-        hw::tma_load4(sm.kv[slot][1][i][cc], &p.qkv, &sm.kv_full[slot], 0,
-                      S * (2 * H + h) + cc, 64 * i, b);
+        hw::tma_load4(sm.kv[slot][1][i][cc], &p.qkv, &sm.kv_full[slot], 64 * cc, 2 * H + h,
+                      64 * i, b);
       }
   };
   if (tid == 0 && blockIdx.x < items) {
@@ -187,16 +196,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int b = item / H, h = item % H;
     const int slot = it & 1, qs = C::kQdSlots == 2 ? slot : 0;
     // Pass 0's row (a part of it at one tile) of att and its lse, read
-    // before the wait for the buffers.
+    // before the wait for the buffers; a ragged head's chunks past Dh are
+    // zero (its dA columns there are zero too).
     const int prow = tid / C::kRowSplit, ppart = tid % C::kRowSplit;
     uint4 att_row[C::kRowChunks];
     float lse_row = 0.f;
     if (prow < n) {
       const uint4* src = reinterpret_cast<const uint4*>(
-          p.att + ((static_cast<size_t>(b) * n + prow) * H + h) * 64 * S) +
-          ppart * C::kRowChunks;
+          p.att + (static_cast<size_t>(b) * n + prow) * H * dh + static_cast<size_t>(h) * dh);
 #pragma unroll
-      for (int k = 0; k < C::kRowChunks; ++k) att_row[k] = src[k];
+      for (int k = 0; k < C::kRowChunks; ++k) {
+        const int kc = ppart * C::kRowChunks + k;
+        att_row[k] = 8 * kc < dh ? src[kc] : make_uint4(0u, 0u, 0u, 0u);
+      }
       lse_row = p.lse[(static_cast<size_t>(b) * H + h) * n + prow];
     }
     // Every thread is done with the previous item (its buffers, lse and
@@ -259,9 +271,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     const uint8_t* const mk = sm.mask[qs];
     // Round a warpgroup's 64 x 64 accumulator into its staging tile and
-    // store it as rows row0.. of sub-head `sub`.
+    // store it as rows row0.. of head `head`'s sub-head cc (clipped at Dh).
     unsigned char* st = sm.out[wg];
-    auto store = [&](const float (&acc)[32], int sub, int row0) {
+    auto store = [&](const float (&acc)[32], int head, int cc, int row0) {
       if (t == 0) hw::bulk_wait_read<0>();
       hw::named_sync(2 + wg, 128);
 #pragma unroll
@@ -273,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       hw::fence_async_shared();
       hw::named_sync(2 + wg, 128);
       if (t == 0) {
-        hw::tma_store4(&p.out, st, 0, sub, row0, b);
+        hw::tma_store4(&p.out, st, 64 * cc, head, row0, b);
         hw::bulk_commit();
       }
     };
@@ -364,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         hw::fence_frags(fa);
       }
 #pragma unroll
-      for (int cc = 0; cc < S; ++cc) store(dq[cc], S * h + cc, 64 * i);
+      for (int cc = 0; cc < S; ++cc) store(dq[cc], h, cc, 64 * i);
     };
 
     // pn^T (or bf16(pdf)^T) into fa and ds^T into fb from the transposed
@@ -428,8 +440,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           hw::fence_frags(fa);
           hw::fence_frags(fb);
         }
-        store(dk, H + h, 64 * j);
-        store(dv, 2 * H + h, 64 * j);
+        store(dk, H + h, 0, 64 * j);
+        store(dv, 2 * H + h, 0, 64 * j);
       } else {  // one tile (i = j = 0): the A operands once, then dv and dk by chunk
         unsigned char(*qt)[kBox] = sm.qd[qs][0][0];
         unsigned char(*dat)[kBox] = sm.qd[qs][1][0];
@@ -451,7 +463,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           hw::wgmma_commit();
           hw::wgmma_wait<0>();
           hw::fence_regs(acc);
-          store(acc, S * ((is_v ? 2 * H : H) + h) + cc, 0);
+          store(acc, (is_v ? 2 * H : H) + h, cc, 0);
         }
       }
     };
@@ -478,6 +490,39 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The longest sequence an instance takes at c sub-heads, with the mask
+// or without (the Python ATTENTION_BWD_SM90_LIMITS): one 64-row tile from
+// C = 2; none at C = 4 (two items' tiles need 256 KB).
+constexpr int max_n(int c, bool drop) {
+  return c == 1 ? (drop ? kMaxN64Drop : kMaxN64) : c < 4 ? kMaxN192 : 0;
+}
+
+// The instances by form number (sfc_attention_bwd_sm90_attrs), f(S, DROP,
+// MAXT) as integral constants; false where there is none.
+template <typename F>
+bool with_form(int form, F&& f) {
+  using std::integral_constant;
+  using T = std::true_type;
+  using N = std::false_type;
+  using I1 = integral_constant<int, 1>;
+  switch (form) {
+    case 0: f(I1{}, N{}, integral_constant<int, 4>{}); return true;
+    case 1: f(I1{}, T{}, I1{}); return true;
+    case 2: f(I1{}, T{}, integral_constant<int, 3>{}); return true;
+    case 3: f(integral_constant<int, 3>{}, N{}, I1{}); return true;
+    case 4: f(integral_constant<int, 3>{}, T{}, I1{}); return true;
+    case 5: f(integral_constant<int, 2>{}, N{}, I1{}); return true;
+    case 6: f(integral_constant<int, 2>{}, T{}, I1{}); return true;
+    default: return false;
+  }
+}
+
+// The form for c sub-heads, the mask and n tokens (n within max_n).
+int form_of(int c, bool drop, int n) {
+  if (c == 1) return !drop ? 0 : n <= 64 ? 1 : 2;
+  return c == 3 ? (drop ? 4 : 3) : (drop ? 6 : 5);
+}
+
 }  // namespace
 
 // qkv bf16 [batch, n, 3*heads*dh], att and datt bf16 [batch, n, heads*dh],
@@ -485,27 +530,23 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // (no dropout; keep in (0, 1] with a mask), all contiguous and on 16
 // bytes; dqkv bf16 [batch, n, 3*heads*dh] receives dq, dk and dv (every
 // element is written).  Keys at or past n_valid (1 <= n_valid <= n) are
-// masked.  dh 64: 1 <= n <= 256 without a mask, <= 192 with one; dh 192:
-// 1 <= n <= 64.
+// masked.  dh a multiple of 16: up to 64, 1 <= n <= 256 without a mask,
+// <= 192 with one; 80 to 192, 1 <= n <= 64.
 extern "C" int sfc_attention_bwd_sm90_bf16(const void* qkv, const void* att, const void* datt,
                                            const void* lse, const void* mask, void* dqkv,
                                            int batch, int n, int heads, int dh, int n_valid,
                                            float scale, float keep, void* stream) {
   const bool drop = mask != nullptr;
-  const int limit = dh == 64 ? (drop ? kMaxN64Drop : kMaxN64) : dh == 192 ? kMaxN192 : 0;
-  if (n < 1 || n > limit || heads < 1 || n_valid < 1 || n_valid > n || batch < 0 ||
-      (drop && !(keep > 0.f)))
+  const int c = hw::subheads(dh);
+  if (!hw::head_dim_ok(dh) || n < 1 || n > max_n(c, drop) || heads < 1 || n_valid < 1 ||
+      n_valid > n || batch < 0 || (drop && !(keep > 0.f)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  const int subs = dh / 64;
   const long long row = 3LL * heads * dh, inner = static_cast<long long>(heads) * dh;
   Params p{};
-  cudaError_t e =
-      hw::map_bnhd(&p.qkv, qkv, batch, n, 3 * heads * subs, row * n, row, 64, 64);
-  if (e == cudaSuccess)
-    e = hw::map_bnhd(&p.da, datt, batch, n, heads * subs, inner * n, inner, 64, 64);
-  if (e == cudaSuccess)
-    e = hw::map_bnhd(&p.out, dqkv, batch, n, 3 * heads * subs, row * n, row, 64, 64);
+  cudaError_t e = hw::map_heads(&p.qkv, qkv, false, batch, n, 3 * heads, dh, row, 64);
+  if (e == cudaSuccess) e = hw::map_heads(&p.da, datt, false, batch, n, heads, dh, inner, 64);
+  if (e == cudaSuccess) e = hw::map_heads(&p.out, dqkv, false, batch, n, 3 * heads, dh, row, 64);
   if (e != cudaSuccess) return static_cast<int>(e);
   p.att = static_cast<const bf16*>(att);
   p.lse = static_cast<const float*>(lse);
@@ -513,6 +554,7 @@ extern "C" int sfc_attention_bwd_sm90_bf16(const void* qkv, const void* att, con
   p.mask_bulk = drop && (n * n) % 16 == 0;  // each item's mask on 16 bytes
   p.n = n;
   p.heads = heads;
+  p.dh = dh;
   p.n_valid = n_valid;
   p.tiles = (n + 63) / 64;
   p.items = batch * heads;
@@ -520,23 +562,23 @@ extern "C" int sfc_attention_bwd_sm90_bf16(const void* qkv, const void* att, con
   p.scale_log2 = scale * kLog2e;
   p.keep = drop ? keep : 1.f;
   auto s = static_cast<cudaStream_t>(stream);
-  if (subs == 1 && !drop) e = launch<1, false, 4>(p, s);
-  else if (subs == 1) e = n <= 64 ? launch<1, true, 1>(p, s) : launch<1, true, 3>(p, s);
-  else if (!drop) e = launch<3, false, 1>(p, s);
-  else e = launch<3, true, 1>(p, s);
+  e = cudaErrorInvalidValue;
+  with_form(form_of(c, drop, n), [&](auto S, auto D, auto T) {
+    e = launch<decltype(S)::value, decltype(D)::value, decltype(T)::value>(p, s);
+  });
   return static_cast<int>(e);
 }
 
 // Registers, local bytes and shared bytes of instance `form` into out[3]:
 // 0 head dim 64 without dropout (#4), 1 and 2 head dim 64 with the mask at
-// one tile and up to three, 3 and 4 head dim 192 without and with it.
+// one tile and up to three, 3 and 4 head dim 192 without and with it, 5
+// and 6 head dim 128 (two sub-heads) without and with it.
 extern "C" int sfc_attention_bwd_sm90_attrs(int form, int* out) {
-  switch (form) {
-    case 0: return hw::kernel_attrs(attention_bwd_sm90<1, false, 4>, kSmemBytes<1, false, 4>, out);
-    case 1: return hw::kernel_attrs(attention_bwd_sm90<1, true, 1>, kSmemBytes<1, true, 1>, out);
-    case 2: return hw::kernel_attrs(attention_bwd_sm90<1, true, 3>, kSmemBytes<1, true, 3>, out);
-    case 3: return hw::kernel_attrs(attention_bwd_sm90<3, false, 1>, kSmemBytes<3, false, 1>, out);
-    case 4: return hw::kernel_attrs(attention_bwd_sm90<3, true, 1>, kSmemBytes<3, true, 1>, out);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  with_form(form, [&](auto S, auto D, auto T) {
+    constexpr int s = decltype(S)::value, t = decltype(T)::value;
+    constexpr bool d = decltype(D)::value;
+    err = hw::kernel_attrs(attention_bwd_sm90<s, d, t>, kSmemBytes<s, d, t>, out);
+  });
+  return err;
 }

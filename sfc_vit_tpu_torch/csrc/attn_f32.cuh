@@ -8,8 +8,9 @@
 //
 // A sub-block is 64 rows x 64 fp32 columns of one (image, head): a 64-row
 // tile of a 64-column sub-head (the head at Dh 64, a third of it at Dh
-// 192), landed by two boxes of map_packed_f32 as two 128-byte-swizzled
-// [64 rows][32] halves 8 KB apart.  Rows past n land as zero.  In that
+// 192, columns past a ragged head's Dh zero), landed by two boxes of
+// map_heads as two 128-byte-swizzled [64 rows][32] halves 8 KB apart.
+// Rows past n land as zero.  In that
 // layout a sub-block is
 //  * an A operand read from shared memory into registers (a_frag): thread
 //    t's k8 step kk is rows r0, r0 + 8 at columns 8 kk + t % 4 and + 4, and
@@ -89,16 +90,16 @@ __device__ __forceinline__ void wait_entry(Smem<NS>& sm, int e) {
   hw::bar_wait(&sm.full[e % R], (e / R) & 1);
 }
 
-// TMA: the sub-block of map_packed_f32 `map` at 64-column sub-head `sub`
-// (boxes 2 sub, 2 sub + 1), rows row .. row + 63 of image b, into ring
-// slot `slot`.
+// TMA: the sub-block of an fp32 map_heads `map` at head `head`, 64-column
+// sub-head c (the boxes at columns 64 c and 64 c + 32; zeros past the
+// head's dh), rows row .. row + 63 of image b, into ring slot `slot`.
 template <int NS>
-__device__ __forceinline__ void load_sub(Smem<NS>& sm, int slot, const CUtensorMap* map, int sub,
-                                         int row, int b) {
+__device__ __forceinline__ void load_sub(Smem<NS>& sm, int slot, const CUtensorMap* map, int head,
+                                         int c, int row, int b) {
   uint64_t* bar = &sm.full[slot];
   hw::bar_expect_tx(bar, kSub);
-  hw::tma_load4(sm.ring[slot], map, bar, 0, 2 * sub, row, b);
-  hw::tma_load4(sm.ring[slot] + kHalf, map, bar, 0, 2 * sub + 1, row, b);
+  hw::tma_load4(sm.ring[slot], map, bar, 64 * c, head, row, b);
+  hw::tma_load4(sm.ring[slot] + kHalf, map, bar, 64 * c + 32, head, row, b);
 }
 
 // This thread's A values of k8 step kk from a sub-block in shared memory,
@@ -214,7 +215,7 @@ __device__ __forceinline__ void mma3(float (&acc)[N / 2], uint64_t db, uint64_t 
                                      uint32_t (&big)[2][4], uint32_t (&small)[2][4],
                                      int accumulate) {
   static_assert(N == 64 || N == 8, "an m64n64 or m64n8 product");
-  sfc::static_for<STEPS>([&](auto K) {
+  sfc::static_for<STEPS>([&](auto K) SFC_INLINE_LAMBDA {
     constexpr int kk = decltype(K)::value, f = kk % 2, off = step_off(kk);
     hw::wgmma_wait<1>();
     hw::fence_regs(acc);

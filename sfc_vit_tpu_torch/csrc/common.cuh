@@ -41,6 +41,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// A device lambda the compiler must inline, as __forceinline__ makes a
+// function: a kernel that calls one lambda many times (an fp32 attention
+// at four sub-heads) otherwise gets it as a real call, its register arrays
+// then passed through a stack frame in local memory.
+#define SFC_INLINE_LAMBDA __attribute__((always_inline))
+
 // f(std::integral_constant<int, i>{}) for i = 0 .. N - 1: a loop whose
 // index is a compile-time constant in the body (a template argument).
 template <typename F, int... I>

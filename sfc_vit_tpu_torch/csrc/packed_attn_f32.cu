@@ -28,16 +28,20 @@
 //
 // Design: a block is one warpgroup (128 threads) and owns 64 queries of
 // one (image, head); two blocks an SM.  Thread 0 keeps a ring of four
-// 64 x 64 sub-blocks in flight by TMA (map_packed_f32 over the packed
-// projection; Dh 192 is three 64-column sub-heads), refilling each slot
+// 64 x 64 sub-blocks in flight by TMA (sm90.cuh::map_heads over the packed
+// projection's 3 H heads; a head is C = ceil(Dh / 64) 64-column sub-heads,
+// Dh 192 three, and a ragged head's columns past Dh load as zeros, which
+// add exact zeros to every product: 3xTF32 splits a zero into zeros),
+// refilling each slot
 // after the barrier that follows its last use.  For each key tile and
 // sub-head the ring brings Q's sub-block (the A operand, read into
 // registers and split a k8 step at a time) and K's (split elementwise
 // into the big and small K-major B tiles), and S += Q K^T runs as m64n64
 // wgmma (m64n8 for the last 8 of ViT-B's 196 keys, held as 200 columns).
-//  * One pass where the whole row of logits fits the accumulators: 64,
-//    128, 192, 200 and 256 keys at Dh 64, 64 at Dh 192 (the narrowest
-//    instance that covers n_valid).  S is computed once; the exact row max
+//  * One pass where the whole row of logits fits the accumulators beside
+//    O's 32 C registers (sm90.cuh::one_pass_nk, as packed_attn_sm90.cu):
+//    64, 128, 192, 200 and 256 keys at C = 1, to 192 at C = 2, 64 at C =
+//    3 and 4 (the narrowest instance that covers n_valid).  S is computed once; the exact row max
 //    and sum meet over each row's quad of threads; P = p / l (and the
 //    mask) in registers; then for each key tile and sub-head the ring
 //    brings V's sub-block, the threads write V^T's big and small parts
@@ -52,7 +56,7 @@
 // slot where N % 16 != 0) into one slot, each tile issued once the last
 // P V has passed its barrier, and divides P by keep tile by tile just
 // before P V.  O goes out once, 8-byte stores of the accumulators, rows at
-// or past n not written; lse for the rows below n.
+// or past n and columns past Dh not written; lse for the rows below n.
 
 #include <type_traits>
 
@@ -68,12 +72,12 @@ constexpr int kStages = 4;  // ring slots (sub-blocks)
 constexpr int kMaxN = 1024;
 
 struct Params {
-  CUtensorMap qkv;   // map_packed_f32 over qkv [B, n, 3 H Dh], 64-row boxes
+  CUtensorMap qkv;   // map_heads over qkv [B, n, 3 H Dh] (3 H heads), 64-row boxes
   CUtensorMap mask_map;  // the mask's [B H n, n] rows, where mask_tma
   float* out;        // [B, n, H Dh]
   float* lse;        // [B, H, n] or null
   const uint8_t* mask;  // [B, H, n, n] 0/1, or null
-  int heads, n, n_valid, q_tiles, k_tiles, mask_tma;
+  int heads, dh, n, n_valid, q_tiles, k_tiles, mask_tma;
   float scale, keep;
 };
 
@@ -104,12 +108,12 @@ __device__ __forceinline__ void entry_of(int e, int k_tiles, int& which, int& c,
   }
 }
 
-// NK: the key columns the one-pass form holds (64, 128, 192, 200, 256), 0
-// for two passes.  MASK: the dropout mask and keep.
-template <int DH, int NK, bool MASK>
+// C: 64-column sub-heads a head (ceil(Dh / 64)).  NK: the key columns
+// the one-pass form holds (64, 128, 192, 200, 256), 0 for two passes.
+// MASK: the dropout mask and keep.
+template <int C, int NK, bool MASK>
 __global__ void __launch_bounds__(af::kThreads, 2)
     packed_attn_f32_sm90(const __grid_constant__ Params p) {
-  constexpr int C = DH / 64;              // 64-column sub-heads
   constexpr int KT = (NK + BM - 1) / BM;  // one-pass key tiles; 0: two passes
   constexpr bool kTail = NK % BM != 0;    // 200: three tiles and 8 columns of a fourth
   constexpr int KF = kTail ? KT - 1 : (KT > 0 ? KT : 1);  // whole 64-key tiles of logits held
@@ -132,16 +136,16 @@ __global__ void __launch_bounds__(af::kThreads, 2)
   // Thread 0 issues the ring's entries in order; `upto`: every entry
   // before it may take a slot (the slot's last entry is consumed).
   int issued = 0;
-  auto feed = [&](int upto) {
+  auto feed = [&](int upto) SFC_INLINE_LAMBDA {
     for (; issued < upto && issued < entries; ++issued) {
       int which, c, t;
       entry_of<C, KT>(issued, k_tiles, which, c, t);
-      af::load_sub(sm, issued % kStages, &p.qkv, (which * heads + h) * C + c,
+      af::load_sub(sm, issued % kStages, &p.qkv, which * heads + h, c,
                    which == 0 ? q0 : t * BM, b);
     }
   };
   // The mask's tile of key tile t into its slot by TMA (thread 0).
-  auto issue_mask = [&](int t) {
+  auto issue_mask = [&](int t) SFC_INLINE_LAMBDA {
     hw::bar_expect_tx(&sm.mask_full, BM * BM);
     hw::tma_load2(sm.mask, &p.mask_map, &sm.mask_full, t * BM, bh * n + q0);
   };
@@ -157,28 +161,33 @@ __global__ void __launch_bounds__(af::kThreads, 2)
   // Entry eb (a B operand, K or V) split into the pair, plainly or
   // transposed: the pair's last product is done first; after the barrier
   // the slots of the entries before `used` are free.
-  auto take_b = [&](int eb, int used, bool transposed) {
+  auto take_b = [&](int eb, int used, bool transposed) SFC_INLINE_LAMBDA {
     af::split_entry(sm, eb, transposed);
     if (tid == 0) feed(used + kStages);
   };
   // acc (+)= Q_c K_t,c^T (N columns) for the next pair of entries, Q then
   // K; Q's slot is read a k8 step at a time under the products.
-  auto logits = [&](auto& acc, auto N, int accumulate) {
+  auto logits = [&](auto& acc, auto N, int accumulate) SFC_INLINE_LAMBDA {
     af::wait_entry(sm, e);
     take_b(e + 1, e, false);
     const unsigned char* qs = sm.ring[e % kStages];
     af::mma3<decltype(N)::value, 8>(
         acc, db, dsm,
-        [&](auto kk, float (&v)[4]) { af::a_frag(qs, decltype(kk)::value, v); }, fb,
-        fs, accumulate);
+        [&](auto kk, float (&v)[4]) SFC_INLINE_LAMBDA {
+          af::a_frag(qs, decltype(kk)::value, v);
+        },
+        fb, fs, accumulate);
     e += 2;
   };
   // oc (+)= P V_t,c for the next entry (V) over STEPS k8 steps, P's key
   // group `step` in the logits registers pt (the key permutation).
-  auto pv = [&](auto& oc, const auto& pt, auto STEPS, int accumulate) {
+  auto pv = [&](auto& oc, const auto& pt, auto STEPS, int accumulate) SFC_INLINE_LAMBDA {
     take_b(e, e + 1, true);
     af::mma3<64, decltype(STEPS)::value>(
-        oc, db, dsm, [&](auto kk, float (&v)[4]) { af::a_perm(pt, decltype(kk)::value, v); },
+        oc, db, dsm,
+        [&](auto kk, float (&v)[4]) SFC_INLINE_LAMBDA {
+          af::a_perm(pt, decltype(kk)::value, v);
+        },
         fb, fs, accumulate);
     ++e;
   };
@@ -188,7 +197,7 @@ __global__ void __launch_bounds__(af::kThreads, 2)
   // has no TMA box, zero past n), then, once the P V that follows has
   // passed its barrier, the slot handed to key tile t_next (< 0: none).
   int ml = 0;
-  auto dropout = [&](float (&pt)[32], int t) {
+  auto dropout = [&](float (&pt)[32], int t) SFC_INLINE_LAMBDA {
     if (p.mask_tma) {
       hw::bar_wait(&sm.mask_full, ml & 1);
     } else {
@@ -208,37 +217,40 @@ __global__ void __launch_bounds__(af::kThreads, 2)
       pt[i] = kept ? sfc::div_rn(pt[i], keep, rkeep) : 0.f;
     }
   };
-  auto mask_next = [&](int t_next) {
+  auto mask_next = [&](int t_next) SFC_INLINE_LAMBDA {
     ++ml;
     if (tid == 0 && p.mask_tma && t_next >= 0) issue_mask(t_next);
   };
-  auto quad_max = [](float v) {
+  auto quad_max = [](float v) SFC_INLINE_LAMBDA {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
     return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
   };
-  auto quad_sum = [](float v) {
+  auto quad_sum = [](float v) SFC_INLINE_LAMBDA {
     v += __shfl_xor_sync(0xffffffffu, v, 1);
     return v + __shfl_xor_sync(0xffffffffu, v, 2);
   };
 
   float m[2], l[2], rl[2];
-  // O's 64-column sub-head c, rows r0 and r0 + 8 (rows at or past n not
-  // written); after the lse, which the first rows' m and l give.
-  const size_t ow = static_cast<size_t>(heads) * DH;
-  auto store_o = [&](const float (&oc)[32], int c) {
+  // O's 64-column sub-head c, rows r0 and r0 + 8 (rows at or past n and
+  // columns past Dh not written); after the lse, which the first rows' m
+  // and l give.
+  const int dh = p.dh;
+  const size_t ow = static_cast<size_t>(heads) * dh;
+  auto store_o = [&](const float (&oc)[32], int c) SFC_INLINE_LAMBDA {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int row = q0 + r0 + 8 * hf;
       if (row >= n) continue;
       float* dst = p.out + (static_cast<size_t>(b) * n + row) * ow +
-                   static_cast<size_t>(h) * DH + 64 * c + c0;
+                   static_cast<size_t>(h) * dh + 64 * c + c0;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<float2*>(dst + 8 * j) =
-            make_float2(oc[4 * j + 2 * hf], oc[4 * j + 2 * hf + 1]);
+        if (64 * c + 8 * j + c0 < dh)
+          *reinterpret_cast<float2*>(dst + 8 * j) =
+              make_float2(oc[4 * j + 2 * hf], oc[4 * j + 2 * hf + 1]);
     }
   };
-  auto store_lse = [&]() {
+  auto store_lse = [&]() SFC_INLINE_LAMBDA {
     if (p.lse != nullptr && tq == 0) {
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
@@ -251,13 +263,13 @@ __global__ void __launch_bounds__(af::kThreads, 2)
   if constexpr (KT > 0) {
     // One pass: the whole row's logits, tile t in s[t] (and the tail).
     float s[KF][32], tail[4], o[C][32];
-    sfc::static_for<KF>([&](auto T) {
-      sfc::static_for<C>([&](auto Cc) {
+    sfc::static_for<KF>([&](auto T) SFC_INLINE_LAMBDA {
+      sfc::static_for<C>([&](auto Cc) SFC_INLINE_LAMBDA {
         logits(s[decltype(T)::value], std::integral_constant<int, 64>{}, decltype(Cc)::value > 0);
       });
     });
     if constexpr (kTail)
-      sfc::static_for<C>([&](auto Cc) {
+      sfc::static_for<C>([&](auto Cc) SFC_INLINE_LAMBDA {
         logits(tail, std::integral_constant<int, 8>{}, decltype(Cc)::value > 0);
       });
     hw::wgmma_wait<0>();
@@ -265,7 +277,7 @@ __global__ void __launch_bounds__(af::kThreads, 2)
     for (int t = 0; t < KF; ++t) hw::fence_regs(s[t]);
     if constexpr (kTail) hw::fence_regs(tail);
     // Scaled, keys at or past n_valid excluded; the exact row max and sum.
-    auto each = [&](auto&& f) {
+    auto each = [&](auto&& f) SFC_INLINE_LAMBDA {
 #pragma unroll
       for (int t = 0; t < KF; ++t)
 #pragma unroll
@@ -275,14 +287,14 @@ __global__ void __launch_bounds__(af::kThreads, 2)
         for (int i = 0; i < 4; ++i) f(tail[i], (i / 2) % 2, 64 * KF + c0 + (i % 2));
     };
     m[0] = m[1] = sfc::kNegInf;
-    each([&](float& x, int hf, int key) {
+    each([&](float& x, int hf, int key) SFC_INLINE_LAMBDA {
       x = key < n_valid ? __fmul_rn(x, scale) : sfc::kNegInf;
       m[hf] = fmaxf(m[hf], x);
     });
     l[0] = l[1] = 0.f;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) m[hf] = quad_max(m[hf]);
-    each([&](float& x, int hf, int) {
+    each([&](float& x, int hf, int) SFC_INLINE_LAMBDA {
       x = expf(__fsub_rn(x, m[hf]));
       l[hf] += x;
     });
@@ -291,19 +303,19 @@ __global__ void __launch_bounds__(af::kThreads, 2)
       l[hf] = quad_sum(l[hf]);
       rl[hf] = __frcp_rn(l[hf]);
     }
-    each([&](float& x, int hf, int) { x = sfc::div_rn(x, l[hf], rl[hf]); });
+    each([&](float& x, int hf, int) SFC_INLINE_LAMBDA { x = sfc::div_rn(x, l[hf], rl[hf]); });
     store_lse();
     // O = P V over the key tiles, P as the A operand from the registers.
-    sfc::static_for<KF>([&](auto T) {
+    sfc::static_for<KF>([&](auto T) SFC_INLINE_LAMBDA {
       constexpr int t = decltype(T)::value;
       if constexpr (MASK) dropout(s[t], t);
-      sfc::static_for<C>([&](auto Cc) {
+      sfc::static_for<C>([&](auto Cc) SFC_INLINE_LAMBDA {
         pv(o[decltype(Cc)::value], s[t], std::integral_constant<int, 8>{}, t > 0);
       });
       if constexpr (MASK) mask_next(t + 1 < KF ? t + 1 : -1);
     });
     if constexpr (kTail)
-      sfc::static_for<C>([&](auto Cc) {
+      sfc::static_for<C>([&](auto Cc) SFC_INLINE_LAMBDA {
         pv(o[decltype(Cc)::value], tail, std::integral_constant<int, 1>{}, 1);
       });
     hw::wgmma_wait<0>();
@@ -317,8 +329,8 @@ __global__ void __launch_bounds__(af::kThreads, 2)
     // sub-heads (its logits recomputed for each), so only one sub-head's
     // accumulators are held.
     float s[32], o[32];
-    auto tile_logits = [&](int t) {
-      sfc::static_for<C>([&](auto Cc) {
+    auto tile_logits = [&](int t) SFC_INLINE_LAMBDA {
+      sfc::static_for<C>([&](auto Cc) SFC_INLINE_LAMBDA {
         logits(s, std::integral_constant<int, 64>{}, decltype(Cc)::value > 0);
       });
       af::drain(s);
@@ -368,9 +380,9 @@ __global__ void __launch_bounds__(af::kThreads, 2)
   }
 }
 
-template <int DH, int NK, bool MASK>
+template <int C, int NK, bool MASK>
 cudaError_t launch(const Params& p, int items, cudaStream_t stream) {
-  auto kernel = packed_attn_f32_sm90<DH, NK, MASK>;
+  auto kernel = packed_attn_f32_sm90<C, NK, MASK>;
   constexpr int smem = af::kSmemBytes<kStages>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -379,62 +391,16 @@ cudaError_t launch(const Params& p, int items, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int DH, int NK, bool MASK>
-int attrs(int* out) {
-  return hw::kernel_attrs(packed_attn_f32_sm90<DH, NK, MASK>, af::kSmemBytes<kStages>, out);
-}
-
-// The instance of head dim dh holding nk key columns in one pass (0: two
-// passes), by its template arguments; false where there is none.  The
-// masked forms stop at 192 keys (Dh 64), as packed_attn_sm90.cu's do (the
-// masked 256-key form spilled).
-template <bool MASK, typename F>
-bool with_instance(int dh, int nk, F&& f) {
-  using I64 = std::integral_constant<int, 64>;
-  if (dh == 64) {
-    switch (nk) {
-      case 0: f(I64{}, std::integral_constant<int, 0>{}); return true;
-      case 64: f(I64{}, std::integral_constant<int, 64>{}); return true;
-      case 128: f(I64{}, std::integral_constant<int, 128>{}); return true;
-      case 192: f(I64{}, std::integral_constant<int, 192>{}); return true;
-      default: break;
-    }
-    if constexpr (!MASK) {
-      if (nk == 200) return f(I64{}, std::integral_constant<int, 200>{}), true;
-      if (nk == 256) return f(I64{}, std::integral_constant<int, 256>{}), true;
-    }
-    return false;
-  }
-  if (dh == 192) {
-    if (nk == 0) f(std::integral_constant<int, 192>{}, std::integral_constant<int, 0>{});
-    else if (nk == 64) f(std::integral_constant<int, 192>{}, I64{});
-    else return false;
-    return true;
-  }
-  return false;
-}
-
-// The one-pass width for n_valid keys at head dim dh (0: two passes):
-// the narrowest of 64, 128, 192, 200, 256 at Dh 64 (64, 128, 192 with the
-// mask) and 64 at Dh 192 that covers n_valid (the Python
-// attention_fwd_f32_columns).
-int one_pass_nk(int dh, int n_valid, bool masked) {
-  const int tiles = (n_valid + BM - 1) / BM;
-  if (dh == 192) return tiles == 1 ? 64 : 0;
-  if (masked) return tiles <= 3 ? 64 * tiles : 0;
-  if (tiles == 4 && n_valid <= 200) return 200;
-  return tiles <= 4 ? 64 * tiles : 0;
-}
-
 cudaError_t run(const void* qkv, void* out, void* lse, const void* mask, int batch, int n,
                 int heads, int dh, int n_valid, float scale, float keep, int nk, void* stream) {
   if (batch < 0 || n < 1 || n > kMaxN || heads < 1 || n_valid < 1 || n_valid > n ||
-      (dh != 64 && dh != 192) || (mask != nullptr && !(keep > 0.f && keep <= 1.f)) ||
+      !hw::head_dim_ok(dh) || (mask != nullptr && !(keep > 0.f && keep <= 1.f)) ||
       (nk > 0 && nk < n_valid))
     return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
   Params p{};
-  cudaError_t e = hw::map_packed_f32(&p.qkv, qkv, batch, n, 3 * heads * dh, BM);
+  cudaError_t e =
+      hw::map_heads(&p.qkv, qkv, true, batch, n, 3 * heads, dh, 3LL * heads * dh, BM);
   if (e != cudaSuccess) return e;
   p.out = static_cast<float*>(out);
   p.lse = static_cast<float*>(lse);
@@ -447,6 +413,7 @@ cudaError_t run(const void* qkv, void* out, void* lse, const void* mask, int bat
     if (e != cudaSuccess) return e;
   }
   p.heads = heads;
+  p.dh = dh;
   p.n = n;
   p.n_valid = n_valid;
   p.q_tiles = (n + BM - 1) / BM;
@@ -457,12 +424,12 @@ cudaError_t run(const void* qkv, void* out, void* lse, const void* mask, int bat
   auto s = static_cast<cudaStream_t>(stream);
   e = cudaErrorInvalidValue;
   if (mask != nullptr)
-    with_instance<true>(dh, nk, [&](auto D, auto K) {
-      e = launch<decltype(D)::value, decltype(K)::value, true>(p, items, s);
+    hw::with_packed_instance<true>(hw::subheads(dh), nk, [&](auto C, auto K) {
+      e = launch<decltype(C)::value, decltype(K)::value, true>(p, items, s);
     });
   else
-    with_instance<false>(dh, nk, [&](auto D, auto K) {
-      e = launch<decltype(D)::value, decltype(K)::value, false>(p, items, s);
+    hw::with_packed_instance<false>(hw::subheads(dh), nk, [&](auto C, auto K) {
+      e = launch<decltype(C)::value, decltype(K)::value, false>(p, items, s);
     });
   return e;
 }
@@ -473,12 +440,13 @@ cudaError_t run(const void* qkv, void* out, void* lse, const void* mask, int bat
 // [batch, n, 3 * heads * dh], 16-byte aligned), keys at or past n_valid
 // excluded; lse (fp32 [batch, heads, n]) written when not null; mask
 // (uint8 0/1 [batch, heads, n, n]) with keep in (0, 1] applied when not
-// null.  dh 64 or 192, n <= 1,024.
+// null.  dh a multiple of 16 up to 256, n <= 1,024.
 extern "C" int sfc_packed_attention_f32(const void* qkv, void* out, void* lse,
                                         const void* mask, int batch, int n, int heads,
                                         int dh, int n_valid, float scale, float keep,
                                         void* stream) {
-  const int nk = n_valid >= 1 ? one_pass_nk(dh, n_valid, mask != nullptr) : 0;
+  const int nk =
+      n_valid >= 1 ? hw::one_pass_nk(hw::subheads(dh), n_valid, mask != nullptr) : 0;
   return static_cast<int>(
       run(qkv, out, lse, mask, batch, n, heads, dh, n_valid, scale, keep, nk, stream));
 }
@@ -494,18 +462,23 @@ extern "C" int sfc_packed_attention_f32_form(const void* qkv, void* out, void* l
       run(qkv, out, lse, mask, batch, n, heads, dh, n_valid, scale, keep, nk, stream));
 }
 
-// Registers, local bytes and shared bytes of the instance for dh (64 or
-// 192), nk one-pass key columns (64, 128, 192, 200 or 256 at dh 64, to
-// 192 masked; 64 at dh 192; 0: two passes), masked or not.
+// Registers, local bytes and shared bytes of the instance for dh (its
+// 64-column sub-heads: 64, 128, 192 and 256 name C = 1 to 4), nk one-pass
+// key columns (sm90.cuh::with_packed_instance's; 0: two passes), masked
+// or not.
 extern "C" int sfc_packed_attention_f32_attrs(int dh, int nk, int masked, int* out) {
   int err = static_cast<int>(cudaErrorInvalidValue);
+  if (!hw::head_dim_ok(dh)) return err;
+  auto get = [&](auto C, auto K, auto M) {
+    constexpr int c = decltype(C)::value, k = decltype(K)::value;
+    constexpr bool m = decltype(M)::value;
+    err = hw::kernel_attrs(packed_attn_f32_sm90<c, k, m>, af::kSmemBytes<kStages>, out);
+  };
   if (masked)
-    with_instance<true>(dh, nk, [&](auto D, auto K) {
-      err = attrs<decltype(D)::value, decltype(K)::value, true>(out);
-    });
+    hw::with_packed_instance<true>(hw::subheads(dh), nk,
+                                   [&](auto C, auto K) { get(C, K, std::true_type{}); });
   else
-    with_instance<false>(dh, nk, [&](auto D, auto K) {
-      err = attrs<decltype(D)::value, decltype(K)::value, false>(out);
-    });
+    hw::with_packed_instance<false>(hw::subheads(dh), nk,
+                                    [&](auto C, auto K) { get(C, K, std::false_type{}); });
   return err;
 }

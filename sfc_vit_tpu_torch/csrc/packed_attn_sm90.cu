@@ -5,7 +5,8 @@
 // H*Dh), and optionally lse[b, h, i] = the natural log-sum-exp of the
 // scaled logits of row i over the valid keys; with a 0/1 dropout mask
 // [B, H, N, N] (uint8) and keep, bf16((P / keep) * mask) takes the place
-// of bf16(P).  Head dims 64 and 192, N up to 1,024.
+// of bf16(P).  Every head dim Dh that is a multiple of 16 up to 256, N up
+// to 1,024.
 //
 // Replaces: sfc_vit_tpu/ops/flash_attention.py::_packed_kernel (lines
 // 907-940, called at :979; kernel #7, the family-A serving path), the
@@ -43,19 +44,24 @@
 // warpgroup (160 threads).
 //  * The producer's one thread keeps the next items' bytes in flight by
 //    TMA: the Q tile into a two-slot buffer, K and V tiles (64 keys x Dh)
-//    into a ring of slots, each 64-row tile as Dh / 64 boxes of map_bnhd
-//    over the packed projection (row stride 3*H*Dh, Dh 192 read as three
-//    64-column sub-heads), 128-byte swizzled; rows past n read as zero.
+//    into a ring of slots, each 64-row tile as C = ceil(Dh / 64) boxes of
+//    map_heads over the packed projection (3 H heads of Dh columns, Dh 192
+//    read as three 64-column sub-heads), 128-byte swizzled; rows past n
+//    read as zero, and so do a ragged head's columns past Dh (Dh 96 is two
+//    sub-heads, the second half zero; 32 and 48 one): zero columns add
+//    exact zeros to every logit and give zero output columns, which the
+//    store, clipped at Dh by the same map, never writes.
 //    With the mask, a 64 x 64 byte tile of it for each key tile, 64-byte
 //    swizzled, into a ring of its own (map_mask_u8 over the [B H N, N]
 //    rows; where N % 16 != 0 the rows are no TMA box and the consumers
 //    copy the tile with plain loads into the same slot).
 //  * The consumer warpgroup computes S = Q.K^T by wgmma from the swizzled
-//    tiles (Dh / 16 k16 steps; the accumulator in registers, each thread
+//    tiles (4 C k16 steps; the accumulator in registers, each thread
 //    two rows), then:
 //    - one pass where the whole row fits one warpgroup's accumulators
-//      (n_valid to 256 keys at Dh 64, to 64 at Dh 192; the Python
-//      PACKED_ONE_PASS_MAX_N; with the mask to 192 and 64,
+//      beside O's 32 C registers (sm90.cuh::one_pass_tiles, the Python
+//      PACKED_ONE_PASS_MAX_N: n_valid to 256 keys at C = 1, 192 at C = 2,
+//      64 at C = 3 and 4; with the mask 192, 128, 64 and 64,
 //      PACKED_ONE_PASS_MAX_N_MASKED): an instance for each width NK of the
 //      logits held, 64, 128, 192, 200 and 256 keys (the narrowest that
 //      covers n_valid; 200 for ViT-B's 196 holds 100 registers where 256
@@ -71,13 +77,15 @@
 //      P's NK / 4 registers are made; O = P.V by wgmma (Dh / 64 m64n64
 //      products a k16 step, V read through the transpose bit; a last half
 //      step's missing 8 keys are zero).  The ring holds the item's 2 KT
-//      tiles (KT = NK / 64 rounded up), at least 4, so the next item's K
-//      tiles load while this item's P.V runs.  One consumer warpgroup
+//      tiles (KT = NK / 64 rounded up), at least 4 (3 at C = 4), so the
+//      next item's K tiles load while this item's P.V runs.  One consumer warpgroup
 //      leaves the tensor cores idle during its exponentials, so the
 //      instances to 200 keys are compiled for two blocks an SM (ten warps:
 //      168 registers a thread; 163 used at 200 keys) and interleave; the
 //      256-key one needs 211 and runs one block an SM (at 168 it spilled
-//      112 bytes as four m64n64 products a step, 64 as one m64n256).  Each
+//      112 bytes as four m64n64 products a step, 64 as one m64n256); from
+//      C = 2 every instance runs one block an SM (O alone is 64 to 128
+//      registers, and a 16 to 32 KB tile leaves room for one).  Each
 //      k16 step's descriptors are formed inside the wgmma's asm block
 //      (sm90.cuh's *_at forms), so only the bases stay live.
 //    - two passes over the ring's 64-key tiles for longer rows (to 1,024;
@@ -89,16 +97,21 @@
 //  * lse, where asked for, by per-thread 4-byte stores (one lane of each
 //    row's quad): a row of N fp32 starts off 16 bytes when N % 4 != 0, so
 //    no TMA box (ROADMAP F2).
-//  * The epilogue rounds O to bf16 into a two-slot 128-byte-swizzled
-//    staging tile and writes it by TMA store (rows at or past n are not
-//    written), so the store overlaps the next item.
-// Shared memory: (2 Q + ring + 2 staging) x Dh x 128 bytes: 197,728 bytes
-// at Dh 192 (one block an SM), 66,656 at Dh 64 to 128 keys and in two
+//  * The epilogue rounds O to bf16 into a two-slot (one at C = 4)
+//    128-byte-swizzled staging tile and writes it by TMA store (rows at or
+//    past n, and columns past Dh, are not written), so the store overlaps
+//    the next item.
+// Shared memory: (2 Q + ring + 2 staging) x 64 C x 128 bytes: 197,728
+// bytes at C = 3 (one block an SM), 66,656 at C = 1 to 128 keys and in two
 // passes (three), 83,072 at 192 keys (two), 99,488 at 200 (two) and 256
-// (one); the masked forms add a 4 KB mask tile a slot of a ring of two
-// items' (or two second-pass tiles') tiles: 8 KB at 64 keys and in two
-// passes, 16 KB at 128, 24 KB at 192.  Every wgmma group is waited on at
-// once (fixed wait counts, no branch between a wgmma and its wait).
+// (one); at C = 2 132,192, 164,992 with the 192-key ring; at C = 4 (32 KB
+// a tile) 2 Q + 3 ring + 1 staging, 197,712; the masked forms add a 4 KB
+// mask tile a slot of a ring of two items' (or two second-pass tiles')
+// tiles: 8 KB at 64 keys and in two passes, 16 KB at 128, 24 KB at 192.
+// The K/V ring is laid out sub-head-major, so the one-pass forms' K tiles
+// of one sub-head are one contiguous wide operand at every C.  Every
+// wgmma group is waited on at once (fixed wait counts, no branch between a
+// wgmma and its wait).
 
 #include <type_traits>
 
@@ -111,9 +124,6 @@ namespace hw = sfc::sm90;
 
 constexpr int BM = 64;                  // queries an item, keys a tile
 constexpr int kMaxN = 1024;             // the Python PACKED_MAX_N
-constexpr int kMaxTiles64 = 4;          // one pass to 256 keys at Dh 64 ...
-constexpr int kMaxTiles192 = 1;         // ... and to 64 at Dh 192
-constexpr int kMaxTiles64Drop = 3;      // with the mask: to 192 keys at Dh 64
 constexpr int kConsumerThreads = 128;   // one warpgroup
 constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
 constexpr int kBox = 64 * 128;          // one 64-row x 64-column swizzled box, bytes
@@ -121,44 +131,53 @@ constexpr int kMaskTile = BM * BM;      // a 64-query x 64-key tile of the mask,
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// K/V ring slots of the instance with KT one-pass key tiles (0: two
-// passes): a one-pass item's 2 KT tiles, at least 4.
-__host__ __device__ constexpr int ring_slots(int kt) { return kt > 2 ? 2 * kt : 4; }
-static_assert(ring_slots(2) == 4 && ring_slots(4) == 8, "a one-pass item fills the ring");
+// K/V ring slots of the instance with C sub-heads and KT one-pass key
+// tiles (0: two passes): a one-pass item's 2 KT tiles, at least 4; three
+// at C = 4 (32 KB a slot; KT is 0 or 1 there).
+__host__ __device__ constexpr int ring_slots(int c, int kt) {
+  return c == 4 ? 3 : kt > 2 ? 2 * kt : 4;
+}
+static_assert(ring_slots(1, 2) == 4 && ring_slots(1, 4) == 8 && ring_slots(2, 3) == 6,
+              "a one-pass item fills the ring");
+// Output staging slots: two, so a store overlaps the next item; one at C = 4.
+__host__ __device__ constexpr int out_slots(int c) { return c == 4 ? 1 : 2; }
 // Mask ring slots: two one-pass items' KT tiles, or two second-pass tiles.
 __host__ __device__ constexpr int mask_slots(int kt) { return kt > 0 ? 2 * kt : 2; }
-// Blocks an SM the instance with NK one-pass key columns is compiled for:
-// three to 128 keys, two (168 registers a thread) to 200, one (255) at
-// 256; the masked form at 128 keys two (its mask ring leaves no room for
-// a third).
-__host__ __device__ constexpr int min_blocks(int dh, int nk, bool drop) {
-  return dh == 192 || nk == 256 ? 1 : nk >= 192 || (drop && nk == 128) ? 2 : 3;
+// Blocks an SM the instance with C sub-heads and NK one-pass key columns
+// is compiled for: at C = 1 three to 128 keys, two (168 registers a
+// thread) to 200, one (255) at 256; the masked form at 128 keys two (its
+// mask ring leaves no room for a third); one from C = 2.
+__host__ __device__ constexpr int min_blocks(int c, int nk, bool drop) {
+  return c > 1 || nk == 256 ? 1 : nk >= 192 || (drop && nk == 128) ? 2 : 3;
 }
 
-template <int DH, int KT>
-struct Smem {  // KT: one-pass key tiles, 0 for two passes
-  static constexpr int kTile = DH / 64 * kBox;  // a 64-row tile of one head
-  static constexpr int kStages = ring_slots(KT);
-  unsigned char q[2][kTile];
-  unsigned char kv[kStages][kTile];
-  unsigned char o[2][kTile];
+template <int C, int KT>
+struct Smem {  // C: 64-column sub-heads a head; KT: one-pass key tiles, 0 for two passes
+  static constexpr int kTile = C * kBox;  // a 64-row tile of one head
+  static constexpr int kStages = ring_slots(C, KT);
+  static constexpr int kOut = out_slots(C);
+  unsigned char q[2][kTile];          // a tile's C sub-heads kBox apart
+  unsigned char kv[C][kStages][kBox];  // sub-head-major: a sub-head's slots kBox apart
+  unsigned char o[kOut][kTile];
   uint64_t q_full[2], q_empty[2];
   uint64_t kv_full[kStages], kv_empty[kStages];
 };
 // The masked forms' storage: the unmasked one, then the mask ring.
-template <int DH, int KT>
-struct SmemDrop : Smem<DH, KT> {
+template <int C, int KT>
+struct SmemDrop : Smem<C, KT> {
   static constexpr int kMaskStages = mask_slots(KT);
   alignas(512) unsigned char mask[kMaskStages][kMaskTile];  // 64-byte swizzled tiles
   uint64_t m_full[kMaskStages], m_empty[kMaskStages];
 };
-template <int DH, int KT, bool DROP>
-using SmemOf = std::conditional_t<DROP, SmemDrop<DH, KT>, Smem<DH, KT>>;
-template <int DH, int KT, bool DROP>
-constexpr int kSmemBytes = sizeof(SmemOf<DH, KT, DROP>) + 1024;  // + the 1,024-byte alignment
+template <int C, int KT, bool DROP>
+using SmemOf = std::conditional_t<DROP, SmemDrop<C, KT>, Smem<C, KT>>;
+template <int C, int KT, bool DROP>
+constexpr int kSmemBytes = sizeof(SmemOf<C, KT, DROP>) + 1024;  // + the 1,024-byte alignment
+static_assert(kSmemBytes<4, 1, true> <= 232448 && kSmemBytes<2, 3, false> <= 232448,
+              "the widest instances fit an SM");
 
 struct Params {
-  CUtensorMap qkv, out;  // 64-column sub-heads: 3 H Dh / 64 of qkv, H Dh / 64 of out
+  CUtensorMap qkv, out;  // map_heads: 3 H heads of qkv, H of out
   CUtensorMap mask;      // the mask's [B H n, n] rows, where mask_tma
   float* lse;            // [B, H, n] fp32, or null
   const uint8_t* mask_rows;  // the mask [B, H, n, n], for the plain copy
@@ -167,20 +186,20 @@ struct Params {
   float keep;
 };
 
-// NK: the key columns the one-pass form holds (a multiple of 8, 64 per
-// tile; 200 covers ViT-B's 196 keys with 100 registers where 256 takes
-// 128), or 0 for the two-pass form.  DROP: the dropout mask and keep.
-template <int DH, int NK, bool DROP>
-__global__ void __launch_bounds__(kThreads, min_blocks(DH, NK, DROP))
+// C: 64-column sub-heads a head (ceil(Dh / 64)).  NK: the key columns
+// the one-pass form holds (a multiple of 8, 64 per tile; 200 covers
+// ViT-B's 196 keys with 100 registers where 256 takes 128), or 0 for the
+// two-pass form.  DROP: the dropout mask and keep.
+template <int C, int NK, bool DROP>
+__global__ void __launch_bounds__(kThreads, min_blocks(C, NK, DROP))
     packed_attn_sm90(const __grid_constant__ Params p) {
-  constexpr int C = DH / 64;
   constexpr int KT = (NK + BM - 1) / BM;  // one-pass key tiles; 0: two passes
   constexpr int NS = KT > 0 ? KT : 1;     // key tiles a logits product reads
   constexpr int NC = NK > 0 ? NK : BM;    // key columns of the logits held
   constexpr int KS = (NC + 15) / 16;      // k16 steps of P . V
   static_assert(NC % 8 == 0 && NC > BM * (NS - 1) && NC <= BM * NS, "NK fits KT tiles");
-  using S = SmemOf<DH, KT, DROP>;
-  constexpr int kTile = S::kTile, kStages = S::kStages;
+  using S = SmemOf<C, KT, DROP>;
+  constexpr int kTile = S::kTile, kStages = S::kStages, kOut = S::kOut;
   constexpr int kMaskStages = mask_slots(KT);
   extern __shared__ __align__(1024) unsigned char dyn[];
   S& sm = hw::aligned_smem<S>(dyn);
@@ -213,19 +232,20 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK, DROP))
       for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
         const int qt = item % p.q_tiles, bh = item / p.q_tiles;
         const int h = bh % p.heads, b = bh / p.heads;
-        // A 64-row tile of sub-heads sub0 .. sub0 + C - 1 from row row0.
-        auto load = [&](unsigned char* dst, uint64_t* bar, int sub0, int row0) {
+        // A 64-row tile of head `head` (its C sub-heads, `stride` bytes
+        // apart) from row row0.
+        auto load = [&](unsigned char* dst, int stride, uint64_t* bar, int head, int row0) {
           hw::bar_expect_tx(bar, kTile);
 #pragma unroll
           for (int c = 0; c < C; ++c)
-            hw::tma_load4(dst + c * kBox, &p.qkv, bar, 0, sub0 + c, row0, b);
+            hw::tma_load4(dst + c * stride, &p.qkv, bar, 64 * c, head, row0, b);
         };
         hw::bar_wait(&sm.q_empty[qr.slot], qr.phase ^ 1);  // the first pass finds every slot free
-        load(sm.q[qr.slot], &sm.q_full[qr.slot], h * C, qt * BM);
+        load(sm.q[qr.slot], kBox, &sm.q_full[qr.slot], h, qt * BM);
         qr.next();
-        auto kv = [&](int sub0, int t) {
+        auto kv = [&](int head, int t) {
           hw::bar_wait(&sm.kv_empty[kr.slot], kr.phase ^ 1);
-          load(sm.kv[kr.slot], &sm.kv_full[kr.slot], sub0, t * BM);
+          load(sm.kv[0][kr.slot], kStages * kBox, &sm.kv_full[kr.slot], head, t * BM);
           kr.next();
         };
         // The mask's tile of key tile t: by TMA, or (no TMA box) an
@@ -243,7 +263,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK, DROP))
             mr.next();
           }
         };
-        const int ksub = (p.heads + h) * C, vsub = (2 * p.heads + h) * C;
+        const int ksub = p.heads + h, vsub = 2 * p.heads + h;
         if constexpr (KT > 0) {  // every K tile, the mask's tiles, then every V tile
           for (int t = 0; t < KT; ++t) kv(ksub, t);
           for (int t = 0; t < KT; ++t) mask_tile(t);
@@ -273,15 +293,17 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK, DROP))
   float s[NC / 2], o[C][32];
   const unsigned char* qs = nullptr;
 
-  // The ring's next NS tiles, waited for: their shared addresses.  A
-  // one-pass item takes 2 KT slots of a 2 KT-slot ring, so its K tiles (and
-  // its V tiles) are always consecutive slots: one contiguous operand.
+  // The ring's next NS tiles, waited for: their shared addresses (of
+  // sub-head 0; sub-head c is c kStages kBox bytes further).  A one-pass
+  // item takes 2 KT slots of a 2 KT-slot ring, so its K tiles (and its V
+  // tiles) are always consecutive slots: with the ring sub-head-major, each
+  // sub-head of them is one contiguous operand.
   auto next_tiles = [&](const unsigned char* (&tiles)[NS]) {
     hw::Ring<kStages> r = kr;
 #pragma unroll
     for (int t = 0; t < NS; ++t) {
       hw::bar_wait(&sm.kv_full[r.slot], r.phase);
-      tiles[t] = sm.kv[r.slot];
+      tiles[t] = sm.kv[0][r.slot];
       r.next();
     }
   };
@@ -301,12 +323,14 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK, DROP))
     hw::fence_regs(s);
     hw::wgmma_fence();
     const uint64_t qd = hw::desc_sw128(qs), kd = hw::desc_sw128(ks[0]);
-    // k16 step kk: 32 bytes along the rows of sub-head kk / 4.
-    sfc::static_for<DH / 16>([&](auto step) {
+    // k16 step kk: 32 bytes along the rows of sub-head kk / 4 (kBox apart
+    // in Q's tile, kStages kBox in the ring).
+    sfc::static_for<4 * C>([&](auto step) {
       constexpr int kk = decltype(step)::value;
-      constexpr int off = (kk / 4) * (kBox >> 4) + 2 * (kk % 4);
-      if constexpr (NC == BM) hw::wgmma_ss_at<0, 0, off, off>(s, qd, kd, kk);
-      else hw::wgmma_ss_n_at<NC, off, off>(s, qd, kd, kk);
+      constexpr int oq = (kk / 4) * (kBox >> 4) + 2 * (kk % 4);
+      constexpr int ok = (kk / 4) * (kStages * kBox >> 4) + 2 * (kk % 4);
+      if constexpr (NC == BM) hw::wgmma_ss_at<0, 0, oq, ok>(s, qd, kd, kk);
+      else hw::wgmma_ss_n_at<NC, oq, ok>(s, qd, kd, kk);
     });
     hw::wgmma_commit();
     hw::wgmma_wait<0>();
@@ -398,7 +422,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK, DROP))
       constexpr int ks = decltype(step)::value;
       sfc::static_for<C>([&](auto sub) {
         constexpr int cc = decltype(sub)::value;
-        hw::wgmma_rs_at<1, cc * (kBox >> 4) + ks * (2048 >> 4)>(o[cc], pf[ks], vd, 1);
+        hw::wgmma_rs_at<1, cc * (kStages * kBox >> 4) + ks * (2048 >> 4)>(o[cc], pf[ks], vd, 1);
       });
     });
     hw::wgmma_commit();
@@ -510,10 +534,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK, DROP))
     qr.next();
 
     // Epilogue: O rounded once to bf16 into staging slot ob, then one TMA
-    // store a 64-column sub-head.  The store that read this slot two items
-    // ago must have finished reading it.
+    // store a 64-column sub-head (clipped at Dh).  The store that read this
+    // slot kOut items ago must have finished reading it.
     unsigned char* st = sm.o[ob];
-    if (tid == 0) hw::bulk_wait_read<1>();
+    if (tid == 0) hw::bulk_wait_read<kOut - 1>();
     hw::named_sync(1, kConsumerThreads);
 #pragma unroll
     for (int cc = 0; cc < C; ++cc)
@@ -528,10 +552,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK, DROP))
     if (tid == 0) {
 #pragma unroll
       for (int cc = 0; cc < C; ++cc)
-        hw::tma_store4(&p.out, st + cc * kBox, 0, h * C + cc, qt * BM, b);
+        hw::tma_store4(&p.out, st + cc * kBox, 64 * cc, h, qt * BM, b);
       hw::bulk_commit();
     }
-    ob ^= 1;
+    ob = (ob + 1) % kOut;
   }
   if (tid == 0) hw::bulk_wait_all();  // the stores have written before the block leaves
 }
@@ -539,36 +563,16 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DH, NK, DROP))
 template <int NK>
 constexpr int kt_of = (NK + BM - 1) / BM;
 
-template <int DH, int NK, bool DROP>
+template <int C, int NK, bool DROP>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   static int cache[64] = {};
-  auto kernel = packed_attn_sm90<DH, NK, DROP>;
-  constexpr int smem = kSmemBytes<DH, kt_of<NK>, DROP>;
+  auto kernel = packed_attn_sm90<C, NK, DROP>;
+  constexpr int smem = kSmemBytes<C, kt_of<NK>, DROP>;
   cudaError_t e;
   const int grid = hw::persistent_grid(kernel, kThreads, smem, p.items, cache, &e);
   if (e != cudaSuccess) return e;
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-template <int DH, int NK, bool DROP>
-int attrs(int* out) {
-  return hw::kernel_attrs(packed_attn_sm90<DH, NK, DROP>, kSmemBytes<DH, kt_of<NK>, DROP>, out);
-}
-
-// The instance for head dim 64 by one-pass key tiles (k_tiles of n_valid).
-template <bool DROP>
-cudaError_t launch64(const Params& p, int n_valid, cudaStream_t s) {
-  switch (p.k_tiles) {
-    case 1: return launch<64, 64, DROP>(p, s);
-    case 2: return launch<64, 128, DROP>(p, s);
-    case 3: return launch<64, 192, DROP>(p, s);
-    case kMaxTiles64:
-      if constexpr (!DROP)
-        return n_valid <= 200 ? launch<64, 200, false>(p, s) : launch<64, 256, false>(p, s);
-      [[fallthrough]];
-    default: return launch<64, 0, DROP>(p, s);
-  }
 }
 
 }  // namespace
@@ -577,22 +581,20 @@ cudaError_t launch64(const Params& p, int n_valid, cudaStream_t s) {
 // [batch, n, heads * dh] contiguous; lse fp32 [batch, heads, n] or null;
 // mask uint8 0/1 [batch, heads, n, n] contiguous on 16 bytes, or null (no
 // dropout), with keep in (0, 1].  Keys at or past n_valid (1 <= n_valid
-// <= n) are masked.  dh must be 64 or 192, n at most 1,024.
+// <= n) are masked.  dh a multiple of 16 up to 256 (sm90.cuh::head_dim_ok),
+// n at most 1,024.
 extern "C" int sfc_packed_attention_bf16(const void* qkv, void* out, void* lse, const void* mask,
                                          int batch, int n, int heads, int dh, int n_valid,
                                          float scale, float keep, void* stream) {
-  if ((dh != 64 && dh != 192) || heads < 1 || n < 1 || n > kMaxN || n_valid < 1 || n_valid > n ||
+  if (!hw::head_dim_ok(dh) || heads < 1 || n < 1 || n > kMaxN || n_valid < 1 || n_valid > n ||
       batch < 0 || (mask != nullptr && !(keep > 0.f && keep <= 1.f)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   const bool drop = mask != nullptr;
-  const int subs = heads * dh / 64;
-  const long long row = 3LL * heads * dh;
+  const long long row = 3LL * heads * dh, inner = static_cast<long long>(heads) * dh;
   Params p{};
-  cudaError_t e = hw::map_bnhd(&p.qkv, qkv, batch, n, 3 * subs, row * n, row, 64, BM);
-  if (e == cudaSuccess)
-    e = hw::map_bnhd(&p.out, out, batch, n, subs, static_cast<long long>(n) * heads * dh,
-                     static_cast<long long>(heads) * dh, 64, BM);
+  cudaError_t e = hw::map_heads(&p.qkv, qkv, false, batch, n, 3 * heads, dh, row, BM);
+  if (e == cudaSuccess) e = hw::map_heads(&p.out, out, false, batch, n, heads, dh, inner, BM);
   // A TMA box of the mask's rows needs their stride on 16 bytes; a row of
   // at least one 64-key box keeps every box inside the tensor's width.
   p.mask_tma = drop && n % 16 == 0 && n >= BM;
@@ -610,51 +612,37 @@ extern "C" int sfc_packed_attention_bf16(const void* qkv, void* out, void* lse, 
   p.scale_log2 = scale * kLog2e;
   p.keep = drop ? keep : 1.f;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dh == 192) {
-    const bool one = p.k_tiles <= kMaxTiles192;
-    if (drop) e = one ? launch<192, 64, true>(p, s) : launch<192, 0, true>(p, s);
-    else e = one ? launch<192, 64, false>(p, s) : launch<192, 0, false>(p, s);
-  } else if (drop) {
-    e = p.k_tiles <= kMaxTiles64Drop ? launch64<true>(p, n_valid, s) : launch<64, 0, true>(p, s);
-  } else {
-    e = launch64<false>(p, n_valid, s);
-  }
+  const int c = hw::subheads(dh), nk = hw::one_pass_nk(c, n_valid, drop);
+  e = cudaErrorInvalidValue;
+  if (drop)
+    hw::with_packed_instance<true>(c, nk, [&](auto C, auto NK) {
+      e = launch<decltype(C)::value, decltype(NK)::value, true>(p, s);
+    });
+  else
+    hw::with_packed_instance<false>(c, nk, [&](auto C, auto NK) {
+      e = launch<decltype(C)::value, decltype(NK)::value, false>(p, s);
+    });
   return static_cast<int>(e);
 }
 
 // Registers, local bytes and shared bytes of the instance for head dim
-// dh, nk one-pass key columns (64, 128, 192, 200 or 256 at dh 64, 64 at
-// dh 192; 0: the two-pass form) and the dropout mask (masked: nk 64, 128,
-// 192 or 0 at dh 64, 64 or 0 at dh 192), into out[3].
+// dh (its 64-column sub-heads: 64, 128, 192 or 256 name C = 1 to 4), nk
+// one-pass key columns (64, 128, 192, 200 or 256 at dh 64, to 192 at dh
+// 128, 64 at dh 192 and 256; masked to 192 at dh 64 and 128 at dh 128;
+// 0: the two-pass form) and the dropout mask, into out[3].
 extern "C" int sfc_packed_attention_attrs(int dh, int nk, int masked, int* out) {
-  if (masked) {
-    if (dh == 64) {
-      switch (nk) {
-        case 0: return attrs<64, 0, true>(out);
-        case 64: return attrs<64, 64, true>(out);
-        case 128: return attrs<64, 128, true>(out);
-        case 192: return attrs<64, 192, true>(out);
-        default: break;
-      }
-    } else if (dh == 192) {
-      if (nk == 0) return attrs<192, 0, true>(out);
-      if (nk == 64) return attrs<192, 64, true>(out);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (dh == 64) {
-    switch (nk) {
-      case 0: return attrs<64, 0, false>(out);
-      case 64: return attrs<64, 64, false>(out);
-      case 128: return attrs<64, 128, false>(out);
-      case 192: return attrs<64, 192, false>(out);
-      case 200: return attrs<64, 200, false>(out);
-      case 256: return attrs<64, 256, false>(out);
-      default: break;
-    }
-  } else if (dh == 192) {
-    if (nk == 0) return attrs<192, 0, false>(out);
-    if (nk == 64) return attrs<192, 64, false>(out);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (!hw::head_dim_ok(dh)) return err;
+  auto get = [&](auto C, auto NK, auto D) {
+    constexpr int c = decltype(C)::value, k = decltype(NK)::value;
+    constexpr bool d = decltype(D)::value;
+    err = hw::kernel_attrs(packed_attn_sm90<c, k, d>, kSmemBytes<c, kt_of<k>, d>, out);
+  };
+  if (masked)
+    hw::with_packed_instance<true>(hw::subheads(dh), nk,
+                                   [&](auto C, auto NK) { get(C, NK, std::true_type{}); });
+  else
+    hw::with_packed_instance<false>(hw::subheads(dh), nk,
+                                    [&](auto C, auto NK) { get(C, NK, std::false_type{}); });
+  return err;
 }

@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace sfc {
@@ -91,27 +93,83 @@ inline cudaError_t map_bnhd_f32(CUtensorMap* m, void* base, int batch, int n, in
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A row-major fp32 tensor [batch, n, cols] (cols a multiple of 32, rows on
-// 16 bytes: the packed projection [B, N, 3 H Dh], or att and its cotangent
-// [B, N, H Dh]) as a 4-d map (32, cols / 32, n, batch) whose box is `rows`
-// rows x 32 columns (one 128-byte-swizzled fp32 row) of one batch entry:
-// the fp32 counterpart of map_bnhd.  Columns 64 s .. 64 s + 63 (sub-head s)
-// are boxes 2 s and 2 s + 1.  Rows past n read as zero, so a tile never
-// reads the next image's rows.
-inline cudaError_t map_packed_f32(CUtensorMap* m, const void* base, int batch, int n, int cols,
-                                  int rows) {
+// A row-major tensor whose rows hold `heads` heads of dh columns each
+// (the packed projection [B, N, 3 H Dh] as 3 H heads, att, its cotangent
+// and the output [B, N, H Dh] as H), `row` elements a row, as a 4-d map
+// (dh, head, row, batch) whose box is `rows` rows of one (batch, head) and
+// one 128-byte row wide: 64 bf16 columns, or 32 fp32 columns (two boxes a
+// 64-column sub-head, see sw128_f32), 128-byte swizzled.  Sub-head c of a
+// head starts at column 64 c.  A box reaching past dh (a ragged last
+// sub-head: Dh 96 as two 64-column sub-heads, 32 and 48 as one) loads
+// zeros there and stores nothing there, so a head never reads or writes
+// its neighbour's columns; rows past n likewise (a tile never reads the
+// next image's rows).  dh * the element size must be a multiple of 16
+// bytes, and the base on 16 bytes.
+inline cudaError_t map_heads(CUtensorMap* m, const void* base, bool f32, int batch, int n,
+                             int heads, int dh, long long row, int rows) {
   EncodeTiled enc = encode_fn();
   if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t row = static_cast<cuuint64_t>(cols) * 4;
-  const cuuint64_t dims[4] = {32, (cuuint64_t)cols / 32, (cuuint64_t)n, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {128, row, row * n};
-  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t es = f32 ? 4 : 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)n,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {dh * es, (cuuint64_t)row * es, (cuuint64_t)row * n * es};
+  const cuuint32_t box[4] = {f32 ? 32u : 64u, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), dims,
-                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = enc(m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         4, const_cast<void*>(base), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The attention kernels' head dims (ops/_build.py::attention_head_dim_ok
+// and attention_subheads, the same rule): a multiple of 16 up to 256,
+// walked as ceil(dh / 64) sub-heads of 64 columns.
+constexpr int kMaxHeadDim = 256;
+__host__ __device__ constexpr bool head_dim_ok(int dh) {
+  return dh >= 16 && dh <= kMaxHeadDim && dh % 16 == 0;
+}
+__host__ __device__ constexpr int subheads(int dh) { return (dh + 63) / 64; }
+
+// The packed attention forwards' one-pass limit in 64-key tiles by
+// sub-heads a head (the Python PACKED_ONE_PASS_MAX_N and its masked
+// table): the whole row of logits beside O's 32 C registers a thread.
+__host__ __device__ constexpr int one_pass_tiles(int c, bool masked) {
+  return c == 1 ? (masked ? 3 : 4) : c == 2 ? (masked ? 2 : 3) : 1;
+}
+// The one-pass instance's key columns for n_valid keys (0: two passes):
+// 64 a tile, 200 for ViT-B's 196 (100 registers where 256 takes 128).
+__host__ __device__ constexpr int one_pass_nk(int c, int n_valid, bool masked) {
+  const int tiles = (n_valid + 63) / 64;
+  return tiles > one_pass_tiles(c, masked) ? 0 : tiles == 4 && n_valid <= 200 ? 200 : 64 * tiles;
+}
+
+// Calls f(C, NK) (integral constants) for the packed attention forwards'
+// instance of c sub-heads and nk one-pass key columns (0: two passes),
+// with the mask (MASKED) or without; false where there is none.
+template <bool MASKED, typename F>
+inline bool with_packed_instance(int c, int nk, F&& f) {
+  using std::integral_constant;
+  auto at = [&](auto Cc) {
+    constexpr int T = one_pass_tiles(decltype(Cc)::value, MASKED);
+    switch (nk) {
+      case 0: f(Cc, integral_constant<int, 0>{}); return true;
+      case 64: f(Cc, integral_constant<int, 64>{}); return true;
+      case 128: if constexpr (T >= 2) { f(Cc, integral_constant<int, 128>{}); return true; } break;
+      case 192: if constexpr (T >= 3) { f(Cc, integral_constant<int, 192>{}); return true; } break;
+      case 200: if constexpr (T >= 4) { f(Cc, integral_constant<int, 200>{}); return true; } break;
+      case 256: if constexpr (T >= 4) { f(Cc, integral_constant<int, 256>{}); return true; } break;
+      default: break;
+    }
+    return false;
+  };
+  switch (c) {
+    case 1: return at(integral_constant<int, 1>{});
+    case 2: return at(integral_constant<int, 2>{});
+    case 3: return at(integral_constant<int, 3>{});
+    case 4: return at(integral_constant<int, 4>{});
+    default: return false;
+  }
 }
 
 // A flat fp32 vector of `count` elements whose box is `rows` elements (the

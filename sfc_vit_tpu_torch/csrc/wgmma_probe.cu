@@ -29,7 +29,7 @@
 //          (eight k8 steps): A [64 m][64 k] held as an m64n64 accumulator
 //          and taken as the A operand under the key permutation (a_perm),
 //          B stored [K = 64][N = 64] (as V is, [key][Dh]) brought by
-//          map_packed_f32 and written transposed into K-major big and small
+//          map_heads and written transposed into K-major big and small
 //          tiles (split_transposed), the three products by attn_f32::mma3.
 // sfc_tf32_round applies the device's cvt.rna.tf32.f32 and gemm_f32.cu's
 // split elementwise.
@@ -197,7 +197,7 @@ __global__ void __launch_bounds__(128) wgmma_probe_perm(const __grid_constant__ 
     hw::fence_barrier_init();
   }
   __syncthreads();
-  if (t == 0) af::load_sub(sm, 0, &bmap, 0, 0, 0);
+  if (t == 0) af::load_sub(sm, 0, &bmap, 0, 0, 0, 0);
   af::split_entry(sm, 0, true);
 
   const int r = warp * 16 + lane / 4, c0 = 2 * (lane % 4);
@@ -248,7 +248,7 @@ extern "C" int sfc_wgmma_probe_tf32(const void* a, const void* b, void* d, int f
   CUtensorMap bmap;
   if (form == 3) {
     namespace af = sfc::attn_f32;
-    cudaError_t e = hw::map_packed_f32(&bmap, b, 1, 64, 64, 64);
+    cudaError_t e = hw::map_heads(&bmap, b, true, 1, 64, 1, 64, 64, 64);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int smem = af::kSmemBytes<1>;
     e = cudaFuncSetAttribute(wgmma_probe_perm, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

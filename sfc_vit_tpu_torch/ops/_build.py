@@ -47,6 +47,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -67,7 +68,8 @@ __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "PACKED_ATTENTION_F32_FORMS",
            "PACKED_ATTENTION_F32_MASKED_FORMS",
            "attention_fwd_f32_form", "attention_fwd_f32_columns",
-           "ATTENTION_HEAD_DIMS", "PACKED_MAX_N",
+           "ATTENTION_MAX_HEAD_DIM", "attention_head_dim_ok", "attention_subheads",
+           "PACKED_MAX_N",
            "PACKED_ONE_PASS_MAX_N", "PACKED_ONE_PASS_MAX_N_MASKED",
            "PACKED_ATTENTION_FORMS", "PACKED_ATTENTION_MASKED_FORMS", "attention_fwd_route",
            "ln_rows_bwd_plan", "LN_BWD_ROWS", "LN_BWD_MAX_D", "LN_ROWS_BWD_FORMS", "flash_fwd",
@@ -171,24 +173,43 @@ _SIGNATURES = {
     "sfc_gather_project_f32_attrs": (_I, _I, _I, _P),
 }
 
-#: Head dims the attention kernels are instantiated for: ViT-B's 64 and
-#: the family-A flagship's 192.
-ATTENTION_HEAD_DIMS = (64, 192)
+#: The widest head dim the attention kernels (#1, #4-#7) take; they take
+#: every multiple of 16 up to it (:func:`attention_head_dim_ok`).
+ATTENTION_MAX_HEAD_DIM = 256
+
+
+def attention_head_dim_ok(dh: int) -> bool:
+    """Whether the attention kernels (#1, #4-#7, bf16 and fp32, forward and
+    backward) take head dim ``dh``: a multiple of 16 up to
+    :data:`ATTENTION_MAX_HEAD_DIM` (``csrc/sm90.cuh::head_dim_ok``).  Each
+    walks a head as :func:`attention_subheads` sub-heads of 64 columns, a
+    ragged head's columns past ``dh`` read as zeros and never written."""
+    return 16 <= dh <= ATTENTION_MAX_HEAD_DIM and dh % 16 == 0
+
+
+def attention_subheads(dh: int) -> int:
+    """The 64-column sub-heads C = ceil(dh / 64) a head of ``dh`` columns
+    takes in the attention kernels, which are instanced by C (1 to 4)."""
+    return -(-dh // 64)
+
+
 #: JAX's ``_PACKED_MAX_N`` (``flash_attention.py:946``): the longest
 #: sequence #7 takes (``csrc/packed_attn_sm90.cu``'s kMaxN) and the packed
 #: route's range (``ops/attention.py``).
 PACKED_MAX_N = 1024
-#: The most keys (n_valid) ``csrc/packed_attn_sm90.cu`` holds in one pass,
-#: by head dim: a 64-query tile's whole logit row in one warpgroup's
-#: accumulators (4 tiles of 64 keys at Dh 64, 1 at Dh 192, beside O's Dh /
-#: 2 registers a thread); longer rows take two passes.
-PACKED_ONE_PASS_MAX_N = {64: 256, 192: 64}
+#: The most keys (n_valid) ``csrc/packed_attn_sm90.cu`` and
+#: ``csrc/packed_attn_f32.cu`` hold in one pass, by sub-heads a head
+#: (:func:`attention_subheads`): a 64-query tile's whole logit row in one
+#: warpgroup's accumulators beside O's 32 C registers a thread (4 tiles of
+#: 64 keys at C = 1, 3 at C = 2, 1 at C = 3 and 4;
+#: ``csrc/sm90.cuh::one_pass_tiles``); longer rows take two passes.
+PACKED_ONE_PASS_MAX_N = {1: 256, 2: 192, 3: 64, 4: 64}
 #: The same with a dropout mask (#5): its ring of 64 x 64 mask tiles and
 #: the quotient by keep beside the logits leave no room for the 200- and
-#: 256-key forms (no masked main-path shape has more than 192 keys), so
-#: the masked one-pass forms hold 64, 128 and 192 keys at Dh 64, 64 at Dh
-#: 192; longer masked rows take two passes.
-PACKED_ONE_PASS_MAX_N_MASKED = {64: 192, 192: 64}
+#: 256-key forms at C = 1 (no masked main-path shape there has more than
+#: 192 keys) nor for the 192-key form at C = 2; longer masked rows take
+#: two passes.
+PACKED_ONE_PASS_MAX_N_MASKED = {1: 192, 2: 128, 3: 64, 4: 64}
 #: ``csrc/ln_rows_bwd.cu``: rows a block takes at once (its kRows) and the
 #: widest row it takes (kMaxD: a thread a 16-byte chunk, 384 threads).
 LN_BWD_ROWS, LN_BWD_MAX_D = 4, 3072
@@ -202,19 +223,22 @@ ATTENTION_BWD_SM90_MAX_N = 256
 #: 36 KB mask (kMaxN64Drop); four tiles and a 64 KB mask do not fit.
 ATTENTION_BWD_SM90_MAX_N_DROPOUT = 192
 #: Head dim 192, with or without the mask (#6 on the flagship): one tile
-#: of each tensor (24 KB) for two items in flight (kMaxN192).
+#: of each tensor (24 KB) for two items in flight (kMaxN192); the same at
+#: two sub-heads (Dh 80 to 128).  At four (Dh 208 to 256) two items'
+#: tiles would need 256 KB: no instance.
 ATTENTION_BWD_SM90_MAX_N_DH192 = 64
-#: :func:`attention_bwd_route`'s limits by (head dim, dropout).
+#: :func:`attention_bwd_route`'s limits by (sub-heads a head, dropout).
 ATTENTION_BWD_SM90_LIMITS = {
-    (64, False): ATTENTION_BWD_SM90_MAX_N, (64, True): ATTENTION_BWD_SM90_MAX_N_DROPOUT,
-    (192, False): ATTENTION_BWD_SM90_MAX_N_DH192,
-    (192, True): ATTENTION_BWD_SM90_MAX_N_DH192,
+    (1, False): ATTENTION_BWD_SM90_MAX_N, (1, True): ATTENTION_BWD_SM90_MAX_N_DROPOUT,
+    (2, False): ATTENTION_BWD_SM90_MAX_N_DH192, (2, True): ATTENTION_BWD_SM90_MAX_N_DH192,
+    (3, False): ATTENTION_BWD_SM90_MAX_N_DH192, (3, True): ATTENTION_BWD_SM90_MAX_N_DH192,
 }
 #: The names of ``csrc/attention_bwd_sm90.cu``'s instances by
 #: ``sfc_attention_bwd_sm90_attrs``'s form number.
 ATTENTION_BWD_SM90_FORMS = ("attention_bwd_sm90", "attention_bwd_sm90 dh64 dropout one tile",
                             "attention_bwd_sm90 dh64 dropout", "attention_bwd_sm90 dh192",
-                            "attention_bwd_sm90 dh192 dropout")
+                            "attention_bwd_sm90 dh192 dropout", "attention_bwd_sm90 dh128",
+                            "attention_bwd_sm90 dh128 dropout")
 #: The GEMM's output tile and K block (``csrc/gemm_bf16.cu``'s BM, BN, BK).
 GEMM_TILE_M, GEMM_TILE_N, GEMM_BLOCK_K = 128, 128, 64
 #: Bounds of :func:`gemm_splits`: at most this many K ranges, each at least
@@ -256,16 +280,17 @@ def _source_hash() -> str:
 def build() -> dict:
     """Compile the kernels unless this exact build exists.
 
-    Returns ``{"path", "seconds", "log"}``: the library, the compile time
-    (0.0 when it was already built) and nvcc's output, which holds
-    ptxas's registers / shared memory / spills per kernel.
+    Returns ``{"path", "seconds", "log", "sources"}``: the library, the
+    compile time (0.0 when it was already built), nvcc's output, which
+    holds ptxas's registers / shared memory / spills per kernel, and each
+    source's seconds from the start to its object (empty when built).
     """
     out_dir = BUILD_ROOT / _source_hash()
     lib_path = out_dir / LIB_NAME
     log_path = out_dir / "build.log"
     if lib_path.exists():
         log = log_path.read_text() if log_path.exists() else ""
-        return {"path": lib_path, "seconds": 0.0, "log": log}
+        return {"path": lib_path, "seconds": 0.0, "log": log, "sources": {}}
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = f".{os.getpid()}"  # concurrent builders never share a temporary
@@ -279,7 +304,14 @@ def build() -> dict:
             [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(sources, objects)]
-        log = "".join(p.communicate()[0] for p in procs)
+        done = {}
+
+        def finish(src, proc):  # nvcc's output, and when its object was done
+            out = proc.communicate()[0]
+            done[src.name] = time.perf_counter() - t0
+            return out
+        with ThreadPoolExecutor(len(procs)) as pool:
+            log = "".join(pool.map(finish, sources, procs))
         failed = [src.name for src, p in zip(sources, procs) if p.returncode]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
@@ -295,7 +327,8 @@ def build() -> dict:
         tmp.unlink(missing_ok=True)
         for obj in objects:
             obj.unlink(missing_ok=True)
-    return {"path": lib_path, "seconds": seconds, "log": log}
+    return {"path": lib_path, "seconds": seconds, "log": log,
+            "sources": dict(sorted(done.items(), key=lambda kv: -kv[1]))}
 
 
 def library() -> ctypes.CDLL:
@@ -890,11 +923,12 @@ def _check_packed(qkv: torch.Tensor, heads: int, n_valid: int, what: str,
     """Shapes of a packed attention's operands; qkv bf16 or fp32.  Returns
     (b, n, inner, dh)."""
     b, n, w = qkv.shape
-    if w % (3 * heads) or w // (3 * heads) not in ATTENTION_HEAD_DIMS:
+    if w % (3 * heads) or not attention_head_dim_ok(w // (3 * heads)):
         raise ValueError(
             f"{what}: packed width {w} with {heads} heads gives "
-            f"head dim {w / (3 * heads):g}; the kernel takes "
-            f"{' or '.join(map(str, ATTENTION_HEAD_DIMS))}"
+            f"head dim {w / (3 * heads):g}; the kernels take a multiple of 16 up to "
+            f"{ATTENTION_MAX_HEAD_DIM} (ROADMAP F5's remainder: wider heads and "
+            f"other widths have no kernel)"
         )
     if not 1 <= n_valid <= n:
         raise ValueError(f"{what}: n_valid={n_valid} not in [1, {n}]")
@@ -916,18 +950,18 @@ def attention_fwd_route(dh: int, n_valid: int, masked: bool) -> str:
     """Which form of ``csrc/packed_attn_sm90.cu`` :func:`attention_fwd`
     runs for ``n_valid`` keys (#1 and #7 unmasked, #5 with the dropout
     mask): ``"one pass"`` up to :data:`PACKED_ONE_PASS_MAX_N` keys for the
-    head dim (:data:`PACKED_ONE_PASS_MAX_N_MASKED` with a mask), ``"two
-    passes"`` beyond.  Both compute the same formula."""
+    head dim's sub-heads (:data:`PACKED_ONE_PASS_MAX_N_MASKED` with a
+    mask), ``"two passes"`` beyond.  Both compute the same formula."""
     limits = PACKED_ONE_PASS_MAX_N_MASKED if masked else PACKED_ONE_PASS_MAX_N
-    return "one pass" if n_valid <= limits.get(dh, 0) else "two passes"
+    return "one pass" if n_valid <= limits.get(attention_subheads(dh), 0) else "two passes"
 
 
 def attention_fwd(qkv: torch.Tensor, heads: int, n_valid: int,
                   scale: float, with_lse: bool = False,
                   mask: Optional[torch.Tensor] = None, keep: float = 1.0):
     """#7's, #1's and #5's attention off packed ``qkv`` [B, N, 3*H*Dh] ->
-    [B, N, H*Dh] (Dh 64 or 192, N at most :data:`PACKED_MAX_N`: a longer
-    row raises): bf16 on ``csrc/packed_attn_sm90.cu``, in the form
+    [B, N, H*Dh] (Dh a multiple of 16 up to 256, :func:`attention_head_dim_ok`;
+    N at most :data:`PACKED_MAX_N`: a longer row raises): bf16 on ``csrc/packed_attn_sm90.cu``, in the form
     :func:`attention_fwd_route` names, fp32 on ``csrc/packed_attn_f32.cu``
     (#1, #5 and #7 in float32, 3xTF32 on ``wgmma``, one pass over the
     columns :func:`attention_fwd_f32_columns` names or two passes; the
@@ -956,15 +990,16 @@ def attention_fwd(qkv: torch.Tensor, heads: int, n_valid: int,
 
 def attention_fwd_f32_columns(dh: int, n_valid: int, masked: bool = False) -> int:
     """The key columns ``csrc/packed_attn_f32.cu`` holds in one pass for
-    ``n_valid`` keys: the narrowest of 64, 128, 192, 200 and 256 at Dh 64
-    (:data:`PACKED_ONE_PASS_MAX_N`; 200 for ViT-B's 196; with the mask 64,
-    128 and 192, :data:`PACKED_ONE_PASS_MAX_N_MASKED`) and 64 at Dh 192
-    that covers ``n_valid``, else 0 (two passes)."""
+    ``n_valid`` keys: the narrowest multiple of 64 within the head dim's
+    one-pass limit (:data:`PACKED_ONE_PASS_MAX_N` by sub-heads: 64 to 256
+    at C = 1, 200 for ViT-B's 196; to 192 at C = 2; 64 at C = 3 and 4; with
+    the mask :data:`PACKED_ONE_PASS_MAX_N_MASKED`) that covers
+    ``n_valid``, else 0 (two passes): ``csrc/sm90.cuh::one_pass_nk``."""
     tiles = -(-n_valid // 64)
     limits = PACKED_ONE_PASS_MAX_N_MASKED if masked else PACKED_ONE_PASS_MAX_N
-    if n_valid > limits.get(dh, 0):
+    if n_valid > limits.get(attention_subheads(dh), 0):
         return 0
-    return 200 if dh == 64 and tiles == 4 and n_valid <= 200 else 64 * tiles
+    return 200 if tiles == 4 and n_valid <= 200 else 64 * tiles
 
 
 def attention_fwd_f32_form(qkv: torch.Tensor, heads: int, n_valid: int, scale: float,
@@ -979,7 +1014,7 @@ def attention_fwd_f32_form(qkv: torch.Tensor, heads: int, n_valid: int, scale: f
     either way); on no model's path."""
     dh = qkv.shape[-1] // (3 * heads)
     forms = PACKED_ATTENTION_F32_MASKED_FORMS if mask is not None else PACKED_ATTENTION_F32_FORMS
-    if (dh, columns) not in forms.values() or 0 < columns < n_valid:
+    if (64 * attention_subheads(dh), columns) not in forms.values() or 0 < columns < n_valid:
         raise ValueError(f"attention_fwd_f32_form: no instance of {columns} columns at Dh "
                          f"{dh} for {n_valid} keys")
     mask = _mask_u8(mask)
@@ -999,10 +1034,10 @@ def attention_fwd_f32_form(qkv: torch.Tensor, heads: int, n_valid: int, scale: f
 def attention_bwd_route(dh: int, n: int, dropout: bool) -> str:
     """Which kernel :func:`attention_bwd` runs: ``"sm90"``
     (``csrc/attention_bwd_sm90.cu``) up to the length
-    :data:`ATTENTION_BWD_SM90_LIMITS` gives the (head dim, dropout) pair,
-    else ``"wmma"`` (``csrc/attention_bwd.cu``).  Both compute the same
-    formula."""
-    limit = ATTENTION_BWD_SM90_LIMITS.get((dh, bool(dropout)), 0)
+    :data:`ATTENTION_BWD_SM90_LIMITS` gives the (sub-heads, dropout) pair
+    of the head dim, else ``"wmma"`` (``csrc/attention_bwd.cu``, which takes
+    every head dim and length).  Both compute the same formula."""
+    limit = ATTENTION_BWD_SM90_LIMITS.get((attention_subheads(dh), bool(dropout)), 0)
     return "sm90" if n <= limit else "wmma"
 
 
@@ -1362,28 +1397,30 @@ def tf32_split(x: torch.Tensor) -> tuple:
     return big, small
 
 
-#: ``csrc/packed_attn_sm90.cu``'s instances: (head dim, key columns the
-#: one-pass form holds, 0 for two passes) by name.  The kernel takes the
-#: narrowest one-pass form whose columns cover n_valid (200 for ViT-B's 196).
-PACKED_ATTENTION_FORMS = {
-    "packed_attention dh64 one pass": (64, 64),
-    "packed_attention dh64 one pass 128 keys": (64, 128),
-    "packed_attention dh64 one pass 192 keys": (64, 192),
-    "packed_attention dh64 one pass 200 keys": (64, 200),
-    "packed_attention dh64 one pass 256 keys": (64, 256),
-    "packed_attention dh64 two passes": (64, 0),
-    "packed_attention dh192 one pass": (192, 64),
-    "packed_attention dh192 two passes": (192, 0),
-}
+def _packed_forms(prefix: str, limits: dict) -> dict:
+    """Name -> (64 C, key columns the one-pass form holds, 0 for two passes)
+    of a packed attention forward's instances, C = 1 to 4 sub-heads, one
+    pass to ``limits[C]`` keys (200 beside 256 at C = 1)."""
+    forms = {}
+    for c, limit in limits.items():
+        cols = [64 * t for t in range(1, limit // 64 + 1)]
+        if limit == 256:
+            cols.insert(3, 200)
+        for nk in cols:
+            forms[f"{prefix} dh{64 * c} one pass{f' {nk} keys' if nk > 64 else ''}"] = (64 * c, nk)
+        forms[f"{prefix} dh{64 * c} two passes"] = (64 * c, 0)
+    return forms
+
+
+#: ``csrc/packed_attn_sm90.cu``'s instances: (64 x sub-heads, key columns
+#: the one-pass form holds, 0 for two passes) by name; a head dim takes the
+#: instances of its :func:`attention_subheads` (Dh 96 those named dh128).
+#: The kernel takes the narrowest one-pass form whose columns cover n_valid
+#: (200 for ViT-B's 196).
+PACKED_ATTENTION_FORMS = _packed_forms("packed_attention", PACKED_ONE_PASS_MAX_N)
 #: Its masked instances (#5, the dropout mask and keep), the same way.
-PACKED_ATTENTION_MASKED_FORMS = {
-    "packed_attention masked dh64 one pass": (64, 64),
-    "packed_attention masked dh64 one pass 128 keys": (64, 128),
-    "packed_attention masked dh64 one pass 192 keys": (64, 192),
-    "packed_attention masked dh64 two passes": (64, 0),
-    "packed_attention masked dh192 one pass": (192, 64),
-    "packed_attention masked dh192 two passes": (192, 0),
-}
+PACKED_ATTENTION_MASKED_FORMS = _packed_forms("packed_attention masked",
+                                              PACKED_ONE_PASS_MAX_N_MASKED)
 #: ``csrc/ln_rows_bwd.cu``'s instances by ``sfc_ln_rows_bwd_attrs``'s form
 #: number: forms (a), (b), (c), (d) (fp32 throughout) and (e) (x + x_b in
 #: fp32) of its header.
@@ -1391,18 +1428,18 @@ LN_ROWS_BWD_FORMS = ("ln_rows_bwd dxn fp32", "ln_rows_bwd dxn bf16", "ln_rows_bw
                      "ln_rows_bwd fp32", "ln_rows_bwd fp32 x + x_b")
 
 
-#: ``csrc/packed_attn_f32.cu``'s instances: (head dim, key columns held in
-#: one pass, 0 for two passes) by name; :func:`attention_fwd_f32_columns`
-#: picks one.
+#: ``csrc/packed_attn_f32.cu``'s instances: (64 x sub-heads, key columns
+#: held in one pass, 0 for two passes) by name, the one-pass widths
+#: ``csrc/packed_attn_sm90.cu``'s; :func:`attention_fwd_f32_columns` picks
+#: one.
 PACKED_ATTENTION_F32_FORMS = {
     f"packed_attention_f32 dh{dh} "
     f"{f'one pass {nk} keys' if nk else 'two passes'}": (dh, nk)
-    for dh, nk in ((64, 64), (64, 128), (64, 192), (64, 200), (64, 256), (64, 0), (192, 64),
-                   (192, 0))}
+    for dh, nk in PACKED_ATTENTION_FORMS.values()}
 #: Its instances with #5's mask, one pass to :data:`PACKED_ONE_PASS_MAX_N_MASKED`.
 PACKED_ATTENTION_F32_MASKED_FORMS = {
     f"{name} masked": (dh, nk) for name, (dh, nk) in PACKED_ATTENTION_F32_FORMS.items()
-    if nk <= PACKED_ONE_PASS_MAX_N_MASKED[dh]}
+    if nk <= PACKED_ONE_PASS_MAX_N_MASKED[dh // 64]}
 
 #: ``csrc/gather_project_f32.cu``'s instances: (x gathered from shared
 #: memory, 64 columns an item, k8 steps a chunk) by name.
@@ -1423,7 +1460,7 @@ F32_KERNEL_FORMS = (
     "gemm_f32 column sums",
     *PACKED_ATTENTION_F32_FORMS, *PACKED_ATTENTION_F32_MASKED_FORMS,
     *(f"attention_bwd_f32 {part} dh{dh}{' masked' if mk else ''}"
-      for dh in (64, 192) for mk in (1, 0) for part in ("dq", "dkv")),
+      for dh in (64, 128, 192, 256) for mk in (1, 0) for part in ("dq", "dkv")),
     *GATHER_PROJECT_F32_FORMS)
 
 
@@ -1435,15 +1472,15 @@ def _f32_attr_calls(lib) -> dict:
                                 (1, PACKED_ATTENTION_F32_MASKED_FORMS))
               for dh, nk in forms.values()]
     calls += [lambda a, dh=dh, mk=mk, p=p: lib.sfc_attention_bwd_f32_attrs(dh, mk, p, a)
-              for dh in (64, 192) for mk in (1, 0) for p in (0, 1)]
+              for dh in (64, 128, 192, 256) for mk in (1, 0) for p in (0, 1)]
     calls += [lambda a, sx=sx, tn=tn, ks=ks: lib.sfc_gather_project_f32_attrs(sx, tn, ks, a)
               for sx, tn, ks in GATHER_PROJECT_F32_FORMS.values()]
     return dict(zip(F32_KERNEL_FORMS, calls, strict=True))
 
 
 def flash_kernel_attrs() -> dict:
-    """What the compiler gave the ``wgmma`` kernels, #1's and #7's eight
-    instances (:data:`PACKED_ATTENTION_FORMS`) and #5's six
+    """What the compiler gave the ``wgmma`` kernels, #1's and #7's
+    instances (:data:`PACKED_ATTENTION_FORMS`) and #5's
     (:data:`PACKED_ATTENTION_MASKED_FORMS`), #16's LayerNorm backward
     (:data:`LN_ROWS_BWD_FORMS`), #8's two forms and #12's windowed instance
     of its single step, #9-#11, #13's windowed instances of #10's and

@@ -63,20 +63,22 @@ is ``csrc/packed_attn_sm90.cu`` (:func:`_build.attention_fwd`): a
 persistent Hopper kernel over (image, head, 64-query tile) items, a
 producer warp's TMA ring of Q, K and V tiles read straight from the
 packed projection, ``wgmma`` products, the softmax in registers (one pass
-where one warpgroup holds the row, to 256 keys at head dim 64 and 64 at
-192; two passes up to 1,024 keys) and a TMA
+where one warpgroup holds the row beside the output, to 256 keys at head
+dim 64 and 64 at 192, ``_build.PACKED_ONE_PASS_MAX_N``; two passes up to
+1,024 keys) and a TMA
 store of the output: fp32 logits times scale, ``P = p / l`` rounded to
 the input dtype before an fp32 ``P V``.  Its bound on the H100 is the
 bytes of qkv and of the output.  As in the JAX package, that kernel is
 the inference path, for N up to ``_build.PACKED_MAX_N`` (JAX's
-``_PACKED_MAX_N``).  In float32 it runs ``csrc/packed_attn_f32.cu``, a
-SIMT kernel that makes two passes over 64-key tiles (the row's max and
-sum, then P normalised before its fp32 product with V).  Under autograd
+``_PACKED_MAX_N``).  In float32 it runs ``csrc/packed_attn_f32.cu``
+(3xTF32 on ``wgmma``, the same one-pass and two-pass forms: the row's max
+and sum, then P normalised before its fp32 product with V).  Under autograd
 the JAX rule ``_pfa_fwd`` / ``_pfa_bwd`` applies, plain code there and
 plain PyTorch here: the softmax in the input dtype with the weights
 stored for the backward.  A CPU tensor runs :func:`_packed_xla_ref`; a
-CUDA tensor launches a kernel (bfloat16 or float32, head dim 64 or 192)
-or raises.  ``packed_flash_attention.launches`` counts the bf16
+CUDA tensor launches a kernel (bfloat16 or float32, any head dim that
+``_build.attention_head_dim_ok`` takes: a multiple of 16 up to 256) or
+raises.  ``packed_flash_attention.launches`` counts the bf16
 launches, ``packed_flash_attention.f32_launches`` the fp32 ones.
 """
 

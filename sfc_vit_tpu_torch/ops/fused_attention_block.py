@@ -294,7 +294,8 @@ def fused_attention_block(x, ln_scale, ln_bias, w_qkv, w_out, heads: int,
     A CPU ``x`` runs :func:`attention_block_ref` (and, under autograd,
     :func:`attention_block_bwd_ref` for the backward).  A CUDA ``x``
     launches the kernels (bf16 or fp32, every tensor in x's dtype apart
-    from the fp32 LayerNorm parameters; head dim 64 or 192; Dense kernels
+    from the fp32 LayerNorm parameters; a head dim that
+    ``_build.attention_head_dim_ok`` takes, a multiple of 16 up to 256; Dense kernels
     ``[in, out]``) or raises, any other dtype before a launch; it never
     falls back.  ``fused_attention_block.launches`` and ``.bwd_launches``
     count the bf16 CUDA forwards and backwards, ``.f32_launches`` and

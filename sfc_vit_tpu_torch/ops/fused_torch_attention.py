@@ -58,7 +58,8 @@ five gradients bit for bit.
 
 A CPU input runs the plain versions :func:`torch_mha_fwd_ref` and
 :func:`torch_mha_bwd_ref` (the kernels' arithmetic and rounding points);
-a CUDA input launches the kernels (bf16 or fp32, head dim 64 or 192) or
+a CUDA input launches the kernels (bf16 or fp32, any head dim that
+``_build.attention_head_dim_ok`` takes: a multiple of 16 up to 256) or
 raises.  ``fused_torch_mha.launches`` counts the bf16 CUDA forwards and
 ``fused_torch_mha.bwd_launches`` the bf16 CUDA backwards,
 ``f32_launches`` and ``f32_bwd_launches`` the fp32 ones.

@@ -114,13 +114,16 @@ def test_gemm_rejects_unaligned_widths(k, n):
         _build.gemm(a, torch.zeros(k, n, dtype=torch.bfloat16))
 
 
-def test_attention_rejects_head_dim_other_than_64():
-    """64 (ViT-B) and 192 (the family-A flagship) are the instantiations."""
-    qkv = torch.zeros(1, 4, 3 * 2 * 32, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="takes 64"):
+@pytest.mark.parametrize("dh", [24, 320])
+def test_attention_rejects_head_dims_the_kernels_do_not_take(dh):
+    """A head dim that is not a multiple of 16 (24: 32 heads at d 768) or
+    is over 256 (320) raises before any launch, naming ROADMAP F5's
+    remainder, forward and backward."""
+    qkv = torch.zeros(1, 4, 3 * 2 * dh, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="F5"):
         _build.attention_fwd(qkv, heads=2, n_valid=4, scale=1.0)
-    att = torch.zeros(1, 4, 2 * 32, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="takes 64"):
+    att = torch.zeros(1, 4, 2 * dh, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="F5"):
         _build.attention_bwd(qkv, att, att, torch.zeros(1, 2, 4), heads=2,
                              n_valid=4, scale=1.0)
 
@@ -256,19 +259,25 @@ def test_gemm_splits_only_the_weight_gradients(trans_b):
     (64, 1, True, "sm90"), (64, 64, True, "sm90"), (64, 192, True, "sm90"),
     (64, 193, True, "wmma"), (192, 1, False, "sm90"), (192, 65, False, "wmma"),
     (192, 1, True, "sm90"), (192, 64, True, "sm90"), (192, 65, True, "wmma"),
-    (192, 1024, True, "wmma"),
+    (192, 1024, True, "wmma"), (32, 256, False, "sm90"), (48, 192, True, "sm90"),
+    (48, 193, True, "wmma"), (96, 64, True, "sm90"), (96, 65, False, "wmma"),
+    (128, 64, False, "sm90"), (128, 192, True, "wmma"), (160, 64, True, "sm90"),
+    (256, 1, False, "wmma"), (256, 64, True, "wmma"),
 ])
 def test_attention_bwd_route(dh, n, dropout, route):
-    """Each (head dim, dropout) pair up to its named limit on
-    csrc/attention_bwd_sm90.cu (#4 at Dh 64 without dropout to 256 tokens;
-    #6's masked forms at Dh 64 to 192 tokens and at Dh 192 to 64, which
-    covers the flagship's and 'hier''s shapes); longer rows, to family A's
-    1,024, on csrc/attention_bwd.cu."""
+    """Each (sub-heads, dropout) pair up to its named limit on
+    csrc/attention_bwd_sm90.cu (#4 at Dh up to 64 without dropout to 256
+    tokens; #6's masked forms there to 192 tokens and from Dh 80 to 192 at
+    one 64-row tile, which covers the flagship's and 'hier''s shapes);
+    longer rows, to family A's 1,024, and Dh 208 to 256 on
+    csrc/attention_bwd.cu."""
     assert _build.ATTENTION_BWD_SM90_MAX_N == 256
     assert _build.ATTENTION_BWD_SM90_LIMITS == {
-        (64, False): 256, (64, True): _build.ATTENTION_BWD_SM90_MAX_N_DROPOUT,
-        (192, False): _build.ATTENTION_BWD_SM90_MAX_N_DH192,
-        (192, True): _build.ATTENTION_BWD_SM90_MAX_N_DH192}
+        (1, False): 256, (1, True): _build.ATTENTION_BWD_SM90_MAX_N_DROPOUT,
+        (2, False): _build.ATTENTION_BWD_SM90_MAX_N_DH192,
+        (2, True): _build.ATTENTION_BWD_SM90_MAX_N_DH192,
+        (3, False): _build.ATTENTION_BWD_SM90_MAX_N_DH192,
+        (3, True): _build.ATTENTION_BWD_SM90_MAX_N_DH192}
     assert _build.attention_bwd_route(dh, n, dropout) == route
 
 
@@ -279,34 +288,39 @@ def test_attention_bwd_route(dh, n, dropout, route):
     (192, 65, False, "two passes"), (192, 1000, False, "two passes"), (64, 64, True, "one pass"),
     (64, 196, True, "two passes"), (192, 64, True, "one pass"), (64, 192, True, "one pass"),
     (64, 193, True, "two passes"), (192, 65, True, "two passes"), (64, 1024, True, "two passes"),
+    (32, 256, False, "one pass"), (48, 257, False, "two passes"), (96, 192, False, "one pass"),
+    (128, 193, False, "two passes"), (128, 128, True, "one pass"), (96, 129, True, "two passes"),
+    (256, 64, False, "one pass"), (256, 65, True, "two passes"), (160, 64, True, "one pass"),
 ])
 def test_attention_fwd_route(dh, n_valid, masked, route):
     """The attention forward runs on csrc/packed_attn_sm90.cu, unmasked
     (#1, #7) and with the dropout mask (#5): one pass up to
-    PACKED_ONE_PASS_MAX_N keys (256 at Dh 64, ViT-B's 196 included; 64 at
-    Dh 192) or, masked, PACKED_ONE_PASS_MAX_N_MASKED (192 at Dh 64, which
-    covers 'hier''s fusion layers; 64 at Dh 192, the flagship), two passes
-    beyond."""
-    assert _build.PACKED_ONE_PASS_MAX_N == {64: 256, 192: 64}
-    assert _build.PACKED_ONE_PASS_MAX_N_MASKED == {64: 192, 192: 64}
+    PACKED_ONE_PASS_MAX_N keys by sub-heads (256 at Dh up to 64, ViT-B's
+    196 included; 192 at Dh 80 to 128; 64 from Dh 144) or, masked,
+    PACKED_ONE_PASS_MAX_N_MASKED (192 at Dh up to 64, which covers
+    'hier''s fusion layers; 128 at Dh 80 to 128; 64 from Dh 144, the
+    flagship), two passes beyond."""
+    assert _build.PACKED_ONE_PASS_MAX_N == {1: 256, 2: 192, 3: 64, 4: 64}
+    assert _build.PACKED_ONE_PASS_MAX_N_MASKED == {1: 192, 2: 128, 3: 64, 4: 64}
     assert _build.attention_fwd_route(dh, n_valid, masked) == route
 
 
 def test_attention_fwd_has_no_wmma_instance():
-    """Every (head dim, length, masked or not) up to family A's 1,024
-    takes a csrc/packed_attn_sm90.cu form, one pass or two, and each head
-    dim's one-pass limit, unmasked and masked, is its widest one-pass
-    instance of that kind."""
+    """Every (head dim the kernels take, length, masked or not) up to
+    family A's 1,024 takes a csrc/packed_attn_sm90.cu form, one pass or
+    two, and each sub-head count's one-pass limit, unmasked and masked, is
+    its widest one-pass instance of that kind."""
     for masked in (False, True):
-        for dh in _build.ATTENTION_HEAD_DIMS:
+        for dh in range(16, _build.ATTENTION_MAX_HEAD_DIM + 1, 16):
+            assert _build.attention_head_dim_ok(dh)
             for n in range(1, _build.PACKED_MAX_N + 1, 7):
                 assert _build.attention_fwd_route(dh, n, masked) in ("one pass", "two passes")
     for limits, forms in ((_build.PACKED_ONE_PASS_MAX_N, _build.PACKED_ATTENTION_FORMS),
                           (_build.PACKED_ONE_PASS_MAX_N_MASKED,
                            _build.PACKED_ATTENTION_MASKED_FORMS)):
-        for dh, limit in limits.items():
-            assert max(nk for d, nk in forms.values() if d == dh) == limit
-            assert (dh, 0) in forms.values()  # the two-pass form past it
+        for c, limit in limits.items():
+            assert max(nk for d, nk in forms.values() if d == 64 * c) == limit
+            assert (64 * c, 0) in forms.values()  # the two-pass form past it
 
 
 @pytest.mark.parametrize("rows, d, per_sm, threads, blocks", [
@@ -525,6 +539,14 @@ def _packed_lse64(qkv, heads, n_valid, scale):
     return torch.logsumexp((q @ k[:, :, :n_valid].transpose(-1, -2)) * scale, dim=-1)
 
 
+#: The head dims past 64 and 192 (ROADMAP F5), each on both sides of its
+#: one-pass limit (256 keys at Dh 32 and 48, 192 at 96 and 128, 64 at 256),
+#: ViT-B's pad-once 196 of 208 at Dh 96, and more items than the grid.
+_NEW_HEAD_DIM_FWD_SHAPES = [
+    (2, 256, 2, 32, 256), (2, 260, 2, 32, 257), (2, 200, 3, 48, 196), (2, 300, 2, 48, 300),
+    (2, 192, 2, 96, 192), (2, 208, 2, 96, 196), (2, 192, 2, 128, 192), (2, 193, 2, 128, 193),
+    (2, 64, 2, 256, 64), (2, 130, 2, 256, 100), (200, 64, 6, 128, 64), (100, 64, 3, 256, 64),
+]
 #: (b, n, heads, dh, n_valid): one 64-key tile, one key past it, ViT-B's
 #: 196 (whole and ragged), the 200- and 256-column one-pass forms on either
 #: side of 200 keys, the one-pass limit and one past it, the longest row, a
@@ -534,6 +556,7 @@ _ATTN_FWD_SHAPES = [
     (2, 200, 2, 64, 200), (2, 210, 2, 64, 201), (2, 256, 2, 64, 256), (2, 257, 2, 64, 257),
     (1, 1024, 2, 64, 1000), (1, 1, 1, 64, 1),
     (2, 64, 2, 192, 64), (2, 130, 2, 192, 100), (1, 1, 1, 192, 1),
+    *_NEW_HEAD_DIM_FWD_SHAPES,
 ]
 
 
@@ -572,6 +595,10 @@ _MASKED_FWD_SHAPES = [
     (1, 1000, 2, 192, 1000, 0.9), (3, 64, 2, 64, 50, 0.9), (3, 192, 2, 64, 150, 1.0),
     (3, 64, 2, 192, 41, 1.0), (2, 193, 2, 64, 130, 1.0), (300, 64, 4, 192, 64, 0.9),
     (300, 64, 4, 64, 64, 0.9), (100, 192, 4, 64, 192, 0.9),
+    (3, 192, 2, 32, 192, 0.9), (3, 193, 2, 48, 193, 0.9), (3, 128, 2, 96, 128, 0.9),
+    (3, 208, 2, 96, 196, 0.9), (3, 128, 2, 128, 128, 0.9), (3, 129, 2, 128, 129, 0.9),
+    (3, 64, 2, 256, 64, 0.9), (3, 65, 2, 256, 65, 0.9), (200, 64, 6, 128, 64, 0.9),
+    (100, 192, 2, 128, 192, 1.0),
 ]
 
 
@@ -587,8 +614,8 @@ def test_masked_attention_fwd_matches_plain(cuda, b, n, heads, dh, n_valid, keep
     qkv = _randn(rng, b, n, 3 * heads * dh)
     mask = torch.from_numpy(rng.random((b, heads, n, n)) < 0.9).to(cuda)
     route = _build.attention_fwd_route(dh, n_valid, True)
-    assert route == ("one pass" if n_valid <= _build.PACKED_ONE_PASS_MAX_N_MASKED[dh]
-                     else "two passes")
+    limit = _build.PACKED_ONE_PASS_MAX_N_MASKED[_build.attention_subheads(dh)]
+    assert route == ("one pass" if n_valid <= limit else "two passes")
     got, lse = _build.attention_fwd(qkv, heads, n_valid, s, with_lse=True, mask=mask, keep=keep)
     want, want_lse = attention_fwd_ref(qkv, heads, n_valid, s, mask=mask, keep=keep)
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
@@ -913,12 +940,16 @@ def test_attention_bwd_sm90_matches_plain(cuda, b, n, heads, n_valid):
 #: fusion layers [.., 64 | 192, 4 x 64] with enough (image, head) items
 #: that every block takes several (the next item's tiles in flight);
 #: ragged n_valid; one token and 37 (n * n not a multiple of 16: the mask
-#: by plain loads); two tiles; Dh 192 without dropout.
+#: by plain loads); two tiles; Dh 192 without dropout; the flagship at 6
+#: and 8 heads (Dh 128, 96), 'hier' at 8 (Dh 32), Dh 48 and 160.
 _MASKED_BWD_SHAPES = [
     (96, 64, 4, 192, 64, True), (96, 64, 4, 64, 64, True), (80, 192, 4, 64, 192, True),
     (96, 64, 4, 192, 50, True), (80, 192, 4, 64, 150, True), (3, 1, 2, 192, 1, True),
     (3, 1, 2, 64, 1, True), (70, 37, 4, 64, 30, True), (70, 37, 4, 192, 37, True),
     (40, 100, 4, 64, 99, True), (96, 64, 4, 192, 57, False), (3, 1, 2, 192, 1, False),
+    (96, 64, 6, 128, 64, True), (96, 64, 6, 128, 50, False), (96, 64, 8, 96, 64, True),
+    (3, 37, 2, 96, 30, True), (80, 192, 8, 32, 192, True), (40, 256, 4, 32, 250, False),
+    (80, 192, 4, 48, 150, True), (3, 64, 2, 160, 64, True),
 ]
 
 
@@ -954,12 +985,16 @@ def test_attention_bwd_sm90_masked_matches_plain(cuda, b, n, heads, dh, n_valid,
 @pytest.mark.parametrize("dh, dropout, n", [
     (64, False, 256), (64, False, 257), (64, True, 192), (64, True, 193),
     (192, False, 64), (192, False, 65), (192, True, 64), (192, True, 65),
+    (32, False, 256), (32, True, 193), (48, True, 192), (48, False, 257),
+    (96, False, 64), (96, True, 65), (128, True, 64), (128, False, 65), (128, True, 196),
+    (256, False, 64), (256, True, 65),
 ])
 def test_attention_bwd_routes_on_either_side_of_the_limit(cuda, dh, dropout, n):
-    """The same formula on both kernels: each (head dim, dropout) pair's
-    limit on the Hopper kernel, one token more on csrc/attention_bwd.cu,
-    each held to attention_bwd_ref and to a second call (bit for bit)."""
-    limit = _build.ATTENTION_BWD_SM90_LIMITS[(dh, dropout)]
+    """The same formula on both kernels: each (sub-heads, dropout) pair's
+    limit on the Hopper kernel, one token more on csrc/attention_bwd.cu
+    (Dh 256 always there), each held to attention_bwd_ref and to a second
+    call (bit for bit)."""
+    limit = _build.ATTENTION_BWD_SM90_LIMITS.get((_build.attention_subheads(dh), dropout), 0)
     assert _build.attention_bwd_route(dh, n, dropout) == ("sm90" if n <= limit else "wmma")
     qkv, att, datt, lse, mask, s = _attention_bwd_case(
         np.random.default_rng(54), 2, n, 2, dh, n - 3, dropout)
@@ -974,16 +1009,122 @@ def test_attention_bwd_routes_on_either_side_of_the_limit(cuda, dh, dropout, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh, n, dropout", [
+    (96, 64, True), (96, 130, False), (32, 64, False), (48, 100, True), (160, 64, False),
+    (96, 196, True),
+])
+def test_attention_never_writes_past_a_ragged_head(cuda, dtype, dh, n, dropout):
+    """A ragged head (Dh not a multiple of 64) is read and written through
+    boxes of 64 columns: the kernels' stores stop at Dh.  Each launch
+    writes into a buffer filled with a sentinel and one row longer than
+    its output (the last head's ragged box would reach into it): the
+    output equals the wrapper's, and the sentinel past it is untouched,
+    forward (out) and backward (dqkv, on the Hopper kernel and on
+    attention_bwd.cu)."""
+    rng = np.random.default_rng(71)
+    b, heads = 3, 2
+    qkv, att, datt, lse, mask, s = _attention_bwd_case(rng, b, n, heads, dh, n - 1, dropout)
+    qkv, att, datt = qkv.to(dtype), att.to(dtype), datt.to(dtype)
+    att, lse = _build.attention_fwd(qkv, heads, n - 1, s, with_lse=True, mask=mask, keep=0.9)
+    mask_u8 = _build._mask_u8(mask)
+    sentinel = 12345.0
+    lib, stream = _build.library(), _build._stream()
+    f32 = dtype == torch.float32
+
+    def buffer(like):
+        flat = torch.full((like.numel() + like.shape[-1],), sentinel, dtype=dtype, device=cuda)
+        return flat, flat[:like.numel()].view_as(like)
+
+    flat, out = buffer(att)
+    fwd = lib.sfc_packed_attention_f32 if f32 else lib.sfc_packed_attention_bf16
+    assert fwd(qkv.data_ptr(), out.data_ptr(), None, _build._ptr(mask_u8), b, n, heads, dh,
+               n - 1, s, 0.9, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, _build.attention_fwd(qkv, heads, n - 1, s, mask=mask, keep=0.9))
+    assert bool((flat[att.numel():] == sentinel).all())
+
+    want = _build.attention_bwd(qkv, att, datt, lse, heads, n - 1, s, mask=mask, keep=0.9)
+    delta = torch.empty((b, heads, n), dtype=torch.float32, device=cuda)
+    args = (qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(),
+            _build._ptr(mask_u8))
+    tail = (b, n, heads, dh, n - 1, s, 0.9, stream)
+    calls = ([lambda d: lib.sfc_attention_bwd_f32(*args, delta.data_ptr(), d, *tail)] if f32
+             else [lambda d: lib.sfc_attention_bwd_bf16(*args, delta.data_ptr(), d, *tail)])
+    if not f32 and _build.attention_bwd_route(dh, n, dropout) == "sm90":
+        calls.append(lambda d: lib.sfc_attention_bwd_sm90_bf16(*args, d, *tail))
+    for call in calls:
+        flat, dqkv = buffer(qkv)
+        assert call(dqkv.data_ptr()) == 0
+        torch.cuda.synchronize()
+        if f32 or len(calls) == 1 or call is calls[1]:
+            assert torch.equal(dqkv, want)
+        else:  # the WMMA kernel where the route picks the Hopper one
+            _within(dqkv, want, 2e-2, "dqkv")
+        assert bool((flat[qkv.numel():] == sentinel).all())
+
+
+#: The F5 guard: the flagship at 6 and 8 heads (Dh 128, 96 at d 768) and
+#: 'hier' at 2 (Dh 128 at d 256), which raised on the card before.
+@pytest.mark.gpu
+@pytest.mark.parametrize("model, heads", [("vit1d", 6), ("vit1d", 8), ("hier", 2)])
+def test_head_dim_models_match_plain_path(cuda, model, heads):
+    """A small flagship (or 'hier') at a head count that gives a head dim
+    other than 64 and 192 on the card: served through #7 and trained one
+    step through #5 and #6, each against the plain versions."""
+    from unittest import mock
+
+    import sfc_vit_tpu_torch.models.layers as layers
+    import sfc_vit_tpu_torch.ops.attention as attention
+    from sfc_vit_tpu_torch.ops.fused_torch_attention import torch_mha_train
+    from sfc_vit_tpu_torch.registry import build_model, preset_config
+    from sfc_vit_tpu_torch.serving import ServingEngine
+
+    cfg = preset_config("flagship", model=model, img_size=16, depth=2, n_heads=heads,
+                        dtype="bfloat16")
+    net = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    x = _randn(np.random.default_rng(27), 6, 16, 16, 3)
+    plain_packed = lambda qkv, heads, scale=None: _packed_xla_ref(  # noqa: E731
+        qkv, heads, (qkv.shape[-1] // 3 // heads) ** -0.5)
+    engine = ServingEngine(net, None, (16, 16, 3), batch_sizes=(8,), dtype=torch.bfloat16,
+                           device=cuda)
+    before = packed_flash_attention.launches
+    got = engine.predict(x.float().cpu().numpy())
+    assert packed_flash_attention.launches > before
+    with torch.no_grad(), mock.patch.object(attention, "packed_flash_attention", plain_packed):
+        want = net.eval()(x).float()
+    # chip_smoke.py's logit gate: within 3 % of the largest |logit|
+    err = float((torch.as_tensor(got).to(cuda) - want).abs().max())
+    assert err <= 0.03 * float(want.abs().max()), err
+    net.train()
+    grads = []
+    before = (fused_torch_mha.launches, fused_torch_mha.bwd_launches)
+    for plain in (False, True):
+        ctx = (mock.patch.object(layers, "fused_torch_mha", torch_mha_train) if plain
+               else mock.patch.object(layers, "fused_torch_mha", fused_torch_mha))
+        net.zero_grad()
+        with ctx, layers.dropout_generator(torch.Generator(device=cuda).manual_seed(1)):
+            net(x).float().sum().backward()
+        grads.append([q.grad.float().clone() for q in net.parameters()])
+    assert fused_torch_mha.launches > before[0] and fused_torch_mha.bwd_launches > before[1]
+    for g, w in zip(*grads):
+        assert float((g - w).norm() / w.norm()) <= 0.1
+
+
+@pytest.mark.gpu
 def test_gemm_and_attention_bwd_attrs_without_spills(cuda):
     """``flash_kernel_attrs`` lists the GEMM's nine instances (three
     layouts, three act kinds), its split-K sum, LayerNorm form (#15) and
-    ``gemm_profile``'s instance, and the attention backward's five
-    instances (#4, #6), none with local memory (spills)."""
+    ``gemm_profile``'s instance, and the attention backward's seven
+    instances (#4, #6; Dh 128's two among them) and the fp32 backward's by
+    sub-heads, none with local memory (spills)."""
     attrs = _build.flash_kernel_attrs()
     names = ({f"gemm {f}" for f in _build.GEMM_FORMS}
-             | set(_build.ATTENTION_BWD_SM90_FORMS))
+             | set(_build.ATTENTION_BWD_SM90_FORMS)
+             | {f for f in _build.F32_KERNEL_FORMS if f.startswith("attention_bwd_f32")})
     assert {"gemm NN LayerNorm", "gemm NN act", "gemm NN act profiled",
-            "attention_bwd_sm90"} <= names
+            "attention_bwd_sm90", "attention_bwd_sm90 dh128 dropout",
+            "attention_bwd_f32 dkv dh256 masked"} <= names
     assert names <= set(attrs)
     for name in names:
         assert attrs[name]["local_bytes"] == 0, name
@@ -1214,15 +1355,16 @@ def test_torch_mha_bwd_matches_ref(cuda, b, n, d, heads, n_actual):
 
 
 def test_packed_attention_launcher_rejects_what_the_kernel_does_not_take():
-    """#7's launcher: head dims 64 and 192, N up to PACKED_MAX_N, n_valid in
-    [1, N], and a CUDA tensor."""
+    """#7's launcher: head dims that are multiples of 16 up to 256, N up to
+    PACKED_MAX_N, n_valid in [1, N], and a CUDA tensor."""
     def qkv(n, dh, heads=2):
         return torch.zeros(1, n, 3 * heads * dh, dtype=torch.bfloat16)
 
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        _build.attention_fwd(qkv(64, 192), 2, 64, 1.0)
-    with pytest.raises(ValueError, match="takes 64 or 192"):
-        _build.attention_fwd(qkv(64, 128), 2, 64, 1.0)
+    for dh in (192, 128, 96, 32):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            _build.attention_fwd(qkv(64, dh), 2, 64, 1.0)
+    with pytest.raises(ValueError, match="a multiple of 16 up to 256"):
+        _build.attention_fwd(qkv(64, 40), 2, 64, 1.0)
     with pytest.raises(ValueError, match="over the kernel's 1024 tokens"):
         _build.attention_fwd(qkv(_build.PACKED_MAX_N + 1, 64), 2, 64, 1.0)
     for n_valid in (0, 65):
@@ -1392,11 +1534,16 @@ def test_torch_mha_bwd_repeats_bit_for_bit(cuda, b, n, d, heads, dtype):
 #: 64), the flagship's fp32 layer (4 heads of 192), 'hier''s fusion
 #: length, ragged rows and key limits, the longest rows, 1,024 tokens
 #: (the 1-D tokenizer at patch 1), ViT-B's 196 tokens (one pass over 200
-#: key columns) and a ragged row just past the one-pass width (two passes).
+#: key columns), a ragged row just past the one-pass width (two passes),
+#: and the head dims past 64 and 192 (32, 48, 96, 128, 256) on both sides
+#: of their one-pass limits, Dh 32 at one tile without the dk/dv handoff.
 _ATTN_F32_SHAPES = [(32, 64, 4, 64, 64), (64, 64, 4, 192, 64), (4, 64, 4, 192, 50),
                     (2, 192, 4, 64, 192), (3, 200, 2, 192, 130), (2, 1024, 2, 64, 1024),
                     (1, 1024, 2, 192, 1000), (2, 24, 2, 64, 20), (4, 196, 12, 64, 196),
-                    (2, 300, 2, 64, 257)]
+                    (2, 300, 2, 64, 257), (32, 64, 8, 32, 64), (3, 200, 2, 48, 196),
+                    (2, 192, 2, 96, 192), (2, 208, 2, 96, 196), (16, 64, 6, 128, 64),
+                    (2, 193, 2, 128, 193), (8, 64, 3, 256, 64), (2, 130, 2, 256, 100),
+                    (2, 40, 2, 32, 33)]
 
 
 @pytest.mark.gpu
@@ -1432,7 +1579,9 @@ def test_attention_f32_matches_plain(cuda, b, n, heads, dh, n_valid, masked):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("dh, n, n_valid", [(64, 130, 60), (64, 256, 196), (192, 70, 50)])
+@pytest.mark.parametrize("dh, n, n_valid", [(64, 130, 60), (64, 256, 196), (192, 70, 50),
+                                         (32, 256, 196), (96, 130, 60), (128, 192, 130),
+                                         (256, 70, 50)])
 def test_attention_f32_forms_match_plain(cuda, dh, n, n_valid, masked):
     """Every instance of csrc/packed_attn_f32.cu that covers n_valid (one
     pass over each width of key columns, and two passes), forced by
@@ -1447,7 +1596,8 @@ def test_attention_f32_forms_match_plain(cuda, dh, n, n_valid, masked):
     want, want_lse = attention_fwd_ref(qkv, heads, n_valid, s, mask=mask, keep=keep)
     table = (_build.PACKED_ATTENTION_F32_MASKED_FORMS if masked
              else _build.PACKED_ATTENTION_F32_FORMS)
-    forms = [nk for d, nk in table.values() if d == dh and (nk == 0 or nk >= n_valid)]
+    forms = [nk for d, nk in table.values()
+             if d == 64 * _build.attention_subheads(dh) and (nk == 0 or nk >= n_valid)]
     assert _build.attention_fwd_f32_columns(dh, n_valid, masked) in forms and 0 in forms
     for nk in forms:
         att, lse = _build.attention_fwd_f32_form(qkv, heads, n_valid, s, nk, with_lse=True,
@@ -1799,15 +1949,19 @@ def test_attention_fwd_f32_columns():
     refuses to run short."""
     want = {(64, 1): 64, (64, 64): 64, (64, 65): 128, (64, 192): 192, (64, 196): 200,
             (64, 200): 200, (64, 201): 256, (64, 256): 256, (64, 257): 0, (64, 1024): 0,
-            (192, 50): 64, (192, 64): 64, (192, 65): 0}
+            (192, 50): 64, (192, 64): 64, (192, 65): 0, (32, 196): 200, (48, 256): 256,
+            (96, 192): 192, (128, 130): 192, (128, 193): 0, (256, 64): 64, (256, 65): 0}
     for (dh, n_valid), nk in want.items():
         assert _build.attention_fwd_f32_columns(dh, n_valid) == nk, (dh, n_valid)
-        assert (dh, nk) in _build.PACKED_ATTENTION_F32_FORMS.values()
-    # with the mask: one pass to 192 keys at Dh 64
+        c = _build.attention_subheads(dh)
+        assert (64 * c, nk) in _build.PACKED_ATTENTION_F32_FORMS.values()
+    # with the mask: one pass to 192 keys at Dh 64, 128 at Dh 80 to 128
     for (dh, n_valid), nk in {(64, 192): 192, (64, 196): 0, (64, 100): 128, (192, 64): 64,
-                              (192, 65): 0}.items():
+                              (192, 65): 0, (96, 128): 128, (128, 129): 0,
+                              (32, 192): 192}.items():
         assert _build.attention_fwd_f32_columns(dh, n_valid, masked=True) == nk, (dh, n_valid)
-        assert (dh, nk) in _build.PACKED_ATTENTION_F32_MASKED_FORMS.values()
+        c = _build.attention_subheads(dh)
+        assert (64 * c, nk) in _build.PACKED_ATTENTION_F32_MASKED_FORMS.values()
     qkv = torch.zeros(1, 100, 3 * 64)
     with pytest.raises(ValueError, match="no instance"):
         _build.attention_fwd_f32_form(qkv, 1, 100, 0.125, 64)
@@ -2016,7 +2170,8 @@ def test_flash_kernel_attrs_list_the_wgmma_kernels_without_spills(cuda):
             "flash_dq", "flash_dkv", "local_bwd dq", "local_bwd dkv",
             "packed_attention dh64 one pass",
             "packed_attention dh64 two passes", "packed_attention dh192 one pass",
-            "packed_attention dh192 two passes", "gather_project shared x",
+            "packed_attention dh192 two passes", "packed_attention dh128 one pass 192 keys",
+            "packed_attention masked dh256 two passes", "gather_project shared x",
             "gather_project global x"} <= set(attrs)
     assert (set(_build.PACKED_ATTENTION_FORMS) | set(_build.PACKED_ATTENTION_MASKED_FORMS)
             | set(_build.LN_ROWS_BWD_FORMS) <= set(attrs))
