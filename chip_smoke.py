@@ -6,9 +6,10 @@ own fp32), the hierarchical family-A model's (bf16 and fp32), the
 long-context models' (16,384 tokens with token merge, its hybrid
 local/global schedule, and 4,096) and the reference notebook's model's
 (fp32 and bf16, 2-D and 1-D tokenizers) train steps and serving, the
-ViT-B/16 preset's at its own fp32, per-layer remat, and the flagship,
-'hier' and ViT-B/16 at head dims other than 64 and 192, once on one
-NVIDIA GPU.
+ViT-B/16 preset's at its own fp32, per-layer remat, the flagship,
+'hier' and ViT-B/16 at head dims other than 64 and 192, and the
+long-context models at their own fp32 (head dims 64, 128, 256), once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one
                                  # NVIDIA H100 (sm_90a) and nvcc
@@ -258,6 +259,29 @@ Phases, each of which raises (non-zero exit) on failure:
    layers x steps or forwards, one step's gradients and the served logits
    against the plain path.  The kernel line's attention entries gain a
    ``head_dims`` list of the widths (a) held.
+18. long context in fp32 (the JAX CLI's default dtype): (a) #8-#11's fp32
+   forms (``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_f32.cu``: 3xTF32 on
+   ``wgmma``) at CurveViT-S/12's [16, 4,096, 6 x 64] (#8's single step,
+   #9), longctx-16k's [2, 16,384, 6 x 64] (#8 streaming, #10, #11), both
+   at 3 heads of 128, CurveViT-S/12 at 6 heads of 256, a ragged 8,300 x
+   9,000 at Dh 256 and the 1-D tokenizer's [32, 1,089, 4 x 64], q, k, v
+   as views of the packed projection: each against its plain version
+   within 1e-4 of its largest |value|, the lse against fp64, every output
+   bit for bit on a second call, each timed beside its plain version, its
+   bound (nominal operations at 3xTF32's 165 TFLOP/s) and SDPA fp32;
+   ``flash_attention_with_lse`` on the card in bf16 at Dh 64 and fp32 at
+   64, 128 and 256, ``utils.profiling.attention_rows`` of four queries
+   against fp64; (b) CurveViT-S/12 at 4,096 tokens as its preset is (no
+   dtype; batch 16, 4 steps) and longctx-16k at ``dtype=None`` (batch 2,
+   4 steps), both at 3 heads of ``dim_head`` 128 and CurveViT-S/12 at
+   ``dim_head`` 256 (depth 2, 2 steps, batch 8 and 2): ``Trainer.fit``,
+   an eval batch and ``ServingEngine(dtype=None)``, the fp32 flash
+   counters at layers x forwards and layers x steps (the bf16 ones at 0),
+   every parameter moved, one step's gradients (relative L2 1e-2) and the
+   logits (1e-4 of the largest |logit|) against the plain path; the first
+   two's step times and profiles; and the 1-D tokenizer over 33 x 33
+   pixels at patch 1 (family A, 1,089 tokens) evaluated and served the
+   same way.
    Then no module of jax, flax or the JAX package may have loaded.  Each
    phase prints its seconds.
 
@@ -332,6 +356,7 @@ from sfc_vit_tpu_torch.training import (
     make_optimizer,
     make_train_step,
 )
+from sfc_vit_tpu_torch.utils.profiling import attention_rows
 
 DEVICE = "cuda"
 B, N, D, HEADS, F = 64, 196, 768, 12, 3072
@@ -4064,6 +4089,346 @@ def phase_head_dim_models(card: str) -> dict:
     return total
 
 
+# -- 18. long context at the JAX CLI's own fp32: #8-#11 in float32 -----------
+
+#: (label, b, nq, nk, heads, dh, packed) of the fp32 flash kernels' checks:
+#: the shapes phase 18's models give #8-#11 (CurveViT-S/12's 4,096 tokens:
+#: #8's single step and #9; longctx-16k's 16,384: #8 streaming, #10, #11;
+#: each at 3 heads of 128, and CurveViT-S/12 at 6 heads of 256), a ragged
+#: nq != nk past both gates at Dh 256 (#8 streaming, #10 and #11 at C = 4)
+#: and the 1-D tokenizer's 1,089 tokens (#8 on the projection's views,
+#: rows of odd length).
+FLASH_F32_CASES = (("CurveViT-S/12", VS_B, VS_N, VS_N, 6, 64, True),
+                   ("longctx-16k", LC_B, LC_N, LC_N, 6, 64, True),
+                   ("CurveViT-S/12, 3 heads of 128", 8, VS_N, VS_N, 3, 128, True),
+                   ("longctx-16k, 3 heads of 128", LC_B, LC_N, LC_N, 3, 128, True),
+                   ("CurveViT-S/12, 6 heads of 256", 8, VS_N, VS_N, 6, 256, True),
+                   ("ragged, Dh 256", 1, 8300, 9000, 2, 256, False),
+                   ("1-D tokenizer, 33 x 33 px", NB_B, 1089, 1089, 4, 64, True))
+#: The kernel-line entries of #8-#11's fp32 forms and the case each one's
+#: numbers come from (the others are printed and listed by head dim).
+FLASH_F32_ENTRIES = {"flash_attention_f32": "longctx-16k",
+                     "flash_attention_fused_bwd_f32": "CurveViT-S/12",
+                     "flash_attention_dq_f32": "longctx-16k",
+                     "flash_attention_dkv_f32": "longctx-16k"}
+_FLASH_F32_COUNTS = (("flash_attention_f32", "f32_launches"),
+                     ("flash_attention_fused_bwd_f32", "f32_fused_bwd_launches"),
+                     ("flash_attention_dq_f32", "f32_dq_launches"),
+                     ("flash_attention_dkv_f32", "f32_dkv_launches"),
+                     ("flash_attention", "launches"),
+                     ("flash_attention_fused_bwd", "fused_bwd_launches"),
+                     ("flash_attention_dq", "dq_launches"),
+                     ("flash_attention_dkv", "dkv_launches"))
+LC_F32_STEPS, LC_F32_STEPS_WIDE = 4, 2
+
+
+def _flash_f32_counts() -> dict:
+    return {name: getattr(flash.flash_attention, attr) for name, attr in _FLASH_F32_COUNTS}
+
+
+def _reset_flash_f32_counts() -> None:
+    for _, attr in _FLASH_F32_COUNTS:
+        setattr(flash.flash_attention, attr, 0)
+
+
+def _flash_f32_case(card: str, gen, label, b, nq, nk, h, dh, packed) -> dict:
+    """#8 (in JAX's form for nk) and #9 or #10 + #11 (by JAX's gate) in
+    fp32 at one shape: each output against its plain version within
+    F32_TOL of its largest |value|, the lse against fp64, every output
+    bit for bit on a second call; then each timed in turns with its plain
+    version, beside its bound (nominal operations, 4 Nq Nk Dh for #8, 10
+    for #9, 6 for #10, 8 for #11, at 3xTF32's 165 TFLOP/s; the fp32 bytes
+    of q, k, v, g, out, lse and the outputs at 3.35 TB/s) and SDPA fp32
+    (forward; its autograd backward for the backward kernels) on
+    contiguous [B, H, N, Dh] copies.  Returns {entry: row}."""
+    s = dh ** -0.5
+    if packed:
+        qkv = _randn(gen, b, nq, 3 * h * dh, dtype=torch.float32)
+        q, k, v = qkv.view(b, nq, 3, h, dh).unbind(2)
+    else:
+        q, k, v = (_randn(gen, b, n, h, dh, dtype=torch.float32) for n in (nq, nk, nk))
+    g = _randn(gen, b, nq, h, dh, dtype=torch.float32)
+    shape = f"q [{b}, {nq}, {h}, {dh}], k/v [{b}, {nk}, {h}, {dh}]{' views of qkv' if packed else ''}"
+    single, fused = flash.uses_single_kstep(nk), flash.uses_fused_bwd(nq, nk)
+    print(f"fp32 flash, {label}: {shape}, #8 {'single step' if single else 'streaming'}, "
+          f"{'#9' if fused else '#10 + #11'}:")
+    rows = {}
+    with torch.no_grad():
+        out, lse = flash.flash_fwd(q, k, v, s, return_lse=True)
+        err = _frac_err("out", out, flash.flash_fwd_ref(q, k, v, s), F32_TOL)
+        lse_err, lse_ok = _agree(lse, _lse64_chunked(q, k, s), **LSE_TOL)
+        print(f"  lse: max abs err {lse_err:.4g} against fp64")
+        _check(lse_ok, f"{label}: #8's fp32 lse disagrees with the fp64 log-sum-exp")
+        _check(torch.equal(flash.flash_fwd(q, k, v, s), out), f"{label}: #8 not bit for bit")
+        io = 4 * b * h * dh * (nq + nk)
+        rows["flash_attention_f32"] = dict(
+            errs=[err], shape=shape, form="single step" if single else "streaming",
+            **_bound_f32(0.0, 2 * io + 4 * b * h * nq, 4 * b * h * nq * nk * dh))
+        delta = flash.flash_delta(g, out)
+        if fused:
+            def kern():
+                return flash.flash_fused_bwd(q, k, v, out, lse, g, s)
+
+            def plain():
+                return flash.flash_fused_bwd_ref(q, k, v, g, s)
+            parts = {"flash_attention_fused_bwd_f32": (kern, plain, 10, ("dq", "dk", "dv"))}
+        else:
+            parts = {"flash_attention_dq_f32": (
+                         lambda: (flash.flash_dq(q, k, v, g, lse, delta, s),),
+                         lambda: (flash.flash_dq_ref(q, k, v, g, lse, delta, s),), 6, ("dq",)),
+                     "flash_attention_dkv_f32": (
+                         lambda: flash.flash_dkv(q, k, v, g, lse, delta, s),
+                         lambda: flash.flash_dkv_ref(q, k, v, g, lse, delta, s), 8,
+                         ("dk", "dv"))}
+        for name, (kern, plain, ops, names) in parts.items():
+            got, want = kern(), plain()
+            errs = [_frac_err(nm, a, w, F32_TOL) for nm, a, w in zip(names, got, want)]
+            _check(all(torch.equal(a, c) for a, c in zip(got, kern())),
+                   f"{label}: {name} not bit for bit on a second call")
+            del got, want
+            rows[name] = dict(errs=errs, shape=shape, **_bound_f32(
+                0.0, 2 * io + 8 * b * h * nq + 4 * b * h * dh * (2 * nq + nk), ops * b * h
+                * nq * nk * dh))
+            t = rows[name]
+            t["ms"], t["plain_ms"] = _ab_ms(kern, plain, iters=3)
+        t = rows["flash_attention_f32"]
+        t["ms"], t["plain_ms"] = _ab_ms(lambda: flash.flash_fwd(q, k, v, s),
+                                        lambda: flash.flash_fwd_ref(q, k, v, s), iters=3)
+    lib_fwd, lib_bwd = _sdpa_ms(q, k, v, g)
+    for name, t in rows.items():
+        t["library_ms"] = lib_fwd if name == "flash_attention_f32" else lib_bwd
+        nominal = t["bound_ms"] * 165e9 if t["bound_by"] == "operations" else None
+        print(f"  {name}: kernel {t['ms']:.3f} ms"
+              + (f" ({_tflops(nominal, t['ms'])} nominal)" if nominal else "")
+              + f", plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+              f"({t['bound_by']}), SDPA fp32 "
+              f"{'forward' if name == 'flash_attention_f32' else 'backward'} "
+              f"{t['library_ms']:.3f} ms; max abs err {max(t['errs']):.4g}; {shape}, {card}")
+    del q, k, v, g, out, lse, delta
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _lse_rows_case(card: str, gen, b, n, h, dh, dtype) -> None:
+    """``flash_attention_with_lse`` on the card (#8 with its lse) and
+    ``attention_rows`` of a few queries from it against fp64 softmax rows:
+    within F32_TOL of the largest weight, each row summing to 1 within
+    F32_TOL."""
+    qkv = _randn(gen, b, n, 3 * h * dh, dtype=dtype)
+    q, k, v = qkv.view(b, n, 3, h, dh).unbind(2)
+    before = _flash_f32_counts()
+    with torch.no_grad():
+        out, lse = flash.flash_attention_with_lse(q, k, v)
+    after = _flash_f32_counts()
+    name = "flash_attention_f32" if dtype == torch.float32 else "flash_attention"
+    _check(after[name] == before[name] + 1, f"flash_attention_with_lse: launches {after}")
+    queries = [0, 1, n // 2, n - 1]
+    rows = attention_rows(q, k, lse, queries)
+    qd, kd = q[:, queries].double(), k.double()
+    want = torch.softmax(torch.einsum("brhd,bnhd->bhrn", qd, kd) * dh ** -0.5, -1)
+    err, scale = float((rows.double() - want).abs().max()), float(want.abs().max())
+    dev = float((rows.double().sum(-1) - 1).abs().max())
+    print(f"flash_attention_with_lse, {dtype} [{b}, {n}, {h}, {dh}]: out {tuple(out.shape)}, "
+          f"lse {tuple(lse.shape)}; attention_rows of queries {queries} against fp64: max abs "
+          f"err {err:.3g} (max weight {scale:.3g}), row sums within {dev:.3g} of 1 (tolerance "
+          f"{F32_TOL}), {card}")
+    _check(err <= F32_TOL * scale and dev <= F32_TOL,
+           "attention_rows from the kernel's lse disagree with fp64")
+
+
+def phase_flash_f32_kernels(card: str) -> dict:
+    """(a) #8-#11 in fp32 at FLASH_F32_CASES (:func:`_flash_f32_case`),
+    and the LSE capture path on the card in bf16 at Dh 64 and fp32 at 64,
+    128 and 256.  Returns the kernel-line rows of the four fp32 entries
+    (each with its other cases by head dim)."""
+    gen = torch.Generator().manual_seed(18)
+    by_case = {case[0]: _flash_f32_case(card, gen, *case) for case in FLASH_F32_CASES}
+    for dh, dtype in ((64, torch.bfloat16), (64, torch.float32), (128, torch.float32),
+                      (256, torch.float32)):
+        _lse_rows_case(card, gen, 2, 4096, 2, dh, dtype)
+    res = {}
+    for name, primary in FLASH_F32_ENTRIES.items():
+        held = {label: rows[name] for label, rows in by_case.items() if name in rows}
+        row = dict(held[primary])
+        row["max_abs_err"] = max(e for r in held.values() for e in r["errs"])
+        row["cases"] = {label: {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                   "library_ms")}
+                        for label, r in held.items() if label != primary}
+        if name == "flash_attention_f32":
+            row["single_step"] = {k: by_case["CurveViT-S/12"][name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        row.pop("errs")
+        res[name] = row
+    return res
+
+
+def _flash_f32_model(card: str, label: str, cfg, batch: int, steps: int, bwd: tuple,
+                     family_a: bool = False, timed: bool = False) -> dict:
+    """One long-context model at its own fp32 on the card: ``Trainer.fit``
+    for ``steps`` steps at ``batch`` plus an eval batch (family A: the eval
+    forward only), every loss finite, every parameter moved, the fp32 flash
+    counters at layers x forwards (#8) and layers x steps (the kernels in
+    ``bwd``) and the bf16 ones at 0; one step's gradients against the plain
+    path (relative L2 within F32_GRAD_REL_TOL) and the eval logits within
+    F32_TOL of the largest |logit|; ``ServingEngine(dtype=None)`` answers 1
+    and ``batch`` images, #8 launched 2 x layers, logits within F32_TOL of
+    the plain path's.  Returns the launch counts."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    _check(all(p.dtype == torch.float32 for p in model.parameters()), f"{label}: not fp32")
+    layers = cfg.depth
+    plain_path = _plain_longctx
+    stats = ((0.5,) * 3, (0.25,) * 3)
+    tf = make_eval_transform(*stats, device=DEVICE)
+    test_ds = synthetic_dataset(n=batch, hw=cfg.img_size, num_classes=cfg.num_classes, seed=1)
+    xe = tf(next(epoch_batches(test_ds, batch, shuffle=False, drop_last=False))[0])
+    _reset_flash_f32_counts()
+    counts = {}
+    if family_a:
+        model.eval()
+        with torch.no_grad():
+            got = model(xe)
+        torch.cuda.synchronize()
+        counts = _flash_f32_counts()
+        want = {name: 0 for name in counts}
+        want["flash_attention_f32"] = layers
+    else:
+        train_ds = synthetic_dataset(n=batch * steps, hw=cfg.img_size,
+                                     num_classes=cfg.num_classes, seed=0)
+        trainer = Trainer(model, TrainConfig(num_classes=cfg.num_classes, epochs=1,
+                                             warmup_epochs=1), steps_per_epoch=steps)
+        before = [p.detach().clone() for p in model.parameters()]
+        record = trainer.fit(
+            lambda: ((tf(x), y) for x, y in epoch_batches(train_ds, batch, seed=0)),
+            lambda: ((tf(x), y) for x, y in epoch_batches(test_ds, batch, shuffle=False,
+                                                          drop_last=False)))
+        torch.cuda.synchronize()
+        counts = _flash_f32_counts()
+        print(f"{label}: Trainer.fit, {steps} steps at batch {batch} + eval of "
+              f"{len(test_ds)}: {record}")
+        _check(bool(np.isfinite(record["train_loss"])) and
+               bool(np.isfinite(record["test_loss"])), f"{label}: non-finite loss")
+        _check(trainer.state.step == steps, f"{label}: {trainer.state.step} steps taken")
+        still = [nm for (nm, p), q in zip(model.named_parameters(), before) if torch.equal(p, q)]
+        _check(not still, f"{label}: parameters unchanged after {steps} steps: {still}")
+        del before
+        want = {name: 0 for name in counts}
+        want["flash_attention_f32"] = layers * (steps + 1)
+        for name in bwd:
+            want[name] = layers * steps
+        model.eval()
+        with torch.no_grad():
+            got = model(xe)
+    print(f"{label}: launches {counts}")
+    _check(counts == want, f"{label}: launches {counts}, expected {want}")
+    with torch.no_grad(), plain_path():
+        plain = model(xe)
+    err, scale = float((got - plain).abs().max()), float(plain.abs().max())
+    print(f"{label}: eval logits [{batch}, {cfg.num_classes}] vs plain path max abs err "
+          f"{err:.4g} (max |logit| {scale:.4g}; tolerance {F32_TOL} x max |logit|)")
+    _check(bool(torch.isfinite(got).all()) and err <= F32_TOL * scale,
+           f"{label}: eval logits disagree with the plain path")
+
+    if not family_a:
+        x, y = next(epoch_batches(train_ds, batch, seed=0))
+        data = (tf(x), torch.from_numpy(y).long().to(DEVICE))
+        model.train()
+        state = _lr_zero_state(model)
+        step = make_train_step(cfg.num_classes, use_mixing=False)
+        m_k = step(state, data, torch.Generator())
+        grads = {nm: p.grad.detach().clone() for nm, p in model.named_parameters()}
+        with plain_path():
+            m_p = step(state, data, torch.Generator())
+        rel = {nm: float((grads[nm] - p.grad).norm() / p.grad.norm())
+               for nm, p in model.named_parameters()}
+        worst = max(rel, key=rel.get)
+        print(f"{label}: one train step, kernels vs plain path: loss {float(m_k['loss']):.6f} "
+              f"vs {float(m_p['loss']):.6f}; gradient relative L2 error max {rel[worst]:.4g} "
+              f"({worst}), median {float(np.median(list(rel.values()))):.4g} over {len(rel)} "
+              f"tensors (tolerance {F32_GRAD_REL_TOL})")
+        _check(rel[worst] <= F32_GRAD_REL_TOL, f"{label}: kernel-path gradients disagree "
+               "with the plain path")
+        del grads
+        if timed:
+            def step_ms(plain: bool) -> float:
+                with plain_path() if plain else contextlib.nullcontext():
+                    step(state, data, torch.Generator())
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    for _ in range(2):
+                        step(state, data, torch.Generator())
+                    torch.cuda.synchronize()
+                return (time.perf_counter() - t1) / 2 * 1e3
+            k_ms, p_ms = step_ms(False), step_ms(True)
+            n_tok = (cfg.img_size // cfg.patch_size) ** 2
+            print(f"{label}: train step at batch {batch}: kernels {k_ms:.1f} ms = "
+                  f"{batch * n_tok / k_ms * 1e3:.0f} tokens/s, plain path {p_ms:.1f} ms = "
+                  f"{batch * n_tok / p_ms * 1e3:.0f} tokens/s, {card}")
+            _profile(lambda: step(state, data, torch.Generator()),
+                     f"{label} fp32 train step at batch {batch}", steps=1)
+        del state, data
+
+    engine = ServingEngine(copy.deepcopy(model), None, (cfg.img_size, cfg.img_size, 3),
+                           batch_sizes=(1, batch), dtype=None, device=DEVICE)
+    rng = np.random.default_rng(18)
+    requests = [rng.standard_normal((k, cfg.img_size, cfg.img_size, 3), dtype=np.float32)
+                for k in (1, batch)]
+    _reset_flash_f32_counts()
+    outs = np.concatenate([engine.predict(r) for r in requests])
+    served = _flash_f32_counts()
+    _check(served["flash_attention_f32"] == 2 * layers and served["flash_attention"] == 0,
+           f"{label}: served launches {served}")
+    with plain_path():
+        plain = np.concatenate([engine.predict(r) for r in requests])
+    err, scale = float(np.abs(outs - plain).max()), float(np.abs(plain).max())
+    print(f"{label}: served 1 and {batch} images, #8 fp32 launched "
+          f"{served['flash_attention_f32']} times; logits vs plain path max abs err {err:.4g} "
+          f"(max |logit| {scale:.4g}; tolerance {F32_TOL} x max |logit|); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} "
+          f"s, {card}")
+    _check(bool(np.isfinite(outs).all()) and err <= F32_TOL * scale,
+           f"{label}: served logits disagree with the plain path")
+    del model, engine
+    torch.cuda.empty_cache()
+    return {k: counts[k] + served[k] for k in counts}
+
+
+def phase_flash_f32_models(card: str) -> dict:
+    """(b) The long-context models at the JAX CLI's own fp32, through #8-#11
+    in fp32: CurveViT-S/12 at 4,096 tokens as its preset is (no dtype;
+    batch 16, 4 steps: #8's single step and #9), longctx-16k at
+    ``dtype=None`` (batch 2, 4 steps: #8 streaming, #10, #11), both again
+    at 3 heads of ``dim_head`` 128 and CurveViT-S/12 at ``dim_head`` 256
+    (depth 2, 2 steps, batch 8 and 2), and the 1-D tokenizer over 33 x 33
+    pixels at patch 1 (1,089 tokens; family A's eval and serving through
+    #8 on the projection's views).  Returns the summed launch counts."""
+    vs = dict(img_size=256, patch_size=4, num_classes=1000)
+    fused, pair = ("flash_attention_fused_bwd_f32",), ("flash_attention_dq_f32",
+                                                       "flash_attention_dkv_f32")
+    runs = [("CurveViT-S/12 at 4,096 tokens, fp32", preset_config("vit-s-16", **vs), VS_B,
+             LC_F32_STEPS, fused, dict(timed=True)),
+            ("longctx-16k at dtype=None", preset_config("longctx-16k", dtype=None), LC_B,
+             LC_F32_STEPS, pair, dict(timed=True)),
+            ("CurveViT-S/12, 3 heads of 128, fp32",
+             preset_config("vit-s-16", n_heads=3, dim_head=128, depth=2, **vs), 8,
+             LC_F32_STEPS_WIDE, fused, {}),
+            ("longctx-16k, 3 heads of 128, fp32",
+             preset_config("longctx-16k", dtype=None, n_heads=3, dim_head=128, depth=2), LC_B,
+             LC_F32_STEPS_WIDE, pair, {}),
+            ("CurveViT-S/12, 6 heads of 256, fp32",
+             preset_config("vit-s-16", dim_head=256, depth=2, **vs), 8, LC_F32_STEPS_WIDE,
+             fused, {}),
+            ("1-D tokenizer over 33 x 33 px at patch 1, fp32",
+             preset_config("notebook", tokenizer="1d", img_size=33, patch_size=1), NB_B, 0,
+             (), dict(family_a=True))]
+    total: dict = {}
+    for label, cfg, batch, steps, bwd, kw in runs:
+        for k, v in _flash_f32_model(card, label, cfg, batch, steps, bwd, **kw).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def _plain_forward(model, x):
     """``model(x)`` through the plain blocks (a timing yardstick)."""
     def run():
@@ -4111,6 +4476,8 @@ def main() -> int:
     _timed(phase_remat, card)
     head_dims = _timed(phase_head_dim_kernels, card)
     add(_timed(phase_head_dim_models, card))
+    kernels.update(_timed(phase_flash_f32_kernels, card))
+    add(_timed(phase_flash_f32_models, card))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "sfc_vit_tpu"))
     _check(not leaked, f"the port imported {leaked}")
@@ -4196,6 +4563,18 @@ def main() -> int:
         dict(name="postnorm_tail_bwd_f32", route="cuda",
              source="sfc_vit_tpu_torch/csrc/ln_rows_bwd.cu",
              replaces="sfc_vit_tpu/ops/fused_mlp.py:665"),
+        dict(name="flash_attention_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/flash_fwd_f32.cu",
+             replaces="sfc_vit_tpu/ops/flash_attention.py:114"),
+        dict(name="flash_attention_fused_bwd_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/flash_bwd_f32.cu",
+             replaces="sfc_vit_tpu/ops/flash_attention.py:317"),
+        dict(name="flash_attention_dq_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/flash_bwd_f32.cu",
+             replaces="sfc_vit_tpu/ops/flash_attention.py:440"),
+        dict(name="flash_attention_dkv_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/flash_bwd_f32.cu",
+             replaces="sfc_vit_tpu/ops/flash_attention.py:482"),
     ]
     for e in entries:
         k = kernels[e["name"]]
@@ -4204,6 +4583,8 @@ def main() -> int:
                  bound_by=k["bound_by"], library_ms=k["library_ms"])
         if "single_step" in k:  # #8's other form, timed at CurveViT-S/12's shape
             e["single_step"] = k["single_step"]
+        if "cases" in k:  # the fp32 flash forms' other shapes and head dims
+            e["cases"] = k["cases"]
         if e["name"] in head_dims:  # the widths past 64 and 192 held against plain
             e["head_dims"] = head_dims[e["name"]]
     print(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s")

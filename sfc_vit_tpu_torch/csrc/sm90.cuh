@@ -93,6 +93,28 @@ inline cudaError_t map_bnhd_f32(CUtensorMap* m, void* base, int batch, int n, in
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// map_heads' map (below) over a [B, N, H, Dh] tensor read through its (batch, row,
+// head) element strides, unit stride along Dh (the fp32 flash kernels' q,
+// k, v and cotangent: contiguous, or views of a packed projection).  Every
+// stride a multiple of 16 bytes, the base on 16 bytes.
+inline cudaError_t map_strided_heads(CUtensorMap* m, const void* base, bool f32, int batch,
+                                     int n, int heads, int dh, long long sb, long long sn,
+                                     long long sh, int rows) {
+  EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t es = f32 ? 4 : 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)n,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * es, (cuuint64_t)sn * es, (cuuint64_t)sb * es};
+  const cuuint32_t box[4] = {f32 ? 32u : 64u, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         4, const_cast<void*>(base), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // A row-major tensor whose rows hold `heads` heads of dh columns each
 // (the packed projection [B, N, 3 H Dh] as 3 H heads, att, its cotangent
 // and the output [B, N, H Dh] as H), `row` elements a row, as a 4-d map
@@ -107,19 +129,7 @@ inline cudaError_t map_bnhd_f32(CUtensorMap* m, void* base, int batch, int n, in
 // bytes, and the base on 16 bytes.
 inline cudaError_t map_heads(CUtensorMap* m, const void* base, bool f32, int batch, int n,
                              int heads, int dh, long long row, int rows) {
-  EncodeTiled enc = encode_fn();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t es = f32 ? 4 : 2;
-  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)n,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {dh * es, (cuuint64_t)row * es, (cuuint64_t)row * n * es};
-  const cuuint32_t box[4] = {f32 ? 32u : 64u, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = enc(m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                         4, const_cast<void*>(base), dims, strides, box, unit,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return map_strided_heads(m, base, f32, batch, n, heads, dh, row * n, row, dh, rows);
 }
 
 // The attention kernels' head dims (ops/_build.py::attention_head_dim_ok

@@ -33,6 +33,7 @@ from .fused_mlp import (
 # ``flash_attention`` (the function) stays in its module of the same name,
 # so that ``sfc_vit_tpu_torch.ops.flash_attention`` names the module.
 from .flash_attention import (
+    flash_attention_with_lse,
     flash_dkv_ref,
     flash_dq_ref,
     flash_fused_bwd_ref,
@@ -70,6 +71,7 @@ __all__ = [
     "attention_with_weights",
     "curve_pair_merge_topk",
     "dot_product_attention_xla",
+    "flash_attention_with_lse",
     "flash_dkv_ref",
     "flash_dq_ref",
     "flash_fused_bwd_ref",

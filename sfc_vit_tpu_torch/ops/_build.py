@@ -74,6 +74,7 @@ __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "PACKED_ATTENTION_FORMS", "PACKED_ATTENTION_MASKED_FORMS", "attention_fwd_route",
            "ln_rows_bwd_plan", "LN_BWD_ROWS", "LN_BWD_MAX_D", "LN_ROWS_BWD_FORMS", "flash_fwd",
            "flash_fused_bwd", "flash_dq", "flash_dkv", "FLASH_HEAD_DIMS",
+           "FLASH_F32_HEAD_DIMS", "flash_head_dims",
            "FLASH_STREAM_BLOCK_K", "local_fwd", "local_bwd", "local_tile_window",
            "local_fwd_tiles", "local_fwd_key_range",
            "gather_project",
@@ -143,6 +144,11 @@ _SIGNATURES = {
     "sfc_flash_dq_bf16": (_P,) * 7 + (_I,) * 5 + (_L,) * 12 + (_F, _I, _I, _P),
     "sfc_flash_dkv_bf16": (_P,) * 8 + (_I,) * 5 + (_L,) * 12 + (_F, _I, _I, _P),
     "sfc_flash_fused_bwd_bf16": (_P,) * 9 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
+    # #8-#11 in fp32: the bf16 forms' arguments (#9 is the dq and dk/dv
+    # kernels, no window)
+    "sfc_flash_fwd_f32": (_P,) * 5 + (_I,) * 5 + (_L,) * 9 + (_F, _I, _P),
+    "sfc_flash_dq_f32": (_P,) * 7 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
+    "sfc_flash_dkv_f32": (_P,) * 8 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
     # q, k, v, out, lse; batch, heads, n, dh, block, halo; q, k, v strides
     # (batch, row, head); scale, stream
     "sfc_local_fwd_bf16": (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_F, _P),
@@ -171,6 +177,9 @@ _SIGNATURES = {
     "sfc_packed_attention_f32_attrs": (_I, _I, _I, _P),
     "sfc_attention_bwd_f32_attrs": (_I, _I, _I, _P),
     "sfc_gather_project_f32_attrs": (_I, _I, _I, _P),
+    # dh, streaming, out[3] | dh, dkv, out[3]
+    "sfc_flash_fwd_f32_attrs": (_I, _I, _P),
+    "sfc_flash_bwd_f32_attrs": (_I, _I, _P),
 }
 
 #: The widest head dim the attention kernels (#1, #4-#7) take; they take
@@ -248,9 +257,13 @@ GEMM_MAX_SPLITS, GEMM_MIN_SPLIT_BLOCKS = 64, 4
 #: takes for one 128 x 128 x 64 K block (8 bytes at 3.35 TB/s against
 #: 2.1 MFLOP at ~4.5 TFLOP/s an SM): the cost of a split in :func:`gemm_splits`.
 _SPLIT_ELEMS_PER_KBLOCK = 200_000
-#: Head dims the flash kernels (#8-#11) are instantiated for: the
+#: Head dims the bf16 flash kernels (#8-#11) are instantiated for: the
 #: long-context presets' 64.
 FLASH_HEAD_DIMS = (64,)
+#: Head dims their fp32 forms (``csrc/flash_fwd_f32.cu``,
+#: ``csrc/flash_bwd_f32.cu``) take: every one JAX sends to flash
+#: (``_PALLAS_HEAD_DIMS``), walked as 1, 2 or 4 sub-heads of 64 columns.
+FLASH_F32_HEAD_DIMS = (64, 128, 256)
 #: Keys per tile of #8's streaming form (``csrc/flash_fwd_sm90.cu``'s BK):
 #: the running max that p is rounded against moves every this many keys,
 #: JAX's ``_flash_fwd`` formula at ``block_k = FLASH_STREAM_BLOCK_K``.
@@ -1084,36 +1097,46 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
     return dqkv
 
 
-def _require_bnhd(t: torch.Tensor, name: str, shape) -> None:
-    """A bf16 CUDA [B, N, H, Dh] tensor, any strides whose rows start on
-    16 bytes (unit stride along Dh): the views of a packed projection.
-    These are TMA's rules for #8-#11's tensor maps too (base address
-    on 16 bytes, every stride a multiple of 16 bytes)."""
+def _require_bnhd(t: torch.Tensor, name: str, shape, dtype=torch.bfloat16) -> None:
+    """A CUDA [B, N, H, Dh] tensor of ``dtype``, any strides whose rows
+    start on 16 bytes (unit stride along Dh): the views of a packed
+    projection.  These are TMA's rules for #8-#11's tensor maps too (base
+    address on 16 bytes, every stride a multiple of 16 bytes)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: expected torch.bfloat16, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+    unit = 16 // t.element_size()
+    if t.stride(3) != 1 or any(st % unit for st in t.stride()[:3]) or t.data_ptr() % 16:
         raise ValueError(f"{name}: rows must be contiguous along Dh and start "
                          f"on 16 bytes (strides {t.stride()})")
 
 
+def flash_head_dims(dtype: torch.dtype) -> tuple:
+    """The head dims the flash kernels (#8-#11) take in ``dtype``:
+    :data:`FLASH_HEAD_DIMS` in bfloat16, :data:`FLASH_F32_HEAD_DIMS` in
+    float32, none in any other."""
+    return {torch.bfloat16: FLASH_HEAD_DIMS, torch.float32: FLASH_F32_HEAD_DIMS}.get(dtype, ())
+
+
 def _check_flash(q, k, v, g=None, lse=None, delta=None):
-    """Shapes of the flash kernels' operands; returns (b, nq, nk, h, dh)."""
+    """Shapes of the flash kernels' operands (bf16 or fp32, all of one
+    dtype); returns (b, nq, nk, h, dh)."""
     b, nq, h, dh = q.shape
     nk = k.shape[1]
-    if dh not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash: head dim {dh}; the kernels take "
-                         f"{' or '.join(map(str, FLASH_HEAD_DIMS))}")
+    dims = flash_head_dims(q.dtype)
+    if dh not in dims:
+        raise ValueError(f"flash: {q.dtype} at head dim {dh}; the kernels take "
+                         f"bfloat16 at {FLASH_HEAD_DIMS} and float32 at {FLASH_F32_HEAD_DIMS}")
     if nq < 1 or nk < 1:
         raise ValueError(f"flash: empty sequence (nq={nq}, nk={nk})")
-    _require_bnhd(q, "q", (b, nq, h, dh))
-    _require_bnhd(k, "k", (b, nk, h, dh))
-    _require_bnhd(v, "v", (b, nk, h, dh))
+    _require_bnhd(q, "q", (b, nq, h, dh), q.dtype)
+    _require_bnhd(k, "k", (b, nk, h, dh), q.dtype)
+    _require_bnhd(v, "v", (b, nk, h, dh), q.dtype)
     if g is not None:
-        _require_bnhd(g, "g", (b, nq, h, dh))
+        _require_bnhd(g, "g", (b, nq, h, dh), q.dtype)
         _require(lse, "lse", (b, h, nq), torch.float32)
         _require(delta, "delta", (b, h, nq), torch.float32)
     return b, nq, nk, h, dh
@@ -1126,27 +1149,33 @@ def _strides(*ts):
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
               streaming: bool, with_lse: bool = False):
     """#8: softmax(q k^T * scale) v over q [B, Nq, H, Dh] and k, v
-    [B, Nk, H, Dh] (bf16, any 16-byte-aligned row strides) -> out
-    [B, Nq, H, Dh] bf16, contiguous.  ``streaming`` picks the one-pass
-    form (p rounded unnormalised against the running max) over the
-    two-pass single-K-step form (P normalised, then rounded).
-    ``with_lse`` also returns the fp32 log-sum-exp [B, H, Nq]."""
+    [B, Nk, H, Dh] (any 16-byte-aligned row strides) -> out [B, Nq, H, Dh]
+    in the input dtype, contiguous.  bf16 (Dh 64) runs
+    ``csrc/flash_fwd_sm90.cu``, fp32 (Dh 64, 128, 256)
+    ``csrc/flash_fwd_f32.cu``.  ``streaming`` picks the one-pass form (p
+    against the running max, the division by l at the end) over the
+    two-pass single-K-step form (P normalised before P V).  ``with_lse``
+    also returns the fp32 log-sum-exp [B, H, Nq]."""
     b, nq, nk, h, dh = _check_flash(q, k, v)
     out = torch.empty((b, nq, h, dh), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    _check(library().sfc_flash_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-        b, h, nq, nk, dh, *_strides(q, k, v), scale, int(streaming), _stream()),
-        "flash_fwd")
+    f32 = q.dtype == torch.float32
+    fn = library().sfc_flash_fwd_f32 if f32 else library().sfc_flash_fwd_bf16
+    _check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+              b, h, nq, nk, dh, *_strides(q, k, v), scale, int(streaming), _stream()),
+           "flash_fwd")
     return (out, lse) if with_lse else out
 
 
 def flash_dq(q, k, v, g, lse, delta, scale: float) -> torch.Tensor:
-    """#10: dq [B, Nq, H, Dh] bf16 from the output's cotangent ``g``
-    [B, Nq, H, Dh], the forward's fp32 ``lse`` and ``delta =
-    rowsum(g * O)`` (both [B, H, Nq])."""
-    return _dq(q, k, v, g, lse, delta, scale, _check_flash(q, k, v, g, lse, delta))
+    """#10: dq [B, Nq, H, Dh] in the input dtype from the output's
+    cotangent ``g`` [B, Nq, H, Dh], the forward's fp32 ``lse`` and ``delta
+    = rowsum(g * O)`` (both [B, H, Nq])."""
+    dims = _check_flash(q, k, v, g, lse, delta)
+    if q.dtype == torch.float32:
+        return _dq_f32(q, k, v, g, lse, delta, scale, dims)
+    return _dq(q, k, v, g, lse, delta, scale, dims)
 
 
 def _dq(q, k, v, g, lse, delta, scale: float, dims, block: int = 0, halo: int = 0):
@@ -1161,10 +1190,24 @@ def _dq(q, k, v, g, lse, delta, scale: float, dims, block: int = 0, halo: int = 
     return dq
 
 
+def _dq_f32(q, k, v, g, lse, delta, scale: float, dims) -> torch.Tensor:
+    """``csrc/flash_bwd_f32.cu``'s dq kernel (#10 in fp32, and #9's dq)."""
+    b, nq, nk, h, dh = dims
+    dq = torch.empty((b, nq, h, dh), dtype=torch.float32, device=q.device)
+    _check(library().sfc_flash_dq_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, h, nq, nk, dh, *_strides(q, k, v, g),
+        scale, _stream()), "flash_dq")
+    return dq
+
+
 def flash_dkv(q, k, v, g, lse, delta, scale: float):
-    """#11: ``(dk, dv)`` [B, Nk, H, Dh] bf16, each one fp32 sum over the
-    queries rounded once; arguments as :func:`flash_dq`."""
-    return _dkv(q, k, v, g, lse, delta, scale, _check_flash(q, k, v, g, lse, delta))
+    """#11: ``(dk, dv)`` [B, Nk, H, Dh] in the input dtype, each one fp32
+    sum over the queries; arguments as :func:`flash_dq`."""
+    dims = _check_flash(q, k, v, g, lse, delta)
+    if q.dtype == torch.float32:
+        return _dkv_f32(q, k, v, g, lse, delta, scale, dims)
+    return _dkv(q, k, v, g, lse, delta, scale, dims)
 
 
 def _dkv(q, k, v, g, lse, delta, scale: float, dims, block: int = 0, halo: int = 0):
@@ -1181,11 +1224,29 @@ def _dkv(q, k, v, g, lse, delta, scale: float, dims, block: int = 0, halo: int =
     return dk, dv
 
 
+def _dkv_f32(q, k, v, g, lse, delta, scale: float, dims):
+    """``csrc/flash_bwd_f32.cu``'s dk/dv kernel (#11 in fp32, and #9's dk, dv)."""
+    b, nq, nk, h, dh = dims
+    dk = torch.empty((b, nk, h, dh), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    _check(library().sfc_flash_dkv_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, dh,
+        *_strides(q, k, v, g), scale, _stream()), "flash_dkv")
+    return dk, dv
+
+
 def flash_fused_bwd(q, k, v, g, lse, delta, scale: float):
-    """#9: ``(dq, dk, dv)`` in one kernel, one block per key tile: dk, dv
-    bf16 as :func:`flash_dkv`; dq fp32 [B, Nq, H, Dh], summed over the
-    key tiles by TMA bulk reduce-adds (the caller rounds it)."""
-    b, nq, nk, h, dh = _check_flash(q, k, v, g, lse, delta)
+    """#9: ``(dq, dk, dv)``.  bf16: one kernel, one block per key tile; dk,
+    dv bf16 as :func:`flash_dkv`; dq fp32 [B, Nq, H, Dh], summed over the
+    key tiles by TMA bulk reduce-adds (the caller rounds it).  fp32: the
+    dq and dk/dv kernels of :func:`flash_dq` and :func:`flash_dkv`, each
+    output with one owner (the same bits on every call)."""
+    dims = _check_flash(q, k, v, g, lse, delta)
+    if q.dtype == torch.float32:
+        return (_dq_f32(q, k, v, g, lse, delta, scale, dims),
+                *_dkv_f32(q, k, v, g, lse, delta, scale, dims))
+    b, nq, nk, h, dh = dims
     dq = torch.zeros((b, nq, h, dh), dtype=torch.float32, device=q.device)
     dk = torch.empty((b, nk, h, dh), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -1448,12 +1509,13 @@ GATHER_PROJECT_F32_FORMS = {
         (int(where == "shared"), int(cols == 64), steps)
     for where in ("shared", "global") for cols in (64, 32) for steps in (6, 2)}
 
-#: The fp32 kernels (float32 compute of #1-#7 and #14) by name: the GEMM's
+#: The fp32 kernels (float32 compute of #1-#11 and #14) by name: the GEMM's
 #: (``csrc/gemm_f32.cu``, 3xTF32 on ``wgmma``) three layouts by activation
 #: kind (none, act, act') and its column sums' stripe sum;
 #: the attention forward's instances (:data:`PACKED_ATTENTION_F32_FORMS`)
 #: and backward's kernels with #5's and #6's mask and without it (#1, #4,
-#: #7), 3xTF32 on ``wgmma`` too; #14.
+#: #7), 3xTF32 on ``wgmma`` too; #14; #8's two forms and #9-#11's dq and
+#: dk/dv kernels by head dim.
 F32_KERNEL_FORMS = (
     *(f"gemm_f32 {layout}{kind}" for layout in ("NN", "NT", "TN")
       for kind in ("", " act", " act'")),
@@ -1461,7 +1523,10 @@ F32_KERNEL_FORMS = (
     *PACKED_ATTENTION_F32_FORMS, *PACKED_ATTENTION_F32_MASKED_FORMS,
     *(f"attention_bwd_f32 {part} dh{dh}{' masked' if mk else ''}"
       for dh in (64, 128, 192, 256) for mk in (1, 0) for part in ("dq", "dkv")),
-    *GATHER_PROJECT_F32_FORMS)
+    *GATHER_PROJECT_F32_FORMS,
+    *(f"flash_fwd_f32 dh{dh} {form}" for dh in FLASH_F32_HEAD_DIMS
+      for form in ("single step", "streaming")),
+    *(f"flash_bwd_f32 {part} dh{dh}" for dh in FLASH_F32_HEAD_DIMS for part in ("dq", "dkv")))
 
 
 def _f32_attr_calls(lib) -> dict:
@@ -1475,6 +1540,10 @@ def _f32_attr_calls(lib) -> dict:
               for dh in (64, 128, 192, 256) for mk in (1, 0) for p in (0, 1)]
     calls += [lambda a, sx=sx, tn=tn, ks=ks: lib.sfc_gather_project_f32_attrs(sx, tn, ks, a)
               for sx, tn, ks in GATHER_PROJECT_F32_FORMS.values()]
+    calls += [lambda a, dh=dh, st=st: lib.sfc_flash_fwd_f32_attrs(dh, st, a)
+              for dh in FLASH_F32_HEAD_DIMS for st in (0, 1)]
+    calls += [lambda a, dh=dh, p=p: lib.sfc_flash_bwd_f32_attrs(dh, p, a)
+              for dh in FLASH_F32_HEAD_DIMS for p in (0, 1)]
     return dict(zip(F32_KERNEL_FORMS, calls, strict=True))
 
 

@@ -6,7 +6,7 @@ Counterpart of ``sfc_vit_tpu/ops/flash_attention.py``.
 **Streaming flash attention** (:func:`flash_attention`): a
 ``torch.autograd.Function`` over q [B, Nq, H, Dh] and k, v [B, Nk, H, Dh]
 (Nq != Nk allowed).  The TPU kernels it replaces and their Hopper
-counterparts, all CUDA C++ for sm_90a:
+counterparts in bfloat16, all CUDA C++ for sm_90a:
 
   * #8 ``_fwd_kernel`` -> ``csrc/flash_fwd_sm90.cu`` (:func:`flash_fwd`;
     Hopper's ``wgmma`` products on tiles a TMA/mbarrier ring brings, the
@@ -46,14 +46,33 @@ them with bf16 operands as a two-term bf16 split (``hi + lo``, about 16
 bits of mantissa) on the tensor cores.  dK and dV sum in fp32 and are
 cast to the input dtype once.
 
+In float32 (the JAX CLI's default dtype: every long-context model a user
+launches without ``--dtype``), at head dims 64, 128 and 256, the four run
+``csrc/flash_fwd_f32.cu`` and ``csrc/flash_bwd_f32.cu``: every product
+three TF32 products on ``wgmma`` (3xTF32, ``csrc/attn_f32.cuh``), a
+block one warpgroup over 64 queries (or keys) of one (b, h), a head as
+1, 2 or 4 sub-heads of 64 columns.  #8's single step is two passes over
+64-key tiles (the row's max and sum, then P normalised before P V), its
+streaming form one pass rescaling O by alpha and dividing by l at the
+end: nothing is rounded to a narrower type, so both are JAX's formula
+with only the order of the fp32 sums changed.  #10 is a dq kernel that
+walks the key tiles, #11 a dk/dv kernel that walks the query tiles, both
+from the forward's lse and ``delta = rowsum(g * O)``; #9 in fp32 is the
+same two kernels (each output with one owner, no reduce-adds: the same
+bits on every call, as every fp32 attention backward gives).
+:func:`flash_attention_with_lse` returns #8's lse beside its output, the
+LSE capture path.
+
 Each kernel's plain version sits beside it, a tile loop that repeats
 JAX's arithmetic with ``block_q`` / ``block_k`` as parameters (memory
 O(tile x N), so they also run at 16,384 tokens on the card):
 :func:`flash_fwd_ref`, :func:`flash_fused_bwd_ref`, :func:`flash_dq_ref`,
 :func:`flash_dkv_ref`.  A CPU tensor runs them; a CUDA tensor launches
-the kernels (bfloat16, head dim 64) or raises.  Launches are counted on
-:func:`flash_attention`: ``launches`` (#8), ``fused_bwd_launches`` (#9),
-``dq_launches`` (#10) and ``dkv_launches`` (#11).
+the kernels (bfloat16 at head dim 64, float32 at 64, 128 and 256) or
+raises.  Launches are counted on :func:`flash_attention`: ``launches``
+(#8), ``fused_bwd_launches`` (#9), ``dq_launches`` (#10) and
+``dkv_launches`` (#11), and the fp32 forms' apart as ``f32_launches``,
+``f32_fused_bwd_launches``, ``f32_dq_launches`` and ``f32_dkv_launches``.
 
 **Packed attention** (:func:`packed_flash_attention`, #7): maps a packed
 projection [B, N, 3*H*Dh] to [B, N, H*Dh] with an fp32 softmax and no
@@ -91,7 +110,7 @@ import torch
 from . import _build
 from .kernel_utils import kernel_is_f32, round_up
 
-__all__ = ["flash_attention", "flash_attention_ref", "flash_fwd",
+__all__ = ["flash_attention", "flash_attention_ref", "flash_attention_with_lse", "flash_fwd",
            "flash_fused_bwd", "flash_dq", "flash_dkv", "flash_fwd_ref",
            "flash_fused_bwd_ref", "flash_dq_ref", "flash_dkv_ref",
            "flash_delta", "uses_fused_bwd", "uses_single_kstep",
@@ -275,18 +294,27 @@ def flash_dkv_ref(q, k, v, g, lse, delta, scale: float, block_q: int = 512,
 
 
 def _check_device(q: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor the kernels take; False for a CPU one."""
+    """True for a CUDA tensor the kernels take; False for a CPU one.  A
+    dtype and head dim that no kernel takes raise on any other device."""
     if q.device.type == "cpu":
         return False
+    if q.shape[-1] not in _build.flash_head_dims(q.dtype):
+        raise NotImplementedError(
+            f"{what}: {q.dtype} at head dim {q.shape[-1]} is not ported to the GPU "
+            f"yet, the flash kernels take bfloat16 at head dim "
+            f"{' or '.join(map(str, _build.FLASH_HEAD_DIMS))} and float32 at "
+            f"{', '.join(map(str, _build.FLASH_F32_HEAD_DIMS))}: ROADMAP.md queue 2 "
+            "entry 2 (kernels #8-#11 in bfloat16 at head dims 128 and 256)")
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
-    if q.dtype != torch.bfloat16 or q.shape[-1] not in _build.FLASH_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{what}: {q.dtype} at head dim {q.shape[-1]} is not ported to the "
-            f"GPU yet, the flash kernels take bfloat16 at head dim "
-            f"{' or '.join(map(str, _build.FLASH_HEAD_DIMS))}: ROADMAP.md queue 1 "
-            "item 10 (long context: kernels #8-#11 in fp32 and at other head dims)")
     return True
+
+
+def _count(name: str, q: torch.Tensor) -> None:
+    """One launch of a flash kernel: the fp32 forms count apart
+    (``f32_`` + ``name``)."""
+    name = f"f32_{name}" if q.dtype == torch.float32 else name
+    setattr(flash_attention, name, getattr(flash_attention, name) + 1)
 
 
 def flash_fwd(q, k, v, scale: float, return_lse: bool = False):
@@ -296,17 +324,17 @@ def flash_fwd(q, k, v, scale: float, return_lse: bool = False):
         return flash_fwd_ref(q, k, v, scale, return_lse=return_lse)
     res = _build.flash_fwd(q, k, v, scale, streaming=not uses_single_kstep(k.shape[1]),
                            with_lse=return_lse)
-    flash_attention.launches += 1
+    _count("launches", q)
     return res
 
 
 def flash_fused_bwd(q, k, v, out, lse, g, scale: float):
-    """#9: ``(dq, dk, dv)`` in the input dtype.  The kernel reads the
+    """#9: ``(dq, dk, dv)`` in the input dtype.  The kernels read the
     forward's ``out`` and ``lse``; the plain version recomputes both."""
     if not _check_device(q, "flash_attention"):
         return flash_fused_bwd_ref(q, k, v, g, scale)
     dq, dk, dv = _build.flash_fused_bwd(q, k, v, g, lse, flash_delta(g, out), scale)
-    flash_attention.fused_bwd_launches += 1
+    _count("fused_bwd_launches", q)
     return dq.to(q.dtype), dk, dv
 
 
@@ -315,7 +343,7 @@ def flash_dq(q, k, v, g, lse, delta, scale: float):
     if not _check_device(q, "flash_attention"):
         return flash_dq_ref(q, k, v, g, lse, delta, scale)
     dq = _build.flash_dq(q, k, v, g, lse, delta, scale)
-    flash_attention.dq_launches += 1
+    _count("dq_launches", q)
     return dq
 
 
@@ -324,7 +352,7 @@ def flash_dkv(q, k, v, g, lse, delta, scale: float):
     if not _check_device(q, "flash_attention"):
         return flash_dkv_ref(q, k, v, g, lse, delta, scale)
     dk, dv = _build.flash_dkv(q, k, v, g, lse, delta, scale)
-    flash_attention.dkv_launches += 1
+    _count("dkv_launches", q)
     return dk, dv
 
 
@@ -373,8 +401,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v [B, Nk, H, Dh] -> [B, Nq, H, Dh].
 
     A CPU tensor runs the plain versions; a CUDA one the kernels #8-#11
-    (bfloat16, head dim 64, q/k/v rows 16-byte aligned: the views of a
-    packed projection need no copy) or raises.  It never falls back.
+    (bfloat16 at head dim 64, float32 at 64, 128 and 256; q/k/v rows
+    16-byte aligned: the views of a packed projection need no copy) or
+    raises.  It never falls back.
     """
     _check_device(q, "flash_attention")
     return _attend(q, k, v, scale, plain=False)
@@ -386,10 +415,33 @@ def flash_attention_ref(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     return _attend(q, k, v, scale, plain=True)
 
 
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             scale: Optional[float] = None):
+    """The attention output and the per-query log-sum-exp, ``(out [B, Nq,
+    H, Dh], lse fp32 [B, H, Nq])``: the LSE capture path (JAX's
+    ``flash_attention_with_lse``, ``flash_attention.py:851``).  With q, k
+    and the lse, any rows of the attention weights rebuild in O(rows x N)
+    (:func:`sfc_vit_tpu_torch.utils.profiling.attention_rows`), no [N, N]
+    tensor made, so the capture observes the flash kernel itself at 4k+
+    tokens.
+
+    A CUDA tensor runs #8 with its lse (bfloat16 at head dim 64, float32
+    at 64, 128 and 256; counted in ``flash_attention.launches`` or
+    ``f32_launches``) or raises; a CPU one its plain version
+    :func:`flash_fwd_ref`.  Not differentiable through the kernel."""
+    return flash_fwd(q, k, v, _scale(q, scale), return_lse=True)
+
+
+#: Launches of #8, #9, #10 and #11 on bf16 tensors; the ``f32_`` counts are
+#: their fp32 forms' (``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_f32.cu``).
 flash_attention.launches = 0
 flash_attention.fused_bwd_launches = 0
 flash_attention.dq_launches = 0
 flash_attention.dkv_launches = 0
+flash_attention.f32_launches = 0
+flash_attention.f32_fused_bwd_launches = 0
+flash_attention.f32_dq_launches = 0
+flash_attention.f32_dkv_launches = 0
 
 
 # ---------------------------------------------------------------------------

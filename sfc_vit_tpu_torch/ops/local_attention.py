@@ -176,8 +176,8 @@ def _check_device(q: torch.Tensor, block: int, halo: int) -> bool:
         raise NotImplementedError(
             f"local_block_attention: {q.dtype} at head dim {q.shape[-1]} with block "
             f"{block} is not ported to the GPU yet, the kernels take bfloat16 at head "
-            "dim 64 with block a multiple of 64: ROADMAP.md queue 1 item 10 (long "
-            "context: kernels #12/#13 in fp32, at other head dims and blocks)")
+            "dim 64 with block a multiple of 64: ROADMAP.md queue 2 entry 3 "
+            "(kernels #12/#13 in fp32, at other head dims and blocks)")
     return True
 
 

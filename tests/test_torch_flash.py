@@ -176,9 +176,16 @@ def test_flash_gates_read_jax_constants():
         assert fa.uses_fused_bwd(n, n) == (not jfa._use_streaming_bwd(n))
 
 
-def test_flash_attention_refuses_devices_without_a_kernel():
-    """Only a CPU tensor runs the plain versions (the CUDA refusals of a
-    dtype or head dim are GPU tests in tests/test_torch_kernels.py)."""
-    q = torch.zeros(1, 8, 1, 64, device="meta")
-    with pytest.raises(ValueError, match="no kernel for device"):
+@pytest.mark.parametrize("dtype, dh, error, match", [
+    (torch.float32, 64, ValueError, "no kernel for device"),
+    (torch.bfloat16, 128, NotImplementedError, "queue 2 entry 2"),
+    (torch.bfloat16, 256, NotImplementedError, "queue 2 entry 2")])
+def test_flash_attention_refuses_devices_without_a_kernel(dtype, dh, error, match):
+    """Only a CPU tensor runs the plain versions: a form the kernels take
+    (fp32 at Dh 64) on a device without them raises, and the forms no
+    kernel takes yet (bf16 at Dh 128 and 256) raise on any device but the
+    CPU, naming their ROADMAP entry (the same refusals on CUDA tensors are
+    GPU tests in tests/test_torch_kernels.py)."""
+    q = torch.zeros(1, 8, 1, dh, device="meta", dtype=dtype)
+    with pytest.raises(error, match=match):
         fa.flash_attention(q, q, q)

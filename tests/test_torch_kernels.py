@@ -2209,18 +2209,143 @@ def test_flash_attention_autograd_counts_its_kernels(cuda, n, fused_max, monkeyp
         _within(a, w, 2e-2, name)
 
 
+# -- flash attention in fp32 (#8-#11 at head dims 64, 128, 256) ----------------
+
+# The fp32 gates (PERF.md section 2): outputs and gradients within 1e-4 of
+# the largest |value| (the same arithmetic as the plain versions, the
+# products 3xTF32, the sums in another order); the lse within 1e-5 of fp64.
+FLASH_F32_FRAC = 1e-4
+# (b, nq, nk, heads, packed): the 1-D tokenizer's 1,089 tokens as views of
+# a packed projection (odd rows with several (b, h)), CurveViT-S/12's
+# 4,096 (#8's single step, #9), a streaming length past 8,192 that is not
+# a multiple of 64 (#8 streaming, #10 / #11), and nq != nk both ways.
+_FLASH_F32_SHAPES = [(2, 1089, 1089, 3, True), (1, 4096, 4096, 2, False),
+                     (1, 8300, 8300, 1, False), (2, 333, 520, 3, False),
+                     (1, 1000, 777, 2, False)]
+
+
+def _flash_f32(rng, b, nq, nk, heads, dh, device, packed=False):
+    """fp32 q [B, Nq, H, Dh], k, v [B, Nk, H, Dh] and g; with ``packed`` q,
+    k, v are strided views of one packed projection (Nq = Nk)."""
+    if packed:
+        qkv = _randn(rng, b, nq, 3 * heads * dh, device=device, dtype=torch.float32)
+        q, k, v = qkv.view(b, nq, 3, heads, dh).unbind(2)
+    else:
+        q, k, v = (_randn(rng, b, n, heads, dh, device=device, dtype=torch.float32)
+                   for n in (nq, nk, nk))
+    return q, k, v, _randn(rng, b, nq, heads, dh, device=device, dtype=torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("b, nq, nk, heads, packed", _FLASH_F32_SHAPES)
+def test_flash_f32_fwd_matches_plain(cuda, dh, b, nq, nk, heads, packed):
+    """#8 in fp32, both forms (single step and streaming) at every shape,
+    against its plain version; the lse against fp64; a second call bit for
+    bit."""
+    from sfc_vit_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_f32(np.random.default_rng(50), b, nq, nk, heads, dh, cuda, packed)
+    s = dh ** -0.5
+    want = fa.flash_fwd_ref(q, k, v, s)
+    lse64 = _lse64(q, k, s)
+    for streaming in (False, True):
+        out, lse = _build.flash_fwd(q, k, v, s, streaming=streaming, with_lse=True)
+        _within(out, want, FLASH_F32_FRAC, f"out (streaming {streaming})")
+        torch.testing.assert_close(lse.double(), lse64, rtol=1e-5, atol=1e-5)
+        assert torch.equal(_build.flash_fwd(q, k, v, s, streaming=streaming), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("b, nq, nk, heads, packed", _FLASH_F32_SHAPES)
+def test_flash_f32_bwd_matches_plain(cuda, dh, b, nq, nk, heads, packed):
+    """#10, #11 and #9 in fp32 from the saved lse and output: each against
+    its plain version within 1e-4 of the largest |value|, and bit for bit
+    on a second call (one owner a row, no atomics)."""
+    from sfc_vit_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _flash_f32(np.random.default_rng(51), b, nq, nk, heads, dh, cuda, packed)
+    s = dh ** -0.5
+    out, lse = _build.flash_fwd(q, k, v, s, streaming=not fa.uses_single_kstep(nk),
+                                with_lse=True)
+    delta = fa.flash_delta(g, out)
+    pair = (_build.flash_dq(q, k, v, g, lse, delta, s),
+            *_build.flash_dkv(q, k, v, g, lse, delta, s))
+    want = (fa.flash_dq_ref(q, k, v, g, lse, delta, s),
+            *fa.flash_dkv_ref(q, k, v, g, lse, delta, s))
+    for name, a, w in zip(("dq", "dk", "dv"), pair, want):
+        _within(a, w, FLASH_F32_FRAC, name)
+    fused = _build.flash_fused_bwd(q, k, v, g, lse, delta, s)
+    for name, a, w in zip(("dq (#9)", "dk (#9)", "dv (#9)"), fused,
+                          fa.flash_fused_bwd_ref(q, k, v, g, s)):
+        _within(a, w, FLASH_F32_FRAC, name)
+    again = (_build.flash_dq(q, k, v, g, lse, delta, s),
+             *_build.flash_dkv(q, k, v, g, lse, delta, s))
+    for name, a, b2 in zip(("dq", "dk", "dv"), pair, again):
+        assert torch.equal(a, b2), name
+    for name, a, b2 in zip(("dq (#9)", "dk (#9)", "dv (#9)"), fused,
+                           _build.flash_fused_bwd(q, k, v, g, lse, delta, s)):
+        assert torch.equal(a, b2), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("n, fused_max", [(1089, 8192), (1089, 128)])
+def test_flash_f32_autograd_counts_its_kernels(cuda, dh, n, fused_max, monkeypatch):
+    """``flash_attention`` on fp32 tensors under autograd launches #8's fp32
+    form once and then #9's, or #10's and #11's past ``FUSED_BWD_MAX``
+    (the ``f32_`` counters; the bf16 ones stay); its gradients match the
+    plain route's within 1e-4, and ``flash_attention_with_lse`` gives the
+    same output and the lse against fp64."""
+    from sfc_vit_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setattr(fa, "FUSED_BWD_MAX", fused_max)
+    q, k, v, g = _flash_f32(np.random.default_rng(52), 2, n, n, 2, dh, cuda, packed=True)
+    f = fa.flash_attention
+    counts = lambda: (f.f32_launches, f.f32_fused_bwd_launches,  # noqa: E731
+                      f.f32_dq_launches, f.f32_dkv_launches, f.launches,
+                      f.fused_bwd_launches, f.dq_launches, f.dkv_launches)
+    grads, outs = [], []
+    for route in (fa.flash_attention, fa.flash_attention_ref):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = counts()
+        out = route(*leaves)
+        out.backward(g)
+        outs.append(out.detach())
+        grads.append([t.grad for t in leaves])
+        fused = fused_max >= 8192
+        want = (1, int(fused), int(not fused), int(not fused)) if route is f else (0,) * 4
+        assert tuple(a - b for a, b in zip(counts(), before)) == want + (0,) * 4
+    _within(outs[0], outs[1], FLASH_F32_FRAC, "out")
+    for name, a, w in zip(("dq", "dk", "dv"), *grads):
+        _within(a, w, FLASH_F32_FRAC, name)
+    before = f.f32_launches
+    out, lse = fa.flash_attention_with_lse(q, k, v)
+    assert f.f32_launches == before + 1
+    assert torch.equal(out, outs[0])
+    torch.testing.assert_close(lse.double(), _lse64(q, k, dh ** -0.5), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.gpu
 def test_flash_attention_refuses_what_the_kernels_do_not_take(cuda):
     from sfc_vit_tpu_torch.ops import flash_attention as fa
 
-    q = torch.zeros(1, 8, 2, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        fa.flash_attention(q, q, q)  # fp32
+    for dh in (128, 256):  # bf16 past head dim 64
+        q = torch.zeros(1, 8, 2, dh, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="queue 2 entry 2"):
+            fa.flash_attention(q, q, q)
     q = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 2 entry 2"):
         fa.flash_attention(q, q, q)  # head dim 32
+    q = torch.zeros(1, 8, 2, 96, device=cuda)
+    with pytest.raises(NotImplementedError, match="queue 2 entry 2"):
+        fa.flash_attention(q, q, q)  # fp32 at head dim 96
     with pytest.raises(ValueError, match="16 bytes"):
         x = torch.zeros(1, 8, 2, 68, device=cuda, dtype=torch.bfloat16)[..., 2:66]
+        _build.flash_fwd(x, x, x, 1.0, streaming=True)
+    with pytest.raises(ValueError, match="16 bytes"):
+        x = torch.zeros(1, 8, 2, 66, device=cuda)[..., 1:65]
         _build.flash_fwd(x, x, x, 1.0, streaming=True)
 
 
@@ -2350,13 +2475,13 @@ def test_local_attention_refuses_what_the_kernels_do_not_take(cuda):
     from sfc_vit_tpu_torch.ops import local_attention as la
 
     q = torch.zeros(1, 600, 2, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 2 entry 3"):
         la.local_block_attention(q, q, q)  # fp32
     q = torch.zeros(1, 600, 2, 32, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 2 entry 3"):
         la.local_block_attention(q, q, q)  # head dim 32
     q = torch.zeros(1, 600, 2, 64, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 2 entry 3"):
         la.local_block_attention(q, q, q, block=32)
 
 

@@ -38,7 +38,8 @@ BF16_LOGIT, BF16_GRAD = 0.03, 0.1
 #: differently (3.5e-7 relative), and one ReLU input of 131,072 within
 #: rounding of 0 (|z| ~ 4e-8) flips, which moves linear1's bias gradient
 #: by 0.45 % and every tensor before it by 0.2-0.5 % (measured).  The same
-#: model through the explicit formula agrees within 1e-5.
+#: model through the explicit formula agrees within 1e-5: past 1,024 tokens,
+#: where both sides take it, the gradients are held to F32_GRAD.
 KINK_GRAD = 1e-2
 #: The notebook preset cut to size: 16 px, patch 4 (16 tokens), d = 128,
 #: depth 2, 2 heads of 64, MLP 64.
@@ -239,4 +240,5 @@ def test_1d_model_at_and_past_the_key_limit_matches_jax(monkeypatch, img):
     (got * _t(w)).sum().backward()
     assert not left
     _logits_close(got.detach().numpy(), want, F32_LOGIT)
-    _rel_l2_close(to_flax_grads(model), want_grads, KINK_GRAD)
+    # Past 1,024 both sides train through the explicit-weights formula.
+    _rel_l2_close(to_flax_grads(model), want_grads, KINK_GRAD if n <= 1024 else F32_GRAD)
