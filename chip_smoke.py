@@ -9,7 +9,9 @@ local/global schedule, and 4,096) and the reference notebook's model's
 ViT-B/16 preset's at its own fp32, per-layer remat, the flagship,
 'hier' and ViT-B/16 at head dims other than 64 and 192, and the
 long-context models at their own fp32 (head dims 64, 128, 256), once on
-one NVIDIA GPU.
+one NVIDIA GPU, and the long-context kernels at every head dim and dtype
+the JAX package sends them (the hybrid at its fp32, Dh 128 and 256 in
+bf16).
 
     python3 chip_smoke.py        # from the repository root; needs one
                                  # NVIDIA H100 (sm_90a) and nvcc
@@ -281,7 +283,28 @@ Phases, each of which raises (non-zero exit) on failure:
    logits (1e-4 of the largest |logit|) against the plain path; the first
    two's step times and profiles; and the 1-D tokenizer over 33 x 33
    pixels at patch 1 (family A, 1,089 tokens) evaluated and served the
-   same way.
+   same way;
+19. long context at every head dim and dtype the JAX package sends to
+   its kernels: (a) #8-#11 in bf16 at Dh 128 and 256 (the wide instances
+   of ``csrc/flash_fwd_sm90.cu``, ``flash_bwd_dq_sm90.cu`` and
+   ``flash_bwd_dkv_sm90.cu``, ``csrc/flash_wide.cuh``) at phase 18's
+   shapes past Dh 64 (#9 there is the dq and dk/dv kernels), and #12/#13
+   at block 128, halo 1 in fp32 at [2, 16,384, 6 x 64], [2, 16,384, 3 x
+   128] and a ragged [1, 5,000, 2 x 256] (the windowed instances of
+   ``csrc/flash_fwd_f32.cu`` and ``flash_bwd_f32.cu``) and in bf16 at [2,
+   16,384, 3 x 128], [2, 16,384, 2 x 256] and a ragged [1, 5,000, 2 x 128]:
+   each against its plain version within 1 % (bf16) or 1e-4 (fp32) of its
+   largest |value|, the lse against fp64, bit for bit on a second call,
+   each timed beside its plain version, its bound and SDPA (with a band
+   mask for #12/#13); (b) ``longctx-16k-hybrid`` at ``dtype=None`` (#12/#13
+   fp32 in its three local layers), longctx-16k at 3 heads of 128 in bf16,
+   the same with the hybrid schedule in bf16 and at ``dtype=None``, and
+   CurveViT-S/12 at 4,096 tokens in bf16 at 3 heads of 128 and 6 of 256
+   (depth 2): ``Trainer.fit``, an eval batch and a ``ServingEngine`` in the
+   model's dtype, every flash and curve-local counter at layers x forwards
+   or layers x steps in the model's dtype and 0 elsewhere, one step's
+   gradients (relative L2 0.1 bf16, 1e-2 fp32) and the logits against the
+   plain path; the first two's step times and profiles.
    Then no module of jax, flax or the JAX package may have loaded.  Each
    phase prints its seconds.
 
@@ -4122,87 +4145,114 @@ _FLASH_F32_COUNTS = (("flash_attention_f32", "f32_launches"),
 LC_F32_STEPS, LC_F32_STEPS_WIDE = 4, 2
 
 
-def _flash_f32_counts() -> dict:
-    return {name: getattr(flash.flash_attention, attr) for name, attr in _FLASH_F32_COUNTS}
+#: Every flash and curve-local counter, by kernel-line entry.
+_LONG_COUNTS = (*((name, flash.flash_attention, attr) for name, attr in _FLASH_F32_COUNTS),
+                ("local_block_attention", local.local_block_attention, "launches"),
+                ("local_block_attention_bwd", local.local_block_attention, "bwd_launches"),
+                ("local_block_attention_f32", local.local_block_attention, "f32_launches"),
+                ("local_block_attention_bwd_f32", local.local_block_attention,
+                 "f32_bwd_launches"))
+def _long_counts() -> dict:
+    return {name: getattr(obj, attr) for name, obj, attr in _LONG_COUNTS}
 
 
-def _reset_flash_f32_counts() -> None:
-    for _, attr in _FLASH_F32_COUNTS:
-        setattr(flash.flash_attention, attr, 0)
+def _reset_long_counts() -> None:
+    for _, obj, attr in _LONG_COUNTS:
+        setattr(obj, attr, 0)
 
 
-def _flash_f32_case(card: str, gen, label, b, nq, nk, h, dh, packed) -> dict:
+def _flash_case(card: str, gen, label, b, nq, nk, h, dh, packed,
+                    dtype=torch.float32) -> dict:
     """#8 (in JAX's form for nk) and #9 or #10 + #11 (by JAX's gate) in
-    fp32 at one shape: each output against its plain version within
-    F32_TOL of its largest |value|, the lse against fp64, every output
-    bit for bit on a second call; then each timed in turns with its plain
-    version, beside its bound (nominal operations, 4 Nq Nk Dh for #8, 10
-    for #9, 6 for #10, 8 for #11, at 3xTF32's 165 TFLOP/s; the fp32 bytes
-    of q, k, v, g, out, lse and the outputs at 3.35 TB/s) and SDPA fp32
-    (forward; its autograd backward for the backward kernels) on
-    contiguous [B, H, N, Dh] copies.  Returns {entry: row}."""
+    fp32 (or, phase 19, bf16) at one shape: each output against its plain
+    version within F32_TOL (bf16: FLASH_TOL) of its largest |value|, the
+    lse against fp64, every output bit for bit on a second call; then each
+    timed in turns with its plain version, beside its bound (nominal
+    operations, 4 Nq Nk Dh for #8, 10 for #9, 6 for #10, 8 for #11, at
+    3xTF32's 165 TFLOP/s, bf16's 989; the bytes of q, k, v, g, out, lse and
+    the outputs at 3.35 TB/s) and SDPA in the same dtype (forward; its
+    autograd backward for the backward kernels) on contiguous [B, H, N, Dh]
+    copies.  In bf16 the streaming forward's plain version runs the
+    kernel's 128-key steps, and #9 (at Dh 128 and 256 the dq and dk/dv
+    kernels) is held against #10's and #11's plain versions fed the same
+    lse and delta and against JAX's fused formula within FLASH_FUSED_TOL.
+    Returns {entry: row}."""
+    f32 = dtype == torch.float32
+    tol, es, sfx, peak = (F32_TOL, 4, "_f32", 165e9) if f32 else (FLASH_TOL, 2, "", 989e9)
     s = dh ** -0.5
     if packed:
-        qkv = _randn(gen, b, nq, 3 * h * dh, dtype=torch.float32)
+        qkv = _randn(gen, b, nq, 3 * h * dh, dtype=dtype)
         q, k, v = qkv.view(b, nq, 3, h, dh).unbind(2)
     else:
-        q, k, v = (_randn(gen, b, n, h, dh, dtype=torch.float32) for n in (nq, nk, nk))
-    g = _randn(gen, b, nq, h, dh, dtype=torch.float32)
+        q, k, v = (_randn(gen, b, n, h, dh, dtype=dtype) for n in (nq, nk, nk))
+    g = _randn(gen, b, nq, h, dh, dtype=dtype)
     shape = f"q [{b}, {nq}, {h}, {dh}], k/v [{b}, {nk}, {h}, {dh}]{' views of qkv' if packed else ''}"
     single, fused = flash.uses_single_kstep(nk), flash.uses_fused_bwd(nq, nk)
-    print(f"fp32 flash, {label}: {shape}, #8 {'single step' if single else 'streaming'}, "
-          f"{'#9' if fused else '#10 + #11'}:")
+    block_k = None if f32 or single else STREAM_BK
+
+    def bound(ops: float, nbytes: float) -> dict:
+        return _bound_f32(0.0, nbytes, ops) if f32 else _bound(ops, nbytes)
+    print(f"{'fp32' if f32 else 'bf16'} flash, {label}: {shape}, "
+          f"#8 {'single step' if single else 'streaming'}, {'#9' if fused else '#10 + #11'}:")
     rows = {}
     with torch.no_grad():
         out, lse = flash.flash_fwd(q, k, v, s, return_lse=True)
-        err = _frac_err("out", out, flash.flash_fwd_ref(q, k, v, s), F32_TOL)
+        err = _frac_err("out", out, flash.flash_fwd_ref(q, k, v, s, block_k=block_k), tol)
         lse_err, lse_ok = _agree(lse, _lse64_chunked(q, k, s), **LSE_TOL)
         print(f"  lse: max abs err {lse_err:.4g} against fp64")
-        _check(lse_ok, f"{label}: #8's fp32 lse disagrees with the fp64 log-sum-exp")
+        _check(lse_ok, f"{label}: #8's lse disagrees with the fp64 log-sum-exp")
         _check(torch.equal(flash.flash_fwd(q, k, v, s), out), f"{label}: #8 not bit for bit")
-        io = 4 * b * h * dh * (nq + nk)
-        rows["flash_attention_f32"] = dict(
+        io = es * b * h * dh * (nq + nk)
+        rows["flash_attention" + sfx] = dict(
             errs=[err], shape=shape, form="single step" if single else "streaming",
-            **_bound_f32(0.0, 2 * io + 4 * b * h * nq, 4 * b * h * nq * nk * dh))
+            **bound(4 * b * h * nq * nk * dh, 2 * io + 4 * b * h * nq))
         delta = flash.flash_delta(g, out)
         if fused:
             def kern():
                 return flash.flash_fused_bwd(q, k, v, out, lse, g, s)
 
             def plain():
-                return flash.flash_fused_bwd_ref(q, k, v, g, s)
-            parts = {"flash_attention_fused_bwd_f32": (kern, plain, 10, ("dq", "dk", "dv"))}
+                if f32:
+                    return flash.flash_fused_bwd_ref(q, k, v, g, s)
+                return (flash.flash_dq_ref(q, k, v, g, lse, delta, s),
+                        *flash.flash_dkv_ref(q, k, v, g, lse, delta, s))
+            parts = {"flash_attention_fused_bwd" + sfx: (kern, plain, 10, ("dq", "dk", "dv"))}
+            if not f32:
+                for nm, a, w in zip(("dq", "dk", "dv"), kern(),
+                                    flash.flash_fused_bwd_ref(q, k, v, g, s)):
+                    _frac_err(f"{nm} against JAX's fused formula", a, w, FLASH_FUSED_TOL)
         else:
-            parts = {"flash_attention_dq_f32": (
+            parts = {"flash_attention_dq" + sfx: (
                          lambda: (flash.flash_dq(q, k, v, g, lse, delta, s),),
                          lambda: (flash.flash_dq_ref(q, k, v, g, lse, delta, s),), 6, ("dq",)),
-                     "flash_attention_dkv_f32": (
+                     "flash_attention_dkv" + sfx: (
                          lambda: flash.flash_dkv(q, k, v, g, lse, delta, s),
                          lambda: flash.flash_dkv_ref(q, k, v, g, lse, delta, s), 8,
                          ("dk", "dv"))}
         for name, (kern, plain, ops, names) in parts.items():
             got, want = kern(), plain()
-            errs = [_frac_err(nm, a, w, F32_TOL) for nm, a, w in zip(names, got, want)]
+            errs = [_frac_err(nm, a, w, tol) for nm, a, w in zip(names, got, want)]
             _check(all(torch.equal(a, c) for a, c in zip(got, kern())),
                    f"{label}: {name} not bit for bit on a second call")
             del got, want
-            rows[name] = dict(errs=errs, shape=shape, **_bound_f32(
-                0.0, 2 * io + 8 * b * h * nq + 4 * b * h * dh * (2 * nq + nk), ops * b * h
-                * nq * nk * dh))
+            rows[name] = dict(errs=errs, shape=shape, **bound(
+                ops * b * h * nq * nk * dh,
+                2 * io + 8 * b * h * nq + es * b * h * dh * (2 * nq + nk)))
             t = rows[name]
             t["ms"], t["plain_ms"] = _ab_ms(kern, plain, iters=3)
-        t = rows["flash_attention_f32"]
-        t["ms"], t["plain_ms"] = _ab_ms(lambda: flash.flash_fwd(q, k, v, s),
-                                        lambda: flash.flash_fwd_ref(q, k, v, s), iters=3)
+        t = rows["flash_attention" + sfx]
+        t["ms"], t["plain_ms"] = _ab_ms(
+            lambda: flash.flash_fwd(q, k, v, s),
+            lambda: flash.flash_fwd_ref(q, k, v, s, block_k=block_k), iters=3)
     lib_fwd, lib_bwd = _sdpa_ms(q, k, v, g)
     for name, t in rows.items():
-        t["library_ms"] = lib_fwd if name == "flash_attention_f32" else lib_bwd
-        nominal = t["bound_ms"] * 165e9 if t["bound_by"] == "operations" else None
+        t["library_ms"] = lib_fwd if name == "flash_attention" + sfx else lib_bwd
+        nominal = t["bound_ms"] * peak if t["bound_by"] == "operations" else None
         print(f"  {name}: kernel {t['ms']:.3f} ms"
               + (f" ({_tflops(nominal, t['ms'])} nominal)" if nominal else "")
               + f", plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
-              f"({t['bound_by']}), SDPA fp32 "
-              f"{'forward' if name == 'flash_attention_f32' else 'backward'} "
+              f"({t['bound_by']}), SDPA {'fp32' if f32 else 'bf16'} "
+              f"{'forward' if name == 'flash_attention' + sfx else 'backward'} "
               f"{t['library_ms']:.3f} ms; max abs err {max(t['errs']):.4g}; {shape}, {card}")
     del q, k, v, g, out, lse, delta
     torch.cuda.empty_cache()
@@ -4216,10 +4266,10 @@ def _lse_rows_case(card: str, gen, b, n, h, dh, dtype) -> None:
     F32_TOL."""
     qkv = _randn(gen, b, n, 3 * h * dh, dtype=dtype)
     q, k, v = qkv.view(b, n, 3, h, dh).unbind(2)
-    before = _flash_f32_counts()
+    before = _long_counts()
     with torch.no_grad():
         out, lse = flash.flash_attention_with_lse(q, k, v)
-    after = _flash_f32_counts()
+    after = _long_counts()
     name = "flash_attention_f32" if dtype == torch.float32 else "flash_attention"
     _check(after[name] == before[name] + 1, f"flash_attention_with_lse: launches {after}")
     queries = [0, 1, n // 2, n - 1]
@@ -4236,63 +4286,75 @@ def _lse_rows_case(card: str, gen, b, n, h, dh, dtype) -> None:
            "attention_rows from the kernel's lse disagree with fp64")
 
 
+def _entry_rows(by_case: dict, name: str, primary: str) -> dict:
+    """The kernel-line row of ``name`` from ``primary``'s case, its error
+    the largest over every case, the other cases' numbers under "cases"."""
+    held = {label: rows[name] for label, rows in by_case.items() if name in rows}
+    row = dict(held[primary])
+    row["max_abs_err"] = max(e for r in held.values() for e in r["errs"])
+    row["cases"] = {label: {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                               "library_ms")}
+                    for label, r in held.items() if label != primary}
+    row.pop("errs")
+    return row
+
+
 def phase_flash_f32_kernels(card: str) -> dict:
-    """(a) #8-#11 in fp32 at FLASH_F32_CASES (:func:`_flash_f32_case`),
+    """(a) #8-#11 in fp32 at FLASH_F32_CASES (:func:`_flash_case`),
     and the LSE capture path on the card in bf16 at Dh 64 and fp32 at 64,
     128 and 256.  Returns the kernel-line rows of the four fp32 entries
     (each with its other cases by head dim)."""
     gen = torch.Generator().manual_seed(18)
-    by_case = {case[0]: _flash_f32_case(card, gen, *case) for case in FLASH_F32_CASES}
+    by_case = {case[0]: _flash_case(card, gen, *case) for case in FLASH_F32_CASES}
     for dh, dtype in ((64, torch.bfloat16), (64, torch.float32), (128, torch.float32),
                       (256, torch.float32)):
         _lse_rows_case(card, gen, 2, 4096, 2, dh, dtype)
-    res = {}
-    for name, primary in FLASH_F32_ENTRIES.items():
-        held = {label: rows[name] for label, rows in by_case.items() if name in rows}
-        row = dict(held[primary])
-        row["max_abs_err"] = max(e for r in held.values() for e in r["errs"])
-        row["cases"] = {label: {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                                   "library_ms")}
-                        for label, r in held.items() if label != primary}
-        if name == "flash_attention_f32":
-            row["single_step"] = {k: by_case["CurveViT-S/12"][name][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        row.pop("errs")
-        res[name] = row
+    res = {name: _entry_rows(by_case, name, primary)
+           for name, primary in FLASH_F32_ENTRIES.items()}
+    res["flash_attention_f32"]["single_step"] = {
+        k: by_case["CurveViT-S/12"]["flash_attention_f32"][k]
+        for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     return res
 
 
-def _flash_f32_model(card: str, label: str, cfg, batch: int, steps: int, bwd: tuple,
-                     family_a: bool = False, timed: bool = False) -> dict:
-    """One long-context model at its own fp32 on the card: ``Trainer.fit``
-    for ``steps`` steps at ``batch`` plus an eval batch (family A: the eval
-    forward only), every loss finite, every parameter moved, the fp32 flash
-    counters at layers x forwards (#8) and layers x steps (the kernels in
-    ``bwd``) and the bf16 ones at 0; one step's gradients against the plain
-    path (relative L2 within F32_GRAD_REL_TOL) and the eval logits within
-    F32_TOL of the largest |logit|; ``ServingEngine(dtype=None)`` answers 1
-    and ``batch`` images, #8 launched 2 x layers, logits within F32_TOL of
-    the plain path's.  Returns the launch counts."""
+def _long_model(card: str, label: str, cfg, batch: int, steps: int, bwd: str,
+                family_a: bool = False, timed: bool = False) -> dict:
+    """One long-context model on the card (phases 18 and 19), in bf16 or
+    at its own fp32: ``Trainer.fit`` for ``steps`` steps at ``batch`` plus
+    an eval batch (family A: the eval forward only), every loss finite,
+    every parameter moved; the launches of the flash and curve-local
+    kernels in the model's dtype (the ``_f32`` entries in fp32) at layers x
+    forwards and layers x steps (a global layer's backward ``bwd``:
+    "fused_bwd" or "dq" + "dkv"), every other counter at 0; one step's
+    gradients against the plain path within GRAD_REL_TOL (bf16) or
+    F32_GRAD_REL_TOL (fp32) relative L2, the eval logits within
+    FA_LOGIT_TOL or F32_TOL of the largest |logit|; a ``ServingEngine`` in
+    the model's dtype answers 1 and ``batch`` images (#8 and #12 launched
+    twice a layer), logits against the plain path's.  Returns the launch
+    counts."""
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, generator=torch.Generator().manual_seed(0))
-    _check(all(p.dtype == torch.float32 for p in model.parameters()), f"{label}: not fp32")
-    layers = cfg.depth
-    plain_path = _plain_longctx
-    stats = ((0.5,) * 3, (0.25,) * 3)
-    tf = make_eval_transform(*stats, device=DEVICE)
+    f32 = cfg.dtype is None
+    _check(not f32 or all(p.dtype == torch.float32 for p in model.parameters()),
+           f"{label}: not fp32")
+    sfx = "_f32" if f32 else ""
+    logit_tol, grad_tol = (F32_TOL, F32_GRAD_REL_TOL) if f32 else (FA_LOGIT_TOL, GRAD_REL_TOL)
+    impls = (cfg.attn_impl,) * cfg.depth if isinstance(cfg.attn_impl, str) else cfg.attn_impl
+    n_local = list(impls).count("local")
+    n_global = cfg.depth - n_local
+    tf = make_eval_transform((0.5,) * 3, (0.25,) * 3, device=DEVICE)
     test_ds = synthetic_dataset(n=batch, hw=cfg.img_size, num_classes=cfg.num_classes, seed=1)
     xe = tf(next(epoch_batches(test_ds, batch, shuffle=False, drop_last=False))[0])
-    _reset_flash_f32_counts()
-    counts = {}
+    _reset_long_counts()
+    want = {name: 0 for name in _long_counts()}
     if family_a:
         model.eval()
         with torch.no_grad():
-            got = model(xe)
+            model(xe)
         torch.cuda.synchronize()
-        counts = _flash_f32_counts()
-        want = {name: 0 for name in counts}
-        want["flash_attention_f32"] = layers
+        counts = _long_counts()
+        want["flash_attention" + sfx] = n_global
     else:
         train_ds = synthetic_dataset(n=batch * steps, hw=cfg.img_size,
                                      num_classes=cfg.num_classes, seed=0)
@@ -4304,7 +4366,7 @@ def _flash_f32_model(card: str, label: str, cfg, batch: int, steps: int, bwd: tu
             lambda: ((tf(x), y) for x, y in epoch_batches(test_ds, batch, shuffle=False,
                                                           drop_last=False)))
         torch.cuda.synchronize()
-        counts = _flash_f32_counts()
+        counts = _long_counts()
         print(f"{label}: Trainer.fit, {steps} steps at batch {batch} + eval of "
               f"{len(test_ds)}: {record}")
         _check(bool(np.isfinite(record["train_loss"])) and
@@ -4313,21 +4375,22 @@ def _flash_f32_model(card: str, label: str, cfg, batch: int, steps: int, bwd: tu
         still = [nm for (nm, p), q in zip(model.named_parameters(), before) if torch.equal(p, q)]
         _check(not still, f"{label}: parameters unchanged after {steps} steps: {still}")
         del before
-        want = {name: 0 for name in counts}
-        want["flash_attention_f32"] = layers * (steps + 1)
-        for name in bwd:
-            want[name] = layers * steps
-        model.eval()
-        with torch.no_grad():
-            got = model(xe)
-    print(f"{label}: launches {counts}")
+        want["flash_attention" + sfx] = n_global * (steps + 1)
+        for part in (("fused_bwd",) if bwd == "fused_bwd" else ("dq", "dkv")):
+            want[f"flash_attention_{part}{sfx}"] = n_global * steps
+        want["local_block_attention" + sfx] = n_local * (steps + 1)
+        want["local_block_attention_bwd" + sfx] = n_local * steps
+    print(f"{label}: launches of {n_global} global and {n_local} local layers: {counts}")
     _check(counts == want, f"{label}: launches {counts}, expected {want}")
-    with torch.no_grad(), plain_path():
-        plain = model(xe)
-    err, scale = float((got - plain).abs().max()), float(plain.abs().max())
+    model.eval()
+    with torch.no_grad():
+        got = model(xe)
+        with _plain_longctx():
+            plain = model(xe)
+    err, scale = float((got.float() - plain.float()).abs().max()), float(plain.abs().max())
     print(f"{label}: eval logits [{batch}, {cfg.num_classes}] vs plain path max abs err "
-          f"{err:.4g} (max |logit| {scale:.4g}; tolerance {F32_TOL} x max |logit|)")
-    _check(bool(torch.isfinite(got).all()) and err <= F32_TOL * scale,
+          f"{err:.4g} (max |logit| {scale:.4g}; tolerance {logit_tol} x max |logit|)")
+    _check(bool(torch.isfinite(got).all()) and err <= logit_tol * scale,
            f"{label}: eval logits disagree with the plain path")
 
     if not family_a:
@@ -4338,21 +4401,21 @@ def _flash_f32_model(card: str, label: str, cfg, batch: int, steps: int, bwd: tu
         step = make_train_step(cfg.num_classes, use_mixing=False)
         m_k = step(state, data, torch.Generator())
         grads = {nm: p.grad.detach().clone() for nm, p in model.named_parameters()}
-        with plain_path():
+        with _plain_longctx():
             m_p = step(state, data, torch.Generator())
-        rel = {nm: float((grads[nm] - p.grad).norm() / p.grad.norm())
+        rel = {nm: float((grads[nm].float() - p.grad.float()).norm() / p.grad.float().norm())
                for nm, p in model.named_parameters()}
         worst = max(rel, key=rel.get)
         print(f"{label}: one train step, kernels vs plain path: loss {float(m_k['loss']):.6f} "
               f"vs {float(m_p['loss']):.6f}; gradient relative L2 error max {rel[worst]:.4g} "
               f"({worst}), median {float(np.median(list(rel.values()))):.4g} over {len(rel)} "
-              f"tensors (tolerance {F32_GRAD_REL_TOL})")
-        _check(rel[worst] <= F32_GRAD_REL_TOL, f"{label}: kernel-path gradients disagree "
-               "with the plain path")
+              f"tensors (tolerance {grad_tol})")
+        _check(rel[worst] <= grad_tol, f"{label}: kernel-path gradients disagree with the "
+               "plain path")
         del grads
         if timed:
             def step_ms(plain: bool) -> float:
-                with plain_path() if plain else contextlib.nullcontext():
+                with _plain_longctx() if plain else contextlib.nullcontext():
                     step(state, data, torch.Generator())
                     torch.cuda.synchronize()
                     t1 = time.perf_counter()
@@ -4366,28 +4429,30 @@ def _flash_f32_model(card: str, label: str, cfg, batch: int, steps: int, bwd: tu
                   f"{batch * n_tok / k_ms * 1e3:.0f} tokens/s, plain path {p_ms:.1f} ms = "
                   f"{batch * n_tok / p_ms * 1e3:.0f} tokens/s, {card}")
             _profile(lambda: step(state, data, torch.Generator()),
-                     f"{label} fp32 train step at batch {batch}", steps=1)
+                     f"{label} train step at batch {batch}", steps=1)
         del state, data
 
     engine = ServingEngine(copy.deepcopy(model), None, (cfg.img_size, cfg.img_size, 3),
-                           batch_sizes=(1, batch), dtype=None, device=DEVICE)
+                           batch_sizes=(1, batch), dtype=None if f32 else torch.bfloat16,
+                           device=DEVICE)
     rng = np.random.default_rng(18)
     requests = [rng.standard_normal((k, cfg.img_size, cfg.img_size, 3), dtype=np.float32)
                 for k in (1, batch)]
-    _reset_flash_f32_counts()
+    _reset_long_counts()
     outs = np.concatenate([engine.predict(r) for r in requests])
-    served = _flash_f32_counts()
-    _check(served["flash_attention_f32"] == 2 * layers and served["flash_attention"] == 0,
-           f"{label}: served launches {served}")
-    with plain_path():
+    served = _long_counts()
+    want = {name: 0 for name in served}
+    want["flash_attention" + sfx] = 2 * n_global
+    want["local_block_attention" + sfx] = 2 * n_local
+    _check(served == want, f"{label}: served launches {served}, expected {want}")
+    with _plain_longctx():
         plain = np.concatenate([engine.predict(r) for r in requests])
     err, scale = float(np.abs(outs - plain).max()), float(np.abs(plain).max())
-    print(f"{label}: served 1 and {batch} images, #8 fp32 launched "
-          f"{served['flash_attention_f32']} times; logits vs plain path max abs err {err:.4g} "
-          f"(max |logit| {scale:.4g}; tolerance {F32_TOL} x max |logit|); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} "
-          f"s, {card}")
-    _check(bool(np.isfinite(outs).all()) and err <= F32_TOL * scale,
+    print(f"{label}: served 1 and {batch} images; launches {served}; logits vs plain path max "
+          f"abs err {err:.4g} (max |logit| {scale:.4g}; tolerance {logit_tol} x max |logit|); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s, {card}")
+    _check(bool(np.isfinite(outs).all()) and err <= logit_tol * scale,
            f"{label}: served logits disagree with the plain path")
     del model, engine
     torch.cuda.empty_cache()
@@ -4404,8 +4469,7 @@ def phase_flash_f32_models(card: str) -> dict:
     pixels at patch 1 (1,089 tokens; family A's eval and serving through
     #8 on the projection's views).  Returns the summed launch counts."""
     vs = dict(img_size=256, patch_size=4, num_classes=1000)
-    fused, pair = ("flash_attention_fused_bwd_f32",), ("flash_attention_dq_f32",
-                                                       "flash_attention_dkv_f32")
+    fused, pair = "fused_bwd", "dq"
     runs = [("CurveViT-S/12 at 4,096 tokens, fp32", preset_config("vit-s-16", **vs), VS_B,
              LC_F32_STEPS, fused, dict(timed=True)),
             ("longctx-16k at dtype=None", preset_config("longctx-16k", dtype=None), LC_B,
@@ -4421,10 +4485,183 @@ def phase_flash_f32_models(card: str) -> dict:
              fused, {}),
             ("1-D tokenizer over 33 x 33 px at patch 1, fp32",
              preset_config("notebook", tokenizer="1d", img_size=33, patch_size=1), NB_B, 0,
-             (), dict(family_a=True))]
+             "", dict(family_a=True))]
     total: dict = {}
     for label, cfg, batch, steps, bwd, kw in runs:
-        for k, v in _flash_f32_model(card, label, cfg, batch, steps, bwd, **kw).items():
+        for k, v in _long_model(card, label, cfg, batch, steps, bwd, **kw).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+# -- phase 19: long context at every head dim and dtype JAX sends ----------
+
+#: #8-#11 in bf16 at head dims 128 and 256, at phase 18's long-context
+#: shapes past Dh 64 ((label, b, nq, nk, heads, dh, packed)): #8's single
+#: step and #9 at CurveViT-S/12's 4,096 tokens, #8 streaming, #10 and #11
+#: at longctx-16k's 16,384 and at a ragged 8,300 x 9,000.
+WIDE_CASES = (("CurveViT-S/12, 3 heads of 128", 8, VS_N, VS_N, 3, 128, True),
+              ("longctx-16k, 3 heads of 128", LC_B, LC_N, LC_N, 3, 128, True),
+              ("CurveViT-S/12, 6 heads of 256", 8, VS_N, VS_N, 6, 256, True),
+              ("ragged, Dh 256", 1, 8300, 9000, 2, 256, False))
+#: The kernel-line entries of #8-#11 in bf16 and the case each one's
+#: numbers at the new head dims come from.
+WIDE_ENTRIES = {"flash_attention": "longctx-16k, 3 heads of 128",
+                "flash_attention_fused_bwd": "CurveViT-S/12, 3 heads of 128",
+                "flash_attention_dq": "longctx-16k, 3 heads of 128",
+                "flash_attention_dkv": "longctx-16k, 3 heads of 128"}
+#: #12/#13 at block 128, halo 1 ((label, dtype, b, n, heads, dh, packed)):
+#: in fp32 at the hybrid preset's 16,384 tokens with its 6 heads of 64 and
+#: at 3 heads of 128, a ragged length at Dh 256; in bf16 at 3 heads of 128,
+#: 2 of 256 and a ragged length.  The first of each dtype is the kernel
+#: line's row.
+LOCAL_WIDE_CASES = (
+    ("longctx-16k-hybrid, fp32", torch.float32, LC_B, LC_N, LC_HEADS, 64, True),
+    ("longctx-16k-hybrid, 3 heads of 128, fp32", torch.float32, LC_B, LC_N, 3, 128, True),
+    ("ragged 5,000, Dh 256, fp32", torch.float32, 1, 5000, 2, 256, False),
+    ("longctx-16k-hybrid, 3 heads of 128, bf16", torch.bfloat16, LC_B, LC_N, 3, 128, True),
+    ("16,384 tokens, 2 heads of 256, bf16", torch.bfloat16, LC_B, LC_N, 2, 256, True),
+    ("ragged 5,000, Dh 128, bf16", torch.bfloat16, 1, 5000, 2, 128, False))
+WIDE_STEPS = 2
+def _local_lse64(q, k, block: int, halo: int, scale: float) -> torch.Tensor:
+    """The fp64 log-sum-exp of each query's scaled logits over its
+    curve-local window, [B, H, N]."""
+    n = q.shape[1]
+    out = torch.empty(q.shape[0], q.shape[2], n, dtype=torch.float64, device=q.device)
+    for j in range(-(-n // block)):
+        q0, q1 = j * block, min(n, (j + 1) * block)
+        lo, hi = local.window(j, n, block, halo)
+        qd, kd = q[:, q0:q1].double().transpose(1, 2), k[:, lo:hi].double().transpose(1, 2)
+        out[:, :, q0:q1] = torch.logsumexp((qd @ kd.transpose(-1, -2)) * scale, dim=-1)
+    return out
+
+
+def _local_wide_case(card: str, gen, label, dtype, b, n, h, dh, packed) -> dict:
+    """#12 (out and lse) and #13 (dq, dk, dv) at block 128, halo 1 in
+    ``dtype`` at one shape: each against its plain version within F32_TOL
+    (fp32) or FLASH_TOL (bf16) of its largest |value|, the lse against the
+    window's fp64 log-sum-exp, both bit for bit on a second call; each
+    timed in turns with its plain version beside its bound (4 and 10
+    nominal operations a (query, key) pair of the window: bf16 at 989
+    TFLOP/s, fp32 as 3xTF32 at 165) and SDPA in the same dtype with a band
+    mask.  Returns {entry: row}."""
+    f32 = dtype == torch.float32
+    tol, es, sfx = (F32_TOL, 4, "_f32") if f32 else (FLASH_TOL, 2, "")
+    s, blk, halo = dh ** -0.5, LOCAL_BLOCK, LOCAL_HALO
+    if packed:
+        qkv = _randn(gen, b, n, 3 * h * dh, dtype=dtype)
+        q, k, v = qkv.view(b, n, 3, h, dh).unbind(2)
+    else:
+        q, k, v = (_randn(gen, b, n, h, dh, dtype=dtype) for _ in range(3))
+    g = _randn(gen, b, n, h, dh, dtype=dtype)
+    shape = f"[{b}, {n}, {h}, {dh}] {'fp32' if f32 else 'bf16'}{' views of qkv' if packed else ''}"
+    print(f"#12 / #13, {label}: block {blk}, halo {halo}, q/k/v {shape}:")
+    pairs = _window_pairs(n, blk, halo)
+    rows = {}
+    with torch.no_grad():
+        out, lse = local.local_fwd(q, k, v, blk, halo, s, return_lse=True)
+        want = local.local_fwd_ref(q, k, v, blk, halo, s)
+        err = _frac_err("out", out, want, tol)
+        lse_err, lse_ok = _agree(lse, _local_lse64(q, k, blk, halo, s), **LSE_TOL)
+        print(f"  lse: max abs err {lse_err:.4g} against the window's fp64 log-sum-exp")
+        _check(lse_ok, f"{label}: #12's lse disagrees with fp64")
+        again, again_lse = local.local_fwd(q, k, v, blk, halo, s, return_lse=True)
+        _check(torch.equal(out, again) and torch.equal(lse, again_lse),
+               f"{label}: #12 not bit for bit on a second call")
+        del want, again, again_lse
+        delta = flash.flash_delta(g, out)
+        got = local.local_bwd(q, k, v, g, lse, delta, blk, halo, s)
+        errs = [_frac_err(nm, x, w, tol) for nm, x, w in zip(
+            ("dq", "dk", "dv"), got, local.local_bwd_ref(q, k, v, g, lse, delta, blk, halo, s))]
+        _check(all(torch.equal(x, y) for x, y in zip(
+            got, local.local_bwd(q, k, v, g, lse, delta, blk, halo, s))),
+            f"{label}: #13 not bit for bit on a second call")
+        del got
+        io = es * b * n * h * dh
+        fwd_b, bwd_b = 4 * io + 4 * b * h * n, 7 * io + 8 * b * h * n
+        fwd_ops, bwd_ops = 4 * b * h * pairs * dh, 10 * b * h * pairs * dh
+        rows["local_block_attention" + sfx] = dict(
+            errs=[err], shape=shape,
+            **(_bound_f32(0.0, fwd_b, fwd_ops) if f32 else _bound(fwd_ops, fwd_b)))
+        rows["local_block_attention_bwd" + sfx] = dict(
+            errs=errs, shape=shape,
+            **(_bound_f32(0.0, bwd_b, bwd_ops) if f32 else _bound(bwd_ops, bwd_b)))
+        t = rows["local_block_attention" + sfx]
+        t["ms"], t["plain_ms"] = _ab_ms(
+            lambda: local.local_fwd(q, k, v, blk, halo, s, return_lse=True),
+            lambda: local.local_fwd_ref(q, k, v, blk, halo, s, return_lse=True), iters=3)
+        t = rows["local_block_attention_bwd" + sfx]
+        t["ms"], t["plain_ms"] = _ab_ms(
+            lambda: local.local_bwd(q, k, v, g, lse, delta, blk, halo, s),
+            lambda: local.local_bwd_ref(q, k, v, g, lse, delta, blk, halo, s), iters=3)
+    mask = _band_mask(n, blk, halo)
+    lib_fwd, lib_bwd = _sdpa_masked_ms(q, k, v, g, mask)
+    del mask
+    for name, t in rows.items():
+        t["library_ms"] = lib_fwd if "bwd" not in name else lib_bwd
+        print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), SDPA with a band mask "
+              f"{'backward' if 'bwd' in name else 'forward'} {t['library_ms']:.4f} ms; "
+              f"max abs err {max(t['errs']):.4g}; {shape}, {card}")
+    del q, k, v, g, out, lse, delta
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_wide_kernels(card: str) -> dict:
+    """(19a) #8-#11 in bf16 at head dims 128 and 256 (:func:`_flash_case`
+    in bf16 at WIDE_CASES: the streaming forward against its plain version
+    at 128-key steps, #9 as the dq and dk/dv kernels against their plain
+    versions fed the same lse and delta, and against JAX's fused formula
+    within FLASH_FUSED_TOL) and #12/#13 in fp32 at Dh 64, 128, 256 and in
+    bf16 at 128 and 256 (:func:`_local_wide_case` at LOCAL_WIDE_CASES).
+    Returns {"rows": the fp32 local entries' kernel-line rows, "wide": the
+    bf16 entries' rows at the new head dims}."""
+    gen = torch.Generator().manual_seed(19)
+    wide = {case[0]: _flash_case(card, gen, *case, dtype=torch.bfloat16)
+            for case in WIDE_CASES}
+    local_rows = {case[0]: _local_wide_case(card, gen, *case) for case in LOCAL_WIDE_CASES}
+    out = {name: _entry_rows(wide, name, primary) for name, primary in WIDE_ENTRIES.items()}
+    for sfx, primary in (("", "longctx-16k-hybrid, 3 heads of 128, bf16"),
+                         ("_f32", "longctx-16k-hybrid, fp32")):
+        for name in ("local_block_attention", "local_block_attention_bwd"):
+            out[name + sfx] = _entry_rows(local_rows, name + sfx, primary)
+    return out
+
+
+def phase_wide_models(card: str) -> dict:
+    """(19b) The long-context paths at every head dim and dtype JAX sends
+    to #8-#13, each trained, evaluated and served (:func:`_long_model`):
+    ``longctx-16k-hybrid`` at ``dtype=None`` (the JAX CLI's own fp32; #12/#13
+    fp32 in its three local layers, #8/#10/#11 fp32 in the global one;
+    batch 2, 4 steps), ``longctx-16k`` at 3 heads of 128 in its preset's
+    bf16 (#8 streaming, #10, #11 at Dh 128; depth 4, batch 2, 4 steps),
+    the same with the hybrid's schedule in bf16 and at ``dtype=None``
+    (#12/#13 at Dh 128 in both dtypes; 2 steps), and CurveViT-S/12 at 4,096
+    tokens in bf16 at 3 heads of 128 and 6 of 256 (#8's single step and #9;
+    depth 2, batch 8 and 2, 2 steps).  Returns the summed launch counts."""
+    vs = dict(img_size=256, patch_size=4, num_classes=1000, dtype="bfloat16")
+    hybrid = ("local", "local", "local", "auto")
+    wide = dict(n_heads=3, dim_head=128)
+    runs = [("longctx-16k-hybrid at dtype=None",
+             preset_config("longctx-16k-hybrid", dtype=None), LC_B, LC_STEPS, "dq",
+             dict(timed=True)),
+            ("longctx-16k, 3 heads of 128, bf16", preset_config("longctx-16k", **wide), LC_B,
+             LC_STEPS, "dq", dict(timed=True)),
+            ("longctx-16k hybrid schedule, 3 heads of 128, bf16",
+             preset_config("longctx-16k", attn_impl=hybrid, **wide), LC_B, WIDE_STEPS, "dq",
+             {}),
+            ("longctx-16k hybrid schedule, 3 heads of 128, dtype=None",
+             preset_config("longctx-16k", attn_impl=hybrid, dtype=None, **wide), LC_B,
+             WIDE_STEPS, "dq", {}),
+            ("CurveViT-S/12, 3 heads of 128, bf16",
+             preset_config("vit-s-16", n_heads=3, dim_head=128, depth=2, **vs), 8, WIDE_STEPS,
+             "fused_bwd", {}),
+            ("CurveViT-S/12, 6 heads of 256, bf16",
+             preset_config("vit-s-16", dim_head=256, depth=2, **vs), 2, WIDE_STEPS,
+             "fused_bwd", {})]
+    total: dict = {}
+    for label, cfg, batch, steps, bwd, kw in runs:
+        for k, v in _long_model(card, label, cfg, batch, steps, bwd, **kw).items():
             total[k] = total.get(k, 0) + v
     return total
 
@@ -4478,6 +4715,8 @@ def main() -> int:
     add(_timed(phase_head_dim_models, card))
     kernels.update(_timed(phase_flash_f32_kernels, card))
     add(_timed(phase_flash_f32_models, card))
+    wide = _timed(phase_wide_kernels, card)
+    add(_timed(phase_wide_models, card))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "sfc_vit_tpu"))
     _check(not leaked, f"the port imported {leaked}")
@@ -4575,7 +4814,15 @@ def main() -> int:
         dict(name="flash_attention_dkv_f32", route="cuda",
              source="sfc_vit_tpu_torch/csrc/flash_bwd_f32.cu",
              replaces="sfc_vit_tpu/ops/flash_attention.py:482"),
+        dict(name="local_block_attention_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/flash_fwd_f32.cu",
+             replaces="sfc_vit_tpu/ops/local_attention.py:82"),
+        dict(name="local_block_attention_bwd_f32", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/flash_bwd_f32.cu",
+             replaces="sfc_vit_tpu/ops/local_attention.py:198"),
     ]
+    kernels.update({name: wide[name] for name in ("local_block_attention_f32",
+                                                  "local_block_attention_bwd_f32")})
     for e in entries:
         k = kernels[e["name"]]
         e.update(launches=launches[e["name"]], max_abs_err=k["max_abs_err"],
@@ -4587,6 +4834,12 @@ def main() -> int:
             e["cases"] = k["cases"]
         if e["name"] in head_dims:  # the widths past 64 and 192 held against plain
             e["head_dims"] = head_dims[e["name"]]
+        if e["name"] in wide and not e["name"].endswith("_f32"):
+            # the bf16 long-context kernels at Dh 128 and 256 (phase 19a)
+            e["head_dims"] = list(_build.FLASH_HEAD_DIMS)
+            e["wide"] = {k: wide[e["name"]][k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                "cases")}
     print(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

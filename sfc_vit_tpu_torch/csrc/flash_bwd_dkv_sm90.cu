@@ -1,6 +1,7 @@
 // Streaming flash attention backward, dK and dV (kernel #11), redesigned
-// for Hopper, on [B, N, H, Dh] with head dim 64, from the forward's fp32
-// log-sum-exp lse and delta = rowsum(g * O) (both [B, H, Nq]).
+// for Hopper, on [B, N, H, Dh] with head dim 64 (128 and 256 below),
+// from the forward's fp32 log-sum-exp lse and delta = rowsum(g * O) (both
+// [B, H, Nq]).
 //
 // Replaces: sfc_vit_tpu/ops/flash_attention.py::_dkv_kernel (lines
 // 482-530), launched by _streaming_bwd past _FUSED_BWD_MAX.  With s = q .
@@ -49,8 +50,22 @@
 // tiles a block instead of 256, 38 nominal GFLOP of dk and dv.  Unlike
 // #13's dq instance it stays one block per (128-key block, b * h): its
 // persistent form spilled at the nine warps' 168 registers a thread.
+//
+// Head dims 128 and 256 (flash_bwd_dkv_wide_sm90; csrc/flash_wide.cuh):
+// the same formula, over every query or the window, on C = Dh / 64
+// sub-heads.  A block is one warpgroup over 64 keys, two blocks an SM;
+// K's and V's C sub-blocks stay resident, a TMA ring brings Q's and G's
+// 64-query sub-blocks, and the tile's lse and delta are staged in shared
+// memory by plain loads.  Per query tile: s^T = sum over c of K_c Q_c^T
+// and dp^T = sum of V_c G_c^T by wgmma, p and ds in registers as at Dh
+// 64, then dk_c += ds^T Q_c and dv_c += p^T G_c (the hi / lo splits) for
+// one sub-head c (64 registers for dk_c and dv_c beside s^T and dp^T):
+// the block walks its queries C times, once for each sub-head,
+// recomputing s^T and dp^T (2C + 4 sub-head products a tile and walk
+// where one walk would take 6 C).  Each output row has one owner and is
+// rounded once: the same bits on every call.
 
-#include "sm90.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -263,13 +278,172 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_sm90(const __grid_c
   }
 }
 
+namespace fw = sfc::flash_wide;
+
+struct WideParams {
+  CUtensorMap q, k, v, g;  // map_strided_heads over [B, N, H, Dh], 64-row boxes
+  const float *lse, *delta;
+  bf16 *dk, *dv;           // [B, nk, H, Dh] contiguous
+  int heads, dh, nq, nk;
+  int block, halo;         // the windowed instance's curve block and halo
+  float scale, scale_log2;
+};
+
+__host__ __device__ constexpr int wide_ring(int C) { return C == 2 ? 8 : 5; }
+template <int C>
+using WideSmem = fw::Smem<2 * C, wide_ring(C)>;
+
+// C: sub-heads (2 or 4).  kWindow: #13's dk and dv over the query tiles
+// whose window holds the block's keys.
+template <int C, bool kWindow>
+__global__ void __launch_bounds__(fw::kThreads, 2)
+    flash_bwd_dkv_wide_sm90(const __grid_constant__ WideParams p) {
+  constexpr int NS = wide_ring(C);
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  WideSmem<C>& sm = hw::aligned_smem<WideSmem<C>>(dyn);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const int k0 = blockIdx.x * 64, bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int nq = p.nq;
+  int j0 = 0, j1 = (nq + 63) / 64;
+  if constexpr (kWindow) hw::local_tile_window(blockIdx.x, 64, nq, p.block, p.halo, j0, j1);
+  const int tiles = j1 - j0;
+  // The ring, per sub-head c of dk and dv, per query tile: Q's C
+  // sub-blocks (s^T), G's C (dp^T), then Q's and G's sub-block c again.
+  constexpr int per = 2 * C + 2;
+  fw::Cursor cur;
+  cur.entries = C * tiles * per;
+  auto of = [&](int i) SFC_INLINE_LAMBDA {
+    const int u = i / per, r = i % per, j = j0 + u % tiles, c = u / tiles;
+    if (r < C) return fw::Entry{&p.q, r, j * 64};
+    if (r < 2 * C) return fw::Entry{&p.g, r - C, j * 64};
+    return fw::Entry{r == 2 * C ? &p.q : &p.g, c, j * 64};
+  };
+  fw::start<C>(sm, cur, &p.k, &p.v, k0, h, b, of);  // res: K's sub-blocks, then V's
+
+  float dk[32], dv[32], st[32], dpt[32];
+  uint32_t dsh[4][4], dsl[4][4], ph[4][4], pl[4][4];
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+    for (int j = 0; j < tiles; ++j) {
+      const int qa = (j0 + j) * 64;
+      if (tid < 64) {  // the tile's lse (log2 units) and delta; read after the barriers below
+        const bool ok = qa + tid < nq;
+        const long long at = static_cast<long long>(bh) * nq + qa + tid;
+        sm.vec[0][tid] = ok ? p.lse[at] * kLog2e : 0.f;
+        sm.vec[1][tid] = ok ? p.delta[at] : 0.f;
+      }
+      fw::logits<C>(sm, cur, st, 0);
+      fw::release(sm, cur, h, b, of);
+      fw::logits<C>(sm, cur, dpt, C);
+      fw::release(sm, cur, h, b, of);
+      hw::fence_regs(st);
+      hw::fence_regs(dpt);
+      // p = exp(s - lse) and ds = p (dp - delta) scale, a k16 step (8 of a
+      // thread's values) at a time, each split straight into its A
+      // fragments; queries at or past nq give p = 0.  (Written back into
+      // s^T and dp^T, the accumulators of the chains above, they made the
+      // compiler copy an accumulator mid-chain, and ptxas then serialized
+      // the wgmma and injected waits: C7511, C7517, C7519.)
+      uint64_t dx[2];  // Q's sub-block c, then G's
+      fw::take_descs(sm, cur, dx);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float pk[8], dk8[8];
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const int i = 8 * kk + m, col = 8 * (i / 4) + c0 + (i % 2);
+          const float pv =
+              qa + col < nq ? hw::exp2_approx(st[i] * p.scale_log2 - sm.vec[0][col]) : 0.f;
+          pk[m] = pv;
+          dk8[m] = pv * (dpt[i] - sm.vec[1][col]) * p.scale;
+        }
+        fw::split8(dk8, dsh[kk], dsl[kk]);
+        fw::split8(pk, ph[kk], pl[kk]);
+      }
+      // dk_c += ds^T Q_c and dv_c += p^T G_c, one group.
+      hw::fence_regs(dk);
+      hw::fence_regs(dv);
+      hw::wgmma_fence();
+      fw::product_t(dk, dsh, dx[0]);
+      fw::product_t(dk, dsl, dx[0]);
+      fw::product_t(dv, ph, dx[1]);
+      fw::product_t(dv, pl, dx[1]);
+      hw::wgmma_commit();
+      fw::release(sm, cur, h, b, of);
+      hw::fence_regs(dk);
+      hw::fence_regs(dv);
+      hw::fence_frags(dsh);
+      hw::fence_frags(dsl);
+      hw::fence_frags(ph);
+      hw::fence_frags(pl);
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int key = k0 + r0 + 8 * hf;
+      if (key >= p.nk) continue;
+      const long long off = (static_cast<long long>(b) * p.nk + key) * p.heads * p.dh +
+                            static_cast<long long>(h) * p.dh + 64 * c + c0;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        *reinterpret_cast<uint32_t*>(p.dk + off + 8 * jj) =
+            hw::pack_bf16x2(dk[4 * jj + 2 * hf], dk[4 * jj + 2 * hf + 1]);
+        *reinterpret_cast<uint32_t*>(p.dv + off + 8 * jj) =
+            hw::pack_bf16x2(dv[4 * jj + 2 * hf], dv[4 * jj + 2 * hf + 1]);
+      }
+    }
+  }
+}
+
+template <int C, bool kWindow>
+cudaError_t launch_wide(const WideParams& p, int batch, cudaStream_t stream) {
+  auto kernel = flash_bwd_dkv_wide_sm90<C, kWindow>;
+  constexpr int smem = fw::kSmemBytes<2 * C, wide_ring(C)>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.nk + 63) / 64, batch * p.heads);
+  kernel<<<grid, fw::kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The wide instances' call (dh 128 or 256).
+int run_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
+             const void* delta, void* dk, void* dv, int batch, int heads, int nq, int nk, int dh,
+             const long long (&st)[12], float scale, int block, int halo, void* stream) {
+  WideParams p{};
+  cudaError_t e = fw::map_qkvg(&p.q, &p.k, &p.v, &p.g, {q, k, v, g}, batch, heads, nq, nk, dh,
+                                st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  p.heads = heads;
+  p.dh = dh;
+  p.nq = nq;
+  p.nk = nk;
+  p.block = block;
+  p.halo = halo;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  e = cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  fw::with_wide(dh, [&](auto C) {
+    constexpr int c = decltype(C)::value;
+    e = block ? launch_wide<c, true>(p, batch, s) : launch_wide<c, false>(p, batch, s);
+  });
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
 // q and g bf16 [batch, nq, heads, dh], k and v bf16 [batch, nk, heads, dh],
 // each read through its (batch, row, head) strides in elements (unit
 // stride along dh; strides multiples of 8 elements, bases on 16 bytes, as
 // TMA requires); lse and delta fp32 [batch, heads, nq] contiguous.  dk, dv
-// bf16 [batch, nk, heads, dh] contiguous.  dh must be 64.
+// bf16 [batch, nk, heads, dh] contiguous.  dh 64, 128 or 256.
 // block > 0 takes #13's windowed instance: key j meets the queries i with
 // |i / block - j / block| <= halo, block a multiple of 64, halo >= 1, nq ==
 // nk; block 0 (#11) meets every query.
@@ -281,10 +455,15 @@ extern "C" int sfc_flash_dkv_bf16(const void* q, const void* k, const void* v, c
                                   long long gsb, long long gsn, long long gsh, float scale,
                                   int block, int halo, void* stream) {
   const bool window = block != 0;
-  if (dh != 64 || nq < 1 || nk < 1 || heads < 1 || batch < 0 ||
+  if ((dh != 64 && dh != 128 && dh != 256) || nq < 1 || nk < 1 || heads < 1 || batch < 0 ||
       (window && (block < 0 || block % 64 || halo < 1 || nq != nk)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
+  if (dh != 64) {
+    const long long st[12] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh};
+    return run_wide(q, k, v, g, lse, delta, dk, dv, batch, heads, nq, nk, dh, st, scale, block,
+                    halo, stream);
+  }
   Params p{};
   const long long rows = static_cast<long long>(batch) * heads * nq;
   cudaError_t e = hw::map_bnhd(&p.q, q, batch, nq, heads, qsb, qsn, qsh, BQT);
@@ -316,4 +495,15 @@ extern "C" int sfc_flash_dkv_bf16(const void* q, const void* k, const void* v, c
 extern "C" int sfc_flash_dkv_attrs(int windowed, int* out) {
   return windowed ? hw::kernel_attrs(flash_bwd_dkv_sm90<true>, kSmemBytes, out)
                   : hw::kernel_attrs(flash_bwd_dkv_sm90<false>, kSmemBytes, out);
+}
+
+// The same for the instances at dh 128 and 256.
+extern "C" int sfc_flash_dkv_wide_attrs(int dh, int windowed, int* out) {
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  fw::with_wide(dh, [&](auto C) {
+    constexpr int c = decltype(C)::value, smem = fw::kSmemBytes<2 * c, wide_ring(c)>;
+    err = windowed ? hw::kernel_attrs(flash_bwd_dkv_wide_sm90<c, true>, smem, out)
+                   : hw::kernel_attrs(flash_bwd_dkv_wide_sm90<c, false>, smem, out);
+  });
+  return err;
 }

@@ -1,6 +1,7 @@
 // Streaming flash attention backward, dQ (kernel #10), redesigned for
-// Hopper, on [B, N, H, Dh] with head dim 64, from the forward's fp32
-// log-sum-exp lse and delta = rowsum(g * O) (both [B, H, Nq]).
+// Hopper, on [B, N, H, Dh] with head dim 64 (128 and 256 below), from
+// the forward's fp32 log-sum-exp lse and delta = rowsum(g * O) (both [B,
+// H, Nq]).
 //
 // Replaces: sfc_vit_tpu/ops/flash_attention.py::_dq_kernel (lines
 // 440-479), launched by _streaming_bwd past _FUSED_BWD_MAX.  With s = q .
@@ -46,8 +47,19 @@
 // 0.140 to 0.114 ms on an H100 at 700 W, but its item loop around the
 // shared code made #10's full-range instance 6.5 % slower there, so the
 // instance stays one block per item.
+//
+// Head dims 128 and 256 (flash_bwd_dq_wide_sm90; csrc/flash_wide.cuh):
+// the same formula, over every key or the window, on C = Dh / 64
+// sub-heads.  A block is one warpgroup over 64 queries, two blocks an SM;
+// Q's and G's C sub-blocks stay resident, a TMA ring brings K's and V's
+// 64-key sub-blocks.  Per key tile: s = sum over c of Q_c K_c^T and dp =
+// sum of G_c V_c^T by wgmma, ds in registers as at Dh 64, then dq_c += ds
+// K_c (the hi / lo split) for a pair of dq's sub-heads (64 registers); at
+// Dh 256 the block walks its keys twice, once for each pair, recomputing
+// s and dp.  Each dq row has one owner and is rounded once: the same bits
+// on every call.
 
-#include "sm90.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -226,13 +238,163 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_sm90(const __grid_co
   }
 }
 
+namespace fw = sfc::flash_wide;
+
+struct WideParams {
+  CUtensorMap q, k, v, g;  // map_strided_heads over [B, N, H, Dh], 64-row boxes
+  const float *lse, *delta;
+  bf16* dq;                // [B, nq, H, Dh] contiguous
+  int heads, dh, nq, nk;
+  int block, halo;         // the windowed instance's curve block and halo
+  float scale, scale_log2;
+};
+
+__host__ __device__ constexpr int wide_ring(int C) { return C == 2 ? 8 : 5; }
+template <int C>
+using WideSmem = fw::Smem<2 * C, wide_ring(C)>;
+
+// C: sub-heads (2 or 4).  kWindow: #13's dq over the block's key window.
+template <int C, bool kWindow>
+__global__ void __launch_bounds__(fw::kThreads, 2)
+    flash_bwd_dq_wide_sm90(const __grid_constant__ WideParams p) {
+  constexpr int NS = wide_ring(C), CO = 2;
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  WideSmem<C>& sm = hw::aligned_smem<WideSmem<C>>(dyn);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const int q0 = blockIdx.x * 64, bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int nk = p.nk;
+  int t0 = 0, t1 = (nk + 63) / 64;
+  if constexpr (kWindow) hw::local_tile_window(blockIdx.x, 64, nk, p.block, p.halo, t0, t1);
+  const int tiles = t1 - t0;
+  // The ring, per pair of dq's sub-heads, per key tile: K's C sub-blocks
+  // (s), V's C (dp), then K's two of the pair again (dq).
+  constexpr int per = 2 * C + CO;
+  fw::Cursor cur;
+  cur.entries = (C / CO) * tiles * per;
+  auto of = [&](int i) SFC_INLINE_LAMBDA {
+    const int u = i / per, r = i % per, t = t0 + u % tiles, g = u / tiles;
+    if (r < C) return fw::Entry{&p.k, r, t * 64};
+    if (r < 2 * C) return fw::Entry{&p.v, r - C, t * 64};
+    return fw::Entry{&p.k, CO * g + r - 2 * C, t * 64};
+  };
+  fw::start<C>(sm, cur, &p.q, &p.g, q0, h, b, of);  // res: Q's sub-blocks, then G's
+
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = q0 + r0 + 8 * hf;
+    const long long at = static_cast<long long>(bh) * p.nq + row;
+    lse2[hf] = row < p.nq ? p.lse[at] * kLog2e : 0.f;
+    dl[hf] = row < p.nq ? p.delta[at] : 0.f;
+  }
+  float dq[CO][32], s[32], dp[32];
+  uint32_t dsh[4][4], dsl[4][4];
+  for (int g = 0; g < C / CO; ++g) {
+#pragma unroll
+    for (int cc = 0; cc < CO; ++cc)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[cc][i] = 0.f;
+    for (int t = 0; t < tiles; ++t) {
+      fw::logits<C>(sm, cur, s, 0);
+      fw::release(sm, cur, h, b, of);
+      fw::logits<C>(sm, cur, dp, C);
+      fw::release(sm, cur, h, b, of);
+      hw::fence_regs(s);
+      hw::fence_regs(dp);
+      // ds = exp(s - lse) (dp - delta) scale, in place in dp; keys at or
+      // past nk give p = 0.
+      const int key0 = (t0 + t) * 64;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hf = (i / 2) % 2;
+        const bool k_ok = key0 + 8 * (i / 4) + c0 + (i % 2) < nk;
+        const float pv = k_ok ? hw::exp2_approx(s[i] * p.scale_log2 - lse2[hf]) : 0.f;
+        dp[i] = pv * (dp[i] - dl[hf]) * p.scale;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hw::split_a(dp, kk, dsh[kk], dsl[kk]);
+      uint64_t dk[CO];
+      fw::take_descs(sm, cur, dk);
+#pragma unroll
+      for (int cc = 0; cc < CO; ++cc) hw::fence_regs(dq[cc]);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int cc = 0; cc < CO; ++cc) {
+        fw::product_t(dq[cc], dsh, dk[cc]);
+        fw::product_t(dq[cc], dsl, dk[cc]);
+      }
+      hw::wgmma_commit();
+      fw::release(sm, cur, h, b, of);
+#pragma unroll
+      for (int cc = 0; cc < CO; ++cc) hw::fence_regs(dq[cc]);
+      hw::fence_frags(dsh);
+      hw::fence_frags(dsl);
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + r0 + 8 * hf;
+      if (row >= p.nq) continue;
+#pragma unroll
+      for (int cc = 0; cc < CO; ++cc) {
+        bf16* dst = p.dq + (static_cast<long long>(b) * p.nq + row) * p.heads * p.dh +
+                    static_cast<long long>(h) * p.dh + 64 * (CO * g + cc) + c0;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          *reinterpret_cast<uint32_t*>(dst + 8 * jj) =
+              hw::pack_bf16x2(dq[cc][4 * jj + 2 * hf], dq[cc][4 * jj + 2 * hf + 1]);
+      }
+    }
+  }
+}
+
+template <int C, bool kWindow>
+cudaError_t launch_wide(const WideParams& p, int batch, cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_wide_sm90<C, kWindow>;
+  constexpr int smem = fw::kSmemBytes<2 * C, wide_ring(C)>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.nq + 63) / 64, batch * p.heads);
+  kernel<<<grid, fw::kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The wide instances' call (dh 128 or 256).
+int run_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
+             const void* delta, void* dq, int batch, int heads, int nq, int nk, int dh,
+             const long long (&st)[12], float scale, int block, int halo, void* stream) {
+  WideParams p{};
+  cudaError_t e = fw::map_qkvg(&p.q, &p.k, &p.v, &p.g, {q, k, v, g}, batch, heads, nq, nk, dh,
+                                st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = static_cast<bf16*>(dq);
+  p.heads = heads;
+  p.dh = dh;
+  p.nq = nq;
+  p.nk = nk;
+  p.block = block;
+  p.halo = halo;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  e = cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  fw::with_wide(dh, [&](auto C) {
+    constexpr int c = decltype(C)::value;
+    e = block ? launch_wide<c, true>(p, batch, s) : launch_wide<c, false>(p, batch, s);
+  });
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
 // q and g bf16 [batch, nq, heads, dh], k and v bf16 [batch, nk, heads, dh],
 // each read through its (batch, row, head) strides in elements (unit
 // stride along dh; strides multiples of 8 elements, bases on 16 bytes, as
 // TMA requires); lse and delta fp32 [batch, heads, nq] contiguous.  dq
-// bf16 [batch, nq, heads, dh] contiguous.  dh must be 64.
+// bf16 [batch, nq, heads, dh] contiguous.  dh 64, 128 or 256.
 // block > 0 takes #13's windowed instance: query i meets the keys j with
 // |i / block - j / block| <= halo, block a multiple of 64, halo >= 1, nq ==
 // nk; block 0 (#10) meets every key.
@@ -244,10 +406,15 @@ extern "C" int sfc_flash_dq_bf16(const void* q, const void* k, const void* v, co
                                  long long gsb, long long gsn, long long gsh, float scale,
                                  int block, int halo, void* stream) {
   const bool window = block != 0;
-  if (dh != 64 || nq < 1 || nk < 1 || heads < 1 || batch < 0 ||
+  if ((dh != 64 && dh != 128 && dh != 256) || nq < 1 || nk < 1 || heads < 1 || batch < 0 ||
       (window && (block < 0 || block % 64 || halo < 1 || nq != nk)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
+  if (dh != 64) {
+    const long long st[12] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh};
+    return run_wide(q, k, v, g, lse, delta, dq, batch, heads, nq, nk, dh, st, scale, block, halo,
+                    stream);
+  }
   Params p{};
   cudaError_t e = hw::map_bnhd(&p.q, q, batch, nq, heads, qsb, qsn, qsh, BQ);
   if (e == cudaSuccess) e = hw::map_bnhd(&p.g, g, batch, nq, heads, gsb, gsn, gsh, BQ);
@@ -277,4 +444,15 @@ extern "C" int sfc_flash_dq_bf16(const void* q, const void* k, const void* v, co
 extern "C" int sfc_flash_dq_attrs(int windowed, int* out) {
   return windowed ? hw::kernel_attrs(flash_bwd_dq_sm90<true>, kSmemBytes, out)
                   : hw::kernel_attrs(flash_bwd_dq_sm90<false>, kSmemBytes, out);
+}
+
+// The same for the instances at dh 128 and 256.
+extern "C" int sfc_flash_dq_wide_attrs(int dh, int windowed, int* out) {
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  fw::with_wide(dh, [&](auto C) {
+    constexpr int c = decltype(C)::value, smem = fw::kSmemBytes<2 * c, wide_ring(c)>;
+    err = windowed ? hw::kernel_attrs(flash_bwd_dq_wide_sm90<c, true>, smem, out)
+                   : hw::kernel_attrs(flash_bwd_dq_wide_sm90<c, false>, smem, out);
+  });
+  return err;
 }

@@ -57,6 +57,15 @@
 // S and dP, to the block's own rows of the output, which the same thread
 // stored at the tile before (at_rows).  Either way each output row is
 // summed by one block in tile order: the same bits on every call.
+//
+// The windowed instances (WINDOW) are the curve-local backward #13 in
+// float32: sfc_vit_tpu/ops/local_attention.py::_bwd_kernel (line 198),
+// scatter as gather, with the same p, dp and ds: dq of a query block over
+// the key tiles of its window, dk and dv of a key block over the query
+// tiles whose window holds it (the window is symmetric).  block is a
+// multiple of 64, so a block's 64 rows lie in one curve block and its
+// window is whole 64-row tiles (sm90.cuh::local_tile_window): the block
+// walks only those, masking only rows at or past n (nq == nk == n).
 #include <type_traits>
 
 #include "attn_f32.cuh"
@@ -79,6 +88,7 @@ struct Params {
   float* dk;               // [B, nk, H, Dh] contiguous
   float* dv;
   int heads, dh, nq, nk, q_tiles, k_tiles;
+  int block, halo;  // the windowed instances' curve block and halo
   float scale;
 };
 
@@ -229,15 +239,15 @@ __device__ __forceinline__ void at_rows(Ctx& x, float (&part)[32], const float (
 // for each sub-head, (g_c, V_t,c), then K_t,c again (transposed).
 template <int C>
 struct DqEntry {
-  int q0;
+  int q0, t0;  // the block's first query; its first key tile
   __device__ __forceinline__ void operator()(int i, int& src, int& c, int& row) const {
     if constexpr (C == 1) {
       src = i & 1 ? kK : kV;
       c = 0;
-      row = (i >> 1) * BM;
+      row = (t0 + (i >> 1)) * BM;
       return;
     }
-    const int t = i / (5 * C), r = i % (5 * C);
+    const int t = t0 + i / (5 * C), r = i % (5 * C);
     if (r < 4 * C) {
       c = (r % (2 * C)) >> 1;
       src = r < 2 * C ? (r & 1 ? kK : kQ) : (r & 1 ? kV : kG);
@@ -256,15 +266,15 @@ struct DqEntry {
 // g_t,c), then for each sub-head g_t,c and Q_t,c (transposed).
 template <int C>
 struct DkvEntry {
-  int k0;
+  int k0, t0;  // the block's first key; its first query tile
   __device__ __forceinline__ void operator()(int i, int& src, int& c, int& row) const {
     if constexpr (C == 1) {
       src = i & 1 ? kQ : kG;
       c = 0;
-      row = (i >> 1) * BM;
+      row = (t0 + (i >> 1)) * BM;
       return;
     }
-    const int t = i / (6 * C), r = i % (6 * C);
+    const int t = t0 + i / (6 * C), r = i % (6 * C);
     if (r < 4 * C) {
       c = (r % (2 * C)) >> 1;
       const bool b_side = r & 1;
@@ -291,18 +301,34 @@ __device__ __forceinline__ void init_ring(Smem& sm) {
   __syncthreads();
 }
 
-// C: 64-column sub-heads a head (1, 2 or 4).
-template <int C>
+// The tiles [t0, t0 + tiles) of the other side (n rows) that the block of
+// the 64 rows from tile `own` walks: every one, or (WINDOW) its window.
+template <bool WINDOW>
+__device__ __forceinline__ void walk(const Params& p, int own, int n, int& t0, int& tiles) {
+  t0 = 0;
+  tiles = (n + BM - 1) / BM;
+  if constexpr (WINDOW) {
+    int hi;
+    hw::local_tile_window(own, BM, n, p.block, p.halo, t0, hi);
+    tiles = hi - t0;
+  }
+}
+
+// C: 64-column sub-heads a head (1, 2 or 4).  WINDOW: #13's dq, over the
+// key tiles of the block's curve-local window.
+template <int C, bool WINDOW = false>
 __global__ void __launch_bounds__(af::kThreads, 2)
     flash_dq_f32_sm90(const __grid_constant__ Params p) {
   constexpr bool kRows = C > 1;  // accumulate in dq's rows (at_rows)
   extern __shared__ __align__(1024) unsigned char dyn[];
   Smem& sm = hw::aligned_smem<Smem>(dyn);
-  const int nq = p.nq, nk = p.nk, key_tiles = p.k_tiles;
+  const int nq = p.nq, nk = p.nk;
   const int qt = blockIdx.x % p.q_tiles, bh = blockIdx.x / p.q_tiles, q0 = qt * BM;
+  int t0, key_tiles;
+  walk<WINDOW>(p, qt, nk, t0, key_tiles);
   Ctx x = make_ctx(sm, p, bh);
   x.entries = (C == 1 ? 2 : 5 * C) * key_tiles;
-  const DqEntry<C> entry{q0};
+  const DqEntry<C> entry{q0, t0};
 
   init_ring(sm);
   if (x.tid == 0) {
@@ -342,7 +368,7 @@ __global__ void __launch_bounds__(af::kThreads, 2)
     // dS into dp: p (dp - delta) scale, 0 at keys at or past nk.
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const int hf = (i / 2) % 2, key = t * BM + 8 * (i / 4) + x.c0 + (i % 2);
+      const int hf = (i / 2) % 2, key = (t0 + t) * BM + 8 * (i / 4) + x.c0 + (i % 2);
       float ds = 0.f;
       if (key < nk) {
         const float pn = expf(__fsub_rn(__fmul_rn(s[i], scale), lse[hf]));
@@ -363,19 +389,19 @@ __global__ void __launch_bounds__(af::kThreads, 2)
   if constexpr (!kRows) store_sub(x, dq, p.dq, nq, q0, 0);
 }
 
-// The dk/dv kernel's query tile t: S^T and dP^T in s and dp, rows keys k0
-// + r0 (+ 8), columns queries; then p into s and dS^T into dp.  The
-// tile's lse and delta are staged in shared memory first, by plain loads;
-// they are read after the products' barriers, and the last tile's were
-// read before them.
+// The dk/dv kernel's t-th query tile of its walk, query tile ta: S^T and
+// dP^T in s and dp, rows keys k0 + r0 (+ 8), columns queries; then p into s
+// and dS^T into dp.  The tile's lse and delta are staged in shared memory
+// first, by plain loads; they are read after the products' barriers, and
+// the last tile's were read before them.
 template <int C, typename Entry>
-__device__ __forceinline__ void dkv_tile(Ctx& x, float (&s)[32], float (&dp)[32], int t, int k0,
-                                         float scale, const Entry& entry) {
+__device__ __forceinline__ void dkv_tile(Ctx& x, float (&s)[32], float (&dp)[32], int t, int ta,
+                                         int k0, float scale, const Entry& entry) {
   const Params& p = x.p;
   const int nq = p.nq, nk = p.nk, tid = x.tid;
   Smem& sm = x.sm;
   if (tid < BM) {
-    const size_t qi = static_cast<size_t>(x.bh) * nq + min(t * BM + tid, nq - 1);
+    const size_t qi = static_cast<size_t>(x.bh) * nq + min(ta * BM + tid, nq - 1);
     sm.vec[0][tid] = p.lse[qi];
     sm.vec[1][tid] = p.delta[qi];
   }
@@ -396,7 +422,7 @@ __device__ __forceinline__ void dkv_tile(Ctx& x, float (&s)[32], float (&dp)[32]
   for (int i = 0; i < 32; ++i) {
     const int r = x.r0 + 8 * ((i / 2) % 2), col = 8 * (i / 4) + x.c0 + (i % 2);
     float pn = 0.f, ds = 0.f;
-    if (k0 + r < nk && t * BM + col < nq) {
+    if (k0 + r < nk && ta * BM + col < nq) {
       pn = expf(__fsub_rn(__fmul_rn(s[i], scale), sm.vec[0][col]));
       ds = __fmul_rn(__fmul_rn(pn, __fsub_rn(dp[i], sm.vec[1][col])), scale);
     }
@@ -405,17 +431,21 @@ __device__ __forceinline__ void dkv_tile(Ctx& x, float (&s)[32], float (&dp)[32]
   }
 }
 
-template <int C>
+// WINDOW: #13's dk and dv, over the query tiles whose curve-local window
+// holds the block's keys.
+template <int C, bool WINDOW = false>
 __global__ void __launch_bounds__(af::kThreads, 2)
     flash_dkv_f32_sm90(const __grid_constant__ Params p) {
   constexpr bool kRows = C > 1;  // accumulate in dk's and dv's rows (at_rows)
   extern __shared__ __align__(1024) unsigned char dyn[];
   Smem& sm = hw::aligned_smem<Smem>(dyn);
-  const int nk = p.nk, tiles = p.q_tiles;
+  const int nk = p.nk;
   const int kt = blockIdx.x % p.k_tiles, bh = blockIdx.x / p.k_tiles, k0 = kt * BM;
+  int t0, tiles;
+  walk<WINDOW>(p, kt, p.nq, t0, tiles);
   Ctx x = make_ctx(sm, p, bh);
   x.entries = (C == 1 ? 2 : 6 * C) * tiles;
-  const DkvEntry<C> entry{k0};
+  const DkvEntry<C> entry{k0, t0};
 
   init_ring(sm);
   if (x.tid == 0) {
@@ -431,7 +461,7 @@ __global__ void __launch_bounds__(af::kThreads, 2)
 
   float dv[32], dk[32], s[32], dp[32], part[32];
   for (int t = 0; t < tiles; ++t) {
-    dkv_tile<C>(x, s, dp, t, k0, scale, entry);
+    dkv_tile<C>(x, s, dp, t, t0 + t, k0, scale, entry);
     sfc::static_for<C>([&](auto Cc) SFC_INLINE_LAMBDA {
       constexpr int c = decltype(Cc)::value;
       if constexpr (kRows) {
@@ -499,21 +529,34 @@ cudaError_t plan(Params& p, const void* q, const void* k, const void* v, const v
   return cudaSuccess;
 }
 
-// dq (which 0: the dq kernel) or dk and dv (which 1: the dk/dv kernel).
+// dq (which 0: the dq kernel) or dk and dv (which 1: the dk/dv kernel),
+// over every row of the other side (block 0) or the curve-local window of
+// block and halo (#13: block a positive multiple of 64, halo >= 1, nq ==
+// nk).
 int run(int which, const void* q, const void* k, const void* v, const void* g, const void* lse,
         const void* delta, void* dq, void* dk, void* dv, int batch, int heads, int nq, int nk,
-        int dh, const long long (&st)[12], float scale, void* stream) {
-  if (nq < 1 || nk < 1 || heads < 1 || batch < 0) return static_cast<int>(cudaErrorInvalidValue);
+        int dh, const long long (&st)[12], float scale, int block, int halo, void* stream) {
+  const bool window = block != 0;
+  if (nq < 1 || nk < 1 || heads < 1 || batch < 0 ||
+      (window && (block < 0 || block % 64 || halo < 1 || nq != nk)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   Params p{};
   cudaError_t e = plan(p, q, k, v, g, lse, delta, dq, dk, dv, batch, heads, nq, nk, dh, st, scale);
   if (e != cudaSuccess) return static_cast<int>(e);
+  p.block = block;
+  p.halo = halo;
   auto s = static_cast<cudaStream_t>(stream);
+  const int q_blocks = batch * heads * p.q_tiles, k_blocks = batch * heads * p.k_tiles;
   e = cudaErrorInvalidValue;
   with_subheads(dh, [&](auto C) {
     constexpr int c = decltype(C)::value;
-    e = which == 0 ? launch(flash_dq_f32_sm90<c>, batch * heads * p.q_tiles, p, s)
-                   : launch(flash_dkv_f32_sm90<c>, batch * heads * p.k_tiles, p, s);
+    if (window)
+      e = which == 0 ? launch(flash_dq_f32_sm90<c, true>, q_blocks, p, s)
+                     : launch(flash_dkv_f32_sm90<c, true>, k_blocks, p, s);
+    else
+      e = which == 0 ? launch(flash_dq_f32_sm90<c>, q_blocks, p, s)
+                     : launch(flash_dkv_f32_sm90<c>, k_blocks, p, s);
   });
   return static_cast<int>(e);
 }
@@ -524,40 +567,51 @@ int run(int which, const void* q, const void* k, const void* v, const void* g, c
 // [batch, nq, heads, dh] and k, v fp32 [batch, nk, heads, dh], each read
 // through its (batch, row, head) strides in elements (unit stride along
 // dh; strides multiples of 4 elements, bases on 16 bytes),
-// and lse, delta fp32 [batch, heads, nq].  dh 64, 128 or 256.
+// and lse, delta fp32 [batch, heads, nq].  dh 64, 128 or 256.  block > 0
+// takes #13's windowed instance: query i meets the keys j with |i / block
+// - j / block| <= halo, block a multiple of 64, halo >= 1, nq == nk;
+// block 0 (#10) meets every key.
 extern "C" int sfc_flash_dq_f32(const void* q, const void* k, const void* v, const void* g,
                                 const void* lse, const void* delta, void* dq, int batch,
                                 int heads, int nq, int nk, int dh, long long qsb, long long qsn,
                                 long long qsh, long long ksb, long long ksn, long long ksh,
                                 long long vsb, long long vsn, long long vsh, long long gsb,
-                                long long gsn, long long gsh, float scale, void* stream) {
+                                long long gsn, long long gsh, float scale, int block, int halo,
+                                void* stream) {
   const long long st[12] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh};
   return run(0, q, k, v, g, lse, delta, dq, nullptr, nullptr, batch, heads, nq, nk, dh, st,
-             scale, stream);
+             scale, block, halo, stream);
 }
 
 // #11 in float32: dk and dv fp32 [batch, nk, heads, dh] contiguous, the
-// arguments as sfc_flash_dq_f32's.
+// arguments as sfc_flash_dq_f32's (block > 0: #13's windowed instance, key
+// j over the queries i with |i / block - j / block| <= halo).
 extern "C" int sfc_flash_dkv_f32(const void* q, const void* k, const void* v, const void* g,
                                  const void* lse, const void* delta, void* dk, void* dv,
                                  int batch, int heads, int nq, int nk, int dh, long long qsb,
                                  long long qsn, long long qsh, long long ksb, long long ksn,
                                  long long ksh, long long vsb, long long vsn, long long vsh,
                                  long long gsb, long long gsn, long long gsh, float scale,
-                                 void* stream) {
+                                 int block, int halo, void* stream) {
   const long long st[12] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh};
   return run(1, q, k, v, g, lse, delta, nullptr, dk, dv, batch, heads, nq, nk, dh, st, scale,
-             stream);
+             block, halo, stream);
 }
 
-// Registers, local bytes and shared bytes of the dq kernel (dkv 0) or of
-// the dk/dv kernel (dkv 1) at dh (64, 128, 256), into out[3].
-extern "C" int sfc_flash_bwd_f32_attrs(int dh, int dkv, int* out) {
+// Registers, local bytes and shared bytes of the dq kernel (part 0), the
+// dk/dv kernel (1) or #13's windowed instances of them (2, 3) at dh (64,
+// 128, 256), into out[3].
+extern "C" int sfc_flash_bwd_f32_attrs(int dh, int part, int* out) {
   int err = static_cast<int>(cudaErrorInvalidValue);
   with_subheads(dh, [&](auto C) {
     constexpr int c = decltype(C)::value;
-    err = dkv ? hw::kernel_attrs(flash_dkv_f32_sm90<c>, kSmemBytes, out)
-              : hw::kernel_attrs(flash_dq_f32_sm90<c>, kSmemBytes, out);
+    switch (part) {
+      case 0: err = hw::kernel_attrs(flash_dq_f32_sm90<c>, kSmemBytes, out); break;
+      case 1: err = hw::kernel_attrs(flash_dkv_f32_sm90<c>, kSmemBytes, out); break;
+      case 2: err = hw::kernel_attrs(flash_dq_f32_sm90<c, true>, kSmemBytes, out); break;
+      case 3: err = hw::kernel_attrs(flash_dkv_f32_sm90<c, true>, kSmemBytes, out); break;
+      default: break;
+    }
   });
   return err;
 }

@@ -49,6 +49,17 @@
 // 64 and 128; at Dh 256 two walks over the keys, each for two of O's four
 // sub-heads, recompute the logits (1.5x the products; O's four beside the
 // rest spilled).
+//
+// The windowed instance (WINDOW, single step only) is the curve-local
+// forward #12 in float32: sfc_vit_tpu/ops/local_attention.py::_kernel
+// (line 82), query i over exactly the keys j with |i / block - j / block|
+// <= halo and j < n (nq == nk == n), with the single step's two passes
+// over that window.  block is a multiple of 64, so a block's 64 queries
+// lie in one curve block and its window is whole 64-key tiles
+// (sm90.cuh::local_tile_window): the block walks only those, and only
+// keys at or past n are masked.  Every tile it walks holds a key of the
+// window, so no wholly masked tile enters m and l; lse is the window's
+// own log-sum-exp.
 #include <type_traits>
 
 #include "attn_f32.cuh"
@@ -68,6 +79,7 @@ struct Params {
   float* out;           // [B, nq, H, Dh] contiguous
   float* lse;           // [B, H, nq] or null
   int heads, dh, nq, nk, q_tiles, k_tiles;
+  int block, halo;  // the windowed instance's curve block and halo
   float scale;
 };
 
@@ -99,18 +111,28 @@ __device__ __forceinline__ void entry_of(int e, int k_tiles, int& which, int& c,
 }
 
 // C: 64-column sub-heads a head (1, 2 or 4).  SINGLE: the single K step's
-// two passes (P normalised before P V), else the streaming form.
-template <int C, bool SINGLE>
+// two passes (P normalised before P V), else the streaming form.  WINDOW
+// (#12, SINGLE only): over the key tiles of the block's curve-local window.
+template <int C, bool SINGLE, bool WINDOW = false>
 __global__ void __launch_bounds__(af::kThreads, 2)
     flash_fwd_f32_sm90(const __grid_constant__ Params p) {
+  static_assert(SINGLE || !WINDOW, "the windowed instance is the single step's");
   constexpr int CO = kHeld<C>;
   extern __shared__ __align__(1024) unsigned char dyn[];
   Smem& sm = hw::aligned_smem<Smem>(dyn);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = 16 * warp + lane / 4, tq = lane % 4, c0 = 2 * tq;
-  const int heads = p.heads, nq = p.nq, nk = p.nk, k_tiles = p.k_tiles;
+  const int heads = p.heads, nq = p.nq, nk = p.nk;
   const int qt = blockIdx.x % p.q_tiles, bh = blockIdx.x / p.q_tiles;
   const int h = bh % heads, b = bh / heads, q0 = qt * BM;
+  // The key tiles [t0, t0 + k_tiles) the block walks: every one, or its
+  // curve-local window.
+  int t0 = 0, k_tiles = p.k_tiles;
+  if constexpr (WINDOW) {
+    int hi;
+    hw::local_tile_window(qt, BM, nk, p.block, p.halo, t0, hi);
+    k_tiles = hi - t0;
+  }
   const int entries = ((SINGLE ? 2 * C : 0) + (C / CO) * (2 * C + CO)) * k_tiles;
 
   if (tid == 0) {
@@ -126,7 +148,7 @@ __global__ void __launch_bounds__(af::kThreads, 2)
       int which, c, t;
       entry_of<C, SINGLE>(issued, k_tiles, which, c, t);
       const CUtensorMap* map = which == 0 ? &p.q : which == 1 ? &p.k : &p.v;
-      af::load_sub(sm, issued % kStages, map, h, c, which == 0 ? q0 : t * BM, b);
+      af::load_sub(sm, issued % kStages, map, h, c, which == 0 ? q0 : (t0 + t) * BM, b);
     }
   };
   if (tid == 0) feed(kStages);
@@ -174,7 +196,7 @@ __global__ void __launch_bounds__(af::kThreads, 2)
     af::drain(s);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const int key = BM * t + 8 * (i / 4) + c0 + (i % 2);
+      const int key = BM * (t0 + t) + 8 * (i / 4) + c0 + (i % 2);
       s[i] = key < nk ? __fmul_rn(s[i], scale) : sfc::kNegInf;
     }
   };
@@ -316,14 +338,38 @@ bool with_subheads(int dh, F&& f) {
   }
 }
 
-template <int C, bool SINGLE>
+template <int C, bool SINGLE, bool WINDOW = false>
 cudaError_t launch(const Params& p, int blocks, cudaStream_t stream) {
-  auto kernel = flash_fwd_f32_sm90<C, SINGLE>;
+  auto kernel = flash_fwd_f32_sm90<C, SINGLE, WINDOW>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return e;
   kernel<<<blocks, af::kThreads, kSmemBytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The maps and sizes of a call (q, k, v through their strides).
+cudaError_t plan(Params& p, const void* q, const void* k, const void* v, void* out, void* lse,
+                 int batch, int heads, int nq, int nk, int dh, long long qsb, long long qsn,
+                 long long qsh, long long ksb, long long ksn, long long ksh, long long vsb,
+                 long long vsn, long long vsh, float scale) {
+  cudaError_t e =
+      hw::map_strided_heads(&p.q, q, true, batch, nq, heads, dh, qsb, qsn, qsh, BM);
+  if (e == cudaSuccess)
+    e = hw::map_strided_heads(&p.k, k, true, batch, nk, heads, dh, ksb, ksn, ksh, BM);
+  if (e == cudaSuccess)
+    e = hw::map_strided_heads(&p.v, v, true, batch, nk, heads, dh, vsb, vsn, vsh, BM);
+  if (e != cudaSuccess) return e;
+  p.out = static_cast<float*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.heads = heads;
+  p.dh = dh;
+  p.nq = nq;
+  p.nk = nk;
+  p.q_tiles = (nq + BM - 1) / BM;
+  p.k_tiles = (nk + BM - 1) / BM;
+  p.scale = scale;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -341,22 +387,9 @@ extern "C" int sfc_flash_fwd_f32(const void* q, const void* k, const void* v, vo
   if (nq < 1 || nk < 1 || heads < 1 || batch < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   Params p{};
-  cudaError_t e =
-      hw::map_strided_heads(&p.q, q, true, batch, nq, heads, dh, qsb, qsn, qsh, BM);
-  if (e == cudaSuccess)
-    e = hw::map_strided_heads(&p.k, k, true, batch, nk, heads, dh, ksb, ksn, ksh, BM);
-  if (e == cudaSuccess)
-    e = hw::map_strided_heads(&p.v, v, true, batch, nk, heads, dh, vsb, vsn, vsh, BM);
+  cudaError_t e = plan(p, q, k, v, out, lse, batch, heads, nq, nk, dh, qsb, qsn, qsh, ksb, ksn,
+                       ksh, vsb, vsn, vsh, scale);
   if (e != cudaSuccess) return static_cast<int>(e);
-  p.out = static_cast<float*>(out);
-  p.lse = static_cast<float*>(lse);
-  p.heads = heads;
-  p.dh = dh;
-  p.nq = nq;
-  p.nk = nk;
-  p.q_tiles = (nq + BM - 1) / BM;
-  p.k_tiles = (nk + BM - 1) / BM;
-  p.scale = scale;
   const int blocks = batch * heads * p.q_tiles;
   auto s = static_cast<cudaStream_t>(stream);
   e = cudaErrorInvalidValue;
@@ -367,14 +400,44 @@ extern "C" int sfc_flash_fwd_f32(const void* q, const void* k, const void* v, vo
   return static_cast<int>(e);
 }
 
+// #12 in float32: q, k, v fp32 [batch, n, heads, dh] read through their
+// (batch, row, head) strides (as sfc_flash_fwd_f32's), out fp32 [batch, n,
+// heads, dh] contiguous, lse fp32 [batch, heads, n] or null.  Query i meets
+// the keys j with |i / block - j / block| <= halo: dh 64, 128 or 256,
+// block a positive multiple of 64, halo >= 1.
+extern "C" int sfc_local_fwd_f32(const void* q, const void* k, const void* v, void* out,
+                                 void* lse, int batch, int heads, int n, int dh, int block,
+                                 int halo, long long qsb, long long qsn, long long qsh,
+                                 long long ksb, long long ksn, long long ksh, long long vsb,
+                                 long long vsn, long long vsh, float scale, void* stream) {
+  if (n < 1 || heads < 1 || batch < 0 || block < 64 || block % 64 || halo < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  Params p{};
+  cudaError_t e = plan(p, q, k, v, out, lse, batch, heads, n, n, dh, qsb, qsn, qsh, ksb, ksn, ksh,
+                       vsb, vsn, vsh, scale);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  p.block = block;
+  p.halo = halo;
+  const int blocks = batch * heads * p.q_tiles;
+  e = cudaErrorInvalidValue;
+  with_subheads(dh, [&](auto C) {
+    e = launch<decltype(C)::value, true, true>(p, blocks, static_cast<cudaStream_t>(stream));
+  });
+  return static_cast<int>(e);
+}
+
 // Registers, local bytes and shared bytes of the instance for dh (64, 128,
-// 256), streaming (1) or the single step (0), into out[3].
-extern "C" int sfc_flash_fwd_f32_attrs(int dh, int streaming, int* out) {
+// 256): the streaming form (form 1), the single step (0) or #12's windowed
+// single step (2), into out[3].
+extern "C" int sfc_flash_fwd_f32_attrs(int dh, int form, int* out) {
   int err = static_cast<int>(cudaErrorInvalidValue);
   with_subheads(dh, [&](auto C) {
     constexpr int c = decltype(C)::value;
-    err = streaming ? hw::kernel_attrs(flash_fwd_f32_sm90<c, false>, kSmemBytes, out)
-                    : hw::kernel_attrs(flash_fwd_f32_sm90<c, true>, kSmemBytes, out);
+    err = form == 1   ? hw::kernel_attrs(flash_fwd_f32_sm90<c, false>, kSmemBytes, out)
+          : form == 0 ? hw::kernel_attrs(flash_fwd_f32_sm90<c, true>, kSmemBytes, out)
+          : form == 2 ? hw::kernel_attrs(flash_fwd_f32_sm90<c, true, true>, kSmemBytes, out)
+                      : static_cast<int>(cudaErrorInvalidValue);
   });
   return err;
 }

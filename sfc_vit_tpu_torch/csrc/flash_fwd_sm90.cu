@@ -1,7 +1,8 @@
 // Flash attention forward on [B, N, H, Dh] (kernel #8), redesigned for
 // Hopper: out[b, i, h] = softmax(q[b, i, h] . K[b, :, h]^T * scale) .
-// V[b, :, h] for nq queries and nk keys (nq != nk allowed), head dim 64,
-// bf16 in and out, optionally with the fp32 log-sum-exp of every row.
+// V[b, :, h] for nq queries and nk keys (nq != nk allowed), head dim 64
+// (128 and 256 below), bf16 in and out, optionally with the fp32
+// log-sum-exp of every row.
 //
 // Replaces: sfc_vit_tpu/ops/flash_attention.py::_fwd_kernel (lines
 // 114-213).  Its two formulas, picked by the caller from the key length
@@ -60,8 +61,25 @@
 // warpgroups differ where a 128-query tile straddles two curve blocks
 // (block 64 or 192).  At [2, 16384, 6, 64], block 128, halo 1 a block
 // walks 3 tiles in each pass instead of 128.
+//
+// Head dims 128 and 256 (flash_fwd_wide_sm90; csrc/flash_wide.cuh): the
+// same formulas, every instance (single step, streaming, windowed) over C
+// = Dh / 64 sub-heads.  A block is one warpgroup over 64 queries, two
+// blocks an SM; Q's C sub-blocks stay resident and a TMA ring brings K's
+// and V's 64-key sub-blocks.  The streaming form takes its logits in
+// steps of two 64-key tiles, so the running max that p is rounded against
+// moves every 128 keys (FLASH_STREAM_BLOCK_K), as at Dh 64; a step's
+// second tile at or past nk is all -1e30 and adds nothing.  The single
+// step walks 64-key tiles (its max and sum are the row's whatever the
+// order), the windowed instance the 64-key tiles of its 64 queries'
+// window (sm90.cuh::local_tile_window: whole tiles, block a multiple of
+// 64), masking only keys at or past n.  O's sub-heads are held two at a
+// time (64 registers) beside a step's logits; at Dh 256 the block walks
+// its keys twice, once for each pair, recomputing the logits (1.5x the
+// nominal products; 1.25x in the single step, whose first pass is logits
+// only).
 
-#include "sm90.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -424,6 +442,267 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_sm90(const __grid_const
   }
 }
 
+namespace fw = sfc::flash_wide;
+
+struct WideParams {
+  CUtensorMap q, k, v;  // map_strided_heads over [B, N, H, Dh], 64-row boxes
+  bf16* out;            // [B, nq, H, Dh] contiguous
+  float* lse;           // [B, H, nq] or null
+  int heads, dh, nq, nk;
+  int block, halo;      // the windowed instance's curve block and halo
+  float scale_log2;     // scale * log2(e)
+};
+
+__host__ __device__ constexpr int wide_ring(int C) { return C == 2 ? 10 : 8; }
+template <int C>
+using WideSmem = fw::Smem<C, wide_ring(C)>;
+
+// C: sub-heads (2 or 4).  kSingle: the single K step's two passes (P
+// normalised before P V), else the streaming form.  kWindow (#12,
+// kSingle only): over the key tiles of the block's curve-local window.
+template <int C, bool kSingle, bool kWindow>
+__global__ void __launch_bounds__(fw::kThreads, 2)
+    flash_fwd_wide_sm90(const __grid_constant__ WideParams p) {
+  static_assert(kSingle || !kWindow, "the windowed instance is the single step's");
+  constexpr int NS = wide_ring(C), CO = 2, H = kSingle ? 1 : 2;
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  WideSmem<C>& sm = hw::aligned_smem<WideSmem<C>>(dyn);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const int q0 = blockIdx.x * 64, bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int nk = p.nk;
+  // The 64-key tiles [t0, t0 + tiles) the block walks, in steps of H.
+  int t0 = 0, t1 = (nk + 63) / 64;
+  if constexpr (kWindow) hw::local_tile_window(blockIdx.x, 64, nk, p.block, p.halo, t0, t1);
+  const int tiles = t1 - t0, steps = (tiles + H - 1) / H;
+  // The ring: the single step's first pass (per tile, K's C sub-blocks),
+  // then per pair of O's sub-heads, per step: K's C sub-blocks of each of
+  // its H tiles, then V's two of each.
+  const int first = kSingle ? C * tiles : 0, per = H * (C + CO);
+  fw::Cursor cur;
+  cur.entries = first + (C / CO) * steps * per;
+  auto of = [&](int i) SFC_INLINE_LAMBDA {
+    if (kSingle && i < first) return fw::Entry{&p.k, i % C, (t0 + i / C) * 64};
+    i -= first;
+    const int u = i / per, r = i % per, g = u / steps, st = u % steps;
+    if (r < H * C) return fw::Entry{&p.k, r % C, (t0 + H * st + r / C) * 64};
+    return fw::Entry{&p.v, CO * g + (r - H * C) % CO, (t0 + H * st + (r - H * C) / CO) * 64};
+  };
+  fw::start<C>(sm, cur, &p.q, &p.q, q0, h, b, of);
+
+  const float c = p.scale_log2;
+  float s[H][32], o[CO][32], m[2], l[2];
+  uint32_t pf[H][4][4];
+  // The logits of the walk's next step (tile t0 + H st + x in s[x]), raw;
+  // keys at or past nk -1e30.  The ring's slots freed after.
+  auto step_logits = [&](int st) SFC_INLINE_LAMBDA {
+#pragma unroll
+    for (int x = 0; x < H; ++x) fw::logits<C>(sm, cur, s[x], 0);
+    fw::release(sm, cur, h, b, of);
+#pragma unroll
+    for (int x = 0; x < H; ++x) {
+      hw::fence_regs(s[x]);
+      const int key0 = (t0 + H * st + x) * 64;
+      if (key0 + 64 > nk) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (key0 + 8 * (i / 4) + c0 + (i % 2) >= nk) s[x][i] = sfc::kNegInf;
+      }
+    }
+  };
+  // O's pair of sub-heads += P V over the step's tiles, V's sub-blocks the
+  // ring's next entries; the slots freed after.
+  auto pv = [&]() SFC_INLINE_LAMBDA {
+    uint64_t dv[H * CO];
+    fw::take_descs(sm, cur, dv);
+#pragma unroll
+    for (int cc = 0; cc < CO; ++cc) hw::fence_regs(o[cc]);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int x = 0; x < H; ++x)
+#pragma unroll
+      for (int cc = 0; cc < CO; ++cc) fw::product_t(o[cc], pf[x], dv[CO * x + cc]);
+    hw::wgmma_commit();
+    fw::release(sm, cur, h, b, of);
+#pragma unroll
+    for (int cc = 0; cc < CO; ++cc) hw::fence_regs(o[cc]);
+#pragma unroll
+    for (int x = 0; x < H; ++x) hw::fence_frags(pf[x]);
+  };
+  auto quad_max = [](float v) SFC_INLINE_LAMBDA {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  };
+  auto quad_sum = [](float v) SFC_INLINE_LAMBDA {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+  };
+  // The pair g of O's sub-heads out, times inv (rows below nq).
+  auto store = [&](int g, const float (&inv)[2]) SFC_INLINE_LAMBDA {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + r0 + 8 * hf;
+      if (row >= p.nq) continue;
+#pragma unroll
+      for (int cc = 0; cc < CO; ++cc) {
+        bf16* dst = p.out + (static_cast<long long>(b) * p.nq + row) * p.heads * p.dh +
+                    static_cast<long long>(h) * p.dh + 64 * (CO * g + cc) + c0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              hw::pack_bf16x2(o[cc][4 * j + 2 * hf] * inv[hf], o[cc][4 * j + 2 * hf + 1] * inv[hf]);
+      }
+    }
+  };
+  float lsum[2];  // the rows' sums over the quad
+
+  if constexpr (kSingle) {
+    // Pass 1: the running max (log2 units) and rescaled sum of each row.
+    m[0] = m[1] = sfc::kNegInf;
+    l[0] = l[1] = 0.f;
+    for (int t = 0; t < tiles; ++t) {
+      step_logits(t);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float mx = sfc::kNegInf;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[0][4 * j + 2 * hf], s[0][4 * j + 2 * hf + 1]));
+        const float m_new = fmaxf(m[hf], quad_max(mx) * c);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sum += hw::exp2_approx(fmaf(s[0][4 * j + 2 * hf + e], c, -m_new));
+        l[hf] = l[hf] * hw::exp2_approx(m[hf] - m_new) + sum;
+        m[hf] = m_new;
+      }
+    }
+    float inv[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      lsum[hf] = quad_sum(l[hf]);
+      inv[hf] = 1.f / lsum[hf];
+    }
+    // Pass 2, per pair of O's sub-heads: P = exp(s - m) / l rounded to
+    // bf16, then O += P V.
+    const float one[2] = {1.f, 1.f};
+    for (int g = 0; g < C / CO; ++g) {
+#pragma unroll
+      for (int cc = 0; cc < CO; ++cc)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[cc][i] = 0.f;
+      for (int t = 0; t < tiles; ++t) {
+        step_logits(t);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hf = (i / 2) % 2;
+          s[0][i] = hw::exp2_approx(fmaf(s[0][i], c, -m[hf])) * inv[hf];
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) hw::acc_to_a(s[0], kk, pf[0][kk]);
+        pv();
+      }
+      store(g, one);
+    }
+  } else {
+    // Streaming, per pair of O's sub-heads (the same m and l each time):
+    // per 128-key step the max m' over both tiles, alpha, O rescaled,
+    // then p = exp(s - m') rounded to bf16 unnormalised.
+    for (int g = 0; g < C / CO; ++g) {
+      m[0] = m[1] = __int_as_float(0xff800000);  // -inf: the first alpha is 0
+      l[0] = l[1] = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < CO; ++cc)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[cc][i] = 0.f;
+      for (int st = 0; st < steps; ++st) {
+        step_logits(st);
+        float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float mx = sfc::kNegInf;
+#pragma unroll
+          for (int x = 0; x < H; ++x)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              mx = fmaxf(mx, fmaxf(s[x][4 * j + 2 * hf], s[x][4 * j + 2 * hf + 1]));
+          const float m_new = fmaxf(m[hf], quad_max(mx) * c);
+          alpha[hf] = hw::exp2_approx(m[hf] - m_new);
+          m[hf] = m_new;
+        }
+#pragma unroll
+        for (int cc = 0; cc < CO; ++cc)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[cc][i] *= alpha[(i / 2) % 2];
+#pragma unroll
+        for (int x = 0; x < H; ++x) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int hf = (i / 2) % 2;
+            s[x][i] = hw::exp2_approx(fmaf(s[x][i], c, -m[hf]));
+            sum[hf] += s[x][i];
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) hw::acc_to_a(s[x], kk, pf[x][kk]);
+        }
+        l[0] = sum[0] + alpha[0] * l[0];
+        l[1] = sum[1] + alpha[1] * l[1];
+        pv();
+      }
+      float inv[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        lsum[hf] = quad_sum(l[hf]);
+        inv[hf] = lsum[hf] == 0.f ? 1.f : 1.f / lsum[hf];
+      }
+      store(g, inv);
+    }
+  }
+  if (p.lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + r0 + 8 * hf;
+      if (row < p.nq)
+        p.lse[static_cast<long long>(bh) * p.nq + row] =
+            m[hf] * kLn2 + logf(lsum[hf] == 0.f ? 1.f : lsum[hf]);
+    }
+  }
+}
+
+// The wide instances' maps and sizes (q, k, v through their strides).
+cudaError_t plan_wide(WideParams& p, const void* q, const void* k, const void* v, void* out,
+                      void* lse, int batch, int heads, int nq, int nk, int dh,
+                      const long long* st, float scale) {
+  cudaError_t e =
+      hw::map_strided_heads(&p.q, q, false, batch, nq, heads, dh, st[0], st[1], st[2], 64);
+  if (e == cudaSuccess)
+    e = hw::map_strided_heads(&p.k, k, false, batch, nk, heads, dh, st[3], st[4], st[5], 64);
+  if (e == cudaSuccess)
+    e = hw::map_strided_heads(&p.v, v, false, batch, nk, heads, dh, st[6], st[7], st[8], 64);
+  p.out = static_cast<bf16*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.heads = heads;
+  p.dh = dh;
+  p.nq = nq;
+  p.nk = nk;
+  p.scale_log2 = scale * kLog2e;
+  return e;
+}
+
+template <int C, bool kSingle, bool kWindow>
+cudaError_t launch_wide(const WideParams& p, int batch, cudaStream_t stream) {
+  auto kernel = flash_fwd_wide_sm90<C, kSingle, kWindow>;
+  constexpr int smem = fw::kSmemBytes<C, wide_ring(C)>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.nq + 63) / 64, batch * p.heads);
+  kernel<<<grid, fw::kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // Maps and scale of a call (q, k, v through their strides); see
 // sfc_flash_fwd_bf16.
 cudaError_t plan(Params& p, const void* q, const void* k, const void* v, void* out, void* lse,
@@ -458,16 +737,29 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 // along dh; strides multiples of 8 elements and the bases on 16 bytes, as
 // TMA requires); out bf16 [batch, nq, heads, dh] contiguous; lse fp32
 // [batch, heads, nq] or null.  streaming selects the one-pass form.  dh
-// must be 64.
+// 64, 128 or 256.
 extern "C" int sfc_flash_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                                   void* lse, int batch, int heads, int nq, int nk, int dh,
                                   long long qsb, long long qsn, long long qsh, long long ksb,
                                   long long ksn, long long ksh, long long vsb, long long vsn,
                                   long long vsh, float scale, int streaming, void* stream) {
-  if (dh != 64 || nq < 1 || nk < 1 || heads < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((dh != 64 && dh != 128 && dh != 256) || nq < 1 || nk < 1 || heads < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0) return 0;
-  Params p{};
   const long long st[9] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh};
+  if (dh != 64) {
+    WideParams p{};
+    cudaError_t e = plan_wide(p, q, k, v, out, lse, batch, heads, nq, nk, dh, st, scale);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    auto s = static_cast<cudaStream_t>(stream);
+    fw::with_wide(dh, [&](auto C) {
+      constexpr int c = decltype(C)::value;
+      e = streaming ? launch_wide<c, false, false>(p, batch, s)
+                    : launch_wide<c, true, false>(p, batch, s);
+    });
+    return static_cast<int>(e);
+  }
+  Params p{};
   cudaError_t e = plan(p, q, k, v, out, lse, batch, heads, nq, nk, st, scale);
   if (e != cudaSuccess) return static_cast<int>(e);
   auto s = static_cast<cudaStream_t>(stream);
@@ -479,18 +771,30 @@ extern "C" int sfc_flash_fwd_bf16(const void* q, const void* k, const void* v, v
 // head) strides in elements (unit stride along dh; strides multiples of 8
 // elements, bases on 16 bytes); out bf16 [batch, n, heads, dh]
 // contiguous; lse fp32 [batch, heads, n] or null.  Query i meets the keys
-// j with |i / block - j / block| <= halo: dh 64, block a positive multiple
-// of 64, halo >= 1.
+// j with |i / block - j / block| <= halo: dh 64, 128 or 256, block a
+// positive multiple of 64, halo >= 1.
 extern "C" int sfc_local_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                                   void* lse, int batch, int heads, int n, int dh, int block,
                                   int halo, long long qsb, long long qsn, long long qsh,
                                   long long ksb, long long ksn, long long ksh, long long vsb,
                                   long long vsn, long long vsh, float scale, void* stream) {
-  if (dh != 64 || n < 1 || heads < 1 || batch < 0 || block < 64 || block % 64 || halo < 1)
+  if ((dh != 64 && dh != 128 && dh != 256) || n < 1 || heads < 1 || batch < 0 || block < 64 ||
+      block % 64 || halo < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  Params p{};
   const long long st[9] = {qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh};
+  if (dh != 64) {
+    WideParams p{};
+    cudaError_t e = plan_wide(p, q, k, v, out, lse, batch, heads, n, n, dh, st, scale);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    p.block = block;
+    p.halo = halo;
+    fw::with_wide(dh, [&](auto C) {
+      e = launch_wide<decltype(C)::value, true, true>(p, batch, static_cast<cudaStream_t>(stream));
+    });
+    return static_cast<int>(e);
+  }
+  Params p{};
   cudaError_t e = plan(p, q, k, v, out, lse, batch, heads, n, n, st, scale);
   p.block = block;
   p.halo = halo;
@@ -507,4 +811,17 @@ extern "C" int sfc_flash_fwd_attrs(int form, int* out) {
     case 2: return hw::kernel_attrs(flash_fwd_sm90<true, true>, kSmemBytes, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The same for the instances at dh 128 and 256.
+extern "C" int sfc_flash_fwd_wide_attrs(int dh, int form, int* out) {
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  fw::with_wide(dh, [&](auto C) {
+    constexpr int c = decltype(C)::value, smem = fw::kSmemBytes<c, wide_ring(c)>;
+    err = form == 0   ? hw::kernel_attrs(flash_fwd_wide_sm90<c, true, false>, smem, out)
+          : form == 1 ? hw::kernel_attrs(flash_fwd_wide_sm90<c, false, false>, smem, out)
+          : form == 2 ? hw::kernel_attrs(flash_fwd_wide_sm90<c, true, true>, smem, out)
+                      : static_cast<int>(cudaErrorInvalidValue);
+  });
+  return err;
 }

@@ -73,7 +73,7 @@ __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "PACKED_ONE_PASS_MAX_N", "PACKED_ONE_PASS_MAX_N_MASKED",
            "PACKED_ATTENTION_FORMS", "PACKED_ATTENTION_MASKED_FORMS", "attention_fwd_route",
            "ln_rows_bwd_plan", "LN_BWD_ROWS", "LN_BWD_MAX_D", "LN_ROWS_BWD_FORMS", "flash_fwd",
-           "flash_fused_bwd", "flash_dq", "flash_dkv", "FLASH_HEAD_DIMS",
+           "flash_fused_bwd", "flash_dq", "flash_dkv", "FLASH_HEAD_DIMS", "FLASH_WIDE_FORMS",
            "FLASH_F32_HEAD_DIMS", "flash_head_dims",
            "FLASH_STREAM_BLOCK_K", "local_fwd", "local_bwd", "local_tile_window",
            "local_fwd_tiles", "local_fwd_key_range",
@@ -147,11 +147,12 @@ _SIGNATURES = {
     # #8-#11 in fp32: the bf16 forms' arguments (#9 is the dq and dk/dv
     # kernels, no window)
     "sfc_flash_fwd_f32": (_P,) * 5 + (_I,) * 5 + (_L,) * 9 + (_F, _I, _P),
-    "sfc_flash_dq_f32": (_P,) * 7 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
-    "sfc_flash_dkv_f32": (_P,) * 8 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
+    "sfc_flash_dq_f32": (_P,) * 7 + (_I,) * 5 + (_L,) * 12 + (_F, _I, _I, _P),
+    "sfc_flash_dkv_f32": (_P,) * 8 + (_I,) * 5 + (_L,) * 12 + (_F, _I, _I, _P),
     # q, k, v, out, lse; batch, heads, n, dh, block, halo; q, k, v strides
     # (batch, row, head); scale, stream
     "sfc_local_fwd_bf16": (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_F, _P),
+    "sfc_local_fwd_f32": (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_F, _P),
     # x, lut, w, bias, out; batch, n, k, m, group, d; stream
     "sfc_gather_project_bf16": (_P,) * 5 + (_I,) * 6 + (_P,),
     # a, b, d; form; stream
@@ -177,9 +178,14 @@ _SIGNATURES = {
     "sfc_packed_attention_f32_attrs": (_I, _I, _I, _P),
     "sfc_attention_bwd_f32_attrs": (_I, _I, _I, _P),
     "sfc_gather_project_f32_attrs": (_I, _I, _I, _P),
-    # dh, streaming, out[3] | dh, dkv, out[3]
+    # dh, form, out[3] | dh, part, out[3]
     "sfc_flash_fwd_f32_attrs": (_I, _I, _P),
     "sfc_flash_bwd_f32_attrs": (_I, _I, _P),
+    # the bf16 instances at dh 128 / 256: dh, form, out[3] | dh, windowed,
+    # out[3]
+    "sfc_flash_fwd_wide_attrs": (_I, _I, _P),
+    "sfc_flash_dq_wide_attrs": (_I, _I, _P),
+    "sfc_flash_dkv_wide_attrs": (_I, _I, _P),
 }
 
 #: The widest head dim the attention kernels (#1, #4-#7) take; they take
@@ -257,9 +263,11 @@ GEMM_MAX_SPLITS, GEMM_MIN_SPLIT_BLOCKS = 64, 4
 #: takes for one 128 x 128 x 64 K block (8 bytes at 3.35 TB/s against
 #: 2.1 MFLOP at ~4.5 TFLOP/s an SM): the cost of a split in :func:`gemm_splits`.
 _SPLIT_ELEMS_PER_KBLOCK = 200_000
-#: Head dims the bf16 flash kernels (#8-#11) are instantiated for: the
-#: long-context presets' 64.
-FLASH_HEAD_DIMS = (64,)
+#: Head dims the bf16 flash kernels (#8-#11, and #12/#13's windowed
+#: instances) are instantiated for: every one JAX sends to flash
+#: (``_PALLAS_HEAD_DIMS``); 128 and 256 run the wide instances
+#: (``csrc/flash_wide.cuh``), walked as 2 or 4 sub-heads of 64 columns.
+FLASH_HEAD_DIMS = (64, 128, 256)
 #: Head dims their fp32 forms (``csrc/flash_fwd_f32.cu``,
 #: ``csrc/flash_bwd_f32.cu``) take: every one JAX sends to flash
 #: (``_PALLAS_HEAD_DIMS``), walked as 1, 2 or 4 sub-heads of 64 columns.
@@ -1150,9 +1158,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
               streaming: bool, with_lse: bool = False):
     """#8: softmax(q k^T * scale) v over q [B, Nq, H, Dh] and k, v
     [B, Nk, H, Dh] (any 16-byte-aligned row strides) -> out [B, Nq, H, Dh]
-    in the input dtype, contiguous.  bf16 (Dh 64) runs
-    ``csrc/flash_fwd_sm90.cu``, fp32 (Dh 64, 128, 256)
-    ``csrc/flash_fwd_f32.cu``.  ``streaming`` picks the one-pass form (p
+    in the input dtype, contiguous.  bf16 runs ``csrc/flash_fwd_sm90.cu``
+    (its wide instances at Dh 128 and 256), fp32 ``csrc/flash_fwd_f32.cu``,
+    both at Dh 64, 128 and 256.  ``streaming`` picks the one-pass form (p
     against the running max, the division by l at the end) over the
     two-pass single-K-step form (P normalised before P V).  ``with_lse``
     also returns the fp32 log-sum-exp [B, H, Nq]."""
@@ -1190,14 +1198,16 @@ def _dq(q, k, v, g, lse, delta, scale: float, dims, block: int = 0, halo: int = 
     return dq
 
 
-def _dq_f32(q, k, v, g, lse, delta, scale: float, dims) -> torch.Tensor:
-    """``csrc/flash_bwd_f32.cu``'s dq kernel (#10 in fp32, and #9's dq)."""
+def _dq_f32(q, k, v, g, lse, delta, scale: float, dims, block: int = 0,
+            halo: int = 0) -> torch.Tensor:
+    """``csrc/flash_bwd_f32.cu``'s dq kernel (#10 in fp32, and #9's dq) or,
+    for #13 in fp32, its windowed instance."""
     b, nq, nk, h, dh = dims
     dq = torch.empty((b, nq, h, dh), dtype=torch.float32, device=q.device)
     _check(library().sfc_flash_dq_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), b, h, nq, nk, dh, *_strides(q, k, v, g),
-        scale, _stream()), "flash_dq")
+        scale, block, halo, _stream()), "local_bwd dq" if block else "flash_dq")
     return dq
 
 
@@ -1224,29 +1234,36 @@ def _dkv(q, k, v, g, lse, delta, scale: float, dims, block: int = 0, halo: int =
     return dk, dv
 
 
-def _dkv_f32(q, k, v, g, lse, delta, scale: float, dims):
-    """``csrc/flash_bwd_f32.cu``'s dk/dv kernel (#11 in fp32, and #9's dk, dv)."""
+def _dkv_f32(q, k, v, g, lse, delta, scale: float, dims, block: int = 0, halo: int = 0):
+    """``csrc/flash_bwd_f32.cu``'s dk/dv kernel (#11 in fp32, and #9's dk,
+    dv) or, for #13 in fp32, its windowed instance."""
     b, nq, nk, h, dh = dims
     dk = torch.empty((b, nk, h, dh), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     _check(library().sfc_flash_dkv_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, dh,
-        *_strides(q, k, v, g), scale, _stream()), "flash_dkv")
+        *_strides(q, k, v, g), scale, block, halo, _stream()),
+        "local_bwd dkv" if block else "flash_dkv")
     return dk, dv
 
 
 def flash_fused_bwd(q, k, v, g, lse, delta, scale: float):
-    """#9: ``(dq, dk, dv)``.  bf16: one kernel, one block per key tile; dk,
-    dv bf16 as :func:`flash_dkv`; dq fp32 [B, Nq, H, Dh], summed over the
-    key tiles by TMA bulk reduce-adds (the caller rounds it).  fp32: the
-    dq and dk/dv kernels of :func:`flash_dq` and :func:`flash_dkv`, each
-    output with one owner (the same bits on every call)."""
+    """#9: ``(dq, dk, dv)``.  bf16 at Dh 64: one kernel, one block per key
+    tile; dk, dv bf16 as :func:`flash_dkv`; dq fp32 [B, Nq, H, Dh], summed
+    over the key tiles by TMA bulk reduce-adds (the caller rounds it).
+    fp32, and bf16 at Dh 128 and 256: the dq and dk/dv kernels of
+    :func:`flash_dq` and :func:`flash_dkv` (dq in the input dtype), each
+    output with one owner (the same bits on every call): the same fp32
+    sums as the fused kernel's, each rounded once, in another order."""
     dims = _check_flash(q, k, v, g, lse, delta)
     if q.dtype == torch.float32:
         return (_dq_f32(q, k, v, g, lse, delta, scale, dims),
                 *_dkv_f32(q, k, v, g, lse, delta, scale, dims))
     b, nq, nk, h, dh = dims
+    if dh != 64:
+        return (_dq(q, k, v, g, lse, delta, scale, dims),
+                *_dkv(q, k, v, g, lse, delta, scale, dims))
     dq = torch.zeros((b, nq, h, dh), dtype=torch.float32, device=q.device)
     dk = torch.empty((b, nk, h, dh), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -1258,18 +1275,19 @@ def flash_fused_bwd(q, k, v, g, lse, delta, scale: float):
 
 
 def _check_local(q, k, v, block: int, halo: int, g=None, lse=None, delta=None):
-    """Shapes of the local kernels' operands (q, k, v of one length);
-    returns (b, n, h, dh)."""
+    """Shapes of the local kernels' operands (q, k, v of one length and
+    dtype, bf16 or fp32); returns (b, n, h, dh)."""
     b, n, h, dh = q.shape
-    if dh != 64 or block % 64 or block < 64 or halo < 1:
-        raise ValueError(f"local: head dim {dh}, block {block}, halo {halo}; the "
-                         "kernels take head dim 64, block a multiple of 64, halo >= 1")
+    if dh not in flash_head_dims(q.dtype) or block % 64 or block < 64 or halo < 1:
+        raise ValueError(f"local: {q.dtype} at head dim {dh}, block {block}, halo {halo}; "
+                         f"the kernels take bfloat16 and float32 at head dims "
+                         f"{FLASH_HEAD_DIMS}, block a multiple of 64, halo >= 1")
     if n < 1:
         raise ValueError("local: empty sequence")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _require_bnhd(t, name, (b, n, h, dh))
+        _require_bnhd(t, name, (b, n, h, dh), q.dtype)
     if g is not None:
-        _require_bnhd(g, "g", (b, n, h, dh))
+        _require_bnhd(g, "g", (b, n, h, dh), q.dtype)
         _require(lse, "lse", (b, h, n), torch.float32)
         _require(delta, "delta", (b, h, n), torch.float32)
     return b, n, h, dh
@@ -1277,19 +1295,24 @@ def _check_local(q, k, v, block: int, halo: int, g=None, lse=None, delta=None):
 
 def local_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
               block: int, halo: int, with_lse: bool = False):
-    """#12: curve-local attention over q, k, v [B, N, H, 64] (bf16, any
-    16-byte-aligned row strides), each query on the keys of the blocks
-    within ``halo`` of its own -> out [B, N, H, 64] bf16, contiguous;
-    ``with_lse`` also returns the window's fp32 log-sum-exp [B, H, N].
-    The windowed instance of #8's single-step kernel
-    (``csrc/flash_fwd_sm90.cu``): a block of 128 queries walks the
-    128-key tiles :func:`local_fwd_tiles`, each warpgroup masking the keys
-    outside its :func:`local_fwd_key_range`."""
+    """#12: curve-local attention over q, k, v [B, N, H, Dh] (bf16 or fp32,
+    Dh 64, 128 or 256, any 16-byte-aligned row strides), each query on the
+    keys of the blocks within ``halo`` of its own -> out [B, N, H, Dh] in
+    the input dtype, contiguous; ``with_lse`` also returns the window's
+    fp32 log-sum-exp [B, H, N].  The windowed instance of #8's single-step
+    kernel: in bf16 at Dh 64 (``csrc/flash_fwd_sm90.cu``) a block of 128
+    queries walks the 128-key tiles :func:`local_fwd_tiles`, each
+    warpgroup masking the keys outside its :func:`local_fwd_key_range`; in
+    bf16 at Dh 128 and 256 (its wide instance) and in fp32
+    (``csrc/flash_fwd_f32.cu``) a block of 64 queries walks the 64-key
+    tiles of its window, :func:`local_tile_window`."""
     b, n, h, dh = _check_local(q, k, v, block, halo)
     out = torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    _check(library().sfc_local_fwd_bf16(
+    fn = (library().sfc_local_fwd_f32 if q.dtype == torch.float32
+          else library().sfc_local_fwd_bf16)
+    _check(fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
         b, h, n, dh, block, halo, *_strides(q, k, v), scale, _stream()), "local_fwd")
     return (out, lse) if with_lse else out
@@ -1332,14 +1355,18 @@ def local_fwd_key_range(row0: int, n: int, block: int, halo: int) -> tuple:
 
 
 def local_bwd(q, k, v, g, lse, delta, scale: float, block: int, halo: int):
-    """#13: ``(dq, dk, dv)`` [B, N, H, 64] bf16 from the output's cotangent
-    ``g``, the forward's fp32 ``lse`` and ``delta = rowsum(g * O)`` (both
-    [B, H, N]), in two launches: #10's kernel over each query block's key
-    window (:func:`local_tile_window`), then #11's over each key block's
-    query-side window; dk and dv are fp32 sums over the query-side window,
-    rounded once."""
+    """#13: ``(dq, dk, dv)`` [B, N, H, Dh] in the input dtype (bf16 or
+    fp32) from the output's cotangent ``g``, the forward's fp32 ``lse``
+    and ``delta = rowsum(g * O)`` (both [B, H, N]), in two launches: #10's
+    kernel over each query block's key window (:func:`local_tile_window`),
+    then #11's over each key block's query-side window (the fp32 forms'
+    from ``csrc/flash_bwd_f32.cu``); dk and dv are fp32 sums over the
+    query-side window, rounded once."""
     b, n, h, dh = _check_local(q, k, v, block, halo, g, lse, delta)
     dims = (b, n, n, h, dh)
+    if q.dtype == torch.float32:
+        return (_dq_f32(q, k, v, g, lse, delta, scale, dims, block, halo),
+                *_dkv_f32(q, k, v, g, lse, delta, scale, dims, block, halo))
     dq = _dq(q, k, v, g, lse, delta, scale, dims, block, halo)
     return (dq, *_dkv(q, k, v, g, lse, delta, scale, dims, block, halo))
 
@@ -1526,7 +1553,23 @@ F32_KERNEL_FORMS = (
     *GATHER_PROJECT_F32_FORMS,
     *(f"flash_fwd_f32 dh{dh} {form}" for dh in FLASH_F32_HEAD_DIMS
       for form in ("single step", "streaming")),
-    *(f"flash_bwd_f32 {part} dh{dh}" for dh in FLASH_F32_HEAD_DIMS for part in ("dq", "dkv")))
+    *(f"flash_bwd_f32 {part} dh{dh}" for dh in FLASH_F32_HEAD_DIMS for part in ("dq", "dkv")),
+    *(f"local_fwd_f32 dh{dh}" for dh in FLASH_F32_HEAD_DIMS),
+    *(f"local_bwd_f32 {part} dh{dh}" for dh in FLASH_F32_HEAD_DIMS for part in ("dq", "dkv")))
+
+#: The bf16 flash kernels' instances at head dims 128 and 256
+#: (``csrc/flash_wide.cuh``): #8's two forms and #12's windowed single
+#: step, #10's and #11's kernels (#9's at those head dims) and #13's
+#: windowed instances of them, by name: (entry point, dh, form).
+FLASH_WIDE_FORMS = {
+    **{f"flash_fwd dh{dh} {form}": ("sfc_flash_fwd_wide_attrs", dh, i)
+       for dh in FLASH_HEAD_DIMS[1:]
+       for i, form in enumerate(("single step", "streaming"))},
+    **{f"local_fwd dh{dh}": ("sfc_flash_fwd_wide_attrs", dh, 2) for dh in FLASH_HEAD_DIMS[1:]},
+    **{f"{kind} dh{dh}": (f"sfc_flash_{part}_wide_attrs", dh, w)
+       for dh in FLASH_HEAD_DIMS[1:] for part in ("dq", "dkv")
+       for w, kind in ((0, f"flash_{part}"), (1, f"local_bwd {part}"))},
+}
 
 
 def _f32_attr_calls(lib) -> dict:
@@ -1544,6 +1587,9 @@ def _f32_attr_calls(lib) -> dict:
               for dh in FLASH_F32_HEAD_DIMS for st in (0, 1)]
     calls += [lambda a, dh=dh, p=p: lib.sfc_flash_bwd_f32_attrs(dh, p, a)
               for dh in FLASH_F32_HEAD_DIMS for p in (0, 1)]
+    calls += [lambda a, dh=dh: lib.sfc_flash_fwd_f32_attrs(dh, 2, a) for dh in FLASH_F32_HEAD_DIMS]
+    calls += [lambda a, dh=dh, p=p: lib.sfc_flash_bwd_f32_attrs(dh, p, a)
+              for dh in FLASH_F32_HEAD_DIMS for p in (2, 3)]
     return dict(zip(F32_KERNEL_FORMS, calls, strict=True))
 
 
@@ -1553,7 +1599,8 @@ def flash_kernel_attrs() -> dict:
     (:data:`PACKED_ATTENTION_MASKED_FORMS`), #16's LayerNorm backward
     (:data:`LN_ROWS_BWD_FORMS`), #8's two forms and #12's windowed instance
     of its single step, #9-#11, #13's windowed instances of #10's and
-    #11's kernels, #14's two instances (x gathered from shared or global
+    #11's kernels, all of them at Dh 128 and 256 (:data:`FLASH_WIDE_FORMS`),
+    #14's two instances (x gathered from shared or global
     memory), the GEMM's :data:`GEMM_FORMS`, the
     attention backward's instances (#4, #6) and the fp32 kernels
     (:data:`F32_KERNEL_FORMS`; ``cudaFuncGetAttributes``):
@@ -1576,6 +1623,8 @@ def flash_kernel_attrs() -> dict:
             ("flash_dkv", lambda a: lib.sfc_flash_dkv_attrs(0, a)),
             ("local_bwd dq", lambda a: lib.sfc_flash_dq_attrs(1, a)),
             ("local_bwd dkv", lambda a: lib.sfc_flash_dkv_attrs(1, a)),
+            *((name, lambda a, fn=fn, dh=dh, form=form: getattr(lib, fn)(dh, form, a))
+              for name, (fn, dh, form) in FLASH_WIDE_FORMS.items()),
             ("gather_project shared x", lambda a: lib.sfc_gather_project_attrs(1, a)),
             ("gather_project global x", lambda a: lib.sfc_gather_project_attrs(0, a)),
             *((f"gemm {form}", lambda a, i=i: lib.sfc_gemm_attrs(i, a))

@@ -46,6 +46,15 @@ them with bf16 operands as a two-term bf16 split (``hi + lo``, about 16
 bits of mantissa) on the tensor cores.  dK and dV sum in fp32 and are
 cast to the input dtype once.
 
+At head dims 128 and 256 the bf16 kernels are wide instances of the same
+files (``csrc/flash_wide.cuh``): a block one warpgroup over 64 rows, the
+block's own C = Dh / 64 sub-heads resident and the other side's 64-row
+sub-blocks through a TMA ring, the output held two sub-heads (dk and dv
+one) at a time beside the logits, the keys walked again for each such
+group.  #8's streaming form still moves its running max every 128 keys.
+#9 there is #10's and #11's kernels, as in fp32: the same fp32 sums as
+the fused kernel's, each output with one owner.
+
 In float32 (the JAX CLI's default dtype: every long-context model a user
 launches without ``--dtype``), at head dims 64, 128 and 256, the four run
 ``csrc/flash_fwd_f32.cu`` and ``csrc/flash_bwd_f32.cu``: every product
@@ -68,7 +77,7 @@ JAX's arithmetic with ``block_q`` / ``block_k`` as parameters (memory
 O(tile x N), so they also run at 16,384 tokens on the card):
 :func:`flash_fwd_ref`, :func:`flash_fused_bwd_ref`, :func:`flash_dq_ref`,
 :func:`flash_dkv_ref`.  A CPU tensor runs them; a CUDA tensor launches
-the kernels (bfloat16 at head dim 64, float32 at 64, 128 and 256) or
+the kernels (bfloat16 and float32 at head dims 64, 128 and 256) or
 raises.  Launches are counted on :func:`flash_attention`: ``launches``
 (#8), ``fused_bwd_launches`` (#9), ``dq_launches`` (#10) and
 ``dkv_launches`` (#11), and the fp32 forms' apart as ``f32_launches``,
@@ -300,11 +309,10 @@ def _check_device(q: torch.Tensor, what: str) -> bool:
         return False
     if q.shape[-1] not in _build.flash_head_dims(q.dtype):
         raise NotImplementedError(
-            f"{what}: {q.dtype} at head dim {q.shape[-1]} is not ported to the GPU "
-            f"yet, the flash kernels take bfloat16 at head dim "
-            f"{' or '.join(map(str, _build.FLASH_HEAD_DIMS))} and float32 at "
-            f"{', '.join(map(str, _build.FLASH_F32_HEAD_DIMS))}: ROADMAP.md queue 2 "
-            "entry 2 (kernels #8-#11 in bfloat16 at head dims 128 and 256)")
+            f"{what}: no flash kernel for {q.dtype} at head dim {q.shape[-1]}: they "
+            f"take bfloat16 and float32 at head dims "
+            f"{', '.join(map(str, _build.FLASH_HEAD_DIMS))}, every one the JAX "
+            "package's dispatch sends to flash")
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
     return True
@@ -401,7 +409,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v [B, Nk, H, Dh] -> [B, Nq, H, Dh].
 
     A CPU tensor runs the plain versions; a CUDA one the kernels #8-#11
-    (bfloat16 at head dim 64, float32 at 64, 128 and 256; q/k/v rows
+    (bfloat16 and float32 at head dims 64, 128 and 256; q/k/v rows
     16-byte aligned: the views of a packed projection need no copy) or
     raises.  It never falls back.
     """
@@ -425,8 +433,8 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor made, so the capture observes the flash kernel itself at 4k+
     tokens.
 
-    A CUDA tensor runs #8 with its lse (bfloat16 at head dim 64, float32
-    at 64, 128 and 256; counted in ``flash_attention.launches`` or
+    A CUDA tensor runs #8 with its lse (bfloat16 and float32 at head dims
+    64, 128 and 256; counted in ``flash_attention.launches`` or
     ``f32_launches``) or raises; a CPU one its plain version
     :func:`flash_fwd_ref`.  Not differentiable through the kernel."""
     return flash_fwd(q, k, v, _scale(q, scale), return_lse=True)

@@ -19,7 +19,10 @@ sm_90a:
     sum, ``P = p / l`` normalised in fp32 and *then* rounded to the input
     dtype, then an fp32 P.V rounded once; with autograd also the fp32
     log-sum-exp of the window, [B, H, N] (JAX keeps a lane-broadcast
-    [B*H, Npad, 128] copy, a TPU layout).
+    [B*H, Npad, 128] copy, a TPU layout).  At head dims 128 and 256 the
+    block is one warpgroup over 64 queries walking the 64-key tiles of its
+    window (``_build.local_tile_window``) with Q's sub-heads resident
+    (``csrc/flash_wide.cuh``).
   * #13 ``_bwd_kernel`` -> the windowed instances of #10's and #11's
     Hopper kernels (``csrc/flash_bwd_dq_sm90.cu``,
     ``csrc/flash_bwd_dkv_sm90.cu``: ``wgmma`` on tiles a producer warp's
@@ -32,7 +35,18 @@ sm_90a:
     query blocks whose window holds the key block), each block walking
     only the 64-row tiles of its window (``_build.local_tile_window``),
     each output written once, no atomics.  p and ds stay fp32, as in JAX
-    (a two-term bf16 split in the tensor-core products).
+    (a two-term bf16 split in the tensor-core products).  At head dims 128
+    and 256 they are the wide instances of the same two kernels
+    (``csrc/flash_wide.cuh``: a block one warpgroup over 64 rows).
+
+In float32 (the JAX CLI's default dtype: the hybrid preset a user
+launches without ``--dtype``) #12 and #13 are the windowed instances of
+the fp32 flash kernels (``csrc/flash_fwd_f32.cu``'s single step and
+``csrc/flash_bwd_f32.cu``'s dq and dk/dv kernels: every product 3xTF32 on
+``wgmma``, a block one warpgroup over 64 rows walking the 64-row tiles of
+its window), at head dims 64, 128 and 256: nothing is rounded to a
+narrower type, so they are the plain versions' formulas with only the
+order of the fp32 sums changed.
 
 When every block is within ``halo`` of every other (``round_up(N, block)
 // block <= halo + 1``) the mask is dense and, as in JAX, the function is
@@ -43,11 +57,12 @@ Each kernel's plain version sits beside it, a loop over query blocks that
 repeats JAX's arithmetic in O(N x window) memory, so it also runs at
 16,384 tokens on the card: :func:`local_fwd_ref`, :func:`local_bwd_ref`.
 :func:`local_block_attention_xla` is JAX's dense-mask twin.  A CPU tensor
-runs the plain versions; a CUDA tensor launches the kernels (bfloat16,
-head dim 64, ``block`` a multiple of 64, any ``halo >= 1``) or raises.
-``local_block_attention.launches`` counts #12's launches,
-``local_block_attention.bwd_launches`` #13's (one a backward, its two
-kernels together).
+runs the plain versions; a CUDA tensor launches the kernels (bfloat16 or
+float32 at head dims 64, 128 and 256, ``block`` a multiple of 64, any
+``halo >= 1``) or raises.  ``local_block_attention.launches`` counts #12's
+bf16 launches, ``local_block_attention.bwd_launches`` #13's (one a
+backward, its two kernels together), and ``f32_launches`` /
+``f32_bwd_launches`` the fp32 forms'.
 """
 
 from __future__ import annotations
@@ -164,21 +179,35 @@ def local_bwd_ref(q, k, v, g, lse, delta, block: int, halo: int, scale: float):
 
 
 def _check_device(q: torch.Tensor, block: int, halo: int) -> bool:
-    """True for a CUDA tensor the kernels take; False for a CPU one."""
+    """True for a CUDA tensor the kernels take; False for a CPU one.  A
+    form that no kernel takes raises on any other device."""
     if halo < 1 or block < 1:
         raise ValueError(f"local_block_attention: block={block}, halo={halo}; "
                          "both must be at least 1")
     if q.device.type == "cpu":
         return False
+    if q.shape[-1] not in _build.flash_head_dims(q.dtype):
+        raise NotImplementedError(
+            f"local_block_attention: no kernel for {q.dtype} at head dim {q.shape[-1]}: "
+            f"the kernels take bfloat16 and float32 at head dims "
+            f"{', '.join(map(str, _build.FLASH_HEAD_DIMS))}, every one the JAX "
+            "package's dispatch sends to 'local'")
+    if block % 64:
+        raise NotImplementedError(
+            f"local_block_attention: block {block} is not ported to the GPU yet, the "
+            "kernels take blocks that are a multiple of 64 (JAX's dispatch always "
+            "calls 'local' at block 128; other blocks come only from a direct call): "
+            "ROADMAP.md queue 2 entry 3")
     if q.device.type != "cuda":
         raise ValueError(f"local_block_attention: no kernel for device {q.device}")
-    if q.dtype != torch.bfloat16 or q.shape[-1] != 64 or block % 64:
-        raise NotImplementedError(
-            f"local_block_attention: {q.dtype} at head dim {q.shape[-1]} with block "
-            f"{block} is not ported to the GPU yet, the kernels take bfloat16 at head "
-            "dim 64 with block a multiple of 64: ROADMAP.md queue 2 entry 3 "
-            "(kernels #12/#13 in fp32, at other head dims and blocks)")
     return True
+
+
+def _count(name: str, q: torch.Tensor) -> None:
+    """One launch of a local kernel: the fp32 forms count apart (``f32_``
+    + ``name``)."""
+    name = f"f32_{name}" if q.dtype == torch.float32 else name
+    setattr(local_block_attention, name, getattr(local_block_attention, name) + 1)
 
 
 def local_fwd(q, k, v, block: int, halo: int, scale: float, return_lse: bool = False):
@@ -187,7 +216,7 @@ def local_fwd(q, k, v, block: int, halo: int, scale: float, return_lse: bool = F
     if not _check_device(q, block, halo):
         return local_fwd_ref(q, k, v, block, halo, scale, return_lse)
     res = _build.local_fwd(q, k, v, scale, block, halo, with_lse=return_lse)
-    local_block_attention.launches += 1
+    _count("launches", q)
     return res
 
 
@@ -196,7 +225,7 @@ def local_bwd(q, k, v, g, lse, delta, block: int, halo: int, scale: float):
     if not _check_device(q, block, halo):
         return local_bwd_ref(q, k, v, g, lse, delta, block, halo, scale)
     grads = _build.local_bwd(q, k, v, g, lse, delta, scale, block, halo)
-    local_block_attention.bwd_launches += 1
+    _count("bwd_launches", q)
     return grads
 
 
@@ -239,8 +268,9 @@ def local_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``|block(q) - block(k)| <= halo`` masking in O(N x window).
 
     A CPU tensor runs the plain versions; a CUDA one the kernels #12/#13
-    (bfloat16, head dim 64, rows 16-byte aligned: the views of a packed
-    projection need no copy) or raises.  It never falls back.  The dense
+    (bfloat16 or float32 at head dims 64, 128 and 256, ``block`` a multiple
+    of 64, rows 16-byte aligned: the views of a packed projection need no
+    copy) or raises.  It never falls back.  The dense
     case is :func:`~sfc_vit_tpu_torch.ops.flash_attention.flash_attention`.
     """
     return _attend(q, k, v, block, halo, scale, plain=False)
@@ -255,3 +285,5 @@ def local_block_attention_ref(q, k, v, block: int = 128, halo: int = 1,
 
 local_block_attention.launches = 0
 local_block_attention.bwd_launches = 0
+local_block_attention.f32_launches = 0
+local_block_attention.f32_bwd_launches = 0

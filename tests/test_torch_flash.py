@@ -178,14 +178,17 @@ def test_flash_gates_read_jax_constants():
 
 @pytest.mark.parametrize("dtype, dh, error, match", [
     (torch.float32, 64, ValueError, "no kernel for device"),
-    (torch.bfloat16, 128, NotImplementedError, "queue 2 entry 2"),
-    (torch.bfloat16, 256, NotImplementedError, "queue 2 entry 2")])
+    (torch.bfloat16, 128, ValueError, "no kernel for device"),
+    (torch.bfloat16, 256, ValueError, "no kernel for device"),
+    (torch.float16, 64, NotImplementedError, "head dims 64, 128, 256"),
+    (torch.bfloat16, 96, NotImplementedError, "head dims 64, 128, 256")])
 def test_flash_attention_refuses_devices_without_a_kernel(dtype, dh, error, match):
     """Only a CPU tensor runs the plain versions: a form the kernels take
-    (fp32 at Dh 64) on a device without them raises, and the forms no
-    kernel takes yet (bf16 at Dh 128 and 256) raise on any device but the
-    CPU, naming their ROADMAP entry (the same refusals on CUDA tensors are
-    GPU tests in tests/test_torch_kernels.py)."""
+    (bf16 and fp32 at Dh 64, 128, 256) on a device without them raises, and
+    the forms no kernel takes (another dtype or head dim, which the JAX
+    package's dispatch never sends to flash) raise on any device but the
+    CPU, naming what the kernels take (the same refusals on CUDA tensors
+    are GPU tests in tests/test_torch_kernels.py)."""
     q = torch.zeros(1, 8, 1, dh, device="meta", dtype=dtype)
     with pytest.raises(error, match=match):
         fa.flash_attention(q, q, q)

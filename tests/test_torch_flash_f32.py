@@ -60,7 +60,7 @@ def test_flash_f32_head_dims_are_jaxs():
 
     assert _build.FLASH_F32_HEAD_DIMS == tuple(jattention._PALLAS_HEAD_DIMS)
     assert _build.flash_head_dims(torch.float32) == _build.FLASH_F32_HEAD_DIMS
-    assert _build.flash_head_dims(torch.bfloat16) == _build.FLASH_HEAD_DIMS == (64,)
+    assert _build.flash_head_dims(torch.bfloat16) == _build.FLASH_HEAD_DIMS == (64, 128, 256)
     assert _build.flash_head_dims(torch.float16) == ()
 
 

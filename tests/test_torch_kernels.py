@@ -2331,15 +2331,14 @@ def test_flash_f32_autograd_counts_its_kernels(cuda, dh, n, fused_max, monkeypat
 def test_flash_attention_refuses_what_the_kernels_do_not_take(cuda):
     from sfc_vit_tpu_torch.ops import flash_attention as fa
 
-    for dh in (128, 256):  # bf16 past head dim 64
-        q = torch.zeros(1, 8, 2, dh, device=cuda, dtype=torch.bfloat16)
-        with pytest.raises(NotImplementedError, match="queue 2 entry 2"):
-            fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="head dims 64, 128, 256"):
+        fa.flash_attention(q, q, q)  # fp16
     q = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="queue 2 entry 2"):
+    with pytest.raises(NotImplementedError, match="head dims 64, 128, 256"):
         fa.flash_attention(q, q, q)  # head dim 32
     q = torch.zeros(1, 8, 2, 96, device=cuda)
-    with pytest.raises(NotImplementedError, match="queue 2 entry 2"):
+    with pytest.raises(NotImplementedError, match="head dims 64, 128, 256"):
         fa.flash_attention(q, q, q)  # fp32 at head dim 96
     with pytest.raises(ValueError, match="16 bytes"):
         x = torch.zeros(1, 8, 2, 68, device=cuda, dtype=torch.bfloat16)[..., 2:66]
@@ -2393,9 +2392,12 @@ def test_local_and_gather_launchers_reject_what_the_kernels_do_not_take():
         _build.local_fwd(q, q, q, 1.0, block=128, halo=1)
     with pytest.raises(ValueError, match="block a multiple of 64"):
         _build.local_fwd(q, q, q, 1.0, block=96, halo=1)
-    with pytest.raises(ValueError, match="head dim 64"):
+    with pytest.raises(ValueError, match=r"head dims \(64, 128, 256\)"):
         x = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
         _build.local_bwd(x, x, x, x, None, None, 1.0, block=128, halo=1)
+    with pytest.raises(ValueError, match="head dim 64, block 128"):
+        x = torch.zeros(1, 8, 2, 64, dtype=torch.float16)
+        _build.local_fwd(x, x, x, 1.0, block=128, halo=1)
     x = torch.zeros(1, 8, 3, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         _build.gather_project(x, torch.arange(8, dtype=torch.int32),
@@ -2474,16 +2476,205 @@ def test_local_block_attention_autograd_counts_its_kernels(cuda, n):
 def test_local_attention_refuses_what_the_kernels_do_not_take(cuda):
     from sfc_vit_tpu_torch.ops import local_attention as la
 
-    q = torch.zeros(1, 600, 2, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="queue 2 entry 3"):
-        la.local_block_attention(q, q, q)  # fp32
+    q = torch.zeros(1, 600, 2, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="head dims 64, 128, 256"):
+        la.local_block_attention(q, q, q)  # fp16
     q = torch.zeros(1, 600, 2, 32, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="queue 2 entry 3"):
+    with pytest.raises(NotImplementedError, match="head dims 64, 128, 256"):
         la.local_block_attention(q, q, q)  # head dim 32
-    q = torch.zeros(1, 600, 2, 64, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="queue 2 entry 3"):
-        la.local_block_attention(q, q, q, block=32)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(1, 600, 2, 64, device=cuda, dtype=dtype)
+        with pytest.raises(NotImplementedError, match="queue 2 entry 3"):
+            la.local_block_attention(q, q, q, block=32)
 
+
+
+# -- long context at head dims 128 and 256 in bf16, #12/#13 in fp32 -----------
+
+# (b, nq, nk, heads, packed): CurveViT-S/12's 4,096 tokens (#8's single
+# step, #9 as #10 + #11), a streaming length past 4,096 that is not a
+# multiple of 64 (its last 128-key step holds one 64-key tile), views of a
+# packed projection with several (b, h), and nq != nk both ways.
+_FLASH_WIDE_SHAPES = [(1, 4096, 4096, 2, False), (1, 1000, 4500, 2, False),
+                      (2, 1089, 1089, 3, True), (2, 333, 520, 3, False),
+                      (1, 1000, 777, 2, False)]
+
+
+def _wide(rng, b, nq, nk, heads, dh, device, dtype=torch.bfloat16, packed=False):
+    """q [B, Nq, H, Dh], k, v [B, Nk, H, Dh] and g of ``dtype``; with
+    ``packed`` q, k, v are strided views of one packed projection."""
+    if packed:
+        qkv = _randn(rng, b, nq, 3 * heads * dh, device=device, dtype=dtype)
+        q, k, v = qkv.view(b, nq, 3, heads, dh).unbind(2)
+    else:
+        q, k, v = (_randn(rng, b, n, heads, dh, device=device, dtype=dtype)
+                   for n in (nq, nk, nk))
+    return q, k, v, _randn(rng, b, nq, heads, dh, device=device, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("b, nq, nk, heads, packed", _FLASH_WIDE_SHAPES)
+def test_flash_wide_fwd_matches_plain(cuda, dh, b, nq, nk, heads, packed):
+    """#8 in bf16 at Dh 128 and 256, both forms, against its plain version
+    at the kernel's 128-key streaming step or one step, within 1 % of the
+    largest |value|; the lse against fp64; a second call bit for bit."""
+    from sfc_vit_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _wide(np.random.default_rng(60), b, nq, nk, heads, dh, cuda, packed=packed)
+    s = dh ** -0.5
+    lse64 = _lse64(q, k, s)
+    for streaming in (False, True):
+        out, lse = _build.flash_fwd(q, k, v, s, streaming=streaming, with_lse=True)
+        want = fa.flash_fwd_ref(q, k, v, s,
+                                block_k=_build.FLASH_STREAM_BLOCK_K if streaming else nk)
+        _within(out, want, 1e-2, f"out (streaming {streaming})")
+        torch.testing.assert_close(lse.double(), lse64, rtol=1e-5, atol=1e-5)
+        assert torch.equal(_build.flash_fwd(q, k, v, s, streaming=streaming), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("b, nq, nk, heads, packed", _FLASH_WIDE_SHAPES)
+def test_flash_wide_bwd_matches_plain(cuda, dh, b, nq, nk, heads, packed):
+    """#10, #11 and #9 (the same two kernels) in bf16 at Dh 128 and 256
+    from the saved lse and output, against their plain versions within 1 %
+    of the largest |value|, and bit for bit on a second call."""
+    from sfc_vit_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _wide(np.random.default_rng(61), b, nq, nk, heads, dh, cuda, packed=packed)
+    s = dh ** -0.5
+    out, lse = _build.flash_fwd(q, k, v, s, streaming=not fa.uses_single_kstep(nk),
+                                with_lse=True)
+    delta = fa.flash_delta(g, out)
+    pair = (_build.flash_dq(q, k, v, g, lse, delta, s),
+            *_build.flash_dkv(q, k, v, g, lse, delta, s))
+    want = (fa.flash_dq_ref(q, k, v, g, lse, delta, s),
+            *fa.flash_dkv_ref(q, k, v, g, lse, delta, s))
+    for name, a, w in zip(("dq", "dk", "dv"), pair, want):
+        _within(a, w, 1e-2, name)
+    fused = _build.flash_fused_bwd(q, k, v, g, lse, delta, s)
+    for name, a, b2 in zip(("dq (#9)", "dk (#9)", "dv (#9)"), fused, pair):
+        assert torch.equal(a, b2), name
+    again = (_build.flash_dq(q, k, v, g, lse, delta, s),
+             *_build.flash_dkv(q, k, v, g, lse, delta, s))
+    for name, a, b2 in zip(("dq", "dk", "dv"), pair, again):
+        assert torch.equal(a, b2), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("n, fused_max", [(1089, 8192), (1089, 128)])
+def test_flash_wide_autograd_counts_its_kernels(cuda, dh, n, fused_max, monkeypatch):
+    """``flash_attention`` on bf16 tensors at Dh 128 and 256 under autograd
+    launches #8 once and then #9 (the dq and dk/dv kernels), or #10 and
+    #11 past ``FUSED_BWD_MAX`` (the bf16 counters; the ``f32_`` ones stay);
+    its gradients match the plain route's."""
+    from sfc_vit_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setattr(fa, "FUSED_BWD_MAX", fused_max)
+    q, k, v, g = _wide(np.random.default_rng(62), 2, n, n, 2, dh, cuda, packed=True)
+    f = fa.flash_attention
+    counts = lambda: (f.launches, f.fused_bwd_launches, f.dq_launches,  # noqa: E731
+                      f.dkv_launches, f.f32_launches, f.f32_fused_bwd_launches,
+                      f.f32_dq_launches, f.f32_dkv_launches)
+    grads = []
+    for route in (fa.flash_attention, fa.flash_attention_ref):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = counts()
+        route(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+        fused = fused_max >= 8192
+        want = (1, int(fused), int(not fused), int(not fused)) if route is f else (0,) * 4
+        assert tuple(a - b for a, b in zip(counts(), before)) == want + (0,) * 4
+    for name, a, w in zip(("dq", "dk", "dv"), *grads):
+        _within(a, w, 2e-2, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, dh", [(torch.bfloat16, 128), (torch.bfloat16, 256),
+                                       (torch.float32, 64), (torch.float32, 128),
+                                       (torch.float32, 256)])
+@pytest.mark.parametrize("b, n, heads, block, halo, packed", _LOCAL_SHAPES)
+def test_local_wide_and_f32_kernels_match_plain(cuda, dtype, dh, b, n, heads, block, halo,
+                                                packed):
+    """#12 (out and lse) and #13 (dq, dk, dv) in bf16 at Dh 128 and 256 and
+    in fp32 at Dh 64, 128 and 256 against their plain versions fed the same
+    inputs, within 1 % (bf16) or 1e-4 (fp32) of the largest |value|; the
+    lse within 1e-5; both bit for bit on a second call."""
+    from sfc_vit_tpu_torch.ops import local_attention as la
+    from sfc_vit_tpu_torch.ops.flash_attention import flash_delta
+
+    frac = 1e-4 if dtype == torch.float32 else 1e-2
+    q, k, v, g = _wide(np.random.default_rng(63), b, n, n, heads, dh, cuda, dtype, packed)
+    s = dh ** -0.5
+    out, lse = _build.local_fwd(q, k, v, s, block, halo, with_lse=True)
+    want, want_lse = la.local_fwd_ref(q, k, v, block, halo, s, return_lse=True)
+    _within(out, want, frac, "out")
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert torch.equal(_build.local_fwd(q, k, v, s, block, halo), out)
+    delta = flash_delta(g, out)
+    got = _build.local_bwd(q, k, v, g, lse, delta, s, block, halo)
+    for name, a, w in zip(("dq", "dk", "dv"), got,
+                          la.local_bwd_ref(q, k, v, g, lse, delta, block, halo, s)):
+        _within(a, w, frac, name)
+    for name, a, w in zip(("dq", "dk", "dv"), got,
+                          _build.local_bwd(q, k, v, g, lse, delta, s, block, halo)):
+        assert torch.equal(a, w), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, dh", [(torch.float32, 64), (torch.float32, 128),
+                                       (torch.bfloat16, 256)])
+def test_local_block_attention_counts_each_dtype_apart(cuda, dtype, dh):
+    """At 600 tokens (block 128, halo 1) ``local_block_attention`` under
+    autograd launches #12 once and #13 once: fp32 on the ``f32_``
+    counters, bf16 on the others; the gradients match the plain route's."""
+    from sfc_vit_tpu_torch.ops import local_attention as la
+
+    q, k, v, g = _wide(np.random.default_rng(64), 2, 600, 600, 2, dh, cuda, dtype)
+    f = la.local_block_attention
+    counts = lambda: (f.launches, f.bwd_launches, f.f32_launches,  # noqa: E731
+                      f.f32_bwd_launches)
+    grads = []
+    for route in (la.local_block_attention, la.local_block_attention_ref):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = counts()
+        route(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+        delta = tuple(a - b for a, b in zip(counts(), before))
+        if route is f:
+            assert delta == ((0, 0, 1, 1) if dtype == torch.float32 else (1, 1, 0, 0))
+        else:
+            assert delta == (0, 0, 0, 0)
+    for name, a, w in zip(("dq", "dk", "dv"), *grads):
+        _within(a, w, 1e-4 if dtype == torch.float32 else 2e-2, name)
+
+
+@pytest.mark.gpu
+def test_wide_and_windowed_f32_instances_have_no_spills_and_no_ptxas_notes(cuda):
+    """Every new instance (the bf16 flash and local kernels at Dh 128 and
+    256, ``_build.FLASH_WIDE_FORMS``; #12/#13's fp32 windowed instances)
+    is listed by ``flash_kernel_attrs`` with no local memory, and ptxas
+    left no C75xx note (a serialized or re-fenced ``wgmma``) on any of
+    them in the build log."""
+    attrs = _build.flash_kernel_attrs()
+    new = [*_build.FLASH_WIDE_FORMS,
+           *(n for n in _build.F32_KERNEL_FORMS
+             if n.startswith(("local_fwd_f32", "local_bwd_f32")))]
+    assert len(new) == 14 + 9
+    for name in new:
+        assert attrs[name]["local_bytes"] == 0, name
+        assert 0 < attrs[name]["registers"] <= 255, name
+    kernels = ("flash_fwd_wide_sm90", "flash_bwd_dq_wide_sm90", "flash_bwd_dkv_wide_sm90",
+               "flash_fwd_f32_sm90ILi1ELb1ELb1E", "flash_fwd_f32_sm90ILi2ELb1ELb1E",
+               "flash_fwd_f32_sm90ILi4ELb1ELb1E", "flash_dq_f32_sm90ILi1ELb1E",
+               "flash_dq_f32_sm90ILi2ELb1E", "flash_dq_f32_sm90ILi4ELb1E",
+               "flash_dkv_f32_sm90ILi1ELb1E", "flash_dkv_f32_sm90ILi2ELb1E",
+               "flash_dkv_f32_sm90ILi4ELb1E")
+    notes = [line for line in _build.build()["log"].splitlines()
+             if "(C75" in line and any(k in line for k in kernels)]
+    assert not notes, notes[:3]
 
 #: (b, n, k, m, group, d, repeat): the flagship's three levels (a 32 px
 #: image, D = 256) at batch 8, a ragged case with D past one 256-column
