@@ -9,9 +9,11 @@ local/global schedule, and 4,096) and the reference notebook's model's
 ViT-B/16 preset's at its own fp32, per-layer remat, the flagship,
 'hier' and ViT-B/16 at head dims other than 64 and 192, and the
 long-context models at their own fp32 (head dims 64, 128, 256), once on
-one NVIDIA GPU, and the long-context kernels at every head dim and dtype
+one NVIDIA GPU, the long-context kernels at every head dim and dtype
 the JAX package sends them (the hybrid at its fp32, Dh 128 and 256 in
-bf16).
+bf16), and #4's and #6's attention backward past its resident form's
+limits (the notebook's 1-D tokenizer at 1,024 tokens, ViT-B/16 at 384
+px).
 
     python3 chip_smoke.py        # from the repository root; needs one
                                  # NVIDIA H100 (sm_90a) and nvcc
@@ -27,7 +29,9 @@ Phases, each of which raises (non-zero exit) on failure:
    head, #8-#11,
    #13's windowed instances of #10's and #11's kernels, #14, the GEMM's
    three forms, split-K sum and LayerNorm form (#15) and the attention
-   backward's seven instances (#4, #6)) and of the LayerNorm backward's
+   backward's instances (#4, #6: the resident form's seven, the streamed
+   form's dq and dk/dv kernels by sub-heads, with the mask and
+   without)) and of the LayerNorm backward's
    three and the fp32 kernels of #1-#7 and #14 (``csrc/gemm_f32.cu``'s nine
    3xTF32 ``wgmma`` instances and its column sums; the fp32 attention's
    instances by sub-heads; #14's), and fails if any spills;
@@ -58,9 +62,10 @@ Phases, each of which raises (non-zero exit) on failure:
    into its K loop, staging, finish8 and column sums from the kernel's
    clock64 stamps (``_build.gemm_profile``); and #4's attention backward
    (``csrc/attention_bwd_sm90.cu``) against its plain version, bit for bit
-   on a second call, timed beside ``csrc/attention_bwd.cu`` and SDPA's
-   backward; #1's attention alone at [256, 196, 12 x 64] with its lse (the
-   lse against fp64), timed beside its bound and SDPA's forward; and
+   on a second call, timed beside the streamed form at the same shape
+   (``csrc/attention_bwd_stream_sm90.cu``) and SDPA's backward; #1's
+   attention alone at [256, 196, 12 x 64] with its lse (the lse against
+   fp64), timed beside its bound and SDPA's forward; and
    ``ln_rows_bwd`` (csrc/ln_rows_bwd.cu) alone in its three forms at the
    main paths' shapes ((a) [50,176, 768] of #3 and #4; (b) #16's LN2 and
    (c) its LN1 at [32,768, 768] and [32,768, 256]) against
@@ -86,7 +91,7 @@ Phases, each of which raises (non-zero exit) on failure:
    and #6's attention backward alone (``csrc/attention_bwd_sm90.cu`` with
    the mask) at the flagship's [512, 64, 4 x 192] and 'hier''s [512, 64,
    4 x 64] and [512, 192, 4 x 64] against the masked plain twin and a
-   second call (bit for bit), in turns with ``csrc/attention_bwd.cu``,
+   second call (bit for bit), in turns with the streamed form,
    beside its byte bound and SDPA's unmasked backward; then #5's attention
    alone (``csrc/packed_attn_sm90.cu``'s masked one-pass forms, with lse)
    at the same three shapes against ``attention_fwd_ref`` with the mask,
@@ -209,8 +214,10 @@ Phases, each of which raises (non-zero exit) on failure:
    batch 32 (curves hilbert, raster, random), evaluated and served
    (``'random'`` refused by the engine), the same in bf16 with the fused
    tokenizer at batch 512 through the Hopper #5/#6/#7/#14, and the 1-D
-   tokenizer at patch 4 (256 tokens), fused, in fp32 and bf16: launch
-   counts = layers x steps (``colsum`` twice that), eval batches and
+   tokenizer at patch 4 (256 tokens), fused, in fp32 and bf16 (its bf16
+   #6 backward on the streamed form, ``_build.attention_bwd.streamed_masked``
+   counted): launch counts = layers x steps (``colsum`` twice that), eval
+   batches and
    served forwards, every parameter moved, one step's gradients and the
    served logits against the plain versions.
 15. ViT-B/16 at its own dtype (float32; the preset names none): (a) #1-#4
@@ -258,9 +265,10 @@ Phases, each of which raises (non-zero exit) on failure:
    heads, and ViT-B/16 at 6 heads of 128 at batch 256 in bf16 and fp32
    (depth cut to 2, one layer a level for 'hier'): 2 steps of
    ``Trainer.fit``, an eval batch and ``ServingEngine``, launch counts =
-   layers x steps or forwards, one step's gradients and the served logits
-   against the plain path.  The kernel line's attention entries gain a
-   ``head_dims`` list of the widths (a) held.
+   layers x steps or forwards (the streamed form's at the flagship's 3
+   heads, 'hier''s 2 and ViT-B/16's 6 of 128), one step's gradients and
+   the served logits against the plain path.  The kernel line's attention
+   entries gain a ``head_dims`` list of the widths (a) held.
 18. long context in fp32 (the JAX CLI's default dtype): (a) #8-#11's fp32
    forms (``csrc/flash_fwd_f32.cu``, ``csrc/flash_bwd_f32.cu``: 3xTF32 on
    ``wgmma``) at CurveViT-S/12's [16, 4,096, 6 x 64] (#8's single step,
@@ -305,6 +313,20 @@ Phases, each of which raises (non-zero exit) on failure:
    or layers x steps in the model's dtype and 0 elsewhere, one step's
    gradients (relative L2 0.1 bf16, 1e-2 fp32) and the logits against the
    plain path; the first two's step times and profiles.
+20. #4's and #6's attention backward past the resident form's limits:
+   (a) the streamed form (``csrc/attention_bwd_stream_sm90.cu``) through
+   ``_build.attention_bwd`` at 'hier''s fusion layers at 2 heads and the
+   flagship at 3 (with the mask and without), the notebook's 1-D tokenizer
+   at patch 4 and at patch 1 over 32 x 32 px (the mask), ViT-B/16 at 384
+   px and at 6 heads of 128: against ``attention_bwd_ref`` within 2 % of
+   the largest |value|, bit for bit twice, timed in turns with the plain
+   version beside SDPA's backward and the bound ("streamed backward:"
+   lines); (b) the notebook's 1-D tokenizer at patch 1 over 32 x 32 px
+   (1,024 tokens, batch 32) and ViT-B/16 at 384 px (576 tokens, batch 64),
+   bf16, full depth, 4 steps of ``Trainer.fit``, an eval batch and
+   ``ServingEngine``: every attention backward on the streamed form
+   (``_build.attention_bwd.streamed`` / ``.streamed_masked`` = layers x
+   steps), one step's gradients and the logits against the plain path.
    Then no module of jax, flax or the JAX package may have loaded.  Each
    phase prints its seconds.
 
@@ -911,11 +933,29 @@ def _mlp_split(card: str, b: int) -> None:
     print(f"  sum of the launches: {total:.4f} ms (their bounds' sum {total_bound:.4f} ms)")
 
 
+def _stream_bwd(qkv, att, datt, lse, heads: int, n_valid: int, scale: float, mask=None,
+                keep: float = 1.0):
+    """The streamed form of the attention backward
+    (csrc/attention_bwd_stream_sm90.cu) called directly, at a shape whose
+    route is the resident form: the same formula, a yardstick of what
+    streaming costs there."""
+    b, n, w = qkv.shape
+    dh = w // (3 * heads)
+    delta = torch.empty((b, heads, n), dtype=torch.float32, device=DEVICE)
+    out = torch.empty_like(qkv)
+    _build._check(_build.library().sfc_attention_bwd_stream_bf16(
+        qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(),
+        _build._ptr(_build._mask_u8(mask)), delta.data_ptr(), out.data_ptr(), b, n, heads, dh,
+        n_valid, scale, keep, _build._stream()), "attention_bwd (streamed form)")
+    return out
+
+
 def _attention_bwd_phase(card: str, b: int) -> None:
-    """#4's attention backward at ViT-B batch ``b`` (csrc/attention_bwd_sm90.cu)
-    against its plain version, timed beside the kernel it replaced there
-    (csrc/attention_bwd.cu, still #6's) and SDPA's autograd backward on
-    contiguous [B, H, N, Dh] q, k, v."""
+    """#4's attention backward at ViT-B batch ``b`` (csrc/attention_bwd_sm90.cu,
+    the resident form) against its plain version, timed beside the
+    streamed form at the same shape (csrc/attention_bwd_stream_sm90.cu,
+    the same formula) and SDPA's autograd backward on contiguous [B, H, N,
+    Dh] q, k, v."""
     gen = torch.Generator().manual_seed(6)
     s = 64 ** -0.5
     qkv = _randn(gen, b, N, 3 * D)
@@ -927,26 +967,20 @@ def _attention_bwd_phase(card: str, b: int) -> None:
     _frac_err("dqkv", got, attention_bwd_ref(qkv, att, datt, lse, HEADS, N, s), 1e-2)
     _check(torch.equal(got, _build.attention_bwd(qkv, att, datt, lse, HEADS, N, s)),
            "the attention backward does not repeat bit for bit")
-    delta = torch.empty((b, HEADS, N), dtype=torch.float32, device=DEVICE)
-    old = torch.empty_like(qkv)
-    lib = _build.library()
 
-    def wmma():  # csrc/attention_bwd.cu, the route #4 took before attention_bwd_sm90.cu
-        _build._check(lib.sfc_attention_bwd_bf16(
-            qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(), None,
-            delta.data_ptr(), old.data_ptr(), b, N, HEADS, 64, N, s, 1.0, _build._stream()),
-            "attention_bwd (csrc/attention_bwd.cu)")
-    wmma()
-    _frac_err("dqkv of csrc/attention_bwd.cu", old, got, 1e-2)
-    ms, old_ms = _ab_ms(lambda: _build.attention_bwd(qkv, att, datt, lse, HEADS, N, s), wmma)
+    def streamed():
+        return _stream_bwd(qkv, att, datt, lse, HEADS, N, s)
+    _frac_err("dqkv of the streamed form", streamed(), got, 1e-2)
+    ms, stream_ms = _ab_ms(lambda: _build.attention_bwd(qkv, att, datt, lse, HEADS, N, s),
+                           streamed)
     q, k, v = qkv.view(b, N, 3, HEADS, 64).unbind(2)
     _, sdpa_bwd = _sdpa_ms(q, k, v, datt.view(b, N, HEADS, 64))
     flops = 5 * 2 * b * HEADS * N * N * 64
     bound = _bound(flops, 2 * b * N * D * (3 + 2 + 3) + 4 * b * HEADS * N)
     print(f"attention backward [{b}, {N}, {HEADS}, 64]: kernel {ms:.4f} ms = "
-          f"{_tflops(flops, ms)} nominal, csrc/attention_bwd.cu {old_ms:.4f} ms, SDPA "
-          f"backward {sdpa_bwd:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-          f"({bound['bound_by']}), {card}")
+          f"{_tflops(flops, ms)} nominal, the streamed form (csrc/attention_bwd_stream_sm90.cu) "
+          f"{stream_ms:.4f} ms, SDPA backward {sdpa_bwd:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), {card}")
 
 
 #: #6's attention backward on the main paths (b, n, heads, dh): the
@@ -959,11 +993,11 @@ def _masked_attention_bwd_phase(card: str) -> None:
     """#6's attention backward (csrc/attention_bwd_sm90.cu with the mask)
     at MASKED_BWD_SHAPES against the masked plain twin (BWD_TOL of its
     largest |value|) and a second call (bit for bit), timed in turns with
-    the kernel it replaced (csrc/attention_bwd.cu, the same formula) beside
-    its byte bound; SDPA's backward without dropout on contiguous [B, H, N,
-    Dh] q, k, v is printed as a yardstick for the unmasked work only."""
+    the streamed form at the same shape (csrc/attention_bwd_stream_sm90.cu,
+    the same formula) beside its byte bound; SDPA's backward without
+    dropout on contiguous [B, H, N, Dh] q, k, v is printed as a yardstick
+    for the unmasked work only."""
     gen = torch.Generator().manual_seed(7)
-    lib = _build.library()
     for b, n, h, dh in MASKED_BWD_SHAPES:
         _check(_build.attention_bwd_route(dh, n, True) == "sm90",
                f"#6's route at [{b}, {n}, {h} x {dh}] is not the sm90 kernel")
@@ -972,7 +1006,6 @@ def _masked_attention_bwd_phase(card: str) -> None:
         att, lse = attention_fwd_ref(qkv, h, n, s)
         datt = _randn(gen, b, n, h * dh)
         mask = torch.rand(b, h, n, n, generator=gen).lt(FA_KEEP).to(DEVICE)
-        mask8 = mask.view(torch.uint8)
 
         def run():
             return _build.attention_bwd(qkv, att, datt, lse, h, n, s, mask=mask, keep=FA_KEEP)
@@ -982,17 +1015,11 @@ def _masked_attention_bwd_phase(card: str) -> None:
         _frac_err("dqkv", got, attention_bwd_ref(qkv, att, datt, lse, h, n, s, mask=mask,
                                                  keep=FA_KEEP), BWD_TOL)
         _check(torch.equal(got, run()), "#6's attention backward does not repeat bit for bit")
-        delta = torch.empty((b, h, n), dtype=torch.float32, device=DEVICE)
-        old = torch.empty_like(qkv)
 
-        def wmma():  # csrc/attention_bwd.cu, the route #6 took before
-            _build._check(lib.sfc_attention_bwd_bf16(
-                qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(),
-                mask8.data_ptr(), delta.data_ptr(), old.data_ptr(), b, n, h, dh, n, s,
-                FA_KEEP, _build._stream()), "attention_bwd (csrc/attention_bwd.cu)")
-        wmma()
-        _frac_err("dqkv of csrc/attention_bwd.cu", old, got, BWD_TOL)
-        ms, old_ms = _ab_ms(run, wmma)
+        def streamed():
+            return _stream_bwd(qkv, att, datt, lse, h, n, s, mask=mask, keep=FA_KEEP)
+        _frac_err("dqkv of the streamed form", streamed(), got, BWD_TOL)
+        ms, stream_ms = _ab_ms(run, streamed)
         _, plain_ms = _ab_ms(run, lambda: attention_bwd_ref(qkv, att, datt, lse, h, n, s,
                                                             mask=mask, keep=FA_KEEP))
         q, k, v = qkv.view(b, n, 3, h, dh).unbind(2)
@@ -1001,13 +1028,13 @@ def _masked_attention_bwd_phase(card: str) -> None:
         nbytes = 2 * b * n * h * dh * (3 + 2 + 3) + b * h * n * n + 4 * b * h * n
         bound = _bound(flops, nbytes)
         print(f"attention backward of #6 [{b}, {n}, {h} x {dh}] with the mask: kernel "
-              f"{ms:.4f} ms, csrc/attention_bwd.cu {old_ms:.4f} ms ({old_ms / ms:.2f}x), "
+              f"{ms:.4f} ms, the streamed form {stream_ms:.4f} ms ({stream_ms / ms:.2f}x), "
               f"plain version (attention_bwd_ref) {plain_ms:.4f} ms, "
               f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; {nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.1f} GFLOP), {bound['bound_ms'] / ms:.1%} of it; SDPA backward "
               f"without dropout (a yardstick for the unmasked work only) {sdpa_bwd:.4f} ms; "
               f"{card}")
-        del qkv, att, lse, datt, mask, mask8, got, old, delta
+        del qkv, att, lse, datt, mask, got
 
 
 def _masked_attention_fwd_case(card: str, b: int, n: int, h: int, dh: int,
@@ -3293,11 +3320,14 @@ def _plain_notebook():
     return stack
 
 
-def _notebook_run(card: str, label: str, cfg, batch: int, timed: bool = False) -> dict:
+def _notebook_run(card: str, label: str, cfg, batch: int, timed: bool = False,
+                  streamed: bool = False) -> dict:
     """Train ``build_model(cfg)`` 4 steps at ``batch`` with the Trainer
     (mixing, dropout), evaluate it and serve it; the launch counts of its
-    main path equal layers x steps (#5/#6), layers x eval batches and
-    served forwards (#7), steps + eval and served forwards (#14, fused).
+    main path equal layers x steps (#5/#6; with ``streamed`` #6 on the
+    streamed form, csrc/attention_bwd_stream_sm90.cu), layers x eval
+    batches and served forwards (#7), steps + eval and served forwards
+    (#14, fused).
     One step's gradients and the served logits against the plain
     versions; with ``timed``, the train step timed against the plain
     versions' in turns and profiled.  Returns the counts."""
@@ -3316,12 +3346,13 @@ def _notebook_run(card: str, label: str, cfg, batch: int, timed: bool = False) -
     before = [p.detach().clone() for p in model.parameters()]
     t0 = time.perf_counter()
     _reset_notebook_counts()
+    _reset_stream_counts()
     record = trainer.fit(
         lambda: ((tf(x), y) for x, y in epoch_batches(train_ds, batch, seed=0)),
         lambda: ((tf(x), y) for x, y in epoch_batches(
             test_ds, batch, shuffle=False, drop_last=False)))
     torch.cuda.synchronize()
-    counts = _notebook_counts()
+    counts = {**_notebook_counts(), **_stream_counts()}
     print(f"{label}: Trainer.fit, {steps} steps at batch {batch} + eval of {len(test_ds)} "
           f"({time.perf_counter() - t0:.1f} s): {record}")
     _check(bool(np.isfinite(record["train_loss"])) and bool(np.isfinite(record["test_loss"])),
@@ -3334,6 +3365,7 @@ def _notebook_run(card: str, label: str, cfg, batch: int, timed: bool = False) -
                  "packed_flash_attention" + suffix: layers,
                  "gather_project" + suffix: (steps + 1) if fused else 0,
                  "colsum": 2 * layers * steps})
+    want.update(_stream_want(layers if streamed else 0, True, steps))
     print(f"{label}: launches over {steps} steps + 1 eval batch of {layers} layers: {counts}")
     _check(counts == want, f"{label}: launches {counts}, expected {want}")
     still = [nm for (nm, p), q in zip(model.named_parameters(), before) if torch.equal(p, q)]
@@ -3402,8 +3434,9 @@ def _notebook_run(card: str, label: str, cfg, batch: int, timed: bool = False) -
     requests = [rng.standard_normal((k, cfg.img_size, cfg.img_size, 3), dtype=np.float32)
                 for k in reqs]
     _reset_notebook_counts()
+    _reset_stream_counts()
     outs = [engine.predict(r) for r in requests]
-    served = _notebook_counts()
+    served = {**_notebook_counts(), **_stream_counts()}
     forwards = sum(-(-k // sizes[-1]) for k in reqs)
     want = {name: 0 for name in served}
     want.update({"packed_flash_attention" + suffix: layers * forwards,
@@ -3445,8 +3478,11 @@ def phase_notebook(card: str) -> dict:
              ("notebook 1-D patch 4 bf16, fused",
               preset_config("notebook", tokenizer="1d", fused=True, dtype="bfloat16"), FA_B)]
     timed = ("notebook fp32, hilbert", "notebook bf16, fused")
+    # 256 tokens with the mask: #6 past the resident form's 192, streamed
+    streamed = ("notebook 1-D patch 4 bf16, fused",)
     for label, cfg, batch in runs:
-        for name, count in _notebook_run(card, label, cfg, batch, label in timed).items():
+        for name, count in _notebook_run(card, label, cfg, batch, label in timed,
+                                         label in streamed).items():
             total[name] = total.get(name, 0) + count
     print(f"notebook phase: {time.perf_counter() - t0:.1f} s")
     return total
@@ -3993,10 +4029,37 @@ def phase_head_dim_kernels(card: str) -> dict:
     return {f"{e}{sfx}": dims for e in HD_ENTRIES for sfx in ("", "_f32")}
 
 
-def _hd_model(card: str, label: str, cfg, batch: int, layers: int, family_a: bool) -> dict:
+#: The streamed form's launch counters (csrc/attention_bwd_stream_sm90.cu),
+#: by kernel-line entry: #4's without the mask, #6's with it.
+_STREAM_COUNTS = (("attention_bwd_streamed", "streamed"),
+                  ("attention_bwd_streamed_masked", "streamed_masked"))
+
+
+def _stream_counts() -> dict:
+    return {name: getattr(_build.attention_bwd, attr) for name, attr in _STREAM_COUNTS}
+
+
+def _reset_stream_counts() -> None:
+    for _, attr in _STREAM_COUNTS:
+        setattr(_build.attention_bwd, attr, 0)
+
+
+def _stream_want(streamed: int, family_a: bool, steps: int) -> dict:
+    """The streamed form's launches over ``steps`` train steps of a model
+    with ``streamed`` layers past the resident form's limits: #6's (with
+    the dropout mask) in family A, #4's in family B."""
+    want = {name: 0 for name, _ in _STREAM_COUNTS}
+    want[_STREAM_COUNTS[bool(family_a)][0]] = streamed * steps
+    return want
+
+
+def _hd_model(card: str, label: str, cfg, batch: int, layers: int, family_a: bool,
+              steps: int = HD_STEPS, streamed: int = 0) -> dict:
     """(b) One model at a head dim past 64 and 192: ``Trainer.fit`` for
-    HD_STEPS steps at ``batch`` plus an eval batch, finite losses and the
-    kernels' launch counts (layers x steps in training, layers a forward);
+    ``steps`` steps at ``batch`` plus an eval batch, finite losses and the
+    kernels' launch counts (layers x steps in training, layers a forward;
+    the streamed form of the attention backward, ``streamed`` of the
+    layers x steps);
     one step's gradients (mixing, and family A's dropout, the same draws)
     against the plain path (GRAD_REL_TOL in bf16, F32_GRAD_REL_TOL in
     fp32); ``ServingEngine`` answers 1 and ``batch`` images, launches
@@ -4011,33 +4074,36 @@ def _hd_model(card: str, label: str, cfg, batch: int, layers: int, family_a: boo
     grad_tol, logit_tol = (F32_GRAD_REL_TOL, F32_TOL) if f32 else (GRAD_REL_TOL, FA_LOGIT_TOL)
     model = build_model(cfg, generator=torch.Generator().manual_seed(0))
     stats = ((0.5,) * 3, (0.25,) * 3)
-    train_ds = synthetic_dataset(n=batch * HD_STEPS, hw=cfg.img_size,
+    train_ds = synthetic_dataset(n=batch * steps, hw=cfg.img_size,
                                  num_classes=cfg.num_classes, seed=0)
     test_ds = synthetic_dataset(n=batch, hw=cfg.img_size, num_classes=cfg.num_classes, seed=1)
     tf = make_eval_transform(*stats, device=DEVICE)
     trainer = Trainer(model, TrainConfig(num_classes=cfg.num_classes, epochs=1,
-                                         warmup_epochs=1), steps_per_epoch=HD_STEPS)
+                                         warmup_epochs=1), steps_per_epoch=steps)
     reset()
+    _reset_stream_counts()
     record = trainer.fit(
         lambda: ((tf(x), y) for x, y in epoch_batches(train_ds, batch, seed=0)),
         lambda: ((tf(x), y) for x, y in epoch_batches(
             test_ds, batch, shuffle=False, drop_last=False)))
     torch.cuda.synchronize()
-    trained = counts()
+    trained = {**counts(), **_stream_counts()}
     _check(bool(np.isfinite(record["train_loss"])) and bool(np.isfinite(record["test_loss"])),
            f"{label}: non-finite loss")
-    _check(trainer.state.step == HD_STEPS, f"{label}: {trainer.state.step} steps taken")
-    steps = layers * HD_STEPS
+    _check(trainer.state.step == steps, f"{label}: {trainer.state.step} steps taken")
+    layer_steps = layers * steps
     want = {name: 0 for name in trained}
     if family_a:
-        want.update({f"fused_torch_mha{sfx}": steps, f"fused_torch_mha_bwd{sfx}": steps,
+        want.update({f"fused_torch_mha{sfx}": layer_steps,
+                     f"fused_torch_mha_bwd{sfx}": layer_steps,
                      f"packed_flash_attention{sfx}": layers})
     else:
-        want.update({f"{blk}{sfx}": steps + layers for blk in ("fused_attention_block",
-                                                              "fused_mlp_block")})
-        want.update({f"{blk}_bwd{sfx}": steps for blk in ("fused_attention_block",
-                                                         "fused_mlp_block")})
-    print(f"{label}: Trainer.fit, {HD_STEPS} steps at batch {batch} + eval of {len(test_ds)}: "
+        want.update({f"{blk}{sfx}": layer_steps + layers for blk in ("fused_attention_block",
+                                                                    "fused_mlp_block")})
+        want.update({f"{blk}_bwd{sfx}": layer_steps for blk in ("fused_attention_block",
+                                                               "fused_mlp_block")})
+    want.update(_stream_want(streamed, family_a, steps))
+    print(f"{label}: Trainer.fit, {steps} steps at batch {batch} + eval of {len(test_ds)}: "
           f"{record}; launches {trained}")
     _check(trained == want, f"{label}: launches {trained}, expected {want}")
 
@@ -4058,7 +4124,8 @@ def _hd_model(card: str, label: str, cfg, batch: int, layers: int, family_a: boo
     worst = max(rel, key=rel.get)
     print(f"{label}: one train step, kernels vs plain path: loss {float(m_k['loss']):.6f} vs "
           f"{float(m_p['loss']):.6f}; gradient relative L2 error max {rel[worst]:.4g} "
-          f"({worst}) over {len(rel)} tensors (tolerance {grad_tol})")
+          f"({worst}), median {float(np.median(list(rel.values()))):.4g} over {len(rel)} "
+          f"tensors (tolerance {grad_tol})")
     _check(rel[worst] <= grad_tol, f"{label}: kernel-path gradients disagree with the plain "
            "path")
     del grads, state, data
@@ -4069,8 +4136,10 @@ def _hd_model(card: str, label: str, cfg, batch: int, layers: int, family_a: boo
     requests = [rng.standard_normal((k, cfg.img_size, cfg.img_size, 3), dtype=np.float32)
                 for k in (1, batch)]
     reset()
+    _reset_stream_counts()
     outs = np.concatenate([engine.predict(r) for r in requests])
-    served = counts()
+    served = {**counts(), **_stream_counts()}
+    _check(not any(_stream_counts().values()), f"{label}: a served forward ran a backward")
     name = f"packed_flash_attention{sfx}" if family_a else f"fused_attention_block{sfx}"
     _check(served[name] == 2 * layers, f"{label}: served launches {served}")
     with plain_path():
@@ -4094,20 +4163,21 @@ def phase_head_dim_models(card: str) -> dict:
     128 at batch 256 in bf16 and at its own fp32.  Returns the summed
     launch counts."""
     runs = [(f"flagship, {k} heads of {768 // k}, bf16",
-             preset_config("flagship", n_heads=k, depth=2, dtype="bfloat16"), FA_B, 2, True)
-            for k in (6, 8, 3, 16)]
+             preset_config("flagship", n_heads=k, depth=2, dtype="bfloat16"), FA_B, 2, True,
+             2 if k == 3 else 0) for k in (6, 8, 3, 16)]
     runs.append(("flagship, 6 heads of 128, fp32", preset_config("flagship", n_heads=6, depth=2),
-                 FA_B, 2, True))
+                 FA_B, 2, True, 0))
     runs += [(f"hier, {k} heads of {256 // k}, bf16",
               preset_config("flagship", model="hier", n_heads=k, depth=1, dtype="bfloat16"),
-              FA_B, 3 + 2, True) for k in (2, 8)]
+              FA_B, 3 + 2, True, 2 if k == 2 else 0) for k in (2, 8)]
     runs += [(f"ViT-B/16, 6 heads of 128, {tag}",
               preset_config("vit-b-16", curve="hilbert", num_classes=1000, n_heads=6,
-                            dim_head=128, depth=2, **dt), TRAIN_B, 2, False)
-             for tag, dt in (("bf16", dict(dtype="bfloat16")), ("fp32", {}))]
+                            dim_head=128, depth=2, **dt), TRAIN_B, 2, False, streamed)
+             for tag, dt, streamed in (("bf16", dict(dtype="bfloat16"), 2), ("fp32", {}, 0))]
     total: dict = {}
-    for label, cfg, batch, layers, family_a in runs:
-        for k, v in _hd_model(card, label, cfg, batch, layers, family_a).items():
+    for label, cfg, batch, layers, family_a, streamed in runs:
+        for k, v in _hd_model(card, label, cfg, batch, layers, family_a,
+                              streamed=streamed).items():
             total[k] = total.get(k, 0) + v
     return total
 
@@ -4666,6 +4736,101 @@ def phase_wide_models(card: str) -> dict:
     return total
 
 
+# -- 20. #4's and #6's attention backward past the resident form's limits -----
+
+#: (label, b, n, heads, dh, masked): the streamed form's shapes (every one
+#: past ATTENTION_BWD_SM90_LIMITS): 'hier''s fusion layers at 2 heads and
+#: the flagship at 3 (#6 with the mask, and #4 at the same shape), the
+#: notebook's 1-D tokenizer at patch 4 and at patch 1 over 32 x 32 px
+#: (#6), ViT-B/16 at 384 px and at 6 heads of 128 (#4).
+STREAM_CASES = (("'hier' fusion, 2 heads", 512, 192, 2, 128, True),
+                ("'hier' fusion, 2 heads", 512, 192, 2, 128, False),
+                ("flagship, 3 heads", 512, 64, 3, 256, True),
+                ("flagship, 3 heads", 512, 64, 3, 256, False),
+                ("1-D tokenizer, patch 4", 512, 256, 4, 64, True),
+                ("1-D tokenizer, patch 1", NB_B, 1024, 4, 64, True),
+                ("ViT-B/16 at 384 px", 64, 576, 12, 64, False),
+                ("ViT-B/16, 6 heads of 128", TRAIN_B, 196, 6, 128, False))
+#: The kernel-line entries and the row of STREAM_CASES each one's numbers
+#: come from (the others are listed in its ``cases``).
+STREAM_ENTRIES = {"attention_bwd_streamed": 6, "attention_bwd_streamed_masked": 0}
+STREAM_STEPS = 4
+
+
+def phase_stream_kernels(card: str) -> dict:
+    """(a) The streamed form of #4's and #6's attention backward
+    (csrc/attention_bwd_stream_sm90.cu) alone at STREAM_CASES, through
+    ``_build.attention_bwd`` (its route there): against ``attention_bwd_ref``
+    within BWD_TOL of the largest |value| and bit for bit on a second call,
+    timed in turns with the plain version, beside SDPA's bf16 autograd
+    backward on contiguous [B, H, N, Dh] q, k, v without the mask (a
+    yardstick of the unmasked work) and the bound (10 B H N^2 Dh
+    operations; qkv, att, datt, lse and the mask read, dqkv written).
+    Returns the two kernel-line entries' numbers."""
+    gen = torch.Generator().manual_seed(24)
+    rows = []
+    for label, b, n, h, dh, masked in STREAM_CASES:
+        _check(_build.attention_bwd_route(dh, n, masked) == "streamed",
+               f"{label}: [{b}, {n}, {h} x {dh}] is not on the streamed form")
+        s = dh ** -0.5
+        qkv = _randn(gen, b, n, 3 * h * dh)
+        datt = _randn(gen, b, n, h * dh)
+        mask = torch.rand(b, h, n, n, generator=gen).lt(FA_KEEP).to(DEVICE) if masked else None
+        kw = dict(mask=mask, keep=FA_KEEP) if masked else {}
+        att, lse = attention_fwd_ref(qkv, h, n, s, **kw)
+
+        def kern():
+            return _build.attention_bwd(qkv, att, datt, lse, h, n, s, **kw)
+
+        def plain():
+            return attention_bwd_ref(qkv, att, datt, lse, h, n, s, **kw)
+        shape = f"[{b}, {n}, {h} x {dh}]{' with the mask' if masked else ''}"
+        got = kern()
+        err = _frac_err(f"streamed backward, {label} {shape}", got, plain(), BWD_TOL)
+        _check(torch.equal(got, kern()), f"{label} {shape}: not bit for bit on a second call")
+        ms, plain_ms = _ab_ms(kern, plain, iters=10)
+        q, k, v = qkv.view(b, n, 3, h, dh).unbind(2)
+        _, sdpa_ms = _sdpa_ms(q, k, v, datt.view(b, n, h, dh))
+        flops = 10 * b * h * n * n * dh
+        nbytes = 2 * b * n * h * dh * (3 + 2 + 3) + 4 * b * h * n + (b * h * n * n if masked
+                                                                       else 0)
+        bound = _bound(flops, nbytes)
+        print(f"streamed backward: {label} {shape}: kernel {ms:.4f} ms, plain (attention_bwd_ref) "
+              f"{plain_ms:.4f} ms, SDPA backward{' without the mask' if masked else ''} "
+              f"{sdpa_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), {bound['bound_ms'] / ms:.1%} "
+              f"of it, max abs err {err:.4g}; {card}")
+        rows.append(dict(label=label, shape=[b, n, h, dh], masked=masked, ms=ms,
+                         plain_ms=plain_ms, library_ms=sdpa_ms, max_abs_err=err, **bound))
+        del qkv, datt, mask, att, lse, got, q, k, v
+        torch.cuda.empty_cache()
+    return {name: dict(rows[i], cases=[r for r in rows if r["masked"] == rows[i]["masked"]])
+            for name, i in STREAM_ENTRIES.items()}
+
+
+def phase_stream_models(card: str) -> dict:
+    """(b) The models whose every attention backward is on the streamed
+    form, in bf16 at full depth: the notebook's 1-D tokenizer at patch 1
+    over 32 x 32 px (1,024 tokens, JAX's longest #6 row; batch 32, dropout
+    0.1: #5 in two passes, #6 streamed) and ViT-B/16 at 384 px, the
+    published fine-tuning resolution (576 tokens; batch 64: #1 in two
+    passes, #4 streamed), each STREAM_STEPS steps of ``Trainer.fit``, an
+    eval batch and ``ServingEngine``, launch counts = layers x steps (the
+    streamed form's too) or forwards, one step's gradients and the served
+    logits against the plain path.  Returns the summed launch counts."""
+    runs = (("notebook 1-D patch 1 over 32 x 32 px, bf16",
+             preset_config("notebook", tokenizer="1d", patch_size=1, dtype="bfloat16"),
+             NB_B, True),
+            ("ViT-B/16 at 384 px, bf16", preset_config("vit-b-16", img_size=384,
+                                                       dtype="bfloat16"), 64, False))
+    total: dict = {}
+    for label, cfg, batch, family_a in runs:
+        for k, v in _hd_model(card, label, cfg, batch, cfg.depth, family_a, steps=STREAM_STEPS,
+                              streamed=cfg.depth).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def _plain_forward(model, x):
     """``model(x)`` through the plain blocks (a timing yardstick)."""
     def run():
@@ -4717,6 +4882,8 @@ def main() -> int:
     add(_timed(phase_flash_f32_models, card))
     wide = _timed(phase_wide_kernels, card)
     add(_timed(phase_wide_models, card))
+    kernels.update(_timed(phase_stream_kernels, card))
+    add(_timed(phase_stream_models, card))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "sfc_vit_tpu"))
     _check(not leaked, f"the port imported {leaked}")
@@ -4738,6 +4905,12 @@ def main() -> int:
              replaces="sfc_vit_tpu/ops/fused_torch_attention.py:82"),
         dict(name="fused_torch_mha_bwd", route="cuda",
              source="sfc_vit_tpu_torch/csrc/attention_bwd_sm90.cu",
+             replaces="sfc_vit_tpu/ops/fused_torch_attention.py:270"),
+        dict(name="attention_bwd_streamed", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/attention_bwd_stream_sm90.cu",
+             replaces="sfc_vit_tpu/ops/fused_attention_block.py:333"),
+        dict(name="attention_bwd_streamed_masked", route="cuda",
+             source="sfc_vit_tpu_torch/csrc/attention_bwd_stream_sm90.cu",
              replaces="sfc_vit_tpu/ops/fused_torch_attention.py:270"),
         dict(name="packed_flash_attention", route="cuda",
              source="sfc_vit_tpu_torch/csrc/packed_attn_sm90.cu",

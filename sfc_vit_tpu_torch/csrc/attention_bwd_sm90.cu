@@ -5,22 +5,22 @@
 // dim 192 at up to 64 tokens, with the 0/1 mask and keep), and at every
 // head dim Dh that is a multiple of 16 up to 192: C = ceil(Dh / 64)
 // sub-heads of 64 columns, one 64-row tile from C = 2 (ATTENTION_BWD_SM90_
-// LIMITS in ops/_build.py; Dh 208 to 256 would need 256 KB and go to
-// attention_bwd.cu).
+// LIMITS in ops/_build.py; Dh 208 to 256 would need 256 KB).  Longer rows
+// and Dh 208 to 256 run on its streamed form,
+// csrc/attention_bwd_stream_sm90.cu, the same formula.
 //
 // Replaces: the per-(image, head) loops of
 // sfc_vit_tpu/ops/fused_attention_block.py::_attn_block_bwd_kernel (lines
 // 423-496) on the path the TPU trains with (with_acts + with_lse: the
 // forward saved qkv, att and the log-sum-exp), and, with the mask, of
 // sfc_vit_tpu/ops/fused_torch_attention.py::_torch_mha_bwd_kernel (lines
-// 331-378), where csrc/attention_bwd.cu ran each as two WMMA kernels with
-// a delta scratch in global memory.  It reads q, k and v from qkv
+// 331-378).  It reads q, k and v from qkv
 // [B, N, 3*H*Dh] at columns h*Dh, (H + h)*Dh and (2H + h)*Dh, da from
 // datt [B, N, H*Dh] (= bf16(gp . W_out^T)), the forward's att [B, N, H*Dh]
 // and lse [B, H, N] (and the mask [B, H, N, N]), and writes dq, dk and dv
 // into the packed dqkv at the same columns.
 //
-// The TPU kernels' rounding points (attention_bwd.cu's).  Without dropout
+// The TPU kernels' rounding points.  Without dropout
 // (#4): pn = bf16(exp(s * scale - lse)), keys at or past n_valid giving 0;
 // dpn = da . v^T in fp32; ds = bf16(pn * (dpn - delta) * scale);
 // dv = pn^T . da.  With the mask and keep (#6): pf = exp(s * scale - lse)

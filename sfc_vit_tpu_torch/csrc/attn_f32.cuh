@@ -62,14 +62,7 @@ struct Smem {
 template <int NS>
 constexpr int kSmemBytes = sizeof(Smem<NS>) + 1024;  // + the 1,024-byte alignment
 
-// The thread's index, read afresh at each use: the addresses derived from
-// it are then recomputed where they are needed, not held in registers
-// beside the accumulators across a kernel's loops.
-__device__ __forceinline__ int fresh_tid() {
-  int t;
-  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
-  return t;
-}
+using hw::fresh_tid;
 
 // Byte offset of element (row, col) of a sub-block (col < 64).
 __device__ __forceinline__ int sub_at(int row, int col) {

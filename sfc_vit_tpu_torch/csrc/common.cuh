@@ -32,6 +32,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(n));
 }
 
+// The same for 4 bytes (the .ca form: 4 and 8 bytes may not bypass L1).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(pred ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

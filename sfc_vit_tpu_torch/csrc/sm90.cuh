@@ -1031,6 +1031,15 @@ __device__ __forceinline__ void bar_wait_cluster(uint64_t* bar, uint32_t parity)
   } while (!done);
 }
 
+// The thread's index, read afresh at each use: the addresses derived from
+// it are then recomputed where they are needed, not held in registers
+// beside the accumulators across a kernel's loops.
+__device__ __forceinline__ int fresh_tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
+
 // 2^x (ex2.approx: ~2 ulp; 2^-inf = 0).
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;

@@ -23,7 +23,7 @@ TF32 products, with ``gemm``'s epilogues, and the activation of every
 chain in float32), ``attention_fwd`` (on
 ``csrc/packed_attn_sm90.cu``, with or without a dropout mask, or in fp32
 on ``csrc/packed_attn_f32.cu``), ``attention_bwd`` (on
-``csrc/attention_bwd_sm90.cu`` or ``csrc/attention_bwd.cu``, in fp32 on
+``csrc/attention_bwd_sm90.cu`` or ``csrc/attention_bwd_stream_sm90.cu``, in fp32 on
 ``csrc/attention_bwd_f32.cu``),
 ``flash_fwd``, ``flash_fused_bwd``, ``flash_dq``,
 ``flash_dkv``, ``local_fwd`` (on the windowed instance of ``flash_fwd``'s
@@ -58,7 +58,8 @@ __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "attention_bwd_route",
            "ATTENTION_BWD_SM90_MAX_N", "ATTENTION_BWD_SM90_MAX_N_DROPOUT",
            "ATTENTION_BWD_SM90_MAX_N_DH192", "ATTENTION_BWD_SM90_LIMITS",
-           "ATTENTION_BWD_SM90_FORMS", "gemm_layernorm", "gemm_layernorm_fits",
+           "ATTENTION_BWD_SM90_FORMS", "ATTENTION_BWD_STREAM_FORMS", "gemm_layernorm",
+           "gemm_layernorm_fits",
            "gemm_layernorm_max_clusters",
            "GEMM_LN_MAX_CLUSTER",
            "act_bf16", "act_f32", "colsum", "colsum_plan", "ColsumPlan",
@@ -123,8 +124,9 @@ _SIGNATURES = {
     "sfc_attention_bwd_f32": (_P,) * 7 + (_I,) * 5 + (_F, _F, _P),
     # x, lut, w, bias, out; batch, n, k, m, group, d; stream
     "sfc_gather_project_f32": (_P,) * 5 + (_I,) * 6 + (_P,),
-    "sfc_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _F, _F, _P),
+    # qkv, att, datt, lse, mask, delta, dqkv; batch, n, heads, dh, n_valid;
+    # scale, keep, stream
+    "sfc_attention_bwd_stream_bf16": (_P,) * 7 + (_I,) * 5 + (_F, _F, _P),
     # qkv, att, datt, lse, mask, dqkv; batch, n, heads, dh, n_valid; scale,
     # keep, stream
     "sfc_attention_bwd_sm90_bf16": (_P,) * 6 + (_I,) * 5 + (_F, _F, _P),
@@ -171,6 +173,8 @@ _SIGNATURES = {
     # form, out[3] | out[3]
     "sfc_gemm_attrs": (_I, _P),
     "sfc_attention_bwd_sm90_attrs": (_I, _P),
+    # sub-heads, masked, dk/dv kernel, out
+    "sfc_attention_bwd_stream_attrs": (_I, _I, _I, _P),
     "sfc_gather_project_attrs": (_I, _P),
     # form, out[3] | dh, one-pass key columns, masked, out[3] | dh, masked,
     # dkv, out[3] | out[3]
@@ -248,12 +252,21 @@ ATTENTION_BWD_SM90_LIMITS = {
     (2, False): ATTENTION_BWD_SM90_MAX_N_DH192, (2, True): ATTENTION_BWD_SM90_MAX_N_DH192,
     (3, False): ATTENTION_BWD_SM90_MAX_N_DH192, (3, True): ATTENTION_BWD_SM90_MAX_N_DH192,
 }
-#: The names of ``csrc/attention_bwd_sm90.cu``'s instances by
-#: ``sfc_attention_bwd_sm90_attrs``'s form number.
+#: The instances of ``csrc/attention_bwd_stream_sm90.cu`` (every shape
+#: past :data:`ATTENTION_BWD_SM90_LIMITS`), a dq and a dk/dv kernel for
+#: each number of sub-heads, with the mask and without: name -> (sub-heads,
+#: masked, dk/dv kernel), ``sfc_attention_bwd_stream_attrs``'s arguments.
+ATTENTION_BWD_STREAM_FORMS = {
+    f"attention_bwd_stream {part} dh{64 * c}{' dropout' if masked else ''}": (c, masked, dkv)
+    for c in (1, 2, 3, 4) for masked in (0, 1) for dkv, part in enumerate(("dq", "dkv"))}
+#: The names of the attention backward's bf16 instances:
+#: ``csrc/attention_bwd_sm90.cu``'s by ``sfc_attention_bwd_sm90_attrs``'s
+#: form number (its first seven), then :data:`ATTENTION_BWD_STREAM_FORMS`.
 ATTENTION_BWD_SM90_FORMS = ("attention_bwd_sm90", "attention_bwd_sm90 dh64 dropout one tile",
                             "attention_bwd_sm90 dh64 dropout", "attention_bwd_sm90 dh192",
                             "attention_bwd_sm90 dh192 dropout", "attention_bwd_sm90 dh128",
-                            "attention_bwd_sm90 dh128 dropout")
+                            "attention_bwd_sm90 dh128 dropout", *ATTENTION_BWD_STREAM_FORMS)
+_ATTENTION_BWD_RESIDENT_FORMS = 7
 #: The GEMM's output tile and K block (``csrc/gemm_bf16.cu``'s BM, BN, BK).
 GEMM_TILE_M, GEMM_TILE_N, GEMM_BLOCK_K = 128, 128, 64
 #: Bounds of :func:`gemm_splits`: at most this many K ranges, each at least
@@ -1053,13 +1066,15 @@ def attention_fwd_f32_form(qkv: torch.Tensor, heads: int, n_valid: int, scale: f
 
 
 def attention_bwd_route(dh: int, n: int, dropout: bool) -> str:
-    """Which kernel :func:`attention_bwd` runs: ``"sm90"``
-    (``csrc/attention_bwd_sm90.cu``) up to the length
-    :data:`ATTENTION_BWD_SM90_LIMITS` gives the (sub-heads, dropout) pair
-    of the head dim, else ``"wmma"`` (``csrc/attention_bwd.cu``, which takes
-    every head dim and length).  Both compute the same formula."""
+    """Which form :func:`attention_bwd` runs in bf16: ``"sm90"``, the
+    resident form (``csrc/attention_bwd_sm90.cu``: a whole (image, head) in
+    one block), up to the length :data:`ATTENTION_BWD_SM90_LIMITS` gives
+    the (sub-heads, dropout) pair of the head dim, else ``"streamed"``
+    (``csrc/attention_bwd_stream_sm90.cu``: a dq and a dk/dv kernel over
+    64-row tiles, every head dim and length).  Both compute the same
+    formula."""
     limit = ATTENTION_BWD_SM90_LIMITS.get((attention_subheads(dh), bool(dropout)), 0)
-    return "sm90" if n <= limit else "wmma"
+    return "sm90" if n <= limit else "streamed"
 
 
 def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
@@ -1070,7 +1085,9 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
     :func:`attention_fwd` from its saved ``qkv``, output ``att``, fp32
     ``lse`` [B, H, N], the output's cotangent ``datt`` [B, N, H*Dh] and,
     for the dropout form, the forward's ``mask`` and ``keep``: bf16 on the
-    kernel :func:`attention_bwd_route` names, fp32 (the same dtype for
+    form :func:`attention_bwd_route` names (``attention_bwd.streamed`` and
+    ``.streamed_masked`` count the streamed form's launches without and
+    with the mask), fp32 (the same dtype for
     ``att`` and ``datt``; #6's dropout form, or #4's without a mask) on
     ``csrc/attention_bwd_f32.cu``'s two kernels (dq, then dk and dv; 3xTF32
     on ``wgmma``)."""
@@ -1098,11 +1115,19 @@ def attention_bwd(qkv: torch.Tensor, att: torch.Tensor, datt: torch.Tensor,
             _stream()), "attention_bwd")
         return dqkv
     delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)
-    _check(library().sfc_attention_bwd_bf16(
+    _check(library().sfc_attention_bwd_stream_bf16(
         qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(),
         _ptr(mask), delta.data_ptr(), dqkv.data_ptr(), b, n, heads, dh,
         n_valid, scale, keep, _stream()), "attention_bwd")
+    if mask is None:
+        attention_bwd.streamed += 1
+    else:
+        attention_bwd.streamed_masked += 1
     return dqkv
+
+
+attention_bwd.streamed = 0
+attention_bwd.streamed_masked = 0
 
 
 def _require_bnhd(t: torch.Tensor, name: str, shape, dtype=torch.bfloat16) -> None:
@@ -1630,7 +1655,10 @@ def flash_kernel_attrs() -> dict:
             *((f"gemm {form}", lambda a, i=i: lib.sfc_gemm_attrs(i, a))
               for i, form in enumerate(GEMM_FORMS)),
             *((name, lambda a, i=i: lib.sfc_attention_bwd_sm90_attrs(i, a))
-              for i, name in enumerate(ATTENTION_BWD_SM90_FORMS)),
+              for i, name in enumerate(
+                  ATTENTION_BWD_SM90_FORMS[:_ATTENTION_BWD_RESIDENT_FORMS])),
+            *((name, lambda a, c=c, m=m, k=k: lib.sfc_attention_bwd_stream_attrs(c, m, k, a))
+              for name, (c, m, k) in ATTENTION_BWD_STREAM_FORMS.items()),
             *((name, call) for name, call in _f32_attr_calls(lib).items())):
         vals = (ctypes.c_int * 3)()
         _check(call(ctypes.cast(vals, ctypes.c_void_p)), f"attributes of {name}")

@@ -25,10 +25,10 @@ projection, +x in fp32, one round).  Training saves qkv, att and lse, as
 
 Backward (the TPU's ``with_acts`` + ``with_lse`` path): ``ln_rows``
 (recompute xn) -> ``gemm`` NT (datt = gp W_out^T) -> ``attention_bwd``
-(packed dqkv; one block per (image, head) up to 256 tokens, else
-``csrc/attention_bwd.cu``) -> ``gemm`` TN (dW_out = att^T gp) -> ``gemm``
-NT (dxn = dqkv W_qkv^T, fp32) -> ``gemm`` TN (dW_qkv = xn^T dqkv) ->
-``ln_rows_bwd`` (dx = LN backward + g, dLN).
+(packed dqkv; one block per (image, head) up to 256 tokens, else the
+streamed ``csrc/attention_bwd_stream_sm90.cu``) -> ``gemm`` TN (dW_out =
+att^T gp) -> ``gemm`` NT (dxn = dqkv W_qkv^T, fp32) -> ``gemm`` TN (dW_qkv
+= xn^T dqkv) -> ``ln_rows_bwd`` (dx = LN backward + g, dLN).
 
 No biases: the pre-norm family's to_qkv/to_out are bias-free.
 
@@ -115,10 +115,10 @@ def attention_fwd_ref(qkv: torch.Tensor, heads: int, n_valid: int,
 def attention_bwd_ref(qkv, att, datt, lse, heads: int, n_valid: int,
                       scale: float, mask: Optional[torch.Tensor] = None,
                       keep: float = 1.0) -> torch.Tensor:
-    """Plain version of ``csrc/attention_bwd_sm90.cu`` and
-    ``csrc/attention_bwd.cu``: the packed ``dqkv`` from the saved ``qkv``,
-    ``att``, fp32 ``lse`` [B, H, N] and the cotangent ``datt`` of ``att``,
-    with the TPU kernels' rounding points, fp32 sums.
+    """Plain version of ``csrc/attention_bwd_sm90.cu`` and its streamed
+    form ``csrc/attention_bwd_stream_sm90.cu``: the packed ``dqkv`` from
+    the saved ``qkv``, ``att``, fp32 ``lse`` [B, H, N] and the cotangent
+    ``datt`` of ``att``, with the TPU kernels' rounding points, fp32 sums.
 
     Without ``mask`` (#4): ``pn = exp(s * scale - lse)`` and ``ds`` rounded
     to the input dtype.  With the 0/1 dropout ``mask`` [B, H, N, N] and

@@ -23,7 +23,8 @@ Backward (#6): ``colsum`` (db_out of gp, the cotangent with rows at or
 past ``n_actual`` zeroed) -> ``gemm`` TN (dW_out = att^T gp, one fp32 sum
 over all rows) -> ``gemm`` NT (datt = bf16(gp W_out^T)) ->
 ``attention_bwd`` with the mask (``csrc/attention_bwd_sm90.cu`` at both
-models' shapes: dq, dk, dv from the recomputed fp32 ``pf = exp(s - lse)``,
+models' shapes, ``csrc/attention_bwd_stream_sm90.cu`` past its limits: dq,
+dk, dv from the recomputed fp32 ``pf = exp(s - lse)``,
 ``pdf = (pf / keep) * mask``, ``dp = ((da v^T) / keep) * mask``, the flash
 delta ``rowsum(da * att_h)``, ``ds = bf16(pf (dp - delta) scale)``; its
 plain twin is ``attention_bwd_ref`` with the mask) -> ``colsum``

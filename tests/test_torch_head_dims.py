@@ -97,9 +97,9 @@ def test_check_packed_refuses_other_head_dims_naming_f5(dh):
                                    (128, 2), (144, 3), (192, 3), (208, 4), (256, 4)])
 def test_routes_key_on_subheads(dh, c):
     """The forward's one-pass limit, the fp32 forward's one-pass columns and
-    the backward's Hopper limit are those of the head dim's sub-heads: one
-    pass (or the Hopper kernel) up to the limit, two passes (or
-    csrc/attention_bwd.cu) one token past it."""
+    the backward's resident limit are those of the head dim's sub-heads:
+    one pass (or the resident form) up to the limit, two passes (or the
+    streamed form) one token past it."""
     assert _build.attention_subheads(dh) == c
     for masked in (False, True):
         limit = (_build.PACKED_ONE_PASS_MAX_N_MASKED if masked
@@ -112,7 +112,7 @@ def test_routes_key_on_subheads(dh, c):
         assert bwd == {1: 192 if masked else 256, 2: 64, 3: 64, 4: 0}[c]
         if bwd:
             assert _build.attention_bwd_route(dh, bwd, masked) == "sm90"
-        assert _build.attention_bwd_route(dh, bwd + 1, masked) == "wmma"
+        assert _build.attention_bwd_route(dh, bwd + 1, masked) == "streamed"
 
 
 def test_forms_tables_list_every_new_instance():

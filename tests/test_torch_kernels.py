@@ -255,22 +255,22 @@ def test_gemm_splits_only_the_weight_gradients(trans_b):
 
 @pytest.mark.parametrize("dh, n, dropout, route", [
     (64, 1, False, "sm90"), (64, 196, False, "sm90"), (64, 256, False, "sm90"),
-    (64, 257, False, "wmma"), (64, 196, True, "wmma"), (192, 64, False, "sm90"),
+    (64, 257, False, "streamed"), (64, 196, True, "streamed"), (192, 64, False, "sm90"),
     (64, 1, True, "sm90"), (64, 64, True, "sm90"), (64, 192, True, "sm90"),
-    (64, 193, True, "wmma"), (192, 1, False, "sm90"), (192, 65, False, "wmma"),
-    (192, 1, True, "sm90"), (192, 64, True, "sm90"), (192, 65, True, "wmma"),
-    (192, 1024, True, "wmma"), (32, 256, False, "sm90"), (48, 192, True, "sm90"),
-    (48, 193, True, "wmma"), (96, 64, True, "sm90"), (96, 65, False, "wmma"),
-    (128, 64, False, "sm90"), (128, 192, True, "wmma"), (160, 64, True, "sm90"),
-    (256, 1, False, "wmma"), (256, 64, True, "wmma"),
+    (64, 193, True, "streamed"), (192, 1, False, "sm90"), (192, 65, False, "streamed"),
+    (192, 1, True, "sm90"), (192, 64, True, "sm90"), (192, 65, True, "streamed"),
+    (192, 1024, True, "streamed"), (32, 256, False, "sm90"), (48, 192, True, "sm90"),
+    (48, 193, True, "streamed"), (96, 64, True, "sm90"), (96, 65, False, "streamed"),
+    (128, 64, False, "sm90"), (128, 192, True, "streamed"), (160, 64, True, "sm90"),
+    (256, 1, False, "streamed"), (256, 64, True, "streamed"),
 ])
 def test_attention_bwd_route(dh, n, dropout, route):
-    """Each (sub-heads, dropout) pair up to its named limit on
-    csrc/attention_bwd_sm90.cu (#4 at Dh up to 64 without dropout to 256
-    tokens; #6's masked forms there to 192 tokens and from Dh 80 to 192 at
-    one 64-row tile, which covers the flagship's and 'hier''s shapes);
-    longer rows, to family A's 1,024, and Dh 208 to 256 on
-    csrc/attention_bwd.cu."""
+    """Each (sub-heads, dropout) pair up to its named limit on the resident
+    form, csrc/attention_bwd_sm90.cu (#4 at Dh up to 64 without dropout to
+    256 tokens; #6's masked forms there to 192 tokens and from Dh 80 to 192
+    at one 64-row tile, which covers the flagship's and 'hier''s shapes);
+    longer rows, to family A's 1,024, and Dh 208 to 256 on the streamed
+    form, csrc/attention_bwd_stream_sm90.cu."""
     assert _build.ATTENTION_BWD_SM90_MAX_N == 256
     assert _build.ATTENTION_BWD_SM90_LIMITS == {
         (1, False): 256, (1, True): _build.ATTENTION_BWD_SM90_MAX_N_DROPOUT,
@@ -279,6 +279,20 @@ def test_attention_bwd_route(dh, n, dropout, route):
         (3, False): _build.ATTENTION_BWD_SM90_MAX_N_DH192,
         (3, True): _build.ATTENTION_BWD_SM90_MAX_N_DH192}
     assert _build.attention_bwd_route(dh, n, dropout) == route
+
+
+@pytest.mark.parametrize("dh", range(16, 257, 16))
+def test_attention_bwd_route_is_resident_or_streamed(dh):
+    """Every head dim the kernels take, at lengths on either side of each
+    limit and up to JAX's 1,024, with the mask and without: the resident
+    form up to ATTENTION_BWD_SM90_LIMITS, the streamed form past it, and
+    no third route."""
+    c = _build.attention_subheads(dh)
+    for dropout in (False, True):
+        limit = _build.ATTENTION_BWD_SM90_LIMITS.get((c, dropout), 0)
+        for n in (1, 64, 65, 192, 193, 256, 257, 576, 1024):
+            want = "sm90" if n <= limit else "streamed"
+            assert _build.attention_bwd_route(dh, n, dropout) == want, (dh, n, dropout)
 
 
 @pytest.mark.parametrize("dh, n_valid, masked, route", [
@@ -990,12 +1004,12 @@ def test_attention_bwd_sm90_masked_matches_plain(cuda, b, n, heads, dh, n_valid,
     (256, False, 64), (256, True, 65),
 ])
 def test_attention_bwd_routes_on_either_side_of_the_limit(cuda, dh, dropout, n):
-    """The same formula on both kernels: each (sub-heads, dropout) pair's
-    limit on the Hopper kernel, one token more on csrc/attention_bwd.cu
-    (Dh 256 always there), each held to attention_bwd_ref and to a second
-    call (bit for bit)."""
+    """The same formula on both forms: each (sub-heads, dropout) pair's
+    limit on the resident form, one token more on the streamed form
+    (csrc/attention_bwd_stream_sm90.cu; Dh 256 always there), each held to
+    attention_bwd_ref and to a second call (bit for bit)."""
     limit = _build.ATTENTION_BWD_SM90_LIMITS.get((_build.attention_subheads(dh), dropout), 0)
-    assert _build.attention_bwd_route(dh, n, dropout) == ("sm90" if n <= limit else "wmma")
+    assert _build.attention_bwd_route(dh, n, dropout) == ("sm90" if n <= limit else "streamed")
     qkv, att, datt, lse, mask, s = _attention_bwd_case(
         np.random.default_rng(54), 2, n, 2, dh, n - 3, dropout)
     got = _build.attention_bwd(qkv, att, datt, lse, 2, n - 3, s, mask=mask, keep=0.9)
@@ -1020,8 +1034,8 @@ def test_attention_never_writes_past_a_ragged_head(cuda, dtype, dh, n, dropout):
     writes into a buffer filled with a sentinel and one row longer than
     its output (the last head's ragged box would reach into it): the
     output equals the wrapper's, and the sentinel past it is untouched,
-    forward (out) and backward (dqkv, on the Hopper kernel and on
-    attention_bwd.cu)."""
+    forward (out) and backward (dqkv, on the resident form where the route
+    takes it and on the streamed form)."""
     rng = np.random.default_rng(71)
     b, heads = 3, 2
     qkv, att, datt, lse, mask, s = _attention_bwd_case(rng, b, n, heads, dh, n - 1, dropout)
@@ -1050,7 +1064,8 @@ def test_attention_never_writes_past_a_ragged_head(cuda, dtype, dh, n, dropout):
             _build._ptr(mask_u8))
     tail = (b, n, heads, dh, n - 1, s, 0.9, stream)
     calls = ([lambda d: lib.sfc_attention_bwd_f32(*args, delta.data_ptr(), d, *tail)] if f32
-             else [lambda d: lib.sfc_attention_bwd_bf16(*args, delta.data_ptr(), d, *tail)])
+             else [lambda d: lib.sfc_attention_bwd_stream_bf16(*args, delta.data_ptr(), d,
+                                                               *tail)])
     if not f32 and _build.attention_bwd_route(dh, n, dropout) == "sm90":
         calls.append(lambda d: lib.sfc_attention_bwd_sm90_bf16(*args, d, *tail))
     for call in calls:
@@ -1059,9 +1074,61 @@ def test_attention_never_writes_past_a_ragged_head(cuda, dtype, dh, n, dropout):
         torch.cuda.synchronize()
         if f32 or len(calls) == 1 or call is calls[1]:
             assert torch.equal(dqkv, want)
-        else:  # the WMMA kernel where the route picks the Hopper one
+        else:  # the streamed form where the route picks the resident one
             _within(dqkv, want, 2e-2, "dqkv")
         assert bool((flat[qkv.numel():] == sentinel).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, heads, dh, n_valid, dropout", [
+    (2, 1024, 2, 64, 1000, True), (2, 1024, 2, 64, 1000, False), (2, 300, 2, 256, 290, False),
+    (3, 193, 2, 128, 190, True),
+])
+def test_attention_bwd_stream_matches_plain(cuda, b, n, heads, dh, n_valid, dropout):
+    """The streamed form (csrc/attention_bwd_stream_sm90.cu) at JAX's
+    longest #6 row (1,024 tokens, mask by TMA), Dh 256 over five tiles with
+    a ragged last one, and Dh 128 at 193 tokens (the mask by plain loads),
+    keys past n_valid: against attention_bwd_ref within 2 % of its largest
+    |value| (#4 within one bf16 rounding), and bit for bit on a second
+    call; ``attention_bwd.streamed`` (``.streamed_masked`` with the mask)
+    counts each call."""
+    assert _build.attention_bwd_route(dh, n, dropout) == "streamed"
+    qkv, att, datt, lse, mask, s = _attention_bwd_case(
+        np.random.default_rng(56), b, n, heads, dh, n_valid, dropout)
+    counter = "streamed_masked" if dropout else "streamed"
+    before = getattr(_build.attention_bwd, counter)
+    got = _build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s, mask=mask, keep=0.9)
+    assert getattr(_build.attention_bwd, counter) == before + 1
+    want = attention_bwd_ref(qkv, att, datt, lse, heads, n_valid, s, mask=mask, keep=0.9)
+    if dropout:
+        _within(got, want, 2e-2, "dqkv")
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **ONE_ROUND_TOL)
+    assert torch.equal(got, _build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s,
+                                                 mask=mask, keep=0.9))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, n, heads, dh, n_valid, dropout", [
+    (4, 196, 4, 64, 196, False), (8, 64, 4, 192, 60, True), (8, 192, 4, 64, 192, True),
+])
+def test_attention_bwd_stream_agrees_with_resident(cuda, b, n, heads, dh, n_valid, dropout):
+    """Where the resident form takes the shape (ViT-B's 196 tokens, the
+    flagship's and 'hier''s masked rows), the streamed form called
+    directly gives the same dqkv within one bf16 rounding: one formula,
+    other orders of the fp32 sums."""
+    assert _build.attention_bwd_route(dh, n, dropout) == "sm90"
+    qkv, att, datt, lse, mask, s = _attention_bwd_case(
+        np.random.default_rng(57), b, n, heads, dh, n_valid, dropout)
+    resident = _build.attention_bwd(qkv, att, datt, lse, heads, n_valid, s, mask=mask, keep=0.9)
+    delta = torch.empty((b, heads, n), dtype=torch.float32, device=cuda)
+    streamed = torch.empty_like(qkv)
+    assert _build.library().sfc_attention_bwd_stream_bf16(
+        qkv.data_ptr(), att.data_ptr(), datt.data_ptr(), lse.data_ptr(),
+        _build._ptr(_build._mask_u8(mask)), delta.data_ptr(), streamed.data_ptr(), b, n, heads,
+        dh, n_valid, s, 0.9, _build._stream()) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(streamed.float(), resident.float(), **ONE_ROUND_TOL)
 
 
 #: The F5 guard: the flagship at 6 and 8 heads (Dh 128, 96 at d 768) and
@@ -1115,15 +1182,18 @@ def test_head_dim_models_match_plain_path(cuda, model, heads):
 def test_gemm_and_attention_bwd_attrs_without_spills(cuda):
     """``flash_kernel_attrs`` lists the GEMM's nine instances (three
     layouts, three act kinds), its split-K sum, LayerNorm form (#15) and
-    ``gemm_profile``'s instance, and the attention backward's seven
-    instances (#4, #6; Dh 128's two among them) and the fp32 backward's by
-    sub-heads, none with local memory (spills)."""
+    ``gemm_profile``'s instance, and the attention backward's instances
+    (#4, #6: the resident form's seven, Dh 128's two among them, and the
+    streamed form's dq and dk/dv kernels by sub-heads, with the mask and
+    without) and the fp32 backward's by sub-heads, none with local memory
+    (spills)."""
     attrs = _build.flash_kernel_attrs()
     names = ({f"gemm {f}" for f in _build.GEMM_FORMS}
              | set(_build.ATTENTION_BWD_SM90_FORMS)
              | {f for f in _build.F32_KERNEL_FORMS if f.startswith("attention_bwd_f32")})
     assert {"gemm NN LayerNorm", "gemm NN act", "gemm NN act profiled",
             "attention_bwd_sm90", "attention_bwd_sm90 dh128 dropout",
+            "attention_bwd_stream dq dh64", "attention_bwd_stream dkv dh256 dropout",
             "attention_bwd_f32 dkv dh256 masked"} <= names
     assert names <= set(attrs)
     for name in names:
