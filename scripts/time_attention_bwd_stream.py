@@ -95,11 +95,12 @@ def _kernel_ms(fn, iters: int = 10) -> dict:
     return out
 
 
-def _sdpa_bwd_ms(q, k, v, g) -> float:
-    """SDPA's bf16 autograd backward on contiguous [B, H, N, Dh] q, k, v
-    (CUDA events: autograd does not capture into a graph)."""
+def _sdpa_bwd_ms(q, k, v, g, mask=None) -> float:
+    """SDPA's bf16 autograd backward on contiguous [B, H, N, Dh] q, k, v,
+    with ``mask`` as its boolean attention mask where given (CUDA events:
+    autograd does not capture into a graph)."""
     q, k, v = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
     g = g.transpose(1, 2).contiguous()
     return _events_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), 10)
 

@@ -90,7 +90,7 @@ namespace hw = sfc::sm90;
 
 constexpr int kThreads = 256;   // two warpgroups
 constexpr int kBox = 64 * 128;  // a 64-row tile of one 64-column sub-head, swizzled
-constexpr float kLog2e = 1.4426950408889634f;
+using hw::kLog2e;
 
 // The longest sequences (the Python ATTENTION_BWD_SM90_MAX_N*): head dim 64
 // without dropout and with it, and head dims 80 to 192 (one tile).

@@ -88,7 +88,7 @@ namespace fw = sfc::flash_wide;
 
 constexpr int BM = 64;                 // rows a tile
 constexpr int kMaskTile = BM * BM;     // a 64 x 64 byte tile of the mask
-constexpr float kLog2e = 1.4426950408889634f;
+using hw::kLog2e;
 
 // Blocks an SM: at C = 1 four of the dq kernel (122-124 registers a
 // thread) and three of the dk/dv kernel (159), but two of the masked

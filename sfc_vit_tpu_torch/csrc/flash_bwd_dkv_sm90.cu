@@ -51,19 +51,25 @@
 // #13's dq instance it stays one block per (128-key block, b * h): its
 // persistent form spilled at the nine warps' 168 registers a thread.
 //
-// Head dims 128 and 256 (flash_bwd_dkv_wide_sm90; csrc/flash_wide.cuh):
-// the same formula, over every query or the window, on C = Dh / 64
-// sub-heads.  A block is one warpgroup over 64 keys, two blocks an SM;
-// K's and V's C sub-blocks stay resident, a TMA ring brings Q's and G's
-// 64-query sub-blocks, and the tile's lse and delta are staged in shared
-// memory by plain loads.  Per query tile: s^T = sum over c of K_c Q_c^T
-// and dp^T = sum of V_c G_c^T by wgmma, p and ds in registers as at Dh
-// 64, then dk_c += ds^T Q_c and dv_c += p^T G_c (the hi / lo splits) for
-// one sub-head c (64 registers for dk_c and dv_c beside s^T and dp^T):
-// the block walks its queries C times, once for each sub-head,
-// recomputing s^T and dp^T (2C + 4 sub-head products a tile and walk
-// where one walk would take 6 C).  Each output row has one owner and is
-// rounded once: the same bits on every call.
+// Head dims 128 and 256 (flash_bwd_dkv_wide_sm90; flash_wide.cuh's
+// bwd_wide): the same formula, over every query or the window, on C = Dh
+// / 64 sub-heads, in one walk over the query tiles.  A block is two
+// warpgroups over 64 keys (one block an SM); K and V stay resident; a ring
+// of whole 64-query Q / G tiles with their lse and delta rows (a TMA box
+// each, a stage ahead of their use: 4 stages at Dh 128, 2 at 256) comes by
+// TMA.  Per query tile, once: s^T and dp^T of each warpgroup's 32 queries
+// against the 64 keys (m64n32), p and ds split into bf16 hi + lo and
+// written to four exchange tiles in shared memory, then each warpgroup
+// adds ds^T Q and p^T G into its half of dk's and dv's columns (C / 2
+// sub-heads each: 64 C fp32 registers, 128 at Dh 256, where a warpgroup
+// holding all of dk and dv would need 256): 12 x B.H.Nq.Nk.Dh executed
+// operations at every head dim, each Q and G sub-block read once from its
+// stage.  The next tile's s^T and dp^T are issued
+// with this tile's products, so at Dh 128 the exp2 and the splits run
+// beside them.  Bound at [2, 16384, 3, 128]: the nominal 8 x 2 x 3 x
+// 16384^2 x 128 = 1.65 TFLOP, 1.668 ms at 989 TFLOP/s; at [1, 8300 x
+// 9000, 2, 256] 0.309 ms.  Each dk and dv row and column has one owner
+// and one fp32 sum in a fixed order: the same bits on every call.
 
 #include "flash_wide.cuh"
 
@@ -78,12 +84,10 @@ constexpr int kStages = 6;
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = kConsumerWarps * 32 + 32;  // + the producer warp
 constexpr int kQTileBytes = BQT * 128;
-// A tile's lse / delta rows: a box from its first query rounded down to
-// 16 bytes (hw::rows_start), into a slot of whole 128-byte lines.
-constexpr int kRowBox = BQT + hw::kRowsPad;
-constexpr int kRowSlot = 96;
-static_assert(kRowSlot >= kRowBox && kRowSlot % 32 == 0, "lse / delta slot");
-constexpr float kLog2e = 1.4426950408889634f;
+static_assert(BQT == 64, "hw::kRowBox is a 64-row tile's box");
+using hw::kLog2e;
+using hw::kRowBox;
+using hw::kRowSlot;
 using Ring = hw::Ring<kStages>;
 
 struct Smem {
@@ -280,159 +284,28 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_sm90(const __grid_c
 
 namespace fw = sfc::flash_wide;
 
-struct WideParams {
-  CUtensorMap q, k, v, g;  // map_strided_heads over [B, N, H, Dh], 64-row boxes
-  const float *lse, *delta;
-  bf16 *dk, *dv;           // [B, nk, H, Dh] contiguous
-  int heads, dh, nq, nk;
-  int block, halo;         // the windowed instance's curve block and halo
-  float scale, scale_log2;
-};
-
-__host__ __device__ constexpr int wide_ring(int C) { return C == 2 ? 8 : 5; }
-template <int C>
-using WideSmem = fw::Smem<2 * C, wide_ring(C)>;
-
 // C: sub-heads (2 or 4).  kWindow: #13's dk and dv over the query tiles
 // whose window holds the block's keys.
 template <int C, bool kWindow>
-__global__ void __launch_bounds__(fw::kThreads, 2)
-    flash_bwd_dkv_wide_sm90(const __grid_constant__ WideParams p) {
-  constexpr int NS = wide_ring(C);
-  extern __shared__ __align__(1024) unsigned char dyn[];
-  WideSmem<C>& sm = hw::aligned_smem<WideSmem<C>>(dyn);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
-  const int k0 = blockIdx.x * 64, bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int nq = p.nq;
-  int j0 = 0, j1 = (nq + 63) / 64;
-  if constexpr (kWindow) hw::local_tile_window(blockIdx.x, 64, nq, p.block, p.halo, j0, j1);
-  const int tiles = j1 - j0;
-  // The ring, per sub-head c of dk and dv, per query tile: Q's C
-  // sub-blocks (s^T), G's C (dp^T), then Q's and G's sub-block c again.
-  constexpr int per = 2 * C + 2;
-  fw::Cursor cur;
-  cur.entries = C * tiles * per;
-  auto of = [&](int i) SFC_INLINE_LAMBDA {
-    const int u = i / per, r = i % per, j = j0 + u % tiles, c = u / tiles;
-    if (r < C) return fw::Entry{&p.q, r, j * 64};
-    if (r < 2 * C) return fw::Entry{&p.g, r - C, j * 64};
-    return fw::Entry{r == 2 * C ? &p.q : &p.g, c, j * 64};
-  };
-  fw::start<C>(sm, cur, &p.k, &p.v, k0, h, b, of);  // res: K's sub-blocks, then V's
-
-  float dk[32], dv[32], st[32], dpt[32];
-  uint32_t dsh[4][4], dsl[4][4], ph[4][4], pl[4][4];
-  for (int c = 0; c < C; ++c) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
-    for (int j = 0; j < tiles; ++j) {
-      const int qa = (j0 + j) * 64;
-      if (tid < 64) {  // the tile's lse (log2 units) and delta; read after the barriers below
-        const bool ok = qa + tid < nq;
-        const long long at = static_cast<long long>(bh) * nq + qa + tid;
-        sm.vec[0][tid] = ok ? p.lse[at] * kLog2e : 0.f;
-        sm.vec[1][tid] = ok ? p.delta[at] : 0.f;
-      }
-      fw::logits<C>(sm, cur, st, 0);
-      fw::release(sm, cur, h, b, of);
-      fw::logits<C>(sm, cur, dpt, C);
-      fw::release(sm, cur, h, b, of);
-      hw::fence_regs(st);
-      hw::fence_regs(dpt);
-      // p = exp(s - lse) and ds = p (dp - delta) scale, a k16 step (8 of a
-      // thread's values) at a time, each split straight into its A
-      // fragments; queries at or past nq give p = 0.  (Written back into
-      // s^T and dp^T, the accumulators of the chains above, they made the
-      // compiler copy an accumulator mid-chain, and ptxas then serialized
-      // the wgmma and injected waits: C7511, C7517, C7519.)
-      uint64_t dx[2];  // Q's sub-block c, then G's
-      fw::take_descs(sm, cur, dx);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        float pk[8], dk8[8];
-#pragma unroll
-        for (int m = 0; m < 8; ++m) {
-          const int i = 8 * kk + m, col = 8 * (i / 4) + c0 + (i % 2);
-          const float pv =
-              qa + col < nq ? hw::exp2_approx(st[i] * p.scale_log2 - sm.vec[0][col]) : 0.f;
-          pk[m] = pv;
-          dk8[m] = pv * (dpt[i] - sm.vec[1][col]) * p.scale;
-        }
-        fw::split8(dk8, dsh[kk], dsl[kk]);
-        fw::split8(pk, ph[kk], pl[kk]);
-      }
-      // dk_c += ds^T Q_c and dv_c += p^T G_c, one group.
-      hw::fence_regs(dk);
-      hw::fence_regs(dv);
-      hw::wgmma_fence();
-      fw::product_t(dk, dsh, dx[0]);
-      fw::product_t(dk, dsl, dx[0]);
-      fw::product_t(dv, ph, dx[1]);
-      fw::product_t(dv, pl, dx[1]);
-      hw::wgmma_commit();
-      fw::release(sm, cur, h, b, of);
-      hw::fence_regs(dk);
-      hw::fence_regs(dv);
-      hw::fence_frags(dsh);
-      hw::fence_frags(dsl);
-      hw::fence_frags(ph);
-      hw::fence_frags(pl);
-    }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int key = k0 + r0 + 8 * hf;
-      if (key >= p.nk) continue;
-      const long long off = (static_cast<long long>(b) * p.nk + key) * p.heads * p.dh +
-                            static_cast<long long>(h) * p.dh + 64 * c + c0;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        *reinterpret_cast<uint32_t*>(p.dk + off + 8 * jj) =
-            hw::pack_bf16x2(dk[4 * jj + 2 * hf], dk[4 * jj + 2 * hf + 1]);
-        *reinterpret_cast<uint32_t*>(p.dv + off + 8 * jj) =
-            hw::pack_bf16x2(dv[4 * jj + 2 * hf], dv[4 * jj + 2 * hf + 1]);
-      }
-    }
-  }
-}
-
-template <int C, bool kWindow>
-cudaError_t launch_wide(const WideParams& p, int batch, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_wide_sm90<C, kWindow>;
-  constexpr int smem = fw::kSmemBytes<2 * C, wide_ring(C)>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.nk + 63) / 64, batch * p.heads);
-  kernel<<<grid, fw::kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(fw::kBwdThreads, 1)
+    flash_bwd_dkv_wide_sm90(const __grid_constant__ fw::BwdParams p) {
+  fw::bwd_wide<C, true, kWindow>(p);
 }
 
 // The wide instances' call (dh 128 or 256).
 int run_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
              const void* delta, void* dk, void* dv, int batch, int heads, int nq, int nk, int dh,
              const long long (&st)[12], float scale, int block, int halo, void* stream) {
-  WideParams p{};
-  cudaError_t e = fw::map_qkvg(&p.q, &p.k, &p.v, &p.g, {q, k, v, g}, batch, heads, nq, nk, dh,
-                                st);
+  fw::BwdParams p{};
+  cudaError_t e = fw::bwd_params(&p, q, k, v, g, lse, delta, dk, dv, batch, heads, nq, nk, dh,
+                                 st, scale, block, halo);
   if (e != cudaSuccess) return static_cast<int>(e);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
-  p.heads = heads;
-  p.dh = dh;
-  p.nq = nq;
-  p.nk = nk;
-  p.block = block;
-  p.halo = halo;
-  p.scale = scale;
-  p.scale_log2 = scale * kLog2e;
   e = cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   fw::with_wide(dh, [&](auto C) {
-    constexpr int c = decltype(C)::value;
-    e = block ? launch_wide<c, true>(p, batch, s) : launch_wide<c, false>(p, batch, s);
+    constexpr int c = decltype(C)::value, smem = fw::kBwdSmemBytes<c, true>;
+    e = block ? fw::launch_bwd(flash_bwd_dkv_wide_sm90<c, true>, smem, p, batch, s)
+              : fw::launch_bwd(flash_bwd_dkv_wide_sm90<c, false>, smem, p, batch, s);
   });
   return static_cast<int>(e);
 }
@@ -501,7 +374,7 @@ extern "C" int sfc_flash_dkv_attrs(int windowed, int* out) {
 extern "C" int sfc_flash_dkv_wide_attrs(int dh, int windowed, int* out) {
   int err = static_cast<int>(cudaErrorInvalidValue);
   fw::with_wide(dh, [&](auto C) {
-    constexpr int c = decltype(C)::value, smem = fw::kSmemBytes<2 * c, wide_ring(c)>;
+    constexpr int c = decltype(C)::value, smem = fw::kBwdSmemBytes<c, true>;
     err = windowed ? hw::kernel_attrs(flash_bwd_dkv_wide_sm90<c, true>, smem, out)
                    : hw::kernel_attrs(flash_bwd_dkv_wide_sm90<c, false>, smem, out);
   });

@@ -48,16 +48,23 @@
 // shared code made #10's full-range instance 6.5 % slower there, so the
 // instance stays one block per item.
 //
-// Head dims 128 and 256 (flash_bwd_dq_wide_sm90; csrc/flash_wide.cuh):
-// the same formula, over every key or the window, on C = Dh / 64
-// sub-heads.  A block is one warpgroup over 64 queries, two blocks an SM;
-// Q's and G's C sub-blocks stay resident, a TMA ring brings K's and V's
-// 64-key sub-blocks.  Per key tile: s = sum over c of Q_c K_c^T and dp =
-// sum of G_c V_c^T by wgmma, ds in registers as at Dh 64, then dq_c += ds
-// K_c (the hi / lo split) for a pair of dq's sub-heads (64 registers); at
-// Dh 256 the block walks its keys twice, once for each pair, recomputing
-// s and dp.  Each dq row has one owner and is rounded once: the same bits
-// on every call.
+// Head dims 128 and 256 (flash_bwd_dq_wide_sm90; flash_wide.cuh's
+// bwd_wide): the same formula, over every key or the window, on C = Dh /
+// 64 sub-heads, in one walk over the key tiles.  A block is two
+// warpgroups over 64 queries (one block an SM); Q and G stay resident; a
+// ring of whole 64-key K / V tiles (4 stages at Dh 128, 2 at 256) comes by
+// TMA.  Per key tile, once: s and dp of each warpgroup's 32 keys against
+// the 64 queries (m64n32), ds split into bf16 hi + lo and written to two
+// exchange tiles in shared memory, then each warpgroup adds ds K into its
+// half of dq's columns (C / 2 sub-heads, 32 C fp32 registers): 8 x
+// B.H.Nq.Nk.Dh executed operations at every head dim, each K and V
+// sub-block read once from its stage.  The next tile's s and
+// dp are issued with this tile's ds K, so at Dh 128 the exp2 and the
+// split run beside the products.  Bound at [2, 16384, 3, 128]: the
+// nominal 6 x 2 x 3 x 16384^2 x 128 = 1.24 TFLOP, 1.251 ms at 989
+// TFLOP/s; at [1, 8300 x 9000, 2, 256] 0.232 ms.  Each dq row and column
+// has one owner and one fp32 sum in a fixed order: the same bits on every
+// call.
 
 #include "flash_wide.cuh"
 
@@ -72,7 +79,7 @@ constexpr int kStages = 6;
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = kConsumerWarps * 32 + 32;  // + the producer warp
 constexpr int kTileBytes = BKT * 128;              // 64 rows of 64 bf16
-constexpr float kLog2e = 1.4426950408889634f;
+using hw::kLog2e;
 using Ring = hw::Ring<kStages>;
 
 struct Smem {
@@ -240,150 +247,27 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_sm90(const __grid_co
 
 namespace fw = sfc::flash_wide;
 
-struct WideParams {
-  CUtensorMap q, k, v, g;  // map_strided_heads over [B, N, H, Dh], 64-row boxes
-  const float *lse, *delta;
-  bf16* dq;                // [B, nq, H, Dh] contiguous
-  int heads, dh, nq, nk;
-  int block, halo;         // the windowed instance's curve block and halo
-  float scale, scale_log2;
-};
-
-__host__ __device__ constexpr int wide_ring(int C) { return C == 2 ? 8 : 5; }
-template <int C>
-using WideSmem = fw::Smem<2 * C, wide_ring(C)>;
-
 // C: sub-heads (2 or 4).  kWindow: #13's dq over the block's key window.
 template <int C, bool kWindow>
-__global__ void __launch_bounds__(fw::kThreads, 2)
-    flash_bwd_dq_wide_sm90(const __grid_constant__ WideParams p) {
-  constexpr int NS = wide_ring(C), CO = 2;
-  extern __shared__ __align__(1024) unsigned char dyn[];
-  WideSmem<C>& sm = hw::aligned_smem<WideSmem<C>>(dyn);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
-  const int q0 = blockIdx.x * 64, bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int nk = p.nk;
-  int t0 = 0, t1 = (nk + 63) / 64;
-  if constexpr (kWindow) hw::local_tile_window(blockIdx.x, 64, nk, p.block, p.halo, t0, t1);
-  const int tiles = t1 - t0;
-  // The ring, per pair of dq's sub-heads, per key tile: K's C sub-blocks
-  // (s), V's C (dp), then K's two of the pair again (dq).
-  constexpr int per = 2 * C + CO;
-  fw::Cursor cur;
-  cur.entries = (C / CO) * tiles * per;
-  auto of = [&](int i) SFC_INLINE_LAMBDA {
-    const int u = i / per, r = i % per, t = t0 + u % tiles, g = u / tiles;
-    if (r < C) return fw::Entry{&p.k, r, t * 64};
-    if (r < 2 * C) return fw::Entry{&p.v, r - C, t * 64};
-    return fw::Entry{&p.k, CO * g + r - 2 * C, t * 64};
-  };
-  fw::start<C>(sm, cur, &p.q, &p.g, q0, h, b, of);  // res: Q's sub-blocks, then G's
-
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = q0 + r0 + 8 * hf;
-    const long long at = static_cast<long long>(bh) * p.nq + row;
-    lse2[hf] = row < p.nq ? p.lse[at] * kLog2e : 0.f;
-    dl[hf] = row < p.nq ? p.delta[at] : 0.f;
-  }
-  float dq[CO][32], s[32], dp[32];
-  uint32_t dsh[4][4], dsl[4][4];
-  for (int g = 0; g < C / CO; ++g) {
-#pragma unroll
-    for (int cc = 0; cc < CO; ++cc)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) dq[cc][i] = 0.f;
-    for (int t = 0; t < tiles; ++t) {
-      fw::logits<C>(sm, cur, s, 0);
-      fw::release(sm, cur, h, b, of);
-      fw::logits<C>(sm, cur, dp, C);
-      fw::release(sm, cur, h, b, of);
-      hw::fence_regs(s);
-      hw::fence_regs(dp);
-      // ds = exp(s - lse) (dp - delta) scale, in place in dp; keys at or
-      // past nk give p = 0.
-      const int key0 = (t0 + t) * 64;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int hf = (i / 2) % 2;
-        const bool k_ok = key0 + 8 * (i / 4) + c0 + (i % 2) < nk;
-        const float pv = k_ok ? hw::exp2_approx(s[i] * p.scale_log2 - lse2[hf]) : 0.f;
-        dp[i] = pv * (dp[i] - dl[hf]) * p.scale;
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) hw::split_a(dp, kk, dsh[kk], dsl[kk]);
-      uint64_t dk[CO];
-      fw::take_descs(sm, cur, dk);
-#pragma unroll
-      for (int cc = 0; cc < CO; ++cc) hw::fence_regs(dq[cc]);
-      hw::wgmma_fence();
-#pragma unroll
-      for (int cc = 0; cc < CO; ++cc) {
-        fw::product_t(dq[cc], dsh, dk[cc]);
-        fw::product_t(dq[cc], dsl, dk[cc]);
-      }
-      hw::wgmma_commit();
-      fw::release(sm, cur, h, b, of);
-#pragma unroll
-      for (int cc = 0; cc < CO; ++cc) hw::fence_regs(dq[cc]);
-      hw::fence_frags(dsh);
-      hw::fence_frags(dsl);
-    }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = q0 + r0 + 8 * hf;
-      if (row >= p.nq) continue;
-#pragma unroll
-      for (int cc = 0; cc < CO; ++cc) {
-        bf16* dst = p.dq + (static_cast<long long>(b) * p.nq + row) * p.heads * p.dh +
-                    static_cast<long long>(h) * p.dh + 64 * (CO * g + cc) + c0;
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          *reinterpret_cast<uint32_t*>(dst + 8 * jj) =
-              hw::pack_bf16x2(dq[cc][4 * jj + 2 * hf], dq[cc][4 * jj + 2 * hf + 1]);
-      }
-    }
-  }
-}
-
-template <int C, bool kWindow>
-cudaError_t launch_wide(const WideParams& p, int batch, cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_wide_sm90<C, kWindow>;
-  constexpr int smem = fw::kSmemBytes<2 * C, wide_ring(C)>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.nq + 63) / 64, batch * p.heads);
-  kernel<<<grid, fw::kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(fw::kBwdThreads, 1)
+    flash_bwd_dq_wide_sm90(const __grid_constant__ fw::BwdParams p) {
+  fw::bwd_wide<C, false, kWindow>(p);
 }
 
 // The wide instances' call (dh 128 or 256).
 int run_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
              const void* delta, void* dq, int batch, int heads, int nq, int nk, int dh,
              const long long (&st)[12], float scale, int block, int halo, void* stream) {
-  WideParams p{};
-  cudaError_t e = fw::map_qkvg(&p.q, &p.k, &p.v, &p.g, {q, k, v, g}, batch, heads, nq, nk, dh,
-                                st);
+  fw::BwdParams p{};
+  cudaError_t e = fw::bwd_params(&p, q, k, v, g, lse, delta, dq, nullptr, batch, heads, nq, nk, dh,
+                                 st, scale, block, halo);
   if (e != cudaSuccess) return static_cast<int>(e);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dq = static_cast<bf16*>(dq);
-  p.heads = heads;
-  p.dh = dh;
-  p.nq = nq;
-  p.nk = nk;
-  p.block = block;
-  p.halo = halo;
-  p.scale = scale;
-  p.scale_log2 = scale * kLog2e;
   e = cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   fw::with_wide(dh, [&](auto C) {
-    constexpr int c = decltype(C)::value;
-    e = block ? launch_wide<c, true>(p, batch, s) : launch_wide<c, false>(p, batch, s);
+    constexpr int c = decltype(C)::value, smem = fw::kBwdSmemBytes<c, false>;
+    e = block ? fw::launch_bwd(flash_bwd_dq_wide_sm90<c, true>, smem, p, batch, s)
+              : fw::launch_bwd(flash_bwd_dq_wide_sm90<c, false>, smem, p, batch, s);
   });
   return static_cast<int>(e);
 }
@@ -450,7 +334,7 @@ extern "C" int sfc_flash_dq_attrs(int windowed, int* out) {
 extern "C" int sfc_flash_dq_wide_attrs(int dh, int windowed, int* out) {
   int err = static_cast<int>(cudaErrorInvalidValue);
   fw::with_wide(dh, [&](auto C) {
-    constexpr int c = decltype(C)::value, smem = fw::kSmemBytes<2 * c, wide_ring(c)>;
+    constexpr int c = decltype(C)::value, smem = fw::kBwdSmemBytes<c, false>;
     err = windowed ? hw::kernel_attrs(flash_bwd_dq_wide_sm90<c, true>, smem, out)
                    : hw::kernel_attrs(flash_bwd_dq_wide_sm90<c, false>, smem, out);
   });

@@ -48,12 +48,10 @@ constexpr int kStages = 3;
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = kConsumerWarps * 32;
 constexpr int kQTileBytes = BQT * 128;
-// A tile's lse / delta rows: a box from its first query rounded down to
-// 16 bytes (hw::rows_start), into a slot of whole 128-byte lines.
-constexpr int kRowBox = BQT + hw::kRowsPad;
-constexpr int kRowSlot = 96;
-static_assert(kRowSlot >= kRowBox && kRowSlot % 32 == 0, "lse / delta slot");
-constexpr float kLog2e = 1.4426950408889634f;
+static_assert(BQT == 64, "hw::kRowBox is a 64-row tile's box");
+using hw::kLog2e;
+using hw::kRowBox;
+using hw::kRowSlot;
 
 struct Smem {
   unsigned char k[BKEYS * 128];

@@ -92,7 +92,8 @@ constexpr int kStages = 4;
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = kConsumerWarps * 32 + 32;  // + the producer warp
 constexpr int kTileBytes = BK * 128;  // 128 rows of 64 bf16
-constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+using hw::kLog2e;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Smem {
   unsigned char q[BQ * 128];

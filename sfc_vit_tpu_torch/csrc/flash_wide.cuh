@@ -7,18 +7,22 @@
 // A head of Dh = 64 C columns is C sub-heads of 64.  A sub-block is 64
 // rows x one sub-head of one (batch, head), bf16, 128-byte swizzled as TMA
 // writes it (sm90.cuh::map_strided_heads with 64-row boxes): 8 KB, the
-// layout of a Dh 64 tile, so every product is the Dh 64 kernels' m64n64k16
-// wgmma on it, K-major or through the transpose bit.  A block is one
+// layout of a Dh 64 tile, so every product is a wgmma on it, K-major or
+// through the transpose bit.
+//
+// The forward (Smem .. logits, product_t below): a block is one
 // warpgroup (128 threads) over 64 rows of one (b, h), two blocks an SM
-// (255 registers a thread; the Dh 64 kernels' nine warps cap a thread at
-// 168, where a 128- or 256-column output beside the logits does not fit).
-// The rows a block owns come once (`res`, resident sub-blocks, on their
-// own barrier); thread 0 keeps a ring of NS sub-blocks of the other side
-// in flight by TMA, entries in the order the block consumes them.  After
-// the products that read a group of entries are done (wgmma_wait), the
-// block's barrier frees their slots and thread 0 refills them.  An output
-// of C sub-heads is held CO at a time beside the logits: a kernel walks
-// its tiles C / CO times, recomputing the logits each walk.
+// (255 registers a thread).  The rows a block owns come once (`res`,
+// resident sub-blocks, on their own barrier); thread 0 keeps a ring of NS
+// sub-blocks of the other side in flight by TMA, entries in the order the
+// block consumes them.  After the products that read a group of entries
+// are done (wgmma_wait), the block's barrier frees their slots and thread
+// 0 refills them.  O is held CO sub-heads at a time beside the logits.
+//
+// The backward (BwdSmem .. bwd_wide below, the dq kernel #10 and the dk/dv
+// kernel #11 and their windowed instances, #13): one walk over the other
+// side's 64-row tiles at every head dim, each tile's operands read once;
+// see bwd_wide.
 #pragma once
 
 #include "sm90.cuh"
@@ -32,8 +36,8 @@ constexpr int kThreads = 128;     // one warpgroup a block
 constexpr int kSub = 64 * 128;    // one 64 x 64 bf16 sub-block, bytes
 constexpr int kStepBytes = 2048;  // a k16 step of an MN-major sub-block (16 rows)
 
-// R resident sub-blocks, a ring of NS, two 64-row fp32 vectors (the dk/dv
-// kernel's lse and delta of a query tile) and the barriers.
+// R resident sub-blocks, a ring of NS, two 64-row fp32 vectors (the
+// streamed attention backward's lse and delta of a tile) and the barriers.
 template <int R, int NS>
 struct Smem {
   unsigned char res[R][kSub];
@@ -149,19 +153,6 @@ __device__ __forceinline__ void product_t(float (&acc)[32], const uint32_t (&a)[
   });
 }
 
-// x = hi + lo as bf16 pairs: one k16 step's A fragment (sm90.cuh::split_a
-// of eight values a thread holds, in fragment order).
-__device__ __forceinline__ void split8(const float (&x)[8], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * e], x[2 * e + 1]);
-    const float2 hf = __bfloat1622float2(h);
-    hi[e] = *reinterpret_cast<const uint32_t*>(&h);
-    lo[e] = hw::pack_bf16x2(x[2 * e] - hf.x, x[2 * e + 1] - hf.y);
-  }
-}
-
 // The backward kernels' maps of q, k, v, g (bf16 [B, N, H, dh] through
 // their (batch, row, head) strides st, k and v over nk rows, q and g over
 // nq), 64-row boxes.
@@ -175,6 +166,385 @@ inline cudaError_t map_qkvg(CUtensorMap* q, CUtensorMap* k, CUtensorMap* v, CUte
                               heads, dh, st[3 * i], st[3 * i + 1], st[3 * i + 2], 64);
     if (e != cudaSuccess) return e;
   }
+  return cudaSuccess;
+}
+
+// ------------------------------------------------------------- backward
+//
+// The dq kernel (#10) and the dk/dv kernel (#11) at Dh 128 and 256, and
+// their windowed instances (#13), are one device function, bwd_wide.  A
+// block is two warpgroups (256 threads, one block an SM, 255 registers a
+// thread) over 64 rows of one (b, h), its "own" rows: queries for dq,
+// keys for dk/dv.  Its own X and Y come once (res: dq's Q and G, dk/dv's
+// K and V, C sub-blocks each); the other side's 64-row tiles (dq's K and
+// V, dk/dv's Q and G with their lse and delta rows) come whole, one tile
+// a stage, through a ring of bwd_stages(C) stages that thread 0 keeps in
+// flight by TMA.  For each tile, once:
+//  SD  warpgroup w computes the logits and the cotangent's products of the
+//      other side's 32 rows 32 w .. 32 w + 31 of the tile against all 64
+//      own rows, summed over the C sub-heads (m64n32 wgmma, both operands
+//      K-major from shared memory): s and dp for dq, s^T and dp^T for
+//      dk/dv.  Each (own row, other row) pair's s and dp is computed once.
+//  E   p = exp2(s scale log2e - lse log2e) and ds = p (dp - delta) scale
+//      in fp32, other rows at or past their end giving p = 0, each split
+//      into bf16 hi + lo (the formula's two-term split), packed in
+//      registers.
+//  X   the packed values into the block's exchange tiles (64 own rows x 64
+//      other rows, K-major, 128-byte swizzled: ds hi, ds lo, and for
+//      dk/dv p hi, p lo), the two warpgroups writing one half each.
+//  PV  warpgroup w adds the tile's products into its half of each output's
+//      columns, sub-heads C/2 w .. C/2 w + C/2 - 1: dq += ds K, or dk +=
+//      ds^T Q and dv += p^T G (A the exchange tiles, B the ring's
+//      sub-blocks through the transpose bit; m64n64 per sub-head, hi then
+//      lo into one fp32 accumulator).
+// Executed work per (own row, other row, column): SD 4 operations, PV 4
+// (dq) or 8 (dk/dv): the formula's 8 and 12 units at every head dim.
+// Overlap: a warpgroup issues the next tile's SD and this tile's PV
+// together; its E runs while PV is on the tensor cores (with at least
+// three stages, SD first, so E waits for SD only); with two stages (Dh
+// 256, where a stage is 64 KB) PV goes first and the wait for the next
+// tile's loads runs beside it.  Two block barriers a tile: A after both
+// warpgroups' PV of the previous tile is done (the exchange tiles and that
+// tile's stage are free: thread 0 refills the stage with the tile
+// bwd_stages(C) on), B after both halves of the exchange tiles are written
+// (fence.proxy.async first: generic writes read by wgmma).  Each output
+// row and column has one owner and one fp32 sum in a fixed order: the
+// same bits on every call, no atomics, no reduce-add.  (Issuing the next
+// tile's SD before barrier A with two sets of exchange tiles, so that the
+// barriers run beside it, made ptxas crash (a segfault), or with wgmma_wait<0>
+// before the barrier serialize the wgmma, C7514.)
+
+using hw::kRowBox;
+using hw::kRowSlot;
+constexpr int kBwdThreads = 256;
+// Stages of the ring: at Dh 256 a stage is 64 KB, and two fill the block's
+// 227 KB beside the resident rows and the exchange tiles.
+__host__ __device__ constexpr int bwd_stages(int C) { return C == 2 ? 4 : 2; }
+
+template <int C, bool kDkv>
+struct BwdSmem {
+  unsigned char res[2 * C][kSub];                  // own rows: X's sub-heads, then Y's
+  unsigned char ring[bwd_stages(C)][2 * C][kSub];  // a tile of the other side: X, then Y
+  unsigned char x[kDkv ? 4 : 2][kSub];             // ds hi, ds lo (, p hi, p lo)
+  float vec[kDkv ? bwd_stages(C) : 1][2][kRowSlot];  // dk/dv: each stage's lse and delta
+  uint64_t res_full, full[bwd_stages(C)];
+};
+template <int C, bool kDkv>
+constexpr int kBwdSmemBytes = sizeof(BwdSmem<C, kDkv>) + 1024;  // + the 1,024-byte alignment
+
+struct BwdParams {
+  CUtensorMap q, k, v, g;            // map_strided_heads over [B, N, H, Dh], 64-row boxes
+  CUtensorMap lse_rows, delta_rows;  // dk/dv: lse and delta as [B H Nq] rows, kRowBox boxes
+  const float *lse, *delta;          // [B, H, Nq]; dq reads its own rows' plainly
+  bf16 *o0, *o1;                     // dq; or dk, dv: [B, N, H, Dh] contiguous
+  int heads, dh, nq, nk;
+  int block, halo;                   // the windowed instance's curve block and halo
+  float scale, scale_log2;
+};
+
+// d (m64n32, fp32) = A . B (+ d when accumulate), both K-major from shared
+// memory at the descriptors da + OA and db + OB (16-byte units).
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_ss_n32_at(float (&d)[16], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n .reg .b64 a, b;\n setp.ne.b32 p, %18, 0;\n"
+      " add.s64 a, %16, %19;\n add.s64 b, %17, %20;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", a, b, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(OA), "n"(OB));
+}
+
+// x0, x1 = hi + lo, each a bf16 pair (the two-term split of fp32 p and ds).
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = hw::pack_bf16x2(x0 - hf.x, x1 - hf.y);
+}
+
+// C: sub-heads (2 or 4).  kDkv: the dk/dv kernel (own rows keys), else dq
+// (own rows queries).  kWindow: #13's instance, over the other side's
+// tiles of the block's curve-local window (nq == nk).
+template <int C, bool kDkv, bool kWindow>
+__device__ __forceinline__ void bwd_wide(const BwdParams& p) {
+  constexpr int S = bwd_stages(C), H2 = C / 2, NX = kDkv ? 4 : 2;
+  constexpr bool kSdFirst = S >= 3;
+  constexpr int kSubU = kSub >> 4;  // a sub-block in descriptor units
+  using Sm = BwdSmem<C, kDkv>;
+  extern __shared__ __align__(1024) unsigned char dyn[];
+  Sm& sm = hw::aligned_smem<Sm>(dyn);
+  const int tid = threadIdx.x, w = tid / 128, lane = tid % 32;
+  const int r0 = 16 * ((tid / 32) % 4) + lane / 4, c0 = 2 * (lane % 4);
+  const int bh = blockIdx.y, heads = p.heads, b = bh / heads, h = bh % heads;
+  const int nq = p.nq, nk = p.nk, n_own = kDkv ? nk : nq, n_other = kDkv ? nq : nk;
+  const int row0 = blockIdx.x * 64;
+  const float scale = p.scale, scale_log2 = p.scale_log2;
+  int t0 = 0, t1 = (n_other + 63) / 64;
+  if constexpr (kWindow) hw::local_tile_window(blockIdx.x, 64, n_other, p.block, p.halo, t0, t1);
+  const int tiles = t1 - t0;
+  // dk/dv: the first lse / delta row of the (b, h)'s boxes, and query 0's
+  // offset in them (tiles start on 64 rows).
+  const int rbase = kDkv ? hw::rows_start(bh * nq) : 0, roff = bh * nq - rbase;
+
+  // Thread 0: tile t0 + u of the other side (X's C sub-blocks, Y's, and
+  // for dk/dv its lse and delta rows) into stage u % S.
+  auto load = [&](int u) SFC_INLINE_LAMBDA {
+    const int st = u % S, row = 64 * (t0 + u);
+    uint64_t* bar = &sm.full[st];
+    hw::bar_expect_tx(bar, 2 * C * kSub + (kDkv ? 2 * kRowBox * 4 : 0));
+    for (int c = 0; c < C; ++c) {
+      hw::tma_load4(sm.ring[st][c], kDkv ? &p.q : &p.k, bar, 64 * c, h, row, b);
+      hw::tma_load4(sm.ring[st][C + c], kDkv ? &p.g : &p.v, bar, 64 * c, h, row, b);
+    }
+    if constexpr (kDkv) {
+      hw::tma_load1(sm.vec[st][0], &p.lse_rows, bar, rbase + row);
+      hw::tma_load1(sm.vec[st][1], &p.delta_rows, bar, rbase + row);
+    }
+  };
+  if (tid == 0) {
+    hw::bar_init(&sm.res_full, 1);
+    for (int s = 0; s < S; ++s) hw::bar_init(&sm.full[s], 1);
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hw::bar_expect_tx(&sm.res_full, 2 * C * kSub);
+    for (int c = 0; c < C; ++c) {
+      hw::tma_load4(sm.res[c], kDkv ? &p.k : &p.q, &sm.res_full, 64 * c, h, row0, b);
+      hw::tma_load4(sm.res[C + c], kDkv ? &p.v : &p.g, &sm.res_full, 64 * c, h, row0, b);
+    }
+    for (int u = 0; u < S && u < tiles; ++u) load(u);
+  }
+
+  // dq: its rows' lse (log2 units) and delta, read once; rows past nq read
+  // 0 (their s and dp are 0: their ds is 0, and they are never stored).
+  float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  if constexpr (!kDkv) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = row0 + r0 + 8 * hf;
+      if (row < nq) {
+        const long long at = static_cast<long long>(bh) * nq + row;
+        lse2[hf] = p.lse[at] * hw::kLog2e;
+        dl[hf] = p.delta[at];
+      }
+    }
+  }
+
+  float o0[H2][32], o1[kDkv ? H2 : 1][32], s[16], dp[16];
+  uint32_t pk[NX][8];  // E's packed words: ds hi, ds lo (, p hi, p lo); (jj, hf) at 2 jj + hf
+#pragma unroll
+  for (int cc = 0; cc < H2; ++cc)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o0[cc][i] = o1[kDkv ? cc : 0][i] = 0.f;
+  const uint64_t d_res = hw::desc_sw128(sm.res[0]), d_x = hw::desc_sw128(sm.x[0]);
+
+  // SD of the tile in stage st: s (s^T) and dp (dp^T) of this warpgroup's
+  // 32 other rows, committed.
+  auto sd = [&](int st) SFC_INLINE_LAMBDA {
+    const uint64_t db = hw::desc_sw128(sm.ring[st][0]) + (64 * 32 * 2 >> 4) * w;
+    sfc::static_for<C>([&](auto Cc) SFC_INLINE_LAMBDA {
+      constexpr int c = decltype(Cc)::value;
+      sfc::static_for<4>([&](auto K) SFC_INLINE_LAMBDA {
+        constexpr int kk = decltype(K)::value;
+        wgmma_ss_n32_at<c * kSubU + 2 * kk, c * kSubU + 2 * kk>(s, d_res, db, c > 0 || kk > 0);
+      });
+    });
+    sfc::static_for<C>([&](auto Cc) SFC_INLINE_LAMBDA {
+      constexpr int c = decltype(Cc)::value + C;
+      sfc::static_for<4>([&](auto K) SFC_INLINE_LAMBDA {
+        constexpr int kk = decltype(K)::value;
+        wgmma_ss_n32_at<c * kSubU + 2 * kk, c * kSubU + 2 * kk>(dp, d_res, db,
+                                                                c > C || kk > 0);
+      });
+    });
+    hw::wgmma_commit();
+  };
+  // PV of the tile in stage st, from the exchange tiles: this warpgroup's
+  // sub-heads of dq (dk, and dv), committed.
+  auto pv = [&](int st) SFC_INLINE_LAMBDA {
+    const uint64_t db = hw::desc_sw128(sm.ring[st][0]) + H2 * kSubU * w;
+    sfc::static_for<H2>([&](auto CC) SFC_INLINE_LAMBDA {
+      constexpr int cc = decltype(CC)::value;
+      sfc::static_for<4>([&](auto K) SFC_INLINE_LAMBDA {
+        constexpr int kk = decltype(K)::value, ob = cc * kSubU + kk * (kStepBytes >> 4);
+        hw::wgmma_ss_at<0, 1, 2 * kk, ob>(o0[cc], d_x, db, 1);
+        hw::wgmma_ss_at<0, 1, kSubU + 2 * kk, ob>(o0[cc], d_x, db, 1);
+        if constexpr (kDkv) {
+          hw::wgmma_ss_at<0, 1, 2 * kSubU + 2 * kk, ob + C * kSubU>(o1[cc], d_x, db, 1);
+          hw::wgmma_ss_at<0, 1, 3 * kSubU + 2 * kk, ob + C * kSubU>(o1[cc], d_x, db, 1);
+        }
+      });
+    });
+    hw::wgmma_commit();
+  };
+  // Every register the two chains below write, fenced once before one
+  // wgmma_fence: an operand fence between two chains in flight made ptxas
+  // serialize the wgmma (C7515).
+  auto fence_all = [&]() SFC_INLINE_LAMBDA {
+#pragma unroll
+    for (int cc = 0; cc < H2; ++cc) {
+      hw::fence_regs(o0[cc]);
+      if constexpr (kDkv) hw::fence_regs(o1[cc]);
+    }
+    hw::fence_regs(s);
+    hw::fence_regs(dp);
+    hw::wgmma_fence();
+  };
+  // E of tile t0 + u in stage st: p and ds of this thread's 16 elements,
+  // split and packed into pk.
+  auto elementwise = [&](int u, int st) SFC_INLINE_LAMBDA {
+    hw::fence_regs(s);
+    hw::fence_regs(dp);
+    const int other0 = 64 * (t0 + u) + 32 * w;  // the warpgroup's first other row
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float l2[2], dd[2];
+      bool ok[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * jj + c0 + e;
+        ok[e] = other0 + col < n_other;
+        if constexpr (kDkv) {
+          l2[e] = sm.vec[st][0][roff + 32 * w + col] * hw::kLog2e;
+          dd[e] = sm.vec[st][1][roff + 32 * w + col];
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float pe[2], dse[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jj + 2 * hf + e;
+          const float lg = kDkv ? l2[e] : lse2[hf], de = kDkv ? dd[e] : dl[hf];
+          pe[e] = ok[e] ? hw::exp2_approx(s[i] * scale_log2 - lg) : 0.f;
+          dse[e] = pe[e] * (dp[i] - de) * scale;
+        }
+        split2(dse[0], dse[1], pk[0][2 * jj + hf], pk[1][2 * jj + hf]);
+        if constexpr (kDkv) split2(pe[0], pe[1], pk[2][2 * jj + hf], pk[3][2 * jj + hf]);
+      }
+    }
+  };
+
+  hw::bar_wait(&sm.res_full, 0);
+  hw::bar_wait(&sm.full[0], 0);
+  fence_all();  // the outputs' zeros too: defined before the first chain
+  sd(0);
+  for (int u = 0; u < tiles; ++u) {
+    const int st = u % S;
+    if (kSdFirst && u > 0)
+      hw::wgmma_wait<1>();  // SD(u) done; PV(u - 1) may still run beside E
+    else
+      hw::wgmma_wait<0>();
+    elementwise(u, st);
+    hw::wgmma_wait<0>();  // this warpgroup's PV(u - 1) done
+    hw::fence_async_shared();
+    __syncthreads();  // A: both warpgroups' PV(u - 1) done
+    if (tid == 0 && u > 0 && u - 1 + S < tiles) load(u - 1 + S);  // into u - 1's stage
+#pragma unroll
+    for (int x = 0; x < NX; ++x)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<uint32_t*>(sm.x[x] +
+                                       hw::sw128_bf16(r0 + 8 * hf, 32 * w + 8 * jj + c0)) =
+              pk[x][2 * jj + hf];
+    hw::fence_async_shared();
+    __syncthreads();  // B: the exchange tiles written
+    // The next tile's SD, or on the last tile a repeat of this one's (its
+    // stage has landed; the result is never read), so the commit groups
+    // keep one order and no branch sits between the chains.
+    const bool more = u + 1 < tiles;
+    const int nst = more ? (u + 1) % S : st;
+    const uint32_t nph = ((more ? u + 1 : u) / S) & 1;
+    if constexpr (kSdFirst) {
+      hw::bar_wait(&sm.full[nst], nph);
+      fence_all();
+      sd(nst);
+      pv(st);
+    } else {  // the wait for the next tile's loads beside this tile's PV
+      fence_all();
+      pv(st);
+      hw::bar_wait(&sm.full[nst], nph);
+      hw::wgmma_fence();
+      sd(nst);
+    }
+  }
+  hw::wgmma_wait<0>();
+#pragma unroll
+  for (int cc = 0; cc < H2; ++cc) {
+    hw::fence_regs(o0[cc]);
+    if constexpr (kDkv) hw::fence_regs(o1[cc]);
+  }
+
+  // Each thread's rows r0 and r0 + 8 of its sub-heads, rounded once.
+  const int dh = p.dh;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row0 + r0 + 8 * hf;
+    if (row >= n_own) continue;
+#pragma unroll
+    for (int cc = 0; cc < H2; ++cc) {
+      const long long off = (static_cast<long long>(b) * n_own + row) * heads * dh +
+                            static_cast<long long>(h) * dh + 64 * (H2 * w + cc) + c0;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        *reinterpret_cast<uint32_t*>(p.o0 + off + 8 * jj) =
+            hw::pack_bf16x2(o0[cc][4 * jj + 2 * hf], o0[cc][4 * jj + 2 * hf + 1]);
+        if constexpr (kDkv)
+          *reinterpret_cast<uint32_t*>(p.o1 + off + 8 * jj) =
+              hw::pack_bf16x2(o1[cc][4 * jj + 2 * hf], o1[cc][4 * jj + 2 * hf + 1]);
+      }
+    }
+  }
+}
+
+// The launch of a wide backward kernel: grid (own row tiles, B H), two
+// warpgroups a block.
+template <typename Kernel>
+inline cudaError_t launch_bwd(Kernel kernel, int smem, const BwdParams& p, int batch,
+                              cudaStream_t stream) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int n_own = p.o1 ? p.nk : p.nq;
+  const dim3 grid((n_own + 63) / 64, batch * p.heads);
+  kernel<<<grid, kBwdThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The backward parameters (dh 128 or 256): maps of q, k, v, g through
+// their (batch, row, head) element strides st, and for dk/dv (o1 not
+// null) lse's and delta's row boxes.
+inline cudaError_t bwd_params(BwdParams* p, const void* q, const void* k, const void* v,
+                              const void* g, const void* lse, const void* delta, void* o0,
+                              void* o1, int batch, int heads, int nq, int nk, int dh,
+                              const long long (&st)[12], float scale, int block, int halo) {
+  cudaError_t e = map_qkvg(&p->q, &p->k, &p->v, &p->g, {q, k, v, g}, batch, heads, nq, nk, dh, st);
+  if (e == cudaSuccess && o1) {
+    const long long rows = static_cast<long long>(batch) * heads * nq;
+    e = hw::map_f32_rows(&p->lse_rows, lse, rows, kRowBox);
+    if (e == cudaSuccess) e = hw::map_f32_rows(&p->delta_rows, delta, rows, kRowBox);
+  }
+  if (e != cudaSuccess) return e;
+  p->lse = static_cast<const float*>(lse);
+  p->delta = static_cast<const float*>(delta);
+  p->o0 = static_cast<bf16*>(o0);
+  p->o1 = static_cast<bf16*>(o1);
+  p->heads = heads;
+  p->dh = dh;
+  p->nq = nq;
+  p->nk = nk;
+  p->block = block;
+  p->halo = halo;
+  p->scale = scale;
+  p->scale_log2 = scale * hw::kLog2e;
   return cudaSuccess;
 }
 

@@ -128,7 +128,7 @@ constexpr int kConsumerThreads = 128;   // one warpgroup
 constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
 constexpr int kBox = 64 * 128;          // one 64-row x 64-column swizzled box, bytes
 constexpr int kMaskTile = BM * BM;      // a 64-query x 64-key tile of the mask, bytes
-constexpr float kLog2e = 1.4426950408889634f;
+using hw::kLog2e;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // K/V ring slots of the instance with C sub-heads and KT one-pass key

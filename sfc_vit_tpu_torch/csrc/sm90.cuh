@@ -328,6 +328,13 @@ inline int persistent_grid(Kernel kernel, int threads, int smem, long long items
 // i - rows_start(i).
 constexpr int kRowsPad = 4;
 __host__ __device__ constexpr int rows_start(int i) { return i & ~(kRowsPad - 1); }
+// A 64-row tile's lse / delta rows: a box from its first row rounded down
+// (rows_start), into a shared-memory slot of whole 128-byte lines.
+constexpr int kRowBox = 64 + kRowsPad;
+constexpr int kRowSlot = 96;
+static_assert(kRowSlot >= kRowBox && kRowSlot % 32 == 0, "lse / delta slot");
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 // What the compiler gave a kernel: out[0] registers a thread, out[1]
 // local memory a thread (spills and stack), out[2] shared memory a block

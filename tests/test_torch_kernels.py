@@ -2564,10 +2564,15 @@ def test_local_attention_refuses_what_the_kernels_do_not_take(cuda):
 # (b, nq, nk, heads, packed): CurveViT-S/12's 4,096 tokens (#8's single
 # step, #9 as #10 + #11), a streaming length past 4,096 that is not a
 # multiple of 64 (its last 128-key step holds one 64-key tile), views of a
-# packed projection with several (b, h), and nq != nk both ways.
+# packed projection with several (b, h), and nq != nk both ways; then the
+# backward's edges: one 64-row tile on each side (50 x 50) and a single
+# (b, h), nk and nq not multiples of 64 with one (b, h) (4,500 x 777, 777
+# x 4,500), and one whole 64-key tile under several images.
 _FLASH_WIDE_SHAPES = [(1, 4096, 4096, 2, False), (1, 1000, 4500, 2, False),
                       (2, 1089, 1089, 3, True), (2, 333, 520, 3, False),
-                      (1, 1000, 777, 2, False)]
+                      (1, 1000, 777, 2, False), (1, 50, 50, 1, False),
+                      (1, 4500, 777, 1, False), (1, 777, 4500, 1, False),
+                      (3, 200, 64, 1, False)]
 
 
 def _wide(rng, b, nq, nk, heads, dh, device, dtype=torch.bfloat16, packed=False):
@@ -2661,11 +2666,18 @@ def test_flash_wide_autograd_counts_its_kernels(cuda, dh, n, fused_max, monkeypa
         _within(a, w, 2e-2, name)
 
 
+#: #13's windowed dq and dk/dv kernels past _LOCAL_SHAPES: curve block 256
+#: at halo 1 and 2 (a window of 12 and 20 tiles, ragged at its end), and
+#: one 64-row tile (the window is the whole sequence) with one (b, h).
+_LOCAL_WIDE_EDGES = [(1, 1100, 2, 256, 1, False), (2, 1300, 1, 256, 2, True),
+                     (1, 50, 1, 128, 2, False)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype, dh", [(torch.bfloat16, 128), (torch.bfloat16, 256),
                                        (torch.float32, 64), (torch.float32, 128),
                                        (torch.float32, 256)])
-@pytest.mark.parametrize("b, n, heads, block, halo, packed", _LOCAL_SHAPES)
+@pytest.mark.parametrize("b, n, heads, block, halo, packed", _LOCAL_SHAPES + _LOCAL_WIDE_EDGES)
 def test_local_wide_and_f32_kernels_match_plain(cuda, dtype, dh, b, n, heads, block, halo,
                                                 packed):
     """#12 (out and lse) and #13 (dq, dk, dv) in bf16 at Dh 128 and 256 and
