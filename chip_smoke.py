@@ -1341,7 +1341,7 @@ def _kernel_label(name: str) -> str:
 _PROFILE_ATTEMPTS = 3
 
 
-def _profile(fn, what: str, steps: int = 2, top: int = 14, also: tuple = ()) -> None:
+def _profile(fn, what: str, steps: int = 2, top: int = 14, also: tuple = ()):
     """Device time by kernel over ``steps`` calls of ``fn`` (torch.profiler,
     CUPTI), and the idle share: 1 - kernel time / host wall time of the
     window, which ends in a synchronize.  Tracing adds a few us per launch
@@ -1355,7 +1355,8 @@ def _profile(fn, what: str, steps: int = 2, top: int = 14, also: tuple = ()) -> 
     and after ``_PROFILE_ATTEMPTS`` the breakdown is reported as not
     measured.
     Kernel times elsewhere in this script come from CUDA events.  Kernels
-    whose label starts with one of ``also`` are listed even past the top."""
+    whose label starts with one of ``also`` are listed even past the top.
+    Returns the device-busy ms per call, or None when not measured."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1383,7 +1384,7 @@ def _profile(fn, what: str, steps: int = 2, top: int = 14, also: tuple = ()) -> 
         print(f"profile of {what}: no trace agreed with CUDA events in "
               f"{_PROFILE_ATTEMPTS} attempts; the breakdown and idle share are not "
               "measured")
-        return
+        return None
     by_name: dict = {}
     for e in kernels:
         label = _kernel_label(e.name)
@@ -1402,6 +1403,7 @@ def _profile(fn, what: str, steps: int = 2, top: int = 14, also: tuple = ()) -> 
         for label, us in ranked[top:]:
             if label.startswith(also):
                 print(f"  {us / busy:7.2%}  {us / 1e3 / steps:9.3f} ms/call  {label}")
+    return busy / 1e3 / steps
 
 
 def _fa_inputs(gen, dgen):
@@ -4498,8 +4500,12 @@ def _long_model(card: str, label: str, cfg, batch: int, steps: int, bwd: str,
             print(f"{label}: train step at batch {batch}: kernels {k_ms:.1f} ms = "
                   f"{batch * n_tok / k_ms * 1e3:.0f} tokens/s, plain path {p_ms:.1f} ms = "
                   f"{batch * n_tok / p_ms * 1e3:.0f} tokens/s, {card}")
-            _profile(lambda: step(state, data, torch.Generator()),
-                     f"{label} train step at batch {batch}", steps=1)
+            busy = _profile(lambda: step(state, data, torch.Generator()),
+                            f"{label} train step at batch {batch}", steps=1)
+            if busy is not None and label in BUSY_BEFORE:
+                was, src = BUSY_BEFORE[label]
+                print(f"{label}: device busy {busy:.2f} ms a step against {was} ms "
+                      f"({src}), {busy / was - 1:+.1%}, {card}")
         del state, data
 
     engine = ServingEngine(copy.deepcopy(model), None, (cfg.img_size, cfg.img_size, 3),
@@ -4592,6 +4598,10 @@ LOCAL_WIDE_CASES = (
     ("16,384 tokens, 2 heads of 256, bf16", torch.bfloat16, LC_B, LC_N, 2, 256, True),
     ("ragged 5,000, Dh 128, bf16", torch.bfloat16, 1, 5000, 2, 128, False))
 WIDE_STEPS = 2
+#: The device-busy ms of a timed phase-19 train step in an earlier tree's
+#: run on an H100 80GB HBM3 at 700 W, printed beside this run's.
+BUSY_BEFORE = {"longctx-16k, 3 heads of 128, bf16":
+               (48.94, "the tree before the wide forward's redesign")}
 def _local_lse64(q, k, block: int, halo: int, scale: float) -> torch.Tensor:
     """The fp64 log-sum-exp of each query's scaled logits over its
     curve-local window, [B, H, N]."""

@@ -62,22 +62,43 @@
 // (block 64 or 192).  At [2, 16384, 6, 64], block 128, halo 1 a block
 // walks 3 tiles in each pass instead of 128.
 //
-// Head dims 128 and 256 (flash_fwd_wide_sm90; csrc/flash_wide.cuh): the
-// same formulas, every instance (single step, streaming, windowed) over C
-// = Dh / 64 sub-heads.  A block is one warpgroup over 64 queries, two
-// blocks an SM; Q's C sub-blocks stay resident and a TMA ring brings K's
-// and V's 64-key sub-blocks.  The streaming form takes its logits in
-// steps of two 64-key tiles, so the running max that p is rounded against
-// moves every 128 keys (FLASH_STREAM_BLOCK_K), as at Dh 64; a step's
-// second tile at or past nk is all -1e30 and adds nothing.  The single
-// step walks 64-key tiles (its max and sum are the row's whatever the
-// order), the windowed instance the 64-key tiles of its 64 queries'
-// window (sm90.cuh::local_tile_window: whole tiles, block a multiple of
-// 64), masking only keys at or past n.  O's sub-heads are held two at a
-// time (64 registers) beside a step's logits; at Dh 256 the block walks
-// its keys twice, once for each pair, recomputing the logits (1.5x the
-// nominal products; 1.25x in the single step, whose first pass is logits
-// only).
+// Head dims 128 and 256 (flash_fwd_wide_sm90, on csrc/flash_wide.cuh's
+// forward blocks): the same formulas and TPU kernels (#8's _fwd_kernel, and
+// #12's _kernel as the windowed instance), every instance (single step,
+// streaming, windowed) over C = Dh / 64 sub-heads.  Bound: operations, #8's
+// nominal 4 x B H Nq Nk Dh at 989 TFLOP/s (the single step executes 6 such
+// units, its first pass being logits only; the streaming form 4), and #12's
+// bytes (a window of a few tiles).  Design: a block is two warpgroups over
+// 128 queries of one (b, h) (256 threads, one block an SM, 255 registers a
+// thread, no producer warp), sharing each K and V entry, so the L2 feeds
+// each key to 128 queries.  Q's sub-blocks stay resident; a ring of 32 KB
+// entries of K or V (128 keys of both sub-heads at Dh 128, six slots; 64
+// keys of all four at Dh 256, five) is kept in flight by TMA, each slot
+// freed by its own empty barrier once every warp's wgmma_wait has retired
+// the products that read it, never by a block barrier.  The first warp of
+// each warpgroup loads entries, claiming each by an atomic, when its
+// warpgroup reaches one not yet loaded, so the warpgroup ahead does the
+// loading and neither waits on the other's progress to be fed.  O stays
+// whole in registers (C x 32 a thread) beside one step's logits and P, so
+// the keys are walked once (the single step twice: m and l, then P V) at
+// both head dims.  The logits
+// of an entry are one m64n128 (Dh 128) or m64n64 (Dh 256) product a k16
+// step, P V one m64n128 / m64n256 product a k16 step over all sub-heads.
+// Overlap: the first pass keeps two logits accumulators, the next entry's
+// product running under this one's max and sum; at Dh 128 the walk issues
+// step st + 1's logits with step st's P V and runs step st + 1's
+// exponentials while P V is on the tensor cores (at Dh 256, where O is
+// twice as wide, that was slower or did not fit); the two warpgroups
+// interleave on the tensor cores.  (Making them take strict
+// turns through named barriers was slower in every case measured.)  The
+// streaming form's step is 128 keys, so the running max that p is rounded
+// against moves every 128 keys (FLASH_STREAM_BLOCK_K), as at Dh 64; keys
+// at or past nk are -1e30 and add nothing.  The windowed instance walks the
+// keys of the union of its two warpgroups' windows (sm90.cuh::
+// local_tile_window over 128 rows); each warpgroup gives -1e30 to the keys
+// outside its own window (ops/_build.py::local_fwd_key_range), and leaves
+// an entry wholly outside it out of m and l (the windows differ where a
+// 128-query block straddles two curve blocks: block 64 or 192).
 
 #include "flash_wide.cuh"
 
@@ -454,81 +475,136 @@ struct WideParams {
   float scale_log2;     // scale * log2(e)
 };
 
-__host__ __device__ constexpr int wide_ring(int C) { return C == 2 ? 10 : 8; }
-template <int C>
-using WideSmem = fw::Smem<C, wide_ring(C)>;
-
 // C: sub-heads (2 or 4).  kSingle: the single K step's two passes (P
 // normalised before P V), else the streaming form.  kWindow (#12,
 // kSingle only): over the key tiles of the block's curve-local window.
 template <int C, bool kSingle, bool kWindow>
-__global__ void __launch_bounds__(fw::kThreads, 2)
+__global__ void __launch_bounds__(fw::kFwdThreads, 1)
     flash_fwd_wide_sm90(const __grid_constant__ WideParams p) {
   static_assert(kSingle || !kWindow, "the windowed instance is the single step's");
-  constexpr int NS = wide_ring(C), CO = 2, H = kSingle ? 1 : 2;
+  // KT: keys a ring entry (a unit of the walk), KT / 2 logits a thread:
+  // 128 at Dh 128 (the logits one m64n128 product a k16 step), 64 at Dh
+  // 256.  H: units a step, the streaming form's 128 keys.  kOverlap: step
+  // st + 1's logits are issued with step st's P V and its exponentials run
+  // while P V is on the tensor cores.  At Dh 256 it is off: in the
+  // streaming form O (128 registers), a step's logits (64) and P (32) would
+  // all be live at once, and the single step ran slower with it.
+  constexpr int NS = fw::fwd_slots(C), KT = fw::fwd_keys(C), SR = KT / 2, KS = KT / 16;
+  constexpr int H = kSingle ? 1 : 128 / KT;
+  constexpr bool kOverlap = C == 2;
+  using Sm = fw::FwdSmem<C>;
   extern __shared__ __align__(1024) unsigned char dyn[];
-  WideSmem<C>& sm = hw::aligned_smem<WideSmem<C>>(dyn);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
-  const int q0 = blockIdx.x * 64, bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int nk = p.nk;
-  // The 64-key tiles [t0, t0 + tiles) the block walks, in steps of H.
+  Sm& sm = hw::aligned_smem<Sm>(dyn);
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int r0 = 16 * ((tid / 32) % 4) + lane / 4, c0 = 2 * (lane % 4);
+  const int q0 = blockIdx.x * 128, bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int nq = p.nq, nk = p.nk, row0 = q0 + 64 * wg;
+  // A second warpgroup wholly past nq has nothing to do and leaves.
+  const int groups = q0 + 64 < nq ? 2 : 1;
+  // The keys [k0, k0 + KT units) the block walks: every one, or the union
+  // of its two warpgroups' curve-local windows (64-key tiles [t0, t1)).
   int t0 = 0, t1 = (nk + 63) / 64;
-  if constexpr (kWindow) hw::local_tile_window(blockIdx.x, 64, nk, p.block, p.halo, t0, t1);
-  const int tiles = t1 - t0, steps = (tiles + H - 1) / H;
-  // The ring: the single step's first pass (per tile, K's C sub-blocks),
-  // then per pair of O's sub-heads, per step: K's C sub-blocks of each of
-  // its H tiles, then V's two of each.
-  const int first = kSingle ? C * tiles : 0, per = H * (C + CO);
-  fw::Cursor cur;
-  cur.entries = first + (C / CO) * steps * per;
-  auto of = [&](int i) SFC_INLINE_LAMBDA {
-    if (kSingle && i < first) return fw::Entry{&p.k, i % C, (t0 + i / C) * 64};
-    i -= first;
-    const int u = i / per, r = i % per, g = u / steps, st = u % steps;
-    if (r < H * C) return fw::Entry{&p.k, r % C, (t0 + H * st + r / C) * 64};
-    return fw::Entry{&p.v, CO * g + (r - H * C) % CO, (t0 + H * st + (r - H * C) / CO) * 64};
-  };
-  fw::start<C>(sm, cur, &p.q, &p.q, q0, h, b, of);
+  if constexpr (kWindow) hw::local_tile_window(q0 / 64, 128, nk, p.block, p.halo, t0, t1);
+  const int k0 = 64 * t0, units = (64 * (t1 - t0) + KT - 1) / KT, steps = (units + H - 1) / H;
+  // The ring's entries, in the order both warpgroups take them: the single
+  // step's first pass (K of every unit), then per step K's H units and V's.
+  const int first = kSingle ? units : 0, total = first + 2 * H * steps;
 
-  const float c = p.scale_log2;
-  float s[H][32], o[CO][32], m[2], l[2];
-  uint32_t pf[H][4][4];
-  // The logits of the walk's next step (tile t0 + H st + x in s[x]), raw;
-  // keys at or past nk -1e30.  The ring's slots freed after.
-  auto step_logits = [&](int st) SFC_INLINE_LAMBDA {
-#pragma unroll
-    for (int x = 0; x < H; ++x) fw::logits<C>(sm, cur, s[x], 0);
-    fw::release(sm, cur, h, b, of);
-#pragma unroll
-    for (int x = 0; x < H; ++x) {
-      hw::fence_regs(s[x]);
-      const int key0 = (t0 + H * st + x) * 64;
-      if (key0 + 64 > nk) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i)
-          if (key0 + 8 * (i / 4) + c0 + (i % 2) >= nk) s[x][i] = sfc::kNegInf;
+  if (tid == 0) {
+    hw::bar_init(&sm.q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      hw::bar_init(&sm.full[s], 1);
+      hw::bar_init(&sm.empty[s], 4 * groups);  // every warp of the block, once an entry
+    }
+    sm.issued = 0;
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+  // The first warp of each warpgroup loads the ring's entries, in order:
+  // it claims the next entry by an atomic on sm.issued and loads it into
+  // the slot of the entry NS before once every warp has released that.  It
+  // waits for a slot only for entries up to `need` (the one its warpgroup
+  // is about to take), and else loads while slots are free.  So the
+  // warpgroup ahead does the loading (its other wait being for the one
+  // behind to free a slot), and the one behind finds its entries loaded.
+  // The whole warp runs it, lane x loading the entry's x-th 64-row box (a
+  // divergent lane 0 alone was held back by its warp's other lanes).  It
+  // runs before a take, only for an entry not yet seen loaded (`seen`:
+  // the entries below it are), and then loads ahead while slots are free:
+  // its chain of shared-memory round trips is long, and running it after
+  // every issue of products, to keep the ring fuller, was slower.
+  int seen = 0;
+  auto feed = [&](int need) SFC_INLINE_LAMBDA {
+    for (;;) {
+      int i = lane == 0 ? *reinterpret_cast<volatile int*>(&sm.issued) : 0;
+      i = __shfl_sync(0xffffffffu, i, 0);
+      seen = i;
+      if (i >= total) break;
+      const int slot = i % NS;
+      if (i >= NS) {
+        const uint32_t parity = (i / NS - 1) & 1;
+        if (i <= need)
+          hw::bar_wait(&sm.empty[slot], parity);
+        else if (!__shfl_sync(0xffffffffu, fw::bar_test(&sm.empty[slot], parity) ? 1 : 0, 0))
+          break;
       }
+      const int won = lane == 0 ? atomicCAS(&sm.issued, i, i + 1) == i : 0;
+      if (!__shfl_sync(0xffffffffu, won, 0)) continue;
+      int unit = i;
+      bool is_v = false;
+      if (!kSingle || i >= first) {
+        const int j = i - first, u = j / (2 * H), r = j - 2 * H * u;
+        is_v = r >= H;
+        unit = H * u + (is_v ? r - H : r);
+      }
+      // Box x: sub-head x / (KT / 64), keys 64 (x % (KT / 64)) on.
+      if (lane == 0) hw::bar_expect_tx(&sm.full[slot], C * KT * 128);
+      if (lane < C * KT / 64)
+        hw::tma_load4(sm.ring[slot] + lane * fw::kSub, is_v ? &p.v : &p.k, &sm.full[slot],
+                      64 * (lane / (KT / 64)), h, k0 + KT * unit + 64 * (lane % (KT / 64)), b);
     }
   };
-  // O's pair of sub-heads += P V over the step's tiles, V's sub-blocks the
-  // ring's next entries; the slots freed after.
-  auto pv = [&]() SFC_INLINE_LAMBDA {
-    uint64_t dv[H * CO];
-    fw::take_descs(sm, cur, dv);
+  if (tid == 0) {
+    hw::bar_expect_tx(&sm.q_full, groups * C * fw::kSub);
+    for (int w = 0; w < groups; ++w)
+      for (int c = 0; c < C; ++c)
+        hw::tma_load4(sm.q[w][c], &p.q, &sm.q_full, 64 * c, h, q0 + 64 * w, b);
+  }
+  if (tid < 32) feed(-1);
+  if (wg >= groups) return;
+
+  // The next entry this warpgroup takes: its descriptor once it has landed.
+  int e = 0;
+  auto take = [&]() SFC_INLINE_LAMBDA {
+    if (tid % 128 < 32 && e >= seen) feed(e);
+    hw::bar_wait(&sm.full[e % NS], (e / NS) & 1);
+    return hw::desc_sw128(sm.ring[e++ % NS]);
+  };
+  // Entries i .. i + n - 1 read by no product in flight: each warp arrives.
+  auto release = [&](int i, int n) SFC_INLINE_LAMBDA {
+    if (lane == 0)
+      for (int x = 0; x < n; ++x) hw::bar_arrive(&sm.empty[(i + x) % NS]);
+  };
+
+  const float c = p.scale_log2;
+  const uint64_t dq = hw::desc_sw128(sm.q[wg][0]);
+  // The keys [klo, khi) this warpgroup's rows see: every key below nk, or
+  // the window of their curve block (block a multiple of 64: one block).
+  int klo = 0, khi = nk;
+  if constexpr (kWindow) {
+    const int qb = row0 / p.block;
+    klo = max(0, (qb - p.halo) * p.block);
+    khi = min(nk, (qb + p.halo + 1) * p.block);
+  }
+  // Keys outside [klo, khi) to -1e30 (raw logits), in a unit from key0
+  // that the range does not hold whole.
+  auto mask = [&](float (&d)[SR], int key0) SFC_INLINE_LAMBDA {
+    if (key0 >= klo && key0 + KT <= khi) return;
 #pragma unroll
-    for (int cc = 0; cc < CO; ++cc) hw::fence_regs(o[cc]);
-    hw::wgmma_fence();
-#pragma unroll
-    for (int x = 0; x < H; ++x)
-#pragma unroll
-      for (int cc = 0; cc < CO; ++cc) fw::product_t(o[cc], pf[x], dv[CO * x + cc]);
-    hw::wgmma_commit();
-    fw::release(sm, cur, h, b, of);
-#pragma unroll
-    for (int cc = 0; cc < CO; ++cc) hw::fence_regs(o[cc]);
-#pragma unroll
-    for (int x = 0; x < H; ++x) hw::fence_frags(pf[x]);
+    for (int i = 0; i < SR; ++i) {
+      const int key = key0 + 8 * (i / 4) + c0 + (i % 2);
+      if (key < klo || key >= khi) d[i] = sfc::kNegInf;
+    }
   };
   auto quad_max = [](float v) SFC_INLINE_LAMBDA {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -538,137 +614,250 @@ __global__ void __launch_bounds__(fw::kThreads, 2)
     v += __shfl_xor_sync(0xffffffffu, v, 1);
     return v + __shfl_xor_sync(0xffffffffu, v, 2);
   };
-  // The pair g of O's sub-heads out, times inv (rows below nq).
-  auto store = [&](int g, const float (&inv)[2]) SFC_INLINE_LAMBDA {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = q0 + r0 + 8 * hf;
-      if (row >= p.nq) continue;
-#pragma unroll
-      for (int cc = 0; cc < CO; ++cc) {
-        bf16* dst = p.out + (static_cast<long long>(b) * p.nq + row) * p.heads * p.dh +
-                    static_cast<long long>(h) * p.dh + 64 * (CO * g + cc) + c0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-              hw::pack_bf16x2(o[cc][4 * j + 2 * hf] * inv[hf], o[cc][4 * j + 2 * hf + 1] * inv[hf]);
-      }
-    }
-  };
-  float lsum[2];  // the rows' sums over the quad
+  hw::bar_wait(&sm.q_full, 0);
 
+  // m: the rows' max (log2 units, the scale folded in: exp2(s c - m));
+  // l: this thread's share of the rows' sums.
+  float m[2], l[2] = {0.f, 0.f}, inv[2] = {1.f, 1.f};
   if constexpr (kSingle) {
-    // Pass 1: the running max (log2 units) and rescaled sum of each row.
+    // Pass 1: m and l over every key, logits only.  Two accumulators: the
+    // next unit's logits run on the tensor cores while this one's max and
+    // sum are taken.  After the last unit a product of Q with itself
+    // stands in (its result unread), so every wait is the same.  A unit
+    // outside this warpgroup's window stays out of m and l: a first unit
+    // all -1e30 would set m to -1e30 c, and fma(s, c, -m) is then the
+    // product's rounding error, whose exp2 may be inf.
     m[0] = m[1] = sfc::kNegInf;
-    l[0] = l[1] = 0.f;
-    for (int t = 0; t < tiles; ++t) {
-      step_logits(t);
+    float sa[SR], sb[SR];
+    auto issue = [&](float (&d)[SR], uint64_t dk) SFC_INLINE_LAMBDA {
+      hw::wgmma_fence();
+      fw::logits_tile<C, KT>(d, dq, dk);
+      hw::wgmma_commit();
+    };
+    auto stats = [&](float (&d)[SR], int t) SFC_INLINE_LAMBDA {
+      const int key0 = k0 + KT * t;
+      mask(d, key0);
+      if (kWindow && (key0 + KT <= klo || key0 >= khi)) return;
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         float mx = sfc::kNegInf;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          mx = fmaxf(mx, fmaxf(s[0][4 * j + 2 * hf], s[0][4 * j + 2 * hf + 1]));
+        for (int j = 0; j < SR / 4; ++j)
+          mx = fmaxf(mx, fmaxf(d[4 * j + 2 * hf], d[4 * j + 2 * hf + 1]));
         const float m_new = fmaxf(m[hf], quad_max(mx) * c);
         float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < SR / 4; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            sum += hw::exp2_approx(fmaf(s[0][4 * j + 2 * hf + e], c, -m_new));
+          for (int x = 0; x < 2; ++x) sum += hw::exp2_approx(fmaf(d[4 * j + 2 * hf + x], c, -m_new));
         l[hf] = l[hf] * hw::exp2_approx(m[hf] - m_new) + sum;
         m[hf] = m_new;
       }
+    };
+    issue(sa, take());
+    for (int t = 0; t < units; t += 2) {
+      uint64_t dk = dq;
+      if (t + 1 < units) dk = take();
+      issue(sb, dk);
+      hw::wgmma_wait<1>();
+      hw::fence_regs(sa);
+      release(t, 1);
+      stats(sa, t);
+      dk = dq;
+      if (t + 2 < units) dk = take();
+      issue(sa, dk);
+      hw::wgmma_wait<1>();
+      hw::fence_regs(sb);
+      if (t + 1 < units) {
+        release(t + 1, 1);
+        stats(sb, t + 1);
+      }
     }
-    float inv[2];
+    hw::wgmma_wait<0>();
+    hw::fence_regs(sa);
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      lsum[hf] = quad_sum(l[hf]);
-      inv[hf] = 1.f / lsum[hf];
-    }
-    // Pass 2, per pair of O's sub-heads: P = exp(s - m) / l rounded to
-    // bf16, then O += P V.
-    const float one[2] = {1.f, 1.f};
-    for (int g = 0; g < C / CO; ++g) {
-#pragma unroll
-      for (int cc = 0; cc < CO; ++cc)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) o[cc][i] = 0.f;
-      for (int t = 0; t < tiles; ++t) {
-        step_logits(t);
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int hf = (i / 2) % 2;
-          s[0][i] = hw::exp2_approx(fmaf(s[0][i], c, -m[hf])) * inv[hf];
-        }
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) hw::acc_to_a(s[0], kk, pf[0][kk]);
-        pv();
-      }
-      store(g, one);
+      l[hf] = quad_sum(l[hf]);
+      inv[hf] = 1.f / l[hf];
     }
   } else {
-    // Streaming, per pair of O's sub-heads (the same m and l each time):
-    // per 128-key step the max m' over both tiles, alpha, O rescaled,
-    // then p = exp(s - m') rounded to bf16 unnormalised.
-    for (int g = 0; g < C / CO; ++g) {
-      m[0] = m[1] = __int_as_float(0xff800000);  // -inf: the first alpha is 0
-      l[0] = l[1] = 0.f;
+    m[0] = m[1] = __int_as_float(0xff800000);  // -inf, as the TPU's m_s: the first alpha is 0
+  }
+
+  // The walk: per step (H units) the logits, then p (the single step's P
+  // = exp(s - m) / l; the streaming form's p = exp(s - m') against the
+  // step's running max m', O rescaled by alpha = exp(m - m')) rounded to
+  // bf16 straight into A fragments, then O += P V.  O stays whole in
+  // registers (C x 32 a thread).
+  float o[C][32], s[H][SR], alpha[2] = {1.f, 1.f};
+  uint32_t pf[H][KS][4];
 #pragma unroll
-      for (int cc = 0; cc < CO; ++cc)
+  for (int cc = 0; cc < C; ++cc)
 #pragma unroll
-        for (int i = 0; i < 32; ++i) o[cc][i] = 0.f;
-      for (int st = 0; st < steps; ++st) {
-        step_logits(st);
-        float alpha[2], sum[2] = {0.f, 0.f};
+    for (int i = 0; i < 32; ++i) o[cc][i] = 0.f;
+  // p of step st in s (fp32, in place); the streaming form's alpha, m, l.
+  auto softmax = [&](int st) SFC_INLINE_LAMBDA {
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          float mx = sfc::kNegInf;
+    for (int x = 0; x < H; ++x) mask(s[x], k0 + KT * (H * st + x));
+    if constexpr (kSingle) {
 #pragma unroll
-          for (int x = 0; x < H; ++x)
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              mx = fmaxf(mx, fmaxf(s[x][4 * j + 2 * hf], s[x][4 * j + 2 * hf + 1]));
-          const float m_new = fmaxf(m[hf], quad_max(mx) * c);
-          alpha[hf] = hw::exp2_approx(m[hf] - m_new);
-          m[hf] = m_new;
-        }
-#pragma unroll
-        for (int cc = 0; cc < CO; ++cc)
-#pragma unroll
-          for (int i = 0; i < 32; ++i) o[cc][i] *= alpha[(i / 2) % 2];
-#pragma unroll
-        for (int x = 0; x < H; ++x) {
-#pragma unroll
-          for (int i = 0; i < 32; ++i) {
-            const int hf = (i / 2) % 2;
-            s[x][i] = hw::exp2_approx(fmaf(s[x][i], c, -m[hf]));
-            sum[hf] += s[x][i];
-          }
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) hw::acc_to_a(s[x], kk, pf[x][kk]);
-        }
-        l[0] = sum[0] + alpha[0] * l[0];
-        l[1] = sum[1] + alpha[1] * l[1];
-        pv();
+      for (int i = 0; i < SR; ++i) {
+        const int hf = (i / 2) % 2;
+        s[0][i] = hw::exp2_approx(fmaf(s[0][i], c, -m[hf])) * inv[hf];
       }
-      float inv[2];
+    } else {
+      float sum[2] = {0.f, 0.f};
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        lsum[hf] = quad_sum(l[hf]);
-        inv[hf] = lsum[hf] == 0.f ? 1.f : 1.f / lsum[hf];
+        float mx = sfc::kNegInf;
+#pragma unroll
+        for (int x = 0; x < H; ++x)
+#pragma unroll
+          for (int j = 0; j < SR / 4; ++j)
+            mx = fmaxf(mx, fmaxf(s[x][4 * j + 2 * hf], s[x][4 * j + 2 * hf + 1]));
+        const float m_new = fmaxf(m[hf], quad_max(mx) * c);
+        alpha[hf] = hw::exp2_approx(m[hf] - m_new);
+        m[hf] = m_new;
       }
-      store(g, inv);
+#pragma unroll
+      for (int x = 0; x < H; ++x)
+#pragma unroll
+        for (int i = 0; i < SR; ++i) {
+          const int hf = (i / 2) % 2;
+          s[x][i] = hw::exp2_approx(fmaf(s[x][i], c, -m[hf]));
+          sum[hf] += s[x][i];
+        }
+      l[0] = sum[0] + alpha[0] * l[0];
+      l[1] = sum[1] + alpha[1] * l[1];
+    }
+  };
+  // O rescaled by alpha (no product on O in flight) and p into fragments
+  // (no product on them in flight).
+  auto finish = [&]() SFC_INLINE_LAMBDA {
+    if constexpr (!kSingle) {
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[cc][i] *= alpha[(i / 2) % 2];
+    }
+#pragma unroll
+    for (int x = 0; x < H; ++x)
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) hw::acc_to_a(s[x], kk, pf[x][kk]);
+  };
+  // Every register the chains below read or write, fenced once before one
+  // wgmma_fence, with nothing in flight (an operand fence between two
+  // chains in flight makes ptxas serialize the wgmma, C7515).
+  auto fence_all = [&]() SFC_INLINE_LAMBDA {
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) hw::fence_regs(o[cc]);
+#pragma unroll
+    for (int x = 0; x < H; ++x) {
+      hw::fence_regs(s[x]);
+      hw::fence_frags(pf[x]);
+    }
+    hw::wgmma_fence();
+  };
+  auto logits = [&](const uint64_t (&dk)[H]) SFC_INLINE_LAMBDA {
+#pragma unroll
+    for (int x = 0; x < H; ++x) fw::logits_tile<C, KT>(s[x], dq, dk[x]);
+    hw::wgmma_commit();
+  };
+  auto pv = [&](const uint64_t (&dv)[H]) SFC_INLINE_LAMBDA {
+#pragma unroll
+    for (int x = 0; x < H; ++x) fw::pv_tile<C, KT>(o, pf[x], dv[x]);
+    hw::wgmma_commit();
+  };
+  auto after_pv = [&](int st) SFC_INLINE_LAMBDA {
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) hw::fence_regs(o[cc]);
+#pragma unroll
+    for (int x = 0; x < H; ++x) hw::fence_frags(pf[x]);
+    release(first + 2 * H * st + H, H);
+  };
+  uint64_t dk[H], dv[H];
+  if constexpr (kOverlap) {
+    // Step st + 1's logits and step st's P V are issued together; step st
+    // + 1's softmax runs while P V is on the tensor cores.
+#pragma unroll
+    for (int x = 0; x < H; ++x) dk[x] = take();
+    fence_all();
+    logits(dk);
+    hw::wgmma_wait<0>();
+#pragma unroll
+    for (int x = 0; x < H; ++x) hw::fence_regs(s[x]);
+    release(first, H);
+    softmax(0);
+    finish();
+    for (int st = 0; st + 1 < steps; ++st) {
+#pragma unroll
+      for (int x = 0; x < H; ++x) dv[x] = take();
+#pragma unroll
+      for (int x = 0; x < H; ++x) dk[x] = take();
+      fence_all();
+      logits(dk);
+      pv(dv);
+      hw::wgmma_wait<1>();  // the logits done, P V may still run
+#pragma unroll
+      for (int x = 0; x < H; ++x) hw::fence_regs(s[x]);
+      release(first + 2 * H * (st + 1), H);
+      softmax(st + 1);
+      hw::wgmma_wait<0>();
+      after_pv(st);
+      finish();
+    }
+#pragma unroll
+    for (int x = 0; x < H; ++x) dv[x] = take();
+    fence_all();
+    pv(dv);
+    hw::wgmma_wait<0>();
+    after_pv(steps - 1);
+  } else {
+    for (int st = 0; st < steps; ++st) {
+#pragma unroll
+      for (int x = 0; x < H; ++x) dk[x] = take();
+      fence_all();
+      logits(dk);
+      hw::wgmma_wait<0>();
+#pragma unroll
+      for (int x = 0; x < H; ++x) hw::fence_regs(s[x]);
+      release(first + 2 * H * st, H);
+      softmax(st);
+      finish();
+#pragma unroll
+      for (int x = 0; x < H; ++x) dv[x] = take();
+      fence_all();
+      pv(dv);
+      hw::wgmma_wait<0>();
+      after_pv(st);
     }
   }
-  if (p.lse != nullptr && lane % 4 == 0) {
+  if constexpr (!kSingle) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const int row = q0 + r0 + 8 * hf;
-      if (row < p.nq)
-        p.lse[static_cast<long long>(bh) * p.nq + row] =
-            m[hf] * kLn2 + logf(lsum[hf] == 0.f ? 1.f : lsum[hf]);
+      l[hf] = quad_sum(l[hf]);
+      inv[hf] = l[hf] == 0.f ? 1.f : 1.f / l[hf];
     }
+  }
+
+  // Rows r0 and r0 + 8 of the warpgroup's 64, every sub-head, rounded once
+  // (the single step's P was normalised: inv 1 there).
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row0 + r0 + 8 * hf;
+    if (row >= nq) continue;
+    const float sc = kSingle ? 1.f : inv[hf];
+    bf16* dst = p.out + (static_cast<long long>(b) * nq + row) * p.heads * p.dh +
+                static_cast<long long>(h) * p.dh + c0;
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 64 * cc + 8 * j) =
+            hw::pack_bf16x2(o[cc][4 * j + 2 * hf] * sc, o[cc][4 * j + 2 * hf + 1] * sc);
+    if (p.lse != nullptr && lane % 4 == 0)
+      p.lse[static_cast<long long>(bh) * nq + row] =
+          m[hf] * kLn2 + logf(l[hf] == 0.f ? 1.f : l[hf]);
   }
 }
 
@@ -695,12 +884,12 @@ cudaError_t plan_wide(WideParams& p, const void* q, const void* k, const void* v
 template <int C, bool kSingle, bool kWindow>
 cudaError_t launch_wide(const WideParams& p, int batch, cudaStream_t stream) {
   auto kernel = flash_fwd_wide_sm90<C, kSingle, kWindow>;
-  constexpr int smem = fw::kSmemBytes<C, wide_ring(C)>;
+  constexpr int smem = fw::kFwdSmemBytes<C>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((p.nq + 63) / 64, batch * p.heads);
-  kernel<<<grid, fw::kThreads, smem, stream>>>(p);
+  const dim3 grid((p.nq + 127) / 128, batch * p.heads);
+  kernel<<<grid, fw::kFwdThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -818,7 +1007,7 @@ extern "C" int sfc_flash_fwd_attrs(int form, int* out) {
 extern "C" int sfc_flash_fwd_wide_attrs(int dh, int form, int* out) {
   int err = static_cast<int>(cudaErrorInvalidValue);
   fw::with_wide(dh, [&](auto C) {
-    constexpr int c = decltype(C)::value, smem = fw::kSmemBytes<c, wide_ring(c)>;
+    constexpr int c = decltype(C)::value, smem = fw::kFwdSmemBytes<c>;
     err = form == 0   ? hw::kernel_attrs(flash_fwd_wide_sm90<c, true, false>, smem, out)
           : form == 1 ? hw::kernel_attrs(flash_fwd_wide_sm90<c, false, false>, smem, out)
           : form == 2 ? hw::kernel_attrs(flash_fwd_wide_sm90<c, true, true>, smem, out)

@@ -10,14 +10,21 @@
 // layout of a Dh 64 tile, so every product is a wgmma on it, K-major or
 // through the transpose bit.
 //
-// The forward (Smem .. logits, product_t below): a block is one
-// warpgroup (128 threads) over 64 rows of one (b, h), two blocks an SM
-// (255 registers a thread).  The rows a block owns come once (`res`,
-// resident sub-blocks, on their own barrier); thread 0 keeps a ring of NS
-// sub-blocks of the other side in flight by TMA, entries in the order the
-// block consumes them.  After the products that read a group of entries
-// are done (wgmma_wait), the block's barrier frees their slots and thread
-// 0 refills them.  O is held CO sub-heads at a time beside the logits.
+// The streamed attention backward (csrc/attention_bwd_stream_sm90.cu)
+// builds on Smem .. product_t below: R resident 64-row sub-blocks, a ring
+// of NS sub-blocks through TMA, the logits of a 64 x 64 tile summed over
+// the sub-heads, and P V with A from registers.
+//
+// The forward (kFwdThreads .. pv_tile below, the wide instances of #8 and
+// #12 in csrc/flash_fwd_sm90.cu): a block is two warpgroups over 128
+// queries of one (b, h), one block an SM (255 registers a thread, no
+// producer warp).  Q's 2 C sub-blocks stay resident; a ring of entries of
+// K or V, each fwd_keys(C) keys of all C sub-heads on one full barrier
+// (one expect_tx), is kept in flight by TMA in the order the block
+// consumes it.  Each slot also has an empty barrier on which every warp
+// arrives once its own wgmma_wait has retired the products that read the
+// slot: no block-wide barrier in the walk.  See csrc/flash_fwd_sm90.cu for
+// the walk itself.
 //
 // The backward (BwdSmem .. bwd_wide below, the dq kernel #10 and the dk/dv
 // kernel #11 and their windowed instances, #13): one walk over the other
@@ -49,30 +56,11 @@ struct Smem {
 template <int R, int NS>
 constexpr int kSmemBytes = sizeof(Smem<R, NS>) + 1024;  // + the 1,024-byte alignment
 
-// One ring entry: a sub-block of a map at sub-head c, rows row .. row + 63.
-struct Entry {
-  const CUtensorMap* map;
-  int c, row;
-};
-
 // The ring's cursors: e, the next entry the block consumes; issued (thread
 // 0's), the next entry to load; entries, how many the walk has.
 struct Cursor {
   int e = 0, issued = 0, entries = 0;
 };
-
-// Thread 0: load entries up to `upto` (each into the slot its entry NS
-// before freed), of head h, image b; `of(i)` gives entry i.
-template <int R, int NS, typename Of>
-__device__ __forceinline__ void feed(Smem<R, NS>& sm, Cursor& cur, int upto, int h, int b,
-                                     Of&& of) {
-  for (; cur.issued < upto && cur.issued < cur.entries; ++cur.issued) {
-    const Entry en = of(cur.issued);
-    const int slot = cur.issued % NS;
-    hw::bar_expect_tx(&sm.full[slot], kSub);
-    hw::tma_load4(sm.ring[slot], en.map, &sm.full[slot], 64 * en.c, h, en.row, b);
-  }
-}
 
 // The slot of the next entry once it has landed; the cursor moves on.
 template <int R, int NS>
@@ -80,37 +68,6 @@ __device__ __forceinline__ const unsigned char* take(Smem<R, NS>& sm, Cursor& cu
   const int e = cur.e++;
   hw::bar_wait(&sm.full[e % NS], (e / NS) & 1);
   return sm.ring[e % NS];
-}
-
-// Every product issued so far is done; the slots of the entries consumed
-// so far are free, and thread 0 refills them.
-template <int R, int NS, typename Of>
-__device__ __forceinline__ void release(Smem<R, NS>& sm, Cursor& cur, int h, int b, Of&& of) {
-  hw::wgmma_wait<0>();
-  __syncthreads();
-  if (threadIdx.x == 0) feed(sm, cur, cur.e + NS, h, b, of);
-}
-
-// Barriers set, the block's resident sub-blocks (map `ma` sub-heads 0 ..
-// RA - 1 into res[0 ..], then map `mb`'s into the rest, rows row0 ..) and
-// the ring's first entries in flight.
-template <int RA, int R, int NS, typename Of>
-__device__ __forceinline__ void start(Smem<R, NS>& sm, Cursor& cur, const CUtensorMap* ma,
-                                      const CUtensorMap* mb, int row0, int h, int b, Of&& of) {
-  if (threadIdx.x == 0) {
-    hw::bar_init(&sm.res_full, 1);
-    for (int s = 0; s < NS; ++s) hw::bar_init(&sm.full[s], 1);
-    hw::fence_barrier_init();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    hw::bar_expect_tx(&sm.res_full, R * kSub);
-    for (int r = 0; r < R; ++r)
-      hw::tma_load4(sm.res[r], r < RA ? ma : mb, &sm.res_full, 64 * (r < RA ? r : r - RA), h,
-                    row0, b);
-    feed(sm, cur, NS, h, b, of);
-  }
-  hw::bar_wait(&sm.res_full, 0);
 }
 
 // The descriptors of the ring's next N entries, each waited for: taken
@@ -150,6 +107,156 @@ __device__ __forceinline__ void product_t(float (&acc)[32], const uint32_t (&a)[
   sfc::static_for<4>([&](auto K) SFC_INLINE_LAMBDA {
     constexpr int kk = decltype(K)::value;
     hw::wgmma_rs_at<1, kk * (kStepBytes >> 4)>(acc, a[kk], dx, 1);
+  });
+}
+
+// ------------------------------------------------------------- forward
+
+constexpr int kFwdThreads = 256;  // two warpgroups a block
+// Keys a ring entry of the forward holds: 128 at Dh 128 (the logits then
+// one m64n128 product a k16 step), 64 at Dh 256; an entry is 32 KB either
+// way (C sub-heads of fwd_keys(C) rows, each sub-head's rows contiguous).
+__host__ __device__ constexpr int fwd_keys(int C) { return C == 2 ? 128 : 64; }
+// Slots of the forward's ring beside Q's 2 C sub-blocks in the block's
+// 227 KB.
+__host__ __device__ constexpr int fwd_slots(int C) { return C == 2 ? 6 : 5; }
+
+template <int C>
+struct FwdSmem {
+  unsigned char q[2][C][kSub];  // warpgroup w's 64 queries, sub-heads 0 .. C - 1
+  unsigned char ring[fwd_slots(C)][C * fwd_keys(C) * 128];  // fwd_keys(C) keys of K or V
+  uint64_t q_full, full[fwd_slots(C)], empty[fwd_slots(C)];
+  int issued;  // the ring's next entry to load, claimed by either warpgroup
+};
+template <int C>
+constexpr int kFwdSmemBytes = sizeof(FwdSmem<C>) + 1024;  // + the 1,024-byte alignment
+
+// Whether the barrier's phase with this parity has completed (no wait).
+__device__ __forceinline__ bool bar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(sfc::smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// o (m64n(64 C), fp32; o[c] the columns 64 c ..) += A . X: A's k16 step
+// from registers, X MN-major (the transpose bit) at the descriptor dx +
+// OB, its C 64-column swizzle atoms the descriptor's leading byte offset
+// apart.
+template <int OB>
+__device__ __forceinline__ void pv_n128_at(float (&o)[2][32], const uint32_t (&a)[4], uint64_t dx) {
+  asm volatile(
+      "{\n .reg .b64 b;\n .reg .pred p;\n setp.ne.b32 p, %70, 0;\n"
+      " add.s64 b, %68, %69;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, b, p, 1, 1, 1;\n}\n"
+      : "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]), "+f"(o[0][4]),
+        "+f"(o[0][5]), "+f"(o[0][6]), "+f"(o[0][7]), "+f"(o[0][8]), "+f"(o[0][9]),
+        "+f"(o[0][10]), "+f"(o[0][11]), "+f"(o[0][12]), "+f"(o[0][13]), "+f"(o[0][14]),
+        "+f"(o[0][15]), "+f"(o[0][16]), "+f"(o[0][17]), "+f"(o[0][18]), "+f"(o[0][19]),
+        "+f"(o[0][20]), "+f"(o[0][21]), "+f"(o[0][22]), "+f"(o[0][23]), "+f"(o[0][24]),
+        "+f"(o[0][25]), "+f"(o[0][26]), "+f"(o[0][27]), "+f"(o[0][28]), "+f"(o[0][29]),
+        "+f"(o[0][30]), "+f"(o[0][31]), "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]),
+        "+f"(o[1][3]), "+f"(o[1][4]), "+f"(o[1][5]), "+f"(o[1][6]), "+f"(o[1][7]),
+        "+f"(o[1][8]), "+f"(o[1][9]), "+f"(o[1][10]), "+f"(o[1][11]), "+f"(o[1][12]),
+        "+f"(o[1][13]), "+f"(o[1][14]), "+f"(o[1][15]), "+f"(o[1][16]), "+f"(o[1][17]),
+        "+f"(o[1][18]), "+f"(o[1][19]), "+f"(o[1][20]), "+f"(o[1][21]), "+f"(o[1][22]),
+        "+f"(o[1][23]), "+f"(o[1][24]), "+f"(o[1][25]), "+f"(o[1][26]), "+f"(o[1][27]),
+        "+f"(o[1][28]), "+f"(o[1][29]), "+f"(o[1][30]), "+f"(o[1][31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(dx), "n"(OB), "r"(1));
+}
+
+template <int OB>
+__device__ __forceinline__ void pv_n256_at(float (&o)[4][32], const uint32_t (&a)[4], uint64_t dx) {
+  asm volatile(
+      "{\n .reg .b64 b;\n .reg .pred p;\n setp.ne.b32 p, %134, 0;\n"
+      " add.s64 b, %132, %133;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, b, p, 1, 1, 1;\n}\n"
+      : "+f"(o[0][0]), "+f"(o[0][1]), "+f"(o[0][2]), "+f"(o[0][3]), "+f"(o[0][4]),
+        "+f"(o[0][5]), "+f"(o[0][6]), "+f"(o[0][7]), "+f"(o[0][8]), "+f"(o[0][9]),
+        "+f"(o[0][10]), "+f"(o[0][11]), "+f"(o[0][12]), "+f"(o[0][13]), "+f"(o[0][14]),
+        "+f"(o[0][15]), "+f"(o[0][16]), "+f"(o[0][17]), "+f"(o[0][18]), "+f"(o[0][19]),
+        "+f"(o[0][20]), "+f"(o[0][21]), "+f"(o[0][22]), "+f"(o[0][23]), "+f"(o[0][24]),
+        "+f"(o[0][25]), "+f"(o[0][26]), "+f"(o[0][27]), "+f"(o[0][28]), "+f"(o[0][29]),
+        "+f"(o[0][30]), "+f"(o[0][31]), "+f"(o[1][0]), "+f"(o[1][1]), "+f"(o[1][2]),
+        "+f"(o[1][3]), "+f"(o[1][4]), "+f"(o[1][5]), "+f"(o[1][6]), "+f"(o[1][7]),
+        "+f"(o[1][8]), "+f"(o[1][9]), "+f"(o[1][10]), "+f"(o[1][11]), "+f"(o[1][12]),
+        "+f"(o[1][13]), "+f"(o[1][14]), "+f"(o[1][15]), "+f"(o[1][16]), "+f"(o[1][17]),
+        "+f"(o[1][18]), "+f"(o[1][19]), "+f"(o[1][20]), "+f"(o[1][21]), "+f"(o[1][22]),
+        "+f"(o[1][23]), "+f"(o[1][24]), "+f"(o[1][25]), "+f"(o[1][26]), "+f"(o[1][27]),
+        "+f"(o[1][28]), "+f"(o[1][29]), "+f"(o[1][30]), "+f"(o[1][31]), "+f"(o[2][0]),
+        "+f"(o[2][1]), "+f"(o[2][2]), "+f"(o[2][3]), "+f"(o[2][4]), "+f"(o[2][5]),
+        "+f"(o[2][6]), "+f"(o[2][7]), "+f"(o[2][8]), "+f"(o[2][9]), "+f"(o[2][10]),
+        "+f"(o[2][11]), "+f"(o[2][12]), "+f"(o[2][13]), "+f"(o[2][14]), "+f"(o[2][15]),
+        "+f"(o[2][16]), "+f"(o[2][17]), "+f"(o[2][18]), "+f"(o[2][19]), "+f"(o[2][20]),
+        "+f"(o[2][21]), "+f"(o[2][22]), "+f"(o[2][23]), "+f"(o[2][24]), "+f"(o[2][25]),
+        "+f"(o[2][26]), "+f"(o[2][27]), "+f"(o[2][28]), "+f"(o[2][29]), "+f"(o[2][30]),
+        "+f"(o[2][31]), "+f"(o[3][0]), "+f"(o[3][1]), "+f"(o[3][2]), "+f"(o[3][3]),
+        "+f"(o[3][4]), "+f"(o[3][5]), "+f"(o[3][6]), "+f"(o[3][7]), "+f"(o[3][8]),
+        "+f"(o[3][9]), "+f"(o[3][10]), "+f"(o[3][11]), "+f"(o[3][12]), "+f"(o[3][13]),
+        "+f"(o[3][14]), "+f"(o[3][15]), "+f"(o[3][16]), "+f"(o[3][17]), "+f"(o[3][18]),
+        "+f"(o[3][19]), "+f"(o[3][20]), "+f"(o[3][21]), "+f"(o[3][22]), "+f"(o[3][23]),
+        "+f"(o[3][24]), "+f"(o[3][25]), "+f"(o[3][26]), "+f"(o[3][27]), "+f"(o[3][28]),
+        "+f"(o[3][29]), "+f"(o[3][30]), "+f"(o[3][31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(dx), "n"(OB), "r"(1));
+}
+
+// acc (m64nKT) = A B^T summed over sub-heads c < C: A K-major sub-blocks
+// at descriptor da (a warpgroup's Q, 8 KB apart), B a ring entry of K (KT
+// keys a sub-head, KT x 128 bytes apart) at descriptor db.  Not committed.
+// (A's sub-heads from registers instead, 16 registers each, was no faster
+// once the ring fed both warpgroups, and in a walk that issued the logits
+// alone gave wrong results: the registers an asynchronous product reads
+// are not held for it.)
+template <int C, int KT>
+__device__ __forceinline__ void logits_tile(float (&acc)[KT / 2], uint64_t da, uint64_t db) {
+  sfc::static_for<C>([&](auto Cc) SFC_INLINE_LAMBDA {
+    constexpr int c = decltype(Cc)::value;
+    sfc::static_for<4>([&](auto K) SFC_INLINE_LAMBDA {
+      constexpr int kk = decltype(K)::value, oa = c * (kSub >> 4) + 2 * kk,
+                    ob = c * (KT * 128 >> 4) + 2 * kk;
+      if constexpr (KT == 64)
+        hw::wgmma_ss_at<0, 0, oa, ob>(acc, da, db, c > 0 || kk > 0);
+      else
+        hw::wgmma_ss_n128_at<oa, ob>(acc, da, db, c > 0 || kk > 0);
+    });
+  });
+}
+
+// o (m64n(64 C), o[c] the columns 64 c ..) += A X over a ring entry of V
+// (dv its desc_sw128 descriptor): one product over all C sub-heads a k16
+// step, A the bf16 fragments of the KT / 16 k16 steps in registers (P of
+// the entry's keys), X MN-major through the transpose bit, its C 64-column
+// swizzle atoms KT x 128 bytes apart.  Not committed.
+template <int C, int KT>
+__device__ __forceinline__ void pv_tile(float (&o)[C][32], const uint32_t (&a)[KT / 16][4],
+                                        uint64_t dv) {
+  // The leading byte offset (bits 16-29): the distance between the atoms.
+  const uint64_t dx = (dv & ~(uint64_t(0x3FFF) << 16)) | (uint64_t(KT * 128 >> 4) << 16);
+  sfc::static_for<KT / 16>([&](auto K) SFC_INLINE_LAMBDA {
+    constexpr int kk = decltype(K)::value, off = kk * (kStepBytes >> 4);
+    if constexpr (C == 2)
+      pv_n128_at<off>(o, a[kk], dx);
+    else
+      pv_n256_at<off>(o, a[kk], dx);
   });
 }
 

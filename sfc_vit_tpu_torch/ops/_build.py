@@ -1328,9 +1328,11 @@ def local_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     kernel: in bf16 at Dh 64 (``csrc/flash_fwd_sm90.cu``) a block of 128
     queries walks the 128-key tiles :func:`local_fwd_tiles`, each
     warpgroup masking the keys outside its :func:`local_fwd_key_range`; in
-    bf16 at Dh 128 and 256 (its wide instance) and in fp32
-    (``csrc/flash_fwd_f32.cu``) a block of 64 queries walks the 64-key
-    tiles of its window, :func:`local_tile_window`."""
+    bf16 at Dh 128 and 256 (its wide instance) a block of 128 queries walks
+    the 64-key tiles of its two warpgroups' windows,
+    :func:`local_tile_window` over 128 rows, each warpgroup masking by
+    :func:`local_fwd_key_range`; in fp32 (``csrc/flash_fwd_f32.cu``) a
+    block of 64 queries walks the 64-key tiles of its window."""
     b, n, h, dh = _check_local(q, k, v, block, halo)
     out = torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -1352,7 +1354,8 @@ def local_tile_window(tile0: int, rows: int, n: int, block: int, halo: int) -> t
     arithmetic as ``csrc/sm90.cuh::local_tile_window``, by which #13's
     windowed dq kernel walks the key tiles of a 128-query block (two
     warpgroups of 64: ``rows`` 128 gives the union their ring loads, 64 each
-    one's own) and its dk/dv kernel the query tiles of a 128-key block."""
+    one's own) and its dk/dv kernel the query tiles of a 128-key block, and
+    #12's wide instance the key tiles of its 128-query block."""
     bt, tiles = block // 64, -(-n // 64)
     end = min(n, 64 * tile0 + rows)
     first, last = tile0 // bt, (end - 1) // block

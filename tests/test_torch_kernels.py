@@ -2567,12 +2567,16 @@ def test_local_attention_refuses_what_the_kernels_do_not_take(cuda):
 # packed projection with several (b, h), and nq != nk both ways; then the
 # backward's edges: one 64-row tile on each side (50 x 50) and a single
 # (b, h), nk and nq not multiples of 64 with one (b, h) (4,500 x 777, 777
-# x 4,500), and one whole 64-key tile under several images.
+# x 4,500), and one whole 64-key tile under several images; then the
+# forward's 128-query blocks: a last key tile holding one key (nk 4,097),
+# and a last block whose second warpgroup lies wholly past nq (nq 4,160)
+# over a ragged streaming length.
 _FLASH_WIDE_SHAPES = [(1, 4096, 4096, 2, False), (1, 1000, 4500, 2, False),
                       (2, 1089, 1089, 3, True), (2, 333, 520, 3, False),
                       (1, 1000, 777, 2, False), (1, 50, 50, 1, False),
                       (1, 4500, 777, 1, False), (1, 777, 4500, 1, False),
-                      (3, 200, 64, 1, False)]
+                      (3, 200, 64, 1, False), (1, 700, 4097, 2, False),
+                      (1, 4160, 9000, 1, False)]
 
 
 def _wide(rng, b, nq, nk, heads, dh, device, dtype=torch.bfloat16, packed=False):

@@ -72,3 +72,37 @@ def test_local_fwd_plan_keeps_exactly_the_pairs_jax_keeps(block, halo, n):
             kept = walked[(walked >= klo) & (walked < khi)]
             jax_keeps = j[np.abs(j // block - row0 // block) <= halo]
             assert np.array_equal(kept, jax_keeps), (q0, row0)
+
+
+@pytest.mark.parametrize("n", [300, 1100, 5000, 16384])
+@pytest.mark.parametrize("halo", [1, 2])
+@pytest.mark.parametrize("block", [64, 128, 192, 256])
+def test_local_fwd_wide_walk_keeps_exactly_the_pairs_jax_keeps(block, halo, n):
+    """#12's walk at Dh 128 and 256 (``csrc/flash_fwd_sm90.cu``'s wide
+    windowed instance): a block of 128 queries walks the 64-key tiles
+    ``_build.local_tile_window(q0 // 64, 128, ...)``, the union of its two
+    warpgroups' windows, and each warpgroup (64 queries, one curve block)
+    keeps the keys of those tiles inside ``_build.local_fwd_key_range``.
+    For every query below n the keys kept are exactly JAX's ``|i // block -
+    j // block| <= halo, j < n``; every tile wholly outside a warpgroup's
+    range (kept out of its max and sum) holds no key JAX keeps for it; and
+    a warpgroup whose 64 queries all lie past n leaves the walk."""
+    j = np.arange(n)
+    for q0 in range(0, n, 128):
+        lo, hi = _build.local_tile_window(q0 // 64, 128, n, block, halo)
+        assert 0 <= lo < hi <= -(-n // 64)
+        walked = np.arange(64 * lo, min(n, 64 * hi))
+        for row0 in (q0, q0 + 64):
+            if row0 >= n:
+                assert row0 == q0 + 64  # the second warpgroup leaves
+                continue
+            rows = np.arange(row0, min(n, row0 + 64))
+            assert np.unique(rows // block).size == 1  # one curve block a warpgroup
+            klo, khi = _build.local_fwd_key_range(row0, n, block, halo)
+            kept = walked[(walked >= klo) & (walked < khi)]
+            jax_keeps = j[np.abs(j // block - row0 // block) <= halo]
+            assert np.array_equal(kept, jax_keeps), (q0, row0)
+            for t in range(lo, hi):
+                if 64 * t + 64 <= klo or 64 * t >= khi:
+                    keys = np.arange(64 * t, min(n, 64 * t + 64))
+                    assert not np.isin(keys, jax_keeps).any(), (q0, row0, t)
