@@ -4543,7 +4543,10 @@ def phase_flash_f32_models(card: str) -> dict:
     at 3 heads of ``dim_head`` 128 and CurveViT-S/12 at ``dim_head`` 256
     (depth 2, 2 steps, batch 8 and 2), and the 1-D tokenizer over 33 x 33
     pixels at patch 1 (1,089 tokens; family A's eval and serving through
-    #8 on the projection's views).  Returns the summed launch counts."""
+    #8 on the projection's views).  longctx-16k at 3 heads of 128 is also
+    timed and profiled (one step: busy ms, idle share, top kernels; its
+    busy time beside BUSY_BEFORE's, ``scripts/profile_longctx_f32_step.py``
+    on the parent tree).  Returns the summed launch counts."""
     vs = dict(img_size=256, patch_size=4, num_classes=1000)
     fused, pair = "fused_bwd", "dq"
     runs = [("CurveViT-S/12 at 4,096 tokens, fp32", preset_config("vit-s-16", **vs), VS_B,
@@ -4555,7 +4558,7 @@ def phase_flash_f32_models(card: str) -> dict:
              LC_F32_STEPS_WIDE, fused, {}),
             ("longctx-16k, 3 heads of 128, fp32",
              preset_config("longctx-16k", dtype=None, n_heads=3, dim_head=128, depth=2), LC_B,
-             LC_F32_STEPS_WIDE, pair, {}),
+             LC_F32_STEPS_WIDE, pair, dict(timed=True)),
             ("CurveViT-S/12, 6 heads of 256, fp32",
              preset_config("vit-s-16", dim_head=256, depth=2, **vs), 8, LC_F32_STEPS_WIDE,
              fused, {}),
@@ -4601,7 +4604,10 @@ WIDE_STEPS = 2
 #: The device-busy ms of a timed phase-19 train step in an earlier tree's
 #: run on an H100 80GB HBM3 at 700 W, printed beside this run's.
 BUSY_BEFORE = {"longctx-16k, 3 heads of 128, bf16":
-               (48.94, "the tree before the wide forward's redesign")}
+               (48.94, "the tree before the wide forward's redesign"),
+               "longctx-16k, 3 heads of 128, fp32":
+               (276.59, "the tree before the fp32 backward's redesign at Dh 128 and 256, "
+                        "scripts/profile_longctx_f32_step.py")}
 def _local_lse64(q, k, block: int, halo: int, scale: float) -> torch.Tensor:
     """The fp64 log-sum-exp of each query's scaled logits over its
     curve-local window, [B, H, N]."""

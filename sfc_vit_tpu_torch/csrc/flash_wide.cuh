@@ -131,18 +131,7 @@ struct FwdSmem {
 template <int C>
 constexpr int kFwdSmemBytes = sizeof(FwdSmem<C>) + 1024;  // + the 1,024-byte alignment
 
-// Whether the barrier's phase with this parity has completed (no wait).
-__device__ __forceinline__ bool bar_test(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(sfc::smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
+using hw::bar_test;
 
 // o (m64n(64 C), fp32; o[c] the columns 64 c ..) += A . X: A's k16 step
 // from registers, X MN-major (the transpose bit) at the descriptor dx +

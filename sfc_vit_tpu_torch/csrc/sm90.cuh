@@ -424,6 +424,19 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// Whether the barrier's phase with this parity has completed (no wait).
+__device__ __forceinline__ bool bar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // TMA: the box at (c0, c1, c2, c3) of a 4-d map into shared memory,
 // completing `bar`'s transaction bytes.
 __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uint64_t* bar,

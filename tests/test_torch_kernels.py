@@ -2288,10 +2288,15 @@ FLASH_F32_FRAC = 1e-4
 # (b, nq, nk, heads, packed): the 1-D tokenizer's 1,089 tokens as views of
 # a packed projection (odd rows with several (b, h)), CurveViT-S/12's
 # 4,096 (#8's single step, #9), a streaming length past 8,192 that is not
-# a multiple of 64 (#8 streaming, #10 / #11), and nq != nk both ways.
+# a multiple of 64 (#8 streaming, #10 / #11), nq != nk both ways, 4,160
+# queries (an odd count of 64-query blocks), a last key tile of one key,
+# one partial tile on both sides, and three images of 200 queries over
+# one key tile.
 _FLASH_F32_SHAPES = [(2, 1089, 1089, 3, True), (1, 4096, 4096, 2, False),
                      (1, 8300, 8300, 1, False), (2, 333, 520, 3, False),
-                     (1, 1000, 777, 2, False)]
+                     (1, 1000, 777, 2, False), (1, 4160, 2000, 2, False),
+                     (1, 600, 4097, 2, False), (1, 50, 50, 1, False),
+                     (3, 200, 64, 1, False)]
 
 
 def _flash_f32(rng, b, nq, nk, heads, dh, device, packed=False):
@@ -2740,24 +2745,24 @@ def test_local_block_attention_counts_each_dtype_apart(cuda, dtype, dh):
 @pytest.mark.gpu
 def test_wide_and_windowed_f32_instances_have_no_spills_and_no_ptxas_notes(cuda):
     """Every new instance (the bf16 flash and local kernels at Dh 128 and
-    256, ``_build.FLASH_WIDE_FORMS``; #12/#13's fp32 windowed instances)
-    is listed by ``flash_kernel_attrs`` with no local memory, and ptxas
-    left no C75xx note (a serialized or re-fenced ``wgmma``) on any of
-    them in the build log."""
+    256, ``_build.FLASH_WIDE_FORMS``; #12/#13's fp32 windowed instances;
+    the fp32 backward #9-#11 at Dh 128 and 256, ``flash_bwd_f32_wide``)
+    is listed by ``flash_kernel_attrs`` with no local memory and at most
+    255 registers, and ptxas left no C75xx note (a serialized or re-fenced
+    ``wgmma``) on any of them in the build log."""
     attrs = _build.flash_kernel_attrs()
     new = [*_build.FLASH_WIDE_FORMS,
            *(n for n in _build.F32_KERNEL_FORMS
-             if n.startswith(("local_fwd_f32", "local_bwd_f32")))]
-    assert len(new) == 14 + 9
+             if n.startswith(("local_fwd_f32", "local_bwd_f32"))),
+           *(f"flash_bwd_f32 {part} dh{dh}" for dh in (128, 256) for part in ("dq", "dkv"))]
+    assert len(new) == 14 + 9 + 4
     for name in new:
         assert attrs[name]["local_bytes"] == 0, name
         assert 0 < attrs[name]["registers"] <= 255, name
     kernels = ("flash_fwd_wide_sm90", "flash_bwd_dq_wide_sm90", "flash_bwd_dkv_wide_sm90",
                "flash_fwd_f32_sm90ILi1ELb1ELb1E", "flash_fwd_f32_sm90ILi2ELb1ELb1E",
-               "flash_fwd_f32_sm90ILi4ELb1ELb1E", "flash_dq_f32_sm90ILi1ELb1E",
-               "flash_dq_f32_sm90ILi2ELb1E", "flash_dq_f32_sm90ILi4ELb1E",
-               "flash_dkv_f32_sm90ILi1ELb1E", "flash_dkv_f32_sm90ILi2ELb1E",
-               "flash_dkv_f32_sm90ILi4ELb1E")
+               "flash_fwd_f32_sm90ILi4ELb1ELb1E", "flash_dq_f32_sm90ILb1E",
+               "flash_dkv_f32_sm90ILb1E", "flash_bwd_f32_wide")
     notes = [line for line in _build.build()["log"].splitlines()
              if "(C75" in line and any(k in line for k in kernels)]
     assert not notes, notes[:3]
