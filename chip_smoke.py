@@ -4274,6 +4274,21 @@ def _flash_case(card: str, gen, label, b, nq, nk, h, dh, packed,
         print(f"  lse: max abs err {lse_err:.4g} against fp64")
         _check(lse_ok, f"{label}: #8's lse disagrees with the fp64 log-sum-exp")
         _check(torch.equal(flash.flash_fwd(q, k, v, s), out), f"{label}: #8 not bit for bit")
+        if f32:
+            # The fp32 forward's workspace (K's and V's split parts, the
+            # pre-pass's output): the call's peak beyond what it returns.
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            again = flash.flash_fwd(q, k, v, s)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - before - again.numel() * es
+            ws = (es * _build.flash_f32_workspace(b, nk, h, dh)
+                  if _build.flash_f32_prepass(dh, False) else 0)
+            del again
+            print(f"  #8's workspace: {ws / 2**20:.1f} MiB of K's and V's split parts; the "
+                  f"call's peak beyond its output {extra / 2**20:.1f} MiB, {card}")
+            _check(extra <= ws + 2**21, f"{label}: #8's peak memory past its workspace")
         io = es * b * h * dh * (nq + nk)
         rows["flash_attention" + sfx] = dict(
             errs=[err], shape=shape, form="single step" if single else "streaming",
@@ -4606,8 +4621,8 @@ WIDE_STEPS = 2
 BUSY_BEFORE = {"longctx-16k, 3 heads of 128, bf16":
                (48.94, "the tree before the wide forward's redesign"),
                "longctx-16k, 3 heads of 128, fp32":
-               (276.59, "the tree before the fp32 backward's redesign at Dh 128 and 256, "
-                        "scripts/profile_longctx_f32_step.py")}
+               (152.66, "the tree before the fp32 forward's redesign at every head dim, "
+                        "this phase's profile")}
 def _local_lse64(q, k, block: int, halo: int, scale: float) -> torch.Tensor:
     """The fp64 log-sum-exp of each query's scaled logits over its
     curve-local window, [B, H, N]."""

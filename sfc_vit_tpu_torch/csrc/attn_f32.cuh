@@ -1,6 +1,8 @@
 // Building blocks of the fp32 attention kernels for Hopper
 // (csrc/packed_attn_f32.cu: the forward of #1, #5 and #7;
-// csrc/attention_bwd_f32.cu: the backward of #4 and #6) and of the probe's
+// csrc/attention_bwd_f32.cu: the backward of #4 and #6;
+// csrc/flash_fwd_f32.cu and flash_bwd_f32.cu: #8-#13, whose two-warpgroup
+// blocks read A fragments by a_frag_wg) and of the probe's
 // permuted form (csrc/wgmma_probe.cu): every fp32 product as three TF32
 // products on wgmma (3xTF32, csrc/gemm_f32.cu's split: a_big b_small +
 // a_small b_big + a_big b_big, in that order in every k8 step), from 64 x
@@ -100,6 +102,16 @@ __device__ __forceinline__ void load_sub(Smem<NS>& sm, int slot, const CUtensorM
 // (r0 + 8, ...) with r0 = 16 (t / 32) + (t % 32) / 4 and tq = t % 4.
 __device__ __forceinline__ void a_frag(const unsigned char* sb, int kk, float (&v)[4]) {
   const int t = fresh_tid(), r0 = 16 * (t >> 5) + ((t >> 2) & 7), tq = t & 3;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    v[e] = *reinterpret_cast<const float*>(
+        sb + sub_at(r0 + 8 * (e & 1), 8 * kk + tq + 4 * (e >> 1)));
+}
+
+// a_frag for thread t % 128 of a block of warpgroups, each over its own
+// 64-row sub-block.
+__device__ __forceinline__ void a_frag_wg(const unsigned char* sb, int kk, float (&v)[4]) {
+  const int t = fresh_tid() & 127, r0 = 16 * (t >> 5) + ((t >> 2) & 7), tq = t & 3;
 #pragma unroll
   for (int e = 0; e < 4; ++e)
     v[e] = *reinterpret_cast<const float*>(

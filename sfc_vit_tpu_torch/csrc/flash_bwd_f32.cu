@@ -444,16 +444,6 @@ constexpr int kSmemBytes = sizeof(Smem<C>) + 1024;  // + the 1,024-byte alignmen
 // The thread's index in its warpgroup, read afresh.
 __device__ __forceinline__ int wg_tid() { return hw::fresh_tid() & 127; }
 
-// af::a_frag for a warpgroup's thread: its A values of k8 step kk from a
-// 64 x 64 sub-block in shared memory.
-__device__ __forceinline__ void a_frag(const unsigned char* sb, int kk, float (&v)[4]) {
-  const int t = wg_tid(), r0 = 16 * (t >> 5) + ((t >> 2) & 7), tq = t & 3;
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    v[e] = *reinterpret_cast<const float*>(
-        sb + af::sub_at(r0 + 8 * (e & 1), 8 * kk + tq + 4 * (e >> 1)));
-}
-
 // Rows 32 w .. 32 w + 31 of the sub-block `raw` split into the compact
 // big and small pair [2 halves][32 rows][32 columns] (K-major, the
 // contraction along the rows' 64 columns), the warpgroup's 128 threads a
@@ -701,7 +691,7 @@ __global__ void __launch_bounds__(wide::kThreads, 1)
     sfc::static_for<kSteps>([&](auto K) SFC_INLINE_LAMBDA {
       constexpr int kk = decltype(K)::value;
       float v[4];
-      wd::a_frag(a, decltype(K0)::value + kk, v);
+      af::a_frag_wg(a, decltype(K0)::value + kk, v);
 #pragma unroll
       for (int e = 0; e < 4; ++e) hw::tf32_split(v[e], fb[kk][e], fs[kk][e]);
     });

@@ -1075,6 +1075,20 @@ __device__ __forceinline__ float rcp_approx(float x) {
   return y;
 }
 
+// RN(1 / x) for a normal x with a normal reciprocal (a softmax's row sum,
+// l >= 1): rcp.approx in fp64 refined by three Newton steps (fma), rounded
+// to fp32 once (1 / x is never nearer than 2^-47 of itself to a rounding
+// midpoint of fp32).  No call: `__frcp_rn`'s slow path is a subroutine,
+// and registers live across it spill.
+__device__ __forceinline__ float rcp_rn(float x) {
+  const double d = x;
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;\n" : "=d"(r) : "d"(d));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) r = fma(r, fma(-d, r, 1.0), r);
+  return __double2float_rn(r);
+}
+
 // log2(x) (lg2.approx: one instruction).
 __device__ __forceinline__ float log2_approx(float x) {
   float y;

@@ -76,7 +76,9 @@ __all__ = ["CSRC", "build", "library", "ln_rows", "ln_rows_bwd", "gemm",
            "ln_rows_bwd_plan", "LN_BWD_ROWS", "LN_BWD_MAX_D", "LN_ROWS_BWD_FORMS", "flash_fwd",
            "flash_fused_bwd", "flash_dq", "flash_dkv", "FLASH_HEAD_DIMS", "FLASH_WIDE_FORMS",
            "FLASH_F32_HEAD_DIMS", "flash_head_dims",
-           "FLASH_STREAM_BLOCK_K", "local_fwd", "local_bwd", "local_tile_window",
+           "FLASH_STREAM_BLOCK_K", "flash_f32_prepass", "flash_f32_workspace", "flash_f32_key_pad",
+           "split_kv_f32",
+           "local_fwd", "local_bwd", "local_tile_window",
            "local_fwd_tiles", "local_fwd_key_range",
            "gather_project",
            "wgmma_probe", "WGMMA_FORMS", "wgmma_probe_tf32", "WGMMA_TF32_FORMS",
@@ -147,14 +149,18 @@ _SIGNATURES = {
     "sfc_flash_dkv_bf16": (_P,) * 8 + (_I,) * 5 + (_L,) * 12 + (_F, _I, _I, _P),
     "sfc_flash_fused_bwd_bf16": (_P,) * 9 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
     # #8-#11 in fp32: the bf16 forms' arguments (#9 is the dq and dk/dv
-    # kernels, no window)
-    "sfc_flash_fwd_f32": (_P,) * 5 + (_I,) * 5 + (_L,) * 9 + (_F, _I, _P),
+    # kernels, no window); #8's after lse the workspace of K's and V's
+    # split parts (flash_f32_workspace)
+    "sfc_flash_fwd_f32": (_P,) * 6 + (_I,) * 5 + (_L,) * 9 + (_F, _I, _P),
     "sfc_flash_dq_f32": (_P,) * 7 + (_I,) * 5 + (_L,) * 12 + (_F, _I, _I, _P),
     "sfc_flash_dkv_f32": (_P,) * 8 + (_I,) * 5 + (_L,) * 12 + (_F, _I, _I, _P),
     # q, k, v, out, lse; batch, heads, n, dh, block, halo; q, k, v strides
     # (batch, row, head); scale, stream
     "sfc_local_fwd_bf16": (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_F, _P),
-    "sfc_local_fwd_f32": (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_F, _P),
+    "sfc_local_fwd_f32": (_P,) * 6 + (_I,) * 6 + (_L,) * 9 + (_F, _P),
+    # the fp32 forward's pre-pass alone: k, v, workspace; batch, heads, nk,
+    # dh; k, v strides; stream
+    "sfc_split_kv_f32": (_P,) * 3 + (_I,) * 4 + (_L,) * 6 + (_P,),
     # x, lut, w, bias, out; batch, n, k, m, group, d; stream
     "sfc_gather_project_bf16": (_P,) * 5 + (_I,) * 6 + (_P,),
     # a, b, d; form; stream
@@ -1179,25 +1185,87 @@ def _strides(*ts):
     return [st for t in ts for st in t.stride()[:3]]
 
 
+def flash_f32_key_pad(nk: int) -> int:
+    """The keys of a row of V's transposed parts in the fp32 forward's
+    workspace: ``nk`` rounded up to whole groups of 8 (the key permutation's
+    groups, ``csrc/attn_f32.cuh``), zeros past ``nk``."""
+    return -(-nk // 8) * 8
+
+
+def flash_f32_prepass(dh: int, window: bool) -> bool:
+    """Whether #8 (``window`` False) or #12 in fp32 at head dim ``dh`` split
+    K and V once by a pre-pass for ``csrc/flash_fwd_f32.cu``'s
+    two-warpgroup kernel: at Dh 128 and 256, #12 at Dh 256 only (the same
+    rule as the source's ``wide_serves``).  Elsewhere one warpgroup over 64
+    queries reads k and v as they are, which measured faster there
+    (``scripts/time_flash_f32_fwd.py``)."""
+    return dh == 256 or (dh == 128 and not window)
+
+
+def flash_f32_workspace(b: int, nk: int, h: int, dh: int) -> int:
+    """The fp32 floats of the fp32 forward's workspace where it splits K
+    and V (:func:`flash_f32_prepass`), in this order: K's big and small
+    TF32 parts [B, Nk, H, Dh], then V's, transposed, [B, H, Dh,
+    flash_f32_key_pad(Nk)] (:func:`split_kv_f32`)."""
+    return 2 * b * nk * h * dh + 2 * b * h * dh * flash_f32_key_pad(nk)
+
+
+def _f32_workspace(q: torch.Tensor, b: int, nk: int, h: int, dh: int, window: bool):
+    """The workspace a call of the fp32 forward needs, or None."""
+    if not flash_f32_prepass(dh, window):
+        return None
+    return torch.empty(flash_f32_workspace(b, nk, h, dh), dtype=torch.float32, device=q.device)
+
+
+def _f32_parts(ws: torch.Tensor, b: int, nk: int, h: int, dh: int):
+    """(kb, ks, vb, vs): views of :func:`flash_f32_workspace`'s parts."""
+    nkv, npad = b * nk * h * dh, flash_f32_key_pad(nk)
+    kb, ks, vb, vs = ws.split((nkv, nkv, b * h * dh * npad, b * h * dh * npad))
+    return (kb.view(b, nk, h, dh), ks.view(b, nk, h, dh), vb.view(b, h, dh, npad),
+            vs.view(b, h, dh, npad))
+
+
+def split_kv_f32(k: torch.Tensor, v: torch.Tensor):
+    """The fp32 forward's pre-pass alone, over k, v fp32 [B, Nk, H, Dh]
+    (Dh 64, 128 or 256, any 16-byte-aligned row strides): ``(kb, ks, vb,
+    vs)``, K's big and small parts (``kernel_utils.tf32_split``'s, bit for
+    bit) [B, Nk, H, Dh] and V's [B, H, Dh, flash_f32_key_pad(Nk)],
+    transposed, each group of 8 keys in the key permutation (key 8 g + x
+    at 8 g + 4 (x % 2) + x // 2), zeros past Nk."""
+    b, nk, h, dh = k.shape
+    _require_bnhd(k, "k", (b, nk, h, dh), torch.float32)
+    _require_bnhd(v, "v", (b, nk, h, dh), torch.float32)
+    ws = torch.empty(flash_f32_workspace(b, nk, h, dh), dtype=torch.float32, device=k.device)
+    _check(library().sfc_split_kv_f32(k.data_ptr(), v.data_ptr(), ws.data_ptr(), b, h, nk, dh,
+                                      *_strides(k, v), _stream()), "split_kv_f32")
+    return _f32_parts(ws, b, nk, h, dh)
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
               streaming: bool, with_lse: bool = False):
     """#8: softmax(q k^T * scale) v over q [B, Nq, H, Dh] and k, v
     [B, Nk, H, Dh] (any 16-byte-aligned row strides) -> out [B, Nq, H, Dh]
     in the input dtype, contiguous.  bf16 runs ``csrc/flash_fwd_sm90.cu``
-    (its wide instances at Dh 128 and 256), fp32 ``csrc/flash_fwd_f32.cu``,
-    both at Dh 64, 128 and 256.  ``streaming`` picks the one-pass form (p
-    against the running max, the division by l at the end) over the
-    two-pass single-K-step form (P normalised before P V).  ``with_lse``
-    also returns the fp32 log-sum-exp [B, H, Nq]."""
+    (its wide instances at Dh 128 and 256), fp32 ``csrc/flash_fwd_f32.cu``
+    (at Dh 128 and 256 its pre-pass into a workspace of
+    :func:`flash_f32_workspace` floats, then the kernel), both at Dh 64,
+    128 and 256.  ``streaming`` picks the
+    one-pass form (p against the running max, the division by l at the
+    end) over the two-pass single-K-step form (P normalised before P V).
+    ``with_lse`` also returns the fp32 log-sum-exp [B, H, Nq]."""
     b, nq, nk, h, dh = _check_flash(q, k, v)
     out = torch.empty((b, nq, h, dh), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    f32 = q.dtype == torch.float32
-    fn = library().sfc_flash_fwd_f32 if f32 else library().sfc_flash_fwd_bf16
-    _check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-              b, h, nq, nk, dh, *_strides(q, k, v), scale, int(streaming), _stream()),
-           "flash_fwd")
+    if q.dtype == torch.float32:
+        ws = _f32_workspace(q, b, nk, h, dh, window=False)
+        _check(library().sfc_flash_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(ws),
+            b, h, nq, nk, dh, *_strides(q, k, v), scale, int(streaming), _stream()), "flash_fwd")
+    else:
+        _check(library().sfc_flash_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), b, h, nq, nk,
+            dh, *_strides(q, k, v), scale, int(streaming), _stream()), "flash_fwd")
     return (out, lse) if with_lse else out
 
 
@@ -1331,17 +1399,22 @@ def local_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     bf16 at Dh 128 and 256 (its wide instance) a block of 128 queries walks
     the 64-key tiles of its two warpgroups' windows,
     :func:`local_tile_window` over 128 rows, each warpgroup masking by
-    :func:`local_fwd_key_range`; in fp32 (``csrc/flash_fwd_f32.cu``) a
-    block of 64 queries walks the 64-key tiles of its window."""
+    :func:`local_fwd_key_range`; in fp32 (``csrc/flash_fwd_f32.cu``) at
+    Dh 256 the same walk and masks after the pre-pass, at Dh 64 and 128 a
+    block of 64 queries walks the 64-key tiles of its window
+    (:func:`flash_f32_prepass`)."""
     b, n, h, dh = _check_local(q, k, v, block, halo)
     out = torch.empty((b, n, h, dh), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    fn = (library().sfc_local_fwd_f32 if q.dtype == torch.float32
-          else library().sfc_local_fwd_bf16)
-    _check(fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-        b, h, n, dh, block, halo, *_strides(q, k, v), scale, _stream()), "local_fwd")
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse)]
+    if q.dtype == torch.float32:
+        ws = _f32_workspace(q, b, n, h, dh, window=True)
+        fn, ptrs = library().sfc_local_fwd_f32, [*ptrs, _ptr(ws)]
+    else:
+        fn = library().sfc_local_fwd_bf16
+    _check(fn(*ptrs, b, h, n, dh, block, halo, *_strides(q, k, v), scale, _stream()),
+           "local_fwd")
     return (out, lse) if with_lse else out
 
 
@@ -1355,7 +1428,7 @@ def local_tile_window(tile0: int, rows: int, n: int, block: int, halo: int) -> t
     windowed dq kernel walks the key tiles of a 128-query block (two
     warpgroups of 64: ``rows`` 128 gives the union their ring loads, 64 each
     one's own) and its dk/dv kernel the query tiles of a 128-key block, and
-    #12's wide instance the key tiles of its 128-query block."""
+    #12's wide and fp32 instances the key tiles of their 128-query block."""
     bt, tiles = block // 64, -(-n // 64)
     end = min(n, 64 * tile0 + rows)
     first, last = tile0 // bt, (end - 1) // block

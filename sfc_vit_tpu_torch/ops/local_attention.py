@@ -43,8 +43,11 @@ In float32 (the JAX CLI's default dtype: the hybrid preset a user
 launches without ``--dtype``) #12 and #13 are the windowed instances of
 the fp32 flash kernels (``csrc/flash_fwd_f32.cu``'s single step and
 ``csrc/flash_bwd_f32.cu``'s dq and dk/dv kernels: every product 3xTF32 on
-``wgmma``, a block one warpgroup over 64 rows walking the 64-row tiles of
-its window), at head dims 64, 128 and 256: nothing is rounded to a
+``wgmma``; the forward at Dh 256 a block of two warpgroups over 128
+queries walking the 64-key tiles of their windows, each warpgroup masking
+the keys outside its own, at Dh 64 and 128 a block over 64 queries; the
+backward a block over 64 rows walking the 64-row tiles of its window), at
+head dims 64, 128 and 256: nothing is rounded to a
 narrower type, so they are the plain versions' formulas with only the
 order of the fp32 sums changed.
 

@@ -2331,6 +2331,70 @@ def test_flash_f32_fwd_matches_plain(cuda, dh, b, nq, nk, heads, packed):
         assert torch.equal(_build.flash_fwd(q, k, v, s, streaming=streaming), out)
 
 
+def _f32_key_order(npad: int) -> torch.Tensor:
+    """For each position of a row of the fp32 forward's transposed V parts,
+    the key it holds: each group of 8 keys in the key permutation
+    (``csrc/attn_f32.cuh``), logical column 4 r + i of a group holding its
+    key 2 i + r."""
+    return torch.tensor([8 * g + 2 * (x % 4) + x // 4 for g in range(npad // 8)
+                         for x in range(8)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("b, nk, heads, packed", [(2, 1089, 3, True), (1, 50, 2, False),
+                                                  (1, 4097, 1, False), (3, 64, 2, True)])
+def test_flash_f32_prepass_splits_bit_for_bit(cuda, dh, b, nk, heads, packed):
+    """The fp32 forward's pre-pass (``_build.split_kv_f32``) against a plain
+    torch split, bit for bit: K's big and small parts are
+    ``kernel_utils.tf32_split(k)``; V's are the same split of V transposed to
+    [B, H, Dh, Nk], each group of 8 keys in the key permutation, zeros past
+    Nk up to ``flash_f32_key_pad(Nk)``."""
+    from sfc_vit_tpu_torch.ops.kernel_utils import tf32_split
+
+    _, k, v, _ = _flash_f32(np.random.default_rng(51), b, nk, nk, heads, dh, cuda, packed)
+    bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+    kb, ks, vb, vs = _build.split_kv_f32(k, v)
+    for got, want in zip((kb, ks), tf32_split(k)):
+        assert torch.equal(bits(got), bits(want))
+    npad = _build.flash_f32_key_pad(nk)
+    vt = torch.zeros(b, heads, dh, npad, device=cuda)
+    vt[..., :nk] = v.permute(0, 2, 3, 1)
+    for got, want in zip((vb, vs), tf32_split(vt[..., _f32_key_order(npad).to(cuda)])):
+        assert got.shape == (b, heads, dh, npad)
+        assert torch.equal(bits(got), bits(want))
+
+
+def test_flash_f32_prepass_serves_the_two_warpgroup_instances():
+    """``_build.flash_f32_prepass``: #8 in fp32 splits K and V first at Dh
+    128 and 256, #12 at Dh 256 only (``csrc/flash_fwd_f32.cu``'s
+    ``wide_serves``); the other instances read k and v as they are."""
+    got = {(dh, w): _build.flash_f32_prepass(dh, w)
+           for dh in _build.FLASH_F32_HEAD_DIMS for w in (False, True)}
+    assert got == {(64, False): False, (64, True): False, (128, False): True,
+                   (128, True): False, (256, False): True, (256, True): True}
+
+
+@pytest.mark.parametrize("b, nk, heads, dh", [(1, 1, 1, 64), (2, 50, 3, 128), (1, 4097, 2, 256),
+                                              (3, 64, 6, 64), (2, 8300, 1, 256)])
+def test_flash_f32_workspace_holds_its_parts(b, nk, heads, dh):
+    """``_build.flash_f32_workspace`` is the sum of its four parts' sizes,
+    and ``_f32_parts`` cuts it into four disjoint
+    views of those shapes that cover it, each on 16 bytes; the key pad is
+    the least multiple of 8 at or past Nk (the key permutation's groups)."""
+    npad = _build.flash_f32_key_pad(nk)
+    assert npad % 8 == 0 and nk <= npad < nk + 8
+    shapes = [(b, nk, heads, dh)] * 2 + [(b, heads, dh, npad)] * 2
+    total = _build.flash_f32_workspace(b, nk, heads, dh)
+    assert total == sum(int(np.prod(sh)) for sh in shapes)
+    ws = torch.arange(total, dtype=torch.float32)
+    parts = _build._f32_parts(ws, b, nk, heads, dh)
+    assert [tuple(t.shape) for t in parts] == shapes
+    seen = torch.cat([t.reshape(-1) for t in parts])
+    assert torch.equal(seen, ws)
+    assert all(t.data_ptr() % 16 == 0 for t in parts)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dh", [64, 128, 256])
 @pytest.mark.parametrize("b, nq, nk, heads, packed", _FLASH_F32_SHAPES)
@@ -2746,23 +2810,26 @@ def test_local_block_attention_counts_each_dtype_apart(cuda, dtype, dh):
 def test_wide_and_windowed_f32_instances_have_no_spills_and_no_ptxas_notes(cuda):
     """Every new instance (the bf16 flash and local kernels at Dh 128 and
     256, ``_build.FLASH_WIDE_FORMS``; #12/#13's fp32 windowed instances;
-    the fp32 backward #9-#11 at Dh 128 and 256, ``flash_bwd_f32_wide``)
-    is listed by ``flash_kernel_attrs`` with no local memory and at most
-    255 registers, and ptxas left no C75xx note (a serialized or re-fenced
+    the fp32 backward #9-#11 at Dh 128 and 256, ``flash_bwd_f32_wide``;
+    #8's fp32 forms at Dh 64, 128 and 256, ``flash_fwd_f32_wide`` and at
+    Dh 64 ``flash_fwd_f32_sm90``) is
+    listed by ``flash_kernel_attrs`` with no local memory and at most 255
+    registers, and ptxas left no C75xx note (a serialized or re-fenced
     ``wgmma``) on any of them in the build log."""
     attrs = _build.flash_kernel_attrs()
     new = [*_build.FLASH_WIDE_FORMS,
            *(n for n in _build.F32_KERNEL_FORMS
              if n.startswith(("local_fwd_f32", "local_bwd_f32"))),
-           *(f"flash_bwd_f32 {part} dh{dh}" for dh in (128, 256) for part in ("dq", "dkv"))]
-    assert len(new) == 14 + 9 + 4
+           *(f"flash_bwd_f32 {part} dh{dh}" for dh in (128, 256) for part in ("dq", "dkv")),
+           *(f"flash_fwd_f32 dh{dh} {form}" for dh in _build.FLASH_F32_HEAD_DIMS
+             for form in ("single step", "streaming"))]
+    assert len(new) == 14 + 9 + 4 + 6
     for name in new:
         assert attrs[name]["local_bytes"] == 0, name
         assert 0 < attrs[name]["registers"] <= 255, name
     kernels = ("flash_fwd_wide_sm90", "flash_bwd_dq_wide_sm90", "flash_bwd_dkv_wide_sm90",
-               "flash_fwd_f32_sm90ILi1ELb1ELb1E", "flash_fwd_f32_sm90ILi2ELb1ELb1E",
-               "flash_fwd_f32_sm90ILi4ELb1ELb1E", "flash_dq_f32_sm90ILb1E",
-               "flash_dkv_f32_sm90ILb1E", "flash_bwd_f32_wide")
+               "flash_fwd_f32_wide", "flash_fwd_f32_sm90ILi1E", "flash_fwd_f32_sm90ILi2ELb1ELb1E",
+               "flash_dq_f32_sm90ILb1E", "flash_dkv_f32_sm90ILb1E", "flash_bwd_f32_wide")
     notes = [line for line in _build.build()["log"].splitlines()
              if "(C75" in line and any(k in line for k in kernels)]
     assert not notes, notes[:3]
